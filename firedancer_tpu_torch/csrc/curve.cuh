@@ -1,0 +1,230 @@
+// Scalars mod L and ed25519 group operations for one lane per thread.
+// Plain PyTorch twins: ops/scalar.py and ops/curve.py (same formulas, same
+// order of operations).
+//
+// Points are extended twisted Edwards (X, Y, Z, T); the addition law is
+// complete, so identity and torsion points need no special cases.  Cached
+// form (Y+X, Y-X, Z, 2dT) is the right operand of repeated additions.
+#pragma once
+
+#include "fe_field.cuh"
+
+// Canonical limbs of d, 2d and sqrt(-1) (checked against ops/limbs.py by
+// tests/test_torch_curve.py).
+#define FE_D {56195235, 13857412, 51736253, 6949390, 114729, 24766616, 60832955, 30306712, 48412415, 21499315}
+#define FE_D2 {45281625, 27714825, 36363642, 13898781, 229458, 15978800, 54557047, 27058993, 29715967, 9444199}
+#define FE_SQRTM1 {34513072, 25610706, 9377949, 3500415, 12389472, 33281959, 41962654, 31548777, 326685, 11406482}
+
+// ---------------------------------------------------------------- scalars
+
+// s < L, on the little-endian 256-bit value in 4 words.
+__device__ __forceinline__ bool sc_validate(const uint64_t s[4]) {
+  const uint64_t L[4] = {0x5812631A5CF5D3EDull, 0x14DEF9DEA2F79CD6ull, 0x0ull,
+                         0x1000000000000000ull};
+#pragma unroll
+  for (int i = 3; i >= 0; i--) {
+    if (s[i] < L[i]) return true;
+    if (s[i] > L[i]) return false;
+  }
+  return false;
+}
+
+__device__ __forceinline__ uint64_t bswap64(uint64_t x) {
+  uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  return ((uint64_t)__byte_perm(lo, 0, 0x0123) << 32) | __byte_perm(hi, 0, 0x0123);
+}
+
+// 2^252 = -C (mod L); -C in signed radix-2^21 limbs.
+#define SC_FOLD(s, k)                                  \
+  do {                                                 \
+    s[(k)-12] += s[k] * 666643;                        \
+    s[(k)-11] += s[k] * 470296;                        \
+    s[(k)-10] += s[k] * 654183;                        \
+    s[(k)-9] -= s[k] * 997805;                         \
+    s[(k)-8] += s[k] * 136657;                         \
+    s[(k)-7] -= s[k] * 683901;                         \
+    s[k] = 0;                                          \
+  } while (0)
+#define SC_CARRY_R(s, i)                               \
+  do {                                                 \
+    int64_t c_ = (s[i] + ((int64_t)1 << 20)) >> 21;    \
+    s[(i) + 1] += c_;                                  \
+    s[i] -= c_ * ((int64_t)1 << 21);                   \
+  } while (0)
+#define SC_CARRY_F(s, i)                               \
+  do {                                                 \
+    int64_t c_ = s[i] >> 21;                           \
+    s[(i) + 1] += c_;                                  \
+    s[i] -= c_ * ((int64_t)1 << 21);                   \
+  } while (0)
+
+// SHA-512 state words (big-endian digest words) -> the digest, read as a
+// little-endian 512-bit integer, mod L; out as 4 little-endian words.
+// ref10's sc_reduce: 24 signed limbs of 21 bits, folds at 2^252.
+__device__ __forceinline__ void sc_reduce512(const uint64_t st[8], uint64_t out[4]) {
+  uint64_t le[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) le[i] = bswap64(st[i]);
+  int64_t s[24];
+#pragma unroll
+  for (int i = 0; i < 24; i++) s[i] = (int64_t)fd_bits(le, 8, 21 * i, i < 23 ? 21 : 29);
+#pragma unroll
+  for (int k = 23; k >= 18; k--) SC_FOLD(s, k);
+#pragma unroll
+  for (int i = 6; i <= 16; i += 2) SC_CARRY_R(s, i);
+#pragma unroll
+  for (int i = 7; i <= 15; i += 2) SC_CARRY_R(s, i);
+#pragma unroll
+  for (int k = 17; k >= 12; k--) SC_FOLD(s, k);
+#pragma unroll
+  for (int i = 0; i <= 10; i += 2) SC_CARRY_R(s, i);
+#pragma unroll
+  for (int i = 1; i <= 11; i += 2) SC_CARRY_R(s, i);
+  SC_FOLD(s, 12);
+#pragma unroll
+  for (int i = 0; i <= 11; i++) SC_CARRY_F(s, i);
+  SC_FOLD(s, 12);
+#pragma unroll
+  for (int i = 0; i <= 10; i++) SC_CARRY_F(s, i);
+#pragma unroll
+  for (int q = 0; q < 4; q++) out[q] = 0;
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    const int lo = 21 * i, q = lo >> 6, sh = lo & 63;
+    const uint64_t v = (uint64_t)s[i];
+    out[q] |= v << sh;
+    if (sh + 22 > 64 && q + 1 < 4) out[q + 1] |= v >> (64 - sh);
+  }
+}
+
+// ------------------------------------------------------------------ points
+
+struct ge {
+  fe X, Y, Z, T;
+};
+
+struct gec {
+  fe ypx, ymx, z, t2d;
+};
+
+__device__ __forceinline__ fe fe_lit(const int32_t (&c)[10]) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = c[i];
+  return r;
+}
+
+__device__ __forceinline__ ge ge_identity() {
+  return ge{fe_zero(), fe_one(), fe_one(), fe_zero()};
+}
+
+__device__ __forceinline__ ge ge_neg(const ge& p) {
+  return ge{fe_neg(p.X), p.Y, p.Z, fe_neg(p.T)};
+}
+
+// dbl-2008-hwcd with a = -1 (ops/curve.py point_dbl).
+__device__ __forceinline__ ge ge_dbl(const ge& p) {
+  fe a = fe_sqr(p.X);
+  fe b = fe_sqr(p.Y);
+  fe zz = fe_sqr(p.Z);
+  fe c = fe_add(zz, zz);
+  fe e = fe_sub(fe_sub(fe_sqr(fe_add(p.X, p.Y)), a), b);
+  fe g = fe_sub(b, a);
+  fe f = fe_sub(g, c);
+  fe h = fe_neg(fe_add(a, b));
+  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
+}
+
+__device__ __forceinline__ gec ge_to_cached(const ge& p) {
+  const int32_t d2[10] = FE_D2;
+  return gec{fe_add(p.Y, p.X), fe_sub(p.Y, p.X), p.Z, fe_mul(p.T, fe_lit(d2))};
+}
+
+// add-2008-hwcd-3 with a = -1: extended + cached -> extended.
+__device__ __forceinline__ ge ge_add_cached(const ge& p, const gec& q) {
+  fe a = fe_mul(fe_sub(p.Y, p.X), q.ymx);
+  fe b = fe_mul(fe_add(p.Y, p.X), q.ypx);
+  fe c = fe_mul(p.T, q.t2d);
+  fe d = fe_mul(p.Z, q.z);
+  d = fe_add(d, d);
+  fe e = fe_sub(b, a);
+  fe f = fe_sub(d, c);
+  fe g = fe_add(d, c);
+  fe h = fe_add(b, a);
+  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
+}
+
+__device__ __forceinline__ bool ge_is_small_order(const ge& p) {
+  ge q = p;
+  for (int i = 0; i < 3; i++) q = ge_dbl(q);
+  return fe_is_zero(q.X) && fe_eq(q.Y, q.Z);
+}
+
+// p == q where q.Z == 1 (a freshly decompressed point).
+__device__ __forceinline__ bool ge_eq_z1(const ge& p, const ge& q) {
+  return fe_eq(fe_mul(q.X, p.Z), p.X) && fe_eq(fe_mul(q.Y, p.Z), p.Y);
+}
+
+// RFC 8032 5.1.3 by x = u v^3 (u v^7)^((p-5)/8), accepting a non-canonical
+// y and x = 0 with the sign bit set (ops/curve.py point_decompress).
+__device__ __forceinline__ bool ge_decompress(const uint64_t w[4], ge& out) {
+  const int32_t dc[10] = FE_D;
+  const int32_t sq[10] = FE_SQRTM1;
+  const int sign = (int)(w[3] >> 63);
+  fe y = fe_frombytes(w[0], w[1], w[2], w[3], true);
+  fe one = fe_one();
+  fe y2 = fe_sqr(y);
+  fe u = fe_sub(y2, one);
+  fe v = fe_add(fe_mul(fe_lit(dc), y2), one);
+  fe v3 = fe_mul(fe_sqr(v), v);
+  fe v7 = fe_mul(fe_sqr(v3), v);
+  fe x = fe_mul(fe_mul(u, v3), fe_pow2523(fe_mul(u, v7)));
+  fe vx2 = fe_mul(v, fe_sqr(x));
+  bool ok_direct = fe_eq(vx2, u);
+  bool ok_flip = fe_eq(vx2, fe_neg(u));
+  x = fe_select(ok_direct, x, fe_mul(x, fe_lit(sq)));
+  bool flip = (fe_parity(x) ^ sign) != 0;
+  x = fe_select(flip, fe_neg(x), x);
+  out = ge{x, y, one, fe_mul(x, y)};
+  return ok_direct || ok_flip;
+}
+
+// [s]B + [k]P with 4-bit windows: a per-lane table [0..15]P (local memory)
+// for [k]P, 64 windows of 4 doublings and one indexed cached add; then the
+// fixed-base comb for [s]B, 64 indexed cached adds read from global memory
+// (comb: (64, 16, 4, 10) int32, [m 16^j]B in cached form, Z = 1).
+__device__ __forceinline__ ge ge_double_scalar_mul_base(
+    const uint8_t kw[64], const ge& P, const uint8_t sw[64],
+    const int32_t* __restrict__ comb) {
+  gec tbl[16];
+  ge half[8];
+  half[0] = ge_identity();
+  half[1] = P;
+  tbl[0] = ge_to_cached(half[0]);
+  tbl[1] = ge_to_cached(P);
+  ge prev = P;
+  for (int m = 2; m < 16; m++) {
+    ge p = (m & 1) ? ge_add_cached(prev, tbl[1]) : ge_dbl(half[m >> 1]);
+    if (m < 8) half[m] = p;
+    tbl[m] = ge_to_cached(p);
+    prev = p;
+  }
+  ge acc = ge_identity();
+  for (int i = 63; i >= 0; i--) {
+    for (int d = 0; d < 4; d++) acc = ge_dbl(acc);
+    acc = ge_add_cached(acc, tbl[kw[i]]);
+  }
+  for (int j = 0; j < 64; j++) {
+    const int32_t* e = comb + ((int64_t)j * 16 + sw[j]) * 40;
+    gec q;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      q.ypx.v[i] = __ldg(e + i);
+      q.ymx.v[i] = __ldg(e + 10 + i);
+      q.z.v[i] = __ldg(e + 20 + i);
+      q.t2d.v[i] = __ldg(e + 30 + i);
+    }
+    acc = ge_add_cached(acc, q);
+  }
+  return acc;
+}

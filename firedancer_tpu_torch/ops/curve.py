@@ -1,0 +1,210 @@
+"""Batched ed25519 group operations, plain PyTorch (the twin of the
+`__device__` functions in csrc/curve.cuh, same formulas in the same order).
+
+Points are tuples (X, Y, Z, T) of field elements (ops/limbs.py), extended
+twisted Edwards coordinates.  The extended addition law is complete on this
+curve, so identity and the 8-torsion points need no special cases.  Cached
+form (Y+X, Y-X, Z, 2dT) is the right operand of repeated additions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import limbs as fl
+from .ref import ed25519_ref as ref
+
+P = fl.P
+D_INT = fl.D_INT
+D2_INT = fl.D2_INT
+SQRT_M1_INT = fl.SQRT_M1_INT
+NWIN = 64  # 4-bit windows covering any scalar < 2^256
+
+
+def identity(batch_shape, device="cpu"):
+    return (fl.fe_zero(batch_shape, device), fl.fe_one(batch_shape, device),
+            fl.fe_one(batch_shape, device), fl.fe_zero(batch_shape, device))
+
+
+def point_neg(p):
+    x, y, z, t = p
+    return (fl.fe_neg(x), y, z, fl.fe_neg(t))
+
+
+def point_dbl(p):
+    """dbl-2008-hwcd specialised to a = -1."""
+    x1, y1, z1, _ = p
+    a = fl.fe_sqr(x1)
+    b = fl.fe_sqr(y1)
+    zz = fl.fe_sqr(z1)
+    c = fl.fe_add(zz, zz)
+    e = fl.fe_sub(fl.fe_sub(fl.fe_sqr(fl.fe_add(x1, y1)), a), b)
+    g = fl.fe_sub(b, a)
+    f = fl.fe_sub(g, c)
+    h = fl.fe_neg(fl.fe_add(a, b))
+    return (fl.fe_mul(e, f), fl.fe_mul(g, h), fl.fe_mul(f, g), fl.fe_mul(e, h))
+
+
+def to_cached(p):
+    x, y, z, t = p
+    d2 = fl.fe_const(D2_INT, (1,) * (x.dim() - 1), x.device)
+    return (fl.fe_add(y, x), fl.fe_sub(y, x), z, fl.fe_mul(t, d2))
+
+
+def add_cached(p, q):
+    """add-2008-hwcd-3 (a = -1): extended point + cached point -> extended."""
+    x1, y1, z1, t1 = p
+    ypx2, ymx2, z2, t2d2 = q
+    a = fl.fe_mul(fl.fe_sub(y1, x1), ymx2)
+    b = fl.fe_mul(fl.fe_add(y1, x1), ypx2)
+    c = fl.fe_mul(t1, t2d2)
+    d = fl.fe_mul(z1, z2)
+    d = fl.fe_add(d, d)
+    e = fl.fe_sub(b, a)
+    f = fl.fe_sub(d, c)
+    g = fl.fe_add(d, c)
+    h = fl.fe_add(b, a)
+    return (fl.fe_mul(e, f), fl.fe_mul(g, h), fl.fe_mul(f, g), fl.fe_mul(e, h))
+
+
+def point_add(p, q):
+    return add_cached(p, to_cached(q))
+
+
+def point_eq_z1(p, q):
+    """p == q for q with Z == 1 (a freshly decompressed point)."""
+    x1, y1, z1, _ = p
+    x2, y2, _, _ = q
+    return fl.fe_eq(fl.fe_mul(x2, z1), x1) & fl.fe_eq(fl.fe_mul(y2, z1), y1)
+
+
+def is_identity(p):
+    x, y, z, _ = p
+    return fl.fe_is_zero(x) & fl.fe_eq(y, z)
+
+
+def is_small_order(p):
+    """True iff the order of p divides 8 ([8]P == identity)."""
+    return is_identity(point_dbl(point_dbl(point_dbl(p))))
+
+
+def point_decompress(ybytes: torch.Tensor):
+    """(32, *batch) bytes -> (point, ok), RFC 8032 5.1.3 by
+    x = u v^3 (u v^7)^((p-5)/8).  A non-canonical y (>= p) is accepted; x = 0
+    with the sign bit set gives (0, y) (dalek behaviour; such points are
+    small order and strict verify rejects them).  ok is False when x^2 is
+    not a square."""
+    yb = ybytes.to(torch.int64)
+    sign = (yb[31] >> 7) & 1
+    y = fl.fe_frombytes(yb, mask_msb=True)
+    batch = y.shape[1:]
+    dev = y.device
+    one = fl.fe_one(batch, dev)
+    y2 = fl.fe_sqr(y)
+    u = fl.fe_sub(y2, one)
+    v = fl.fe_add(fl.fe_mul(fl.fe_const(D_INT, batch, dev), y2), one)
+    v3 = fl.fe_mul(fl.fe_sqr(v), v)
+    v7 = fl.fe_mul(fl.fe_sqr(v3), v)
+    x = fl.fe_mul(fl.fe_mul(u, v3), fl.fe_pow2523(fl.fe_mul(u, v7)))
+    vx2 = fl.fe_mul(v, fl.fe_sqr(x))
+    ok_direct = fl.fe_eq(vx2, u)
+    ok_flip = fl.fe_eq(vx2, fl.fe_neg(u))
+    x = fl.fe_select(ok_direct, x,
+                     fl.fe_mul(x, fl.fe_const(SQRT_M1_INT, batch, dev)))
+    flip = (fl.fe_parity(x) ^ sign).to(torch.bool)
+    x = fl.fe_select(flip, fl.fe_neg(x), x)
+    return (x, y, one, fl.fe_mul(x, y)), ok_direct | ok_flip
+
+
+def point_compress(p) -> torch.Tensor:
+    """Extended point -> (32, *batch) canonical compressed bytes."""
+    x, y, z, _ = p
+    zinv = fl.fe_invert(z)
+    out = fl.fe_tobytes(fl.fe_mul(y, zinv))
+    out[31] = out[31] | (fl.fe_parity(fl.fe_mul(x, zinv)) << 7)
+    return out
+
+
+def _gather16(table, sel):
+    """table: 4 components of (16, 10, *batch); sel: (*batch,) in [0, 16)."""
+    idx = sel.to(torch.int64).reshape((1, 1) + tuple(sel.shape))
+    idx = idx.expand((1, fl.NLIMB) + tuple(sel.shape))
+    return tuple(t.gather(0, idx).squeeze(0) for t in table)
+
+
+def double_scalar_mul_base(k_windows: torch.Tensor, a_point,
+                           s_windows: torch.Tensor, comb: torch.Tensor):
+    """[s]B + [k]A with 4-bit windows (64, *batch), least significant first.
+
+    [k]A: a per-lane table [0..15]A in cached form, then 64 windows of four
+    doublings and one indexed cached add, most significant window first.
+    [s]B: the fixed-base comb `comb` (64, 16, 4, 10) of [m 16^j]B in cached
+    form, 64 indexed cached adds and no doublings.
+    """
+    batch = k_windows.shape[1:]
+    dev = k_windows.device
+    pts = [identity(batch, dev), a_point]
+    for m in range(2, 16):
+        pts.append(point_dbl(pts[m // 2]) if m % 2 == 0
+                   else point_add(pts[m - 1], a_point))
+    cached = [to_cached(tuple(c.expand((fl.NLIMB,) + tuple(batch)) for c in p))
+              for p in pts]
+    tbl = tuple(torch.stack([cached[m][c] for m in range(16)]) for c in range(4))
+    acc = identity(batch, dev)
+    for i in range(NWIN - 1, -1, -1):
+        for _ in range(4):
+            acc = point_dbl(acc)
+        acc = add_cached(acc, _gather16(tbl, k_windows[i]))
+    comb = comb.to(device=dev, dtype=torch.int64)
+    for j in range(NWIN):
+        row = comb[j]  # (16, 4, 10)
+        ent = row[s_windows[j].to(torch.int64)]  # (*batch, 4, 10)
+        n = len(batch)
+        ent = ent.permute(n, n + 1, *range(n))  # (4, 10, *batch)
+        acc = add_cached(acc, tuple(ent[c] for c in range(4)))
+    return acc
+
+
+# -- the fixed-base comb ---------------------------------------------------------
+
+def comb_table_host() -> np.ndarray:
+    """(64, 16, 4, 10) int32: [m 16^j]B in cached form (Y+X, Y-X, Z=1, 2dT),
+    canonical limbs; the counterpart of ops/curve.py:260 _comb_table_host,
+    built from this package's ed25519_ref."""
+    tbl = np.zeros((NWIN, 16, 4, fl.NLIMB), dtype=np.int32)
+    base = ref.BASE
+    for j in range(NWIN):
+        row = ref.IDENT
+        for m in range(16):
+            if m == 0:
+                vals = (1, 1, 1, 0)
+            else:
+                row = ref.point_add(row, base)
+                X, Y, Z, _ = row
+                zi = pow(Z, P - 2, P)
+                x, y = X * zi % P, Y * zi % P
+                vals = ((y + x) % P, (y - x) % P, 1, 2 * D_INT * x % P * y % P)
+            for c, v in enumerate(vals):
+                tbl[j, m, c] = fl.int_to_limbs(v)
+        for _ in range(4):
+            base = ref.point_add(base, base)
+    return tbl
+
+
+_COMB_HOST: list = []
+_COMB_DEVICE: dict = {}
+
+
+def comb_table(device) -> torch.Tensor:
+    """The base comb as a contiguous int32 tensor on `device`, built on the
+    host once per process and uploaded once per device."""
+    device = torch.device(device)
+    key = str(device)
+    t = _COMB_DEVICE.get(key)
+    if t is None:
+        if not _COMB_HOST:
+            _COMB_HOST.append(comb_table_host())
+        t = torch.from_numpy(_COMB_HOST[0]).to(device).contiguous()
+        _COMB_DEVICE[key] = t
+    return t

@@ -40,6 +40,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: XLA-compile-heavy; opt in with --slow")
+    config.addinivalue_line(
+        "markers", "cuda: needs an H100 (CUDA kernels); skips without a card")
 
 
 def pytest_collection_modifyitems(config, items):

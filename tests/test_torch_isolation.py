@@ -1,0 +1,110 @@
+"""The port stands alone and runs on the card by default:
+
+  - no module of firedancer_tpu_torch/, nor chip_smoke.py, imports jax,
+    jaxlib or the JAX package;
+  - the entry points, called without device=, raise the "no CUDA device"
+    error on a machine without a card instead of running on the CPU;
+  - a kernel wrapper given CPU tensors runs its plain version and its
+    launch counter stays 0.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import firedancer_tpu_torch
+from firedancer_tpu_torch import entry as tentry
+from firedancer_tpu_torch.models.leader import build_verify_pipeline
+from firedancer_tpu_torch.ops import limbs as tl
+from firedancer_tpu_torch.ops import sha512 as tsha
+from firedancer_tpu_torch.ops import sigverify as tsv
+from firedancer_tpu_torch.runtime.verify import VerifyStage
+from firedancer_tpu_torch.utils import kbuild
+from firedancer_tpu_torch.utils.platform import resolve_device
+
+PKG = os.path.dirname(os.path.abspath(firedancer_tpu_torch.__file__))
+ROOT = os.path.dirname(PKG)
+FORBIDDEN = ("jax", "jaxlib", "firedancer_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_jax_or_jax_package_imports():
+    srcs = _sources()
+    assert os.path.exists(srcs[0]) and len(srcs) > 15
+    bad = []
+    for path in srcs:
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append((os.path.relpath(path, ROOT), mod))
+    assert bad == []
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card error cannot show")
+
+
+@pytest.mark.parametrize("call", [
+    "resolve_device", "pipeline", "verify_stage", "entry", "example_batch"])
+def test_entry_points_default_to_the_card(call):
+    _no_card()
+    fns = {
+        "resolve_device": lambda: resolve_device(),
+        "pipeline": lambda: build_verify_pipeline([b"x"]),
+        "verify_stage": lambda: VerifyStage("v"),
+        "entry": lambda: tentry.entry(),
+        "example_batch": lambda: tentry.example_batch(2),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fns[call]()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_on_cpu_tensors_run_plain_and_never_count():
+    kbuild.reset_launches()
+    x = torch.from_numpy(np.stack([tl.int_to_limbs(v) for v in (3, 5)], -1))
+    xo, _ = tl.fe_mul_chain(x.to(torch.int32), x.to(torch.int32), 2)
+    assert tl.limbs_to_int(xo[:, 0].numpy()) == pow(3, 3, tl.P)
+    d = tsha.sha512_batch(torch.zeros((8, 2), dtype=torch.uint8),
+                          torch.tensor([0, 3], dtype=torch.int32))
+    assert d.shape == (64, 2)
+    fn, args = tentry.entry(device="cpu")
+    assert fn(*args).all()
+    mask, cnt = tsv.verify_batch(*args, 5, max_msg_len=tentry.MAX_MSG_LEN)
+    assert mask.tolist() == [True] * 5 + [False] * 3 and int(cnt) == 5
+    assert sum(kbuild.LAUNCHES.values()) == 0
+
+
+def test_wrappers_refuse_bad_inputs():
+    fn, args = tentry.entry(device="cpu")
+    msg, ln, sig, pk = args
+    with pytest.raises(ValueError):
+        tsv.verify_batch(msg.to(torch.int32), ln, sig, pk, 8,
+                         max_msg_len=tentry.MAX_MSG_LEN)
+    with pytest.raises(ValueError):
+        tsv.verify_batch(msg, ln, sig, pk, 8, max_msg_len=64)
+    with pytest.raises(ValueError):
+        tsv.verify_dispatch("split", msg, ln, sig, pk, 8,
+                            max_msg_len=tentry.MAX_MSG_LEN)
+    with pytest.raises(ValueError):
+        tsv.kernel_dispatch_count("split")
+    assert [tsv.kernel_dispatch_count(k) for k in tsv.KERNEL_LADDER] == [1, 1]
