@@ -1,13 +1,17 @@
-"""Drive the port's verify slice on one NVIDIA H100 and hold every kernel
-against its plain PyTorch version.
+"""Drive the port on one NVIDIA H100 and hold every kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line:
 
-  1. device   name, count, capability, nvidia-smi name and power limit
+  1. device   name, count, capability, nvidia-smi name and power limit;
+              TF32 off for matmuls (the K5 plain version's float32 product
+              is exact either way for 0/1 inputs; the script says so)
   2. build    nvcc builds csrc/*.cu (one process per source, in parallel)
+  2b. probes  probe_add over (8, 128) int32 and probe_conv over (20, 512)
+              int32 x2 -> (39, 512): equal to the plain versions and Python ints
   3. K2       fe_mul_chain at B = 16,384, k = 64: equal to the plain version
               (canonical limbs) and to Python ints on sampled lanes
   4. K3       sha512_batch at B = 4,096, max_len 1,296, lengths across the
@@ -18,6 +22,23 @@ result line:
   6. K1 time  B = 16,384, max_msg_len 1,232, CUDA events; plain version too
   7. pipeline build_verify_pipeline (benchg -> verify -> dedup -> sink) at
               batch 1,024, max_msg_len 1,232: exact counters, K1 launched
+  8. K4       sha256_iter32 at B = 4,096 chains x n = 12,500 (64 slots x 64
+              tick spans at hashes_per_tick 12,500): 32 lanes equal to
+              hashlib, all lanes equal to the plain version at n = 64; timed
+  9. K5       gf256_apply encoding T = 1,024 FEC sets of 32 + 32 shreds x
+              1,024 bytes: equal to the plain version (GF(2) bit matmul in
+              float32) and gf256_ref on sampled sets; recover_batch over 64
+              sets with seeded erasures: statuses and rebuilt bytes; timed
+  10. plane   build_sharded_verify_pipeline (benchg -> router -> plane step
+              -> dedup -> sink), one shard at batch 1,024, PoH spans of
+              12,500 hashes, FEC (32, 32, 1,024), over phase 7's stream, with
+              one slot's 64 tick spans (3 corrupted) parked mid-run, then
+              the plane's encode_parity and verify_poh_segments: phase 7's
+              counters and frames, 61/3 spans, exact K1/K4/K5 launch counts
+  10b. repeat phases 7 and 10 again, six rounds in alternating order, each
+              run checked as before: median, min and max txn/s of both and
+              of their ratio within a round
+  11. entry   entry.leader_step() once (dryrun_multichip's assertions)
 
 Then one JSON line of per-kernel numbers ({"kernels": [...]}), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
@@ -39,6 +60,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_CLK_PER_SM = 64  # 32-bit IMAD / IADD3 / LOP3 / SHF, sm_90
 SHA512_OPS_PER_BLOCK = 4144  # 32-bit instructions per 128-byte block, 2 per 64-bit op
+# 32-bit instructions per SHA-256 compression in K4, a hand tally before
+# constant folding: 48 schedule steps x 10 + 64 rounds x 13 + 8 final adds
+SHA256_OPS_PER_COMPRESSION = 1320
+# K5 instructions per GF(2^8) multiply-add: per output row and 4 columns,
+# 1 shared coefficient-log load, 4 adds, 4 exp-table loads, 3 shifts and
+# 3 LOP3 = 14 / 4 bytes
+GF_OPS_PER_MULADD = 3.5
+HASHES_PER_TICK = 12_500  # the repo's genesis default (flamenco/genesis.py)
+REPEAT_ROUNDS = 6  # phase 10b: extra (verify pipeline, plane pipeline) rounds
 
 
 class SmokeFailure(RuntimeError):
@@ -90,12 +120,23 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from firedancer_tpu_torch.models.leader import build_verify_pipeline
+    from firedancer_tpu_torch import entry as tentry
+    from firedancer_tpu_torch.models.leader import (
+        build_sharded_verify_pipeline,
+        build_verify_pipeline,
+    )
     from firedancer_tpu_torch.models.workload import mixed_batch, verify_stream
+    from firedancer_tpu_torch.ops import gf256 as g2
     from firedancer_tpu_torch.ops import limbs as fl
+    from firedancer_tpu_torch.ops import probe as fprobe
+    from firedancer_tpu_torch.ops import reedsol as rs
+    from firedancer_tpu_torch.ops import sha256 as fsha256
     from firedancer_tpu_torch.ops import sha512 as fsha
     from firedancer_tpu_torch.ops import sigverify as sv
     from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
+    from firedancer_tpu_torch.ops.ref import gf256_ref as gr
+    from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
+    from firedancer_tpu_torch.runtime import poh as rpoh
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
     from firedancer_tpu_torch.utils import kbuild
     from firedancer_tpu_torch.utils.platform import resolve_device
@@ -113,6 +154,18 @@ def main() -> int:
         f" sms={props.multi_processor_count} max_sm_clock={clk_mhz} MHz"
         f" torch={torch.__version__} cuda={torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
+    # the K5 plain version's float32 matmul is exact in full float32; TF32
+    # would also be exact for 0/1 inputs, but the reference says what it runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[device] torch.backends.cuda.matmul.allow_tf32 = False,"
+        " torch.backends.cudnn.allow_tf32 = False")
+
+    def bound(ops: float, nbytes: float) -> tuple[float, str]:
+        """(least ms for the work, what sets it): the larger of operations
+        over the integer rate and bytes over the memory rate."""
+        t_ops, t_bytes = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -120,6 +173,53 @@ def main() -> int:
     log(f"[build] {kbuild.kernel_names()} in {time.perf_counter() - t0:.1f} s"
         f" ({kbuild.build_dir()})")
     kernels = []
+
+    # -- 2b. the toolchain probes ------------------------------------------------
+    rng = np.random.default_rng(1)
+    xa, ya = (torch.from_numpy(rng.integers(-2**31, 2**31, (8, 128), dtype=np.int64)
+                               .astype(np.int32)).to(dev) for _ in range(2))
+    got = fprobe.probe_add(xa, ya)
+    torch.cuda.synchronize()
+    erra = int((got.to(torch.int64) - fprobe.probe_add_plain(xa, ya).to(torch.int64))
+               .abs().max())
+    check(erra == 0, "probe_add differs from its plain version")
+    ints = (xa.cpu().numpy().astype(np.int64) + ya.cpu().numpy().astype(np.int64))
+    check(((ints + 2**31) % 2**32 - 2**31 == got.cpu().numpy()).all(),
+          "probe_add differs from Python ints")
+    ca, cb = (torch.from_numpy(rng.integers(-2**12, 2**12, (fprobe.NLIMB, 512),
+                                            dtype=np.int64).astype(np.int32)).to(dev)
+              for _ in range(2))
+    conv = fprobe.probe_conv(ca, cb)
+    torch.cuda.synchronize()
+    errc = int((conv.to(torch.int64) - fprobe.probe_conv_plain(ca, cb).to(torch.int64))
+               .abs().max())
+    check(errc == 0, "probe_conv differs from its plain version")
+    cah, cbh, convh = ca.cpu().numpy(), cb.cpu().numpy(), conv.cpu().numpy()
+    for lane in (0, 511):
+        want = [sum(int(cah[i, lane]) * int(cbh[k - i, lane])
+                    for i in range(max(0, k - 19), min(k, 19) + 1)) for k in range(39)]
+        check(convh[:, lane].tolist() == want, f"probe_conv lane {lane} != Python ints")
+    check(torch.equal(xa + ya, got), "probe_add differs from torch.add")
+    msa = time_ms(lambda: fprobe.probe_add(xa, ya), reps=50)
+    liba = time_ms(lambda: xa + ya, reps=50)  # torch.add wraps mod 2^32 too
+    msc = time_ms(lambda: fprobe.probe_conv(ca, cb), reps=50)
+    plaina = time_host_ms(lambda: fprobe.probe_add_plain(xa, ya))
+    plainc = time_host_ms(lambda: fprobe.probe_conv_plain(ca, cb))
+    # no single PyTorch call computes probe_conv (CUDA has no integer conv)
+    for nm, line, err, ms_, plain_, lib_, ops_, bytes_, shp in (
+            ("probe_add", 18, erra, msa, plaina, liba, 1024, 3 * 4 * 1024,
+             "(8, 128) int32"),
+            ("probe_conv", 34, errc, msc, plainc, None, 512 * 400, 512 * 79 * 4,
+             "(20, 512) int32 x2 -> (39, 512)")):
+        bms, bby = bound(ops_, bytes_)
+        kernels.append(dict(
+            name=nm, route="cuda", source="firedancer_tpu_torch/csrc/probe.cu",
+            replaces=f"scripts/probe_pallas.py:{line}", launches=None,
+            max_abs_err=err, ms=ms_, plain_ms=plain_, bound_ms=bms, bound_by=bby,
+            library_ms=lib_, matched=True, shape=shp,
+            phase_launches=kbuild.LAUNCHES[nm]))
+    log(f"[probes] probe_add (8, 128): exact, {msa:.4f} ms (torch.add {liba:.4f} ms);"
+        f" probe_conv (20, 512): exact, {msc:.4f} ms (launch latency)")
 
     # -- 3. K2 fe_mul_chain -------------------------------------------------------
     B2, K2 = 16384, 64
@@ -258,38 +358,244 @@ def main() -> int:
 
     # -- 7. the pipeline (main path) ---------------------------------------------------------
     vs = verify_stream(2100, seed=b"smoke-pipe", n_multisig=8, n_corrupt=6, n_resend=24)
-    pipe = build_verify_pipeline(vs.stream, device=dev, batch=B1, max_msg_len=ML1)
-    kbuild.reset_launches()
-    t0 = time.perf_counter()
-    pipe.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = dict(kbuild.LAUNCHES)
-    rep = pipe.report()
     e = vs.expect
-    check(rep["verify"].get("txn_verified", 0) == e["txn_verified"],
-          f"txn_verified {rep['verify'].get('txn_verified')} != {e['txn_verified']}")
-    check(rep["verify"].get("verify_fail", 0) == e["verify_fail"],
-          f"verify_fail {rep['verify'].get('verify_fail')} != {e['verify_fail']}")
-    check(rep["verify"].get("parse_fail", 0) == e["parse_fail"], "parse_fail")
-    check(rep["verify"].get("dedup_dup", 0) == e["tile_dedup_dup"], "tile dedup_dup")
-    check(rep["dedup"].get("dedup_dup", 0) == e["dedup_dup"],
-          f"dedup_dup {rep['dedup'].get('dedup_dup')} != {e['dedup_dup']}")
-    check(rep["sink"].get("txn_sunk", 0) == e["sunk"], "sink count")
-    check([p for p, _ in pipe.sink.frames] == vs.expect_sunk, "sink frames")
-    check(launches.get("verify_batch", 0) > 0, "the pipeline never launched K1")
-    check(launches.get("verify_batch", 0) == rep["verify"]["batches"],
-          "K1 launches != verify batches")
+
+    def check_run(rep, sink, where: str, extra=()) -> None:
+        """Phase 7's expected counters and sunk frames, for one pipeline run."""
+        for stage, key, want in (("verify", "txn_verified", e["txn_verified"]),
+                                 ("verify", "verify_fail", e["verify_fail"]),
+                                 ("verify", "parse_fail", e["parse_fail"]),
+                                 ("verify", "dedup_dup", e["tile_dedup_dup"]),
+                                 ("dedup", "dedup_dup", e["dedup_dup"]),
+                                 ("sink", "txn_sunk", e["sunk"]), *extra):
+            check(rep[stage].get(key, 0) == want,
+                  f"{where} {stage}.{key} {rep[stage].get(key, 0)} != {want}")
+        check([p for p, _ in sink.frames] == vs.expect_sunk, f"{where} sink frames")
+        check(kbuild.LAUNCHES.get("verify_batch", 0) == rep["verify"]["batches"] > 0,
+              f"{where}: K1 launches {kbuild.LAUNCHES.get('verify_batch', 0)}"
+              f" != batches {rep['verify']['batches']}")
+
+    def drive_verify() -> tuple[float, dict]:
+        """One run of a fresh verify pipeline over the stream: (seconds,
+        report), checked; kbuild.LAUNCHES holds the run's launches."""
+        pipe = build_verify_pipeline(vs.stream, device=dev, batch=B1, max_msg_len=ML1)
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rep = pipe.report()
+        check_run(rep, pipe.sink, "verify pipeline")
+        return run_s, rep
+
+    run_s, rep = drive_verify()
+    launches7 = dict(kbuild.LAUNCHES)
     txn_s = rep["sink"]["txn_sunk"] / run_s
     # upper estimate: every batch costs a full batch's kernel time
-    busy = launches["verify_batch"] * ms1k / (run_s * 1e3)
+    busy = launches7["verify_batch"] * ms1k / (run_s * 1e3)
     log(f"[pipeline] {len(vs.stream)} frames in {run_s:.3f} s: {txn_s:.0f} txn/s sunk;"
-        f" launches {launches}; device busy <= {busy:.3f} of the run (K1 event"
+        f" launches {launches7}; device busy <= {busy:.3f} of the run (K1 event"
         f" time x launches); counters {json.dumps(rep)}")
+
+    # -- 8. K4 sha256_iter32 -------------------------------------------------------------
+    B4, N4 = 4096, HASHES_PER_TICK
+    rng = np.random.default_rng(8)
+    st4 = rng.integers(0, 256, (32, B4), dtype=np.uint8)
+    x4 = torch.from_numpy(st4).to(dev)
+    y4 = fsha256.sha256_iter32(x4, N4).cpu().numpy()
+    err4 = 0
+    for i in rng.choice(B4, 32, replace=False):
+        want = np.frombuffer(rpoh.poh_append(bytes(st4[:, i]), N4), np.uint8)
+        err4 = max(err4, int(np.abs(y4[:, i].astype(np.int64) - want).max()))
+    check(err4 == 0, f"K4 differs from hashlib at n = {N4} (max abs err {err4})")
+    k64 = fsha256.sha256_iter32(x4, 64)
+    torch.cuda.synchronize()
+    p64 = fsha256.sha256_iter32_plain(x4, 64)
+    err4p = int((k64.to(torch.int64) - p64.to(torch.int64)).abs().max())
+    check(err4p == 0, "K4 differs from its plain version at n = 64")
+    ms4 = time_ms(lambda: fsha256.sha256_iter32(x4, N4), reps=5)
+    x4s = x4[:, :64].contiguous()  # the plane's PoH lane: one slot's 64 spans
+    ms4_64 = time_ms(lambda: fsha256.sha256_iter32(x4s, N4), reps=5)
+    ms4_n64 = time_ms(lambda: fsha256.sha256_iter32(x4, 64), reps=20)
+    plain4 = time_host_ms(lambda: fsha256.sha256_iter32_plain(x4, 64))
+    bms4, bby4 = bound(B4 * N4 * SHA256_OPS_PER_COMPRESSION, 64 * B4)
+    kernels.append(dict(
+        name="sha256_iter32", route="cuda",
+        source="firedancer_tpu_torch/csrc/sha256_iter32.cu",
+        replaces="firedancer_tpu/ops/sha256.py:171", launches=None,
+        max_abs_err=max(err4, err4p), ms=ms4, plain_ms=plain4, bound_ms=bms4,
+        bound_by=bby4, library_ms=None, matched=True, shape=f"B={B4} n={N4}",
+        plain_shape=f"B={B4} n=64", ms_at_plain_shape=ms4_n64, ms_b64=ms4_64,
+        hashes_per_s=B4 * N4 / ms4 * 1e3,
+        phase_launches=kbuild.LAUNCHES["sha256_iter32"]))
+    log(f"[K4] sha256_iter32 B={B4} n={N4}: 32 lanes equal to hashlib, all equal to"
+        f" plain at n=64; {ms4:.3f} ms = {B4 * N4 / ms4 / 1e6:.3f} G hash/s"
+        f" (bound {bms4:.3f} ms, {bby4}); B=64: {ms4_64:.3f} ms;"
+        f" n=64: {ms4_n64:.4f} ms, plain {plain4:.1f} ms")
+
+    # -- 9. K5 gf256_apply: the full-block encode, then recover_batch -----------------------
+    T9, D9, P9, S9 = 1024, 32, 32, 1024
+    rng = np.random.default_rng(9)
+    data9 = rng.integers(0, 256, (T9, D9, S9), dtype=np.uint8)
+    dt9 = torch.from_numpy(data9).to(dev)
+    gen9 = torch.from_numpy(rs.parity_matrix(D9, P9)).to(dev)
+    par9 = rs.encode_core(gen9, dt9)
+    torch.cuda.synchronize()
+    ppar9 = g2.gf_apply_batch_plain(gen9.reshape(1, P9, D9), dt9)
+    err9 = int((par9.to(torch.int64) - ppar9.to(torch.int64)).abs().max())
+    check(err9 == 0, f"K5 differs from its plain version (max abs err {err9})")
+    del ppar9
+    par9h = par9.cpu().numpy()
+    for t in rng.choice(T9, 16, replace=False):
+        check((par9h[t] == gr.encode(data9[t], P9)).all(), f"K5 set {t} != gf256_ref")
+    ms9 = time_ms(lambda: rs.encode_core(gen9, dt9), reps=20)
+    plain9 = time_host_ms(lambda: g2.gf_apply_batch_plain(gen9.reshape(1, P9, D9), dt9))
+    bms9, bby9 = bound(T9 * P9 * D9 * S9 * GF_OPS_PER_MULADD,
+                       T9 * (D9 + P9) * S9 + P9 * D9)
+    # recover_batch over 64 sets: one rebuild matrix per erasure pattern
+    TR, N9 = 64, D9 + P9
+    full = np.concatenate([data9[:TR], par9h[:TR]], axis=1)  # (64, 64, 1024)
+    present = np.ones((TR, N9), dtype=bool)
+    want_st = np.full((TR,), rs.SUCCESS, dtype=np.int32)
+    for t in range(TR):
+        if t < 20:  # exactly d survivors
+            present[t, rng.choice(N9, N9 - D9, replace=False)] = False
+        elif t < 60:  # extras
+            present[t, rng.choice(N9, int(rng.integers(0, N9 - D9)), replace=False)] = False
+    shreds = full.copy()
+    shreds[60, N9 - 1, 5] ^= 0x80  # a corrupted extra (all present)
+    want_st[60] = rs.ERR_CORRUPT
+    present[61, rng.choice(N9, N9 - D9 + 1, replace=False)] = False  # d - 1 survive
+    want_st[61] = rs.ERR_PARTIAL
+    present[62:, :D9] = False  # every data shred lost: rebuilt from parity
+    shreds[~present] = rng.integers(0, 256, (int((~present).sum()), S9), dtype=np.uint8)
+    sh9 = torch.from_numpy(shreds).to(dev)
+    st9, out9 = rs.recover_batch(sh9, present, D9)
+    out9h = out9.cpu().numpy()
+    check(st9.tolist() == want_st.tolist(),
+          f"recover_batch statuses {st9.tolist()} != {want_st.tolist()}")
+    for t in np.flatnonzero(want_st == rs.SUCCESS):
+        check((out9h[t] == full[t]).all(), f"recover_batch set {t}: rebuilt bytes differ")
+    mats = torch.from_numpy(np.stack([
+        rs._recover_matrix(D9, N9, tuple(bool(x) for x in present[t]))[0]
+        if want_st[t] != rs.ERR_PARTIAL else np.zeros((N9, D9), np.uint8)
+        for t in range(TR)])).to(dev)
+    surv9 = sh9[:, :D9].contiguous()
+    ms9r = time_ms(lambda: g2.gf_apply_batch(mats, surv9), reps=20)
+    kernels.append(dict(
+        name="gf256_apply", route="cuda",
+        source="firedancer_tpu_torch/csrc/gf256_apply.cu",
+        replaces="firedancer_tpu/ops/gf256.py:64 (and :82)", launches=None,
+        max_abs_err=err9, ms=ms9, plain_ms=plain9, bound_ms=bms9, bound_by=bby9,
+        library_ms=None, matched=True, shape=f"T={T9} d={D9} p={P9} S={S9}",
+        ms_recover_64x64x32=ms9r, phase_launches=kbuild.LAUNCHES["gf256_apply"]))
+    log(f"[K5] gf256_apply encode T={T9} ({D9}+{P9})x{S9}: equal to plain and"
+        f" gf256_ref; {ms9:.4f} ms = {T9 * D9 * S9 / ms9 / 1e6:.2f} GB/s of data"
+        f" (bound {bms9:.4f} ms, {bby9}); plain {plain9:.1f} ms; recover_batch 64 sets:"
+        f" statuses {dict((int(a), int(b)) for a, b in zip(*np.unique(st9, return_counts=True)))}"
+        f" as expected,"
+        f" bytes equal; per-set matrices (64, 64x32, 1024): {ms9r:.4f} ms")
+
+    # -- 10. the serving plane's pipeline (main path) --------------------------------------
+    plane = ServePlane(ServeConfig(
+        n_devices=1, batch_per_shard=B1, max_msg_len=ML1, fec_sets_per_shard=1,
+        fec_data_shreds=D9, fec_parity_shreds=P9, fec_shred_sz=S9,
+        poh_chains_per_shard=64, poh_iters=HASHES_PER_TICK))
+    warm_s = plane.warmup()
+    h = hashlib.sha256(b"smoke-slot").digest()
+    spans = []
+    for _ in range(64):  # one slot's tick spans, each hashes_per_tick long
+        e_ = rpoh.poh_append(h, HASHES_PER_TICK)
+        spans.append((h, e_))
+        h = e_
+    bad = {5, 30, 61}
+    parked = [(s_, bytes([e_[0] ^ 1]) + e_[1:] if i in bad else e_)
+              for i, (s_, e_) in enumerate(spans)]
+    starts10 = rpoh.hashes_to_rows([s_ for s_, _ in parked])
+    ends10 = rpoh.hashes_to_rows([e_ for _, e_ in parked])
+    span_steps = -(-64 // plane.cfg.poh_chains)
+
+    def drive_plane() -> tuple[float, dict]:
+        """One run of a fresh sharded verify pipeline on the plane, with the
+        slot's spans parked mid-run: (seconds, report), checked."""
+        pipe10 = build_sharded_verify_pipeline(vs.stream, n_shards=1, plane=plane)
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(8):  # the run starts; the PoH stage parks a slot's spans
+            for stage in pipe10.stages:
+                stage.run_once()
+        for s_, e_ in parked:
+            check(plane.queue_poh_span(s_, e_), "queue_poh_span refused a span")
+        pipe10.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rep = pipe10.report()
+        check_run(rep, pipe10.sink, "plane pipeline",
+                  (("router", "routed_total", len(vs.stream)),
+                   ("verify", "poh_spans_ok", 64 - len(bad)),
+                   ("verify", "poh_spans_fail", len(bad))))
+        check(kbuild.LAUNCHES.get("sha256_iter32", 0) == span_steps,
+              f"plane pipeline: K4 launches {kbuild.LAUNCHES.get('sha256_iter32', 0)}"
+              f" != {span_steps} span step(s)")
+        check(kbuild.LAUNCHES.get("gf256_apply", 0) == 0,
+              "plane pipeline: K5 launched on a placeholder step")
+        return run_s, rep
+
+    run10_s, rep10 = drive_plane()
+    par10 = plane.encode_parity(data9, P9)  # the shredder's call
+    seg10 = plane.verify_poh_segments(starts10, ends10, HASHES_PER_TICK)  # replay's
+    torch.cuda.synchronize()
+    launches10 = dict(kbuild.LAUNCHES)
+    v10 = rep10["verify"]
+    check((par10 == par9h).all(), "encode_parity != phase 9's K5 output")
+    check(seg10.tolist() == [i not in bad for i in range(64)], "verify_poh_segments mask")
+    check(launches10.get("sha256_iter32", 0) == span_steps + 1,
+          f"K4 launches {launches10.get('sha256_iter32', 0)} != {span_steps} span"
+          " step(s) + 1 direct call")
+    check(launches10.get("gf256_apply", 0) == 1,
+          f"K5 launches {launches10.get('gf256_apply', 0)} != 1 encode_parity call")
+    txn10_s = rep10["sink"]["txn_sunk"] / run10_s
+    busy10 = (v10["batches"] * ms1k + span_steps * ms4_64) / (run10_s * 1e3)
+    log(f"[plane] warmup {warm_s:.3f} s; {len(vs.stream)} frames in {run10_s:.3f} s:"
+        f" {txn10_s:.0f} txn/s sunk (phase 7: {txn_s:.0f}); {v10['batches']} steps,"
+        f" spans ok/fail {v10['poh_spans_ok']}/{v10['poh_spans_fail']}; launches"
+        f" {launches10}; device busy <= {busy10:.3f} of the run (K1 x steps + K4 x span"
+        f" steps); counters {json.dumps(rep10)}")
+
+    # -- 10b. phases 7 and 10 again, in alternating order ----------------------------------
+    # one run of either is ~0.1-0.2 s, so one sample says little; each round
+    # runs both, plane first in even rounds, and every run is checked as above
+    rounds = [(txn_s, txn10_s)]
+    for r in range(REPEAT_ROUNDS):
+        got = {}
+        for fn in ((drive_plane, drive_verify) if r % 2 == 0 else (drive_verify, drive_plane)):
+            run_s_, rep_ = fn()
+            got[fn] = rep_["sink"]["txn_sunk"] / run_s_
+        rounds.append((got[drive_verify], got[drive_plane]))
+    t7s, t10s = sorted(a for a, _ in rounds), sorted(b for _, b in rounds)
+    ratios = sorted(b / a for a, b in rounds)
+    mid = len(rounds) // 2
+    log(f"[repeat] {len(rounds)} rounds (the first is phases 7 and 10 above):"
+        f" verify pipeline txn/s median {t7s[mid]:.0f} (min {t7s[0]:.0f}, max {t7s[-1]:.0f});"
+        f" plane pipeline median {t10s[mid]:.0f} (min {t10s[0]:.0f}, max {t10s[-1]:.0f});"
+        f" plane/verify ratio per round median {ratios[mid]:.3f} (min {ratios[0]:.3f},"
+        f" max {ratios[-1]:.3f}); rounds (verify, plane) {[(round(a), round(b)) for a, b in rounds]}")
+
+    # -- 11. entry.leader_step -----------------------------------------------------------
+    kbuild.reset_launches()
+    out11 = tentry.leader_step()
+    launches11 = dict(kbuild.LAUNCHES)
+    for k in ("verify_batch", "sha256_iter32", "gf256_apply"):
+        check(launches11.get(k, 0) == count, f"leader_step launched {k} "
+              f"{launches11.get(k, 0)} times on {count} device(s)")
+    log(f"[entry] leader_step {out11}; launches {launches11}")
 
     for k in kernels:
         check(k["phase_launches"] > 0, f"{k['name']} never launched in its phase")
-        k["launches"] = launches.get(k["name"], 0)
+        k["launches"] = launches10.get(k["name"], 0)
+        k["launches_by_path"] = {"verify_pipeline": launches7.get(k["name"], 0),
+                                 "plane_pipeline": launches10.get(k["name"], 0),
+                                 "leader_step": launches11.get(k["name"], 0)}
     check(ref.verify(b"", ref.sign(b"\x01" * 32, b""), ref.public_key(b"\x01" * 32)),
           "ed25519_ref self-check")
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")

@@ -4,7 +4,10 @@ The first slice ports the leader's verify position: signed txn frames go
 through parse, the verify-tile dedup guard and batch assembly into a
 hand-written CUDA ed25519 kernel (csrc/verify.cu) on an H100, then the
 txn-level all-signatures rule, the global dedup stage and a counting
-sink where pack would sit (models/leader.py).
+sink where pack would sit (models/leader.py).  The second slice ports the
+serving plane (parallel/): the router, the sharded verify stage and the
+plane's step, which also carries the PoH chain check (csrc/sha256_iter32.cu)
+and Reed-Solomon parity (csrc/gf256_apply.cu).
 
 Device rule: entry points run on the card (`cuda:0`) unless the caller
 passes `device="cpu"`; without a Hopper card they raise

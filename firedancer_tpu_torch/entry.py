@@ -1,5 +1,7 @@
-"""Entry point mirroring __graft_entry__.py:entry(): the batched sigverify
-step and an example batch, on the card unless device="cpu"."""
+"""Entry points mirroring __graft_entry__.py: entry(), the batched sigverify
+step and an example batch, and leader_step(), the counterpart of
+dryrun_multichip (the leader's device step over the mesh).  Both run on
+the card unless device="cpu"."""
 
 from __future__ import annotations
 
@@ -47,3 +49,40 @@ def entry(device=None):
                                        max_msg_len=MAX_MSG_LEN)
 
     return verify_step, example_batch(8, device=device)
+
+
+def leader_step(device=None, n_devices: int | None = None) -> dict:
+    """One sharded leader step over the mesh (default: every card; with
+    device="cpu", n_devices x cpu): sigverify on 2 lanes per device, one
+    tiny FEC set and one PoH segment per device, each lane data-parallel.
+    Asserts what dryrun_multichip asserts, with parity held against the
+    host oracle (ops/ref/gf256_ref.py), and returns the counts."""
+    from .ops.ref import gf256_ref as gr
+    from .parallel import mesh as fm
+    from .runtime.poh import hashes_to_rows, poh_append
+
+    mesh = fm.make_mesh(n_devices, device)
+    n = len(mesh)
+    batch = 2 * n  # tiny: 2 sigs per device
+    msg, msg_len, sig, pk = (t.numpy() for t in example_batch(batch, device="cpu"))
+    rng = np.random.default_rng(3)
+    d_shreds, parity_cnt, sz = 4, 2, 32
+    fec_data = rng.integers(0, 256, (n, d_shreds, sz), dtype=np.uint8)
+    poh_iters = 5
+    starts = [hashlib.sha256(b"poh%d" % i).digest() for i in range(n)]
+    ends = [poh_append(h, poh_iters) for h in starts]
+    ok, total, parity, poh_ok = fm.sharded_leader_step(
+        mesh, msg, msg_len, sig, pk, fec_data, parity_cnt,
+        hashes_to_rows(starts), hashes_to_rows(ends), poh_iters,
+        max_msg_len=MAX_MSG_LEN,
+    )
+    assert ok.shape == (batch,)
+    assert total == batch, f"expected all {batch} sigs to verify, got {total}"
+    assert parity.shape == (n, parity_cnt, sz)
+    expect = np.stack([gr.encode(x, parity_cnt) for x in fec_data])
+    assert np.array_equal(parity, expect), "sharded RS parity diverged"
+    assert poh_ok == n, f"PoH segments verified {poh_ok}/{n}"
+    print(f"leader_step: {n} device(s) ({mesh[0]}) - verify {total}/{batch} ok,"
+          f" {n} FEC sets encoded, {poh_ok}/{n} PoH segments ok")
+    return {"devices": n, "verified": total, "batch": batch, "fec_sets": n,
+            "poh_ok": poh_ok}

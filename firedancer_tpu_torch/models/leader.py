@@ -1,11 +1,14 @@
-"""The verify slice of the leader pipeline, assembled:
+"""The verify slice of the leader pipeline, assembled, unsharded and
+through the serving plane:
 
     benchg -> verify (sigverify kernel on the card) -> dedup -> sink
+    benchg -> router -> per-shard links -> sharded verify (the plane's
+              step: K1, plus K4 on parked PoH spans) -> dedup -> sink
 
-The counterpart of firedancer_tpu/models/leader.py build_leader_pipeline,
-cut at pack: the sink counts and keeps the verified, deduplicated frames
-where pack would consume them.  Stages talk over in-process links and run
-under a cooperative round-robin loop.
+The counterparts of firedancer_tpu/models/leader.py build_leader_pipeline
+and build_sharded_leader_pipeline, cut at pack: the sink counts and keeps
+the verified, deduplicated frames where pack would consume them.  Stages
+talk over in-process links and run under a cooperative round-robin loop.
 """
 
 from __future__ import annotations
@@ -93,5 +96,53 @@ def build_verify_pipeline(stream: list[bytes], *, device=None,
     return VerifyPipeline(
         stages=[benchg, verify, dedup, sink],
         links=[gen_verify, verify_dedup, dedup_sink],
+        benchg=benchg, verify=verify, dedup=dedup, sink=sink,
+    )
+
+
+def build_sharded_verify_pipeline(stream: list[bytes], *, n_shards: int = 1,
+                                  plane=None, device=None,
+                                  batch_per_shard: int = 1024,
+                                  max_msg_len: int = 1232,
+                                  poh_iters: int = 64,
+                                  batch_deadline_s: float = 0.002,
+                                  **plane_cfg) -> VerifyPipeline:
+    """benchg -> router -> n_shards per-shard links -> ShardedVerifyStage
+    (ONE plane step per batch over the mesh) -> dedup -> sink.
+
+    plane: a prebuilt (ideally warmed) ServePlane; None builds one for
+    n_shards devices on `device` (default the card; "cpu" runs the plain
+    versions), with the remaining ServeConfig fields from plane_cfg
+    (poh_chains_per_shard, fec_*).  poh_iters is the plane's PoH span
+    length (hashes_per_tick), so parked tick spans match it.
+    """
+    from ..parallel.router import ShardRouterStage
+    from ..parallel.serve import ServeConfig, ServePlane, ShardedVerifyStage
+
+    if plane is None:
+        plane = ServePlane(ServeConfig(
+            n_devices=n_shards, batch_per_shard=batch_per_shard,
+            max_msg_len=max_msg_len, poh_iters=poh_iters, **plane_cfg,
+        ), device=device)
+    if plane.cfg.n_devices != n_shards:
+        raise ValueError(f"plane has {plane.cfg.n_devices} shards,"
+                         f" pipeline asked for {n_shards}")
+    gen_router = Link("gen_router", LINK_DEPTH)
+    shard_links = [Link(f"sv{i}", LINK_DEPTH) for i in range(n_shards)]
+    verify_dedup = Link("verify_dedup", LINK_DEPTH)
+    dedup_sink = Link("dedup_sink", LINK_DEPTH)
+    benchg = BenchGStage(stream, "benchg", [Producer(gen_router)],
+                         limit=len(stream))
+    router = ShardRouterStage("router", [Consumer(gen_router)],
+                              [Producer(link) for link in shard_links],
+                              n_shards=n_shards)
+    verify = ShardedVerifyStage("verify", [Consumer(link) for link in shard_links],
+                                [Producer(verify_dedup)], plane=plane,
+                                batch_deadline_s=batch_deadline_s)
+    dedup = DedupStage("dedup", [Consumer(verify_dedup)], [Producer(dedup_sink)])
+    sink = SinkStage("sink", [Consumer(dedup_sink)])
+    return VerifyPipeline(
+        stages=[benchg, router, verify, dedup, sink],
+        links=[gen_router, *shard_links, verify_dedup, dedup_sink],
         benchg=benchg, verify=verify, dedup=dedup, sink=sink,
     )

@@ -1,0 +1,124 @@
+"""Iterated SHA-256 of 32-byte states (the PoH hash chain): the plain PyTorch
+version and the `sha256_iter32` kernel wrapper (K4).
+
+Layout (the JAX package's): states are (32, B) byte rows, the batch
+trailing, so byte i of neighbouring chains sits at neighbouring addresses.
+`sha256_iter32(state, n)` advances B independent chains by n hashes each:
+state_{k+1} = sha256(state_k), which is fd_poh_append.  Each hash is one
+compression of state || the constant pad block (0x80, zeros, bit length
+256), so the last 8 message words never change.
+
+The plain version keeps 32-bit words in int64 tensors (torch's `>>` on
+int32 is arithmetic) and writes out the 64 rounds; the pad words stay
+Python ints, so their schedule terms fold as the kernel's do.  It launches
+~1,600 small tensor ops per hash: a spec, not a yardstick.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils import kbuild
+
+_K = [
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
+    0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
+    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
+    0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
+    0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
+    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
+    0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
+    0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
+    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
+]
+_IV = [
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+    0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
+]
+# the constant second half of the one padded block of a 32-byte message:
+# 0x80 then zeros, the bit length 256 in the last word
+_PAD32_WORDS = [0x80000000, 0, 0, 0, 0, 0, 0, 256]
+M32 = 0xFFFFFFFF
+
+
+def _rotr(x, n):
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def _compress(state, w16):
+    """One compression.  state: 8 words, w16: 16 message words; a word is a
+    (B,) int64 tensor or a Python int (constants fold)."""
+    w = list(w16)
+    for t in range(16, 64):
+        w15, w2 = w[t - 15], w[t - 2]
+        s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+        s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M32)
+    a, b, c, d, e, f, g, h = state
+    for t in range(64):
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ (~e & M32 & g)
+        t1 = (h + s1 + ch + _K[t] + w[t]) & M32
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & M32, c, b, a, (t1 + s0 + maj) & M32
+    return [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """(32, B) byte rows -> (8, B) int64 big-endian words."""
+    w = b.to(torch.int64).reshape((8, 4) + tuple(b.shape[1:]))
+    return (w[:, 0] << 24) | (w[:, 1] << 16) | (w[:, 2] << 8) | w[:, 3]
+
+
+def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    """(8, B) words -> (32, B) uint8 big-endian byte rows."""
+    sh = torch.tensor([24, 16, 8, 0], dtype=torch.int64, device=w.device)
+    out = (w.to(torch.int64).unsqueeze(1) >> sh.reshape(1, 4, *([1] * (w.dim() - 1)))) & 0xFF
+    return out.reshape((32,) + tuple(w.shape[1:])).to(torch.uint8)
+
+
+def sha256_iter32_plain(state: torch.Tensor, n: int) -> torch.Tensor:
+    """state^(n) for (32, B) uint8 byte rows, in torch integer ops."""
+    words = list(bytes_to_words(state).unbind(0))
+    for _ in range(n):
+        words = _compress(_IV, words + _PAD32_WORDS)
+    return words_to_bytes(torch.stack(words))
+
+
+def sha256_iter32(state: torch.Tensor, n: int) -> torch.Tensor:
+    """K4: n-fold iterated SHA-256 of B independent chains, (32, B) uint8 ->
+    (32, B) uint8; n = 0 returns a copy of the input.
+
+    Replaces ops/sha256.py:171 sha256_iter32.  On CPU tensors this runs the
+    plain version; on CUDA tensors it launches csrc/sha256_iter32.cu or
+    raises.
+    """
+    if n < 0:
+        raise ValueError(f"sha256_iter32: n must be >= 0, got {n}")
+    if state.dtype != torch.uint8 or state.dim() != 2 or state.shape[0] != 32 \
+            or not state.is_contiguous():
+        raise ValueError("sha256_iter32: state must be a contiguous (32, B) uint8"
+                         f" tensor, got {tuple(state.shape)} {state.dtype}")
+    if state.device.type == "cpu":
+        return sha256_iter32_plain(state, n)
+    import ctypes
+
+    if state.device.type != "cuda":
+        raise ValueError(f"sha256_iter32: unsupported device {state.device}")
+    lib = kbuild.load("sha256_iter32")
+    fn = lib.fd_sha256_iter32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bsz = state.shape[1]
+    out = torch.empty_like(state)
+    if bsz == 0:
+        return out
+    rc = fn(state.data_ptr(), out.data_ptr(), bsz, n, state.device.index or 0,
+            kbuild.stream_ptr(state.device))
+    kbuild.check(lib, rc, "sha256_iter32 launch")
+    kbuild.LAUNCHES["sha256_iter32"] += 1
+    return out

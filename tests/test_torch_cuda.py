@@ -85,3 +85,103 @@ def test_verify_dispatch_launches_once_per_batch(dev, lane):
     else:
         assert int(n_ok) == int(want.sum())
     assert mask.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("n", [0, 1, 64])
+def test_sha256_iter32_kernel_equals_plain_and_hashlib(dev, n):
+    from firedancer_tpu_torch.ops import sha256 as fsha256
+
+    rng = np.random.default_rng(20 + n)
+    st = rng.integers(0, 256, (32, 100), dtype=np.uint8)
+    x = torch.from_numpy(st).to(dev)
+    got = fsha256.sha256_iter32(x, n)
+    assert torch.equal(got, fsha256.sha256_iter32_plain(x, n))
+    for i in (0, 31, 32, 99):
+        h = bytes(st[:, i])
+        for _ in range(n):
+            h = hashlib.sha256(h).digest()
+        assert bytes(got[:, i].cpu().tolist()) == h
+    assert kbuild.LAUNCHES["sha256_iter32"] == 1
+
+
+@pytest.mark.parametrize("per_set,m,k,s", [
+    (False, 32, 32, 1024), (True, 134, 67, 64), (True, 3, 5, 61), (False, 1, 1, 7)])
+def test_gf256_apply_kernel_equals_plain_and_ref(dev, per_set, m, k, s):
+    from firedancer_tpu_torch.ops import gf256 as g2
+    from firedancer_tpu_torch.ops.ref import gf256_ref as gr
+
+    rng = np.random.default_rng(m * k + s)
+    t = 6
+    mats = rng.integers(0, 256, (t if per_set else 1, m, k), dtype=np.uint8)
+    mats[0, 0, :] = 0  # zero coefficients take the table's zero path
+    data = rng.integers(0, 256, (t, k, s), dtype=np.uint8)
+    data[:, 0, :3] = 0
+    mt, dt = torch.from_numpy(mats).to(dev), torch.from_numpy(data).to(dev)
+    got = g2.gf_apply_batch(mt, dt)
+    assert torch.equal(got, g2.gf_apply_batch_plain(mt, dt))
+    gh = got.cpu().numpy()
+    for j in range(t):
+        assert (gh[j] == gr.gf_matmul(mats[j if per_set else 0], data[j])).all()
+    assert kbuild.LAUNCHES["gf256_apply"] == 1
+
+
+def test_reedsol_recover_batch_on_card(dev):
+    from firedancer_tpu_torch.ops import reedsol as rs
+
+    rng = np.random.default_rng(30)
+    d, p, sz, t = 8, 4, 100, 5
+    data = rng.integers(0, 256, (t, d, sz), dtype=np.uint8)
+    par = rs.encode(data, p, device=dev).cpu().numpy()
+    full = np.concatenate([data, par], axis=1)
+    present = np.ones((t, d + p), dtype=bool)
+    present[0, :4] = False  # exactly d survivors
+    present[1, [1, 9]] = False  # extras
+    present[2, :5] = False  # d - 1 survivors
+    shreds = full.copy()
+    shreds[3, d + 1, 7] ^= 1  # a corrupted extra
+    st, out = rs.recover_batch(shreds, present, d, device=dev)
+    assert st.tolist() == [rs.SUCCESS, rs.SUCCESS, rs.ERR_PARTIAL, rs.ERR_CORRUPT,
+                           rs.SUCCESS]
+    oh = out.cpu().numpy()
+    for j in (0, 1, 4):
+        assert (oh[j] == full[j]).all()
+
+
+def test_probe_kernels_equal_plain(dev):
+    from firedancer_tpu_torch.ops import probe
+
+    rng = np.random.default_rng(40)
+    x, y = (torch.from_numpy(rng.integers(-2**31, 2**31, (8, 128), dtype=np.int64)
+                             .astype(np.int32)).to(dev) for _ in range(2))
+    assert torch.equal(probe.probe_add(x, y), probe.probe_add_plain(x, y))
+    a, b = (torch.from_numpy(rng.integers(-2**20, 2**20, (20, 512), dtype=np.int64)
+                             .astype(np.int32)).to(dev) for _ in range(2))
+    assert torch.equal(probe.probe_conv(a, b), probe.probe_conv_plain(a, b))
+    assert kbuild.LAUNCHES["probe_add"] == kbuild.LAUNCHES["probe_conv"] == 1
+
+
+def test_plane_step_runs_poh_only_with_parked_spans(dev):
+    from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
+    from firedancer_tpu_torch.runtime.poh import poh_append
+
+    plane = ServePlane(ServeConfig(n_devices=1, batch_per_shard=32, max_msg_len=128,
+                                   fec_data_shreds=4, fec_parity_shreds=2,
+                                   fec_shred_sz=64, poh_chains_per_shard=4,
+                                   poh_iters=16))
+    mb = mixed_batch(32, 128, n_real=30, seed=11)
+    args = (mb.msg, mb.msg_len, mb.sig, mb.pubkey)
+    kbuild.reset_launches()
+    pend = plane.submit(*args, [mb.n_real])
+    assert pend.mask_host().tolist() == mb.labels.tolist()
+    assert not pend.poh_ok_host().any() and not pend.parity_host().any()
+    assert kbuild.LAUNCHES["sha256_iter32"] == 0
+    assert kbuild.LAUNCHES["gf256_apply"] == 0
+    h = [hashlib.sha256(b"s%d" % i).digest() for i in range(3)]
+    for i, s in enumerate(h):
+        e = poh_append(s, 16)
+        assert plane.queue_poh_span(s, e if i != 1 else bytes(32))
+    pend = plane.submit(*args, [mb.n_real])
+    assert pend.poh_ok_host().tolist() == [True, False, True, False]
+    assert pend.poh_real == 3
+    assert kbuild.LAUNCHES["sha256_iter32"] == 1
+    assert kbuild.LAUNCHES["verify_batch"] == 2

@@ -17,10 +17,20 @@ import torch
 
 import firedancer_tpu_torch
 from firedancer_tpu_torch import entry as tentry
-from firedancer_tpu_torch.models.leader import build_verify_pipeline
+from firedancer_tpu_torch.models.leader import (
+    build_sharded_verify_pipeline,
+    build_verify_pipeline,
+)
+from firedancer_tpu_torch.ops import gf256 as tg2
 from firedancer_tpu_torch.ops import limbs as tl
+from firedancer_tpu_torch.ops import probe as tprobe
+from firedancer_tpu_torch.ops import reedsol as trs
+from firedancer_tpu_torch.ops import sha256 as tsha256
 from firedancer_tpu_torch.ops import sha512 as tsha
 from firedancer_tpu_torch.ops import sigverify as tsv
+from firedancer_tpu_torch.parallel.mesh import make_mesh
+from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
+from firedancer_tpu_torch.runtime import poh as tpoh
 from firedancer_tpu_torch.runtime.verify import VerifyStage
 from firedancer_tpu_torch.utils import kbuild
 from firedancer_tpu_torch.utils.platform import resolve_device
@@ -64,15 +74,24 @@ def _no_card():
 
 
 @pytest.mark.parametrize("call", [
-    "resolve_device", "pipeline", "verify_stage", "entry", "example_batch"])
+    "resolve_device", "pipeline", "verify_stage", "entry", "example_batch",
+    "make_mesh", "serve_plane", "sharded_pipeline", "verify_segments",
+    "leader_step", "reedsol_encode"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
+    h = bytes(32)
     fns = {
         "resolve_device": lambda: resolve_device(),
         "pipeline": lambda: build_verify_pipeline([b"x"]),
         "verify_stage": lambda: VerifyStage("v"),
         "entry": lambda: tentry.entry(),
         "example_batch": lambda: tentry.example_batch(2),
+        "make_mesh": lambda: make_mesh(1),
+        "serve_plane": lambda: ServePlane(ServeConfig(n_devices=1)),
+        "sharded_pipeline": lambda: build_sharded_verify_pipeline([b"x"]),
+        "verify_segments": lambda: tpoh.verify_segments([h], 1, [h]),
+        "leader_step": lambda: tentry.leader_step(),
+        "reedsol_encode": lambda: trs.encode(np.zeros((2, 4), np.uint8), 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
@@ -92,6 +111,27 @@ def test_wrappers_on_cpu_tensors_run_plain_and_never_count():
     mask, cnt = tsv.verify_batch(*args, 5, max_msg_len=tentry.MAX_MSG_LEN)
     assert mask.tolist() == [True] * 5 + [False] * 3 and int(cnt) == 5
     assert sum(kbuild.LAUNCHES.values()) == 0
+
+
+def test_plane_wrappers_on_cpu_tensors_run_plain_and_never_count():
+    kbuild.reset_launches()
+    st = torch.zeros((32, 2), dtype=torch.uint8)
+    assert torch.equal(tsha256.sha256_iter32(st, 1), tsha256.sha256_iter32_plain(st, 1))
+    mat = torch.ones((1, 2, 3), dtype=torch.uint8)
+    data = torch.arange(24, dtype=torch.uint8).reshape(2, 3, 4)
+    assert torch.equal(tg2.gf_apply_batch(mat, data), tg2.gf_apply_batch_plain(mat, data))
+    assert torch.equal(tg2.gf_apply_batch(mat, data)[:, 0], data[:, 0] ^ data[:, 1] ^ data[:, 2])
+    x = torch.full((8, 128), 2**31 - 1, dtype=torch.int32)
+    assert (tprobe.probe_add(x, torch.ones_like(x)) == -2**31).all()
+    a = torch.full((20, 4), 100, dtype=torch.int32)
+    conv = tprobe.probe_conv(a, 2 * a)
+    assert conv.shape == (39, 4) and conv[:, 0].tolist() == \
+        [20000 * min(k + 1, 39 - k) for k in range(39)]
+    assert sum(kbuild.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError):
+        tprobe.probe_conv(a[:19].contiguous(), a[:19].contiguous())
+    with pytest.raises(ValueError):
+        tprobe.probe_add(x, torch.ones((8, 128), dtype=torch.int64))
 
 
 def test_wrappers_refuse_bad_inputs():
