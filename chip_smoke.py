@@ -39,6 +39,23 @@ result line:
               run checked as before: median, min and max txn/s of both and
               of their ratio within a round
   11. entry   entry.leader_step() once (dryrun_multichip's assertions)
+  12. comb    the comb lane's kernels alone, over 1,536 voter keys from a
+              seed: K7 comb_fill at M = 32 and at M = 1,544 (the voters plus
+              8 edge keys: torsion, non-square y, a non-canonical y), tables
+              and ok equal to comb_fill_plain on the card (every column) and
+              ok to ed25519_ref, 4 entries of 64 sampled columns to Python
+              ints; K8 bank_install of the 1,536 tables into a 2,048-slot
+              bank equal to index_copy_, untouched slots zero, a reinstall;
+              K6 verify_cached at B = 16,384 of the voters' votes with
+              corrupted lanes: mask equal to K1's and to the labels, and at
+              B = 1,024 to verify_cached_plain; all timed
+  13. comb pipeline  build_verify_pipeline(comb_slots=2,048,
+              promote_threshold=2) over a vote-heavy stream (1,536 voters x
+              4 slots, 2,048 transfers) in two waves, beside the same stream
+              through comb_slots=0: exact counters, comb_filled and
+              comb_elems, equal sorted frames, K1/K6/K7/K8 launches equal the
+              stage's batches, cached batches, fills and installs; then 4
+              more alternating rounds of both: medians and spread of txn/s
 
 Then one JSON line of per-kernel numbers ({"kernels": [...]}), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
@@ -69,6 +86,11 @@ SHA256_OPS_PER_COMPRESSION = 1320
 GF_OPS_PER_MULADD = 3.5
 HASHES_PER_TICK = 12_500  # the repo's genesis default (flamenco/genesis.py)
 REPEAT_ROUNDS = 6  # phase 10b: extra (verify pipeline, plane pipeline) rounds
+# phases 12-13: the voting set and the comb bank (2,048 slots hold the
+# mainnet-beta voting set, ~1,000-2,000 validators on public explorers)
+VOTERS, BANK_SLOTS, VOTE_ROUNDS, VOTE_TRANSFERS = 1536, 2048, 4, 2048
+COMB_REPEAT_ROUNDS = 4  # phase 13: extra (comb, generic) pipeline rounds
+K6_BATCH, K6_SMALL = 16384, 1024  # phase 12: K6's batches (the small one = the stage's)
 
 
 class SmokeFailure(RuntimeError):
@@ -92,12 +114,16 @@ def nvidia_smi(query: str) -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time per call, CUDA events around `reps` calls."""
+def time_ms(fn, reps: int, warmup: int = 1, hide_host: bool = False) -> float:
+    """Mean device time per call, CUDA events around `reps` calls.  With
+    hide_host, the calls are queued behind a ~0.1 s busy-wait on the card, so
+    a kernel shorter than its launch's host cost is timed back to back."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hide_host:
+        torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -125,7 +151,14 @@ def main() -> int:
         build_sharded_verify_pipeline,
         build_verify_pipeline,
     )
-    from firedancer_tpu_torch.models.workload import mixed_batch, verify_stream
+    from firedancer_tpu_torch.models.workload import (
+        mixed_batch,
+        noncanonical_encodings,
+        nonsquare_encodings,
+        torsion_encodings,
+        verify_stream,
+        vote_stream,
+    )
     from firedancer_tpu_torch.ops import gf256 as g2
     from firedancer_tpu_torch.ops import limbs as fl
     from firedancer_tpu_torch.ops import probe as fprobe
@@ -138,6 +171,7 @@ def main() -> int:
     from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
     from firedancer_tpu_torch.runtime import poh as rpoh
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
+    from firedancer_tpu_torch.runtime.verify import encode_verified
     from firedancer_tpu_torch.utils import kbuild
     from firedancer_tpu_torch.utils.platform import resolve_device
 
@@ -590,12 +624,287 @@ def main() -> int:
               f"{launches11.get(k, 0)} times on {count} device(s)")
     log(f"[entry] leader_step {out11}; launches {launches11}")
 
+    # -- 12. the comb lane's kernels alone: K7, K8, K6 ------------------------------------
+    t0 = time.perf_counter()
+    vs13 = vote_stream(VOTERS, VOTE_ROUNDS, seed=b"smoke-comb", n_transfers=VOTE_TRANSFERS)
+    sign_s = time.perf_counter() - t0
+    voter_pubs = [p for _, p in vs13.voters]
+    edge = torsion_encodings() + nonsquare_encodings(2) + noncanonical_encodings()[-1:]
+    check(len(edge) == 8, f"{len(edge)} edge keys, expected 8")
+    keys12 = voter_pubs + edge
+    pk12 = torch.from_numpy(np.stack([np.frombuffer(k, np.uint8) for k in keys12], 1)).to(dev)
+    pk32 = pk12[:, :32].contiguous()
+    M12 = pk12.shape[1]
+    # K7 at the stage's fill width and at the whole voting set
+    t32, ok32 = sv.comb_fill(pk32)
+    tall, okall = sv.comb_fill(pk12)
+    torch.cuda.synchronize()
+    pt32, pok32 = sv.comb_fill_plain(pk32)
+    check(torch.equal(ok32, pok32) and bool(ok32.all()), "K7 ok at M = 32")
+    check(torch.equal(t32, pt32), "K7 tables differ from comb_fill_plain at M = 32")
+    ptall, pokall = sv.comb_fill_plain(pk12)
+    check(torch.equal(okall, pokall), f"K7 ok differs from comb_fill_plain at M = {M12}")
+    check(torch.equal(tall, ptall), f"K7 tables differ from comb_fill_plain at M = {M12}")
+    del ptall, pt32
+    okh = okall.cpu().numpy()
+    want_ok = []
+    for k in keys12:
+        pt = ref.point_decompress(k)
+        want_ok.append(pt is not None and not ref.is_small_order(pt))
+    check(okh.tolist() == want_ok, "K7 ok differs from ed25519_ref's decoding and small order")
+    check(bool(okh[:VOTERS].all()) and int(okh[VOTERS:].sum()) <= 1,
+          f"K7 ok over the edge keys {okh[VOTERS:].tolist()}")
+    rng = np.random.default_rng(12)
+    sample = rng.choice(VOTERS, min(64, VOTERS), replace=False)
+    tallh = tall[torch.from_numpy(sample).to(dev)].cpu().numpy()
+    for n_, col in enumerate(sample):
+        na = ref.point_neg(ref.point_decompress(keys12[col]))
+        for j, m in ((0, 1), (int(rng.integers(64)), int(rng.integers(16))),
+                     (int(rng.integers(64)), int(rng.integers(16))), (63, 15)):
+            X, Y, Z, T = ref.point_mul(m * 16**j, na)
+            ypx, ymx, zz, t2d = (fl.limbs_to_int(tallh[n_, j, m, c]) for c in range(4))
+            check(ypx * Z % fl.P == (Y + X) * zz % fl.P and ymx * Z % fl.P == (Y - X) * zz % fl.P
+                  and t2d * Z % fl.P == 2 * ref.D * T * zz % fl.P and zz % fl.P,
+                  f"K7 entry (col {col}, j {j}, m {m}) != Python ints")
+    # K8: the voters' tables into a 2,048-slot bank at seeded slots
+    slots12 = rng.permutation(BANK_SLOTS)[:VOTERS]
+    tv12 = tall[:VOTERS]
+    bank12 = sv.bank_alloc(BANK_SLOTS, device=dev)
+    sv.bank_install(bank12, tv12, slots12.tolist())
+    lib12 = sv.bank_install_plain(sv.bank_alloc(BANK_SLOTS, device=dev), tv12,
+                                  torch.from_numpy(slots12).to(dev))
+    torch.cuda.synchronize()
+    check(torch.equal(bank12, lib12), "K8 differs from index_copy_")
+    s12 = torch.from_numpy(slots12).to(dev)
+    check(torch.equal(bank12[s12], tv12), "K8: installed slots differ from the tables")
+    untouched = torch.ones(BANK_SLOTS, dtype=torch.bool, device=dev)
+    untouched[s12] = False
+    check(not bool(bank12[untouched].any()), "K8 wrote an untouched slot")
+    sv.bank_install(bank12, tv12[5:6], [int(slots12[0])])  # a reinstall overwrites
+    check(torch.equal(bank12[int(slots12[0])], tv12[5]), "K8 reinstall did not overwrite")
+    sv.bank_install(bank12, tv12[0:1], [int(slots12[0])])
+    check(torch.equal(bank12, lib12), "K8 after reinstalling the slot's own table")
+    del lib12
+    # K6: the voters' votes, banked, with corrupted lanes
+    slot_of = {voter_pubs[i]: int(slots12[i]) for i in range(VOTERS)}
+    sunk_set = set(vs13.expect_sunk)
+    trip = []
+    for p in vs13.stream:
+        t = ft.txn_parse(p)
+        sg = t.signatures(p)
+        if len(sg) == 1 and t.signers(p)[0] in slot_of and encode_verified(p, t) in sunk_set:
+            trip.append((t.message(p), sg[0], t.signers(p)[0]))
+    B6 = K6_BATCH
+    cats6 = ("bad_msg", "bad_r", "high_s", "small_r", "noncanon_r")
+    tors, nonc = torsion_encodings(), noncanonical_encodings()
+    bad6 = {int(i): cats6[n_ % len(cats6)]
+            for n_, i in enumerate(rng.choice(B6, min(100, B6 // 8), replace=False))}
+    m6 = np.zeros((B6, ML1), np.uint8)
+    l6 = np.zeros((B6,), np.int32)
+    sg6 = np.zeros((B6, 64), np.uint8)
+    pk6 = np.zeros((B6, 32), np.uint8)
+    lab6 = np.ones((B6,), bool)
+    kw6 = []
+    for i in range(B6):
+        m, sgn, k = trip[i % len(trip)]
+        cat = bad6.get(i)
+        if cat == "bad_msg":
+            m = bytes([m[0] ^ 1]) + m[1:]
+        elif cat == "bad_r":
+            sgn = bytes([sgn[0] ^ 0x04]) + sgn[1:]
+        elif cat == "high_s":
+            sgn = sgn[:32] + (int.from_bytes(sgn[32:], "little") + ref.L).to_bytes(32, "little")
+        elif cat == "small_r":
+            sgn = tors[i % len(tors)] + sgn[32:]
+        elif cat == "noncanon_r":
+            sgn = nonc[i % len(nonc)] + sgn[32:]
+        if cat:
+            lab6[i] = ref.verify(m, sgn, k)
+        m6[i, : len(m)] = np.frombuffer(m, np.uint8)
+        l6[i] = len(m)
+        sg6[i] = np.frombuffer(sgn, np.uint8)
+        pk6[i] = np.frombuffer(k, np.uint8)
+        h = int.from_bytes(hashlib.sha512(sgn[:32] + k + m).digest(), "little") % ref.L
+        kw6.append(h)
+    check(not lab6[list(bad6)].any(), "a corrupted K6 lane verifies under ed25519_ref")
+    args6 = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (m6.T, l6, sg6.T, pk6.T)]
+    sl6 = [slot_of[bytes(pk6[i])] for i in range(B6)]
+    mask6, cnt6 = sv.verify_cached(*args6, bank12, sl6, B6, max_msg_len=ML1)
+    gmask6, _ = sv.verify_batch(*args6, B6, max_msg_len=ML1)
+    torch.cuda.synchronize()
+    mask6h = mask6.cpu().numpy()
+    check((mask6h == gmask6.cpu().numpy()).all(), "K6 mask differs from K1's on the same lanes")
+    check((mask6h == lab6).all(), "K6 mask differs from the labels: lanes "
+          + str(np.nonzero(mask6h != lab6)[0][:16].tolist()))
+    check(int(cnt6) == int(lab6.sum()), "K6 ok-count != labels")
+    B6k = K6_SMALL
+    args6k = [a[..., :B6k].contiguous() for a in args6]
+    mk6, ck6 = sv.verify_cached(*args6k, bank12, sl6[:B6k], B6k - 8, max_msg_len=ML1)
+    torch.cuda.synchronize()
+    pmk6, pck6 = sv.verify_cached_plain(*args6k, bank12, sl6[:B6k], B6k - 8, ML1)
+    check(torch.equal(mk6, pmk6) and int(ck6) == int(pck6),
+          "K6 differs from verify_cached_plain at B = 1,024")
+    check(mk6.cpu().numpy().tolist() == lab6[:B6k - 8].tolist() + [False] * 8,
+          "K6 at B = 1,024 differs from the labels")
+    err6 = int((mk6.to(torch.int64) - pmk6.to(torch.int64)).abs().max())
+    # times, CUDA events, of the launches alone (the slot columns already on
+    # the card; the wrappers' host checks and uploads are not kernel time)
+    sl6d = torch.tensor(sl6, dtype=torch.int32, device=dev)
+    sl6kd = sl6d[:B6k].contiguous()
+    ms6 = time_ms(lambda: sv.verify_cached_launch(*args6, bank12, sl6d, B6, ML1), reps=5)
+    ms6k = time_ms(lambda: sv.verify_cached_launch(*args6k, bank12, sl6kd, B6k, ML1),
+                   reps=10)
+    ms1_6 = time_ms(lambda: sv.verify_batch(*args6, B6, max_msg_len=ML1), reps=3)
+    plain6 = time_host_ms(lambda: sv.verify_cached_plain(*args6k, bank12, sl6[:B6k], B6k, ML1))
+    ms7 = time_ms(lambda: sv.comb_fill(pk32), reps=10)
+    ms7all = time_ms(lambda: sv.comb_fill(pk12), reps=3)
+    plain7 = time_host_ms(lambda: sv.comb_fill_plain(pk32))
+    # K8 and index_copy_ take microseconds, less than a launch costs the
+    # host: hide_host queues them behind a busy-wait so the events time the
+    # card's work back to back
+    b8 = sv.bank_alloc(BANK_SLOTS, device=dev)
+    s32 = torch.from_numpy(slots12[:32]).to(dev)
+    ms8 = time_ms(lambda: sv.bank_install_launch(b8, t32, s32), reps=20, hide_host=True)
+    ms8all = time_ms(lambda: sv.bank_install_launch(b8, tv12, s12), reps=10, hide_host=True)
+    lib8 = time_ms(lambda: b8.index_copy_(0, s32, t32), reps=20, hide_host=True)
+    lib8all = time_ms(lambda: b8.index_copy_(0, s12, tv12), reps=10, hide_host=True)
+    # bounds from this run's inputs: K6 counts the full work of the lanes
+    # that do it all (honest and corrupted-message lanes) and the distinct
+    # bank and base-comb entries the batch reads
+    full6 = [i for i in range(B6) if bad6.get(i) in (None, "bad_msg")]
+    sha6 = sum((int(l6[i]) + 64 + 17 + 127) // 128 for i in full6) * SHA512_OPS_PER_BLOCK
+    ops6 = len(full6) * sv.MULS_PER_CACHED_LANE * sv.PRODUCTS_PER_MUL + sha6
+    ent_a = {(sl6[i], j, (kw6[i] >> (4 * j)) & 15) for i in full6 for j in range(64)}
+    ent_b = {(j, (int.from_bytes(bytes(sg6[i, 32:]), "little") >> (4 * j)) & 15)
+             for i in full6 for j in range(64)}
+    bytes6 = B6 * (ML1 + 4 + 64 + 32 + 4) + 160 * (len(ent_a) + len(ent_b)) + B6 + 4
+    bms6, bby6 = bound(ops6, bytes6)
+    bms7, bby7 = bound(32 * sv.MULS_PER_COMB_FILL * sv.PRODUCTS_PER_MUL,
+                       32 * (32 + sv.BANK_SLOT_BYTES + 1))
+    bms7all, bby7all = bound(M12 * sv.MULS_PER_COMB_FILL * sv.PRODUCTS_PER_MUL,
+                             M12 * (32 + sv.BANK_SLOT_BYTES + 1))
+    bms8, bby8 = bound(0, 32 * (2 * sv.BANK_SLOT_BYTES + 8))
+    bms8all, bby8all = bound(0, VOTERS * (2 * sv.BANK_SLOT_BYTES + 8))
+    kernels.append(dict(
+        name="verify_cached", route="cuda", source="firedancer_tpu_torch/csrc/verify_cached.cu",
+        replaces="firedancer_tpu/ops/sigverify.py:138", launches=None, max_abs_err=err6,
+        ms=ms6, plain_ms=plain6, bound_ms=bms6, bound_by=bby6, library_ms=None,
+        matched=True, shape=f"B={B6} max_msg_len={ML1} bank={BANK_SLOTS}",
+        plain_shape=f"B={B6k}", ms_batch1024=ms6k, ms_k1_same_lanes=ms1_6,
+        sigverify_per_s=B6 / ms6 * 1e3, phase_launches=kbuild.LAUNCHES["verify_cached"]))
+    kernels.append(dict(
+        name="comb_fill", route="cuda", source="firedancer_tpu_torch/csrc/comb_fill.cu",
+        replaces="firedancer_tpu/ops/sigverify.py:175", launches=None, max_abs_err=0,
+        ms=ms7, plain_ms=plain7, bound_ms=bms7, bound_by=bby7, library_ms=None,
+        matched=True, shape="M=32", ms_all=ms7all, shape_all=f"M={M12}",
+        bound_ms_all=bms7all, bound_by_all=bby7all,
+        phase_launches=kbuild.LAUNCHES["comb_fill"]))
+    kernels.append(dict(
+        name="bank_install", route="cuda", source="firedancer_tpu_torch/csrc/bank_install.cu",
+        replaces="firedancer_tpu/ops/sigverify.py:188", launches=None, max_abs_err=0,
+        ms=ms8, plain_ms=lib8, bound_ms=bms8, bound_by=bby8, library_ms=lib8,
+        matched=True, shape=f"M=32 bank={BANK_SLOTS}", ms_all=ms8all,
+        library_ms_all=lib8all, shape_all=f"M={VOTERS}", bound_ms_all=bms8all,
+        phase_launches=kbuild.LAUNCHES["bank_install"]))
+    del b8, tall, tv12
+    log(f"[comb] {len(vs13.stream)} frames signed in {sign_s:.1f} s; K7 comb_fill M=32:"
+        f" {ms7:.4f} ms (bound {bms7:.4f} ms, {bby7}), M={M12}: {ms7all:.4f} ms (bound"
+        f" {bms7all:.4f} ms, {bby7all}); tables and ok equal to plain on every column,"
+        f" ok to ed25519_ref ({int(okh.sum())} of {M12}), 256 entries to Python ints;"
+        f" plain at M=32 {plain7:.1f} ms")
+    log(f"[comb] K8 bank_install M=32: {ms8:.4f} ms (index_copy_ {lib8:.4f} ms, bound"
+        f" {bms8:.4f} ms), M={VOTERS}: {ms8all:.4f} ms (index_copy_ {lib8all:.4f} ms, bound"
+        f" {bms8all:.4f} ms); equal to index_copy_, untouched slots zero, reinstall ok")
+    log(f"[comb] K6 verify_cached B={B6}: {ms6:.4f} ms = {B6 / ms6 / 1e3:.0f} k sigverify/s"
+        f" (bound {bms6:.4f} ms, {bby6}: {ops6:.4g} ops; bytes {bytes6:.4g} ="
+        f" {bytes6 / HBM_BYTES_PER_S * 1e3:.4f} ms with {len(ent_a)} bank entries read; K1 on the same lanes"
+        f" {ms1_6:.4f} ms); B={B6k}: {ms6k:.4f} ms, plain {plain6:.1f} ms; mask equal to K1's,"
+        f" the labels ({int(lab6.sum())} of {B6} pass) and plain")
+
+    # -- 13. the comb pipeline (the repeated-signer lane's main path) ------------------------
+    # who sends this traffic: a Solana leader's ingress during its slots,
+    # mostly votes from the voting validator set (one key each, one vote per
+    # slot) mixed with fee-paying transfers
+    e13 = vs13.expect
+    ends13 = [vs13.wave1, len(vs13.stream)]
+
+    def drive_comb(comb_slots: int) -> tuple[float, dict, dict]:
+        """One run of a fresh verify pipeline over the vote stream in its two
+        waves: (seconds, report, launches), checked."""
+        pipe = build_verify_pipeline(vs13.stream, device=dev, batch=B1, max_msg_len=ML1,
+                                     comb_slots=comb_slots, promote_threshold=2)
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        pipe.run_waves(ends13)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rep = pipe.report()
+        la = dict(kbuild.LAUNCHES)
+        v = rep["verify"]
+        where = f"comb_slots={comb_slots} pipeline"
+        for stage, key, want in (("verify", "txn_verified", e13["txn_verified"]),
+                                 ("verify", "verify_fail", e13["verify_fail"]),
+                                 ("verify", "parse_fail", e13["parse_fail"]),
+                                 ("verify", "dedup_dup", e13["tile_dedup_dup"]),
+                                 ("dedup", "dedup_dup", e13["dedup_dup"]),
+                                 ("sink", "txn_sunk", e13["sunk"])):
+            check(rep[stage].get(key, 0) == want,
+                  f"{where} {stage}.{key} {rep[stage].get(key, 0)} != {want}")
+        check(sorted(p for p, _ in pipe.sink.frames) == sorted_sunk13, f"{where} sink frames")
+        want_la = {"verify_batch": v["batches"] - v.get("comb_batches", 0),
+                   "verify_cached": v.get("comb_batches", 0),
+                   "comb_fill": v.get("comb_fills", 0),
+                   "bank_install": v.get("comb_installs", 0)}
+        check({k: la.get(k, 0) for k in want_la} == want_la,
+              f"{where}: launches {la} != the stage's batches and fills {want_la}")
+        if comb_slots:
+            check(v.get("comb_filled", 0) == e13["comb_filled"],
+                  f"{where}: comb_filled {v.get('comb_filled', 0)} != {e13['comb_filled']}")
+            check(v.get("comb_elems", 0) == e13["comb_elems"],
+                  f"{where}: comb_elems {v.get('comb_elems', 0)} != {e13['comb_elems']}")
+            check(min(want_la.values()) > 0, f"{where}: a comb-lane kernel never launched")
+        return run_s, rep, la
+
+    sorted_sunk13 = sorted(vs13.expect_sunk)
+    run13_s, rep13, launches13 = drive_comb(BANK_SLOTS)
+    run13g_s, rep13g, launches13g = drive_comb(0)
+    txn13 = rep13["sink"]["txn_sunk"] / run13_s
+    txn13g = rep13g["sink"]["txn_sunk"] / run13g_s
+    v13 = rep13["verify"]
+    busy13 = (launches13.get("verify_batch", 0) * ms1k + launches13["verify_cached"] * ms6k
+              + launches13["comb_fill"] * ms7 + launches13["bank_install"] * ms8) / (run13_s * 1e3)
+    log(f"[comb-pipeline] {len(vs13.stream)} frames ({VOTERS} voters x {VOTE_ROUNDS} slots,"
+        f" {VOTE_TRANSFERS} transfers), bank {BANK_SLOTS} slots: {run13_s:.3f} s ="
+        f" {txn13:.0f} txn/s sunk; comb_slots=0 on the same stream {run13g_s:.3f} s ="
+        f" {txn13g:.0f} txn/s; comb_filled {v13['comb_filled']}, comb_elems"
+        f" {v13['comb_elems']} of {v13['batch_elems']}; launches {launches13} (generic:"
+        f" {launches13g}); device busy <= {busy13:.3f} of the run; counters {json.dumps(rep13)}")
+    rounds13 = [(txn13, txn13g)]
+    for r in range(COMB_REPEAT_ROUNDS):
+        got = {}
+        for cs in ((0, BANK_SLOTS) if r % 2 == 0 else (BANK_SLOTS, 0)):
+            run_s_, rep_, _ = drive_comb(cs)
+            got[cs] = rep_["sink"]["txn_sunk"] / run_s_
+        rounds13.append((got[BANK_SLOTS], got[0]))
+    c13s, g13s = sorted(a for a, _ in rounds13), sorted(b for _, b in rounds13)
+    ratios13 = sorted(a / b for a, b in rounds13)
+    mid = len(rounds13) // 2
+    log(f"[comb-repeat] {len(rounds13)} rounds (the first is above): comb pipeline txn/s"
+        f" median {c13s[mid]:.0f} (min {c13s[0]:.0f}, max {c13s[-1]:.0f}); comb_slots=0"
+        f" median {g13s[mid]:.0f} (min {g13s[0]:.0f}, max {g13s[-1]:.0f}); comb/generic per"
+        f" round median {ratios13[mid]:.3f} (min {ratios13[0]:.3f}, max {ratios13[-1]:.3f});"
+        f" rounds (comb, generic) {[(round(a), round(b)) for a, b in rounds13]}")
+
     for k in kernels:
         check(k["phase_launches"] > 0, f"{k['name']} never launched in its phase")
-        k["launches"] = launches10.get(k["name"], 0)
+        # each kernel's main path: the comb pipeline for the comb lane's
+        # kernels, the plane pipeline for the others
+        comb_lane = k["name"] in ("verify_cached", "comb_fill", "bank_install")
+        k["launches"] = (launches13 if comb_lane else launches10).get(k["name"], 0)
         k["launches_by_path"] = {"verify_pipeline": launches7.get(k["name"], 0),
                                  "plane_pipeline": launches10.get(k["name"], 0),
-                                 "leader_step": launches11.get(k["name"], 0)}
+                                 "leader_step": launches11.get(k["name"], 0),
+                                 "comb_pipeline": launches13.get(k["name"], 0)}
     check(ref.verify(b"", ref.sign(b"\x01" * 32, b""), ref.public_key(b"\x01" * 32)),
           "ed25519_ref self-check")
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,10 @@
 """The port's command line; every command runs on the card unless --cpu.
 
-    python -m firedancer_tpu_torch run --txns N [--shards S] [--cpu]
+    python -m firedancer_tpu_torch run --txns N [--shards S] [--comb-slots N] [--cpu]
         drive benchg -> verify -> dedup -> sink (with --shards S: through
-        the router and the serving plane over S devices) and print
-        per-stage counters and txn/s with the device's name.
+        the router and the serving plane over S devices; with --comb-slots
+        N: repeat signers through an N-slot comb bank) and print per-stage
+        counters and txn/s with the device's name.
     python -m firedancer_tpu_torch warmup [--devices N] [--assert-warm S]
         build and load the serving plane's kernels and run one step at its
         shapes (the counterpart of the JAX package's AOT warmup); prints the
@@ -23,6 +24,10 @@ def cmd_run(args) -> int:
     from .runtime.benchg import gen_transfer_pool
     from .utils.platform import device_name, resolve_device
 
+    if args.shards and args.comb_slots:
+        print("run: --comb-slots needs the unsharded pipeline (the serving"
+              " plane's stage has no comb lane)", file=sys.stderr)
+        return 2
     dev = resolve_device("cpu" if args.cpu else None)
     t0 = time.perf_counter()
     pool = gen_transfer_pool(args.txns, seed=args.seed.encode())
@@ -37,13 +42,15 @@ def cmd_run(args) -> int:
         warmup_s = pipe.verify.plane.warmup()
     else:
         pipe = build_verify_pipeline(pool, device=dev, batch=args.batch,
-                                     max_msg_len=args.max_msg_len)
+                                     max_msg_len=args.max_msg_len,
+                                     comb_slots=args.comb_slots)
     t0 = time.perf_counter()
     pipe.run()
     run_s = time.perf_counter() - t0
     out = {
         "device": device_name(dev),
         "shards": args.shards or None,
+        "comb_slots": args.comb_slots,
         "txns": args.txns,
         "pool_gen_s": gen_s,
         "warmup_s": warmup_s,
@@ -91,6 +98,8 @@ def main(argv=None) -> int:
                    help="verify batch (per shard with --shards)")
     r.add_argument("--shards", type=int, default=0,
                    help="route through the serving plane over this many devices")
+    r.add_argument("--comb-slots", type=int, default=0,
+                   help="comb-bank slots for repeat signers (0 = off)")
     r.add_argument("--max-msg-len", type=int, default=1232)
     r.add_argument("--seed", default="benchg")
     r.add_argument("--cpu", action="store_true",

@@ -96,3 +96,19 @@ __device__ __forceinline__ void sha512_lane(const Src& src, uint32_t len,
     sha512_compress(st, w);
   }
 }
+
+// The verify kernels' message source: R || A || msg read in place from
+// sig (64, B), pubkey (32, B) and msg (max_len, B) byte rows, with no
+// concatenation (csrc/verify.cu, csrc/verify_cached.cu).
+struct VerifySrc {
+  const uint8_t* __restrict__ sig;
+  const uint8_t* __restrict__ pk;
+  const uint8_t* __restrict__ msg;
+  int64_t B;
+  int64_t lane;
+  __device__ __forceinline__ uint8_t operator()(uint32_t pos) const {
+    if (pos < 32) return __ldg(sig + (int64_t)pos * B + lane);
+    if (pos < 64) return __ldg(pk + (int64_t)(pos - 32) * B + lane);
+    return __ldg(msg + (int64_t)(pos - 64) * B + lane);
+  }
+};

@@ -26,19 +26,6 @@
 #include "curve.cuh"
 #include "sha512.cuh"
 
-struct VerifySrc {
-  const uint8_t* __restrict__ sig;
-  const uint8_t* __restrict__ pk;
-  const uint8_t* __restrict__ msg;
-  int64_t B;
-  int64_t lane;
-  __device__ __forceinline__ uint8_t operator()(uint32_t pos) const {
-    if (pos < 32) return __ldg(sig + (int64_t)pos * B + lane);
-    if (pos < 64) return __ldg(pk + (int64_t)(pos - 32) * B + lane);
-    return __ldg(msg + (int64_t)(pos - 64) * B + lane);
-  }
-};
-
 __device__ bool verify_lane(const uint8_t* __restrict__ msg, int32_t msg_len,
                             const uint8_t* __restrict__ sig,
                             const uint8_t* __restrict__ pk,
@@ -63,11 +50,8 @@ __device__ bool verify_lane(const uint8_t* __restrict__ msg, int32_t msg_len,
   sc_reduce512(st, kwords);
 
   uint8_t kw[64], s_w[64];
-#pragma unroll
-  for (int j = 0; j < 64; j++) {
-    kw[j] = (uint8_t)((kwords[j >> 4] >> (4 * (j & 15))) & 15);
-    s_w[j] = (uint8_t)((sw[j >> 4] >> (4 * (j & 15))) & 15);
-  }
+  sc_windows(kwords, kw);
+  sc_windows(sw, s_w);
   ge r_cmp = ge_double_scalar_mul_base(kw, ge_neg(A), s_w, comb);
   return ge_eq_z1(r_cmp, R);
 }

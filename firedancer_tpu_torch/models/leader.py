@@ -1,7 +1,8 @@
 """The verify slice of the leader pipeline, assembled, unsharded and
 through the serving plane:
 
-    benchg -> verify (sigverify kernel on the card) -> dedup -> sink
+    benchg -> verify (sigverify kernel on the card; with comb_slots > 0,
+              repeat signers through the comb bank) -> dedup -> sink
     benchg -> router -> per-shard links -> sharded verify (the plane's
               step: K1, plus K4 on parked PoH spans) -> dedup -> sink
 
@@ -68,6 +69,18 @@ class VerifyPipeline:
                 break
             self.verify.flush()
 
+    def run_waves(self, ends: list[int]) -> None:
+        """Send the stream in waves: benchg's limit is raised to each end in
+        turn and the wave runs until the pipeline is idle; then the verify
+        stage's housekeeping is called until its fill queue is drained (the
+        comb bank's normal fill path, COMB_FILL_BATCH keys per call)."""
+        v = self.verify
+        for end in ends:
+            self.benchg.limit = end
+            self.run()
+            while v._fill_queue and v._free_slots:
+                v.during_housekeeping()
+
     def report(self) -> dict:
         return {s.name: dict(s.metrics.counters) for s in self.stages}
 
@@ -76,12 +89,16 @@ LINK_DEPTH = 4096
 
 
 def build_verify_pipeline(stream: list[bytes], *, device=None,
-                          batch: int = 1024,
-                          max_msg_len: int = 1232) -> VerifyPipeline:
+                          batch: int = 1024, max_msg_len: int = 1232,
+                          comb_slots: int = 0,
+                          promote_threshold: int = 2) -> VerifyPipeline:
     """benchg -> verify -> dedup -> sink.  benchg sends `stream` once, in
     order (gen_transfer_pool gives a pool of signed transfers).  The verify
     stage runs on `device` (default the card; "cpu" runs the plain
-    versions)."""
+    versions).  comb_slots > 0 turns on the repeated-signer lane with a
+    bank of that many slots (160 KB each on the device): a signer seen
+    promote_threshold times is banked and verifies on the cached lane (the
+    counterpart of build_leader_pipeline(verify_comb_slots=...))."""
     dev = resolve_device(device)
     gen_verify = Link("gen_verify", LINK_DEPTH)
     verify_dedup = Link("verify_dedup", LINK_DEPTH)
@@ -90,7 +107,8 @@ def build_verify_pipeline(stream: list[bytes], *, device=None,
                          limit=len(stream))
     verify = VerifyStage("verify", [Consumer(gen_verify)],
                          [Producer(verify_dedup)], device=dev, batch=batch,
-                         max_msg_len=max_msg_len)
+                         max_msg_len=max_msg_len, comb_slots=comb_slots,
+                         promote_threshold=promote_threshold)
     dedup = DedupStage("dedup", [Consumer(verify_dedup)], [Producer(dedup_sink)])
     sink = SinkStage("sink", [Consumer(dedup_sink)])
     return VerifyPipeline(

@@ -213,3 +213,106 @@ def verify_stream(n_transfers: int, *, seed: bytes = b"benchg",
         "sunk": len(sunk),
     }
     return VerifyStream(stream, sunk, expect)
+
+
+# -- the vote-heavy stream (the comb lane's traffic) -------------------------
+
+def voter_keys(n_voters: int, seed: bytes = b"votes") -> list[tuple[bytes, bytes]]:
+    """[(secret, pubkey)] of `n_voters` validators' vote keys, from the seed."""
+    out = []
+    for i in range(n_voters):
+        secret = hashlib.sha256(seed + b"voter%d" % i).digest()
+        out.append((secret, ref.public_key(secret)))
+    return out
+
+
+@dataclass
+class VoteStream:
+    stream: list          # frames in send order
+    wave1: int            # stream[:wave1] is rounds 1-2, the rest is wave 2
+    expect_sunk: list     # verified frames the sink must hold (either lane order)
+    expect: dict          # counter name -> expected value
+    voters: list          # [(secret, pubkey)] of the valid voters
+
+
+def vote_stream(n_voters: int, n_rounds: int, *, seed: bytes = b"votes",
+                n_transfers: int = 0, n_payers: int = 8, n_corrupt: int = 3,
+                n_multisig: int = 2, n_resend: int = 1,
+                first_slot: int = 1000) -> VoteStream:
+    """A leader's ingress during its slots: every voter signs one vote per
+    slot with its one key, for `n_rounds` slots, mixed with benchg
+    transfers from `n_payers` payers; plus, in every round, a vote from a
+    voter whose pubkey does not decode, and in wave 2 corrupted votes from
+    repeat voters, two-signer txns of a repeat voter and a fresh key, and
+    resent votes past the tile tcache.
+
+    Two waves for a stage with promote_threshold 2: wave 1 (rounds 1-2)
+    shows every voter and payer exactly twice (each payer sends one
+    transfer per round there), so no element of wave 1 can take the cached
+    lane however the stage's fills are timed; wave 2 holds rounds 3.. and
+    the rest of the transfers.  With every repeat signer banked before
+    wave 2 (a bank of at least n_voters + n_payers slots), `comb_filled`
+    and `comb_elems` are known up front, in `expect`.
+    """
+    if n_rounds < 3:
+        raise ValueError("vote_stream: need at least 3 rounds (2 in wave 1)")
+    voters = voter_keys(n_voters, seed)
+    accts = [hashlib.sha256(seed + b"vote-acct%d" % i).digest() for i in range(n_voters)]
+    bh = pool_blockhash(seed)
+    bad_secret = hashlib.sha256(seed + b"bad-voter").digest()
+    bad_pub = nonsquare_encodings(1)[0]
+    bad_acct = hashlib.sha256(seed + b"bad-acct").digest()
+    n_p = min(n_payers, n_transfers)
+    if n_transfers and n_transfers < 2 * n_p:
+        raise ValueError("vote_stream: need two transfers per payer in wave 1")
+    xfers = gen_transfer_pool(n_transfers, seed=seed, n_payers=n_p) if n_transfers else []
+    per_round = [xfers[:n_p], xfers[n_p:2 * n_p]]
+    per_round += [list(a) for a in np.array_split(np.array(xfers[2 * n_p:], dtype=object),
+                                                  n_rounds - 2)]
+
+    def votes(r: int) -> list[bytes]:
+        slot = first_slot + r
+        out = [ft.vote_txn(sk, accts[i], slot, bh, voter_pubkey=pk)
+               for i, (sk, pk) in enumerate(voters)]
+        # last in its round: a full fill queue refuses it before any voter
+        return out + [ft.vote_txn(bad_secret, bad_acct, slot, bh, voter_pubkey=bad_pub)]
+
+    rounds = [list(per_round[r]) + votes(r) for r in range(n_rounds)]
+    wave1 = len(rounds[0]) + len(rounds[1])
+    corrupt = []
+    for c in range(n_corrupt):
+        i = c % n_voters
+        p = bytearray(ft.vote_txn(voters[i][0], accts[i], first_slot + n_rounds + c, bh,
+                                  voter_pubkey=voters[i][1]))
+        p[-1] ^= 0x01  # the last byte of the signed message
+        corrupt.append(bytes(p))
+    multi = []
+    for k in range(n_multisig):
+        fresh = hashlib.sha256(seed + b"fresh%d" % k).digest()
+        sk, pk = voters[k % n_voters]
+        multi.append(multisig_txn([sk, fresh], [pk, ref.public_key(fresh)], bh, k))
+    resend = rounds[0][n_p:n_p + n_resend]  # round-1 votes, long past the tile tcache
+    rounds[2] = rounds[2] + corrupt + multi + resend
+    stream = [p for r in rounds for p in r]
+    good = {p for r in rounds for p in r
+            if p not in corrupt and ft.txn_parse(p).signers(p)[0] != bad_pub}
+    seen, sunk = set(), []
+    for p in stream:
+        if p in good and p not in seen:
+            seen.add(p)
+            sunk.append(encode_verified(p, ft.txn_parse(p)))
+    n_votes = n_voters * n_rounds
+    expect = {
+        "txn_verified": n_votes + n_transfers + n_multisig + n_resend,
+        "verify_fail": n_rounds + n_corrupt,
+        "parse_fail": 0,
+        "tile_dedup_dup": 0,
+        "dedup_dup": n_resend,
+        "sunk": len(sunk),
+        "comb_filled": n_voters + n_p,
+        # wave 2's elements whose signers are all banked: votes, transfers,
+        # corrupted votes and resends (not the two-signer txns)
+        "comb_elems": (n_voters * (n_rounds - 2) + n_transfers - 2 * n_p
+                       + n_corrupt + n_resend),
+    }
+    return VoteStream(stream, wave1, sunk, expect, voters)

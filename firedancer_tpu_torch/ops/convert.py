@@ -61,3 +61,20 @@ def comb_from_jax(tbl: np.ndarray) -> np.ndarray:
     tbl = np.asarray(tbl)
     lead = np.moveaxis(tbl, -1, 0)  # (20, 64, 16, 4)
     return np.moveaxis(fe_from_jax(lead), 0, -1).astype(np.int32)
+
+
+def bank_from_jax(bank: np.ndarray) -> np.ndarray:
+    """JAX comb bank (64, 16, 4, 20, N) int16 -> the port's slot-major bank
+    (N, 64, 16, 4, 10) int32, canonical limbs (also takes JAX comb_fill
+    tables, whose trailing axis is the key)."""
+    lead = np.moveaxis(np.asarray(bank).astype(np.int64), 3, 0)  # (20, 64, 16, 4, N)
+    port = fe_from_jax(lead)  # (10, 64, 16, 4, N)
+    return np.ascontiguousarray(np.moveaxis(port, (0, 4), (4, 0))).astype(np.int32)
+
+
+def bank_to_jax(bank: np.ndarray) -> np.ndarray:
+    """The port's bank (N, 64, 16, 4, 10) -> JAX (64, 16, 4, 20, N) int16,
+    canonical limbs (radix-2^13 limbs of a canonical value fit int16)."""
+    lead = np.moveaxis(np.asarray(bank).astype(np.int64), (4, 0), (0, 4))  # (10, 64, 16, 4, N)
+    jax = fe_to_jax(lead)  # (20, 64, 16, 4, N)
+    return np.ascontiguousarray(np.moveaxis(jax, 0, 3)).astype(np.int16)

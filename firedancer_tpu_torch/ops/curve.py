@@ -208,3 +208,77 @@ def comb_table(device) -> torch.Tensor:
         t = torch.from_numpy(_COMB_HOST[0]).to(device).contiguous()
         _COMB_DEVICE[key] = t
     return t
+
+
+# -- per-signer combs (the comb bank) -------------------------------------------
+#
+# The port's bank is slot-major, (N, 64, 16, 4, 10) int32: one slot is one
+# signer's comb in the base comb's layout, 163,840 contiguous bytes, and the
+# entry for window j and digit m is one contiguous 160-byte read.  (The JAX
+# bank, (64, 16, 4, 20, N) int16 with the slot on the trailing lane axis, is
+# shaped for the TPU's vector unit; ops/convert.py maps one to the other.)
+# Entries hold -[m 16^j]A in cached form with a general Z.
+
+COMB_SLOT_SHAPE = (NWIN, 16, 4, fl.NLIMB)
+
+
+def comb_tables(a_point):
+    """(*batch, 64, 16, 4, 10) int32 comb of -A for a batch of points.
+
+    a_point: extended (X, Y, Z, T), each (10, *batch).  The counterpart of
+    ops/curve.py:399 comb_tables, with its chain: A_j = [16^j]A by four
+    doublings per window; window j holds the cached forms of -[m]A_j, m =
+    0..15, from the identity, A_j, then [m]A_j = 2 [m/2]A_j for even m and
+    [m-1]A_j + A_j for odd m.  The 64 windows are built together (the
+    windows are a batch axis here), entry by entry the same arithmetic as
+    K7's per-window threads, so the limbs agree exactly.
+    """
+    batch = tuple(a_point[0].shape[1:])
+    dev = a_point[0].device
+    chain = [a_point]
+    for _ in range(NWIN - 1):
+        p = chain[-1]
+        for _ in range(4):
+            p = point_dbl(p)
+        chain.append(p)
+    a = tuple(torch.stack([p[c] for p in chain], dim=1) for c in range(4))
+    pts = [identity((NWIN,) + batch, dev), a]
+    for m in range(2, 16):
+        pts.append(point_dbl(pts[m // 2]) if m % 2 == 0
+                   else point_add(pts[m - 1], a))
+    rows = []
+    for p in pts:
+        ypx, ymx, z, t2d = to_cached(p)
+        rows.append(torch.stack([ymx, ypx, z, fl.fe_neg(t2d)]))
+    out = torch.stack(rows)  # (16, 4, 10, 64, *batch)
+    n = len(batch)
+    return out.permute(*range(4, 4 + n), 3, 0, 1, 2).to(torch.int32).contiguous()
+
+
+def _entry(ent):
+    """(*batch, 4, 10) cached entries -> 4 components of (10, *batch)."""
+    n = ent.dim() - 2
+    ent = ent.to(torch.int64).permute(n, n + 1, *range(n))
+    return tuple(ent[c] for c in range(4))
+
+
+def double_scalar_mul_comb(k_windows: torch.Tensor, s_windows: torch.Tensor,
+                           bank: torch.Tensor, slots: torch.Tensor,
+                           comb: torch.Tensor):
+    """[s]B + [k](-A) where each lane's -A comb is bank[slots[lane]].
+
+    k_windows, s_windows: (64, B) 4-bit windows, least significant first;
+    bank: (N, 64, 16, 4, 10) int32; slots: (B,) in [0, N); comb: the base
+    comb (64, 16, 4, 10).  64 windows, least significant first, each one
+    cached add from the signer's comb and one from the base comb, no
+    doublings (the counterpart of ops/curve.py:429).
+    """
+    batch = k_windows.shape[1:]
+    dev = k_windows.device
+    slots = slots.to(device=dev, dtype=torch.int64)
+    comb = comb.to(dev)
+    acc = identity(batch, dev)
+    for j in range(NWIN):
+        acc = add_cached(acc, _entry(bank[slots, j, k_windows[j].to(torch.int64)]))
+        acc = add_cached(acc, _entry(comb[j][s_windows[j].to(torch.int64)]))
+    return acc

@@ -1,6 +1,8 @@
 """Batched ed25519 signature verification: the `verify_batch` kernel
 wrapper (K1), its plain PyTorch version, and the kernel ladder the verify
-stage dispatches through.
+stage dispatches through; and the repeated-signer lane's wrappers, each
+beside its plain version: `verify_cached` (K6), `comb_fill` (K7) and
+`bank_install` (K8) over a comb bank from `bank_alloc`.
 
 Semantics match firedancer_tpu/ops/sigverify.py (and the reference
 validator's fd_ed25519_verify) exactly:
@@ -22,9 +24,11 @@ neighbouring addresses, which is what one-signature-per-thread loads want.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import kbuild
+from ..utils.platform import resolve_device
 from . import curve as fc
 from . import scalar as fs
 from . import sha512 as fsha
@@ -45,12 +49,25 @@ MULS_DSM = 7 * 8 + 7 * 8 + 16 + 64 * (4 * 8 + 8) + 64 * 8
 MULS_EQ_Z1 = 2
 MULS_PER_VALID_LANE = 2 * (MULS_DECOMPRESS + MULS_SMALL_ORDER) + MULS_DSM + MULS_EQ_Z1
 PRODUCTS_PER_MUL = 100
+# the cached lane (K6, csrc/verify_cached.cu): R's decompression and small-
+# order check, 128 cached adds (one from the signer's comb and one from the
+# base comb per window), the compare; A is not decompressed
+MULS_CACHED_DSM = 2 * 64 * 8
+MULS_PER_CACHED_LANE = MULS_DECOMPRESS + MULS_SMALL_ORDER + MULS_CACHED_DSM + MULS_EQ_Z1
+# comb_fill per pubkey (K7, csrc/comb_fill.cu): decompression and small
+# order, the chain A_j = [16^j]A (63 x 4 doublings), and 64 windows of 2
+# conversions to cached form + 7 doublings + 7 cached adds + 14 conversions
+MULS_COMB_WINDOW = 2 + 7 * 8 + 7 * 8 + 14
+MULS_PER_COMB_FILL = (MULS_DECOMPRESS + MULS_SMALL_ORDER + 63 * 4 * 8
+                      + 64 * MULS_COMB_WINDOW)
+# one bank slot: one signer's comb, (64, 16, 4, 10) int32
+BANK_SLOT_BYTES = 4 * int(np.prod(fc.COMB_SLOT_SHAPE))
 
 
-def _verify_ok_plain(msg, msg_len, sig, pubkey, max_msg_len: int):
-    """The plain version of the kernel's per-lane ladder, vectorised over
-    the batch (every lane runs every step; the AND of the checks is the
-    same as the kernel's early exits)."""
+def _lane_checks(msg, msg_len, sig, pubkey, max_msg_len: int):
+    """The steps both lanes share, vectorised over the batch: -> (ok_s &
+    ok_len & R decompresses and is not of small order, R, k windows, s
+    windows), with k = SHA512(R || A || msg) mod L."""
     msg = msg.to(torch.int64)
     sig = sig.to(torch.int64)
     pubkey = pubkey.to(torch.int64)
@@ -58,17 +75,25 @@ def _verify_ok_plain(msg, msg_len, sig, pubkey, max_msg_len: int):
     r_enc, s_enc = sig[:32], sig[32:]
     ok_s = fs.sc_validate(s_enc)
     ok_len = (ln >= 0) & (ln <= max_msg_len)
-    a_pt, ok_a = fc.point_decompress(pubkey)
     r_pt, ok_r = fc.point_decompress(r_enc)
-    ok_a = ok_a & ~fc.is_small_order(a_pt)
     ok_r = ok_r & ~fc.is_small_order(r_pt)
     hmsg = torch.cat([r_enc, pubkey, msg[:max_msg_len]], dim=0)
     digest = fsha.sha512_msg(hmsg, ln + 64, max_msg_len + 64)
-    k = fs.sc_reduce512(digest)
-    r_cmp = fc.double_scalar_mul_base(
-        fs.sc_windows(k), fc.point_neg(a_pt),
-        fs.sc_windows(fs.sc_frombytes(s_enc)), fc.comb_table(msg.device))
-    return ok_s & ok_len & ok_a & ok_r & fc.point_eq_z1(r_cmp, r_pt)
+    kw = fs.sc_windows(fs.sc_reduce512(digest))
+    sw = fs.sc_windows(fs.sc_frombytes(s_enc))
+    return ok_s & ok_len & ok_r, r_pt, kw, sw
+
+
+def _verify_ok_plain(msg, msg_len, sig, pubkey, max_msg_len: int):
+    """The plain version of the kernel's per-lane ladder, vectorised over
+    the batch (every lane runs every step; the AND of the checks is the
+    same as the kernel's early exits)."""
+    ok, r_pt, kw, sw = _lane_checks(msg, msg_len, sig, pubkey, max_msg_len)
+    a_pt, ok_a = fc.point_decompress(pubkey.to(torch.int64))
+    ok_a = ok_a & ~fc.is_small_order(a_pt)
+    r_cmp = fc.double_scalar_mul_base(kw, fc.point_neg(a_pt), sw,
+                                      fc.comb_table(msg.device))
+    return ok & ok_a & fc.point_eq_z1(r_cmp, r_pt)
 
 
 def verify_batch_plain(msg, msg_len, sig, pubkey, n_real: int, max_msg_len: int):
@@ -78,7 +103,7 @@ def verify_batch_plain(msg, msg_len, sig, pubkey, n_real: int, max_msg_len: int)
     return ok, ok.sum(dtype=torch.int32)
 
 
-def _check_inputs(msg, msg_len, sig, pubkey, max_msg_len):
+def _check_inputs(msg, msg_len, sig, pubkey, max_msg_len, what="verify_batch"):
     dev = msg.device
     bsz = msg_len.shape[0] if msg_len.dim() == 1 else -1
     want = (("msg", msg, torch.uint8, (max_msg_len, bsz)),
@@ -87,9 +112,9 @@ def _check_inputs(msg, msg_len, sig, pubkey, max_msg_len):
             ("pubkey", pubkey, torch.uint8, (32, bsz)))
     for name, t, dtype, shape in want:
         if t.device != dev:
-            raise ValueError(f"verify_batch: {name} on {t.device}, msg on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, msg on {dev}")
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"verify_batch: {name} must be a contiguous {shape}"
+            raise ValueError(f"{what}: {name} must be a contiguous {shape}"
                              f" {dtype}, got {tuple(t.shape)} {t.dtype}")
     return bsz
 
@@ -161,3 +186,225 @@ def verify_dispatch(kernel: str, msg, msg_len, sig, pubkey, n_real: int, *,
                                     max_msg_len=max_msg_len), None
     raise ValueError(f"unknown verify kernel {kernel!r}"
                      f" (ladder: {', '.join(KERNEL_LADDER)})")
+
+
+# -- the repeated-signer (comb-bank) lane ------------------------------------
+#
+# A signer seen often enough gets its comb of -A built once (comb_fill, K7)
+# and installed in a slot of a bank resident on the card (bank_install,
+# K8); every later signature of that signer verifies with 128 cached adds
+# and no doublings (verify_cached, K6).  runtime/verify.py owns the policy.
+
+def _check_bank(bank, dev, what):
+    if bank.device != dev:
+        raise ValueError(f"{what}: bank on {bank.device}, expected {dev}")
+    if (bank.dtype != torch.int32 or bank.dim() != 5
+            or tuple(bank.shape[1:]) != fc.COMB_SLOT_SHAPE or not bank.is_contiguous()):
+        raise ValueError(f"{what}: bank must be a contiguous (N, 64, 16, 4, 10)"
+                         f" int32, got {tuple(bank.shape)} {bank.dtype}")
+    if dev.type == "cuda" and bank.data_ptr() % 16:
+        raise ValueError(f"{what}: bank is not 16-byte aligned")
+
+
+def _host_slots(slots, bsz: int, n_real: int, n_slots: int) -> np.ndarray:
+    """The per-lane slots as a host (B,) int32 array; the real lanes' must
+    lie in [0, N).  Checked on the host, before upload: the stage holds
+    them as a Python list, so this costs no sync."""
+    s = np.asarray(slots)
+    if s.shape != (bsz,) or s.dtype.kind not in "iu":
+        raise ValueError(f"verify_cached: slots must be ({bsz},) integers,"
+                         f" got {s.shape} {s.dtype}")
+    real = s[:n_real]
+    if real.size and (real.min() < 0 or real.max() >= n_slots):
+        raise ValueError(f"verify_cached: slot out of range [0, {n_slots})")
+    return np.ascontiguousarray(s, dtype=np.int32)
+
+
+def verify_cached_plain(msg, msg_len, sig, pubkey, bank, slots, n_real: int,
+                        max_msg_len: int):
+    """The plain version of K6: ((B,) bool mask, () int32 ok-count)."""
+    bsz = msg_len.shape[0]
+    dev = msg.device
+    lane = torch.arange(bsz, device=dev)
+    real = lane < n_real
+    if not n_real:
+        return real, real.sum(dtype=torch.int32)
+    slots = torch.as_tensor(np.asarray(slots, dtype=np.int64), device=dev)
+    slots = torch.where(real, slots, torch.zeros_like(slots))  # pad lanes read slot 0
+    ok, r_pt, kw, sw = _lane_checks(msg, msg_len, sig, pubkey, max_msg_len)
+    r_cmp = fc.double_scalar_mul_comb(kw, sw, bank, slots, fc.comb_table(dev))
+    ok = ok & fc.point_eq_z1(r_cmp, r_pt) & real
+    return ok, ok.sum(dtype=torch.int32)
+
+
+def verify_cached(msg, msg_len, sig, pubkey, bank, slots, n_real: int, *,
+                  max_msg_len: int):
+    """K6: verify B triples whose signers' combs sit in `bank` at `slots`
+    in ONE launch -> ((B,) bool mask with lanes >= n_real False, () int32
+    ok-count), K1's fused contract.
+
+    bank: (N, 64, 16, 4, 10) int32 on msg's device; slots: (B,) integers
+    on the host (a list or numpy array), the real lanes' in [0, N).
+    Replaces ops/sigverify.py:138 ed25519_verify_batch_cached.  On CPU
+    tensors this runs the plain version; on CUDA tensors it launches
+    csrc/verify_cached.cu or raises.
+    """
+    dev = msg.device
+    bsz = _check_inputs(msg, msg_len, sig, pubkey, max_msg_len, "verify_cached")
+    _check_bank(bank, dev, "verify_cached")
+    n_real = int(n_real)
+    slots_h = _host_slots(slots, bsz, n_real, bank.shape[0])
+    if dev.type == "cpu":
+        return verify_cached_plain(msg, msg_len, sig, pubkey, bank, slots_h,
+                                   n_real, max_msg_len)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_cached: unsupported device {dev}")
+    return verify_cached_launch(msg, msg_len, sig, pubkey, bank,
+                                torch.from_numpy(slots_h).to(dev), n_real,
+                                max_msg_len)
+
+
+def verify_cached_launch(msg, msg_len, sig, pubkey, bank, slots_d, n_real: int,
+                         max_msg_len: int):
+    """K6's launch on CUDA tensors that verify_cached has checked; slots_d is
+    the (B,) int32 slot column already on the card (what a timing loop
+    calls, with no host work per launch)."""
+    import ctypes
+
+    dev = msg.device
+    if dev.type != "cuda" or slots_d.device != dev or slots_d.dtype != torch.int32:
+        raise ValueError("verify_cached_launch: CUDA tensors and int32 slots on the card")
+    bsz = msg_len.shape[0]
+    comb = fc.comb_table(dev)
+    lib = kbuild.load("verify_cached")
+    fn = lib.fd_verify_cached
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    rc = fn(msg.data_ptr(), msg_len.data_ptr(), sig.data_ptr(), pubkey.data_ptr(),
+            bank.data_ptr(), slots_d.data_ptr(), comb.data_ptr(), mask.data_ptr(),
+            count.data_ptr(), bsz, max_msg_len, n_real, dev.index or 0,
+            kbuild.stream_ptr(dev))
+    kbuild.check(lib, rc, "verify_cached launch")
+    kbuild.LAUNCHES["verify_cached"] += 1
+    return mask, count.reshape(())
+
+
+def ed25519_verify_batch_cached(msg, msg_len, sig, pubkey, bank, slots, *,
+                                max_msg_len: int):
+    """(B,) bool mask of B triples whose signer combs live in `bank` at
+    `slots` (every lane real)."""
+    return verify_cached(msg, msg_len, sig, pubkey, bank, slots, msg_len.shape[0],
+                         max_msg_len=max_msg_len)[0]
+
+
+def comb_fill_plain(pubkey: torch.Tensor):
+    """The plain version of K7: (32, M) uint8 -> ((M, 64, 16, 4, 10) int32
+    tables, (M,) bool ok)."""
+    a_pt, ok = fc.point_decompress(pubkey)
+    ok = ok & ~fc.is_small_order(a_pt)
+    return fc.comb_tables(a_pt), ok
+
+
+def comb_fill(pubkey, device=None):
+    """K7: decompress and strictly check M pubkeys and build each one's
+    comb of -A -> ((M, 64, 16, 4, 10) int32 tables, (M,) bool ok).  Tables
+    of columns with ok False are built all the same and must not be
+    installed.
+
+    pubkey: (32, M) uint8 byte rows, a tensor (its device is used) or a
+    host array (uploaded to `device`, by default the card).  Replaces
+    ops/sigverify.py:175 comb_fill.  On CPU tensors this runs the plain
+    version; on CUDA tensors it launches csrc/comb_fill.cu or raises.
+    """
+    if not isinstance(pubkey, torch.Tensor):
+        pubkey = torch.from_numpy(np.ascontiguousarray(pubkey, dtype=np.uint8)
+                                  ).to(resolve_device(device))
+    elif device is not None and resolve_device(device) != pubkey.device:
+        raise ValueError(f"comb_fill: pubkey on {pubkey.device}, device={device}")
+    dev = pubkey.device
+    if pubkey.dtype != torch.uint8 or pubkey.dim() != 2 or pubkey.shape[0] != 32 \
+            or not pubkey.is_contiguous():
+        raise ValueError(f"comb_fill: pubkey must be a contiguous (32, M) uint8,"
+                         f" got {tuple(pubkey.shape)} {pubkey.dtype}")
+    m = pubkey.shape[1]
+    if dev.type == "cpu":
+        return comb_fill_plain(pubkey)
+    import ctypes
+
+    if dev.type != "cuda":
+        raise ValueError(f"comb_fill: unsupported device {dev}")
+    lib = kbuild.load("comb_fill")
+    fn = lib.fd_comb_fill
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tables = torch.empty((m,) + fc.COMB_SLOT_SHAPE, dtype=torch.int32, device=dev)
+    ok = torch.empty((m,), dtype=torch.bool, device=dev)
+    rc = fn(pubkey.data_ptr(), tables.data_ptr(), ok.data_ptr(), m, dev.index or 0,
+            kbuild.stream_ptr(dev))
+    kbuild.check(lib, rc, "comb_fill launch")
+    kbuild.LAUNCHES["comb_fill"] += 1
+    return tables, ok
+
+
+def bank_alloc(n_slots: int, device=None) -> torch.Tensor:
+    """A zeroed comb bank for `n_slots` signers, (N, 64, 16, 4, 10) int32
+    (160 KB per slot) on `device`, by default the card."""
+    return torch.zeros((n_slots,) + fc.COMB_SLOT_SHAPE, dtype=torch.int32,
+                       device=resolve_device(device))
+
+
+def bank_install_plain(bank: torch.Tensor, tables: torch.Tensor,
+                       slots: torch.Tensor) -> torch.Tensor:
+    """The plain version of K8 (and its library call): index_copy_."""
+    return bank.index_copy_(0, slots, tables)
+
+
+def bank_install(bank: torch.Tensor, tables: torch.Tensor, slots) -> torch.Tensor:
+    """K8: bank[slots[i]] = tables[i], in place; returns the bank.
+
+    tables: (M, 64, 16, 4, 10) int32 on the bank's device; slots: M
+    distinct integers in [0, N) on the host, checked before upload.
+    Replaces ops/sigverify.py:188 bank_install.  On CPU tensors this runs
+    the plain version; on CUDA tensors it launches csrc/bank_install.cu or
+    raises.
+    """
+    dev = bank.device
+    _check_bank(bank, dev, "bank_install")
+    _check_bank(tables, dev, "bank_install tables")
+    s = np.asarray(slots, dtype=np.int64).reshape(-1)
+    m = tables.shape[0]
+    if s.shape != (m,) or (m and (s.min() < 0 or s.max() >= bank.shape[0])) \
+            or len(set(s.tolist())) != m:
+        raise ValueError(f"bank_install: need {m} distinct slots in"
+                         f" [0, {bank.shape[0]}), got {s.tolist()[:8]}")
+    slots_t = torch.from_numpy(s).to(dev)
+    if dev.type == "cpu":
+        return bank_install_plain(bank, tables, slots_t)
+    if dev.type != "cuda":
+        raise ValueError(f"bank_install: unsupported device {dev}")
+    return bank_install_launch(bank, tables, slots_t)
+
+
+def bank_install_launch(bank: torch.Tensor, tables: torch.Tensor,
+                        slots_t: torch.Tensor) -> torch.Tensor:
+    """K8's launch on CUDA tensors that bank_install has checked; slots_t is
+    the (M,) int64 slot column already on the card."""
+    import ctypes
+
+    dev = bank.device
+    if dev.type != "cuda" or slots_t.device != dev or slots_t.dtype != torch.int64:
+        raise ValueError("bank_install_launch: CUDA tensors and int64 slots on the card")
+    m = tables.shape[0]
+    lib = kbuild.load("bank_install")
+    fn = lib.fd_bank_install
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(bank.data_ptr(), tables.data_ptr(), slots_t.data_ptr(), m, dev.index or 0,
+            kbuild.stream_ptr(dev))
+    kbuild.check(lib, rc, "bank_install launch")
+    kbuild.LAUNCHES["bank_install"] += 1
+    return bank

@@ -319,7 +319,8 @@ class ShardedVerifyStage(VerifyStage):
         super().__init__(name, ins, outs, device=plane.device,
                          batch=cfg.batch_per_shard, max_msg_len=cfg.max_msg_len,
                          batch_deadline_s=batch_deadline_s,
-                         max_inflight=max_inflight)
+                         max_inflight=max_inflight,
+                         comb_slots=0)  # the plane step IS the kernel choice
         self.plane = plane
         self.n_shards = cfg.n_devices
         # one accumulator per shard (per input link); VerifyStage's _gen
@@ -370,7 +371,9 @@ class ShardedVerifyStage(VerifyStage):
 
     # -- the sharded dispatch ------------------------------------------------
 
-    def _close_batch(self) -> None:
+    def _close_batch(self, acc=None) -> None:
+        """Close the WHOLE step (every shard's lane range); `acc` is unused:
+        the shards' accumulators are the step's."""
         accs = self._shards
         n_elems = sum(len(a.elems) for a in accs)
         if n_elems == 0:
@@ -402,6 +405,13 @@ class ShardedVerifyStage(VerifyStage):
         self._inflight.append(_Pending(merged, n_elems, result))
         self.metrics.inc("batches")
         self.metrics.inc("batch_elems", n_elems)
+
+    def flush(self) -> None:
+        self._close_batch()
+        while self._inflight:
+            self._drain(block=True)
+        if self._emit_queue:
+            self._emit_burst([])
 
     # the drain loop is VerifyStage._drain; this hook accounts for the PoH
     # self-audit spans that rode the step, exactly once, when its results

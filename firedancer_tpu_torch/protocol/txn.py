@@ -539,6 +539,10 @@ def txn_assemble(signatures: list[bytes], message: bytes) -> bytes:
 
 
 SYSTEM_PROGRAM = bytes(32)
+# "Vote111...": the vote program's id (a protocol constant)
+VOTE_PROGRAM = bytes.fromhex(
+    "0761481d357474bb7c4d7624ebd3bdb3d8355e73d11043fc0da3538000000000"
+)
 
 
 def transfer_txn(
@@ -577,3 +581,42 @@ def transfer_txn(
     )
     sig = (sign_fn or ref.sign)(from_secret, msg)
     return txn_assemble([sig], msg)
+
+
+def _encode_vote_ix(slots: list[int], hash32: bytes) -> bytes:
+    """Wire data of VoteInstruction::Vote, bincode: u32 tag 2, Vec<u64>
+    slots (u64 count + elements), the 32-byte bank hash, Option<i64>
+    timestamp None (one 0 byte).  The port's own copy of the encoder in
+    firedancer_tpu/flamenco/vote_program.py, cut to what vote_txn sends."""
+    out = (2).to_bytes(4, "little") + len(slots).to_bytes(8, "little")
+    for s in slots:
+        out += s.to_bytes(8, "little")
+    return out + bytes(hash32) + b"\x00"
+
+
+def vote_txn(
+    voter_secret: bytes,
+    vote_account: bytes,
+    slot: int,
+    recent_blockhash: bytes,
+    *,
+    voter_pubkey: bytes | None = None,
+    bank_hash: bytes = b"\x00" * 32,
+) -> bytes:
+    """A simple vote: one VoteInstruction::Vote for `slot`, signed by the
+    voter (accounts: vote account, voter; the shape pack routes to its vote
+    lane).  Byte-identical to firedancer_tpu/protocol/txn.py vote_txn."""
+    from ..ops.ref import ed25519_ref as ref
+
+    voter = voter_pubkey if voter_pubkey is not None else ref.public_key(voter_secret)
+    msg = message_build(
+        version=VLEGACY,
+        signature_cnt=1,
+        readonly_signed_cnt=0,
+        readonly_unsigned_cnt=1,
+        acct_addrs=[voter, vote_account, VOTE_PROGRAM],
+        recent_blockhash=recent_blockhash,
+        instrs=[InstrSpec(program_id=2, accounts=bytes([1, 0]),
+                          data=_encode_vote_ix([slot], bank_hash))],
+    )
+    return txn_assemble([ref.sign(voter_secret, msg)], msg)

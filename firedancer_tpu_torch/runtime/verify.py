@@ -13,10 +13,19 @@ Semantics follow the reference's verify tile and the JAX package's stage:
 Txns accumulate into fixed-shape batches (a txn is never split across two);
 a batch closes when full or when its deadline passes in after_credit; up to
 `max_inflight` batches stay on the card while the host streams the next.
-Reaping is strictly in submission order.  Each dispatch is ONE launch of
-the verify kernel (ops/sigverify.py); its result is a small future: the
-mask and count tensors on the device plus a CUDA event that `_result_ready`
-queries, so the loop never blocks on a batch still running.
+Reaping is strictly in submission order.  Each dispatch is ONE kernel
+launch (ops/sigverify.py); its result is a small future: the mask and count
+tensors on the device plus a CUDA event that `_result_ready` queries, so
+the loop never blocks on a batch still running.
+
+Repeated-signer lane (comb_slots > 0): real ingress repeats signers (one
+vote key per validator, a vote per slot), so the stage keeps a comb bank on
+the card.  A pubkey seen >= promote_threshold times is queued; at
+housekeeping `_fill_bank` builds the queued combs (comb_fill, K7) and
+installs the valid ones in free slots (bank_install, K8).  A txn whose
+signers are ALL banked accumulates into a second batch, dispatched to
+verify_cached (K6): 128 cached adds per signature, no doublings and no
+decompression of A.  The policy is the JAX package's, line for line.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from .stage import Stage
 
 VERIFY_TCACHE_DEPTH = 16  # tiny by design (fd_verify.h:6-7)
 DEFAULT_MAX_INFLIGHT = 8
+COMB_FILL_BATCH = 32  # pubkeys per comb_fill launch (the JAX jit shape's width)
 
 
 def sig_tag(sig: bytes) -> int:
@@ -51,6 +61,7 @@ class _Acc:
     elems: list = field(default_factory=list)  # [(msg, sig, pubkey)]
     ranges: list = field(default_factory=list)  # per txn (start, end)
     tsorigs: list = field(default_factory=list)
+    slots: list = field(default_factory=list)  # cached lane: bank slot per element
     opened_at: float = 0.0
 
 
@@ -85,7 +96,8 @@ class VerifyStage(Stage):
                  batch: int = 1024, max_msg_len: int = 1232,
                  batch_deadline_s: float = 0.002,
                  max_inflight: int = DEFAULT_MAX_INFLIGHT,
-                 kernel: str = "fused"):
+                 kernel: str = "fused", comb_slots: int = 0,
+                 promote_threshold: int = 2):
         super().__init__(name, ins, outs)
         if kernel not in sv.KERNEL_LADDER:
             raise ValueError(f"unknown verify kernel {kernel!r}"
@@ -97,7 +109,18 @@ class VerifyStage(Stage):
         self.batch_deadline_s = batch_deadline_s
         self.max_inflight = max_inflight
         self.tcache = TCache(VERIFY_TCACHE_DEPTH)
+        # comb bank (0 slots = the lane is off); the bank is allocated on
+        # the first fill, comb_slots x 160 KB on the device
+        self.comb_slots = comb_slots
+        self.promote_threshold = promote_threshold
+        self._bank = None
+        self._slot_of: dict[bytes, int] = {}
+        self._seen_cnt: dict[bytes, int] = {}
+        self._fill_queue: list[bytes] = []
+        self._free_slots: list[int] = list(range(comb_slots))
+        # accumulating batches: generic and cached-signer lanes
         self._gen = _Acc()
+        self._comb = _Acc()
         self._inflight: list[_Pending] = []
         # sealed batches waiting for a window slot (submit never blocks the
         # loop on the oldest batch just to close a new one)
@@ -134,19 +157,22 @@ class VerifyStage(Stage):
 
     def _accumulate(self, got, payload: bytes, tsorig: int) -> None:
         sigs, msg, signers, t = got
-        acc = self._gen
+        slots = self._signer_slots(signers)
+        acc = self._comb if slots is not None else self._gen
         if acc.elems and len(acc.elems) + len(sigs) > self.batch:
-            self._close_batch()
-            acc = self._gen
+            self._close_batch(acc)
+            acc = self._comb if slots is not None else self._gen
         start = len(acc.elems)
         for s, pk in zip(sigs, signers):
             acc.elems.append((msg, s, pk))
+        if slots is not None:
+            acc.slots.extend(slots)
         acc.ranges.append((start, len(acc.elems)))
         acc.payloads.append(payload)
         acc.descs.append(t)
         acc.tsorigs.append(tsorig)
         if len(acc.elems) >= self.batch:
-            self._close_batch()
+            self._close_batch(acc)
 
     def after_frag(self, in_idx: int, frag, payload: bytes) -> None:
         got = self._intake(payload)
@@ -157,31 +183,95 @@ class VerifyStage(Stage):
 
     def before_credit(self) -> None:
         # stamp the deadline clock once per newly opened batch
-        if self._gen.elems and self._gen.opened_at == 0.0:
-            self._gen.opened_at = time.monotonic()
+        for acc in (self._gen, self._comb):
+            if acc.elems and acc.opened_at == 0.0:
+                acc.opened_at = time.monotonic()
 
     def after_credit(self) -> None:
         if self._emit_queue:
             self._emit_burst([])
-        acc = self._gen
-        if acc.elems and acc.opened_at \
-                and time.monotonic() - acc.opened_at >= self.batch_deadline_s:
-            self._close_batch()
+        now = time.monotonic()
+        for acc in (self._gen, self._comb):
+            if acc.elems and acc.opened_at \
+                    and now - acc.opened_at >= self.batch_deadline_s:
+                self._close_batch(acc)
         self._pump_submits()
         self._drain(block=False)
 
     def during_housekeeping(self) -> None:
         self._pump_submits()
         self._drain(block=False)
+        self._fill_bank()
+
+    # -- comb bank ---------------------------------------------------------------------
+
+    def _signer_slots(self, signers: list[bytes]) -> list[int] | None:
+        """Bank slots if EVERY signer is banked, else None; counts sightings
+        of the others and queues their promotion on the way."""
+        if not self.comb_slots:
+            return None
+        slots = []
+        all_cached = True
+        for pk in signers:
+            slot = self._slot_of.get(pk)
+            if slot is None:
+                all_cached = False
+                cnt = self._seen_cnt.get(pk, 0) + 1
+                self._seen_cnt[pk] = cnt
+                # >= not ==: a hot signer whose threshold crossing races a
+                # full fill queue still promotes on a later sighting
+                if (cnt >= self.promote_threshold and self._free_slots
+                        and len(self._fill_queue) < self.comb_slots
+                        and pk not in self._fill_queue):
+                    self._fill_queue.append(pk)
+                # spam guard: one-shot pubkeys must not grow the map unbounded
+                if len(self._seen_cnt) > 16 * max(self.comb_slots, 256):
+                    self._seen_cnt.clear()
+            else:
+                slots.append(slot)
+        return slots if all_cached else None
+
+    def _fill_bank(self) -> None:
+        """Build and install the combs of up to COMB_FILL_BATCH queued
+        pubkeys: ONE comb_fill launch over exactly the keys taken, then ONE
+        bank_install of the columns whose key decompressed and is not of
+        small order.  Slots are assigned in between, from the ok mask (the
+        stage waits for it): the same slots, in the same order, as the JAX
+        stage's.  Invalid pubkeys are not re-queued here."""
+        if not self._fill_queue or not self._free_slots:
+            return
+        take = min(len(self._fill_queue), len(self._free_slots), COMB_FILL_BATCH)
+        keys = self._fill_queue[:take]
+        del self._fill_queue[:take]
+        pk = np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(take, 32).T.copy()
+        tables, ok = sv.comb_fill(torch.from_numpy(pk).to(self.device))
+        self.metrics.inc("comb_fills")
+        ok = ok.cpu().numpy()
+        if self._bank is None:
+            self._bank = sv.bank_alloc(self.comb_slots, device=self.device)
+        good = [i for i in range(take) if ok[i]]
+        slots = [self._free_slots.pop() for _ in good]
+        if good:
+            if len(good) < take:
+                tables = tables[torch.tensor(good, device=self.device)]
+            sv.bank_install(self._bank, tables, slots)
+            self.metrics.inc("comb_installs")
+            for i, s in zip(good, slots):
+                self._slot_of[keys[i]] = s
+                self._seen_cnt.pop(keys[i], None)
+            self.metrics.inc("comb_filled", len(good))
 
     # -- device batching -------------------------------------------------------------
 
-    def _close_batch(self) -> None:
-        acc = self._gen
+    def _close_batch(self, acc: _Acc) -> None:
         if not acc.elems:
             return
-        self._gen = _Acc()
-        self._submit_queue.append(acc)
+        cached = acc is self._comb
+        if cached:
+            self._comb = _Acc()
+        else:
+            self._gen = _Acc()
+        self._submit_queue.append((acc, cached))
         self._pump_submits()
         if self._submit_queue:
             self.metrics.inc("submit_deferred")
@@ -193,11 +283,14 @@ class VerifyStage(Stage):
     def _pump_submits(self) -> None:
         q = self._submit_queue
         while q and len(self._inflight) < self.max_inflight:
-            acc = q.pop(0)
+            acc, cached = q.pop(0)
             n = len(acc.elems)
-            self._inflight.append(_Pending(acc, n, self._dispatch(acc)))
+            self._inflight.append(_Pending(acc, n, self._dispatch(acc, cached)))
             self.metrics.inc("batches")
             self.metrics.inc("batch_elems", n)
+            if cached:
+                self.metrics.inc("comb_batches")
+                self.metrics.inc("comb_elems", n)
 
     def _assemble(self, acc: _Acc):
         """elems -> contiguous (len, B) byte rows, the kernels' layout: the
@@ -219,13 +312,19 @@ class VerifyStage(Stage):
         return (np.ascontiguousarray(msg.T), ln, np.ascontiguousarray(sig.T),
                 np.ascontiguousarray(pk.T))
 
-    def _dispatch(self, acc: _Acc) -> _Result:
+    def _dispatch(self, acc: _Acc, cached: bool) -> _Result:
         dev = self.device
+        n = len(acc.elems)
         msg, ln, sig, pk = (torch.from_numpy(a).to(dev)
                             for a in self._assemble(acc))
-        mask, n_ok = sv.verify_dispatch(self.kernel, msg, ln, sig, pk,
-                                        len(acc.elems),
-                                        max_msg_len=self.max_msg_len)
+        if cached:
+            slots = np.zeros((self.batch,), dtype=np.int32)
+            slots[:n] = acc.slots
+            mask, n_ok = sv.verify_cached(msg, ln, sig, pk, self._bank, slots, n,
+                                          max_msg_len=self.max_msg_len)
+        else:
+            mask, n_ok = sv.verify_dispatch(self.kernel, msg, ln, sig, pk, n,
+                                            max_msg_len=self.max_msg_len)
         event = None
         if dev.type == "cuda":
             event = torch.cuda.Event()
@@ -288,7 +387,9 @@ class VerifyStage(Stage):
 
     def flush(self) -> None:
         """Close and drain everything."""
-        self._close_batch()
+        self._fill_bank()
+        for acc in (self._gen, self._comb):
+            self._close_batch(acc)
         self._pump_submits()
         while self._inflight or self._submit_queue:
             self._drain(block=True)

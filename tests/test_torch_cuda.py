@@ -185,3 +185,59 @@ def test_plane_step_runs_poh_only_with_parked_spans(dev):
     assert pend.poh_real == 3
     assert kbuild.LAUNCHES["sha256_iter32"] == 1
     assert kbuild.LAUNCHES["verify_batch"] == 2
+
+
+@pytest.mark.parametrize("m", [1, 5, 33])
+def test_comb_fill_kernel_equals_plain(dev, m):
+    from firedancer_tpu_torch.models.workload import nonsquare_encodings, torsion_encodings
+    from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
+
+    keys = [ref.public_key(hashlib.sha256(b"cf%d" % i).digest()) for i in range(m)]
+    keys[-1:] = [torsion_encodings()[1]] if m > 1 else keys[-1:]
+    if m > 2:
+        keys[0] = nonsquare_encodings(1)[0]
+    pk = torch.from_numpy(np.stack([np.frombuffer(k, np.uint8) for k in keys], 1)).to(dev)
+    tables, ok = sv.comb_fill(pk)
+    ptables, pok = sv.comb_fill_plain(pk)
+    assert torch.equal(ok, pok) and torch.equal(tables, ptables)
+    assert kbuild.LAUNCHES["comb_fill"] == 1
+
+
+def test_bank_install_kernel_equals_index_copy(dev):
+    rng = np.random.default_rng(50)
+    tables = torch.from_numpy(rng.integers(-2**31, 2**31, (5, 64, 16, 4, 10),
+                                           dtype=np.int64).astype(np.int32)).to(dev)
+    slots = [7, 0, 3, 11, 4]
+    bank = sv.bank_alloc(12, device=dev)
+    want = sv.bank_install_plain(bank.clone(), tables, torch.tensor(slots, device=dev))
+    sv.bank_install(bank, tables, slots)
+    assert torch.equal(bank, want)
+    sv.bank_install(bank, tables[1:2].contiguous(), [3])  # a reinstall overwrites
+    assert torch.equal(bank[3], tables[1]) and torch.equal(bank[0], tables[1])
+    assert not bank[[1, 2, 5, 6, 8, 9, 10]].any()
+    assert kbuild.LAUNCHES["bank_install"] == 2
+
+
+def test_verify_cached_kernel_equals_plain_and_generic(dev):
+    mb = mixed_batch(64, 256, seed=12, n_keys=8)  # every lane labelled
+    uniq = sorted({bytes(mb.pubkey[:, i]) for i in range(64)})
+    pk = torch.from_numpy(np.stack([np.frombuffer(k, np.uint8) for k in uniq], 1)).to(dev)
+    tables, ok = sv.comb_fill(pk)
+    good = [i for i, o in enumerate(ok.cpu().tolist()) if o]
+    bank = sv.bank_alloc(len(uniq) + 3, device=dev)
+    slot_of = {uniq[i]: len(uniq) + 2 - j for j, i in enumerate(good)}
+    sv.bank_install(bank, tables[torch.tensor(good, device=dev)].contiguous(),
+                    [slot_of[uniq[i]] for i in good])
+    # lanes whose signer is banked (the cached lane never sees the others)
+    lanes = [i for i in range(64) if bytes(mb.pubkey[:, i]) in slot_of]
+    sel = [a[..., lanes] for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey)]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in sel]
+    slots = [slot_of[bytes(mb.pubkey[:, i])] for i in lanes]
+    n_real = len(lanes) - 2
+    mask, cnt = sv.verify_cached(*args, bank, slots, n_real, max_msg_len=256)
+    pmask, pcnt = sv.verify_cached_plain(*args, bank, slots, n_real, 256)
+    gmask, _ = sv.verify_batch(*args, n_real, max_msg_len=256)
+    assert mask.cpu().tolist() == pmask.cpu().tolist() == gmask.cpu().tolist()
+    assert mask.cpu().tolist() == mb.labels[lanes][:n_real].tolist() + [False, False]
+    assert int(cnt) == int(pcnt) == int(mask.sum())
+    assert kbuild.LAUNCHES["verify_cached"] == 1

@@ -76,7 +76,7 @@ def _no_card():
 @pytest.mark.parametrize("call", [
     "resolve_device", "pipeline", "verify_stage", "entry", "example_batch",
     "make_mesh", "serve_plane", "sharded_pipeline", "verify_segments",
-    "leader_step", "reedsol_encode"])
+    "leader_step", "reedsol_encode", "bank_alloc", "comb_fill", "comb_pipeline"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -92,6 +92,9 @@ def test_entry_points_default_to_the_card(call):
         "verify_segments": lambda: tpoh.verify_segments([h], 1, [h]),
         "leader_step": lambda: tentry.leader_step(),
         "reedsol_encode": lambda: trs.encode(np.zeros((2, 4), np.uint8), 1),
+        "bank_alloc": lambda: tsv.bank_alloc(4),
+        "comb_fill": lambda: tsv.comb_fill(np.zeros((32, 2), np.uint8)),
+        "comb_pipeline": lambda: build_verify_pipeline([b"x"], comb_slots=4),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
