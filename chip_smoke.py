@@ -56,8 +56,28 @@ result line:
               comb_elems, equal sorted frames, K1/K6/K7/K8 launches equal the
               stage's batches, cached batches, fills and installs; then 4
               more alternating rounds of both: medians and spread of txn/s
+  14. split   the split rung's kernels alone: K9 phase_validate, K10
+              phase_hash, K11 phase_dsm and K12 phase_compare at B = 16,384
+              and max_msg_len 1,232 on phase 5's mixed batch (tiled 16
+              times): mask equal to K1's and to the ed25519_ref labels; at
+              B = 1,024 each phase's output (limbs, k, ok, mask) equal to its
+              plain version; each timed alone on phase 6's batch at B =
+              16,384 and 1,024 beside K1, with its own bound
+  15. split pipeline  build_verify_pipeline(kernel="split") over phase 7's
+              stream at batch 1,024: phase 7's counters and frames, each of
+              K9-K12 launched once per batch and K1 never; beside the fused
+              pipeline, then 2 more alternating rounds of both: medians and
+              spread of txn/s and of their ratio
+  15b. plane hook  the same stream through VerifyStage(plane=ServePlane(...))
+              (one shard, batch 1,024): phase 7's counters and frames, K1
+              once per batch, K4 never (the hook parks no PoH span)
+  15c. autotune  phase 13's vote stream at batch 2,048 and max_msg_len 1,232
+              through comb_slots=0, once with autotune_after=2 and once
+              without: retunes >= 1, a smaller geometry, phase 13's counters
+              and equal sorted frames, K1 once per batch
 
-Then one JSON line of per-kernel numbers ({"kernels": [...]}), the
+Then a [time] line with each phase's seconds on the host clock, one JSON
+line of per-kernel numbers ({"kernels": [...]}), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 The script imports nothing of JAX or the JAX package.
 """
@@ -91,6 +111,10 @@ REPEAT_ROUNDS = 6  # phase 10b: extra (verify pipeline, plane pipeline) rounds
 VOTERS, BANK_SLOTS, VOTE_ROUNDS, VOTE_TRANSFERS = 1536, 2048, 4, 2048
 COMB_REPEAT_ROUNDS = 4  # phase 13: extra (comb, generic) pipeline rounds
 K6_BATCH, K6_SMALL = 16384, 1024  # phase 12: K6's batches (the small one = the stage's)
+SPLIT = ("phase_validate", "phase_hash", "phase_dsm", "phase_compare")  # K9-K12
+SPLIT_LINES = (216, 229, 239, 245)  # their JAX phases in firedancer_tpu/ops/sigverify.py
+TUNE_BATCH, TUNE_AFTER = 2048, 2  # phase 15c: the untuned geometry and the evidence bar
+SPLIT_REPEAT_ROUNDS = 2  # phase 15: extra (split, fused) pipeline rounds
 
 
 class SmokeFailure(RuntimeError):
@@ -172,10 +196,17 @@ def main() -> int:
     from firedancer_tpu_torch.runtime import poh as rpoh
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
     from firedancer_tpu_torch.runtime.verify import encode_verified
+    from firedancer_tpu_torch.utils.metrics import hist_quantile as tune_quantile
     from firedancer_tpu_torch.utils import kbuild
     from firedancer_tpu_torch.utils.platform import resolve_device
 
     t_start = time.perf_counter()
+    marks = [("1", t_start)]
+
+    def mark(phase: str) -> None:
+        """Note the host time at which a phase starts, for the [time] line."""
+        marks.append((phase, time.perf_counter()))
+
     # -- 1. device ------------------------------------------------------------
     dev = resolve_device()
     name = torch.cuda.get_device_name(0)
@@ -202,6 +233,7 @@ def main() -> int:
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
     # -- 2. build ---------------------------------------------------------------
+    mark("2")
     t0 = time.perf_counter()
     kbuild.build_all()
     log(f"[build] {kbuild.kernel_names()} in {time.perf_counter() - t0:.1f} s"
@@ -209,6 +241,7 @@ def main() -> int:
     kernels = []
 
     # -- 2b. the toolchain probes ------------------------------------------------
+    mark("2b")
     rng = np.random.default_rng(1)
     xa, ya = (torch.from_numpy(rng.integers(-2**31, 2**31, (8, 128), dtype=np.int64)
                                .astype(np.int32)).to(dev) for _ in range(2))
@@ -256,6 +289,7 @@ def main() -> int:
         f" probe_conv (20, 512): exact, {msc:.4f} ms (launch latency)")
 
     # -- 3. K2 fe_mul_chain -------------------------------------------------------
+    mark("3")
     B2, K2 = 16384, 64
     rng = np.random.default_rng(2)
     xs = [int.from_bytes(rng.bytes(32), "little") % fl.P for _ in range(B2)]
@@ -295,6 +329,7 @@ def main() -> int:
         f" {B2 * K2 / ms2 / 1e3:.1f} M fe_mul/s; plain {plain2:.1f} ms")
 
     # -- 4. K3 sha512_batch ----------------------------------------------------------
+    mark("4")
     B3, ML3 = 4096, 1232 + 64
     lens = [0, 1, 111, 112, 239, 240, ML3, ML3 - 1, 127, 128, 129]
     lens += [int(v) for v in rng.integers(0, ML3 + 1, size=B3 - len(lens))]
@@ -329,6 +364,7 @@ def main() -> int:
         f" {ms3:.4f} ms; plain {plain3:.1f} ms")
 
     # -- 5. K1 on the mixed batch ------------------------------------------------------
+    mark("5")
     B1, ML1 = 1024, 1232
     mb = mixed_batch(B1, ML1, n_real=B1 - 24, seed=5)
     args1 = [torch.from_numpy(a).to(dev) for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey)]
@@ -348,6 +384,7 @@ def main() -> int:
         f" plain and labels, ok-count {int(cnt)}; (rejected, accepted) by category {by_cat}")
 
     # -- 6. K1 timing ---------------------------------------------------------------------
+    mark("6")
     BT = 16384
     pool = gen_transfer_pool(256, seed=b"smoke")
     mt = np.zeros((BT, ML1), dtype=np.uint8)
@@ -391,11 +428,14 @@ def main() -> int:
         f" B={B1}: {ms1k:.3f} ms")
 
     # -- 7. the pipeline (main path) ---------------------------------------------------------
+    mark("7")
     vs = verify_stream(2100, seed=b"smoke-pipe", n_multisig=8, n_corrupt=6, n_resend=24)
     e = vs.expect
 
-    def check_run(rep, sink, where: str, extra=()) -> None:
-        """Phase 7's expected counters and sunk frames, for one pipeline run."""
+    def check_run(rep, sink, where: str, extra=(), launches=None) -> None:
+        """Phase 7's expected counters and sunk frames, for one pipeline run;
+        `launches` maps kernels to their expected launch counts (default: K1
+        once per batch)."""
         for stage, key, want in (("verify", "txn_verified", e["txn_verified"]),
                                  ("verify", "verify_fail", e["verify_fail"]),
                                  ("verify", "parse_fail", e["parse_fail"]),
@@ -405,9 +445,10 @@ def main() -> int:
             check(rep[stage].get(key, 0) == want,
                   f"{where} {stage}.{key} {rep[stage].get(key, 0)} != {want}")
         check([p for p, _ in sink.frames] == vs.expect_sunk, f"{where} sink frames")
-        check(kbuild.LAUNCHES.get("verify_batch", 0) == rep["verify"]["batches"] > 0,
-              f"{where}: K1 launches {kbuild.LAUNCHES.get('verify_batch', 0)}"
-              f" != batches {rep['verify']['batches']}")
+        want = launches or {"verify_batch": rep["verify"]["batches"]}
+        got = {k: kbuild.LAUNCHES.get(k, 0) for k in want}
+        check(got == want and rep["verify"]["batches"] > 0,
+              f"{where}: launches {got} != {want}")
 
     def drive_verify() -> tuple[float, dict]:
         """One run of a fresh verify pipeline over the stream: (seconds,
@@ -432,6 +473,7 @@ def main() -> int:
         f" time x launches); counters {json.dumps(rep)}")
 
     # -- 8. K4 sha256_iter32 -------------------------------------------------------------
+    mark("8")
     B4, N4 = 4096, HASHES_PER_TICK
     rng = np.random.default_rng(8)
     st4 = rng.integers(0, 256, (32, B4), dtype=np.uint8)
@@ -468,6 +510,7 @@ def main() -> int:
         f" n=64: {ms4_n64:.4f} ms, plain {plain4:.1f} ms")
 
     # -- 9. K5 gf256_apply: the full-block encode, then recover_batch -----------------------
+    mark("9")
     T9, D9, P9, S9 = 1024, 32, 32, 1024
     rng = np.random.default_rng(9)
     data9 = rng.integers(0, 256, (T9, D9, S9), dtype=np.uint8)
@@ -531,6 +574,7 @@ def main() -> int:
         f" bytes equal; per-set matrices (64, 64x32, 1024): {ms9r:.4f} ms")
 
     # -- 10. the serving plane's pipeline (main path) --------------------------------------
+    mark("10")
     plane = ServePlane(ServeConfig(
         n_devices=1, batch_per_shard=B1, max_msg_len=ML1, fec_sets_per_shard=1,
         fec_data_shreds=D9, fec_parity_shreds=P9, fec_shred_sz=S9,
@@ -597,6 +641,7 @@ def main() -> int:
         f" steps); counters {json.dumps(rep10)}")
 
     # -- 10b. phases 7 and 10 again, in alternating order ----------------------------------
+    mark("10b")
     # one run of either is ~0.1-0.2 s, so one sample says little; each round
     # runs both, plane first in even rounds, and every run is checked as above
     rounds = [(txn_s, txn10_s)]
@@ -616,6 +661,7 @@ def main() -> int:
         f" max {ratios[-1]:.3f}); rounds (verify, plane) {[(round(a), round(b)) for a, b in rounds]}")
 
     # -- 11. entry.leader_step -----------------------------------------------------------
+    mark("11")
     kbuild.reset_launches()
     out11 = tentry.leader_step()
     launches11 = dict(kbuild.LAUNCHES)
@@ -625,6 +671,7 @@ def main() -> int:
     log(f"[entry] leader_step {out11}; launches {launches11}")
 
     # -- 12. the comb lane's kernels alone: K7, K8, K6 ------------------------------------
+    mark("12")
     t0 = time.perf_counter()
     vs13 = vote_stream(VOTERS, VOTE_ROUNDS, seed=b"smoke-comb", n_transfers=VOTE_TRANSFERS)
     sign_s = time.perf_counter() - t0
@@ -822,6 +869,7 @@ def main() -> int:
         f" the labels ({int(lab6.sum())} of {B6} pass) and plain")
 
     # -- 13. the comb pipeline (the repeated-signer lane's main path) ------------------------
+    mark("13")
     # who sends this traffic: a Solana leader's ingress during its slots,
     # mostly votes from the voting validator set (one key each, one vote per
     # slot) mixed with fee-paying transfers
@@ -895,18 +943,240 @@ def main() -> int:
         f" round median {ratios13[mid]:.3f} (min {ratios13[0]:.3f}, max {ratios13[-1]:.3f});"
         f" rounds (comb, generic) {[(round(a), round(b)) for a, b in rounds13]}")
 
+    # -- 14. the split rung's kernels alone: K9-K12 ------------------------------------------
+    mark("14")
+    B14 = 16384
+    lab5 = mb.labels.copy()  # phase 5's pad lanes hold honest triples; the split has no n_real
+    for i in range(mb.n_real, B1):
+        lab5[i] = ref.verify(bytes(mb.msg[: mb.msg_len[i], i]), bytes(mb.sig[:, i]),
+                             bytes(mb.pubkey[:, i]))
+    rep14 = B14 // B1
+    args14 = [torch.from_numpy(np.ascontiguousarray(np.tile(a, (1,) * (a.ndim - 1) + (rep14,))))
+              .to(dev) for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey)]
+    lab14 = np.tile(lab5, rep14)
+    kbuild.reset_launches()
+    smask14, n_ok14 = sv.verify_dispatch("split", *args14, B14, max_msg_len=ML1)
+    k1mask14, _ = sv.verify_batch(*args14, B14, max_msg_len=ML1)
+    torch.cuda.synchronize()
+    check(n_ok14 is None, "split lane returned a count")
+    smask14h = smask14.cpu().numpy()
+    check((smask14h == k1mask14.cpu().numpy()).all(), "split mask differs from K1's at B = 16,384")
+    check((smask14h == lab14).all(), "split mask differs from the labels: lanes "
+          + str(np.nonzero(smask14h != lab14)[0][:16].tolist()))
+    check(sv.kernel_compiled_entries("split") == sv.kernel_dispatch_count("split") == 4,
+          "split lane: loaded entry points != 4")
+    # each phase against its plain version at the stage's batch
+    m5, l5, s5, p5 = (a[..., :B1].contiguous() for a in args14)
+    a14, r14, ok14 = sv._phase_validate(s5, p5, l5, max_msg_len=ML1)
+    k14 = sv._phase_hash(m5, l5, s5, p5, max_msg_len=ML1)
+    rc14 = sv._phase_dsm(k14, a14, s5)
+    mk14 = sv._phase_compare(rc14, r14, ok14)
+    torch.cuda.synchronize()
+    plain14, errs14 = {}, {}
+    for nm, got_, plain_fn in (
+            ("phase_validate", (a14, r14, ok14), lambda: sv._phase_validate_plain(s5, p5, l5, ML1)),
+            ("phase_hash", (k14,), lambda: (sv._phase_hash_plain(m5, l5, s5, p5, ML1),)),
+            ("phase_dsm", (rc14,), lambda: (sv._phase_dsm_plain(k14, a14, s5),)),
+            ("phase_compare", (mk14,), lambda: (sv._phase_compare_plain(rc14, r14, ok14),))):
+        out_ = []
+        plain14[nm] = time_host_ms(lambda: out_.extend(plain_fn()))
+        errs14[nm] = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                         for g, w in zip(got_, out_))
+        check(errs14[nm] == 0, f"{nm} differs from its plain version at B = {B1}"
+              f" (max abs err {errs14[nm]})")
+    check(mk14.cpu().numpy().tolist() == lab5.tolist(), "split mask at B = 1,024 != labels")
+    phase14_launches = dict(kbuild.LAUNCHES)
+    # times, CUDA events, each phase alone on phase 6's honest batch (K1's
+    # timing batch) at B = 16,384 and at the stage's 1,024
+    times14 = {}
+    for bsz, targs in ((BT, argst), (B1, args1k)):
+        mt_, lt_, st_, pt_ = targs
+        a_, r_, ok_ = sv._phase_validate(st_, pt_, lt_, max_msg_len=ML1)
+        k_ = sv._phase_hash(mt_, lt_, st_, pt_, max_msg_len=ML1)
+        rc_ = sv._phase_dsm(k_, a_, st_)
+        reps = 3 if bsz == BT else 10
+        times14[bsz] = {
+            "phase_validate": time_ms(lambda: sv._phase_validate(st_, pt_, lt_, max_msg_len=ML1),
+                                      reps=reps),
+            "phase_hash": time_ms(lambda: sv._phase_hash(mt_, lt_, st_, pt_, max_msg_len=ML1),
+                                  reps=reps),
+            "phase_dsm": time_ms(lambda: sv._phase_dsm(k_, a_, st_), reps=reps),
+            "phase_compare": time_ms(lambda: sv._phase_compare(rc_, r_, ok_), reps=20,
+                                     hide_host=True),
+            "split": time_ms(lambda: sv.ed25519_verify_batch_split(mt_, lt_, st_, pt_,
+                                                                   max_msg_len=ML1), reps=reps),
+            "k1": time_ms(lambda: sv.verify_batch(mt_, lt_, st_, pt_, bsz, max_msg_len=ML1),
+                          reps=reps),
+        }
+    # bounds from phase 6's inputs at B = 16,384 (every lane honest: every
+    # lane runs every check and the whole ladder).  Bytes are what each
+    # kernel reads and writes: K9 all of sig and pubkey, msg_len, two points
+    # and ok; K10 R (sig rows 0-31), A, each lane's msg_len bytes of msg,
+    # msg_len and k; K11 k, s (sig rows 32-63), A and the comb, writing
+    # r_cmp; K12 X, Y, Z of r_cmp, X, Y of R and ok, writing the mask
+    lt6 = lt.astype(np.int64)
+    fe_bytes = 10 * 4  # one coordinate, 10 int32 limbs
+    pt_bytes = 4 * fe_bytes  # one point, (4, 10) int32
+    comb_bytes = 64 * 16 * 4 * fl.NLIMB * 4
+    bounds14 = {
+        "phase_validate": bound(BT * 2 * (sv.MULS_DECOMPRESS + sv.MULS_SMALL_ORDER)
+                                * sv.PRODUCTS_PER_MUL, BT * (64 + 32 + 4 + 2 * pt_bytes + 1)),
+        "phase_hash": bound(int(((lt6 + 64 + 17 + 127) // 128).sum()) * SHA512_OPS_PER_BLOCK,
+                            int(lt6.sum()) + BT * (32 + 32 + 4 + 32)),
+        "phase_dsm": bound(BT * sv.MULS_DSM * sv.PRODUCTS_PER_MUL,
+                           BT * (32 + 32 + 2 * pt_bytes) + comb_bytes),
+        "phase_compare": bound(BT * sv.MULS_EQ_Z1 * sv.PRODUCTS_PER_MUL,
+                               BT * (5 * fe_bytes + 1 + 1)),
+    }
+    t16, t1k = times14[BT], times14[B1]
+    for nm, line in zip(SPLIT, SPLIT_LINES):
+        bms, bby = bounds14[nm]
+        kernels.append(dict(
+            name=nm, route="cuda", source="firedancer_tpu_torch/csrc/verify_split.cu",
+            replaces=f"firedancer_tpu/ops/sigverify.py:{line}", launches=None,
+            max_abs_err=errs14[nm], ms=t16[nm], plain_ms=plain14[nm], bound_ms=bms,
+            bound_by=bby, library_ms=None, matched=True, shape=f"B={BT} max_msg_len={ML1}",
+            plain_shape=f"B={B1}", ms_batch1024=t1k[nm],
+            phase_launches=phase14_launches.get(nm, 0)))
+    log(f"[split] B={B14} (phase 5's batch x {rep14}): mask equal to K1's and the labels"
+        f" ({int(lab14.sum())} of {B14} pass); B={B1}: limbs, k, ok and mask equal to plain;"
+        f" loaded entry points {sv.kernel_compiled_entries('split')}")
+    log("[split] " + "; ".join(
+        f"{nm} {t16[nm]:.4f} ms at B={BT} ({t1k[nm]:.4f} ms at B={B1}; bound"
+        f" {bounds14[nm][0]:.4f} ms, {bounds14[nm][1]}; plain {plain14[nm]:.1f} ms at B={B1})"
+        for nm in SPLIT)
+        + f"; sum of the four {sum(t16[n] for n in SPLIT):.4f} ms, four launches back to back"
+        f" {t16['split']:.4f} ms, K1 on the same lanes {t16['k1']:.4f} ms (ratio"
+        f" {t16['split'] / t16['k1']:.3f}); at B={B1}: sum {sum(t1k[n] for n in SPLIT):.4f} ms,"
+        f" back to back {t1k['split']:.4f} ms, K1 {t1k['k1']:.4f} ms")
+
+    # -- 15. the split pipeline (the split rung's main path) --------------------------------
+    mark("15")
+    def drive_split() -> tuple[float, dict]:
+        """One run of a fresh split-lane verify pipeline over phase 7's stream."""
+        pipe = build_verify_pipeline(vs.stream, device=dev, batch=B1, max_msg_len=ML1,
+                                     kernel="split")
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rep = pipe.report()
+        nb = rep["verify"]["batches"]
+        check_run(rep, pipe.sink, "split pipeline",
+                  launches={**dict.fromkeys(SPLIT, nb), "verify_batch": 0})
+        return run_s, rep
+
+    run15_s, rep15 = drive_split()
+    launches15 = dict(kbuild.LAUNCHES)
+    run7b_s, rep7b = drive_verify()  # the fused lane again, beside it in time
+    txn15, txn7b = rep15["sink"]["txn_sunk"] / run15_s, rep7b["sink"]["txn_sunk"] / run7b_s
+    busy15 = rep15["verify"]["batches"] * t1k["split"] / (run15_s * 1e3)
+    log(f"[split-pipeline] {len(vs.stream)} frames in {run15_s:.3f} s: {txn15:.0f} txn/s sunk"
+        f" (the fused pipeline right after it: {txn7b:.0f}); launches {launches15}; device busy"
+        f" <= {busy15:.3f} of the run (the four phases' event time x batches); counters"
+        f" {json.dumps(rep15)}")
+    rounds15 = [(txn15, txn7b)]
+    for r in range(SPLIT_REPEAT_ROUNDS):
+        got = {}
+        for fn in ((drive_verify, drive_split) if r % 2 == 0 else (drive_split, drive_verify)):
+            run_s_, rep_ = fn()
+            got[fn] = rep_["sink"]["txn_sunk"] / run_s_
+        rounds15.append((got[drive_split], got[drive_verify]))
+    s15s, f15s = sorted(a for a, _ in rounds15), sorted(b for _, b in rounds15)
+    ratios15 = sorted(a / b for a, b in rounds15)
+    mid = len(rounds15) // 2
+    log(f"[split-repeat] {len(rounds15)} rounds (the first is above): split pipeline txn/s"
+        f" median {s15s[mid]:.0f} (min {s15s[0]:.0f}, max {s15s[-1]:.0f}); fused median"
+        f" {f15s[mid]:.0f} (min {f15s[0]:.0f}, max {f15s[-1]:.0f}); split/fused per round median"
+        f" {ratios15[mid]:.3f} (min {ratios15[0]:.3f}, max {ratios15[-1]:.3f}); rounds (split,"
+        f" fused) {[(round(a), round(b)) for a, b in rounds15]}")
+
+    # -- 15b. the verify stage's serving-plane hook -----------------------------------------
+    mark("15b")
+    plane15 = ServePlane(ServeConfig(n_devices=1, batch_per_shard=B1, max_msg_len=ML1))
+    pipe15b = build_verify_pipeline(vs.stream, batch=B1, max_msg_len=ML1, plane=plane15)
+    check(pipe15b.verify.device == dev, "plane hook: the stage is not on the plane's device")
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    pipe15b.run()
+    torch.cuda.synchronize()
+    run15b_s = time.perf_counter() - t0
+    rep15b = pipe15b.report()
+    check_run(rep15b, pipe15b.sink, "plane-hook pipeline",
+              launches={"verify_batch": rep15b["verify"]["batches"], "sha256_iter32": 0})
+    launches15b = dict(kbuild.LAUNCHES)
+    log(f"[plane-hook] {len(vs.stream)} frames in {run15b_s:.3f} s:"
+        f" {rep15b['sink']['txn_sunk'] / run15b_s:.0f} txn/s sunk; launches {launches15b};"
+        f" counters {json.dumps(rep15b)}")
+
+    # -- 15c. the autotuner on the vote stream ------------------------------------------------
+    mark("15c")
+    def drive_tune(autotune_after: int) -> tuple[float, dict, object]:
+        pipe = build_verify_pipeline(vs13.stream, device=dev, batch=TUNE_BATCH,
+                                     max_msg_len=ML1, autotune_after=autotune_after)
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        pipe.run_waves(ends13)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rep = pipe.report()
+        where = f"autotune_after={autotune_after} pipeline"
+        for stage, key, want in (("verify", "txn_verified", e13["txn_verified"]),
+                                 ("verify", "verify_fail", e13["verify_fail"]),
+                                 ("verify", "parse_fail", e13["parse_fail"]),
+                                 ("verify", "dedup_dup", e13["tile_dedup_dup"]),
+                                 ("dedup", "dedup_dup", e13["dedup_dup"]),
+                                 ("sink", "txn_sunk", e13["sunk"])):
+            check(rep[stage].get(key, 0) == want,
+                  f"{where} {stage}.{key} {rep[stage].get(key, 0)} != {want}")
+        check(sorted(p for p, _ in pipe.sink.frames) == sorted_sunk13, f"{where} sink frames")
+        check(kbuild.LAUNCHES.get("verify_batch", 0) == rep["verify"]["batches"],
+              f"{where}: K1 launches {kbuild.LAUNCHES.get('verify_batch', 0)}"
+              f" != batches {rep['verify']['batches']}")
+        return run_s, rep, pipe.verify
+
+    run15u_s, rep15u, v15u = drive_tune(0)
+    run15c_s, rep15c, v15c = drive_tune(TUNE_AFTER)
+    launches15c = dict(kbuild.LAUNCHES)
+    check(v15u.metrics.get("retunes") == 0 and (v15u.batch, v15u.max_msg_len) == (TUNE_BATCH, ML1),
+          "the untuned run retuned")
+    check(v15c.metrics.get("retunes") >= 1, "autotune: no retune on the vote stream")
+    check(v15c.batch < TUNE_BATCH and v15c.max_msg_len < ML1,
+          f"autotune: geometry ({v15c.batch}, {v15c.max_msg_len}) did not shrink")
+    fill15 = v15c.metrics.hist("batch_fill")
+    log(f"[autotune] vote stream at batch {TUNE_BATCH}, max_msg_len {ML1}: untuned"
+        f" {rep15u['sink']['txn_sunk'] / run15u_s:.0f} txn/s ({rep15u['verify']['batches']}"
+        f" batches); autotune_after={TUNE_AFTER}: {rep15c['sink']['txn_sunk'] / run15c_s:.0f}"
+        f" txn/s ({rep15c['verify']['batches']} batches), retunes"
+        f" {v15c.metrics.get('retunes')}, geometry now batch {v15c.batch} max_msg_len"
+        f" {v15c.max_msg_len} comb split {v15c._comb_lane_on}; batch fill p95"
+        f" {tune_quantile(fill15, 0.95):.0f}, msg_len p99"
+        f" {tune_quantile(v15c.metrics.hist('msg_len'), 0.99):.0f}; sorted frames equal; launches"
+        f" {launches15c}")
+
     for k in kernels:
         check(k["phase_launches"] > 0, f"{k['name']} never launched in its phase")
         # each kernel's main path: the comb pipeline for the comb lane's
-        # kernels, the plane pipeline for the others
+        # kernels, the split pipeline for K9-K12, the plane pipeline for the
+        # others
         comb_lane = k["name"] in ("verify_cached", "comb_fill", "bank_install")
-        k["launches"] = (launches13 if comb_lane else launches10).get(k["name"], 0)
+        main = launches13 if comb_lane else launches15 if k["name"] in SPLIT else launches10
+        k["launches"] = main.get(k["name"], 0)
         k["launches_by_path"] = {"verify_pipeline": launches7.get(k["name"], 0),
                                  "plane_pipeline": launches10.get(k["name"], 0),
                                  "leader_step": launches11.get(k["name"], 0),
-                                 "comb_pipeline": launches13.get(k["name"], 0)}
+                                 "comb_pipeline": launches13.get(k["name"], 0),
+                                 "split_pipeline": launches15.get(k["name"], 0),
+                                 "plane_hook_pipeline": launches15b.get(k["name"], 0),
+                                 "autotune_pipeline": launches15c.get(k["name"], 0)}
+    for nm in SPLIT:
+        check(launches15.get(nm, 0) > 0, f"{nm} never launched on the split pipeline")
     check(ref.verify(b"", ref.sign(b"\x01" * 32, b""), ref.public_key(b"\x01" * 32)),
           "ed25519_ref self-check")
+    mark("end")
+    log("[time] seconds per phase (host clock, each from its start to the next's): "
+        + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,10 +1,13 @@
 """The port's command line; every command runs on the card unless --cpu.
 
-    python -m firedancer_tpu_torch run --txns N [--shards S] [--comb-slots N] [--cpu]
+    python -m firedancer_tpu_torch run --txns N [--shards S] [--comb-slots N]
+            [--kernel fused|baseline|split] [--autotune-after N] [--cpu]
         drive benchg -> verify -> dedup -> sink (with --shards S: through
         the router and the serving plane over S devices; with --comb-slots
-        N: repeat signers through an N-slot comb bank) and print per-stage
-        counters and txn/s with the device's name.
+        N: repeat signers through an N-slot comb bank; --kernel picks the
+        verify lane's rung; --autotune-after N retunes the batch geometry
+        every N batches) and print per-stage counters and txn/s with the
+        device's name.
     python -m firedancer_tpu_torch warmup [--devices N] [--assert-warm S]
         build and load the serving plane's kernels and run one step at its
         shapes (the counterpart of the JAX package's AOT warmup); prints the
@@ -24,9 +27,10 @@ def cmd_run(args) -> int:
     from .runtime.benchg import gen_transfer_pool
     from .utils.platform import device_name, resolve_device
 
-    if args.shards and args.comb_slots:
-        print("run: --comb-slots needs the unsharded pipeline (the serving"
-              " plane's stage has no comb lane)", file=sys.stderr)
+    if args.shards and (args.comb_slots or args.kernel != "fused" or args.autotune_after):
+        print("run: --comb-slots, --kernel and --autotune-after need the"
+              " unsharded pipeline (the serving plane's step is its kernel"
+              " choice)", file=sys.stderr)
         return 2
     dev = resolve_device("cpu" if args.cpu else None)
     t0 = time.perf_counter()
@@ -43,7 +47,8 @@ def cmd_run(args) -> int:
     else:
         pipe = build_verify_pipeline(pool, device=dev, batch=args.batch,
                                      max_msg_len=args.max_msg_len,
-                                     comb_slots=args.comb_slots)
+                                     comb_slots=args.comb_slots, kernel=args.kernel,
+                                     autotune_after=args.autotune_after)
     t0 = time.perf_counter()
     pipe.run()
     run_s = time.perf_counter() - t0
@@ -51,6 +56,7 @@ def cmd_run(args) -> int:
         "device": device_name(dev),
         "shards": args.shards or None,
         "comb_slots": args.comb_slots,
+        "kernel": args.kernel,
         "txns": args.txns,
         "pool_gen_s": gen_s,
         "warmup_s": warmup_s,
@@ -100,6 +106,10 @@ def main(argv=None) -> int:
                    help="route through the serving plane over this many devices")
     r.add_argument("--comb-slots", type=int, default=0,
                    help="comb-bank slots for repeat signers (0 = off)")
+    r.add_argument("--kernel", default="fused", choices=("fused", "baseline", "split"),
+                   help="the verify lane's rung of the kernel ladder")
+    r.add_argument("--autotune-after", type=int, default=0, metavar="N",
+                   help="retune batch and max_msg_len every N batches (0 = off)")
     r.add_argument("--max-msg-len", type=int, default=1232)
     r.add_argument("--seed", default="benchg")
     r.add_argument("--cpu", action="store_true",

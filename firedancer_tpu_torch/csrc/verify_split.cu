@@ -1,0 +1,181 @@
+// K9-K12, the split rung of the verify ladder: K1's per-signature work cut
+// into four launches, one signature per thread in each.
+//
+// Replaces: firedancer_tpu/ops/sigverify.py:216 _phase_validate (K9),
+// :229 _phase_hash (K10), :239 _phase_dsm (K11) and :245 _phase_compare
+// (K12), which ed25519_verify_batch_split (:249) chains.  They reuse K1's
+// __device__ functions (curve.cuh, sha512.cuh), so the split mask equals
+// K1's mask on every lane.
+//
+// Between phases every lane's values sit on the trailing axis, so each
+// thread's loads and stores coalesce with its neighbours':
+//   a_pt, r_pt, r_cmp  (4, 10, B) int32: X, Y, Z, T, each 10 limbs of
+//                      radix 2^25.5 in the carried form;
+//   k                  (32, B) uint8: SHA512(R || A || msg) mod L, little-endian;
+//   ok                 (B,) bool.
+// No phase branches on another's verdict except K12, so a lane that failed
+// a check still gets defined values: K9 writes what decompression computed
+// for a point that does not decode, K10 hashes a message length clamped to
+// [0, max_len], and K11 runs the ladder on whatever K9 wrote.  Nothing reads
+// outside the input rows.
+#include "curve.cuh"
+#include "sha512.cuh"
+
+__device__ __forceinline__ void fe_store_lane(const fe& a, int32_t* __restrict__ out,
+                                              int64_t B, int64_t lane) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) out[(int64_t)i * B + lane] = a.v[i];
+}
+
+__device__ __forceinline__ fe fe_load_lane(const int32_t* __restrict__ in, int64_t B,
+                                           int64_t lane) {
+  fe a;
+#pragma unroll
+  for (int i = 0; i < 10; i++) a.v[i] = __ldg(in + (int64_t)i * B + lane);
+  return a;
+}
+
+// One point of a (4, 10, B) array: coordinate c at rows 10 c .. 10 c + 9.
+__device__ __forceinline__ void ge_store_lane(const ge& p, int32_t* __restrict__ out,
+                                              int64_t B, int64_t lane) {
+  fe_store_lane(p.X, out, B, lane);
+  fe_store_lane(p.Y, out + 10 * B, B, lane);
+  fe_store_lane(p.Z, out + 20 * B, B, lane);
+  fe_store_lane(p.T, out + 30 * B, B, lane);
+}
+
+__device__ __forceinline__ ge ge_load_lane(const int32_t* __restrict__ in, int64_t B,
+                                           int64_t lane) {
+  return ge{fe_load_lane(in, B, lane), fe_load_lane(in + 10 * B, B, lane),
+            fe_load_lane(in + 20 * B, B, lane), fe_load_lane(in + 30 * B, B, lane)};
+}
+
+// K9: s < L, 0 <= msg_len <= max_len (K1's range check), decompress A and
+// R, neither of small order.  Both points are always decompressed and
+// written; the small-order checks run only while the lane is still ok.
+__global__ void __launch_bounds__(128)
+phase_validate_kernel(const uint8_t* __restrict__ sig, const uint8_t* __restrict__ pk,
+                      const int32_t* __restrict__ msg_len, int32_t* __restrict__ a_out,
+                      int32_t* __restrict__ r_out, bool* __restrict__ ok_out, int64_t B,
+                      int max_len) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  uint64_t sw[4], aw[4], rw[4];
+  fd_load32(sig + 32 * B, B, lane, sw);
+  fd_load32(pk, B, lane, aw);
+  fd_load32(sig, B, lane, rw);
+  const int32_t ln = msg_len[lane];
+  bool ok = sc_validate(sw) && ln >= 0 && ln <= max_len;
+  ge A, R;
+  const bool ok_a = ge_decompress(aw, A);
+  const bool ok_r = ge_decompress(rw, R);
+  ok = ok && ok_a && !ge_is_small_order(A);
+  ok = ok && ok_r && !ge_is_small_order(R);
+  ge_store_lane(A, a_out, B, lane);
+  ge_store_lane(R, r_out, B, lane);
+  ok_out[lane] = ok;
+}
+
+// K10: k = SHA512(R || A || msg) mod L, hashed in place from the input
+// rows (VerifySrc), written as 32 byte rows.
+__global__ void __launch_bounds__(128)
+phase_hash_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ msg_len,
+                  const uint8_t* __restrict__ sig, const uint8_t* __restrict__ pk,
+                  uint8_t* __restrict__ k_out, int64_t B, int max_len) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  int32_t ln = msg_len[lane];
+  ln = ln < 0 ? 0 : (ln > max_len ? max_len : ln);
+  uint64_t st[8], kw[4];
+  VerifySrc src{sig, pk, msg, B, lane};
+  sha512_lane(src, (uint32_t)ln + 64, st);
+  sc_reduce512(st, kw);
+#pragma unroll
+  for (int i = 0; i < 32; i++)
+    k_out[(int64_t)i * B + lane] = (uint8_t)(kw[i >> 3] >> (8 * (i & 7)));
+}
+
+// K11: [s]B + [k](-A), K1's ladder and base comb (read with __ldg).
+__global__ void __launch_bounds__(128)
+phase_dsm_kernel(const uint8_t* __restrict__ k, const int32_t* __restrict__ a_pt,
+                 const uint8_t* __restrict__ sig, const int32_t* __restrict__ comb,
+                 int32_t* __restrict__ r_out, int64_t B) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  uint64_t kwords[4], sw[4];
+  fd_load32(k, B, lane, kwords);
+  fd_load32(sig + 32 * B, B, lane, sw);
+  uint8_t kw[64], s_w[64];
+  sc_windows(kwords, kw);
+  sc_windows(sw, s_w);
+  const ge A = ge_load_lane(a_pt, B, lane);
+  ge_store_lane(ge_double_scalar_mul_base(kw, ge_neg(A), s_w, comb), r_out, B, lane);
+}
+
+// K12: ok and r_cmp == R (R has Z = 1).  Only X, Y of R and X, Y, Z of
+// r_cmp are read, and only on lanes still ok.
+__global__ void __launch_bounds__(128)
+phase_compare_kernel(const int32_t* __restrict__ r_cmp, const int32_t* __restrict__ r_pt,
+                     const bool* __restrict__ ok, bool* __restrict__ mask, int64_t B) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  bool m = ok[lane];
+  if (m) {
+    ge p, q;
+    p.X = fe_load_lane(r_cmp, B, lane);
+    p.Y = fe_load_lane(r_cmp + 10 * B, B, lane);
+    p.Z = fe_load_lane(r_cmp + 20 * B, B, lane);
+    q.X = fe_load_lane(r_pt, B, lane);
+    q.Y = fe_load_lane(r_pt + 10 * B, B, lane);
+    m = ge_eq_z1(p, q);
+  }
+  mask[lane] = m;
+}
+
+static inline unsigned fd_blocks(int64_t B) { return (unsigned)((B + 127) / 128); }
+
+FD_EXPORT int fd_phase_validate(const void* sig, const void* pk, const void* msg_len,
+                                void* a_out, void* r_out, void* ok_out, int64_t B,
+                                int max_len, int device, void* stream) {
+  int rc = fd_set_device(device);
+  if (rc) return rc;
+  if (B == 0) return 0;
+  phase_validate_kernel<<<fd_blocks(B), 128, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)sig, (const uint8_t*)pk, (const int32_t*)msg_len, (int32_t*)a_out,
+      (int32_t*)r_out, (bool*)ok_out, B, max_len);
+  return (int)cudaGetLastError();
+}
+
+FD_EXPORT int fd_phase_hash(const void* msg, const void* msg_len, const void* sig,
+                            const void* pk, void* k_out, int64_t B, int max_len,
+                            int device, void* stream) {
+  int rc = fd_set_device(device);
+  if (rc) return rc;
+  if (B == 0) return 0;
+  phase_hash_kernel<<<fd_blocks(B), 128, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)msg, (const int32_t*)msg_len, (const uint8_t*)sig,
+      (const uint8_t*)pk, (uint8_t*)k_out, B, max_len);
+  return (int)cudaGetLastError();
+}
+
+FD_EXPORT int fd_phase_dsm(const void* k, const void* a_pt, const void* sig,
+                           const void* comb, void* r_out, int64_t B, int device,
+                           void* stream) {
+  int rc = fd_set_device(device);
+  if (rc) return rc;
+  if (B == 0) return 0;
+  phase_dsm_kernel<<<fd_blocks(B), 128, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)k, (const int32_t*)a_pt, (const uint8_t*)sig,
+      (const int32_t*)comb, (int32_t*)r_out, B);
+  return (int)cudaGetLastError();
+}
+
+FD_EXPORT int fd_phase_compare(const void* r_cmp, const void* r_pt, const void* ok,
+                               void* mask, int64_t B, int device, void* stream) {
+  int rc = fd_set_device(device);
+  if (rc) return rc;
+  if (B == 0) return 0;
+  phase_compare_kernel<<<fd_blocks(B), 128, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)r_cmp, (const int32_t*)r_pt, (const bool*)ok, (bool*)mask, B);
+  return (int)cudaGetLastError();
+}

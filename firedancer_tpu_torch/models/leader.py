@@ -72,12 +72,14 @@ class VerifyPipeline:
     def run_waves(self, ends: list[int]) -> None:
         """Send the stream in waves: benchg's limit is raised to each end in
         turn and the wave runs until the pipeline is idle; then the verify
-        stage's housekeeping is called until its fill queue is drained (the
+        stage's housekeeping is called once at that quiet point (where the
+        autotuner may retune) and again until its fill queue is drained (the
         comb bank's normal fill path, COMB_FILL_BATCH keys per call)."""
         v = self.verify
         for end in ends:
             self.benchg.limit = end
             self.run()
+            v.during_housekeeping()
             while v._fill_queue and v._free_slots:
                 v.during_housekeeping()
 
@@ -90,16 +92,21 @@ LINK_DEPTH = 4096
 
 def build_verify_pipeline(stream: list[bytes], *, device=None,
                           batch: int = 1024, max_msg_len: int = 1232,
-                          comb_slots: int = 0,
-                          promote_threshold: int = 2) -> VerifyPipeline:
+                          comb_slots: int = 0, promote_threshold: int = 2,
+                          kernel: str = "fused", autotune_after: int = 0,
+                          plane=None) -> VerifyPipeline:
     """benchg -> verify -> dedup -> sink.  benchg sends `stream` once, in
     order (gen_transfer_pool gives a pool of signed transfers).  The verify
-    stage runs on `device` (default the card; "cpu" runs the plain
-    versions).  comb_slots > 0 turns on the repeated-signer lane with a
-    bank of that many slots (160 KB each on the device): a signer seen
-    promote_threshold times is banked and verifies on the cached lane (the
-    counterpart of build_leader_pipeline(verify_comb_slots=...))."""
-    dev = resolve_device(device)
+    stage runs on `device` (default the card, or the plane's first device;
+    "cpu" runs the plain versions).  comb_slots > 0 turns on the
+    repeated-signer lane with a bank of that many slots (160 KB each on the
+    device): a signer seen promote_threshold times is banked and verifies on
+    the cached lane (the counterpart of build_leader_pipeline(
+    verify_comb_slots=...)).  kernel picks the generic lane's rung of
+    sigverify.KERNEL_LADDER; autotune_after > 0 turns on the batch-geometry
+    autotuner; plane (a ServePlane shaped batch x max_msg_len) routes the
+    generic batches through its step."""
+    dev = plane.device if plane is not None and device is None else resolve_device(device)
     gen_verify = Link("gen_verify", LINK_DEPTH)
     verify_dedup = Link("verify_dedup", LINK_DEPTH)
     dedup_sink = Link("dedup_sink", LINK_DEPTH)
@@ -108,7 +115,8 @@ def build_verify_pipeline(stream: list[bytes], *, device=None,
     verify = VerifyStage("verify", [Consumer(gen_verify)],
                          [Producer(verify_dedup)], device=dev, batch=batch,
                          max_msg_len=max_msg_len, comb_slots=comb_slots,
-                         promote_threshold=promote_threshold)
+                         promote_threshold=promote_threshold, kernel=kernel,
+                         autotune_after=autotune_after, plane=plane)
     dedup = DedupStage("dedup", [Consumer(verify_dedup)], [Producer(dedup_sink)])
     sink = SinkStage("sink", [Consumer(dedup_sink)])
     return VerifyPipeline(

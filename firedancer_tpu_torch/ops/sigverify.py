@@ -1,6 +1,7 @@
 """Batched ed25519 signature verification: the `verify_batch` kernel
 wrapper (K1), its plain PyTorch version, and the kernel ladder the verify
-stage dispatches through; and the repeated-signer lane's wrappers, each
+stage dispatches through; the split rung's four phases, K9-K12, each
+beside its plain version; and the repeated-signer lane's wrappers, each
 beside its plain version: `verify_cached` (K6), `comb_fill` (K7) and
 `bank_install` (K8) over a comb bank from `bank_alloc`.
 
@@ -33,10 +34,18 @@ from . import curve as fc
 from . import scalar as fs
 from . import sha512 as fsha
 
-# the generic-lane kernel ladder: both lanes launch the ONE verify kernel
-# per batch; "fused" masks pad lanes and counts on the card, "baseline"
-# launches with n_real = B and leaves both to the host
-KERNEL_LADDER = ("fused", "baseline")
+# the generic-lane kernel ladder, each lane's kernel entry points in launch
+# order (library = csrc/<name>.cu, C symbol): "fused" and "baseline" launch
+# the ONE verify kernel per batch ("fused" masks pad lanes and counts on
+# the card, "baseline" launches with n_real = B and leaves both to the
+# host); "split" launches the four phases K9-K12 and leaves both to the host
+_KERNEL_ENTRIES = {
+    "fused": (("verify", "fd_verify_batch"),),
+    "baseline": (("verify", "fd_verify_batch"),),
+    "split": tuple(("verify_split", f"fd_phase_{p}")
+                   for p in ("validate", "hash", "dsm", "compare")),
+}
+KERNEL_LADDER = tuple(_KERNEL_ENTRIES)
 
 # field multiplies per lane on the kernel's path (csrc/curve.cuh), for the
 # operations bound: decompress (incl. the 262-multiply pow2523 chain),
@@ -65,9 +74,9 @@ BANK_SLOT_BYTES = 4 * int(np.prod(fc.COMB_SLOT_SHAPE))
 
 
 def _lane_checks(msg, msg_len, sig, pubkey, max_msg_len: int):
-    """The steps both lanes share, vectorised over the batch: -> (ok_s &
-    ok_len & R decompresses and is not of small order, R, k windows, s
-    windows), with k = SHA512(R || A || msg) mod L."""
+    """The cached lane's steps, vectorised over the batch: -> (ok_s & ok_len
+    & R decompresses and is not of small order, R, k windows, s windows),
+    with k = SHA512(R || A || msg) mod L."""
     msg = msg.to(torch.int64)
     sig = sig.to(torch.int64)
     pubkey = pubkey.to(torch.int64)
@@ -85,15 +94,13 @@ def _lane_checks(msg, msg_len, sig, pubkey, max_msg_len: int):
 
 
 def _verify_ok_plain(msg, msg_len, sig, pubkey, max_msg_len: int):
-    """The plain version of the kernel's per-lane ladder, vectorised over
-    the batch (every lane runs every step; the AND of the checks is the
-    same as the kernel's early exits)."""
-    ok, r_pt, kw, sw = _lane_checks(msg, msg_len, sig, pubkey, max_msg_len)
-    a_pt, ok_a = fc.point_decompress(pubkey.to(torch.int64))
-    ok_a = ok_a & ~fc.is_small_order(a_pt)
-    r_cmp = fc.double_scalar_mul_base(kw, fc.point_neg(a_pt), sw,
-                                      fc.comb_table(msg.device))
-    return ok & ok_a & fc.point_eq_z1(r_cmp, r_pt)
+    """The plain version of the kernel's per-lane ladder: the split rung's
+    four plain phases in a row, vectorised over the batch (every lane runs
+    every step; the AND of the checks is the same as the kernel's early
+    exits)."""
+    a_pt, r_pt, ok = _phase_validate_plain(sig, pubkey, msg_len, max_msg_len)
+    k = _phase_hash_plain(msg, msg_len, sig, pubkey, max_msg_len)
+    return _phase_compare_plain(_phase_dsm_plain(k, a_pt, sig), r_pt, ok)
 
 
 def verify_batch_plain(msg, msg_len, sig, pubkey, n_real: int, max_msg_len: int):
@@ -103,19 +110,23 @@ def verify_batch_plain(msg, msg_len, sig, pubkey, n_real: int, max_msg_len: int)
     return ok, ok.sum(dtype=torch.int32)
 
 
-def _check_inputs(msg, msg_len, sig, pubkey, max_msg_len, what="verify_batch"):
-    dev = msg.device
-    bsz = msg_len.shape[0] if msg_len.dim() == 1 else -1
-    want = (("msg", msg, torch.uint8, (max_msg_len, bsz)),
-            ("msg_len", msg_len, torch.int32, (bsz,)),
-            ("sig", sig, torch.uint8, (64, bsz)),
-            ("pubkey", pubkey, torch.uint8, (32, bsz)))
-    for name, t, dtype, shape in want:
+def _check_tensors(what: str, dev, specs) -> None:
+    """specs: (name, tensor, dtype, shape); every tensor contiguous on dev."""
+    for name, t, dtype, shape in specs:
         if t.device != dev:
-            raise ValueError(f"{what}: {name} on {t.device}, msg on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, expected {dev}")
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous {shape}"
                              f" {dtype}, got {tuple(t.shape)} {t.dtype}")
+
+
+def _check_inputs(msg, msg_len, sig, pubkey, max_msg_len, what="verify_batch"):
+    bsz = msg_len.shape[0] if msg_len.dim() == 1 else -1
+    _check_tensors(what, msg.device, (
+        ("msg", msg, torch.uint8, (max_msg_len, bsz)),
+        ("msg_len", msg_len, torch.int32, (bsz,)),
+        ("sig", sig, torch.uint8, (64, bsz)),
+        ("pubkey", pubkey, torch.uint8, (32, bsz))))
     return bsz
 
 
@@ -165,25 +176,199 @@ def ed25519_verify_batch_fused(msg, msg_len, sig, pubkey, n_real, *,
                         max_msg_len=max_msg_len)
 
 
+# -- the split rung: K9-K12 ---------------------------------------------------
+#
+# K1's per-signature work as four launches (csrc/verify_split.cu), the
+# counterparts of the JAX package's four jitted phases.  Between phases the
+# lane is the trailing axis: points are (4, 10, B) int32 (X, Y, Z, T, each
+# 10 limbs of radix 2^25.5), k is (32, B) uint8, ok is (B,) bool.  A lane
+# that failed a check still gets defined values (the decompression's output,
+# a hash over a length clamped to [0, max_msg_len], the ladder on them).
+
+def _pt_rows(p) -> torch.Tensor:
+    """A plain-version point (4 x (10, B) int64) -> (4, 10, B) int32."""
+    return torch.stack(p).to(torch.int32).contiguous()
+
+
+def _pt_cols(t: torch.Tensor):
+    """(4, 10, B) int32 -> a plain-version point, 4 x (10, B) int64."""
+    t = t.to(torch.int64)
+    return tuple(t[c] for c in range(4))
+
+
+def _byte_windows(b: torch.Tensor) -> torch.Tensor:
+    """(32, B) little-endian bytes -> (64, B) 4-bit windows, least
+    significant first (the kernel's sc_windows on the same 256 bits)."""
+    b = b.to(torch.int64)
+    return torch.stack([(b[j >> 1] >> (4 * (j & 1))) & 15 for j in range(64)])
+
+
+def _phase_validate_plain(sig, pubkey, msg_len, max_msg_len: int):
+    sig = sig.to(torch.int64)
+    ln = msg_len.to(torch.int64)
+    ok = fs.sc_validate(sig[32:]) & (ln >= 0) & (ln <= max_msg_len)
+    a_pt, ok_a = fc.point_decompress(pubkey.to(torch.int64))
+    r_pt, ok_r = fc.point_decompress(sig[:32])
+    ok = ok & ok_a & ~fc.is_small_order(a_pt) & ok_r & ~fc.is_small_order(r_pt)
+    return _pt_rows(a_pt), _pt_rows(r_pt), ok
+
+
+def _phase_hash_plain(msg, msg_len, sig, pubkey, max_msg_len: int):
+    ln = msg_len.to(torch.int64).clamp(0, max_msg_len)
+    hmsg = torch.cat([sig[:32], pubkey, msg[:max_msg_len]], dim=0).to(torch.int64)
+    digest = fsha.sha512_msg(hmsg, ln + 64, max_msg_len + 64)
+    return fs.sc_tobytes(fs.sc_reduce512(digest)).to(torch.uint8)
+
+
+def _phase_dsm_plain(k, a_pt, sig):
+    r = fc.double_scalar_mul_base(_byte_windows(k), fc.point_neg(_pt_cols(a_pt)),
+                                  _byte_windows(sig[32:]), fc.comb_table(k.device))
+    return _pt_rows(r)
+
+
+def _phase_compare_plain(r_cmp, r_pt, ok):
+    return ok & fc.point_eq_z1(_pt_cols(r_cmp), _pt_cols(r_pt))
+
+
+def _split_launch(sym: str, what: str, dev, ptrs, bsz: int, *scalars: int) -> None:
+    """One phase's launch on the current stream: every entry point of
+    csrc/verify_split.cu takes (pointers..., B, int scalars..., device,
+    stream); validate and hash take max_len as their one scalar."""
+    import ctypes
+
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    lib = kbuild.load("verify_split")
+    fn = getattr(lib, sym)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int64]
+                   + [ctypes.c_int] * len(scalars) + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(*(t.data_ptr() for t in ptrs), bsz, *scalars, dev.index or 0,
+            kbuild.stream_ptr(dev))
+    kbuild.check(lib, rc, f"{what} launch")
+    kbuild.LAUNCHES[what] += 1
+
+
+def _phase_validate(sig, pubkey, msg_len, *, max_msg_len: int):
+    """K9 phase_validate: (64, B) sig, (32, B) pubkey, (B,) msg_len ->
+    (a_pt, r_pt (4, 10, B) int32, ok (B,) bool): s < L, 0 <= msg_len <=
+    max_msg_len (K1's range check), A and R decompress, neither of small
+    order.  Replaces ops/sigverify.py:216 _phase_validate (which has no
+    length check; its lanes' lengths are in range by construction).  On CPU
+    tensors this runs the plain version; on CUDA tensors it launches
+    csrc/verify_split.cu or raises."""
+    dev = sig.device
+    bsz = sig.shape[-1]
+    _check_tensors("phase_validate", dev, (
+        ("sig", sig, torch.uint8, (64, bsz)), ("pubkey", pubkey, torch.uint8, (32, bsz)),
+        ("msg_len", msg_len, torch.int32, (bsz,))))
+    if dev.type == "cpu":
+        return _phase_validate_plain(sig, pubkey, msg_len, max_msg_len)
+    a_pt = torch.empty((4, 10, bsz), dtype=torch.int32, device=dev)
+    r_pt = torch.empty_like(a_pt)
+    ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    _split_launch("fd_phase_validate", "phase_validate", dev,
+                  (sig, pubkey, msg_len, a_pt, r_pt, ok), bsz, max_msg_len)
+    return a_pt, r_pt, ok
+
+
+def _phase_hash(msg, msg_len, sig, pubkey, *, max_msg_len: int):
+    """K10 phase_hash: -> k (32, B) uint8, SHA512(R || A || msg) mod L as
+    little-endian bytes (the JAX phase returns its 253 bits).  Replaces
+    ops/sigverify.py:229 _phase_hash.  On CPU tensors this runs the plain
+    version; on CUDA tensors it launches csrc/verify_split.cu or raises."""
+    dev = msg.device
+    bsz = _check_inputs(msg, msg_len, sig, pubkey, max_msg_len, "phase_hash")
+    if dev.type == "cpu":
+        return _phase_hash_plain(msg, msg_len, sig, pubkey, max_msg_len)
+    k = torch.empty((32, bsz), dtype=torch.uint8, device=dev)
+    _split_launch("fd_phase_hash", "phase_hash", dev, (msg, msg_len, sig, pubkey, k),
+                  bsz, max_msg_len)
+    return k
+
+
+def _phase_dsm(k, a_pt, sig):
+    """K11 phase_dsm: k (32, B) uint8, a_pt (4, 10, B) int32, sig (64, B)
+    -> r_cmp = [s]B + [k](-A), (4, 10, B) int32.  Replaces
+    ops/sigverify.py:239 _phase_dsm.  On CPU tensors this runs the plain
+    version; on CUDA tensors it launches csrc/verify_split.cu or raises."""
+    dev = k.device
+    bsz = k.shape[-1]
+    _check_tensors("phase_dsm", dev, (
+        ("k", k, torch.uint8, (32, bsz)), ("a_pt", a_pt, torch.int32, (4, 10, bsz)),
+        ("sig", sig, torch.uint8, (64, bsz))))
+    if dev.type == "cpu":
+        return _phase_dsm_plain(k, a_pt, sig)
+    r_cmp = torch.empty((4, 10, bsz), dtype=torch.int32, device=dev)
+    _split_launch("fd_phase_dsm", "phase_dsm", dev,
+                  (k, a_pt, sig, fc.comb_table(dev), r_cmp), bsz)
+    return r_cmp
+
+
+def _phase_compare(r_cmp, r_pt, ok):
+    """K12 phase_compare: ok & (r_cmp == R at Z = 1) -> (B,) bool.
+    Replaces ops/sigverify.py:245 _phase_compare.  On CPU tensors this
+    runs the plain version; on CUDA tensors it launches
+    csrc/verify_split.cu or raises."""
+    dev = r_cmp.device
+    bsz = r_cmp.shape[-1]
+    _check_tensors("phase_compare", dev, (
+        ("r_cmp", r_cmp, torch.int32, (4, 10, bsz)),
+        ("r_pt", r_pt, torch.int32, (4, 10, bsz)), ("ok", ok, torch.bool, (bsz,))))
+    if dev.type == "cpu":
+        return _phase_compare_plain(r_cmp, r_pt, ok)
+    mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    _split_launch("fd_phase_compare", "phase_compare", dev, (r_cmp, r_pt, ok, mask), bsz)
+    return mask
+
+
+def ed25519_verify_batch_split(msg, msg_len, sig, pubkey, *, max_msg_len: int):
+    """(B,) bool mask of B triples through the four phases (four launches
+    on the card); the same mask as ed25519_verify_batch."""
+    _check_inputs(msg, msg_len, sig, pubkey, max_msg_len, "verify_batch_split")
+    a_pt, r_pt, ok = _phase_validate(sig, pubkey, msg_len, max_msg_len=max_msg_len)
+    k = _phase_hash(msg, msg_len, sig, pubkey, max_msg_len=max_msg_len)
+    return _phase_compare(_phase_dsm(k, a_pt, sig), r_pt, ok)
+
+
+# -- the ladder ----------------------------------------------------------------
+
 def kernel_dispatch_count(kernel: str) -> int:
-    """Kernel launches per batch dispatch on this lane."""
-    if kernel not in KERNEL_LADDER:
-        raise ValueError(f"unknown verify kernel {kernel!r}"
-                         f" (ladder: {', '.join(KERNEL_LADDER)})")
-    return 1
+    """Kernel launches per batch dispatch on this lane (KeyError on an
+    unknown lane)."""
+    return len(_KERNEL_ENTRIES[kernel])
+
+
+def kernel_compiled_entries(kernel: str) -> int:
+    """The lane's kernel entry points whose library kbuild has loaded: after
+    one batch on the card this equals kernel_dispatch_count(kernel); 0 on a
+    host that has launched none."""
+    return sum(1 for lib, sym in _KERNEL_ENTRIES[kernel]
+               if kbuild.is_loaded(lib) and hasattr(kbuild.load(lib), sym))
+
+
+def kernel_clear_caches(kernel: str) -> None:
+    """Drop the lane's loaded libraries (the built .so files stay in the
+    build cache and load again at the next launch).  "fused" and "baseline"
+    share one library, so clearing either clears both."""
+    for lib in {lib for lib, _ in _KERNEL_ENTRIES[kernel]}:
+        kbuild.unload(lib)
 
 
 def verify_dispatch(kernel: str, msg, msg_len, sig, pubkey, n_real: int, *,
                     max_msg_len: int):
     """Dispatch one batch on the chosen lane -> (mask, ok-count | None).
-    The count is on the card for "fused"; "baseline" leaves pad lanes and
-    the count to the caller."""
+    The count is on the card for "fused"; "baseline" and "split" leave pad
+    lanes and the count to the caller."""
     if kernel == "fused":
         return ed25519_verify_batch_fused(msg, msg_len, sig, pubkey, n_real,
                                           max_msg_len=max_msg_len)
     if kernel == "baseline":
         return ed25519_verify_batch(msg, msg_len, sig, pubkey,
                                     max_msg_len=max_msg_len), None
+    if kernel == "split":
+        return ed25519_verify_batch_split(msg, msg_len, sig, pubkey,
+                                          max_msg_len=max_msg_len), None
     raise ValueError(f"unknown verify kernel {kernel!r}"
                      f" (ladder: {', '.join(KERNEL_LADDER)})")
 

@@ -268,6 +268,17 @@ class ServePlane:
                 events.append(ev)
         return Pending(oks, n_oks, parity, poh_oks, n_real, n_poh, events)
 
+    def verify_batch(self, msg, msg_len, sig, pk) -> Pending:
+        """One step over a whole batch at the plane's exact batch shape (the
+        VerifyStage plane hook): every lane counts as real, and riders=False
+        leaves parked PoH spans for a caller that reads their results.
+        Returns the step's Pending; mask_host() is the (batch,) ok mask."""
+        b = self.cfg.batch
+        if np.shape(msg)[1] != b:
+            raise ValueError(f"plane step is shaped for batch {b}, got {np.shape(msg)[1]}")
+        full = np.full((self.cfg.n_devices,), self.cfg.batch_per_shard, dtype=np.int32)
+        return self.submit(msg, msg_len, sig, pk, full, riders=False)
+
     def encode_parity(self, data: np.ndarray, parity_cnt: int) -> np.ndarray:
         """Reed-Solomon parity for (nsets, d, sz) FEC sets of any (d, p, sz),
         the sets split over the mesh: one K5 launch per shard with sets."""
@@ -405,6 +416,7 @@ class ShardedVerifyStage(VerifyStage):
         self._inflight.append(_Pending(merged, n_elems, result))
         self.metrics.inc("batches")
         self.metrics.inc("batch_elems", n_elems)
+        self.metrics.observe("batch_fill", n_elems)
 
     def flush(self) -> None:
         self._close_batch()

@@ -17,6 +17,7 @@ slice can put shared-memory rings underneath without renaming anything:
 from __future__ import annotations
 
 import time
+from bisect import bisect_left
 from collections import Counter, deque
 from typing import NamedTuple
 
@@ -67,16 +68,42 @@ class Consumer:
 
 
 class Metrics:
-    """Counters by name (stands in for the JAX package's shm metrics)."""
+    """Counters by name and declared histograms (stand in for the JAX
+    package's shm metrics; hist() returns its dict form)."""
 
     def __init__(self):
         self.counters: Counter = Counter()
+        self._hedges: dict[str, tuple] = {}
+        self._hcounts: dict[str, list[int]] = {}
+        self._hsums: dict[str, float] = {}
 
     def inc(self, name: str, v: int = 1) -> None:
         self.counters[name] += v
 
     def get(self, name: str) -> int:
         return self.counters[name]
+
+    def histogram(self, name: str, buckets: tuple) -> None:
+        """Declare a histogram with these upper bucket edges (one overflow
+        bucket past the last)."""
+        self._hedges[name] = tuple(buckets)
+        self._hcounts[name] = [0] * (len(buckets) + 1)
+        self._hsums[name] = 0.0
+
+    def observe(self, name: str, value: float) -> None:
+        c = self._hcounts[name]
+        c[bisect_left(self._hedges[name], value)] += 1
+        if value > 0:
+            self._hsums[name] += value
+
+    def hist(self, name: str) -> dict:
+        """{"buckets", "counts", "sum", "count"}; KeyError if undeclared."""
+        return {
+            "buckets": list(self._hedges[name]),
+            "counts": list(self._hcounts[name]),
+            "sum": self._hsums[name],
+            "count": sum(self._hcounts[name]),
+        }
 
 
 class Stage:

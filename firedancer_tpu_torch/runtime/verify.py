@@ -13,10 +13,20 @@ Semantics follow the reference's verify tile and the JAX package's stage:
 Txns accumulate into fixed-shape batches (a txn is never split across two);
 a batch closes when full or when its deadline passes in after_credit; up to
 `max_inflight` batches stay on the card while the host streams the next.
-Reaping is strictly in submission order.  Each dispatch is ONE kernel
-launch (ops/sigverify.py); its result is a small future: the mask and count
-tensors on the device plus a CUDA event that `_result_ready` queries, so
-the loop never blocks on a batch still running.
+Reaping is strictly in submission order.  A dispatch is ONE kernel launch
+on the "fused" and "baseline" lanes and four (K9-K12) on "split"
+(ops/sigverify.py KERNEL_LADDER); its result is a small future: the mask and
+count tensors on the device plus a CUDA event that `_result_ready` queries,
+so the loop never blocks on a batch still running.  With a serving plane
+(plane=...), generic batches go through the plane's step instead
+(parallel/serve.py ServePlane.verify_batch).
+
+Autotuner (autotune_after > 0): the stage records its batch_fill, msg_len
+and inflight_occupancy histograms; every autotune_after batches, at a
+housekeeping call that finds the stage quiet (nothing accumulated, in
+flight or sealed), it applies runtime/verify_tune.py's recommendation for
+(batch, max_msg_len, comb split).  On the card that only changes the shape
+of the next launch.
 
 Repeated-signer lane (comb_slots > 0): real ingress repeats signers (one
 vote key per validator, a vote per slot), so the stage keeps a comb bank on
@@ -39,7 +49,9 @@ import torch
 from ..ops import sigverify as sv
 from ..protocol import txn as ft
 from ..tango.rings import TCache
+from ..utils import metrics as fm
 from ..utils.platform import resolve_device
+from . import verify_tune as vt
 from .stage import Stage
 
 VERIFY_TCACHE_DEPTH = 16  # tiny by design (fd_verify.h:6-7)
@@ -63,6 +75,23 @@ class _Acc:
     tsorigs: list = field(default_factory=list)
     slots: list = field(default_factory=list)  # cached lane: bank slot per element
     opened_at: float = 0.0
+
+
+class _MaskOnly:
+    """A plane step reaped by its mask alone, as the JAX stage reaps its
+    plane route: the step counts every lane of the batch as real."""
+
+    def __init__(self, pend):
+        self.pend = pend
+
+    def is_ready(self) -> bool:
+        return self.pend.is_ready()
+
+    def mask_host(self) -> np.ndarray:
+        return self.pend.mask_host()
+
+    def n_ok_host(self):
+        return None
 
 
 class _Result:
@@ -97,17 +126,43 @@ class VerifyStage(Stage):
                  batch_deadline_s: float = 0.002,
                  max_inflight: int = DEFAULT_MAX_INFLIGHT,
                  kernel: str = "fused", comb_slots: int = 0,
-                 promote_threshold: int = 2):
+                 promote_threshold: int = 2, plane=None,
+                 autotune_after: int = 0, native_client: bool | None = None):
         super().__init__(name, ins, outs)
         if kernel not in sv.KERNEL_LADDER:
             raise ValueError(f"unknown verify kernel {kernel!r}"
                              f" (ladder: {', '.join(sv.KERNEL_LADDER)})")
-        self.device = resolve_device(device)
+        if native_client:
+            raise ValueError(
+                "native_client=True: the port has no native sweep client (the"
+                " C++ intake sweep over shared-memory rings, native/fd_verify.cpp);"
+                " it comes with the shm rings")
+        # plane: a parallel/serve.ServePlane; generic batches go through its
+        # step, so the stage's batch geometry must be the plane's shape
+        self.plane = plane
+        if plane is not None and (batch != plane.cfg.batch
+                                  or max_msg_len != plane.cfg.max_msg_len):
+            raise ValueError(
+                f"verify stage (batch={batch}, max_msg_len={max_msg_len})"
+                f" does not match the serving plane's shape"
+                f" (batch={plane.cfg.batch}, max_msg_len={plane.cfg.max_msg_len})")
+        self.device = (plane.device if plane is not None and device is None
+                       else resolve_device(device))
         self.kernel = kernel
         self.batch = batch
         self.max_msg_len = max_msg_len
         self.batch_deadline_s = batch_deadline_s
         self.max_inflight = max_inflight
+        # autotune_after: re-derive (batch, max_msg_len, comb split) from
+        # this stage's histograms every N batches (runtime/verify_tune.py);
+        # 0 = off
+        self.autotune_after = autotune_after
+        self._last_tune_batches = 0
+        self._comb_lane_on = True
+        m = self.metrics
+        m.histogram("batch_fill", fm.exp_buckets(1, 4096, 13))
+        m.histogram("msg_len", fm.exp_buckets(32, 2048, 13))
+        m.histogram("inflight_occupancy", tuple(float(i) for i in range(1, 17)))
         self.tcache = TCache(VERIFY_TCACHE_DEPTH)
         # comb bank (0 slots = the lane is off); the bank is allocated on
         # the first fill, comb_slots x 160 KB on the device
@@ -157,6 +212,7 @@ class VerifyStage(Stage):
 
     def _accumulate(self, got, payload: bytes, tsorig: int) -> None:
         sigs, msg, signers, t = got
+        self.metrics.observe("msg_len", len(msg))
         slots = self._signer_slots(signers)
         acc = self._comb if slots is not None else self._gen
         if acc.elems and len(acc.elems) + len(sigs) > self.batch:
@@ -202,13 +258,39 @@ class VerifyStage(Stage):
         self._pump_submits()
         self._drain(block=False)
         self._fill_bank()
+        self._maybe_retune()
+
+    # -- autotuner (runtime/verify_tune.py) ---------------------------------------
+
+    def _maybe_retune(self) -> None:
+        """Every autotune_after batches, apply the recommendation from this
+        stage's own histograms, but only at a quiet point: nothing
+        accumulated, nothing in flight, no sealed batch queued.  With a
+        plane the batch shape is the plane's, so only the comb split moves."""
+        if not self.autotune_after:
+            return
+        if self.metrics.get("batches") - self._last_tune_batches < self.autotune_after:
+            return
+        if self._inflight or self._submit_queue or self._gen.elems or self._comb.elems:
+            return
+        self._last_tune_batches = self.metrics.get("batches")
+        rec = vt.recommend_for_stage(self)
+        if self.plane is not None:
+            rec = vt.Geometry(self.batch, self.max_msg_len, rec.comb_split)
+        if (rec.batch, rec.max_msg_len, rec.comb_split) == \
+                (self.batch, self.max_msg_len, self._comb_lane_on):
+            return
+        self.batch = rec.batch
+        self.max_msg_len = rec.max_msg_len
+        self._comb_lane_on = rec.comb_split
+        self.metrics.inc("retunes")
 
     # -- comb bank ---------------------------------------------------------------------
 
     def _signer_slots(self, signers: list[bytes]) -> list[int] | None:
         """Bank slots if EVERY signer is banked, else None; counts sightings
         of the others and queues their promotion on the way."""
-        if not self.comb_slots:
+        if not self.comb_slots or not self._comb_lane_on:
             return None
         slots = []
         all_cached = True
@@ -288,6 +370,8 @@ class VerifyStage(Stage):
             self._inflight.append(_Pending(acc, n, self._dispatch(acc, cached)))
             self.metrics.inc("batches")
             self.metrics.inc("batch_elems", n)
+            self.metrics.observe("batch_fill", n)
+            self.metrics.observe("inflight_occupancy", len(self._inflight))
             if cached:
                 self.metrics.inc("comb_batches")
                 self.metrics.inc("comb_elems", n)
@@ -312,11 +396,14 @@ class VerifyStage(Stage):
         return (np.ascontiguousarray(msg.T), ln, np.ascontiguousarray(sig.T),
                 np.ascontiguousarray(pk.T))
 
-    def _dispatch(self, acc: _Acc, cached: bool) -> _Result:
+    def _dispatch(self, acc: _Acc, cached: bool):
         dev = self.device
         n = len(acc.elems)
-        msg, ln, sig, pk = (torch.from_numpy(a).to(dev)
-                            for a in self._assemble(acc))
+        rows = self._assemble(acc)
+        if self.plane is not None and not cached:
+            # mesh route: the plane's step uploads each shard's lanes itself
+            return _MaskOnly(self.plane.verify_batch(*rows))
+        msg, ln, sig, pk = (torch.from_numpy(a).to(dev) for a in rows)
         if cached:
             slots = np.zeros((self.batch,), dtype=np.int32)
             slots[:n] = acc.slots

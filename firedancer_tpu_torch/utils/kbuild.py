@@ -128,6 +128,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def is_loaded(name: str) -> bool:
+    """Whether csrc/<name>.cu's library is loaded in this process."""
+    return name in _LIBS
+
+
+def unload(name: str) -> None:
+    """Forget the loaded library of csrc/<name>.cu; the next load() opens
+    the built file again (nothing is rebuilt)."""
+    with _LOCK:
+        _LIBS.pop(name, None)
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if rc != 0:

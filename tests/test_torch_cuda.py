@@ -74,12 +74,19 @@ def test_verify_batch_kernel_equals_plain_and_labels(dev):
 
 @pytest.mark.parametrize("lane", sv.KERNEL_LADDER)
 def test_verify_dispatch_launches_once_per_batch(dev, lane):
+    """One batch dispatch launches the lane's kernel_dispatch_count kernels
+    (1, 1 and 4: K1, K1, K9-K12), and loads that many entry points."""
     mb = mixed_batch(32, 128, n_real=30, seed=10)
     args = [torch.from_numpy(a).to(dev) for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey)]
     mask, n_ok = sv.verify_dispatch(lane, *args, mb.n_real, max_msg_len=128)
-    assert kbuild.LAUNCHES["verify_batch"] == sv.kernel_dispatch_count(lane)
+    want_launches = ({n: 1 for n in ("phase_validate", "phase_hash", "phase_dsm",
+                                     "phase_compare")} if lane == "split"
+                     else {"verify_batch": 1})
+    assert dict(kbuild.LAUNCHES) == want_launches
+    assert sum(want_launches.values()) == sv.kernel_dispatch_count(lane)
+    assert sv.kernel_compiled_entries(lane) == sv.kernel_dispatch_count(lane)
     want = mb.labels.copy()
-    if lane == "baseline":  # pad lanes verify; the caller masks them
+    if lane != "fused":  # pad lanes verify; the caller masks them
         want[mb.n_real:] = mask.cpu().numpy()[mb.n_real:]
         assert n_ok is None
     else:
@@ -241,3 +248,29 @@ def test_verify_cached_kernel_equals_plain_and_generic(dev):
     assert mask.cpu().tolist() == mb.labels[lanes][:n_real].tolist() + [False, False]
     assert int(cnt) == int(pcnt) == int(mask.sum())
     assert kbuild.LAUNCHES["verify_cached"] == 1
+
+
+def test_split_phase_kernels_equal_plain_and_labels(dev):
+    """K9-K12 against their plain versions on the mixed batch, on every lane
+    (limbs, k, ok and the mask exactly), then the split mask against K1's
+    and the labels, and two lanes whose length is out of range."""
+    mb = mixed_batch(64, 256, seed=13)  # every lane labelled
+    ln = mb.msg_len.copy()
+    ln[[0, 10]] = (257, -1)
+    labels = mb.labels.copy()
+    labels[[0, 10]] = False
+    msg, msg_len, sig, pk = (torch.from_numpy(a).to(dev) for a in (mb.msg, ln, mb.sig, mb.pubkey))
+    a, r, ok = sv._phase_validate(sig, pk, msg_len, max_msg_len=256)
+    pa, pr, pok = sv._phase_validate_plain(sig, pk, msg_len, 256)
+    assert torch.equal(a, pa) and torch.equal(r, pr) and torch.equal(ok, pok)
+    k = sv._phase_hash(msg, msg_len, sig, pk, max_msg_len=256)
+    assert torch.equal(k, sv._phase_hash_plain(msg, msg_len, sig, pk, 256))
+    r_cmp = sv._phase_dsm(k, a, sig)
+    assert torch.equal(r_cmp, sv._phase_dsm_plain(k, a, sig))
+    mask = sv._phase_compare(r_cmp, r, ok)
+    assert torch.equal(mask, sv._phase_compare_plain(r_cmp, r, ok))
+    k1, _ = sv.verify_batch(msg, msg_len, sig, pk, 64, max_msg_len=256)
+    assert mask.cpu().tolist() == k1.cpu().tolist() == labels.tolist()
+    assert {n: kbuild.LAUNCHES[n] for n in ("phase_validate", "phase_hash", "phase_dsm",
+                                            "phase_compare")} == dict.fromkeys(
+        ("phase_validate", "phase_hash", "phase_dsm", "phase_compare"), 1)

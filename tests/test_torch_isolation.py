@@ -76,7 +76,8 @@ def _no_card():
 @pytest.mark.parametrize("call", [
     "resolve_device", "pipeline", "verify_stage", "entry", "example_batch",
     "make_mesh", "serve_plane", "sharded_pipeline", "verify_segments",
-    "leader_step", "reedsol_encode", "bank_alloc", "comb_fill", "comb_pipeline"])
+    "leader_step", "reedsol_encode", "bank_alloc", "comb_fill", "comb_pipeline",
+    "split_pipeline", "autotune_pipeline"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -95,6 +96,8 @@ def test_entry_points_default_to_the_card(call):
         "bank_alloc": lambda: tsv.bank_alloc(4),
         "comb_fill": lambda: tsv.comb_fill(np.zeros((32, 2), np.uint8)),
         "comb_pipeline": lambda: build_verify_pipeline([b"x"], comb_slots=4),
+        "split_pipeline": lambda: build_verify_pipeline([b"x"], kernel="split"),
+        "autotune_pipeline": lambda: build_verify_pipeline([b"x"], autotune_after=4),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
@@ -145,9 +148,15 @@ def test_wrappers_refuse_bad_inputs():
                          max_msg_len=tentry.MAX_MSG_LEN)
     with pytest.raises(ValueError):
         tsv.verify_batch(msg, ln, sig, pk, 8, max_msg_len=64)
+    # the split rung runs (its plain phases on CPU tensors) and counts 4
+    kbuild.reset_launches()
+    mask, n_ok = tsv.verify_dispatch("split", msg, ln, sig, pk, 8,
+                                     max_msg_len=tentry.MAX_MSG_LEN)
+    assert n_ok is None and mask.tolist() == [True] * 8
+    assert sum(kbuild.LAUNCHES.values()) == 0
+    assert tsv.kernel_dispatch_count("split") == 4
+    assert [tsv.kernel_dispatch_count(k) for k in tsv.KERNEL_LADDER] == [1, 1, 4]
     with pytest.raises(ValueError):
-        tsv.verify_dispatch("split", msg, ln, sig, pk, 8,
-                            max_msg_len=tentry.MAX_MSG_LEN)
-    with pytest.raises(ValueError):
-        tsv.kernel_dispatch_count("split")
-    assert [tsv.kernel_dispatch_count(k) for k in tsv.KERNEL_LADDER] == [1, 1]
+        tsv.verify_dispatch("warp", msg, ln, sig, pk, 8, max_msg_len=tentry.MAX_MSG_LEN)
+    with pytest.raises(KeyError):
+        tsv.kernel_dispatch_count("warp")

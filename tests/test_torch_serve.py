@@ -1,8 +1,9 @@
 """The port's serving plane against the JAX package: ServeConfig keys, the
 pad-lane mask, the router's deterministic assignment and frag conservation,
 a tiny CPU plane (encode_parity, verify_poh_segments and a step with parked
-PoH spans, at 1 and 4 shards), sharded_leader_step, and the sharded verify
-pipeline against the port's unsharded one.  Inputs are made with numpy
+PoH spans, at 1 and 4 shards), sharded_leader_step, the sharded verify
+pipeline against the port's unsharded one, and the verify stage's plane hook
+(VerifyStage(plane=...)) against the plain stage.  Inputs are made with numpy
 from a seed; everything runs the plain versions on the CPU."""
 
 import contextlib
@@ -31,6 +32,7 @@ from firedancer_tpu_torch.parallel.router import ShardRouterStage, shard_of
 from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane, lane_real_mask
 from firedancer_tpu_torch.runtime.poh import hashes_to_rows, poh_append
 from firedancer_tpu_torch.runtime.stage import Consumer, Link, Producer
+from firedancer_tpu_torch.runtime.verify import VerifyStage
 from firedancer_tpu_torch.utils import kbuild
 
 
@@ -211,6 +213,47 @@ def test_sharded_verify_pipeline_equals_unsharded():
     assert sum(rep["verify"].get(f"shard_elems_s{i}", 0) for i in range(4)) \
         == rep["verify"]["batch_elems"]
     assert rep["verify"].get("poh_spans_ok", 0) == 0
+
+
+def test_verify_stage_plane_hook_equals_plain_stage():
+    """VerifyStage(plane=...) sends its generic batches through the plane's
+    step (two shards here) and publishes the plain stage's frames and
+    counters."""
+    vs = verify_stream(14, self_transfer=True, n_multisig=2, n_corrupt=2, n_resend=2)
+    plane = ServePlane(ServeConfig(n_devices=2, batch_per_shard=8, max_msg_len=128),
+                       device="cpu")
+    pipes = [build_verify_pipeline(vs.stream, device="cpu", batch=16, max_msg_len=128),
+             build_verify_pipeline(vs.stream, batch=16, max_msg_len=128, plane=plane)]
+    for pipe in pipes:
+        pipe.verify.batch_deadline_s = 60.0  # batches close when full or at flush
+        pipe.run()
+    ref, hooked = (p.report() for p in pipes)
+    assert pipes[1].verify.plane is plane and pipes[1].verify.device == plane.device
+    assert pipes[1].sink.frames == pipes[0].sink.frames
+    assert [p for p, _ in pipes[1].sink.frames] == vs.expect_sunk
+    for stage in ("verify", "dedup", "sink"):
+        assert hooked[stage] == ref[stage], stage
+    assert hooked["verify"]["txn_verified"] == vs.expect["txn_verified"]
+
+
+def test_verify_stage_plane_hook_checks_the_shape():
+    plane = ServePlane(ServeConfig(n_devices=1, batch_per_shard=4, max_msg_len=128),
+                       device="cpu")
+    for batch, mml in ((8, 128), (4, 256)):
+        with pytest.raises(ValueError, match="serving plane"):
+            VerifyStage("v", device="cpu", batch=batch, max_msg_len=mml, plane=plane)
+    st = VerifyStage("v", batch=4, max_msg_len=128, plane=plane)
+    assert st.device == plane.device
+    rows = (np.zeros((128, 4), np.uint8), np.zeros((4,), np.int32),
+            np.zeros((64, 4), np.uint8), np.zeros((32, 4), np.uint8))
+    with pytest.raises(ValueError, match="batch 4"):
+        plane.verify_batch(*(a[..., :3] for a in rows))
+    # riders=False: a parked PoH span stays parked for the step that reads it
+    h = hashlib.sha256(b"span").digest()
+    assert plane.queue_poh_span(h, poh_append(h, plane.cfg.poh_iters))
+    pend = plane.verify_batch(*rows)
+    assert pend.poh_real == 0 and len(plane._poh_spans) == 1
+    assert pend.mask_host().tolist() == [False] * 4  # zero rows never verify
 
 
 def test_cli_warmup_and_sharded_run_on_cpu():

@@ -8,7 +8,9 @@ serves both tests:
     non-canonical y, non-square y, pad lanes past n_real);
   - the port's VerifyStage -> DedupStage publishes frames byte-identical to
     the JAX package's VerifyStage -> DedupStage, with equal counters, on one
-    seeded txn stream.
+    seeded txn stream;
+  - the split rung (K9-K12's plain versions) gives the same mask and, in
+    the stage, the same frames and counters.
 
 The direct call feeds JAX exactly what VerifyStage._dispatch feeds it
 (uint8 byte rows, int32 lengths, jnp.int32(n_real)), so both tests hit the
@@ -64,6 +66,23 @@ def test_fused_mask_and_count_match_jax_on_mixed_batch():
     assert mb.labels[: mb.n_real].any() and not mb.labels[mb.n_real:].any()
 
 
+def test_split_mask_matches_jax_fused_on_mixed_batch():
+    """The split rung's plain phases (K9-K12's plain versions) give the JAX
+    fused kernel's mask on the same batch; the stage masks lanes >= n_real."""
+    mb = mixed_batch(B, MAX_MSG_LEN, n_real=14, seed=3)
+    jmask, _ = jsv.ed25519_verify_batch_fused(
+        jnp.asarray(mb.msg), jnp.asarray(mb.msg_len), jnp.asarray(mb.sig),
+        jnp.asarray(mb.pubkey), jnp.int32(mb.n_real), max_msg_len=MAX_MSG_LEN)
+    kbuild.reset_launches()
+    tmask, n_ok = tsv.verify_dispatch(
+        "split", *(torch.from_numpy(a) for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey)),
+        mb.n_real, max_msg_len=MAX_MSG_LEN)
+    assert sum(kbuild.LAUNCHES.values()) == 0  # CPU tensors: plain versions
+    assert n_ok is None and tmask.shape == (B,)
+    real = tmask.tolist()[: mb.n_real]
+    assert real == np.asarray(jmask).tolist()[: mb.n_real] == mb.labels.tolist()[: mb.n_real]
+
+
 def _run_jax(frames):
     uid = shm.fresh_uid()
     lin = shm.ShmLink.create(f"ttsv_i_{uid}", depth=256, mtu=1232)
@@ -104,12 +123,12 @@ def _run_jax(frames):
             link.unlink()
 
 
-def _run_port(frames):
+def _run_port(frames, kernel="fused"):
     lin, lvd, lout = (tstage.Link(n, 256) for n in ("in", "vd", "out"))
     feed = tstage.Producer(lin)
     verify = VerifyStage("verify", [tstage.Consumer(lin)], [tstage.Producer(lvd)],
                          device="cpu", batch=B, max_msg_len=MAX_MSG_LEN,
-                         batch_deadline_s=3600.0, kernel="fused")
+                         batch_deadline_s=3600.0, kernel=kernel)
     dedup = DedupStage("dedup", [tstage.Consumer(lvd)], [tstage.Producer(lout)])
     for i, f in enumerate(frames):
         assert feed.try_publish(f, sig=i, tsorig=1 + i)
@@ -139,3 +158,14 @@ def test_verify_dedup_frames_and_counters_match_jax(stream):
     assert t_vrep["dedup_dup"] == e["tile_dedup_dup"]
     assert t_vrep["msg_too_long"] == e["msg_too_long"] > 0
     assert t_drep["dedup_dup"] == e["dedup_dup"] > 0
+
+
+def test_split_lane_frames_and_counters_match_jax(stream):
+    """VerifyStage(kernel="split") publishes the JAX fused stage's frames and
+    counters on the same stream."""
+    j_out, j_vrep, j_drep = _run_jax(stream.stream)
+    t_out, t_vrep, t_drep = _run_port(stream.stream, kernel="split")
+    assert t_out == j_out
+    assert t_vrep == j_vrep
+    assert t_drep == j_drep
+    assert [p for p, _ in t_out] == stream.expect_sunk
