@@ -75,6 +75,30 @@ result line:
               through comb_slots=0, once with autotune_after=2 and once
               without: retunes >= 1, a smaller geometry, phase 13's counters
               and equal sorted frames, K1 once per batch
+  16. K13     lthash_combine at N = 2,048 and 65,536 seeded rows with
+              signs in {-1, 0, 1}: equal to its plain version, signed and
+              unsigned, and to the JAX seal's power-of-two padded rows;
+              timed beside its bound and one torch.sum over the pre-signed
+              int32 rows (the sign multiply left out of that call)
+  17. leader  build_leader_pipeline (benchg -> verify -> dedup -> pack ->
+              bank x2 -> poh -> shred -> store) over 8,192 transfers (8
+              payers, 1,024 destinations) at batch 1,024 and max_msg_len
+              1,232, pack's pool 8,192 deep, then seal: every txn landed, the deshredded store bytes
+              equal PoH's entries, replay_block reproduces the seal, K13
+              once per seal, K5 once or twice per shredded entry batch, K1
+              once per verify batch; txn/s to the store and the host
+              seconds per stage and seal phase
+  17b. lossy  phase 17's FEC sets with 1 to p shreds of each dropped,
+              through a full-verification StoreStage (merkle proof per
+              shred, the leader's signature by ed25519_ref): the same entry
+              bytes, K5 once per set that lost a data shred
+  17c. sharded  build_sharded_leader_pipeline over the same pool on a
+              one-shard plane with PoH spans of 12,500 hashes (the PoH
+              stage's hashes_per_tick): the clock runs on until one pure
+              tick is parked; spans verified by K4 (>= 1 launch), K13
+              once, K5 through encode_parity, K1 once per step; the same
+              landed txns and sealed state as phase 17, and replay
+              reproduces this pipeline's seal
 
 Then a [time] line with each phase's seconds on the host clock, one JSON
 line of per-kernel numbers ({"kernels": [...]}), the
@@ -115,6 +139,12 @@ SPLIT = ("phase_validate", "phase_hash", "phase_dsm", "phase_compare")  # K9-K12
 SPLIT_LINES = (216, 229, 239, 245)  # their JAX phases in firedancer_tpu/ops/sigverify.py
 TUNE_BATCH, TUNE_AFTER = 2048, 2  # phase 15c: the untuned geometry and the evidence bar
 SPLIT_REPEAT_ROUNDS = 2  # phase 15: extra (split, fused) pipeline rounds
+K13_ROWS = (2048, 65536)  # phase 16: K13's row counts (a slot's few thousand; a large N)
+# phase 17: the leader pipeline's ingress, the lane-independent key set of
+# the JAX package's cross-lane drives (8 payers, 1,024 destinations); pack's
+# pool holds the whole stream (at the default 4,096, equal-priority
+# transfers past a full pool are dropped, and a quarter of them were)
+LEADER_TXNS, LEADER_DESTS = 8192, 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -171,7 +201,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from firedancer_tpu_torch import entry as tentry
+    from firedancer_tpu_torch.flamenco.runtime import replay_block
     from firedancer_tpu_torch.models.leader import (
+        build_leader_pipeline,
+        build_sharded_leader_pipeline,
         build_sharded_verify_pipeline,
         build_verify_pipeline,
     )
@@ -185,6 +218,7 @@ def main() -> int:
     )
     from firedancer_tpu_torch.ops import gf256 as g2
     from firedancer_tpu_torch.ops import limbs as fl
+    from firedancer_tpu_torch.ops import lthash as flt
     from firedancer_tpu_torch.ops import probe as fprobe
     from firedancer_tpu_torch.ops import reedsol as rs
     from firedancer_tpu_torch.ops import sha256 as fsha256
@@ -194,7 +228,12 @@ def main() -> int:
     from firedancer_tpu_torch.ops.ref import gf256_ref as gr
     from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
     from firedancer_tpu_torch.runtime import poh as rpoh
+    from firedancer_tpu_torch.runtime.bank import default_bank_ctx
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
+    from firedancer_tpu_torch.runtime.poh_stage import parse_entry
+    from firedancer_tpu_torch.runtime.shred_stage import deshred_entry_batch
+    from firedancer_tpu_torch.runtime.stage import Consumer, Frag, Link
+    from firedancer_tpu_torch.runtime.store import StoreStage
     from firedancer_tpu_torch.runtime.verify import encode_verified
     from firedancer_tpu_torch.utils.metrics import hist_quantile as tune_quantile
     from firedancer_tpu_torch.utils import kbuild
@@ -1155,13 +1194,196 @@ def main() -> int:
         f" {tune_quantile(v15c.metrics.hist('msg_len'), 0.99):.0f}; sorted frames equal; launches"
         f" {launches15c}")
 
+    # -- 16. K13 lthash_combine alone ----------------------------------------------------------
+    mark("16")
+    k13 = {}
+    for n16 in K13_ROWS:
+        rng = np.random.default_rng(16 + n16)
+        v16 = torch.from_numpy(rng.integers(0, 1 << 16, (n16, flt.LEN_ELEMS), dtype=np.uint16)
+                               .view(np.int16)).to(dev)
+        s16 = torch.from_numpy(rng.integers(-1, 2, n16).astype(np.int8)).to(dev)
+        kbuild.reset_launches()
+        got16 = flt.combine_device(v16, s16)
+        torch.cuda.synchronize()
+        err16 = int((got16.to(torch.int64) - flt.combine_plain(v16, s16).to(torch.int64)).abs().max())
+        check(err16 == 0, f"K13 differs from its plain version at N = {n16} (max abs err {err16})")
+        # the JAX seal's power-of-two padding: zero rows of sign 0 change nothing
+        cap = 1 << (n16 - 1).bit_length() if n16 & (n16 - 1) else 2 * n16
+        vp = torch.cat([v16, torch.zeros((cap - n16, flt.LEN_ELEMS), dtype=torch.int16, device=dev)])
+        sp = torch.cat([s16, torch.zeros((cap - n16,), dtype=torch.int8, device=dev)])
+        check(torch.equal(flt.combine_device(vp, sp), got16), f"K13 padded != unpadded at N = {n16}")
+        check(torch.equal(flt.combine_device(v16), flt.combine_plain(v16, None)),
+              f"K13 unsigned differs from its plain version at N = {n16}")
+        check(kbuild.LAUNCHES["lthash_combine"] == 3, f"K13 launches {kbuild.LAUNCHES} != 3")
+        signed16 = (v16.to(torch.int32) & 0xFFFF) * s16.to(torch.int32)[:, None]
+        ms16 = time_ms(lambda: flt.combine_device(v16, s16), reps=50, hide_host=True)
+        lib16 = time_ms(lambda: torch.sum(signed16, dim=0), reps=50, hide_host=True)
+        plain16 = time_ms(lambda: flt.combine_plain(v16, s16), reps=10)
+        b16, bby16 = bound(2 * n16 * flt.LEN_ELEMS, n16 * (2 * flt.LEN_ELEMS + 1) + 4 * flt.LEN_ELEMS)
+        k13[n16] = dict(ms=ms16, plain_ms=plain16, library_ms=lib16, bound_ms=b16,
+                        bound_by=bby16, max_abs_err=err16, padded_rows=cap)
+        log(f"[K13] lthash_combine N={n16}: equal to plain (signed, unsigned) and to the"
+            f" padded N={cap}; {ms16 * 1e3:.2f} us (bound {b16 * 1e3:.2f} us, {bby16});"
+            f" torch.sum over pre-signed int32 {lib16 * 1e3:.2f} us (sign multiply not"
+            f" included); plain {plain16 * 1e3:.2f} us")
+    phase16_launches = kbuild.LAUNCHES["lthash_combine"]
+
+    # -- 17. the leader pipeline at full width (main path) ------------------------------------
+    mark("17")
+    t0 = time.perf_counter()
+    pool17 = gen_transfer_pool(LEADER_TXNS, n_payers=8, n_dests=LEADER_DESTS)
+    gen17_s = time.perf_counter() - t0
+    pipe17 = build_leader_pipeline(pool17, device=dev, batch=B1, max_msg_len=ML1,
+                                   n_bank=2, keep_entries=True, pack_depth=LEADER_TXNS)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    pipe17.run()
+    torch.cuda.synchronize()
+    run17_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seal17 = pipe17.seal()
+    seal17_s = time.perf_counter() - t0
+    launches17 = dict(kbuild.LAUNCHES)
+    rep17 = pipe17.report()
+    landed17 = sum(rep17[b.name].get("txn_exec", 0) for b in pipe17.banks)
+    check(landed17 == LEADER_TXNS == seal17.signature_cnt,
+          f"leader pipeline landed {landed17}, sealed {seal17.signature_cnt} of {LEADER_TXNS}")
+    batch17 = pipe17.store.entry_batch_bytes(1)
+    ents17 = [parse_entry(x) for x in deshred_entry_batch(batch17)]
+    check(ents17 == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe17.poh.entries],
+          "leader pipeline: deshredded store bytes != PoH's entries")
+    nb17 = rep17["shred"]["entry_batches"]
+    check(launches17.get("lthash_combine", 0) == 1, f"K13 launches {launches17} != 1 per seal")
+    check(nb17 <= launches17.get("gf256_apply", 0) <= 2 * nb17,
+          f"K5 launches {launches17.get('gf256_apply', 0)} not 1-2 per shredded entry batch ({nb17})")
+    check(launches17.get("verify_batch", 0) == rep17["verify0"]["batches"],
+          f"K1 launches {launches17.get('verify_batch', 0)} != batches {rep17['verify0']['batches']}")
+    fund17 = default_bank_ctx(slot=1, device=dev)
+    t0 = time.perf_counter()
+    rp17 = replay_block(fund17.funk, slot=1, entries=ents17, poh_seed=b"\x00" * 32,
+                        status_cache=fund17.status_cache, device=dev)
+    replay17_s = time.perf_counter() - t0
+    check(rp17 is not None and rp17.bank_hash == seal17.bank_hash
+          and np.array_equal(rp17.accounts_delta, seal17.accounts_delta)
+          and rp17.signature_cnt == seal17.signature_cnt,
+          "leader pipeline: replay_block does not reproduce the seal")
+    split17 = dict(pipe17.stage_s)
+    txn17_s = landed17 / run17_s
+    # upper estimate: each K1 launch a full batch's time, each K5 launch
+    # phase 9's 1,024-set encode, K13 phase 16's N = 2,048
+    busy17 = (launches17.get("verify_batch", 0) * ms1k + launches17.get("gf256_apply", 0) * ms9
+              + k13[K13_ROWS[0]]["ms"]) / ((run17_s + seal17_s) * 1e3)
+    log(f"[leader] {LEADER_TXNS} transfers (8 payers, {LEADER_DESTS} dests; pool signed in"
+        f" {gen17_s:.1f} s) at batch {B1}, 2 banks: run {run17_s:.3f} s = {txn17_s:.0f} txn/s"
+        f" to the store; seal {seal17_s:.3f} s (bank hash {seal17.bank_hash.hex()});"
+        f" {rep17['store']['sets_stored']} FEC sets in {nb17} entry batches, entry bytes"
+        f" sha256 {hashlib.sha256(batch17).hexdigest()}; replay reproduces the seal in"
+        f" {replay17_s:.3f} s; launches {launches17}; device busy <= {busy17:.3f} of the"
+        f" slot (run + seal; K1, K5 and K13 event times x launches)")
+    log(f"[leader-split] host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17.items())})}"
+        f" (run {run17_s:.3f} s + seal {seal17_s:.3f} s); counters {json.dumps(rep17)}")
+
+    # -- 17b. lossy receive: up to p shreds of each set dropped, full verification -------------
+    mark("17b")
+    rng = np.random.default_rng(17)
+    wire17, need17 = [], 0
+    for st in pipe17.shred.sets:
+        shreds = list(st.data_shreds) + list(st.parity_shreds)
+        gone = set(rng.choice(len(shreds), int(rng.integers(1, len(st.parity_shreds) + 1)),
+                              replace=False).tolist())
+        need17 += any(i < len(st.data_shreds) for i in gone)
+        wire17 += [x for i, x in enumerate(shreds) if i not in gone]
+    link17 = Link("lossy", len(wire17) + 1)
+    for x in wire17:
+        link17.q.append((Frag(0, 0, 0), x))
+    pub17 = pipe17.leader_pub
+    store17b = StoreStage("store_lossy", [Consumer(link17)], trust_membership=False,
+                          verify_sig=lambda root, sig: ref.verify(root, sig, pub17), device=dev)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    while link17.q:
+        store17b.run_once()
+    torch.cuda.synchronize()
+    lossy17_s = time.perf_counter() - t0
+    launches17b = dict(kbuild.LAUNCHES)
+    check(store17b.entry_batch_bytes(1) == batch17, "lossy store: entry bytes differ")
+    check(launches17b.get("gf256_apply", 0) == need17 > 0,
+          f"lossy store: K5 recover launches {launches17b.get('gf256_apply', 0)} != {need17}"
+          " sets missing data shreds")
+    log(f"[leader-lossy] {len(wire17)} of {sum(len(st.data_shreds) + len(st.parity_shreds) for st in pipe17.shred.sets)}"
+        f" shreds through a full-verification store in {lossy17_s:.3f} s: same entry bytes;"
+        f" {need17} sets rebuilt; resolver {store17b.resolver.metrics}; launches {launches17b}")
+
+    # -- 17c. the sharded leader pipeline on the serving plane ---------------------------------
+    mark("17c")
+    plane17 = ServePlane(ServeConfig(n_devices=1, batch_per_shard=B1, max_msg_len=ML1,
+                                     poh_chains_per_shard=4, poh_iters=HASHES_PER_TICK))
+    warm17 = plane17.warmup()
+    pipe17c = build_sharded_leader_pipeline(pool17, plane=plane17, n_shards=1,
+                                            hashes_per_tick=HASHES_PER_TICK, keep_entries=True,
+                                            pack_depth=LEADER_TXNS)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    pipe17c.run(finish=False)
+    # the clock runs on past the stream until one pure tick is parked
+    for _ in range(2_000_000):
+        if pipe17c.poh.metrics.get("poh_spans_queued"):
+            break
+        pipe17c._step(pipe17c.stages)
+    pipe17c.finish()
+    torch.cuda.synchronize()
+    run17c_s = time.perf_counter() - t0
+    seal17c = pipe17c.seal()
+    launches17c = dict(kbuild.LAUNCHES)
+    rep17c = pipe17c.report()
+    landed17c = sum(rep17c[b.name].get("txn_exec", 0) for b in pipe17c.banks)
+    q17c = rep17c["poh"].get("poh_spans_queued", 0)
+    check(q17c >= 1 and rep17c["verify"].get("poh_spans_ok", 0) == q17c
+          and rep17c["verify"].get("poh_spans_fail", 0) == 0,
+          f"sharded leader: spans queued {q17c}, verify counters {rep17c['verify']}")
+    check(launches17c.get("sha256_iter32", 0) >= 1, "sharded leader: K4 never launched")
+    check(launches17c.get("lthash_combine", 0) == 1, "sharded leader: K13 launches != 1")
+    nb17c = rep17c["shred"]["entry_batches"]
+    check(nb17c <= launches17c.get("gf256_apply", 0) <= 2 * nb17c,
+          f"sharded leader: K5 launches {launches17c.get('gf256_apply', 0)} for {nb17c} batches")
+    check(launches17c.get("verify_batch", 0) == rep17c["verify"]["batches"],
+          "sharded leader: K1 launches != plane steps")
+    check(landed17c == LEADER_TXNS and seal17c.signature_cnt == seal17.signature_cnt
+          and np.array_equal(seal17c.accounts_delta, seal17.accounts_delta),
+          "sharded leader: landed txns or sealed state differ from phase 17")
+    ents17c = [parse_entry(x) for x in deshred_entry_batch(pipe17c.store.entry_batch_bytes(1))]
+    check(ents17c == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe17c.poh.entries],
+          "sharded leader: deshredded store bytes != PoH's entries")
+    fund17c = default_bank_ctx(slot=1, device=dev)
+    rp17c = replay_block(fund17c.funk, slot=1, entries=ents17c, poh_seed=b"\x00" * 32,
+                         status_cache=fund17c.status_cache, device=dev)
+    check(rp17c is not None and rp17c.bank_hash == seal17c.bank_hash,
+          "sharded leader: replay_block does not reproduce the seal")
+    log(f"[leader-sharded] warmup {warm17:.3f} s; run {run17c_s:.3f} s (with the tail to one"
+        f" pure tick of {HASHES_PER_TICK} hashes) = {landed17c / run17c_s:.0f} txn/s to the store;"
+        f" spans queued/ok {q17c}/{rep17c['verify'].get('poh_spans_ok', 0)}; replay reproduces"
+        f" the seal {seal17c.bank_hash.hex()}; launches {launches17c}")
+    seal_rows17 = pipe17.bank_ctx.sx.seal_rows
+    kernels.append(dict(
+        name="lthash_combine", route="cuda", source="firedancer_tpu_torch/csrc/lthash_combine.cu",
+        replaces="firedancer_tpu/ops/lthash.py:43", launches=None,
+        max_abs_err=max(k["max_abs_err"] for k in k13.values()),
+        ms=k13[K13_ROWS[0]]["ms"], plain_ms=k13[K13_ROWS[0]]["plain_ms"],
+        bound_ms=k13[K13_ROWS[0]]["bound_ms"], bound_by=k13[K13_ROWS[0]]["bound_by"],
+        library_ms=k13[K13_ROWS[0]]["library_ms"], matched=True,
+        shape=f"N={K13_ROWS[0]} rows x 1024 lanes (the seal's N here: {seal_rows17})",
+        library="torch.sum(pre-signed int32, dim=0), sign multiply not included",
+        at_rows={str(n): k13[n] for n in K13_ROWS}, phase_launches=phase16_launches))
+
     for k in kernels:
         check(k["phase_launches"] > 0, f"{k['name']} never launched in its phase")
         # each kernel's main path: the comb pipeline for the comb lane's
-        # kernels, the split pipeline for K9-K12, the plane pipeline for the
-        # others
+        # kernels, the split pipeline for K9-K12, the leader pipeline for
+        # K13 and K5 (the shredder's parity), the plane pipeline for the rest
         comb_lane = k["name"] in ("verify_cached", "comb_fill", "bank_install")
-        main = launches13 if comb_lane else launches15 if k["name"] in SPLIT else launches10
+        main = (launches13 if comb_lane else launches15 if k["name"] in SPLIT
+                else launches17 if k["name"] in ("lthash_combine", "gf256_apply")
+                else launches10)
         k["launches"] = main.get(k["name"], 0)
         k["launches_by_path"] = {"verify_pipeline": launches7.get(k["name"], 0),
                                  "plane_pipeline": launches10.get(k["name"], 0),
@@ -1169,7 +1391,10 @@ def main() -> int:
                                  "comb_pipeline": launches13.get(k["name"], 0),
                                  "split_pipeline": launches15.get(k["name"], 0),
                                  "plane_hook_pipeline": launches15b.get(k["name"], 0),
-                                 "autotune_pipeline": launches15c.get(k["name"], 0)}
+                                 "autotune_pipeline": launches15c.get(k["name"], 0),
+                                 "leader_pipeline": launches17.get(k["name"], 0),
+                                 "leader_lossy_store": launches17b.get(k["name"], 0),
+                                 "sharded_leader_pipeline": launches17c.get(k["name"], 0)}
     for nm in SPLIT:
         check(launches15.get(nm, 0) > 0, f"{nm} never launched on the split pipeline")
     check(ref.verify(b"", ref.sign(b"\x01" * 32, b""), ref.public_key(b"\x01" * 32)),

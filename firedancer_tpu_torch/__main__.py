@@ -8,6 +8,14 @@
         verify lane's rung; --autotune-after N retunes the batch geometry
         every N batches) and print per-stage counters and txn/s with the
         device's name.
+    python -m firedancer_tpu_torch run --leader --txns N [--shards S]
+            [--banks B] [--hashes-per-tick H] [--pack-depth D] [--cpu]
+        produce one slot's block: benchg -> verify -> dedup -> pack ->
+        bank xB -> poh -> shred -> store (with --shards S, the verify
+        stage, the PoH tick spans and the shredder's parity ride the
+        serving plane), then seal; print the stage counters, the store's
+        set count and the sha256 of its entry-batch bytes, the bank hash,
+        txn/s to the store and the host seconds per stage.
     python -m firedancer_tpu_torch warmup [--devices N] [--assert-warm S]
         build and load the serving plane's kernels and run one step at its
         shapes (the counterpart of the JAX package's AOT warmup); prints the
@@ -27,6 +35,21 @@ def cmd_run(args) -> int:
     from .runtime.benchg import gen_transfer_pool
     from .utils.platform import device_name, resolve_device
 
+    if args.leader:
+        if args.comb_slots or args.kernel != "fused" or args.autotune_after:
+            print("run: --leader drives the fused verify lane (no --comb-slots,"
+                  " --kernel or --autotune-after)", file=sys.stderr)
+            return 2
+        from .entry import leader_block
+
+        pool = gen_transfer_pool(args.txns, seed=args.seed.encode())
+        out = leader_block(pool, device="cpu" if args.cpu else None,
+                           shards=args.shards, batch=args.batch,
+                           max_msg_len=args.max_msg_len, n_bank=args.banks,
+                           hashes_per_tick=args.hashes_per_tick,
+                           pack_depth=args.pack_depth)
+        print(json.dumps(out, indent=1))
+        return 0
     if args.shards and (args.comb_slots or args.kernel != "fused" or args.autotune_after):
         print("run: --comb-slots, --kernel and --autotune-after need the"
               " unsharded pipeline (the serving plane's step is its kernel"
@@ -98,7 +121,8 @@ def cmd_warmup(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m firedancer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    r = sub.add_parser("run", help="drive benchg -> verify -> dedup -> sink")
+    r = sub.add_parser("run", help="drive benchg -> verify -> dedup -> sink"
+                       " (--leader: on to pack -> bank -> poh -> shred -> store)")
     r.add_argument("--txns", type=int, default=2048)
     r.add_argument("--batch", type=int, default=1024,
                    help="verify batch (per shard with --shards)")
@@ -110,6 +134,13 @@ def main(argv=None) -> int:
                    help="the verify lane's rung of the kernel ladder")
     r.add_argument("--autotune-after", type=int, default=0, metavar="N",
                    help="retune batch and max_msg_len every N batches (0 = off)")
+    r.add_argument("--leader", action="store_true",
+                   help="produce a block: ... -> pack -> bank -> poh -> shred -> store")
+    r.add_argument("--banks", type=int, default=2, help="bank stages (--leader)")
+    r.add_argument("--hashes-per-tick", type=int, default=64,
+                   help="PoH hashes per tick and the plane's span (--leader --shards)")
+    r.add_argument("--pack-depth", type=int, default=4096,
+                   help="pack's pending pool (--leader)")
     r.add_argument("--max-msg-len", type=int, default=1232)
     r.add_argument("--seed", default="benchg")
     r.add_argument("--cpu", action="store_true",

@@ -1,7 +1,9 @@
 """Entry points mirroring __graft_entry__.py: entry(), the batched sigverify
-step and an example batch, and leader_step(), the counterpart of
-dryrun_multichip (the leader's device step over the mesh).  Both run on
-the card unless device="cpu"."""
+step and an example batch; leader_step(), the counterpart of
+dryrun_multichip (the leader's device step over the mesh); and
+leader_block(), one slot of the leader pipeline past pack (the JAX
+package's `python -m firedancer_tpu run`).  All run on the card unless
+device="cpu"."""
 
 from __future__ import annotations
 
@@ -86,3 +88,66 @@ def leader_step(device=None, n_devices: int | None = None) -> dict:
           f" {n} FEC sets encoded, {poh_ok}/{n} PoH segments ok")
     return {"devices": n, "verified": total, "batch": batch, "fec_sets": n,
             "poh_ok": poh_ok}
+
+
+def leader_block(stream: list[bytes], *, device=None, shards: int = 0,
+                 batch: int = 1024, max_msg_len: int = 1232, n_bank: int = 2,
+                 hashes_per_tick: int = 64, slot: int = 1,
+                 pack_depth: int = 4096) -> dict:
+    """Produce one slot's block from `stream`: benchg -> verify -> dedup ->
+    pack -> bank x n_bank -> poh -> shred -> store, then seal (with shards
+    > 0, the verify stage, the PoH spans of hashes_per_tick hashes and the
+    parity ride a serving plane over that many devices; pack_depth bounds
+    pack's pending pool).
+    Returns the stage counters, the store's set count and a sha256 of its
+    entry-batch bytes, the bank hash, txn/s to the store (txns landed over
+    the run's host seconds, seal excluded) and the host seconds per
+    stage."""
+    import time
+
+    from .models.leader import build_leader_pipeline, build_sharded_leader_pipeline
+    from .utils.platform import device_name, resolve_device
+
+    if shards:
+        pipe = build_sharded_leader_pipeline(
+            stream, n_shards=shards, device=device, batch_per_shard=batch,
+            max_msg_len=max_msg_len, n_bank=n_bank, hashes_per_tick=hashes_per_tick,
+            slot=slot, pack_depth=pack_depth)
+        # build and load the kernels before the slot, as a leader warms its
+        # plane before its leader window
+        warmup_s = pipe.plane.warmup()
+    else:
+        pipe = build_leader_pipeline(stream, device=resolve_device(device), batch=batch,
+                                     max_msg_len=max_msg_len, n_bank=n_bank, slot=slot,
+                                     pack_depth=pack_depth)
+        warmup_s = None
+    dev = pipe.bank_ctx.device
+    t0 = time.perf_counter()
+    pipe.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sealed = pipe.seal()
+    seal_s = time.perf_counter() - t0
+    rep = pipe.report()
+    landed = sum(rep[b.name].get("txn_exec", 0) for b in pipe.banks)
+    batch_bytes = pipe.store.entry_batch_bytes(slot)
+    return {
+        "device": device_name(dev),
+        "shards": shards or None,
+        "txns": len(stream),
+        "txns_landed": landed,
+        "txns_dropped_by_pack": rep["pack"].get("txn_dropped", 0),
+        "warmup_s": warmup_s,
+        "run_s": run_s,
+        "seal_s": seal_s,
+        "txn_per_s_to_store": landed / run_s,
+        "store_sets": rep["store"].get("sets_stored", 0),
+        "entry_batch_sha256": hashlib.sha256(batch_bytes).hexdigest(),
+        "entry_batch_bytes": len(batch_bytes),
+        "bank_hash": sealed.bank_hash.hex(),
+        "signature_cnt": sealed.signature_cnt,
+        "stages": rep,
+        "stage_s": dict(pipe.stage_s),
+    }

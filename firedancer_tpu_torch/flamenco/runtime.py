@@ -1,0 +1,520 @@
+"""Runtime: slot execution over funk with conflict waves, and the bank hash
+(the port's counterpart of firedancer_tpu/flamenco/runtime.py, its Python
+lane).
+
+A block's transactions execute against a funk fork in waves, maximal
+groups of transactions with disjoint account rw-sets; the slot finalizes
+into a bank hash chaining the parent hash, the accounts-delta lattice
+hash, the signature count and the PoH hash.  The accounts-delta hash sums
+every changed account's lattice hash (+new, -old) in ONE launch of K13
+(ops/lthash.combine_device) on the SlotExecution's device; each account's
+BLAKE3 XOF stays on the host, as in the JAX package.
+
+Account model: funk value bytes = `u64 lamports | 32B owner |
+u8 executable | data` (executor.acct_encode/decode).  A failed txn still
+pays its fee; errors never abort the block.  What the port does not run
+yet raises NotImplementedError (flamenco/executor.py): programs other than
+system and compute budget, address lookup tables, durable nonces.  The
+JAX package's native executor lanes (exec_native, the bank sweep) are not
+ported.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import itertools
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..funk import Funk
+from ..ops import lthash as lt
+from ..pack.cost import txn_budget
+from ..protocol import txn as ft
+from ..utils.platform import resolve_device
+from . import types as T
+from .executor import (
+    UPGRADEABLE_LOADER_PROGRAM,
+    Account,
+    Executor,
+    InstrAccount,
+    InstrError,
+    TxnCtx,
+    acct_decode,
+    acct_encode,
+    not_ported,
+)
+from .programs import AcctError, FundsError
+
+_xid_seq = itertools.count()
+
+LAMPORTS_PER_SIGNATURE = 5000
+
+TXN_SUCCESS = 0
+TXN_ERR_FEE = -1                 # payer cannot cover the fee: txn dropped
+TXN_ERR_INSUFFICIENT_FUNDS = -2  # program failed: fee charged, no effects
+TXN_ERR_ACCT = -3                # unresolvable account index
+TXN_ERR_PROGRAM = -4             # program error: fee charged, no effects
+TXN_ERR_BLOCKHASH = -5           # recent_blockhash unknown/expired: no fee
+TXN_ERR_ALREADY_PROCESSED = -6   # signature already landed on this fork
+
+NONCE_ADVANCE_TAG = 4  # SystemInstruction::AdvanceNonceAccount
+
+
+def acct_lamports(val: bytes | None) -> int:
+    return acct_decode(val)[0]
+
+
+def acct_build(lamports: int, data: bytes = b"",
+               owner: bytes = ft.SYSTEM_PROGRAM,
+               executable: bool = False) -> bytes:
+    return acct_encode(lamports, owner, executable, data)
+
+
+@dataclass
+class TxnResult:
+    status: int
+    fee: int
+
+
+@dataclass
+class BlockResult:
+    slot: int
+    bank_hash: bytes
+    accounts_delta: np.ndarray  # (1024,) uint16 lattice value
+    signature_cnt: int
+    fees: int
+    results: list[TxnResult]
+    waves: list[list[int]]  # txn indices per wave
+    xid: bytes
+
+
+def _rw_sets(payload: bytes, desc: ft.Txn) -> tuple[set[bytes], set[bytes]]:
+    addrs = desc.acct_addrs(payload)
+    w, r = set(), set()
+    for i, a in enumerate(addrs):
+        (w if desc.is_writable(i) else r).add(a)
+    # a txn with lookup tables write-locks each table address (the JAX
+    # runtime's rule for unresolved lookups; the port resolves none)
+    for lut in desc.addr_luts:
+        w.add(payload[lut.addr_off : lut.addr_off + 32])
+    return w, r
+
+
+def generate_waves(txns: list[tuple[bytes, ft.Txn]]) -> list[list[int]]:
+    """Partition txn indices into conflict-free waves, equivalent to
+    serial block order: a writer lands strictly after every earlier
+    reader AND writer of each of its accounts; a reader lands strictly
+    after every earlier writer (readers may share a wave).  No
+    gap-filling below a conflict."""
+    waves: list[list[int]] = []
+    last_w: dict[bytes, int] = {}  # acct -> last wave with a writer
+    last_r: dict[bytes, int] = {}  # acct -> last wave with a reader
+    for i, (payload, desc) in enumerate(txns):
+        w, r = _rw_sets(payload, desc)
+        wi = 0
+        for a in w:
+            wi = max(wi, last_w.get(a, -1) + 1, last_r.get(a, -1) + 1)
+        for a in r:
+            wi = max(wi, last_w.get(a, -1) + 1)
+        while wi >= len(waves):
+            waves.append([])
+        waves[wi].append(i)
+        for a in w:
+            last_w[a] = max(last_w.get(a, -1), wi)
+        for a in r:
+            last_r[a] = max(last_r.get(a, -1), wi)
+    return waves
+
+
+_DEFAULT_EXECUTOR: Executor | None = None
+
+
+def default_executor() -> Executor:
+    global _DEFAULT_EXECUTOR
+    if _DEFAULT_EXECUTOR is None:
+        _DEFAULT_EXECUTOR = Executor()
+    return _DEFAULT_EXECUTOR
+
+
+def default_sysvars(slot: int) -> dict:
+    """The sysvar blobs programs read: clock at the executing slot, default
+    rent and epoch schedule, and the JAX runtime's other defaults."""
+    sched = T.EpochSchedule()
+    epoch = slot // sched.slots_per_epoch
+    return {
+        "clock": T.CLOCK.encode(T.Clock(slot=slot, epoch=epoch)),
+        "rent": T.RENT.encode(T.Rent()),
+        "epoch_schedule": T.EPOCH_SCHEDULE.encode(sched),
+        "slot_hashes": T.SLOT_HASHES.encode([]),
+        # Fees { fee_calculator: { lamports_per_signature } }
+        "fees": LAMPORTS_PER_SIGNATURE.to_bytes(8, "little"),
+        # EpochRewards, inactive outside the distribution window
+        "epoch_rewards": bytes(8 + 8 + 32 + 16 + 8 + 8 + 1),
+        "last_restart_slot": (0).to_bytes(8, "little"),
+        "recent_blockhash": hashlib.sha256(
+            b"fdtpu:rbh:" + slot.to_bytes(8, "little")
+        ).digest(),
+    }
+
+
+def _is_nonce_advance(payload: bytes, desc: ft.Txn) -> bool:
+    """Would the JAX runtime's durable-nonce gate look further at this
+    stale-blockhash txn?  Its first instruction must be the system
+    program's AdvanceNonceAccount (flamenco/nonce.py durable_nonce_ok)."""
+    if not desc.instrs:
+        return False
+    ins = desc.instrs[0]
+    addrs = desc.acct_addrs(payload)
+    if ins.program_id >= len(addrs) or addrs[ins.program_id] != ft.SYSTEM_PROGRAM:
+        return False
+    data = payload[ins.data_off : ins.data_off + ins.data_sz]
+    return len(data) >= 4 and int.from_bytes(data[:4], "little") == NONCE_ADVANCE_TAG
+
+
+def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
+                 executor: Executor | None = None,
+                 sysvars: dict | None = None) -> TxnResult:
+    executor = executor or default_executor()
+    addrs = desc.acct_addrs(payload)
+    if len(set(addrs)) != len(addrs):
+        # AccountLoadedTwice analog: duplicate addresses would load as
+        # independent copies
+        return TxnResult(TXN_ERR_ACCT, 0)
+    payer = addrs[0]
+    fee = LAMPORTS_PER_SIGNATURE * desc.signature_cnt
+    payer_val = funk.rec_query(xid, payer)
+    if acct_lamports(payer_val) < fee:
+        return TxnResult(TXN_ERR_FEE, 0)
+    # charge the fee unconditionally (failed txns still pay); written
+    # straight to funk so program failure cannot roll it back
+    plam, powner, pex, pdata = acct_decode(payer_val)
+    funk.rec_insert(xid, payer, acct_encode(plam - fee, powner, pex, pdata))
+
+    # load the unique account set into host objects; program effects land
+    # in funk only at commit, so failure = skip the writeback (fee stays)
+    accounts = [Account.from_value(a, funk.rec_query(xid, a)) for a in addrs]
+    signer = [i < desc.signature_cnt for i in range(len(addrs))]
+    writable = [desc.is_writable(i) for i in range(len(addrs))]
+    baseline = [a.to_value() for a in accounts]
+    budget = txn_budget(payload, desc)
+    if budget is None:
+        # malformed compute-budget instruction: typed failure, fee stays
+        return TxnResult(TXN_ERR_PROGRAM, fee)
+    cu_limit, _heap_size = budget  # the heap sizes the sBPF VM (not ported)
+    if any(a.executable and a.owner == UPGRADEABLE_LOADER_PROGRAM for a in accounts):
+        # the JAX loader resolves upgradeable programs' programdata here
+        raise not_ported("the upgradeable BPF loader")
+    ctx = TxnCtx(accounts=accounts, signer=signer, writable=writable,
+                 sysvars=sysvars or {}, budget=cu_limit)
+
+    for ins in desc.instrs:
+        if ins.program_id >= len(addrs):
+            return TxnResult(TXN_ERR_ACCT, fee)
+        prog = addrs[ins.program_id]
+        data = payload[ins.data_off : ins.data_off + ins.data_sz]
+        idx = payload[ins.acct_off : ins.acct_off + ins.acct_cnt]
+        if any(i >= len(addrs) for i in idx):
+            return TxnResult(TXN_ERR_ACCT, fee)
+        iaccts = [InstrAccount(i, signer[i], writable[i]) for i in idx]
+        try:
+            executor.execute_instr(ctx, prog, iaccts, data)
+        except FundsError:
+            return TxnResult(TXN_ERR_INSUFFICIENT_FUNDS, fee)
+        except AcctError:
+            return TxnResult(TXN_ERR_ACCT, fee)
+        except InstrError:
+            return TxnResult(TXN_ERR_PROGRAM, fee)
+        except (ValueError, IndexError, KeyError, OverflowError):
+            # instruction data is attacker input: an untyped exception in
+            # a native program is a failed txn, never a block abort
+            return TxnResult(TXN_ERR_PROGRAM, fee)
+
+    # commit: writes may only land on writable accounts; validate
+    # everything before the first insert (no partial commits)
+    changed = []
+    for i, a in enumerate(accounts):
+        val = a.to_value()
+        if val == baseline[i]:
+            continue
+        if not writable[i]:
+            return TxnResult(TXN_ERR_ACCT, fee)
+        changed.append((a.key, val))
+    for key, val in changed:
+        funk.rec_insert(xid, key, val)
+    return TxnResult(TXN_SUCCESS, fee)
+
+
+class SlotExecution:
+    """Incremental slot execution: the per-txn gate + execute + seal
+    machinery shared by `execute_block` (the batch and replay path) and the
+    pipeline's bank stages (the streaming leader path).
+
+    Lifecycle: construct (prepares a funk fork), `execute()` txns as they
+    arrive, `seal(poh_hash)` to finalize the bank hash (K13 on `device`,
+    default the card), then `publish()` or `abandon()` once consensus
+    picks the fork."""
+
+    def __init__(
+        self,
+        funk: Funk,
+        *,
+        slot: int,
+        parent_bank_hash: bytes = b"\x00" * 32,
+        parent_xid: bytes | None = None,
+        executor: Executor | None = None,
+        status_cache=None,
+        ancestors: set[int] | None = None,
+        slot_hashes: list[tuple[int, bytes]] | None = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.funk = funk
+        self.slot = slot
+        self.parent_bank_hash = parent_bank_hash
+        self.parent_xid = parent_xid
+        self.executor = executor
+        self.status_cache = status_cache
+        self.ancestors = ancestors
+        # the xid carries a nonce: competing blocks for the same slot off
+        # the same parent are distinct forks; the parent rides as a digest
+        self.xid = b"slot:%d:%d:%s" % (
+            slot, next(_xid_seq),
+            hashlib.sha256(parent_xid).hexdigest()[:24].encode()
+            if parent_xid else b"root")
+        funk.txn_prepare(parent_xid, self.xid)
+        self.sysvars = default_sysvars(slot)
+        self.sysvars["recent_blockhash"] = parent_bank_hash
+        if slot_hashes is not None:
+            self.sysvars["slot_hashes"] = T.SLOT_HASHES.encode(
+                [T.SlotHash(s, h) for s, h in slot_hashes])
+        if status_cache is not None:
+            status_cache.begin_block(self.xid, slot)
+        # intra-block duplicates are tracked locally: a speculative
+        # competing block's cache inserts must never gate this block
+        self._block_seen: set[tuple[bytes, bytes]] = set()
+        # unrooted ancestor blocks gate too (their entries are staged)
+        self._ancestor_xids: tuple[bytes, ...] = (
+            tuple(funk.txn_ancestry(parent_xid)) if parent_xid is not None else ())
+        self._before: dict[bytes, bytes | None] = {}  # start-of-slot view
+        self.results: list[TxnResult] = []
+        self.signature_cnt = 0
+        self.sealed: BlockResult | None = None
+        self.seal_s: dict[str, float] = {}  # seal's host time: xof, combine
+        self.seal_rows = 0  # lattice rows K13 summed at seal
+
+    def resolve(self, payload: bytes, desc: ft.Txn):
+        """Address-table lookups of a v0 txn: ([], []) without tables."""
+        if desc.addr_luts:
+            raise not_ported("address lookup table resolution")
+        return ([], [])
+
+    def execute(self, payload: bytes, desc: ft.Txn) -> TxnResult:
+        """Gate + execute one txn on this slot's fork."""
+        self.resolve(payload, desc)
+        # snapshot the start-of-slot value of every account this txn can
+        # touch, for the accounts-delta hash (the PARENT view: an earlier
+        # in-block writer must not shift this txn's "before")
+        for a in desc.acct_addrs(payload):
+            if a not in self._before:
+                self._before[a] = self.funk.rec_query(self.parent_xid, a)
+        bh = sig = None
+        if self.status_cache is not None:
+            bh = desc.recent_blockhash(payload)
+            sig = desc.signatures(payload)[0]
+            if not self.status_cache.is_blockhash_valid(bh, self.slot):
+                if _is_nonce_advance(payload, desc):
+                    raise not_ported("the durable-nonce gate")
+                r = TxnResult(TXN_ERR_BLOCKHASH, 0)
+                self.results.append(r)
+                return r
+            if (bh, sig) in self._block_seen or self.status_cache.contains(
+                bh, sig, self.ancestors
+            ) or self.status_cache.contains_staged(bh, sig, self._ancestor_xids):
+                r = TxnResult(TXN_ERR_ALREADY_PROCESSED, 0)
+                self.results.append(r)
+                return r
+        r = _execute_txn(self.funk, self.xid, payload, desc,
+                         executor=self.executor, sysvars=self.sysvars)
+        return self._finish(r, desc.signature_cnt, bh, sig)
+
+    def _finish(self, r: TxnResult, sig_cnt: int, bh, sig) -> TxnResult:
+        if r.fee > 0:
+            # the bank hash's signature count covers txns that LANDED
+            # (fee-charged), so a streaming leader and a replayer counting
+            # only the recorded txns agree on the hash
+            self.signature_cnt += sig_cnt
+            if self.status_cache is not None:
+                self._block_seen.add((bh, sig))
+                self.status_cache.stage_insert(self.xid, bh, sig)
+        self.results.append(r)
+        return r
+
+    @staticmethod
+    def _unpack_trailer(payload: bytes, desc_bytes: bytes) -> ft.Txn:
+        """Packed trailer -> validated Txn (decode_verified's contract)."""
+        try:
+            desc, end = ft.txn_unpack(desc_bytes)
+        except Exception as e:
+            raise ValueError(f"packed descriptor unparseable: {e}") from e
+        if end != len(desc_bytes):
+            raise ValueError("packed descriptor trailer size mismatch")
+        if not ft.txn_desc_valid(desc, len(payload)):
+            raise ValueError("packed descriptor fails validation")
+        return desc
+
+    def execute_batch(self, items) -> list[TxnResult]:
+        """Execute a burst of txns in block order (the bank stage's
+        per-microblock commit path).  items: (payload, desc, desc_bytes)
+        tuples; desc (a Txn) or desc_bytes (the packed trailer) may be
+        None, not both."""
+        base = len(self.results)
+        for payload, desc, desc_bytes in items:
+            if desc is None:
+                desc = self._unpack_trailer(payload, desc_bytes)
+            self.execute(payload, desc)
+        return self.results[base:]
+
+    def seal(self, poh_hash: bytes = b"\x00" * 32,
+             waves: list[list[int]] | None = None) -> BlockResult:
+        """Finalize: the accounts-delta lattice hash (one launch of K13 over
+        +new / -old) chained into the bank hash.  The JAX runtime pads the
+        row count to a power of two to bound XLA compiles; K13 takes any
+        row count, and zero rows of sign 0 change nothing."""
+        t0 = time.perf_counter()
+        vals = []
+        signs = []
+        q = self.funk.rec_query
+        for a, before, after in sorted((a, self._before[a], q(self.xid, a))
+                                       for a in self._before):
+            if after == before:
+                continue
+            if before is not None:
+                vals.append(lt.lthash_of(a + before))
+                signs.append(-1)
+            if after is not None:
+                vals.append(lt.lthash_of(a + after))
+                signs.append(1)
+        t1 = time.perf_counter()
+        if vals:
+            delta = lt.combine_device(np.stack(vals), np.asarray(signs, dtype=np.int8),
+                                      device=self.device)
+            delta = delta.cpu().numpy().astype(np.uint16)
+        else:
+            delta = lt.lthash_zero()
+        bank_hash = hashlib.sha256(
+            self.parent_bank_hash
+            + hashlib.sha256(delta.tobytes()).digest()
+            + self.signature_cnt.to_bytes(8, "little")
+            + poh_hash
+        ).digest()
+        if self.status_cache is not None:
+            self.status_cache.stage_blockhash(self.xid, poh_hash)
+        self.seal_s = {"xof": t1 - t0, "combine": time.perf_counter() - t1}
+        self.seal_rows = len(vals)
+        self.sealed = BlockResult(
+            slot=self.slot,
+            bank_hash=bank_hash,
+            accounts_delta=delta,
+            signature_cnt=self.signature_cnt,
+            fees=sum(r.fee for r in self.results),
+            results=list(self.results),
+            waves=waves if waves is not None else [],
+            xid=self.xid,
+        )
+        return self.sealed
+
+    def publish(self) -> None:
+        """Consensus chose this fork: fold it into funk's root."""
+        if self.status_cache is not None:
+            self.status_cache.commit_block(self.xid)
+        self.funk.txn_publish(self.xid)
+
+    def abandon(self) -> None:
+        if self.status_cache is not None:
+            self.status_cache.drop_block(self.xid)
+        self.funk.txn_cancel(self.xid)
+
+
+def execute_block(
+    funk: Funk,
+    *,
+    slot: int,
+    txns: list[bytes],
+    parent_bank_hash: bytes = b"\x00" * 32,
+    poh_hash: bytes = b"\x00" * 32,
+    parent_xid: bytes | None = None,
+    publish: bool = False,
+    status_cache=None,
+    ancestors: set[int] | None = None,
+    slot_hashes: list[tuple[int, bytes]] | None = None,
+    device=None,
+) -> BlockResult:
+    """Execute a block's txns on a fresh funk fork; compute the bank hash
+    (K13 on `device`, default the card).
+
+    The fork stays in-prep (consensus decides) unless publish=True.
+    status_cache (flamenco/blockstore.StatusCache) arms the recent-
+    blockhash currency gate (150-slot age) and the duplicate-signature
+    gate (filtered by `ancestors` when given)."""
+    parsed = []
+    for p in txns:
+        t = ft.txn_parse(p)
+        if t is None:
+            raise ValueError("malformed txn in block")
+        parsed.append((p, t))
+    sx = SlotExecution(
+        funk, slot=slot, parent_bank_hash=parent_bank_hash,
+        parent_xid=parent_xid, status_cache=status_cache,
+        ancestors=ancestors, slot_hashes=slot_hashes, device=device,
+    )
+    for p, t in parsed:
+        sx.resolve(p, t)
+    waves = generate_waves(parsed)
+    order = [i for wave in waves for i in wave]
+    # wave txns are conflict-free: index order within a wave gives the
+    # same result as any concurrent order
+    for i in order:
+        p, t = parsed[i]
+        sx.execute(p, t)
+    # sx.results is in execution order; BlockResult keeps block order
+    by_block_order = [None] * len(parsed)
+    for pos, i in enumerate(order):
+        by_block_order[i] = sx.results[pos]
+    sx.results = by_block_order
+    result = sx.seal(poh_hash, waves=waves)
+    if publish:
+        sx.publish()
+    return result
+
+
+def replay_block(
+    funk: Funk,
+    *,
+    slot: int,
+    entries: list[tuple[int, bytes, list[bytes]]],
+    poh_seed: bytes,
+    parent_bank_hash: bytes = b"\x00" * 32,
+    parent_xid: bytes | None = None,
+    publish: bool = False,
+    status_cache=None,
+    ancestors: set[int] | None = None,
+    slot_hashes: list[tuple[int, bytes]] | None = None,
+    device=None,
+) -> BlockResult | None:
+    """The non-leader path: verify the PoH chain over wire entries, then
+    execute the block.  None = PoH fraud."""
+    from ..runtime import poh as fpoh
+
+    ok, _segments = fpoh.replay_entries(poh_seed, entries)
+    if not ok:
+        return None
+    txns = [p for _, _, txs in entries for p in txs]
+    poh_hash = entries[-1][1] if entries else b"\x00" * 32
+    return execute_block(
+        funk, slot=slot, txns=txns, parent_bank_hash=parent_bank_hash,
+        poh_hash=poh_hash, parent_xid=parent_xid, publish=publish,
+        status_cache=status_cache, ancestors=ancestors,
+        slot_hashes=slot_hashes, device=device,
+    )

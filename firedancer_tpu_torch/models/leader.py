@@ -1,24 +1,41 @@
-"""The verify slice of the leader pipeline, assembled, unsharded and
-through the serving plane:
+"""The leader pipeline, assembled (the port's counterpart of
+firedancer_tpu/models/leader.py):
 
     benchg -> verify (sigverify kernel on the card; with comb_slots > 0,
-              repeat signers through the comb bank) -> dedup -> sink
+              repeat signers through the comb bank) -> dedup -> pack
+           -> bank xB -> poh -> shred (parity on the card) -> store
     benchg -> router -> per-shard links -> sharded verify (the plane's
-              step: K1, plus K4 on parked PoH spans) -> dedup -> sink
+              step: K1, plus K4 on parked PoH spans) -> dedup -> pack
+           -> bank xB -> poh (parks tick spans on the plane) -> shred
+              (parity through the plane) -> store
 
-The counterparts of firedancer_tpu/models/leader.py build_leader_pipeline
-and build_sharded_leader_pipeline, cut at pack: the sink counts and keeps
-the verified, deduplicated frames where pack would consume them.  Stages
-talk over in-process links and run under a cooperative round-robin loop.
+`build_leader_pipeline` and `build_sharded_leader_pipeline` produce a
+block: pack schedules, the banks execute and commit into one shared bank
+(`BankCtx`), PoH mixes the entries in, the shredder cuts them into signed
+merkle shreds with parity, and the store reassembles them; `seal()` is
+the slot's bank hash (K13 on the card), which a replayer reproduces from
+the stored shreds alone.  `build_verify_pipeline` and
+`build_sharded_verify_pipeline` are the verify slice cut at pack: a sink
+counts and keeps the verified, deduplicated frames.  Stages talk over
+in-process links and run under a cooperative round-robin loop.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import hashlib
+import time
+from collections import Counter
+from dataclasses import dataclass, field
 
+from ..ops.ref import ed25519_ref as ref
+from ..runtime.bank import BankCtx, BankStage, default_bank_ctx
 from ..runtime.benchg import BenchGStage
 from ..runtime.dedup import DedupStage
+from ..runtime.pack_stage import PackStage
+from ..runtime.poh_stage import PohStage
+from ..runtime.shred_stage import ShredStage
 from ..runtime.stage import Consumer, Link, Producer, Stage
+from ..runtime.store import StoreStage
 from ..runtime.verify import VerifyStage
 from ..utils.platform import resolve_device
 
@@ -172,3 +189,280 @@ def build_sharded_verify_pipeline(stream: list[bytes], *, n_shards: int = 1,
         links=[gen_router, *shard_links, verify_dedup, dedup_sink],
         benchg=benchg, verify=verify, dedup=dedup, sink=sink,
     )
+
+
+# -- the leader pipeline past pack ---------------------------------------------
+
+
+@dataclass
+class LeaderPipeline:
+    stages: list
+    links: list
+    benchg: BenchGStage
+    verifies: list
+    dedup: DedupStage
+    pack: PackStage
+    banks: list
+    poh: PohStage
+    shred: ShredStage
+    store: StoreStage
+    leader_pub: bytes
+    bank_ctx: BankCtx
+    upstream: list  # the links from benchg up to pack
+    router: object = None  # ShardRouterStage when the verify stage is sharded
+    plane: object = None  # parallel/serve.ServePlane in the sharded form
+    # host seconds per stage (run_once, flushes) and seal phase
+    stage_s: Counter = field(default_factory=Counter)
+
+    def run(self, *, max_iters: int = 10_000_000, finish: bool = True) -> None:
+        """Cooperative round-robin until benchg has sent its stream, then
+        drain the whole pipe to the store.  finish=False leaves the pipe
+        hot."""
+        b = self.benchg
+        for _ in range(max_iters):
+            self._step(self.stages)
+            if b._i >= b.limit:
+                break
+        if finish:
+            self.finish()
+
+    def _step(self, stages) -> bool:
+        """One round-robin sweep; each stage's host time goes to stage_s."""
+        progressed = False
+        acc = self.stage_s
+        for s in stages:
+            t0 = time.perf_counter()
+            progressed |= bool(s.run_once())
+            acc[s.name] += time.perf_counter() - t0
+        return progressed
+
+    def _timed(self, name: str, fn) -> None:
+        t0 = time.perf_counter()
+        fn()
+        self.stage_s[name] += time.perf_counter() - t0
+
+    def _verify_busy(self) -> bool:
+        return (any(link.q for link in self.upstream)
+                or any(v._inflight or v._submit_queue or v._emit_queue
+                       for v in self.verifies))
+
+    def finish(self, *, max_sweeps: int = 1_000_000) -> None:
+        """Drain: stop benchg -> flush verify until nothing is upstream of
+        pack -> pack force-flush -> stop the poh clock (and, in the sharded
+        form, verify the spans still parked on the plane) -> shred flush ->
+        sweep until quiescent."""
+        self.benchg.limit = self.benchg._i  # stop generating
+        for _ in range(max_sweeps):
+            for v in self.verifies:
+                self._timed(v.name, v.flush)
+            self._sweep(max_sweeps)
+            if not self._verify_busy():
+                break
+        self._timed(self.pack.name, self.pack.flush)
+        self._sweep(max_sweeps)
+        # stop the clock so tick entries stop flowing, then final shred
+        self.poh.hashes_per_iter = 0
+        self._sweep(max_sweeps)
+        if self.plane is not None:
+            # no further plane step will carry the spans parked last
+            self._timed(self.verifies[0].name, self.verifies[0].audit_poh)
+        self._timed(self.shred.name, self.shred.flush)
+        self._sweep(max_sweeps)
+
+    def _sweep(self, max_sweeps: int) -> None:
+        """Run non-generator stages until none makes frag progress."""
+        stages = [s for s in self.stages if s is not self.benchg]
+        for _ in range(max_sweeps):
+            progressed = self._step(stages)
+            # pack may be waiting on schedulability rather than frags
+            self._timed(self.pack.name, self.pack.after_credit)
+            if not progressed and not self.pack.pack.pending_cnt():
+                break
+
+    def seal(self):
+        """End of slot: bank hash over the state every bank committed,
+        chaining the final PoH entry hash (what replay_block reproduces
+        from the wire entries alone).  K13 runs here; the seal's host time
+        goes to stage_s["seal_xof"] (the accounts' BLAKE3 XOFs) and
+        stage_s["seal_combine"] (K13 and the hash)."""
+        res = self.bank_ctx.seal(self.poh.last_entry_hash)
+        for k, v in self.bank_ctx.sx.seal_s.items():
+            self.stage_s[f"seal_{k}"] += v
+        return res
+
+    def close(self) -> None:
+        """In-process links hold no shared memory: nothing to tear down."""
+
+    def report(self) -> dict:
+        return {s.name: dict(s.metrics.counters) for s in self.stages}
+
+
+def _leader_tail(*, upstream_out: Link, links: list, n_bank: int, slot: int,
+                 leader_seed: bytes, bank_ctx: BankCtx | None, dev,
+                 keep_entries: bool, keep_sets: bool, pack_depth: int,
+                 hashes_per_tick: int = 64, plane=None) -> tuple[Link, dict]:
+    """dedup -> pack -> bank xB -> poh -> shred -> store, fed by
+    `upstream_out` (the verify stage's output link): (the dedup->pack link,
+    the stages and the bank)."""
+    dedup_pack = Link("dedup_pack", LINK_DEPTH)
+    pack_bank = [Link(f"pack_bank{b}", LINK_DEPTH) for b in range(n_bank)]
+    bank_poh = [Link(f"bank_poh{b}", LINK_DEPTH) for b in range(n_bank)]
+    bank_done = [Link(f"bank_done{b}", LINK_DEPTH) for b in range(n_bank)]
+    poh_shred = Link("poh_shred", LINK_DEPTH)
+    shred_store = Link("shred_store", LINK_DEPTH)
+    links += [dedup_pack, *pack_bank, *bank_poh, *bank_done, poh_shred, shred_store]
+    secret = hashlib.sha256(leader_seed).digest()
+    dedup = DedupStage("dedup", [Consumer(upstream_out)], [Producer(dedup_pack)])
+    pack = PackStage("pack", [Consumer(dedup_pack)] + [Consumer(l) for l in bank_done],
+                     [Producer(l) for l in pack_bank], bank_cnt=n_bank, depth=pack_depth)
+    # ONE live bank shared by every bank stage (all bank tiles commit into
+    # the same bank)
+    if bank_ctx is None:
+        bank_ctx = default_bank_ctx(slot=slot, device=dev)
+    banks = [BankStage(f"bank{b}", [Consumer(pack_bank[b])],
+                       [Producer(bank_poh[b]), Producer(bank_done[b])],
+                       bank_idx=b, ctx=bank_ctx)
+             for b in range(n_bank)]
+    for bstage in banks:
+        bstage.require_credit = True
+    poh = PohStage("poh", [Consumer(l) for l in bank_poh], [Producer(poh_shred)],
+                   hashes_per_tick=hashes_per_tick, plane=plane)
+    poh.require_credit = True
+    if keep_entries:
+        poh.entries = []
+    shred = ShredStage("shred", [Consumer(poh_shred)], [Producer(shred_store)],
+                       signer=lambda root: ref.sign(secret, root), slot=slot,
+                       keep_sets=keep_sets, plane=plane, device=dev)
+    # the leader's own store trusts its own signing path; receive-path
+    # resolvers keep full verification
+    store = StoreStage("store", [Consumer(shred_store)], verify_sig=None,
+                       trust_membership=True, device=dev)
+    return dedup_pack, dict(dedup=dedup, pack=pack, banks=banks, poh=poh, shred=shred,
+                            store=store, bank_ctx=bank_ctx,
+                            leader_pub=ref.public_key(secret))
+
+
+def _tail_stages(t: dict) -> list:
+    return [t["dedup"], t["pack"], *t["banks"], t["poh"], t["shred"], t["store"]]
+
+
+def build_leader_pipeline(
+    stream: list[bytes],
+    *,
+    n_verify: int = 1,
+    n_bank: int = 2,
+    batch: int = 1024,
+    max_msg_len: int = 1232,
+    slot: int = 1,
+    leader_seed: bytes = b"leader",
+    verify_comb_slots: int = 0,
+    bank_ctx: BankCtx | None = None,
+    keep_entries: bool = False,
+    keep_sets: bool = True,
+    pack_depth: int = 4096,
+    device=None,
+) -> LeaderPipeline:
+    """benchg -> verify xN -> dedup -> pack -> bank xB -> poh -> shred ->
+    store over `stream` (sent once, in order).  Every device stage runs on
+    `device` (default the card; "cpu" runs the plain versions): verify's
+    K1, the shredder's and the store's K5, seal's K13.  With n_verify > 1
+    a router deals the frags round-robin by sequence onto one link per
+    verify stage.  verify_comb_slots > 0 turns on the repeated-signer lane;
+    bank_ctx defaults to `default_bank_ctx(slot=slot)`, funded for the
+    benchg payers; keep_entries records PoH's entries; keep_sets keeps the
+    shredder's FecSets.  pack_depth bounds pack's pending pool: when it is
+    full, a newcomer evicts the lowest-priority pending txn only if it
+    pays more per cost unit, else it is dropped (txn_dropped)."""
+    from ..parallel.router import ShardRouterStage
+
+    dev = resolve_device(device)
+    gen_link = Link("gen_verify", LINK_DEPTH)
+    links = [gen_link]
+    benchg = BenchGStage(stream, "benchg", [Producer(gen_link)], limit=len(stream))
+    router = None
+    verify_ins = [gen_link]
+    if n_verify > 1:
+        verify_ins = [Link(f"gen_verify{i}", LINK_DEPTH) for i in range(n_verify)]
+        links += verify_ins
+        router = ShardRouterStage("router", [Consumer(gen_link)],
+                                  [Producer(l) for l in verify_ins], n_shards=n_verify)
+    verify_dedup = Link("verify_dedup", LINK_DEPTH)
+    links.append(verify_dedup)
+    verifies = [VerifyStage(f"verify{i}", [Consumer(verify_ins[i])],
+                            [Producer(verify_dedup)], device=dev, batch=batch,
+                            max_msg_len=max_msg_len, comb_slots=verify_comb_slots)
+                for i in range(n_verify)]
+    upstream = list(links)
+    dedup_pack, t = _leader_tail(upstream_out=verify_dedup, links=links, n_bank=n_bank, slot=slot,
+                     leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
+                     keep_entries=keep_entries, keep_sets=keep_sets,
+                     pack_depth=pack_depth)
+    upstream.append(dedup_pack)
+    stages = [benchg] + ([router] if router else []) + verifies + _tail_stages(t)
+    return LeaderPipeline(stages=stages, links=links, benchg=benchg,
+                          verifies=verifies, upstream=upstream, router=router, **t)
+
+
+def build_sharded_leader_pipeline(
+    stream: list[bytes],
+    *,
+    plane=None,
+    n_shards: int = 1,
+    batch_per_shard: int = 1024,
+    max_msg_len: int = 1232,
+    batch_deadline_s: float = 0.002,
+    slot: int = 1,
+    leader_seed: bytes = b"leader",
+    n_bank: int = 2,
+    bank_ctx: BankCtx | None = None,
+    hashes_per_tick: int = 64,
+    keep_entries: bool = False,
+    pack_depth: int = 4096,
+    device=None,
+    **plane_cfg,
+) -> LeaderPipeline:
+    """The sharded serving pipeline, producing a block:
+
+        benchg -> router -> sv{i} -> sharded verify (ONE plane step per
+               batch) -> dedup -> pack -> bank xB -> poh -> shred -> store
+
+    The PoH stage parks its full-tick spans on the same plane (K4 re-checks
+    them on the next step, or at finish), and the shredder's parity goes
+    through the plane's encode_parity (K5).  plane: a prebuilt (ideally
+    warmed) ServePlane; None builds one for n_shards devices on `device`
+    with poh_iters = hashes_per_tick, so tick spans match the plane's span
+    length, and the remaining ServeConfig fields from plane_cfg.
+    pack_depth as in build_leader_pipeline."""
+    from ..parallel.router import ShardRouterStage
+    from ..parallel.serve import ServeConfig, ServePlane, ShardedVerifyStage
+
+    if plane is None:
+        plane = ServePlane(ServeConfig(
+            n_devices=n_shards, batch_per_shard=batch_per_shard,
+            max_msg_len=max_msg_len, poh_iters=hashes_per_tick, **plane_cfg,
+        ), device=device)
+    if plane.cfg.n_devices != n_shards:
+        raise ValueError(f"plane has {plane.cfg.n_devices} shards,"
+                         f" pipeline asked for {n_shards}")
+    dev = plane.device
+    gen_router = Link("gen_router", LINK_DEPTH)
+    shard_links = [Link(f"sv{i}", LINK_DEPTH) for i in range(n_shards)]
+    verify_dedup = Link("verify_dedup", LINK_DEPTH)
+    links = [gen_router, *shard_links, verify_dedup]
+    benchg = BenchGStage(stream, "benchg", [Producer(gen_router)], limit=len(stream))
+    router = ShardRouterStage("router", [Consumer(gen_router)],
+                              [Producer(link) for link in shard_links],
+                              n_shards=n_shards)
+    verify = ShardedVerifyStage("verify", [Consumer(link) for link in shard_links],
+                                [Producer(verify_dedup)], plane=plane,
+                                batch_deadline_s=batch_deadline_s)
+    upstream = list(links)
+    dedup_pack, t = _leader_tail(upstream_out=verify_dedup, links=links, n_bank=n_bank, slot=slot,
+                     leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
+                     keep_entries=keep_entries, keep_sets=True,
+                     hashes_per_tick=hashes_per_tick, pack_depth=pack_depth,
+                     plane=plane)
+    upstream.append(dedup_pack)
+    stages = [benchg, router, verify] + _tail_stages(t)
+    return LeaderPipeline(stages=stages, links=links, benchg=benchg, verifies=[verify],
+                          upstream=upstream, router=router, plane=plane, **t)

@@ -1,0 +1,121 @@
+"""Binary merkle tree over SHA-256 with 20-byte nodes, on the host (the
+port's copy of the host part of firedancer_tpu/ops/bmtree.py, :28-130).
+
+Leaves are sha256 in the LEAF domain, branch nodes are
+sha256(NODE_PREFIX || left20 || right20) truncated to 20 bytes, an odd
+trailing node pairs with itself, and proofs list the 20-byte sibling per
+level bottom-up.  The prefixes and the 20-byte truncation are protocol
+constants.  The shredder and the FEC resolver hash their trees here with
+hashlib, as in the JAX package; the batched device functions
+(firedancer_tpu/ops/bmtree.py:134-202) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+
+LEAF_PREFIX = b"\x00SOLANA_MERKLE_SHREDS_LEAF"
+NODE_PREFIX = b"\x01SOLANA_MERKLE_SHREDS_NODE"
+NODE_SZ = 20
+
+
+def hash_leaf_full(data: bytes) -> bytes:
+    """sha256(leaf-domain prefix || data) — full 32 bytes.  Nodes STORE
+    the 20-byte truncation, but the ROOT stays untruncated (it is what
+    the leader signs, fd_bmtree_commit_fini's 'untruncated regardless of
+    hash_sz' contract)."""
+    return hashlib.sha256(LEAF_PREFIX + data).digest()
+
+
+def hash_leaf(data: bytes) -> bytes:
+    """Truncated 20-byte leaf node (tree storage form)."""
+    return hash_leaf_full(data)[:NODE_SZ]
+
+
+def _merge_full(a: bytes, b: bytes) -> bytes:
+    return hashlib.sha256(NODE_PREFIX + a[:NODE_SZ] + b[:NODE_SZ]).digest()
+
+
+def _merge(a: bytes, b: bytes) -> bytes:
+    return _merge_full(a, b)[:NODE_SZ]
+
+
+def depth(leaf_cnt: int) -> int:
+    """Layers including the root (fd_bmtree_depth): 1 leaf -> 1."""
+    if leaf_cnt <= 1:
+        return leaf_cnt
+    d = 1
+    while (1 << (d - 1)) < leaf_cnt:
+        d += 1
+    return d
+
+
+def tree_layers(leaves: list[bytes]) -> list[list[bytes]]:
+    """All layers bottom-up; layer[0] = leaves, layer[-1] = [root]."""
+    if not leaves:
+        raise ValueError("empty tree")
+    layers = [[x[:NODE_SZ] for x in leaves]]
+    while len(layers[-1]) > 1:
+        cur = layers[-1]
+        nxt = []
+        for i in range(0, len(cur), 2):
+            a = cur[i]
+            b = cur[i + 1] if i + 1 < len(cur) else cur[i]  # odd: self-pair
+            nxt.append(_merge(a, b))
+        layers.append(nxt)
+    return layers
+
+
+def root(leaves: list[bytes]) -> bytes:
+    """20-byte (storage-form) root."""
+    return tree_layers(leaves)[-1][0]
+
+
+def root32_from_layers(layers: list[list[bytes]], leaves_full: list[bytes]) -> bytes:
+    """Untruncated 32-byte root — the value the leader signs
+    (fd_bmtree_commit_fini keeps the root full-width) — derived from an
+    ALREADY-BUILT layer stack: only the final merge recomputes, so the
+    tree is hashed once even when both proofs and the signed root are
+    needed."""
+    if len(layers[0]) == 1:
+        return leaves_full[0]
+    top = layers[-2]  # the final merge's children
+    return _merge_full(top[0], top[1] if len(top) > 1 else top[0])
+
+
+def root32(leaves_full: list[bytes]) -> bytes:
+    """Untruncated 32-byte root from FULL (32-byte) leaves.  Intermediate
+    merges truncate to 20 bytes exactly like the stored tree; only the
+    final output keeps all 32."""
+    if not leaves_full:
+        raise ValueError("empty tree")
+    layers = tree_layers([x[:NODE_SZ] for x in leaves_full])
+    return root32_from_layers(layers, leaves_full)
+
+
+def get_proof(layers: list[list[bytes]], leaf_idx: int) -> list[bytes]:
+    """Sibling per non-root level, bottom-up (fd_bmtree_get_proof)."""
+    proof = []
+    idx = leaf_idx
+    for layer in layers[:-1]:
+        sib = idx ^ 1
+        proof.append(layer[sib] if sib < len(layer) else layer[idx])
+        idx >>= 1
+    return proof
+
+
+def verify_proof(leaf_full: bytes, leaf_idx: int, proof: list[bytes]) -> bytes:
+    """UNTRUNCATED (32-byte) root implied by (full leaf, proof) — the
+    caller compares it to the set root / checks the leader signature over
+    it (fd_bmtree_from_proof's derive-then-compare shape).  Intermediate
+    nodes truncate to 20 bytes; the final merge keeps all 32."""
+    if not proof:
+        return leaf_full
+    node = leaf_full[:NODE_SZ]
+    idx = leaf_idx
+    for k, sib in enumerate(proof):
+        full = _merge_full(sib, node) if idx & 1 else _merge_full(node, sib)
+        node = full if k == len(proof) - 1 else full[:NODE_SZ]
+        idx >>= 1
+    return node

@@ -232,6 +232,22 @@ class ServePlane:
                             hi - lo)
         return lanes, len(take)
 
+    def verify_parked_poh(self) -> tuple[int, int]:
+        """Run every parked PoH span through K4 now, as a step's PoH lane
+        would (one launch per shard with spans, poh_chains spans a round):
+        (spans ok, spans checked).  For the end of a stream, when no
+        further step will carry them."""
+        n_ok = n_all = 0
+        while self._poh_spans:
+            lanes, n = self._take_poh()
+            for lane in lanes:
+                if lane is not None:
+                    st, en, _real = lane
+                    got = (fsha.sha256_iter32(st, self.cfg.poh_iters) == en).all(dim=0)
+                    n_ok += int(got.sum())
+            n_all += n
+        return n_ok, n_all
+
     # -- dispatch ------------------------------------------------------------
 
     def submit(self, msg, msg_len, sig, pk, n_real_per_shard,
@@ -424,6 +440,15 @@ class ShardedVerifyStage(VerifyStage):
             self._drain(block=True)
         if self._emit_queue:
             self._emit_burst([])
+
+    def audit_poh(self) -> None:
+        """Verify the PoH spans still parked on the plane (the end of a
+        stream: no further step carries them) and count them as a step's
+        would be counted."""
+        n_ok, n_all = self.plane.verify_parked_poh()
+        if n_all:
+            self.metrics.inc("poh_spans_ok", n_ok)
+            self.metrics.inc("poh_spans_fail", n_all - n_ok)
 
     # the drain loop is VerifyStage._drain; this hook accounts for the PoH
     # self-audit spans that rode the step, exactly once, when its results

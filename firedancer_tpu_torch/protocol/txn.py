@@ -1,5 +1,7 @@
 """Solana transaction wire format: the port's own copy of what the verify
-slice uses (parse, the packed descriptor, the builders for benchg).
+slice and the block-production path use (parse, the packed descriptor, the
+accessors pack's cost model and the executor read, the txn constructors
+benchg uses).
 
 Same validation rules and descriptor shape as firedancer_tpu/protocol/txn.py
 (and the reference's fd_txn_parse), so the port's verify and dedup stages
@@ -143,6 +145,25 @@ class Txn:
         """Pubkeys that must have signed: the first signature_cnt addresses."""
         return self.acct_addrs(payload)[: self.signature_cnt]
 
+    def recent_blockhash(self, payload: bytes) -> bytes:
+        o = self.recent_blockhash_off
+        return payload[o : o + BLOCKHASH_SZ]
+
+    def total_acct_cnt(self) -> int:
+        return self.acct_addr_cnt + self.addr_table_adtl_cnt
+
+    def is_writable(self, idx: int) -> bool:
+        """Account-index writability per the message header rules.
+
+        Static accounts: writable unless in the readonly-signed tail of the
+        signer range or the readonly-unsigned tail of the static range.
+        Loaded accounts: table-writable indices come first (after statics).
+        """
+        if idx < self.acct_addr_cnt:
+            if idx < self.signature_cnt:
+                return idx < self.signature_cnt - self.readonly_signed_cnt
+            return idx < self.acct_addr_cnt - self.readonly_unsigned_cnt
+        return idx < self.acct_addr_cnt + self.addr_table_adtl_writable_cnt
 
 
 def txn_parse(payload: bytes) -> Txn | None:

@@ -1,0 +1,103 @@
+"""Shred stage: entries -> entry batches -> FEC sets -> wire shreds (the
+port's counterpart of firedancer_tpu/runtime/shred_stage.py, its Python
+shredder lane).
+
+Accumulate poh entries into an entry batch, run the shredder (parity on
+the card, merkle trees and the leader's signature on the host), and
+publish every data and parity shred to the outgoing link (the turbine hop
+in a full validator; the pipeline's store resolves them back).
+
+Inputs:  ins[0] = poh -> shred entries.
+Outputs: outs[0] = wire shreds (mtu >= 1228).
+
+Entry batches close when the accumulated serialized entries reach
+`batch_target_sz` or on flush at slot end.  Not ported: the native
+shredder lanes and the fused poh+shred stage.
+"""
+
+from __future__ import annotations
+
+from .shredder import EntryBatchMeta, FecSet, Shredder
+from .stage import Stage
+
+
+class ShredStage(Stage):
+    def __init__(
+        self,
+        *args,
+        signer,
+        slot: int = 1,
+        shred_version: int = 1,
+        batch_target_sz: int = 16384,
+        keep_sets: bool = False,
+        plane=None,
+        device=None,
+        **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        self.slot = slot
+        self.batch_target_sz = batch_target_sz
+        self.keep_sets = keep_sets
+        self.sets: list[FecSet] = []  # retained for tests/observers
+        self._buf = bytearray()
+        self._buf_tsorig = 0
+        self.shredder = Shredder(signer=signer, shred_version=shred_version,
+                                 plane=plane, device=device)
+
+    def after_frag(self, in_idx: int, frag, payload: bytes) -> None:
+        # entries are appended verbatim: the entry frame IS this build's
+        # entry-batch serialization (the reference ships bincode entries)
+        self._buf += len(payload).to_bytes(4, "little")
+        self._buf += payload
+        ts = frag.tsorig
+        if ts and (self._buf_tsorig == 0 or ts < self._buf_tsorig):
+            self._buf_tsorig = ts
+        self.metrics.inc("entries_in")
+        if len(self._buf) >= self.batch_target_sz and self._room():
+            self._shred_batch(block_complete=False)
+
+    def after_credit(self) -> None:
+        # batch closed for size but deferred for credits: retry here
+        if len(self._buf) >= self.batch_target_sz and self._room():
+            self._shred_batch(block_complete=False)
+
+    def _room(self) -> bool:
+        """A batch bursts ~2 sets x ~65 shreds; don't start shredding unless
+        the out ring can absorb it (dropping shreds mid-set wastes the set)."""
+        return not self.outs or self.outs[0].cr_avail >= 256
+
+    def flush(self, *, block_complete: bool = True) -> None:
+        if self._buf:
+            self._shred_batch(block_complete=block_complete)
+
+    def _shred_batch(self, *, block_complete: bool) -> None:
+        batch = bytes(self._buf)
+        self._buf = bytearray()
+        tsorig = self._buf_tsorig
+        self._buf_tsorig = 0
+        sets = self.shredder.entry_batch_to_fec_sets(
+            batch, slot=self.slot,
+            meta=EntryBatchMeta(block_complete=block_complete))
+        self.metrics.inc("entry_batches")
+        for st in sets:
+            self.metrics.inc("fec_sets")
+            if self.keep_sets:
+                self.sets.append(st)
+            if self.outs:
+                items = [(buf, st.fec_set_idx, tsorig) for buf in st.data_shreds]
+                items += [(buf, st.fec_set_idx, tsorig) for buf in st.parity_shreds]
+                self.publish_burst_out(0, items)
+                self.metrics.inc("data_shreds_out", len(st.data_shreds))
+                self.metrics.inc("parity_shreds_out", len(st.parity_shreds))
+
+
+def deshred_entry_batch(batch: bytes) -> list[bytes]:
+    """Split a reassembled entry batch back into entry frames."""
+    entries = []
+    o = 0
+    while o < len(batch):
+        ln = int.from_bytes(batch[o : o + 4], "little")
+        o += 4
+        entries.append(batch[o : o + ln])
+        o += ln
+    return entries

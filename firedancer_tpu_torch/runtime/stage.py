@@ -1,5 +1,5 @@
 """A minimal in-process stage loop (the port's counterpart of
-firedancer_tpu/runtime/stage.py, cut to what the verify slice needs).
+firedancer_tpu/runtime/stage.py, cut to what the in-process pipelines need).
 
 Links are bounded deques of frags; a producer's credits are the free slots
 of its link.  A dict of counters stands in for the shm metrics.  The hook
@@ -65,6 +65,9 @@ class Consumer:
         """(Frag, payload) or None when the link is empty."""
         q = self.link.q
         return q.popleft() if q else None
+
+    def has_pending(self) -> bool:
+        return bool(self.link.q)
 
 
 class Metrics:

@@ -1,0 +1,220 @@
+"""The port's execution path against the JAX package, exactly: pack's
+cost model and scheduler on the same inserted frames (the same
+microblocks), and execute_block on a benchg block with the gated and
+failing cases (unfunded payer, stale blockhash, duplicate signature,
+insufficient funds, compute-budget instructions, an unknown program):
+the same BlockResult (bank hash, accounts delta, signature count, fees,
+every status, the waves) and the same committed funk values.  A program
+the port does not run yet (vote) raises NotImplementedError.  Seal's K13
+runs its plain version on the CPU."""
+
+import hashlib
+
+import numpy as np
+import pytest
+
+from firedancer_tpu.flamenco import blockstore as jbs
+from firedancer_tpu.flamenco import runtime as jrt
+from firedancer_tpu.funk import Funk as JFunk
+from firedancer_tpu.pack import cost as jcost
+from firedancer_tpu.pack import scheduler as jsched
+from firedancer_tpu.protocol import txn as jft
+from firedancer_tpu_torch.flamenco import blockstore as tbs
+from firedancer_tpu_torch.flamenco import runtime as trt
+from firedancer_tpu_torch.funk import Funk as TFunk
+from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
+from firedancer_tpu_torch.pack import cost as tcost
+from firedancer_tpu_torch.pack import scheduler as tsched
+from firedancer_tpu_torch.protocol import txn as ft
+from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_blockhash, pool_payers
+from firedancer_tpu_torch.utils import kbuild
+
+BH = pool_blockhash()
+SLOT = 3
+CB = tcost.COMPUTE_BUDGET_PROGRAM
+
+
+def _secret(tag: bytes) -> bytes:
+    return hashlib.sha256(b"bank-test" + tag).digest()
+
+
+def _cb_transfer(secret: bytes, to: bytes, lamports: int, cu_ixs: list[bytes],
+                 extra_prog: bytes | None = None) -> bytes:
+    """A transfer behind compute-budget instructions (and optionally one
+    instruction to `extra_prog`, a program id carried as an account)."""
+    pub = ref.public_key(secret)
+    addrs = [pub, to, ft.SYSTEM_PROGRAM, CB] + ([extra_prog] if extra_prog else [])
+    instrs = [ft.InstrSpec(program_id=3, accounts=b"", data=d) for d in cu_ixs]
+    instrs.append(ft.InstrSpec(program_id=2, accounts=bytes([0, 1]),
+                               data=(2).to_bytes(4, "little") + lamports.to_bytes(8, "little")))
+    if extra_prog:
+        instrs.append(ft.InstrSpec(program_id=4, accounts=bytes([1]), data=b"\x01\x02"))
+    msg = ft.message_build(version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+                           readonly_unsigned_cnt=len(addrs) - 2, acct_addrs=addrs,
+                           recent_blockhash=BH, instrs=instrs)
+    return ft.txn_assemble([ref.sign(secret, msg)], msg)
+
+
+def _block() -> tuple[list[bytes], dict[bytes, int]]:
+    """A benchg block plus the gated and failing cases; (txns, genesis)."""
+    pool = gen_transfer_pool(40, n_dests=16)
+    genesis = {pub: 10**12 for _, pub in pool_payers()}
+    poor = _secret(b"poor")
+    genesis[ref.public_key(poor)] = 20_000
+    rich = _secret(b"rich")
+    genesis[ref.public_key(rich)] = 10**10
+    dest = hashlib.sha256(b"bank-test-dest").digest()
+    payer0 = pool_payers()[0][0]
+    txns = list(pool)
+    txns += [
+        ft.transfer_txn(_secret(b"nobody"), dest, 5, BH),          # unfunded payer
+        ft.transfer_txn(payer0, dest, 7, hashlib.sha256(b"old").digest()),  # stale
+        pool[3],                                                    # duplicate
+        ft.transfer_txn(poor, dest, 10**9, BH),                     # insufficient funds
+        _cb_transfer(rich, dest, 11, [bytes([2]) + (50_000).to_bytes(4, "little"),
+                                      bytes([3]) + (1000).to_bytes(8, "little")]),
+        _cb_transfer(rich, dest, 12, [bytes([2]) + (1).to_bytes(4, "little")]),  # over budget
+        _cb_transfer(rich, dest, 13, [bytes([9, 0, 0, 0, 0])]),    # malformed budget ix
+        _cb_transfer(rich, dest, 14, [], extra_prog=hashlib.sha256(b"prog").digest()),
+    ]
+    return txns, genesis
+
+
+def _run(pkg_rt, funk_cls, cache_cls, txns, genesis, **kw):
+    funk = funk_cls()
+    for pub, lam in genesis.items():
+        funk.rec_insert(None, pub, pkg_rt.acct_build(lam))
+    cache = cache_cls()
+    cache.register_blockhash(BH, SLOT - 1)
+    res = pkg_rt.execute_block(funk, slot=SLOT, txns=txns, status_cache=cache,
+                               poh_hash=hashlib.sha256(b"poh").digest(), **kw)
+    return res, funk
+
+
+def test_execute_block_equals_jax():
+    txns, genesis = _block()
+    jres, jfunk = _run(jrt, JFunk, jbs.StatusCache, txns, genesis)
+    kbuild.reset_launches()
+    tres, tfunk = _run(trt, TFunk, tbs.StatusCache, txns, genesis, device="cpu")
+    assert sum(kbuild.LAUNCHES.values()) == 0
+    assert [(r.status, r.fee) for r in tres.results] == [(r.status, r.fee) for r in jres.results]
+    statuses = [r.status for r in tres.results]
+    for st in (trt.TXN_SUCCESS, trt.TXN_ERR_FEE, trt.TXN_ERR_BLOCKHASH,
+               trt.TXN_ERR_ALREADY_PROCESSED, trt.TXN_ERR_INSUFFICIENT_FUNDS,
+               trt.TXN_ERR_PROGRAM):
+        assert st in statuses, st
+    assert tres.bank_hash == jres.bank_hash
+    assert np.array_equal(tres.accounts_delta, np.asarray(jres.accounts_delta))
+    assert tres.accounts_delta.dtype == np.uint16
+    assert (tres.signature_cnt, tres.fees, tres.slot) == (jres.signature_cnt, jres.fees, jres.slot)
+    assert tres.waves == jres.waves
+    keys = sorted(tfunk.rec_keys(tres.xid))
+    assert keys == sorted(jfunk.rec_keys(jres.xid))
+    assert [tfunk.rec_query(tres.xid, k) for k in keys] == \
+        [jfunk.rec_query(jres.xid, k) for k in keys]
+
+
+def test_publish_then_replay_gates_like_jax():
+    """A published block's signatures gate the next slot: the same block
+    again lands nothing, on both sides."""
+    txns, genesis = _block()
+    out = []
+    for pkg_rt, funk_cls, cache_cls, kw in ((jrt, JFunk, jbs.StatusCache, {}),
+                                            (trt, TFunk, tbs.StatusCache, {"device": "cpu"})):
+        funk = funk_cls()
+        for pub, lam in genesis.items():
+            funk.rec_insert(None, pub, pkg_rt.acct_build(lam))
+        cache = cache_cls()
+        cache.register_blockhash(BH, SLOT - 1)
+        r1 = pkg_rt.execute_block(funk, slot=SLOT, txns=txns, status_cache=cache,
+                                  publish=True, **kw)
+        r2 = pkg_rt.execute_block(funk, slot=SLOT + 1, txns=txns[:10], status_cache=cache,
+                                  parent_bank_hash=r1.bank_hash, **kw)
+        out.append((r1.bank_hash, r2.bank_hash, [r.status for r in r2.results],
+                    r2.signature_cnt))
+    assert out[0] == out[1]
+    assert set(out[1][2]) == {trt.TXN_ERR_ALREADY_PROCESSED}
+
+
+def test_vote_txn_raises_not_implemented():
+    voter = _secret(b"voter")
+    vote = ft.vote_txn(voter, hashlib.sha256(b"vote-acct").digest(), SLOT - 1, BH)
+    genesis = {ref.public_key(voter): 10**9}
+    jres, _ = _run(jrt, JFunk, jbs.StatusCache, [vote], genesis)
+    assert jres.results[0].fee > 0  # JAX runs its vote program
+    with pytest.raises(NotImplementedError, match="vote program"):
+        _run(trt, TFunk, tbs.StatusCache, [vote], genesis, device="cpu")
+
+
+def test_unported_paths_raise_where_jax_runs_them():
+    """Durable nonce (a stale blockhash behind AdvanceNonceAccount) and an
+    address-table lookup raise; a stale plain transfer gets JAX's status."""
+    payer = pool_payers()[0]
+    stale = hashlib.sha256(b"stale").digest()
+    nonce_acct = hashlib.sha256(b"nonce").digest()
+    msg = ft.message_build(
+        version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+        readonly_unsigned_cnt=1, acct_addrs=[payer[1], nonce_acct, ft.SYSTEM_PROGRAM],
+        recent_blockhash=stale,
+        instrs=[ft.InstrSpec(program_id=2, accounts=bytes([1, 0]),
+                             data=(4).to_bytes(4, "little"))])
+    nonce_txn = ft.txn_assemble([ref.sign(payer[0], msg)], msg)
+    genesis = {payer[1]: 10**9}
+    with pytest.raises(NotImplementedError, match="durable-nonce"):
+        _run(trt, TFunk, tbs.StatusCache, [nonce_txn], genesis, device="cpu")
+    plain = ft.transfer_txn(payer[0], nonce_acct, 3, stale)
+    jres, _ = _run(jrt, JFunk, jbs.StatusCache, [plain], genesis)
+    tres, _ = _run(trt, TFunk, tbs.StatusCache, [plain], genesis, device="cpu")
+    assert [r.status for r in tres.results] == [r.status for r in jres.results] \
+        == [trt.TXN_ERR_BLOCKHASH]
+
+
+def _pack_stream() -> list[bytes]:
+    pool = gen_transfer_pool(96, n_payers=12, n_dests=8)
+    votes = [ft.vote_txn(_secret(b"v%d" % i), hashlib.sha256(b"va%d" % i).digest(), 5, BH)
+             for i in range(6)]
+    rich = _secret(b"rich")
+    dest = hashlib.sha256(b"pack-dest").digest()
+    prio = [_cb_transfer(rich, dest, 20 + i, [bytes([3]) + (10_000 * i).to_bytes(8, "little")])
+            for i in range(6)]
+    out = []
+    for i, p in enumerate(pool):
+        out.append(p)
+        if i % 16 == 0 and votes:
+            out.append(votes.pop())
+        if i % 16 == 8 and prio:
+            out.append(prio.pop())
+    return out + [pool[0]]  # a duplicate the pool rejects
+
+
+@pytest.mark.parametrize("depth", [4096, 40])
+def test_pack_schedules_like_jax(depth):
+    frames = _pack_stream()
+    jp = jsched.Pack(bank_cnt=2, depth=depth, max_txn_per_microblock=7)
+    tp = tsched.Pack(bank_cnt=2, depth=depth, max_txn_per_microblock=7)
+    for p in frames:
+        jd, td = jft.txn_parse(p), ft.txn_parse(p)
+        assert tp.insert(p, td) == jp.insert(p, jd)
+        jc, tc = jcost.compute_cost(p, jd), tcost.compute_cost(p, td)
+        assert tc.__dict__ == jc.__dict__
+        assert tcost.txn_budget(p, td) == jcost.txn_budget(p, jd)
+    assert tp.pending_cnt() == jp.pending_cnt()
+    rounds = []
+    for _ in range(200):
+        got = []
+        for pk in (jp, tp):
+            mbs = []
+            for bank in (0, 1):
+                chosen = pk.schedule_next_microblock(bank) or \
+                    pk.schedule_next_microblock(bank, votes=True)
+                mbs.append([o.first_sig() for o in chosen])
+            pk.microblock_done(0)
+            pk.microblock_done(1)
+            got.append(mbs)
+        assert got[1] == got[0]
+        rounds.append(got[0])
+        if not jp.pending_cnt():
+            break
+    assert tp.pending_cnt() == jp.pending_cnt() == 0
+    assert (tp.cost_used, tp.data_bytes_used) == (jp.cost_used, jp.data_bytes_used)
+    assert sum(len(m) for r in rounds for m in r) >= 40

@@ -19,6 +19,7 @@ import torch
 
 from firedancer_tpu_torch.models.workload import mixed_batch
 from firedancer_tpu_torch.ops import limbs as fl
+from firedancer_tpu_torch.ops import lthash as flt
 from firedancer_tpu_torch.ops import sha512 as fsha
 from firedancer_tpu_torch.ops import sigverify as sv
 from firedancer_tpu_torch.utils import kbuild
@@ -274,3 +275,23 @@ def test_split_phase_kernels_equal_plain_and_labels(dev):
     assert {n: kbuild.LAUNCHES[n] for n in ("phase_validate", "phase_hash", "phase_dsm",
                                             "phase_compare")} == dict.fromkeys(
         ("phase_validate", "phase_hash", "phase_dsm", "phase_compare"), 1)
+
+
+@pytest.mark.parametrize("n", [1, 2048, 65536])
+def test_lthash_combine_kernel_equals_plain(dev, n):
+    """K13 against its plain version: signed rows, unsigned rows, and the
+    JAX seal's power-of-two padding (zero rows of sign 0)."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(0, 1 << 16, (n, flt.LEN_ELEMS), dtype=np.uint16)
+    signs = rng.integers(-1, 2, n).astype(np.int8)
+    v = torch.from_numpy(vals.view(np.int16)).to(dev)
+    s = torch.from_numpy(signs).to(dev)
+    got = flt.combine_device(v, s)
+    assert torch.equal(got, flt.combine_plain(v, s))
+    assert torch.equal(flt.combine_device(v), flt.combine_plain(v, None))
+    cap = 1 << (n - 1).bit_length()
+    vp = torch.cat([v, torch.zeros((cap - n, flt.LEN_ELEMS), dtype=torch.int16, device=dev)])
+    sp = torch.cat([s, torch.zeros((cap - n,), dtype=torch.int8, device=dev)])
+    assert torch.equal(flt.combine_device(vp, sp), got)
+    assert kbuild.LAUNCHES["lthash_combine"] == 3
+    assert got.dtype == torch.int32 and int(got.min()) >= 0 and int(got.max()) <= 0xFFFF

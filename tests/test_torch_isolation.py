@@ -17,12 +17,17 @@ import torch
 
 import firedancer_tpu_torch
 from firedancer_tpu_torch import entry as tentry
+from firedancer_tpu_torch.flamenco.runtime import SlotExecution, execute_block
+from firedancer_tpu_torch.funk import make_funk
 from firedancer_tpu_torch.models.leader import (
+    build_leader_pipeline,
+    build_sharded_leader_pipeline,
     build_sharded_verify_pipeline,
     build_verify_pipeline,
 )
 from firedancer_tpu_torch.ops import gf256 as tg2
 from firedancer_tpu_torch.ops import limbs as tl
+from firedancer_tpu_torch.ops import lthash as tlt
 from firedancer_tpu_torch.ops import probe as tprobe
 from firedancer_tpu_torch.ops import reedsol as trs
 from firedancer_tpu_torch.ops import sha256 as tsha256
@@ -31,6 +36,10 @@ from firedancer_tpu_torch.ops import sigverify as tsv
 from firedancer_tpu_torch.parallel.mesh import make_mesh
 from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
 from firedancer_tpu_torch.runtime import poh as tpoh
+from firedancer_tpu_torch.runtime.bank import BankCtx, default_bank_ctx
+from firedancer_tpu_torch.runtime.fec_resolver import FecResolver
+from firedancer_tpu_torch.runtime.shredder import Shredder
+from firedancer_tpu_torch.runtime.store import StoreStage
 from firedancer_tpu_torch.runtime.verify import VerifyStage
 from firedancer_tpu_torch.utils import kbuild
 from firedancer_tpu_torch.utils.platform import resolve_device
@@ -77,7 +86,10 @@ def _no_card():
     "resolve_device", "pipeline", "verify_stage", "entry", "example_batch",
     "make_mesh", "serve_plane", "sharded_pipeline", "verify_segments",
     "leader_step", "reedsol_encode", "bank_alloc", "comb_fill", "comb_pipeline",
-    "split_pipeline", "autotune_pipeline"])
+    "split_pipeline", "autotune_pipeline", "leader_pipeline",
+    "sharded_leader_pipeline", "bank_ctx", "default_bank_ctx", "slot_execution",
+    "execute_block", "shredder", "fec_resolver", "store", "lthash_combine",
+    "leader_block"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -98,6 +110,17 @@ def test_entry_points_default_to_the_card(call):
         "comb_pipeline": lambda: build_verify_pipeline([b"x"], comb_slots=4),
         "split_pipeline": lambda: build_verify_pipeline([b"x"], kernel="split"),
         "autotune_pipeline": lambda: build_verify_pipeline([b"x"], autotune_after=4),
+        "leader_pipeline": lambda: build_leader_pipeline([b"x"]),
+        "sharded_leader_pipeline": lambda: build_sharded_leader_pipeline([b"x"]),
+        "bank_ctx": lambda: BankCtx(),
+        "default_bank_ctx": lambda: default_bank_ctx(),
+        "slot_execution": lambda: SlotExecution(make_funk(), slot=1),
+        "execute_block": lambda: execute_block(make_funk(), slot=1, txns=[]),
+        "shredder": lambda: Shredder(signer=lambda r: bytes(64)),
+        "fec_resolver": lambda: FecResolver(),
+        "store": lambda: StoreStage("store"),
+        "lthash_combine": lambda: tlt.combine_device(np.zeros((1, 1024), np.uint16)),
+        "leader_block": lambda: tentry.leader_block([b"x"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
@@ -129,6 +152,8 @@ def test_plane_wrappers_on_cpu_tensors_run_plain_and_never_count():
     assert torch.equal(tg2.gf_apply_batch(mat, data)[:, 0], data[:, 0] ^ data[:, 1] ^ data[:, 2])
     x = torch.full((8, 128), 2**31 - 1, dtype=torch.int32)
     assert (tprobe.probe_add(x, torch.ones_like(x)) == -2**31).all()
+    rows = torch.full((3, 1024), -1, dtype=torch.int16)  # 0xFFFF lanes
+    assert (tlt.combine_device(rows, torch.tensor([1, 1, -1], dtype=torch.int8)) == 0xFFFF).all()
     a = torch.full((20, 4), 100, dtype=torch.int32)
     conv = tprobe.probe_conv(a, 2 * a)
     assert conv.shape == (39, 4) and conv[:, 0].tolist() == \
