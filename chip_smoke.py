@@ -4,7 +4,8 @@ PyTorch version.
     python3 chip_smoke.py
 
 Phases, in order; any failure ends the script with a nonzero exit and no
-result line:
+result line (2 without a CUDA device, 1 without the package beside the
+script or when a phase fails):
 
   1. device   name, count, capability, nvidia-smi name and power limit;
               TF32 off for matmuls (the K5 plain version's float32 product
@@ -99,6 +100,21 @@ result line:
               once, K5 through encode_parity, K1 once per step; the same
               landed txns and sealed state as phase 17, and replay
               reproduces this pipeline's seal
+  18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
+              every padding boundary: equal to hashlib on every lane and to
+              the plain version on 1,024; K15 sha256_mix32 at B = 4,096:
+              equal to hashlib and the plain version; then the bmtree root
+              build over phase 17's FEC sets, grouped by shape: one
+              hash_leaves_batch per leaf size and one layers_batch per group
+              on the card, every layer equal to the host tree, every root
+              the first 20 bytes of the root the shredder signed, K14
+              launched exactly once per leaf size and layer; each timed,
+              the root build beside the host tree's time
+  19. hashes  K16 blake3_msg at B = 16,384, max_len 1,024; K17
+              keccak256_msg at B = 4,096, max_len 1,232; K18
+              chacha20_keystream at B = 65,536 (half zero nonces, half
+              seeded): each equal to its host oracle on sampled lanes and
+              to its plain version on 1,024 lanes; each timed
 
 Then a [time] line with each phase's seconds on the host clock, one JSON
 line of per-kernel numbers ({"kernels": [...]}), the
@@ -124,10 +140,25 @@ SHA512_OPS_PER_BLOCK = 4144  # 32-bit instructions per 128-byte block, 2 per 64-
 # 32-bit instructions per SHA-256 compression in K4, a hand tally before
 # constant folding: 48 schedule steps x 10 + 64 rounds x 13 + 8 final adds
 SHA256_OPS_PER_COMPRESSION = 1320
+# K15's second block is the constant pad of a 64-byte message: its 48
+# schedule steps fold at compile time, leaving 64 rounds x 13 + 8 final adds
+SHA256_OPS_PER_PAD_COMPRESSION = 840
 # K5 instructions per GF(2^8) multiply-add: per output row and 4 columns,
 # 1 shared coefficient-log load, 4 adds, 4 exp-table loads, 3 shifts and
 # 3 LOP3 = 14 / 4 bytes
 GF_OPS_PER_MULADD = 3.5
+# 32-bit instructions per BLAKE3 compression in K16, a hand tally: 7 rounds x
+# 8 mixes x 12 (2 three-input adds, 2 adds, 4 XOR, 4 rotates) + 8 output XORs
+BLAKE3_OPS_PER_COMPRESSION = 680
+# per keccak-f[1600] permutation in K17, a hand tally of 32-bit instructions,
+# two per 64-bit operation, with LOP3 taking three inputs as IADD3 does in
+# BLAKE3's tally: 24 rounds x (theta: 5 five-way parities x 2 LOP3, 5
+# rotates by 1, 25 LOP3 for A ^= C[x-1] ^ rot(C[x+1]); rho 24 rotates; chi 25
+# LOP3 for a ^ (~b & c); iota 1 = 90) + 17 absorbing XORs
+KECCAK_OPS_PER_PERMUTATION = 2 * (24 * 90 + 17)
+# per ChaCha20 block in K18: 10 double rounds x 8 quarter rounds x 12 (4 adds,
+# 4 XOR, 4 rotates) + 16 final adds
+CHACHA20_OPS_PER_BLOCK = 976
 HASHES_PER_TICK = 12_500  # the repo's genesis default (flamenco/genesis.py)
 REPEAT_ROUNDS = 6  # phase 10b: extra (verify pipeline, plane pipeline) rounds
 # phases 12-13: the voting set and the comb bank (2,048 slots hold the
@@ -145,6 +176,8 @@ K13_ROWS = (2048, 65536)  # phase 16: K13's row counts (a slot's few thousand; a
 # pool holds the whole stream (at the default 4,096, equal-priority
 # transfers past a full pool are dropped, and a quarter of them were)
 LEADER_TXNS, LEADER_DESTS = 8192, 1024
+PLAIN_LANES = 1024  # phases 18-19: the lanes each kernel is held to its plain version on
+OPS_API = "ops API (tests-only in the JAX package)"  # phases 18-19: K15-K18's path
 
 
 class SmokeFailure(RuntimeError):
@@ -200,6 +233,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import firedancer_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: the package firedancer_tpu_torch is not beside this script ({e})",
+              file=sys.stderr)
+        return 1
     from firedancer_tpu_torch import entry as tentry
     from firedancer_tpu_torch.flamenco.runtime import replay_block
     from firedancer_tpu_torch.models.leader import (
@@ -216,7 +255,11 @@ def main() -> int:
         verify_stream,
         vote_stream,
     )
+    from firedancer_tpu_torch.ops import blake3 as fb3
+    from firedancer_tpu_torch.ops import bmtree as fbm
+    from firedancer_tpu_torch.ops import chacha20 as fcc
     from firedancer_tpu_torch.ops import gf256 as g2
+    from firedancer_tpu_torch.ops import keccak256 as fkk
     from firedancer_tpu_torch.ops import limbs as fl
     from firedancer_tpu_torch.ops import lthash as flt
     from firedancer_tpu_torch.ops import probe as fprobe
@@ -227,6 +270,7 @@ def main() -> int:
     from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
     from firedancer_tpu_torch.ops.ref import gf256_ref as gr
     from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
+    from firedancer_tpu_torch.protocol import shred as fs
     from firedancer_tpu_torch.runtime import poh as rpoh
     from firedancer_tpu_torch.runtime.bank import default_bank_ctx
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
@@ -1375,16 +1419,234 @@ def main() -> int:
         library="torch.sum(pre-signed int32, dim=0), sign multiply not included",
         at_rows={str(n): k13[n] for n in K13_ROWS}, phase_launches=phase16_launches))
 
+    # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
+    mark("18")
+
+    def plain_run(fn):
+        """(result, host ms) of one run of a plain version on the card."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    P = PLAIN_LANES
+    B14, ML14 = 4096, 1232
+    rng = np.random.default_rng(18)
+    edge14 = [0, 1, 55, 56, 63, 64, 119, 120, ML14 - 1, ML14]
+    l14h = np.array(edge14 + [int(v) for v in rng.integers(0, ML14 + 1, B14 - len(edge14))],
+                    dtype=np.int32)
+    m14h = rng.integers(0, 256, (ML14, B14), dtype=np.uint8)  # bytes past a length are ignored
+    m14, l14 = torch.from_numpy(m14h).to(dev), torch.from_numpy(l14h).to(dev)
+    kbuild.reset_launches()
+    d14 = fsha256.sha256_msg(m14, l14)
+    torch.cuda.synchronize()
+    api14 = kbuild.LAUNCHES["sha256_msg"]
+    want14 = np.stack([np.frombuffer(hashlib.sha256(m14h[:n, i].tobytes()).digest(), np.uint8)
+                       for i, n in enumerate(l14h)], -1)
+    err14 = int(np.abs(d14.cpu().numpy().astype(np.int64) - want14).max())
+    check(err14 == 0, f"K14 differs from hashlib (max abs err {err14})")
+    p14, plain14 = plain_run(lambda: fsha256.sha256_msg_plain(
+        m14[:, :P].contiguous(), l14[:P].contiguous(), ML14))
+    check(torch.equal(p14, d14[:, :P]), "K14 differs from its plain version")
+    ms14 = time_ms(lambda: fsha256._sha256_msg(m14, l14, ML14), reps=50, hide_host=True)
+    blocks14 = int(((l14h.astype(np.int64) + 9 + 63) // 64).sum())
+    b14, bby14 = bound(blocks14 * SHA256_OPS_PER_COMPRESSION, int(l14h.sum()) + 36 * B14)
+    log(f"[K14] sha256_msg B={B14} max_len={ML14} ({blocks14} blocks, lengths {edge14} and"
+        f" random): equal to hashlib on every lane and to plain on {P}; {ms14 * 1e3:.2f} us"
+        f" (bound {b14 * 1e3:.2f} us, {bby14}); plain {plain14:.1f} ms")
+
+    st15h, mx15h = (rng.integers(0, 256, (32, B14), dtype=np.uint8) for _ in range(2))
+    st15, mx15 = torch.from_numpy(st15h).to(dev), torch.from_numpy(mx15h).to(dev)
+    kbuild.reset_launches()
+    d15 = fsha256.sha256_mix32(st15, mx15)
+    torch.cuda.synchronize()
+    api15 = kbuild.LAUNCHES["sha256_mix32"]
+    want15 = np.stack([np.frombuffer(hashlib.sha256(st15h[:, i].tobytes() + mx15h[:, i].tobytes())
+                                     .digest(), np.uint8) for i in range(B14)], -1)
+    err15 = int(np.abs(d15.cpu().numpy().astype(np.int64) - want15).max())
+    check(err15 == 0, f"K15 differs from hashlib (max abs err {err15})")
+    p15, plain15 = plain_run(lambda: fsha256.sha256_mix32_plain(st15, mx15))
+    check(torch.equal(p15, d15), "K15 differs from its plain version")
+    ms15 = time_ms(lambda: fsha256.sha256_mix32(st15, mx15), reps=50, hide_host=True)
+    b15, bby15 = bound(B14 * (SHA256_OPS_PER_COMPRESSION + SHA256_OPS_PER_PAD_COMPRESSION),
+                       96 * B14)
+    log(f"[K15] sha256_mix32 B={B14}: equal to hashlib and plain on every lane;"
+        f" {ms15 * 1e3:.2f} us (bound {b15 * 1e3:.2f} us, {bby15}); plain {plain15:.1f} ms")
+
+    # the root build: phase 17's FEC sets grouped by shape; leaf i of tree j in
+    # column i * T + j of each leaf size's byte rows (made on the host: set-up)
+    def leaf_region(buf: bytes) -> bytes:
+        return buf[fs.SIGNATURE_SZ:fs.merkle_off(buf[fs.SIGNATURE_SZ])]
+
+    groups18: dict[tuple, list] = {}
+    for st in pipe17.shred.sets:
+        dl = [leaf_region(x) for x in st.data_shreds]
+        pl = [leaf_region(x) for x in st.parity_shreds]
+        key = (len(dl), len(pl), len(dl[0]), len(pl[0]) if pl else 0)
+        groups18.setdefault(key, []).append((st, dl, pl))
+    rows18 = []
+    for (nd, npar, _, _), grp in groups18.items():
+        nt = len(grp)
+        drows = np.stack([np.frombuffer(grp[j][1][i], np.uint8)
+                          for i in range(nd) for j in range(nt)], -1)
+        prows = (np.stack([np.frombuffer(grp[j][2][i], np.uint8)
+                           for i in range(npar) for j in range(nt)], -1) if npar else None)
+        rows18.append((nd, npar, nt, drows, prows))
+
+    def root_build():
+        out = []
+        for nd, npar, nt, drows, prows in rows18:
+            lv = [fbm.hash_leaves_batch(drows, device=dev)]
+            if npar:
+                lv.append(fbm.hash_leaves_batch(prows, device=dev))
+            leaves = torch.cat([x.reshape(fbm.NODE_SZ, -1, nt) for x in lv], 1)
+            out.append(fbm.layers_batch(leaves.permute(1, 0, 2).contiguous()))
+        return out
+
+    def host_build():
+        return [[fbm.tree_layers([fbm.hash_leaf(x) for x in dl + pl]) for _, dl, pl in grp]
+                for grp in groups18.values()]
+
+    kbuild.reset_launches()
+    layers18, build18 = plain_run(root_build)
+    launches18 = dict(kbuild.LAUNCHES)
+    want_l18 = sum(1 + (npar > 0) + fbm.depth(nd + npar) - 1 for nd, npar, _, _, _ in rows18)
+    check(launches18 == {"sha256_msg": want_l18},
+          f"root build launches {launches18} != {want_l18} K14 (one per leaf size and layer)")
+    host18 = host_build()
+    for layers, hosts, grp in zip(layers18, host18, groups18.values()):
+        lh = [x.cpu().numpy() for x in layers]
+        for j, (st, _, _) in enumerate(grp):
+            check(len(lh) == len(hosts[j]), "root build: layer count differs from the host tree")
+            for lay, hl in zip(lh, hosts[j]):
+                check([bytes(lay[i, :, j]) for i in range(len(hl))] == hl,
+                      "root build: a layer differs from the host tree (leaves: hash_leaf)")
+            check(bytes(lh[-1][0, :, j]) == st.merkle_root[:fbm.NODE_SZ],
+                  "root build: a root is not the signed root's first 20 bytes")
+    dev18 = sorted(plain_run(root_build)[1] for _ in range(3))
+    host18_ms = sorted(plain_run(host_build)[1] for _ in range(3))
+    nsets18 = sum(len(g) for g in groups18.values())
+    log(f"[bmtree] {nsets18} FEC sets of phase 17 in {len(groups18)} groups (d, p, data leaf,"
+        f" parity leaf bytes: {sorted(groups18)[:4]}...): every layer equal to the host tree,"
+        f" every root the signed root's first 20 bytes; {want_l18} K14 launches; whole-slot"
+        f" root build {build18:.2f} ms first, then {', '.join(f'{t:.2f}' for t in dev18)} ms;"
+        f" host tree (hashlib) {', '.join(f'{t:.2f}' for t in host18_ms)} ms")
+
+    # -- 19. K16 blake3_msg, K17 keccak256_msg and K18 chacha20_keystream alone -----------------
+    mark("19")
+    rng = np.random.default_rng(19)
+
+    def msg_batch(bsz, max_len, edges):
+        lens = np.array(edges + [int(v) for v in rng.integers(0, max_len + 1, bsz - len(edges))],
+                        dtype=np.int32)
+        mh = rng.integers(0, 256, (max_len, bsz), dtype=np.uint8)
+        sample = list(range(len(edges))) + [int(i) for i in rng.choice(
+            np.arange(len(edges), bsz), 64, replace=False)]
+        return mh, lens, torch.from_numpy(mh).to(dev), torch.from_numpy(lens).to(dev), sample
+
+    hashes19 = {}
+    for nm, bsz, max_len, edges, api, launch, plain, host, ops in (
+            ("blake3_msg", 16384, 1024, [0, 1, 63, 64, 65, 127, 128, 129, 1023, 1024],
+             fb3.blake3_msg, fb3._blake3_msg_launch, fb3.blake3_msg_plain, fb3.blake3_host,
+             lambda ln: int(np.maximum(1, (ln.astype(np.int64) + 63) // 64).sum())
+             * BLAKE3_OPS_PER_COMPRESSION),
+            ("keccak256_msg", 4096, 1232, [0, 1, 135, 136, 137, 271, 272, 1231, 1232],
+             fkk.keccak256_msg, fkk._keccak256_msg_launch, fkk.keccak256_msg_plain,
+             fkk.keccak256_host,
+             lambda ln: int((ln.astype(np.int64) // 136 + 1).sum()) * KECCAK_OPS_PER_PERMUTATION)):
+        mh, lh, m19, l19, sample = msg_batch(bsz, max_len, edges)
+        kbuild.reset_launches()
+        d19 = api(m19, l19)
+        torch.cuda.synchronize()
+        n_api = kbuild.LAUNCHES[nm]
+        dh = d19.cpu().numpy()
+        err = max(int(np.abs(dh[:, i].astype(np.int64) - np.frombuffer(
+            host(mh[:lh[i], i].tobytes()), np.uint8)).max()) for i in sample)
+        check(err == 0, f"{nm} differs from its host oracle (max abs err {err})")
+        p19, plain_ms = plain_run(lambda: plain(m19[:, :P].contiguous(), l19[:P].contiguous(),
+                                                max_len))
+        check(torch.equal(p19, d19[:, :P]), f"{nm} differs from its plain version")
+        ms_ = time_ms(lambda: launch(m19, l19), reps=50, hide_host=True)
+        bms, bby = bound(ops(lh), int(lh.sum()) + 36 * bsz)
+        hashes19[nm] = dict(api=n_api, err=err, ms=ms_, plain=plain_ms, bound=(bms, bby),
+                            shape=f"B={bsz} max_len={max_len}")
+        log(f"[{'K16' if nm == 'blake3_msg' else 'K17'}] {nm} B={bsz} max_len={max_len}"
+            f" (lengths {edges} and random): equal to {host.__name__} on {len(sample)} lanes and"
+            f" to plain on {P}; {ms_ * 1e3:.2f} us (bound {bms * 1e3:.2f} us, {bby});"
+            f" plain {plain_ms:.1f} ms")
+
+    B18 = 65536
+    H18 = B18 // 2
+    k18h = rng.integers(0, 256, (32, B18), dtype=np.uint8)
+    n18h = rng.integers(0, 256, (12, B18), dtype=np.uint8)
+    i18h = rng.integers(0, 1 << 32, B18, dtype=np.int64)
+    i18h[[0, 1, H18, H18 + 1]] = (0, (1 << 32) - 1, 0, (1 << 32) - 1)
+    k18 = torch.from_numpy(k18h).to(dev)
+    i18 = torch.from_numpy(i18h.astype(np.uint32).view(np.int32)).to(dev)
+    n18 = torch.from_numpy(n18h).to(dev)
+    halves = ((slice(0, H18), None), (slice(H18, B18), n18[:, H18:].contiguous()))
+    kbuild.reset_launches()
+    out18 = [fcc.chacha20_keystream(k18[:, sl].contiguous(), i18[sl].contiguous(), nc)
+             for sl, nc in halves]
+    torch.cuda.synchronize()
+    api18 = kbuild.LAUNCHES["chacha20_keystream"]
+    err18, plain18 = 0, 0.0
+    for (sl, nc), o in zip(halves, out18):
+        oh = o.cpu().numpy()
+        for j in [0, 1] + [int(v) for v in rng.choice(H18, 126, replace=False)]:
+            i = sl.start + j
+            nonce = n18h[:, i].tobytes() if nc is not None else bytes(12)
+            want = np.frombuffer(fcc.chacha20_block_host(k18h[:, i].tobytes(), int(i18h[i]), nonce),
+                                 np.uint8)
+            err18 = max(err18, int(np.abs(oh[:, j].astype(np.int64) - want).max()))
+        p18, pms = plain_run(lambda: fcc.chacha20_keystream_plain(
+            k18[:, sl][:, :P].contiguous(), i18[sl][:P].contiguous(),
+            None if nc is None else nc[:, :P].contiguous()))
+        plain18 += pms / 2
+        check(torch.equal(p18, o[:, :P]), "K18 differs from its plain version")
+    check(err18 == 0, f"K18 differs from chacha20_block_host (max abs err {err18})")
+    ms18 = time_ms(lambda: fcc.chacha20_keystream(k18, i18, n18), reps=50, hide_host=True)
+    ms18z = time_ms(lambda: fcc.chacha20_keystream(k18, i18), reps=50, hide_host=True)
+    b18, bby18 = bound(B18 * CHACHA20_OPS_PER_BLOCK, B18 * (32 + 4 + 12 + 64))
+    log(f"[K18] chacha20_keystream B={B18} (half zero nonces, half seeded; indices 0 and"
+        f" 2^32 - 1 in each half): equal to chacha20_block_host on 256 lanes and to plain on"
+        f" {P} of each half; {ms18 * 1e3:.2f} us with nonces, {ms18z * 1e3:.2f} us with zero"
+        f" nonces (bound {b18 * 1e3:.2f} us, {bby18}); plain {plain18:.1f} ms")
+
+    ops_api = {"sha256_msg": api14, "sha256_mix32": api15, "chacha20_keystream": api18,
+               **{nm: h["api"] for nm, h in hashes19.items()}}
+    for nm, src, line, err, ms_, plain_, (bms, bby), shp, path, path_n in (
+            ("sha256_msg", "sha256_msg.cu", "sha256.py:122", err14, ms14, plain14, (b14, bby14),
+             f"B={B14} max_len={ML14}", "bmtree root build (phase 18)", launches18["sha256_msg"]),
+            ("sha256_mix32", "sha256_msg.cu", "sha256.py:182", err15, ms15, plain15,
+             (b15, bby15), f"B={B14}", OPS_API, api15),
+            *((nm, f"{nm}.cu", line, h["err"], h["ms"], h["plain"], h["bound"], h["shape"],
+               OPS_API, h["api"])
+              for (nm, h), line in zip(hashes19.items(), ("blake3.py:150", "keccak256.py:148"))),
+            ("chacha20_keystream", "chacha20_keystream.cu", "chacha20.py:65", err18, ms18,
+             plain18, (b18, bby18), f"B={B18}", OPS_API, api18)):
+        kernels.append(dict(
+            name=nm, route="cuda", source=f"firedancer_tpu_torch/csrc/{src}",
+            replaces=f"firedancer_tpu/ops/{line}", launches=None, max_abs_err=err, ms=ms_,
+            plain_ms=plain_, bound_ms=bms, bound_by=bby, library_ms=None, matched=True,
+            shape=shp, plain_shape=f"{P} lanes", phase_launches=ops_api[nm], main_path=path,
+            path_launches=path_n))
+    by_name = {k["name"]: k for k in kernels}
+    by_name["chacha20_keystream"]["ms_zero_nonces"] = ms18z
+    by_name["sha256_msg"].update(root_build_ms=dev18, host_tree_ms=host18_ms)
+
     for k in kernels:
         check(k["phase_launches"] > 0, f"{k['name']} never launched in its phase")
         # each kernel's main path: the comb pipeline for the comb lane's
         # kernels, the split pipeline for K9-K12, the leader pipeline for
-        # K13 and K5 (the shredder's parity), the plane pipeline for the rest
+        # K13 and K5 (the shredder's parity), the plane pipeline for the rest;
+        # K14-K18 carry their own path from phases 18-19
         comb_lane = k["name"] in ("verify_cached", "comb_fill", "bank_install")
         main = (launches13 if comb_lane else launches15 if k["name"] in SPLIT
                 else launches17 if k["name"] in ("lthash_combine", "gf256_apply")
                 else launches10)
-        k["launches"] = main.get(k["name"], 0)
+        k["launches"] = k.pop("path_launches") if "path_launches" in k else main.get(k["name"], 0)
         k["launches_by_path"] = {"verify_pipeline": launches7.get(k["name"], 0),
                                  "plane_pipeline": launches10.get(k["name"], 0),
                                  "leader_step": launches11.get(k["name"], 0),
@@ -1394,7 +1656,9 @@ def main() -> int:
                                  "autotune_pipeline": launches15c.get(k["name"], 0),
                                  "leader_pipeline": launches17.get(k["name"], 0),
                                  "leader_lossy_store": launches17b.get(k["name"], 0),
-                                 "sharded_leader_pipeline": launches17c.get(k["name"], 0)}
+                                 "sharded_leader_pipeline": launches17c.get(k["name"], 0),
+                                 "bmtree_root_build": launches18.get(k["name"], 0),
+                                 OPS_API: ops_api.get(k["name"], 0)}
     for nm in SPLIT:
         check(launches15.get(nm, 0) > 0, f"{nm} never launched on the split pipeline")
     check(ref.verify(b"", ref.sign(b"\x01" * 32, b""), ref.public_key(b"\x01" * 32)),

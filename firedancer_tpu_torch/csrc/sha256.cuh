@@ -1,0 +1,132 @@
+// SHA-256 compression and one variable-length message per thread, shared by
+// K4 (csrc/sha256_iter32.cu) and K14/K15 (csrc/sha256_msg.cu).  The plain
+// PyTorch twin is ops/sha256.py (_compress, sha256_msg_plain).
+//
+// The message bytes come from a source functor `src(pos)` (pos < len), so a
+// caller reads its input in place.  A lane pads in registers from its own
+// length (0x80, zeros, the 64-bit big-endian bit length) and runs only its
+// own (len + 9 + 63) / 64 blocks.
+#pragma once
+
+#include "fd_common.cuh"
+
+__device__ __constant__ uint32_t SHA256_K[64] = {
+    0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
+    0x923F82A4u, 0xAB1C5ED5u, 0xD807AA98u, 0x12835B01u, 0x243185BEu, 0x550C7DC3u,
+    0x72BE5D74u, 0x80DEB1FEu, 0x9BDC06A7u, 0xC19BF174u, 0xE49B69C1u, 0xEFBE4786u,
+    0x0FC19DC6u, 0x240CA1CCu, 0x2DE92C6Fu, 0x4A7484AAu, 0x5CB0A9DCu, 0x76F988DAu,
+    0x983E5152u, 0xA831C66Du, 0xB00327C8u, 0xBF597FC7u, 0xC6E00BF3u, 0xD5A79147u,
+    0x06CA6351u, 0x14292967u, 0x27B70A85u, 0x2E1B2138u, 0x4D2C6DFCu, 0x53380D13u,
+    0x650A7354u, 0x766A0ABBu, 0x81C2C92Eu, 0x92722C85u, 0xA2BFE8A1u, 0xA81A664Bu,
+    0xC24B8B70u, 0xC76C51A3u, 0xD192E819u, 0xD6990624u, 0xF40E3585u, 0x106AA070u,
+    0x19A4C116u, 0x1E376C08u, 0x2748774Cu, 0x34B0BCB5u, 0x391C0CB3u, 0x4ED8AA4Au,
+    0x5B9CCA4Fu, 0x682E6FF3u, 0x748F82EEu, 0x78A5636Fu, 0x84C87814u, 0x8CC70208u,
+    0x90BEFFFAu, 0xA4506CEBu, 0xBEF9A3F7u, 0xC67178F2u,
+};
+
+__device__ __forceinline__ uint32_t rotr32(uint32_t x, int n) {
+  return __funnelshift_r(x, x, n);
+}
+
+__device__ __forceinline__ void sha256_init(uint32_t st[8]) {
+  st[0] = 0x6A09E667u; st[1] = 0xBB67AE85u; st[2] = 0x3C6EF372u; st[3] = 0xA54FF53Au;
+  st[4] = 0x510E527Fu; st[5] = 0x9B05688Cu; st[6] = 0x1F83D9ABu; st[7] = 0x5BE0CD19u;
+}
+
+// st <- compress(st, w); w (16 big-endian message words) is overwritten by
+// the rolling schedule.
+__device__ __forceinline__ void sha256_compress(uint32_t st[8], uint32_t w[16]) {
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int t = 0; t < 64; t++) {
+    uint32_t wt;
+    if (t < 16) {
+      wt = w[t];
+    } else {
+      const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
+      const uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
+      const uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
+      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
+      w[t & 15] = wt;
+    }
+    const uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t t1 = h + S1 + ch + SHA256_K[t] + wt;
+    const uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
+    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+    h = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + S0 + maj;
+  }
+  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+// Digest state words (big-endian words of the 32-byte digest) of the
+// len-byte message src(0..len-1).
+template <class Src>
+__device__ __forceinline__ void sha256_lane(const Src& src, uint32_t len, uint32_t st[8]) {
+  sha256_init(st);
+  const uint32_t nb = (len + 9 + 63) / 64;
+  const uint64_t bits = (uint64_t)len * 8;
+  for (uint32_t blk = 0; blk < nb; blk++) {
+    uint32_t w[16];
+    const uint32_t base = blk * 64;
+#pragma unroll
+    for (int t = 0; t < 16; t++) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int b = 0; b < 4; b++) {
+        const uint32_t pos = base + 4 * t + b;
+        const uint32_t byte = pos < len ? (uint32_t)src(pos) : (pos == len ? 0x80u : 0u);
+        x = (x << 8) | byte;
+      }
+      w[t] = x;
+    }
+    // the final block's last 8 bytes lie past len + 1: the bit length
+    if (blk == nb - 1) {
+      w[14] = (uint32_t)(bits >> 32);
+      w[15] = (uint32_t)bits;
+    }
+    sha256_compress(st, w);
+  }
+}
+
+// Byte rows of one lane of a (rows, B) row-major uint8 array, read in place:
+// neighbouring lanes sit at neighbouring addresses, so a warp's loads of one
+// row coalesce.
+struct Sha256RowSrc {
+  const uint8_t* __restrict__ rows;
+  int64_t stride;
+  int64_t lane;
+  __device__ __forceinline__ uint8_t operator()(uint32_t pos) const {
+    return __ldg(rows + (int64_t)pos * stride + lane);
+  }
+};
+
+// 8 big-endian words from 32 byte rows of one lane.
+__device__ __forceinline__ void sha256_load_words32(const uint8_t* __restrict__ rows,
+                                                    int64_t B, int64_t lane, uint32_t w[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; k++)
+      v = (v << 8) | (uint32_t)__ldg(rows + (int64_t)(4 * i + k) * B + lane);
+    w[i] = v;
+  }
+}
+
+// The 8 state words as 32 big-endian byte rows of one lane.
+__device__ __forceinline__ void sha256_store_digest(uint8_t* __restrict__ out, int64_t B,
+                                                    int64_t lane, const uint32_t st[8]) {
+#pragma unroll
+  for (int i = 0; i < 32; i++)
+    out[(int64_t)i * B + lane] = (uint8_t)(st[i >> 2] >> (24 - 8 * (i & 3)));
+}

@@ -1,16 +1,26 @@
-"""BLAKE3 on the host (account hashing): the port's copy of the host part
-of firedancer_tpu/ops/blake3.py (:36-147), byte-identical output.
+"""BLAKE3 (account hashing): the host tree (the port's copy of
+firedancer_tpu/ops/blake3.py:36-147, byte-identical output) and the batched
+single-chunk device path, K16 `blake3_msg` (csrc/blake3_msg.cu).
 
 Constants (IV, message permutation, flag bits, 1024-byte chunk and 64-byte
 block geometry) are the public BLAKE3 spec.  `blake3_xof_host` is the
 lattice hash's extended output (ops/lthash.py), which stays on the host as
-in the JAX package; the batched single-chunk device path (`blake3_msg`,
-firedancer_tpu/ops/blake3.py:150) is not ported yet.
+in the JAX package, and `blake3_host` is K16's oracle.
+
+`blake3_msg` hashes B messages of at most 1,024 bytes (one chunk) as
+(max_len, B) uint8 rows with (B,) int32 lengths (ops/rows.py) -> (32, B)
+uint8.  The plain version runs the host compression on int64 tensors over
+every block for every lane and stops each lane's chaining value past its
+final block (the JAX scheme); the kernel runs only each lane's own blocks.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..utils import kbuild
+from .rows import check_msg_batch
 
 IV = (
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -137,3 +147,61 @@ def blake3_xof_host(msg: bytes, out_len: int) -> bytes:
 def blake3_host(msg: bytes) -> bytes:
     """Default-mode 32-byte BLAKE3 digest (full chunk tree)."""
     return blake3_xof_host(msg, 32)
+
+
+# -- batched single-chunk device path (K16) -----------------------------------
+
+
+def blake3_msg_plain(msg: torch.Tensor, msg_len: torch.Tensor, max_len: int) -> torch.Tensor:
+    """K16's plain version: (max_len, B) uint8 + (B,) lengths -> (32, B)
+    uint8; the host compression on int64 tensors, every block for every
+    lane."""
+    bsz, dev = msg.shape[1], msg.device
+    nb = max(1, (max_len + BLOCK_SZ - 1) // BLOCK_SZ)
+    total = nb * BLOCK_SZ
+    ln = msg_len.to(torch.int64)
+    buf = torch.zeros((total, bsz), dtype=torch.int64, device=dev)
+    buf[:max_len] = msg[:max_len].to(torch.int64)
+    pos = torch.arange(total, dtype=torch.int64, device=dev).unsqueeze(1)
+    by = torch.where(pos < ln, buf, 0).reshape(nb, 16, 4, bsz)
+    w = by[:, :, 0] | (by[:, :, 1] << 8) | (by[:, :, 2] << 16) | (by[:, :, 3] << 24)
+    last = (ln - 1).clamp(min=0)
+    final_block = last // BLOCK_SZ
+    final_len = ln - final_block * BLOCK_SZ  # an empty message: 0
+    cv = list(IV)
+    res = torch.zeros((8, bsz), dtype=torch.int64, device=dev)
+    for bi in range(nb):
+        is_final = final_block == bi
+        past = bi * BLOCK_SZ > last
+        block_len = torch.where(is_final, final_len, BLOCK_SZ)
+        flags = (CHUNK_START if bi == 0 else 0) + torch.where(is_final, CHUNK_END | ROOT, 0)
+        out = _compress_host(cv, list(w[bi].unbind(0)), 0, block_len, flags)
+        res = torch.where(is_final, torch.stack(out), res)
+        keep = past | is_final
+        cv = [torch.where(keep, c, o) for c, o in zip(cv, out)]
+    sh = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=dev).reshape(1, 4, 1)
+    return ((res.unsqueeze(1) >> sh) & 0xFF).reshape(32, bsz).to(torch.uint8)
+
+
+def _blake3_msg_launch(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/blake3_msg.cu on checked CUDA inputs."""
+    bsz = msg.shape[1]
+    out = torch.empty((32, bsz), dtype=torch.uint8, device=msg.device)
+    kbuild.launch("blake3_msg", "fd_blake3_msg", [msg.data_ptr(), msg_len.data_ptr(), out.data_ptr()],
+                  bsz, msg.device, "blake3_msg")
+    return out
+
+
+def blake3_msg(msg: torch.Tensor, msg_len: torch.Tensor, max_len: int | None = None) -> torch.Tensor:
+    """K16: single-chunk BLAKE3 of B messages, (max_len, B) uint8 + (B,)
+    int32 lengths -> (32, B) uint8 digests.
+
+    Replaces ops/blake3.py:150 blake3_msg.  max_len (default msg.shape[0])
+    > 1,024 raises ValueError, as in JAX, and so does a length outside
+    [0, max_len].  On CPU tensors this runs the plain version; on CUDA
+    tensors it launches csrc/blake3_msg.cu or raises.
+    """
+    max_len = check_msg_batch("blake3_msg", msg, msg_len, max_len, limit=CHUNK_SZ)
+    if msg.device.type == "cpu":
+        return blake3_msg_plain(msg, msg_len, max_len)
+    return _blake3_msg_launch(msg, msg_len)

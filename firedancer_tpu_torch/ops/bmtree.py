@@ -1,18 +1,31 @@
-"""Binary merkle tree over SHA-256 with 20-byte nodes, on the host (the
-port's copy of the host part of firedancer_tpu/ops/bmtree.py, :28-130).
+"""Binary merkle tree over SHA-256 with 20-byte nodes: the host tree (the
+port's copy of firedancer_tpu/ops/bmtree.py:28-130) and the batched device
+layers over K14 (firedancer_tpu/ops/bmtree.py:134-204).
 
 Leaves are sha256 in the LEAF domain, branch nodes are
 sha256(NODE_PREFIX || left20 || right20) truncated to 20 bytes, an odd
 trailing node pairs with itself, and proofs list the 20-byte sibling per
 level bottom-up.  The prefixes and the 20-byte truncation are protocol
-constants.  The shredder and the FEC resolver hash their trees here with
-hashlib, as in the JAX package; the batched device functions
-(firedancer_tpu/ops/bmtree.py:134-202) are not ported yet.
+constants.  The shredder and the FEC resolver hash their trees here on the
+host with hashlib, as in the JAX package.
+
+The batched functions hash T trees of the same leaf count together: one
+K14 launch (ops/sha256.py sha256_msg) per layer, its lanes spanning every
+pair of every tree.  The prefixed messages are built with tensor ops on the
+nodes' device.  They take numpy arrays (sent to `device`, default the card)
+or uint8 tensors (which stay where they are) and return uint8 tensors; on
+CPU tensors K14 runs its plain version.
 """
 
 from __future__ import annotations
 
 import hashlib
+
+import numpy as np
+import torch
+
+from ..utils.platform import resolve_device
+from . import sha256 as fsha256
 
 
 LEAF_PREFIX = b"\x00SOLANA_MERKLE_SHREDS_LEAF"
@@ -119,3 +132,68 @@ def verify_proof(leaf_full: bytes, leaf_idx: int, proof: list[bytes]) -> bytes:
         node = full if k == len(proof) - 1 else full[:NODE_SZ]
         idx >>= 1
     return node
+
+
+# -- batched device layers (K14) ----------------------------------------------
+
+
+def _device_rows(x, device, ndim: int) -> torch.Tensor:
+    """A numpy array -> a uint8 tensor on `device` (default the card); a
+    uint8 tensor stays on its own device."""
+    if isinstance(x, torch.Tensor):
+        t = x.contiguous()
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
+    if t.dtype != torch.uint8:
+        raise ValueError(f"bmtree: expected uint8 bytes, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"bmtree: expected {ndim} dimensions, got {tuple(t.shape)}")
+    return t
+
+
+def _prefixed_hash(prefix: bytes, body: torch.Tensor) -> torch.Tensor:
+    """(20, B) truncated sha256(prefix || body[:, j]) of (sz, B) byte rows,
+    one K14 launch."""
+    sz, bsz = body.shape
+    pre = torch.tensor(list(prefix), dtype=torch.uint8, device=body.device)
+    msg = torch.cat([pre.unsqueeze(1).expand(len(prefix), bsz), body]).contiguous()
+    ln = torch.full((bsz,), len(prefix) + sz, dtype=torch.int32, device=body.device)
+    return fsha256._sha256_msg(msg, ln, len(prefix) + sz)[:NODE_SZ]
+
+
+def hash_leaves_batch(data, device=None) -> torch.Tensor:
+    """Leaf-hash B equal-length blobs: (sz, B) bytes -> (20, B) uint8, one
+    K14 launch over every shred of every FEC set in flight."""
+    return _prefixed_hash(LEAF_PREFIX, _device_rows(data, device, 2))
+
+
+def _merge_layer(nodes: torch.Tensor) -> torch.Tensor:
+    """(2k or 2k-1, 20, T) nodes -> (k, 20, T) parent nodes, one K14 launch."""
+    n, _, t = nodes.shape
+    if n % 2:  # odd trailing node pairs with itself
+        nodes = torch.cat([nodes, nodes[-1:]])
+        n += 1
+    k = n // 2
+    pairs = nodes.reshape(k, 2 * NODE_SZ, t).permute(1, 0, 2).reshape(2 * NODE_SZ, k * t)
+    out = _prefixed_hash(NODE_PREFIX, pairs)
+    return out.reshape(NODE_SZ, k, t).permute(1, 0, 2).contiguous()
+
+
+def layers_batch(leaves, device=None) -> list[torch.Tensor]:
+    """T trees of n leaves each: (n, 20, T) -> the layers bottom-up, layer 0
+    the leaves and the last (1, 20, T); one K14 launch per layer above 0."""
+    cur = _device_rows(leaves, device, 3)
+    if cur.shape[0] == 0:
+        raise ValueError("empty tree")
+    if cur.shape[1] != NODE_SZ:
+        raise ValueError(f"bmtree: leaves must be (n, {NODE_SZ}, T), got {tuple(cur.shape)}")
+    layers = [cur]
+    while cur.shape[0] > 1:
+        cur = _merge_layer(cur)
+        layers.append(cur)
+    return layers
+
+
+def root_batch(leaves, device=None) -> torch.Tensor:
+    """(n, 20, T) leaves -> (20, T) truncated roots."""
+    return layers_batch(leaves, device)[-1][0]

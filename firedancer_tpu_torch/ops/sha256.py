@@ -1,17 +1,29 @@
-"""Iterated SHA-256 of 32-byte states (the PoH hash chain): the plain PyTorch
-version and the `sha256_iter32` kernel wrapper (K4).
+"""SHA-256 on the card: iterated hashing of 32-byte states (the PoH hash
+chain, K4 `sha256_iter32`), variable-length messages (K14 `sha256_msg`)
+and the PoH mixin step (K15 `sha256_mix32`), each with its plain PyTorch
+version.
 
-Layout (the JAX package's): states are (32, B) byte rows, the batch
-trailing, so byte i of neighbouring chains sits at neighbouring addresses.
-`sha256_iter32(state, n)` advances B independent chains by n hashes each:
-state_{k+1} = sha256(state_k), which is fd_poh_append.  Each hash is one
-compression of state || the constant pad block (0x80, zeros, bit length
-256), so the last 8 message words never change.
+Layout (the JAX package's): byte rows lead and the batch trails, so byte i
+of neighbouring lanes sits at neighbouring addresses.  States are (32, B)
+uint8; messages are (max_len, B) uint8 with (B,) int32 lengths (ops/rows.py);
+digests are (32, B) uint8.
 
-The plain version keeps 32-bit words in int64 tensors (torch's `>>` on
-int32 is arithmetic) and writes out the 64 rounds; the pad words stay
-Python ints, so their schedule terms fold as the kernel's do.  It launches
-~1,600 small tensor ops per hash: a spec, not a yardstick.
+- `sha256_iter32(state, n)` advances B independent chains by n hashes each:
+  state_{k+1} = sha256(state_k), which is fd_poh_append.  Each hash is one
+  compression of state || the constant pad block (0x80, zeros, bit length
+  256), so the last 8 message words never change.
+- `sha256_msg(msg, msg_len)` hashes B messages of any lengths up to
+  max_len.  The plain version pads every lane and runs every block for
+  every lane, keeping each lane's state after its own final block (the JAX
+  scheme); the kernel runs only each lane's own blocks.  A length outside
+  [0, max_len] raises ValueError (the JAX op's digest is unspecified there).
+- `sha256_mix32(state, mixin)` is sha256(state || mixin): one data block,
+  then the constant pad block of a 64-byte message (bit length 512).
+
+The plain versions keep 32-bit words in int64 tensors (torch's `>>` on
+int32 is arithmetic) and write out the 64 rounds; constant words stay
+Python ints, so their schedule terms fold as the kernels' do.  Each
+compression launches ~1,600 small tensor ops: a spec, not a yardstick.
 """
 
 from __future__ import annotations
@@ -19,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import kbuild
+from .rows import check_msg_batch, check_rows
 
 _K = [
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -40,6 +53,8 @@ _IV = [
 # the constant second half of the one padded block of a 32-byte message:
 # 0x80 then zeros, the bit length 256 in the last word
 _PAD32_WORDS = [0x80000000, 0, 0, 0, 0, 0, 0, 256]
+# the constant pad block of a 64-byte message (sha256_mix32's second block)
+_PAD64_BLOCK = [0x80000000] + [0] * 14 + [512]
 M32 = 0xFFFFFFFF
 
 
@@ -121,4 +136,92 @@ def sha256_iter32(state: torch.Tensor, n: int) -> torch.Tensor:
             kbuild.stream_ptr(state.device))
     kbuild.check(lib, rc, "sha256_iter32 launch")
     kbuild.LAUNCHES["sha256_iter32"] += 1
+    return out
+
+
+def sha256_pad(msg: torch.Tensor, msg_len: torch.Tensor, max_len: int):
+    """Padded blocks for per-lane lengths in [0, max_len]: msg (max_len, B)
+    bytes, msg_len (B,) -> (words (NB, 16, B) int64, final_block (B,))."""
+    nb = (max_len + 9 + 63) // 64
+    total = nb * 64
+    bsz = msg.shape[1]
+    dev = msg.device
+    ln = msg_len.to(torch.int64)
+    buf = torch.zeros((total, bsz), dtype=torch.int64, device=dev)
+    buf[:max_len] = msg[:max_len].to(torch.int64)
+    pos = torch.arange(total, dtype=torch.int64, device=dev).unsqueeze(1)
+    buf = torch.where(pos < ln, buf, 0) + torch.where(pos == ln, 0x80, 0)
+    final_block = (ln + 9 + 63) // 64 - 1
+    bitlen, base = ln * 8, final_block * 64
+    for j in range(8):
+        buf = buf + torch.where(pos == base + 56 + j, (bitlen >> (8 * (7 - j))) & 0xFF, 0)
+    by = buf.reshape(nb, 16, 4, bsz)
+    words = (by[:, :, 0] << 24) | (by[:, :, 1] << 16) | (by[:, :, 2] << 8) | by[:, :, 3]
+    return words, final_block
+
+
+def sha256_msg_plain(msg: torch.Tensor, msg_len: torch.Tensor, max_len: int) -> torch.Tensor:
+    """K14's plain version: every block for every lane, each lane's state
+    kept after its own final block -> (32, B) uint8."""
+    words, final_block = sha256_pad(msg, msg_len, max_len)
+    state = _IV
+    result = torch.zeros((8, msg.shape[1]), dtype=torch.int64, device=msg.device)
+    for bi in range(words.shape[0]):
+        state = _compress(state, list(words[bi].unbind(0)))
+        result = torch.where(final_block == bi, torch.stack(state), result)
+    return words_to_bytes(result)
+
+
+def _sha256_msg(msg: torch.Tensor, msg_len: torch.Tensor, max_len: int) -> torch.Tensor:
+    """K14 on checked inputs: the plain version on CPU tensors, else one
+    launch of csrc/sha256_msg.cu."""
+    if msg.device.type == "cpu":
+        return sha256_msg_plain(msg, msg_len, max_len)
+    bsz = msg.shape[1]
+    out = torch.empty((32, bsz), dtype=torch.uint8, device=msg.device)
+    kbuild.launch("sha256_msg", "fd_sha256_msg",
+                  [msg.data_ptr(), msg_len.data_ptr(), out.data_ptr()], bsz, msg.device,
+                  "sha256_msg")
+    return out
+
+
+def sha256_msg(msg: torch.Tensor, msg_len: torch.Tensor, max_len: int | None = None) -> torch.Tensor:
+    """K14: batched SHA-256 of variable-length messages, (max_len, B) uint8
+    + (B,) int32 lengths -> (32, B) uint8 digests.
+
+    Replaces ops/sha256.py:122 sha256_msg.  max_len defaults to
+    msg.shape[0]; a length outside [0, max_len] raises ValueError.  On CPU
+    tensors this runs the plain version; on CUDA tensors it launches
+    csrc/sha256_msg.cu or raises.
+    """
+    max_len = check_msg_batch("sha256_msg", msg, msg_len, max_len)
+    return _sha256_msg(msg, msg_len, max_len)
+
+
+def sha256_mix32_plain(state: torch.Tensor, mixin: torch.Tensor) -> torch.Tensor:
+    """K15's plain version: two compressions -> (32, B) uint8."""
+    w0 = list(bytes_to_words(state).unbind(0)) + list(bytes_to_words(mixin).unbind(0))
+    return words_to_bytes(torch.stack(_compress(_compress(_IV, w0), _PAD64_BLOCK)))
+
+
+def sha256_mix32(state: torch.Tensor, mixin: torch.Tensor) -> torch.Tensor:
+    """K15: sha256(state || mixin) for (32, B) uint8 rows each -> (32, B)
+    uint8, the PoH mixin step.
+
+    Replaces ops/sha256.py:182 sha256_mix32.  On CPU tensors this runs the
+    plain version; on CUDA tensors it launches csrc/sha256_msg.cu or raises.
+    """
+    check_rows("sha256_mix32 state", state, 32)
+    check_rows("sha256_mix32 mixin", mixin, 32, state.shape[1])
+    if state.device != mixin.device:
+        raise ValueError(f"sha256_mix32: state on {state.device}, mixin on {mixin.device}")
+    if state.device.type == "cpu":
+        return sha256_mix32_plain(state, mixin)
+    if state.device.type != "cuda":
+        raise ValueError(f"sha256_mix32: unsupported device {state.device}")
+    bsz = state.shape[1]
+    out = torch.empty_like(state)
+    kbuild.launch("sha256_msg", "fd_sha256_mix32",
+                  [state.data_ptr(), mixin.data_ptr(), out.data_ptr()], bsz, state.device,
+                  "sha256_mix32")
     return out

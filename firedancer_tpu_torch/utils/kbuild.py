@@ -151,3 +151,16 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, symbol: str, ptrs: list, bsz: int, device, counter: str) -> None:
+    """Call csrc/<name>.cu's entry point `symbol`, whose arguments are the
+    device pointers `ptrs` (None for a null pointer), B, the device index
+    and the stream; raise on its error, else add one to LAUNCHES[counter]."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(*ptrs, bsz, device.index or 0, stream_ptr(device))
+    check(lib, rc, f"{counter} launch")
+    LAUNCHES[counter] += 1

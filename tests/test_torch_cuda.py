@@ -295,3 +295,114 @@ def test_lthash_combine_kernel_equals_plain(dev, n):
     assert torch.equal(flt.combine_device(vp, sp), got)
     assert kbuild.LAUNCHES["lthash_combine"] == 3
     assert got.dtype == torch.int32 and int(got.min()) >= 0 and int(got.max()) <= 0xFFFF
+
+
+def _msg_rows(msgs, max_len, dev):
+    m = np.zeros((max_len, len(msgs)), dtype=np.uint8)
+    for i, b in enumerate(msgs):
+        m[: len(b), i] = np.frombuffer(b, np.uint8)
+    return (torch.from_numpy(m).to(dev),
+            torch.tensor([len(b) for b in msgs], dtype=torch.int32, device=dev))
+
+
+def test_sha256_msg_and_mix32_kernels_equal_plain_and_hashlib(dev):
+    """K14 across the padding boundaries and K15, each against its plain
+    version and hashlib; an out-of-range length raises on the card too."""
+    from firedancer_tpu_torch.ops import sha256 as fsha256
+
+    rng = np.random.default_rng(30)
+    lens = [0, 1, 55, 56, 63, 64, 119, 120, 299, 300] + list(rng.integers(0, 301, 90))
+    msgs = [rng.bytes(int(n)) for n in lens]
+    m, ln = _msg_rows(msgs, 300, dev)
+    got = fsha256.sha256_msg(m, ln)
+    assert torch.equal(got, fsha256.sha256_msg_plain(m, ln, 300))
+    for i, b in enumerate(msgs):
+        assert bytes(got[:, i].cpu().tolist()) == hashlib.sha256(b).digest()
+    st, mx = (torch.from_numpy(rng.integers(0, 256, (32, 70), dtype=np.uint8)).to(dev)
+              for _ in range(2))
+    mix = fsha256.sha256_mix32(st, mx)
+    assert torch.equal(mix, fsha256.sha256_mix32_plain(st, mx))
+    for i in (0, 33, 69):
+        want = hashlib.sha256(bytes(st[:, i].cpu().tolist()) + bytes(mx[:, i].cpu().tolist()))
+        assert bytes(mix[:, i].cpu().tolist()) == want.digest()
+    assert kbuild.LAUNCHES["sha256_msg"] == 1 and kbuild.LAUNCHES["sha256_mix32"] == 1
+    ln[3] = 301
+    with pytest.raises(ValueError):
+        fsha256.sha256_msg(m, ln)
+    assert kbuild.LAUNCHES["sha256_msg"] == 1
+
+
+@pytest.mark.parametrize("n_leaves", [1, 6, 7, 64])
+def test_bmtree_root_build_on_card_equals_host_and_plain(dev, n_leaves):
+    """hash_leaves_batch and layers_batch over 5 trees on K14: leaves equal
+    hash_leaf, every layer equals the plain version's, roots equal the host
+    tree; one K14 launch for the leaves and one per layer above them."""
+    from firedancer_tpu_torch.ops import bmtree as fbm
+
+    rng = np.random.default_rng(40 + n_leaves)
+    t, sz = 5, 1139 - 20 * 6
+    data = rng.integers(0, 256, (n_leaves, sz, t), dtype=np.uint8)
+    flat = np.ascontiguousarray(data.transpose(1, 0, 2).reshape(sz, n_leaves * t))
+    leaves = fbm.hash_leaves_batch(flat, device=dev)
+    host = [[fbm.hash_leaf(bytes(data[i, :, j])) for i in range(n_leaves)] for j in range(t)]
+    got_leaves = leaves.cpu().numpy().reshape(20, n_leaves, t)
+    for j in range(t):
+        assert [bytes(got_leaves[:, i, j]) for i in range(n_leaves)] == host[j]
+    layers = fbm.layers_batch(leaves.reshape(20, n_leaves, t).permute(1, 0, 2).contiguous())
+    plain = fbm.layers_batch(layers[0].cpu())
+    assert len(layers) == len(plain) == fbm.depth(n_leaves)
+    for a, b in zip(layers, plain):
+        assert torch.equal(a.cpu(), b)
+    for j in range(t):
+        assert bytes(layers[-1][0][:, j].cpu().tolist()) == fbm.root(host[j])
+    assert kbuild.LAUNCHES["sha256_msg"] == 1 + (fbm.depth(n_leaves) - 1)
+
+
+def test_blake3_msg_kernel_equals_plain_and_host(dev):
+    from firedancer_tpu_torch.ops import blake3 as fb3
+
+    rng = np.random.default_rng(50)
+    lens = [0, 1, 63, 64, 65, 512, 1023, 1024] + list(rng.integers(0, 1025, 60))
+    msgs = [rng.bytes(int(n)) for n in lens]
+    m, ln = _msg_rows(msgs, 1024, dev)
+    got = fb3.blake3_msg(m, ln)
+    assert torch.equal(got, fb3.blake3_msg_plain(m, ln, 1024))
+    for i, b in enumerate(msgs[:20]):
+        assert bytes(got[:, i].cpu().tolist()) == fb3.blake3_host(b)
+    assert kbuild.LAUNCHES["blake3_msg"] == 1
+
+
+def test_keccak256_msg_kernel_equals_plain_and_host(dev):
+    from firedancer_tpu_torch.ops import keccak256 as fkk
+
+    rng = np.random.default_rng(60)
+    lens = [0, 3, 64, 134, 135, 136, 137, 271, 272, 300] + list(rng.integers(0, 301, 50))
+    msgs = [rng.bytes(int(n)) for n in lens]
+    m, ln = _msg_rows(msgs, 300, dev)
+    got = fkk.keccak256_msg(m, ln)
+    assert torch.equal(got, fkk.keccak256_msg_plain(m, ln, 300))
+    for i, b in enumerate(msgs):
+        assert bytes(got[:, i].cpu().tolist()) == fkk.keccak256_host(b)
+    assert kbuild.LAUNCHES["keccak256_msg"] == 1
+
+
+@pytest.mark.parametrize("with_nonces", [False, True])
+def test_chacha20_keystream_kernel_equals_plain_and_host(dev, with_nonces):
+    from firedancer_tpu_torch.ops import chacha20 as fcc
+
+    rng = np.random.default_rng(70 + with_nonces)
+    b = 300
+    keys = rng.integers(0, 256, (32, b), dtype=np.uint8)
+    nonces = rng.integers(0, 256, (12, b), dtype=np.uint8)
+    idxs = rng.integers(0, 1 << 32, b, dtype=np.int64)
+    idxs[:2] = (0, (1 << 32) - 1)
+    k = torch.from_numpy(keys).to(dev)
+    i = torch.from_numpy(idxs.astype(np.uint32).view(np.int32)).to(dev)
+    n = torch.from_numpy(nonces).to(dev) if with_nonces else None
+    got = fcc.chacha20_keystream(k, i, n)
+    assert torch.equal(got, fcc.chacha20_keystream_plain(k, i, n))
+    for j in (0, 1, 2, 299):
+        nonce = bytes(nonces[:, j]) if with_nonces else bytes(12)
+        want = fcc.chacha20_block_host(bytes(keys[:, j]), int(idxs[j]), nonce)
+        assert bytes(got[:, j].cpu().tolist()) == want
+    assert kbuild.LAUNCHES["chacha20_keystream"] == 1

@@ -25,7 +25,11 @@ from firedancer_tpu_torch.models.leader import (
     build_sharded_verify_pipeline,
     build_verify_pipeline,
 )
+from firedancer_tpu_torch.ops import blake3 as tb3
+from firedancer_tpu_torch.ops import bmtree as tbm
+from firedancer_tpu_torch.ops import chacha20 as tcc
 from firedancer_tpu_torch.ops import gf256 as tg2
+from firedancer_tpu_torch.ops import keccak256 as tkk
 from firedancer_tpu_torch.ops import limbs as tl
 from firedancer_tpu_torch.ops import lthash as tlt
 from firedancer_tpu_torch.ops import probe as tprobe
@@ -89,7 +93,8 @@ def _no_card():
     "split_pipeline", "autotune_pipeline", "leader_pipeline",
     "sharded_leader_pipeline", "bank_ctx", "default_bank_ctx", "slot_execution",
     "execute_block", "shredder", "fec_resolver", "store", "lthash_combine",
-    "leader_block"])
+    "leader_block", "bmtree_hash_leaves_batch", "bmtree_layers_batch",
+    "bmtree_root_batch"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -121,6 +126,9 @@ def test_entry_points_default_to_the_card(call):
         "store": lambda: StoreStage("store"),
         "lthash_combine": lambda: tlt.combine_device(np.zeros((1, 1024), np.uint16)),
         "leader_block": lambda: tentry.leader_block([b"x"]),
+        "bmtree_hash_leaves_batch": lambda: tbm.hash_leaves_batch(np.zeros((8, 2), np.uint8)),
+        "bmtree_layers_batch": lambda: tbm.layers_batch(np.zeros((3, 20, 2), np.uint8)),
+        "bmtree_root_batch": lambda: tbm.root_batch(np.zeros((3, 20, 2), np.uint8)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
@@ -139,6 +147,18 @@ def test_wrappers_on_cpu_tensors_run_plain_and_never_count():
     assert fn(*args).all()
     mask, cnt = tsv.verify_batch(*args, 5, max_msg_len=tentry.MAX_MSG_LEN)
     assert mask.tolist() == [True] * 5 + [False] * 3 and int(cnt) == 5
+    # K14-K18 and the bmtree layers on CPU tensors
+    m, ln = torch.zeros((70, 2), dtype=torch.uint8), torch.tensor([0, 70], dtype=torch.int32)
+    assert torch.equal(tsha256.sha256_msg(m, ln), tsha256.sha256_msg_plain(m, ln, 70))
+    st = torch.zeros((32, 2), dtype=torch.uint8)
+    assert torch.equal(tsha256.sha256_mix32(st, st), tsha256.sha256_mix32_plain(st, st))
+    assert torch.equal(tb3.blake3_msg(m, ln), tb3.blake3_msg_plain(m, ln, 70))
+    assert torch.equal(tkk.keccak256_msg(m, ln), tkk.keccak256_msg_plain(m, ln, 70))
+    idx = torch.tensor([0, -1], dtype=torch.int32)
+    assert torch.equal(tcc.chacha20_keystream(st, idx), tcc.chacha20_keystream_plain(st, idx, None))
+    leaves = torch.zeros((3, 20, 2), dtype=torch.uint8)
+    assert tbm.root_batch(leaves).device.type == "cpu"
+    assert tbm.hash_leaves_batch(m).shape == (20, 2)
     assert sum(kbuild.LAUNCHES.values()) == 0
 
 
@@ -185,3 +205,20 @@ def test_wrappers_refuse_bad_inputs():
         tsv.verify_dispatch("warp", msg, ln, sig, pk, 8, max_msg_len=tentry.MAX_MSG_LEN)
     with pytest.raises(KeyError):
         tsv.kernel_dispatch_count("warp")
+    # K14-K18: wrong dtype or shape, lengths out of range, BLAKE3 past a chunk
+    m, ln = torch.zeros((64, 2), dtype=torch.uint8), torch.tensor([0, 64], dtype=torch.int32)
+    for hash_fn in (tsha256.sha256_msg, tb3.blake3_msg, tkk.keccak256_msg):
+        for bad in ((m.to(torch.int32), ln), (m, ln.to(torch.int64)), (m, ln[:1]),
+                    (m, torch.tensor([0, 65], dtype=torch.int32)),
+                    (m, torch.tensor([-1, 0], dtype=torch.int32)), (m, ln, 63)):
+            with pytest.raises(ValueError):
+                hash_fn(*bad)
+    with pytest.raises(ValueError, match="1024"):
+        tb3.blake3_msg(torch.zeros((1025, 2), dtype=torch.uint8), ln)
+    st = torch.zeros((32, 2), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tsha256.sha256_mix32(st, st[:31].contiguous())
+    with pytest.raises(ValueError):
+        tcc.chacha20_keystream(st, torch.zeros(2, dtype=torch.int16))
+    with pytest.raises(ValueError):
+        tbm.layers_batch(torch.zeros((2, 20, 2), dtype=torch.int32))

@@ -1,13 +1,17 @@
-"""The port's iterated SHA-256 (the PoH chain) and PoH verifier against the
-JAX package and hashlib, exactly: sha256_iter32_plain (what the K4 wrapper
-runs on CPU tensors) against firedancer_tpu/ops/sha256.sha256_iter32;
+"""The port's SHA-256 ops and PoH verifier against the JAX package and
+hashlib, exactly: sha256_iter32_plain (what the K4 wrapper runs on CPU
+tensors) against firedancer_tpu/ops/sha256.sha256_iter32; sha256_msg (K14)
+and sha256_mix32 (K15) on CPU tensors against the JAX sha256_msg and
+sha256_mix32 on tests/test_sha256_poh.py's boundary lengths;
 poh.verify_segments(device="cpu") against verify_segments_tpu and
 verify_segments_host; replay_entries against the JAX one on a seeded
 chain with mixins.  Inputs are made with numpy from a seed and handed to
 both packages."""
 
+import functools
 import hashlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,3 +158,97 @@ def test_poh_chain_matches_jax():
     assert [(r.hashcnt, r.hash, r.mixin) for r in t.records] == \
         [(r.hashcnt, r.hash, r.mixin) for r in j.records]
     assert tpoh.poh_mixin(seed, b"x" * 32) == jpoh.poh_mixin(seed, b"x" * 32)
+
+
+# -- K14 sha256_msg and K15 sha256_mix32 (plain paths) --------------------------
+
+MSG_MAX_LEN = 256
+# tests/test_sha256_poh.py's lengths straddling the block and pad boundaries,
+# and the two largest the shape allows
+MSG_LENS = [0, 1, 55, 56, 63, 64, 119, 120, 128, 200, 255, 256]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sha256_msg():
+    """One JAX compile per shape for the module."""
+    return jax.jit(lambda m, l: jsha256.sha256_msg(m, l, MSG_MAX_LEN))
+
+
+def _msg_cols(msgs, max_len):
+    a = np.zeros((max_len, len(msgs)), dtype=np.uint8)
+    for i, m in enumerate(msgs):
+        a[: len(m), i] = np.frombuffer(m, dtype=np.uint8)
+    return a
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sha256_msg_plain_equals_jax_and_hashlib(seed):
+    rng = np.random.default_rng(300 + seed)
+    msgs = [rng.bytes(n) for n in MSG_LENS]
+    m = _msg_cols(msgs, MSG_MAX_LEN)
+    lens = np.array(MSG_LENS, dtype=np.int32)
+    kbuild.reset_launches()
+    got = tsha256.sha256_msg(torch.from_numpy(m), torch.from_numpy(lens)).numpy()
+    want = np.asarray(_jax_sha256_msg()(jnp.asarray(m.astype(np.int32)), jnp.asarray(lens)))
+    assert got.dtype == np.uint8 and got.shape == (32, len(msgs))
+    assert (got.astype(np.int32) == want).all()
+    for i, b in enumerate(msgs):
+        assert got[:, i].tobytes() == hashlib.sha256(b).digest(), MSG_LENS[i]
+    assert sum(kbuild.LAUNCHES.values()) == 0
+
+
+def test_sha256_msg_max_len_below_rows_and_garbage_past_lengths():
+    """Bytes past a lane's length are ignored; max_len may be below the row
+    count, and the digest is the same as at the full row count."""
+    rng = np.random.default_rng(310)
+    lens = np.array([0, 5, 64, 100], dtype=np.int32)
+    m = rng.integers(0, 256, (128, 4), dtype=np.uint8)
+    a = tsha256.sha256_msg(torch.from_numpy(m), torch.from_numpy(lens), 100)
+    b = tsha256.sha256_msg(torch.from_numpy(m), torch.from_numpy(lens))
+    assert torch.equal(a, b)
+    for i, n in enumerate(lens):
+        assert a[:, i].numpy().tobytes() == hashlib.sha256(m[:n, i].tobytes()).digest()
+
+
+@pytest.mark.parametrize("bad", ["negative", "past_max_len", "past_given_max_len",
+                                 "max_len_past_rows", "dtype", "len_dtype", "len_shape"])
+def test_sha256_msg_refuses_bad_inputs(bad):
+    """The JAX op gives an unspecified digest for a length outside
+    [0, max_len]; the port raises."""
+    m = torch.zeros((64, 3), dtype=torch.uint8)
+    ln = torch.tensor([0, 10, 64], dtype=torch.int32)
+    args = {
+        "negative": (m, torch.tensor([0, -1, 64], dtype=torch.int32)),
+        "past_max_len": (m, torch.tensor([0, 65, 64], dtype=torch.int32)),
+        "past_given_max_len": (m, ln, 32),
+        "max_len_past_rows": (m, ln, 65),
+        "dtype": (m.to(torch.int32), ln),
+        "len_dtype": (m, ln.to(torch.int64)),
+        "len_shape": (m, ln[:2]),
+    }[bad]
+    with pytest.raises(ValueError):
+        tsha256.sha256_msg(*args)
+
+
+@pytest.mark.parametrize("b", [1, 3, 17])
+def test_sha256_mix32_plain_equals_jax_and_hashlib(b):
+    rng = np.random.default_rng(320 + b)
+    st = rng.integers(0, 256, (32, b), dtype=np.uint8)
+    mx = rng.integers(0, 256, (32, b), dtype=np.uint8)
+    kbuild.reset_launches()
+    got = tsha256.sha256_mix32(torch.from_numpy(st), torch.from_numpy(mx)).numpy()
+    want = np.asarray(jax.jit(jsha256.sha256_mix32)(jnp.asarray(st.astype(np.int32)),
+                                                    jnp.asarray(mx.astype(np.int32))))
+    assert got.dtype == np.uint8 and (got.astype(np.int32) == want).all()
+    for i in range(b):
+        assert got[:, i].tobytes() == hashlib.sha256(st[:, i].tobytes() + mx[:, i].tobytes()).digest()
+        assert got[:, i].tobytes() == tpoh.poh_mixin(st[:, i].tobytes(), mx[:, i].tobytes())
+    assert sum(kbuild.LAUNCHES.values()) == 0
+
+
+def test_sha256_mix32_refuses_bad_inputs():
+    st = torch.zeros((32, 4), dtype=torch.uint8)
+    for a, b in ((st, st[:, :3].contiguous()), (st[:16], st[:16]), (st.to(torch.int32), st),
+                 (st, st.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            tsha256.sha256_mix32(a, b)
