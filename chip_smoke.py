@@ -1,7 +1,10 @@
 """Drive the port on one NVIDIA H100 and hold every kernel against its plain
 PyTorch version.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(--parent DIR: DIR holds a checkout of an earlier commit; phase 6 also
+builds its csrc/verify.cu and times that K1 beside this one.)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -12,7 +15,11 @@ script or when a phase fails):
               is exact either way for 0/1 inputs; the script says so)
   2. build    nvcc builds csrc/*.cu (one process per source, in parallel)
   2b. probes  probe_add over (8, 128) int32 and probe_conv over (20, 512)
-              int32 x2 -> (39, 512): equal to the plain versions and Python ints
+              int32 x2 -> (39, 512): equal to the plain versions and Python ints;
+              probe_add and torch.add timed per call and device only, and
+              probe_add's host cost split into its pieces (checks,
+              allocation, pointers, stream lookup, the ctypes call, the
+              launch, the binder), 10,000 calls a piece
   3. K2       fe_mul_chain at B = 16,384, k = 64: equal to the plain version
               (canonical limbs) and to Python ints on sampled lanes
   4. K3       sha512_batch at B = 4,096, max_len 1,296, lengths across the
@@ -20,7 +27,10 @@ script or when a phase fails):
   5. K1       verify_batch at B = 1,024, max_msg_len 1,232 on a seeded mixed
               batch: mask equal to the plain version and to ed25519_ref
               labels, ok-count equal to the mask's sum
-  6. K1 time  B = 16,384, max_msg_len 1,232, CUDA events; plain version too
+  6. K1 time  B = 16,384 and 1,024, max_msg_len 1,232, CUDA events, per call
+              and device only; plain version too; with --parent, the
+              parent's K1 on the same inputs (mask on phase 5's batch, then
+              times in turns): one [K1-ab] line
   7. pipeline build_verify_pipeline (benchg -> verify -> dedup -> sink) at
               batch 1,024, max_msg_len 1,232: exact counters, K1 launched
   8. K4       sha256_iter32 at B = 4,096 chains x n = 12,500 (64 slots x 64
@@ -134,6 +144,8 @@ import time
 import numpy as np
 import torch
 
+PROBE_REPS = 200  # phase 2b: probe_add and torch.add calls per timing
+HOST_CALLS = 10_000  # phase 2b: calls per piece of the host breakdown
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_CLK_PER_SM = 64  # 32-bit IMAD / IADD3 / LOP3 / SHF, sm_90
 SHA512_OPS_PER_BLOCK = 4144  # 32-bit instructions per 128-byte block, 2 per 64-bit op
@@ -177,6 +189,7 @@ K13_ROWS = (2048, 65536)  # phase 16: K13's row counts (a slot's few thousand; a
 # transfers past a full pool are dropped, and a quarter of them were)
 LEADER_TXNS, LEADER_DESTS = 8192, 1024
 PLAIN_LANES = 1024  # phases 18-19: the lanes each kernel is held to its plain version on
+PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 18-19: K15-K18's path
 
 
@@ -217,6 +230,103 @@ def time_ms(fn, reps: int, warmup: int = 1, hide_host: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def probe_host_breakdown(fprobe, kbuild, x, y, dev) -> dict:
+    """probe_add's host cost per call, piece by piece: mean nanoseconds of
+    each piece alone over HOST_CALLS calls (perf_counter_ns), beside the
+    whole wrapper and torch.add.  "launch" is the C call with n elements
+    less the same call with n = 0 (which sets the device and returns)."""
+    kernel = fprobe._ADD
+    kernel(dev, x.data_ptr(), y.data_ptr(), torch.empty_like(x).data_ptr(), x.numel())
+    fn, idx, n, shape = kernel._fn, dev.index or 0, x.numel(), tuple(x.shape)
+    out = torch.empty_like(x)
+    px, py, po = x.data_ptr(), y.data_ptr(), out.data_ptr()
+    stream = kbuild.current_raw_stream(idx)
+    pieces = {
+        "checks": lambda: fprobe._check("probe_add", x, y),
+        "alloc": lambda: torch.empty_like(x),
+        "alloc by torch.empty": lambda: torch.empty(shape, dtype=torch.int32, device=dev),
+        "data_ptr x3": lambda: (x.data_ptr(), y.data_ptr(), out.data_ptr()),
+        "stream": lambda: kbuild.current_raw_stream(idx),
+        "ctypes call, n = 0": lambda: fn(px, py, po, 0, idx, stream),
+        "ctypes call": lambda: fn(px, py, po, n, idx, stream),
+        "bound call": lambda: kernel(dev, px, py, po, n),
+        "probe_add": lambda: fprobe.probe_add(x, y),
+        "torch.add": lambda: torch.add(x, y),
+    }
+    ns = {}
+    for name, f in pieces.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(HOST_CALLS):
+            f()
+        ns[name] = (time.perf_counter_ns() - t0) / HOST_CALLS
+        torch.cuda.synchronize()
+    ns["launch"] = ns["ctypes call"] - ns["ctypes call, n = 0"]
+    ns["binder"] = ns["bound call"] - ns["ctypes call"] - ns["stream"]
+    return ns
+
+
+def start_parent_k1_build(kbuild, parent: str):
+    """Start nvcc on another checkout's csrc/verify.cu (an older K1 with the
+    same C entry point), with the flags kbuild uses, into build/parent_k1/."""
+    csrc = os.path.join(os.path.abspath(parent), "firedancer_tpu_torch", "csrc")
+    check(os.path.exists(os.path.join(csrc, "verify.cu")), f"--parent: no {csrc}/verify.cu")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent_k1")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libverify.so")
+    cmd = [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", csrc, "-o", so,
+           os.path.join(csrc, "verify.cu")]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def finish_parent_k1_build(build):
+    import ctypes
+
+    so, proc = build
+    out, _ = proc.communicate()
+    sys.stderr.write(f"[parent-k1] nvcc rc={proc.returncode}\n{out}")
+    check(proc.returncode == 0, "--parent: nvcc failed on the parent's verify.cu")
+    fn = ctypes.CDLL(so).fd_verify_batch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                                            ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k1_ab(parent_fn, sv, dev, args_mixed, mb, args16k, args1k, max_len) -> None:
+    """The parent checkout's K1 beside this one on the same inputs: the
+    mixed batch's mask, then device-only times at B = 1,024 and 16,384 in
+    turns (parent, change, change, parent); one [K1-ab] line."""
+    comb = sv.fc.comb_table(dev)
+
+    def parent(args, n_real):
+        bsz = args[1].shape[0]
+        mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
+        cnt = torch.zeros((), dtype=torch.int32, device=dev)
+        rc = parent_fn(*(a.data_ptr() for a in args), comb.data_ptr(), mask.data_ptr(),
+                       cnt.data_ptr(), bsz, max_len, n_real, dev.index or 0,
+                       torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"parent K1 launch: CUDA error {rc}")
+        return mask, cnt
+
+    pm, pc = parent(args_mixed, mb.n_real)
+    cm, cc = sv.verify_batch(*args_mixed, mb.n_real, max_msg_len=max_len)
+    check(torch.equal(pm, cm) and int(pc) == int(cc), "parent K1 and K1 differ on the mixed batch")
+    times = {}
+    for who in ("parent", "change", "change", "parent"):
+        for bsz, args, reps in ((1024, args1k, 50), (16384, args16k, 10)):
+            fn = ((lambda a=args, b=bsz: parent(a, b)) if who == "parent"
+                  else (lambda a=args, b=bsz: sv.verify_batch(*a, b, max_msg_len=max_len)))
+            times.setdefault((who, bsz), []).append(time_ms(fn, reps=reps, hide_host=True))
+    log("[K1-ab] device-only ms (parent, change; two turns each, in the order parent, change,"
+        " change, parent): " + "; ".join(
+            f"B={b}: parent {' / '.join(f'{t:.4f}' for t in times[('parent', b)])},"
+            f" change {' / '.join(f'{t:.4f}' for t in times[('change', b)])}"
+            for b in (1024, 16384)))
 
 
 def time_host_ms(fn) -> float:
@@ -318,7 +428,9 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------------
     mark("2")
     t0 = time.perf_counter()
+    parent_build = start_parent_k1_build(kbuild, PARENT) if PARENT else None
     kbuild.build_all()
+    parent_k1 = finish_parent_k1_build(parent_build) if parent_build else None
     log(f"[build] {kbuild.kernel_names()} in {time.perf_counter() - t0:.1f} s"
         f" ({kbuild.build_dir()})")
     kernels = []
@@ -350,8 +462,16 @@ def main() -> int:
                     for i in range(max(0, k - 19), min(k, 19) + 1)) for k in range(39)]
         check(convh[:, lane].tolist() == want, f"probe_conv lane {lane} != Python ints")
     check(torch.equal(xa + ya, got), "probe_add differs from torch.add")
-    msa = time_ms(lambda: fprobe.probe_add(xa, ya), reps=50)
-    liba = time_ms(lambda: xa + ya, reps=50)  # torch.add wraps mod 2^32 too
+    # per call as a caller sees it (the launch's host cost included), then
+    # the card's time alone (hide_host), for probe_add and torch.add in turns
+    msa, liba, msa_dev, liba_dev = [], [], [], []
+    for _ in range(2):
+        msa.append(time_ms(lambda: fprobe.probe_add(xa, ya), reps=PROBE_REPS))
+        liba.append(time_ms(lambda: torch.add(xa, ya), reps=PROBE_REPS))  # wraps mod 2^32 too
+        msa_dev.append(time_ms(lambda: fprobe.probe_add(xa, ya), reps=PROBE_REPS, hide_host=True))
+        liba_dev.append(time_ms(lambda: torch.add(xa, ya), reps=PROBE_REPS, hide_host=True))
+    msa, liba, msa_dev, liba_dev = (float(np.median(v)) for v in (msa, liba, msa_dev, liba_dev))
+    host_ns = probe_host_breakdown(fprobe, kbuild, xa, ya, dev)
     msc = time_ms(lambda: fprobe.probe_conv(ca, cb), reps=50)
     plaina = time_host_ms(lambda: fprobe.probe_add_plain(xa, ya))
     plainc = time_host_ms(lambda: fprobe.probe_conv_plain(ca, cb))
@@ -368,8 +488,12 @@ def main() -> int:
             max_abs_err=err, ms=ms_, plain_ms=plain_, bound_ms=bms, bound_by=bby,
             library_ms=lib_, matched=True, shape=shp,
             phase_launches=kbuild.LAUNCHES[nm]))
-    log(f"[probes] probe_add (8, 128): exact, {msa:.4f} ms (torch.add {liba:.4f} ms);"
-        f" probe_conv (20, 512): exact, {msc:.4f} ms (launch latency)")
+    kernels[0].update(device_ms=msa_dev, library_device_ms=liba_dev, host_ns=host_ns)
+    log(f"[probes] probe_add (8, 128): exact, {msa:.4f} ms a call (torch.add {liba:.4f} ms),"
+        f" device only {msa_dev:.4f} ms (torch.add {liba_dev:.4f} ms), medians of 2 x"
+        f" {PROBE_REPS} calls each; probe_conv (20, 512): exact, {msc:.4f} ms (launch latency)")
+    log(f"[probes-host] ns a call, mean of {HOST_CALLS} calls each: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in host_ns.items()))
 
     # -- 3. K2 fe_mul_chain -------------------------------------------------------
     mark("3")
@@ -490,12 +614,19 @@ def main() -> int:
              for a in (mt.T, lt, st.T, pt.T)]
     tmask, tcnt = sv.verify_batch(*argst, BT, max_msg_len=ML1)
     check(int(tcnt) == BT, f"K1 timing batch: {int(tcnt)} of {BT} honest lanes passed")
-    ms1 = time_ms(lambda: sv.verify_batch(*argst, BT, max_msg_len=ML1), reps=3)
+    # per call (the launch's host cost included) and device only (hide_host)
+    ms1 = time_ms(lambda: sv.verify_batch(*argst, BT, max_msg_len=ML1), reps=10)
+    ms1_dev = time_ms(lambda: sv.verify_batch(*argst, BT, max_msg_len=ML1), reps=10,
+                      hide_host=True)
     # the pipeline's batch shape, for the device-busy estimate of phase 7
     args1k = [a[..., :B1].contiguous() for a in argst]
-    ms1k = time_ms(lambda: sv.verify_batch(*args1k, B1, max_msg_len=ML1), reps=10)
+    ms1k = time_ms(lambda: sv.verify_batch(*args1k, B1, max_msg_len=ML1), reps=50)
+    ms1k_dev = time_ms(lambda: sv.verify_batch(*args1k, B1, max_msg_len=ML1), reps=50,
+                       hide_host=True)
+    if parent_k1 is not None:
+        k1_ab(parent_k1, sv, dev, args1, mb, argst, args1k, ML1)
     plain1 = time_host_ms(lambda: sv.verify_batch_plain(*argst, BT, ML1))
-    ops1 = BT * sv.MULS_PER_VALID_LANE * sv.PRODUCTS_PER_MUL
+    ops1 = BT * sv.K1_PRODUCTS_PER_VALID_LANE
     bytes1 = BT * (ML1 + 4 + 64 + 32) + 64 * 16 * 4 * fl.NLIMB * 4 + BT + 4
     kernels.append(dict(
         name="verify_batch", route="cuda", source="firedancer_tpu_torch/csrc/verify.cu",
@@ -504,11 +635,15 @@ def main() -> int:
         bound_ms=max(ops1 / int_ops_per_s, bytes1 / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if ops1 / int_ops_per_s > bytes1 / HBM_BYTES_PER_S else "bytes",
         library_ms=None, matched=True, shape=f"B={BT} max_msg_len={ML1}",
-        sigverify_per_s=BT / ms1 * 1e3, ms_batch1024=ms1k,
+        sigverify_per_s=BT / ms1 * 1e3, ms_batch1024=ms1k, device_ms=ms1_dev,
+        device_ms_batch1024=ms1k_dev, bound_ms_batch1024=bound(
+            B1 * sv.K1_PRODUCTS_PER_VALID_LANE,
+            B1 * (ML1 + 4 + 64 + 32) + 64 * 16 * 4 * fl.NLIMB * 4 + B1 + 4)[0],
         phase_launches=kbuild.LAUNCHES["verify_batch"]))
-    log(f"[K1] verify_batch B={BT} max_msg_len={ML1}: {ms1:.3f} ms,"
-        f" {BT / ms1 * 1e3:.0f} sigverify/s; plain {plain1:.1f} ms;"
-        f" B={B1}: {ms1k:.3f} ms")
+    log(f"[K1] verify_batch B={BT} max_msg_len={ML1}: {ms1:.3f} ms a call"
+        f" ({ms1_dev:.4f} ms device only), {BT / ms1 * 1e3:.0f} sigverify/s; plain"
+        f" {plain1:.1f} ms; B={B1}: {ms1k:.4f} ms a call ({ms1k_dev:.4f} ms device only);"
+        f" bounds {kernels[-1]['bound_ms']:.4f} / {kernels[-1]['bound_ms_batch1024']:.4f} ms")
 
     # -- 7. the pipeline (main path) ---------------------------------------------------------
     mark("7")
@@ -1675,4 +1810,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # --parent DIR: also build DIR's K1 (a checkout of an earlier commit) and
+    # time it beside this one in phase 6
+    PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

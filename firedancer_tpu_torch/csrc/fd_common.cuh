@@ -13,9 +13,15 @@ FD_EXPORT const char* fd_cuda_error_string(int err) {
 }
 
 // Select the caller's device in this library's runtime (the library links
-// its own static cudart; the stream handle comes from PyTorch).
+// its own static cudart; the stream handle comes from PyTorch).  The
+// current device is per host thread: cudaGetDevice reads it, and
+// cudaSetDevice runs only when it differs, so a launch never goes to
+// another device than the one named and the common call skips the switch.
 static inline int fd_set_device(int device) {
-  return (int)cudaSetDevice(device);
+  int cur = -1;
+  cudaError_t rc = cudaGetDevice(&cur);
+  if (rc != cudaSuccess) return (int)rc;
+  return cur == device ? 0 : (int)cudaSetDevice(device);
 }
 
 // Bits [lo, lo + width) of the little-endian integer held in n 64-bit

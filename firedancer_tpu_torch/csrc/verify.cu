@@ -1,5 +1,5 @@
-// K1 verify_batch: batched ed25519 signature verification, one signature
-// per thread, one launch per batch.
+// K1 verify_batch: batched ed25519 signature verification, four threads a
+// signature, one launch per batch.
 //
 // Replaces: firedancer_tpu/ops/sigverify.py:97 ed25519_verify_batch_fused
 // (body _verify_ok :39) and :75 ed25519_verify_batch (the same kernel with
@@ -8,67 +8,174 @@
 // ops/sha512.py (sha512_msg) and ops/curve.py (decompress, small order,
 // double_scalar_mul_base, point_eq_z1).
 //
-// Per lane: reject s >= L; decompress A and R and reject failures; reject
-// small-order A and R; k = SHA512(R || A || msg) mod L, hashed straight out
-// of the three input arrays; accept iff [s]B + [k](-A) == R (Z2 = 1).
-// Lanes >= n_real write false.  The ok-count goes through atomicAdd into
-// an int32 the wrapper zeroes before the launch.  A lane stops at its first
-// failed check: the mask is the AND of all checks either way.
+// Per signature: reject s >= L and a length outside [0, max_len]; decompress
+// A and R and reject failures; reject small-order A and R; k = SHA512(R ||
+// A || msg) mod L, hashed straight out of the three input arrays; accept
+// iff [s]B + [k](-A) == R (Z2 = 1).  Lanes >= n_real write false.  The
+// ok-count goes through atomicAdd into an int32 the wrapper zeroes before
+// the launch.  The mask is the AND of every check.
 //
-// Bound: integer multiplies.  ~4,000 field multiplies per signature (two
-// pow2523 chains, 256 doublings, ~140 cached adds), each 100 32x32->64
-// products, against < 1.4 KB of input.  Design: 10 x int32 limbs with int64
-// accumulators (one IMAD.WIDE per product); the per-lane [0..15](-A) table
-// lives in local memory; the 164 KB base comb is uploaded once per device
-// to global memory and read with __ldg (too large for __constant__); a
-// direct indexed load replaces the TPU's branchless 16-way select, since
-// verification works on public data.
-#include "curve.cuh"
+// Bound: integer multiplies.  ~3,800 field multiplies per signature (two
+// pow2523 chains, 256 doublings, ~140 cached adds), 1,558 of them squarings
+// of 55 32x32->64 products and 2,277 multiplies of 100 (313,390 products,
+// ops/sigverify.py K1_PRODUCTS_PER_VALID_LANE), against < 1.4 KB of input.
+// One thread per signature made that one dependent chain of ~3,800
+// multiplies; here a quad of four adjacent threads shares a signature
+// (csrc/curve_quad.cuh), and the chain is cut:
+//   - thread 0 decompresses A and checks its order while thread 1 does R
+//     (ge_decompress_strict_q: inlined multiplies, 55-product squarings),
+//     and thread 2 hashes and reduces k (sha512.cuh, curve.cuh);
+//   - the [0..15](-A) table is built and the 64-window ladder [k](-A) runs
+//     as quad point operations, thread c holding coordinate c: two
+//     multiply latencies a doubling or an addition, where one thread took
+//     eight (the ladder's ~3,100 dependent multiplies become ~640);
+//   - [s]B is four partial sums over the base comb (which holds [m 16^j]B
+//     for every window j, so no doublings), thread c adding windows 16c to
+//     16c+15 alone (curve.cuh's ge_add_cached); the four sums join the
+//     ladder's result by four quad additions;
+//   - thread 0 compares and writes the mask and the count.
+// Each thread keeps its coordinate of the 16 table entries in shared
+// memory (limb-major, conflict-free): 640 bytes a thread, 2,560 a
+// signature.  Blocks are one warp of 8 signatures (20 KB of table and
+// 1.25 KB for R), so B = 1,024 gives 128 blocks on 128 of the 132 SMs.
+// ptxas: 255 registers, 8 bytes of spill stores and loads (8 bytes of
+// stack); the registers let 8 blocks share an SM (the shared memory would
+// let 10), 2 warps a scheduler, so B = 16,384 runs in 1.94 waves.
+// (Capping the registers for 9 or 10 blocks an SM spills more and runs
+// slower.)  A warp whose lanes all failed a
+// check before the ladder, or all lie past n_real, stops there.  The 164
+// KB base comb is uploaded once per device to global memory and read with
+// 16-byte __ldg loads.
+#include "curve_quad.cuh"
 #include "sha512.cuh"
 
-__device__ bool verify_lane(const uint8_t* __restrict__ msg, int32_t msg_len,
-                            const uint8_t* __restrict__ sig,
-                            const uint8_t* __restrict__ pk,
-                            const int32_t* __restrict__ comb, int64_t B,
-                            int64_t lane, int max_len) {
-  uint64_t sw[4];
-  fd_load32(sig + 32 * B, B, lane, sw);
-  if (!sc_validate(sw)) return false;
-  if (msg_len < 0 || msg_len > max_len) return false;
-  uint64_t aw[4], rw[4];
-  fd_load32(pk, B, lane, aw);
-  ge A, R;
-  if (!ge_decompress(aw, A)) return false;
-  if (ge_is_small_order(A)) return false;
-  fd_load32(sig, B, lane, rw);
-  if (!ge_decompress(rw, R)) return false;
-  if (ge_is_small_order(R)) return false;
+#define VERIFY_SIGS_PER_BLOCK 8
+#define VERIFY_THREADS (4 * VERIFY_SIGS_PER_BLOCK)
+#define VERIFY_TBL_INTS (16 * 10 * VERIFY_THREADS)
 
-  uint64_t st[8], kwords[4];
-  VerifySrc src{sig, pk, msg, B, lane};
-  sha512_lane(src, (uint32_t)msg_len + 64, st);
-  sc_reduce512(st, kwords);
-
-  uint8_t kw[64], s_w[64];
-  sc_windows(kwords, kw);
-  sc_windows(sw, s_w);
-  ge r_cmp = ge_double_scalar_mul_base(kw, ge_neg(A), s_w, comb);
-  return ge_eq_z1(r_cmp, R);
+__device__ __forceinline__ void fe_store_s(int32_t* __restrict__ p, const fe& a) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) p[i * VERIFY_THREADS] = a.v[i];
 }
 
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ fe fe_load_s(const int32_t* __restrict__ p) {
+  fe a;
+#pragma unroll
+  for (int i = 0; i < 10; i++) a.v[i] = p[i * VERIFY_THREADS];
+  return a;
+}
+
+__device__ __forceinline__ uint64_t pick4(const uint64_t w[4], int i) {
+  return i == 0 ? w[0] : (i == 1 ? w[1] : (i == 2 ? w[2] : w[3]));
+}
+
+__global__ void __launch_bounds__(VERIFY_THREADS)
 verify_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ msg_len,
               const uint8_t* __restrict__ sig, const uint8_t* __restrict__ pk,
               const int32_t* __restrict__ comb, bool* __restrict__ mask,
               int32_t* __restrict__ ok_count, int64_t B, int max_len,
               int64_t n_real) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  bool ok = false;
-  if (lane < n_real)
-    ok = verify_lane(msg, msg_len[lane], sig, pk, comb, B, lane, max_len);
-  mask[lane] = ok;
-  if (ok) atomicAdd(ok_count, 1);
+  __shared__ int32_t tbl_s[VERIFY_TBL_INTS];   // entry m, limb i: [(m * 10 + i) * T + t]
+  __shared__ int32_t r_s[10 * VERIFY_THREADS];  // thread 0: R.x, thread 1: R.y
+  const int t = threadIdx.x;
+  const QuadRole role = quad_role(t & 3);
+  const int64_t s_idx = (int64_t)blockIdx.x * VERIFY_SIGS_PER_BLOCK + (t >> 2);
+  const bool in_batch = s_idx < B;
+  const int64_t lane = in_batch ? s_idx : B - 1;  // loads stay inside the batch
+
+  // every thread: s < L and the length
+  uint64_t sw[4];
+  fd_load32(sig + 32 * B, B, lane, sw);
+  const int32_t len = __ldg(msg_len + lane);
+  bool ok = in_batch && s_idx < n_real && sc_validate(sw) && len >= 0 && len <= max_len;
+  if (!__any_sync(QUAD_FULL, ok)) {
+    if (role.c == 0 && in_batch) mask[s_idx] = false;
+    return;
+  }
+
+  // thread 0: A, thread 1: R, each decompressed and checked for small
+  // order; thread 2: k = SHA512(R || A || msg) mod L
+  ge P = ge_identity();
+  uint64_t kw[4] = {0, 0, 0, 0};
+  int pt_ok = 1;
+  if (role.c < 2) {
+    uint64_t w[4];
+    fd_load32(role.c == 0 ? pk : sig, B, lane, w);
+    const ge_ok d = ge_decompress_strict_q(w[0], w[1], w[2], w[3]);
+    P = d.p;
+    pt_ok = d.ok;
+  } else if (role.c == 2) {
+    uint64_t st[8];
+    const int32_t hl = len < 0 ? 0 : (len > max_len ? max_len : len);
+    sha512_lane(VerifySrc{sig, pk, msg, B, lane}, (uint32_t)hl + 64, st);
+    sc_reduce512(st, kw);
+  }
+  __syncwarp();
+  // every thread shuffles (no short circuit: a shuffle waits for all 32)
+  const int ok_a = __shfl_sync(QUAD_FULL, pt_ok, 0, 4);
+  const int ok_r = __shfl_sync(QUAD_FULL, pt_ok, 1, 4);
+  ok = ok && ok_a && ok_r;
+  if (!__any_sync(QUAD_FULL, ok)) {
+    if (role.c == 0 && in_batch) mask[s_idx] = false;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    const uint32_t lo = __shfl_sync(QUAD_FULL, (uint32_t)kw[i], 2, 4);
+    const uint32_t hi = __shfl_sync(QUAD_FULL, (uint32_t)(kw[i] >> 32), 2, 4);
+    kw[i] = ((uint64_t)hi << 32) | lo;
+  }
+  // -A and R into the quad layout: this thread's coordinate of each
+  fe a = quad_take(P, 0, role);
+  if (role.c == 0 || role.c == 3) a = fe_neg(a);
+  fe_store_s(r_s + t, quad_take(P, 1, role));
+
+  // the table [0..15](-A) in cached form: identity, -A, then [m](-A) =
+  // [m-1](-A) + (-A)
+  int32_t* tb = tbl_s + t;
+  fe_store_s(tb, quad_cached_identity(role));
+  const fe c1 = quad_to_cached(a, role);
+  fe_store_s(tb + 10 * VERIFY_THREADS, c1);
+  fe prev = a;
+#pragma unroll 1
+  for (int m = 2; m < 16; m++) {
+    prev = quad_add(prev, c1, role);
+    fe_store_s(tb + m * 10 * VERIFY_THREADS, quad_to_cached(prev, role));
+  }
+
+  // [k](-A): 64 windows, most significant first, of four doublings and
+  // one cached add from the table
+  fe acc = quad_identity(role);
+#pragma unroll 1
+  for (int i = 63; i >= 0; i--) {
+#pragma unroll 1
+    for (int d = 0; d < 4; d++) acc = quad_dbl(acc, role);
+    const int dig = (int)((pick4(kw, i >> 4) >> (4 * (i & 15))) & 15);
+    acc = quad_add(acc, fe_load_s(tb + dig * 10 * VERIFY_THREADS), role);
+  }
+
+  // [s]B: thread c sums the base comb's windows 16c .. 16c+15 alone
+  ge part = ge_identity();
+  const uint64_t sword = pick4(sw, role.c);
+#pragma unroll 1
+  for (int j = 0; j < 16; j++) {
+    const int dig = (int)((sword >> (4 * j)) & 15);
+    part = ge_add_cached(part, gec_load(comb + ((16 * role.c + j) * 16 + dig) * COMB_ENTRY_INTS));
+  }
+  const gec pc = ge_to_cached(part);
+#pragma unroll 1
+  for (int src = 0; src < 4; src++) acc = quad_add(acc, quad_take_cached(pc, src, role), role);
+
+  // R == acc at Z2 = 1: thread 0 checks x, thread 1 y
+  const fe z = fe_shfl(acc, 2);
+  const int eq = fe_eq(fe_mul_q(fe_load_s(r_s + t), z), acc);
+  const int eq_x = __shfl_sync(QUAD_FULL, eq, 0, 4);
+  const int eq_y = __shfl_sync(QUAD_FULL, eq, 1, 4);
+  ok = ok && eq_x && eq_y;
+  if (role.c == 0 && in_batch) {
+    mask[s_idx] = ok;
+    if (ok) atomicAdd(ok_count, 1);
+  }
 }
 
 FD_EXPORT int fd_verify_batch(const void* msg, const void* msg_len, const void* sig,
@@ -78,9 +185,8 @@ FD_EXPORT int fd_verify_batch(const void* msg, const void* msg_len, const void* 
   int rc = fd_set_device(device);
   if (rc) return rc;
   if (B == 0) return 0;
-  const int threads = 128;
-  const int64_t blocks = (B + threads - 1) / threads;
-  verify_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (B + VERIFY_SIGS_PER_BLOCK - 1) / VERIFY_SIGS_PER_BLOCK;
+  verify_kernel<<<(unsigned)blocks, VERIFY_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)msg, (const int32_t*)msg_len, (const uint8_t*)sig,
       (const uint8_t*)pk, (const int32_t*)comb, (bool*)mask, (int32_t*)ok_count,
       B, max_len, n_real);

@@ -22,6 +22,8 @@ import torch
 from ..utils import kbuild
 from .rows import check_msg_batch
 
+_BLAKE3 = kbuild.bind("blake3_msg", "fd_blake3_msg", 3, (kbuild.I64,))
+
 IV = (
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
     0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
@@ -187,8 +189,7 @@ def _blake3_msg_launch(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor
     """One launch of csrc/blake3_msg.cu on checked CUDA inputs."""
     bsz = msg.shape[1]
     out = torch.empty((32, bsz), dtype=torch.uint8, device=msg.device)
-    kbuild.launch("blake3_msg", "fd_blake3_msg", [msg.data_ptr(), msg_len.data_ptr(), out.data_ptr()],
-                  bsz, msg.device, "blake3_msg")
+    _BLAKE3(msg.device, msg.data_ptr(), msg_len.data_ptr(), out.data_ptr(), bsz)
     return out
 
 

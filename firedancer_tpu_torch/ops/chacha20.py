@@ -24,6 +24,8 @@ import torch
 from ..utils import kbuild
 from .rows import check_rows
 
+_CHACHA20 = kbuild.bind("chacha20_keystream", "fd_chacha20_keystream", 4, (kbuild.I64,))
+
 MASK32 = 0xFFFFFFFF
 # "expand 32-byte k" (RFC 7539 constant)
 SIGMA = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
@@ -112,10 +114,8 @@ def chacha20_keystream(keys: torch.Tensor, idxs: torch.Tensor,
     if keys.device.type != "cuda":
         raise ValueError(f"chacha20_keystream: unsupported device {keys.device}")
     out = torch.empty((64, bsz), dtype=torch.uint8, device=keys.device)
-    kbuild.launch("chacha20_keystream", "fd_chacha20_keystream",
-                  [keys.data_ptr(), idxs.data_ptr(),
-                   nonces.data_ptr() if nonces is not None else None, out.data_ptr()],
-                  bsz, keys.device, "chacha20_keystream")
+    _CHACHA20(keys.device, keys.data_ptr(), idxs.data_ptr(),
+              nonces.data_ptr() if nonces is not None else None, out.data_ptr(), bsz)
     return out
 
 

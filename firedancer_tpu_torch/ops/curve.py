@@ -166,6 +166,139 @@ def double_scalar_mul_base(k_windows: torch.Tensor, a_point,
     return acc
 
 
+# -- the quad schedule (the plain twin of csrc/curve_quad.cuh) -------------------
+#
+# K1 runs each signature on a quad of four threads, thread c holding
+# coordinate c of the extended point (X, Y, Z, T).  Here a quad point is one
+# (4, 10, *batch) tensor, row c = thread c's coordinate, and a quad cached
+# operand is (4, 10, *batch) in thread order (Y-X, Y+X, Z, 2dT).  Each row's
+# multiply is one thread's; the exchanges between rounds (the kernel's
+# __shfl_sync) are the kernel's per-thread linear combinations of rows,
+# left uncarried as the kernel leaves them.  The limbs equal the kernel's; the values equal
+# point_dbl's and add_cached's mod p.  Nothing on the main path calls these.
+
+# thread c's coefficients (csrc/curve_quad.cuh's QUAD_* tables): on (own,
+# partner c ^ 1) before an addition's first round and in to_cached; on
+# (own, X, Y) before a doubling's; on the first round's four products for
+# the second round's two operands
+QUAD_PAIR = ((-1, 1), (1, 1), (1, 0), (1, 0))
+QUAD_DBL_IN = ((1, 0, 0), (1, 0, 0), (1, 0, 0), (0, 1, 1))
+QUAD_DBL_OP1 = ((-1, 1, -2, 0), (-1, 1, 0, 0), (-1, 1, -2, 0), (-1, -1, 0, 1))
+QUAD_DBL_OP2 = ((-1, -1, 0, 1), (-1, -1, 0, 0), (-1, 1, 0, 0), (-1, -1, 0, 0))
+QUAD_ADD_OP1 = ((-1, 1, 0, 0), (0, 0, 2, 1), (0, 0, 2, -1), (-1, 1, 0, 0))
+QUAD_ADD_OP2 = ((0, 0, 2, -1), (1, 1, 0, 0), (0, 0, 2, 1), (1, 1, 0, 0))
+QUAD_CACHED_ORDER = (1, 0, 2, 3)  # thread c's component of (Y+X, Y-X, Z, 2dT)
+QUAD_COMB_SPLIT = 4  # [s]B as four partial sums of 16 comb windows
+
+
+def _qmul(a, b):
+    return fl.fe_mul(a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
+
+
+def _qlin(coef, terms):
+    """Row c = sum_k coef[c][k] * terms[k][c], uncarried as in the kernel
+    (the next multiply takes it); terms are (4, 10, *batch)."""
+    out = 0
+    for k, t in enumerate(terms):
+        col = torch.tensor([row[k] for row in coef], dtype=torch.int64, device=t.device)
+        out = out + col.reshape((4,) + (1,) * (t.dim() - 1)) * t
+    return out
+
+
+def _qshfl(q, src):
+    """Every thread reads thread src's row (the kernel's fe_shfl)."""
+    return q[src:src + 1].expand_as(q)
+
+
+def quad_from_point(p):
+    """Extended (X, Y, Z, T) -> (4, 10, *batch) quad point."""
+    return torch.stack(p)
+
+
+def point_from_quad(q):
+    return tuple(q[c] for c in range(4))
+
+
+def quad_from_cached(c):
+    """Cached (Y+X, Y-X, Z, 2dT) -> (4, 10, *batch) in thread order."""
+    return torch.stack([c[i] for i in QUAD_CACHED_ORDER])
+
+
+def quad_identity(batch_shape, device="cpu"):
+    return quad_from_point(identity(batch_shape, device))
+
+
+def point_dbl_quad(q):
+    """2P on a quad point: thread c squares X, Y, Z, X+Y; the products are
+    exchanged; thread c multiplies e f, g h, f g, e h."""
+    s = _qlin(QUAD_DBL_IN, (q, _qshfl(q, 0), _qshfl(q, 1)))
+    return _round2(_qmul(s, s), QUAD_DBL_OP1, QUAD_DBL_OP2)
+
+
+def _round2(m, op1, op2):
+    """The second round: every thread reads the four products, forms its
+    two operands and multiplies."""
+    rows = tuple(_qshfl(m, k) for k in range(4))
+    return _qmul(_qlin(op1, rows), _qlin(op2, rows))
+
+
+def _pair(q):
+    return _qlin(QUAD_PAIR, (q, q[[1, 0, 3, 2]]))
+
+
+def add_cached_quad(q, qc):
+    """P + Q for a quad point and a quad cached operand: thread c forms Y-X,
+    Y+X, Z, T and multiplies by its component of Q; the products are
+    exchanged; thread c multiplies e f, g h, f g, e h."""
+    return _round2(_qmul(_pair(q), qc), QUAD_ADD_OP1, QUAD_ADD_OP2)
+
+
+def to_cached_quad(q):
+    """The quad cached form (Y-X, Y+X, Z, 2dT) of a quad point: threads 0-2
+    multiply by one, thread 3 by 2d."""
+    batch = tuple(q.shape[2:])
+    k = torch.stack([fl.fe_one(batch, q.device)] * 3
+                    + [fl.fe_const(D2_INT, batch, q.device)])
+    return _qmul(_pair(q), k)
+
+
+def double_scalar_mul_base_quad(k_windows: torch.Tensor, a_point,
+                                s_windows: torch.Tensor, comb: torch.Tensor):
+    """[s]B + [k]A in K1's schedule -> a (4, 10, *batch) quad point (the
+    same group element as double_scalar_mul_base's, another projective
+    representative).
+
+    The table [0..15]A by quad additions, [m]A = [m-1]A + A; 64 windows of
+    four quad doublings and one quad addition; [s]B as four partial sums,
+    sum j of the comb windows 16j .. 16j+15 with the one-thread formulas
+    (add_cached), each then added to the ladder's result by a quad
+    addition of its cached form."""
+    batch = tuple(k_windows.shape[1:])
+    dev = k_windows.device
+    a = quad_from_point(tuple(c.expand((fl.NLIMB,) + batch) for c in a_point))
+    c1 = to_cached_quad(a)
+    tbl = [quad_from_cached(to_cached(identity(batch, dev))), c1]
+    prev = a
+    for _ in range(2, 16):
+        prev = add_cached_quad(prev, c1)
+        tbl.append(to_cached_quad(prev))
+    tbl = torch.stack(tbl)  # (16, 4, 10, *batch)
+    acc = quad_identity(batch, dev)
+    for i in range(NWIN - 1, -1, -1):
+        for _ in range(4):
+            acc = point_dbl_quad(acc)
+        idx = k_windows[i].to(torch.int64).reshape((1, 1, 1) + batch)
+        acc = add_cached_quad(acc, tbl.gather(0, idx.expand((1, 4, fl.NLIMB) + batch))[0])
+    comb = comb.to(device=dev, dtype=torch.int64)
+    per = NWIN // QUAD_COMB_SPLIT
+    for j in range(QUAD_COMB_SPLIT):
+        part = identity(batch, dev)
+        for w in range(per * j, per * (j + 1)):
+            part = add_cached(part, _entry(comb[w][s_windows[w].to(torch.int64)]))
+        acc = add_cached_quad(acc, quad_from_cached(to_cached(part)))
+    return acc
+
+
 # -- the fixed-base comb ---------------------------------------------------------
 
 def comb_table_host() -> np.ndarray:

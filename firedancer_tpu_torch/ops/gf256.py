@@ -26,6 +26,11 @@ import torch
 from ..utils import kbuild
 from .ref import gf256_ref as gr
 
+_PTR, _I32, _I64 = kbuild.PTR, kbuild.I32, kbuild.I64
+# fd_gf256_apply(mat, mat_stride, data, out, exp, log, T, m, k, S, vec, ...)
+_GF256 = kbuild.bind("gf256_apply", "fd_gf256_apply", 0,
+                     (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I64, _I32))
+
 
 def gf_matrix_to_bits(a: np.ndarray) -> np.ndarray:
     """Lift a GF(2^8) matrix (m, k) to its GF(2) block matrix (8m, 8k).
@@ -98,28 +103,16 @@ def gf_apply_batch(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     _check(mat, data)
     if data.device.type == "cpu":
         return gf_apply_batch_plain(mat, data)
-    import ctypes
-
     if data.device.type != "cuda":
         raise ValueError(f"gf_apply_batch: unsupported device {data.device}")
     t, k, s = data.shape
     m = mat.shape[1]
     exp, log = kernel_tables(data.device)
-    lib = kbuild.load("gf256_apply")
-    fn = lib.fd_gf256_apply
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((t, m, s), dtype=torch.uint8, device=data.device)
     if out.numel() == 0:
         return out
     stride = 0 if mat.shape[0] == 1 else m * k
     vec = int(s % 4 == 0 and data.data_ptr() % 4 == 0)
-    rc = fn(mat.data_ptr(), stride, data.data_ptr(), out.data_ptr(),
-            exp.data_ptr(), log.data_ptr(), t, m, k, s, vec,
-            data.device.index or 0, kbuild.stream_ptr(data.device))
-    kbuild.check(lib, rc, "gf256_apply launch")
-    kbuild.LAUNCHES["gf256_apply"] += 1
+    _GF256(data.device, mat.data_ptr(), stride, data.data_ptr(), out.data_ptr(),
+           exp.data_ptr(), log.data_ptr(), t, m, k, s, vec)
     return out

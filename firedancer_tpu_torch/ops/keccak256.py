@@ -23,6 +23,8 @@ import torch
 from ..utils import kbuild
 from .rows import check_msg_batch
 
+_KECCAK = kbuild.bind("keccak256_msg", "fd_keccak256_msg", 3, (kbuild.I64,))
+
 RATE = 136
 OUT_SZ = 32
 
@@ -166,8 +168,7 @@ def _keccak256_msg_launch(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Ten
     """One launch of csrc/keccak256_msg.cu on checked CUDA inputs."""
     bsz = msg.shape[1]
     out = torch.empty((OUT_SZ, bsz), dtype=torch.uint8, device=msg.device)
-    kbuild.launch("keccak256_msg", "fd_keccak256_msg", [msg.data_ptr(), msg_len.data_ptr(), out.data_ptr()],
-                  bsz, msg.device, "keccak256_msg")
+    _KECCAK(msg.device, msg.data_ptr(), msg_len.data_ptr(), out.data_ptr(), bsz)
     return out
 
 

@@ -26,6 +26,8 @@ import torch
 
 from ..utils import kbuild
 
+_FE_MUL_CHAIN = kbuild.bind("fe_mul_chain", "fd_fe_mul_chain", 4, (kbuild.I32, kbuild.I32))
+
 NLIMB = 10
 WIDTHS = (26, 25, 26, 25, 26, 25, 26, 25, 26, 25)
 OFFSETS = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)
@@ -288,8 +290,6 @@ def fe_mul_chain(x: torch.Tensor, y: torch.Tensor, k: int):
     """
     if x.device.type == "cpu" and y.device.type == "cpu":
         return fe_mul_chain_plain(x, y, k)
-    import ctypes
-
     if x.device != y.device or x.device.type != "cuda":
         raise ValueError(f"fe_mul_chain: x on {x.device}, y on {y.device}")
     for name, t in (("x", x), ("y", y)):
@@ -301,16 +301,8 @@ def fe_mul_chain(x: torch.Tensor, y: torch.Tensor, k: int):
         raise ValueError("fe_mul_chain: x and y shapes differ")
     if k < 0:
         raise ValueError("fe_mul_chain: k must be >= 0")
-    lib = kbuild.load("fe_mul_chain")
-    fn = lib.fd_fe_mul_chain
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    bsz = x.shape[1]
     xo = torch.empty_like(x)
     yo = torch.empty_like(y)
-    rc = fn(x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(), bsz, k,
-            x.device.index or 0, kbuild.stream_ptr(x.device))
-    kbuild.check(lib, rc, "fe_mul_chain launch")
-    kbuild.LAUNCHES["fe_mul_chain"] += 1
+    _FE_MUL_CHAIN(x.device, x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
+                  x.shape[1], k)
     return xo, yo

@@ -24,6 +24,10 @@ from ..utils import kbuild
 from ..utils.platform import resolve_device
 from . import blake3 as b3
 
+# fd_lthash_combine(values, signs, n, chunks, out, ...)
+_COMBINE = kbuild.bind("lthash_combine", "fd_lthash_combine", 0,
+                       (kbuild.PTR, kbuild.PTR, kbuild.I64, kbuild.I64, kbuild.PTR))
+
 LEN_BYTES = 2048
 LEN_ELEMS = 1024
 # K13's row chunks: about four blocks of each of the two lane halves per
@@ -99,19 +103,10 @@ def combine_device(values, signs=None, *, device=None) -> torch.Tensor:
         return combine_plain(v, s)
     if v.device.type != "cuda":
         raise ValueError(f"lthash combine: unsupported device {v.device}")
-    import ctypes
-
-    lib = kbuild.load("lthash_combine")
-    fn = lib.fd_lthash_combine
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.zeros((LEN_ELEMS,), dtype=torch.int32, device=v.device)
     if n == 0:
         return out
     chunks = max(1, min(_MAX_CHUNKS, n // _MIN_ROWS_PER_CHUNK))
-    rc = fn(v.data_ptr(), s.data_ptr() if s is not None else None, n, chunks,
-            out.data_ptr(), v.device.index or 0, kbuild.stream_ptr(v.device))
-    kbuild.check(lib, rc, "lthash_combine launch")
-    kbuild.LAUNCHES["lthash_combine"] += 1
+    _COMBINE(v.device, v.data_ptr(), s.data_ptr() if s is not None else None, n, chunks,
+             out.data_ptr())
     return out & 0xFFFF

@@ -33,50 +33,45 @@ def probe_conv_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _wrap32(torch.stack(rows))
 
 
-def _launch(fn_name: str, name: str, ins, out, n: int):
-    import ctypes
-
-    if n == 0:
-        return out
-    lib = kbuild.load("probe")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = out.device
-    rc = fn(ins[0].data_ptr(), ins[1].data_ptr(), out.data_ptr(), n,
-            dev.index or 0, kbuild.stream_ptr(dev))
-    kbuild.check(lib, rc, f"{name} launch")
-    kbuild.LAUNCHES[name] += 1
-    return out
+_ADD = kbuild.bind("probe", "fd_probe_add", 3, (kbuild.I64,), counter="probe_add")
+_CONV = kbuild.bind("probe", "fd_probe_conv", 3, (kbuild.I64,), counter="probe_conv")
 
 
 def _check(name, x, y, rows=None):
-    if x.device != y.device or x.shape != y.shape or x.dtype != torch.int32 \
-            or y.dtype != torch.int32 or not (x.is_contiguous() and y.is_contiguous()):
+    """-> the inputs' device: two contiguous int32 tensors of one shape."""
+    dev = x.device
+    if x.dtype != torch.int32 or y.dtype != torch.int32 or x.shape != y.shape \
+            or y.device != dev or not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError(f"{name}: two contiguous int32 tensors of one shape on"
                          " one device")
     if rows is not None and (x.dim() != 2 or x.shape[0] != rows):
         raise ValueError(f"{name}: inputs must be ({rows}, B)")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
 
 
 def probe_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Elementwise int32 x + y; replaces scripts/probe_pallas.py:18
     add_kernel.  CPU tensors run the plain version."""
-    _check("probe_add", x, y)
-    if x.device.type == "cpu":
+    dev = _check("probe_add", x, y)
+    if dev.type == "cpu":
         return probe_add_plain(x, y)
-    return _launch("fd_probe_add", "probe_add", (x, y), torch.empty_like(x), x.numel())
+    out = torch.empty_like(x)
+    n = out.numel()
+    if n:
+        _ADD(dev, x.data_ptr(), y.data_ptr(), out.data_ptr(), n)
+    return out
 
 
 def probe_conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(20, B) int32 x2 -> (39, B) unreduced limb convolution; replaces
     scripts/probe_pallas.py:34 conv_kernel.  CPU tensors run the plain
     version."""
-    _check("probe_conv", a, b, rows=NLIMB)
-    if a.device.type == "cpu":
+    dev = _check("probe_conv", a, b, rows=NLIMB)
+    if dev.type == "cpu":
         return probe_conv_plain(a, b)
-    out = torch.empty((2 * NLIMB - 1, a.shape[1]), dtype=torch.int32, device=a.device)
-    return _launch("fd_probe_conv", "probe_conv", (a, b), out, a.shape[1])
+    out = torch.empty((2 * NLIMB - 1, a.shape[1]), dtype=torch.int32, device=dev)
+    if a.shape[1]:
+        _CONV(dev, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1])
+    return out

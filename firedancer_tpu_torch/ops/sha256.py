@@ -33,6 +33,10 @@ import torch
 from ..utils import kbuild
 from .rows import check_msg_batch, check_rows
 
+_ITER32 = kbuild.bind("sha256_iter32", "fd_sha256_iter32", 2, (kbuild.I64, kbuild.I64))
+_MSG = kbuild.bind("sha256_msg", "fd_sha256_msg", 3, (kbuild.I64,))
+_MIX32 = kbuild.bind("sha256_msg", "fd_sha256_mix32", 3, (kbuild.I64,), counter="sha256_mix32")
+
 _K = [
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
     0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
@@ -119,23 +123,13 @@ def sha256_iter32(state: torch.Tensor, n: int) -> torch.Tensor:
                          f" tensor, got {tuple(state.shape)} {state.dtype}")
     if state.device.type == "cpu":
         return sha256_iter32_plain(state, n)
-    import ctypes
-
     if state.device.type != "cuda":
         raise ValueError(f"sha256_iter32: unsupported device {state.device}")
-    lib = kbuild.load("sha256_iter32")
-    fn = lib.fd_sha256_iter32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     bsz = state.shape[1]
     out = torch.empty_like(state)
     if bsz == 0:
         return out
-    rc = fn(state.data_ptr(), out.data_ptr(), bsz, n, state.device.index or 0,
-            kbuild.stream_ptr(state.device))
-    kbuild.check(lib, rc, "sha256_iter32 launch")
-    kbuild.LAUNCHES["sha256_iter32"] += 1
+    _ITER32(state.device, state.data_ptr(), out.data_ptr(), bsz, n)
     return out
 
 
@@ -179,9 +173,7 @@ def _sha256_msg(msg: torch.Tensor, msg_len: torch.Tensor, max_len: int) -> torch
         return sha256_msg_plain(msg, msg_len, max_len)
     bsz = msg.shape[1]
     out = torch.empty((32, bsz), dtype=torch.uint8, device=msg.device)
-    kbuild.launch("sha256_msg", "fd_sha256_msg",
-                  [msg.data_ptr(), msg_len.data_ptr(), out.data_ptr()], bsz, msg.device,
-                  "sha256_msg")
+    _MSG(msg.device, msg.data_ptr(), msg_len.data_ptr(), out.data_ptr(), bsz)
     return out
 
 
@@ -221,7 +213,5 @@ def sha256_mix32(state: torch.Tensor, mixin: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sha256_mix32: unsupported device {state.device}")
     bsz = state.shape[1]
     out = torch.empty_like(state)
-    kbuild.launch("sha256_msg", "fd_sha256_mix32",
-                  [state.data_ptr(), mixin.data_ptr(), out.data_ptr()], bsz, state.device,
-                  "sha256_mix32")
+    _MIX32(state.device, state.data_ptr(), mixin.data_ptr(), out.data_ptr(), bsz)
     return out

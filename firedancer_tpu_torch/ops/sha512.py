@@ -20,6 +20,8 @@ import torch
 
 from ..utils import kbuild
 
+_SHA512 = kbuild.bind("sha512_batch", "fd_sha512_batch", 3, (kbuild.I64, kbuild.I32))
+
 _K = [
     0x428A2F98D728AE22, 0x7137449123EF65CD, 0xB5C0FBCFEC4D3B2F, 0xE9B5DBA58189DBBC,
     0x3956C25BF348B538, 0x59F111F1B605D019, 0x923F82A4AF194F9B, 0xAB1C5ED5DA6D8118,
@@ -169,8 +171,6 @@ def sha512_batch(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor:
     """
     if msg.device.type == "cpu" and msg_len.device.type == "cpu":
         return sha512_batch_plain(msg, msg_len)
-    import ctypes
-
     if msg.device != msg_len.device or msg.device.type != "cuda":
         raise ValueError(f"sha512_batch: msg on {msg.device},"
                          f" msg_len on {msg_len.device}")
@@ -179,15 +179,7 @@ def sha512_batch(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor:
     if msg_len.dtype != torch.int32 or msg_len.shape != (msg.shape[1],) \
             or not msg_len.is_contiguous():
         raise ValueError("sha512_batch: msg_len must be contiguous (B,) int32")
-    lib = kbuild.load("sha512_batch")
-    fn = lib.fd_sha512_batch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     bsz = msg.shape[1]
     out = torch.empty((64, bsz), dtype=torch.uint8, device=msg.device)
-    rc = fn(msg.data_ptr(), msg_len.data_ptr(), out.data_ptr(), bsz,
-            msg.shape[0], msg.device.index or 0, kbuild.stream_ptr(msg.device))
-    kbuild.check(lib, rc, "sha512_batch launch")
-    kbuild.LAUNCHES["sha512_batch"] += 1
+    _SHA512(msg.device, msg.data_ptr(), msg_len.data_ptr(), out.data_ptr(), bsz, msg.shape[0])
     return out

@@ -47,17 +47,42 @@ _KERNEL_ENTRIES = {
 }
 KERNEL_LADDER = tuple(_KERNEL_ENTRIES)
 
-# field multiplies per lane on the kernel's path (csrc/curve.cuh), for the
-# operations bound: decompress (incl. the 262-multiply pow2523 chain),
-# small-order check (3 doublings of 8), the [0..15](-A) table (7 doublings,
-# 7 cached adds, 16 to_cached), 64 x (4 doublings + 1 add), 64 comb adds,
-# and the Z=1 compare.  Each multiply is 100 32x32->64 products.
+_I32, _I64 = kbuild.I32, kbuild.I64
+# the C entry points: pointers, then B and the int scalars (each before the
+# device index and the stream the binder adds)
+_VERIFY = kbuild.bind("verify", "fd_verify_batch", 7, (_I64, _I32, _I64),
+                      counter="verify_batch")
+_PHASES = {p: kbuild.bind("verify_split", f"fd_phase_{p}", n, (_I64,) + extra,
+                          counter=f"phase_{p}")
+           for p, n, extra in (("validate", 6, (_I32,)), ("hash", 5, (_I32,)),
+                               ("dsm", 5, ()), ("compare", 4, ()))}
+_CACHED = kbuild.bind("verify_cached", "fd_verify_cached", 9, (_I64, _I32, _I64))
+_COMB_FILL = kbuild.bind("comb_fill", "fd_comb_fill", 3, (_I64,))
+_BANK_INSTALL = kbuild.bind("bank_install", "fd_bank_install", 3, (_I64,))
+
+# field multiplies per lane on the one-thread kernels' path (csrc/curve.cuh),
+# for their operations bounds: decompress (incl. the 262-multiply pow2523
+# chain), small-order check (3 doublings of 8), the [0..15](-A) table (7
+# doublings, 7 cached adds, 16 to_cached), 64 x (4 doublings + 1 add), 64
+# comb adds, and the Z=1 compare.  Each multiply is 100 32x32->64 products.
 MULS_DECOMPRESS = 275
 MULS_SMALL_ORDER = 24
 MULS_DSM = 7 * 8 + 7 * 8 + 16 + 64 * (4 * 8 + 8) + 64 * 8
 MULS_EQ_Z1 = 2
-MULS_PER_VALID_LANE = 2 * (MULS_DECOMPRESS + MULS_SMALL_ORDER) + MULS_DSM + MULS_EQ_Z1
 PRODUCTS_PER_MUL = 100
+# K1 (csrc/verify.cu over csrc/curve_quad.cuh) squares with 55 products
+# (fe_sq_q) and multiplies with 100; per valid lane: A and R each
+# decompressed (255 squarings, 20 multiplies) and checked for small order
+# (3 doublings of 4 + 4); the table by 14 cached adds and 15 conversions
+# (one multiply each: T 2d); 64 x (4 doublings + 1 add); the base comb's
+# 64 adds in four partial sums, their 4 conversions and 4 quad adds; the
+# Z = 1 compare
+PRODUCTS_PER_SQUARING = 55
+K1_SQUARINGS_PER_VALID_LANE = 2 * (255 + 3 * 4) + 64 * 4 * 4
+K1_MULS_PER_VALID_LANE = (2 * (20 + 3 * 4) + 14 * 8 + 15 + 64 * (4 * 4 + 8) + 64 * 8 + 4
+                          + 4 * 8 + MULS_EQ_Z1)
+K1_PRODUCTS_PER_VALID_LANE = (K1_SQUARINGS_PER_VALID_LANE * PRODUCTS_PER_SQUARING
+                              + K1_MULS_PER_VALID_LANE * PRODUCTS_PER_MUL)
 # the cached lane (K6, csrc/verify_cached.cu): R's decompression and small-
 # order check, 128 cached adds (one from the signer's comb and one from the
 # base comb per window), the compare; A is not decompressed
@@ -138,29 +163,18 @@ def verify_batch(msg, msg_len, sig, pubkey, n_real: int, *, max_msg_len: int):
     ed25519_verify_batch).  On CPU tensors this runs the plain version; on
     CUDA tensors it launches csrc/verify.cu or raises.
     """
-    if msg.device.type == "cpu":
-        _check_inputs(msg, msg_len, sig, pubkey, max_msg_len)
-        return verify_batch_plain(msg, msg_len, sig, pubkey, n_real, max_msg_len)
-    import ctypes
-
-    if msg.device.type != "cuda":
-        raise ValueError(f"verify_batch: unsupported device {msg.device}")
     bsz = _check_inputs(msg, msg_len, sig, pubkey, max_msg_len)
-    comb = fc.comb_table(msg.device)
-    lib = kbuild.load("verify")
-    fn = lib.fd_verify_batch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    mask = torch.empty((bsz,), dtype=torch.bool, device=msg.device)
-    count = torch.zeros((1,), dtype=torch.int32, device=msg.device)
-    rc = fn(msg.data_ptr(), msg_len.data_ptr(), sig.data_ptr(), pubkey.data_ptr(),
-            comb.data_ptr(), mask.data_ptr(), count.data_ptr(), bsz, max_msg_len,
-            int(n_real), msg.device.index or 0, kbuild.stream_ptr(msg.device))
-    kbuild.check(lib, rc, "verify_batch launch")
-    kbuild.LAUNCHES["verify_batch"] += 1
-    return mask, count.reshape(())
+    dev = msg.device
+    if dev.type == "cpu":
+        return verify_batch_plain(msg, msg_len, sig, pubkey, n_real, max_msg_len)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_batch: unsupported device {dev}")
+    mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    _VERIFY(dev, msg.data_ptr(), msg_len.data_ptr(), sig.data_ptr(), pubkey.data_ptr(),
+            fc.comb_table(dev).data_ptr(), mask.data_ptr(), count.data_ptr(), bsz,
+            max_msg_len, int(n_real))
+    return mask, count
 
 
 def ed25519_verify_batch(msg, msg_len, sig, pubkey, *, max_msg_len: int):
@@ -230,23 +244,13 @@ def _phase_compare_plain(r_cmp, r_pt, ok):
     return ok & fc.point_eq_z1(_pt_cols(r_cmp), _pt_cols(r_pt))
 
 
-def _split_launch(sym: str, what: str, dev, ptrs, bsz: int, *scalars: int) -> None:
+def _split_launch(phase: str, dev, ptrs, bsz: int, *scalars: int) -> None:
     """One phase's launch on the current stream: every entry point of
     csrc/verify_split.cu takes (pointers..., B, int scalars..., device,
     stream); validate and hash take max_len as their one scalar."""
-    import ctypes
-
     if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
-    lib = kbuild.load("verify_split")
-    fn = getattr(lib, sym)
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int64]
-                   + [ctypes.c_int] * len(scalars) + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    rc = fn(*(t.data_ptr() for t in ptrs), bsz, *scalars, dev.index or 0,
-            kbuild.stream_ptr(dev))
-    kbuild.check(lib, rc, f"{what} launch")
-    kbuild.LAUNCHES[what] += 1
+        raise ValueError(f"phase_{phase}: unsupported device {dev}")
+    _PHASES[phase](dev, *(t.data_ptr() for t in ptrs), bsz, *scalars)
 
 
 def _phase_validate(sig, pubkey, msg_len, *, max_msg_len: int):
@@ -267,7 +271,7 @@ def _phase_validate(sig, pubkey, msg_len, *, max_msg_len: int):
     a_pt = torch.empty((4, 10, bsz), dtype=torch.int32, device=dev)
     r_pt = torch.empty_like(a_pt)
     ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
-    _split_launch("fd_phase_validate", "phase_validate", dev,
+    _split_launch("validate", dev,
                   (sig, pubkey, msg_len, a_pt, r_pt, ok), bsz, max_msg_len)
     return a_pt, r_pt, ok
 
@@ -282,7 +286,7 @@ def _phase_hash(msg, msg_len, sig, pubkey, *, max_msg_len: int):
     if dev.type == "cpu":
         return _phase_hash_plain(msg, msg_len, sig, pubkey, max_msg_len)
     k = torch.empty((32, bsz), dtype=torch.uint8, device=dev)
-    _split_launch("fd_phase_hash", "phase_hash", dev, (msg, msg_len, sig, pubkey, k),
+    _split_launch("hash", dev, (msg, msg_len, sig, pubkey, k),
                   bsz, max_msg_len)
     return k
 
@@ -300,7 +304,7 @@ def _phase_dsm(k, a_pt, sig):
     if dev.type == "cpu":
         return _phase_dsm_plain(k, a_pt, sig)
     r_cmp = torch.empty((4, 10, bsz), dtype=torch.int32, device=dev)
-    _split_launch("fd_phase_dsm", "phase_dsm", dev,
+    _split_launch("dsm", dev,
                   (k, a_pt, sig, fc.comb_table(dev), r_cmp), bsz)
     return r_cmp
 
@@ -318,7 +322,7 @@ def _phase_compare(r_cmp, r_pt, ok):
     if dev.type == "cpu":
         return _phase_compare_plain(r_cmp, r_pt, ok)
     mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
-    _split_launch("fd_phase_compare", "phase_compare", dev, (r_cmp, r_pt, ok, mask), bsz)
+    _split_launch("compare", dev, (r_cmp, r_pt, ok, mask), bsz)
     return mask
 
 
@@ -454,28 +458,16 @@ def verify_cached_launch(msg, msg_len, sig, pubkey, bank, slots_d, n_real: int,
     """K6's launch on CUDA tensors that verify_cached has checked; slots_d is
     the (B,) int32 slot column already on the card (what a timing loop
     calls, with no host work per launch)."""
-    import ctypes
-
     dev = msg.device
     if dev.type != "cuda" or slots_d.device != dev or slots_d.dtype != torch.int32:
         raise ValueError("verify_cached_launch: CUDA tensors and int32 slots on the card")
     bsz = msg_len.shape[0]
-    comb = fc.comb_table(dev)
-    lib = kbuild.load("verify_cached")
-    fn = lib.fd_verify_cached
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
-    count = torch.zeros((1,), dtype=torch.int32, device=dev)
-    rc = fn(msg.data_ptr(), msg_len.data_ptr(), sig.data_ptr(), pubkey.data_ptr(),
-            bank.data_ptr(), slots_d.data_ptr(), comb.data_ptr(), mask.data_ptr(),
-            count.data_ptr(), bsz, max_msg_len, n_real, dev.index or 0,
-            kbuild.stream_ptr(dev))
-    kbuild.check(lib, rc, "verify_cached launch")
-    kbuild.LAUNCHES["verify_cached"] += 1
-    return mask, count.reshape(())
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    _CACHED(dev, msg.data_ptr(), msg_len.data_ptr(), sig.data_ptr(), pubkey.data_ptr(),
+            bank.data_ptr(), slots_d.data_ptr(), fc.comb_table(dev).data_ptr(),
+            mask.data_ptr(), count.data_ptr(), bsz, max_msg_len, n_real)
+    return mask, count
 
 
 def ed25519_verify_batch_cached(msg, msg_len, sig, pubkey, bank, slots, *,
@@ -518,20 +510,11 @@ def comb_fill(pubkey, device=None):
     m = pubkey.shape[1]
     if dev.type == "cpu":
         return comb_fill_plain(pubkey)
-    import ctypes
-
     if dev.type != "cuda":
         raise ValueError(f"comb_fill: unsupported device {dev}")
-    lib = kbuild.load("comb_fill")
-    fn = lib.fd_comb_fill
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     tables = torch.empty((m,) + fc.COMB_SLOT_SHAPE, dtype=torch.int32, device=dev)
     ok = torch.empty((m,), dtype=torch.bool, device=dev)
-    rc = fn(pubkey.data_ptr(), tables.data_ptr(), ok.data_ptr(), m, dev.index or 0,
-            kbuild.stream_ptr(dev))
-    kbuild.check(lib, rc, "comb_fill launch")
-    kbuild.LAUNCHES["comb_fill"] += 1
+    _COMB_FILL(dev, pubkey.data_ptr(), tables.data_ptr(), ok.data_ptr(), m)
     return tables, ok
 
 
@@ -578,18 +561,9 @@ def bank_install_launch(bank: torch.Tensor, tables: torch.Tensor,
                         slots_t: torch.Tensor) -> torch.Tensor:
     """K8's launch on CUDA tensors that bank_install has checked; slots_t is
     the (M,) int64 slot column already on the card."""
-    import ctypes
-
     dev = bank.device
     if dev.type != "cuda" or slots_t.device != dev or slots_t.dtype != torch.int64:
         raise ValueError("bank_install_launch: CUDA tensors and int64 slots on the card")
-    m = tables.shape[0]
-    lib = kbuild.load("bank_install")
-    fn = lib.fd_bank_install
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(bank.data_ptr(), tables.data_ptr(), slots_t.data_ptr(), m, dev.index or 0,
-            kbuild.stream_ptr(dev))
-    kbuild.check(lib, rc, "bank_install launch")
-    kbuild.LAUNCHES["bank_install"] += 1
+    _BANK_INSTALL(dev, bank.data_ptr(), tables.data_ptr(), slots_t.data_ptr(),
+                  tables.shape[0])
     return bank

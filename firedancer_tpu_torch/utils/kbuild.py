@@ -4,17 +4,22 @@ firedancer_tpu/utils/nativebuild.py).
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library
 with a plain C interface, `build/torch_kernels/<hash>/lib<name>.so`, where
 <hash> covers every source and header in csrc/ and the nvcc flags.  The
-libraries are loaded with ctypes; wrappers pass raw device pointers and
-PyTorch's current stream as `c_void_p`.  A plain C `.so` builds in seconds,
-where an extension that includes PyTorch's headers takes minutes.
+libraries are loaded with ctypes and every entry point is reached through
+`bind`: a bound entry point is a cached callable that sets its ctypes
+argument types once, and per call passes the device pointers, the sizes,
+the device index and the caller's current stream (its raw handle), checks
+the return code and counts the launch.  Only the first call of an entry
+point takes the lock (to build and load its library).  A plain C `.so`
+builds in seconds, where an extension that includes PyTorch's headers
+takes minutes.
 
 All missing libraries are built at once, one nvcc process per source,
 started together.  The first build of each prints nvcc's `-Xptxas -v`
 report (registers, spills) to stderr.  A build failure raises; nothing
 degrades to a plain version.
 
-Launch counts: every kernel wrapper adds one to `LAUNCHES[name]` where it
-launches its kernel, and nowhere else.
+Launch counts: a bound entry point adds one to `LAUNCHES[counter]` after
+each launch its C function reports as started, and nowhere else.
 """
 
 from __future__ import annotations
@@ -134,33 +139,82 @@ def is_loaded(name: str) -> bool:
 
 
 def unload(name: str) -> None:
-    """Forget the loaded library of csrc/<name>.cu; the next load() opens
-    the built file again (nothing is rebuilt)."""
+    """Forget the loaded library of csrc/<name>.cu and unbind its entry
+    points; the next launch opens the built file again (nothing is
+    rebuilt)."""
     with _LOCK:
         _LIBS.pop(name, None)
+        for k in _BOUND.values():
+            if k.name == name:
+                k.unbind()
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a C entry point."""
-    if rc != 0:
-        msg = lib.fd_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+# The caller's current stream on a device index, as a raw cudaStream_t:
+# torch._C._cuda_getCurrentRawStream, looked up at the first launch (the
+# CPU build of PyTorch has no such function).  It follows
+# `torch.cuda.stream(...)` as `torch.cuda.current_stream(i).cuda_stream`
+# does, without building a Stream object per call.
+current_raw_stream = None
+
+PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64  # argument types for bind
 
 
-def stream_ptr(device) -> int:
-    import torch
+class Kernel:
+    """One C entry point of csrc/<name>.cu, `int symbol(argtypes...,
+    int device, void* stream)` returning a cudaError_t.  Call it as
+    `kernel(device, *args)`: args are the ints and pointers (Python ints
+    from data_ptr(), None for a null pointer) in the order of argtypes."""
 
-    return torch.cuda.current_stream(device).cuda_stream
+    __slots__ = ("name", "symbol", "counter", "argtypes", "_fn", "_lib")
+
+    def __init__(self, name: str, symbol: str, argtypes: list, counter: str):
+        self.name, self.symbol, self.counter = name, symbol, counter
+        self.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
+        self._fn = self._lib = None
+
+    def unbind(self) -> None:
+        self._fn = self._lib = None
+
+    def _bind(self):
+        global current_raw_stream
+        with _BIND_LOCK:
+            if self._fn is None:
+                lib = load(self.name)
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                if current_raw_stream is None:
+                    import torch
+
+                    current_raw_stream = torch._C._cuda_getCurrentRawStream
+                self._lib, self._fn = lib, fn
+            return self._fn
+
+    def __call__(self, device, *args) -> None:
+        fn = self._fn or self._bind()
+        index = device.index or 0
+        rc = fn(*args, index, current_raw_stream(index))
+        if rc:
+            msg = (self._lib or load(self.name)).fd_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{self.counter} launch: CUDA error {rc} ({msg})")
+        LAUNCHES[self.counter] += 1
 
 
-def launch(name: str, symbol: str, ptrs: list, bsz: int, device, counter: str) -> None:
-    """Call csrc/<name>.cu's entry point `symbol`, whose arguments are the
-    device pointers `ptrs` (None for a null pointer), B, the device index
-    and the stream; raise on its error, else add one to LAUNCHES[counter]."""
-    lib = load(name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(*ptrs, bsz, device.index or 0, stream_ptr(device))
-    check(lib, rc, f"{counter} launch")
-    LAUNCHES[counter] += 1
+_BOUND: dict[tuple[str, str], Kernel] = {}
+_BIND_LOCK = threading.Lock()
+
+
+def bind(name: str, symbol: str, n_ptrs: int, extra_argtypes=(), counter: str | None = None) -> Kernel:
+    """The bound entry point `symbol` of csrc/<name>.cu, whose arguments are
+    n_ptrs device pointers, then `extra_argtypes` (ctypes types), then the
+    device index and the stream; launches count under `counter` (default
+    `name`).  One Kernel per (name, symbol): binding again returns it.
+    Nothing is built or loaded until its first call."""
+    key = (name, symbol)
+    k = _BOUND.get(key)
+    if k is None:
+        k = _BOUND.setdefault(key, Kernel(name, symbol, [PTR] * n_ptrs + list(extra_argtypes),
+                                          counter or name))
+    if k.counter != (counter or name):
+        raise ValueError(f"{name}.{symbol} already bound with counter {k.counter!r}")
+    return k

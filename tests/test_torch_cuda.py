@@ -73,6 +73,30 @@ def test_verify_batch_kernel_equals_plain_and_labels(dev):
     assert kbuild.LAUNCHES["verify_batch"] == 1
 
 
+@pytest.fixture(scope="module")
+def mixed256():
+    return mixed_batch(256, 256, seed=14)  # every lane labelled
+
+
+@pytest.mark.parametrize("bsz", [1, 7, 33, 1024, 16384])
+def test_verify_batch_kernel_at_ragged_batches(dev, mixed256, bsz):
+    """K1 runs a signature on four threads, 8 signatures a block: batches
+    that end inside a block, inside a warp's quads, and at 16,384, each
+    with pad lanes past n_real, equal the plain version and the labels."""
+    mb = mixed256
+    reps = -(-bsz // 256)
+    cols = [np.ascontiguousarray(np.tile(a, (1,) * (a.ndim - 1) + (reps,))[..., :bsz])
+            for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey)]
+    n_real = bsz - max(1, bsz // 8)
+    want = np.tile(mb.labels, reps)[:bsz] & (np.arange(bsz) < n_real)
+    args = [torch.from_numpy(a).to(dev) for a in cols]
+    mask, cnt = sv.verify_batch(*args, n_real, max_msg_len=256)
+    pmask, pcnt = sv.verify_batch_plain(*args, n_real, 256)
+    assert mask.cpu().tolist() == pmask.cpu().tolist() == want.tolist()
+    assert int(cnt) == int(pcnt) == int(want.sum())
+    assert kbuild.LAUNCHES["verify_batch"] == 1
+
+
 @pytest.mark.parametrize("lane", sv.KERNEL_LADDER)
 def test_verify_dispatch_launches_once_per_batch(dev, lane):
     """One batch dispatch launches the lane's kernel_dispatch_count kernels

@@ -138,3 +138,99 @@ def test_cuda_header_constants_match_python():
         assert m, name
         limbs = [int(x) for x in m.group(1).split(",")]
         assert limbs == tl.int_to_limbs(val).tolist(), name
+
+
+# -- the quad schedule (K1's four threads a signature) ---------------------------
+
+def _points(seed, n):
+    """n random multiples of B as Z = 1 extended points (Python ints)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        X, Y, Z, _ = ref.point_mul(int.from_bytes(rng.bytes(32), "little"), ref.BASE)
+        zi = pow(Z, P - 2, P)
+        x, y = X * zi % P, Y * zi % P
+        out.append((x, y, 1, x * y % P))
+    return out
+
+
+def _jax_point(pts):
+    return tuple(jnp.asarray(np.stack([jl.int_to_limbs(p[c]) for p in pts], -1))
+                 for c in range(4))
+
+
+def test_quad_dbl_add_and_to_cached_equal_one_thread_forms_and_jax():
+    """The quad twin's doubling, cached addition and cached form equal
+    point_dbl, add_cached and to_cached at the canonical limbs of every
+    coordinate (the same formulas, one multiply a row), and JAX's
+    point_dbl and point_add."""
+    pts = _points(33, 8)
+    jp = _jax_point(pts)
+    jq = tuple(c[:, ::-1] for c in jp)
+    tp = tuple(torch.from_numpy(c) for c in cv.point_from_jax(jp))
+    tq = tuple(torch.from_numpy(c) for c in cv.point_from_jax(jq))
+    qp, qq = tc.quad_from_point(tp), tc.quad_from_point(tq)
+    dbl = tc.point_from_quad(tc.point_dbl_quad(qp))
+    for got, want in zip(_canon(dbl), _canon(tc.point_dbl(tp))):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(_canon(dbl), _canon_jax(j_dbl(jp))):
+        np.testing.assert_array_equal(got, want)
+    cq = tc.to_cached_quad(qq)
+    for got, want in zip(_canon(tuple(cq)), _canon(tuple(tc.quad_from_cached(tc.to_cached(tq))))):
+        np.testing.assert_array_equal(got, want)
+    add = tc.point_from_quad(tc.add_cached_quad(qp, cq))
+    for got, want in zip(_canon(add), _canon(tc.point_add(tp, tq))):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(_canon(add), _canon_jax(j_add(jp, jq))):
+        np.testing.assert_array_equal(got, want)
+    # the quad identity the kernel writes as a constant (a projective
+    # multiple of Q comes back: compare affine)
+    ident = tc.quad_identity((8,))
+    for got, want in zip(_affine(tc.point_from_quad(tc.add_cached_quad(ident, cq))),
+                         _affine(tq)):
+        np.testing.assert_array_equal(got, want)
+
+
+def _affine(p):
+    zi = tl.fe_invert(p[2])
+    return [tl.fe_freeze(tl.fe_mul(c, zi)).numpy() for c in p[:2]]
+
+
+def test_quad_double_scalar_mul_equals_one_thread_ladder_and_reference():
+    """K1's schedule in plain PyTorch (the quad table and ladder, the four
+    comb partial sums) gives [s]B + [k]A: equal, at the canonical limbs of
+    the affine coordinates, to double_scalar_mul_base and ed25519_ref,
+    including k = 0, s = 0, the largest scalars and the identity as A."""
+    rng = np.random.default_rng(34)
+    pts = _points(35, 5) + [(0, 1, 1, 0)]
+    ks = [0, ref.L - 1, 1] + [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(3)]
+    ss = [ref.L - 1, 0, 1 << 252] + [int.from_bytes(rng.bytes(32), "little") % ref.L
+                                     for _ in range(3)]
+    a = tuple(torch.from_numpy(np.stack([tl.int_to_limbs(p[c]) for p in pts], -1))
+              for c in range(4))
+
+    def windows(vals):
+        return torch.tensor([[(v >> (4 * j)) & 15 for v in vals] for j in range(64)])
+
+    comb = torch.from_numpy(tc.comb_table_host())
+    quad = tc.double_scalar_mul_base_quad(windows(ks), a, windows(ss), comb)
+    assert tuple(quad.shape) == (4, tl.NLIMB, len(pts))
+    one = tc.double_scalar_mul_base(windows(ks), a, windows(ss), comb)
+    want = [ref.point_add(ref.point_mul(s, ref.BASE), ref.point_mul(k, p))
+            for s, k, p in zip(ss, ks, pts)]
+    wz = [pow(w[2], P - 2, P) for w in want]
+    for c, (got, mid) in enumerate(zip(_affine(tc.point_from_quad(quad)), _affine(one))):
+        np.testing.assert_array_equal(got, mid)
+        ints = [w[c] * zi % P for w, zi in zip(want, wz)]
+        np.testing.assert_array_equal(got, np.stack([tl.int_to_limbs(v) for v in ints], -1))
+
+
+def test_cuda_quad_coefficients_match_python():
+    path = os.path.join(os.path.dirname(tc.__file__), "..", "csrc", "curve_quad.cuh")
+    src = open(path).read()
+    for name in ("QUAD_PAIR", "QUAD_DBL_IN", "QUAD_DBL_OP1", "QUAD_DBL_OP2",
+                 "QUAD_ADD_OP1", "QUAD_ADD_OP2"):
+        m = re.search(r"#define %s (\{.*\})\n" % name, src)
+        assert m, name
+        rows = eval(m.group(1).replace("{", "(").replace("}", ",)"))
+        assert rows == getattr(tc, name), name
