@@ -3,8 +3,10 @@ PyTorch version.
 
     python3 chip_smoke.py [--parent DIR]
 
-(--parent DIR: DIR holds a checkout of an earlier commit; phase 6 also
-builds its csrc/verify.cu and times that K1 beside this one.)
+(--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
+builds its csrc/verify.cu, verify_cached.cu and comb_fill.cu, and phases 6
+and 12 time those K1, K6 and K7 beside this tree's: [K1-ab], [K6-ab],
+[K7-ab].)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -59,7 +61,11 @@ script or when a phase fails):
               bank equal to index_copy_, untouched slots zero, a reinstall;
               K6 verify_cached at B = 16,384 of the voters' votes with
               corrupted lanes: mask equal to K1's and to the labels, and at
-              B = 1,024 to verify_cached_plain; all timed
+              B = 1,024 to verify_cached_plain; all timed, K6 beside its
+              bound at B = 16,384 and 1,024; with --parent, the parent's
+              K6 at B = 1,024 and 16,384 (masks and counts equal) and K7
+              at M = 32 and 1,544 (ok equal, tables equal on canonical
+              limbs), each timed in turns: one [K6-ab] and one [K7-ab] line
   13. comb pipeline  build_verify_pipeline(comb_slots=2,048,
               promote_threshold=2) over a vote-heavy stream (1,536 voters x
               4 slots, 2,048 transfers) in two waves, beside the same stream
@@ -269,32 +275,75 @@ def probe_host_breakdown(fprobe, kbuild, x, y, dev) -> dict:
     return ns
 
 
-def start_parent_k1_build(kbuild, parent: str):
-    """Start nvcc on another checkout's csrc/verify.cu (an older K1 with the
-    same C entry point), with the flags kbuild uses, into build/parent_k1/."""
+# --parent DIR: the earlier checkout's kernels built beside this one's, with
+# their C entry points' argument types (pointers, then ints)
+PARENT_KERNELS = {
+    "verify": ("fd_verify_batch", 7, ("i64", "i32", "i64")),
+    "verify_cached": ("fd_verify_cached", 9, ("i64", "i32", "i64")),
+    "comb_fill": ("fd_comb_fill", 3, ("i64",)),
+}
+
+
+def start_parent_build(kbuild, parent: str):
+    """Start nvcc on another checkout's csrc/<name>.cu for each of
+    PARENT_KERNELS (older kernels with the same C entry points), one process
+    a source, with the flags kbuild uses, into build/parent_kernels/."""
     csrc = os.path.join(os.path.abspath(parent), "firedancer_tpu_torch", "csrc")
-    check(os.path.exists(os.path.join(csrc, "verify.cu")), f"--parent: no {csrc}/verify.cu")
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent_k1")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libverify.so")
-    cmd = [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", csrc, "-o", so,
-           os.path.join(csrc, "verify.cu")]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
+    procs = {}
+    for name in PARENT_KERNELS:
+        src = os.path.join(csrc, f"{name}.cu")
+        check(os.path.exists(src), f"--parent: no {src}")
+        so = os.path.join(out_dir, f"lib{name}.so")
+        cmd = [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", csrc, "-o", so, src]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    return procs
 
 
-def finish_parent_k1_build(build):
+def finish_parent_build(procs) -> dict:
+    """{name: the parent's entry point as a ctypes function}."""
     import ctypes
 
-    so, proc = build
-    out, _ = proc.communicate()
-    sys.stderr.write(f"[parent-k1] nvcc rc={proc.returncode}\n{out}")
-    check(proc.returncode == 0, "--parent: nvcc failed on the parent's verify.cu")
-    fn = ctypes.CDLL(so).fd_verify_batch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-                                            ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    types = {"i32": ctypes.c_int, "i64": ctypes.c_int64}
+    fns = {}
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        sys.stderr.write(f"[parent] nvcc {name}.cu rc={proc.returncode}\n{out}")
+        check(proc.returncode == 0, f"--parent: nvcc failed on the parent's {name}.cu")
+        symbol, n_ptrs, ints = PARENT_KERNELS[name]
+        fn = getattr(ctypes.CDLL(so), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [types[t] for t in ints]
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def parent_call(fn, dev, *args) -> None:
+    """One launch of a parent kernel on the current stream: args are the
+    pointers and ints, before the device index and the stream."""
+    rc = fn(*args, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc == 0, f"parent kernel launch: CUDA error {rc}")
+
+
+def ab_times(tag: str, shapes, parent_fns, change_fns) -> None:
+    """Device-only times of the parent's and this tree's kernel at each
+    shape, in turns (parent, change, change, parent); one [tag] line.
+    shapes: (label, reps); parent_fns / change_fns: {label: a call}."""
+    times = {}
+    for who, fns in (("parent", parent_fns), ("change", change_fns),
+                     ("change", change_fns), ("parent", parent_fns)):
+        for label, reps in shapes:
+            times.setdefault((who, label), []).append(
+                time_ms(fns[label], reps=reps, hide_host=True))
+    log(f"[{tag}] device-only ms (parent, change; two turns each, in the order parent,"
+        " change, change, parent): " + "; ".join(
+            f"{label}: parent {' / '.join(f'{t:.4f}' for t in times[('parent', label)])},"
+            f" change {' / '.join(f'{t:.4f}' for t in times[('change', label)])}"
+            for label, _ in shapes))
 
 
 def k1_ab(parent_fn, sv, dev, args_mixed, mb, args16k, args1k, max_len) -> None:
@@ -307,26 +356,73 @@ def k1_ab(parent_fn, sv, dev, args_mixed, mb, args16k, args1k, max_len) -> None:
         bsz = args[1].shape[0]
         mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
         cnt = torch.zeros((), dtype=torch.int32, device=dev)
-        rc = parent_fn(*(a.data_ptr() for a in args), comb.data_ptr(), mask.data_ptr(),
-                       cnt.data_ptr(), bsz, max_len, n_real, dev.index or 0,
-                       torch.cuda.current_stream(dev).cuda_stream)
-        check(rc == 0, f"parent K1 launch: CUDA error {rc}")
+        parent_call(parent_fn, dev, *(a.data_ptr() for a in args), comb.data_ptr(),
+                    mask.data_ptr(), cnt.data_ptr(), bsz, max_len, n_real)
         return mask, cnt
 
     pm, pc = parent(args_mixed, mb.n_real)
     cm, cc = sv.verify_batch(*args_mixed, mb.n_real, max_msg_len=max_len)
     check(torch.equal(pm, cm) and int(pc) == int(cc), "parent K1 and K1 differ on the mixed batch")
-    times = {}
-    for who in ("parent", "change", "change", "parent"):
-        for bsz, args, reps in ((1024, args1k, 50), (16384, args16k, 10)):
-            fn = ((lambda a=args, b=bsz: parent(a, b)) if who == "parent"
-                  else (lambda a=args, b=bsz: sv.verify_batch(*a, b, max_msg_len=max_len)))
-            times.setdefault((who, bsz), []).append(time_ms(fn, reps=reps, hide_host=True))
-    log("[K1-ab] device-only ms (parent, change; two turns each, in the order parent, change,"
-        " change, parent): " + "; ".join(
-            f"B={b}: parent {' / '.join(f'{t:.4f}' for t in times[('parent', b)])},"
-            f" change {' / '.join(f'{t:.4f}' for t in times[('change', b)])}"
-            for b in (1024, 16384)))
+    shapes = (("B=1024", 50), ("B=16384", 10))
+    ab_times("K1-ab", shapes,
+             {"B=1024": lambda: parent(args1k, 1024), "B=16384": lambda: parent(args16k, 16384)},
+             {"B=1024": lambda: sv.verify_batch(*args1k, 1024, max_msg_len=max_len),
+              "B=16384": lambda: sv.verify_batch(*args16k, 16384, max_msg_len=max_len)})
+
+
+def k6_ab(parent_fn, sv, dev, runs, bank, max_len) -> None:
+    """The parent checkout's K6 beside this one on phase 12's lanes: masks
+    and counts equal at each batch, then device-only times in turns; one
+    [K6-ab] line.  runs: {label: (args, slots on the card, n_real)}."""
+    comb = sv.fc.comb_table(dev)
+
+    def parent(args, slots_d, n_real):
+        bsz = args[1].shape[0]
+        mask = torch.empty((bsz,), dtype=torch.bool, device=dev)
+        cnt = torch.zeros((), dtype=torch.int32, device=dev)
+        parent_call(parent_fn, dev, *(a.data_ptr() for a in args), bank.data_ptr(),
+                    slots_d.data_ptr(), comb.data_ptr(), mask.data_ptr(), cnt.data_ptr(),
+                    bsz, max_len, n_real)
+        return mask, cnt
+
+    def change(args, slots_d, n_real):
+        return sv.verify_cached_launch(*args, bank, slots_d, n_real, max_len)
+
+    for label, run in runs.items():
+        (pm, pc), (cm, cc) = parent(*run), change(*run)
+        check(torch.equal(pm, cm) and int(pc) == int(cc), f"parent K6 and K6 differ at {label}")
+    ab_times("K6-ab", [(label, 10) for label in runs],
+             {label: (lambda r=run: parent(*r)) for label, run in runs.items()},
+             {label: (lambda r=run: change(*r)) for label, run in runs.items()})
+
+
+def k7_ab(parent_fn, sv, fl, dev, runs) -> None:
+    """The parent checkout's K7 beside this one on phase 12's keys: ok equal
+    and the tables equal as field elements (canonical limbs; the parent
+    built them on one thread, so its limbs differ), then device-only times
+    in turns; one [K7-ab] line.  runs: {label: (32, M) uint8 keys}."""
+
+    def parent(pk):
+        m = pk.shape[1]
+        tables = torch.empty((m,) + sv.fc.COMB_SLOT_SHAPE, dtype=torch.int32, device=dev)
+        ok = torch.empty((m,), dtype=torch.bool, device=dev)
+        parent_call(parent_fn, dev, pk.data_ptr(), tables.data_ptr(), ok.data_ptr(), m)
+        return tables, ok
+
+    def canon(t):
+        return fl.fe_freeze(t.reshape(-1, 10).T.to(torch.int64))
+
+    for label, pk in runs.items():
+        pt, pok = parent(pk)
+        ct, cok = sv.comb_fill(pk)
+        check(torch.equal(pok, cok), f"parent K7 and K7 ok differ at {label}")
+        for i in range(0, pk.shape[1], 256):
+            check(torch.equal(canon(pt[i:i + 256]), canon(ct[i:i + 256])),
+                  f"parent K7 and K7 tables differ as field elements at {label}")
+        del pt, ct
+    ab_times("K7-ab", [(label, 10 if pk.shape[1] <= 32 else 3) for label, pk in runs.items()],
+             {label: (lambda pk=pk: parent(pk)) for label, pk in runs.items()},
+             {label: (lambda pk=pk: sv.comb_fill(pk)) for label, pk in runs.items()})
 
 
 def time_host_ms(fn) -> float:
@@ -428,9 +524,9 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------------
     mark("2")
     t0 = time.perf_counter()
-    parent_build = start_parent_k1_build(kbuild, PARENT) if PARENT else None
+    parent_build = start_parent_build(kbuild, PARENT) if PARENT else None
     kbuild.build_all()
-    parent_k1 = finish_parent_k1_build(parent_build) if parent_build else None
+    parent_fns = finish_parent_build(parent_build) if parent_build else None
     log(f"[build] {kbuild.kernel_names()} in {time.perf_counter() - t0:.1f} s"
         f" ({kbuild.build_dir()})")
     kernels = []
@@ -623,8 +719,8 @@ def main() -> int:
     ms1k = time_ms(lambda: sv.verify_batch(*args1k, B1, max_msg_len=ML1), reps=50)
     ms1k_dev = time_ms(lambda: sv.verify_batch(*args1k, B1, max_msg_len=ML1), reps=50,
                        hide_host=True)
-    if parent_k1 is not None:
-        k1_ab(parent_k1, sv, dev, args1, mb, argst, args1k, ML1)
+    if parent_fns is not None:
+        k1_ab(parent_fns["verify"], sv, dev, args1, mb, argst, args1k, ML1)
     plain1 = time_host_ms(lambda: sv.verify_batch_plain(*argst, BT, ML1))
     ops1 = BT * sv.K1_PRODUCTS_PER_VALID_LANE
     bytes1 = BT * (ML1 + 4 + 64 + 32) + 64 * 16 * 4 * fl.NLIMB * 4 + BT + 4
@@ -1035,18 +1131,21 @@ def main() -> int:
     lib8all = time_ms(lambda: b8.index_copy_(0, s12, tv12), reps=10, hide_host=True)
     # bounds from this run's inputs: K6 counts the full work of the lanes
     # that do it all (honest and corrupted-message lanes) and the distinct
-    # bank and base-comb entries the batch reads
-    full6 = [i for i in range(B6) if bad6.get(i) in (None, "bad_msg")]
-    sha6 = sum((int(l6[i]) + 64 + 17 + 127) // 128 for i in full6) * SHA512_OPS_PER_BLOCK
-    ops6 = len(full6) * sv.MULS_PER_CACHED_LANE * sv.PRODUCTS_PER_MUL + sha6
-    ent_a = {(sl6[i], j, (kw6[i] >> (4 * j)) & 15) for i in full6 for j in range(64)}
-    ent_b = {(j, (int.from_bytes(bytes(sg6[i, 32:]), "little") >> (4 * j)) & 15)
-             for i in full6 for j in range(64)}
-    bytes6 = B6 * (ML1 + 4 + 64 + 32 + 4) + 160 * (len(ent_a) + len(ent_b)) + B6 + 4
-    bms6, bby6 = bound(ops6, bytes6)
-    bms7, bby7 = bound(32 * sv.MULS_PER_COMB_FILL * sv.PRODUCTS_PER_MUL,
-                       32 * (32 + sv.BANK_SLOT_BYTES + 1))
-    bms7all, bby7all = bound(M12 * sv.MULS_PER_COMB_FILL * sv.PRODUCTS_PER_MUL,
+    # bank and base-comb entries the batch reads, over its first n lanes
+    def bound6(n):
+        full = [i for i in range(n) if bad6.get(i) in (None, "bad_msg")]
+        sha = sum((int(l6[i]) + 64 + 17 + 127) // 128 for i in full) * SHA512_OPS_PER_BLOCK
+        ops = len(full) * sv.PRODUCTS_PER_CACHED_LANE + sha
+        ent_a = {(sl6[i], j, (kw6[i] >> (4 * j)) & 15) for i in full for j in range(64)}
+        ent_b = {(j, (int.from_bytes(bytes(sg6[i, 32:]), "little") >> (4 * j)) & 15)
+                 for i in full for j in range(64)}
+        nbytes = n * (ML1 + 4 + 64 + 32 + 4) + 160 * (len(ent_a) + len(ent_b)) + n + 4
+        return bound(ops, nbytes) + (ops, nbytes, len(ent_a))
+
+    bms6, bby6, ops6, bytes6, n_ent6 = bound6(B6)
+    bms6k, bby6k, _, _, _ = bound6(B6k)
+    bms7, bby7 = bound(32 * sv.PRODUCTS_PER_COMB_FILL, 32 * (32 + sv.BANK_SLOT_BYTES + 1))
+    bms7all, bby7all = bound(M12 * sv.PRODUCTS_PER_COMB_FILL,
                              M12 * (32 + sv.BANK_SLOT_BYTES + 1))
     bms8, bby8 = bound(0, 32 * (2 * sv.BANK_SLOT_BYTES + 8))
     bms8all, bby8all = bound(0, VOTERS * (2 * sv.BANK_SLOT_BYTES + 8))
@@ -1056,6 +1155,7 @@ def main() -> int:
         ms=ms6, plain_ms=plain6, bound_ms=bms6, bound_by=bby6, library_ms=None,
         matched=True, shape=f"B={B6} max_msg_len={ML1} bank={BANK_SLOTS}",
         plain_shape=f"B={B6k}", ms_batch1024=ms6k, ms_k1_same_lanes=ms1_6,
+        bound_ms_batch1024=bms6k, bound_by_batch1024=bby6k,
         sigverify_per_s=B6 / ms6 * 1e3, phase_launches=kbuild.LAUNCHES["verify_cached"]))
     kernels.append(dict(
         name="comb_fill", route="cuda", source="firedancer_tpu_torch/csrc/comb_fill.cu",
@@ -1071,6 +1171,10 @@ def main() -> int:
         matched=True, shape=f"M=32 bank={BANK_SLOTS}", ms_all=ms8all,
         library_ms_all=lib8all, shape_all=f"M={VOTERS}", bound_ms_all=bms8all,
         phase_launches=kbuild.LAUNCHES["bank_install"]))
+    if parent_fns is not None:
+        k6_ab(parent_fns["verify_cached"], sv, dev,
+              {f"B={B6k}": (args6k, sl6kd, B6k), f"B={B6}": (args6, sl6d, B6)}, bank12, ML1)
+        k7_ab(parent_fns["comb_fill"], sv, fl, dev, {"M=32": pk32, f"M={M12}": pk12})
     del b8, tall, tv12
     log(f"[comb] {len(vs13.stream)} frames signed in {sign_s:.1f} s; K7 comb_fill M=32:"
         f" {ms7:.4f} ms (bound {bms7:.4f} ms, {bby7}), M={M12}: {ms7all:.4f} ms (bound"
@@ -1082,8 +1186,9 @@ def main() -> int:
         f" {bms8all:.4f} ms); equal to index_copy_, untouched slots zero, reinstall ok")
     log(f"[comb] K6 verify_cached B={B6}: {ms6:.4f} ms = {B6 / ms6 / 1e3:.0f} k sigverify/s"
         f" (bound {bms6:.4f} ms, {bby6}: {ops6:.4g} ops; bytes {bytes6:.4g} ="
-        f" {bytes6 / HBM_BYTES_PER_S * 1e3:.4f} ms with {len(ent_a)} bank entries read; K1 on the same lanes"
-        f" {ms1_6:.4f} ms); B={B6k}: {ms6k:.4f} ms, plain {plain6:.1f} ms; mask equal to K1's,"
+        f" {bytes6 / HBM_BYTES_PER_S * 1e3:.4f} ms with {n_ent6} bank entries read; K1 on the same lanes"
+        f" {ms1_6:.4f} ms); B={B6k}: {ms6k:.4f} ms (bound {bms6k:.4f} ms, {bby6k}), plain"
+        f" {plain6:.1f} ms; mask equal to K1's,"
         f" the labels ({int(lab6.sum())} of {B6} pass) and plain")
 
     # -- 13. the comb pipeline (the repeated-signer lane's main path) ------------------------
@@ -1810,7 +1915,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's K1 (a checkout of an earlier commit) and
-    # time it beside this one in phase 6
+    # --parent DIR: also build DIR's K1, K6 and K7 (a checkout of an earlier
+    # commit) and time them beside this tree's in phases 6 and 12
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

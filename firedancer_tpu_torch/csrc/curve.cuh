@@ -243,23 +243,21 @@ __device__ __forceinline__ ge ge_double_scalar_mul_base(
 // int32 (160 bytes, 16-byte aligned), components (Y+X, Y-X, Z, 2dT).  The
 // per-signer entries hold -[m 16^j]A with a general Z:
 // (Y-X, Y+X, Z, -2dT) of [m 16^j]A in those places (ops/curve.py
-// comb_tables).  One slot of the bank is one such comb, 40,960 int32.
+// comb_tables_quad).  One slot of the bank is one such comb, 40,960 int32.
 
 #define COMB_ENTRY_INTS 40
 #define COMB_WINDOW_INTS (16 * COMB_ENTRY_INTS)
 #define COMB_SLOT_INTS (64 * COMB_WINDOW_INTS)
 
-// One cached entry from global memory: ten 16-byte read-only loads.
-__device__ __forceinline__ gec gec_load(const int32_t* __restrict__ e) {
-  const int4* q = reinterpret_cast<const int4*>(e);
+// An entry's ten 16-byte pieces as a cached point.
+__device__ __forceinline__ gec gec_from_pieces(const int4 (&x)[COMB_ENTRY_INTS / 4]) {
   int32_t v[COMB_ENTRY_INTS];
 #pragma unroll
   for (int k = 0; k < COMB_ENTRY_INTS / 4; k++) {
-    const int4 x = __ldg(q + k);
-    v[4 * k] = x.x;
-    v[4 * k + 1] = x.y;
-    v[4 * k + 2] = x.z;
-    v[4 * k + 3] = x.w;
+    v[4 * k] = x[k].x;
+    v[4 * k + 1] = x[k].y;
+    v[4 * k + 2] = x[k].z;
+    v[4 * k + 3] = x[k].w;
   }
   gec r;
 #pragma unroll
@@ -272,55 +270,11 @@ __device__ __forceinline__ gec gec_load(const int32_t* __restrict__ e) {
   return r;
 }
 
-// The cached form of -P from the cached form of P: (Y-X, Y+X, Z, -2dT),
-// stored as one entry with ten 16-byte stores.
-__device__ __forceinline__ void gec_store_neg(const gec& c, int32_t* __restrict__ e) {
-  const fe nt = fe_neg(c.t2d);
-  int32_t v[COMB_ENTRY_INTS];
+// One cached entry from global memory: ten 16-byte read-only loads.
+__device__ __forceinline__ gec gec_load(const int32_t* __restrict__ e) {
+  const int4* q = reinterpret_cast<const int4*>(e);
+  int4 x[COMB_ENTRY_INTS / 4];
 #pragma unroll
-  for (int i = 0; i < 10; i++) {
-    v[i] = c.ymx.v[i];
-    v[10 + i] = c.ypx.v[i];
-    v[20 + i] = c.z.v[i];
-    v[30 + i] = nt.v[i];
-  }
-  int4* q = reinterpret_cast<int4*>(e);
-#pragma unroll
-  for (int k = 0; k < COMB_ENTRY_INTS / 4; k++)
-    q[k] = make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-}
-
-// Window j of the comb of -A from A_j = [16^j]A: the 16 entries -[m]A_j,
-// m = 0..15, built by the JAX package's chain (ops/curve.py:417-423):
-// the identity, A_j, then [m]A_j = 2 [m/2]A_j for even m and
-// [m-1]A_j + A_j for odd m.  out: COMB_WINDOW_INTS int32, 16-byte aligned.
-__device__ __forceinline__ void ge_comb_window(const ge& a, int32_t* __restrict__ out) {
-  ge half[8];
-  half[0] = ge_identity();
-  half[1] = a;
-  const gec ca = ge_to_cached(a);
-  gec_store_neg(ge_to_cached(half[0]), out);
-  gec_store_neg(ca, out + COMB_ENTRY_INTS);
-  ge prev = a;
-  for (int m = 2; m < 16; m++) {
-    ge p = (m & 1) ? ge_add_cached(prev, ca) : ge_dbl(half[m >> 1]);
-    if (m < 8) half[m] = p;
-    gec_store_neg(ge_to_cached(p), out + m * COMB_ENTRY_INTS);
-    prev = p;
-  }
-}
-
-// [s]B + [k](-A) with -A's comb in `slot` (one bank slot, COMB_SLOT_INTS
-// int32) and B's in `comb`: 64 windows, least significant first, each one
-// cached add from the signer's comb and one from the base comb; no
-// doublings (ops/curve.py double_scalar_mul_comb).
-__device__ __forceinline__ ge ge_double_scalar_mul_comb(
-    const uint8_t kw[64], const uint8_t sw[64], const int32_t* __restrict__ slot,
-    const int32_t* __restrict__ comb) {
-  ge acc = ge_identity();
-  for (int j = 0; j < 64; j++) {
-    acc = ge_add_cached(acc, gec_load(slot + j * COMB_WINDOW_INTS + kw[j] * COMB_ENTRY_INTS));
-    acc = ge_add_cached(acc, gec_load(comb + j * COMB_WINDOW_INTS + sw[j] * COMB_ENTRY_INTS));
-  }
-  return acc;
+  for (int k = 0; k < COMB_ENTRY_INTS / 4; k++) x[k] = __ldg(q + k);
+  return gec_from_pieces(x);
 }

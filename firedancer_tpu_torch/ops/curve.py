@@ -168,14 +168,17 @@ def double_scalar_mul_base(k_windows: torch.Tensor, a_point,
 
 # -- the quad schedule (the plain twin of csrc/curve_quad.cuh) -------------------
 #
-# K1 runs each signature on a quad of four threads, thread c holding
-# coordinate c of the extended point (X, Y, Z, T).  Here a quad point is one
+# K1 and K6 run each signature, and K7 each point of a key's chain and
+# windows, on a quad of four threads, thread c holding coordinate c of the
+# extended point (X, Y, Z, T).  Here a quad point is one
 # (4, 10, *batch) tensor, row c = thread c's coordinate, and a quad cached
 # operand is (4, 10, *batch) in thread order (Y-X, Y+X, Z, 2dT).  Each row's
 # multiply is one thread's; the exchanges between rounds (the kernel's
 # __shfl_sync) are the kernel's per-thread linear combinations of rows,
-# left uncarried as the kernel leaves them.  The limbs equal the kernel's; the values equal
-# point_dbl's and add_cached's mod p.  Nothing on the main path calls these.
+# left uncarried as the kernel leaves them.  The limbs equal the kernel's;
+# the values equal point_dbl's and add_cached's mod p.  K7's plain version
+# builds its tables with these (comb_tables_quad), so its limbs are the
+# kernel's; the K1 and K6 schedules' twins are for the tests.
 
 # thread c's coefficients (csrc/curve_quad.cuh's QUAD_* tables): on (own,
 # partner c ^ 1) before an addition's first round and in to_cached; on
@@ -355,36 +358,44 @@ def comb_table(device) -> torch.Tensor:
 COMB_SLOT_SHAPE = (NWIN, 16, 4, fl.NLIMB)
 
 
-def comb_tables(a_point):
-    """(*batch, 64, 16, 4, 10) int32 comb of -A for a batch of points.
+def comb_tables_quad(a_point):
+    """(*batch, 64, 16, 4, 10) int32 comb of -A for a batch of points, in
+    K7's schedule (csrc/comb_fill.cu): the same sums as the kernel, so the
+    same limbs.
 
     a_point: extended (X, Y, Z, T), each (10, *batch).  The counterpart of
-    ops/curve.py:399 comb_tables, with its chain: A_j = [16^j]A by four
-    doublings per window; window j holds the cached forms of -[m]A_j, m =
-    0..15, from the identity, A_j, then [m]A_j = 2 [m/2]A_j for even m and
-    [m-1]A_j + A_j for odd m.  The 64 windows are built together (the
-    windows are a batch axis here), entry by entry the same arithmetic as
-    K7's per-window threads, so the limbs agree exactly.
+    ops/curve.py:399 comb_tables, with its chain and its order: A_j =
+    [16^j]A by four quad doublings a window; window j holds the cached
+    forms of -[m]A_j, m = 0..15, from the identity, A_j, then [m]A_j =
+    2 [m/2]A_j for even m and [m-1]A_j + A_j for odd m, each point a quad
+    doubling or a quad addition and its quad cached form.  These are the
+    one-thread formulas run four ways, so the entries are the JAX tables'
+    projective points; their limbs are the quad's (the exchanges are left
+    uncarried).  The 64 windows are built together (the windows are a
+    batch axis here); stored component c is thread c's, (Y-X, Y+X, Z,
+    -2dT) of [m]A_j.
     """
     batch = tuple(a_point[0].shape[1:])
     dev = a_point[0].device
-    chain = [a_point]
+    chain = [quad_from_point(a_point)]
     for _ in range(NWIN - 1):
         p = chain[-1]
         for _ in range(4):
-            p = point_dbl(p)
+            p = point_dbl_quad(p)
         chain.append(p)
-    a = tuple(torch.stack([p[c] for p in chain], dim=1) for c in range(4))
-    pts = [identity((NWIN,) + batch, dev), a]
+    a = torch.stack(chain, dim=2)  # (4, 10, 64, *batch)
+    c1 = to_cached_quad(a)
+    rows = [quad_from_cached(to_cached(identity((NWIN,) + batch, dev))), c1]
+    half = [None, a]
+    prev = a
     for m in range(2, 16):
-        pts.append(point_dbl(pts[m // 2]) if m % 2 == 0
-                   else point_add(pts[m - 1], a))
-    rows = []
-    for p in pts:
-        ypx, ymx, z, t2d = to_cached(p)
-        rows.append(torch.stack([ymx, ypx, z, fl.fe_neg(t2d)]))
-    out = torch.stack(rows)  # (16, 4, 10, 64, *batch)
-    n = len(batch)
+        p = add_cached_quad(prev, c1) if m % 2 else point_dbl_quad(half[m // 2])
+        if m < 8:
+            half.append(p)
+        rows.append(to_cached_quad(p))
+        prev = p
+    out = torch.stack([torch.cat([r[:3], fl.fe_neg(r[3])[None]]) for r in rows])
+    n = len(batch)  # out: (16, 4, 10, 64, *batch)
     return out.permute(*range(4, 4 + n), 3, 0, 1, 2).to(torch.int32).contiguous()
 
 
@@ -414,4 +425,33 @@ def double_scalar_mul_comb(k_windows: torch.Tensor, s_windows: torch.Tensor,
     for j in range(NWIN):
         acc = add_cached(acc, _entry(bank[slots, j, k_windows[j].to(torch.int64)]))
         acc = add_cached(acc, _entry(comb[j][s_windows[j].to(torch.int64)]))
+    return acc
+
+
+def double_scalar_mul_comb_quad(k_windows: torch.Tensor, s_windows: torch.Tensor,
+                                bank: torch.Tensor, slots: torch.Tensor,
+                                comb: torch.Tensor):
+    """[s]B + [k](-A) in K6's schedule (csrc/verify_cached.cu) -> a (4, 10,
+    *batch) quad point: the same group element as double_scalar_mul_comb's,
+    another projective representative.
+
+    Thread c's partial sum adds windows 16c .. 16c+15, each the signer's
+    entry and then the base comb's, from the identity with the one-thread
+    formulas (add_cached); the join is thread 0's sum as a quad point, then
+    quad additions of threads 1-3's cached forms, in that order."""
+    batch = k_windows.shape[1:]
+    dev = k_windows.device
+    slots = slots.to(device=dev, dtype=torch.int64)
+    comb = comb.to(dev)
+    per = NWIN // QUAD_COMB_SPLIT
+    parts = []
+    for c in range(QUAD_COMB_SPLIT):
+        part = identity(batch, dev)
+        for j in range(per * c, per * (c + 1)):
+            part = add_cached(part, _entry(bank[slots, j, k_windows[j].to(torch.int64)]))
+            part = add_cached(part, _entry(comb[j][s_windows[j].to(torch.int64)]))
+        parts.append(part)
+    acc = quad_from_point(parts[0])
+    for part in parts[1:]:
+        acc = add_cached_quad(acc, quad_from_cached(to_cached(part)))
     return acc

@@ -83,17 +83,25 @@ K1_MULS_PER_VALID_LANE = (2 * (20 + 3 * 4) + 14 * 8 + 15 + 64 * (4 * 4 + 8) + 64
                           + 4 * 8 + MULS_EQ_Z1)
 K1_PRODUCTS_PER_VALID_LANE = (K1_SQUARINGS_PER_VALID_LANE * PRODUCTS_PER_SQUARING
                               + K1_MULS_PER_VALID_LANE * PRODUCTS_PER_MUL)
-# the cached lane (K6, csrc/verify_cached.cu): R's decompression and small-
-# order check, 128 cached adds (one from the signer's comb and one from the
-# base comb per window), the compare; A is not decompressed
-MULS_CACHED_DSM = 2 * 64 * 8
-MULS_PER_CACHED_LANE = MULS_DECOMPRESS + MULS_SMALL_ORDER + MULS_CACHED_DSM + MULS_EQ_Z1
-# comb_fill per pubkey (K7, csrc/comb_fill.cu): decompression and small
-# order, the chain A_j = [16^j]A (63 x 4 doublings), and 64 windows of 2
-# conversions to cached form + 7 doublings + 7 cached adds + 14 conversions
-MULS_COMB_WINDOW = 2 + 7 * 8 + 7 * 8 + 14
-MULS_PER_COMB_FILL = (MULS_DECOMPRESS + MULS_SMALL_ORDER + 63 * 4 * 8
-                      + 64 * MULS_COMB_WINDOW)
+# K6 (csrc/verify_cached.cu over csrc/curve_quad.cuh) per valid lane: R
+# decompressed (255 squarings, 20 multiplies) and checked for small order
+# (3 doublings of 4 + 4); 128 one-thread cached adds of 8 multiplies (the
+# signer's comb and the base comb, one entry each a window, in four partial
+# sums); the join: 3 conversions of a partial sum (one multiply: T 2d) and
+# 3 quad adds; the Z = 1 compare.  A is not decompressed.
+K6_SQUARINGS_PER_VALID_LANE = 255 + 3 * 4
+K6_MULS_PER_VALID_LANE = 20 + 3 * 4 + 2 * 64 * 8 + 3 + 3 * 8 + MULS_EQ_Z1
+PRODUCTS_PER_CACHED_LANE = (K6_SQUARINGS_PER_VALID_LANE * PRODUCTS_PER_SQUARING
+                            + K6_MULS_PER_VALID_LANE * PRODUCTS_PER_MUL)
+# K7 (csrc/comb_fill.cu over csrc/curve_quad.cuh) per key: A decompressed
+# and checked as R above; the chain A_j = [16^j]A, 63 x 4 quad doublings (4
+# squarings, 4 multiplies each); 64 windows of 7 quad doublings, 7 quad
+# adds (8 multiplies) and 15 conversions to cached form (one multiply: T 2d;
+# the identity's entry is a constant)
+K7_SQUARINGS_PER_KEY = 255 + 3 * 4 + 63 * 4 * 4 + 64 * 7 * 4
+K7_MULS_PER_KEY = 20 + 3 * 4 + 63 * 4 * 4 + 64 * (7 * 4 + 7 * 8 + 15)
+PRODUCTS_PER_COMB_FILL = (K7_SQUARINGS_PER_KEY * PRODUCTS_PER_SQUARING
+                          + K7_MULS_PER_KEY * PRODUCTS_PER_MUL)
 # one bank slot: one signer's comb, (64, 16, 4, 10) int32
 BANK_SLOT_BYTES = 4 * int(np.prod(fc.COMB_SLOT_SHAPE))
 
@@ -483,7 +491,7 @@ def comb_fill_plain(pubkey: torch.Tensor):
     tables, (M,) bool ok)."""
     a_pt, ok = fc.point_decompress(pubkey)
     ok = ok & ~fc.is_small_order(a_pt)
-    return fc.comb_tables(a_pt), ok
+    return fc.comb_tables_quad(a_pt), ok
 
 
 def comb_fill(pubkey, device=None):

@@ -1,11 +1,13 @@
 """The repeated-signer (comb-bank) lane of the port against the JAX package,
 at small sizes and exactly (integer arithmetic, tolerance zero):
 
-  - comb_fill_plain's tables (carried across with bank_to_jax/bank_from_jax,
-    compared on canonical limbs) and ok mask equal JAX comb_fill's on 4 good
-    and 4 bad keys; every entry is -[m 16^j]A by Python ints;
+  - comb_fill_plain's tables (K7's quad schedule; carried across with
+    bank_to_jax/bank_from_jax, compared on canonical limbs) and ok mask
+    equal JAX comb_fill's on 4 good and 4 bad keys; every entry is
+    -[m 16^j]A by Python ints;
   - verify_cached_plain equals JAX ed25519_verify_batch_cached on a 4-lane
-    batch with corruptions, over a bank carried across with bank_from_jax;
+    batch with corruptions, over a bank carried across with bank_from_jax
+    and over the bank comb_fill_plain fills (other limbs, the same points);
   - bank_install_plain equals JAX bank_install, reinstall included;
   - the stage's promotion policy gives the JAX stage's answers, fill queue
     and slots on one seeded sequence of sightings, and the six cases of
@@ -147,6 +149,31 @@ def test_verify_cached_plain_equals_jax(filled):
     assert mask.tolist() == [True, False, False, False] and int(cnt) == 1
     # the generic lane agrees on the same lanes
     assert tsv.verify_batch(*args, 4, max_msg_len=MAX_MSG_LEN)[0].tolist() == labels
+
+
+def test_verify_cached_plain_reads_the_quad_bank_as_jax_reads_its_own(filled):
+    """The bank as K7 fills it (comb_fill_plain's tables: the quad
+    schedule's limbs) gives verify_cached_plain JAX's mask on the same
+    lanes, and the same mask as the bank carried across from JAX's tables."""
+    jt, _, tt, _ = filled
+    slots = np.array([1, 4, 0, 2], dtype=np.int32)
+    jbank = jsv.bank_install(jsv.bank_alloc(5), jnp.asarray(jt[..., :4]),
+                             jnp.asarray(slots))
+    msg, ln, sig, pk, labels = _cached_batch()
+    jmask = jsv.ed25519_verify_batch_cached(
+        jnp.asarray(msg), jnp.asarray(ln), jnp.asarray(sig), jnp.asarray(pk),
+        jbank, jnp.asarray(slots), max_msg_len=MAX_MSG_LEN)
+    args = [torch.from_numpy(a) for a in (msg, ln, sig, pk)]
+    qbank = tsv.bank_install(tsv.bank_alloc(5, device="cpu"),
+                             torch.from_numpy(tt[:4].copy()), slots.tolist())
+    jcarried = torch.from_numpy(tcv.bank_from_jax(np.asarray(jbank)))
+    assert not torch.equal(qbank, jcarried)  # other limbs, the same points
+    assert (_canon(qbank.numpy()) == jcarried.numpy()).all()
+    for bank in (qbank, jcarried):
+        mask, cnt = tsv.verify_cached(*args, bank, slots.tolist(), 4,
+                                      max_msg_len=MAX_MSG_LEN)
+        assert mask.tolist() == np.asarray(jmask).tolist() == labels
+        assert int(cnt) == sum(labels)
 
 
 def test_bank_install_plain_equals_jax(filled):

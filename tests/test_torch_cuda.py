@@ -219,8 +219,12 @@ def test_plane_step_runs_poh_only_with_parked_spans(dev):
     assert kbuild.LAUNCHES["verify_batch"] == 2
 
 
-@pytest.mark.parametrize("m", [1, 5, 33])
+@pytest.mark.parametrize("m", [1, 5, 33, 301, 600])
 def test_comb_fill_kernel_equals_plain(dev, m):
+    """K7 holds 1 to 4 keys a block (one a block up to the SM count; on 132
+    SMs 301 keys are 3 a block, the last block with one; 600 are 4 a block,
+    150 blocks, more than the SMs, the kernel built for two blocks an SM):
+    tables limb for limb and ok equal to the plain version."""
     from firedancer_tpu_torch.models.workload import nonsquare_encodings, torsion_encodings
     from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
 
@@ -273,6 +277,65 @@ def test_verify_cached_kernel_equals_plain_and_generic(dev):
     assert mask.cpu().tolist() == mb.labels[lanes][:n_real].tolist() + [False, False]
     assert int(cnt) == int(pcnt) == int(mask.sum())
     assert kbuild.LAUNCHES["verify_cached"] == 1
+
+
+@pytest.mark.parametrize("reps", [1, 148])
+def test_verify_cached_kernel_at_ragged_batches_and_rejected_warps(dev, reps):
+    """K6 runs a signature on four threads, 32 signatures a four-warp block:
+    61 lanes (the last block ends inside a warp) with a warp whose 8 lanes
+    all fail s < L before the sum, another whose lanes all fail R's check
+    after the hash, a lone bad lane inside a warp; tiled 148 times (9,028
+    lanes, 283 blocks: more than two an SM, the kernel built for four);
+    the last 16 lanes pad, past n_real (one warp partly, two wholly).  The
+    mask and count equal the plain version's, K1's and the labels; pad
+    lanes read no bank (their slots are out of range)."""
+    from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
+
+    secrets = [hashlib.sha256(b"k6r%d" % i).digest() for i in range(5)]
+    pubs = [ref.public_key(sk) for sk in secrets]
+    width, max_len = 61, 96
+    rng = np.random.default_rng(51)
+    msg = np.zeros((max_len, width), np.uint8)
+    ln = np.zeros((width,), np.int32)
+    sig = np.zeros((64, width), np.uint8)
+    pk = np.zeros((32, width), np.uint8)
+    labels = []
+    for i in range(width):
+        who = i % len(secrets)
+        m = rng.bytes(int(rng.integers(0, max_len + 1)))
+        sg = ref.sign(secrets[who], m)
+        if 8 <= i < 16 or i == 29:  # s >= L
+            sg = sg[:32] + (int.from_bytes(sg[32:], "little") + ref.L).to_bytes(32, "little")
+        elif 16 <= i < 24:  # R of order 2: fails after the hash
+            sg = (ref.P - 1).to_bytes(32, "little") + sg[32:]
+        msg[: len(m), i] = np.frombuffer(m, np.uint8)
+        ln[i] = len(m)
+        sig[:, i] = np.frombuffer(sg, np.uint8)
+        pk[:, i] = np.frombuffer(pubs[who], np.uint8)
+        labels.append(ref.verify(m, sg, pubs[who]))
+    assert not any(labels[8:24]) and not labels[29] and sum(labels) == width - 17
+    bsz = width * reps
+    n_real = bsz - 16
+    want = (np.tile(labels, reps) & (np.arange(bsz) < n_real)).tolist()
+    cols = [np.ascontiguousarray(np.tile(a, (1,) * (a.ndim - 1) + (reps,)))
+            for a in (msg, ln, sig, pk)]
+    tables, ok = sv.comb_fill(torch.from_numpy(_cols(pubs)).to(dev))
+    assert bool(ok.all())
+    slot_of = [6, 2, 0, 5, 3]
+    bank = sv.bank_alloc(7, device=dev)
+    sv.bank_install(bank, tables, slot_of)
+    slots = [slot_of[(i % width) % len(secrets)] if i < n_real else 99 for i in range(bsz)]
+    args = [torch.from_numpy(a).to(dev) for a in cols]
+    mask, cnt = sv.verify_cached(*args, bank, slots, n_real, max_msg_len=max_len)
+    pmask, pcnt = sv.verify_cached_plain(*args, bank, slots, n_real, max_len)
+    gmask, gcnt = sv.verify_batch(*args, n_real, max_msg_len=max_len)
+    assert mask.cpu().tolist() == pmask.cpu().tolist() == gmask.cpu().tolist() == want
+    assert int(cnt) == int(pcnt) == int(gcnt) == sum(want)
+    assert kbuild.LAUNCHES["verify_cached"] == 1
+
+
+def _cols(keys):
+    return np.stack([np.frombuffer(k, np.uint8) for k in keys], 1)
 
 
 def test_split_phase_kernels_equal_plain_and_labels(dev):

@@ -234,3 +234,92 @@ def test_cuda_quad_coefficients_match_python():
         assert m, name
         rows = eval(m.group(1).replace("{", "(").replace("}", ",)"))
         assert rows == getattr(tc, name), name
+
+
+# -- the comb lane's schedules (K7's chain and windows, K6's four-way sum) ------------
+
+def _decompressed(pts):
+    """Z = 1 points (Python ints) through the port's decompression: the
+    limbs K7 starts from, (10, n) int64 coordinates."""
+    encs = [ref.point_compress(p) for p in pts]
+    a, ok = tc.point_decompress(torch.from_numpy(_cols(encs)))
+    assert ok.all()
+    return a
+
+
+def test_comb_tables_quad_window_by_window_equals_the_batched_build():
+    """comb_tables_quad builds every window of every key at once; K7 builds
+    them a quad at a time.  Key by key, the chain by four quad doublings,
+    then windows 0, 1, 37 and 63 entry by entry (identity, A_j, doublings of
+    [m/2]A_j for even m, additions of A_j for odd m, each stored as its quad
+    cached form with -2dT) give the same limbs."""
+    a = _decompressed(_points(36, 2))
+    tables = tc.comb_tables_quad(a)
+    assert tables.shape == (2, 64, 16, 4, tl.NLIMB) and tables.dtype == torch.int32
+    for key in range(2):
+        p = tc.quad_from_point(tuple(c[:, key:key + 1] for c in a))
+        chain = [p]
+        for _ in range(63):
+            for _ in range(4):
+                p = tc.point_dbl_quad(p)
+            chain.append(p)
+        for j in (0, 1, 37, 63):
+            aj = chain[j]
+            c1 = tc.to_cached_quad(aj)
+            ident = torch.zeros_like(c1)
+            ident[:3, 0] = 1
+            entries, half, prev = [ident, c1], [None, aj], aj
+            for m in range(2, 16):
+                prev = tc.add_cached_quad(prev, c1) if m % 2 else tc.point_dbl_quad(half[m // 2])
+                half.append(prev)
+                entries.append(tc.to_cached_quad(prev))
+            for m, e in enumerate(entries):
+                e = torch.cat([e[:3], tl.fe_neg(e[3])[None]])[..., 0]
+                assert torch.equal(tables[key, j, m], e.to(torch.int32)), (key, j, m)
+
+
+def test_comb_tables_quad_limbs_stay_in_the_carried_bound():
+    """K6 multiplies the bank's entries as fe_mul's second operand, which
+    csrc/fe_field.cuh and csrc/curve_quad.cuh bound for carried limbs
+    (|limb| <= 1.1 * 2^25, 1.1 * 2^24 for the 25-bit ones): every limb of
+    the quad-built tables is in that form."""
+    a = _decompressed(_points(37, 3))
+    tables = tc.comb_tables_quad(a).to(torch.int64).abs()
+    bound = torch.tensor([1.1 * 2.0 ** (w - 1) for w in tl.WIDTHS], dtype=torch.float64)
+    assert (tables.to(torch.float64) <= bound).all()
+
+
+def test_double_scalar_mul_comb_quad_equals_one_thread_sum_and_reference():
+    """K6's schedule (four partial sums of 16 windows each over the signer's
+    comb and the base comb, joined by quad additions) is [s]B + [k](-A): the
+    same group element as double_scalar_mul_comb's (X Z' = X' Z, Y Z' = Y' Z
+    over Python ints) and ed25519_ref's, including k = 0, s = 0, the largest
+    scalars and one lane per signer twice."""
+    rng = np.random.default_rng(38)
+    pts = _points(39, 3)
+    bank = tc.comb_tables_quad(_decompressed(pts))  # slot i: the comb of -P_i
+    slots = [2, 0, 1, 1, 0, 2]
+    ks = [0, ref.L - 1, 1] + [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(3)]
+    ss = [ref.L - 1, 0, 1 << 252] + [int.from_bytes(rng.bytes(32), "little") % ref.L
+                                     for _ in range(3)]
+
+    def windows(vals):
+        return torch.tensor([[(v >> (4 * j)) & 15 for v in vals] for j in range(64)])
+
+    comb = torch.from_numpy(tc.comb_table_host())
+    args = (windows(ks), windows(ss), bank, torch.tensor(slots), comb)
+    quad = tc.point_from_quad(tc.double_scalar_mul_comb_quad(*args))
+    one = tc.double_scalar_mul_comb(*args)
+    assert tuple(quad[0].shape) == (tl.NLIMB, len(ks))
+
+    def ints(p, lane):
+        return [tl.limbs_to_int(c[:, lane].numpy()) for c in p]
+
+    for lane, (k, s, sl) in enumerate(zip(ks, ss, slots)):
+        X, Y, Z, _ = ints(quad, lane)
+        X1, Y1, Z1, _ = ints(one, lane)
+        assert Z % P and Z1 % P
+        assert X * Z1 % P == X1 * Z % P and Y * Z1 % P == Y1 * Z % P
+        want = ref.point_add(ref.point_mul(s, ref.BASE),
+                             ref.point_mul(k, ref.point_neg(pts[sl])))
+        assert X * want[2] % P == want[0] * Z % P and Y * want[2] % P == want[1] * Z % P
