@@ -4,9 +4,9 @@ PyTorch version.
     python3 chip_smoke.py [--parent DIR]
 
 (--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
-builds its csrc/verify.cu, verify_cached.cu and comb_fill.cu, and phases 6
-and 12 time those K1, K6 and K7 beside this tree's: [K1-ab], [K6-ab],
-[K7-ab].)
+builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu
+and sha256_iter32.cu, and phases 6, 8, 12 and 14 time those K1, K4, K6, K7
+and K11 beside this tree's: [K1-ab], [K4-ab], [K6-ab], [K7-ab], [K11-ab].)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -35,9 +35,15 @@ script or when a phase fails):
               times in turns): one [K1-ab] line
   7. pipeline build_verify_pipeline (benchg -> verify -> dedup -> sink) at
               batch 1,024, max_msg_len 1,232: exact counters, K1 launched
-  8. K4       sha256_iter32 at B = 4,096 chains x n = 12,500 (64 slots x 64
-              tick spans at hashes_per_tick 12,500): 32 lanes equal to
-              hashlib, all lanes equal to the plain version at n = 64; timed
+  8. K4       sha256_iter32 at n = 12,500 (hashes_per_tick) and B = 4 (the
+              sharded leader block's chains), 64 (the plane's: one slot's
+              tick spans) and 4,096: 32 lanes equal to hashlib, B = 4 and 64
+              equal to the same chains at 4,096, all lanes equal to the plain
+              version at n = 64; each B timed beside its operations bound,
+              the round warp's issue time (its SASS instructions a hash,
+              cuobjdump, at 2 clocks each) and the chain floor estimate;
+              with --parent, the parent's K4 at each B (bytes equal, then
+              times in turns): one [K4-ab] line
   9. K5       gf256_apply encoding T = 1,024 FEC sets of 32 + 32 shreds x
               1,024 bytes: equal to the plain version (GF(2) bit matmul in
               float32) and gf256_ref on sampled sets; recover_batch over 64
@@ -79,7 +85,10 @@ script or when a phase fails):
               times): mask equal to K1's and to the ed25519_ref labels; at
               B = 1,024 each phase's output (limbs, k, ok, mask) equal to its
               plain version; each timed alone on phase 6's batch at B =
-              16,384 and 1,024 beside K1, with its own bound
+              16,384 and 1,024 beside K1, with its own bounds; with
+              --parent, the parent's K11 on the mixed batch at B = 1,024 and
+              16,384 (masks through K12 equal, points equal where A
+              decodes, then times in turns): one [K11-ab] line
   15. split pipeline  build_verify_pipeline(kernel="split") over phase 7's
               stream at batch 1,024: phase 7's counters and frames, each of
               K9-K12 launched once per batch and K1 never; beside the fused
@@ -155,9 +164,24 @@ HOST_CALLS = 10_000  # phase 2b: calls per piece of the host breakdown
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_CLK_PER_SM = 64  # 32-bit IMAD / IADD3 / LOP3 / SHF, sm_90
 SHA512_OPS_PER_BLOCK = 4144  # 32-bit instructions per 128-byte block, 2 per 64-bit op
-# 32-bit instructions per SHA-256 compression in K4, a hand tally before
-# constant folding: 48 schedule steps x 10 + 64 rounds x 13 + 8 final adds
+# 32-bit instructions per SHA-256 compression, a hand tally before constant
+# folding: 48 schedule steps x 10 (sigma0 and sigma1 4 each: 3 shifts and a
+# 3-input LOP3; 2 three-input adds for 4 terms) + 64 rounds x 13 (Sigma0
+# and Sigma1 4 each, ch 1, maj 1, 3 adds) + 8 final adds
 SHA256_OPS_PER_COMPRESSION = 1320
+# K4's block is a 32-byte message's only one: words 8-15 are the pad
+# (0x80000000, six zeros, 256) and round 0 runs on the IV, so
+#   - sigma0 of W8..W15 (steps 23-30) and sigma1 of W14, W15 (steps 16,
+#     17) are constants: 10 x 4 = 40;
+#   - a step's four terms take two adds; with its constant terms summed
+#     into one and its zero terms gone, steps 16-21 and 24-30 have two or
+#     three terms left and take one: 13 (steps 22 and 23 keep three
+#     variable terms and a constant);
+#   - round 0's Sigma0, Sigma1, ch and maj are constants (10), and its
+#     three adds become two (e and a are constants plus W0): 11;
+# 1,320 - 40 - 13 - 11 = 1,256.  The final adds stay (IV + state, an
+# immediate operand each).
+SHA256_OPS_PER_ITER32_COMPRESSION = 1256
 # K15's second block is the constant pad of a 64-byte message: its 48
 # schedule steps fold at compile time, leaving 64 rounds x 13 + 8 final adds
 SHA256_OPS_PER_PAD_COMPRESSION = 840
@@ -178,6 +202,17 @@ KECCAK_OPS_PER_PERMUTATION = 2 * (24 * 90 + 17)
 # 4 XOR, 4 rotates) + 16 final adds
 CHACHA20_OPS_PER_BLOCK = 976
 HASHES_PER_TICK = 12_500  # the repo's genesis default (flamenco/genesis.py)
+# phase 8: K4's chain counts on its paths (the sharded leader block's 4, the
+# plane's 64 = one slot's tick spans) and a wide 4,096
+K4_CHAINS = (4, 64, 4096)
+# clocks a warp instruction of one scheduler on the INT32 pipe (16 lanes a
+# sub-partition, sm_90), for the time K4's round warp takes to issue a hash
+ISSUE_CLOCKS = 2
+# clocks from one dependent ALU instruction to the next, for K4's chain
+# floor: an estimate, measured on a Volta card (Jia et al., "Dissecting the
+# NVIDIA Volta GPU Architecture via Microbenchmarking", 2018) and not on an
+# H100, and taken for every instruction of the chain (loads and barriers too)
+DEP_CLOCKS = 4
 REPEAT_ROUNDS = 6  # phase 10b: extra (verify pipeline, plane pipeline) rounds
 # phases 12-13: the voting set and the comb bank (2,048 slots hold the
 # mainnet-beta voting set, ~1,000-2,000 validators on public explorers)
@@ -281,7 +316,14 @@ PARENT_KERNELS = {
     "verify": ("fd_verify_batch", 7, ("i64", "i32", "i64")),
     "verify_cached": ("fd_verify_cached", 9, ("i64", "i32", "i64")),
     "comb_fill": ("fd_comb_fill", 3, ("i64",)),
+    "verify_split": ("fd_phase_dsm", 5, ("i64",)),
+    "sha256_iter32": ("fd_sha256_iter32", 2, ("i64", "i64")),
 }
+
+
+def parent_lib(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "parent_kernels", f"lib{name}.so")
 
 
 def start_parent_build(kbuild, parent: str):
@@ -289,14 +331,12 @@ def start_parent_build(kbuild, parent: str):
     PARENT_KERNELS (older kernels with the same C entry points), one process
     a source, with the flags kbuild uses, into build/parent_kernels/."""
     csrc = os.path.join(os.path.abspath(parent), "firedancer_tpu_torch", "csrc")
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                           "parent_kernels")
-    os.makedirs(out_dir, exist_ok=True)
+    os.makedirs(os.path.dirname(parent_lib("x")), exist_ok=True)
     procs = {}
     for name in PARENT_KERNELS:
         src = os.path.join(csrc, f"{name}.cu")
         check(os.path.exists(src), f"--parent: no {src}")
-        so = os.path.join(out_dir, f"lib{name}.so")
+        so = parent_lib(name)
         cmd = [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", csrc, "-o", so, src]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
@@ -423,6 +463,55 @@ def k7_ab(parent_fn, sv, fl, dev, runs) -> None:
     ab_times("K7-ab", [(label, 10 if pk.shape[1] <= 32 else 3) for label, pk in runs.items()],
              {label: (lambda pk=pk: parent(pk)) for label, pk in runs.items()},
              {label: (lambda pk=pk: sv.comb_fill(pk)) for label, pk in runs.items()})
+
+
+def k11_ab(parent_fn, sv, fc, dev, runs) -> None:
+    """The parent checkout's K11 beside this one on phase 14's lanes: at
+    each batch, both r_cmp through this tree's K12 against the same R and
+    ok give equal masks, and the compressed points are equal on every lane
+    whose A decodes (the ladders differ in their steps, so their limbs, and
+    their values on points off the curve, may differ); then device-only
+    times in turns; one [K11-ab] line.  runs: {label: (k, a_pt, sig, r_pt,
+    ok, A decodes)}."""
+    comb = fc.comb_table(dev)
+
+    def parent(k, a_pt, sig):
+        r_cmp = torch.empty_like(a_pt)
+        parent_call(parent_fn, dev, k.data_ptr(), a_pt.data_ptr(), sig.data_ptr(),
+                    comb.data_ptr(), r_cmp.data_ptr(), k.shape[1])
+        return r_cmp
+
+    def compressed(r_cmp):
+        return fc.point_compress(tuple(r_cmp[c].to(torch.int64) for c in range(4)))
+
+    for label, (k, a_pt, sig, r_pt, ok, a_dec) in runs.items():
+        pr, cr = parent(k, a_pt, sig), sv._phase_dsm(k, a_pt, sig)
+        check(torch.equal(sv._phase_compare(pr, r_pt, ok), sv._phase_compare(cr, r_pt, ok)),
+              f"parent K11 and K11 give other masks at {label}")
+        check(torch.equal(compressed(pr)[:, a_dec], compressed(cr)[:, a_dec]),
+              f"parent K11 and K11 give other points at {label}")
+    ab_times("K11-ab", [(label, 20 if run[0].shape[1] <= 1024 else 5)
+                        for label, run in runs.items()],
+             {label: (lambda r=run: parent(*r[:3])) for label, run in runs.items()},
+             {label: (lambda r=run: sv._phase_dsm(*r[:3])) for label, run in runs.items()})
+
+
+def k4_ab(parent_fn, fsha256, dev, states, n) -> None:
+    """The parent checkout's K4 beside this one: equal bytes at each chain
+    count, then device-only times in turns; one [K4-ab] line.  states:
+    {B: (32, B) uint8}."""
+
+    def parent(x):
+        out = torch.empty_like(x)
+        parent_call(parent_fn, dev, x.data_ptr(), out.data_ptr(), x.shape[1], n)
+        return out
+
+    for b, x in states.items():
+        check(torch.equal(parent(x), fsha256.sha256_iter32(x, n)),
+              f"parent K4 and K4 differ at B = {b}")
+    ab_times("K4-ab", [(f"B={b}", 3) for b in states],
+             {f"B={b}": (lambda x=x: parent(x)) for b, x in states.items()},
+             {f"B={b}": (lambda x=x: fsha256.sha256_iter32(x, n)) for b, x in states.items()})
 
 
 def time_host_ms(fn) -> float:
@@ -792,36 +881,64 @@ def main() -> int:
     rng = np.random.default_rng(8)
     st4 = rng.integers(0, 256, (32, B4), dtype=np.uint8)
     x4 = torch.from_numpy(st4).to(dev)
-    y4 = fsha256.sha256_iter32(x4, N4).cpu().numpy()
+    # the sharded leader block's 4 chains, the plane's 64 (one slot's
+    # spans), and 4,096: the first B chains of one seeded set
+    x4b = {b: x4[:, :b].contiguous() for b in K4_CHAINS}
+    y4 = fsha256.sha256_iter32(x4, N4)
+    y4h = y4.cpu().numpy()
     err4 = 0
-    for i in rng.choice(B4, 32, replace=False):
+    for i in [0, 3, 4, 63, 64] + [int(v) for v in rng.choice(B4, 27, replace=False)]:
         want = np.frombuffer(rpoh.poh_append(bytes(st4[:, i]), N4), np.uint8)
-        err4 = max(err4, int(np.abs(y4[:, i].astype(np.int64) - want).max()))
+        err4 = max(err4, int(np.abs(y4h[:, i].astype(np.int64) - want).max()))
     check(err4 == 0, f"K4 differs from hashlib at n = {N4} (max abs err {err4})")
+    for b in K4_CHAINS[:-1]:
+        check(torch.equal(fsha256.sha256_iter32(x4b[b], N4), y4[:, :b]),
+              f"K4 at B = {b} differs from the same chains at B = {B4}")
     k64 = fsha256.sha256_iter32(x4, 64)
     torch.cuda.synchronize()
     p64 = fsha256.sha256_iter32_plain(x4, 64)
     err4p = int((k64.to(torch.int64) - p64.to(torch.int64)).abs().max())
     check(err4p == 0, "K4 differs from its plain version at n = 64")
-    ms4 = time_ms(lambda: fsha256.sha256_iter32(x4, N4), reps=5)
-    x4s = x4[:, :64].contiguous()  # the plane's PoH lane: one slot's 64 spans
-    ms4_64 = time_ms(lambda: fsha256.sha256_iter32(x4s, N4), reps=5)
+    ms4b = {b: time_ms(lambda x=x4b[b]: fsha256.sha256_iter32(x, N4), reps=5)
+            for b in K4_CHAINS}
     ms4_n64 = time_ms(lambda: fsha256.sha256_iter32(x4, 64), reps=20)
     plain4 = time_host_ms(lambda: fsha256.sha256_iter32_plain(x4, 64))
-    bms4, bby4 = bound(B4 * N4 * SHA256_OPS_PER_COMPRESSION, 64 * B4)
+    bound4 = {b: bound(b * N4 * SHA256_OPS_PER_ITER32_COMPRESSION, 64 * b) for b in K4_CHAINS}
+    # what the round warp issues a hash, from this build's SASS (its longer
+    # loop; the schedule warp's is the other): its instructions at
+    # ISSUE_CLOCKS each, and its longest dependent chain at DEP_CLOCKS each
+    # (the chain floor, an estimate), n hashes at the card's top clock
+    from firedancer_tpu_torch.utils import sass as fsass
+
+    loops4 = fsass.loops(fsass.dump(os.path.join(kbuild.build_dir(), "libsha256_iter32.so")),
+                         "sha256_iter32_kernel")
+    round4 = max(loops4, key=lambda lp: lp["n"])
+    issue4 = N4 * round4["n"] * ISSUE_CLOCKS / (clk_mhz * 1e3)
+    floor4 = N4 * round4["depth"] * DEP_CLOCKS / (clk_mhz * 1e3)
     kernels.append(dict(
         name="sha256_iter32", route="cuda",
         source="firedancer_tpu_torch/csrc/sha256_iter32.cu",
         replaces="firedancer_tpu/ops/sha256.py:171", launches=None,
-        max_abs_err=max(err4, err4p), ms=ms4, plain_ms=plain4, bound_ms=bms4,
-        bound_by=bby4, library_ms=None, matched=True, shape=f"B={B4} n={N4}",
-        plain_shape=f"B={B4} n=64", ms_at_plain_shape=ms4_n64, ms_b64=ms4_64,
-        hashes_per_s=B4 * N4 / ms4 * 1e3,
+        max_abs_err=max(err4, err4p), ms=ms4b[64], plain_ms=plain4, bound_ms=bound4[64][0],
+        bound_by=bound4[64][1], library_ms=None, matched=True, shape=f"B=64 n={N4}",
+        plain_shape=f"B={B4} n=64", ms_at_plain_shape=ms4_n64,
+        ms_by_chains={str(b): ms4b[b] for b in K4_CHAINS},
+        bound_ms_by_chains={str(b): bound4[b][0] for b in K4_CHAINS},
+        round_warp_insns=round4["n"], round_warp_issue_ms=issue4,
+        chain_floor_est_ms=floor4, hashes_per_s=B4 * N4 / ms4b[B4] * 1e3,
         phase_launches=kbuild.LAUNCHES["sha256_iter32"]))
-    log(f"[K4] sha256_iter32 B={B4} n={N4}: 32 lanes equal to hashlib, all equal to"
-        f" plain at n=64; {ms4:.3f} ms = {B4 * N4 / ms4 / 1e6:.3f} G hash/s"
-        f" (bound {bms4:.3f} ms, {bby4}); B=64: {ms4_64:.3f} ms;"
-        f" n=64: {ms4_n64:.4f} ms, plain {plain4:.1f} ms")
+    log(f"[K4] sha256_iter32 n={N4}: 32 lanes of B={B4} equal to hashlib, B=4 and 64 equal to"
+        f" the same chains of B={B4}, all equal to plain at n=64; "
+        + "; ".join(f"B={b}: {ms4b[b]:.4f} ms (operations bound {bound4[b][0]:.4f} ms)"
+                    for b in K4_CHAINS)
+        + f"; the round warp's issue {issue4:.4f} ms ({round4['n']} instructions a hash x"
+        f" {ISSUE_CLOCKS} clocks at {clk_mhz:.0f} MHz; {ms4b[64] * clk_mhz * 1e3 / (N4 * round4['n']):.3f}"
+        f" clocks an instruction measured at B=64); chain floor estimate {floor4:.4f} ms"
+        f" ({round4['depth']} dependent instructions a hash x {DEP_CLOCKS} clocks);"
+        f" {B4 * N4 / ms4b[B4] / 1e6:.3f} G hash/s at B={B4}; n=64: {ms4_n64:.4f} ms,"
+        f" plain {plain4:.1f} ms")
+    if parent_fns is not None:
+        k4_ab(parent_fns["sha256_iter32"], fsha256, dev, x4b, N4)
 
     # -- 9. K5 gf256_apply: the full-block encode, then recover_batch -----------------------
     mark("9")
@@ -947,7 +1064,7 @@ def main() -> int:
     check(launches10.get("gf256_apply", 0) == 1,
           f"K5 launches {launches10.get('gf256_apply', 0)} != 1 encode_parity call")
     txn10_s = rep10["sink"]["txn_sunk"] / run10_s
-    busy10 = (v10["batches"] * ms1k + span_steps * ms4_64) / (run10_s * 1e3)
+    busy10 = (v10["batches"] * ms1k + span_steps * ms4b[64]) / (run10_s * 1e3)
     log(f"[plane] warmup {warm_s:.3f} s; {len(vs.stream)} frames in {run10_s:.3f} s:"
         f" {txn10_s:.0f} txn/s sunk (phase 7: {txn_s:.0f}); {v10['batches']} steps,"
         f" spans ok/fail {v10['poh_spans_ok']}/{v10['poh_spans_fail']}; launches"
@@ -1308,6 +1425,14 @@ def main() -> int:
         check(errs14[nm] == 0, f"{nm} differs from its plain version at B = {B1}"
               f" (max abs err {errs14[nm]})")
     check(mk14.cpu().numpy().tolist() == lab5.tolist(), "split mask at B = 1,024 != labels")
+    if parent_fns is not None:
+        m16, l16, s16, p16 = args14
+        a16, r16, ok16 = sv._phase_validate(s16, p16, l16, max_msg_len=ML1)
+        k16 = sv._phase_hash(m16, l16, s16, p16, max_msg_len=ML1)
+        dec16 = sv.fc.point_decompress(p16.to(torch.int64))[1]
+        k11_ab(parent_fns["verify_split"], sv, sv.fc, dev, {
+            f"B={B1}": (k14, a14, s5, r14, ok14, dec16[:B1]),
+            f"B={B14}": (k16, a16, s16, r16, ok16, dec16)})
     phase14_launches = dict(kbuild.LAUNCHES)
     # times, CUDA events, each phase alone on phase 6's honest batch (K1's
     # timing batch) at B = 16,384 and at the stage's 1,024
@@ -1337,20 +1462,25 @@ def main() -> int:
     # and ok; K10 R (sig rows 0-31), A, each lane's msg_len bytes of msg,
     # msg_len and k; K11 k, s (sig rows 32-63), A and the comb, writing
     # r_cmp; K12 X, Y, Z of r_cmp, X, Y of R and ok, writing the mask
-    lt6 = lt.astype(np.int64)
     fe_bytes = 10 * 4  # one coordinate, 10 int32 limbs
     pt_bytes = 4 * fe_bytes  # one point, (4, 10) int32
     comb_bytes = 64 * 16 * 4 * fl.NLIMB * 4
-    bounds14 = {
-        "phase_validate": bound(BT * 2 * (sv.MULS_DECOMPRESS + sv.MULS_SMALL_ORDER)
-                                * sv.PRODUCTS_PER_MUL, BT * (64 + 32 + 4 + 2 * pt_bytes + 1)),
-        "phase_hash": bound(int(((lt6 + 64 + 17 + 127) // 128).sum()) * SHA512_OPS_PER_BLOCK,
-                            int(lt6.sum()) + BT * (32 + 32 + 4 + 32)),
-        "phase_dsm": bound(BT * sv.MULS_DSM * sv.PRODUCTS_PER_MUL,
-                           BT * (32 + 32 + 2 * pt_bytes) + comb_bytes),
-        "phase_compare": bound(BT * sv.MULS_EQ_Z1 * sv.PRODUCTS_PER_MUL,
-                               BT * (5 * fe_bytes + 1 + 1)),
-    }
+
+    def bounds_at(bsz: int) -> dict:
+        lt6 = lt[:bsz].astype(np.int64)
+        return {
+            "phase_validate": bound(bsz * 2 * (sv.MULS_DECOMPRESS + sv.MULS_SMALL_ORDER)
+                                    * sv.PRODUCTS_PER_MUL,
+                                    bsz * (64 + 32 + 4 + 2 * pt_bytes + 1)),
+            "phase_hash": bound(int(((lt6 + 64 + 17 + 127) // 128).sum()) * SHA512_OPS_PER_BLOCK,
+                                int(lt6.sum()) + bsz * (32 + 32 + 4 + 32)),
+            "phase_dsm": bound(bsz * sv.PRODUCTS_PER_DSM_LANE,
+                               bsz * (32 + 32 + 2 * pt_bytes) + comb_bytes),
+            "phase_compare": bound(bsz * sv.MULS_EQ_Z1 * sv.PRODUCTS_PER_MUL,
+                                   bsz * (5 * fe_bytes + 1 + 1)),
+        }
+
+    bounds14, bounds14_1k = bounds_at(BT), bounds_at(B1)
     t16, t1k = times14[BT], times14[B1]
     for nm, line in zip(SPLIT, SPLIT_LINES):
         bms, bby = bounds14[nm]
@@ -1359,14 +1489,15 @@ def main() -> int:
             replaces=f"firedancer_tpu/ops/sigverify.py:{line}", launches=None,
             max_abs_err=errs14[nm], ms=t16[nm], plain_ms=plain14[nm], bound_ms=bms,
             bound_by=bby, library_ms=None, matched=True, shape=f"B={BT} max_msg_len={ML1}",
-            plain_shape=f"B={B1}", ms_batch1024=t1k[nm],
+            plain_shape=f"B={B1}", ms_batch1024=t1k[nm], bound_ms_batch1024=bounds14_1k[nm][0],
             phase_launches=phase14_launches.get(nm, 0)))
     log(f"[split] B={B14} (phase 5's batch x {rep14}): mask equal to K1's and the labels"
         f" ({int(lab14.sum())} of {B14} pass); B={B1}: limbs, k, ok and mask equal to plain;"
         f" loaded entry points {sv.kernel_compiled_entries('split')}")
     log("[split] " + "; ".join(
-        f"{nm} {t16[nm]:.4f} ms at B={BT} ({t1k[nm]:.4f} ms at B={B1}; bound"
-        f" {bounds14[nm][0]:.4f} ms, {bounds14[nm][1]}; plain {plain14[nm]:.1f} ms at B={B1})"
+        f"{nm} {t16[nm]:.4f} ms at B={BT} ({t1k[nm]:.4f} ms at B={B1}; bounds"
+        f" {bounds14[nm][0]:.4f} / {bounds14_1k[nm][0]:.4f} ms, {bounds14[nm][1]}; plain"
+        f" {plain14[nm]:.1f} ms at B={B1})"
         for nm in SPLIT)
         + f"; sum of the four {sum(t16[n] for n in SPLIT):.4f} ms, four launches back to back"
         f" {t16['split']:.4f} ms, K1 on the same lanes {t16['k1']:.4f} ms (ratio"
@@ -1915,7 +2046,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's K1, K6 and K7 (a checkout of an earlier
-    # commit) and time them beside this tree's in phases 6 and 12
+    # --parent DIR: also build DIR's K1, K4, K6, K7 and K11 (a checkout of an
+    # earlier commit) and time them beside this tree's in phases 6, 8, 12 and 14
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

@@ -97,13 +97,6 @@ __device__ __forceinline__ void sc_reduce512(const uint64_t st[8], uint64_t out[
   }
 }
 
-// The 64 4-bit windows of a 256-bit scalar (4 little-endian words), least
-// significant first (ops/scalar.py sc_windows).
-__device__ __forceinline__ void sc_windows(const uint64_t w[4], uint8_t out[64]) {
-#pragma unroll
-  for (int j = 0; j < 64; j++) out[j] = (uint8_t)((w[j >> 4] >> (4 * (j & 15))) & 15);
-}
-
 // ------------------------------------------------------------------ points
 
 struct ge {
@@ -194,46 +187,6 @@ __device__ __forceinline__ bool ge_decompress(const uint64_t w[4], ge& out) {
   x = fe_select(flip, fe_neg(x), x);
   out = ge{x, y, one, fe_mul(x, y)};
   return ok_direct || ok_flip;
-}
-
-// [s]B + [k]P with 4-bit windows: a per-lane table [0..15]P (local memory)
-// for [k]P, 64 windows of 4 doublings and one indexed cached add; then the
-// fixed-base comb for [s]B, 64 indexed cached adds read from global memory
-// (comb: (64, 16, 4, 10) int32, [m 16^j]B in cached form, Z = 1).
-__device__ __forceinline__ ge ge_double_scalar_mul_base(
-    const uint8_t kw[64], const ge& P, const uint8_t sw[64],
-    const int32_t* __restrict__ comb) {
-  gec tbl[16];
-  ge half[8];
-  half[0] = ge_identity();
-  half[1] = P;
-  tbl[0] = ge_to_cached(half[0]);
-  tbl[1] = ge_to_cached(P);
-  ge prev = P;
-  for (int m = 2; m < 16; m++) {
-    ge p = (m & 1) ? ge_add_cached(prev, tbl[1]) : ge_dbl(half[m >> 1]);
-    if (m < 8) half[m] = p;
-    tbl[m] = ge_to_cached(p);
-    prev = p;
-  }
-  ge acc = ge_identity();
-  for (int i = 63; i >= 0; i--) {
-    for (int d = 0; d < 4; d++) acc = ge_dbl(acc);
-    acc = ge_add_cached(acc, tbl[kw[i]]);
-  }
-  for (int j = 0; j < 64; j++) {
-    const int32_t* e = comb + ((int64_t)j * 16 + sw[j]) * 40;
-    gec q;
-#pragma unroll
-    for (int i = 0; i < 10; i++) {
-      q.ypx.v[i] = __ldg(e + i);
-      q.ymx.v[i] = __ldg(e + 10 + i);
-      q.z.v[i] = __ldg(e + 20 + i);
-      q.t2d.v[i] = __ldg(e + 30 + i);
-    }
-    acc = ge_add_cached(acc, q);
-  }
-  return acc;
 }
 
 // ------------------------------------------------------- per-signer combs

@@ -312,3 +312,80 @@ __device__ __noinline__ ge_ok ge_decompress_strict_q(uint64_t w0, uint64_t w1, u
   const bool small = fe_is_zero(q.X) && fe_eq(q.Y, q.Z);
   return ge_ok{out, (ok_direct || ok_flip) && !small};
 }
+
+// ------------------------------------------- the double-scalar ladder (K1, K11)
+
+__device__ __forceinline__ uint64_t pick4(const uint64_t w[4], int i) {
+  return i == 0 ? w[0] : (i == 1 ? w[1] : (i == 2 ? w[2] : w[3]));
+}
+
+// One field element in a block's shared table, limb i at p[i * T] (p = the
+// thread's column, T = the block's threads): neighbouring threads,
+// neighbouring banks.
+template <int T>
+__device__ __forceinline__ void fe_store_cols(int32_t* __restrict__ p, const fe& a) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) p[i * T] = a.v[i];
+}
+
+template <int T>
+__device__ __forceinline__ fe fe_load_cols(const int32_t* __restrict__ p) {
+  fe a;
+#pragma unroll
+  for (int i = 0; i < 10; i++) a.v[i] = p[i * T];
+  return a;
+}
+
+// [s]B + [k]P on a quad of a block of T threads, K1's and K11's ladder.
+// `p` is this thread's coordinate of P (carried limbs); kw and sw are k and
+// s as four little-endian words, the same on the quad's four threads; tb is
+// this thread's column of a shared table of 16 x 10 x T int32 (entry m,
+// limb i at tb[(m * 10 + i) * T]).
+//   - the table [0..15]P in cached form: the identity, P, then [m]P =
+//     [m-1]P + P by quad additions;
+//   - [k]P: 64 windows, most significant first, of four quad doublings and
+//     one quad addition from the table;
+//   - [s]B: thread c sums the base comb's windows 16c .. 16c+15 alone
+//     (curve.cuh's one-thread ge_add_cached; the comb holds [m 16^j]B for
+//     every window j, so no doublings), and the four sums join [k]P by
+//     four quad additions of their cached forms, thread 0's first.
+// Returns this thread's coordinate of the sum.  Every quad operation ends
+// in a multiply, so the result is carried.  ops/curve.py
+// double_scalar_mul_base_quad runs the same steps on the same limbs.
+template <int T>
+__device__ __forceinline__ fe quad_double_scalar_mul_base(const fe& p, const uint64_t kw[4],
+                                                          const uint64_t sw[4],
+                                                          const int32_t* __restrict__ comb,
+                                                          int32_t* __restrict__ tb,
+                                                          const QuadRole& role) {
+  fe_store_cols<T>(tb, quad_cached_identity(role));
+  const fe c1 = quad_to_cached(p, role);
+  fe_store_cols<T>(tb + 10 * T, c1);
+  fe prev = p;
+#pragma unroll 1
+  for (int m = 2; m < 16; m++) {
+    prev = quad_add(prev, c1, role);
+    fe_store_cols<T>(tb + m * 10 * T, quad_to_cached(prev, role));
+  }
+
+  fe acc = quad_identity(role);
+#pragma unroll 1
+  for (int i = 63; i >= 0; i--) {
+#pragma unroll 1
+    for (int d = 0; d < 4; d++) acc = quad_dbl(acc, role);
+    const int dig = (int)((pick4(kw, i >> 4) >> (4 * (i & 15))) & 15);
+    acc = quad_add(acc, fe_load_cols<T>(tb + dig * 10 * T), role);
+  }
+
+  ge part = ge_identity();
+  const uint64_t sword = pick4(sw, role.c);
+#pragma unroll 1
+  for (int j = 0; j < 16; j++) {
+    const int dig = (int)((sword >> (4 * j)) & 15);
+    part = ge_add_cached(part, gec_load(comb + ((16 * role.c + j) * 16 + dig) * COMB_ENTRY_INTS));
+  }
+  const gec pc = ge_to_cached(part);
+#pragma unroll 1
+  for (int src = 0; src < 4; src++) acc = quad_add(acc, quad_take_cached(pc, src, role), role);
+  return acc;
+}

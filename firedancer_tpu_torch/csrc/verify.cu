@@ -53,22 +53,6 @@
 #define VERIFY_THREADS (4 * VERIFY_SIGS_PER_BLOCK)
 #define VERIFY_TBL_INTS (16 * 10 * VERIFY_THREADS)
 
-__device__ __forceinline__ void fe_store_s(int32_t* __restrict__ p, const fe& a) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) p[i * VERIFY_THREADS] = a.v[i];
-}
-
-__device__ __forceinline__ fe fe_load_s(const int32_t* __restrict__ p) {
-  fe a;
-#pragma unroll
-  for (int i = 0; i < 10; i++) a.v[i] = p[i * VERIFY_THREADS];
-  return a;
-}
-
-__device__ __forceinline__ uint64_t pick4(const uint64_t w[4], int i) {
-  return i == 0 ? w[0] : (i == 1 ? w[1] : (i == 2 ? w[2] : w[3]));
-}
-
 __global__ void __launch_bounds__(VERIFY_THREADS)
 verify_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ msg_len,
               const uint8_t* __restrict__ sig, const uint8_t* __restrict__ pk,
@@ -128,47 +112,14 @@ verify_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ msg_l
   // -A and R into the quad layout: this thread's coordinate of each
   fe a = quad_take(P, 0, role);
   if (role.c == 0 || role.c == 3) a = fe_neg(a);
-  fe_store_s(r_s + t, quad_take(P, 1, role));
+  fe_store_cols<VERIFY_THREADS>(r_s + t, quad_take(P, 1, role));
 
-  // the table [0..15](-A) in cached form: identity, -A, then [m](-A) =
-  // [m-1](-A) + (-A)
-  int32_t* tb = tbl_s + t;
-  fe_store_s(tb, quad_cached_identity(role));
-  const fe c1 = quad_to_cached(a, role);
-  fe_store_s(tb + 10 * VERIFY_THREADS, c1);
-  fe prev = a;
-#pragma unroll 1
-  for (int m = 2; m < 16; m++) {
-    prev = quad_add(prev, c1, role);
-    fe_store_s(tb + m * 10 * VERIFY_THREADS, quad_to_cached(prev, role));
-  }
-
-  // [k](-A): 64 windows, most significant first, of four doublings and
-  // one cached add from the table
-  fe acc = quad_identity(role);
-#pragma unroll 1
-  for (int i = 63; i >= 0; i--) {
-#pragma unroll 1
-    for (int d = 0; d < 4; d++) acc = quad_dbl(acc, role);
-    const int dig = (int)((pick4(kw, i >> 4) >> (4 * (i & 15))) & 15);
-    acc = quad_add(acc, fe_load_s(tb + dig * 10 * VERIFY_THREADS), role);
-  }
-
-  // [s]B: thread c sums the base comb's windows 16c .. 16c+15 alone
-  ge part = ge_identity();
-  const uint64_t sword = pick4(sw, role.c);
-#pragma unroll 1
-  for (int j = 0; j < 16; j++) {
-    const int dig = (int)((sword >> (4 * j)) & 15);
-    part = ge_add_cached(part, gec_load(comb + ((16 * role.c + j) * 16 + dig) * COMB_ENTRY_INTS));
-  }
-  const gec pc = ge_to_cached(part);
-#pragma unroll 1
-  for (int src = 0; src < 4; src++) acc = quad_add(acc, quad_take_cached(pc, src, role), role);
+  // [s]B + [k](-A) (curve_quad.cuh, K11's ladder too)
+  const fe acc = quad_double_scalar_mul_base<VERIFY_THREADS>(a, kw, sw, comb, tbl_s + t, role);
 
   // R == acc at Z2 = 1: thread 0 checks x, thread 1 y
   const fe z = fe_shfl(acc, 2);
-  const int eq = fe_eq(fe_mul_q(fe_load_s(r_s + t), z), acc);
+  const int eq = fe_eq(fe_mul_q(fe_load_cols<VERIFY_THREADS>(r_s + t), z), acc);
   const int eq_x = __shfl_sync(QUAD_FULL, eq, 0, 4);
   const int eq_y = __shfl_sync(QUAD_FULL, eq, 1, 4);
   ok = ok && eq_x && eq_y;

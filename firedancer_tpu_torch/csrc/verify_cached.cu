@@ -81,10 +81,6 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint64_t pick4(const uint64_t w[4], int i) {
-  return i == 0 ? w[0] : (i == 1 ? w[1] : (i == 2 ? w[2] : w[3]));
-}
-
 // Add i of a thread's sum (i = 0 .. 31): window i / 2 of its sixteen,
 // from the signer's comb `win` for even i (k's digit) and from the base
 // comb `bwin` for odd i (s's digit).

@@ -1,11 +1,25 @@
 // K9-K12, the split rung of the verify ladder: K1's per-signature work cut
-// into four launches, one signature per thread in each.
+// into four launches: K9, K10 and K12 one signature a thread, K11 four
+// threads a signature.
 //
 // Replaces: firedancer_tpu/ops/sigverify.py:216 _phase_validate (K9),
 // :229 _phase_hash (K10), :239 _phase_dsm (K11) and :245 _phase_compare
 // (K12), which ed25519_verify_batch_split (:249) chains.  They reuse K1's
-// __device__ functions (curve.cuh, sha512.cuh), so the split mask equals
-// K1's mask on every lane.
+// __device__ functions (curve.cuh, curve_quad.cuh, sha512.cuh), and K11
+// runs K1's quad ladder, so the split mask equals K1's mask on every lane.
+//
+// K11 is the split's long phase: ~3,235 field multiplies a lane
+// (ops/sigverify.py K11_SQUARINGS_PER_LANE and K11_MULS_PER_LANE), no
+// decompression and no hash.
+// On one thread a signature it was one dependent chain of ~3,100
+// multiplies, 128 threads a block: 8 blocks on 8 of 132 SMs at the split
+// pipeline's B = 1,024.  On K1's quad ladder a doubling or an addition is
+// two multiply latencies (the ladder's chain ~640 multiplies), and B =
+// 1,024 is 128 one-warp blocks on 128 SMs.  ptxas (nvcc 12.8, sm_90a): 166
+// registers, no spills, 336 bytes of stack, 20 KB of table a block; so 10
+// blocks an SM (the table's shared memory), and B = 16,384 runs in 1.55
+// waves.  (With the ladder copied into this file ptxas took 254 registers,
+// 8 blocks an SM; the times on an H100 were the same.)
 //
 // Between phases every lane's values sit on the trailing axis, so each
 // thread's loads and stores coalesce with its neighbours':
@@ -18,8 +32,11 @@
 // for a point that does not decode, K10 hashes a message length clamped to
 // [0, max_len], and K11 runs the ladder on whatever K9 wrote.  Nothing reads
 // outside the input rows.
-#include "curve.cuh"
+#include "curve_quad.cuh"
 #include "sha512.cuh"
+
+#define DSM_SIGS 8  // K11: signatures a one-warp block
+#define DSM_THREADS (4 * DSM_SIGS)
 
 __device__ __forceinline__ void fe_store_lane(const fe& a, int32_t* __restrict__ out,
                                               int64_t B, int64_t lane) {
@@ -42,12 +59,6 @@ __device__ __forceinline__ void ge_store_lane(const ge& p, int32_t* __restrict__
   fe_store_lane(p.Y, out + 10 * B, B, lane);
   fe_store_lane(p.Z, out + 20 * B, B, lane);
   fe_store_lane(p.T, out + 30 * B, B, lane);
-}
-
-__device__ __forceinline__ ge ge_load_lane(const int32_t* __restrict__ in, int64_t B,
-                                           int64_t lane) {
-  return ge{fe_load_lane(in, B, lane), fe_load_lane(in + 10 * B, B, lane),
-            fe_load_lane(in + 20 * B, B, lane), fe_load_lane(in + 30 * B, B, lane)};
 }
 
 // K9: s < L, 0 <= msg_len <= max_len (K1's range check), decompress A and
@@ -95,21 +106,31 @@ phase_hash_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ m
     k_out[(int64_t)i * B + lane] = (uint8_t)(kw[i >> 3] >> (8 * (i & 7)));
 }
 
-// K11: [s]B + [k](-A), K1's ladder and base comb (read with __ldg).
-__global__ void __launch_bounds__(128)
+// K11: r_cmp = [s]B + [k](-A) on K1's quad ladder (curve_quad.cuh
+// quad_double_scalar_mul_base), DSM_SIGS a one-warp block: thread c of a
+// quad loads coordinate c of A straight from rows 10c .. 10c+9 of a_pt
+// (already the quad layout, so nothing is exchanged), negates it (X and
+// T), and stores coordinate c of the result.  Every lane runs, whatever
+// K9 decided (K12 decides); the lanes of a ragged tail read the batch's
+// last lane, run the ladder with the rest of the warp (its shuffles need
+// all 32 threads) and store nothing.
+__global__ void __launch_bounds__(DSM_THREADS)
 phase_dsm_kernel(const uint8_t* __restrict__ k, const int32_t* __restrict__ a_pt,
                  const uint8_t* __restrict__ sig, const int32_t* __restrict__ comb,
                  int32_t* __restrict__ r_out, int64_t B) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  uint64_t kwords[4], sw[4];
-  fd_load32(k, B, lane, kwords);
+  __shared__ int32_t tbl_s[16 * 10 * DSM_THREADS];  // entry m, limb i: [(m * 10 + i) * DSM_THREADS + t]
+  const int t = threadIdx.x;
+  const QuadRole role = quad_role(t & 3);
+  const int64_t s_idx = (int64_t)blockIdx.x * DSM_SIGS + (t >> 2);
+  const bool in_batch = s_idx < B;
+  const int64_t lane = in_batch ? s_idx : B - 1;
+  uint64_t kw[4], sw[4];
+  fd_load32(k, B, lane, kw);
   fd_load32(sig + 32 * B, B, lane, sw);
-  uint8_t kw[64], s_w[64];
-  sc_windows(kwords, kw);
-  sc_windows(sw, s_w);
-  const ge A = ge_load_lane(a_pt, B, lane);
-  ge_store_lane(ge_double_scalar_mul_base(kw, ge_neg(A), s_w, comb), r_out, B, lane);
+  fe a = fe_load_lane(a_pt + 10 * role.c * B, B, lane);
+  if (role.c == 0 || role.c == 3) a = fe_neg(a);
+  const fe r = quad_double_scalar_mul_base<DSM_THREADS>(a, kw, sw, comb, tbl_s + t, role);
+  if (in_batch) fe_store_lane(r, r_out + 10 * role.c * B, B, lane);
 }
 
 // K12: ok and r_cmp == R (R has Z = 1).  Only X, Y of R and X, Y, Z of
@@ -164,9 +185,10 @@ FD_EXPORT int fd_phase_dsm(const void* k, const void* a_pt, const void* sig,
   int rc = fd_set_device(device);
   if (rc) return rc;
   if (B == 0) return 0;
-  phase_dsm_kernel<<<fd_blocks(B), 128, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)k, (const int32_t*)a_pt, (const uint8_t*)sig,
-      (const int32_t*)comb, (int32_t*)r_out, B);
+  const int64_t blocks = (B + DSM_SIGS - 1) / DSM_SIGS;
+  phase_dsm_kernel<<<(unsigned)blocks, DSM_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)k, (const int32_t*)a_pt, (const uint8_t*)sig, (const int32_t*)comb,
+      (int32_t*)r_out, B);
   return (int)cudaGetLastError();
 }
 

@@ -168,8 +168,8 @@ def double_scalar_mul_base(k_windows: torch.Tensor, a_point,
 
 # -- the quad schedule (the plain twin of csrc/curve_quad.cuh) -------------------
 #
-# K1 and K6 run each signature, and K7 each point of a key's chain and
-# windows, on a quad of four threads, thread c holding coordinate c of the
+# K1, K6 and K11 run each signature, and K7 each point of a key's chain
+# and windows, on a quad of four threads, thread c holding coordinate c of the
 # extended point (X, Y, Z, T).  Here a quad point is one
 # (4, 10, *batch) tensor, row c = thread c's coordinate, and a quad cached
 # operand is (4, 10, *batch) in thread order (Y-X, Y+X, Z, 2dT).  Each row's
@@ -177,8 +177,9 @@ def double_scalar_mul_base(k_windows: torch.Tensor, a_point,
 # __shfl_sync) are the kernel's per-thread linear combinations of rows,
 # left uncarried as the kernel leaves them.  The limbs equal the kernel's;
 # the values equal point_dbl's and add_cached's mod p.  K7's plain version
-# builds its tables with these (comb_tables_quad), so its limbs are the
-# kernel's; the K1 and K6 schedules' twins are for the tests.
+# builds its tables with these (comb_tables_quad), and K11's returns
+# double_scalar_mul_base_quad's point, so their limbs are the kernels';
+# the K6 schedule's twin is for the tests.
 
 # thread c's coefficients (csrc/curve_quad.cuh's QUAD_* tables): on (own,
 # partner c ^ 1) before an addition's first round and in to_cached; on
@@ -267,9 +268,9 @@ def to_cached_quad(q):
 
 def double_scalar_mul_base_quad(k_windows: torch.Tensor, a_point,
                                 s_windows: torch.Tensor, comb: torch.Tensor):
-    """[s]B + [k]A in K1's schedule -> a (4, 10, *batch) quad point (the
-    same group element as double_scalar_mul_base's, another projective
-    representative).
+    """[s]B + [k]A in K1's and K11's schedule -> a (4, 10, *batch) quad
+    point (the same group element as double_scalar_mul_base's, another
+    projective representative; K11's limbs, which _phase_dsm_plain returns).
 
     The table [0..15]A by quad additions, [m]A = [m-1]A + A; 64 windows of
     four quad doublings and one quad addition; [s]B as four partial sums,

@@ -60,14 +60,12 @@ _CACHED = kbuild.bind("verify_cached", "fd_verify_cached", 9, (_I64, _I32, _I64)
 _COMB_FILL = kbuild.bind("comb_fill", "fd_comb_fill", 3, (_I64,))
 _BANK_INSTALL = kbuild.bind("bank_install", "fd_bank_install", 3, (_I64,))
 
-# field multiplies per lane on the one-thread kernels' path (csrc/curve.cuh),
-# for their operations bounds: decompress (incl. the 262-multiply pow2523
-# chain), small-order check (3 doublings of 8), the [0..15](-A) table (7
-# doublings, 7 cached adds, 16 to_cached), 64 x (4 doublings + 1 add), 64
-# comb adds, and the Z=1 compare.  Each multiply is 100 32x32->64 products.
+# field multiplies per lane on the one-thread kernels' path (csrc/curve.cuh:
+# K9, K12), for their operations bounds: decompress (incl. the 262-multiply
+# pow2523 chain), small-order check (3 doublings of 8), and the Z=1
+# compare.  Each multiply is 100 32x32->64 products.
 MULS_DECOMPRESS = 275
 MULS_SMALL_ORDER = 24
-MULS_DSM = 7 * 8 + 7 * 8 + 16 + 64 * (4 * 8 + 8) + 64 * 8
 MULS_EQ_Z1 = 2
 PRODUCTS_PER_MUL = 100
 # K1 (csrc/verify.cu over csrc/curve_quad.cuh) squares with 55 products
@@ -83,6 +81,21 @@ K1_MULS_PER_VALID_LANE = (2 * (20 + 3 * 4) + 14 * 8 + 15 + 64 * (4 * 4 + 8) + 64
                           + 4 * 8 + MULS_EQ_Z1)
 K1_PRODUCTS_PER_VALID_LANE = (K1_SQUARINGS_PER_VALID_LANE * PRODUCTS_PER_SQUARING
                               + K1_MULS_PER_VALID_LANE * PRODUCTS_PER_MUL)
+# K11 (csrc/verify_split.cu phase_dsm, K1's ladder alone) per lane: the
+# table by 14 quad adds and 15 conversions, 64 x (4 quad doublings + 1 quad
+# add), the base comb's 64 one-thread adds in four partial sums, their 4
+# conversions and 4 quad adds; 1,024 squarings and 2,211 multiplies
+K11_SQUARINGS_PER_LANE = 64 * 4 * 4
+K11_MULS_PER_LANE = 14 * 8 + 15 + 64 * (4 * 4 + 8) + 64 * 8 + 4 + 4 * 8
+# of which the function needs none of the first window's 4 doublings of the
+# identity (4 squarings, 4 multiplies each) and of the 4 partial sums'
+# first adds into the identity (8 multiplies each), so K11's operations
+# bound counts 1,008 squarings and 2,163 multiplies
+K11_IDENTITY_SQUARINGS = 4 * 4
+K11_IDENTITY_MULS = 4 * 4 + 4 * 8
+PRODUCTS_PER_DSM_LANE = (
+    (K11_SQUARINGS_PER_LANE - K11_IDENTITY_SQUARINGS) * PRODUCTS_PER_SQUARING
+    + (K11_MULS_PER_LANE - K11_IDENTITY_MULS) * PRODUCTS_PER_MUL)
 # K6 (csrc/verify_cached.cu over csrc/curve_quad.cuh) per valid lane: R
 # decompressed (255 squarings, 20 multiplies) and checked for small order
 # (3 doublings of 4 + 4); 128 one-thread cached adds of 8 multiplies (the
@@ -243,9 +256,12 @@ def _phase_hash_plain(msg, msg_len, sig, pubkey, max_msg_len: int):
 
 
 def _phase_dsm_plain(k, a_pt, sig):
-    r = fc.double_scalar_mul_base(_byte_windows(k), fc.point_neg(_pt_cols(a_pt)),
-                                  _byte_windows(sig[32:]), fc.comb_table(k.device))
-    return _pt_rows(r)
+    """K11's quad schedule (ops/curve.py double_scalar_mul_base_quad): the
+    same steps on the same limbs as csrc/verify_split.cu, row c the
+    coordinate thread c of a quad stores."""
+    r = fc.double_scalar_mul_base_quad(_byte_windows(k), fc.point_neg(_pt_cols(a_pt)),
+                                       _byte_windows(sig[32:]), fc.comb_table(k.device))
+    return r.to(torch.int32).contiguous()
 
 
 def _phase_compare_plain(r_cmp, r_pt, ok):

@@ -119,16 +119,21 @@ def test_verify_dispatch_launches_once_per_batch(dev, lane):
     assert mask.cpu().tolist() == want.tolist()
 
 
-@pytest.mark.parametrize("n", [0, 1, 64])
-def test_sha256_iter32_kernel_equals_plain_and_hashlib(dev, n):
+@pytest.mark.parametrize("n", [0, 1, 2, 64, 129])
+@pytest.mark.parametrize("bsz", [1, 4, 31, 33, 64, 100, 4096])
+def test_sha256_iter32_kernel_equals_plain_and_hashlib(dev, bsz, n):
+    """K4 (32 chains a block on a round warp and a schedule warp) against
+    the plain version at every chain count, blocks that end mid-warp
+    included, and against hashlib on the first and last chains and the
+    two either side of the first block's edge."""
     from firedancer_tpu_torch.ops import sha256 as fsha256
 
-    rng = np.random.default_rng(20 + n)
-    st = rng.integers(0, 256, (32, 100), dtype=np.uint8)
+    rng = np.random.default_rng(bsz * 1000 + n)
+    st = rng.integers(0, 256, (32, bsz), dtype=np.uint8)
     x = torch.from_numpy(st).to(dev)
     got = fsha256.sha256_iter32(x, n)
     assert torch.equal(got, fsha256.sha256_iter32_plain(x, n))
-    for i in (0, 31, 32, 99):
+    for i in sorted({0, min(31, bsz - 1), min(32, bsz - 1), bsz - 1}):
         h = bytes(st[:, i])
         for _ in range(n):
             h = hashlib.sha256(h).digest()
@@ -362,6 +367,44 @@ def test_split_phase_kernels_equal_plain_and_labels(dev):
     assert {n: kbuild.LAUNCHES[n] for n in ("phase_validate", "phase_hash", "phase_dsm",
                                             "phase_compare")} == dict.fromkeys(
         ("phase_validate", "phase_hash", "phase_dsm", "phase_compare"), 1)
+
+
+@pytest.mark.parametrize("bsz", [1, 7, 8, 9, 1025, 8456])
+def test_phase_dsm_kernel_limbs_equal_plain_at_ragged_batches(dev, bsz):
+    """K11 on the quad ladder: r_cmp equal to _phase_dsm_plain (the quad
+    schedule's twin) limb for limb on every lane, the non-decoding A's
+    included, for batches that end mid-block (8 signatures a block) and one
+    past a wave (8 blocks an SM on 132 SMs); the mask through K12 equal to
+    K1's and the labels."""
+    mb = mixed_batch(min(bsz, 257), 256, seed=70 + bsz)
+    reps = -(-bsz // mb.msg_len.shape[0])
+    msg, msg_len, sig, pk = (torch.from_numpy(a).to(dev).repeat(*(1,) * (a.ndim - 1), reps)
+                             [..., :bsz].contiguous()
+                             for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey))
+    labels = np.tile(mb.labels, reps)[:bsz]
+    a, r, ok = sv._phase_validate(sig, pk, msg_len, max_msg_len=256)
+    k = sv._phase_hash(msg, msg_len, sig, pk, max_msg_len=256)
+    kbuild.reset_launches()
+    r_cmp = sv._phase_dsm(k, a, sig)
+    assert kbuild.LAUNCHES["phase_dsm"] == 1
+    assert torch.equal(r_cmp, sv._phase_dsm_plain(k, a, sig))
+    mask = sv._phase_compare(r_cmp, r, ok)
+    k1, _ = sv.verify_batch(msg, msg_len, sig, pk, bsz, max_msg_len=256)
+    assert mask.cpu().tolist() == k1.cpu().tolist() == labels.tolist()
+
+
+def test_sha256_iter32_kernel_at_a_tick_equals_hashlib(dev):
+    """8 chains of one tick span (12,500 hashes) equal hashlib's."""
+    from firedancer_tpu_torch.ops import sha256 as fsha256
+
+    rng = np.random.default_rng(12500)
+    st = rng.integers(0, 256, (32, 8), dtype=np.uint8)
+    got = fsha256.sha256_iter32(torch.from_numpy(st).to(dev), 12500).cpu().numpy()
+    for i in range(8):
+        h = bytes(st[:, i])
+        for _ in range(12500):
+            h = hashlib.sha256(h).digest()
+        assert bytes(got[:, i]) == h
 
 
 @pytest.mark.parametrize("n", [1, 2048, 65536])

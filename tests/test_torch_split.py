@@ -6,10 +6,14 @@ phases, on one seeded adversarial batch (B = 24, max_msg_len = 96):
     the point decodes;
   - _phase_hash: k's 253 bits exactly equal to the JAX phase's k_bits on
     every lane, and to SHA-512 mod L in Python ints;
-  - _phase_dsm: r_cmp against Python-int point arithmetic (ed25519_ref) on
-    the compressed point (the JAX phase costs the fused program's ~3-minute
-    compile; tests/test_torch_sigverify.py holds the whole split mask
-    against the JAX fused mask under the compile it already pays);
+  - _phase_dsm (K11's quad schedule, ops/curve.py
+    double_scalar_mul_base_quad): r_cmp against Python-int point arithmetic
+    (ed25519_ref) on the compressed point (the JAX phase costs the fused
+    program's ~3-minute compile; tests/test_torch_sigverify.py holds the
+    whole split mask against the JAX fused mask under the compile it
+    already pays); every limb in the carried form K12 multiplies, the
+    non-decoding A's lanes included; K11's product count (its operations
+    bound) equal to the count of the schedule's steps;
   - _phase_compare: the mask exactly equal to the JAX phase's on the same
     points, and to the ed25519_ref labels.
 
@@ -152,6 +156,59 @@ def test_phase_dsm_equals_python_ints(phases):
         assert bytes(enc[:, i].astype(np.uint8)) == ref.point_compress(want), i
         n_checked += 1
     assert n_checked >= B - 3
+
+
+def test_phase_dsm_limbs_stay_in_the_carried_bound(phases):
+    """K12 multiplies r_cmp's X, Y, Z with the one-thread fe_mul, which
+    csrc/fe_field.cuh bounds for carried limbs (|limb| <= 1.1 * 2^25, 1.1 *
+    2^24 for the 25-bit ones).  The quad ladder leaves its exchanges
+    uncarried, but each quad step ends in a multiply, so every stored limb,
+    on every lane, is carried: the lanes whose A does not decode too (K9
+    writes what decompression computed, and K11 runs on it)."""
+    r_cmp = phases["t"]["r_cmp"].to(torch.float64).abs()
+    bound = torch.tensor([1.1 * 2.0 ** (w - 1) for w in tl.WIDTHS], dtype=torch.float64)
+    assert (r_cmp <= bound.reshape(1, tl.NLIMB, 1)).all()
+    undecoded = [i for i in range(B) if ref.point_decompress(bytes(phases["pk"][:, i])) is None]
+    assert undecoded  # the fixture has them, and they were checked above
+    assert r_cmp[:, :, undecoded].max() > 0
+
+
+def test_phase_dsm_product_count_is_the_quad_schedules(monkeypatch):
+    """K11's operations bound (sigverify.PRODUCTS_PER_DSM_LANE) counts the
+    products of the steps double_scalar_mul_base_quad takes for one lane,
+    less the steps on the identity: a quad doubling is 4 squarings (55
+    products) and 4 multiplies (100), a quad addition 8 multiplies, a quad
+    conversion to cached form one (T 2d; the other threads multiply by
+    one), a one-thread cached addition 8 and a one-thread conversion one.
+    The table's identity entry is a constant in the kernel
+    (quad_cached_identity), so its conversion is not counted."""
+    calls = dict.fromkeys(("point_dbl_quad", "add_cached_quad", "to_cached_quad",
+                           "add_cached", "to_cached"), 0)
+    for name in calls:
+        fn = getattr(tc, name)
+
+        def counted(*a, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+
+        monkeypatch.setattr(tc, name, counted)
+    rng = np.random.default_rng(43)
+    win = torch.from_numpy(rng.integers(0, 16, (2, 64, 1)))
+    a = tc.point_decompress(torch.from_numpy(np.frombuffer(ref.point_compress(
+        ref.point_mul(12345, ref.BASE)), np.uint8).reshape(32, 1).copy()))[0]
+    tc.double_scalar_mul_base_quad(win[0], a, win[1], torch.from_numpy(tc.comb_table_host()))
+    squarings = 4 * calls["point_dbl_quad"]
+    muls = (4 * calls["point_dbl_quad"] + 8 * calls["add_cached_quad"]
+            + calls["to_cached_quad"] + 8 * calls["add_cached"] + calls["to_cached"] - 1)
+    assert calls == {"point_dbl_quad": 256, "add_cached_quad": 14 + 64 + 4,
+                     "to_cached_quad": 15, "add_cached": 64, "to_cached": 1 + 4}
+    assert (squarings, muls) == (tsv.K11_SQUARINGS_PER_LANE, tsv.K11_MULS_PER_LANE) \
+        == (1024, 2211)
+    # the bound leaves out the first window's doublings of the identity and
+    # the partial sums' first adds into it
+    first = 4 * 4 * tsv.PRODUCTS_PER_SQUARING + (4 * 4 + 4 * 8) * tsv.PRODUCTS_PER_MUL
+    assert tsv.PRODUCTS_PER_DSM_LANE == squarings * tsv.PRODUCTS_PER_SQUARING \
+        + muls * tsv.PRODUCTS_PER_MUL - first == 1008 * 55 + 2163 * 100
 
 
 def test_phase_compare_equals_jax_and_labels(phases):
