@@ -5,8 +5,9 @@ PyTorch version.
 
 (--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
 builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu
-and sha256_iter32.cu, and phases 6, 8, 12 and 14 time those K1, K4, K6, K7
-and K11 beside this tree's: [K1-ab], [K4-ab], [K6-ab], [K7-ab], [K11-ab].)
+and sha256_iter32.cu, and phases 6, 8, 12 and 14 time those K1, K4, K6, K7,
+K9, K10 and K11 beside this tree's: [K1-ab], [K4-ab], [K6-ab], [K7-ab],
+[K9-ab], [K10-ab], [K11-ab].)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -82,13 +83,18 @@ script or when a phase fails):
   14. split   the split rung's kernels alone: K9 phase_validate, K10
               phase_hash, K11 phase_dsm and K12 phase_compare at B = 16,384
               and max_msg_len 1,232 on phase 5's mixed batch (tiled 16
-              times): mask equal to K1's and to the ed25519_ref labels; at
-              B = 1,024 each phase's output (limbs, k, ok, mask) equal to its
-              plain version; each timed alone on phase 6's batch at B =
-              16,384 and 1,024 beside K1, with its own bounds; with
-              --parent, the parent's K11 on the mixed batch at B = 1,024 and
-              16,384 (masks through K12 equal, points equal where A
-              decodes, then times in turns): one [K11-ab] line
+              times): mask equal to K1's and to the ed25519_ref labels, K9's
+              limbs and ok and K10's k on its last 1,024 lanes equal to
+              their plain versions; at B = 1,024 each phase's output
+              (limbs, k, ok, mask) equal to its plain version; each timed
+              alone on phase 6's batch at B = 16,384 and 1,024 beside K1,
+              per call and device only, with its own bounds; with
+              --parent, the parent's K11 on the mixed batch at B = 1,024
+              and 16,384 (masks through K12 equal, points equal where A
+              decodes, then times in turns), K9 (ok equal, limbs equal
+              where the point decodes) and K10 (k equal) on the mixed
+              batch, each then timed in turns on phase 6's batch at B =
+              1,024 and 16,384: [K11-ab], [K9-ab] and [K10-ab] lines
   15. split pipeline  build_verify_pipeline(kernel="split") over phase 7's
               stream at batch 1,024: phase 7's counters and frames, each of
               K9-K12 launched once per batch and K1 never; beside the fused
@@ -163,7 +169,16 @@ PROBE_REPS = 200  # phase 2b: probe_add and torch.add calls per timing
 HOST_CALLS = 10_000  # phase 2b: calls per piece of the host breakdown
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_CLK_PER_SM = 64  # 32-bit IMAD / IADD3 / LOP3 / SHF, sm_90
-SHA512_OPS_PER_BLOCK = 4144  # 32-bit instructions per 128-byte block, 2 per 64-bit op
+# 32-bit instructions per SHA-512 block, a hand tally with a 64-bit
+# rotate as 2 SHF, a 64-bit 3-input LOP3 as 2 and a 64-bit 3-input add as
+# 2 (IADD3 and IADD3.X): 80 rounds x 28 (Sigma0 and Sigma1 3 rotates and a
+# LOP3 each: 12 SHF, 4 LOP3; ch 2, maj 2; T1 = h + Sigma1 + ch + K + W in
+# 2 adds, e = d + T1 and a = T1 + Sigma0 + maj 1 each: 8) + 64 schedule
+# steps x 20 (sigma0 and sigma1 2 rotates, a shift and a LOP3 each: 16;
+# 4 terms in 2 adds: 4) + 8 final adds x 2 = 3,536.  K10's SASS issues
+# more a block on its two warps (the row loads, the words, the pad and the
+# barriers), which the hash itself does not need
+SHA512_OPS_PER_BLOCK = 3536
 # 32-bit instructions per SHA-256 compression, a hand tally before constant
 # folding: 48 schedule steps x 10 (sigma0 and sigma1 4 each: 3 shifts and a
 # 3-input LOP3; 2 three-input adds for 4 terms) + 64 rounds x 13 (Sigma0
@@ -313,11 +328,13 @@ def probe_host_breakdown(fprobe, kbuild, x, y, dev) -> dict:
 # --parent DIR: the earlier checkout's kernels built beside this one's, with
 # their C entry points' argument types (pointers, then ints)
 PARENT_KERNELS = {
-    "verify": ("fd_verify_batch", 7, ("i64", "i32", "i64")),
-    "verify_cached": ("fd_verify_cached", 9, ("i64", "i32", "i64")),
-    "comb_fill": ("fd_comb_fill", 3, ("i64",)),
-    "verify_split": ("fd_phase_dsm", 5, ("i64",)),
-    "sha256_iter32": ("fd_sha256_iter32", 2, ("i64", "i64")),
+    "verify": (("fd_verify_batch", 7, ("i64", "i32", "i64")),),
+    "verify_cached": (("fd_verify_cached", 9, ("i64", "i32", "i64")),),
+    "comb_fill": (("fd_comb_fill", 3, ("i64",)),),
+    "verify_split": (("fd_phase_validate", 6, ("i64", "i32")),
+                     ("fd_phase_hash", 5, ("i64", "i32")),
+                     ("fd_phase_dsm", 5, ("i64",))),
+    "sha256_iter32": (("fd_sha256_iter32", 2, ("i64", "i64")),),
 }
 
 
@@ -344,7 +361,7 @@ def start_parent_build(kbuild, parent: str):
 
 
 def finish_parent_build(procs) -> dict:
-    """{name: the parent's entry point as a ctypes function}."""
+    """{C symbol: the parent's entry point as a ctypes function}."""
     import ctypes
 
     types = {"i32": ctypes.c_int, "i64": ctypes.c_int64}
@@ -353,12 +370,13 @@ def finish_parent_build(procs) -> dict:
         out, _ = proc.communicate()
         sys.stderr.write(f"[parent] nvcc {name}.cu rc={proc.returncode}\n{out}")
         check(proc.returncode == 0, f"--parent: nvcc failed on the parent's {name}.cu")
-        symbol, n_ptrs, ints = PARENT_KERNELS[name]
-        fn = getattr(ctypes.CDLL(so), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [types[t] for t in ints]
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(so)
+        for symbol, n_ptrs, ints in PARENT_KERNELS[name]:
+            fn = getattr(lib, symbol)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [types[t] for t in ints]
+                           + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fns[symbol] = fn
     return fns
 
 
@@ -496,6 +514,64 @@ def k11_ab(parent_fn, sv, fc, dev, runs) -> None:
              {label: (lambda r=run: sv._phase_dsm(*r[:3])) for label, run in runs.items()})
 
 
+def k9_ab(parent_fn, sv, dev, checks, timed, max_len) -> None:
+    """The parent checkout's K9 beside this one: at each batch of `checks`
+    ok equal, and A's and R's limbs equal on every lane where the point
+    decodes (and whether they are equal on every lane); then device-only
+    times at each batch of `timed`, in turns; one [K9-ab] line.  checks:
+    {label: (sig, pubkey, msg_len, A decodes, R decodes)}; timed: {label:
+    (sig, pubkey, msg_len)}."""
+
+    def parent(sig, pk, ln):
+        a_pt = torch.empty((4, 10, sig.shape[1]), dtype=torch.int32, device=dev)
+        r_pt = torch.empty_like(a_pt)
+        ok = torch.empty((sig.shape[1],), dtype=torch.bool, device=dev)
+        parent_call(parent_fn, dev, sig.data_ptr(), pk.data_ptr(), ln.data_ptr(),
+                    a_pt.data_ptr(), r_pt.data_ptr(), ok.data_ptr(), sig.shape[1], max_len)
+        return a_pt, r_pt, ok
+
+    def change(sig, pk, ln):
+        return sv._phase_validate(sig, pk, ln, max_msg_len=max_len)
+
+    everywhere = []
+    for label, (sig, pk, ln, a_dec, r_dec) in checks.items():
+        (pa, pr, pok), (ca, cr, cok) = parent(sig, pk, ln), change(sig, pk, ln)
+        check(torch.equal(pok, cok), f"parent K9 and K9 ok differ at {label}")
+        check(torch.equal(pa[:, :, a_dec], ca[:, :, a_dec])
+              and torch.equal(pr[:, :, r_dec], cr[:, :, r_dec]),
+              f"parent K9 and K9 limbs differ where the point decodes at {label}")
+        everywhere.append(f"{label} {torch.equal(pa, ca) and torch.equal(pr, cr)}")
+    log(f"[K9-ab] ok equal, limbs equal where the point decodes; limbs equal on every"
+        f" lane: {', '.join(everywhere)}")
+    ab_times("K9-ab", [(label, 20 if run[0].shape[1] <= 1024 else 5)
+                       for label, run in timed.items()],
+             {label: (lambda r=run: parent(*r)) for label, run in timed.items()},
+             {label: (lambda r=run: change(*r)) for label, run in timed.items()})
+
+
+def k10_ab(parent_fn, sv, dev, checks, timed, max_len) -> None:
+    """The parent checkout's K10 beside this one: k's bytes equal at each
+    batch of `checks`, then device-only times at each batch of `timed`, in
+    turns; one [K10-ab] line.  checks, timed: {label: (msg, msg_len, sig,
+    pubkey)}."""
+
+    def parent(msg, ln, sig, pk):
+        k = torch.empty((32, sig.shape[1]), dtype=torch.uint8, device=dev)
+        parent_call(parent_fn, dev, msg.data_ptr(), ln.data_ptr(), sig.data_ptr(),
+                    pk.data_ptr(), k.data_ptr(), sig.shape[1], max_len)
+        return k
+
+    def change(msg, ln, sig, pk):
+        return sv._phase_hash(msg, ln, sig, pk, max_msg_len=max_len)
+
+    for label, run in checks.items():
+        check(torch.equal(parent(*run), change(*run)), f"parent K10 and K10 differ at {label}")
+    ab_times("K10-ab", [(label, 50 if run[0].shape[1] <= 1024 else 10)
+                        for label, run in timed.items()],
+             {label: (lambda r=run: parent(*r)) for label, run in timed.items()},
+             {label: (lambda r=run: change(*r)) for label, run in timed.items()})
+
+
 def k4_ab(parent_fn, fsha256, dev, states, n) -> None:
     """The parent checkout's K4 beside this one: equal bytes at each chain
     count, then device-only times in turns; one [K4-ab] line.  states:
@@ -576,6 +652,7 @@ def main() -> int:
     from firedancer_tpu_torch.runtime.verify import encode_verified
     from firedancer_tpu_torch.utils.metrics import hist_quantile as tune_quantile
     from firedancer_tpu_torch.utils import kbuild
+    from firedancer_tpu_torch.utils import sass as fsass
     from firedancer_tpu_torch.utils.platform import resolve_device
 
     t_start = time.perf_counter()
@@ -809,7 +886,7 @@ def main() -> int:
     ms1k_dev = time_ms(lambda: sv.verify_batch(*args1k, B1, max_msg_len=ML1), reps=50,
                        hide_host=True)
     if parent_fns is not None:
-        k1_ab(parent_fns["verify"], sv, dev, args1, mb, argst, args1k, ML1)
+        k1_ab(parent_fns["fd_verify_batch"], sv, dev, args1, mb, argst, args1k, ML1)
     plain1 = time_host_ms(lambda: sv.verify_batch_plain(*argst, BT, ML1))
     ops1 = BT * sv.K1_PRODUCTS_PER_VALID_LANE
     bytes1 = BT * (ML1 + 4 + 64 + 32) + 64 * 16 * 4 * fl.NLIMB * 4 + BT + 4
@@ -908,8 +985,6 @@ def main() -> int:
     # loop; the schedule warp's is the other): its instructions at
     # ISSUE_CLOCKS each, and its longest dependent chain at DEP_CLOCKS each
     # (the chain floor, an estimate), n hashes at the card's top clock
-    from firedancer_tpu_torch.utils import sass as fsass
-
     loops4 = fsass.loops(fsass.dump(os.path.join(kbuild.build_dir(), "libsha256_iter32.so")),
                          "sha256_iter32_kernel")
     round4 = max(loops4, key=lambda lp: lp["n"])
@@ -938,7 +1013,7 @@ def main() -> int:
         f" {B4 * N4 / ms4b[B4] / 1e6:.3f} G hash/s at B={B4}; n=64: {ms4_n64:.4f} ms,"
         f" plain {plain4:.1f} ms")
     if parent_fns is not None:
-        k4_ab(parent_fns["sha256_iter32"], fsha256, dev, x4b, N4)
+        k4_ab(parent_fns["fd_sha256_iter32"], fsha256, dev, x4b, N4)
 
     # -- 9. K5 gf256_apply: the full-block encode, then recover_batch -----------------------
     mark("9")
@@ -1289,9 +1364,9 @@ def main() -> int:
         library_ms_all=lib8all, shape_all=f"M={VOTERS}", bound_ms_all=bms8all,
         phase_launches=kbuild.LAUNCHES["bank_install"]))
     if parent_fns is not None:
-        k6_ab(parent_fns["verify_cached"], sv, dev,
+        k6_ab(parent_fns["fd_verify_cached"], sv, dev,
               {f"B={B6k}": (args6k, sl6kd, B6k), f"B={B6}": (args6, sl6d, B6)}, bank12, ML1)
-        k7_ab(parent_fns["comb_fill"], sv, fl, dev, {"M=32": pk32, f"M={M12}": pk12})
+        k7_ab(parent_fns["fd_comb_fill"], sv, fl, dev, {"M=32": pk32, f"M={M12}": pk12})
     del b8, tall, tv12
     log(f"[comb] {len(vs13.stream)} frames signed in {sign_s:.1f} s; K7 comb_fill M=32:"
         f" {ms7:.4f} ms (bound {bms7:.4f} ms, {bby7}), M={M12}: {ms7all:.4f} ms (bound"
@@ -1425,14 +1500,40 @@ def main() -> int:
         check(errs14[nm] == 0, f"{nm} differs from its plain version at B = {B1}"
               f" (max abs err {errs14[nm]})")
     check(mk14.cpu().numpy().tolist() == lab5.tolist(), "split mask at B = 1,024 != labels")
+    # K9 and K10 on the full grid at B = 16,384: its last 1,024 lanes against
+    # their plain versions on the same lanes
+    m16, l16, s16, p16 = args14
+    a16, r16, ok16 = sv._phase_validate(s16, p16, l16, max_msg_len=ML1)
+    k16 = sv._phase_hash(m16, l16, s16, p16, max_msg_len=ML1)
+    torch.cuda.synchronize()
+    mt16, lt16, st16, pt16 = (a[..., B14 - B1:].contiguous() for a in args14)
+    for nm, got_, want_ in (
+            ("phase_validate", (a16[..., B14 - B1:], r16[..., B14 - B1:], ok16[B14 - B1:]),
+             sv._phase_validate_plain(st16, pt16, lt16, ML1)),
+            ("phase_hash", (k16[:, B14 - B1:],),
+             (sv._phase_hash_plain(mt16, lt16, st16, pt16, ML1),))):
+        err16 = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                    for g, w in zip(got_, want_))
+        check(err16 == 0, f"{nm} at B = {B14} differs from its plain version on lanes"
+              f" {B14 - B1}-{B14 - 1} (max abs err {err16})")
+        errs14[nm] = max(errs14[nm], err16)
     if parent_fns is not None:
-        m16, l16, s16, p16 = args14
-        a16, r16, ok16 = sv._phase_validate(s16, p16, l16, max_msg_len=ML1)
-        k16 = sv._phase_hash(m16, l16, s16, p16, max_msg_len=ML1)
         dec16 = sv.fc.point_decompress(p16.to(torch.int64))[1]
-        k11_ab(parent_fns["verify_split"], sv, sv.fc, dev, {
+        k11_ab(parent_fns["fd_phase_dsm"], sv, sv.fc, dev, {
             f"B={B1}": (k14, a14, s5, r14, ok14, dec16[:B1]),
             f"B={B14}": (k16, a16, s16, r16, ok16, dec16)})
+        # K9 and K10: equal on the mixed batch, timed on phase 6's transfers
+        # (the split pipeline's shape at B = 1,024)
+        rdec16 = sv.fc.point_decompress(s16[:32].to(torch.int64))[1]
+        k9_ab(parent_fns["fd_phase_validate"], sv, dev,
+              {f"mixed B={B1}": (s5, p5, l5, dec16[:B1], rdec16[:B1]),
+               f"mixed B={B14}": (s16, p16, l16, dec16, rdec16)},
+              {f"B={B1}": (args1k[2], args1k[3], args1k[1]),
+               f"B={BT}": (argst[2], argst[3], argst[1])}, ML1)
+        k10_ab(parent_fns["fd_phase_hash"], sv, dev,
+               {f"mixed B={B1}": (m5, l5, s5, p5), f"mixed B={B14}": tuple(args14),
+                f"B={BT}": tuple(argst)},
+               {f"B={B1}": tuple(args1k), f"B={BT}": tuple(argst)}, ML1)
     phase14_launches = dict(kbuild.LAUNCHES)
     # times, CUDA events, each phase alone on phase 6's honest batch (K1's
     # timing batch) at B = 16,384 and at the stage's 1,024
@@ -1443,19 +1544,23 @@ def main() -> int:
         k_ = sv._phase_hash(mt_, lt_, st_, pt_, max_msg_len=ML1)
         rc_ = sv._phase_dsm(k_, a_, st_)
         reps = 3 if bsz == BT else 10
-        times14[bsz] = {
-            "phase_validate": time_ms(lambda: sv._phase_validate(st_, pt_, lt_, max_msg_len=ML1),
-                                      reps=reps),
-            "phase_hash": time_ms(lambda: sv._phase_hash(mt_, lt_, st_, pt_, max_msg_len=ML1),
-                                  reps=reps),
-            "phase_dsm": time_ms(lambda: sv._phase_dsm(k_, a_, st_), reps=reps),
+        calls = {
+            "phase_validate": lambda: sv._phase_validate(st_, pt_, lt_, max_msg_len=ML1),
+            "phase_hash": lambda: sv._phase_hash(mt_, lt_, st_, pt_, max_msg_len=ML1),
+            "phase_dsm": lambda: sv._phase_dsm(k_, a_, st_),
+        }
+        # per call (the wrapper's host cost included) and device only
+        times14[bsz] = {nm: time_ms(fn, reps=reps) for nm, fn in calls.items()}
+        times14[bsz].update({f"{nm}_dev": time_ms(fn, reps=2 * reps, hide_host=True)
+                             for nm, fn in calls.items()})
+        times14[bsz].update({
             "phase_compare": time_ms(lambda: sv._phase_compare(rc_, r_, ok_), reps=20,
                                      hide_host=True),
             "split": time_ms(lambda: sv.ed25519_verify_batch_split(mt_, lt_, st_, pt_,
                                                                    max_msg_len=ML1), reps=reps),
             "k1": time_ms(lambda: sv.verify_batch(mt_, lt_, st_, pt_, bsz, max_msg_len=ML1),
                           reps=reps),
-        }
+        })
     # bounds from phase 6's inputs at B = 16,384 (every lane honest: every
     # lane runs every check and the whole ladder).  Bytes are what each
     # kernel reads and writes: K9 all of sig and pubkey, msg_len, two points
@@ -1469,8 +1574,7 @@ def main() -> int:
     def bounds_at(bsz: int) -> dict:
         lt6 = lt[:bsz].astype(np.int64)
         return {
-            "phase_validate": bound(bsz * 2 * (sv.MULS_DECOMPRESS + sv.MULS_SMALL_ORDER)
-                                    * sv.PRODUCTS_PER_MUL,
+            "phase_validate": bound(bsz * sv.PRODUCTS_PER_VALIDATE_LANE,
                                     bsz * (64 + 32 + 4 + 2 * pt_bytes + 1)),
             "phase_hash": bound(int(((lt6 + 64 + 17 + 127) // 128).sum()) * SHA512_OPS_PER_BLOCK,
                                 int(lt6.sum()) + bsz * (32 + 32 + 4 + 32)),
@@ -1490,12 +1594,16 @@ def main() -> int:
             max_abs_err=errs14[nm], ms=t16[nm], plain_ms=plain14[nm], bound_ms=bms,
             bound_by=bby, library_ms=None, matched=True, shape=f"B={BT} max_msg_len={ML1}",
             plain_shape=f"B={B1}", ms_batch1024=t1k[nm], bound_ms_batch1024=bounds14_1k[nm][0],
+            device_ms=t16.get(f"{nm}_dev", t16[nm]),
+            device_ms_batch1024=t1k.get(f"{nm}_dev", t1k[nm]),
             phase_launches=phase14_launches.get(nm, 0)))
     log(f"[split] B={B14} (phase 5's batch x {rep14}): mask equal to K1's and the labels"
-        f" ({int(lab14.sum())} of {B14} pass); B={B1}: limbs, k, ok and mask equal to plain;"
+        f" ({int(lab14.sum())} of {B14} pass), K9's limbs and ok and K10's k on lanes"
+        f" {B14 - B1}-{B14 - 1} equal to plain; B={B1}: limbs, k, ok and mask equal to plain;"
         f" loaded entry points {sv.kernel_compiled_entries('split')}")
     log("[split] " + "; ".join(
-        f"{nm} {t16[nm]:.4f} ms at B={BT} ({t1k[nm]:.4f} ms at B={B1}; bounds"
+        f"{nm} {t16[nm]:.4f} ms at B={BT} ({t1k[nm]:.4f} ms at B={B1}; device only"
+        f" {t16.get(f'{nm}_dev', t16[nm]):.4f} / {t1k.get(f'{nm}_dev', t1k[nm]):.4f} ms; bounds"
         f" {bounds14[nm][0]:.4f} / {bounds14_1k[nm][0]:.4f} ms, {bounds14[nm][1]}; plain"
         f" {plain14[nm]:.1f} ms at B={B1})"
         for nm in SPLIT)

@@ -118,23 +118,6 @@ __device__ __forceinline__ ge ge_identity() {
   return ge{fe_zero(), fe_one(), fe_one(), fe_zero()};
 }
 
-__device__ __forceinline__ ge ge_neg(const ge& p) {
-  return ge{fe_neg(p.X), p.Y, p.Z, fe_neg(p.T)};
-}
-
-// dbl-2008-hwcd with a = -1 (ops/curve.py point_dbl).
-__device__ __forceinline__ ge ge_dbl(const ge& p) {
-  fe a = fe_sqr(p.X);
-  fe b = fe_sqr(p.Y);
-  fe zz = fe_sqr(p.Z);
-  fe c = fe_add(zz, zz);
-  fe e = fe_sub(fe_sub(fe_sqr(fe_add(p.X, p.Y)), a), b);
-  fe g = fe_sub(b, a);
-  fe f = fe_sub(g, c);
-  fe h = fe_neg(fe_add(a, b));
-  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
-}
-
 __device__ __forceinline__ gec ge_to_cached(const ge& p) {
   const int32_t d2[10] = FE_D2;
   return gec{fe_add(p.Y, p.X), fe_sub(p.Y, p.X), p.Z, fe_mul(p.T, fe_lit(d2))};
@@ -154,39 +137,9 @@ __device__ __forceinline__ ge ge_add_cached(const ge& p, const gec& q) {
   return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
 }
 
-__device__ __forceinline__ bool ge_is_small_order(const ge& p) {
-  ge q = p;
-  for (int i = 0; i < 3; i++) q = ge_dbl(q);
-  return fe_is_zero(q.X) && fe_eq(q.Y, q.Z);
-}
-
 // p == q where q.Z == 1 (a freshly decompressed point).
 __device__ __forceinline__ bool ge_eq_z1(const ge& p, const ge& q) {
   return fe_eq(fe_mul(q.X, p.Z), p.X) && fe_eq(fe_mul(q.Y, p.Z), p.Y);
-}
-
-// RFC 8032 5.1.3 by x = u v^3 (u v^7)^((p-5)/8), accepting a non-canonical
-// y and x = 0 with the sign bit set (ops/curve.py point_decompress).
-__device__ __forceinline__ bool ge_decompress(const uint64_t w[4], ge& out) {
-  const int32_t dc[10] = FE_D;
-  const int32_t sq[10] = FE_SQRTM1;
-  const int sign = (int)(w[3] >> 63);
-  fe y = fe_frombytes(w[0], w[1], w[2], w[3], true);
-  fe one = fe_one();
-  fe y2 = fe_sqr(y);
-  fe u = fe_sub(y2, one);
-  fe v = fe_add(fe_mul(fe_lit(dc), y2), one);
-  fe v3 = fe_mul(fe_sqr(v), v);
-  fe v7 = fe_mul(fe_sqr(v3), v);
-  fe x = fe_mul(fe_mul(u, v3), fe_pow2523(fe_mul(u, v7)));
-  fe vx2 = fe_mul(v, fe_sqr(x));
-  bool ok_direct = fe_eq(vx2, u);
-  bool ok_flip = fe_eq(vx2, fe_neg(u));
-  x = fe_select(ok_direct, x, fe_mul(x, fe_lit(sq)));
-  bool flip = (fe_parity(x) ^ sign) != 0;
-  x = fe_select(flip, fe_neg(x), x);
-  out = ge{x, y, one, fe_mul(x, y)};
-  return ok_direct || ok_flip;
 }
 
 // ------------------------------------------------------- per-signer combs

@@ -255,10 +255,12 @@ __device__ __forceinline__ fe fe_sq_n_q(fe f, int n) {
   return f;
 }
 
-// curve.cuh's ge_decompress and ge_is_small_order (RFC 8032 5.1.3 by
-// x = u v^3 (u v^7)^((p-5)/8), accepting a non-canonical y and x = 0 with
-// the sign bit set; then [8]P == identity) with the multiplies inlined and
-// the squarings of 55 products: the same values, one call per thread.
+// RFC 8032 5.1.3 decompression by x = u v^3 (u v^7)^((p-5)/8), accepting a
+// non-canonical y and x = 0 with the sign bit set, then the small-order
+// check [8]P == identity: the steps of ops/curve.py point_decompress and
+// is_small_order (the ref10 exponent schedule, dbl-2008-hwcd), one thread
+// a point, with the multiplies inlined and the squarings of 55 products
+// (the same limbs).  ok is "decodes and not of small order".
 struct ge_ok {
   ge p;
   bool ok;

@@ -124,29 +124,6 @@ __device__ __noinline__ fe fe_mul(fe f, fe g) {
   return fe_carry64(h);
 }
 
-__device__ __forceinline__ fe fe_sqr(const fe& f) { return fe_mul(f, f); }
-
-__device__ __forceinline__ fe fe_sqr_n(fe f, int n) {
-  for (int i = 0; i < n; i++) f = fe_mul(f, f);
-  return f;
-}
-
-// x^(2^252 - 3): the ref10 exponent schedule (ops/limbs.py fe_pow2523).
-__device__ __noinline__ fe fe_pow2523(fe x) {
-  fe z2 = fe_sqr(x);
-  fe z9 = fe_mul(fe_sqr_n(z2, 2), x);
-  fe z11 = fe_mul(z9, z2);
-  fe z_5_0 = fe_mul(fe_sqr(z11), z9);
-  fe z_10_0 = fe_mul(fe_sqr_n(z_5_0, 5), z_5_0);
-  fe z_20_0 = fe_mul(fe_sqr_n(z_10_0, 10), z_10_0);
-  fe z_40_0 = fe_mul(fe_sqr_n(z_20_0, 20), z_20_0);
-  fe z_50_0 = fe_mul(fe_sqr_n(z_40_0, 10), z_10_0);
-  fe z_100_0 = fe_mul(fe_sqr_n(z_50_0, 50), z_50_0);
-  fe z_200_0 = fe_mul(fe_sqr_n(z_100_0, 100), z_100_0);
-  fe z_250_0 = fe_mul(fe_sqr_n(z_200_0, 50), z_50_0);
-  return fe_mul(fe_sqr_n(z_250_0, 2), x);
-}
-
 // Canonical limbs in [0, 2^w): q = floor(h / p) from the top, h - q p, then
 // a sequential floor carry (ref10 fe_tobytes).
 __device__ __forceinline__ fe fe_freeze(const fe& a) {

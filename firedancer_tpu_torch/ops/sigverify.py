@@ -60,12 +60,9 @@ _CACHED = kbuild.bind("verify_cached", "fd_verify_cached", 9, (_I64, _I32, _I64)
 _COMB_FILL = kbuild.bind("comb_fill", "fd_comb_fill", 3, (_I64,))
 _BANK_INSTALL = kbuild.bind("bank_install", "fd_bank_install", 3, (_I64,))
 
-# field multiplies per lane on the one-thread kernels' path (csrc/curve.cuh:
-# K9, K12), for their operations bounds: decompress (incl. the 262-multiply
-# pow2523 chain), small-order check (3 doublings of 8), and the Z=1
-# compare.  Each multiply is 100 32x32->64 products.
-MULS_DECOMPRESS = 275
-MULS_SMALL_ORDER = 24
+# field multiplies per lane of K12's Z = 1 compare (csrc/curve.cuh
+# ge_eq_z1), for its operations bound; each multiply is 100 32x32->64
+# products
 MULS_EQ_Z1 = 2
 PRODUCTS_PER_MUL = 100
 # K1 (csrc/verify.cu over csrc/curve_quad.cuh) squares with 55 products
@@ -81,6 +78,15 @@ K1_MULS_PER_VALID_LANE = (2 * (20 + 3 * 4) + 14 * 8 + 15 + 64 * (4 * 4 + 8) + 64
                           + 4 * 8 + MULS_EQ_Z1)
 K1_PRODUCTS_PER_VALID_LANE = (K1_SQUARINGS_PER_VALID_LANE * PRODUCTS_PER_SQUARING
                               + K1_MULS_PER_VALID_LANE * PRODUCTS_PER_MUL)
+# K9 (csrc/verify_split.cu phase_validate, one point a thread on
+# curve_quad.cuh ge_decompress_strict_q) per lane: A and R each decompressed
+# (255 squarings, 20 multiplies) and checked for small order (3 doublings
+# of 4 squarings and 4 multiplies), the steps of ops/curve.py
+# point_decompress and is_small_order
+K9_SQUARINGS_PER_LANE = 2 * (255 + 3 * 4)
+K9_MULS_PER_LANE = 2 * (20 + 3 * 4)
+PRODUCTS_PER_VALIDATE_LANE = (K9_SQUARINGS_PER_LANE * PRODUCTS_PER_SQUARING
+                              + K9_MULS_PER_LANE * PRODUCTS_PER_MUL)
 # K11 (csrc/verify_split.cu phase_dsm, K1's ladder alone) per lane: the
 # table by 14 quad adds and 15 conversions, 64 x (4 quad doublings + 1 quad
 # add), the base comb's 64 one-thread adds in four partial sums, their 4

@@ -22,6 +22,7 @@ from firedancer_tpu_torch.ops import limbs as fl
 from firedancer_tpu_torch.ops import lthash as flt
 from firedancer_tpu_torch.ops import sha512 as fsha
 from firedancer_tpu_torch.ops import sigverify as sv
+from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
 from firedancer_tpu_torch.utils import kbuild
 
 pytestmark = pytest.mark.cuda
@@ -391,6 +392,75 @@ def test_phase_dsm_kernel_limbs_equal_plain_at_ragged_batches(dev, bsz):
     mask = sv._phase_compare(r_cmp, r, ok)
     k1, _ = sv.verify_batch(msg, msg_len, sig, pk, bsz, max_msg_len=256)
     assert mask.cpu().tolist() == k1.cpu().tolist() == labels.tolist()
+
+
+@pytest.mark.parametrize("bsz", [1, 31, 33, 1000])
+def test_phase_validate_kernel_equals_plain_at_ragged_batches(dev, bsz):
+    """K9 on two warps of 32 signatures (A on warp 0, R on warp 1): a_pt,
+    r_pt and ok equal _phase_validate_plain on every lane of the adversarial
+    batch (non-decoding, non-canonical and small-order A and R, s >= L, and
+    two lengths out of range), batches ending inside a block; the split mask
+    equal to K1's and the labels."""
+    mb = mixed_batch(min(bsz, 257), 256, seed=90 + bsz)
+    reps = -(-bsz // mb.msg_len.shape[0])
+    ln = np.tile(mb.msg_len, reps)[:bsz].copy()
+    labels = np.tile(mb.labels, reps)[:bsz].copy()
+    for i, bad in ((bsz // 2, 257), (bsz - 1, -1)):
+        ln[i] = bad
+        labels[i] = False
+    msg, sig, pk = (torch.from_numpy(np.ascontiguousarray(
+        np.tile(a, (1,) * (a.ndim - 1) + (reps,))[..., :bsz])).to(dev)
+        for a in (mb.msg, mb.sig, mb.pubkey))
+    msg_len = torch.from_numpy(ln).to(dev)
+    a, r, ok = sv._phase_validate(sig, pk, msg_len, max_msg_len=256)
+    assert kbuild.LAUNCHES["phase_validate"] == 1
+    pa, pr, pok = sv._phase_validate_plain(sig, pk, msg_len, 256)
+    assert torch.equal(a, pa) and torch.equal(r, pr) and torch.equal(ok, pok)
+    k = sv._phase_hash(msg, msg_len, sig, pk, max_msg_len=256)
+    mask = sv._phase_compare(sv._phase_dsm(k, a, sig), r, ok)
+    k1, _ = sv.verify_batch(msg, msg_len, sig, pk, bsz, max_msg_len=256)
+    assert mask.cpu().tolist() == k1.cpu().tolist() == labels.tolist()
+
+
+# K10's lengths: every SHA-512 block edge of R || A || msg (64 + len bytes:
+# 111 | 112 and 239 | 240), the message's own edges, out of range (clamped)
+# and the maximum, mixed inside each 32-lane block
+HASH_MAX = 300
+HASH_LENS = (0, 47, 48, 64, 111, 112, 175, 176, HASH_MAX, -1, HASH_MAX + 1, 1)
+
+
+@pytest.mark.parametrize("bsz,offset", [(1, 0), (31, 0), (33, 0), (48, 0), (1000, 0),
+                                        (1024, 0), (1024, 1)])
+def test_phase_hash_kernel_at_block_edges_equals_plain_and_hashlib(dev, bsz, offset):
+    """K10 on a round warp and a message warp: k equal to _phase_hash_plain
+    and to SHA-512(R || A || msg[:clamped len]) mod L (hashlib) on every
+    lane, with lengths on every block edge mixed inside each block; batches
+    of whole 16-lane rows (uint4 row loads) and not, and (offset 1) rows
+    that are not 16-byte aligned."""
+    rng = np.random.default_rng(bsz + offset)
+    lens = np.array([HASH_LENS[(7 * i) % len(HASH_LENS)] for i in range(bsz)], np.int32)
+    msg_h = rng.integers(0, 256, (HASH_MAX, bsz), dtype=np.uint8)
+    sig_h = rng.integers(0, 256, (64, bsz), dtype=np.uint8)
+    pk_h = rng.integers(0, 256, (32, bsz), dtype=np.uint8)
+
+    def rows(a):  # on the card, starting `offset` bytes into its buffer
+        flat = torch.empty(a.size + offset, dtype=torch.uint8, device=dev)
+        t = flat[offset:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+
+    msg, sig, pk = rows(msg_h), rows(sig_h), rows(pk_h)
+    msg_len = torch.from_numpy(lens).to(dev)
+    k = sv._phase_hash(msg, msg_len, sig, pk, max_msg_len=HASH_MAX)
+    assert kbuild.LAUNCHES["phase_hash"] == 1
+    assert torch.equal(k, sv._phase_hash_plain(msg, msg_len, sig, pk, HASH_MAX))
+    kh = k.cpu().numpy()
+    for i in range(bsz):
+        n = min(max(int(lens[i]), 0), HASH_MAX)
+        h = hashlib.sha512(bytes(sig_h[:32, i]) + bytes(pk_h[:, i])
+                           + bytes(msg_h[:n, i])).digest()
+        assert int.from_bytes(bytes(kh[:, i]), "little") == \
+            int.from_bytes(h, "little") % ref.L, i
 
 
 def test_sha256_iter32_kernel_at_a_tick_equals_hashlib(dev):

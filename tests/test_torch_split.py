@@ -3,7 +3,8 @@ phases, on one seeded adversarial batch (B = 24, max_msg_len = 96):
 
   - _phase_validate: ok exactly equal to the JAX phase's; A and R equal on
     canonical limbs, and to ed25519_ref's decompression, on every lane where
-    the point decodes;
+    the point decodes; K9's product count (its operations bound) equal to
+    the count of the plain version's steps;
   - _phase_hash: k's 253 bits exactly equal to the JAX phase's k_bits on
     every lane, and to SHA-512 mod L in Python ints;
   - _phase_dsm (K11's quad schedule, ops/curve.py
@@ -209,6 +210,31 @@ def test_phase_dsm_product_count_is_the_quad_schedules(monkeypatch):
     first = 4 * 4 * tsv.PRODUCTS_PER_SQUARING + (4 * 4 + 4 * 8) * tsv.PRODUCTS_PER_MUL
     assert tsv.PRODUCTS_PER_DSM_LANE == squarings * tsv.PRODUCTS_PER_SQUARING \
         + muls * tsv.PRODUCTS_PER_MUL - first == 1008 * 55 + 2163 * 100
+
+
+def test_phase_validate_product_count_is_the_plain_steps(monkeypatch):
+    """K9's operations bound (sigverify.PRODUCTS_PER_VALIDATE_LANE) counts
+    the products of the steps _phase_validate_plain takes for one lane, the
+    steps the kernel's ge_decompress_strict_q takes for each of A and R: a
+    squaring (fe_mul(f, f)) is 55 products in the kernel (fe_sq_q), any
+    other multiply 100.  Per point: the decompression's 255 squarings and 20
+    multiplies (the pow2523 chain's 251 and 11 among them) and the
+    small-order check's 3 doublings of 4 squarings and 4 multiplies."""
+    calls = {"squarings": 0, "muls": 0}
+    fe_mul = tl.fe_mul
+
+    def counted(f, g):
+        calls["squarings" if f is g else "muls"] += 1
+        return fe_mul(f, g)
+
+    monkeypatch.setattr(tl, "fe_mul", counted)
+    msg, ln, sig, pk, _, _ = _batch()
+    tsv._phase_validate_plain(torch.from_numpy(sig[:, :1].copy()),
+                              torch.from_numpy(pk[:, :1].copy()),
+                              torch.from_numpy(ln[:1].copy()), MAX)
+    assert (calls["squarings"], calls["muls"]) == \
+        (tsv.K9_SQUARINGS_PER_LANE, tsv.K9_MULS_PER_LANE) == (2 * 267, 2 * 32)
+    assert tsv.PRODUCTS_PER_VALIDATE_LANE == 534 * 55 + 64 * 100
 
 
 def test_phase_compare_equals_jax_and_labels(phases):
