@@ -4,10 +4,11 @@ PyTorch version.
     python3 chip_smoke.py [--parent DIR]
 
 (--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
-builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu
-and sha256_iter32.cu, and phases 6, 8, 12 and 14 time those K1, K4, K6, K7,
-K9, K10 and K11 beside this tree's: [K1-ab], [K4-ab], [K6-ab], [K7-ab],
-[K9-ab], [K10-ab], [K11-ab].)
+builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu,
+sha256_iter32.cu, sha256_msg.cu and keccak256_msg.cu, and phases 6, 8, 12,
+14, 18 and 19 time those K1, K4, K6, K7, K9, K10, K11, K14 and K17 beside
+this tree's: [K1-ab], [K4-ab], [K6-ab], [K7-ab], [K9-ab], [K10-ab],
+[K11-ab], [K14-ab], [K17-ab].)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -133,19 +134,26 @@ script or when a phase fails):
               reproduces this pipeline's seal
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
-              the plain version on 1,024; K15 sha256_mix32 at B = 4,096:
-              equal to hashlib and the plain version; then the bmtree root
-              build over phase 17's FEC sets, grouped by shape: one
-              hash_leaves_batch per leaf size and one layers_batch per group
-              on the card, every layer equal to the host tree, every root
-              the first 20 bytes of the root the shredder signed, K14
+              the plain version on 1,024; the same rows from an offset
+              buffer (the narrow path: one byte a thread) and on 4,091
+              lanes (not a multiple of 16) equal to it; K15 sha256_mix32 at
+              B = 4,096: equal to hashlib and the plain version; then the
+              bmtree root build over phase 17's FEC sets, grouped by shape:
+              one hash_leaves_batch per leaf size and one layers_batch per
+              group on the card, every layer equal to the host tree, every
+              root the first 20 bytes of the root the shredder signed, K14
               launched exactly once per leaf size and layer; each timed,
-              the root build beside the host tree's time
+              the root build beside the host tree's time, and each of its
+              K14 launches alone at its own shape ([K14-launches]: lanes,
+              blocks, path, time, bound, the sum of time - bound); the
+              timed batches' last 1,024 lanes equal to plain on both paths
   19. hashes  K16 blake3_msg at B = 16,384, max_len 1,024; K17
-              keccak256_msg at B = 4,096, max_len 1,232; K18
+              keccak256_msg at B = 4,096, max_len 1,232 (and from an offset
+              buffer, the narrow path: equal on every lane); K18
               chacha20_keystream at B = 65,536 (half zero nonces, half
               seeded): each equal to its host oracle on sampled lanes and
-              to its plain version on 1,024 lanes; each timed
+              to its plain version on the first and the last 1,024 lanes;
+              each timed
 
 Then a [time] line with each phase's seconds on the host clock, one JSON
 line of per-kernel numbers ({"kernels": [...]}), the
@@ -335,6 +343,8 @@ PARENT_KERNELS = {
                      ("fd_phase_hash", 5, ("i64", "i32")),
                      ("fd_phase_dsm", 5, ("i64",))),
     "sha256_iter32": (("fd_sha256_iter32", 2, ("i64", "i64")),),
+    "sha256_msg": (("fd_sha256_msg", 3, ("i64",)),),
+    "keccak256_msg": (("fd_keccak256_msg", 3, ("i64",)),),
 }
 
 
@@ -588,6 +598,36 @@ def k4_ab(parent_fn, fsha256, dev, states, n) -> None:
     ab_times("K4-ab", [(f"B={b}", 3) for b in states],
              {f"B={b}": (lambda x=x: parent(x)) for b, x in states.items()},
              {f"B={b}": (lambda x=x: fsha256.sha256_iter32(x, n)) for b, x in states.items()})
+
+
+def offset_rows(m: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """A copy of m on its device starting `offset` bytes into its buffer, so
+    its rows are not 16-byte aligned (the hash kernels' narrow path)."""
+    flat = torch.empty(m.numel() + offset, dtype=m.dtype, device=m.device)
+    t = flat[offset:].view(m.shape)
+    t.copy_(m)
+    return t
+
+
+def msg_ab(tag: str, parent_fn, change, batches) -> None:
+    """The parent checkout's message-hash kernel (K14 or K17: (msg, len,
+    out, B)) beside this one: bytes equal at each batch, then device-only
+    times in turns; one [tag] line.  change launches without the wrappers'
+    length check, whose host sync the timing's busy-wait cannot hide.
+    batches: {label: (msg, msg_len)}."""
+
+    def parent(m, ln):
+        out = torch.empty((32, m.shape[1]), dtype=torch.uint8, device=m.device)
+        parent_call(parent_fn, m.device, m.data_ptr(), ln.data_ptr(), out.data_ptr(),
+                    m.shape[1])
+        return out
+
+    for label, run in batches.items():
+        check(torch.equal(parent(*run), change(*run)), f"parent {tag[:3]} and {tag[:3]} differ"
+              f" at {label}")
+    ab_times(tag, [(label, 20) for label in batches],
+             {label: (lambda r=run: parent(*r)) for label, run in batches.items()},
+             {label: (lambda r=run: change(*r)) for label, run in batches.items()})
 
 
 def time_host_ms(fn) -> float:
@@ -1928,12 +1968,21 @@ def main() -> int:
     p14, plain14 = plain_run(lambda: fsha256.sha256_msg_plain(
         m14[:, :P].contiguous(), l14[:P].contiguous(), ML14))
     check(torch.equal(p14, d14[:, :P]), "K14 differs from its plain version")
+    # the narrow path: the same rows not 16-byte aligned, and 4,091 lanes
+    m14o = offset_rows(m14)
+    check(torch.equal(fsha256._sha256_msg(m14o, l14, ML14), d14),
+          "K14's narrow path (rows not 16-byte aligned) differs from its wide path")
+    n14r = B14 - 5
+    check(torch.equal(fsha256.sha256_msg(m14[:, :n14r].contiguous(), l14[:n14r].contiguous()),
+                      d14[:, :n14r]), f"K14 on {n14r} lanes differs from the full batch")
     ms14 = time_ms(lambda: fsha256._sha256_msg(m14, l14, ML14), reps=50, hide_host=True)
+    ms14n = time_ms(lambda: fsha256._sha256_msg(m14o, l14, ML14), reps=50, hide_host=True)
     blocks14 = int(((l14h.astype(np.int64) + 9 + 63) // 64).sum())
     b14, bby14 = bound(blocks14 * SHA256_OPS_PER_COMPRESSION, int(l14h.sum()) + 36 * B14)
     log(f"[K14] sha256_msg B={B14} max_len={ML14} ({blocks14} blocks, lengths {edge14} and"
-        f" random): equal to hashlib on every lane and to plain on {P}; {ms14 * 1e3:.2f} us"
-        f" (bound {b14 * 1e3:.2f} us, {bby14}); plain {plain14:.1f} ms")
+        f" random): equal to hashlib on every lane and to plain on {P}; the narrow path (offset"
+        f" rows) and {n14r} lanes equal; {ms14 * 1e3:.2f} us (narrow path {ms14n * 1e3:.2f} us;"
+        f" bound {b14 * 1e3:.2f} us, {bby14}); plain {plain14:.1f} ms")
 
     st15h, mx15h = (rng.integers(0, 256, (32, B14), dtype=np.uint8) for _ in range(2))
     st15, mx15 = torch.from_numpy(st15h).to(dev), torch.from_numpy(mx15h).to(dev)
@@ -1987,8 +2036,20 @@ def main() -> int:
         return [[fbm.tree_layers([fbm.hash_leaf(x) for x in dl + pl]) for _, dl, pl in grp]
                 for grp in groups18.values()]
 
+    # every K14 launch of the root build, recorded at its own shape
+    rec18 = []
+    k14_launch = fsha256._sha256_msg
+
+    def recording(msg, msg_len, max_len):
+        rec18.append((msg.clone(), msg_len.clone(), max_len))
+        return k14_launch(msg, msg_len, max_len)
+
     kbuild.reset_launches()
-    layers18, build18 = plain_run(root_build)
+    fsha256._sha256_msg = recording
+    try:
+        layers18, build18 = plain_run(root_build)
+    finally:
+        fsha256._sha256_msg = k14_launch
     launches18 = dict(kbuild.LAUNCHES)
     want_l18 = sum(1 + (npar > 0) + fbm.depth(nd + npar) - 1 for nd, npar, _, _, _ in rows18)
     check(launches18 == {"sha256_msg": want_l18},
@@ -2003,6 +2064,52 @@ def main() -> int:
                       "root build: a layer differs from the host tree (leaves: hash_leaf)")
             check(bytes(lh[-1][0, :, j]) == st.merkle_root[:fbm.NODE_SZ],
                   "root build: a root is not the signed root's first 20 bytes")
+    check(len(rec18) == want_l18,
+          f"root build: {len(rec18)} K14 calls recorded, {want_l18} launched")
+    # each launch alone at its own shape, device only: lanes, the longest
+    # lane's blocks, the path (wide: B % 16 == 0 and 16-byte aligned rows),
+    # time and bound; then the timed batches' last 1,024 lanes on both paths
+    per18 = []
+    for m, ln, ml in rec18:
+        lh18 = ln.cpu().numpy().astype(np.int64)
+        nblk = (lh18 + 9 + 63) // 64
+        t_ = time_ms(lambda m=m, ln=ln, ml=ml: fsha256._sha256_msg(m, ln, ml), reps=20,
+                     hide_host=True)
+        bms_, _ = bound(int(nblk.sum()) * SHA256_OPS_PER_COMPRESSION,
+                        int(lh18.sum()) + 36 * len(lh18))
+        per18.append(dict(lanes=len(lh18), blocks=int(nblk.max()), max_len=ml,
+                          path="wide" if len(lh18) % 16 == 0 and m.data_ptr() % 16 == 0
+                          else "narrow", ms=t_, bound_ms=bms_))
+        if PARENT:  # the parent's K14 at the same shape, right after
+            out_ = torch.empty((32, len(lh18)), dtype=torch.uint8, device=dev)
+            per18[-1]["parent_ms"] = time_ms(
+                lambda m=m, ln=ln, o=out_: parent_call(parent_fns["fd_sha256_msg"], dev,
+                                                       m.data_ptr(), ln.data_ptr(), o.data_ptr(),
+                                                       m.shape[1]), reps=20, hide_host=True)
+    loss18 = sum(x["ms"] - x["bound_ms"] for x in per18)
+    ploss18 = (f"; the parent's sum {sum(x['parent_ms'] - x['bound_ms'] for x in per18) * 1e3:.2f}"
+               " us" if PARENT else "")
+    log(f"[K14-launches] the root build's {len(per18)} K14 launches alone, device only (lanes x"
+        " longest lane's blocks, path: us, bound us[, parent us]): " + "; ".join(
+            f"{x['lanes']}x{x['blocks']} {x['path']}: {x['ms'] * 1e3:.2f},"
+            f" {x['bound_ms'] * 1e3:.2f}" + (f", {x['parent_ms'] * 1e3:.2f}" if PARENT else "")
+            for x in per18)
+        + f"; sum of (time - bound) {loss18 * 1e3:.2f} us{ploss18}")
+    leaf18 = max(range(len(rec18)), key=lambda i: per18[i]["lanes"] * per18[i]["blocks"])
+    timed14 = {f"B={B14} max_len={ML14}": (m14, l14, ML14),
+               f"leaf {per18[leaf18]['lanes']} lanes x {per18[leaf18]['max_len']} B": rec18[leaf18]}
+    for label, (m, ln, ml) in timed14.items():
+        tail = slice(m.shape[1] - min(P, m.shape[1]), m.shape[1])
+        pl = fsha256.sha256_msg_plain(m[:, tail].contiguous(), ln[tail].contiguous(), ml)
+        for path, mm in (("wide", m), ("narrow", offset_rows(m))):
+            check(torch.equal(fsha256._sha256_msg(mm, ln, ml)[:, tail], pl),
+                  f"K14 ({path} path) differs from plain on the last lanes at {label}")
+    log(f"[K14] the last {P} lanes of each timed batch ({', '.join(timed14)}) equal to plain on"
+        " the wide and the narrow path")
+    if PARENT:
+        msg_ab("K14-ab", parent_fns["fd_sha256_msg"],
+               lambda m, ln: fsha256._sha256_msg(m, ln, m.shape[0]),
+               {label: (m, ln) for label, (m, ln, _) in timed14.items()})
     dev18 = sorted(plain_run(root_build)[1] for _ in range(3))
     host18_ms = sorted(plain_run(host_build)[1] for _ in range(3))
     nsets18 = sum(len(g) for g in groups18.values())
@@ -2046,13 +2153,24 @@ def main() -> int:
         p19, plain_ms = plain_run(lambda: plain(m19[:, :P].contiguous(), l19[:P].contiguous(),
                                                 max_len))
         check(torch.equal(p19, d19[:, :P]), f"{nm} differs from its plain version")
+        tail = slice(bsz - P, bsz)
+        check(torch.equal(plain(m19[:, tail].contiguous(), l19[tail].contiguous(), max_len),
+                          d19[:, tail]), f"{nm} differs from its plain version on the last lanes")
+        m19o = offset_rows(m19)
+        check(torch.equal(launch(m19o, l19), d19), f"{nm} from rows not 16-byte aligned differs")
+        ms_n = time_ms(lambda: launch(m19o, l19), reps=50, hide_host=True)
+        if PARENT and nm == "keccak256_msg":
+            msg_ab("K17-ab", parent_fns["fd_keccak256_msg"], launch,
+                   {f"B={bsz} max_len={max_len}": (m19, l19)})
         ms_ = time_ms(lambda: launch(m19, l19), reps=50, hide_host=True)
         bms, bby = bound(ops(lh), int(lh.sum()) + 36 * bsz)
         hashes19[nm] = dict(api=n_api, err=err, ms=ms_, plain=plain_ms, bound=(bms, bby),
-                            shape=f"B={bsz} max_len={max_len}")
+                            shape=f"B={bsz} max_len={max_len}", ms_narrow=ms_n)
         log(f"[{'K16' if nm == 'blake3_msg' else 'K17'}] {nm} B={bsz} max_len={max_len}"
-            f" (lengths {edges} and random): equal to {host.__name__} on {len(sample)} lanes and"
-            f" to plain on {P}; {ms_ * 1e3:.2f} us (bound {bms * 1e3:.2f} us, {bby});"
+            f" (lengths {edges} and random): equal to {host.__name__} on {len(sample)} lanes, to"
+            f" plain on the first and last {P}, and from offset rows on every lane;"
+            f" {ms_ * 1e3:.2f} us (offset rows {ms_n * 1e3:.2f} us; bound {bms * 1e3:.2f} us,"
+            f" {bby});"
             f" plain {plain_ms:.1f} ms")
 
     B18 = 65536
@@ -2113,7 +2231,10 @@ def main() -> int:
             path_launches=path_n))
     by_name = {k["name"]: k for k in kernels}
     by_name["chacha20_keystream"]["ms_zero_nonces"] = ms18z
-    by_name["sha256_msg"].update(root_build_ms=dev18, host_tree_ms=host18_ms)
+    for nm, h in hashes19.items():
+        by_name[nm]["ms_narrow"] = h["ms_narrow"]
+    by_name["sha256_msg"].update(root_build_ms=dev18, host_tree_ms=host18_ms, ms_narrow=ms14n,
+                                 root_build_launches=per18, root_build_loss_ms=loss18)
 
     for k in kernels:
         check(k["phase_launches"] > 0, f"{k['name']} never launched in its phase")
@@ -2154,7 +2275,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's K1, K4, K6, K7 and K11 (a checkout of an
-    # earlier commit) and time them beside this tree's in phases 6, 8, 12 and 14
+    # --parent DIR: also build DIR's K1, K4, K6, K7, K9-K11, K14 and K17 (a
+    # checkout of an earlier commit) and time them beside this tree's in
+    # phases 6, 8, 12, 14, 18 and 19
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

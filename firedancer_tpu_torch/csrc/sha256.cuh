@@ -1,11 +1,7 @@
-// SHA-256 compression and one variable-length message per thread, shared by
-// K4 (csrc/sha256_iter32.cu) and K14/K15 (csrc/sha256_msg.cu).  The plain
-// PyTorch twin is ops/sha256.py (_compress, sha256_msg_plain).
-//
-// The message bytes come from a source functor `src(pos)` (pos < len), so a
-// caller reads its input in place.  A lane pads in registers from its own
-// length (0x80, zeros, the 64-bit big-endian bit length) and runs only its
-// own (len + 9 + 63) / 64 blocks.
+// SHA-256's constants, one thread's compression and the 32-byte row
+// loads and stores, shared by K4 (csrc/sha256_iter32.cu) and K14/K15
+// (csrc/sha256_msg.cu).  The plain PyTorch twin is ops/sha256.py
+// (_compress).
 #pragma once
 
 #include "fd_common.cuh"
@@ -67,48 +63,6 @@ __device__ __forceinline__ void sha256_compress(uint32_t st[8], uint32_t w[16]) 
   st[0] += a; st[1] += b; st[2] += c; st[3] += d;
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
-
-// Digest state words (big-endian words of the 32-byte digest) of the
-// len-byte message src(0..len-1).
-template <class Src>
-__device__ __forceinline__ void sha256_lane(const Src& src, uint32_t len, uint32_t st[8]) {
-  sha256_init(st);
-  const uint32_t nb = (len + 9 + 63) / 64;
-  const uint64_t bits = (uint64_t)len * 8;
-  for (uint32_t blk = 0; blk < nb; blk++) {
-    uint32_t w[16];
-    const uint32_t base = blk * 64;
-#pragma unroll
-    for (int t = 0; t < 16; t++) {
-      uint32_t x = 0;
-#pragma unroll
-      for (int b = 0; b < 4; b++) {
-        const uint32_t pos = base + 4 * t + b;
-        const uint32_t byte = pos < len ? (uint32_t)src(pos) : (pos == len ? 0x80u : 0u);
-        x = (x << 8) | byte;
-      }
-      w[t] = x;
-    }
-    // the final block's last 8 bytes lie past len + 1: the bit length
-    if (blk == nb - 1) {
-      w[14] = (uint32_t)(bits >> 32);
-      w[15] = (uint32_t)bits;
-    }
-    sha256_compress(st, w);
-  }
-}
-
-// Byte rows of one lane of a (rows, B) row-major uint8 array, read in place:
-// neighbouring lanes sit at neighbouring addresses, so a warp's loads of one
-// row coalesce.
-struct Sha256RowSrc {
-  const uint8_t* __restrict__ rows;
-  int64_t stride;
-  int64_t lane;
-  __device__ __forceinline__ uint8_t operator()(uint32_t pos) const {
-    return __ldg(rows + (int64_t)pos * stride + lane);
-  }
-};
 
 // 8 big-endian words from 32 byte rows of one lane.
 __device__ __forceinline__ void sha256_load_words32(const uint8_t* __restrict__ rows,

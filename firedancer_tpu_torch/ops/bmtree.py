@@ -31,6 +31,7 @@ from . import sha256 as fsha256
 LEAF_PREFIX = b"\x00SOLANA_MERKLE_SHREDS_LEAF"
 NODE_PREFIX = b"\x01SOLANA_MERKLE_SHREDS_NODE"
 NODE_SZ = 20
+LANE_ALIGN = 16  # K14 loads its rows whole when B is a multiple of 16 (csrc/sha256_msg.cu)
 
 
 def hash_leaf_full(data: bytes) -> bytes:
@@ -153,12 +154,17 @@ def _device_rows(x, device, ndim: int) -> torch.Tensor:
 
 def _prefixed_hash(prefix: bytes, body: torch.Tensor) -> torch.Tensor:
     """(20, B) truncated sha256(prefix || body[:, j]) of (sz, B) byte rows,
-    one K14 launch."""
+    one K14 launch.  The message rows are B rounded up to a multiple of
+    LANE_ALIGN lanes, so that K14 loads them whole (its wide path); the
+    extra lanes hash whatever their columns hold and are dropped."""
     sz, bsz = body.shape
-    pre = torch.tensor(list(prefix), dtype=torch.uint8, device=body.device)
-    msg = torch.cat([pre.unsqueeze(1).expand(len(prefix), bsz), body]).contiguous()
-    ln = torch.full((bsz,), len(prefix) + sz, dtype=torch.int32, device=body.device)
-    return fsha256._sha256_msg(msg, ln, len(prefix) + sz)[:NODE_SZ]
+    rows, width = len(prefix) + sz, -(-bsz // LANE_ALIGN) * LANE_ALIGN
+    msg = torch.empty((rows, width), dtype=torch.uint8, device=body.device)
+    msg[:len(prefix)] = torch.tensor(list(prefix), dtype=torch.uint8,
+                                     device=body.device).unsqueeze(1)
+    msg[len(prefix):, :bsz] = body
+    ln = torch.full((width,), rows, dtype=torch.int32, device=body.device)
+    return fsha256._sha256_msg(msg, ln, rows)[:NODE_SZ, :bsz].contiguous()
 
 
 def hash_leaves_batch(data, device=None) -> torch.Tensor:

@@ -532,6 +532,62 @@ def test_sha256_msg_and_mix32_kernels_equal_plain_and_hashlib(dev):
     assert kbuild.LAUNCHES["sha256_msg"] == 1
 
 
+def _offset_rows(a: np.ndarray, dev, offset: int) -> torch.Tensor:
+    """a on the card, starting `offset` bytes into its buffer."""
+    flat = torch.empty(a.size + offset, dtype=torch.uint8, device=dev)
+    t = flat[offset:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+# every pad edge of each hash, mixed inside each block of lanes
+SHA256_EDGES = (0, 1, 55, 56, 63, 64, 119, 120, 299, 300)
+KECCAK_EDGES = (0, 134, 135, 136, 137, 271, 272, 299, 300)
+
+
+@pytest.mark.parametrize("bsz,offset", [(1, 0), (15, 0), (16, 0), (17, 0), (48, 0),
+                                        (1024, 0), (1024, 1), (64, 8)])
+def test_sha256_msg_kernel_wide_and_narrow_equal_plain_and_hashlib(dev, bsz, offset):
+    """K14 on its message warp's two paths: whole 32-lane blocks of 16-byte
+    aligned rows (uint4 loads) and everything else (one byte a thread:
+    batches not a multiple of 16, a half block, rows not 16-byte aligned),
+    lengths on every pad edge; equal to the plain version and hashlib."""
+    from firedancer_tpu_torch.ops import sha256 as fsha256
+
+    rng = np.random.default_rng(1400 + bsz + offset)
+    lens = np.array([SHA256_EDGES[(7 * i) % len(SHA256_EDGES)] for i in range(bsz)], np.int32)
+    mh = rng.integers(0, 256, (300, bsz), dtype=np.uint8)
+    m = _offset_rows(mh, dev, offset)
+    ln = torch.from_numpy(lens).to(dev)
+    got = fsha256.sha256_msg(m, ln)
+    assert kbuild.LAUNCHES["sha256_msg"] == 1
+    assert torch.equal(got, fsha256.sha256_msg_plain(m, ln, 300))
+    gh = got.cpu().numpy()
+    for i in range(bsz):
+        assert gh[:, i].tobytes() == hashlib.sha256(mh[:lens[i], i].tobytes()).digest(), i
+
+
+@pytest.mark.parametrize("bsz,offset", [(1, 0), (15, 0), (16, 0), (17, 0), (40, 0),
+                                        (1024, 0), (1024, 1), (64, 8)])
+def test_keccak256_msg_kernel_wide_and_narrow_equal_plain_and_host(dev, bsz, offset):
+    """K17 (two threads a state, 16 messages a warp) on both load paths, as
+    K14's test, lengths on every Keccak pad edge (0x01 and 0x80 in one byte
+    at 135); equal to the plain version and keccak256_host."""
+    from firedancer_tpu_torch.ops import keccak256 as fkk
+
+    rng = np.random.default_rng(1500 + bsz + offset)
+    lens = np.array([KECCAK_EDGES[(5 * i) % len(KECCAK_EDGES)] for i in range(bsz)], np.int32)
+    mh = rng.integers(0, 256, (300, bsz), dtype=np.uint8)
+    m = _offset_rows(mh, dev, offset)
+    ln = torch.from_numpy(lens).to(dev)
+    got = fkk.keccak256_msg(m, ln)
+    assert kbuild.LAUNCHES["keccak256_msg"] == 1
+    assert torch.equal(got, fkk.keccak256_msg_plain(m, ln, 300))
+    gh = got.cpu().numpy()
+    for i in range(bsz):
+        assert gh[:, i].tobytes() == fkk.keccak256_host(mh[:lens[i], i].tobytes()), i
+
+
 @pytest.mark.parametrize("n_leaves", [1, 6, 7, 64])
 def test_bmtree_root_build_on_card_equals_host_and_plain(dev, n_leaves):
     """hash_leaves_batch and layers_batch over 5 trees on K14: leaves equal

@@ -1,0 +1,343 @@
+"""A numpy model of K14's and K17's message tiles (csrc/sha256_msg.cu,
+csrc/keccak256_msg.cu), held on the CPU against the JAX package's padding.
+
+On the wide path (B a multiple of 16, 16-byte aligned rows) both kernels
+land their byte rows in a shared byte tile, tile[q][r] = row r of lanes
+4q .. 4q+3 as one 32-bit word (byte b for lane 4q + b), and each thread
+reads four tile words of its quad (one LDS.128) and picks its lane's byte
+of each with PRMT selector (l & 3) | ((l & 3) + 4) << 4 (big-endian for
+SHA-256, little-endian for Keccak).  K14 takes 32 messages a block:
+thread l of the message warp loads row 16 i + l // 2 at lanes 16 (l % 2)
+.. + 15 as one uint4 into quads 4 (l % 2) .. + 3 (a half block, B an odd
+multiple of 16, loads its first 16 lanes only).  K17 takes 16 messages a
+warp, thread j on half j // 16 of message j % 16; thread j loads row
+32 i + j of the warp's 16 messages as one uint4.  On the narrow path (any
+other batch, or offset rows) no tile is used: each thread loads its own
+lane's bytes of the block (K17: those of its half of each word) and packs
+them.  Each kernel has one instantiation a path, chosen for the whole
+batch.  Every thread pads by mask from its length.
+
+The model follows the kernels' index arithmetic (tile strides, row
+mapping, selectors, masks) and checks:
+  - the words each lane absorbs: SHA-256's against firedancer_tpu/ops/
+    sha256.py sha256_pad block by block; Keccak's through the JAX
+    permutation (firedancer_tpu/ops/keccak256.py _keccak_f) into the digest
+    the JAX keccak256_msg gives, and against keccak256_host's padded bytes;
+  - that every tile store and LDS.128 of a warp touches each bank once;
+on seeded lengths at every pad edge, for wide and narrow batches; and
+K17's permutation split over two threads a state (keccak_f_halves, each
+thread's half of every lane, rotations through the partner's half)
+against the JAX _keccak_f on seeded states."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from firedancer_tpu.ops import keccak256 as jkk
+from firedancer_tpu.ops import sha256 as jsha256
+
+LANES = 32
+SHA_BLOCK_ROWS = 64
+SHA_TILE_STRIDE = 68  # csrc/sha256_msg.cu MSG_TILE_STRIDE
+RATE = 136
+KECCAK_MSGS = 16  # csrc/keccak256_msg.cu: messages a warp, two threads each
+KECCAK_LOADS = 5  # uint4 row loads a thread a Keccak block
+KECCAK_TILE_STRIDE = 136
+
+
+def byte_perm(a: int, b: int, s: int) -> int:
+    """CUDA __byte_perm: byte i of the result is byte (s >> 4 i) & 7 of b:a."""
+    src = (b << 32) | a
+    return sum(((src >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i) for i in range(4))
+
+
+def sel_of(l: int) -> int:
+    return (l & 3) | (((l & 3) + 4) << 4)
+
+
+def gather_be(v, sel):
+    """msg_gather_be: rows 4t .. 4t+3 -> one big-endian word."""
+    return byte_perm(byte_perm(v[3], v[2], sel), byte_perm(v[1], v[0], sel), 0x5410)
+
+
+def gather_le(v, sel):
+    """keccak_gather_le: rows 4t .. 4t+3 -> one little-endian word."""
+    return byte_perm(byte_perm(v[0], v[1], sel), byte_perm(v[2], v[3], sel), 0x5410)
+
+
+def pack_be(b):
+    """The narrow path's four byte registers b[0..3] -> K14's big-endian word."""
+    return byte_perm(byte_perm(b[3], b[2], 0x0040), byte_perm(b[1], b[0], 0x0040), 0x5410)
+
+
+def pack_le(b):
+    """The narrow path's four byte registers b[0..3] -> K17's little-endian word."""
+    return byte_perm(byte_perm(b[0], b[1], 0x0040), byte_perm(b[2], b[3], 0x0040), 0x5410)
+
+
+def assert_conflict_free(words: list[int]) -> None:
+    """The 32-bit shared-memory words (word indices) one warp instruction
+    touches fall in distinct banks."""
+    banks = [w % 32 for w in words]
+    assert len(set(banks)) == len(banks), words
+
+
+def sha256_fill_tile(tile, msg, base, row0, len_max):
+    """K14's wide path: one SHA block's 64 rows into the tile, thread l
+    storing row 16 i + l // 2's segment l % 2 if its 16 lanes lie in the
+    batch; rows at or past len_max are not read."""
+    for i in range(4):
+        stores = [[] for _ in range(4)]
+        for l in range(LANES):
+            r = 16 * i + (l >> 1)
+            if row0 + r >= len_max or base + 16 * (l & 1) + 16 > msg.shape[1]:
+                continue
+            seg = msg[row0 + r, base + 16 * (l & 1):base + 16 * (l & 1) + 16]
+            v = seg.view("<u4")  # the uint4's x, y, z, w
+            q0 = 4 * (l & 1)
+            for c in range(4):
+                tile[q0 + c, r] = v[c]
+                stores[c].append((q0 + c) * SHA_TILE_STRIDE + r)
+        for st in stores:  # each of the four STS.32 of a row group
+            assert_conflict_free(st)
+
+
+def raw_bytes(msg, lane, rows, len_max, rng):
+    """The narrow path's byte registers: each row's byte of the lane, or a
+    stale value for rows at or past len_max (not loaded)."""
+    return [int(msg[r, lane]) if r < len_max else int(rng.integers(0, 256)) for r in rows]
+
+
+def block_lanes(msg, lens, base):
+    bsz = msg.shape[1]
+    lane_of = lambda l: base + l if base + l < bsz else bsz - 1  # noqa: E731
+    return lane_of, [int(lens[lane_of(l)]) for l in range(LANES)]
+
+
+def sha256_model(msg: np.ndarray, lens: np.ndarray, wide: bool, rng) -> dict:
+    """{(block, lane): 16 words} as K14's message warp builds them."""
+    bsz = msg.shape[1]
+    out = {}
+    for base in range(0, bsz, LANES):
+        lane_of, ln = block_lanes(msg, lens, base)
+        nb = [(n + 9 + 63) // 64 for n in ln]
+        nb_max, len_max = max(nb), max(ln)
+        tile = rng.integers(0, 1 << 32, (8, SHA_TILE_STRIDE), dtype=np.uint64)  # stale garbage
+        for blk in range(nb_max):
+            row0 = blk * SHA_BLOCK_ROWS
+            if wide:  # a half block loads its first 16 lanes only
+                sha256_fill_tile(tile, msg, base, row0, len_max)
+                for t in range(16):  # the 8 quads' LDS.128 of word t
+                    assert_conflict_free([q * SHA_TILE_STRIDE + 4 * t + c
+                                          for q in range(8) for c in range(4)])
+            for l in range(LANES):
+                n, q = ln[l], l >> 2
+                if wide:
+                    x = [gather_be([int(v) for v in tile[q, 4 * t:4 * t + 4]], sel_of(l))
+                         for t in range(16)]
+                else:  # the lane's own bytes
+                    raw = raw_bytes(msg, lane_of(l), range(row0, row0 + 64), len_max, rng)
+                    x = [pack_be(raw[4 * t:4 * t + 4]) for t in range(16)]
+                rem = n - row0
+                tb, ob = rem >> 2, rem & 3
+                keep = 0 if ob == 0 else (0xFFFFFFFF << (32 - 8 * ob)) & 0xFFFFFFFF
+                pad = 0x80 << (24 - 8 * ob)
+                w = [x[t] if t < tb else ((x[t] & keep) | pad if t == tb else 0)
+                     for t in range(16)]
+                if blk + 1 == nb[l]:
+                    w[14], w[15] = n >> 29, (n << 3) & 0xFFFFFFFF
+                if blk < nb[l] and base + l < bsz:
+                    out[(blk, base + l)] = w
+    return out
+
+
+def keccak_model(msg: np.ndarray, lens: np.ndarray, wide: bool, rng) -> dict:
+    """{(block, message): the 17 words K17 absorbs, the 0x80 included}.  A
+    warp takes 16 messages; thread j holds half j // 16 of message j % 16
+    and gathers that half of each word."""
+    bsz = msg.shape[1]
+    out = {}
+    for base in range(0, bsz, KECCAK_MSGS):
+        lane_of = lambda m: base + m if base + m < bsz else bsz - 1  # noqa: E731
+        ln = [int(lens[lane_of(m)]) for m in range(KECCAK_MSGS)]
+        fb = [n // RATE for n in ln]
+        nb_max, len_max = max(fb) + 1, max(ln)
+        tile = rng.integers(0, 1 << 32, (4, KECCAK_TILE_STRIDE), dtype=np.uint64)
+        for bi in range(nb_max):
+            row0 = RATE * bi
+            if wide:  # thread j: row 32 i + j, the warp's 16 bytes as one uint4
+                for i in range(KECCAK_LOADS):
+                    stores = []
+                    for j in range(LANES):
+                        r = 32 * i + j
+                        if r < RATE and row0 + r < len_max:
+                            v = msg[row0 + r, base:base + 16].view("<u4")
+                            for c in range(4):
+                                tile[c, r] = v[c]
+                            stores.append(r)
+                    for c in range(4):
+                        assert_conflict_free([c * KECCAK_TILE_STRIDE + r for r in stores])
+                for i in range(RATE // 8):  # the warp's LDS.128 of word i: 4 quads x 2 halves
+                    assert_conflict_free([q * KECCAK_TILE_STRIDE + 8 * i + 4 * h + c
+                                          for q in range(4) for h in range(2) for c in range(4)])
+            half = {}
+            for j in range(LANES):
+                m, h = j & 15, j >> 4
+                n = ln[m]
+                rem = n - row0
+                tb, ob = rem >> 3, rem & 7
+                keep = (((1 << (8 * ob)) - 1) >> (32 * h)) & 0xFFFFFFFF
+                pad = ((1 << (8 * ob)) >> (32 * h)) & 0xFFFFFFFF
+                if wide:
+                    x = [gather_le([int(v) for v in tile[m >> 2, 8 * i + 4 * h:8 * i + 4 * h + 4]],
+                                   sel_of(m)) for i in range(RATE // 8)]
+                else:  # thread j's bytes: rows 8 i + 4 h .. + 3, packed little-endian
+                    raw = raw_bytes(msg, lane_of(m), [row0 + 8 * i + 4 * h + c for i in range(17)
+                                                      for c in range(4)], len_max, rng)
+                    x = [pack_le(raw[4 * i:4 * i + 4]) for i in range(17)]
+                w = [x[i] if i < tb else ((x[i] & keep) | pad if i == tb else 0)
+                     for i in range(RATE // 8)]
+                if bi == fb[m] and h == 1:
+                    w[16] ^= 0x80000000
+                half[(m, h)] = w
+            for m in range(KECCAK_MSGS):
+                if bi <= fb[m] and base + m < bsz:
+                    out[(bi, base + m)] = [lo | (hi << 32)
+                                           for lo, hi in zip(half[(m, 0)], half[(m, 1)])]
+    return out
+
+
+def keccak_f_halves(lo: np.ndarray, hi: np.ndarray):
+    """K17's keccak_f_half on both threads of each message: (25, B) uint32
+    halves, each thread's code on its own half, a rotation taking the
+    partner's half through the shuffle as funnel(other, own, n) for n < 32
+    and funnel(own, other, n - 32) after."""
+    def funnel(lo_part, hi_part, n):  # __funnelshift_l: high word of (hi:lo) << n
+        v = (hi_part.astype(np.uint64) << np.uint64(32)) | lo_part.astype(np.uint64)
+        return ((v << np.uint64(n)) >> np.uint64(32)).astype(np.uint32)
+
+    def rot(own, other, n):
+        if n == 0:
+            return own
+        return funnel(other, own, n) if n < 32 else funnel(own, other, n - 32)
+
+    st = [list(lo), list(hi)]  # st[h][i]: thread h's half of lane i
+    for rc in jkk._RC:
+        nxt = []
+        for h in (0, 1):
+            a, o = st[h], st[1 - h]  # own and the partner's halves
+            c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20] for x in range(5)]
+            co = [o[x] ^ o[x + 5] ^ o[x + 10] ^ o[x + 15] ^ o[x + 20] for x in range(5)]
+            d = [c[(x + 4) % 5] ^ rot(c[(x + 1) % 5], co[(x + 1) % 5], 1) for x in range(5)]
+            do = [co[(x + 4) % 5] ^ rot(co[(x + 1) % 5], c[(x + 1) % 5], 1) for x in range(5)]
+            a = [a[i] ^ d[i % 5] for i in range(25)]
+            o = [o[i] ^ do[i % 5] for i in range(25)]
+            b = [None] * 25
+            for x in range(5):
+                for y in range(5):
+                    b[y + 5 * ((2 * x + 3 * y) % 5)] = rot(a[x + 5 * y], o[x + 5 * y],
+                                                           jkk._ROT[x + 5 * y])
+            a = [b[i] ^ (~b[(i + 1) % 5 + 5 * (i // 5)] & b[(i + 2) % 5 + 5 * (i // 5)])
+                 for i in range(25)]
+            a[0] = a[0] ^ np.uint32((rc >> (32 * h)) & 0xFFFFFFFF)
+            nxt.append(a)
+        st = nxt
+    return np.stack(st[0]), np.stack(st[1])
+
+
+SHA_EDGES = [0, 1, 55, 56, 63, 64, 119, 120]
+KECCAK_EDGES = [0, 134, 135, 136, 137, 271, 272]
+
+
+def seeded_batch(seed, bsz, max_len, edges):
+    rng = np.random.default_rng(seed)
+    e = edges + [max_len]
+    lens = np.array([e[i] if i < len(e) else int(rng.integers(0, max_len + 1))
+                     for i in range(bsz)], np.int32)
+    rng.shuffle(lens)  # the edges spread over the blocks and quads
+    return rng, rng.integers(0, 256, (max_len, bsz), dtype=np.uint8), lens
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sha256_pad(max_len):
+    return jax.jit(lambda m, ln: jsha256.sha256_pad(m, ln, max_len))
+
+
+# (B, wide): whole blocks, a half block on a 16-lane multiple (K14), and
+# batches that are not multiples of 16 (the narrow path everywhere)
+LAYOUTS = [(64, True), (48, True), (37, False), (20, False)]
+
+
+@pytest.mark.parametrize("bsz,wide", LAYOUTS)
+def test_sha256_tile_words_equal_jax_sha256_pad(bsz, wide):
+    max_len = 190
+    rng, msg, lens = seeded_batch(1100 + bsz, bsz, max_len, SHA_EDGES)
+    got = sha256_model(msg, lens, wide, rng)
+    words, final_block = _jax_sha256_pad(max_len)(jnp.asarray(msg), jnp.asarray(lens))
+    words, final_block = np.asarray(words), np.asarray(final_block)
+    assert len(got) == int((final_block + 1).sum())
+    for (blk, lane), w in got.items():
+        assert blk <= final_block[lane]
+        assert w == [int(v) for v in words[blk, :, lane]], (blk, lane, int(lens[lane]))
+
+
+@pytest.mark.parametrize("bsz,wide", LAYOUTS)
+def test_keccak_tile_words_reach_the_jax_digest(bsz, wide):
+    """The model's absorbed words are keccak256_host's padded blocks, and,
+    permuted by the JAX _keccak_f, give the JAX keccak256_msg digest."""
+    max_len = 300
+    rng, msg, lens = seeded_batch(1200 + bsz, bsz, max_len, KECCAK_EDGES)
+    got = keccak_model(msg, lens, wide, rng)
+    final = lens // RATE
+    assert len(got) == int((final + 1).sum())
+    for (bi, lane), w in got.items():
+        n = int(lens[lane])
+        padded = bytearray(msg[:n, lane].tobytes()) + b"\x01"
+        padded += bytes(-len(padded) % RATE)
+        padded[-1] ^= 0x80
+        blk = padded[RATE * bi:RATE * bi + RATE]
+        assert w == [int.from_bytes(blk[8 * i:8 * i + 8], "little") for i in range(17)], (bi, n)
+    lo = jnp.zeros((25, bsz), jnp.uint32)
+    hi = jnp.zeros((25, bsz), jnp.uint32)
+    for bi in range(int(final.max()) + 1):
+        wl = np.zeros((25, bsz), np.uint32)
+        wh = np.zeros((25, bsz), np.uint32)
+        for lane in range(bsz):
+            for i, x in enumerate(got.get((bi, lane), [])):
+                wl[i, lane], wh[i, lane] = x & 0xFFFFFFFF, x >> 32
+        live = jnp.asarray(bi <= final)
+        nlo, nhi = jkk._keccak_f(list(lo ^ wl), list(hi ^ wh))
+        lo = jnp.where(live, jnp.stack(nlo), lo)
+        hi = jnp.where(live, jnp.stack(nhi), hi)
+    words = np.stack([np.asarray(lo[:4]), np.asarray(hi[:4])], 1).reshape(8, bsz)
+    digest = np.stack([(words >> (8 * k)) & 0xFF for k in range(4)], 1).reshape(32, bsz)
+    want = np.asarray(jkk.keccak256_msg(msg.astype(np.int32), lens, max_len))
+    assert (digest.astype(np.int32) == want).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_keccak_f_on_two_threads_equals_jax(seed):
+    """K17's half-lane permutation (keccak_f_halves) equals the JAX
+    _keccak_f on seeded states."""
+    rng = np.random.default_rng(1300 + seed)
+    lo = rng.integers(0, 1 << 32, (25, 6), dtype=np.uint32)
+    hi = rng.integers(0, 1 << 32, (25, 6), dtype=np.uint32)
+    glo, ghi = keccak_f_halves(lo, hi)
+    wlo, whi = jkk._keccak_f(list(jnp.asarray(lo)), list(jnp.asarray(hi)))
+    assert (glo == np.stack([np.asarray(x) for x in wlo])).all()
+    assert (ghi == np.stack([np.asarray(x) for x in whi])).all()
+
+
+@pytest.mark.parametrize("l", [0, 1, 2, 3, 17, 30])
+def test_prmt_selectors_pick_the_lanes_byte(l):
+    """Each selector picks lane l's byte of four rows, in both byte orders;
+    the narrow path's packs order four bytes the same ways."""
+    rows = [0x11223344 + 0x01010101 * k for k in range(4)]  # bytes of lanes 4q .. 4q+3
+    byte = [(r >> (8 * (l & 3))) & 0xFF for r in rows]
+    assert gather_be(rows, sel_of(l)) == int.from_bytes(bytes(byte), "big")
+    assert gather_le(rows, sel_of(l)) == int.from_bytes(bytes(byte), "little")
+    assert pack_be(byte) == int.from_bytes(bytes(byte), "big")
+    assert pack_le(byte) == int.from_bytes(bytes(byte), "little")
