@@ -5,10 +5,11 @@ PyTorch version.
 
 (--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
 builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu,
-sha256_iter32.cu, sha256_msg.cu and keccak256_msg.cu, and phases 6, 8, 12,
-14, 18 and 19 time those K1, K4, K6, K7, K9, K10, K11, K14 and K17 beside
-this tree's: [K1-ab], [K4-ab], [K6-ab], [K7-ab], [K9-ab], [K10-ab],
-[K11-ab], [K14-ab], [K17-ab].)
+sha256_iter32.cu, sha256_msg.cu, keccak256_msg.cu, sha512_batch.cu and
+blake3_msg.cu, and phases 4, 6, 8, 12, 14, 18 and 19 time those K1, K3, K4,
+K6, K7, K9, K10, K11, K14, K16 and K17 beside this tree's, each after its
+outputs are checked equal: [K1-ab], [K3-ab], [K4-ab], [K6-ab], [K7-ab],
+[K9-ab], [K10-ab], [K11-ab], [K14-ab], [K16-ab], [K17-ab].)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -27,7 +28,14 @@ script or when a phase fails):
   3. K2       fe_mul_chain at B = 16,384, k = 64: equal to the plain version
               (canonical limbs) and to Python ints on sampled lanes
   4. K3       sha512_batch at B = 4,096, max_len 1,296, lengths across the
-              padding boundaries: equal to hashlib and the plain version
+              padding boundaries: equal to hashlib and the plain version;
+              the same rows from an offset buffer (the narrow path), 4,091
+              lanes (a ragged last block) and 64 lengths out of range (zero
+              digests): each equal to hashlib on every lane and to plain on
+              the first and last 1,024; timed device only (wide, narrow,
+              4,091 lanes) and per call beside its bound; with --parent,
+              the parent's K3 on the same four batches (bytes equal, then
+              times in turns): one [K3-ab] line
   5. K1       verify_batch at B = 1,024, max_msg_len 1,232 on a seeded mixed
               batch: mask equal to the plain version and to ed25519_ref
               labels, ok-count equal to the mask's sum
@@ -153,7 +161,9 @@ script or when a phase fails):
               chacha20_keystream at B = 65,536 (half zero nonces, half
               seeded): each equal to its host oracle on sampled lanes and
               to its plain version on the first and the last 1,024 lanes;
-              each timed
+              each timed; with --parent, the parent's K16 and K17 on the
+              aligned and the offset rows (bytes equal, then times in
+              turns): one [K16-ab] and one [K17-ab] line
 
 Then a [time] line with each phase's seconds on the host clock, one JSON
 line of per-kernel numbers ({"kernels": [...]}), the
@@ -252,9 +262,9 @@ K13_ROWS = (2048, 65536)  # phase 16: K13's row counts (a slot's few thousand; a
 # pool holds the whole stream (at the default 4,096, equal-priority
 # transfers past a full pool are dropped, and a quarter of them were)
 LEADER_TXNS, LEADER_DESTS = 8192, 1024
-PLAIN_LANES = 1024  # phases 18-19: the lanes each kernel is held to its plain version on
+PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
-OPS_API = "ops API (tests-only in the JAX package)"  # phases 18-19: K15-K18's path
+OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
 
 
 class SmokeFailure(RuntimeError):
@@ -345,6 +355,8 @@ PARENT_KERNELS = {
     "sha256_iter32": (("fd_sha256_iter32", 2, ("i64", "i64")),),
     "sha256_msg": (("fd_sha256_msg", 3, ("i64",)),),
     "keccak256_msg": (("fd_keccak256_msg", 3, ("i64",)),),
+    "sha512_batch": (("fd_sha512_batch", 3, ("i64", "i32")),),
+    "blake3_msg": (("fd_blake3_msg", 3, ("i64",)),),
 }
 
 
@@ -609,17 +621,20 @@ def offset_rows(m: torch.Tensor, offset: int = 1) -> torch.Tensor:
     return t
 
 
-def msg_ab(tag: str, parent_fn, change, batches) -> None:
-    """The parent checkout's message-hash kernel (K14 or K17: (msg, len,
-    out, B)) beside this one: bytes equal at each batch, then device-only
-    times in turns; one [tag] line.  change launches without the wrappers'
-    length check, whose host sync the timing's busy-wait cannot hide.
-    batches: {label: (msg, msg_len)}."""
+def msg_ab(tag: str, parent_fn, change, batches, digest: int = 32,
+           with_max_len: bool = False) -> None:
+    """The parent checkout's message-hash kernel (K3, K14, K16 or K17:
+    (msg, len, out, B[, max_len])) beside this one: bytes equal at each
+    batch, then device-only times in turns; one [tag] line.  digest: the
+    output's rows (K3's 64); with_max_len: the entry point takes max_len
+    (K3's, msg.shape[0]).  change launches without the wrappers' length
+    check, whose host sync the timing's busy-wait cannot hide.  batches:
+    {label: (msg, msg_len)}."""
 
     def parent(m, ln):
-        out = torch.empty((32, m.shape[1]), dtype=torch.uint8, device=m.device)
+        out = torch.empty((digest, m.shape[1]), dtype=torch.uint8, device=m.device)
         parent_call(parent_fn, m.device, m.data_ptr(), ln.data_ptr(), out.data_ptr(),
-                    m.shape[1])
+                    m.shape[1], *((m.shape[0],) if with_max_len else ()))
         return out
 
     for label, run in batches.items():
@@ -840,6 +855,7 @@ def main() -> int:
     # -- 4. K3 sha512_batch ----------------------------------------------------------
     mark("4")
     B3, ML3 = 4096, 1232 + 64
+    P3 = PLAIN_LANES
     lens = [0, 1, 111, 112, 239, 240, ML3, ML3 - 1, 127, 128, 129]
     lens += [int(v) for v in rng.integers(0, ML3 + 1, size=B3 - len(lens))]
     msgs = [rng.bytes(n) for n in lens]
@@ -848,29 +864,75 @@ def main() -> int:
         m3[i, : len(m)] = np.frombuffer(m, dtype=np.uint8)
     m3 = torch.from_numpy(np.ascontiguousarray(m3.T)).to(dev)
     l3 = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kbuild.reset_launches()
     d3 = fsha.sha512_batch(m3, l3)
     torch.cuda.synchronize()
+    api3 = kbuild.LAUNCHES["sha512_batch"]
     p3 = fsha.sha512_batch_plain(m3, l3)
     d3h = d3.cpu().numpy()
     want = np.stack([np.frombuffer(hashlib.sha512(m).digest(), np.uint8) for m in msgs], -1)
     err3 = int(np.abs(d3h.astype(np.int64) - want).max())
     check(err3 == 0, "K3 differs from hashlib")
     check(torch.equal(d3, p3), "K3 differs from its plain version")
-    ms3 = time_ms(lambda: fsha.sha512_batch(m3, l3), reps=20)
+
+    def k3_variant(label, m, ln, want_h):
+        """K3 on (m, ln): equal to want_h (hashlib's digests, zeros out of
+        range) on every lane and to plain on the first and last P3 lanes."""
+        got = fsha.sha512_batch(m, ln)
+        torch.cuda.synchronize()
+        err = int(np.abs(got.cpu().numpy().astype(np.int64) - want_h).max())
+        check(err == 0, f"K3 ({label}) differs from hashlib (max abs err {err})")
+        for sl in (slice(0, P3), slice(m.shape[1] - P3, m.shape[1])):
+            check(torch.equal(got[:, sl], fsha.sha512_batch_plain(m[:, sl].contiguous(),
+                                                                  ln[sl].contiguous())),
+                  f"K3 ({label}) differs from its plain version on lanes {sl.start}-{sl.stop}")
+        return err
+
+    # the narrow path: the same rows not 16-byte aligned, and 4,091 lanes
+    # (a multiple of neither 16 nor 32: a ragged last block)
+    m3o = offset_rows(m3)
+    n3r = B3 - 5
+    m3r, l3r = m3[:, :n3r].contiguous(), l3[:n3r].contiguous()
+    # lengths out of range give zero digests
+    bad3 = np.array([-1, ML3 + 1, -(1 << 31), (1 << 31) - 1], np.int32)
+    l3bh = np.array(lens, np.int32)
+    idx3 = rng.choice(B3, 64, replace=False)
+    l3bh[idx3] = bad3[np.arange(64) % 4]
+    l3b = torch.from_numpy(l3bh).to(dev)
+    want_b = want.copy()
+    want_b[:, idx3] = 0
+    err3 = max(err3, k3_variant("offset rows", m3o, l3, want),
+               k3_variant(f"{n3r} lanes", m3r, l3r, want[:, :n3r]),
+               k3_variant("64 lengths out of range", m3, l3b, want_b))
+    if PARENT:
+        msg_ab("K3-ab", parent_fns["fd_sha512_batch"],
+               lambda m, ln: fsha.sha512_batch(m, ln),
+               {f"B={B3} max_len={ML3}": (m3, l3), "offset rows": (m3o, l3),
+                f"B={n3r}": (m3r, l3r), "64 out of range": (m3, l3b)},
+               digest=64, with_max_len=True)
+    ms3_call = time_ms(lambda: fsha.sha512_batch(m3, l3), reps=20)
+    ms3 = time_ms(lambda: fsha.sha512_batch(m3, l3), reps=50, hide_host=True)
+    ms3n = time_ms(lambda: fsha.sha512_batch(m3o, l3), reps=50, hide_host=True)
+    ms3r = time_ms(lambda: fsha.sha512_batch(m3r, l3r), reps=50, hide_host=True)
     plain3 = time_host_ms(lambda: fsha.sha512_batch_plain(m3, l3))
-    ops3 = sum((n + 17 + 127) // 128 for n in lens) * SHA512_OPS_PER_BLOCK
+    blocks3 = sum((n + 17 + 127) // 128 for n in lens)
+    ops3 = blocks3 * SHA512_OPS_PER_BLOCK
     bytes3 = B3 * ML3 + 4 * B3 + 64 * B3
+    b3, bby3 = bound(ops3, bytes3)
     kernels.append(dict(
         name="sha512_batch", route="cuda",
         source="firedancer_tpu_torch/csrc/sha512_batch.cu",
         replaces="firedancer_tpu/ops/sha512.py:179", launches=None,
-        max_abs_err=err3, ms=ms3, plain_ms=plain3,
-        bound_ms=max(ops3 / int_ops_per_s, bytes3 / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if ops3 / int_ops_per_s > bytes3 / HBM_BYTES_PER_S else "bytes",
+        max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=bby3,
         library_ms=None, matched=True, shape=f"B={B3} max_len={ML3}",
-        phase_launches=kbuild.LAUNCHES["sha512_batch"]))
-    log(f"[K3] sha512_batch B={B3} max_len={ML3}: equal to hashlib and plain;"
-        f" {ms3:.4f} ms; plain {plain3:.1f} ms")
+        phase_launches=api3, main_path=OPS_API, path_launches=api3,
+        ms_per_call=ms3_call, ms_narrow=ms3n, ms_ragged=ms3r))
+    log(f"[K3] sha512_batch B={B3} max_len={ML3} ({blocks3} blocks): equal to hashlib on every"
+        f" lane and to plain; the narrow path (offset rows), {n3r} lanes and 64 lengths out of"
+        f" range (zero digests) equal to hashlib on every lane and to plain on the first and"
+        f" last {P3}; device only {ms3 * 1e3:.2f} us (narrow path {ms3n * 1e3:.2f} us,"
+        f" {n3r} lanes {ms3r * 1e3:.2f} us), a call {ms3_call * 1e3:.2f} us; bound"
+        f" {b3 * 1e3:.2f} us, {bby3}; plain {plain3:.1f} ms")
 
     # -- 5. K1 on the mixed batch ------------------------------------------------------
     mark("5")
@@ -2159,18 +2221,20 @@ def main() -> int:
         m19o = offset_rows(m19)
         check(torch.equal(launch(m19o, l19), d19), f"{nm} from rows not 16-byte aligned differs")
         ms_n = time_ms(lambda: launch(m19o, l19), reps=50, hide_host=True)
-        if PARENT and nm == "keccak256_msg":
-            msg_ab("K17-ab", parent_fns["fd_keccak256_msg"], launch,
-                   {f"B={bsz} max_len={max_len}": (m19, l19)})
+        if PARENT:
+            msg_ab("K16-ab" if nm == "blake3_msg" else "K17-ab", parent_fns[f"fd_{nm}"], launch,
+                   {f"B={bsz} max_len={max_len}": (m19, l19), "offset rows": (m19o, l19)})
         ms_ = time_ms(lambda: launch(m19, l19), reps=50, hide_host=True)
+        ms_call = time_ms(lambda: api(m19, l19), reps=50)  # the length check's host sync included
         bms, bby = bound(ops(lh), int(lh.sum()) + 36 * bsz)
         hashes19[nm] = dict(api=n_api, err=err, ms=ms_, plain=plain_ms, bound=(bms, bby),
-                            shape=f"B={bsz} max_len={max_len}", ms_narrow=ms_n)
+                            shape=f"B={bsz} max_len={max_len}", ms_narrow=ms_n,
+                            ms_per_call=ms_call)
         log(f"[{'K16' if nm == 'blake3_msg' else 'K17'}] {nm} B={bsz} max_len={max_len}"
             f" (lengths {edges} and random): equal to {host.__name__} on {len(sample)} lanes, to"
             f" plain on the first and last {P}, and from offset rows on every lane;"
-            f" {ms_ * 1e3:.2f} us (offset rows {ms_n * 1e3:.2f} us; bound {bms * 1e3:.2f} us,"
-            f" {bby});"
+            f" {ms_ * 1e3:.2f} us device only (offset rows {ms_n * 1e3:.2f} us), a call through"
+            f" {api.__name__} {ms_call * 1e3:.2f} us; bound {bms * 1e3:.2f} us, {bby};"
             f" plain {plain_ms:.1f} ms")
 
     B18 = 65536
@@ -2211,7 +2275,8 @@ def main() -> int:
         f" {P} of each half; {ms18 * 1e3:.2f} us with nonces, {ms18z * 1e3:.2f} us with zero"
         f" nonces (bound {b18 * 1e3:.2f} us, {bby18}); plain {plain18:.1f} ms")
 
-    ops_api = {"sha256_msg": api14, "sha256_mix32": api15, "chacha20_keystream": api18,
+    ops_api = {"sha512_batch": api3, "sha256_msg": api14, "sha256_mix32": api15,
+               "chacha20_keystream": api18,
                **{nm: h["api"] for nm, h in hashes19.items()}}
     for nm, src, line, err, ms_, plain_, (bms, bby), shp, path, path_n in (
             ("sha256_msg", "sha256_msg.cu", "sha256.py:122", err14, ms14, plain14, (b14, bby14),
@@ -2232,7 +2297,7 @@ def main() -> int:
     by_name = {k["name"]: k for k in kernels}
     by_name["chacha20_keystream"]["ms_zero_nonces"] = ms18z
     for nm, h in hashes19.items():
-        by_name[nm]["ms_narrow"] = h["ms_narrow"]
+        by_name[nm].update(ms_narrow=h["ms_narrow"], ms_per_call=h["ms_per_call"])
     by_name["sha256_msg"].update(root_build_ms=dev18, host_tree_ms=host18_ms, ms_narrow=ms14n,
                                  root_build_launches=per18, root_build_loss_ms=loss18)
 
@@ -2241,7 +2306,7 @@ def main() -> int:
         # each kernel's main path: the comb pipeline for the comb lane's
         # kernels, the split pipeline for K9-K12, the leader pipeline for
         # K13 and K5 (the shredder's parity), the plane pipeline for the rest;
-        # K14-K18 carry their own path from phases 18-19
+        # K3 and K14-K18 carry their own path from phases 4 and 18-19
         comb_lane = k["name"] in ("verify_cached", "comb_fill", "bank_install")
         main = (launches13 if comb_lane else launches15 if k["name"] in SPLIT
                 else launches17 if k["name"] in ("lthash_combine", "gf256_apply")
@@ -2275,8 +2340,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's K1, K4, K6, K7, K9-K11, K14 and K17 (a
-    # checkout of an earlier commit) and time them beside this tree's in
-    # phases 6, 8, 12, 14, 18 and 19
+    # --parent DIR: also build DIR's K1, K3, K4, K6, K7, K9-K11, K14, K16
+    # and K17 (a checkout of an earlier commit) and time them beside this
+    # tree's in phases 4, 6, 8, 12, 14, 18 and 19
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

@@ -52,7 +52,7 @@
 // Layout (the JAX package's): msg (max_len, B) uint8 row-major, so a warp's
 // loads of a row coalesce; len (B,) int32, each in [0, max_len] (the wrapper
 // checks); out (32, B) uint8, the first 4 lanes little-endian.
-#include "fd_common.cuh"
+#include "msg_tile.cuh"
 
 #define KECCAK_RATE 136
 #define KECCAK_MSGS 16       // messages a one-warp block, two threads each
@@ -104,12 +104,6 @@ __device__ __forceinline__ void keccak_f_half(uint32_t a[25], int h) {
       a[i] = b[i] ^ (~b[(i + 1) % 5 + 5 * (i / 5)] & b[(i + 2) % 5 + 5 * (i / 5)]);
     a[0] ^= (uint32_t)(KECCAK_RC[r] >> (32 * h));
   }
-}
-
-// Bytes b of v's four words (rows 4t .. 4t+3 of one message quad) as one
-// little-endian word: message 4q + b's bytes of those rows, row 4t lowest.
-__device__ __forceinline__ uint32_t keccak_gather_le(const uint4& v, uint32_t sel) {
-  return __byte_perm(__byte_perm(v.x, v.y, sel), __byte_perm(v.z, v.w, sel), 0x5410);
 }
 
 // The wide path's row segments of Keccak block bi: v[i] = the 16 bytes of
@@ -164,7 +158,7 @@ keccak256_msg_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict_
   const uint32_t final_block = n / KECCAK_RATE;
   const uint32_t nb_max = __reduce_max_sync(0xffffffffu, final_block + 1);
   const uint32_t len_max = __reduce_max_sync(0xffffffffu, n);
-  const uint32_t sel = (uint32_t)(m & 3) | ((uint32_t)((m & 3) + 4) << 4);
+  const uint32_t sel = tile_sel(m);
   const uint8_t* col = msg + (int64_t)j * B + base;
   uint4 next[KECCAK_LOADS];  // the wide path's rows of the next block
   uint32_t raw[68];          // the narrow path's bytes of the next block
@@ -200,7 +194,7 @@ keccak256_msg_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict_
 #pragma unroll
       for (int i = 0; i < KECCAK_RATE / 8; i++) {
         const uint32_t x =
-            keccak_gather_le(*reinterpret_cast<const uint4*>(&tile[q][8 * i + 4 * h]), sel);
+            tile_gather_le(*reinterpret_cast<const uint4*>(&tile[q][8 * i + 4 * h]), sel);
         a[i] ^= i < tb ? x : (i == tb ? (x & keep) | pad : 0u);
       }
       if (bi + 1 < nb_max) keccak_load_rows(col, B, j, bi + 1, len_max, next);

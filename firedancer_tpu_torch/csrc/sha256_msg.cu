@@ -63,12 +63,12 @@
 // neighbouring lanes sits at neighbouring addresses; len (B,) int32, each
 // in [0, max_len] (the wrapper checks); out (32, B) uint8.  K15: state and
 // mixin (32, B) uint8 -> out (32, B).
+#include "msg_tile.cuh"
 #include "sha256.cuh"
 
 #define MSG_LANES 32  // K14: messages a two-warp block
 #define MSG_THREADS (2 * MSG_LANES)
 #define MSG_CHUNKS 4  // W + K handed over in chunks of 16 rounds
-#define MSG_TILE_STRIDE 68  // words of a lane quad's column of the byte tile (64 rows + 4)
 
 // Named barriers (barrier 0 is __syncthreads'): the message warp arrives on
 // MSG_BAR_WK(buf, c) once chunk c of buffer buf holds W + K, and the round
@@ -84,42 +84,6 @@ __device__ __forceinline__ void msg_bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(MSG_THREADS) : "memory");
 }
 
-// Bytes b of v's four words (rows 4t .. 4t+3 of one lane quad) as one
-// big-endian word: lane 4q + b's bytes of those rows.
-__device__ __forceinline__ uint32_t msg_gather_be(const uint4& v, uint32_t sel) {
-  return __byte_perm(__byte_perm(v.w, v.z, sel), __byte_perm(v.y, v.x, sel), 0x5410);
-}
-
-// The wide path's row segments of one SHA block, rows row0 .. row0 + 63
-// below len_max: v[i] = the 16 bytes of row row0 + 16 i + l / 2 at this
-// thread's lanes (if seg_in: they lie in the batch); col = this thread's
-// byte of row l / 2.
-__device__ __forceinline__ void msg_load_rows(const uint8_t* __restrict__ col, int64_t B,
-                                              int l, uint32_t row0, uint32_t len_max,
-                                              bool seg_in, uint4 v[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-    if (seg_in && row0 + 16 * i + (l >> 1) < len_max)
-      v[i] = __ldg(reinterpret_cast<const uint4*>(col + (int64_t)(row0 + 16 * i) * B));
-}
-
-// The narrow path's bytes of one SHA block, rows row0 .. row0 + 63 below
-// len_max, of the lane whose row-0 byte is at p: raw[r] = byte row0 + r.
-// A whole block's 64 loads are unguarded.
-__device__ __forceinline__ void msg_load_bytes(const uint8_t* __restrict__ p, int64_t B,
-                                               uint32_t row0, uint32_t len_max,
-                                               uint32_t raw[64]) {
-  const uint8_t* q = p + (int64_t)row0 * B;
-  if (row0 + 64 <= len_max) {
-#pragma unroll
-    for (int r = 0; r < 64; r++) raw[r] = __ldg(q + r * B);
-  } else {
-#pragma unroll
-    for (int r = 0; r < 64; r++)
-      if (row0 + r < len_max) raw[r] = __ldg(q + r * B);
-  }
-}
-
 // The message warp, thread l for lane l of the block: for each SHA block,
 // lane l's 16 words (WIDE: the block's 64 rows into the tile, then out of
 // it; else the lane's own 64 bytes, loaded a block ahead, packed with
@@ -130,17 +94,17 @@ template <bool WIDE>
 __device__ __forceinline__ void msg_message_warp(
     const uint8_t* __restrict__ msg, int64_t B, int64_t base, int64_t lane, int l,
     uint32_t len, uint32_t len_max, uint32_t nb, uint32_t nb_max,
-    uint32_t (*tile)[MSG_TILE_STRIDE], uint4 (*wk)[MSG_CHUNKS * 4][MSG_LANES]) {
+    uint32_t (*tile)[TILE64_STRIDE], uint4 (*wk)[MSG_CHUNKS * 4][MSG_LANES]) {
   const bool seg_in = base + 16 * (l & 1) + 16 <= B;
-  const uint32_t sel = (uint32_t)(l & 3) | ((uint32_t)((l & 3) + 4) << 4);
-  const int q = l >> 2, q0 = 4 * (l & 1);
+  const uint32_t sel = tile_sel(l);
+  const int q = l >> 2;
   const uint8_t* col = msg + (int64_t)(l >> 1) * B + base + 16 * (l & 1);
   uint4 next[4];     // the wide path's rows of the next SHA block, loaded a block ahead
   uint32_t raw[64];  // the narrow path's bytes of the next SHA block
   if (WIDE)
-    msg_load_rows(col, B, l, 0, len_max, seg_in, next);
+    tile_load_rows64(col, B, l, 0, len_max, seg_in, next);
   else
-    msg_load_bytes(msg + lane, B, 0, len_max, raw);
+    tile_load_bytes64(msg + lane, B, 0, len_max, raw);
 #pragma unroll 1
   for (uint32_t blk = 0; blk < nb_max; blk++) {
     const int buf = blk & 1;
@@ -152,24 +116,15 @@ __device__ __forceinline__ void msg_message_warp(
     const uint32_t pad = 0x80u << (24 - 8 * ob);
     uint32_t w[16];
     if (WIDE) {
-#pragma unroll
-      for (int i = 0; i < 4; i++) {
-        const int r = 16 * i + (l >> 1);
-        if (row0 + r < len_max) {
-          tile[q0][r] = next[i].x;
-          tile[q0 + 1][r] = next[i].y;
-          tile[q0 + 2][r] = next[i].z;
-          tile[q0 + 3][r] = next[i].w;
-        }
-      }
+      tile_store_rows64(tile, next, l, row0, len_max);
       __syncwarp();
 #pragma unroll
       for (int t = 0; t < 16; t++) {
-        const uint32_t x = msg_gather_be(*reinterpret_cast<const uint4*>(&tile[q][4 * t]), sel);
+        const uint32_t x = tile_gather_be(*reinterpret_cast<const uint4*>(&tile[q][4 * t]), sel);
         w[t] = t < tb ? x : (t == tb ? (x & keep) | pad : 0u);
       }
       __syncwarp();  // the tile is read before the next block's rows land in it
-      if (blk + 1 < nb_max) msg_load_rows(col, B, l, row0 + 64, len_max, seg_in, next);
+      if (blk + 1 < nb_max) tile_load_rows64(col, B, l, row0 + 64, len_max, seg_in, next);
     } else {
 #pragma unroll
       for (int t = 0; t < 16; t++) {  // big-endian: byte 4t in the top
@@ -177,7 +132,7 @@ __device__ __forceinline__ void msg_message_warp(
                                        __byte_perm(raw[4 * t + 1], raw[4 * t], 0x0040), 0x5410);
         w[t] = t < tb ? x : (t == tb ? (x & keep) | pad : 0u);
       }
-      if (blk + 1 < nb_max) msg_load_bytes(msg + lane, B, row0 + 64, len_max, raw);
+      if (blk + 1 < nb_max) tile_load_bytes64(msg + lane, B, row0 + 64, len_max, raw);
     }
     if (blk + 1 == nb) {  // the 64-bit bit length
       w[14] = len >> 29;
@@ -265,7 +220,7 @@ __global__ void __launch_bounds__(MSG_THREADS)
 sha256_msg_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ len_in,
                   uint8_t* __restrict__ out, int64_t B) {
   __shared__ __align__(16) uint4 wk_s[2][MSG_CHUNKS * 4][MSG_LANES];
-  __shared__ __align__(16) uint32_t tile_s[8][MSG_TILE_STRIDE];
+  __shared__ __align__(16) uint32_t tile_s[8][TILE64_STRIDE];
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int64_t base = (int64_t)blockIdx.x * MSG_LANES;
   const bool in_batch = base + l < B;

@@ -29,23 +29,13 @@
 // the pad's compares), the 64 schedule steps and the 80 rounds: 6,589
 // SASS instructions a SHA block (223 LDG, 353 ISETP, 127 BRA), ~6 clocks
 // each on an H100, the loads' latency in series, its time flat in B.
-// Here a block is two warps for 32 signatures: the message warp loads the
-// block's row segments (32 contiguous bytes a row, uint4 loads, the next
-// SHA block's during this one's schedule), turns them into each lane's
-// words through shared memory (PRMT), pads, expands the schedule and hands
-// W + K over in chunks of 16 rounds (named barriers, two buffers); the
-// round warp runs only the rounds, the feed-forward, sc_reduce512 and the
-// stores.  Both warps loop over the chunks (16 rounds or schedule steps a
-// loop body): unrolled over all 80, their SHA-block loops were 2,484 and
-// 2,589 SASS instructions (~40 KB of code each) and ran slower on an H100
-// at every shape measured, with the same instructions issued (instruction
-// fetch is the suspect; not profiled).  SASS (cuobjdump, nvcc 12.8): the
-// round warp's chunk loop 504 instructions, its block loop 551 (one chunk
-// and the feed-forward); the message warp's chunk loop 414, its block
-// loop 1,318 (the tile, the words, the pad, chunk 0 and one chunk).  So
-// each warp issues ~2,560 instructions a SHA block, side by side.  ptxas:
-// 128 registers, no spills, 45,184 bytes of shared memory, so 4 blocks an
-// SM (the shared memory) and B = 16,384 runs in one wave.
+// Here a block is two warps for 32 signatures, sha512.cuh's warp pair
+// (shared with K3 csrc/sha512_batch.cu; its design and SASS counts are
+// noted there) on the row source Sha512RowsRAM: the message warp loads,
+// pads and schedules, and the round warp runs the rounds, sc_reduce512
+// and the stores.  ptxas: 128 registers, no spills, 45,184 bytes of
+// shared memory, so 4 blocks an SM (the shared memory) and B = 16,384
+// runs in one wave.
 //
 // K11 is the split's long phase: ~3,235 field multiplies a lane
 // (ops/sigverify.py K11_SQUARINGS_PER_LANE and K11_MULS_PER_LANE), no
@@ -76,10 +66,6 @@
 
 #define VAL_SIGS 32  // K9: signatures a two-warp block
 #define VAL_THREADS (2 * VAL_SIGS)
-#define HASH_SIGS 32  // K10: signatures a two-warp block
-#define HASH_THREADS (2 * HASH_SIGS)
-#define HASH_CHUNKS 5  // K10: W + K handed over in chunks of 16 rounds
-#define HASH_TILE_STRIDE 132  // K10: words of a lane quad's column of the byte tile (128 rows + 4)
 #define DSM_SIGS 8  // K11: signatures a one-warp block
 #define DSM_THREADS (4 * DSM_SIGS)
 
@@ -141,204 +127,21 @@ phase_validate_kernel(const uint8_t* __restrict__ sig, const uint8_t* __restrict
   if (warp == 0 && in_batch) ok_out[lane] = ok && d.ok && r_ok_s[l];
 }
 
-// K10's named barriers (barrier 0 is __syncthreads'): the message warp
-// arrives on HASH_BAR_WK(buf, c) once chunk c of buffer buf holds W + K,
-// and the round warp on HASH_BAR_FREE(buf) once it has read the buffer.
-#define HASH_BAR_WK(buf, c) (1 + HASH_CHUNKS * (buf) + (c))
-#define HASH_BAR_FREE(buf) (1 + 2 * HASH_CHUNKS + (buf))
-
-__device__ __forceinline__ void hash_bar_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(HASH_THREADS) : "memory");
-}
-
-__device__ __forceinline__ void hash_bar_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(HASH_THREADS) : "memory");
-}
-
-// Row p of R || A || msg: sig rows 0-31, pubkey rows, then msg rows.
-__device__ __forceinline__ const uint8_t* hash_row(const uint8_t* __restrict__ sig,
-                                                   const uint8_t* __restrict__ pk,
-                                                   const uint8_t* __restrict__ msg,
-                                                   int64_t B, uint32_t p) {
-  return p < 32 ? sig + (int64_t)p * B
-                : (p < 64 ? pk + (int64_t)(p - 32) * B : msg + (int64_t)(p - 64) * B);
-}
-
-// Bytes b of the four words of v (rows 4i .. 4i+3 of one lane quad), as
-// one big-endian word: lane 4q + b's bytes of those rows.
-__device__ __forceinline__ uint32_t hash_gather(const uint4& v, uint32_t sel) {
-  return __byte_perm(__byte_perm(v.w, v.z, sel), __byte_perm(v.y, v.x, sel), 0x5410);
-}
-
-// The wide path's row segments of one SHA block, rows row0 .. row0 + 127
-// below len_max: v[i] = the 16 bytes of row row0 + 16 i + l / 2 at this
-// thread's lanes, from bases[] = this thread's byte of row l / 2 of sig,
-// pubkey and msg.  Row groups never straddle a source: the first SHA block
-// is sig (i = 0, 1), pubkey (2, 3) and msg (4-7), a later one all msg.
-__device__ __forceinline__ void hash_load_rows(const uint8_t* const bases[3], int64_t B,
-                                               int l, uint32_t row0, uint32_t len_max,
-                                               uint4 v[8]) {
-  const int64_t step = 16 * B;  // 16 rows
-  const uint8_t* later = bases[2] + (row0 == 0 ? 0 : (int64_t)((row0 - 64) >> 4) * step);
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    const uint8_t* first = i < 2 ? bases[0] + i * step
-                                 : (i < 4 ? bases[1] + (i - 2) * step : bases[2] + (i - 4) * step);
-    if (row0 + 16 * i + (l >> 1) < len_max)
-      v[i] = __ldg(reinterpret_cast<const uint4*>(row0 == 0 ? first : later + i * step));
-  }
-}
-
-// The message warp, thread l for lane l of the block: for each of the
-// block's SHA blocks, the 128 rows' 32 bytes of the block's lanes into the
-// byte tile (tile[q][r]: row r of lanes 4q .. 4q+3), then lane l's 16
-// big-endian words out of it (two conflict-free LDS.128 and six PRMT a
-// word), the 0x80 pad and the bit length, the 64 scheduled words, and W + K
-// for the 80 rounds into wk in five chunks of 16 rounds.  Rows at or past
-// the block's longest message are not read.  `wide`: the batch is a
-// multiple of 16 lanes and the rows 16-byte aligned, so a full block's
-// row segments load as uint4 (16 rows a warp instruction), the next SHA
-// block's while this one's schedule runs; otherwise each thread loads its
-// own lane's byte of each row.
-__device__ __forceinline__ void hash_message_warp(
-    const uint8_t* __restrict__ sig, const uint8_t* __restrict__ pk,
-    const uint8_t* __restrict__ msg, int64_t B, int64_t base, int64_t lane, int l,
-    uint32_t len, uint32_t len_max, uint32_t nb, uint32_t nb_max, bool wide,
-    uint32_t (*tile)[HASH_TILE_STRIDE], ulonglong2 (*wk)[HASH_CHUNKS * 8][HASH_SIGS]) {
-  const bool full = wide && base + HASH_SIGS <= B;
-  const uint32_t sel = (uint32_t)(l & 3) | ((uint32_t)((l & 3) + 4) << 4);
-  const int q = l >> 2, q0 = 4 * (l & 1);
-  const int64_t col = (int64_t)(l >> 1) * B + base + 16 * (l & 1);
-  const uint8_t* const bases[3] = {sig + col, pk + col, msg + col};
-  uint4 next[8];  // the wide path's rows of the next SHA block, loaded a block ahead
-  if (full) hash_load_rows(bases, B, l, 0, len_max, next);
-#pragma unroll 1
-  for (uint32_t blk = 0; blk < nb_max; blk++) {
-    const int buf = blk & 1;
-    const uint32_t row0 = blk * 128;
-    if (full) {
-#pragma unroll
-      for (int i = 0; i < 8; i++) {
-        const int r = 16 * i + (l >> 1);
-        if (row0 + r < len_max) {
-          tile[q0][r] = next[i].x;
-          tile[q0 + 1][r] = next[i].y;
-          tile[q0 + 2][r] = next[i].z;
-          tile[q0 + 3][r] = next[i].w;
-        }
-      }
-    } else {
-      uint8_t* col_b = reinterpret_cast<uint8_t*>(&tile[q][0]) + (l & 3);
-#pragma unroll 8
-      for (int r = 0; r < 128; r++)
-        if (row0 + r < len_max) col_b[4 * r] = __ldg(hash_row(sig, pk, msg, B, row0 + r) + lane);
-    }
-    __syncwarp();
-    // bytes at or past len: 0x80 at len (in word tb), zeros after
-    const int rem = (int)len - (int)row0, tb = rem >> 3, ob = rem & 7;
-    const uint64_t keep = ob == 0 ? 0ull : ~0ull << (64 - 8 * ob);
-    const uint64_t pad = 0x80ull << (56 - 8 * ob);
-    uint64_t w[16];
-#pragma unroll
-    for (int t = 0; t < 16; t++) {
-      const uint4 hi = *reinterpret_cast<const uint4*>(&tile[q][8 * t]);
-      const uint4 lo = *reinterpret_cast<const uint4*>(&tile[q][8 * t + 4]);
-      const uint64_t x = ((uint64_t)hash_gather(hi, sel) << 32) | hash_gather(lo, sel);
-      w[t] = t < tb ? x : (t == tb ? (x & keep) | pad : 0ull);
-    }
-    __syncwarp();  // the tile is read before the next block's rows land in it
-    if (full && blk + 1 < nb_max)
-      hash_load_rows(bases, B, l, row0 + 128, len_max, next);
-    if (blk + 1 == nb) w[15] = (uint64_t)len * 8;  // 128-bit length, high word 0
-    if (blk >= 2) hash_bar_sync(HASH_BAR_FREE(buf));
-#pragma unroll
-    for (int i = 0; i < 8; i++)
-      wk[buf][i][l] = make_ulonglong2(w[2 * i] + SHA512_K[2 * i],
-                                      w[2 * i + 1] + SHA512_K[2 * i + 1]);
-    hash_bar_arrive(HASH_BAR_WK(buf, 0));
-    // chunks 1-4, one loop body (word 16 c + j replaces w[j])
-#pragma unroll 1
-    for (int c = 1; c < HASH_CHUNKS; c++) {
-#pragma unroll
-      for (int i = 0; i < 8; i++) {
-        uint64_t o2[2];
-#pragma unroll
-        for (int h = 0; h < 2; h++) {
-          const int j = 2 * i + h;
-          const uint64_t w15 = w[(j + 1) & 15], w2 = w[(j + 14) & 15];
-          const uint64_t s0 = sha_rotr(w15, 1) ^ sha_rotr(w15, 8) ^ (w15 >> 7);
-          const uint64_t s1 = sha_rotr(w2, 19) ^ sha_rotr(w2, 61) ^ (w2 >> 6);
-          w[j] += s0 + w[(j + 9) & 15] + s1;
-          o2[h] = w[j] + SHA512_K[16 * c + j];
-        }
-        wk[buf][8 * c + i][l] = make_ulonglong2(o2[0], o2[1]);
-      }
-      hash_bar_arrive(HASH_BAR_WK(buf, c));
-    }
-  }
-}
-
-// The round warp, thread l for lane l: the 80 rounds of each SHA block on
-// W + K from wk (one LDS.128 for two rounds), the feed-forward while the
-// lane's message lasts (a lane whose message has ended keeps its state).
-__device__ __forceinline__ void hash_round_warp(
-    uint32_t nb, uint32_t nb_max, int l, uint64_t st[8],
-    const ulonglong2 (*wk)[HASH_CHUNKS * 8][HASH_SIGS]) {
-  st[0] = 0x6A09E667F3BCC908ull; st[1] = 0xBB67AE8584CAA73Bull;
-  st[2] = 0x3C6EF372FE94F82Bull; st[3] = 0xA54FF53A5F1D36F1ull;
-  st[4] = 0x510E527FADE682D1ull; st[5] = 0x9B05688C2B3E6C1Full;
-  st[6] = 0x1F83D9ABFB41BD6Bull; st[7] = 0x5BE0CD19137E2179ull;
-#pragma unroll 1
-  for (uint32_t blk = 0; blk < nb_max; blk++) {
-    const int buf = blk & 1;
-    uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
-    uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll 1
-    for (int ch = 0; ch < HASH_CHUNKS; ch++) {
-      hash_bar_sync(HASH_BAR_WK(buf, ch));
-#pragma unroll
-      for (int i = 0; i < 16; i++) {
-        const ulonglong2 pair = wk[buf][8 * ch + (i >> 1)][l];
-        const uint64_t wkt = (i & 1) ? pair.y : pair.x;
-        // h + W + K and d + h + W + K do not wait for e (K4's form)
-        const uint64_t hw = h + wkt, dhw = d + hw;
-        const uint64_t S1 = sha_rotr(e, 14) ^ sha_rotr(e, 18) ^ sha_rotr(e, 41);
-        const uint64_t chv = (e & f) ^ (~e & g);
-        const uint64_t t1 = hw + S1 + chv;
-        const uint64_t S0 = sha_rotr(a, 28) ^ sha_rotr(a, 34) ^ sha_rotr(a, 39);
-        const uint64_t maj = (a & b) ^ (a & c) ^ (b & c);
-        h = g;
-        g = f;
-        f = e;
-        e = dhw + S1 + chv;
-        d = c;
-        c = b;
-        b = a;
-        a = t1 + S0 + maj;
-      }
-    }
-    if (blk + 2 < nb_max) hash_bar_arrive(HASH_BAR_FREE(buf));
-    if (blk < nb) {
-      st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-      st[4] += e; st[5] += f; st[6] += g; st[7] += h;
-    }
-  }
-}
-
 // K10: k = SHA512(R || A || msg) mod L over a length clamped to [0,
-// max_len], HASH_SIGS signatures a two-warp block: warp 1 turns the input
-// rows into W + K (hash_message_warp), warp 0 runs the rounds, reduces and
-// writes k as 32 byte rows (hash_round_warp).  Both warps run to the
-// block's longest message; the lanes of a ragged tail read the batch's
-// last lane, take part in every barrier and store nothing.
-__global__ void __launch_bounds__(HASH_THREADS)
+// max_len], SHA512_LANES signatures a two-warp block (sha512.cuh's warp
+// pair on the source Sha512RowsRAM): warp 1 turns the input rows into W +
+// K (sha512_message_warp), warp 0 runs the rounds (sha512_round_warp),
+// reduces and writes k as 32 byte rows.  Both warps run to the block's
+// longest message; the lanes of a ragged tail read the batch's last lane,
+// take part in every barrier and store nothing.
+__global__ void __launch_bounds__(SHA512_THREADS)
 phase_hash_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ msg_len,
                   const uint8_t* __restrict__ sig, const uint8_t* __restrict__ pk,
                   uint8_t* __restrict__ k_out, int64_t B, int max_len, bool wide) {
-  __shared__ __align__(16) ulonglong2 wk_s[2][HASH_CHUNKS * 8][HASH_SIGS];
-  __shared__ __align__(16) uint32_t tile_s[8][HASH_TILE_STRIDE];
+  __shared__ __align__(16) ulonglong2 wk_s[2][SHA512_CHUNKS * 8][SHA512_LANES];
+  __shared__ __align__(16) uint32_t tile_s[8][SHA512_TILE_STRIDE];
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int64_t base = (int64_t)blockIdx.x * HASH_SIGS;
+  const int64_t base = (int64_t)blockIdx.x * SHA512_LANES;
   const bool in_batch = base + l < B;
   const int64_t lane = in_batch ? base + l : B - 1;
   int32_t ln = __ldg(msg_len + lane);
@@ -347,12 +150,12 @@ phase_hash_kernel(const uint8_t* __restrict__ msg, const int32_t* __restrict__ m
   const uint32_t nb = (len + 17 + 127) / 128;
   const uint32_t nb_max = __reduce_max_sync(0xffffffffu, nb);
   if (warp == 1) {
-    hash_message_warp(sig, pk, msg, B, base, lane, l, len,
-                      __reduce_max_sync(0xffffffffu, len), nb, nb_max, wide, tile_s, wk_s);
+    sha512_message_warp(Sha512RowsRAM{sig, pk, msg}, B, base, lane, l, len,
+                        __reduce_max_sync(0xffffffffu, len), nb, nb_max, wide, tile_s, wk_s);
     return;
   }
   uint64_t st[8], kw[4];
-  hash_round_warp(nb, nb_max, l, st, wk_s);
+  sha512_round_warp(nb, nb_max, l, st, wk_s);
   sc_reduce512(st, kw);
   if (in_batch) {
 #pragma unroll
@@ -430,8 +233,8 @@ FD_EXPORT int fd_phase_hash(const void* msg, const void* msg_len, const void* si
   if (rc) return rc;
   if (B == 0) return 0;
   const bool wide = B % 16 == 0 && ((uintptr_t)msg | (uintptr_t)sig | (uintptr_t)pk) % 16 == 0;
-  const int64_t blocks = (B + HASH_SIGS - 1) / HASH_SIGS;
-  phase_hash_kernel<<<(unsigned)blocks, HASH_THREADS, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (B + SHA512_LANES - 1) / SHA512_LANES;
+  phase_hash_kernel<<<(unsigned)blocks, SHA512_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)msg, (const int32_t*)msg_len, (const uint8_t*)sig,
       (const uint8_t*)pk, (uint8_t*)k_out, B, max_len, wide);
   return (int)cudaGetLastError();

@@ -5,7 +5,8 @@ Layout (the JAX package's): messages are (max_len, B) byte rows, lengths
 (B,), digests (64, B) bytes.  One program serves any mix of lengths up to
 the static max_len: the plain version runs every block for every lane and
 captures each lane's digest at its own final block; the kernel
-(csrc/sha512_batch.cu, native uint64) runs only each lane's own blocks.
+(csrc/sha512_batch.cu, native uint64) hashes 32 messages a two-warp block
+on K10's warp pair (csrc/sha512.cuh), each block to its longest message.
 
 The plain version keeps 64-bit words as (hi, lo) 32-bit halves in int64
 tensors: torch's `>>` on int64 is arithmetic and torch.uint64 supports
@@ -165,9 +166,9 @@ def sha512_batch(msg: torch.Tensor, msg_len: torch.Tensor) -> torch.Tensor:
     """K3: batched SHA-512, (max_len, B) uint8 + (B,) int32 -> (64, B) uint8.
 
     Replaces ops/sha512.py:179 sha512_msg launched alone; runs the same
-    `__device__` SHA-512 as the verify kernel.  On CPU tensors this runs
-    the plain version; on CUDA tensors it launches csrc/sha512_batch.cu
-    or raises.
+    SHA-512 warp pair as K10 phase_hash.  On CPU tensors this runs the
+    plain version; on CUDA tensors it launches csrc/sha512_batch.cu or
+    raises.
     """
     if msg.device.type == "cpu" and msg_len.device.type == "cpu":
         return sha512_batch_plain(msg, msg_len)

@@ -543,6 +543,71 @@ def _offset_rows(a: np.ndarray, dev, offset: int) -> torch.Tensor:
 # every pad edge of each hash, mixed inside each block of lanes
 SHA256_EDGES = (0, 1, 55, 56, 63, 64, 119, 120, 299, 300)
 KECCAK_EDGES = (0, 134, 135, 136, 137, 271, 272, 299, 300)
+SHA512_EDGES = (0, 1, 111, 112, 127, 128, 129, 239, 240, 299, 300)
+BLAKE3_EDGES = (0, 1, 63, 64, 65, 127, 128, 129, 299, 300)
+
+
+@pytest.mark.parametrize("bsz,offset", [(1, 0), (15, 0), (16, 0), (31, 0), (33, 0), (48, 0),
+                                        (1024, 0), (1024, 1), (64, 8), (4091, 0)])
+def test_sha512_batch_kernel_wide_narrow_and_ragged_equal_plain_and_hashlib(dev, bsz, offset):
+    """K3 on sha512.cuh's warp pair: whole 32-lane blocks of 16-byte
+    aligned rows (uint4 loads), a half block on a 16-lane multiple, and the
+    narrow path (batches not a multiple of 16, rows not 16-byte aligned),
+    with a ragged last block; lengths on every SHA-512 pad edge mixed inside
+    each block; equal to the plain version and hashlib on every lane."""
+    rng = np.random.default_rng(1600 + bsz + offset)
+    lens = np.array([SHA512_EDGES[(7 * i) % len(SHA512_EDGES)] for i in range(bsz)], np.int32)
+    mh = rng.integers(0, 256, (300, bsz), dtype=np.uint8)
+    m = _offset_rows(mh, dev, offset)
+    ln = torch.from_numpy(lens).to(dev)
+    got = fsha.sha512_batch(m, ln)
+    assert kbuild.LAUNCHES["sha512_batch"] == 1
+    assert torch.equal(got, fsha.sha512_batch_plain(m, ln))
+    gh = got.cpu().numpy()
+    for i in range(bsz):
+        assert gh[:, i].tobytes() == hashlib.sha512(mh[:lens[i], i].tobytes()).digest(), i
+
+
+@pytest.mark.parametrize("bsz,offset", [(32, 0), (48, 0), (37, 0), (64, 1)])
+def test_sha512_batch_kernel_zero_digest_for_lengths_out_of_range(dev, bsz, offset):
+    """A length outside [0, max_len] gives an all-zero digest on the card,
+    as in the plain version, while the other lanes of its block hash as
+    hashlib does."""
+    rng = np.random.default_rng(1700 + bsz + offset)
+    bad = (-1, 301, -(1 << 31), (1 << 31) - 1)
+    lens = np.array([bad[i % 4] if i % 3 == 0 else SHA512_EDGES[i % len(SHA512_EDGES)]
+                     for i in range(bsz)], np.int32)
+    mh = rng.integers(0, 256, (300, bsz), dtype=np.uint8)
+    m = _offset_rows(mh, dev, offset)
+    ln = torch.from_numpy(lens).to(dev)
+    got = fsha.sha512_batch(m, ln)
+    assert torch.equal(got, fsha.sha512_batch_plain(m, ln))
+    gh = got.cpu().numpy()
+    for i in range(bsz):
+        n = int(lens[i])
+        want = hashlib.sha512(mh[:n, i].tobytes()).digest() if 0 <= n <= 300 else bytes(64)
+        assert gh[:, i].tobytes() == want, (i, n)
+
+
+@pytest.mark.parametrize("bsz,offset", [(1, 0), (16, 0), (17, 0), (48, 0), (1024, 0),
+                                        (1024, 1), (64, 8)])
+def test_blake3_msg_kernel_wide_and_narrow_equal_plain_and_host(dev, bsz, offset):
+    """K16 through its byte tile (B a multiple of 16, aligned rows) and its
+    narrow path (other batches, rows not 16-byte aligned), lengths on every
+    BLAKE3 block edge; equal to the plain version and blake3_host."""
+    from firedancer_tpu_torch.ops import blake3 as fb3
+
+    rng = np.random.default_rng(1800 + bsz + offset)
+    lens = np.array([BLAKE3_EDGES[(3 * i) % len(BLAKE3_EDGES)] for i in range(bsz)], np.int32)
+    mh = rng.integers(0, 256, (300, bsz), dtype=np.uint8)
+    m = _offset_rows(mh, dev, offset)
+    ln = torch.from_numpy(lens).to(dev)
+    got = fb3.blake3_msg(m, ln)
+    assert kbuild.LAUNCHES["blake3_msg"] == 1
+    assert torch.equal(got, fb3.blake3_msg_plain(m, ln, 300))
+    gh = got.cpu().numpy()
+    for i in range(bsz):
+        assert gh[:, i].tobytes() == fb3.blake3_host(mh[:lens[i], i].tobytes()), i
 
 
 @pytest.mark.parametrize("bsz,offset", [(1, 0), (15, 0), (16, 0), (17, 0), (48, 0),

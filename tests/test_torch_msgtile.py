@@ -1,5 +1,7 @@
-"""A numpy model of K14's and K17's message tiles (csrc/sha256_msg.cu,
-csrc/keccak256_msg.cu), held on the CPU against the JAX package's padding.
+"""A numpy model of the hash kernels' message tiles: K14's and K17's
+(csrc/sha256_msg.cu, csrc/keccak256_msg.cu), the SHA-512 message warp that
+K3 and K10 share (csrc/sha512.cuh) and K16's (csrc/blake3_msg.cu), held on
+the CPU against the JAX package's padding.
 
 On the wide path (B a multiple of 16, 16-byte aligned rows) both kernels
 land their byte rows in a shared byte tile, tile[q][r] = row r of lanes
@@ -27,7 +29,18 @@ mapping, selectors, masks) and checks:
 on seeded lengths at every pad edge, for wide and narrow batches; and
 K17's permutation split over two threads a state (keccak_f_halves, each
 thread's half of every lane, rotations through the partner's half)
-against the JAX _keccak_f on seeded states."""
+against the JAX _keccak_f on seeded states.
+
+The SHA-512 message warp (32 lanes a block, 128 rows a SHA block, 132
+words a quad) reads its rows through a row source: K3's one (max_len, B)
+buffer, or K10's R || A || msg out of sig, pubkey and msg, whose wide row
+groups (16 rows) must each lie in one array.  Its 64-bit words are two
+gathered big-endian halves; the model checks them, the 0x80 pad by mask and
+the bit length against firedancer_tpu/ops/sha512.py sha512_pad.  K16 keeps
+one message a thread and K14's tile (32 lanes, 64 rows, 68 words a quad),
+reads little-endian words (K17's selector) and zeroes the bytes past the
+length; the model's words and per-block (block_len, flags), compressed by
+the JAX package's host BLAKE3 compression, give the JAX blake3_msg digest."""
 
 import functools
 
@@ -36,16 +49,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from firedancer_tpu.ops import blake3 as jb3
 from firedancer_tpu.ops import keccak256 as jkk
 from firedancer_tpu.ops import sha256 as jsha256
+from firedancer_tpu.ops import sha512 as jsha512
 
 LANES = 32
 SHA_BLOCK_ROWS = 64
-SHA_TILE_STRIDE = 68  # csrc/sha256_msg.cu MSG_TILE_STRIDE
+TILE64_STRIDE = 68  # csrc/msg_tile.cuh: K14's and K16's 64-row tile
 RATE = 136
 KECCAK_MSGS = 16  # csrc/keccak256_msg.cu: messages a warp, two threads each
 KECCAK_LOADS = 5  # uint4 row loads a thread a Keccak block
 KECCAK_TILE_STRIDE = 136
+SHA512_BLOCK_ROWS = 128
+SHA512_TILE_STRIDE = 132  # csrc/sha512.cuh SHA512_TILE_STRIDE
+B3_BLOCK_ROWS = 64
+M64 = (1 << 64) - 1
 
 
 def byte_perm(a: int, b: int, s: int) -> int:
@@ -59,12 +78,12 @@ def sel_of(l: int) -> int:
 
 
 def gather_be(v, sel):
-    """msg_gather_be: rows 4t .. 4t+3 -> one big-endian word."""
+    """tile_gather_be (csrc/msg_tile.cuh): rows 4t .. 4t+3 -> one big-endian word."""
     return byte_perm(byte_perm(v[3], v[2], sel), byte_perm(v[1], v[0], sel), 0x5410)
 
 
 def gather_le(v, sel):
-    """keccak_gather_le: rows 4t .. 4t+3 -> one little-endian word."""
+    """tile_gather_le (csrc/msg_tile.cuh): rows 4t .. 4t+3 -> one little-endian word."""
     return byte_perm(byte_perm(v[0], v[1], sel), byte_perm(v[2], v[3], sel), 0x5410)
 
 
@@ -85,10 +104,12 @@ def assert_conflict_free(words: list[int]) -> None:
     assert len(set(banks)) == len(banks), words
 
 
-def sha256_fill_tile(tile, msg, base, row0, len_max):
-    """K14's wide path: one SHA block's 64 rows into the tile, thread l
-    storing row 16 i + l // 2's segment l % 2 if its 16 lanes lie in the
-    batch; rows at or past len_max are not read."""
+def fill_tile64(tile, msg, base, row0, len_max):
+    """K14's and K16's wide path (csrc/msg_tile.cuh tile_load_rows64 and
+    tile_store_rows64): one block's 64 rows into the tile, thread l storing
+    row 16 i + l // 2's segment l % 2 if its 16 lanes lie in the batch (a
+    half block's other quads hold stale values, lanes past the batch);
+    rows at or past len_max are not read."""
     for i in range(4):
         stores = [[] for _ in range(4)]
         for l in range(LANES):
@@ -100,7 +121,7 @@ def sha256_fill_tile(tile, msg, base, row0, len_max):
             q0 = 4 * (l & 1)
             for c in range(4):
                 tile[q0 + c, r] = v[c]
-                stores[c].append((q0 + c) * SHA_TILE_STRIDE + r)
+                stores[c].append((q0 + c) * TILE64_STRIDE + r)
         for st in stores:  # each of the four STS.32 of a row group
             assert_conflict_free(st)
 
@@ -125,13 +146,13 @@ def sha256_model(msg: np.ndarray, lens: np.ndarray, wide: bool, rng) -> dict:
         lane_of, ln = block_lanes(msg, lens, base)
         nb = [(n + 9 + 63) // 64 for n in ln]
         nb_max, len_max = max(nb), max(ln)
-        tile = rng.integers(0, 1 << 32, (8, SHA_TILE_STRIDE), dtype=np.uint64)  # stale garbage
+        tile = rng.integers(0, 1 << 32, (8, TILE64_STRIDE), dtype=np.uint64)  # stale garbage
         for blk in range(nb_max):
             row0 = blk * SHA_BLOCK_ROWS
             if wide:  # a half block loads its first 16 lanes only
-                sha256_fill_tile(tile, msg, base, row0, len_max)
+                fill_tile64(tile, msg, base, row0, len_max)
                 for t in range(16):  # the 8 quads' LDS.128 of word t
-                    assert_conflict_free([q * SHA_TILE_STRIDE + 4 * t + c
+                    assert_conflict_free([q * TILE64_STRIDE + 4 * t + c
                                           for q in range(8) for c in range(4)])
             for l in range(LANES):
                 n, q = ln[l], l >> 2
@@ -207,6 +228,134 @@ def keccak_model(msg: np.ndarray, lens: np.ndarray, wide: bool, rng) -> dict:
                 if bi <= fb[m] and base + m < bsz:
                     out[(bi, base + m)] = [lo | (hi << 32)
                                            for lo, hi in zip(half[(m, 0)], half[(m, 1)])]
+    return out
+
+
+def k3_rows(msg):
+    """Sha512Rows over one (max_len, B) buffer: row(p) and, on the wide
+    path, group(row0, i) = the row of row0 + 16 i, each as (array, row)."""
+    return (lambda p: (msg, p)), (lambda row0, i: (msg, (row0 >> 4) * 16 + 16 * i))
+
+
+def k10_rows(sig, pk, msg):
+    """Sha512RowsRAM: R || A || msg in place, sig rows 0-31, pubkey 32-63,
+    then msg; the first SHA block's row groups 0, 1 in sig, 2, 3 in pubkey
+    and 4-7 in msg, a later block's in msg."""
+    def row(p):
+        return (sig, p) if p < 32 else ((pk, p - 32) if p < 64 else (msg, p - 64))
+
+    def group(row0, i):
+        if row0 == 0:
+            return (sig, 16 * i) if i < 2 else ((pk, 16 * (i - 2)) if i < 4 else (msg, 16 * (i - 4)))
+        return msg, ((row0 - 64) >> 4) * 16 + 16 * i
+    return row, group
+
+
+def sha512_model(rows, bsz: int, lens, wide: bool, rng) -> dict:
+    """{(block, lane): 16 64-bit words} as the SHA-512 message warp builds
+    them from a row source, for lengths already clamped by the kernel.  A
+    full block of a wide batch loads row 16 i + l // 2's segment l % 2 as
+    one uint4 through group(); any other block each lane's byte of each row
+    through row().  Arrays are indexed as the kernel's pointers are, so a
+    read outside an input array, or a row group that straddles two, fails."""
+    row, group = rows
+    out = {}
+    for base in range(0, bsz, LANES):
+        lane_of = lambda l: base + l if base + l < bsz else bsz - 1  # noqa: E731
+        ln = [int(lens[lane_of(l)]) for l in range(LANES)]
+        nb = [(n + 17 + 127) // 128 for n in ln]
+        nb_max, len_max = max(nb), max(ln)
+        full = wide and base + LANES <= bsz
+        tile = [[int(v) for v in r] for r in
+                rng.integers(0, 1 << 32, (8, SHA512_TILE_STRIDE), dtype=np.uint64)]
+        for blk in range(nb_max):
+            row0 = blk * SHA512_BLOCK_ROWS
+            if full:
+                for i in range(8):
+                    stores = [[] for _ in range(4)]
+                    for l in range(LANES):
+                        r = 16 * i + (l >> 1)
+                        if row0 + r >= len_max:
+                            continue
+                        arr, r0 = group(row0, i)
+                        ra, rr = row(row0 + r)  # the group holds the row, in one array
+                        assert ra is arr and rr == r0 + (l >> 1) >= 0
+                        seg = arr[r0 + (l >> 1), base + 16 * (l & 1):base + 16 * (l & 1) + 16]
+                        v = seg.view("<u4")
+                        q0 = 4 * (l & 1)
+                        for c in range(4):
+                            tile[q0 + c][r] = int(v[c])
+                            stores[c].append((q0 + c) * SHA512_TILE_STRIDE + r)
+                    for st in stores:  # each of the four STS.32 of a row group
+                        assert_conflict_free(st)
+            else:  # thread l: its lane's byte of row r into byte l % 4 of tile[l // 4][r]
+                for r in range(SHA512_BLOCK_ROWS):
+                    if row0 + r >= len_max:
+                        continue
+                    arr, rr = row(row0 + r)
+                    assert_conflict_free(sorted({q * SHA512_TILE_STRIDE + r for q in range(8)}))
+                    for l in range(LANES):
+                        q, b = l >> 2, l & 3
+                        byte = int(arr[rr, lane_of(l)])
+                        tile[q][r] = (tile[q][r] & ~(0xFF << (8 * b))) | (byte << (8 * b))
+            for t in range(16):  # the 8 quads' two LDS.128 of word t
+                for h in (0, 4):
+                    assert_conflict_free([q * SHA512_TILE_STRIDE + 8 * t + h + c
+                                          for q in range(8) for c in range(4)])
+            for l in range(LANES):
+                n, q = ln[l], l >> 2
+                x = [(gather_be(tile[q][8 * t:8 * t + 4], sel_of(l)) << 32)
+                     | gather_be(tile[q][8 * t + 4:8 * t + 8], sel_of(l)) for t in range(16)]
+                rem = n - row0
+                tb, ob = rem >> 3, rem & 7
+                keep = 0 if ob == 0 else (M64 << (64 - 8 * ob)) & M64
+                pad = 0x80 << (56 - 8 * ob)
+                w = [x[t] if t < tb else ((x[t] & keep) | pad if t == tb else 0)
+                     for t in range(16)]
+                if blk + 1 == nb[l]:
+                    w[15] = n * 8
+                if blk < nb[l] and base + l < bsz:
+                    out[(blk, base + l)] = w
+    return out
+
+
+def blake3_model(msg: np.ndarray, lens: np.ndarray, wide: bool, rng) -> dict:
+    """{(block, lane): (16 words, block_len, flags)} for each lane's own
+    blocks, as K16 builds them: a warp of 32 lanes loads K14's row segments
+    (a half block its first 16 lanes') into the tile and reads little-endian
+    words, or (narrow) packs each lane's own bytes; bytes at or past the
+    length are zeroed by mask."""
+    bsz = msg.shape[1]
+    out = {}
+    for base in range(0, bsz, LANES):
+        lane_of, ln = block_lanes(msg, lens, base)
+        fb = [(n - 1) // 64 if n else 0 for n in ln]
+        nb_max, len_max = max(fb) + 1, max(ln)
+        tile = rng.integers(0, 1 << 32, (8, TILE64_STRIDE), dtype=np.uint64)
+        for bi in range(nb_max):
+            row0 = bi * B3_BLOCK_ROWS
+            if wide:
+                fill_tile64(tile, msg, base, row0, len_max)
+                for t in range(16):
+                    assert_conflict_free([q * TILE64_STRIDE + 4 * t + c
+                                          for q in range(8) for c in range(4)])
+            for l in range(LANES):
+                n, q = ln[l], l >> 2
+                if wide:
+                    x = [gather_le([int(v) for v in tile[q, 4 * t:4 * t + 4]], sel_of(l))
+                         for t in range(16)]
+                else:
+                    raw = raw_bytes(msg, lane_of(l), range(row0, row0 + 64), len_max, rng)
+                    x = [pack_le(raw[4 * t:4 * t + 4]) for t in range(16)]
+                rem = n - row0
+                tb, ob = rem >> 2, rem & 3
+                keep = (1 << (8 * ob)) - 1
+                w = [x[t] if t < tb else (x[t] & keep if t == tb else 0) for t in range(16)]
+                if bi <= fb[l] and base + l < bsz:
+                    last = bi == fb[l]
+                    flags = (jb3.CHUNK_START if bi == 0 else 0) | (
+                        jb3.CHUNK_END | jb3.ROOT if last else 0)
+                    out[(bi, base + l)] = (w, n - row0 if last else 64, flags)
     return out
 
 
@@ -316,6 +465,91 @@ def test_keccak_tile_words_reach_the_jax_digest(bsz, wide):
     digest = np.stack([(words >> (8 * k)) & 0xFF for k in range(4)], 1).reshape(32, bsz)
     want = np.asarray(jkk.keccak256_msg(msg.astype(np.int32), lens, max_len))
     assert (digest.astype(np.int32) == want).all()
+
+
+SHA512_EDGES = [0, 1, 111, 112, 127, 128, 129, 239, 240, 1295, 1296]
+# K10's message lengths: R || A || msg is 64 bytes longer, so these put
+# it on the same pad edges; -1 and max + 1 are clamped by the kernel
+K10_EDGES = [0, 1, 47, 48, 63, 64, 65, 175, 176, 1231, 1232, -1, 1233]
+BLAKE3_EDGES = [0, 1, 63, 64, 65, 127, 128, 129, 1023, 1024]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sha512_pad(max_len):
+    return jax.jit(lambda m, ln: jsha512.sha512_pad(m, ln, max_len))
+
+
+def assert_sha512_words(got, msg, lens, max_len):
+    """got (the model's words) equals the JAX sha512_pad's blocks, every
+    block of every lane up to its final one."""
+    hi, lo, final_block = _jax_sha512_pad(max_len)(jnp.asarray(msg, jnp.int32),
+                                                   jnp.asarray(lens, jnp.int32))
+    hi, lo, final_block = np.asarray(hi), np.asarray(lo), np.asarray(final_block)
+    assert len(got) == int((final_block + 1).sum())
+    for (blk, lane), w in got.items():
+        assert blk <= final_block[lane]
+        want = [(int(h) << 32) | int(x) for h, x in zip(hi[blk, :, lane], lo[blk, :, lane])]
+        assert w == want, (blk, lane, int(lens[lane]))
+
+
+@pytest.mark.parametrize("bsz,wide", LAYOUTS)
+def test_sha512_warp_words_for_k3_equal_jax_sha512_pad(bsz, wide):
+    """K3's source (one buffer): the message warp's words equal sha512_pad's
+    at every SHA-512 pad edge up to max_len 1,296 (phase 4's), lengths out of
+    range hashed as the kernel clamps them (empty)."""
+    max_len = 1296
+    rng, msg, lens = seeded_batch(1600 + bsz, bsz, max_len, SHA512_EDGES[:-1])
+    lens[rng.choice(bsz, 2, replace=False)] = (-1, max_len + 1)
+    eff = np.where((lens >= 0) & (lens <= max_len), lens, 0)
+    got = sha512_model(k3_rows(msg), bsz, eff, wide, rng)
+    assert_sha512_words(got, msg, eff, max_len)
+
+
+@pytest.mark.parametrize("bsz,wide", LAYOUTS)
+def test_sha512_warp_words_for_k10_equal_jax_sha512_pad(bsz, wide):
+    """K10's source (R || A || msg read in place from sig, pubkey and msg):
+    the words equal sha512_pad's over the concatenated rows at lengths
+    clamped to [0, max_len] plus 64."""
+    max_len = 1232
+    rng, msg, lens = seeded_batch(1700 + bsz, bsz, max_len, K10_EDGES[:-1])
+    lens[rng.integers(0, bsz)] = max_len + 1
+    sig = rng.integers(0, 256, (64, bsz), dtype=np.uint8)
+    pk = rng.integers(0, 256, (32, bsz), dtype=np.uint8)
+    eff = np.clip(lens, 0, max_len) + 64
+    got = sha512_model(k10_rows(sig, pk, msg), bsz, eff, wide, rng)
+    ram = np.concatenate([sig[:32], pk, msg])
+    assert_sha512_words(got, ram, eff, max_len + 64)
+
+
+@pytest.mark.parametrize("bsz,wide", LAYOUTS)
+def test_blake3_tile_words_reach_the_jax_digest(bsz, wide):
+    """K16's words are the little-endian words of each lane's zero-padded
+    block, its final block's (words, block_len, flags) are the JAX host
+    root call's, and the blocks compressed by the JAX host compression give
+    the JAX blake3_msg digest, at every BLAKE3 block edge."""
+    max_len = 1024
+    rng, msg, lens = seeded_batch(1900 + bsz, bsz, max_len, BLAKE3_EDGES[:-1])
+    got = blake3_model(msg, lens, wide, rng)
+    final = np.where(lens > 0, (lens.astype(np.int64) - 1) // 64, 0)
+    assert len(got) == int((final + 1).sum())
+    cv = {lane: list(jb3.IV) for lane in range(bsz)}
+    for bi in range(int(final.max()) + 1):
+        for lane in range(bsz):
+            if (bi, lane) not in got:
+                continue
+            w, block_len, flags = got[(bi, lane)]
+            n = int(lens[lane])
+            blk = msg[64 * bi:min(64 * bi + 64, n), lane].tobytes()
+            assert w == [int(v) for v in jb3._words(blk)], (bi, n)
+            if bi == final[lane]:
+                rcv, rw, rlen, rflags = jb3._root_call(msg[:n, lane].tobytes())
+                assert (cv[lane], w, block_len, flags) == (
+                    [int(v) for v in rcv], [int(v) for v in rw], rlen, rflags), (bi, n)
+            cv[lane] = [int(v) for v in jb3._compress_host(cv[lane], w, 0, block_len, flags)]
+    digest = np.array([[(cv[lane][i // 4] >> (8 * (i % 4))) & 0xFF for lane in range(bsz)]
+                       for i in range(32)])
+    want = np.asarray(jb3.blake3_msg(msg.astype(np.int32), lens, max_len))
+    assert (digest == want).all()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
