@@ -5,11 +5,14 @@ PyTorch version.
 
 (--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
 builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu,
-sha256_iter32.cu, sha256_msg.cu, keccak256_msg.cu, sha512_batch.cu and
-blake3_msg.cu, and phases 4, 6, 8, 12, 14, 18 and 19 time those K1, K3, K4,
-K6, K7, K9, K10, K11, K14, K16 and K17 beside this tree's, each after its
-outputs are checked equal: [K1-ab], [K3-ab], [K4-ab], [K6-ab], [K7-ab],
-[K9-ab], [K10-ab], [K11-ab], [K14-ab], [K16-ab], [K17-ab].)
+sha256_iter32.cu, sha256_msg.cu, keccak256_msg.cu, sha512_batch.cu,
+blake3_msg.cu and lthash_combine.cu (PARENT_KERNELS lists each library's
+C entry points and their arguments), and phases 4, 6, 8, 12, 14, 16, 18
+and 19 time those K1, K3, K4, K6, K7, K9, K10, K11, K13, K14, K15, K16 and
+K17 beside this tree's, each after its outputs are checked equal: [K1-ab],
+[K3-ab], [K4-ab], [K6-ab], [K7-ab], [K9-ab], [K10-ab], [K11-ab], [K13-ab]
+(the parent wrapper's whole device sequence: its zero fill, its kernel and
+its mask pass), [K14-ab], [K15-ab], [K16-ab], [K17-ab].)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -116,11 +119,14 @@ script or when a phase fails):
               through comb_slots=0, once with autotune_after=2 and once
               without: retunes >= 1, a smaller geometry, phase 13's counters
               and equal sorted frames, K1 once per batch
-  16. K13     lthash_combine at N = 2,048 and 65,536 seeded rows with
-              signs in {-1, 0, 1}: equal to its plain version, signed and
-              unsigned, and to the JAX seal's power-of-two padded rows;
-              timed beside its bound and one torch.sum over the pre-signed
-              int32 rows (the sign multiply left out of that call)
+  16. K13     lthash_combine at N = 1, 17, 1,040 (phase 17's seal), 2,048
+              and 65,536 seeded rows with signs in {-1, 0, 1}: equal to its
+              plain version, signed and unsigned, and to the JAX seal's
+              power-of-two padded rows; the last three timed beside their
+              bound and one torch.sum over the pre-signed int32 rows (the
+              sign multiply left out of that call); one call's device
+              kernels from a torch.profiler trace (K13 alone); with
+              --parent, [K13-ab] at N = 1,040, 2,048 and 65,536
   17. leader  build_leader_pipeline (benchg -> verify -> dedup -> pack ->
               bank x2 -> poh -> shred -> store) over 8,192 transfers (8
               payers, 1,024 destinations) at batch 1,024 and max_msg_len
@@ -145,7 +151,12 @@ script or when a phase fails):
               the plain version on 1,024; the same rows from an offset
               buffer (the narrow path: one byte a thread) and on 4,091
               lanes (not a multiple of 16) equal to it; K15 sha256_mix32 at
-              B = 4,096: equal to hashlib and the plain version; then the
+              B = 4,096: equal to hashlib and the plain version, and from
+              offset rows (the narrow path), at 4,091 lanes and at B =
+              65,536 equal to hashlib on every lane; timed at 4,096 (and
+              offset) and 65,536 beside its bound and a chain floor
+              estimate; with --parent, [K15-ab] at B = 4,096 and 65,536;
+              then the
               bmtree root build over phase 17's FEC sets, grouped by shape:
               one hash_leaves_batch per leaf size and one layers_batch per
               group on the card, every layer equal to the host tree, every
@@ -256,7 +267,11 @@ SPLIT = ("phase_validate", "phase_hash", "phase_dsm", "phase_compare")  # K9-K12
 SPLIT_LINES = (216, 229, 239, 245)  # their JAX phases in firedancer_tpu/ops/sigverify.py
 TUNE_BATCH, TUNE_AFTER = 2048, 2  # phase 15c: the untuned geometry and the evidence bar
 SPLIT_REPEAT_ROUNDS = 2  # phase 15: extra (split, fused) pipeline rounds
-K13_ROWS = (2048, 65536)  # phase 16: K13's row counts (a slot's few thousand; a large N)
+K13_ROWS = (1040, 2048, 65536)  # phase 16: K13 timed (phase 17's seal; a slot's few thousand; a large N)
+K13_CHECK_ROWS = (1, 17)  # phase 16: K13 checked only (one row; a ragged chunk)
+PARENT_K13_CHUNKS = (264, 16)  # the parent wrapper's K13 chunks: at most 264, 16 rows or more each
+K15_BATCHES = (4096, 65536)  # phase 18: K15 timed
+K15_CHAIN_DEPTH = 3  # dependent instructions a round on the chain: Sigma1 -> t1 -> e
 # phase 17: the leader pipeline's ingress, the lane-independent key set of
 # the JAX package's cross-lane drives (8 payers, 1,024 destinations); pack's
 # pool holds the whole stream (at the default 4,096, equal-priority
@@ -344,19 +359,26 @@ def probe_host_breakdown(fprobe, kbuild, x, y, dev) -> dict:
 
 
 # --parent DIR: the earlier checkout's kernels built beside this one's, with
-# their C entry points' argument types (pointers, then ints)
+# their C entry points' argument types before the device and the stream
+def _ptrs_then(n_ptrs: int, *ints: str) -> tuple:
+    return ("ptr",) * n_ptrs + ints
+
+
 PARENT_KERNELS = {
-    "verify": (("fd_verify_batch", 7, ("i64", "i32", "i64")),),
-    "verify_cached": (("fd_verify_cached", 9, ("i64", "i32", "i64")),),
-    "comb_fill": (("fd_comb_fill", 3, ("i64",)),),
-    "verify_split": (("fd_phase_validate", 6, ("i64", "i32")),
-                     ("fd_phase_hash", 5, ("i64", "i32")),
-                     ("fd_phase_dsm", 5, ("i64",))),
-    "sha256_iter32": (("fd_sha256_iter32", 2, ("i64", "i64")),),
-    "sha256_msg": (("fd_sha256_msg", 3, ("i64",)),),
-    "keccak256_msg": (("fd_keccak256_msg", 3, ("i64",)),),
-    "sha512_batch": (("fd_sha512_batch", 3, ("i64", "i32")),),
-    "blake3_msg": (("fd_blake3_msg", 3, ("i64",)),),
+    "verify": (("fd_verify_batch", _ptrs_then(7, "i64", "i32", "i64")),),
+    "verify_cached": (("fd_verify_cached", _ptrs_then(9, "i64", "i32", "i64")),),
+    "comb_fill": (("fd_comb_fill", _ptrs_then(3, "i64")),),
+    "verify_split": (("fd_phase_validate", _ptrs_then(6, "i64", "i32")),
+                     ("fd_phase_hash", _ptrs_then(5, "i64", "i32")),
+                     ("fd_phase_dsm", _ptrs_then(5, "i64"))),
+    "sha256_iter32": (("fd_sha256_iter32", _ptrs_then(2, "i64", "i64")),),
+    "sha256_msg": (("fd_sha256_msg", _ptrs_then(3, "i64")),
+                   ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
+    "keccak256_msg": (("fd_keccak256_msg", _ptrs_then(3, "i64")),),
+    "sha512_batch": (("fd_sha512_batch", _ptrs_then(3, "i64", "i32")),),
+    "blake3_msg": (("fd_blake3_msg", _ptrs_then(3, "i64")),),
+    # (values, signs, n, chunks, out): the out pointer after the ints
+    "lthash_combine": (("fd_lthash_combine", ("ptr", "ptr", "i64", "i64", "ptr")),),
 }
 
 
@@ -367,8 +389,8 @@ def parent_lib(name: str) -> str:
 
 def start_parent_build(kbuild, parent: str):
     """Start nvcc on another checkout's csrc/<name>.cu for each of
-    PARENT_KERNELS (older kernels with the same C entry points), one process
-    a source, with the flags kbuild uses, into build/parent_kernels/."""
+    PARENT_KERNELS (older kernels, with the C entry points listed there), one
+    process a source, with the flags kbuild uses, into build/parent_kernels/."""
     csrc = os.path.join(os.path.abspath(parent), "firedancer_tpu_torch", "csrc")
     os.makedirs(os.path.dirname(parent_lib("x")), exist_ok=True)
     procs = {}
@@ -386,25 +408,25 @@ def finish_parent_build(procs) -> dict:
     """{C symbol: the parent's entry point as a ctypes function}."""
     import ctypes
 
-    types = {"i32": ctypes.c_int, "i64": ctypes.c_int64}
+    types = {"ptr": ctypes.c_void_p, "i32": ctypes.c_int, "i64": ctypes.c_int64}
     fns = {}
     for name, (so, proc) in procs.items():
         out, _ = proc.communicate()
         sys.stderr.write(f"[parent] nvcc {name}.cu rc={proc.returncode}\n{out}")
         check(proc.returncode == 0, f"--parent: nvcc failed on the parent's {name}.cu")
         lib = ctypes.CDLL(so)
-        for symbol, n_ptrs, ints in PARENT_KERNELS[name]:
+        for symbol, args in PARENT_KERNELS[name]:
             fn = getattr(lib, symbol)
-            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [types[t] for t in ints]
-                           + [ctypes.c_int, ctypes.c_void_p])
+            fn.argtypes = [types[t] for t in args] + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fns[symbol] = fn
     return fns
 
 
 def parent_call(fn, dev, *args) -> None:
-    """One launch of a parent kernel on the current stream: args are the
-    pointers and ints, before the device index and the stream."""
+    """One launch of a parent kernel on the current stream: args are its
+    pointers and ints in PARENT_KERNELS' order, before the device index and
+    the stream."""
     rc = fn(*args, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     check(rc == 0, f"parent kernel launch: CUDA error {rc}")
 
@@ -643,6 +665,62 @@ def msg_ab(tag: str, parent_fn, change, batches, digest: int = 32,
     ab_times(tag, [(label, 20) for label in batches],
              {label: (lambda r=run: parent(*r)) for label, run in batches.items()},
              {label: (lambda r=run: change(*r)) for label, run in batches.items()})
+
+
+def k13_ab(parent_fn, flt, dev, runs) -> None:
+    """The parent checkout's K13 beside this one: the parent wrapper's whole
+    device sequence (the output's zero fill, its kernel, then the & 0xFFFF
+    pass) against this tree's one launch; sums equal, signed and unsigned,
+    at each N, then device-only times in turns; one [K13-ab] line.  runs:
+    {label: (rows, signs)}."""
+
+    def parent(v, s):
+        n = v.shape[0]
+        out = torch.zeros((flt.LEN_ELEMS,), dtype=torch.int32, device=dev)
+        parent_call(parent_fn, dev, v.data_ptr(), None if s is None else s.data_ptr(), n,
+                    max(1, min(PARENT_K13_CHUNKS[0], n // PARENT_K13_CHUNKS[1])), out.data_ptr())
+        return out & 0xFFFF
+
+    for label, (v, s) in runs.items():
+        check(torch.equal(parent(v, s), flt.combine_device(v, s))
+              and torch.equal(parent(v, None), flt.combine_device(v)),
+              f"parent K13 and K13 differ at {label}")
+    ab_times("K13-ab", [(label, 50) for label in runs],
+             {label: (lambda r=run: parent(*r)) for label, run in runs.items()},
+             {label: (lambda r=run: flt.combine_device(*r)) for label, run in runs.items()})
+
+
+def k15_ab(parent_fn, fsha256, dev, runs) -> None:
+    """The parent checkout's K15 beside this one: digests equal at each
+    batch, then device-only times in turns; one [K15-ab] line.  runs:
+    {label: (state, mixin)}."""
+
+    def parent(st, mx):
+        out = torch.empty_like(st)
+        parent_call(parent_fn, dev, st.data_ptr(), mx.data_ptr(), out.data_ptr(), st.shape[1])
+        return out
+
+    for label, run in runs.items():
+        check(torch.equal(parent(*run), fsha256.sha256_mix32(*run)),
+              f"parent K15 and K15 differ at {label}")
+    ab_times("K15-ab", [(label, 50) for label in runs],
+             {label: (lambda r=run: parent(*r)) for label, run in runs.items()},
+             {label: (lambda r=run: fsha256.sha256_mix32(*r)) for label, run in runs.items()})
+
+
+def device_kernels(fn) -> list[str] | None:
+    """The device kernels one call of fn launches, by name, from a
+    torch.profiler trace of that call; None if the trace holds no device
+    activity (the profiler does not reach the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
 
 
 def time_host_ms(fn) -> float:
@@ -1821,8 +1899,8 @@ def main() -> int:
 
     # -- 16. K13 lthash_combine alone ----------------------------------------------------------
     mark("16")
-    k13 = {}
-    for n16 in K13_ROWS:
+    k13, runs16 = {}, {}
+    for n16 in K13_CHECK_ROWS + K13_ROWS:
         rng = np.random.default_rng(16 + n16)
         v16 = torch.from_numpy(rng.integers(0, 1 << 16, (n16, flt.LEN_ELEMS), dtype=np.uint16)
                                .view(np.int16)).to(dev)
@@ -1840,6 +1918,11 @@ def main() -> int:
         check(torch.equal(flt.combine_device(v16), flt.combine_plain(v16, None)),
               f"K13 unsigned differs from its plain version at N = {n16}")
         check(kbuild.LAUNCHES["lthash_combine"] == 3, f"K13 launches {kbuild.LAUNCHES} != 3")
+        if n16 not in K13_ROWS:
+            log(f"[K13] lthash_combine N={n16}: equal to plain (signed, unsigned) and to the"
+                f" padded N={cap}")
+            continue
+        runs16[f"N={n16}"] = (v16, s16)
         signed16 = (v16.to(torch.int32) & 0xFFFF) * s16.to(torch.int32)[:, None]
         ms16 = time_ms(lambda: flt.combine_device(v16, s16), reps=50, hide_host=True)
         lib16 = time_ms(lambda: torch.sum(signed16, dim=0), reps=50, hide_host=True)
@@ -1852,6 +1935,14 @@ def main() -> int:
             f" torch.sum over pre-signed int32 {lib16 * 1e3:.2f} us (sign multiply not"
             f" included); plain {plain16 * 1e3:.2f} us")
     phase16_launches = kbuild.LAUNCHES["lthash_combine"]
+    # one call's device kernels, from a profiler trace: K13 alone, no fill or mask pass
+    names16 = device_kernels(lambda: flt.combine_device(*runs16[f"N={K13_ROWS[0]}"]))
+    check(names16 is None or (len(names16) == 1 and "lthash_combine" in names16[0]),
+          f"a K13 call launched {names16}, not K13 alone")
+    log(f"[K13] one call at N={K13_ROWS[0]} launches on the card (torch.profiler): "
+        + (", ".join(names16) if names16 else "not measured (the trace holds no device activity)"))
+    if PARENT:
+        k13_ab(parent_fns["fd_lthash_combine"], flt, dev, runs16)
 
     # -- 17. the leader pipeline at full width (main path) ------------------------------------
     mark("17")
@@ -1895,7 +1986,7 @@ def main() -> int:
     split17 = dict(pipe17.stage_s)
     txn17_s = landed17 / run17_s
     # upper estimate: each K1 launch a full batch's time, each K5 launch
-    # phase 9's 1,024-set encode, K13 phase 16's N = 2,048
+    # phase 9's 1,024-set encode, K13 phase 16's N = 1,040 (the seal's)
     busy17 = (launches17.get("verify_batch", 0) * ms1k + launches17.get("gf256_apply", 0) * ms9
               + k13[K13_ROWS[0]]["ms"]) / ((run17_s + seal17_s) * 1e3)
     log(f"[leader] {LEADER_TXNS} transfers (8 payers, {LEADER_DESTS} dests; pool signed in"
@@ -2046,23 +2137,53 @@ def main() -> int:
         f" rows) and {n14r} lanes equal; {ms14 * 1e3:.2f} us (narrow path {ms14n * 1e3:.2f} us;"
         f" bound {b14 * 1e3:.2f} us, {bby14}); plain {plain14:.1f} ms")
 
-    st15h, mx15h = (rng.integers(0, 256, (32, B14), dtype=np.uint8) for _ in range(2))
-    st15, mx15 = torch.from_numpy(st15h).to(dev), torch.from_numpy(mx15h).to(dev)
+    def mix32_hashlib(sth, mxh):
+        return np.stack([np.frombuffer(hashlib.sha256(sth[:, i].tobytes() + mxh[:, i].tobytes())
+                                       .digest(), np.uint8) for i in range(sth.shape[1])], -1)
+
+    runs15, want15 = {}, {}
+    for bsz in K15_BATCHES:
+        sth, mxh = (rng.integers(0, 256, (32, bsz), dtype=np.uint8) for _ in range(2))
+        runs15[bsz] = (torch.from_numpy(sth).to(dev), torch.from_numpy(mxh).to(dev))
+        want15[bsz] = mix32_hashlib(sth, mxh)
+    st15, mx15 = runs15[B14]
     kbuild.reset_launches()
     d15 = fsha256.sha256_mix32(st15, mx15)
     torch.cuda.synchronize()
     api15 = kbuild.LAUNCHES["sha256_mix32"]
-    want15 = np.stack([np.frombuffer(hashlib.sha256(st15h[:, i].tobytes() + mx15h[:, i].tobytes())
-                                     .digest(), np.uint8) for i in range(B14)], -1)
-    err15 = int(np.abs(d15.cpu().numpy().astype(np.int64) - want15).max())
+    err15 = int(np.abs(d15.cpu().numpy().astype(np.int64) - want15[B14]).max())
     check(err15 == 0, f"K15 differs from hashlib (max abs err {err15})")
     p15, plain15 = plain_run(lambda: fsha256.sha256_mix32_plain(st15, mx15))
     check(torch.equal(p15, d15), "K15 differs from its plain version")
-    ms15 = time_ms(lambda: fsha256.sha256_mix32(st15, mx15), reps=50, hide_host=True)
-    b15, bby15 = bound(B14 * (SHA256_OPS_PER_COMPRESSION + SHA256_OPS_PER_PAD_COMPRESSION),
-                       96 * B14)
-    log(f"[K15] sha256_mix32 B={B14}: equal to hashlib and plain on every lane;"
-        f" {ms15 * 1e3:.2f} us (bound {b15 * 1e3:.2f} us, {bby15}); plain {plain15:.1f} ms")
+    # the narrow path (state and mixin not 16-byte aligned), a ragged last
+    # block (4,091 lanes) and the large batch, each equal to hashlib on every lane
+    st15o, mx15o = offset_rows(st15), offset_rows(mx15)
+    n15r = B14 - 5
+    for label, (st_, mx_), want in (
+            ("offset rows", (st15o, mx15o), want15[B14]),
+            (f"{n15r} lanes", (st15[:, :n15r].contiguous(), mx15[:, :n15r].contiguous()),
+             want15[B14][:, :n15r]),
+            *((f"B={b}", runs15[b], want15[b]) for b in K15_BATCHES if b != B14)):
+        check(np.array_equal(fsha256.sha256_mix32(st_, mx_).cpu().numpy(), want),
+              f"K15 differs from hashlib at {label}")
+    ms15 = {b: time_ms(lambda r=runs15[b]: fsha256.sha256_mix32(*r), reps=50, hide_host=True)
+            for b in K15_BATCHES}
+    ms15n = time_ms(lambda: fsha256.sha256_mix32(st15o, mx15o), reps=50, hide_host=True)
+    b15 = {b: bound(b * (SHA256_OPS_PER_COMPRESSION + SHA256_OPS_PER_PAD_COMPRESSION), 96 * b)
+           for b in K15_BATCHES}
+    # the chain floor: 128 rounds (two compressions) of K15_CHAIN_DEPTH
+    # dependent instructions at DEP_CLOCKS each, an estimate
+    floor15 = 128 * K15_CHAIN_DEPTH * DEP_CLOCKS / (clk_mhz * 1e3)
+    log(f"[K15] sha256_mix32: equal to hashlib on every lane at B={B14} (and to plain), from"
+        f" offset rows (the narrow path), at {n15r} lanes and at B={K15_BATCHES[-1]};"
+        f" device only " + ", ".join(f"B={b} {ms15[b] * 1e3:.2f} us (bound {b15[b][0] * 1e3:.2f}"
+                                     f" us, {b15[b][1]})" for b in K15_BATCHES)
+        + f", offset rows at B={B14} {ms15n * 1e3:.2f} us; chain floor estimate"
+        f" {floor15 * 1e3:.2f} us (128 rounds x {K15_CHAIN_DEPTH} dependent instructions x"
+        f" {DEP_CLOCKS} clocks); plain {plain15:.1f} ms")
+    if PARENT:
+        k15_ab(parent_fns["fd_sha256_mix32"], fsha256, dev,
+               {f"B={b}": runs15[b] for b in K15_BATCHES})
 
     # the root build: phase 17's FEC sets grouped by shape; leaf i of tree j in
     # column i * T + j of each leaf size's byte rows (made on the host: set-up)
@@ -2281,8 +2402,8 @@ def main() -> int:
     for nm, src, line, err, ms_, plain_, (bms, bby), shp, path, path_n in (
             ("sha256_msg", "sha256_msg.cu", "sha256.py:122", err14, ms14, plain14, (b14, bby14),
              f"B={B14} max_len={ML14}", "bmtree root build (phase 18)", launches18["sha256_msg"]),
-            ("sha256_mix32", "sha256_msg.cu", "sha256.py:182", err15, ms15, plain15,
-             (b15, bby15), f"B={B14}", OPS_API, api15),
+            ("sha256_mix32", "sha256_msg.cu", "sha256.py:182", err15, ms15[B14], plain15,
+             b15[B14], f"B={B14}", OPS_API, api15),
             *((nm, f"{nm}.cu", line, h["err"], h["ms"], h["plain"], h["bound"], h["shape"],
                OPS_API, h["api"])
               for (nm, h), line in zip(hashes19.items(), ("blake3.py:150", "keccak256.py:148"))),
@@ -2298,6 +2419,9 @@ def main() -> int:
     by_name["chacha20_keystream"]["ms_zero_nonces"] = ms18z
     for nm, h in hashes19.items():
         by_name[nm].update(ms_narrow=h["ms_narrow"], ms_per_call=h["ms_per_call"])
+    by_name["sha256_mix32"].update(ms_narrow=ms15n, chain_floor_ms=floor15,
+                                   at_batch={str(b): dict(ms=ms15[b], bound_ms=b15[b][0])
+                                             for b in K15_BATCHES})
     by_name["sha256_msg"].update(root_build_ms=dev18, host_tree_ms=host18_ms, ms_narrow=ms14n,
                                  root_build_launches=per18, root_build_loss_ms=loss18)
 
@@ -2340,8 +2464,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's K1, K3, K4, K6, K7, K9-K11, K14, K16
-    # and K17 (a checkout of an earlier commit) and time them beside this
-    # tree's in phases 4, 6, 8, 12, 14, 18 and 19
+    # --parent DIR: also build DIR's K1, K3, K4, K6, K7, K9-K11 and K13-K17
+    # (a checkout of an earlier commit) and time them beside this tree's in
+    # phases 4, 6, 8, 12, 14, 16, 18 and 19
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

@@ -1,7 +1,6 @@
-// SHA-256's constants, one thread's compression and the 32-byte row
-// loads and stores, shared by K4 (csrc/sha256_iter32.cu) and K14/K15
-// (csrc/sha256_msg.cu).  The plain PyTorch twin is ops/sha256.py
-// (_compress).
+// SHA-256's constants and the 32-byte row loads and stores, shared by K4
+// (csrc/sha256_iter32.cu) and K14/K15 (csrc/sha256_msg.cu).  The plain
+// PyTorch twin is ops/sha256.py (_compress).
 #pragma once
 
 #include "fd_common.cuh"
@@ -27,41 +26,6 @@ __device__ __forceinline__ uint32_t rotr32(uint32_t x, int n) {
 __device__ __forceinline__ void sha256_init(uint32_t st[8]) {
   st[0] = 0x6A09E667u; st[1] = 0xBB67AE85u; st[2] = 0x3C6EF372u; st[3] = 0xA54FF53Au;
   st[4] = 0x510E527Fu; st[5] = 0x9B05688Cu; st[6] = 0x1F83D9ABu; st[7] = 0x5BE0CD19u;
-}
-
-// st <- compress(st, w); w (16 big-endian message words) is overwritten by
-// the rolling schedule.
-__device__ __forceinline__ void sha256_compress(uint32_t st[8], uint32_t w[16]) {
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int t = 0; t < 64; t++) {
-    uint32_t wt;
-    if (t < 16) {
-      wt = w[t];
-    } else {
-      const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-      const uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
-      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
-      w[t & 15] = wt;
-    }
-    const uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
-    const uint32_t ch = (e & f) ^ (~e & g);
-    const uint32_t t1 = h + S1 + ch + SHA256_K[t] + wt;
-    const uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
-    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + S0 + maj;
-  }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
 // 8 big-endian words from 32 byte rows of one lane.

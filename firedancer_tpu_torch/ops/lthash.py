@@ -9,7 +9,9 @@ u16 add, removal is subtract, so the accounts-delta hash is one signed sum
 over every changed account, in any order.
 
 `combine_device` is that sum over (N, 1024) rows in one launch of K13 on
-the card.  The rows travel as int16 tensors holding the u16 bit patterns
+the card, which writes the result itself: the sum across its blocks goes
+through a per-stream accumulator (zeroed once here and left zero by every
+launch), so no fill or mask pass runs beside it.  The rows travel as int16 tensors holding the u16 bit patterns
 (torch's uint16 supports few operations) and the signs as int8; the
 result is a (1024,) int32 tensor in [0, 65535], the JAX function's uint16
 values.
@@ -24,16 +26,19 @@ from ..utils import kbuild
 from ..utils.platform import resolve_device
 from . import blake3 as b3
 
-# fd_lthash_combine(values, signs, n, chunks, out, ...)
-_COMBINE = kbuild.bind("lthash_combine", "fd_lthash_combine", 0,
-                       (kbuild.PTR, kbuild.PTR, kbuild.I64, kbuild.I64, kbuild.PTR))
+# fd_lthash_combine(values, signs, scratch, out, n, chunks, ...)
+_COMBINE = kbuild.bind("lthash_combine", "fd_lthash_combine", 4, (kbuild.I64, kbuild.I64))
 
 LEN_BYTES = 2048
 LEN_ELEMS = 1024
-# K13's row chunks: about four blocks of each of the two lane halves per
-# SM of an H100 (132 SMs), and never fewer than 16 rows a chunk
-_MAX_CHUNKS = 264
-_MIN_ROWS_PER_CHUNK = 16
+# K13's row chunks, one 256-thread block each: up to four blocks an SM of
+# an H100 (132 SMs), and never fewer than 8 rows a chunk (one iteration of
+# the block's loads; the kernel rounds a chunk up to a multiple of 8)
+_MAX_CHUNKS = 528
+_MIN_ROWS_PER_CHUNK = 8
+# K13's scratch: 512 u64 lane-pair sums, each with its count of clusters
+_SCRATCH_WORDS = LEN_ELEMS // 2
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def lthash_of(msg: bytes) -> np.ndarray:
@@ -76,6 +81,23 @@ def _signs(signs, n: int, dev: torch.device) -> torch.Tensor | None:
     return s
 
 
+def chunks_of(n: int) -> int:
+    """The row chunks (blocks) K13 is asked for at N rows."""
+    return max(1, min(_MAX_CHUNKS, n // _MIN_ROWS_PER_CHUNK))
+
+
+def _scratch(dev: torch.device) -> torch.Tensor:
+    """K13's accumulator for dev's current stream: 512 u64 words, zeroed
+    once here; each launch leaves them zero, so every caller on the stream
+    may share them.  One per stream, so launches on two streams at once do
+    not."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    s = _SCRATCH.get(key)
+    if s is None:
+        s = _SCRATCH[key] = torch.zeros((_SCRATCH_WORDS,), dtype=torch.int64, device=dev)
+    return s
+
+
 def combine_plain(v: torch.Tensor, s: torch.Tensor | None) -> torch.Tensor:
     """The plain version: (N, 1024) int16 bit patterns, (N,) int8 signs or
     None -> (1024,) int32 in [0, 65535]."""
@@ -103,10 +125,11 @@ def combine_device(values, signs=None, *, device=None) -> torch.Tensor:
         return combine_plain(v, s)
     if v.device.type != "cuda":
         raise ValueError(f"lthash combine: unsupported device {v.device}")
-    out = torch.zeros((LEN_ELEMS,), dtype=torch.int32, device=v.device)
     if n == 0:
-        return out
-    chunks = max(1, min(_MAX_CHUNKS, n // _MIN_ROWS_PER_CHUNK))
-    _COMBINE(v.device, v.data_ptr(), s.data_ptr() if s is not None else None, n, chunks,
-             out.data_ptr())
-    return out & 0xFFFF
+        return torch.zeros((LEN_ELEMS,), dtype=torch.int32, device=v.device)
+    if v.data_ptr() % 16:  # the kernel reads 16-byte vectors
+        v = v.clone()
+    out = torch.empty((LEN_ELEMS,), dtype=torch.int32, device=v.device)
+    _COMBINE(v.device, v.data_ptr(), s.data_ptr() if s is not None else None,
+             _scratch(v.device).data_ptr(), out.data_ptr(), n, chunks_of(n))
+    return out

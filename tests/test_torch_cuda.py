@@ -477,10 +477,11 @@ def test_sha256_iter32_kernel_at_a_tick_equals_hashlib(dev):
         assert bytes(got[:, i]) == h
 
 
-@pytest.mark.parametrize("n", [1, 2048, 65536])
+@pytest.mark.parametrize("n", [1, 17, 1040, 2048, 65536])
 def test_lthash_combine_kernel_equals_plain(dev, n):
     """K13 against its plain version: signed rows, unsigned rows, and the
-    JAX seal's power-of-two padding (zero rows of sign 0)."""
+    JAX seal's power-of-two padding (zero rows of sign 0); N = 17 leaves a
+    ragged last chunk, 1,040 is the leader block's seal."""
     rng = np.random.default_rng(n)
     vals = rng.integers(0, 1 << 16, (n, flt.LEN_ELEMS), dtype=np.uint16)
     signs = rng.integers(-1, 2, n).astype(np.int8)
@@ -495,6 +496,51 @@ def test_lthash_combine_kernel_equals_plain(dev, n):
     assert torch.equal(flt.combine_device(vp, sp), got)
     assert kbuild.LAUNCHES["lthash_combine"] == 3
     assert got.dtype == torch.int32 and int(got.min()) >= 0 and int(got.max()) <= 0xFFFF
+
+
+def _lthash_rows(seed, n, dev):
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy(rng.integers(0, 1 << 16, (n, flt.LEN_ELEMS), dtype=np.uint16)
+                         .view(np.int16)).to(dev)
+    return v, torch.from_numpy(rng.integers(-1, 2, n).astype(np.int8)).to(dev)
+
+
+def test_lthash_combine_kernel_on_two_streams_at_once(dev):
+    """Two K13 calls queued on two streams with no synchronisation between
+    them: each stream has its own scratch, and both sums are right."""
+    runs = [_lthash_rows(70 + i, n, dev) for i, n in enumerate((65536, 40000))]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in runs]
+    got = []
+    for st, (v, s) in zip(streams, runs):
+        with torch.cuda.stream(st):
+            got.append(flt.combine_device(v, s))
+    torch.cuda.synchronize()
+    for g, (v, s) in zip(got, runs):
+        assert torch.equal(g, flt.combine_plain(v, s))
+    assert all((dev.index, st.cuda_stream) in flt._SCRATCH for st in streams)
+
+
+def test_lthash_combine_kernel_on_rows_not_16_byte_aligned(dev):
+    """Rows that start 2 bytes into their buffer: the wrapper copies them to
+    an aligned buffer for the kernel's 16-byte loads; the sum is right."""
+    v, s = _lthash_rows(90, 300, dev)
+    flat = torch.empty(v.numel() + 1, dtype=torch.int16, device=dev)
+    vo = flat[1:].view(v.shape)
+    vo.copy_(v)
+    assert vo.data_ptr() % 16 and torch.equal(flt.combine_device(vo, s), flt.combine_plain(v, s))
+
+
+@pytest.mark.parametrize("n", [1, 17, 2048])
+def test_lthash_combine_kernel_leaves_its_scratch_zero(dev, n):
+    """After a launch K13's accumulator and ticket are zero again, so a
+    second call on the same rows gives the same sum."""
+    v, s = _lthash_rows(80 + n, n, dev)
+    first = flt.combine_device(v, s)
+    torch.cuda.synchronize()
+    assert not flt._scratch(v.device).any()
+    assert torch.equal(flt.combine_device(v, s), first)
+    assert torch.equal(first, flt.combine_plain(v, s))
 
 
 def _msg_rows(msgs, max_len, dev):
@@ -630,6 +676,28 @@ def test_sha256_msg_kernel_wide_and_narrow_equal_plain_and_hashlib(dev, bsz, off
     gh = got.cpu().numpy()
     for i in range(bsz):
         assert gh[:, i].tobytes() == hashlib.sha256(mh[:lens[i], i].tobytes()).digest(), i
+
+
+@pytest.mark.parametrize("bsz,offset", [(1, 0), (15, 0), (16, 0), (48, 0), (1024, 0),
+                                        (4096, 0), (4096, 1), (4091, 0), (64, 8)])
+def test_sha256_mix32_kernel_wide_narrow_and_ragged_equal_plain_and_hashlib(dev, bsz, offset):
+    """K15 on K14's warp pair: whole and half 32-lane blocks of 16-byte
+    aligned rows (the wide path), state and mixin rows not 16-byte aligned
+    and batches not a multiple of 16 (the narrow path, a ragged last
+    block); equal to hashlib on every lane and to the plain version."""
+    from firedancer_tpu_torch.ops import sha256 as fsha256
+
+    rng = np.random.default_rng(1500 + bsz + offset)
+    sh, mh = (rng.integers(0, 256, (32, bsz), dtype=np.uint8) for _ in range(2))
+    st, mx = _offset_rows(sh, dev, offset), _offset_rows(mh, dev, offset)
+    got = fsha256.sha256_mix32(st, mx)
+    assert kbuild.LAUNCHES["sha256_mix32"] == 1
+    gh = got.cpu().numpy()
+    for i in range(bsz):
+        assert gh[:, i].tobytes() == hashlib.sha256(sh[:, i].tobytes() + mh[:, i].tobytes()).digest(), i
+    tail = slice(max(0, bsz - 512), bsz)
+    assert torch.equal(got[:, tail], fsha256.sha256_mix32_plain(st[:, tail].contiguous(),
+                                                                mx[:, tail].contiguous()))
 
 
 @pytest.mark.parametrize("bsz,offset", [(1, 0), (15, 0), (16, 0), (17, 0), (40, 0),

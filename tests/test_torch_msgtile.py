@@ -40,9 +40,20 @@ the bit length against firedancer_tpu/ops/sha512.py sha512_pad.  K16 keeps
 one message a thread and K14's tile (32 lanes, 64 rows, 68 words a quad),
 reads little-endian words (K17's selector) and zeroes the bytes past the
 length; the model's words and per-block (block_len, flags), compressed by
-the JAX package's host BLAKE3 compression, give the JAX blake3_msg digest."""
+the JAX package's host BLAKE3 compression, give the JAX blake3_msg digest.
+
+K15 (csrc/sha256_msg.cu sha256_mix32_kernel) runs K14's message warp on a
+second row source, Sha256RowsMix: rows 0-31 from state, 32-63 from mixin,
+each 16-row group in one array, every length 64.  The model's words equal
+the JAX _bytes_to_words of state || mixin on both paths; the pad block's
+folded W + K literals (K15_PAD_WK) equal the schedule of [0x80000000, 0 x
+14, 512] plus K, and the rounds on them after the JAX block 1 give the JAX
+sha256_mix32 digest; the digest rows the wide path stores through the tile
+(mix32_store_rows) are the digests' bytes, with conflict-free banks."""
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -563,6 +574,142 @@ def test_keccak_f_on_two_threads_equals_jax(seed):
     wlo, whi = jkk._keccak_f(list(jnp.asarray(lo)), list(jnp.asarray(hi)))
     assert (glo == np.stack([np.asarray(x) for x in wlo])).all()
     assert (ghi == np.stack([np.asarray(x) for x in whi])).all()
+
+
+SHA256_MSG_CU = os.path.join(os.path.dirname(__file__), "..", "firedancer_tpu_torch", "csrc",
+                             "sha256_msg.cu")
+
+
+def mix_rows(state, mixin):
+    """Sha256RowsMix: row(p) and the wide path's group(i) (row 16 i of the
+    one SHA block), each as (array, row); groups 0, 1 in state, 2, 3 in mixin."""
+    return ((lambda p: (state, p) if p < 32 else (mixin, p - 32)),
+            (lambda i: (state, 16 * i) if i < 2 else (mixin, 16 * (i - 2))))
+
+
+def mix32_model(state: np.ndarray, mixin: np.ndarray, wide: bool) -> dict:
+    """{lane: 16 words} of K15's one data block as the message warp builds
+    them from Sha256RowsMix (len = len_max = 64: no pad word), 32 lanes a
+    block; a half block's (B an odd multiple of 16) second 16 lanes are
+    past the batch.  Arrays are indexed as the kernel's pointers are."""
+    row, group = mix_rows(state, mixin)
+    bsz = state.shape[1]
+    out = {}
+    for base in range(0, bsz, LANES):
+        tile = np.zeros((8, TILE64_STRIDE), dtype=np.uint64)
+        if wide:
+            for i in range(4):
+                stores = [[] for _ in range(4)]
+                for l in range(LANES):
+                    if base + 16 * (l & 1) + 16 > bsz:  # seg_in
+                        continue
+                    arr, r0 = group(i)
+                    r = 16 * i + (l >> 1)
+                    assert row(r) == (arr, r0 + (l >> 1))  # the group holds the row
+                    seg = arr[r0 + (l >> 1), base + 16 * (l & 1):base + 16 * (l & 1) + 16]
+                    v = seg.view("<u4")
+                    for c in range(4):
+                        tile[4 * (l & 1) + c, r] = v[c]
+                        stores[c].append((4 * (l & 1) + c) * TILE64_STRIDE + r)
+                for st in stores:
+                    assert_conflict_free(st)
+        for l in range(LANES):
+            if base + l >= bsz:
+                continue
+            if wide:
+                x = [gather_be([int(v) for v in tile[l >> 2, 4 * t:4 * t + 4]], sel_of(l))
+                     for t in range(16)]
+            else:
+                raw = [int(arr[r, base + l]) for arr, r in (row(p) for p in range(64))]
+                x = [pack_be(raw[4 * t:4 * t + 4]) for t in range(16)]
+            out[base + l] = x
+    return out
+
+
+@pytest.mark.parametrize("bsz,wide", [(64, True), (48, True), (37, False), (20, False)])
+def test_mix32_rows_equal_jax_bytes_to_words(bsz, wide):
+    rng = np.random.default_rng(1500 + bsz)
+    state, mixin = (rng.integers(0, 256, (32, bsz), dtype=np.uint8) for _ in range(2))
+    got = mix32_model(state, mixin, wide)
+    want = np.concatenate([np.asarray(jsha256._bytes_to_words(jnp.asarray(state))),
+                           np.asarray(jsha256._bytes_to_words(jnp.asarray(mixin)))])
+    assert sorted(got) == list(range(bsz))
+    for lane, w in got.items():
+        assert w == [int(v) for v in want[:, lane]], lane
+
+
+def test_mix32_pad_block_literals_are_its_schedule_plus_k():
+    src = open(SHA256_MSG_CU).read()
+    body = re.search(r"#define K15_PAD_WK \{(.*?)\}", src, re.S).group(1)
+    lit = [int(x, 16) for x in re.findall(r"0x([0-9A-F]{8})u", body)]
+    m = 0xFFFFFFFF
+    rotr = lambda x, n: ((x >> n) | (x << (32 - n))) & m  # noqa: E731
+    w = [0x80000000] + [0] * 14 + [512]
+    for t in range(16, 64):
+        s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
+        s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & m)
+    assert lit == [(x + int(k)) & m for x, k in zip(w, jsha256._K)]
+    # the round warp's block 2 (msg_round on the literals, then the
+    # feed-forward) after the JAX block 1 gives the JAX sha256_mix32 digest
+    rng = np.random.default_rng(1501)
+    state, mixin = (rng.integers(0, 256, (32, 3), dtype=np.uint8) for _ in range(2))
+    w0 = jnp.concatenate([jsha256._bytes_to_words(jnp.asarray(state)),
+                          jsha256._bytes_to_words(jnp.asarray(mixin))])
+    iv = jnp.broadcast_to(jnp.asarray(jsha256._IV)[:, None], (8, 3))
+    s1 = np.asarray(jsha256._compress_block(iv, w0))
+    want = np.asarray(jsha256.sha256_mix32(jnp.asarray(state), jnp.asarray(mixin)))
+    for lane in range(3):
+        a, b, c, d, e, f, g, h = st = [int(x) for x in s1[:, lane]]
+        for x in lit:
+            hw = (h + x) & m
+            s_1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+            ch = (e & f) ^ (~e & m & g)
+            s_0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
+            maj = (a & b) ^ (a & c) ^ (b & c)
+            h, g, f, e, d, c, b, a = (g, f, e, (d + hw + s_1 + ch) & m, c, b, a,
+                                      (hw + s_1 + ch + s_0 + maj) & m)
+        digest = b"".join(((x + y) & m).to_bytes(4, "big")
+                          for x, y in zip(st, (a, b, c, d, e, f, g, h)))
+        assert digest == bytes(want[:, lane].astype(np.uint8)), lane
+
+
+def mix32_store_model(st: np.ndarray, bsz: int, base: int) -> dict:
+    """mix32_store_rows: thread l's 8 digest words into tile[t][l], then row
+    l (byte l % 4, big-endian, of word l / 4 of each lane) gathered by one
+    LDS.128 and three PRMT a quad, stored as two uint4 (each if its 16 lanes
+    lie in the batch).  st: (8, 32) words of the block's lanes ->
+    {(row, lane): byte}; checks the banks of every store and LDS.128."""
+    tile = np.zeros((8, TILE64_STRIDE), dtype=np.int64)
+    for t in range(8):
+        assert_conflict_free([t * TILE64_STRIDE + l for l in range(LANES)])
+        tile[t, :LANES] = st[t]
+    out = {}
+    for j in range(8):  # LDS.128 of word 4j .. 4j + 3 of row l / 4: 8 threads a phase
+        for ph in range(4):
+            assert_conflict_free(sorted({(l >> 2) * TILE64_STRIDE + 4 * j + c
+                                         for l in range(8 * ph, 8 * ph + 8) for c in range(4)}))
+    for l in range(LANES):
+        sel = sel_of(3 - (l & 3))
+        w = [gather_le([int(v) for v in tile[l >> 2, 4 * j:4 * j + 4]], sel) for j in range(8)]
+        for h in range(2):
+            if base + 16 * h + 16 <= bsz:
+                for j in range(4 * h, 4 * h + 4):
+                    for b in range(4):
+                        out[(l, base + 4 * j + b)] = (w[j] >> (8 * b)) & 0xFF
+    return out
+
+
+@pytest.mark.parametrize("bsz,base", [(64, 32), (48, 32), (32, 0)])
+def test_mix32_tile_store_rows_are_the_digest_bytes(bsz, base):
+    rng = np.random.default_rng(1600 + bsz + base)
+    st = rng.integers(0, 1 << 32, (8, LANES), dtype=np.uint64)
+    got = mix32_store_model(st, bsz, base)
+    lanes = range(base, min(bsz, base + LANES))
+    assert sorted({lane for _, lane in got}) == list(lanes)
+    for lane in lanes:
+        digest = b"".join(int(w).to_bytes(4, "big") for w in st[:, lane - base])
+        assert bytes(got[(r, lane)] for r in range(32)) == digest, lane
 
 
 @pytest.mark.parametrize("l", [0, 1, 2, 3, 17, 30])
