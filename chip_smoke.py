@@ -12,7 +12,12 @@ and 19 time those K1, K3, K4, K6, K7, K9, K10, K11, K13, K14, K15, K16 and
 K17 beside this tree's, each after its outputs are checked equal: [K1-ab],
 [K3-ab], [K4-ab], [K6-ab], [K7-ab], [K9-ab], [K10-ab], [K11-ab], [K13-ab]
 (the parent wrapper's whole device sequence: its zero fill, its kernel and
-its mask pass), [K14-ab], [K15-ab], [K16-ab], [K17-ab].)
+its mask pass), [K14-ab], [K15-ab], [K16-ab], [K17-ab].  It also builds
+this tree's lthash_combine.cu and sha256_msg.cu again with one knob set at
+compile time (KNOB_BUILDS), and phases 16 and 18 time each knob's values in
+turns after checking their outputs equal: [K13-knobs] (clusters of 4, 8
+and 16 blocks; at its own size, the chunk rules of K13_CHUNK_RULES) and
+[K15-knobs] (one warp pair a block against four, at K15_KNOB_BATCHES).)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -125,8 +130,9 @@ script or when a phase fails):
               power-of-two padded rows; the last three timed beside their
               bound and one torch.sum over the pre-signed int32 rows (the
               sign multiply left out of that call); one call's device
-              kernels from a torch.profiler trace (K13 alone); with
-              --parent, [K13-ab] at N = 1,040, 2,048 and 65,536
+              kernels from a torch.profiler trace (K13 alone; an empty
+              trace fails too); with --parent, [K13-ab] and [K13-knobs] at
+              N = 1,040, 2,048 and 65,536
   17. leader  build_leader_pipeline (benchg -> verify -> dedup -> pack ->
               bank x2 -> poh -> shred -> store) over 8,192 transfers (8
               payers, 1,024 destinations) at batch 1,024 and max_msg_len
@@ -152,11 +158,13 @@ script or when a phase fails):
               buffer (the narrow path: one byte a thread) and on 4,091
               lanes (not a multiple of 16) equal to it; K15 sha256_mix32 at
               B = 4,096: equal to hashlib and the plain version, and from
-              offset rows (the narrow path), at 4,091 lanes and at B =
-              65,536 equal to hashlib on every lane; timed at 4,096 (and
+              offset rows (the narrow path), at 4,091 lanes, at B =
+              65,536 (four warp pairs a block; wide and offset rows) and
+              at B = 8,464 (a last block of four pairs holding one in the
+              batch) equal to hashlib on every lane; timed at 4,096 (and
               offset) and 65,536 beside its bound and a chain floor
-              estimate; with --parent, [K15-ab] at B = 4,096 and 65,536;
-              then the
+              estimate (in the log line only); with --parent, [K15-ab] at
+              B = 4,096 and 65,536 and [K15-knobs]; then the
               bmtree root build over phase 17's FEC sets, grouped by shape:
               one hash_leaves_batch per leaf size and one layers_batch per
               group on the card, every layer equal to the host tree, every
@@ -187,6 +195,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -271,6 +280,9 @@ K13_ROWS = (1040, 2048, 65536)  # phase 16: K13 timed (phase 17's seal; a slot's
 K13_CHECK_ROWS = (1, 17)  # phase 16: K13 checked only (one row; a ragged chunk)
 PARENT_K13_CHUNKS = (264, 16)  # the parent wrapper's K13 chunks: at most 264, 16 rows or more each
 K15_BATCHES = (4096, 65536)  # phase 18: K15 timed
+# phase 18: K15 checked only: on 132 SMs, 265 warp pairs in blocks of four,
+# the last block's pairs 1-3 past the batch
+K15_CHECK_BATCHES = (8464,)
 K15_CHAIN_DEPTH = 3  # dependent instructions a round on the chain: Sigma1 -> t1 -> e
 # phase 17: the leader pipeline's ingress, the lane-independent key set of
 # the JAX package's cross-lane drives (8 payers, 1,024 destinations); pack's
@@ -382,6 +394,26 @@ PARENT_KERNELS = {
 }
 
 
+# --parent also builds this tree's K13 and K15 again, each with one knob set
+# at compile time, and phases 16 and 18 time every value of the knob in
+# turns ([K13-knobs], [K15-knobs]): {build: (source, define, C entry point)}
+KNOB_BUILDS = {
+    "lthash_cluster4": ("lthash_combine", "-DLT_CLUSTER=4",
+                        ("fd_lthash_combine", _ptrs_then(4, "i64", "i64"))),
+    "lthash_cluster8": ("lthash_combine", "-DLT_CLUSTER=8",
+                        ("fd_lthash_combine", _ptrs_then(4, "i64", "i64"))),
+    "lthash_cluster16": ("lthash_combine", "-DLT_CLUSTER=16",
+                         ("fd_lthash_combine", _ptrs_then(4, "i64", "i64"))),
+    "mix32_pairs1": ("sha256_msg", "-DMIX32_GROUPS=1", ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
+    "mix32_pairs4": ("sha256_msg", "-DMIX32_GROUPS=4", ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
+}
+# [K13-knobs]: K13's chunk rule (rows a chunk at least, chunks at most)
+K13_CHUNK_RULES = ((8, 528), (16, 528), (8, 264))
+# [K15-knobs]: one warp pair's 32 lanes, the switch from one warp pair a block to four
+# (B > 8,448 on 132 SMs) on either side, and a large batch
+K15_KNOB_BATCHES = (32, 4096, 8192, 16384, 65536)
+
+
 def parent_lib(name: str) -> str:
     return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "parent_kernels", f"lib{name}.so")
@@ -393,33 +425,37 @@ def start_parent_build(kbuild, parent: str):
     process a source, with the flags kbuild uses, into build/parent_kernels/."""
     csrc = os.path.join(os.path.abspath(parent), "firedancer_tpu_torch", "csrc")
     os.makedirs(os.path.dirname(parent_lib("x")), exist_ok=True)
+    jobs = {name: (csrc, name, (), PARENT_KERNELS[name]) for name in PARENT_KERNELS}
+    jobs.update({knob: (kbuild.CSRC_DIR, src, (define,), (entry,))
+                 for knob, (src, define, entry) in KNOB_BUILDS.items()})
     procs = {}
-    for name in PARENT_KERNELS:
-        src = os.path.join(csrc, f"{name}.cu")
+    for name, (src_dir, src_name, defines, entries) in jobs.items():
+        src = os.path.join(src_dir, f"{src_name}.cu")
         check(os.path.exists(src), f"--parent: no {src}")
         so = parent_lib(name)
-        cmd = [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", csrc, "-o", so, src]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
+        cmd = [kbuild._nvcc(), *kbuild.NVCC_FLAGS, *defines, "-I", src_dir, "-o", so, src]
+        procs[name] = (so, entries, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True))
     return procs
 
 
 def finish_parent_build(procs) -> dict:
-    """{C symbol: the parent's entry point as a ctypes function}."""
+    """{C symbol: the parent's entry point as a ctypes function}, and for
+    each knob build {build name: its entry point}."""
     import ctypes
 
     types = {"ptr": ctypes.c_void_p, "i32": ctypes.c_int, "i64": ctypes.c_int64}
     fns = {}
-    for name, (so, proc) in procs.items():
+    for name, (so, entries, proc) in procs.items():
         out, _ = proc.communicate()
-        sys.stderr.write(f"[parent] nvcc {name}.cu rc={proc.returncode}\n{out}")
-        check(proc.returncode == 0, f"--parent: nvcc failed on the parent's {name}.cu")
+        sys.stderr.write(f"[parent] nvcc {name} rc={proc.returncode}\n{out}")
+        check(proc.returncode == 0, f"--parent: nvcc failed on {name}")
         lib = ctypes.CDLL(so)
-        for symbol, args in PARENT_KERNELS[name]:
+        for symbol, args in entries:
             fn = getattr(lib, symbol)
             fn.argtypes = [types[t] for t in args] + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            fns[symbol] = fn
+            fns[name if name in KNOB_BUILDS else symbol] = fn
     return fns
 
 
@@ -706,6 +742,86 @@ def k15_ab(parent_fn, fsha256, dev, runs) -> None:
     ab_times("K15-ab", [(label, 50) for label in runs],
              {label: (lambda r=run: parent(*r)) for label, run in runs.items()},
              {label: (lambda r=run: fsha256.sha256_mix32(*r)) for label, run in runs.items()})
+
+
+def knob_times(tag: str, variants: dict, labels) -> None:
+    """Device-only times of each variant at each label, in turns (every
+    variant in order, then in reverse); one [tag] line.  variants: {name:
+    {label: a call}}."""
+    names = list(variants)
+    times = {}
+    for name in names + names[::-1]:
+        for label in labels:
+            times.setdefault((name, label), []).append(
+                time_ms(variants[name][label], reps=50, hide_host=True))
+    log(f"[{tag}] device-only us, two turns each (every variant in order, then in reverse): "
+        + "; ".join(f"{label}: " + ", ".join(
+            f"{name} {' / '.join(f'{t * 1e3:.2f}' for t in times[(name, label)])}"
+            for name in names) for label in labels))
+
+
+def k13_knobs(kbuild, fns, flt, dev, runs) -> None:
+    """This tree's K13 built with clusters of 4, 8 and 16 blocks, and at
+    its own cluster size with each chunk rule of K13_CHUNK_RULES: each
+    equal to the wrapper's sum at each N, twice (the scratch is left zero),
+    then device-only times in turns; one [K13-knobs] line.  runs: {label:
+    (rows, signs)}."""
+    check(K13_CHUNK_RULES[0] == (flt._MIN_ROWS_PER_CHUNK, flt._MAX_CHUNKS),
+          "K13_CHUNK_RULES[0] is not the wrapper's chunk rule")
+    with open(os.path.join(kbuild.CSRC_DIR, "lthash_combine.cu")) as f:
+        own = int(re.search(r"#define LT_CLUSTER (\d+)", f.read()).group(1))
+
+    def variant(fn, min_rows, max_chunks):
+        scratch = torch.zeros((flt.LEN_ELEMS // 2,), dtype=torch.int64, device=dev)
+
+        def call(v, s):
+            n = v.shape[0]
+            out = torch.empty((flt.LEN_ELEMS,), dtype=torch.int32, device=dev)
+            parent_call(fn, dev, v.data_ptr(), s.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                        n, max(1, min(max_chunks, n // min_rows)))
+            return out
+        return call
+
+    calls = {}
+    for cl in sorted((4, 8, 16), key=lambda c: c != own):
+        for mr, mc in K13_CHUNK_RULES if cl == own else K13_CHUNK_RULES[:1]:
+            calls[f"cluster {cl} >={mr} rows <={mc} chunks"] = variant(
+                fns[f"lthash_cluster{cl}"], mr, mc)
+    for name, call in calls.items():
+        for label, (v, s) in runs.items():
+            want = flt.combine_device(v, s)
+            check(torch.equal(call(v, s), want) and torch.equal(call(v, s), want),
+                  f"K13 with {name} differs from the wrapper's sum at {label}")
+    knob_times("K13-knobs", {name: {label: (lambda c=call, r=run: c(*r))
+                                    for label, run in runs.items()}
+                             for name, call in calls.items()}, list(runs))
+
+
+def k15_knobs(fns, fsha256, dev) -> None:
+    """This tree's K15 built with one warp pair a block and with four, at
+    each of K15_KNOB_BATCHES (seeded rows on the card): digests equal to
+    sha256_mix32's, then device-only times in turns; one [K15-knobs] line."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    runs = {f"B={b}": tuple(torch.randint(0, 256, (32, b), dtype=torch.uint8, device=dev,
+                                          generator=gen) for _ in range(2))
+            for b in K15_KNOB_BATCHES}
+
+    def variant(fn):
+        def call(st, mx):
+            out = torch.empty_like(st)
+            parent_call(fn, dev, st.data_ptr(), mx.data_ptr(), out.data_ptr(), st.shape[1])
+            return out
+        return call
+
+    calls = {"one pair a block": variant(fns["mix32_pairs1"]),
+             "four pairs a block": variant(fns["mix32_pairs4"])}
+    for name, call in calls.items():
+        for label, run in runs.items():
+            check(torch.equal(call(*run), fsha256.sha256_mix32(*run)),
+                  f"K15 with {name} differs from sha256_mix32 at {label}")
+    knob_times("K15-knobs", {name: {label: (lambda c=call, r=run: c(*r))
+                                    for label, run in runs.items()}
+                             for name, call in calls.items()}, list(runs))
 
 
 def device_kernels(fn) -> list[str] | None:
@@ -1937,12 +2053,14 @@ def main() -> int:
     phase16_launches = kbuild.LAUNCHES["lthash_combine"]
     # one call's device kernels, from a profiler trace: K13 alone, no fill or mask pass
     names16 = device_kernels(lambda: flt.combine_device(*runs16[f"N={K13_ROWS[0]}"]))
-    check(names16 is None or (len(names16) == 1 and "lthash_combine" in names16[0]),
+    check(names16 is not None, "the profiler's trace of a K13 call holds no device activity")
+    check(len(names16) == 1 and "lthash_combine" in names16[0],
           f"a K13 call launched {names16}, not K13 alone")
     log(f"[K13] one call at N={K13_ROWS[0]} launches on the card (torch.profiler): "
-        + (", ".join(names16) if names16 else "not measured (the trace holds no device activity)"))
+        + ", ".join(names16))
     if PARENT:
         k13_ab(parent_fns["fd_lthash_combine"], flt, dev, runs16)
+        k13_knobs(kbuild, parent_fns, flt, dev, runs16)
 
     # -- 17. the leader pipeline at full width (main path) ------------------------------------
     mark("17")
@@ -2142,7 +2260,7 @@ def main() -> int:
                                        .digest(), np.uint8) for i in range(sth.shape[1])], -1)
 
     runs15, want15 = {}, {}
-    for bsz in K15_BATCHES:
+    for bsz in K15_BATCHES + K15_CHECK_BATCHES:
         sth, mxh = (rng.integers(0, 256, (32, bsz), dtype=np.uint8) for _ in range(2))
         runs15[bsz] = (torch.from_numpy(sth).to(dev), torch.from_numpy(mxh).to(dev))
         want15[bsz] = mix32_hashlib(sth, mxh)
@@ -2156,14 +2274,18 @@ def main() -> int:
     p15, plain15 = plain_run(lambda: fsha256.sha256_mix32_plain(st15, mx15))
     check(torch.equal(p15, d15), "K15 differs from its plain version")
     # the narrow path (state and mixin not 16-byte aligned), a ragged last
-    # block (4,091 lanes) and the large batch, each equal to hashlib on every lane
+    # block (4,091 lanes), the large batch on both paths (four warp pairs a
+    # block) and a four-pair grid whose last block holds one pair in the
+    # batch, each equal to hashlib on every lane
     st15o, mx15o = offset_rows(st15), offset_rows(mx15)
+    big15 = K15_BATCHES[-1]
     n15r = B14 - 5
     for label, (st_, mx_), want in (
             ("offset rows", (st15o, mx15o), want15[B14]),
             (f"{n15r} lanes", (st15[:, :n15r].contiguous(), mx15[:, :n15r].contiguous()),
              want15[B14][:, :n15r]),
-            *((f"B={b}", runs15[b], want15[b]) for b in K15_BATCHES if b != B14)):
+            (f"offset rows at B={big15}", tuple(map(offset_rows, runs15[big15])), want15[big15]),
+            *((f"B={b}", runs15[b], want15[b]) for b in K15_BATCHES[1:] + K15_CHECK_BATCHES)):
         check(np.array_equal(fsha256.sha256_mix32(st_, mx_).cpu().numpy(), want),
               f"K15 differs from hashlib at {label}")
     ms15 = {b: time_ms(lambda r=runs15[b]: fsha256.sha256_mix32(*r), reps=50, hide_host=True)
@@ -2175,7 +2297,8 @@ def main() -> int:
     # dependent instructions at DEP_CLOCKS each, an estimate
     floor15 = 128 * K15_CHAIN_DEPTH * DEP_CLOCKS / (clk_mhz * 1e3)
     log(f"[K15] sha256_mix32: equal to hashlib on every lane at B={B14} (and to plain), from"
-        f" offset rows (the narrow path), at {n15r} lanes and at B={K15_BATCHES[-1]};"
+        f" offset rows (the narrow path), at {n15r} lanes, at B={big15} (wide and offset"
+        f" rows) and at B={', '.join(map(str, K15_CHECK_BATCHES))};"
         f" device only " + ", ".join(f"B={b} {ms15[b] * 1e3:.2f} us (bound {b15[b][0] * 1e3:.2f}"
                                      f" us, {b15[b][1]})" for b in K15_BATCHES)
         + f", offset rows at B={B14} {ms15n * 1e3:.2f} us; chain floor estimate"
@@ -2184,6 +2307,7 @@ def main() -> int:
     if PARENT:
         k15_ab(parent_fns["fd_sha256_mix32"], fsha256, dev,
                {f"B={b}": runs15[b] for b in K15_BATCHES})
+        k15_knobs(parent_fns, fsha256, dev)
 
     # the root build: phase 17's FEC sets grouped by shape; leaf i of tree j in
     # column i * T + j of each leaf size's byte rows (made on the host: set-up)
@@ -2419,7 +2543,7 @@ def main() -> int:
     by_name["chacha20_keystream"]["ms_zero_nonces"] = ms18z
     for nm, h in hashes19.items():
         by_name[nm].update(ms_narrow=h["ms_narrow"], ms_per_call=h["ms_per_call"])
-    by_name["sha256_mix32"].update(ms_narrow=ms15n, chain_floor_ms=floor15,
+    by_name["sha256_mix32"].update(ms_narrow=ms15n,
                                    at_batch={str(b): dict(ms=ms15[b], bound_ms=b15[b][0])
                                              for b in K15_BATCHES})
     by_name["sha256_msg"].update(root_build_ms=dev18, host_tree_ms=host18_ms, ms_narrow=ms14n,

@@ -23,13 +23,14 @@
 //     = 2^16 x the odd lane's sum mod 2^32, so (full - lo) >> 16 is the
 //     odd lane's sum mod 2^16, whatever the carries and the row order.
 //   - The sum across blocks, in the same launch.  Blocks run in clusters
-//     of 8: each block's two row parities meet in shared memory as 512
+//     of 4: each block's two row parities meet in shared memory as 512
 //     lane pairs (a u64: the even lane in bits 0-23, the odd in 24-47),
-//     and block r of a cluster adds words 64 r .. 64 r + 63 of its 8
+//     and block r of a cluster adds words 128 r .. 128 r + 127 of its 4
 //     blocks through distributed shared memory, so a cluster sends 512
-//     atomics, not 4,096.  With one global atomicAdd a block a word the
+//     atomics, not 2,048.  With one global atomicAdd a block a word the
 //     atomics to the same words serialize, and the kernel ran slower than
-//     a zero fill, a sum and a mask pass together (PERF.md section 5).
+//     a zero fill, a sum and a mask pass together; clusters of 4 ran a
+//     little faster than 8 or 16 on an H100 (PERF.md section 5).
 //   - Which cluster finishes a word: each cluster adds its lane pair,
 //     each lane reduced mod 2^16, plus 1 << 48 into the word of a
 //     per-stream accumulator with one atomicAdd that returns the old value.
@@ -52,7 +53,9 @@
 #define LT_THREADS (LT_VECS * LT_SLOTS)
 #define LT_UNROLL 4    // rows in flight a thread
 #define LT_STEP (LT_SLOTS * LT_UNROLL)  // rows a block reads an iteration; a chunk is a multiple
-#define LT_CLUSTER 8   // blocks a cluster
+#ifndef LT_CLUSTER  // a build may set 8 or 16 (chip_smoke.py --parent times them)
+#define LT_CLUSTER 4     // blocks a cluster
+#endif
 #define LT_CLUSTER_WORDS (LT_WORDS / LT_CLUSTER)  // words each block of a cluster adds
 #define LT_MAX_CLUSTERS 256  // lane sums below 2^24, cluster counts below 2^16
 #define LT_ODD_SHIFT 24      // the odd lane's field of a lane pair
@@ -120,7 +123,7 @@ lthash_combine_kernel(const uint4* __restrict__ values, const int8_t* __restrict
   const int w = cluster.block_rank() * LT_CLUSTER_WORDS + threadIdx.x;
   unsigned long long mine = 0;
   if (adder) {
-    unsigned long long sum = 0;  // each lane's field < 8 x 2^16: no carry between fields
+    unsigned long long sum = 0;  // each lane's field < LT_CLUSTER x 2^16 <= 2^20: no carry
 #pragma unroll
     for (int b = 0; b < LT_CLUSTER; b++) sum += *cluster.map_shared_rank(pair_s + w, b);
     mine = (sum & 0xFFFFull) | (((sum >> LT_ODD_SHIFT) & 0xFFFFull) << LT_ODD_SHIFT)
@@ -157,6 +160,14 @@ FD_EXPORT int fd_lthash_combine(const void* values, const void* signs, void* scr
   const int64_t blocks = ((n + rows - 1) / rows + LT_CLUSTER - 1) / LT_CLUSTER * LT_CLUSTER;
   const uint4* v = (const uint4*)values;
   unsigned long long* acc = (unsigned long long*)scratch;
+#if LT_CLUSTER > 8  // past the portable cluster size
+  rc = (int)cudaFuncSetAttribute(lthash_combine_kernel<true>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (!rc)
+    rc = (int)cudaFuncSetAttribute(lthash_combine_kernel<false>,
+                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc) return rc;
+#endif
   if (signs)
     lthash_combine_kernel<true><<<(unsigned)blocks, LT_THREADS, 0, (cudaStream_t)stream>>>(
         v, (const int8_t*)signs, n, rows, acc, (int2*)out);

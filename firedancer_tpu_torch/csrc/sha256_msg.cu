@@ -428,7 +428,13 @@ FD_EXPORT int fd_sha256_msg(const void* msg, const void* len, void* out, int64_t
 // schedulers of an SM, so with many one-pair blocks the round warps, which
 // issue about twice the message warps' instructions, crowd two of its four
 // schedulers, and the kernel ran slower than one lane a thread at B = 65,536
-// on an H100 (PERF.md section 5).
+// on an H100.  Four pairs a block put each round warp on its message warp's
+// scheduler, which costs at small batches, so those keep one pair
+// (chip_smoke.py --parent times both layouts: [K15-knobs], PERF.md
+// section 5).
+#ifndef MIX32_GROUPS  // 1 or 4 forces a layout
+#define MIX32_GROUPS 0
+#endif
 FD_EXPORT int fd_sha256_mix32(const void* state, const void* mixin, void* out, int64_t B,
                               int device, void* stream) {
   int rc = fd_set_device(device);
@@ -440,7 +446,7 @@ FD_EXPORT int fd_sha256_mix32(const void* state, const void* mixin, void* out, i
   const bool wide = B % 16 == 0 && (uintptr_t)state % 16 == 0 && (uintptr_t)mixin % 16 == 0
                     && (uintptr_t)out % 16 == 0;
   const int64_t pairs = (B + MSG_LANES - 1) / MSG_LANES;
-  const int groups = pairs > 2 * (int64_t)sms ? 4 : 1;
+  const int groups = MIX32_GROUPS ? MIX32_GROUPS : pairs > 2 * (int64_t)sms ? 4 : 1;
   const unsigned blocks = (unsigned)((pairs + groups - 1) / groups);
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t *st = (const uint8_t*)state, *mx = (const uint8_t*)mixin;

@@ -679,12 +679,16 @@ def test_sha256_msg_kernel_wide_and_narrow_equal_plain_and_hashlib(dev, bsz, off
 
 
 @pytest.mark.parametrize("bsz,offset", [(1, 0), (15, 0), (16, 0), (48, 0), (1024, 0),
-                                        (4096, 0), (4096, 1), (4091, 0), (64, 8)])
+                                        (4096, 0), (4096, 1), (4091, 0), (64, 8),
+                                        (65536, 1), (8464, 0), (8467, 0)])
 def test_sha256_mix32_kernel_wide_narrow_and_ragged_equal_plain_and_hashlib(dev, bsz, offset):
     """K15 on K14's warp pair: whole and half 32-lane blocks of 16-byte
     aligned rows (the wide path), state and mixin rows not 16-byte aligned
     and batches not a multiple of 16 (the narrow path, a ragged last
-    block); equal to hashlib on every lane and to the plain version."""
+    block); past two warp pairs an SM (B > 8,448 on 132 SMs) a block holds
+    four pairs: the narrow path at 65,536, and last blocks with pairs wholly
+    past the batch on both paths (8,464 and 8,467 lanes, 265 pairs); equal
+    to hashlib on every lane and to the plain version."""
     from firedancer_tpu_torch.ops import sha256 as fsha256
 
     rng = np.random.default_rng(1500 + bsz + offset)

@@ -11,6 +11,8 @@ against JAX's.  Inputs are made with numpy from a seed and handed to both
 packages."""
 
 import hashlib
+import os
+import re
 
 import numpy as np
 import pytest
@@ -81,21 +83,24 @@ def test_combine_tensor_inputs_and_empty():
         tlt.combine_device(vals, signs[:3], device="cpu")
 
 
-# csrc/lthash_combine.cu
+# csrc/lthash_combine.cu, its cluster size and most clusters read from the source
 LT_VECS, LT_SLOTS, LT_UNROLL = 128, 2, 4
 LT_STEP = LT_SLOTS * LT_UNROLL
-LT_CLUSTER, LT_MAX_CLUSTERS = 8, 256
+with open(os.path.join(kbuild.CSRC_DIR, "lthash_combine.cu")) as _f:
+    _LT_SRC = _f.read()
+LT_CLUSTER, LT_MAX_CLUSTERS = (int(re.search(rf"#define {name} (\d+)", _LT_SRC).group(1))
+                               for name in ("LT_CLUSTER", "LT_MAX_CLUSTERS"))
 LT_ODD_SHIFT, LT_COUNT_SHIFT = 24, 48
 
 
 def k13_model(vals: np.ndarray, signs, rng, chunks: int | None = None) -> np.ndarray:
     """(1024,) int32 as K13 computes it: fd_lthash_combine's rows a chunk
-    and blocks (whole clusters of 8) for the wrapper's chunks_of(n); each
+    and blocks (whole clusters) for the wrapper's chunks_of(n); each
     block's rows by parity (thread t % 128's 16-byte vector of rows r0 + t
     // 128 + 2 k: four in flight, then the tail), per-thread u32 sums full
     = sum s * word and lo = sum s * (word & 0xFFFF), the two parities added,
     each word's lanes (lo & 0xFFFF, (full - lo) >> 16) as the 24-bit fields
-    of a u64; a cluster's 8 blocks summed, each lane reduced mod 2^16, plus
+    of a u64; a cluster's blocks summed, each lane reduced mod 2^16, plus
     1 << 48; then, in an order drawn from rng for each word, the clusters'
     atomicAdds into the accumulator, the one that reads clusters - 1 in the
     count writing the word's lanes and storing 0.  Asserts that every row
@@ -187,8 +192,8 @@ def test_k13_model_equals_jax(n, mode):
 
 @pytest.mark.parametrize("n,chunks", [(4224, None), (16384, LT_CLUSTER * LT_MAX_CLUSTERS)])
 def test_k13_model_holds_its_fields_at_the_most_clusters(n, chunks):
-    """Rows of 0xFFFF at the wrapper's most chunks (528: 66 clusters) and at
-    the kernel's (2,048: 256 clusters): each lane's 24-bit field holds the
+    """Rows of 0xFFFF at the wrapper's most chunks (528: 132 clusters of 4)
+    and at the kernel's (1,024: 256 clusters): each lane's 24-bit field holds the
     clusters' sums only because each cluster reduces its lanes mod 2^16."""
     vals = np.full((n, tlt.LEN_ELEMS), 0xFFFF, dtype=np.uint16)
     vals[:, 1::2] = 0xFFFE
