@@ -6,18 +6,22 @@ PyTorch version.
 (--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
 builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu,
 sha256_iter32.cu, sha256_msg.cu, keccak256_msg.cu, sha512_batch.cu,
-blake3_msg.cu and lthash_combine.cu (PARENT_KERNELS lists each library's
-C entry points and their arguments), and phases 4, 6, 8, 12, 14, 16, 18
-and 19 time those K1, K3, K4, K6, K7, K9, K10, K11, K13, K14, K15, K16 and
-K17 beside this tree's, each after its outputs are checked equal: [K1-ab],
-[K3-ab], [K4-ab], [K6-ab], [K7-ab], [K9-ab], [K10-ab], [K11-ab], [K13-ab]
-(the parent wrapper's whole device sequence: its zero fill, its kernel and
-its mask pass), [K14-ab], [K15-ab], [K16-ab], [K17-ab].  It also builds
-this tree's lthash_combine.cu and sha256_msg.cu again with one knob set at
-compile time (KNOB_BUILDS), and phases 16 and 18 time each knob's values in
-turns after checking their outputs equal: [K13-knobs] (clusters of 4, 8
-and 16 blocks; at its own size, the chunk rules of K13_CHUNK_RULES) and
-[K15-knobs] (one warp pair a block against four, at K15_KNOB_BATCHES).)
+blake3_msg.cu, lthash_combine.cu, fe_mul_chain.cu and probe.cu
+(PARENT_KERNELS lists each library's C entry points and their arguments),
+and phases 2b, 3, 4, 6, 8, 12, 14, 16, 18 and 19 time those probe_conv,
+K2, K1, K3, K4, K6, K7, K9, K10, K11, K13, K14, K15, K16 and K17 beside
+this tree's, each after its outputs are checked equal: [probe_conv-ab],
+[K2-ab], [K1-ab], [K3-ab], [K4-ab], [K6-ab], [K7-ab], [K9-ab], [K10-ab],
+[K11-ab], [K13-ab], [K14-ab], [K15-ab], [K16-ab], [K17-ab].  It also
+builds this tree's fe_mul_chain.cu, lthash_combine.cu and sha256_msg.cu
+again with one knob set at compile time (KNOB_BUILDS), and phases 3, 16
+and 18 time each knob's values in turns after checking their outputs
+equal: [K2-knobs] (K2_KNOBS: every product IMAD.WIDE, every product
+mad.wide.s32, and this tree's DFMA split, all else equal), [K13-knobs]
+(clusters of 4, 8 and 16 blocks; at its own size, the chunk rules of
+K13_CHUNK_RULES) and [K15-knobs] (one warp pair a block against four, at
+K15_KNOB_BATCHES).  Phase 3 also prints the chain loop by opcode of the
+parent's K2 and of the knob builds.)
 
 Phases, in order; any failure ends the script with a nonzero exit and no
 result line (2 without a CUDA device, 1 without the package beside the
@@ -28,13 +32,24 @@ script or when a phase fails):
               is exact either way for 0/1 inputs; the script says so)
   2. build    nvcc builds csrc/*.cu (one process per source, in parallel)
   2b. probes  probe_add over (8, 128) int32 and probe_conv over (20, 512)
-              int32 x2 -> (39, 512): equal to the plain versions and Python ints;
-              probe_add and torch.add timed per call and device only, and
-              probe_add's host cost split into its pieces (checks,
-              allocation, pointers, stream lookup, the ctypes call, the
-              launch, the binder), 10,000 calls a piece
-  3. K2       fe_mul_chain at B = 16,384, k = 64: equal to the plain version
-              (canonical limbs) and to Python ints on sampled lanes
+              int32 x2 -> (39, 512): equal to the plain versions and Python
+              ints; probe_conv also at B = 16,384 and 65,536 on full int32
+              rows with the extremes (wraparound), equal to plain;
+              probe_add and torch.add timed per call and device only,
+              probe_conv device only at the three batches in turns with
+              them, and probe_add's host cost split into its pieces
+              (checks, allocation, pointers, stream lookup, the ctypes
+              call, the launch, the binder), 10,000 calls a piece; with
+              --parent, the parent's probe_conv at the three batches
+              (outputs equal, then times in turns): one [probe_conv-ab] line
+  3. K2       fe_mul_chain at B = 16,384, k = 64, its first 64 lanes at the
+              carried extremes: raw limbs equal to the plain version, equal
+              to Python ints on sampled lanes, and at B = 1,024 (the verify
+              batch) and 65,536 (four warps a scheduler); timed device only
+              at each; its chain loop by opcode from the SASS ([K2-sass]);
+              with --parent, the parent's K2 ([K2-ab]) and this tree's
+              built with each of K2_KNOBS ([K2-knobs]), limbs equal, then
+              times in turns
   4. K3       sha512_batch at B = 4,096, max_len 1,296, lengths across the
               padding boundaries: equal to hashlib and the plain version;
               the same rows from an offset buffer (the narrow path), 4,091
@@ -278,7 +293,7 @@ TUNE_BATCH, TUNE_AFTER = 2048, 2  # phase 15c: the untuned geometry and the evid
 SPLIT_REPEAT_ROUNDS = 2  # phase 15: extra (split, fused) pipeline rounds
 K13_ROWS = (1040, 2048, 65536)  # phase 16: K13 timed (phase 17's seal; a slot's few thousand; a large N)
 K13_CHECK_ROWS = (1, 17)  # phase 16: K13 checked only (one row; a ragged chunk)
-PARENT_K13_CHUNKS = (264, 16)  # the parent wrapper's K13 chunks: at most 264, 16 rows or more each
+PARENT_K13_CHUNKS = (528, 8)  # the parent wrapper's K13 chunks: at most 528, 8 rows or more each
 K15_BATCHES = (4096, 65536)  # phase 18: K15 timed
 # phase 18: K15 checked only: on 132 SMs, 265 warp pairs in blocks of four,
 # the last block's pairs 1-3 past the batch
@@ -389,8 +404,10 @@ PARENT_KERNELS = {
     "keccak256_msg": (("fd_keccak256_msg", _ptrs_then(3, "i64")),),
     "sha512_batch": (("fd_sha512_batch", _ptrs_then(3, "i64", "i32")),),
     "blake3_msg": (("fd_blake3_msg", _ptrs_then(3, "i64")),),
-    # (values, signs, n, chunks, out): the out pointer after the ints
-    "lthash_combine": (("fd_lthash_combine", ("ptr", "ptr", "i64", "i64", "ptr")),),
+    # (values, signs, scratch, out, n, chunks)
+    "lthash_combine": (("fd_lthash_combine", _ptrs_then(4, "i64", "i64")),),
+    "fe_mul_chain": (("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32")),),
+    "probe": (("fd_probe_conv", _ptrs_then(3, "i64")),),
 }
 
 
@@ -406,12 +423,30 @@ KNOB_BUILDS = {
                          ("fd_lthash_combine", _ptrs_then(4, "i64", "i64"))),
     "mix32_pairs1": ("sha256_msg", "-DMIX32_GROUPS=1", ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
     "mix32_pairs4": ("sha256_msg", "-DMIX32_GROUPS=4", ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
+    "fe_product_imad": ("fe_mul_chain", "-DK2_PRODUCT=0",
+                        ("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32"))),
+    "fe_product_madwide": ("fe_mul_chain", "-DK2_PRODUCT=1",
+                           ("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32"))),
+    "fe_product_dfma": ("fe_mul_chain", "-DK2_PRODUCT=2",
+                        ("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32"))),
 }
+# [K2-knobs]: K2's product forms, all else this tree's: {label: knob build}
+K2_KNOBS = {"every product IMAD.WIDE (C++, the parent's form)": "fe_product_imad",
+            "every product mad.wide.s32": "fe_product_madwide",
+            "DFMA below 2^255, IMAD.WIDE past it (this tree's)": "fe_product_dfma"}
 # [K13-knobs]: K13's chunk rule (rows a chunk at least, chunks at most)
 K13_CHUNK_RULES = ((8, 528), (16, 528), (8, 264))
 # [K15-knobs]: one warp pair's 32 lanes, the switch from one warp pair a block to four
 # (B > 8,448 on 132 SMs) on either side, and a large batch
 K15_KNOB_BATCHES = (32, 4096, 8192, 16384, 65536)
+# phase 3: K2's batches (a microbenchmark's 16,384, the verify batch, and
+# four warps a scheduler), and its extreme inputs: the carried bound
+# 1.1 * 2^(w - 1) of each limb width, floored
+K2_BATCHES = (16384, 1024, 65536)
+K2_CARRIED_MAX = tuple(int(1.1 * 2 ** (w - 1)) for w in (26, 25) * 5)
+# phase 2b: probe_conv's batches (the probe's own, K2's, one whose bytes
+# bound passes the launch floor)
+CONV_BATCHES = (512, 16384, 65536)
 
 
 def parent_lib(name: str) -> str:
@@ -704,18 +739,19 @@ def msg_ab(tag: str, parent_fn, change, batches, digest: int = 32,
 
 
 def k13_ab(parent_fn, flt, dev, runs) -> None:
-    """The parent checkout's K13 beside this one: the parent wrapper's whole
-    device sequence (the output's zero fill, its kernel, then the & 0xFFFF
-    pass) against this tree's one launch; sums equal, signed and unsigned,
-    at each N, then device-only times in turns; one [K13-ab] line.  runs:
-    {label: (rows, signs)}."""
+    """The parent checkout's K13 beside this one: its one launch with a
+    zeroed scratch of its own (which it leaves zero); sums equal, signed
+    and unsigned, at each N, then device-only times in turns; one [K13-ab]
+    line.  runs: {label: (rows, signs)}."""
+    scratch = torch.zeros((flt.LEN_ELEMS // 2,), dtype=torch.int64, device=dev)
 
     def parent(v, s):
         n = v.shape[0]
-        out = torch.zeros((flt.LEN_ELEMS,), dtype=torch.int32, device=dev)
-        parent_call(parent_fn, dev, v.data_ptr(), None if s is None else s.data_ptr(), n,
-                    max(1, min(PARENT_K13_CHUNKS[0], n // PARENT_K13_CHUNKS[1])), out.data_ptr())
-        return out & 0xFFFF
+        out = torch.empty((flt.LEN_ELEMS,), dtype=torch.int32, device=dev)
+        parent_call(parent_fn, dev, v.data_ptr(), None if s is None else s.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), n,
+                    max(1, min(PARENT_K13_CHUNKS[0], n // PARENT_K13_CHUNKS[1])))
+        return out
 
     for label, (v, s) in runs.items():
         check(torch.equal(parent(v, s), flt.combine_device(v, s))
@@ -822,6 +858,83 @@ def k15_knobs(fns, fsha256, dev) -> None:
     knob_times("K15-knobs", {name: {label: (lambda c=call, r=run: c(*r))
                                     for label, run in runs.items()}
                              for name, call in calls.items()}, list(runs))
+
+
+def conv_ab(parent_fn, fprobe, dev, runs) -> None:
+    """The parent checkout's probe_conv beside this one: outputs equal at
+    each batch, then device-only times in turns; one [probe_conv-ab] line.
+    runs: {batch: (a, b)}."""
+
+    def parent(a, b):
+        out = torch.empty((2 * fprobe.NLIMB - 1, a.shape[1]), dtype=torch.int32, device=dev)
+        parent_call(parent_fn, dev, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1])
+        return out
+
+    for bsz, run in runs.items():
+        check(torch.equal(parent(*run), fprobe.probe_conv(*run)),
+              f"parent probe_conv and probe_conv differ at B={bsz}")
+    ab_times("probe_conv-ab", [(f"B={bsz}", PROBE_REPS) for bsz in runs],
+             {f"B={bsz}": (lambda r=run: parent(*r)) for bsz, run in runs.items()},
+             {f"B={bsz}": (lambda r=run: fprobe.probe_conv(*r)) for bsz, run in runs.items()})
+
+
+def k2_call(fn, dev, x, y, k):
+    """One launch of a built fd_fe_mul_chain (the parent's or a knob build's)."""
+    xo, yo = torch.empty_like(x), torch.empty_like(y)
+    parent_call(fn, dev, x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
+                x.shape[1], k)
+    return xo, yo
+
+
+def k2_ab(parent_fn, fl, dev, runs, k) -> None:
+    """The parent checkout's K2 beside this one: raw limbs equal at each
+    batch, then device-only times in turns; one [K2-ab] line.  runs:
+    {batch: (x, y)}."""
+    for bsz, run in runs.items():
+        check(all(map(torch.equal, k2_call(parent_fn, dev, *run, k), fl.fe_mul_chain(*run, k))),
+              f"parent K2 and K2 differ at B={bsz}")
+    ab_times("K2-ab", [(f"B={bsz}", 50) for bsz in runs],
+             {f"B={bsz}": (lambda r=run: k2_call(parent_fn, dev, *r, k)) for bsz, run in runs.items()},
+             {f"B={bsz}": (lambda r=run: fl.fe_mul_chain(*r, k)) for bsz, run in runs.items()})
+
+
+def k2_knobs(fns, fl, dev, runs, k) -> None:
+    """This tree's K2 built with each product form of K2_KNOBS, all else
+    equal: raw limbs equal to fe_mul_chain's at each batch, then
+    device-only times in turns; one [K2-knobs] line."""
+    calls = {label: fns[build] for label, build in K2_KNOBS.items()}
+    for name, fn in calls.items():
+        for bsz, run in runs.items():
+            check(all(map(torch.equal, k2_call(fn, dev, *run, k), fl.fe_mul_chain(*run, k))),
+                  f"K2 with the {name} differs from fe_mul_chain at B={bsz}")
+    knob_times("K2-knobs", {name: {f"B={bsz}": (lambda f=fn, r=run: k2_call(f, dev, *r, k))
+                                   for bsz, run in runs.items()}
+                            for name, fn in calls.items()}, [f"B={bsz}" for bsz in runs])
+
+
+def k2_sass(fsass, kbuild, with_parent: bool) -> dict:
+    """K2's chain loops by opcode, with the stall clocks ptxas set
+    (utils/sass.py over cuobjdump -sass): this tree's build and, with
+    --parent, the parent's and the knob builds'.
+    One [K2-sass] line each; {build: loops}.  This tree's and the knob
+    builds' first loop is the chain's first two steps, one multiply an
+    iteration (every product IMAD.WIDE), their second the rest, two
+    multiplies an iteration; the parent's first loop runs four multiplies
+    an iteration (each fe_mul a CALL, counted into the loop)."""
+    libs = {"this tree": os.path.join(kbuild.build_dir(), "libfe_mul_chain.so")}
+    if with_parent:
+        libs["parent"] = parent_lib("fe_mul_chain")
+        libs.update({label: parent_lib(build) for label, build in K2_KNOBS.items()
+                     if build != "fe_product_dfma"})
+    out = {}
+    for who, so in libs.items():
+        out[who] = fsass.loops(fsass.dump(so), "fe_mul_chain_kernel")
+        log(f"[K2-sass] {who}: " + "; ".join(
+            f"loop {i}: {lp['n']} instructions ({lp['called']} called), chain {lp['depth']},"
+            f" {lp['clocks']} stall clocks: "
+            + ", ".join(f"{op} {c}" for op, c in lp["forms"].items())
+            for i, lp in enumerate(out[who])))
+    return out
 
 
 def device_kernels(fn) -> list[str] | None:
@@ -973,26 +1086,47 @@ def main() -> int:
                     for i in range(max(0, k - 19), min(k, 19) + 1)) for k in range(39)]
         check(convh[:, lane].tolist() == want, f"probe_conv lane {lane} != Python ints")
     check(torch.equal(xa + ya, got), "probe_add differs from torch.add")
+    # probe_conv at the probe's shape and at CONV_BATCHES: full int32 rows with
+    # the extremes on the first lanes (wrapping mod 2^32), equal to plain
+    conv_runs = {512: (ca, cb)}
+    for bsz in CONV_BATCHES[1:]:
+        ab = rng.integers(-2**31, 2**31, (2, fprobe.NLIMB, bsz), dtype=np.int64)
+        ab[:, :, :3] = np.array([2**31 - 1, -2**31, -2**31 + 1])
+        conv_runs[bsz] = tuple(torch.from_numpy(v.astype(np.int32)).to(dev) for v in ab)
+        check(torch.equal(fprobe.probe_conv(*conv_runs[bsz]),
+                          fprobe.probe_conv_plain(*conv_runs[bsz])),
+              f"probe_conv differs from its plain version at B={bsz}")
+    if parent_fns:
+        conv_ab(parent_fns["fd_probe_conv"], fprobe, dev, conv_runs)
     # per call as a caller sees it (the launch's host cost included), then
-    # the card's time alone (hide_host), for probe_add and torch.add in turns
+    # the card's time alone (hide_host): probe_add and torch.add, and beside
+    # them probe_conv at each batch, in turns
     msa, liba, msa_dev, liba_dev = [], [], [], []
+    msc_dev = {bsz: [] for bsz in conv_runs}
     for _ in range(2):
         msa.append(time_ms(lambda: fprobe.probe_add(xa, ya), reps=PROBE_REPS))
         liba.append(time_ms(lambda: torch.add(xa, ya), reps=PROBE_REPS))  # wraps mod 2^32 too
         msa_dev.append(time_ms(lambda: fprobe.probe_add(xa, ya), reps=PROBE_REPS, hide_host=True))
         liba_dev.append(time_ms(lambda: torch.add(xa, ya), reps=PROBE_REPS, hide_host=True))
+        for bsz, run in conv_runs.items():
+            msc_dev[bsz].append(time_ms(lambda r=run: fprobe.probe_conv(*r), reps=PROBE_REPS,
+                                        hide_host=True))
     msa, liba, msa_dev, liba_dev = (float(np.median(v)) for v in (msa, liba, msa_dev, liba_dev))
+    msc_dev = {bsz: float(np.median(v)) for bsz, v in msc_dev.items()}
     host_ns = probe_host_breakdown(fprobe, kbuild, xa, ya, dev)
     msc = time_ms(lambda: fprobe.probe_conv(ca, cb), reps=50)
     plaina = time_host_ms(lambda: fprobe.probe_add_plain(xa, ya))
     plainc = time_host_ms(lambda: fprobe.probe_conv_plain(ca, cb))
+
+    def conv_bound(bsz):
+        return bound(bsz * 400, bsz * (2 * fprobe.NLIMB + 2 * fprobe.NLIMB - 1) * 4)
+
     # no single PyTorch call computes probe_conv (CUDA has no integer conv)
-    for nm, line, err, ms_, plain_, lib_, ops_, bytes_, shp in (
-            ("probe_add", 18, erra, msa, plaina, liba, 1024, 3 * 4 * 1024,
+    for nm, line, err, ms_, plain_, lib_, (bms, bby), shp in (
+            ("probe_add", 18, erra, msa, plaina, liba, bound(1024, 3 * 4 * 1024),
              "(8, 128) int32"),
-            ("probe_conv", 34, errc, msc, plainc, None, 512 * 400, 512 * 79 * 4,
+            ("probe_conv", 34, errc, msc_dev[512], plainc, None, conv_bound(512),
              "(20, 512) int32 x2 -> (39, 512)")):
-        bms, bby = bound(ops_, bytes_)
         kernels.append(dict(
             name=nm, route="cuda", source="firedancer_tpu_torch/csrc/probe.cu",
             replaces=f"scripts/probe_pallas.py:{line}", launches=None,
@@ -1000,22 +1134,32 @@ def main() -> int:
             library_ms=lib_, matched=True, shape=shp,
             phase_launches=kbuild.LAUNCHES[nm]))
     kernels[0].update(device_ms=msa_dev, library_device_ms=liba_dev, host_ns=host_ns)
+    kernels[1].update(ms_per_call=msc, at_batch={str(bsz): dict(
+        ms=msc_dev[bsz], bound_ms=conv_bound(bsz)[0], bound_by=conv_bound(bsz)[1])
+        for bsz in conv_runs})
     log(f"[probes] probe_add (8, 128): exact, {msa:.4f} ms a call (torch.add {liba:.4f} ms),"
         f" device only {msa_dev:.4f} ms (torch.add {liba_dev:.4f} ms), medians of 2 x"
-        f" {PROBE_REPS} calls each; probe_conv (20, 512): exact, {msc:.4f} ms (launch latency)")
+        f" {PROBE_REPS} calls each; probe_conv: exact (and with int32 extremes at"
+        f" {', '.join(str(b) for b in CONV_BATCHES[1:])}), {msc:.4f} ms a call at 512,"
+        " device only (median of 2, in turns with probe_add): "
+        + ", ".join(f"B={bsz} {t * 1e3:.2f} us (bound {conv_bound(bsz)[0] * 1e3:.3f} us,"
+                    f" {conv_bound(bsz)[1]})" for bsz, t in msc_dev.items()))
     log(f"[probes-host] ns a call, mean of {HOST_CALLS} calls each: "
         + ", ".join(f"{k} {v:.0f}" for k, v in host_ns.items()))
 
     # -- 3. K2 fe_mul_chain -------------------------------------------------------
     mark("3")
-    B2, K2 = 16384, 64
+    B2, K2 = K2_BATCHES[0], 64
     rng = np.random.default_rng(2)
     xs = [int.from_bytes(rng.bytes(32), "little") % fl.P for _ in range(B2)]
     ys = [int.from_bytes(rng.bytes(32), "little") % fl.P for _ in range(B2)]
-    x = torch.from_numpy(np.stack([fl.int_to_limbs(v) for v in xs], -1)).to(
-        torch.int32).to(dev).contiguous()
-    y = torch.from_numpy(np.stack([fl.int_to_limbs(v) for v in ys], -1)).to(
-        torch.int32).to(dev).contiguous()
+    xl, yl = (np.stack([fl.int_to_limbs(v) for v in vs], -1) for vs in (xs, ys))
+    # the first 64 lanes at the carried extremes, signs seeded: the lanes where
+    # a lost sign or carry in the product's lowering would show
+    ext = np.array(K2_CARRIED_MAX, dtype=np.int64)[:, None]
+    xl[:, :64], yl[:, :64] = (rng.choice((-1, 1), (fl.NLIMB, 64)) * ext for _ in range(2))
+    xs[:64], ys[:64] = ([fl.limbs_to_int(v[:, i]) for i in range(64)] for v in (xl, yl))
+    x, y = (torch.from_numpy(v).to(torch.int32).to(dev).contiguous() for v in (xl, yl))
     kx, ky = fl.fe_mul_chain(x, y, K2)
     torch.cuda.synchronize()
     px, py = fl.fe_mul_chain_plain(x, y, K2)
@@ -1025,26 +1169,41 @@ def main() -> int:
     check(err2 == 0, f"K2 differs from its plain version (max abs err {err2})")
     check(torch.equal(kx, px) and torch.equal(ky, py), "K2 raw limbs differ")
     kxh = kx.cpu().numpy()
-    for i in rng.choice(B2, 32, replace=False):
+    for i in [*range(4), *rng.choice(B2, 32, replace=False)]:
         a, b = xs[i], ys[i]
         for _ in range(K2):
             a, b = a * b % fl.P, a
         check(fl.limbs_to_int(kxh[:, i]) == a, f"K2 lane {i} != Python ints")
-    ms2 = time_ms(lambda: fl.fe_mul_chain(x, y, K2), reps=20)
+    runs2 = {bsz: tuple(v.repeat(1, -(-bsz // B2))[:, :bsz].contiguous() for v in (x, y))
+             for bsz in K2_BATCHES}
+    for bsz, run in runs2.items():
+        check(all(map(torch.equal, fl.fe_mul_chain(*run, K2), fl.fe_mul_chain_plain(*run, K2))),
+              f"K2 raw limbs differ at B={bsz}")
+    if parent_fns:
+        k2_ab(parent_fns["fd_fe_mul_chain"], fl, dev, runs2, K2)
+        k2_knobs(parent_fns, fl, dev, runs2, K2)
+    sass2 = k2_sass(fsass, kbuild, bool(parent_fns))
+    ms2 = {bsz: time_ms(lambda r=run: fl.fe_mul_chain(*r, K2), reps=50, hide_host=True)
+           for bsz, run in runs2.items()}
+    ms2call = time_ms(lambda: fl.fe_mul_chain(x, y, K2), reps=20)
     plain2 = time_host_ms(lambda: fl.fe_mul_chain_plain(x, y, K2))
-    ops2 = B2 * K2 * sv.PRODUCTS_PER_MUL
-    bytes2 = 4 * B2 * fl.NLIMB * 4
+
+    def k2_bound(bsz):
+        return bound(bsz * K2 * sv.PRODUCTS_PER_MUL, 4 * bsz * fl.NLIMB * 4)
+
     kernels.append(dict(
         name="fe_mul_chain", route="cuda",
         source="firedancer_tpu_torch/csrc/fe_mul_chain.cu",
         replaces="scripts/perf_fe.py:114", launches=None, max_abs_err=err2,
-        ms=ms2, plain_ms=plain2,
-        bound_ms=max(ops2 / int_ops_per_s, bytes2 / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if ops2 / int_ops_per_s > bytes2 / HBM_BYTES_PER_S else "bytes",
-        library_ms=None, matched=True, shape=f"B={B2} k={K2}",
-        phase_launches=kbuild.LAUNCHES["fe_mul_chain"]))
-    log(f"[K2] fe_mul_chain B={B2} k={K2}: exact; {ms2:.4f} ms,"
-        f" {B2 * K2 / ms2 / 1e3:.1f} M fe_mul/s; plain {plain2:.1f} ms")
+        ms=ms2[B2], plain_ms=plain2, bound_ms=k2_bound(B2)[0], bound_by=k2_bound(B2)[1],
+        library_ms=None, matched=True, shape=f"B={B2} k={K2}", ms_per_call=ms2call,
+        at_batch={str(bsz): dict(ms=ms2[bsz], bound_ms=k2_bound(bsz)[0]) for bsz in ms2},
+        sass_loops=sass2, phase_launches=kbuild.LAUNCHES["fe_mul_chain"]))
+    log(f"[K2] fe_mul_chain k={K2}: raw limbs equal to plain (64 lanes at the carried"
+        f" extremes), Python ints on 36 lanes; device only "
+        + ", ".join(f"B={bsz} {ms2[bsz]:.4f} ms ({bsz * K2 / ms2[bsz] / 1e3:.1f} M fe_mul/s,"
+                    f" bound {k2_bound(bsz)[0]:.5f} ms, {k2_bound(bsz)[1]})" for bsz in ms2)
+        + f"; a call at B={B2} {ms2call:.4f} ms; plain {plain2:.1f} ms")
 
     # -- 4. K3 sha512_batch ----------------------------------------------------------
     mark("4")
@@ -2588,8 +2747,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's K1, K3, K4, K6, K7, K9-K11 and K13-K17
-    # (a checkout of an earlier commit) and time them beside this tree's in
-    # phases 4, 6, 8, 12, 14, 16, 18 and 19
+    # --parent DIR: also build DIR's probe_conv, K1-K4, K6, K7, K9-K11 and
+    # K13-K17 (a checkout of an earlier commit) and time them beside this
+    # tree's in phases 2b, 3, 4, 6, 8, 12, 14, 16, 18 and 19
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

@@ -93,9 +93,11 @@ __device__ __forceinline__ fe fe_neg(const fe& a) {
 }
 
 // Schoolbook 10x10: h_k = sum_{i+j=k} f_i g_j w_ij + sum_{i+j=k+10} f_i (19 g_j) w_ij,
-// w_ij = 2 when i and j are both odd.  100 IMAD.WIDE per call.
-// Out of line (arguments by value, in registers): one copy of the ~200
-// instructions instead of one per call site keeps the verify kernel small.
+// w_ij = 2 when i and j are both odd.  ptxas makes each product one
+// IMAD.WIDE with its 64-bit addend: 100 IMAD.WIDE and ~193 instructions
+// a call (chip_smoke.py's [K2-sass] of a K2 build that calls it).
+// Out of line (arguments by value, in registers): one copy instead of one
+// per call site keeps the verify kernel small.
 __device__ __noinline__ fe fe_mul(fe f, fe g) {
   int32_t g19[10], f2[10];
 #pragma unroll

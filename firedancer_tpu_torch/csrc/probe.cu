@@ -9,12 +9,21 @@
 //              limb rows, out[k] = sum_{i + j = k} a[i] * b[j], (39, B),
 //              wrapping mod 2^32 as int32 arithmetic does.
 //
-// Bound: both are tiny (a few KB); at the probe shapes launch latency is
-// the whole time.  Beyond that both are bytes-bound: add moves 12 bytes per
+// Bound: both are tiny (a few KB); at the probe shapes the launch is the
+// whole time.  Beyond that both are bytes-bound: add moves 12 bytes per
 // add, and conv's 400 multiply-adds per lane against 316 bytes stay under
-// the card's ~5 integer instructions per byte of memory traffic.  Design:
-// one element (add) or one lane (conv) per thread, the lane's 40 limbs in
-// registers, loads coalesced along the trailing axis.
+// the card's ~5 integer instructions per byte of memory traffic.
+//
+// probe_add: one element a thread.  probe_conv: a block of PROBE_GROUPS
+// warps takes PROBE_LANES lanes, and warp w computes the output rows
+// [probe_row_group(w), probe_row_group(w + 1)) for them, one lane a thread:
+// it loads the limbs those rows read (a row's 32 lanes one coalesced
+// 128-byte load; the block's warps read the rows they share from L1),
+// sums each row's products in 32 bits and stores its rows coalesced.  Row
+// k has min(k + 1, 39 - k) products (400 in all); the groups' counts are
+// 105, 105, 99 and 91, so no thread runs more than 105 IMADs, where one
+// thread ran all 400 before.  The grid is B / 32 blocks: at the probe's
+// B = 512, 16 SMs instead of 4.
 #include "fd_common.cuh"
 
 #define PROBE_NLIMB 20
@@ -26,24 +35,50 @@ __global__ void probe_add_kernel(const int32_t* __restrict__ x,
   if (i < n) out[i] = (int32_t)((uint32_t)x[i] + (uint32_t)y[i]);
 }
 
-__global__ void probe_conv_kernel(const int32_t* __restrict__ a,
-                                  const int32_t* __restrict__ b,
-                                  int32_t* __restrict__ out, int64_t B) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
+#define PROBE_LANES 32
+#define PROBE_GROUPS 4
+// Warp w's output rows, [probe_row_group(w), probe_row_group(w + 1)):
+// contiguous, balanced by product count
+__host__ __device__ constexpr int probe_row_group(int w) {
+  constexpr int edge[PROBE_GROUPS + 1] = {0, 14, 20, 26, 39};
+  return edge[w];
+}
+
+// Output rows [R0, R1) of one lane: the limbs they read into registers,
+// then each row's products in 32 bits.
+template <int R0, int R1>
+__device__ __forceinline__ void probe_conv_rows(const int32_t* __restrict__ a,
+                                                const int32_t* __restrict__ b,
+                                                int32_t* __restrict__ out, int64_t B,
+                                                int64_t lane) {
+  constexpr int LO = R0 - (PROBE_NLIMB - 1) > 0 ? R0 - (PROBE_NLIMB - 1) : 0;
+  constexpr int HI = R1 - 1 < PROBE_NLIMB - 1 ? R1 - 1 : PROBE_NLIMB - 1;
   uint32_t av[PROBE_NLIMB], bv[PROBE_NLIMB];
 #pragma unroll
-  for (int i = 0; i < PROBE_NLIMB; i++) {
+  for (int i = LO; i <= HI; i++) {
     av[i] = (uint32_t)a[(int64_t)i * B + lane];
     bv[i] = (uint32_t)b[(int64_t)i * B + lane];
   }
 #pragma unroll
-  for (int k = 0; k < 2 * PROBE_NLIMB - 1; k++) {
-    uint32_t t = 0;
+  for (int k = R0; k < R1; k++) {
+    uint32_t acc = 0;
 #pragma unroll
     for (int i = 0; i < PROBE_NLIMB; i++)
-      if (k - i >= 0 && k - i < PROBE_NLIMB) t += av[i] * bv[k - i];
-    out[(int64_t)k * B + lane] = (int32_t)t;
+      if (k - i >= 0 && k - i < PROBE_NLIMB) acc += av[i] * bv[k - i];
+    out[(int64_t)k * B + lane] = (int32_t)acc;
+  }
+}
+
+__global__ void __launch_bounds__(PROBE_LANES * PROBE_GROUPS)
+probe_conv_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                  int32_t* __restrict__ out, int64_t B) {
+  const int64_t lane = (int64_t)blockIdx.x * PROBE_LANES + threadIdx.x % PROBE_LANES;
+  if (lane >= B) return;
+  switch (threadIdx.x / PROBE_LANES) {  // warp-uniform: each warp its rows, unrolled
+    case 0: probe_conv_rows<probe_row_group(0), probe_row_group(1)>(a, b, out, B, lane); break;
+    case 1: probe_conv_rows<probe_row_group(1), probe_row_group(2)>(a, b, out, B, lane); break;
+    case 2: probe_conv_rows<probe_row_group(2), probe_row_group(3)>(a, b, out, B, lane); break;
+    default: probe_conv_rows<probe_row_group(3), probe_row_group(4)>(a, b, out, B, lane); break;
   }
 }
 
@@ -62,7 +97,8 @@ FD_EXPORT int fd_probe_conv(const void* a, const void* b, void* out, int64_t B,
   int rc = fd_set_device(device);
   if (rc) return rc;
   if (B == 0) return 0;
-  probe_conv_kernel<<<(unsigned)((B + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+  probe_conv_kernel<<<(unsigned)((B + PROBE_LANES - 1) / PROBE_LANES),
+                      PROBE_LANES * PROBE_GROUPS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (const int32_t*)b, (int32_t*)out, B);
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,11 @@ Representation (the port's own; the JAX package's radix-2^13 x 20 does not
 bind it): a field element is 10 signed limbs of alternating 26 and 25 bits
 (radix 2^25.5, the ref10 / donna-32 layout).  Limb i sits at bit offset
 ceil(25.5 i) = 0, 26, 51, 77, 102, 128, 153, 179, 204, 230.  On Hopper a
-32x32->64 product is one IMAD.WIDE, so 10 limbs of int32 with int64
-accumulators cost ~100 wide multiplies per field multiply; 5 limbs of 2^51
-would need 4 multiplies per 64x64->128 product.
+signed 32x32->64 multiply-add `acc += (int64_t)a * b` is one IMAD.WIDE
+(the SASS of K2 and of csrc/fe_field.cuh's fe_mul: 100 a field
+multiply), scheduled ~4 clocks apart by ptxas; 5 limbs of 2^51
+would need 4 multiplies per 64x64->128 product.  K2 moves the 55
+products below 2^255 to FP64 FMAs (csrc/fe_mul_chain.cu).
 
 Layout: limbs lead, batch trails: (10, *batch).  The plain versions compute
 in int64 tensors; the kernels keep int32 limbs and int64 accumulators.
@@ -280,10 +282,15 @@ def fe_mul_chain(x: torch.Tensor, y: torch.Tensor, k: int):
     """K2: k chained field multiplies per lane, (x, y) -> (x*y, x).
 
     Replaces the Pallas microbenchmark `make_pallas13`
-    (scripts/perf_fe.py:114, body `_pallas_mul_body` :81) and runs the
-    same `__device__ fe_mul` as the verify kernel (csrc/fe_field.cuh), so
-    it isolates the field arithmetic on the card.  x, y: (10, B) int32
-    limbs in carried form, B contiguous.  Returns two (10, B) int32.
+    (scripts/perf_fe.py:114, body `_pallas_mul_body` :81).  The kernel
+    (csrc/fe_mul_chain.cu) has its own inlined product: the 55 products
+    below 2^255 as exact FP64 FMAs, the 45 past it as IMAD.WIDE, and the
+    carry with each column's rounding half in its accumulator, one lane a
+    thread.  It is the testbed for the product form of the verify
+    kernels, whose `fe_mul_q` it does not run.  Its limbs equal this
+    module's `fe_mul_chain_plain` exactly.  x, y:
+    (10, B) int32 limbs in carried form, B contiguous.  Returns two (10,
+    B) int32.
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches csrc/fe_mul_chain.cu or raises.

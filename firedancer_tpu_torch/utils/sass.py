@@ -1,17 +1,20 @@
 """The loops of a built kernel, read from its SASS (cuobjdump -sass).
 
 For each backward branch of one kernel: the instructions from its target
-to the branch, counted by opcode, and the longest chain of instructions
-each reading a register the one before wrote.  A vector load's or store's
+to the branch (with the instructions of any function it CALLs, to that
+function's RET), counted by opcode, the longest chain of instructions
+each reading a register the one before wrote, and the stall clocks ptxas
+wrote into their control words, summed.  A vector load's or store's
 registers count from its first; a loop's live-in registers start at depth
 0.  The counts are what a warp running the loop issues an iteration, and
 what its dependent instructions are: the latencies themselves are not in
 the listing.
 
-    python -m firedancer_tpu_torch.utils.sass LIB.so KERNEL [LIB.so ...]
+    python -m firedancer_tpu_torch.utils.sass [--forms] LIB.so KERNEL [LIB.so ...]
 
 prints each library's loops of KERNEL (cuobjdump from the CUDA toolkit
-that kbuild uses).
+that kbuild uses); --forms counts each opcode with its modifiers
+(IMAD.WIDE apart from IMAD.WIDE.U32).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import sys
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _REG = re.compile(r"\b(U?R[0-9]+|U?P[0-6])\b")
 _LABEL = re.compile(r"\s*(\.L_x_[0-9]+):")
+_CTRL = re.compile(r"\s*/\* 0x([0-9a-f]{16}) \*/\s*$")
 _NO_DEST = ("ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "EXIT", "RET", "NOP",
             "WARPSYNC", "BSYNC", "BSSY", "CALL", "MEMBAR", "DEPBAR", "YIELD")
 
@@ -39,42 +43,93 @@ def dump(so_path: str) -> str:
     return r.stdout
 
 
-def loops(listing: str, kernel: str) -> list[dict]:
-    """[{"n": instructions, "depth": longest dependent chain, "ops": {opcode:
-    count}}] for each loop of `kernel` in a cuobjdump -sass listing, in
-    address order."""
-    insns, labels, body = [], {}, False
-    for line in listing.splitlines():
+def _sections(listing: str) -> dict:
+    """{function name: (instructions [(address, opcode, operands, stall)],
+    {label: index})} of a cuobjdump -sass listing.  stall is the clocks
+    ptxas set the scheduler to wait after the instruction: bits 41-44 of
+    its control word, the second 64-bit word, on the next line."""
+    secs, cur = {}, None
+    lines = listing.splitlines()
+    for n, line in enumerate(lines):
         if "Function :" in line:
-            body = kernel in line
+            cur = secs.setdefault(line.split("Function :", 1)[1].strip(), ([], {}))
             continue
-        if not body:
+        if cur is None:
             continue
         lab = _LABEL.match(line)
         if lab:
-            labels[lab.group(1)] = len(insns)
+            cur[1][lab.group(1)] = len(cur[0])
             continue
         m = _INSN.search(line)
         if m:
-            insns.append((int(m.group(1), 16), m.group(2), m.group(3)))
+            ctrl = _CTRL.match(lines[n + 1]) if n + 1 < len(lines) else None
+            stall = (int(ctrl.group(1), 16) >> 41) & 0xF if ctrl else 0
+            cur[0].append((int(m.group(1), 16), m.group(2), m.group(3), stall))
+    return secs
+
+
+def _target(args: str, labels: dict, addr_index: dict) -> int | None:
+    """The instruction index a branch or call names, by label or address."""
+    tgt = re.search(r"\(?(\.L_x_[0-9]+)\)?", args)
+    if tgt and tgt.group(1) in labels:
+        return labels[tgt.group(1)]
+    num = re.search(r"0x([0-9a-f]+)", args)
+    return addr_index.get(int(num.group(1), 16)) if num else None
+
+
+def _callee(secs: dict, insns, labels, addr_index, args: str) -> list:
+    """The instructions a CALL runs: from its target (a label or address of
+    the same function, or another function by name) to the first RET."""
+    start, body = _target(args, labels, addr_index), insns
+    if start is None:
+        name = re.search(r"`\(([^)]+)\)", args)
+        if not name or name.group(1) not in secs:
+            return []
+        body, start = secs[name.group(1)][0], 0
+    out = []
+    for ins in body[start:]:
+        out.append(ins)
+        if ins[1].startswith("RET"):
+            break
+    return out
+
+
+def loops(listing: str, kernel: str) -> list[dict]:
+    """[{"n": instructions, "depth": longest dependent chain, "ops": {opcode:
+    count}, "forms": {opcode with its modifiers: count}, "called":
+    instructions of it in called functions, "clocks": its stalls summed,
+    the least clocks one warp alone takes an iteration (scoreboard waits
+    and pipe conflicts add to it)}] for each loop of `kernel` in a
+    cuobjdump -sass listing, in address order.  A CALL in
+    the loop counts the callee's instructions to its RET as the loop's."""
+    secs = _sections(listing)
+    insns, labels = [], {}
+    for name, (ins, labs) in secs.items():
+        if kernel in name:
+            labels.update({k: v + len(insns) for k, v in labs.items()})
+            insns += ins
     if not insns:
         raise ValueError(f"no SASS for {kernel}")
-    addr_index = {a: i for i, (a, _, _) in enumerate(insns)}
+    addr_index = {ins[0]: i for i, ins in enumerate(insns)}
     out = []
-    for i, (_, op, args) in enumerate(insns):
+    for i, (_, op, args, _) in enumerate(insns):
         if not op.startswith("BRA"):
             continue
-        tgt = re.search(r"\(?(\.L_x_[0-9]+)\)?", args)
-        start = labels.get(tgt.group(1)) if tgt else None
-        if start is None:
-            num = re.search(r"0x([0-9a-f]+)", args)
-            start = addr_index.get(int(num.group(1), 16)) if num else None
+        start = _target(args, labels, addr_index)
         if start is None or start >= i:  # forward, or the branch to itself after EXIT
             continue
-        ops, depth, writer = {}, 0, {}
-        for _, op_, args_ in insns[start:i + 1]:
+        body, called = [], 0
+        for ins in insns[start:i + 1]:
+            body.append(ins)
+            if ins[1].startswith("CALL"):
+                sub = _callee(secs, insns, labels, addr_index, ins[2])
+                body += sub
+                called += len(sub)
+        ops, forms, depth, writer = {}, {}, 0, {}
+        for _, op_, args_, _ in body:
             base = op_.split(".")[0]
             ops[base] = ops.get(base, 0) + 1
+            forms[op_] = forms.get(op_, 0) + 1
             regs = _REG.findall(args_)
             dests = [] if base in _NO_DEST or not regs else regs[:1]
             srcs = regs[1:] if dests else regs
@@ -82,20 +137,26 @@ def loops(listing: str, kernel: str) -> list[dict]:
             for x in dests:
                 writer[x] = d
             depth = max(depth, d)
-        out.append(dict(n=i + 1 - start, depth=depth,
-                        ops=dict(sorted(ops.items(), key=lambda kv: -kv[1]))))
+        out.append(dict(n=len(body), depth=depth, called=called,
+                        clocks=sum(ins[3] for ins in body),
+                        ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+                        forms=dict(sorted(forms.items(), key=lambda kv: -kv[1]))))
     return out
 
 
 def main(argv: list[str]) -> int:
+    key = "forms" if "--forms" in argv else "ops"
+    argv = [a for a in argv if a != "--forms"]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     kernel = argv[1]
     for so in [argv[0], *argv[2:]]:
         for i, lp in enumerate(loops(dump(so), kernel)):
-            print(f"{so} {kernel} loop {i}: {lp['n']} instructions, longest dependent"
-                  f" chain {lp['depth']}; " + ", ".join(f"{op} {c}" for op, c in lp["ops"].items()))
+            called = f" ({lp['called']} in called functions)" if lp["called"] else ""
+            print(f"{so} {kernel} loop {i}: {lp['n']} instructions{called}, longest dependent"
+                  f" chain {lp['depth']}, {lp['clocks']} stall clocks; "
+                  + ", ".join(f"{op} {c}" for op, c in lp[key].items()))
     return 0
 
 

@@ -50,6 +50,49 @@ def test_fe_mul_chain_kernel_equals_plain(dev):
     assert kbuild.LAUNCHES["fe_mul_chain"] == 1
 
 
+# K2's carried extremes: every limb at 1.1 * 2^(w - 1) (floored), signs
+# seeded per lane, where a lost sign or carry in the kernel's lowering shows
+K2_MAX = np.array([int(1.1 * 2 ** (w - 1)) for w in fl.WIDTHS], dtype=np.int64)
+
+
+@pytest.mark.parametrize("k", [0, 1, 64])
+@pytest.mark.parametrize("bsz", [1, 127, 129, 16383])
+def test_fe_mul_chain_kernel_at_carried_extremes_and_ragged_blocks(dev, bsz, k):
+    """Raw limbs equal to the plain version's: B = 1, a block less one, a
+    block and one, 16,383 (a ragged last block); k = 0 (a copy), 1 (the
+    odd step alone) and 64; every limb at its carried extreme, the first
+    lanes all positive and all negative."""
+    rng = np.random.default_rng(2000 + bsz + k)
+    signs = rng.choice((-1, 1), (2, fl.NLIMB, bsz))
+    signs[0, :, 0] = signs[1, :, 0] = 1
+    if bsz > 1:
+        signs[0, :, 1], signs[1, :, 1] = -1, 1
+    x, y = (torch.from_numpy(sg * K2_MAX[:, None]).to(torch.int32).to(dev).contiguous()
+            for sg in signs)
+    kx, ky = fl.fe_mul_chain(x, y, k)
+    px, py = fl.fe_mul_chain_plain(x, y, k)
+    assert torch.equal(kx, px) and torch.equal(ky, py)
+    assert kbuild.LAUNCHES["fe_mul_chain"] == 1
+
+
+@pytest.mark.parametrize("bsz", [1, 33, 512, 65536])
+def test_probe_conv_kernel_at_int32_extremes_equals_plain(dev, bsz):
+    """probe_conv over full int32 rows with +-(2^31 - 1) and -2^31 on the
+    first lanes (every product and sum wraps mod 2^32): equal to the plain
+    version at one lane, a block and one, the probe's 512 and 65,536."""
+    from firedancer_tpu_torch.ops import probe
+
+    rng = np.random.default_rng(4000 + bsz)
+    ab = rng.integers(-2**31, 2**31, (2, probe.NLIMB, bsz), dtype=np.int64)
+    ab[0, :, 0], ab[1, :, 0] = 2**31 - 1, -2**31
+    if bsz > 1:
+        ab[:, :, 1] = -2**31
+        ab[0, ::2, -1], ab[1, 1::2, -1] = -2**31 + 1, 2**31 - 1
+    a, b = (torch.from_numpy(v.astype(np.int32)).to(dev) for v in ab)
+    assert torch.equal(probe.probe_conv(a, b), probe.probe_conv_plain(a, b))
+    assert kbuild.LAUNCHES["probe_conv"] == 1
+
+
 def test_sha512_batch_kernel_equals_hashlib(dev):
     rng = np.random.default_rng(2)
     lens = [0, 1, 111, 112, 239, 240, 300, 299]

@@ -123,3 +123,125 @@ def test_fe_mul_chain_plain_matches_chained_jax_fe_mul():
     assert gx.dtype == torch.int32 and gx.shape == tx.shape
     np.testing.assert_array_equal(_canon_port(gx.to(torch.int64)), _canon_jax(x))
     np.testing.assert_array_equal(_canon_port(gy.to(torch.int64)), _canon_jax(y))
+
+
+# K2's extreme inputs: every limb at its carried bound 1.1 * 2^(w - 1)
+# (floored), signs chosen per lane: all positive, all negative, alternating,
+# and seeded
+K2_MAX = np.array([int(1.1 * 2 ** (w - 1)) for w in tl.WIDTHS], dtype=np.int64)
+
+
+def _extreme_limbs(seed, n):
+    rng = np.random.default_rng(seed)
+    signs = rng.choice((-1, 1), (tl.NLIMB, n))
+    signs[:, 0], signs[:, 1] = 1, -1
+    if n > 2:
+        signs[:, 2] = (-1) ** np.arange(tl.NLIMB)
+    return signs * K2_MAX[:, None]
+
+
+def k2_mul_model(f, g, seen, split=True):
+    """csrc/fe_mul_chain.cu's k2_mul in Python ints: each column's int64
+    accumulator starts at its rounding half and takes the products past
+    2^255 (f_i 19 g_j) and column 8's f_0 g_8, its FP64 accumulator the
+    other products below 2^255 (with split; without, the int64 one takes
+    them too), operand by operand in the kernel's order, and column i's
+    FP64 sum joins its int64 one after operand i; the carry adds the carry
+    in, shifts the carry out and keeps the low bits less the half.  seen["i64"], seen["f64"] and seen["i32"] get every
+    value the kernel holds in an int64, a double and an int32."""
+    g19 = [19 * v for v in g]
+    f2 = [2 * v if i & 1 else v for i, v in enumerate(f)]
+    seen["i32"] += [*g19, *f2, *f, *g]
+    h = [1 << (24 if k & 1 else 25) for k in range(tl.NLIMB)]
+    hd = [0] * tl.NLIMB
+    for i in range(tl.NLIMB):
+        for k in range(tl.NLIMB):
+            j = k - i
+            fi = f2[i] if (i & 1 and j & 1) else f[i]
+            if j < 0:
+                h[k] += fi * g19[j + 10]
+                seen["i64"].append(h[k])
+            elif not split or (k == 8 and i == 0):
+                h[k] += fi * g[j]
+                seen["i64"].append(h[k])
+            else:
+                hd[k] += fi * g[j]
+                seen["f64"] += [fi * g[j], hd[k]]
+        h[i] += hd[i]  # column i's FP64 sum is whole
+        seen["i64"].append(h[i])
+    c, r = 0, [0] * tl.NLIMB
+    for k in range(tl.NLIMB):
+        w = tl.WIDTHS[k]
+        x = h[k] + c
+        seen["i64"] += [x, x >> w]
+        c = x >> w
+        r[k] = (x & ((1 << w) - 1)) - (1 << (w - 1))
+    y = 19 * c + r[0] + (1 << 25)
+    seen["i64"].append(y)
+    seen["y"].append(y)
+    c0 = y >> 26
+    r[0] = (y & ((1 << 26) - 1)) - (1 << 25)
+    r[1] += c0
+    seen["i32"] += [*r, c0, r[0] + (1 << 25)]
+    return r
+
+
+def test_fe_mul_chain_plain_at_carried_extremes_matches_python_ints_and_jax():
+    """K2's plain chain at k = 64 from limbs at their carried extremes:
+    equal to Python ints and to the same chain of jitted JAX fe_mul."""
+    k, n = 64, 8
+    xl, yl = _extreme_limbs(20, n), _extreme_limbs(21, n)
+    xs = [tl.limbs_to_int(xl[:, i]) for i in range(n)]
+    ys = [tl.limbs_to_int(yl[:, i]) for i in range(n)]
+    gx, gy = tl.fe_mul_chain(torch.from_numpy(xl).to(torch.int32),
+                             torch.from_numpy(yl).to(torch.int32), k)
+    jx, jy = _jax_fe(xs), _jax_fe(ys)
+    for _ in range(k):
+        jx, jy = j_mul(jx, jy), jx
+    np.testing.assert_array_equal(_canon_port(gx.to(torch.int64)), _canon_jax(jx))
+    np.testing.assert_array_equal(_canon_port(gy.to(torch.int64)), _canon_jax(jy))
+    for i in range(n):
+        a, b = xs[i], ys[i]
+        for _ in range(k):
+            a, b = a * b % P, a
+        assert tl.limbs_to_int(gx[:, i].numpy()) == a and tl.limbs_to_int(gy[:, i].numpy()) == b
+
+
+@pytest.mark.parametrize("start", ["carried", "canonical"])
+def test_k2_lowering_equals_plain_and_stays_in_its_words_at_the_extremes(start):
+    """The kernel's lowering (k2_mul_model; its first two steps, which read
+    an input limb, without the FP64 split) gives fe_mul's raw limbs through
+    a chain of 64 from limbs at the carried extremes or at the canonical
+    top (2^w - 1), and: every result is carried, so the split's operands
+    are.  With the split at the carried extremes and through the chain,
+    every int64 it holds stays below 2^58, and below 2^61 in the first two
+    steps (so below 2^63: the kernel has no overflow check); every product
+    and partial sum in FP64 below 2^53 (so exact); every int32 below 2^31;
+    the last carry's 64-bit sum below 2^39."""
+    k, n = 64, 16
+    if start == "carried":
+        xl, yl = _extreme_limbs(22, n), _extreme_limbs(23, n)
+    else:
+        top = np.array([(1 << w) - 1 for w in tl.WIDTHS], dtype=np.int64)
+        xl, yl = np.tile(top[:, None], (1, n)), np.tile(top[:, None], (1, n))
+        xl[:, n // 2:] = _extreme_limbs(24, n)[:, n // 2:]
+    inputs = {"i64": [], "f64": [], "i32": [], "y": []}
+    carried = {"i64": [], "f64": [], "i32": [], "y": []}
+    for lane in range(n):
+        a, b = [int(v) for v in xl[:, lane]], [int(v) for v in yl[:, lane]]
+        if start == "carried":  # the split's bounds at the carried extremes themselves
+            assert k2_mul_model(a, b, carried) == tl.fe_mul(
+                torch.tensor(a)[:, None], torch.tensor(b)[:, None])[:, 0].tolist()
+        ta = torch.tensor(a, dtype=torch.int64)[:, None]
+        tb = torch.tensor(b, dtype=torch.int64)[:, None]
+        for step in range(k):
+            r = k2_mul_model(a, b, carried if step >= 2 else inputs, split=step >= 2)
+            tr = tl.fe_mul(ta, tb)
+            assert r == tr[:, 0].tolist()
+            assert all(abs(v) <= m for v, m in zip(r, K2_MAX))
+            a, b, ta, tb = r, a, tr, ta
+        assert tl.limbs_to_int(a) == tl.limbs_to_int(ta[:, 0].numpy())
+    assert max(map(abs, carried["i64"])) < 2**58 and max(map(abs, inputs["i64"])) < 2**61
+    assert max(map(abs, carried["f64"])) < 2**53 and not inputs["f64"]
+    assert max(map(abs, carried["i32"] + inputs["i32"])) < 2**31
+    assert max(map(abs, carried["y"] + inputs["y"])) < 2**39

@@ -40,3 +40,67 @@ def test_loops_count_the_named_kernels_loop(target):
 def test_loops_of_a_kernel_not_in_the_listing_raise():
     with pytest.raises(ValueError):
         sass.loops(LISTING.format(target="0x20"), "missing_kernel")
+
+
+CALL_LISTING = """
+        Function : mul_kernel
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0010*/                   MOV R4, R0 ;
+        /*0020*/                   CALL.REL.NOINC {target} ;
+        /*0030*/                   IADD3 R0, R4, 0x1, RZ ;
+        /*0040*/                   ISETP.NE.AND P0, PT, R0, RZ, PT ;
+        /*0050*/               @P0 BRA `(.L_x_1) ;
+        /*0060*/                   EXIT ;
+.L_x_2:
+        /*0070*/                   IMAD.WIDE R4, R4, R4, RZ ;
+        /*0080*/                   IMAD.WIDE R4, R4, R4, R4 ;
+        /*0090*/                   RET.REL.NODEC R2 0x0 ;
+        Function : fe_mul
+        /*0000*/                   IMAD.WIDE R4, R4, R4, RZ ;
+        /*0010*/                   RET.ABS.NODEC R20 0x0 ;
+"""
+
+
+@pytest.mark.parametrize("target,called,imad", [("`(.L_x_2)", 3, 2), ("0x70", 3, 2),
+                                                ("`(fe_mul)", 2, 1)])
+def test_loops_count_a_called_functions_instructions(target, called, imad):
+    """A CALL in the loop adds its callee's instructions, to its RET, to the
+    loop's count: a subroutine of the kernel (by label or address) or
+    another function of the listing (by name)."""
+    (lp,) = sass.loops(CALL_LISTING.format(target=target), "mul_kernel")
+    assert lp["called"] == called and lp["n"] == 5 + called
+    assert lp["ops"]["IMAD"] == imad and lp["ops"]["CALL"] == 1 and lp["ops"]["RET"] == 1
+    assert lp["forms"]["IMAD.WIDE"] == imad and lp["forms"]["CALL.REL.NOINC"] == 1
+
+
+@pytest.mark.parametrize("flag,want", [([], "SHF 1"), (["--forms"], "SHF.R.U32.HI 1")])
+def test_main_prints_opcodes_or_their_forms(monkeypatch, capsys, flag, want):
+    monkeypatch.setattr(sass, "dump", lambda so: LISTING.format(target="0x20"))
+    assert sass.main([*flag, "lib.so", "chain_kernel"]) == 0
+    out = capsys.readouterr().out
+    assert "lib.so chain_kernel loop 0: 7 instructions" in out and want in out
+
+
+STALL_LISTING = """
+        Function : mad_kernel
+.L_x_3:
+        /*0000*/                   IMAD.WIDE R4, R2, R3, R4 ;        /* 0x0000000302047225 */
+                                                                    /* 0x{w0:016x} */
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;           /* 0x0000000102027810 */
+                                                                    /* 0x{w1:016x} */
+        /*0020*/               @P0 BRA `(.L_x_3) ;                   /* 0xfffffffc00f40947 */
+                                                                    /* 0x{w2:016x} */
+        /*0030*/                   EXIT ;                            /* 0x000000000000794d */
+                                                                    /* 0x000fea0003800000 */
+"""
+
+
+def test_loops_sum_the_stall_clocks_of_their_control_words():
+    """Each instruction's stall (bits 41-44 of the control word on the line
+    after it, beside the yield and barrier bits) adds to its loop's clocks."""
+    other = (1 << 45) | (0x3F << 52) | 0x78e021c  # yield, wait mask, operand bits
+    listing = STALL_LISTING.format(w0=other | 4 << 41, w1=other | 1 << 41, w2=5 << 41)
+    (lp,) = sass.loops(listing, "mad_kernel")
+    assert lp["n"] == 3 and lp["clocks"] == 10
+    assert sass.loops(LISTING.format(target="0x20"), "chain_kernel")[0]["clocks"] == 0
