@@ -16,8 +16,8 @@ this tree's, each after its outputs are checked equal: [probe_conv-ab],
 builds this tree's fe_mul_chain.cu, lthash_combine.cu and sha256_msg.cu
 again with one knob set at compile time (KNOB_BUILDS), and phases 3, 16
 and 18 time each knob's values in turns after checking their outputs
-equal: [K2-knobs] (K2_KNOBS: every product IMAD.WIDE, every product
-mad.wide.s32, and this tree's DFMA split, all else equal), [K13-knobs]
+equal: [K2-knobs] (K2_KNOBS: every product IMAD.WIDE against this tree's
+DFMA split, all else equal), [K13-knobs]
 (clusters of 4, 8 and 16 blocks; at its own size, the chunk rules of
 K13_CHUNK_RULES) and [K15-knobs] (one warp pair a block against four, at
 K15_KNOB_BATCHES).  Phase 3 also prints the chain loop by opcode of the
@@ -37,19 +37,23 @@ script or when a phase fails):
               rows with the extremes (wraparound), equal to plain;
               probe_add and torch.add timed per call and device only,
               probe_conv device only at the three batches in turns with
-              them, and probe_add's host cost split into its pieces
-              (checks, allocation, pointers, stream lookup, the ctypes
-              call, the launch, the binder), 10,000 calls a piece; with
+              them (past 512 on rotating copies of its inputs and
+              outputs, twice the L2 a turn, so HBM serves them), and
+              probe_add's host cost split into its pieces (checks,
+              allocation, pointers, stream lookup, the ctypes call, the
+              launch, the binder), 10,000 calls a piece; with
               --parent, the parent's probe_conv at the three batches
-              (outputs equal, then times in turns): one [probe_conv-ab] line
+              (outputs equal, then times in turns, timed as above): one
+              [probe_conv-ab] line
   3. K2       fe_mul_chain at B = 16,384, k = 64, its first 64 lanes at the
               carried extremes: raw limbs equal to the plain version, equal
               to Python ints on sampled lanes, and at B = 1,024 (the verify
-              batch) and 65,536 (four warps a scheduler); timed device only
-              at each; its chain loop by opcode from the SASS ([K2-sass]);
-              with --parent, the parent's K2 ([K2-ab]) and this tree's
-              built with each of K2_KNOBS ([K2-knobs]), limbs equal, then
-              times in turns
+              batch) and 65,536 (four warps a scheduler), and at k = 65
+              (the odd split step); timed device only at each, beside a
+              bound taken pipe by pipe (DFMA, IMAD.WIDE, issue); its chain
+              loop by opcode from the SASS ([K2-sass]); with --parent, the
+              parent's K2 ([K2-ab]) and this tree's built with each of
+              K2_KNOBS ([K2-knobs]), limbs equal, then times in turns
   4. K3       sha512_batch at B = 4,096, max_len 1,296, lengths across the
               padding boundaries: equal to hashlib and the plain version;
               the same rows from an offset buffer (the narrow path), 4,091
@@ -222,6 +226,13 @@ PROBE_REPS = 200  # phase 2b: probe_add and torch.add calls per timing
 HOST_CALLS = 10_000  # phase 2b: calls per piece of the host breakdown
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_CLK_PER_SM = 64  # 32-bit IMAD / IADD3 / LOP3 / SHF, sm_90
+# K2's bound, pipe by pipe: DFMA on the FP64 pipe (64 a clock an SM on the
+# H100 SXM, 33.5 TFLOP/s at 1,980 MHz); IMAD.WIDE taken at the 32-bit IMAD
+# rate above (not measured alone on the card; ptxas spaces them ~4 clocks
+# apart, which would be half that rate, so the bound is a floor either
+# way); and issue, four schedulers of one 32-lane instruction a clock
+FP64_FMA_PER_CLK_PER_SM = 64
+DISPATCH_PER_CLK_PER_SM = 128
 # 32-bit instructions per SHA-512 block, a hand tally with a 64-bit
 # rotate as 2 SHF, a 64-bit 3-input LOP3 as 2 and a 64-bit 3-input add as
 # 2 (IADD3 and IADD3.X): 80 rounds x 28 (Sigma0 and Sigma1 3 rotates and a
@@ -423,16 +434,13 @@ KNOB_BUILDS = {
                          ("fd_lthash_combine", _ptrs_then(4, "i64", "i64"))),
     "mix32_pairs1": ("sha256_msg", "-DMIX32_GROUPS=1", ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
     "mix32_pairs4": ("sha256_msg", "-DMIX32_GROUPS=4", ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
-    "fe_product_imad": ("fe_mul_chain", "-DK2_PRODUCT=0",
+    "fe_product_imad": ("fe_mul_chain", "-DK2_DFMA=0",
                         ("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32"))),
-    "fe_product_madwide": ("fe_mul_chain", "-DK2_PRODUCT=1",
-                           ("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32"))),
-    "fe_product_dfma": ("fe_mul_chain", "-DK2_PRODUCT=2",
+    "fe_product_dfma": ("fe_mul_chain", "-DK2_DFMA=1",
                         ("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32"))),
 }
 # [K2-knobs]: K2's product forms, all else this tree's: {label: knob build}
-K2_KNOBS = {"every product IMAD.WIDE (C++, the parent's form)": "fe_product_imad",
-            "every product mad.wide.s32": "fe_product_madwide",
+K2_KNOBS = {"every product IMAD.WIDE (the parent's form)": "fe_product_imad",
             "DFMA below 2^255, IMAD.WIDE past it (this tree's)": "fe_product_dfma"}
 # [K13-knobs]: K13's chunk rule (rows a chunk at least, chunks at most)
 K13_CHUNK_RULES = ((8, 528), (16, 528), (8, 264))
@@ -444,8 +452,12 @@ K15_KNOB_BATCHES = (32, 4096, 8192, 16384, 65536)
 # 1.1 * 2^(w - 1) of each limb width, floored
 K2_BATCHES = (16384, 1024, 65536)
 K2_CARRIED_MAX = tuple(int(1.1 * 2 ** (w - 1)) for w in (26, 25) * 5)
+# phase 3: of K2's 100 products a multiply, those csrc/fe_mul_chain.cu runs
+# as DFMA from the chain's third step on (all 100 are IMAD.WIDE before it)
+K2_DFMA_PER_MUL = 54
 # phase 2b: probe_conv's batches (the probe's own, K2's, one whose bytes
-# bound passes the launch floor)
+# bound passes the launch floor); past the first, timed with a cold L2
+# (l2_cold_call)
 CONV_BATCHES = (512, 16384, 65536)
 
 
@@ -502,10 +514,11 @@ def parent_call(fn, dev, *args) -> None:
     check(rc == 0, f"parent kernel launch: CUDA error {rc}")
 
 
-def ab_times(tag: str, shapes, parent_fns, change_fns) -> None:
+def ab_times(tag: str, shapes, parent_fns, change_fns, digits: int = 4) -> None:
     """Device-only times of the parent's and this tree's kernel at each
-    shape, in turns (parent, change, change, parent); one [tag] line.
-    shapes: (label, reps); parent_fns / change_fns: {label: a call}."""
+    shape, in turns (parent, change, change, parent); one [tag] line, ms to
+    `digits` places.  shapes: (label, reps); parent_fns / change_fns:
+    {label: a call}."""
     times = {}
     for who, fns in (("parent", parent_fns), ("change", change_fns),
                      ("change", change_fns), ("parent", parent_fns)):
@@ -514,8 +527,8 @@ def ab_times(tag: str, shapes, parent_fns, change_fns) -> None:
                 time_ms(fns[label], reps=reps, hide_host=True))
     log(f"[{tag}] device-only ms (parent, change; two turns each, in the order parent,"
         " change, change, parent): " + "; ".join(
-            f"{label}: parent {' / '.join(f'{t:.4f}' for t in times[('parent', label)])},"
-            f" change {' / '.join(f'{t:.4f}' for t in times[('change', label)])}"
+            f"{label}: parent {' / '.join(f'{t:.{digits}f}' for t in times[('parent', label)])},"
+            f" change {' / '.join(f'{t:.{digits}f}' for t in times[('change', label)])}"
             for label, _ in shapes))
 
 
@@ -860,10 +873,29 @@ def k15_knobs(fns, fsha256, dev) -> None:
                              for name, call in calls.items()}, list(runs))
 
 
-def conv_ab(parent_fn, fprobe, dev, runs) -> None:
+def l2_cold_call(fn, run, nbytes: int):
+    """A call of fn on the next of enough copies of run's tensors that the
+    bytes the calls move (nbytes each) between two uses of one copy are at
+    least twice the L2; the last outputs are kept alive, so their buffers
+    rotate too.  Each call then reads its inputs from HBM and writes lines
+    that are not in the L2."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    sets = [run] + [tuple(t.clone() for t in run) for _ in range(-(-2 * l2 // nbytes) - 1)]
+    outs = [None] * len(sets)
+    turn = [0]
+
+    def call():
+        i = turn[0] = (turn[0] + 1) % len(sets)
+        outs[i] = fn(*sets[i])
+
+    return call
+
+
+def conv_ab(parent_fn, fprobe, dev, runs, timed) -> None:
     """The parent checkout's probe_conv beside this one: outputs equal at
-    each batch, then device-only times in turns; one [probe_conv-ab] line.
-    runs: {batch: (a, b)}."""
+    each batch, then device-only times in turns, each call made by
+    timed(fn, batch) as phase 2b times it; one [probe_conv-ab] line, ms to
+    5 places.  runs: {batch: (a, b)}."""
 
     def parent(a, b):
         out = torch.empty((2 * fprobe.NLIMB - 1, a.shape[1]), dtype=torch.int32, device=dev)
@@ -874,8 +906,8 @@ def conv_ab(parent_fn, fprobe, dev, runs) -> None:
         check(torch.equal(parent(*run), fprobe.probe_conv(*run)),
               f"parent probe_conv and probe_conv differ at B={bsz}")
     ab_times("probe_conv-ab", [(f"B={bsz}", PROBE_REPS) for bsz in runs],
-             {f"B={bsz}": (lambda r=run: parent(*r)) for bsz, run in runs.items()},
-             {f"B={bsz}": (lambda r=run: fprobe.probe_conv(*r)) for bsz, run in runs.items()})
+             {f"B={bsz}": timed(parent, bsz) for bsz in runs},
+             {f"B={bsz}": timed(fprobe.probe_conv, bsz) for bsz in runs}, digits=5)
 
 
 def k2_call(fn, dev, x, y, k):
@@ -1096,30 +1128,42 @@ def main() -> int:
         check(torch.equal(fprobe.probe_conv(*conv_runs[bsz]),
                           fprobe.probe_conv_plain(*conv_runs[bsz])),
               f"probe_conv differs from its plain version at B={bsz}")
+
+    def conv_bytes(bsz):
+        return bsz * (2 * fprobe.NLIMB + 2 * fprobe.NLIMB - 1) * 4
+
+    def conv_bound(bsz):
+        return bound(bsz * 400, conv_bytes(bsz))
+
+    def conv_timed(fn, bsz):
+        """A call of fn to time at batch bsz: at the probe's own 512 on the
+        same inputs (in the L2, as probe_add's), past it with a cold L2."""
+        if bsz == CONV_BATCHES[0]:
+            return lambda: fn(*conv_runs[bsz])
+        return l2_cold_call(fn, conv_runs[bsz], conv_bytes(bsz))
+
     if parent_fns:
-        conv_ab(parent_fns["fd_probe_conv"], fprobe, dev, conv_runs)
+        conv_ab(parent_fns["fd_probe_conv"], fprobe, dev, conv_runs, conv_timed)
     # per call as a caller sees it (the launch's host cost included), then
     # the card's time alone (hide_host): probe_add and torch.add, and beside
     # them probe_conv at each batch, in turns
     msa, liba, msa_dev, liba_dev = [], [], [], []
     msc_dev = {bsz: [] for bsz in conv_runs}
+    conv_calls = {bsz: conv_timed(fprobe.probe_conv, bsz) for bsz in conv_runs}
     for _ in range(2):
         msa.append(time_ms(lambda: fprobe.probe_add(xa, ya), reps=PROBE_REPS))
         liba.append(time_ms(lambda: torch.add(xa, ya), reps=PROBE_REPS))  # wraps mod 2^32 too
         msa_dev.append(time_ms(lambda: fprobe.probe_add(xa, ya), reps=PROBE_REPS, hide_host=True))
         liba_dev.append(time_ms(lambda: torch.add(xa, ya), reps=PROBE_REPS, hide_host=True))
-        for bsz, run in conv_runs.items():
-            msc_dev[bsz].append(time_ms(lambda r=run: fprobe.probe_conv(*r), reps=PROBE_REPS,
-                                        hide_host=True))
+        for bsz, call in conv_calls.items():
+            msc_dev[bsz].append(time_ms(call, reps=PROBE_REPS, hide_host=True))
+    del conv_calls
     msa, liba, msa_dev, liba_dev = (float(np.median(v)) for v in (msa, liba, msa_dev, liba_dev))
     msc_dev = {bsz: float(np.median(v)) for bsz, v in msc_dev.items()}
     host_ns = probe_host_breakdown(fprobe, kbuild, xa, ya, dev)
     msc = time_ms(lambda: fprobe.probe_conv(ca, cb), reps=50)
     plaina = time_host_ms(lambda: fprobe.probe_add_plain(xa, ya))
     plainc = time_host_ms(lambda: fprobe.probe_conv_plain(ca, cb))
-
-    def conv_bound(bsz):
-        return bound(bsz * 400, bsz * (2 * fprobe.NLIMB + 2 * fprobe.NLIMB - 1) * 4)
 
     # no single PyTorch call computes probe_conv (CUDA has no integer conv)
     for nm, line, err, ms_, plain_, lib_, (bms, bby), shp in (
@@ -1135,13 +1179,13 @@ def main() -> int:
             phase_launches=kbuild.LAUNCHES[nm]))
     kernels[0].update(device_ms=msa_dev, library_device_ms=liba_dev, host_ns=host_ns)
     kernels[1].update(ms_per_call=msc, at_batch={str(bsz): dict(
-        ms=msc_dev[bsz], bound_ms=conv_bound(bsz)[0], bound_by=conv_bound(bsz)[1])
-        for bsz in conv_runs})
+        ms=msc_dev[bsz], bound_ms=conv_bound(bsz)[0], bound_by=conv_bound(bsz)[1],
+        l2="warm" if bsz == CONV_BATCHES[0] else "cold") for bsz in conv_runs})
     log(f"[probes] probe_add (8, 128): exact, {msa:.4f} ms a call (torch.add {liba:.4f} ms),"
         f" device only {msa_dev:.4f} ms (torch.add {liba_dev:.4f} ms), medians of 2 x"
         f" {PROBE_REPS} calls each; probe_conv: exact (and with int32 extremes at"
         f" {', '.join(str(b) for b in CONV_BATCHES[1:])}), {msc:.4f} ms a call at 512,"
-        " device only (median of 2, in turns with probe_add): "
+        " device only (median of 2, in turns with probe_add; past 512 with a cold L2): "
         + ", ".join(f"B={bsz} {t * 1e3:.2f} us (bound {conv_bound(bsz)[0] * 1e3:.3f} us,"
                     f" {conv_bound(bsz)[1]})" for bsz, t in msc_dev.items()))
     log(f"[probes-host] ns a call, mean of {HOST_CALLS} calls each: "
@@ -1179,6 +1223,9 @@ def main() -> int:
     for bsz, run in runs2.items():
         check(all(map(torch.equal, fl.fe_mul_chain(*run, K2), fl.fe_mul_chain_plain(*run, K2))),
               f"K2 raw limbs differ at B={bsz}")
+    # an odd count past the first two steps runs one split step before the loop
+    check(all(map(torch.equal, fl.fe_mul_chain(x, y, K2 + 1),
+                  fl.fe_mul_chain_plain(x, y, K2 + 1))), f"K2 raw limbs differ at k={K2 + 1}")
     if parent_fns:
         k2_ab(parent_fns["fd_fe_mul_chain"], fl, dev, runs2, K2)
         k2_knobs(parent_fns, fl, dev, runs2, K2)
@@ -1189,7 +1236,16 @@ def main() -> int:
     plain2 = time_host_ms(lambda: fl.fe_mul_chain_plain(x, y, K2))
 
     def k2_bound(bsz):
-        return bound(bsz * K2 * sv.PRODUCTS_PER_MUL, 4 * bsz * fl.NLIMB * 4)
+        """K2's least time on its lowering: the DFMA on the FP64 pipe, the
+        IMAD.WIDE on the integer pipe, all products through issue; the
+        busiest of the three, or the bytes."""
+        dfma = bsz * max(0, K2 - 2) * K2_DFMA_PER_MUL
+        imad = bsz * K2 * sv.PRODUCTS_PER_MUL - dfma
+        per_clk = props.multi_processor_count * clk_mhz * 1e6
+        t_ops = max(dfma / FP64_FMA_PER_CLK_PER_SM, imad / INT_OPS_PER_CLK_PER_SM,
+                    (dfma + imad) / DISPATCH_PER_CLK_PER_SM) / per_clk
+        t_bytes = 4 * bsz * fl.NLIMB * 4 / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
     kernels.append(dict(
         name="fe_mul_chain", route="cuda",

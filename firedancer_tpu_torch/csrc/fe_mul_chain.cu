@@ -13,27 +13,26 @@
 // product form they could take later.
 //
 // Bound: the FMA pipe and, with one warp a scheduler, latency.  A product
-// as IMAD.WIDE (`acc + (int64_t)a * b`; the same `mad.wide.s32` in inline
-// PTX compiles to IMAD.WIDE with a zero addend and a separate 64-bit add)
-// is scheduled ~4 clocks apart from the next (ptxas's stall counts), so a
-// multiply's 100 of them hold a scheduler ~400 clocks, while the FP64
-// pipe idles.  What the design does about it:
-//   - the 55 products below 2^255 (i + j = k, no factor 19) go to the FP64
-//     pipe as DFMA: each limb is an exact double (converted
-//     once, by the 2^52 + 2^31 bias trick: a LOP3 and a DADD), every product
-//     and partial sum of a column is an integer below 2^53 (so exact), and
-//     one F2I.S64 a column brings the sum back, issued as soon as the
-//     column's last DFMA is (the products are summed operand by operand,
-//     and column k's last one below 2^255 is operand k's), so the carry
-//     does not wait on its variable latency.  Column 8's nine such
-//     products could reach 2^53 at the carried extremes, so its f_0 g_8
-//     stays an IMAD.WIDE; the 45 products past 2^255 (f_i 19 g_j) are too
-//     wide for a double and stay IMAD.WIDE.  Those bounds hold for carried
-//     limbs, so the chain's first two multiplies, which read an input limb
-//     (canonical limbs reach 2^26), take every product as IMAD.WIDE; from
-//     the third on both operands are this kernel's own carried results.
-//     K2_PRODUCT=0 builds every product as IMAD.WIDE, K2_PRODUCT=1 as
-//     `mad.wide.s32` (the [K2-knobs] comparison);
+// as IMAD.WIDE (`acc + (int64_t)a * b`) is scheduled ~4 clocks apart from
+// the next (ptxas's stall counts), so a multiply's 100 of them hold a
+// scheduler ~400 clocks, while the FP64 pipe idles.  What the design does
+// about it:
+//   - 54 of the 55 products below 2^255 (i + j = k, no factor 19) go to
+//     the FP64 pipe as DFMA: each limb is an exact double (converted
+//     once, by the 2^52 + 2^31 bias trick: a LOP3 and a DADD), every
+//     product and partial sum of a column is an integer below 2^53 (so
+//     exact), and one F2I.S64 a column brings the sum back, issued as
+//     soon as the column's last DFMA is (the products are summed operand
+//     by operand, and column k's last one below 2^255 is operand k's), so
+//     the carry does not wait on its variable latency.  Column 8's nine
+//     such products could reach 2^53 at the carried extremes, so its
+//     f_0 g_8 stays an IMAD.WIDE; the 45 products past 2^255 (f_i 19 g_j)
+//     are too wide for a double and stay IMAD.WIDE.  Those bounds hold for
+//     carried limbs, so the chain's first two multiplies, which read an
+//     input limb (canonical limbs reach 2^26), take every product as
+//     IMAD.WIDE; from the third on both operands are this kernel's own
+//     carried results.  K2_DFMA=0 builds every product as IMAD.WIDE (the
+//     [K2-knobs] comparison);
 //   - the carry's rounding half of each column starts its accumulator, so
 //     a step is a 64-bit add of the carry in, a 64-bit shift for the carry
 //     out and the kept limb from the low word;
@@ -50,8 +49,8 @@
 // and every FP64 partial sum below 2^53; every result is carried.
 #include "fd_common.cuh"
 
-#ifndef K2_PRODUCT
-#define K2_PRODUCT 2  // 0: IMAD.WIDE (C++); 1: mad.wide.s32; 2: DFMA below 2^255
+#ifndef K2_DFMA
+#define K2_DFMA 1  // 1: the products below 2^255 as DFMA; 0: every product IMAD.WIDE
 #endif
 
 #define K2_THREADS 128
@@ -63,23 +62,13 @@ struct k2fe {
   double d[10];
 };
 
-__device__ __forceinline__ int64_t k2_mad(int32_t a, int32_t b, int64_t c) {
-#if K2_PRODUCT == 1
-  int64_t d;
-  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(c));
-  return d;
-#else
-  return c + (int64_t)a * b;
-#endif
-}
-
 // int32 -> double, exact: the double 2^52 + (v + 2^31), less 2^52 + 2^31
 __device__ __forceinline__ double k2_f64(int32_t v) {
   return __hiloint2double(0x43300000, v ^ 0x80000000) - 4503601774854144.0;
 }
 
 __device__ __forceinline__ void k2_set_f64(k2fe& a) {
-#if K2_PRODUCT == 2
+#if K2_DFMA
 #pragma unroll
   for (int i = 0; i < 10; i++) a.d[i] = k2_f64(a.v[i]);
 #endif
@@ -92,7 +81,7 @@ __device__ __forceinline__ void k2_set_f64(k2fe& a) {
 // (both operands carried).  r may be f or g.
 template <bool F64>
 __device__ __forceinline__ void k2_mul(const k2fe& f, const k2fe& g, k2fe& r) {
-  constexpr bool split = F64 && K2_PRODUCT == 2;
+  constexpr bool split = F64 && K2_DFMA;
   int32_t g19[10], f2[10];
   double fd2[10];
 #pragma unroll
@@ -115,9 +104,9 @@ __device__ __forceinline__ void k2_mul(const k2fe& f, const k2fe& g, k2fe& r) {
       const int j = k - i;
       const bool dbl = (i & 1) && (j & 1);
       if (j < 0)
-        h[k] = k2_mad(dbl ? f2[i] : f.v[i], g19[j + 10], h[k]);
+        h[k] += (int64_t)(dbl ? f2[i] : f.v[i]) * g19[j + 10];
       else if (!split || (k == 8 && i == 0))
-        h[k] = k2_mad(dbl ? f2[i] : f.v[i], g.v[j], h[k]);
+        h[k] += (int64_t)(dbl ? f2[i] : f.v[i]) * g.v[j];
       else
         hd[k] = fma(dbl ? fd2[i] : f.d[i], g.d[j], hd[k]);
     }

@@ -14,16 +14,21 @@
 // add, and conv's 400 multiply-adds per lane against 316 bytes stay under
 // the card's ~5 integer instructions per byte of memory traffic.
 //
-// probe_add: one element a thread.  probe_conv: a block of PROBE_GROUPS
-// warps takes PROBE_LANES lanes, and warp w computes the output rows
-// [probe_row_group(w), probe_row_group(w + 1)) for them, one lane a thread:
-// it loads the limbs those rows read (a row's 32 lanes one coalesced
-// 128-byte load; the block's warps read the rows they share from L1),
-// sums each row's products in 32 bits and stores its rows coalesced.  Row
-// k has min(k + 1, 39 - k) products (400 in all); the groups' counts are
-// 105, 105, 99 and 91, so no thread runs more than 105 IMADs, where one
-// thread ran all 400 before.  The grid is B / 32 blocks: at the probe's
-// B = 512, 16 SMs instead of 4.
+// probe_add: one element a thread.  probe_conv has two forms, picked by
+// the batch.  While one lane a thread would leave an SM without a block
+// (B <= 128 x SMs; the probe's B = 512 filled 4 SMs), a block of
+// PROBE_GROUPS warps takes PROBE_LANES lanes, and warp w computes the
+// output rows [probe_row_group(w), probe_row_group(w + 1)) for them, one
+// lane a thread: it loads the limbs those rows read (a row's 32 lanes one
+// coalesced 128-byte load; the block's warps read the rows they share
+// from L1), sums each row's products in 32 bits and stores its rows
+// coalesced.  Row k has min(k + 1, 39 - k) products (400 in all); the
+// groups' counts are 105, 105, 99 and 91, so no thread runs more than 105
+// IMADs, where one thread ran all 400.  Past that batch every SM has
+// blocks of whole lanes, and one lane a thread (128-thread blocks, all 39
+// rows) loads each limb once: the split's warps make 132 row loads for
+// 32 lanes where one lane a thread makes 40, which cost ~0.5 us at 65,536
+// lanes read from HBM (chip_smoke.py [probe_conv-ab]).
 #include "fd_common.cuh"
 
 #define PROBE_NLIMB 20
@@ -70,8 +75,8 @@ __device__ __forceinline__ void probe_conv_rows(const int32_t* __restrict__ a,
 }
 
 __global__ void __launch_bounds__(PROBE_LANES * PROBE_GROUPS)
-probe_conv_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                  int32_t* __restrict__ out, int64_t B) {
+probe_conv_split_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                        int32_t* __restrict__ out, int64_t B) {
   const int64_t lane = (int64_t)blockIdx.x * PROBE_LANES + threadIdx.x % PROBE_LANES;
   if (lane >= B) return;
   switch (threadIdx.x / PROBE_LANES) {  // warp-uniform: each warp its rows, unrolled
@@ -80,6 +85,16 @@ probe_conv_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     case 2: probe_conv_rows<probe_row_group(2), probe_row_group(3)>(a, b, out, B, lane); break;
     default: probe_conv_rows<probe_row_group(3), probe_row_group(4)>(a, b, out, B, lane); break;
   }
+}
+
+#define PROBE_LANE_THREADS 128
+
+__global__ void probe_conv_lane_kernel(const int32_t* __restrict__ a,
+                                       const int32_t* __restrict__ b,
+                                       int32_t* __restrict__ out, int64_t B) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  probe_conv_rows<0, 2 * PROBE_NLIMB - 1>(a, b, out, B, lane);
 }
 
 FD_EXPORT int fd_probe_add(const void* x, const void* y, void* out, int64_t n,
@@ -97,8 +112,17 @@ FD_EXPORT int fd_probe_conv(const void* a, const void* b, void* out, int64_t B,
   int rc = fd_set_device(device);
   if (rc) return rc;
   if (B == 0) return 0;
-  probe_conv_kernel<<<(unsigned)((B + PROBE_LANES - 1) / PROBE_LANES),
-                      PROBE_LANES * PROBE_GROUPS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, B);
+  int sms = 0;
+  rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (rc) return rc;
+  auto pa = (const int32_t*)a;
+  auto pb = (const int32_t*)b;
+  auto po = (int32_t*)out;
+  if (B <= (int64_t)PROBE_LANE_THREADS * sms)
+    probe_conv_split_kernel<<<(unsigned)((B + PROBE_LANES - 1) / PROBE_LANES),
+                              PROBE_LANES * PROBE_GROUPS, 0, (cudaStream_t)stream>>>(pa, pb, po, B);
+  else
+    probe_conv_lane_kernel<<<(unsigned)((B + PROBE_LANE_THREADS - 1) / PROBE_LANE_THREADS),
+                             PROBE_LANE_THREADS, 0, (cudaStream_t)stream>>>(pa, pb, po, B);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@ ceil(25.5 i) = 0, 26, 51, 77, 102, 128, 153, 179, 204, 230.  On Hopper a
 signed 32x32->64 multiply-add `acc += (int64_t)a * b` is one IMAD.WIDE
 (the SASS of K2 and of csrc/fe_field.cuh's fe_mul: 100 a field
 multiply), scheduled ~4 clocks apart by ptxas; 5 limbs of 2^51
-would need 4 multiplies per 64x64->128 product.  K2 moves the 55
+would need 4 multiplies per 64x64->128 product.  K2 moves 54 of the 55
 products below 2^255 to FP64 FMAs (csrc/fe_mul_chain.cu).
 
 Layout: limbs lead, batch trails: (10, *batch).  The plain versions compute
@@ -283,8 +283,10 @@ def fe_mul_chain(x: torch.Tensor, y: torch.Tensor, k: int):
 
     Replaces the Pallas microbenchmark `make_pallas13`
     (scripts/perf_fe.py:114, body `_pallas_mul_body` :81).  The kernel
-    (csrc/fe_mul_chain.cu) has its own inlined product: the 55 products
-    below 2^255 as exact FP64 FMAs, the 45 past it as IMAD.WIDE, and the
+    (csrc/fe_mul_chain.cu) has its own inlined product: 54 of the 55
+    products below 2^255 as exact FP64 FMAs, the other 46 as IMAD.WIDE
+    (every product in the chain's first two steps, whose operands are
+    not yet carried), and the
     carry with each column's rounding half in its accumulator, one lane a
     thread.  It is the testbed for the product form of the verify
     kernels, whose `fe_mul_q` it does not run.  Its limbs equal this

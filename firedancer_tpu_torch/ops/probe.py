@@ -68,8 +68,10 @@ def probe_conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(20, B) int32 x2 -> (39, B) unreduced limb convolution, wrapping
     mod 2^32; replaces scripts/probe_pallas.py:34 conv_kernel.  The kernel
     (csrc/probe.cu) splits the 39 output rows over four warps by product
-    count, each thread one lane's rows of its warp, 32 lanes a block.  CPU
-    tensors run the plain version."""
+    count, each thread one lane's rows of its warp, 32 lanes a block,
+    while one lane a thread would leave an SM idle (B <= 128 x SMs);
+    past that, one lane a thread computes all 39 rows.  CPU tensors run
+    the plain version."""
     dev = _check("probe_conv", a, b, rows=NLIMB)
     if dev.type == "cpu":
         return probe_conv_plain(a, b)

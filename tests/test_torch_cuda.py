@@ -55,13 +55,15 @@ def test_fe_mul_chain_kernel_equals_plain(dev):
 K2_MAX = np.array([int(1.1 * 2 ** (w - 1)) for w in fl.WIDTHS], dtype=np.int64)
 
 
-@pytest.mark.parametrize("k", [0, 1, 64])
+@pytest.mark.parametrize("k", [0, 1, 3, 64, 65])
 @pytest.mark.parametrize("bsz", [1, 127, 129, 16383])
 def test_fe_mul_chain_kernel_at_carried_extremes_and_ragged_blocks(dev, bsz, k):
     """Raw limbs equal to the plain version's: B = 1, a block less one, a
-    block and one, 16,383 (a ragged last block); k = 0 (a copy), 1 (the
-    odd step alone) and 64; every limb at its carried extreme, the first
-    lanes all positive and all negative."""
+    block and one, 16,383 (a ragged last block); k = 0 (a copy), 1 (inside
+    the all-IMAD.WIDE first two steps), 3 and 65 (the single split step
+    that an odd count past the first two runs) and 64 (two-step loop
+    only); every limb at its carried extreme, the first lanes all positive
+    and all negative."""
     rng = np.random.default_rng(2000 + bsz + k)
     signs = rng.choice((-1, 1), (2, fl.NLIMB, bsz))
     signs[0, :, 0] = signs[1, :, 0] = 1
@@ -75,11 +77,13 @@ def test_fe_mul_chain_kernel_at_carried_extremes_and_ragged_blocks(dev, bsz, k):
     assert kbuild.LAUNCHES["fe_mul_chain"] == 1
 
 
-@pytest.mark.parametrize("bsz", [1, 33, 512, 65536])
+@pytest.mark.parametrize("bsz", [1, 33, 512, 16896, 16897, 65536])
 def test_probe_conv_kernel_at_int32_extremes_equals_plain(dev, bsz):
     """probe_conv over full int32 rows with +-(2^31 - 1) and -2^31 on the
     first lanes (every product and sum wraps mod 2^32): equal to the plain
-    version at one lane, a block and one, the probe's 512 and 65,536."""
+    version at one lane, a block and one, the probe's 512, either side of
+    the switch from the row split to one lane a thread on a 132-SM H100
+    (128 x 132 = 16,896) and 65,536."""
     from firedancer_tpu_torch.ops import probe
 
     rng = np.random.default_rng(4000 + bsz)

@@ -27,13 +27,13 @@ def _products(k):
     return min(k + 1, ROWS - k)
 
 
-def conv_model(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+def conv_model(a: np.ndarray, b: np.ndarray, edges=EDGES) -> np.ndarray:
     """The kernel's arithmetic: warp w loads limbs [lo, hi] of a and b
-    (the ones its rows [EDGES[w], EDGES[w + 1]) read) and sums each row's
-    products in uint32."""
+    (the ones its rows [edges[w], edges[w + 1]) read) and sums each row's
+    products in uint32.  edges (0, ROWS) is the one-lane-a-thread form."""
     out = np.full((ROWS, a.shape[1]), 0xDEAD, dtype=np.uint32)
-    for w in range(GROUPS):
-        r0, r1 = EDGES[w], EDGES[w + 1]
+    for w in range(len(edges) - 1):
+        r0, r1 = edges[w], edges[w + 1]
         lo, hi = max(r0 - (NLIMB - 1), 0), min(r1 - 1, NLIMB - 1)
         av = {i: a[i].astype(np.uint32) for i in range(lo, hi + 1)}
         bv = {i: b[i].astype(np.uint32) for i in range(lo, hi + 1)}
@@ -75,3 +75,17 @@ def test_probe_conv_model_equals_plain_and_python_ints_at_int32_extremes(bsz):
                     for i in range(max(0, k - NLIMB + 1), min(k, NLIMB - 1) + 1))
                 for k in range(ROWS)]
         assert [(v + 2**31) % 2**32 - 2**31 for v in want] == got[:, lane].tolist()
+
+
+@pytest.mark.parametrize("bsz", [1, 33])
+def test_probe_conv_one_lane_form_model_equals_plain_at_int32_extremes(bsz):
+    """The form past B = 128 x SMs (probe_conv_lane_kernel): one thread
+    loads all 40 limbs of its lane and sums all 39 rows, equal to the plain
+    version with the int32 extremes on the first and last lanes."""
+    assert "probe_conv_rows<0, 2 * PROBE_NLIMB - 1>" in _SRC
+    rng = np.random.default_rng(400 + bsz)
+    a, b = rng.integers(-2**31, 2**31, (2, NLIMB, bsz), dtype=np.int64)
+    a[:, 0], b[:, -1] = EXTREMES[1], EXTREMES[0]
+    a32, b32 = a.astype(np.int32), b.astype(np.int32)
+    plain = tprobe.probe_conv(torch.from_numpy(a32), torch.from_numpy(b32)).numpy()
+    assert np.array_equal(conv_model(a32, b32, edges=(0, ROWS)), plain)
