@@ -6,13 +6,15 @@ PyTorch version.
 (--parent DIR: DIR holds a checkout of an earlier commit; phase 2 also
 builds its csrc/verify.cu, verify_cached.cu, comb_fill.cu, verify_split.cu,
 sha256_iter32.cu, sha256_msg.cu, keccak256_msg.cu, sha512_batch.cu,
-blake3_msg.cu, lthash_combine.cu, fe_mul_chain.cu and probe.cu
-(PARENT_KERNELS lists each library's C entry points and their arguments),
-and phases 2b, 3, 4, 6, 8, 12, 14, 16, 18 and 19 time those probe_conv,
-K2, K1, K3, K4, K6, K7, K9, K10, K11, K13, K14, K15, K16 and K17 beside
-this tree's, each after its outputs are checked equal: [probe_conv-ab],
-[K2-ab], [K1-ab], [K3-ab], [K4-ab], [K6-ab], [K7-ab], [K9-ab], [K10-ab],
-[K11-ab], [K13-ab], [K14-ab], [K15-ab], [K16-ab], [K17-ab].  It also
+blake3_msg.cu, lthash_combine.cu, fe_mul_chain.cu, probe.cu and
+gf256_apply.cu (PARENT_KERNELS lists each library's C entry points and
+their arguments), and phases 2b, 3, 4, 6, 8, 9, 12, 14, 16, 18 and 19 time
+those probe_conv, K2, K1, K3, K4, K5, K6, K7, K9, K10, K11, K13, K14, K15,
+K16 and K17 beside this tree's, each after its outputs are checked equal:
+[probe_conv-ab], [K2-ab], [K1-ab], [K3-ab], [K4-ab], [K5-ab], [K6-ab],
+[K7-ab], [K9-ab], [K10-ab], [K11-ab], [K13-ab], [K14-ab], [K15-ab],
+[K16-ab], [K17-ab]; [K5-launches] (phases 17-17b) adds the parent's time
+at each launch shape.  It also
 builds this tree's fe_mul_chain.cu, lthash_combine.cu and sha256_msg.cu
 again with one knob set at compile time (KNOB_BUILDS), and phases 3, 16
 and 18 time each knob's values in turns after checking their outputs
@@ -81,10 +83,28 @@ script or when a phase fails):
               cuobjdump, at 2 clocks each) and the chain floor estimate;
               with --parent, the parent's K4 at each B (bytes equal, then
               times in turns): one [K4-ab] line
-  9. K5       gf256_apply encoding T = 1,024 FEC sets of 32 + 32 shreds x
-              1,024 bytes: equal to the plain version (GF(2) bit matmul in
-              float32) and gf256_ref on sampled sets; recover_batch over 64
-              sets with seeded erasures: statuses and rebuilt bytes; timed
+  9. K5       gf256_apply at the shapes its paths launch (K5_SHAPES: the
+              leader block's (1, 27 x 19, 1,019) and (1, 22 x 8, 1,039)
+              encodes, the lossy store's (1, 46 x 19, 1,019) rebuild, 64
+              per-set recover matrices (64 x 32) x 1,024 from
+              recover_batch's erasure patterns, the plane's batch encode of
+              1,024 sets of (32 + 32) x 1,024): equal to the plain version
+              (GF(2) bit matmul in float32) and gf256_ref; recover_batch over
+              those 64 sets: statuses and rebuilt bytes; at T = 2 and S in
+              K5_EDGE_S, k in K5_EDGE_K, from aligned and offset buffers,
+              shared matrices and per-set ones of m = 2k rows (recover's n
+              = d + p up to 134), and 512 sets of (27 x 19) x 1,019 and
+              x 1,024 (a warp looping over 16 column groups on either
+              load path): equal to plain; all-zero data and an
+              all-zero matrix give zeros; each timed shape device only
+              beside its bounds (bytes, the table form's instructions, the
+              tensor-core form's int8 operations, and the least of them)
+              and probe_add's device-only time; the kernel's loops by
+              opcode from `python -m firedancer_tpu_torch.utils.sass`
+              ([K5-sass]: fails without IMMA/HMMA in a loop, or with
+              single-byte shared loads in one); with --parent, the
+              parent's K5 at each timed shape (bytes equal, then times in
+              turns): one [K5-ab] line
   10. plane   build_sharded_verify_pipeline (benchg -> router -> plane step
               -> dedup -> sink), one shard at batch 1,024, PoH spans of
               12,500 hashes, FEC (32, 32, 1,024), over phase 7's stream, with
@@ -163,7 +183,11 @@ script or when a phase fails):
   17b. lossy  phase 17's FEC sets with 1 to p shreds of each dropped,
               through a full-verification StoreStage (merkle proof per
               shred, the leader's signature by ed25519_ref): the same entry
-              bytes, K5 once per set that lost a data shred
+              bytes, K5 once per set that lost a data shred; then
+              [K5-launches]: every K5 launch of phases 17 and 17b by its
+              (T, m x k, S), each shape timed alone on its first launch's
+              inputs beside its least bound (with --parent, the parent's
+              time too), and each phase's sum of (time - bound)
   17c. sharded  build_sharded_leader_pipeline over the same pool on a
               one-shard plane with PoH spans of 12,500 hashes (the PoH
               stage's hashes_per_tick): the clock runs on until one pure
@@ -268,6 +292,23 @@ SHA256_OPS_PER_PAD_COMPRESSION = 840
 # 1 shared coefficient-log load, 4 adds, 4 exp-table loads, 3 shifts and
 # 3 LOP3 = 14 / 4 bytes
 GF_OPS_PER_MULADD = 3.5
+# K5's tensor-core form: 8m x 8k x S x T int8 multiply-adds, two operations
+# each, at the H100 SXM's dense int8 rate (NVIDIA data sheet, 700 W)
+INT8_TC_OPS_PER_S = 1.979e15
+# phase 9: K5's timed shapes, {label: (T, m, k, S, kind)}: the leader
+# block's two set shapes (phase 17's [bmtree]: d = 19 and 8 data shreds of
+# 1,019 and 1,039 bytes, p = 27 and 22), one lossy-store rebuild of n = d
+# + p rows (phase 17b), the per-set recover of 64 sets and the plane's
+# batch encode (phase 10's FEC (32, 32, 1,024) over 1,024 sets)
+K5_SHAPES = {
+    "(1, 27x19, 1019) encode": (1, 27, 19, 1019, "encode"),
+    "(1, 22x8, 1039) encode": (1, 22, 8, 1039, "encode"),
+    "(1, 46x19, 1019) recover": (1, 46, 19, 1019, "recover"),
+    "(64, 64x32, 1024) recover": (64, 64, 32, 1024, "batch-recover"),
+    "(1024, 32x32, 1024) encode": (1024, 32, 32, 1024, "batch-encode"),
+}
+K5_EDGE_S = (1, 3, 63, 65, 999, 1059, 4097)  # phase 9: K5 checked at T = 2
+K5_EDGE_K = (1, 32, 33, 67)
 # 32-bit instructions per BLAKE3 compression in K16, a hand tally: 7 rounds x
 # 8 mixes x 12 (2 three-input adds, 2 adds, 4 XOR, 4 rotates) + 8 output XORs
 BLAKE3_OPS_PER_COMPRESSION = 680
@@ -419,6 +460,9 @@ PARENT_KERNELS = {
     "lthash_combine": (("fd_lthash_combine", _ptrs_then(4, "i64", "i64")),),
     "fe_mul_chain": (("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32")),),
     "probe": (("fd_probe_conv", _ptrs_then(3, "i64")),),
+    # (mat, mat_stride, data, out, exp, log, T, m, k, S, vec): the table form
+    "gf256_apply": (("fd_gf256_apply", ("ptr", "i64", "ptr", "ptr", "ptr", "ptr", "i64",
+                                        "i32", "i32", "i64", "i32")),),
 }
 
 
@@ -967,6 +1011,113 @@ def k2_sass(fsass, kbuild, with_parent: bool) -> dict:
             + ", ".join(f"{op} {c}" for op, c in lp["forms"].items())
             for i, lp in enumerate(out[who])))
     return out
+
+
+def k5_bounds(t: int, m: int, k: int, s: int, n_mats: int, int_ops_per_s: float) -> dict:
+    """K5's bounds at T sets of (m x k) x S bytes, in ms: the bytes (each
+    input byte read once, each output byte written once), the table form's
+    instructions (GF_OPS_PER_MULADD a GF(2^8) multiply-add at the integer
+    rate) and the tensor-core form's operations (8m x 8k x S x T int8
+    multiply-adds at INT8_TC_OPS_PER_S); the least time the card could take
+    is the smaller operations bound, or the bytes bound where that is
+    larger (bound_form names which)."""
+    muladds = t * m * k * s
+    out = dict(bytes_ms=(t * (k + m) * s + n_mats * m * k) / HBM_BYTES_PER_S * 1e3,
+               table_ms=muladds * GF_OPS_PER_MULADD / int_ops_per_s * 1e3,
+               tc_ms=2 * 64 * muladds / INT8_TC_OPS_PER_S * 1e3)
+    ops_ms, form = min((out["tc_ms"], "tensor cores"), (out["table_ms"], "table"))
+    if out["bytes_ms"] > ops_ms:
+        return dict(out, bound_ms=out["bytes_ms"], bound_by="bytes", bound_form="bytes")
+    return dict(out, bound_ms=ops_ms, bound_by="operations", bound_form=form)
+
+
+def k5_parent(parent_fn, gr, dev):
+    """The parent checkout's K5 (the table form) as a call (mat, data) ->
+    out: its exp table (alpha^(i mod 255) below 510, 0 from 510 on) and log
+    table (log 0 = 511) built here as its wrapper built them."""
+    exp = np.zeros(1024, dtype=np.uint8)
+    exp[:510] = gr.EXP[:510]
+    log_ = gr.LOG.astype(np.int16)
+    log_[0] = 511
+    te, tl = torch.from_numpy(exp).to(dev), torch.from_numpy(log_).to(dev)
+
+    def call(mat, data):
+        t, k, s = data.shape
+        m = mat.shape[1]
+        out = torch.empty((t, m, s), dtype=torch.uint8, device=dev)
+        parent_call(parent_fn, dev, mat.data_ptr(), 0 if mat.shape[0] == 1 else m * k,
+                    data.data_ptr(), out.data_ptr(), te.data_ptr(), tl.data_ptr(), t, m, k, s,
+                    int(s % 4 == 0 and data.data_ptr() % 4 == 0))
+        return out
+    return call
+
+
+def k5_ab(parent, g2, runs) -> None:
+    """The parent checkout's K5 beside this one: bytes equal at every timed
+    shape, then device-only times in turns; one [K5-ab] line.  runs:
+    {label: (mat, data)}."""
+    for label, run in runs.items():
+        check(torch.equal(parent(*run), g2.gf_apply_batch(*run)),
+              f"parent K5 and K5 differ at {label}")
+    ab_times("K5-ab", [(label, 50) for label in runs],
+             {label: (lambda r=run: parent(*r)) for label, run in runs.items()},
+             {label: (lambda r=run: g2.gf_apply_batch(*r)) for label, run in runs.items()},
+             digits=5)
+
+
+def k5_sass(kbuild) -> None:
+    """K5's loops by opcode form, from `python -m firedancer_tpu_torch.utils.sass
+    --forms` on this tree's build; one [K5-sass] line a loop.  Fails unless
+    a loop issues tensor-core MMAs (IMMA or HMMA) and no such loop reads
+    single bytes from shared memory (the table form's LDS.U8)."""
+    so = os.path.join(kbuild.build_dir(), "libgf256_apply.so")
+    r = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch.utils.sass", "--forms", so,
+                        "gf256_apply_kernel"], capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"utils.sass on K5 failed: {r.stderr.strip()[-500:]}")
+    lines = [ln.split(" ", 1)[1] for ln in r.stdout.splitlines() if ln.strip()]
+    for ln in lines:
+        log(f"[K5-sass] {ln}")
+    mma = [ln for ln in lines if re.search(r"\b[IH]MMA", ln)]
+    check(mma, "K5's loops issue no tensor-core MMA (IMMA/HMMA)")
+    check(not any("LDS.U8" in ln for ln in mma), "a K5 MMA loop reads single shared bytes")
+
+
+def k5_launch_times(recs, launch, int_ops_per_s, parent=None) -> list[dict]:
+    """K5's launches recorded on a path, each shape (T, m, k, S) timed alone
+    on its first launch's inputs, device only, beside its least bound (and
+    the parent's K5 on the same inputs right after): one dict a launch.
+    launch: the wrapper (gf_apply_batch)."""
+    shapes = {}
+    for mat, data in recs:
+        t, k, s = data.shape
+        key = (t, mat.shape[1], k, s)
+        if key not in shapes:
+            x = k5_bounds(*key, mat.shape[0], int_ops_per_s)
+            x["ms"] = time_ms(lambda r=(mat, data): launch(*r), reps=50, hide_host=True)
+            if parent is not None:
+                x["parent_ms"] = time_ms(lambda r=(mat, data): parent(*r), reps=50,
+                                         hide_host=True)
+            shapes[key] = x
+    return [dict(shape=key, **shapes[key]) for key in
+            ((d.shape[0], m.shape[1], d.shape[1], d.shape[2]) for m, d in recs)]
+
+
+def k5_launch_summary(phase: str, per: list[dict]) -> str:
+    """Phase `phase`'s K5 launches by shape: count, time, least bound (and
+    the parent's time); the sums of (time - bound)."""
+    by = {}
+    for x in per:
+        by.setdefault(x["shape"], [0, x])[0] += 1
+    with_parent = bool(per) and "parent_ms" in per[0]
+    loss = sum(x["ms"] - x["bound_ms"] for x in per)
+    text = f"phase {phase}: {len(per)} launches, " + "; ".join(
+        f"({t}, {m}x{k}, {s}) x{n}: {x['ms'] * 1e3:.2f} us, bound {x['bound_ms'] * 1e3:.3f} us"
+        f" ({x['bound_form']})" + (f", parent {x['parent_ms'] * 1e3:.2f} us" if with_parent else "")
+        for (t, m, k, s), (n, x) in by.items()) + f"; sum of (time - bound) {loss * 1e3:.2f} us"
+    if with_parent:
+        text += f", the parent's {sum(x['parent_ms'] - x['bound_ms'] for x in per) * 1e3:.2f} us"
+    return text
 
 
 def device_kernels(fn) -> list[str] | None:
@@ -1526,7 +1677,7 @@ def main() -> int:
     if parent_fns is not None:
         k4_ab(parent_fns["fd_sha256_iter32"], fsha256, dev, x4b, N4)
 
-    # -- 9. K5 gf256_apply: the full-block encode, then recover_batch -----------------------
+    # -- 9. K5 gf256_apply: the main paths' shapes, the plane's batch encode, the edges -----
     mark("9")
     T9, D9, P9, S9 = 1024, 32, 32, 1024
     rng = np.random.default_rng(9)
@@ -1535,17 +1686,9 @@ def main() -> int:
     gen9 = torch.from_numpy(rs.parity_matrix(D9, P9)).to(dev)
     par9 = rs.encode_core(gen9, dt9)
     torch.cuda.synchronize()
-    ppar9 = g2.gf_apply_batch_plain(gen9.reshape(1, P9, D9), dt9)
-    err9 = int((par9.to(torch.int64) - ppar9.to(torch.int64)).abs().max())
-    check(err9 == 0, f"K5 differs from its plain version (max abs err {err9})")
-    del ppar9
     par9h = par9.cpu().numpy()
     for t in rng.choice(T9, 16, replace=False):
         check((par9h[t] == gr.encode(data9[t], P9)).all(), f"K5 set {t} != gf256_ref")
-    ms9 = time_ms(lambda: rs.encode_core(gen9, dt9), reps=20)
-    plain9 = time_host_ms(lambda: g2.gf_apply_batch_plain(gen9.reshape(1, P9, D9), dt9))
-    bms9, bby9 = bound(T9 * P9 * D9 * S9 * GF_OPS_PER_MULADD,
-                       T9 * (D9 + P9) * S9 + P9 * D9)
     # recover_batch over 64 sets: one rebuild matrix per erasure pattern
     TR, N9 = 64, D9 + P9
     full = np.concatenate([data9[:TR], par9h[:TR]], axis=1)  # (64, 64, 1024)
@@ -1570,25 +1713,101 @@ def main() -> int:
           f"recover_batch statuses {st9.tolist()} != {want_st.tolist()}")
     for t in np.flatnonzero(want_st == rs.SUCCESS):
         check((out9h[t] == full[t]).all(), f"recover_batch set {t}: rebuilt bytes differ")
-    mats = torch.from_numpy(np.stack([
+    mats9 = torch.from_numpy(np.stack([
         rs._recover_matrix(D9, N9, tuple(bool(x) for x in present[t]))[0]
         if want_st[t] != rs.ERR_PARTIAL else np.zeros((N9, D9), np.uint8)
         for t in range(TR)])).to(dev)
-    surv9 = sh9[:, :D9].contiguous()
-    ms9r = time_ms(lambda: g2.gf_apply_batch(mats, surv9), reps=20)
+    # the timed shapes (K5_SHAPES): the leader's two encodes and the lossy
+    # store's rebuild (one set each, S ragged), the 64 per-set matrices
+    # above and the plane's batch encode
+    runs9 = {}
+    for label, (t_, m_, k_, s_, kind) in K5_SHAPES.items():
+        if kind == "batch-recover":
+            runs9[label] = (mats9, sh9[:, :D9].contiguous())
+            continue
+        if kind == "batch-encode":
+            runs9[label] = (gen9.reshape(1, P9, D9), dt9)
+            continue
+        if kind == "encode":
+            mat_ = rs.parity_matrix(k_, m_)
+        else:  # one rebuild: n = d + p rows from the d survivors of a loss pattern
+            n_ = m_
+            gone = rng.choice(n_, n_ - k_, replace=False)
+            mat_ = rs._recover_matrix(k_, n_, tuple(i not in gone for i in range(n_)))[0]
+        runs9[label] = (torch.from_numpy(np.ascontiguousarray(mat_)[None]).to(dev),
+                        torch.from_numpy(rng.integers(0, 256, (t_, k_, s_), dtype=np.uint8)).to(dev))
+    k5, err9 = {}, 0
+    for label, (mat_, dat_) in runs9.items():
+        got = g2.gf_apply_batch(mat_, dat_)
+        torch.cuda.synchronize()
+        plain_ = g2.gf_apply_batch_plain(mat_, dat_)
+        err = int((got.to(torch.int16) - plain_.to(torch.int16)).abs().max())
+        check(err == 0, f"K5 differs from its plain version at {label} (max abs err {err})")
+        err9 = max(err9, err)
+        gh, mh, dh = got.cpu().numpy(), mat_.cpu().numpy(), dat_.cpu().numpy()
+        for j in sorted({0, dat_.shape[0] - 1}):
+            check((gh[j] == gr.gf_matmul(mh[j if mh.shape[0] > 1 else 0], dh[j])).all(),
+                  f"K5 set {j} != gf256_ref at {label}")
+        t_, m_, k_, s_, _ = K5_SHAPES[label]
+        k5[label] = dict(
+            ms=time_ms(lambda r=(mat_, dat_): g2.gf_apply_batch(*r), reps=50, hide_host=True),
+            plain_ms=time_host_ms(lambda r=(mat_, dat_): g2.gf_apply_batch_plain(*r)),
+            **k5_bounds(t_, m_, k_, s_, mh.shape[0], int_ops_per_s))
+        del plain_
+    # the edges, checked only: T = 2, ragged S, k padded to 4 bytes, aligned
+    # and offset data, shared and per-set matrices (recover's m = n = 2k),
+    # zero coefficients and all-zero columns; then all-zero data and matrices
+    edges9 = 0
+    for s_ in K5_EDGE_S:
+        for k_ in K5_EDGE_K:
+            for per_set, m_ in ((False, max(1, k_ // 2) + 7), (True, 2 * k_)):
+                mh = rng.integers(0, 256, (2 if per_set else 1, m_, k_), dtype=np.uint8)
+                mh[0, :, 0] = 0
+                dh = rng.integers(0, 256, (2, k_, s_), dtype=np.uint8)
+                dh[1, :, s_ // 2:] = 0
+                mt_, dt_ = torch.from_numpy(mh).to(dev), torch.from_numpy(dh).to(dev)
+                want = g2.gf_apply_batch_plain(mt_, dt_)
+                for off in (0, 1):
+                    check(torch.equal(g2.gf_apply_batch(mt_, offset_rows(dt_, off) if off else dt_),
+                                      want), f"K5 differs from plain at T=2 m={m_} k={k_} S={s_}"
+                          f" offset {off} per_set {per_set}")
+                    edges9 += 1
+    # 512 of the leader's sets at once fill the grid: a warp loops over 16
+    # column groups, on the byte loads (1,019) and the cp.async tiles (1,024)
+    for s_ in (1019, 1024):
+        mt_ = runs9[next(iter(K5_SHAPES))][0]
+        dt_ = torch.from_numpy(rng.integers(0, 256, (512, 19, s_), dtype=np.uint8)).to(dev)
+        check(torch.equal(g2.gf_apply_batch(mt_, dt_), g2.gf_apply_batch_plain(mt_, dt_)),
+              f"K5 differs from plain at T=512 (27 x 19) x {s_}")
+        edges9 += 1
+    label9 = next(iter(K5_SHAPES))  # the leader block's common set: the kernel's row
+    mat_, dat_ = runs9[label9]
+    check(not g2.gf_apply_batch(mat_, torch.zeros_like(dat_)).any()
+          and not g2.gf_apply_batch(torch.zeros_like(mat_), dat_).any(),
+          f"K5 at {label9}: zero data or a zero matrix gives nonzero bytes")
+    main9 = k5[label9]
     kernels.append(dict(
         name="gf256_apply", route="cuda",
         source="firedancer_tpu_torch/csrc/gf256_apply.cu",
         replaces="firedancer_tpu/ops/gf256.py:64 (and :82)", launches=None,
-        max_abs_err=err9, ms=ms9, plain_ms=plain9, bound_ms=bms9, bound_by=bby9,
-        library_ms=None, matched=True, shape=f"T={T9} d={D9} p={P9} S={S9}",
-        ms_recover_64x64x32=ms9r, phase_launches=kbuild.LAUNCHES["gf256_apply"]))
-    log(f"[K5] gf256_apply encode T={T9} ({D9}+{P9})x{S9}: equal to plain and"
-        f" gf256_ref; {ms9:.4f} ms = {T9 * D9 * S9 / ms9 / 1e6:.2f} GB/s of data"
-        f" (bound {bms9:.4f} ms, {bby9}); plain {plain9:.1f} ms; recover_batch 64 sets:"
+        max_abs_err=err9, ms=main9["ms"], plain_ms=main9["plain_ms"],
+        bound_ms=main9["bound_ms"], bound_by=main9["bound_by"], library_ms=None, matched=True,
+        shape=label9, at_shape=k5, probe_add_device_ms=msa_dev,
+        phase_launches=kbuild.LAUNCHES["gf256_apply"]))
+    log(f"[K5] gf256_apply equal to plain and gf256_ref at {len(runs9)} shapes and to plain at"
+        f" {edges9} edge launches (S {K5_EDGE_S}, k {K5_EDGE_K}, offset 0/1, shared and"
+        f" per-set matrices; 512 sets of (27 x 19) x 1,019 and 1,024); zero data and zero"
+        f" matrices give zeros; recover_batch 64 sets:"
         f" statuses {dict((int(a), int(b)) for a, b in zip(*np.unique(st9, return_counts=True)))}"
-        f" as expected,"
-        f" bytes equal; per-set matrices (64, 64x32, 1024): {ms9r:.4f} ms")
+        f" as expected, bytes equal; device only (T, m x k, S): " + "; ".join(
+            f"{label}: {x['ms'] * 1e3:.2f} us (bounds: bytes {x['bytes_ms'] * 1e3:.3f}, table"
+            f" {x['table_ms'] * 1e3:.3f}, tensor cores {x['tc_ms'] * 1e3:.3f} us; least"
+            f" {x['bound_ms'] * 1e3:.3f} us, {x['bound_form']}), plain {x['plain_ms']:.1f} ms"
+            for label, x in k5.items())
+        + f"; probe_add device only {msa_dev * 1e3:.2f} us")
+    k5_sass(kbuild)
+    if parent_fns is not None:
+        k5_ab(k5_parent(parent_fns["fd_gf256_apply"], gr, dev), g2, runs9)
 
     # -- 10. the serving plane's pipeline (main path) --------------------------------------
     mark("10")
@@ -2284,15 +2503,34 @@ def main() -> int:
     gen17_s = time.perf_counter() - t0
     pipe17 = build_leader_pipeline(pool17, device=dev, batch=B1, max_msg_len=ML1,
                                    n_bank=2, keep_entries=True, pack_depth=LEADER_TXNS)
+    # every K5 launch of phases 17 and 17b, recorded with its inputs
+    k5_rec = {"17": [], "17b": []}
+    k5_launch = g2.gf_apply_batch
+
+    def k5_recording(phase):
+        def rec(mat, data):
+            if data.device.type == "cuda":
+                k5_rec[phase].append((mat.clone(), data.clone()))
+            return k5_launch(mat, data)
+        return rec
+
+    k5_parent_call = k5_parent(parent_fns["fd_gf256_apply"], gr, dev) if parent_fns else None
     kbuild.reset_launches()
-    t0 = time.perf_counter()
-    pipe17.run()
-    torch.cuda.synchronize()
-    run17_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    seal17 = pipe17.seal()
-    seal17_s = time.perf_counter() - t0
+    g2.gf_apply_batch = k5_recording("17")
+    try:
+        t0 = time.perf_counter()
+        pipe17.run()
+        torch.cuda.synchronize()
+        run17_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seal17 = pipe17.seal()
+        seal17_s = time.perf_counter() - t0
+    finally:
+        g2.gf_apply_batch = k5_launch
     launches17 = dict(kbuild.LAUNCHES)
+    check(len(k5_rec["17"]) == launches17.get("gf256_apply", 0),
+          f"leader pipeline: {len(k5_rec['17'])} K5 calls recorded, {launches17} launched")
+    k5_17 = k5_launch_times(k5_rec["17"], k5_launch, int_ops_per_s, k5_parent_call)
     rep17 = pipe17.report()
     landed17 = sum(rep17[b.name].get("txn_exec", 0) for b in pipe17.banks)
     check(landed17 == LEADER_TXNS == seal17.signature_cnt,
@@ -2318,9 +2556,9 @@ def main() -> int:
           "leader pipeline: replay_block does not reproduce the seal")
     split17 = dict(pipe17.stage_s)
     txn17_s = landed17 / run17_s
-    # upper estimate: each K1 launch a full batch's time, each K5 launch
-    # phase 9's 1,024-set encode, K13 phase 16's N = 1,040 (the seal's)
-    busy17 = (launches17.get("verify_batch", 0) * ms1k + launches17.get("gf256_apply", 0) * ms9
+    # upper estimate: each K1 launch a full batch's time, each K5 launch its
+    # shape's time alone ([K5-launches]), K13 phase 16's N = 1,040 (the seal's)
+    busy17 = (launches17.get("verify_batch", 0) * ms1k + sum(x["ms"] for x in k5_17)
               + k13[K13_ROWS[0]]["ms"]) / ((run17_s + seal17_s) * 1e3)
     log(f"[leader] {LEADER_TXNS} transfers (8 payers, {LEADER_DESTS} dests; pool signed in"
         f" {gen17_s:.1f} s) at batch {B1}, 2 banks: run {run17_s:.3f} s = {txn17_s:.0f} txn/s"
@@ -2349,11 +2587,15 @@ def main() -> int:
     store17b = StoreStage("store_lossy", [Consumer(link17)], trust_membership=False,
                           verify_sig=lambda root, sig: ref.verify(root, sig, pub17), device=dev)
     kbuild.reset_launches()
-    t0 = time.perf_counter()
-    while link17.q:
-        store17b.run_once()
-    torch.cuda.synchronize()
-    lossy17_s = time.perf_counter() - t0
+    g2.gf_apply_batch = k5_recording("17b")
+    try:
+        t0 = time.perf_counter()
+        while link17.q:
+            store17b.run_once()
+        torch.cuda.synchronize()
+        lossy17_s = time.perf_counter() - t0
+    finally:
+        g2.gf_apply_batch = k5_launch
     launches17b = dict(kbuild.LAUNCHES)
     check(store17b.entry_batch_bytes(1) == batch17, "lossy store: entry bytes differ")
     check(launches17b.get("gf256_apply", 0) == need17 > 0,
@@ -2362,6 +2604,12 @@ def main() -> int:
     log(f"[leader-lossy] {len(wire17)} of {sum(len(st.data_shreds) + len(st.parity_shreds) for st in pipe17.shred.sets)}"
         f" shreds through a full-verification store in {lossy17_s:.3f} s: same entry bytes;"
         f" {need17} sets rebuilt; resolver {store17b.resolver.metrics}; launches {launches17b}")
+    check(len(k5_rec["17b"]) == need17, f"lossy store: {len(k5_rec['17b'])} K5 calls recorded")
+    k5_17b = k5_launch_times(k5_rec["17b"], k5_launch, int_ops_per_s, k5_parent_call)
+    log("[K5-launches] each K5 launch's (T, m x k, S), each shape timed alone on its first"
+        " launch's inputs, device only, beside its least bound: "
+        + k5_launch_summary("17", k5_17) + "; " + k5_launch_summary("17b", k5_17b))
+    del k5_rec
 
     # -- 17c. the sharded leader pipeline on the serving plane ---------------------------------
     mark("17c")
@@ -2763,6 +3011,10 @@ def main() -> int:
                                              for b in K15_BATCHES})
     by_name["sha256_msg"].update(root_build_ms=dev18, host_tree_ms=host18_ms, ms_narrow=ms14n,
                                  root_build_launches=per18, root_build_loss_ms=loss18)
+    by_name["gf256_apply"].update(path_loss_ms={
+        ph: sum(x["ms"] - x["bound_ms"] for x in per) for ph, per in (("17", k5_17), ("17b", k5_17b))},
+        path_shapes={ph: sorted({str(x["shape"]): x["ms"] for x in per}.items())
+                     for ph, per in (("17", k5_17), ("17b", k5_17b))})
 
     for k in kernels:
         check(k["phase_launches"] > 0, f"{k['name']} never launched in its phase")
@@ -2803,8 +3055,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's probe_conv, K1-K4, K6, K7, K9-K11 and
-    # K13-K17 (a checkout of an earlier commit) and time them beside this
-    # tree's in phases 2b, 3, 4, 6, 8, 12, 14, 16, 18 and 19
+    # --parent DIR: also build DIR's probe_conv, K1-K7, K9-K11 and K13-K17
+    # (a checkout of an earlier commit) and time them beside this tree's in
+    # phases 2b, 3, 4, 6, 8, 9, 12, 14, 16, 17b, 18 and 19
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     sys.exit(main())

@@ -6,16 +6,18 @@ PyTorch version and the `gf256_apply` kernel wrapper (K5).
 with mat (T or 1, m, k) uint8 and data (T, k, S) uint8 -> (T, m, S) uint8.
 One function is the counterpart of both TPU programs: all sets sharing one
 matrix is ops/gf256.py:64 _gf2_matmul_bits (Reed-Solomon encode), one
-matrix per set is :82 _gf2_bmm_bits (batched recover).  The kernel works
-on bytes with log/exp tables, so unpack_bits/pack_bits have no
-counterpart on its path.
+matrix per set is :82 _gf2_bmm_bits (batched recover).  The kernel takes
+the same GF(2) formulation to the int8 tensor cores: it builds the bit
+matrix in shared memory from the coefficients (`bit_tiles` is its host
+twin, in the kernel's row and column order) and unpacks the data bits in
+registers, so unpack_bits/pack_bits have no counterpart on its path.
 
-The plain version is the JAX package's GF(2) formulation, independent of
-the kernel's table arithmetic: multiplication by a constant is linear over
-GF(2), so the matrix lifts to an (8m, 8k) bit-block matrix
-(`gf_matrix_to_bits`), the data unpacks to bits, the product is taken in
-float32 (exact: every sum is at most 8 x 67 = 536 < 2^24, and PyTorch has
-no integer matmul on CUDA), then reduced mod 2 and packed.
+The plain version is the JAX package's GF(2) formulation: multiplication
+by a constant is linear over GF(2), so the matrix lifts to an (8m, 8k)
+bit-block matrix (`gf_matrix_to_bits`), the data unpacks to bits, the
+product is taken in float32 (exact: every sum is at most 8 x 67 = 536 <
+2^24, and PyTorch has no integer matmul on CUDA), then reduced mod 2 and
+packed.
 """
 
 from __future__ import annotations
@@ -27,9 +29,14 @@ from ..utils import kbuild
 from .ref import gf256_ref as gr
 
 _PTR, _I32, _I64 = kbuild.PTR, kbuild.I32, kbuild.I64
-# fd_gf256_apply(mat, mat_stride, data, out, exp, log, T, m, k, S, vec, ...)
+# fd_gf256_apply(mat, mat_stride, data, out, T, m, k, S, vec, ...)
 _GF256 = kbuild.bind("gf256_apply", "fd_gf256_apply", 0,
-                     (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I64, _I32))
+                     (_PTR, _I64, _PTR, _PTR, _I64, _I32, _I32, _I64, _I32))
+
+ROW_GROUP = 16  # output rows (bytes) a block: bit tile i's rows g and g + 8
+BIT_TILES = 8  # 16-row tiles of the bit matrix a row group: tile i is output bit i
+K_STEP = 4  # input bytes an m16n8k32 step (32 bits)
+K_MAX = 68  # the kernel's k: the RS maximum 67, padded to K_STEP
 
 
 def gf_matrix_to_bits(a: np.ndarray) -> np.ndarray:
@@ -44,6 +51,41 @@ def gf_matrix_to_bits(a: np.ndarray) -> np.ndarray:
     cols = gr.gf_mul(a[:, :, None], xj[None, None, :]).astype(np.uint8)
     bits = (cols[:, :, None, :] >> np.arange(8, dtype=np.uint8)[None, None, :, None]) & 1
     return bits.transpose(0, 2, 1, 3).reshape(8 * m, 8 * k).astype(np.int8)
+
+
+def bit_tiles(mat: np.ndarray) -> np.ndarray:
+    """K5's A operand for one (m, k) GF(2^8) matrix, as its blocks build it
+    in shared memory: (row groups, k-steps, 8 bit tiles, 32 lanes, 4)
+    uint32, each word four int8 lanes, lane j of a word the j-th byte.
+
+    Lane (g, t) = (lane // 4, lane % 4) of k-step s holds, for bit tile i,
+    the products P_j = a * x^j of a = mat[16q + g, c] (words 0 and 2) and
+    of a = mat[16q + g + 8, c] (words 1 and 3), c = 4s + t; words 0 and 1
+    carry j = 0..3, words 2 and 3 j = 4..7, each byte masked to bit i (so
+    2^i or 0).  In the m16n8k32 A fragment that is: tile i's row g' is
+    bit i of output byte 16q + g', and its column 4t + j (j < 4) or
+    16 + 4t + j - 4 is bit j of input byte 4s + t, so with the stated
+    permutation this is gf_matrix_to_bits(mat) times 2^i on tile i's rows.
+    Rows past m and columns past k (k padded to a multiple of K_STEP) are
+    zero.
+    """
+    a = np.asarray(mat, dtype=np.uint8)
+    m, k = a.shape
+    groups, steps = -(-m // ROW_GROUP), -(-k // K_STEP)
+    pad = np.zeros((ROW_GROUP * groups, K_STEP * steps), dtype=np.uint8)
+    pad[:m, :k] = a
+    xj = (1 << np.arange(8)).astype(np.uint8)
+    prods = gr.gf_mul(pad[:, :, None], xj[None, None, :]).astype(np.uint32)  # (rows, cols, j)
+    shift = (8 * np.arange(4)).astype(np.uint32)
+    lo = (prods[..., :4] << shift).sum(-1, dtype=np.uint32)  # bytes j = 0..3
+    hi = (prods[..., 4:] << shift).sum(-1, dtype=np.uint32)  # bytes j = 4..7
+    # (group, row in group, step, t) -> (group, step, g, t, word)
+    lo = lo.reshape(groups, ROW_GROUP, steps, K_STEP).transpose(0, 2, 1, 3)
+    hi = hi.reshape(groups, ROW_GROUP, steps, K_STEP).transpose(0, 2, 1, 3)
+    words = np.stack([lo[:, :, :8], lo[:, :, 8:], hi[:, :, :8], hi[:, :, 8:]], -1)
+    words = words.reshape(groups, steps, 32, 4)
+    masks = (np.uint32(0x01010101) << np.arange(BIT_TILES, dtype=np.uint32))
+    return words[:, :, None] & masks[None, None, :, None, None]
 
 
 def _check(mat: torch.Tensor, data: torch.Tensor) -> None:
@@ -73,32 +115,14 @@ def gf_apply_batch_plain(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return (pbits << j).sum(dim=2).to(torch.uint8)
 
 
-_TABLES: dict = {}
-
-
-def kernel_tables(device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's (exp 1,024 uint8, log 256 int16) tables on `device`:
-    exp[i] = alpha^(i mod 255) below 510 and 0 from 510 on, log(0) = 511,
-    so a product with a zero factor reads 0 with no test."""
-    key = str(device)
-    if key not in _TABLES:
-        exp = np.zeros(1024, dtype=np.uint8)
-        exp[:510] = gr.EXP[:510]
-        log = gr.LOG.astype(np.int16)
-        log[0] = 511
-        _TABLES[key] = (torch.from_numpy(exp).to(device),
-                        torch.from_numpy(log).to(device))
-    return _TABLES[key]
-
-
 def gf_apply_batch(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """K5: (T or 1, m, k) GF(2^8) matrices applied to (T, k, S) byte columns
     -> (T, m, S) uint8.
 
     Replaces ops/gf256.py:64 _gf2_matmul_bits (mat shared by every set) and
     :82 _gf2_bmm_bits (one mat per set).  On CPU tensors this runs the
-    plain version; on CUDA tensors it launches csrc/gf256_apply.cu or
-    raises.
+    plain version; on CUDA tensors it launches csrc/gf256_apply.cu (k at
+    most K_MAX) or raises.
     """
     _check(mat, data)
     if data.device.type == "cpu":
@@ -107,12 +131,12 @@ def gf_apply_batch(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gf_apply_batch: unsupported device {data.device}")
     t, k, s = data.shape
     m = mat.shape[1]
-    exp, log = kernel_tables(data.device)
+    if k > K_MAX:
+        raise ValueError(f"gf_apply_batch: k = {k} > {K_MAX}, the kernel's limit")
     out = torch.empty((t, m, s), dtype=torch.uint8, device=data.device)
     if out.numel() == 0:
         return out
     stride = 0 if mat.shape[0] == 1 else m * k
-    vec = int(s % 4 == 0 and data.data_ptr() % 4 == 0)
-    _GF256(data.device, mat.data_ptr(), stride, data.data_ptr(), out.data_ptr(),
-           exp.data_ptr(), log.data_ptr(), t, m, k, s, vec)
+    vec = int(s % 16 == 0 and data.data_ptr() % 16 == 0)
+    _GF256(data.device, mat.data_ptr(), stride, data.data_ptr(), out.data_ptr(), t, m, k, s, vec)
     return out

@@ -198,7 +198,7 @@ def test_gf256_apply_kernel_equals_plain_and_ref(dev, per_set, m, k, s):
     rng = np.random.default_rng(m * k + s)
     t = 6
     mats = rng.integers(0, 256, (t if per_set else 1, m, k), dtype=np.uint8)
-    mats[0, 0, :] = 0  # zero coefficients take the table's zero path
+    mats[0, 0, :] = 0  # zero coefficients: a zero row of A
     data = rng.integers(0, 256, (t, k, s), dtype=np.uint8)
     data[:, 0, :3] = 0
     mt, dt = torch.from_numpy(mats).to(dev), torch.from_numpy(data).to(dev)
@@ -208,6 +208,66 @@ def test_gf256_apply_kernel_equals_plain_and_ref(dev, per_set, m, k, s):
     for j in range(t):
         assert (gh[j] == gr.gf_matmul(mats[j if per_set else 0], data[j])).all()
     assert kbuild.LAUNCHES["gf256_apply"] == 1
+
+
+def _offset_copy(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """x on its device starting `offset` bytes into a buffer (rows not
+    16-byte aligned: K5's byte-load path)."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    y = flat[offset:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", [1, 32, 33, 67])
+@pytest.mark.parametrize("s", [1, 3, 63, 65, 999, 1059, 4097])
+def test_gf256_apply_kernel_at_edge_shapes_equals_plain(dev, s, k, offset):
+    """Phase 9's edges: T = 2, ragged S (one to many 32-column groups, the
+    8-byte store path at S % 8 == 0), k padded to 4 bytes, data from an
+    aligned and an offset buffer, per-set and shared matrices with zero
+    coefficients and all-zero columns, and recover's m = 2k rows."""
+    from firedancer_tpu_torch.ops import gf256 as g2
+
+    rng = np.random.default_rng(s * 100 + k)
+    for per_set, m in ((False, max(1, k // 2) + 7), (True, 2 * k)):
+        mats = rng.integers(0, 256, (2 if per_set else 1, m, k), dtype=np.uint8)
+        mats[0, :, 0] = 0
+        data = rng.integers(0, 256, (2, k, s), dtype=np.uint8)
+        data[1, :, s // 2:] = 0
+        mt = torch.from_numpy(mats).to(dev)
+        dt = _offset_copy(torch.from_numpy(data).to(dev), offset)
+        kbuild.reset_launches()
+        got = g2.gf_apply_batch(mt, dt)
+        assert kbuild.LAUNCHES["gf256_apply"] == 1
+        assert torch.equal(got, g2.gf_apply_batch_plain(mt, dt.contiguous())), (per_set, m)
+
+
+@pytest.mark.parametrize("s,offset", [(1019, 0), (1024, 1), (1024, 0)])
+def test_gf256_apply_kernel_many_groups_a_warp_on_both_load_paths(dev, s, offset):
+    """600 sets fill the grid, so each block takes whole rows and each warp
+    loops over 16-17 column groups: the byte loads (unaligned rows) and
+    the double-buffered cp.async tiles (aligned rows)."""
+    from firedancer_tpu_torch.ops import gf256 as g2
+
+    rng = np.random.default_rng(s + offset)
+    mt = torch.from_numpy(rng.integers(0, 256, (1, 27, 19), dtype=np.uint8)).to(dev)
+    data = torch.from_numpy(rng.integers(0, 256, (600, 19, s), dtype=np.uint8)).to(dev)
+    dt = _offset_copy(data, offset)
+    assert torch.equal(g2.gf_apply_batch(mt, dt), g2.gf_apply_batch_plain(mt, data))
+
+
+def test_gf256_apply_kernel_zero_inputs_and_k_limit(dev):
+    from firedancer_tpu_torch.ops import gf256 as g2
+
+    mat = torch.randint(0, 256, (1, 27, 19), dtype=torch.uint8, device=dev)
+    zeros = torch.zeros((3, 19, 1019), dtype=torch.uint8, device=dev)
+    assert not g2.gf_apply_batch(mat, zeros).any()
+    data = torch.randint(0, 256, (3, 19, 1019), dtype=torch.uint8, device=dev)
+    assert not g2.gf_apply_batch(torch.zeros_like(mat), data).any()
+    with pytest.raises(ValueError):
+        g2.gf_apply_batch(torch.zeros((1, 4, 69), dtype=torch.uint8, device=dev),
+                          torch.zeros((1, 69, 8), dtype=torch.uint8, device=dev))
 
 
 def test_reedsol_recover_batch_on_card(dev):
@@ -230,6 +290,33 @@ def test_reedsol_recover_batch_on_card(dev):
     oh = out.cpu().numpy()
     for j in (0, 1, 4):
         assert (oh[j] == full[j]).all()
+
+
+@pytest.mark.parametrize("d,p,sz", [(19, 27, 1019), (8, 22, 1039), (67, 67, 64)])
+def test_reedsol_recover_batch_on_card_equals_cpu_for_every_status(dev, d, p, sz):
+    """The main paths' set shapes: statuses and every rebuilt byte (the
+    failed sets' rows included) on the card equal the CPU's."""
+    from firedancer_tpu_torch.ops import reedsol as rs
+
+    rng = np.random.default_rng(d * p)
+    t, n = 6, d + p
+    data = rng.integers(0, 256, (t, d, sz), dtype=np.uint8)
+    full = np.concatenate([data, rs.encode(data, p, device="cpu").numpy()], axis=1)
+    present = np.ones((t, n), dtype=bool)
+    present[0, rng.choice(n, p, replace=False)] = False  # exactly d survivors
+    present[1, :min(d, p)] = False  # data lost, rebuilt from parity
+    present[2, rng.choice(n, p + 1, replace=False)] = False  # d - 1: ERR_PARTIAL
+    shreds = full.copy()
+    shreds[3, n - 1, 5] ^= 0x80  # a corrupted extra: ERR_CORRUPT
+    present[5, rng.choice(n, p // 2, replace=False)] = False  # extras
+    shreds[~present] = rng.integers(0, 256, (int((~present).sum()), sz), dtype=np.uint8)
+    st, out = rs.recover_batch(shreds, present, d, device=dev)
+    cst, cout = rs.recover_batch(shreds, present, d, device="cpu")
+    assert st.tolist() == cst.tolist()
+    assert sorted(set(st.tolist())) == [rs.ERR_PARTIAL, rs.ERR_CORRUPT, rs.SUCCESS]
+    assert (out.cpu().numpy() == cout.numpy()).all()
+    for j in np.flatnonzero(st == rs.SUCCESS):
+        assert (out[j].cpu().numpy() == full[j]).all()
 
 
 def test_probe_kernels_equal_plain(dev):

@@ -2,9 +2,12 @@
 exactly: the gf256_ref tables and generator matrices; gf_apply_batch_plain
 (what the K5 wrapper runs on CPU tensors) against the JAX GF(2) bit-matmul
 programs; encode, recover and recover_batch (bytes and statuses, with
-ERR_PARTIAL and ERR_CORRUPT) against firedancer_tpu/ops/reedsol.py; and the
-kernel's zero-free log/exp table trick against gf_mul over the whole field.
-Inputs are made with numpy from a seed and handed to both packages."""
+ERR_PARTIAL and ERR_CORRUPT) against firedancer_tpu/ops/reedsol.py; and
+K5's own formulation on the CPU: its A operand (`bit_tiles`) against the
+JAX bit matrix in the kernel's row and column order, the in-block
+products and the data bits' unpacking, and a lane-by-lane model of its
+m16n8k32 fragments against the plain version.  Inputs are made with numpy
+from a seed and handed to both packages."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 from firedancer_tpu.ops import gf256 as jg2
 from firedancer_tpu.ops import reedsol as jrs
 from firedancer_tpu.ops.ref import gf256_ref as jgr
+from firedancer_tpu.runtime.shredder import DATA_TO_PARITY
 from firedancer_tpu_torch.ops import gf256 as tg2
 from firedancer_tpu_torch.ops import reedsol as trs
 from firedancer_tpu_torch.ops.ref import gf256_ref as tgr
@@ -43,14 +47,123 @@ def test_gf_matrix_to_bits_equals_jax():
     assert (tg2.gf_matrix_to_bits(a) == jg2.gf_matrix_to_bits(a)).all()
 
 
-def test_kernel_tables_multiply_without_a_zero_test():
-    """K5 reads exp[log a + log b] with log(0) = 511 and zeros from 510 on:
-    the product of every pair of field elements, zero included."""
-    exp, log = (t.numpy().astype(np.int64) for t in tg2.kernel_tables("cpu"))
-    a = np.arange(256)[:, None]
-    b = np.arange(256)[None, :]
-    assert (exp[log[a] + log[b]] == tgr.gf_mul(a, b)).all()
-    assert exp.shape == (1024,) and log.shape == (256,)
+# K5's fragments (PTX ISA, mma.m16n8k32 with 8-bit operands): lane (g, t) =
+# (lane // 4, lane % 4); A register r, byte q is row g + 8 (r & 1), column
+# 4t + q + 16 (r >> 1); B register r, byte q is row 4t + q + 16 r, column g;
+# accumulator e is row g + 8 (e >> 1), column 2t + (e & 1)
+_LANE = np.arange(32)[:, None, None]
+_G, _T = _LANE // 4, _LANE % 4
+_R = np.arange(4)[None, :, None]
+_Q = np.arange(4)[None, None, :]
+A_ROW, A_COL = np.broadcast_arrays(_G + 8 * (_R & 1), 4 * _T + _Q + 16 * (_R >> 1))
+B_ROW, B_COL = np.broadcast_arrays(4 * _T + _Q + 16 * _R[:, :2], _G + 0 * _Q)
+
+
+def _bytes_of(words: np.ndarray) -> np.ndarray:
+    """(..., w) uint32 -> (..., w, 4) its little-endian bytes as int8."""
+    shift = (8 * np.arange(4)).astype(np.uint32)
+    return ((words[..., None] >> shift) & 0xFF).astype(np.uint8).view(np.int8)
+
+
+def _spread(nibble: np.ndarray) -> np.ndarray:
+    """csrc/gf256_apply.cu gf_spread: a nibble's bits to four int8 lanes."""
+    return (nibble.astype(np.uint32) * np.uint32(0x00204081)) & np.uint32(0x01010101)
+
+
+def k5_model(mat: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """One set through K5 as its lanes compute it: A from bit_tiles through
+    the A fragment, each k-step's B registers unpacked from the 32-bit
+    word a lane reads of its warp's data tile (rows 4s + t, columns 4g to
+    4g + 3, zeros past k and S), the m16n8k32 products of each bit tile
+    and n-tile summed over the k-steps, then each lane's accumulators
+    packed into the bytes it stores: (m, k), (k, S) -> (m, S)."""
+    m, k = mat.shape
+    s = data.shape[1]
+    tiles = tg2.bit_tiles(mat)  # (groups, steps, 8, 32, 4)
+    groups, steps = tiles.shape[:2]
+    a = np.zeros((groups, steps, 8, 16, 32), dtype=np.int64)
+    a[..., A_ROW, A_COL] = _bytes_of(tiles)
+    ngrp = -(-s // 32)
+    tile = np.zeros((4 * steps, 32 * ngrp), dtype=np.uint8)
+    tile[:k, :s] = data
+    words = tile.reshape(4 * steps, ngrp, 8, 4).astype(np.uint32)
+    words = (words << (8 * np.arange(4, dtype=np.uint32))).sum(-1, dtype=np.uint32)
+    # the word of lane (g, t) at k-step st and 32-column group q: row 4 st + t, column 4g
+    w = words.reshape(steps, 4, ngrp, 8).transpose(2, 0, 3, 1).reshape(ngrp, steps, 32)
+    b = np.zeros((ngrp, steps, 4, 32, 8), dtype=np.int64)
+    for nt in range(4):
+        regs = np.stack([_spread((w >> (8 * nt)) & 0xF), _spread((w >> (8 * nt + 4)) & 0xF)], -1)
+        b[:, :, nt][..., B_ROW, B_COL] = _bytes_of(regs)
+    acc = np.einsum("psirk,qsnkc->piqnrc", a, b)  # (groups, tile, col group, n-tile, 16, 8)
+    out = np.zeros((16 * groups, 32 * ngrp), dtype=np.uint8)
+    bit = (1 << np.arange(8)).reshape(1, 8, 1, 1)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for e in range(4):
+            c = acc[:, :, :, :, g + 8 * (e >> 1), 2 * t + (e & 1)]  # (groups, 8, ngrp, 4)
+            byte = (c & bit).sum(1)  # bit i of tile i's sum
+            for nt in range(4):
+                out[g + 8 * (e >> 1)::16, 8 * t + 4 * (e & 1) + nt::32] = byte[:, :, nt]
+    return out[:m, :s]
+
+
+@pytest.mark.parametrize("d", range(1, 68))
+def test_bit_tiles_are_the_jax_bit_matrix_in_the_kernels_order(d):
+    """For each (d, p) of DATA_TO_PARITY (p = d past 32), the parity
+    matrix's A operand, read back through the m16n8k32 A fragment, is
+    gf_matrix_to_bits times 2^i on bit tile i: tile i's row g of row group
+    q is bit row 8 (16q + g) + i, column (s, 4t + j or 16 + 4t + j - 4) is
+    bit column 8 (4s + t) + j; padding rows and columns are zero."""
+    p = DATA_TO_PARITY[d] if d <= 32 else d
+    mat = jgr.generator_matrix(d, d + p)[d:]
+    tiles = tg2.bit_tiles(mat)
+    groups, steps = -(-p // 16), -(-d // 4)
+    assert tiles.shape == (groups, steps, 8, 32, 4) and tiles.dtype == np.uint32
+    a = np.zeros((groups, steps, 8, 16, 32), dtype=np.int64)
+    a[..., A_ROW, A_COL] = _bytes_of(tiles).view(np.uint8)
+    jbits = np.zeros((8 * 16 * groups, 8 * 4 * steps), dtype=np.int64)
+    jbits[:8 * p, :8 * d] = jg2.gf_matrix_to_bits(mat)
+    q, i, g = np.meshgrid(np.arange(groups), np.arange(8), np.arange(16), indexing="ij")
+    st, col = np.meshgrid(np.arange(steps), np.arange(32), indexing="ij")
+    t, j = (col % 16) // 4, col % 4 + 4 * (col // 16)
+    rows = (8 * (16 * q + g) + i)[:, None, :, :, None]
+    cols = (8 * (4 * st + t) + j)[None, :, None, None, :]
+    want = jbits[rows, cols] << i[:, None, :, :, None]
+    assert (a == want).all()
+
+
+@pytest.mark.parametrize("m,k,s,per_set", [
+    (27, 19, 1019, False), (22, 8, 1039, False), (46, 19, 67, True), (32, 32, 64, False),
+    (134, 67, 40, True), (3, 1, 1, False), (5, 33, 65, True), (17, 32, 3, False)])
+def test_k5_lane_model_equals_plain(m, k, s, per_set):
+    """The lane-by-lane model of K5 (k padded to 4 bytes, ragged S, rows
+    past m) equals gf_apply_batch_plain, with zero coefficients and
+    all-zero data columns among the inputs."""
+    rng = np.random.default_rng(m * 1000 + k * 10 + s)
+    t = 2
+    mats = rng.integers(0, 256, (t if per_set else 1, m, k), dtype=np.uint8)
+    mats[0, 0, :] = 0
+    mats[0, :, 0] = 0
+    data = rng.integers(0, 256, (t, k, s), dtype=np.uint8)
+    data[:, :, : min(s, 5)] = 0
+    want = tg2.gf_apply_batch_plain(torch.from_numpy(mats), torch.from_numpy(data)).numpy()
+    for j in range(t):
+        assert (k5_model(mats[j if per_set else 0], data[j]) == want[j]).all()
+
+
+def test_k5_in_block_products_and_nibble_spread():
+    """The kernel's expansion steps two coefficients (bytes 0 and 1 of a
+    word) by x at once: after j steps the bytes are a0 * x^j and a1 * x^j
+    for every pair; and gf_spread puts bit q of a nibble in int8 lane q."""
+    a0, a1 = (x.ravel().astype(np.uint32) for x in np.meshgrid(np.arange(256), np.arange(256)))
+    p = a0 | (a1 << 8)
+    for j in range(8):
+        assert ((p & 0xFF) == tgr.gf_mul(a0, 1 << j)).all()
+        assert (((p >> 8) & 0xFF) == tgr.gf_mul(a1, 1 << j)).all()
+        p = ((p << 1) & 0xFEFE) ^ (((p >> 7) & 0x0101) * 0x1D)
+    n = np.arange(16)
+    assert (_bytes_of(_spread(n)[:, None])[:, 0].astype(np.int64)
+            == (n[:, None] >> np.arange(4)) & 1).all()
 
 
 @pytest.mark.parametrize("m,k,s", [(2, 4, 16), (32, 32, 24), (67, 67, 5)])
