@@ -9,11 +9,11 @@ sha256_iter32.cu, sha256_msg.cu, keccak256_msg.cu, sha512_batch.cu,
 blake3_msg.cu, lthash_combine.cu, fe_mul_chain.cu, probe.cu and
 gf256_apply.cu (PARENT_KERNELS lists each library's C entry points and
 their arguments), and phases 2b, 3, 4, 6, 8, 9, 12, 14, 16, 18 and 19 time
-those probe_conv, K2, K1, K3, K4, K5, K6, K7, K9, K10, K11, K13, K14, K15,
-K16 and K17 beside this tree's, each after its outputs are checked equal:
-[probe_conv-ab], [K2-ab], [K1-ab], [K3-ab], [K4-ab], [K5-ab], [K6-ab],
-[K7-ab], [K9-ab], [K10-ab], [K11-ab], [K13-ab], [K14-ab], [K15-ab],
-[K16-ab], [K17-ab]; [K5-launches] (phases 17-17b) adds the parent's time
+those probe_conv, K2, K1, K3, K4, K5, K6, K7, K9, K10, K11, K12, K13, K14,
+K15, K16 and K17 beside this tree's, each after its outputs are checked
+equal: [probe_conv-ab], [K2-ab], [K1-ab], [K3-ab], [K4-ab], [K5-ab],
+[K6-ab], [K7-ab], [K9-ab], [K10-ab], [K11-ab], [K12-ab], [K13-ab],
+[K14-ab], [K15-ab], [K16-ab], [K17-ab]; [K5-launches] (phases 17-17b) adds the parent's time
 at each launch shape.  It also
 builds this tree's fe_mul_chain.cu, lthash_combine.cu and sha256_msg.cu
 again with one knob set at compile time (KNOB_BUILDS), and phases 3, 16
@@ -111,7 +111,7 @@ script or when a phase fails):
               one slot's 64 tick spans (3 corrupted) parked mid-run, then
               the plane's encode_parity and verify_poh_segments: phase 7's
               counters and frames, 61/3 spans, exact K1/K4/K5 launch counts
-  10b. repeat phases 7 and 10 again, six rounds in alternating order, each
+  10b. repeat phases 7 and 10 again, four rounds in alternating order, each
               run checked as before: median, min and max txn/s of both and
               of their ratio within a round
   11. entry   entry.leader_step() once (dryrun_multichip's assertions)
@@ -134,7 +134,7 @@ script or when a phase fails):
               4 slots, 2,048 transfers) in two waves, beside the same stream
               through comb_slots=0: exact counters, comb_filled and
               comb_elems, equal sorted frames, K1/K6/K7/K8 launches equal the
-              stage's batches, cached batches, fills and installs; then 4
+              stage's batches, cached batches, fills and installs; then 2
               more alternating rounds of both: medians and spread of txn/s
   14. split   the split rung's kernels alone: K9 phase_validate, K10
               phase_hash, K11 phase_dsm and K12 phase_compare at B = 16,384
@@ -142,7 +142,13 @@ script or when a phase fails):
               times): mask equal to K1's and to the ed25519_ref labels, K9's
               limbs and ok and K10's k on its last 1,024 lanes equal to
               their plain versions; at B = 1,024 each phase's output
-              (limbs, k, ok, mask) equal to its plain version; each timed
+              (limbs, k, ok, mask) equal to its plain version; K12 at B =
+              1, 31, 33, 1,023, 1,024 and 16,384 (K12_BATCHES) with ok
+              cleared on a seeded quarter more of the lanes and random bits
+              in r_pt wherever ok is false: mask equal to its plain version
+              and to the labels; K12's SASS as one block ([K12-sass]:
+              `utils.sass` `whole`; fails unless a thread waits for one
+              global round trip); each timed
               alone on phase 6's batch at B = 16,384 and 1,024 beside K1,
               per call and device only, with its own bounds; with
               --parent, the parent's K11 on the mixed batch at B = 1,024
@@ -150,7 +156,11 @@ script or when a phase fails):
               decodes, then times in turns), K9 (ok equal, limbs equal
               where the point decodes) and K10 (k equal) on the mixed
               batch, each then timed in turns on phase 6's batch at B =
-              1,024 and 16,384: [K11-ab], [K9-ab] and [K10-ab] lines
+              1,024 and 16,384, and K12 (masks equal at every K12_BATCHES
+              batch, then times in turns on phase 6's batch through K9-K11
+              at B = 1,024 and 16,384, and the parent's SASS beside this
+              tree's in [K12-sass]): [K11-ab], [K9-ab], [K10-ab] and
+              [K12-ab] lines
   15. split pipeline  build_verify_pipeline(kernel="split") over phase 7's
               stream at batch 1,024: phase 7's counters and frames, each of
               K9-K12 launched once per batch and K1 never; beside the fused
@@ -195,6 +205,20 @@ script or when a phase fails):
               once, K5 through encode_parity, K1 once per step; the same
               landed txns and sealed state as phase 17, and replay
               reproduces this pipeline's seal
+  17d. vote leader  build_leader_pipeline over phase 13's vote stream
+              (1,536 voters x 4 slots, 2,048 transfers) with the comb lane
+              on (verify_comb_slots = 2,048) at batch 1,024, max_msg_len
+              1,232, 2 banks, pack's pool the stream's length, over
+              vote_bank_ctx (payers and voters funded, each voter's vote
+              account, SlotHashes for the voted slots): every distinct
+              verified txn landed (txns and signatures), the block's txns
+              are the verified ones, replay_block (with the slot hashes)
+              reproduces the seal and its statuses, K6, K7 and K8 launched
+              (K1/K6/K7/K8 launches equal the stage's batches and fills),
+              K13 once, K5 once or twice per entry batch, every vote
+              account decodes and the towers hold every vote that landed
+              ok (at least one); txn/s to the store, votes landed, host
+              seconds per stage beside phase 17's, the seal's seconds
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -333,16 +357,22 @@ ISSUE_CLOCKS = 2
 # NVIDIA Volta GPU Architecture via Microbenchmarking", 2018) and not on an
 # H100, and taken for every instruction of the chain (loads and barriers too)
 DEP_CLOCKS = 4
-REPEAT_ROUNDS = 6  # phase 10b: extra (verify pipeline, plane pipeline) rounds
+REPEAT_ROUNDS = 4  # phase 10b: extra (verify pipeline, plane pipeline) rounds
 # phases 12-13: the voting set and the comb bank (2,048 slots hold the
 # mainnet-beta voting set, ~1,000-2,000 validators on public explorers)
 VOTERS, BANK_SLOTS, VOTE_ROUNDS, VOTE_TRANSFERS = 1536, 2048, 4, 2048
-COMB_REPEAT_ROUNDS = 4  # phase 13: extra (comb, generic) pipeline rounds
+COMB_REPEAT_ROUNDS = 2  # phase 13: extra (comb, generic) pipeline rounds
 K6_BATCH, K6_SMALL = 16384, 1024  # phase 12: K6's batches (the small one = the stage's)
 SPLIT = ("phase_validate", "phase_hash", "phase_dsm", "phase_compare")  # K9-K12
 SPLIT_LINES = (216, 229, 239, 245)  # their JAX phases in firedancer_tpu/ops/sigverify.py
 TUNE_BATCH, TUNE_AFTER = 2048, 2  # phase 15c: the untuned geometry and the evidence bar
 SPLIT_REPEAT_ROUNDS = 2  # phase 15: extra (split, fused) pipeline rounds
+# phase 14: K12's checked batches (inside a 16-lane block, on both sides of
+# one, the split pipeline's 1,024 and one less, and 16,384), the share of
+# lanes whose ok is cleared besides those K9 refused, and K12's timing reps
+K12_BATCHES = (1, 31, 33, 1023, 1024, 16384)
+K12_DROP = 0.25
+K12_REPS = 200
 K13_ROWS = (1040, 2048, 65536)  # phase 16: K13 timed (phase 17's seal; a slot's few thousand; a large N)
 K13_CHECK_ROWS = (1, 17)  # phase 16: K13 checked only (one row; a ragged chunk)
 PARENT_K13_CHUNKS = (528, 8)  # the parent wrapper's K13 chunks: at most 528, 8 rows or more each
@@ -449,7 +479,8 @@ PARENT_KERNELS = {
     "comb_fill": (("fd_comb_fill", _ptrs_then(3, "i64")),),
     "verify_split": (("fd_phase_validate", _ptrs_then(6, "i64", "i32")),
                      ("fd_phase_hash", _ptrs_then(5, "i64", "i32")),
-                     ("fd_phase_dsm", _ptrs_then(5, "i64"))),
+                     ("fd_phase_dsm", _ptrs_then(5, "i64")),
+                     ("fd_phase_compare", _ptrs_then(4, "i64"))),
     "sha256_iter32": (("fd_sha256_iter32", _ptrs_then(2, "i64", "i64")),),
     "sha256_msg": (("fd_sha256_msg", _ptrs_then(3, "i64")),
                    ("fd_sha256_mix32", _ptrs_then(3, "i64"))),
@@ -460,9 +491,9 @@ PARENT_KERNELS = {
     "lthash_combine": (("fd_lthash_combine", _ptrs_then(4, "i64", "i64")),),
     "fe_mul_chain": (("fd_fe_mul_chain", _ptrs_then(4, "i32", "i32")),),
     "probe": (("fd_probe_conv", _ptrs_then(3, "i64")),),
-    # (mat, mat_stride, data, out, exp, log, T, m, k, S, vec): the table form
-    "gf256_apply": (("fd_gf256_apply", ("ptr", "i64", "ptr", "ptr", "ptr", "ptr", "i64",
-                                        "i32", "i32", "i64", "i32")),),
+    # (mat, mat_stride, data, out, T, m, k, S, vec): the tensor-core form
+    "gf256_apply": (("fd_gf256_apply", ("ptr", "i64", "ptr", "ptr", "i64", "i32", "i32",
+                                        "i64", "i32")),),
 }
 
 
@@ -684,6 +715,27 @@ def k11_ab(parent_fn, sv, fc, dev, runs) -> None:
                         for label, run in runs.items()],
              {label: (lambda r=run: parent(*r[:3])) for label, run in runs.items()},
              {label: (lambda r=run: sv._phase_dsm(*r[:3])) for label, run in runs.items()})
+
+
+def k12_ab(parent_fn, sv, dev, checks, timed) -> None:
+    """The parent checkout's K12 beside this one: masks equal at each batch
+    of `checks` (mixed ok, random bits in r_pt where ok is false), then
+    device-only times at each batch of `timed`, in turns; one [K12-ab]
+    line.  checks, timed: {label: (r_cmp, r_pt, ok)}."""
+
+    def parent(r_cmp, r_pt, ok):
+        mask = torch.empty_like(ok)
+        parent_call(parent_fn, dev, r_cmp.data_ptr(), r_pt.data_ptr(), ok.data_ptr(),
+                    mask.data_ptr(), ok.shape[0])
+        return mask
+
+    for label, run in checks.items():
+        check(torch.equal(parent(*run), sv._phase_compare(*run)),
+              f"parent K12 and K12 masks differ at {label}")
+    ab_times("K12-ab", [(label, K12_REPS) for label in timed],
+             {label: (lambda r=run: parent(*r)) for label, run in timed.items()},
+             {label: (lambda r=run: sv._phase_compare(*r)) for label, run in timed.items()},
+             digits=6)
 
 
 def k9_ab(parent_fn, sv, dev, checks, timed, max_len) -> None:
@@ -1031,23 +1083,17 @@ def k5_bounds(t: int, m: int, k: int, s: int, n_mats: int, int_ops_per_s: float)
     return dict(out, bound_ms=ops_ms, bound_by="operations", bound_form=form)
 
 
-def k5_parent(parent_fn, gr, dev):
-    """The parent checkout's K5 (the table form) as a call (mat, data) ->
-    out: its exp table (alpha^(i mod 255) below 510, 0 from 510 on) and log
-    table (log 0 = 511) built here as its wrapper built them."""
-    exp = np.zeros(1024, dtype=np.uint8)
-    exp[:510] = gr.EXP[:510]
-    log_ = gr.LOG.astype(np.int16)
-    log_[0] = 511
-    te, tl = torch.from_numpy(exp).to(dev), torch.from_numpy(log_).to(dev)
+def k5_parent(parent_fn, dev):
+    """The parent checkout's K5 (the tensor-core form, no tables) as a call
+    (mat, data) -> out, with its wrapper's matrix stride and load path."""
 
     def call(mat, data):
         t, k, s = data.shape
         m = mat.shape[1]
         out = torch.empty((t, m, s), dtype=torch.uint8, device=dev)
         parent_call(parent_fn, dev, mat.data_ptr(), 0 if mat.shape[0] == 1 else m * k,
-                    data.data_ptr(), out.data_ptr(), te.data_ptr(), tl.data_ptr(), t, m, k, s,
-                    int(s % 4 == 0 and data.data_ptr() % 4 == 0))
+                    data.data_ptr(), out.data_ptr(), t, m, k, s,
+                    int(s % 16 == 0 and data.data_ptr() % 16 == 0))
         return out
     return call
 
@@ -1163,12 +1209,15 @@ def main() -> int:
         build_sharded_verify_pipeline,
         build_verify_pipeline,
     )
+    from firedancer_tpu_torch.flamenco.agave_state import vote_state_decode
+    from firedancer_tpu_torch.flamenco.executor import acct_decode
     from firedancer_tpu_torch.models.workload import (
         mixed_batch,
         noncanonical_encodings,
         nonsquare_encodings,
         torsion_encodings,
         verify_stream,
+        vote_bank_ctx,
         vote_stream,
     )
     from firedancer_tpu_torch.ops import blake3 as fb3
@@ -1187,6 +1236,7 @@ def main() -> int:
     from firedancer_tpu_torch.ops.ref import gf256_ref as gr
     from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
     from firedancer_tpu_torch.protocol import shred as fs
+    from firedancer_tpu_torch.protocol import txn as ft
     from firedancer_tpu_torch.runtime import poh as rpoh
     from firedancer_tpu_torch.runtime.bank import default_bank_ctx
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
@@ -1522,8 +1572,6 @@ def main() -> int:
     lt = np.zeros((BT,), dtype=np.int32)
     st = np.zeros((BT, 64), dtype=np.uint8)
     pt = np.zeros((BT, 32), dtype=np.uint8)
-    from firedancer_tpu_torch.protocol import txn as ft
-
     trip = []
     for p in pool:
         t = ft.txn_parse(p)
@@ -1807,7 +1855,7 @@ def main() -> int:
         + f"; probe_add device only {msa_dev * 1e3:.2f} us")
     k5_sass(kbuild)
     if parent_fns is not None:
-        k5_ab(k5_parent(parent_fns["fd_gf256_apply"], gr, dev), g2, runs9)
+        k5_ab(k5_parent(parent_fns["fd_gf256_apply"], dev), g2, runs9)
 
     # -- 10. the serving plane's pipeline (main path) --------------------------------------
     mark("10")
@@ -2247,6 +2295,45 @@ def main() -> int:
         check(err16 == 0, f"{nm} at B = {B14} differs from its plain version on lanes"
               f" {B14 - B1}-{B14 - 1} (max abs err {err16})")
         errs14[nm] = max(errs14[nm], err16)
+    # K12 at ragged batches: ok cleared on a seeded quarter of the lanes
+    # besides those K9 refused, random bits in r_pt wherever ok is false;
+    # the mask equal to its plain version, and on the lanes left ok to the
+    # labels
+    rc16 = sv._phase_dsm(k16, a16, s16)
+    rng12 = np.random.default_rng(12)
+    drop12 = rng12.random(B14) < K12_DROP
+    ok12 = ok16 & ~torch.from_numpy(drop12).to(dev)
+    junk12 = torch.from_numpy(rng12.integers(-2**31, 2**31, (4, 10, B14))
+                              .astype(np.int32)).to(dev)
+    r12 = torch.where(ok12, r16, junk12)
+    runs12 = {f"mixed B={b}": tuple(x[..., :b].contiguous() for x in (rc16, r12, ok12))
+              for b in K12_BATCHES}
+    for label, run in runs12.items():
+        b = run[2].shape[0]
+        got12 = sv._phase_compare(*run)
+        err12 = int((got12.to(torch.int64) - sv._phase_compare_plain(*run).to(torch.int64))
+                    .abs().max())
+        check(err12 == 0, f"phase_compare differs from its plain version at {label}")
+        check(got12.cpu().numpy().tolist() == (lab14[:b] & ~drop12[:b]).tolist(),
+              f"phase_compare differs from the labels at {label}")
+    log(f"[split] K12 at B = {', '.join(map(str, K12_BATCHES))} (ok cleared on"
+        f" {int(drop12.sum())} more lanes of {B14}, random bits in r_pt there): mask equal"
+        " to plain and to the labels")
+    # K12's SASS as one block (it has no loop): every load of a lane is
+    # issued at once, so a thread waits for one global round trip
+    sass12 = {"change": fsass.whole(fsass.dump(os.path.join(kbuild.build_dir(),
+                                                            "libverify_split.so")),
+                                    "phase_compare_kernel")}
+    if parent_fns is not None:
+        sass12["parent"] = fsass.whole(fsass.dump(parent_lib("verify_split")),
+                                       "phase_compare_kernel")
+    log("[K12-sass] " + "; ".join(
+        f"{who}: {w['n']} instructions ({w['called']} in called functions), longest dependent"
+        f" chain {w['depth']}, {w['clocks']} stall clocks, global loads in series"
+        f" {w['load_rounds']}; " + ", ".join(f"{op} {c}" for op, c in list(w["ops"].items())[:8])
+        for who, w in sass12.items()))
+    check(sass12["change"]["load_rounds"] == 1,
+          f"K12 waits for {sass12['change']['load_rounds']} global round trips in series")
     if parent_fns is not None:
         dec16 = sv.fc.point_decompress(p16.to(torch.int64))[1]
         k11_ab(parent_fns["fd_phase_dsm"], sv, sv.fc, dev, {
@@ -2260,6 +2347,14 @@ def main() -> int:
                f"mixed B={B14}": (s16, p16, l16, dec16, rdec16)},
               {f"B={B1}": (args1k[2], args1k[3], args1k[1]),
                f"B={BT}": (argst[2], argst[3], argst[1])}, ML1)
+        # K12: equal on the ragged mixed batches, timed on phase 6's
+        # transfers through K9-K11 (every lane ok)
+        timed12 = {}
+        for bsz, (mt_, lt_, st_, pt_) in ((B1, args1k), (BT, argst)):
+            a_, r_, ok_ = sv._phase_validate(st_, pt_, lt_, max_msg_len=ML1)
+            k_ = sv._phase_hash(mt_, lt_, st_, pt_, max_msg_len=ML1)
+            timed12[f"B={bsz}"] = (sv._phase_dsm(k_, a_, st_), r_, ok_)
+        k12_ab(parent_fns["fd_phase_compare"], sv, dev, runs12, timed12)
         k10_ab(parent_fns["fd_phase_hash"], sv, dev,
                {f"mixed B={B1}": (m5, l5, s5, p5), f"mixed B={B14}": tuple(args14),
                 f"B={BT}": tuple(argst)},
@@ -2284,7 +2379,7 @@ def main() -> int:
         times14[bsz].update({f"{nm}_dev": time_ms(fn, reps=2 * reps, hide_host=True)
                              for nm, fn in calls.items()})
         times14[bsz].update({
-            "phase_compare": time_ms(lambda: sv._phase_compare(rc_, r_, ok_), reps=20,
+            "phase_compare": time_ms(lambda: sv._phase_compare(rc_, r_, ok_), reps=K12_REPS,
                                      hide_host=True),
             "split": time_ms(lambda: sv.ed25519_verify_batch_split(mt_, lt_, st_, pt_,
                                                                    max_msg_len=ML1), reps=reps),
@@ -2514,7 +2609,7 @@ def main() -> int:
             return k5_launch(mat, data)
         return rec
 
-    k5_parent_call = k5_parent(parent_fns["fd_gf256_apply"], gr, dev) if parent_fns else None
+    k5_parent_call = k5_parent(parent_fns["fd_gf256_apply"], dev) if parent_fns else None
     kbuild.reset_launches()
     g2.gf_apply_batch = k5_recording("17")
     try:
@@ -2671,6 +2766,95 @@ def main() -> int:
         shape=f"N={K13_ROWS[0]} rows x 1024 lanes (the seal's N here: {seal_rows17})",
         library="torch.sum(pre-signed int32, dim=0), sign multiply not included",
         at_rows={str(n): k13[n] for n in K13_ROWS}, phase_launches=phase16_launches))
+
+    # -- 17d. the leader pipeline over the vote stream, comb lane on ---------------------------
+    mark("17d")
+    # who sends it: the voting set, one vote per validator per slot, inside
+    # a leader's slot, beside fee-paying transfers: phase 13's stream, whose
+    # genesis (payers, voters, each voter's vote account) and SlotHashes
+    # come from vote_bank_ctx; the banks run the vote program
+    ctx17d = vote_bank_ctx(vs13, device=dev)
+    pipe17d = build_leader_pipeline(vs13.stream, device=dev, batch=B1, max_msg_len=ML1,
+                                    n_bank=2, verify_comb_slots=BANK_SLOTS, bank_ctx=ctx17d,
+                                    slot=ctx17d.slot, keep_entries=True,
+                                    pack_depth=len(vs13.stream))
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    pipe17d.run()
+    torch.cuda.synchronize()
+    run17d_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seal17d = pipe17d.seal()
+    seal17d_s = time.perf_counter() - t0
+    launches17d = dict(kbuild.LAUNCHES)
+    rep17d = pipe17d.report()
+    v17d = rep17d["verify0"]
+    landed17d = sum(rep17d[b.name].get("txn_exec", 0) for b in pipe17d.banks)
+    # a verified frame is payload || packed descriptor || u16 payload size
+    sunk17d = [f[:int.from_bytes(f[-2:], "little")] for f in vs13.expect_sunk]
+    sigs17d = sum(ft.txn_parse(p_).signature_cnt for p_ in sunk17d)
+    check(landed17d == len(sunk17d) == e13["sunk"] and seal17d.signature_cnt == sigs17d,
+          f"vote leader landed {landed17d} txns ({seal17d.signature_cnt} signatures) of"
+          f" {len(sunk17d)} distinct verified ({sigs17d} signatures)")
+    ents17d = [parse_entry(x) for x in
+               deshred_entry_batch(pipe17d.store.entry_batch_bytes(ctx17d.slot))]
+    check(ents17d == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe17d.poh.entries],
+          "vote leader: deshredded store bytes != PoH's entries")
+    block17d = [p_ for _, _, txs in ents17d for p_ in txs]
+    check(sorted(block17d) == sorted(sunk17d), "vote leader: the block's txns != the verified")
+    fund17d = vote_bank_ctx(vs13, device=dev)
+    t0 = time.perf_counter()
+    rp17d = replay_block(fund17d.funk, slot=ctx17d.slot, entries=ents17d,
+                         poh_seed=b"\x00" * 32, status_cache=fund17d.status_cache,
+                         slot_hashes=vs13.slot_hashes, device=dev)
+    replay17d_s = time.perf_counter() - t0
+    check(rp17d is not None and rp17d.bank_hash == seal17d.bank_hash
+          and np.array_equal(rp17d.accounts_delta, seal17d.accounts_delta)
+          and rp17d.signature_cnt == seal17d.signature_cnt
+          and sorted(r.status for r in rp17d.results) == sorted(r.status for r in seal17d.results),
+          "vote leader: replay_block does not reproduce the seal")
+    for nm in ("verify_cached", "comb_fill", "bank_install"):
+        check(launches17d.get(nm, 0) > 0, f"vote leader: {nm} never launched ({launches17d})")
+    check(launches17d.get("verify_batch", 0) == v17d["batches"] - v17d.get("comb_batches", 0)
+          and launches17d.get("verify_cached", 0) == v17d.get("comb_batches", 0)
+          and launches17d.get("comb_fill", 0) == v17d.get("comb_fills", 0)
+          and launches17d.get("bank_install", 0) == v17d.get("comb_installs", 0),
+          f"vote leader: launches {launches17d} != the verify stage's batches and fills {v17d}")
+    check(launches17d.get("lthash_combine", 0) == 1, f"vote leader: K13 launches {launches17d}")
+    nb17d = rep17d["shred"]["entry_batches"]
+    check(nb17d <= launches17d.get("gf256_apply", 0) <= 2 * nb17d,
+          f"vote leader: K5 launches {launches17d.get('gf256_apply', 0)} for {nb17d} batches")
+    # every vote account decodes; votes that landed (block order, the
+    # replay's statuses) and towers that moved
+    sx17d = pipe17d.bank_ctx.sx
+    towers17d = [len(vote_state_decode(acct_decode(sx17d.funk.rec_query(sx17d.xid, a_))[3]).votes)
+                 for a_ in vs13.accts]
+    is_vote17d = [ft.VOTE_PROGRAM in ft.txn_parse(p_).acct_addrs(p_) for p_ in block17d]
+    votes_ok17d = sum(v_ and r_.status == 0 for v_, r_ in zip(is_vote17d, rp17d.results))
+    check(max(towers17d) > 0, "vote leader: no tower moved")
+    check(sum(towers17d) == votes_ok17d,
+          f"vote leader: {sum(towers17d)} lockouts on the towers, {votes_ok17d} votes landed ok")
+    split17d = dict(pipe17d.stage_s)
+    txn17d_s = landed17d / run17d_s
+    k5_ms17 = sum(x["ms"] for x in k5_17) / max(1, len(k5_17))
+    busy17d = (launches17d.get("verify_batch", 0) * ms1k + launches17d.get("verify_cached", 0) * ms6k
+               + launches17d.get("comb_fill", 0) * ms7 + launches17d.get("bank_install", 0) * ms8
+               + launches17d.get("gf256_apply", 0) * k5_ms17
+               + k13[K13_ROWS[0]]["ms"]) / ((run17d_s + seal17d_s) * 1e3)
+    log(f"[vote-leader] {len(vs13.stream)} frames ({VOTERS} voters x {VOTE_ROUNDS} slots,"
+        f" {VOTE_TRANSFERS} transfers) at batch {B1}, bank {BANK_SLOTS} slots, 2 banks, slot"
+        f" {ctx17d.slot}: run {run17d_s:.3f} s = {txn17d_s:.0f} txn/s to the store ({landed17d}"
+        f" txns, {seal17d.signature_cnt} signatures); votes landed ok {votes_ok17d} of"
+        f" {sum(is_vote17d)}; towers moved {sum(t_ > 0 for t_ in towers17d)} of"
+        f" {len(towers17d)}; seal {seal17d_s:.3f} s ({sx17d.seal_rows} rows, bank hash"
+        f" {seal17d.bank_hash.hex()}); replay reproduces the seal in {replay17d_s:.3f} s;"
+        f" comb_filled {v17d.get('comb_filled', 0)}, comb_elems {v17d.get('comb_elems', 0)} of"
+        f" {v17d['batch_elems']}; launches {launches17d}; device busy <= {busy17d:.3f} of the"
+        f" slot (run + seal; event times x launches, K5 at phase 17's mean)")
+    log(f"[vote-leader-split] host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17d.items())})}"
+        f" (run {run17d_s:.3f} s + seal {seal17d_s:.3f} s); phase 17 on the same card:"
+        f" {txn17_s:.0f} txn/s, host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17.items())})};"
+        f" counters {json.dumps(rep17d)}")
 
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
@@ -3037,6 +3221,7 @@ def main() -> int:
                                  "leader_pipeline": launches17.get(k["name"], 0),
                                  "leader_lossy_store": launches17b.get(k["name"], 0),
                                  "sharded_leader_pipeline": launches17c.get(k["name"], 0),
+                                 "vote_leader_pipeline": launches17d.get(k["name"], 0),
                                  "bmtree_root_build": launches18.get(k["name"], 0),
                                  OPS_API: ops_api.get(k["name"], 0)}
     for nm in SPLIT:
@@ -3055,7 +3240,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # --parent DIR: also build DIR's probe_conv, K1-K7, K9-K11 and K13-K17
+    # --parent DIR: also build DIR's probe_conv, K1-K7, K9-K17
     # (a checkout of an earlier commit) and time them beside this tree's in
     # phases 2b, 3, 4, 6, 8, 9, 12, 14, 16, 17b, 18 and 19
     PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None

@@ -137,11 +137,6 @@ __device__ __forceinline__ ge ge_add_cached(const ge& p, const gec& q) {
   return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
 }
 
-// p == q where q.Z == 1 (a freshly decompressed point).
-__device__ __forceinline__ bool ge_eq_z1(const ge& p, const ge& q) {
-  return fe_eq(fe_mul(q.X, p.Z), p.X) && fe_eq(fe_mul(q.Y, p.Z), p.Y);
-}
-
 // ------------------------------------------------------- per-signer combs
 //
 // A signer's comb is 64 windows x 16 digits of cached points, (64, 16, 4,

@@ -1,6 +1,6 @@
 // K9-K12, the split rung of the verify ladder: K1's per-signature work cut
 // into four launches: K9 and K10 32 signatures a two-warp block, K11 four
-// threads a signature, K12 one signature a thread.
+// threads a signature, K12 two threads a signature.
 //
 // Replaces: firedancer_tpu/ops/sigverify.py:216 _phase_validate (K9),
 // :229 _phase_hash (K10), :239 _phase_dsm (K11) and :245 _phase_compare
@@ -191,27 +191,39 @@ phase_dsm_kernel(const uint8_t* __restrict__ k, const int32_t* __restrict__ a_pt
   if (in_batch) fe_store_lane(r, r_out + 10 * role.c * B, B, lane);
 }
 
-// K12: ok and r_cmp == R (R has Z = 1).  Only X, Y of R and X, Y, Z of
-// r_cmp are read, and only on lanes still ok.
-__global__ void __launch_bounds__(128)
+// K12: ok and r_cmp == R (R has Z = 1), as ok && X_R Z == X && Y_R Z == Y.
+// One thread a lane ran both products and both canonicalisations in one
+// chain, behind a load of ok that gated its 50 limb loads (two memory round
+// trips in series), 128 threads a block: 8 blocks on 8 of 132 SMs at the
+// split pipeline's B = 1,024; 3.7 us device only against probe_add's 2.09
+// us launch floor.  Here a lane is two threads of a half-warp pair: thread
+// c of the pair (c = 0: X, c = 1: Y) loads ok, Z of r_cmp and its own
+// coordinate of r_cmp and of R all at once (one round trip), runs one
+// inlined product and one canonicalisation, and the pair joins by one
+// shuffle; 16 lanes a one-warp block, so B = 1,024 is 64 blocks and B =
+// 16,384 one wave.  A refused lane (K9 may leave any bits in r_pt there)
+// computes on what it loaded, unchecked, and reads false: no load waits on
+// ok, and the integer products wrap; nothing is read past the batch.
+#define CMP_LANES 16  // K12: lanes a one-warp block
+#define CMP_THREADS (2 * CMP_LANES)
+
+__global__ void __launch_bounds__(CMP_THREADS)
 phase_compare_kernel(const int32_t* __restrict__ r_cmp, const int32_t* __restrict__ r_pt,
                      const bool* __restrict__ ok, bool* __restrict__ mask, int64_t B) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  bool m = ok[lane];
-  if (m) {
-    ge p, q;
-    p.X = fe_load_lane(r_cmp, B, lane);
-    p.Y = fe_load_lane(r_cmp + 10 * B, B, lane);
-    p.Z = fe_load_lane(r_cmp + 20 * B, B, lane);
-    q.X = fe_load_lane(r_pt, B, lane);
-    q.Y = fe_load_lane(r_pt + 10 * B, B, lane);
-    m = ge_eq_z1(p, q);
-  }
-  mask[lane] = m;
+  const int t = threadIdx.x;
+  const int c = t / CMP_LANES;
+  const int64_t l = (int64_t)blockIdx.x * CMP_LANES + t % CMP_LANES;
+  const bool in_batch = l < B;
+  const int64_t lane = in_batch ? l : B - 1;
+  const bool m = ok[lane];
+  const fe z = fe_load_lane(r_cmp + 20 * B, B, lane);
+  const fe p = fe_load_lane(r_cmp + 10 * c * B, B, lane);
+  const fe q = fe_load_lane(r_pt + 10 * c * B, B, lane);
+  const bool eq = fe_eq(fe_mul_q(q, z), p);
+  // every thread shuffles (no early exit), then the X thread stores
+  const bool other = __shfl_xor_sync(0xffffffffu, (int)eq, CMP_LANES) != 0;
+  if (in_batch && c == 0) mask[l] = m && eq && other;
 }
-
-static inline unsigned fd_blocks(int64_t B) { return (unsigned)((B + 127) / 128); }
 
 FD_EXPORT int fd_phase_validate(const void* sig, const void* pk, const void* msg_len,
                                 void* a_out, void* r_out, void* ok_out, int64_t B,
@@ -258,7 +270,8 @@ FD_EXPORT int fd_phase_compare(const void* r_cmp, const void* r_pt, const void* 
   int rc = fd_set_device(device);
   if (rc) return rc;
   if (B == 0) return 0;
-  phase_compare_kernel<<<fd_blocks(B), 128, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (B + CMP_LANES - 1) / CMP_LANES;
+  phase_compare_kernel<<<(unsigned)blocks, CMP_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)r_cmp, (const int32_t*)r_pt, (const bool*)ok, (bool*)mask, B);
   return (int)cudaGetLastError();
 }

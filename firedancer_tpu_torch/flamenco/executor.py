@@ -2,13 +2,13 @@
 firedancer_tpu/flamenco/executor.py, cut to this slice).
 
 The runtime (flamenco/runtime.py) calls `Executor.execute_instr` per
-instruction.  The port runs the native programs this slice needs, the
-system program and the compute-budget program (flamenco/programs.py),
-with the JAX executor's rules around them: the builtin's fixed CU cost is
-charged up front, and the instruction-level lamport sum over the unique
-account set must not change.
+instruction.  The port runs the native programs it has ported: the system
+program and the compute-budget program (flamenco/programs.py) and the
+vote program (flamenco/vote_program.py), with the JAX executor's rules
+around them: the builtin's fixed CU cost is charged up front, and the
+instruction-level lamport sum over the unique account set must not change.
 
-A program the JAX executor knows but the port has not ported (vote, stake,
+A program the JAX executor knows but the port has not ported (stake,
 config, address lookup tables, the ed25519 and secp256k1 precompiles,
 zk-elgamal, the BPF loaders and the sBPF VM behind them) raises
 NotImplementedError naming it, at the point where the JAX executor would
@@ -41,7 +41,6 @@ UNPORTED_PROGRAMS = {
     _b58d("Config1111111111111111111111111111111111111"): "the config program",
     _b58d("Ed25519SigVerify111111111111111111111111111"): "the ed25519 precompile",
     _b58d("KeccakSecp256k11111111111111111111111111111"): "the secp256k1 precompile",
-    VOTE_PROGRAM: "the vote program",
     b"Stake11111" + bytes(22): "the stake program",
     _b58d("AddressLookupTab1e1111111111111111111111111"): "the address lookup table program",
     UPGRADEABLE_LOADER_PROGRAM: "the upgradeable BPF loader",
@@ -145,10 +144,11 @@ class Executor:
     """Program registry + instruction dispatch."""
 
     def __init__(self):
-        from . import programs
+        from . import programs, vote_program
 
         self.native = {
             SYSTEM_PROGRAM: programs.system_program,
+            VOTE_PROGRAM: vote_program.vote_program,
             COMPUTE_BUDGET_PROGRAM: programs.compute_budget_program,
         }
 

@@ -5,8 +5,9 @@ reads of firedancer_tpu/flamenco/types.py).
 A `Codec` composes from primitives exactly as bincode does (little-endian
 fixed-width ints, u64 length-prefixed vecs, 1-byte Option tags), so the
 encoder and decoder of a type can never disagree.  Types: Clock, Rent,
-EpochSchedule and SlotHash(es).  The vote instruction and gossip's types
-are not ported.
+EpochSchedule, SlotHash(es) and the vote instruction (Vote,
+VOTE_INSTRUCTION); the combinators Option and Enum the vote state and its
+instructions need.  Gossip's types are not ported.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class _Int(Codec):
         )
 
 
-U8, U64 = _Int(1), _Int(8)
+U8, U32, U64 = _Int(1), _Int(4), _Int(8)
 I64 = _Int(8, signed=True)
 
 
@@ -98,6 +99,7 @@ class FixedBytes(Codec):
         return bytes(buf[off : off + self.n]), off + self.n
 
 
+Pubkey = FixedBytes(32)
 Hash32 = FixedBytes(32)
 
 
@@ -124,6 +126,26 @@ class Vec(Codec):
         return out, off
 
 
+class Option(Codec):
+    def __init__(self, inner: Codec):
+        self.inner = inner
+
+    def encode(self, v) -> bytes:
+        if v is None:
+            return b"\x00"
+        return b"\x01" + self.inner.encode(v)
+
+    def decode(self, buf, off=0):
+        if off >= len(buf):
+            raise CodecError("short option")
+        tag = buf[off]
+        if tag == 0:
+            return None, off + 1
+        if tag != 1:
+            raise CodecError(f"bad option tag {tag}")
+        return self.inner.decode(buf, off + 1)
+
+
 class StructCodec(Codec):
     """Binds a dataclass to an ordered (name, codec) field list."""
 
@@ -143,6 +165,30 @@ class StructCodec(Codec):
         for n, c in self.spec:
             kw[n], off = c.decode(buf, off)
         return self.cls(**kw), off
+
+
+class Enum(Codec):
+    """bincode enum: u32 LE tag + variant payload."""
+
+    def __init__(self, *variants):
+        """variants: (tag, name, codec-or-None)"""
+        self.by_tag = {t: (n, c) for t, n, c in variants}
+        self.by_name = {n: (t, c) for t, n, c in variants}
+
+    def encode(self, v) -> bytes:
+        name, payload = v
+        t, c = self.by_name[name]
+        return U32.encode(t) + (c.encode(payload) if c else b"")
+
+    def decode(self, buf, off=0):
+        t, off = U32.decode(buf, off)
+        if t not in self.by_tag:
+            raise CodecError(f"unknown enum tag {t}")
+        name, c = self.by_tag[t]
+        if c is None:
+            return (name, None), off
+        payload, off = c.decode(buf, off)
+        return (name, payload), off
 
 
 # -- sysvars ------------------------------------------------------------------
@@ -182,6 +228,16 @@ RENT = StructCodec(
 )
 
 
+def rent_exempt_minimum(rent: Rent, data_len: int) -> int:
+    """The balance making an account of `data_len` bytes rent-exempt
+    (the 128-byte account-storage overhead included, the protocol's
+    constant)."""
+    return int(
+        (data_len + 128) * rent.lamports_per_byte_year
+        * rent.exemption_threshold
+    )
+
+
 @dataclass
 class EpochSchedule:
     slots_per_epoch: int = 432_000
@@ -201,6 +257,17 @@ EPOCH_SCHEDULE = StructCodec(
 )
 
 
+def epoch_of_slot(sched: EpochSchedule, slot: int) -> tuple[int, int]:
+    """(epoch, slot_index) for a post-warmup schedule."""
+    if slot < sched.first_normal_slot:
+        raise CodecError("warmup epochs not modeled")
+    rel = slot - sched.first_normal_slot
+    return (
+        sched.first_normal_epoch + rel // sched.slots_per_epoch,
+        rel % sched.slots_per_epoch,
+    )
+
+
 @dataclass
 class SlotHash:
     slot: int
@@ -209,3 +276,27 @@ class SlotHash:
 
 SLOT_HASH = StructCodec(SlotHash, ("slot", U64), ("hash", Hash32))
 SLOT_HASHES = Vec(SLOT_HASH, max_len=512)
+
+
+# -- vote instruction ---------------------------------------------------------
+
+
+@dataclass
+class Vote:
+    slots: list
+    hash: bytes
+    timestamp: int | None = None
+
+
+VOTE = StructCodec(
+    Vote,
+    ("slots", Vec(U64, max_len=1 << 16)),
+    ("hash", Hash32),
+    ("timestamp", Option(I64)),
+)
+
+# VoteInstruction enum (2 = Vote, the one the leader pipeline sees
+# constantly; flamenco/vote_program.py decodes every tag it handles)
+VOTE_INSTRUCTION = Enum(
+    (2, "vote", VOTE),
+)

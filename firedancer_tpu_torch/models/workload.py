@@ -1,8 +1,9 @@
 """Seeded verify workloads with known answers: a mixed signature batch in
-the kernel layout, and a txn stream for the verify pipeline.  Both are made
-from a seed with numpy and signed with the port's ed25519_ref, so the same
-inputs can go through the JAX package and the port, and the expected masks
-and counters are known up front."""
+the kernel layout, a txn stream for the verify pipeline, and a vote-heavy
+stream with the genesis a leader needs to land it.  All are made from a
+seed with numpy and signed with the port's ed25519_ref, so the same inputs
+can go through the JAX package and the port, and the expected masks and
+counters are known up front."""
 
 from __future__ import annotations
 
@@ -233,6 +234,10 @@ class VoteStream:
     expect_sunk: list     # verified frames the sink must hold (either lane order)
     expect: dict          # counter name -> expected value
     voters: list          # [(secret, pubkey)] of the valid voters
+    accts: list           # voters[i]'s vote account
+    seed: bytes           # the transfers' benchg seed (payers, blockhash)
+    n_payers: int         # the transfers' payers: pool_payers(seed, n_payers)
+    slot_hashes: list     # [(slot, bank hash)] the stream's votes sign
 
 
 def vote_stream(n_voters: int, n_rounds: int, *, seed: bytes = b"votes",
@@ -315,4 +320,56 @@ def vote_stream(n_voters: int, n_rounds: int, *, seed: bytes = b"votes",
         "comb_elems": (n_voters * (n_rounds - 2) + n_transfers - 2 * n_p
                        + n_corrupt + n_resend),
     }
-    return VoteStream(stream, wave1, sunk, expect, voters)
+    # vote_txn signs the zero bank hash by default
+    slot_hashes = [(first_slot + r, bytes(32)) for r in range(n_rounds)]
+    return VoteStream(stream, wave1, sunk, expect, voters, accts, seed, n_p, slot_hashes)
+
+
+VOTE_ACCT_LAMPORTS = 10**9  # each voter's vote account (JAX tests/test_pipeline.py:272)
+PAYER_LAMPORTS = 10**12     # each fee payer, as default_bank_ctx funds benchg's
+
+
+def vote_genesis(vs: VoteStream) -> dict:
+    """{pubkey: account value} a leader needs to land `vs`: the transfers'
+    payers and the voters funded, and each voter's vote account
+    (VOTE_STATE_SIZE bytes owned by the vote program, authorized_voters
+    {0: voter}, the voter as node and withdrawer).  The values are the
+    funk record encoding both packages share (flamenco/executor.py
+    acct_encode), so a JAX Funk can hold the same genesis."""
+    from ..flamenco import agave_state as ast
+    from ..flamenco.executor import acct_encode
+    from ..flamenco.vote_program import VOTE_STATE_SIZE
+
+    out = {pub: acct_encode(PAYER_LAMPORTS) for _, pub in pool_payers(vs.seed, vs.n_payers)}
+    for (_, voter), acct in zip(vs.voters, vs.accts):
+        out[voter] = acct_encode(PAYER_LAMPORTS)
+        state = ast.VoteState(node_pubkey=voter, authorized_withdrawer=voter,
+                              authorized_voters={0: voter})
+        out[acct] = acct_encode(VOTE_ACCT_LAMPORTS, ft.VOTE_PROGRAM,
+                                data=ast.vote_state_encode(state).ljust(VOTE_STATE_SIZE, b"\x00"))
+    return out
+
+
+def vote_slot(vs: VoteStream) -> int:
+    """The leader's slot for `vs`: the first past every slot its votes
+    name."""
+    return vs.slot_hashes[-1][0] + 1
+
+
+def vote_bank_ctx(vs: VoteStream, *, device=None):
+    """A BankCtx at vote_slot(vs) that lands `vs`: vote_genesis on the funk
+    root, the transfers' blockhash registered with the status cache, and
+    the slot's SlotHashes sysvar holding vs.slot_hashes (what the vote
+    program checks each vote against; a replayer passes the same list to
+    replay_block)."""
+    from ..flamenco import types as T
+    from ..flamenco.blockstore import StatusCache
+    from ..runtime.bank import BankCtx
+
+    ctx = BankCtx(slot=vote_slot(vs), status_cache=StatusCache(),
+                  blockhashes=(pool_blockhash(vs.seed),), device=device)
+    for pub, val in vote_genesis(vs).items():
+        ctx.funk.rec_insert(None, pub, val)
+    ctx.sx.sysvars["slot_hashes"] = T.SLOT_HASHES.encode(
+        [T.SlotHash(s, h) for s, h in vs.slot_hashes])
+    return ctx

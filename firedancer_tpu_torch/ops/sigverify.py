@@ -60,9 +60,10 @@ _CACHED = kbuild.bind("verify_cached", "fd_verify_cached", 9, (_I64, _I32, _I64)
 _COMB_FILL = kbuild.bind("comb_fill", "fd_comb_fill", 3, (_I64,))
 _BANK_INSTALL = kbuild.bind("bank_install", "fd_bank_install", 3, (_I64,))
 
-# field multiplies per lane of K12's Z = 1 compare (csrc/curve.cuh
-# ge_eq_z1), for its operations bound; each multiply is 100 32x32->64
-# products
+# field multiplies per lane of the Z = 1 compare (K12, csrc/verify_split.cu
+# phase_compare_kernel, one on each of a lane's two threads; the last step
+# of K1 and K6), for the operations bounds; each multiply is 100
+# 32x32->64 products
 MULS_EQ_Z1 = 2
 PRODUCTS_PER_MUL = 100
 # K1 (csrc/verify.cu over csrc/curve_quad.cuh) squares with 55 products

@@ -604,17 +604,6 @@ def transfer_txn(
     return txn_assemble([sig], msg)
 
 
-def _encode_vote_ix(slots: list[int], hash32: bytes) -> bytes:
-    """Wire data of VoteInstruction::Vote, bincode: u32 tag 2, Vec<u64>
-    slots (u64 count + elements), the 32-byte bank hash, Option<i64>
-    timestamp None (one 0 byte).  The port's own copy of the encoder in
-    firedancer_tpu/flamenco/vote_program.py, cut to what vote_txn sends."""
-    out = (2).to_bytes(4, "little") + len(slots).to_bytes(8, "little")
-    for s in slots:
-        out += s.to_bytes(8, "little")
-    return out + bytes(hash32) + b"\x00"
-
-
 def vote_txn(
     voter_secret: bytes,
     vote_account: bytes,
@@ -628,6 +617,9 @@ def vote_txn(
     voter (accounts: vote account, voter; the shape pack routes to its vote
     lane).  Byte-identical to firedancer_tpu/protocol/txn.py vote_txn."""
     from ..ops.ref import ed25519_ref as ref
+    # the program's own encoder (function-scoped: flamenco sits above
+    # protocol, but a txn builder speaks its wire)
+    from ..flamenco.vote_program import encode_vote_ix
 
     voter = voter_pubkey if voter_pubkey is not None else ref.public_key(voter_secret)
     msg = message_build(
@@ -638,6 +630,6 @@ def vote_txn(
         acct_addrs=[voter, vote_account, VOTE_PROGRAM],
         recent_blockhash=recent_blockhash,
         instrs=[InstrSpec(program_id=2, accounts=bytes([1, 0]),
-                          data=_encode_vote_ix([slot], bank_hash))],
+                          data=encode_vote_ix([slot], bank_hash))],
     )
     return txn_assemble([ref.sign(voter_secret, msg)], msg)

@@ -4,9 +4,11 @@ microblocks), and execute_block on a benchg block with the gated and
 failing cases (unfunded payer, stale blockhash, duplicate signature,
 insufficient funds, compute-budget instructions, an unknown program):
 the same BlockResult (bank hash, accounts delta, signature count, fees,
-every status, the waves) and the same committed funk values.  A program
-the port does not run yet (vote) raises NotImplementedError.  Seal's K13
-runs its plain version on the CPU."""
+every status, the waves) and the same committed funk values; the vote
+cases of tests/test_runtime.py (two votes on one account serialise into
+two waves; a forged vote is refused) the same way.  A program the port
+does not run yet (stake) raises NotImplementedError.  Seal's K13 runs its
+plain version on the CPU."""
 
 import hashlib
 
@@ -19,8 +21,10 @@ from firedancer_tpu.funk import Funk as JFunk
 from firedancer_tpu.pack import cost as jcost
 from firedancer_tpu.pack import scheduler as jsched
 from firedancer_tpu.protocol import txn as jft
+from firedancer_tpu_torch.flamenco import agave_state as tast
 from firedancer_tpu_torch.flamenco import blockstore as tbs
 from firedancer_tpu_torch.flamenco import runtime as trt
+from firedancer_tpu_torch.flamenco import vote_program as tvp
 from firedancer_tpu_torch.funk import Funk as TFunk
 from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
 from firedancer_tpu_torch.pack import cost as tcost
@@ -137,13 +141,86 @@ def test_publish_then_replay_gates_like_jax():
 
 
 def test_vote_txn_raises_not_implemented():
+    """Kept under its first name: the vote program is ported now, so a vote
+    on an account the vote program does not own gets JAX's status, and a
+    program still unported (stake) raises NotImplementedError where the
+    JAX executor runs it."""
     voter = _secret(b"voter")
     vote = ft.vote_txn(voter, hashlib.sha256(b"vote-acct").digest(), SLOT - 1, BH)
     genesis = {ref.public_key(voter): 10**9}
     jres, _ = _run(jrt, JFunk, jbs.StatusCache, [vote], genesis)
-    assert jres.results[0].fee > 0  # JAX runs its vote program
-    with pytest.raises(NotImplementedError, match="vote program"):
-        _run(trt, TFunk, tbs.StatusCache, [vote], genesis, device="cpu")
+    tres, _ = _run(trt, TFunk, tbs.StatusCache, [vote], genesis, device="cpu")
+    assert [(r.status, r.fee) for r in tres.results] == \
+        [(r.status, r.fee) for r in jres.results] == [(trt.TXN_ERR_ACCT, 5000)]
+    assert tres.bank_hash == jres.bank_hash
+    stake_prog = b"Stake11111" + bytes(22)  # the JAX package's stake id
+    msg = ft.message_build(
+        version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+        readonly_unsigned_cnt=1,
+        acct_addrs=[ref.public_key(voter), hashlib.sha256(b"stake").digest(), stake_prog],
+        recent_blockhash=BH,
+        instrs=[ft.InstrSpec(program_id=2, accounts=bytes([1]), data=bytes(4))])
+    stake = ft.txn_assemble([ref.sign(voter, msg)], msg)
+    with pytest.raises(NotImplementedError, match="stake program"):
+        _run(trt, TFunk, tbs.StatusCache, [stake], genesis, device="cpu")
+
+
+def _keypair(tag: bytes):
+    secret = hashlib.sha256(tag).digest()
+    return secret, ref.public_key(secret)
+
+
+def _vote_acct_value(voter: bytes) -> bytes:
+    init = tast.VoteState(node_pubkey=voter, authorized_withdrawer=voter,
+                          authorized_voters={0: voter})
+    return trt.acct_build(0, data=tast.vote_state_encode(init).ljust(tvp.VOTE_STATE_SIZE, b"\x00"),
+                          owner=ft.VOTE_PROGRAM)
+
+
+def _two_votes():
+    """tests/test_runtime.py's two votes of one voter (slots 100, 101)."""
+    secret, voter = _keypair(b"voter")
+    acct = hashlib.sha256(b"vote-acct").digest()
+    bh100, bh101 = (hashlib.sha256(b"bankhash-%d" % s).digest() for s in (100, 101))
+    txns = [ft.vote_txn(secret, acct, 100, hashlib.sha256(b"bh-v").digest(), bank_hash=bh100),
+            ft.vote_txn(secret, acct, 101, hashlib.sha256(b"bh-v2").digest(), bank_hash=bh101)]
+    return (txns, {voter: trt.acct_build(1_000_000), acct: _vote_acct_value(voter)}, 105,
+            [(100, bh100), (101, bh101)], acct, [(100, 2), (101, 1)],
+            [trt.TXN_SUCCESS, trt.TXN_SUCCESS])
+
+
+def _forged_vote():
+    """tests/test_runtime.py's forgery: a second signer's vote on the
+    voter's account fails and never reaches the tower."""
+    secret, voter = _keypair(b"real-voter")
+    forger_secret, forger = _keypair(b"forger")
+    acct = hashlib.sha256(b"va-forge").digest()
+    bh = hashlib.sha256(b"bh-f").digest()
+    bh100, bh999 = (hashlib.sha256(b"bankhash-f%d" % s).digest() for s in (100, 999))
+    txns = [ft.vote_txn(secret, acct, 100, bh, bank_hash=bh100),
+            ft.vote_txn(forger_secret, acct, 999, bh, bank_hash=bh999)]
+    return (txns, {voter: trt.acct_build(1_000_000), forger: trt.acct_build(1_000_000),
+                   acct: _vote_acct_value(voter)}, 1000, [(100, bh100), (999, bh999)], acct,
+            [(100, 1)], [trt.TXN_SUCCESS, trt.TXN_ERR_ACCT])
+
+
+@pytest.mark.parametrize("case", [_two_votes, _forged_vote], ids=["two_waves", "forgery"])
+def test_vote_block_equals_jax(case):
+    txns, genesis, slot, slot_hashes, acct, want_tower, want_status = case()
+    out = []
+    for pkg_rt, funk_cls, kw in ((jrt, JFunk, {}), (trt, TFunk, {"device": "cpu"})):
+        funk = funk_cls()
+        for pub, val in genesis.items():
+            funk.rec_insert(None, pub, val)
+        res = pkg_rt.execute_block(funk, slot=slot, txns=txns, slot_hashes=slot_hashes, **kw)
+        keys = sorted(funk.rec_keys(res.xid))
+        out.append((res.bank_hash, [(r.status, r.fee) for r in res.results], res.waves,
+                    res.signature_cnt, keys, [funk.rec_query(res.xid, k) for k in keys]))
+    assert out[1] == out[0]
+    assert [st for st, _ in out[1][1]] == want_status
+    assert len(out[1][2]) == 2  # the two votes write one account: two waves
+    vs = tast.vote_state_decode(trt.acct_decode(dict(zip(out[1][4], out[1][5]))[acct])[3])
+    assert [(v.lockout.slot, v.lockout.confirmation_count) for v in vs.votes] == want_tower
 
 
 def test_unported_paths_raise_where_jax_runs_them():

@@ -528,6 +528,33 @@ def test_phase_dsm_kernel_limbs_equal_plain_at_ragged_batches(dev, bsz):
     assert mask.cpu().tolist() == k1.cpu().tolist() == labels.tolist()
 
 
+@pytest.mark.parametrize("bsz", [1, 31, 33, 1023, 1024, 16384])
+def test_phase_compare_kernel_equals_plain_at_ragged_batches(dev, bsz):
+    """K12 on two threads a lane, 16 lanes a one-warp block: the mask equal
+    to _phase_compare_plain on every lane, for batches ending inside a
+    block, at the split pipeline's 1,024 and at 16,384; ok false on a
+    quarter of the lanes besides those K9 refused, and random bits in r_pt
+    wherever ok is false.  On the lanes left ok the mask is the labels."""
+    mb = mixed_batch(min(bsz, 257), 256, seed=110 + bsz)
+    reps = -(-bsz // mb.msg_len.shape[0])
+    msg, msg_len, sig, pk = (torch.from_numpy(a).to(dev).repeat(*(1,) * (a.ndim - 1), reps)
+                             [..., :bsz].contiguous()
+                             for a in (mb.msg, mb.msg_len, mb.sig, mb.pubkey))
+    labels = np.tile(mb.labels, reps)[:bsz]
+    a, r, ok = sv._phase_validate(sig, pk, msg_len, max_msg_len=256)
+    r_cmp = sv._phase_dsm(sv._phase_hash(msg, msg_len, sig, pk, max_msg_len=256), a, sig)
+    rng = np.random.default_rng(bsz)
+    drop = rng.random(bsz) < 0.25
+    ok2 = ok & ~torch.from_numpy(drop).to(dev)
+    junk = torch.from_numpy(rng.integers(-2**31, 2**31, (4, 10, bsz)).astype(np.int32)).to(dev)
+    r2 = torch.where(ok2, r, junk).contiguous()
+    kbuild.reset_launches()
+    mask = sv._phase_compare(r_cmp, r2, ok2)
+    assert kbuild.LAUNCHES["phase_compare"] == 1
+    assert torch.equal(mask, sv._phase_compare_plain(r_cmp, r2, ok2))
+    assert mask.cpu().tolist() == (labels & ~drop).tolist()
+
+
 @pytest.mark.parametrize("bsz", [1, 31, 33, 1000])
 def test_phase_validate_kernel_equals_plain_at_ragged_batches(dev, bsz):
     """K9 on two warps of 32 signatures (A on warp 0, R on warp 1): a_pt,

@@ -9,17 +9,27 @@ one-shard CPU plane (PoH tick spans parked on the plane, parity through
 encode_parity) seals the same state and replays to its own bank hash.
 No JAX sigverify compile: the port verifies with its plain versions."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 
 from firedancer_tpu.flamenco import blockstore as jbs
 from firedancer_tpu.flamenco import runtime as jrt
 from firedancer_tpu.funk import Funk as JFunk
+from firedancer_tpu_torch.flamenco import agave_state as tast
 from firedancer_tpu_torch.flamenco import runtime as trt
 from firedancer_tpu_torch.models.leader import (
     build_leader_pipeline,
     build_sharded_leader_pipeline,
 )
+from firedancer_tpu_torch.models.workload import (
+    vote_bank_ctx,
+    vote_genesis,
+    vote_slot,
+    vote_stream,
+)
+from firedancer_tpu_torch.protocol import txn as ft
 from firedancer_tpu_torch.runtime.bank import default_bank_ctx
 from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_blockhash, pool_payers
 from firedancer_tpu_torch.runtime.poh_stage import parse_entry
@@ -133,3 +143,72 @@ def test_round_robin_verify_and_comb_lane_replay(pool):
     assert sum(rep[f"bank{b}"].get("txn_exec", 0) for b in range(2)) == 64
     j = _jax_replay(entries)
     assert j.bank_hash == sealed.bank_hash and j.signature_cnt == 64
+
+
+# -- the leader block over the vote stream ------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def vote_leader():
+    vs = vote_stream(8, 3, n_transfers=16, n_payers=4)
+    ctx = vote_bank_ctx(vs, device="cpu")
+    pipe = build_leader_pipeline(vs.stream, device="cpu", batch=16, max_msg_len=256,
+                                 verify_comb_slots=16, bank_ctx=ctx, slot=ctx.slot,
+                                 keep_entries=True, pack_depth=len(vs.stream))
+    kbuild.reset_launches()
+    pipe.run()
+    sealed = pipe.seal()
+    assert sum(kbuild.LAUNCHES.values()) == 0
+    entries = [parse_entry(e)
+               for e in deshred_entry_batch(pipe.store.entry_batch_bytes(ctx.slot))]
+    return vs, pipe, sealed, entries
+
+
+def test_vote_leader_jax_replay_reproduces_the_port_seal(vote_leader):
+    vs, pipe, sealed, entries = vote_leader
+    slot = vote_slot(vs)
+    funk = JFunk()
+    for pub, val in vote_genesis(vs).items():
+        funk.rec_insert(None, pub, val)
+    cache = jbs.StatusCache()
+    cache.register_blockhash(pool_blockhash(vs.seed), slot - 1)
+    j = jrt.replay_block(funk, slot=slot, entries=entries, poh_seed=b"\x00" * 32,
+                         status_cache=cache, slot_hashes=vs.slot_hashes)
+    assert j is not None
+    assert j.bank_hash == sealed.bank_hash
+    assert np.array_equal(np.asarray(j.accounts_delta), sealed.accounts_delta)
+    assert j.signature_cnt == sealed.signature_cnt
+    ctx = vote_bank_ctx(vs, device="cpu")
+    t = trt.replay_block(ctx.funk, slot=slot, entries=entries, poh_seed=b"\x00" * 32,
+                         status_cache=ctx.status_cache, slot_hashes=vs.slot_hashes,
+                         device="cpu")
+    assert t.bank_hash == sealed.bank_hash
+    # block order on both replays; the pipeline's own results in its banks' order
+    assert [(r.status, r.fee) for r in t.results] == [(r.status, r.fee) for r in j.results]
+    assert Counter((r.status, r.fee) for r in sealed.results) == \
+        Counter((r.status, r.fee) for r in j.results)
+
+
+def test_vote_leader_landed_every_distinct_txn(vote_leader):
+    vs, pipe, sealed, entries = vote_leader
+    rep = pipe.report()
+    landed = [p for _, _, txs in entries for p in txs]
+    assert sum(rep[f"bank{b}"].get("txn_exec", 0) for b in range(2)) == len(landed) \
+        == vs.expect["sunk"]
+    assert sealed.signature_cnt == sum(ft.txn_parse(p).signature_cnt for p in landed)
+    # the verified frames carry payload || packed descriptor || u16 payload size
+    assert sorted(landed) == sorted(f[:int.from_bytes(f[-2:], "little")]
+                                    for f in vs.expect_sunk)
+    assert rep["verify0"].get("comb_filled", 0) > 0
+    assert all(r.status == trt.TXN_SUCCESS for r in sealed.results)
+
+
+def test_vote_leader_moves_the_towers(vote_leader):
+    vs, pipe, sealed, _ = vote_leader
+    sx = pipe.bank_ctx.sx
+    towers = []
+    for acct in vs.accts:
+        data = trt.acct_decode(sx.funk.rec_query(sx.xid, acct))[3]
+        towers.append([v.lockout.slot for v in tast.vote_state_decode(data).votes])
+    first = vs.slot_hashes[0][0]
+    assert all(t == [first + r for r in range(len(vs.slot_hashes))] for t in towers), towers

@@ -104,3 +104,57 @@ def test_loops_sum_the_stall_clocks_of_their_control_words():
     (lp,) = sass.loops(listing, "mad_kernel")
     assert lp["n"] == 3 and lp["clocks"] == 10
     assert sass.loops(LISTING.format(target="0x20"), "chain_kernel")[0]["clocks"] == 0
+
+
+# a compare kernel in two forms: the limb loads behind a branch on a loaded
+# flag (two round trips in series), or every load issued first (one)
+GATED_LISTING = """
+        Function : cmp_kernel
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E.U8 R2, [R4.64] ;
+        /*0020*/                   ISETP.NE.AND P0, PT, R2, RZ, PT ;
+        /*0030*/              @!P0 BRA `(.L_x_1) ;
+        /*0040*/                   LDG.E R6, [R8.64] ;
+        /*0050*/                   LDG.E R7, [R8.64+0x10] ;
+        /*0060*/                   IMAD.WIDE R10, R6, R7, RZ ;
+        /*0070*/                   CALL.REL.NOINC `(.L_x_2) ;
+.L_x_1:
+        /*0080*/                   STG.E.U8 [R12.64], R2 ;
+        /*0090*/                   EXIT ;
+.L_x_2:
+        /*00a0*/                   IMAD.WIDE R10, R10, R10, RZ ;
+        /*00b0*/                   RET.REL.NODEC R2 0x0 ;
+"""
+FLAT_LISTING = """
+        Function : cmp_kernel
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E.U8 R2, [R4.64] ;
+        /*0020*/                   LDG.E R6, [R8.64] ;
+        /*0030*/                   LDG.E R7, [R8.64+0x10] ;
+        /*0040*/                   IMAD.WIDE R10, R6, R7, RZ ;
+        /*0050*/                   ISETP.NE.AND P0, PT, R2, RZ, PT ;
+        /*0060*/               @P0 STG.E.U8 [R12.64], R10 ;
+        /*0070*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("listing,rounds,n,called",
+                         [(GATED_LISTING, 2, 12, 2), (FLAT_LISTING, 1, 8, 0)])
+def test_whole_counts_a_kernel_without_loops_and_its_loads_in_series(listing, rounds, n,
+                                                                     called):
+    """A kernel without loops as one block: every instruction (a CALL's
+    callee to its RET too) and the global loads a thread waits for in
+    series, a guarded branch on a loaded value putting every later load
+    behind it."""
+    assert sass.loops(listing, "cmp_kernel") == []
+    w = sass.whole(listing, "cmp_kernel")
+    assert (w["load_rounds"], w["n"], w["called"]) == (rounds, n, called)
+    assert w["ops"]["LDG"] == 3
+
+
+def test_main_whole_prints_the_kernel_as_one_block(monkeypatch, capsys):
+    monkeypatch.setattr(sass, "dump", lambda so: GATED_LISTING)
+    assert sass.main(["--whole", "lib.so", "cmp_kernel"]) == 0
+    out = capsys.readouterr().out
+    assert "lib.so cmp_kernel whole: 12 instructions (2 in called functions)" in out
+    assert "global loads in series 2" in out
