@@ -219,6 +219,31 @@ script or when a phase fails):
               account decodes and the towers hold every vote that landed
               ok (at least one); txn/s to the store, votes landed, host
               seconds per stage beside phase 17's, the seal's seconds
+  17e. clocked leader  build_leader_pipeline over phase 17's pool with 256
+              durable-nonce transfers mixed in (one every 32 txns), batch
+              1,024, 2 banks, pack's pool the stream's length, over
+              nonce_bank_ctx, against a slot clock of 16 slots of 400 ms
+              and 64 ticks (mainnet's cadence; hashes_per_tick stays the
+              pipeline's default 64, where mainnet's 12,500 would cost the host PoH
+              chain ~800 k hashlib calls a slot), grace 100 ms: the window
+              is driven until PoH closes it and the stream is sent (a 60 s
+              wall cap fails the phase), then finish, seal and replay, three
+              times: (a) unfused, (b) fuse_poh_shred=True, (c) shed_keep=256.
+              Each: sealed + missed = 16 with one sealed at least, ticks +
+              skipped ticks = 64 x 16, 1 <= blocks_closed <= 16, landed +
+              shed = the verified txns and none dropped, the deshredded
+              store bytes equal PoH's entries, replay_block reproduces the
+              seal and its statuses, every landed durable txn ok and every
+              nonce advanced against the parent bank hash if its txn landed
+              or kept if it was shed, K1 once per verify batch, K5 once or
+              twice per entry batch, K13 once; (a) and (b) shed nothing and
+              land all 256 durable txns, (b) lands (a)'s signatures, (c)
+              sheds. A missed slot is a measured value, not a failure.
+              [clock-leader], [clock-leader-fused], [clock-leader-shed]: slots
+              sealed and missed, skipped ticks, the seal lag's p50 and p99,
+              blocks_closed, txns landed in the window and in the drain,
+              txn/s to the store, the seal's and the replay's seconds, and
+              (-split) the host seconds per stage
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -386,6 +411,14 @@ K15_CHAIN_DEPTH = 3  # dependent instructions a round on the chain: Sigma1 -> t1
 # pool holds the whole stream (at the default 4,096, equal-priority
 # transfers past a full pool are dropped, and a quarter of them were)
 LEADER_TXNS, LEADER_DESTS = 8192, 1024
+# phase 17e: the clocked leader over phase 17's pool with durable-nonce
+# transfers mixed in (one every CLOCK_EVERY txns), a 16-slot leader window at
+# mainnet's cadence (400 ms, 64 ticks a slot) with PoH's hashes_per_tick left
+# at build_leader_pipeline's 64 (mainnet's 12,500 would cost the host chain ~800 k
+# hashlib calls a slot), pack's load shedding down to CLOCK_SHED_KEEP in run
+# (c), and a wall cap on driving the window
+CLOCK_DURABLE, CLOCK_EVERY, CLOCK_SHED_KEEP, CLOCK_WALL_S = 256, 32, 256, 60.0
+CLOCK_SLOTS, CLOCK_TICKS, CLOCK_SLOT_MS, CLOCK_GRACE = 16, 64, 400.0, 0.25
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
@@ -1211,9 +1244,13 @@ def main() -> int:
     )
     from firedancer_tpu_torch.flamenco.agave_state import vote_state_decode
     from firedancer_tpu_torch.flamenco.executor import acct_decode
+    from firedancer_tpu_torch.flamenco import nonce as fnonce
     from firedancer_tpu_torch.models.workload import (
         mixed_batch,
         noncanonical_encodings,
+        nonce_bank_ctx,
+        nonce_keys,
+        nonce_transfers,
         nonsquare_encodings,
         torsion_encodings,
         verify_stream,
@@ -1242,6 +1279,7 @@ def main() -> int:
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
     from firedancer_tpu_torch.runtime.poh_stage import parse_entry
     from firedancer_tpu_torch.runtime.shred_stage import deshred_entry_batch
+    from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
     from firedancer_tpu_torch.runtime.stage import Consumer, Frag, Link
     from firedancer_tpu_torch.runtime.store import StoreStage
     from firedancer_tpu_torch.runtime.verify import encode_verified
@@ -2856,6 +2894,132 @@ def main() -> int:
         f" {txn17_s:.0f} txn/s, host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17.items())})};"
         f" counters {json.dumps(rep17d)}")
 
+    # -- 17e. the clocked leader: a 16-slot window at 400 ms a slot -----------------------------
+    mark("17e")
+    # who sends it: benchg's transfers beside offline and custodial signers'
+    # durable-nonce transfers, through a leader judged by the slot cadence
+    durable17e = nonce_transfers(CLOCK_DURABLE)
+    stream17e = []
+    for i, p_ in enumerate(pool17):
+        stream17e.append(p_)
+        if i % CLOCK_EVERY == CLOCK_EVERY - 1 and i // CLOCK_EVERY < CLOCK_DURABLE:
+            stream17e.append(durable17e[i // CLOCK_EVERY])
+    check(len(stream17e) == LEADER_TXNS + CLOCK_DURABLE, f"clocked stream of {len(stream17e)}")
+    durable_set17e = set(durable17e)
+    nkeys17e = nonce_keys(CLOCK_DURABLE)
+    clock17e = SlotClockCfg(slot_ms=CLOCK_SLOT_MS, slot0=1, ticks_per_slot=CLOCK_TICKS,
+                            n_slots=CLOCK_SLOTS, miss_grace_frac=CLOCK_GRACE)
+    grace17e_ms = CLOCK_SLOT_MS * CLOCK_GRACE
+
+    def clock_leader(tag: str, **kw) -> dict:
+        """One clocked leader run over stream17e: drive the window (and the
+        rest of the stream) under the wall cap, drain, seal, replay; check
+        the slot accounting, the launches and the replay; log [tag]."""
+        ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev)
+        pipe = build_leader_pipeline(stream17e, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
+                                     bank_ctx=ctx, keep_entries=True, pack_depth=len(stream17e),
+                                     slot_clock=clock17e, **kw)
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        b_ = pipe.benchg
+        in_window = None
+        window_s = None
+        while not (pipe.poh.window_closed and b_._i >= b_.limit):
+            pipe._step(pipe.stages)
+            if in_window is None and pipe.poh.window_closed:
+                window_s = time.perf_counter() - t0
+                in_window = sum(b.metrics.get("txn_exec") for b in pipe.banks)
+            check(time.perf_counter() - t0 < CLOCK_WALL_S,
+                  f"{tag}: window closed {pipe.poh.window_closed}, {b_._i} of {b_.limit} sent"
+                  f" after {CLOCK_WALL_S} s")
+        pipe.finish()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seal = pipe.seal()
+        seal_s = time.perf_counter() - t0
+        launches = dict(kbuild.LAUNCHES)
+        rep = pipe.report()
+        poh_m, pack_m = pipe.poh.metrics, pipe.pack.metrics
+        sealed_, missed_ = poh_m.get("slots_sealed"), poh_m.get("slot_missed")
+        check(sealed_ + missed_ == CLOCK_SLOTS and sealed_ >= 1,
+              f"{tag}: {sealed_} slots sealed + {missed_} missed != {CLOCK_SLOTS}")
+        check(poh_m.get("ticks") + poh_m.get("slot_skipped_ticks") == CLOCK_TICKS * CLOCK_SLOTS,
+              f"{tag}: ticks {poh_m.get('ticks')} + skipped {poh_m.get('slot_skipped_ticks')}")
+        closed = pack_m.get("blocks_closed")
+        check(1 <= closed <= CLOCK_SLOTS, f"{tag}: blocks_closed {closed}")
+        landed = sum(b.metrics.get("txn_exec") for b in pipe.banks)
+        verified = rep["dedup"].get("frags_out", 0)
+        shed = pack_m.get("txn_shed")
+        check(pack_m.get("txn_dropped") == 0 and landed + shed == verified == len(stream17e),
+              f"{tag}: landed {landed} + shed {shed} != verified {verified} of {len(stream17e)},"
+              f" dropped {pack_m.get('txn_dropped')}")
+        ents = [parse_entry(x) for x in deshred_entry_batch(pipe.store.entry_batch_bytes(1))]
+        check(ents == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe.poh.entries],
+              f"{tag}: deshredded store bytes != PoH's entries")
+        block = [p_ for _, _, txs in ents for p_ in txs]
+        fund = nonce_bank_ctx(CLOCK_DURABLE, device=dev)
+        t0 = time.perf_counter()
+        rp = replay_block(fund.funk, slot=1, entries=ents, poh_seed=b"\x00" * 32,
+                          status_cache=fund.status_cache, device=dev)
+        replay_s = time.perf_counter() - t0
+        check(rp is not None and rp.bank_hash == seal.bank_hash
+              and np.array_equal(rp.accounts_delta, seal.accounts_delta)
+              and rp.signature_cnt == seal.signature_cnt
+              and sorted(r.status for r in rp.results)
+              == sorted(r.status for r in seal.results if r.fee > 0),
+              f"{tag}: replay_block does not reproduce the seal")
+        durable_ok = sum(p_ in durable_set17e and r_.status == 0
+                         for p_, r_ in zip(block, rp.results))
+        landed_durable = {p_ for p_ in block if p_ in durable_set17e}
+        sx = pipe.bank_ctx.sx
+        nonces = [fnonce.decode_state(acct_decode(sx.funk.rec_query(sx.xid, a_))[3])[2]
+                  for _, _, a_, _ in nkeys17e]
+        advanced = [p_ in landed_durable for p_ in durable17e]
+        check(all(n_ == (fnonce.next_nonce(bytes(32), a_) if adv else st_)
+                  for n_, adv, (_, _, a_, st_) in zip(nonces, advanced, nkeys17e)),
+              f"{tag}: a nonce account neither advanced with its landed txn nor kept its nonce")
+        check(durable_ok == len(landed_durable), f"{tag}: {durable_ok} durable txns ok of"
+              f" {len(landed_durable)} landed")
+        nb = pipe.shred.metrics.get("entry_batches")
+        check(launches.get("verify_batch", 0) == rep["verify0"]["batches"] > 0,
+              f"{tag}: K1 launches {launches} != batches {rep['verify0']['batches']}")
+        check(nb <= launches.get("gf256_apply", 0) <= 2 * nb,
+              f"{tag}: K5 launches {launches.get('gf256_apply', 0)} for {nb} entry batches")
+        check(launches.get("lthash_combine", 0) == 1, f"{tag}: K13 launches {launches}")
+        lag = poh_m.hist("slot_seal_lag_ns")
+        lag50, lag99 = (tune_quantile(lag, q) / 1e6 for q in (0.5, 0.99))
+        split = dict(pipe.stage_s)
+        log(f"[{tag}] {len(stream17e)} txns ({LEADER_TXNS} transfers, {CLOCK_DURABLE} durable)"
+            f" at batch {B1}, 2 banks, {CLOCK_SLOTS} slots of {CLOCK_SLOT_MS:.0f} ms,"
+            f" {CLOCK_TICKS} ticks a slot, {pipe.poh.hashes_per_tick} hashes a tick"
+            f"{', ' + json.dumps(kw) if kw else ''}: slots sealed {sealed_}, missed {missed_},"
+            f" skipped ticks {poh_m.get('slot_skipped_ticks')}; seal lag p50 {lag50:.3f} ms,"
+            f" p99 {lag99:.3f} ms (upper bucket edges; grace {grace17e_ms:.0f} ms), counts"
+            f" {lag['counts']}; blocks_closed {closed}; txn_shed {shed}; landed {landed}"
+            f" ({in_window} in the window, {landed - in_window} in the drain; window closed at"
+            f" {window_s:.3f} s); durable ok {durable_ok} of {CLOCK_DURABLE}; run {run_s:.3f} s ="
+            f" {landed / run_s:.0f} txn/s to the store; seal {seal_s:.3f} s ({sx.seal_rows} rows,"
+            f" bank hash {seal.bank_hash.hex()}); replay reproduces the seal in {replay_s:.3f} s;"
+            f" launches {launches}")
+        log(f"[{tag}-split] host seconds"
+            f" {json.dumps({k: round(v, 4) for k, v in sorted(split.items())})}; counters"
+            f" {json.dumps(rep)}")
+        return dict(launches=launches, landed=landed, shed=shed, sigs=sorted(
+            ft.txn_parse(p_).signatures(p_)[0] for p_ in block), advanced=sum(advanced),
+            durable_ok=durable_ok)
+
+    r17e = clock_leader("clock-leader")
+    check(r17e["shed"] == 0 and r17e["durable_ok"] == r17e["advanced"] == CLOCK_DURABLE,
+          f"clock-leader: shed {r17e['shed']}, durable ok {r17e['durable_ok']} of {CLOCK_DURABLE}")
+    launches17e = r17e["launches"]
+    r17e_f = clock_leader("clock-leader-fused", fuse_poh_shred=True)
+    check(r17e_f["shed"] == 0 and r17e_f["durable_ok"] == CLOCK_DURABLE
+          and r17e_f["sigs"] == r17e["sigs"],
+          "clock-leader-fused: landed signatures differ from the unfused run's")
+    r17e_s = clock_leader("clock-leader-shed", shed_keep=CLOCK_SHED_KEEP)
+    check(r17e_s["shed"] > 0, "clock-leader-shed: nothing shed")
+
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
 
@@ -3222,6 +3386,7 @@ def main() -> int:
                                  "leader_lossy_store": launches17b.get(k["name"], 0),
                                  "sharded_leader_pipeline": launches17c.get(k["name"], 0),
                                  "vote_leader_pipeline": launches17d.get(k["name"], 0),
+                                 "clock_leader_pipeline": launches17e.get(k["name"], 0),
                                  "bmtree_root_build": launches18.get(k["name"], 0),
                                  OPS_API: ops_api.get(k["name"], 0)}
     for nm in SPLIT:

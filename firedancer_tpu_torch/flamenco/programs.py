@@ -6,13 +6,12 @@ instruction accounts and raw data, and raise typed errors (InstrError
 subclasses) that the runtime maps onto its txn status codes.  Instruction
 encodings are the protocol's own (bincode: u32 LE enum tag, then the
 payload fields in order).  The system program's durable-nonce family
-(tags 4-7, firedancer_tpu/flamenco/nonce.py) is not ported and raises
-NotImplementedError.
+(tags 4-7) lives in flamenco/nonce.py.
 """
 
 from __future__ import annotations
 
-from .executor import SYSTEM_PROGRAM, Account, InstrError, not_ported
+from .executor import SYSTEM_PROGRAM, Account, InstrError
 
 MAX_PERMITTED_DATA_LENGTH = 10 * 1024 * 1024
 
@@ -35,7 +34,7 @@ def _u64(b: bytes) -> int:
 
 # -- system program -----------------------------------------------------------
 # tags (SystemInstruction): 0 CreateAccount, 1 Assign, 2 Transfer,
-# 4-7 the nonce family (not ported), 8 Allocate
+# 4-7 the nonce family, 8 Allocate
 
 
 def system_program(executor, ctx, program_id, iaccts, data, *, pda_signers):
@@ -115,8 +114,11 @@ def system_program(executor, ctx, program_id, iaccts, data, *, pda_signers):
         if a.owner != SYSTEM_PROGRAM:
             raise AcctError("assign target not system-owned")
         a.owner = data[4:36]
-    elif tag in (4, 5, 6, 7):  # the durable-nonce family
-        raise not_ported("the durable-nonce instructions")
+    elif tag in (4, 5, 6, 7):  # the durable-nonce family (flamenco/nonce.py)
+        from . import nonce as _nonce
+
+        _nonce.handle(executor, ctx, tag, iaccts, data,
+                      pda_signers=pda_signers)
     elif tag == 8:  # Allocate { space }
         if len(data) < 12 or len(iaccts) < 1:
             raise AcctError("malformed allocate")

@@ -14,7 +14,10 @@ Account model: funk value bytes = `u64 lamports | 32B owner |
 u8 executable | data` (executor.acct_encode/decode).  A failed txn still
 pays its fee; errors never abort the block.  What the port does not run
 yet raises NotImplementedError (flamenco/executor.py): programs other than
-system and compute budget, address lookup tables, durable nonces.  The
+system, compute budget and vote, and address lookup tables.  A stale
+blockhash passes only as a durable-nonce txn (flamenco/nonce.py); its
+nonce advances against the parent bank hash, also when the txn fails
+with its fee charged.  The
 JAX package's native executor lanes (exec_native, the bank sweep) are not
 ported.
 """
@@ -33,6 +36,7 @@ from ..ops import lthash as lt
 from ..pack.cost import txn_budget
 from ..protocol import txn as ft
 from ..utils.platform import resolve_device
+from . import nonce as N
 from . import types as T
 from .executor import (
     UPGRADEABLE_LOADER_PROGRAM,
@@ -58,8 +62,6 @@ TXN_ERR_ACCT = -3                # unresolvable account index
 TXN_ERR_PROGRAM = -4             # program error: fee charged, no effects
 TXN_ERR_BLOCKHASH = -5           # recent_blockhash unknown/expired: no fee
 TXN_ERR_ALREADY_PROCESSED = -6   # signature already landed on this fork
-
-NONCE_ADVANCE_TAG = 4  # SystemInstruction::AdvanceNonceAccount
 
 
 def acct_lamports(val: bytes | None) -> int:
@@ -159,23 +161,30 @@ def default_sysvars(slot: int) -> dict:
     }
 
 
-def _is_nonce_advance(payload: bytes, desc: ft.Txn) -> bool:
-    """Would the JAX runtime's durable-nonce gate look further at this
-    stale-blockhash txn?  Its first instruction must be the system
-    program's AdvanceNonceAccount (flamenco/nonce.py durable_nonce_ok)."""
-    if not desc.instrs:
-        return False
+def _advance_nonce_account(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
+                           addrs: list[bytes], sysvars: dict | None) -> None:
+    """A FAILED durable-nonce txn still advances its nonce account: the fee
+    debit and the rotated nonce are the txn's on-chain footprint, else,
+    once the status cache prunes the signature, the identical signed txn
+    passes durable_nonce_ok again and lands twice."""
     ins = desc.instrs[0]
-    addrs = desc.acct_addrs(payload)
-    if ins.program_id >= len(addrs) or addrs[ins.program_id] != ft.SYSTEM_PROGRAM:
-        return False
-    data = payload[ins.data_off : ins.data_off + ins.data_sz]
-    return len(data) >= 4 and int.from_bytes(data[:4], "little") == NONCE_ADVANCE_TAG
+    key = addrs[payload[ins.acct_off]]
+    lam, owner, ex, data = acct_decode(funk.rec_query(xid, key))
+    state, auth, _cur = N.decode_state(data)
+    if state != N.STATE_INIT:
+        return
+    bh = (sysvars or {}).get("recent_blockhash")
+    if not bh:
+        return
+    data = bytearray(data)
+    data[: N.DATA_LEN] = N.encode_state(N.STATE_INIT, auth, N.next_nonce(bh, key))
+    funk.rec_insert(xid, key, acct_encode(lam, owner, ex, bytes(data)))
 
 
 def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
                  executor: Executor | None = None,
-                 sysvars: dict | None = None) -> TxnResult:
+                 sysvars: dict | None = None,
+                 durable_nonce: bool = False) -> TxnResult:
     executor = executor or default_executor()
     addrs = desc.acct_addrs(payload)
     if len(set(addrs)) != len(addrs):
@@ -192,6 +201,13 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
     plam, powner, pex, pdata = acct_decode(payer_val)
     funk.rec_insert(xid, payer, acct_encode(plam - fee, powner, pex, pdata))
 
+    def _fail(status: int) -> TxnResult:
+        # fee-charged failure: a durable-nonce txn's nonce must rotate even
+        # though every other program effect is discarded
+        if durable_nonce:
+            _advance_nonce_account(funk, xid, payload, desc, addrs, sysvars)
+        return TxnResult(status, fee)
+
     # load the unique account set into host objects; program effects land
     # in funk only at commit, so failure = skip the writeback (fee stays)
     accounts = [Account.from_value(a, funk.rec_query(xid, a)) for a in addrs]
@@ -201,7 +217,7 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
     budget = txn_budget(payload, desc)
     if budget is None:
         # malformed compute-budget instruction: typed failure, fee stays
-        return TxnResult(TXN_ERR_PROGRAM, fee)
+        return _fail(TXN_ERR_PROGRAM)
     cu_limit, _heap_size = budget  # the heap sizes the sBPF VM (not ported)
     if any(a.executable and a.owner == UPGRADEABLE_LOADER_PROGRAM for a in accounts):
         # the JAX loader resolves upgradeable programs' programdata here
@@ -211,25 +227,25 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
 
     for ins in desc.instrs:
         if ins.program_id >= len(addrs):
-            return TxnResult(TXN_ERR_ACCT, fee)
+            return _fail(TXN_ERR_ACCT)
         prog = addrs[ins.program_id]
         data = payload[ins.data_off : ins.data_off + ins.data_sz]
         idx = payload[ins.acct_off : ins.acct_off + ins.acct_cnt]
         if any(i >= len(addrs) for i in idx):
-            return TxnResult(TXN_ERR_ACCT, fee)
+            return _fail(TXN_ERR_ACCT)
         iaccts = [InstrAccount(i, signer[i], writable[i]) for i in idx]
         try:
             executor.execute_instr(ctx, prog, iaccts, data)
         except FundsError:
-            return TxnResult(TXN_ERR_INSUFFICIENT_FUNDS, fee)
+            return _fail(TXN_ERR_INSUFFICIENT_FUNDS)
         except AcctError:
-            return TxnResult(TXN_ERR_ACCT, fee)
+            return _fail(TXN_ERR_ACCT)
         except InstrError:
-            return TxnResult(TXN_ERR_PROGRAM, fee)
+            return _fail(TXN_ERR_PROGRAM)
         except (ValueError, IndexError, KeyError, OverflowError):
             # instruction data is attacker input: an untyped exception in
             # a native program is a failed txn, never a block abort
-            return TxnResult(TXN_ERR_PROGRAM, fee)
+            return _fail(TXN_ERR_PROGRAM)
 
     # commit: writes may only land on writable accounts; validate
     # everything before the first insert (no partial commits)
@@ -239,7 +255,7 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
         if val == baseline[i]:
             continue
         if not writable[i]:
-            return TxnResult(TXN_ERR_ACCT, fee)
+            return _fail(TXN_ERR_ACCT)
         changed.append((a.key, val))
     for key, val in changed:
         funk.rec_insert(xid, key, val)
@@ -285,6 +301,8 @@ class SlotExecution:
             if parent_xid else b"root")
         funk.txn_prepare(parent_xid, self.xid)
         self.sysvars = default_sysvars(slot)
+        # durable nonces advance against the PARENT's bank hash: fresh,
+        # deterministic, and fixed before any txn in this block runs
         self.sysvars["recent_blockhash"] = parent_bank_hash
         if slot_hashes is not None:
             self.sysvars["slot_hashes"] = T.SLOT_HASHES.encode(
@@ -319,16 +337,17 @@ class SlotExecution:
         for a in desc.acct_addrs(payload):
             if a not in self._before:
                 self._before[a] = self.funk.rec_query(self.parent_xid, a)
+        durable = False
         bh = sig = None
         if self.status_cache is not None:
             bh = desc.recent_blockhash(payload)
             sig = desc.signatures(payload)[0]
             if not self.status_cache.is_blockhash_valid(bh, self.slot):
-                if _is_nonce_advance(payload, desc):
-                    raise not_ported("the durable-nonce gate")
-                r = TxnResult(TXN_ERR_BLOCKHASH, 0)
-                self.results.append(r)
-                return r
+                if not N.durable_nonce_ok(self.funk, self.xid, payload, desc):
+                    r = TxnResult(TXN_ERR_BLOCKHASH, 0)
+                    self.results.append(r)
+                    return r
+                durable = True
             if (bh, sig) in self._block_seen or self.status_cache.contains(
                 bh, sig, self.ancestors
             ) or self.status_cache.contains_staged(bh, sig, self._ancestor_xids):
@@ -336,7 +355,8 @@ class SlotExecution:
                 self.results.append(r)
                 return r
         r = _execute_txn(self.funk, self.xid, payload, desc,
-                         executor=self.executor, sysvars=self.sysvars)
+                         executor=self.executor, sysvars=self.sysvars,
+                         durable_nonce=durable)
         return self._finish(r, desc.signature_cnt, bh, sig)
 
     def _finish(self, r: TxnResult, sig_cnt: int, bh, sig) -> TxnResult:

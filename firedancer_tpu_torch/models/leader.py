@@ -14,7 +14,10 @@ block: pack schedules, the banks execute and commit into one shared bank
 (`BankCtx`), PoH mixes the entries in, the shredder cuts them into signed
 merkle shreds with parity, and the store reassembles them; `seal()` is
 the slot's bank hash (K13 on the card), which a replayer reproduces from
-the stored shreds alone.  `build_verify_pipeline` and
+the stored shreds alone.  With a slot clock the leader block runs
+against the wall-clock cadence (paced PoH, a seal or a counted miss at
+each deadline, pack's block close and load shedding), over one or more
+slots of a leader window.  `build_verify_pipeline` and
 `build_sharded_verify_pipeline` are the verify slice cut at pack: a sink
 counts and keeps the verified, deduplicated frames.  Stages talk over
 in-process links and run under a cooperative round-robin loop.
@@ -33,7 +36,8 @@ from ..runtime.benchg import BenchGStage
 from ..runtime.dedup import DedupStage
 from ..runtime.pack_stage import PackStage
 from ..runtime.poh_stage import PohStage
-from ..runtime.shred_stage import ShredStage
+from ..runtime.shred_stage import FusedPohShredStage, ShredStage
+from ..runtime.slot_clock import SlotClockCfg
 from ..runtime.stage import Consumer, Link, Producer, Stage
 from ..runtime.store import StoreStage
 from ..runtime.verify import VerifyStage
@@ -215,13 +219,16 @@ class LeaderPipeline:
     stage_s: Counter = field(default_factory=Counter)
 
     def run(self, *, max_iters: int = 10_000_000, finish: bool = True) -> None:
-        """Cooperative round-robin until benchg has sent its stream, then
-        drain the whole pipe to the store.  finish=False leaves the pipe
-        hot."""
+        """Cooperative round-robin until benchg has sent its stream (and,
+        with a slot clock whose leader window is bounded, until PoH closes
+        the window), then drain the whole pipe to the store.  finish=False
+        leaves the pipe hot."""
         b = self.benchg
+        clock = getattr(self.poh, "_clock", None)
+        windowed = clock is not None and clock.last_slot() is not None
         for _ in range(max_iters):
             self._step(self.stages)
-            if b._i >= b.limit:
+            if b._i >= b.limit and (not windowed or self.poh.window_closed):
                 break
         if finish:
             self.finish()
@@ -266,7 +273,9 @@ class LeaderPipeline:
         if self.plane is not None:
             # no further plane step will carry the spans parked last
             self._timed(self.verifies[0].name, self.verifies[0].audit_poh)
-        self._timed(self.shred.name, self.shred.flush)
+        # the fused stage's flush goes to its shred half
+        last = self.poh if isinstance(self.poh, FusedPohShredStage) else self.shred
+        self._timed(last.name, last.flush)
         self._sweep(max_sweeps)
 
     def _sweep(self, max_sweeps: int) -> None:
@@ -300,39 +309,54 @@ class LeaderPipeline:
 def _leader_tail(*, upstream_out: Link, links: list, n_bank: int, slot: int,
                  leader_seed: bytes, bank_ctx: BankCtx | None, dev,
                  keep_entries: bool, keep_sets: bool, pack_depth: int,
-                 hashes_per_tick: int = 64, plane=None) -> tuple[Link, dict]:
+                 hashes_per_tick: int = 64, plane=None, slot_clock=None,
+                 shed_keep: int | None = None,
+                 fuse_poh_shred: bool = False) -> tuple[Link, dict]:
     """dedup -> pack -> bank xB -> poh -> shred -> store, fed by
     `upstream_out` (the verify stage's output link): (the dedup->pack link,
-    the stages and the bank)."""
+    the stages and the bank).  slot_clock (anchored by the caller) goes to
+    pack, every bank and PoH; fuse_poh_shred puts the fused stage where
+    PoH and shred were, with no poh->shred link."""
     dedup_pack = Link("dedup_pack", LINK_DEPTH)
     pack_bank = [Link(f"pack_bank{b}", LINK_DEPTH) for b in range(n_bank)]
     bank_poh = [Link(f"bank_poh{b}", LINK_DEPTH) for b in range(n_bank)]
     bank_done = [Link(f"bank_done{b}", LINK_DEPTH) for b in range(n_bank)]
-    poh_shred = Link("poh_shred", LINK_DEPTH)
+    poh_shred = None if fuse_poh_shred else Link("poh_shred", LINK_DEPTH)
     shred_store = Link("shred_store", LINK_DEPTH)
-    links += [dedup_pack, *pack_bank, *bank_poh, *bank_done, poh_shred, shred_store]
+    links += [dedup_pack, *pack_bank, *bank_poh, *bank_done]
+    links += ([] if fuse_poh_shred else [poh_shred]) + [shred_store]
     secret = hashlib.sha256(leader_seed).digest()
     dedup = DedupStage("dedup", [Consumer(upstream_out)], [Producer(dedup_pack)])
     pack = PackStage("pack", [Consumer(dedup_pack)] + [Consumer(l) for l in bank_done],
-                     [Producer(l) for l in pack_bank], bank_cnt=n_bank, depth=pack_depth)
+                     [Producer(l) for l in pack_bank], bank_cnt=n_bank, depth=pack_depth,
+                     clock=slot_clock, shed_keep=shed_keep)
     # ONE live bank shared by every bank stage (all bank tiles commit into
     # the same bank)
     if bank_ctx is None:
         bank_ctx = default_bank_ctx(slot=slot, device=dev)
     banks = [BankStage(f"bank{b}", [Consumer(pack_bank[b])],
                        [Producer(bank_poh[b]), Producer(bank_done[b])],
-                       bank_idx=b, ctx=bank_ctx)
+                       bank_idx=b, ctx=bank_ctx, clock=slot_clock)
              for b in range(n_bank)]
     for bstage in banks:
         bstage.require_credit = True
-    poh = PohStage("poh", [Consumer(l) for l in bank_poh], [Producer(poh_shred)],
-                   hashes_per_tick=hashes_per_tick, plane=plane)
+    signer = lambda root: ref.sign(secret, root)  # noqa: E731
+    if fuse_poh_shred:
+        poh = FusedPohShredStage("poh_shred", [Consumer(l) for l in bank_poh],
+                                 [Producer(shred_store)], hashes_per_tick=hashes_per_tick,
+                                 plane=plane, clock=slot_clock, signer=signer,
+                                 shred_slot=slot, keep_sets=keep_sets, shred_plane=plane,
+                                 device=dev)
+        shred = poh.shred_half
+    else:
+        poh = PohStage("poh", [Consumer(l) for l in bank_poh], [Producer(poh_shred)],
+                       hashes_per_tick=hashes_per_tick, plane=plane, clock=slot_clock)
+        shred = ShredStage("shred", [Consumer(poh_shred)], [Producer(shred_store)],
+                           signer=signer, slot=slot, keep_sets=keep_sets, plane=plane,
+                           device=dev)
     poh.require_credit = True
     if keep_entries:
         poh.entries = []
-    shred = ShredStage("shred", [Consumer(poh_shred)], [Producer(shred_store)],
-                       signer=lambda root: ref.sign(secret, root), slot=slot,
-                       keep_sets=keep_sets, plane=plane, device=dev)
     # the leader's own store trusts its own signing path; receive-path
     # resolvers keep full verification
     store = StoreStage("store", [Consumer(shred_store)], verify_sig=None,
@@ -343,7 +367,9 @@ def _leader_tail(*, upstream_out: Link, links: list, n_bank: int, slot: int,
 
 
 def _tail_stages(t: dict) -> list:
-    return [t["dedup"], t["pack"], *t["banks"], t["poh"], t["shred"], t["store"]]
+    fused = isinstance(t["poh"], FusedPohShredStage)
+    return ([t["dedup"], t["pack"], *t["banks"], t["poh"]]
+            + ([] if fused else [t["shred"]]) + [t["store"]])
 
 
 def build_leader_pipeline(
@@ -361,6 +387,9 @@ def build_leader_pipeline(
     keep_sets: bool = True,
     pack_depth: int = 4096,
     device=None,
+    slot_clock=None,
+    shed_keep: int | None = None,
+    fuse_poh_shred: bool = False,
 ) -> LeaderPipeline:
     """benchg -> verify xN -> dedup -> pack -> bank xB -> poh -> shred ->
     store over `stream` (sent once, in order).  Every device stage runs on
@@ -372,9 +401,23 @@ def build_leader_pipeline(
     benchg payers; keep_entries records PoH's entries; keep_sets keeps the
     shredder's FecSets.  pack_depth bounds pack's pending pool: when it is
     full, a newcomer evicts the lowest-priority pending txn only if it
-    pays more per cost unit, else it is dropped (txn_dropped)."""
+    pays more per cost unit, else it is dropped (txn_dropped).
+
+    slot_clock (runtime/slot_clock.SlotClockCfg, anchored here once, or a
+    built SlotClock, passed through as is) runs the pipeline against the
+    wall-clock slot cadence: PoH paces its ticks and seals or misses each
+    slot on schedule, pack closes the block at each boundary (the
+    unscheduled tail carries over; shed_keep arms the load shedding) and
+    the banks observe the boundaries.  run() then sweeps until the stream
+    is sent and PoH has closed the leader window.  fuse_poh_shred=True puts
+    the fused poh+shred stage where PoH and shred were: `poh` is the fused
+    stage and `shred` its half."""
     from ..parallel.router import ShardRouterStage
 
+    if isinstance(slot_clock, SlotClockCfg):
+        # ONE anchor for every stage: each stage's resolve_clock then
+        # derives identical boundaries from the same epoch
+        slot_clock = slot_clock.anchored()
     dev = resolve_device(device)
     gen_link = Link("gen_verify", LINK_DEPTH)
     links = [gen_link]
@@ -396,7 +439,8 @@ def build_leader_pipeline(
     dedup_pack, t = _leader_tail(upstream_out=verify_dedup, links=links, n_bank=n_bank, slot=slot,
                      leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
                      keep_entries=keep_entries, keep_sets=keep_sets,
-                     pack_depth=pack_depth)
+                     pack_depth=pack_depth, slot_clock=slot_clock, shed_keep=shed_keep,
+                     fuse_poh_shred=fuse_poh_shred)
     upstream.append(dedup_pack)
     stages = [benchg] + ([router] if router else []) + verifies + _tail_stages(t)
     return LeaderPipeline(stages=stages, links=links, benchg=benchg,

@@ -373,3 +373,70 @@ def vote_bank_ctx(vs: VoteStream, *, device=None):
     ctx.sx.sysvars["slot_hashes"] = T.SLOT_HASHES.encode(
         [T.SlotHash(s, h) for s, h in vs.slot_hashes])
     return ctx
+
+
+# -- durable-nonce traffic: offline and custodial signers ------------------------------
+
+
+def nonce_keys(n: int, seed: bytes = b"nonce") -> list[tuple[bytes, bytes, bytes, bytes]]:
+    """[(authority secret, authority pubkey, nonce account, stored nonce)] of
+    `n` durable-nonce accounts, from the seed.  The stored nonce is a hash
+    the status cache never holds, so a txn carrying it passes the
+    blockhash check only through the durable-nonce gate."""
+    out = []
+    for i in range(n):
+        secret = hashlib.sha256(seed + b"authority%d" % i).digest()
+        out.append((secret, ref.public_key(secret),
+                    hashlib.sha256(seed + b"nonce-acct%d" % i).digest(),
+                    hashlib.sha256(seed + b"stored%d" % i).digest()))
+    return out
+
+
+def nonce_genesis(n: int, seed: bytes = b"nonce") -> dict:
+    """{pubkey: account value} for `n` durable-nonce accounts: each one
+    initialized (nonce.encode_state(STATE_INIT, authority, stored)),
+    system-owned and rent-exempt, and each authority funded as a fee payer.
+    The values are the funk record encoding both packages share."""
+    from ..flamenco import nonce
+    from ..flamenco import types as T
+    from ..flamenco.executor import acct_encode
+
+    rent_min = T.rent_exempt_minimum(T.Rent(), nonce.DATA_LEN)
+    out = {}
+    for _, auth, acct, stored in nonce_keys(n, seed):
+        out[auth] = acct_encode(PAYER_LAMPORTS)
+        out[acct] = acct_encode(rent_min, data=nonce.encode_state(nonce.STATE_INIT, auth, stored))
+    return out
+
+
+def nonce_transfers(n: int, seed: bytes = b"nonce", n_dests: int = 64) -> list[bytes]:
+    """One signed durable transfer per nonce account of nonce_keys(n, seed):
+    instruction 0 is AdvanceNonceAccount [nonce account, authority], then a
+    transfer of 1 + i lamports from the authority (the fee payer) to one of
+    `n_dests` destinations; the recent_blockhash is the stored nonce."""
+    out = []
+    for i, (secret, auth, acct, stored) in enumerate(nonce_keys(n, seed)):
+        dest = hashlib.sha256(seed + b"to%d" % (i % n_dests)).digest()
+        msg = ft.message_build(
+            version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+            readonly_unsigned_cnt=1, acct_addrs=[auth, acct, dest, ft.SYSTEM_PROGRAM],
+            recent_blockhash=stored,
+            instrs=[ft.InstrSpec(program_id=3, accounts=bytes([1, 0]),
+                                 data=(4).to_bytes(4, "little")),
+                    ft.InstrSpec(program_id=3, accounts=bytes([0, 2]),
+                                 data=(2).to_bytes(4, "little") + (1 + i).to_bytes(8, "little"))])
+        out.append(ft.txn_assemble([ref.sign(secret, msg)], msg))
+    return out
+
+
+def nonce_bank_ctx(n: int, *, seed: bytes = b"nonce", slot: int = 1,
+                   payer_seed: bytes = b"benchg", n_payers: int = 8, device=None):
+    """default_bank_ctx's payers (benchg's seed and blockhash) plus
+    nonce_genesis(n, seed) on the funk root: a BankCtx that lands benchg
+    transfers mixed with nonce_transfers(n, seed)."""
+    from ..runtime.bank import default_bank_ctx
+
+    ctx = default_bank_ctx(slot=slot, seed=payer_seed, n_payers=n_payers, device=device)
+    for pub, val in nonce_genesis(n, seed).items():
+        ctx.funk.rec_insert(None, pub, val)
+    return ctx

@@ -10,7 +10,9 @@ port's copy of firedancer_tpu/pack/scheduler.py.
     and writer bank masks);
   - consensus-critical block limits: total cost, vote cost, per-account
     write cost, data bytes including the 48-byte microblock overhead;
-  - microblock_done(bank) releases that bank's account locks.
+  - microblock_done(bank) releases that bank's account locks;
+  - end_block() resets block accounting, keeping unscheduled txns;
+    shed_lowest(n) drops the pool tail at a slot deadline (never votes).
 
 The ordered pool is a sorted list with bisect insertion.  The JAX
 package's native lane (scheduler_native.py) is not ported.
@@ -70,6 +72,12 @@ class OrdTxn:
             self._sets = (w, r, lw)
         return self._sets
 
+    def accounts(self) -> tuple[set[bytes], set[bytes]]:
+        """(writable, readonly) static account addresses."""
+        w, r, _ = self.acct_sets()
+        return w, r
+
+
 class _RatioKey:
     """Orders by rewards/cost DESC without floats: r1*c2 > r2*c1."""
 
@@ -118,6 +126,8 @@ class Pack:
         self._pending: list[OrdTxn] = []  # sorted by _RatioKey
         self._pending_votes: list[OrdTxn] = []
         self._sigs: set[bytes] = set()
+        # sig -> OrdTxn index: delete_by_sig without a pool scan
+        self._by_sig: dict[bytes, OrdTxn] = {}
         # account locks: addr -> [writer_mask, reader_mask] of bank bits
         self._in_use: dict[bytes, list[int]] = {}
         self._bank_accts: list[list[tuple[bytes, bool]]] = [
@@ -158,6 +168,7 @@ class Pack:
             self._remove(worst)
         bisect.insort(pool, ord_txn, key=OrdTxn.sort_key)
         self._sigs.add(sig)
+        self._by_sig[sig] = ord_txn
         return True
 
     def _remove(self, o: OrdTxn) -> None:
@@ -177,6 +188,25 @@ class Pack:
             if found:
                 break
         self._sigs.discard(o.first_sig())
+        self._by_sig.pop(o.first_sig(), None)
+
+    def delete_by_sig(self, sig: bytes) -> bool:
+        o = self._by_sig.get(sig)
+        if o is None:
+            return False
+        self._remove(o)
+        return True
+
+    def shed_lowest(self, n: int) -> int:
+        """Deadline load shedding (the slot clock's degraded mode): drop up
+        to `n` of the lowest-priority pending regular txns, the pool tail
+        (the end the delete-worst eviction rule trims), and return how
+        many were shed.  Votes are consensus traffic and are never shed."""
+        shed = 0
+        while shed < n and self._pending:
+            self._remove(self._pending[-1])
+            shed += 1
+        return shed
 
     def pending_cnt(self) -> int:
         return len(self._pending) + len(self._pending_votes)
@@ -279,6 +309,7 @@ class Pack:
                 i += 1
                 continue
             self._sigs.discard(o.first_sig())
+            self._by_sig.pop(o.first_sig(), None)
             chosen.append(o)
             chosen_idx.append(i)
             i += 1
@@ -322,3 +353,13 @@ class Pack:
             if not (u[0] | u[1]):
                 del self._in_use[a]
         self._bank_accts[bank] = []
+
+    def end_block(self) -> None:
+        """A slot boundary: reset the block accounting and release every
+        bank's locks; unscheduled txns stay pooled for the next block."""
+        self.cost_used = 0
+        self.vote_cost_used = 0
+        self.data_bytes_used = 0
+        self._write_cost.clear()
+        for b in range(self.bank_cnt):
+            self.microblock_done(b)

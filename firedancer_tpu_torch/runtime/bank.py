@@ -21,8 +21,15 @@ Outputs: outs[0] = bank->poh executed microblocks; outs[1] = done->pack.
 Entry frame out: 32B mixin | u16 txn_cnt | (u16 len || raw txn payload)*.
 Done frame out: empty payload, sig = bank index.
 
+With a slot clock (runtime/slot_clock.py) the stage observes the slot
+boundaries: one clock read a sweep in before_credit, counted in
+`slot_boundaries` and bounded by the leader window.  Its half of the
+deadline close is structural: a microblock commits atomically inside
+after_frag, so a boundary only ever falls between microblocks.  The
+port's stages have no flight recorder: the counter carries the outcome.
+
 Not ported: the native executor and the bank sweep lane
-(runtime/bank_native.py), the slot clock.
+(runtime/bank_native.py).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import hashlib
 
 from ..flamenco.runtime import TXN_SUCCESS
 from ..protocol import txn as ft
+from .slot_clock import resolve_clock
 from .stage import Stage, now_ns
 
 
@@ -146,12 +154,26 @@ def default_bank_ctx(
 
 class BankStage(Stage):
     def __init__(self, *args, bank_idx: int = 0, ctx: BankCtx | None = None,
-                 **kwargs):
+                 clock=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.bank_idx = bank_idx
         self.ctx = ctx if ctx is not None else default_bank_ctx()
         # per-microblock commit latency vs the oldest txn's origin stamp
         self.commit_latencies_ns: list[int] = []
+        self._clock = resolve_clock(clock)
+        self._clock_slot = self._clock.cfg.slot0 if self._clock is not None else 0
+
+    def before_credit(self) -> None:
+        if self._clock is None:
+            return
+        now = self._clock.now()
+        slot = self._clock.slot_at(now)
+        last = self._clock.last_slot()
+        if last is not None:
+            slot = min(slot, last + 1)  # window-bounded, like pack's
+        if slot > self._clock_slot:
+            self.metrics.inc("slot_boundaries", slot - self._clock_slot)
+            self._clock_slot = slot
 
     def after_frag(self, in_idx: int, frag, payload: bytes) -> None:
         mb_seq, frags = parse_microblock(payload)

@@ -17,8 +17,15 @@ Batching policy: a microblock is scheduled for an idle bank when at least
 `min_pending` txns are waiting, the oldest has waited `mb_deadline_s`, or
 (the adaptive close) the txn inputs ran dry this iteration.
 
-Not ported: the fused native pack+dedup lane (NativePackStage) and the
-slot clock (deadline close, load shedding).
+With a slot clock (runtime/slot_clock.py), the block closes at each
+slot boundary (`Pack.end_block`; the unscheduled tail stays pooled for
+the next slot, zero loss, counted in `blocks_closed`).  In a slot's last
+`close_frac` the policy schedules without waiting for `min_pending`, and
+with `shed_keep` set it sheds the lowest-priority pending regular txns
+down to `shed_keep` (`txn_shed`; votes are never shed).  The port's
+stages have no flight recorder: the counters carry every outcome.
+
+Not ported: the fused native pack+dedup lane (NativePackStage).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import time
 
 from ..pack.scheduler import Pack
 from ..utils.metrics import exp_buckets
+from .slot_clock import resolve_clock
 from .stage import Stage
 from .verify import decode_verified, encode_verified
 
@@ -42,6 +50,9 @@ class PackStage(Stage):
         mb_deadline_s: float = 0.002,
         adaptive: bool = True,
         n_txn_ins: int = 1,
+        clock=None,
+        close_frac: float = 0.25,
+        shed_keep: int | None = None,
         **kwargs,
     ):
         super().__init__(*args, **kwargs)
@@ -65,6 +76,14 @@ class PackStage(Stage):
         # txns evicted from the pool would otherwise leak
         self._tsorig_by_sig: dict[bytes, int] = {}
         self.metrics.histogram("mb_fill", exp_buckets(1, 64, 7))
+        # slot-clock mode: the deadline-aware block close (module docstring)
+        self._clock = resolve_clock(clock)
+        self._close_ns = 0
+        self._shed_keep = shed_keep
+        self._deadline_near = False
+        if self._clock is not None:
+            self._clock_slot = self._clock.cfg.slot0
+            self._close_ns = int(self._clock.slot_ns * close_frac)
 
     # -- callbacks ----------------------------------------------------------
 
@@ -91,6 +110,8 @@ class PackStage(Stage):
     def before_credit(self) -> None:
         # the mb_deadline_s clock starts here: before_credit runs every
         # iteration, even while a bank link is backpressured
+        if self._clock is not None:
+            self._clock_roll(self._clock.now())
         if self.adaptive:
             self._input_idle = not any(
                 self.ins[i].has_pending() for i in range(self.n_txn_ins))
@@ -112,11 +133,45 @@ class PackStage(Stage):
 
     # -- internals ----------------------------------------------------------
 
+    def _clock_roll(self, now: int) -> None:
+        """One clock read a loop sweep: close the block at each slot
+        boundary (in-flight microblocks finish through the normal done
+        feedback, the unscheduled tail stays pooled for the next slot) and
+        arm the deadline-close and load-shed posture for the slot's final
+        stretch."""
+        clock = self._clock
+        slot = clock.slot_at(now)
+        last = clock.last_slot()
+        if last is not None:
+            # the leader window bounds the boundaries this stage owns: one
+            # final close after the last slot, then the clock is someone
+            # else's (post-window accounting does not drift with wall time
+            # while the pipeline drains)
+            slot = min(slot, last + 1)
+        if slot > self._clock_slot:
+            self.pack.end_block()
+            self.metrics.inc("blocks_closed", slot - self._clock_slot)
+            self._clock_slot = slot
+        self._deadline_near = clock.remaining_ns(slot, now) <= self._close_ns
+        if self._deadline_near and self._shed_keep is not None:
+            excess = self.pack.pending_cnt() - self._shed_keep
+            if excess > 0:
+                shed = self._shed(excess)
+                if shed:
+                    self.metrics.inc("txn_shed", shed)
+
+    def _shed(self, n: int) -> int:
+        return self.pack.shed_lowest(n)
+
     def _ready_to_schedule(self) -> bool:
         n = self.pack.pending_cnt()
         if n == 0:
             return False
         if self.force_flush or n >= self.min_pending:
+            return True
+        if self._deadline_near:
+            # the slot's final stretch: accumulating toward min_pending
+            # risks the block closing with schedulable work stranded
             return True
         if self.adaptive and self._input_idle:
             # inputs ran dry: nothing else is coming this instant

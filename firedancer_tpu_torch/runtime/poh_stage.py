@@ -16,13 +16,25 @@ entries with txn_cnt = 0.
 
 With a serving plane (parallel/serve.ServePlane), every full-tick
 pure-append span is parked on the plane (`queue_poh_span`) and
-re-verified by K4 on a later plane step.  The slot clock (paced ticks,
-slot seal and miss) is not ported.
+re-verified by K4 on a later plane step.
+
+With a slot clock (runtime/slot_clock.py) the wall clock, not the txn
+stream, decides when ticks land and when a slot seals: tick k of a slot
+may complete only once it is due, the slot seals at its deadline whatever
+load is pending (`slots_sealed`, with the landing time past the deadline
+in the `slot_seal_lag_ns` histogram), and a boundary that passes its
+grace unsealed (a stalled loop, starved credits) becomes a counted miss
+(`slot_missed`, `slot_skipped_ticks`): the stage skips to the slot the
+clock says is current and keeps going.  After the leader window's last
+slot `window_closed` is set and no tick lands again.  The port's stages
+have no flight recorder: the counters carry every outcome.
 """
 
 from __future__ import annotations
 
+from ..utils.metrics import exp_buckets
 from .poh import PohChain
+from .slot_clock import resolve_clock
 from .stage import Stage
 
 
@@ -60,6 +72,7 @@ class PohStage(Stage):
         ticks_per_slot: int = 8,
         hashes_per_iter: int = 16,
         plane=None,
+        clock=None,
         **kwargs,
     ):
         super().__init__(*args, **kwargs)
@@ -80,12 +93,25 @@ class PohStage(Stage):
         # mixin (poh_iters == hashes_per_tick); others are skipped.
         self.plane = plane
         self._span_start = seed
+        # final-tick landing time past the slot deadline (slot-clock mode)
+        self.metrics.histogram("slot_seal_lag_ns", exp_buckets(1e4, 1e10, 19))
+        # slot-clock mode (module docstring)
+        self._clock = resolve_clock(clock)
+        if self._clock is not None:
+            self.ticks_per_slot = self._clock.cfg.ticks_per_slot
+            self.slot = self._clock.cfg.slot0
+            self._slot_hash_base = 0
+            self.window_closed = False
 
     # -- callbacks ----------------------------------------------------------
 
     def after_credit(self) -> None:
         """The clock: advance the chain a bounded amount per loop sweep so
-        the cooperative scheduler stays fair."""
+        the cooperative scheduler stays fair.  In slot-clock mode the wall
+        clock decides when ticks land and when the slot seals."""
+        if self._clock is not None:
+            self._clock_sweep(self._clock.now())
+            return
         room = self.hashes_per_tick - (self.chain.hashcnt % self.hashes_per_tick)
         n = min(self.hashes_per_iter, room)
         if n <= 0:  # clock stopped (drain mode)
@@ -94,6 +120,99 @@ class PohStage(Stage):
         self._hashes_since_entry += n
         if self.chain.hashcnt % self.hashes_per_tick == 0:
             self._emit_tick()
+
+    # -- slot-clock mode -----------------------------------------------------
+
+    def before_credit(self) -> None:
+        """Miss detection must outrun backpressure: run_once skips
+        after_credit while an output is starved, but a slot whose grace
+        expired during the stall must still become a miss (the outcome is a
+        value because it needs no credit to be declared).  before_credit
+        runs every sweep."""
+        if self._clock is None or self.window_closed:
+            return
+        now = self._clock.now()
+        if self._clock.missed(self.slot, now):
+            self._miss_slots(now)
+
+    def _tick_progress(self) -> int:
+        """Hashes into the current tick (slot-local; a mixin may overshoot a
+        boundary, and the overshoot counts toward the next tick)."""
+        return (self.chain.hashcnt - self._slot_hash_base
+                - self._tick_cnt * self.hashes_per_tick)
+
+    def _clock_sweep(self, now: int) -> None:
+        clock = self._clock
+        if self.window_closed:
+            return
+        if now >= clock.deadline_of(self.slot):
+            # the boundary: seal now regardless of pending load, or, past
+            # the grace, declare the slot missed and move on
+            if clock.missed(self.slot, now):
+                self._miss_slots(now)
+            else:
+                self._seal_rush()
+            return  # pace the new slot from the next sweep on
+        # paced hashing: tick k (1-based) may complete only once due;
+        # catch-up after a stall is bounded per sweep (cooperative loop)
+        for _ in range(4):
+            if self._tick_cnt >= self.ticks_per_slot:
+                return  # fully ticked; wait for the boundary roll
+            k = self._tick_cnt + 1
+            due = now >= clock.tick_deadline(self.slot, k)
+            need = self.hashes_per_tick - self._tick_progress()
+            if need > 0:
+                cap = need if due else min(self.hashes_per_iter, need - 1)
+                if cap > 0:
+                    self.chain.append(cap)
+                    self._hashes_since_entry += cap
+            if not due or self._tick_progress() < self.hashes_per_tick:
+                return
+            if self.outs and self.outs[0].cr_avail <= 0:
+                return  # starved: retry next sweep (the miss clock runs)
+            self._emit_tick()
+
+    def _seal_rush(self) -> None:
+        """Deadline reached with the slot still open: land every remaining
+        tick now (hashing is cheap; credits may not be) and roll to the next
+        slot.  Called only inside the grace: past it the slot is a miss."""
+        clock = self._clock
+        while self._tick_cnt < self.ticks_per_slot:
+            if self.outs and self.outs[0].cr_avail <= 0:
+                return  # retry next sweep; grace expiry makes this a miss
+            need = self.hashes_per_tick - self._tick_progress()
+            if need > 0:
+                self.chain.append(need)
+                self._hashes_since_entry += need
+            self._emit_tick()
+        lag = clock.now() - clock.deadline_of(self.slot)
+        self.metrics.inc("slots_sealed")
+        self.metrics.observe("slot_seal_lag_ns", max(lag, 1))
+        self._advance_slot(self.slot + 1)
+
+    def _miss_slots(self, now: int) -> None:
+        """The missed outcome: the boundary (plus grace) passed before the
+        slot's final tick could land.  Count it, skip the unsealed ticks and
+        continue at the slot the clock says is current."""
+        target = self._clock.slot_at(now)
+        missed = max(target - self.slot, 1)
+        skipped = (missed * self.ticks_per_slot) - self._tick_cnt
+        self.metrics.inc("slot_missed", missed)
+        self.metrics.inc("slot_skipped_ticks", max(skipped, 0))
+        self._advance_slot(self.slot + missed)
+
+    def _advance_slot(self, slot: int) -> None:
+        self.slot = slot
+        self._tick_cnt = 0
+        self._slot_hash_base = self.chain.hashcnt
+        if not self._clock.in_window(slot):
+            # the leader window ended: the handoff fires on this schedule
+            # (not on drain), and the clock stops sealing
+            self.window_closed = True
+
+    def slots_done(self) -> int:
+        return (self.metrics.get("slots_sealed")
+                + self.metrics.get("slot_missed"))
 
     def after_frag(self, in_idx: int, frag, payload: bytes) -> None:
         """A bank's executed microblock: mix its hash into the chain and

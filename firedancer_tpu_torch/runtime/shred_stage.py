@@ -11,14 +11,19 @@ Inputs:  ins[0] = poh -> shred entries.
 Outputs: outs[0] = wire shreds (mtu >= 1228).
 
 Entry batches close when the accumulated serialized entries reach
-`batch_target_sz` or on flush at slot end.  Not ported: the native
-shredder lanes and the fused poh+shred stage.
+`batch_target_sz` or on flush at slot end.
+
+`FusedPohShredStage` is the fused poh+shred stage: one stage owns the
+hash clock and the shredder, and each entry goes mixin -> entry batch ->
+FEC set inside one sweep, with no poh->shred link.  Not ported: the
+native shredder lanes (the fused stage composes the Python lane).
 """
 
 from __future__ import annotations
 
+from .poh_stage import PohStage
 from .shredder import EntryBatchMeta, FecSet, Shredder
-from .stage import Stage
+from .stage import Frag, Stage
 
 
 class ShredStage(Stage):
@@ -89,6 +94,50 @@ class ShredStage(Stage):
                 self.publish_burst_out(0, items)
                 self.metrics.inc("data_shreds_out", len(st.data_shreds))
                 self.metrics.inc("parity_shreds_out", len(st.parity_shreds))
+
+
+class FusedPohShredStage(PohStage):
+    """The fused poh+shred stage: ONE stage owns both the hash clock and
+    the shredder, collapsing the poh->shred link.  Each bank microblock's
+    entry goes mixin -> entry batch -> FEC set inside a single run_once
+    sweep, and ticks append to the same batch buffer.
+
+    Composition, not reimplementation: the PoH half IS PohStage (every
+    slot-clock seal and miss rule inherited as is); the shred half IS a
+    ShredStage whose intake is called in process where the unfused
+    pipeline would publish to the poh->shred link, so its entry bytes and
+    FEC sets equal the unfused pipeline's.
+
+    outs[0] is the wire-shred link (the unfused shred stage's output), so
+    the PoH half's credit checks gate tick emission on the downstream the
+    shreds land on: the backpressure the collapsed hop implies."""
+
+    def __init__(self, *args, signer, shred_slot: int = 1,
+                 shred_version: int = 1, batch_target_sz: int = 16384,
+                 keep_sets: bool = False, shred_plane=None, device=None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.shred_half = ShredStage(
+            f"{self.name}/shred", ins=[], outs=list(self.outs),
+            signer=signer, slot=shred_slot, shred_version=shred_version,
+            batch_target_sz=batch_target_sz, keep_sets=keep_sets,
+            plane=shred_plane, device=device,
+        )
+
+    def publish(self, out_idx: int, payload: bytes, sig: int = 0,
+                tsorig: int = 0) -> bool:
+        """The collapsed hop: every entry the PoH half emits feeds the
+        shredder in process instead of crossing a link."""
+        self.shred_half.after_frag(0, Frag(0, sig, tsorig), payload)
+        self.metrics.inc("frags_out")  # the unfused PoH stage's counter
+        return True
+
+    def after_credit(self) -> None:
+        super().after_credit()  # the clock: ticks or the slot-clock sweep
+        self.shred_half.after_credit()  # credit-deferred batch retry
+
+    def flush(self, *, block_complete: bool = True) -> None:
+        self.shred_half.flush(block_complete=block_complete)
 
 
 def deshred_entry_batch(batch: bytes) -> list[bytes]:

@@ -224,8 +224,11 @@ def test_vote_block_equals_jax(case):
 
 
 def test_unported_paths_raise_where_jax_runs_them():
-    """Durable nonce (a stale blockhash behind AdvanceNonceAccount) and an
-    address-table lookup raise; a stale plain transfer gets JAX's status."""
+    """A durable-nonce txn (a stale blockhash behind AdvanceNonceAccount)
+    over a missing nonce account gets JAX's TXN_ERR_BLOCKHASH from the
+    port's durable-nonce gate, and a stale plain transfer gets the same; an
+    address-table lookup, which the JAX runtime resolves, still raises
+    NotImplementedError in the port."""
     payer = pool_payers()[0]
     stale = hashlib.sha256(b"stale").digest()
     nonce_acct = hashlib.sha256(b"nonce").digest()
@@ -237,13 +240,30 @@ def test_unported_paths_raise_where_jax_runs_them():
                              data=(4).to_bytes(4, "little"))])
     nonce_txn = ft.txn_assemble([ref.sign(payer[0], msg)], msg)
     genesis = {payer[1]: 10**9}
-    with pytest.raises(NotImplementedError, match="durable-nonce"):
-        _run(trt, TFunk, tbs.StatusCache, [nonce_txn], genesis, device="cpu")
     plain = ft.transfer_txn(payer[0], nonce_acct, 3, stale)
-    jres, _ = _run(jrt, JFunk, jbs.StatusCache, [plain], genesis)
-    tres, _ = _run(trt, TFunk, tbs.StatusCache, [plain], genesis, device="cpu")
-    assert [r.status for r in tres.results] == [r.status for r in jres.results] \
-        == [trt.TXN_ERR_BLOCKHASH]
+    for txn in (nonce_txn, plain):
+        jres, jfunk = _run(jrt, JFunk, jbs.StatusCache, [txn], genesis)
+        tres, tfunk = _run(trt, TFunk, tbs.StatusCache, [txn], genesis, device="cpu")
+        assert [(r.status, r.fee) for r in tres.results] \
+            == [(r.status, r.fee) for r in jres.results] == [(trt.TXN_ERR_BLOCKHASH, 0)]
+        assert tres.bank_hash == jres.bank_hash
+        assert tfunk.rec_query(tres.xid, payer[1]) == jfunk.rec_query(jres.xid, payer[1])
+    # a v0 transfer with one lookup table (writable index 0): the JAX
+    # runtime finds no table and fails the txn typed; the port raises
+    lut = hashlib.sha256(b"lut").digest()
+    msg = ft.message_build(
+        version=ft.V0, signature_cnt=1, readonly_signed_cnt=0,
+        readonly_unsigned_cnt=1, acct_addrs=[payer[1], ft.SYSTEM_PROGRAM],
+        recent_blockhash=BH,
+        instrs=[ft.InstrSpec(program_id=1, accounts=bytes([0, 2]),
+                             data=(2).to_bytes(4, "little") + (3).to_bytes(8, "little"))])
+    msg = msg[:-1] + b"\x01" + lut + b"\x01\x00\x00"  # one table: writable [0]
+    lut_txn = ft.txn_assemble([ref.sign(payer[0], msg)], msg)
+    assert ft.txn_parse(lut_txn).addr_luts
+    jres, _ = _run(jrt, JFunk, jbs.StatusCache, [lut_txn], genesis)
+    assert [r.status for r in jres.results] == [jrt.TXN_ERR_ACCT]
+    with pytest.raises(NotImplementedError, match="address lookup table"):
+        _run(trt, TFunk, tbs.StatusCache, [lut_txn], genesis, device="cpu")
 
 
 def _pack_stream() -> list[bytes]:

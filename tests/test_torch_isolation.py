@@ -43,6 +43,7 @@ from firedancer_tpu_torch.runtime import poh as tpoh
 from firedancer_tpu_torch.runtime.bank import BankCtx, default_bank_ctx
 from firedancer_tpu_torch.runtime.fec_resolver import FecResolver
 from firedancer_tpu_torch.runtime.shredder import Shredder
+from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
 from firedancer_tpu_torch.runtime.store import StoreStage
 from firedancer_tpu_torch.runtime.verify import VerifyStage
 from firedancer_tpu_torch.utils import kbuild
@@ -94,7 +95,7 @@ def _no_card():
     "sharded_leader_pipeline", "bank_ctx", "default_bank_ctx", "slot_execution",
     "execute_block", "shredder", "fec_resolver", "store", "lthash_combine",
     "leader_block", "bmtree_hash_leaves_batch", "bmtree_layers_batch",
-    "bmtree_root_batch"])
+    "bmtree_root_batch", "clock_leader_pipeline", "clock_fused_leader_pipeline"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -129,6 +130,11 @@ def test_entry_points_default_to_the_card(call):
         "bmtree_hash_leaves_batch": lambda: tbm.hash_leaves_batch(np.zeros((8, 2), np.uint8)),
         "bmtree_layers_batch": lambda: tbm.layers_batch(np.zeros((3, 20, 2), np.uint8)),
         "bmtree_root_batch": lambda: tbm.root_batch(np.zeros((3, 20, 2), np.uint8)),
+        "clock_leader_pipeline": lambda: build_leader_pipeline(
+            [b"x"], slot_clock=SlotClockCfg(slot_ms=400.0, ticks_per_slot=64, n_slots=2)),
+        "clock_fused_leader_pipeline": lambda: build_leader_pipeline(
+            [b"x"], slot_clock=SlotClockCfg(slot_ms=400.0, ticks_per_slot=64, n_slots=2),
+            fuse_poh_shred=True),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
