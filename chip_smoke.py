@@ -244,6 +244,30 @@ script or when a phase fails):
               blocks_closed, txns landed in the window and in the drain,
               txn/s to the store, the seal's and the replay's seconds, and
               (-split) the host seconds per stage
+  17f. program leader  17e (a)'s clocked leader over program_stream
+              (PROGRAM_MIX: 4,096 v0 transfers whose destinations, phase
+              17's 1,024, load through 16 lookup tables of 64 addresses,
+              half with a readonly address too; 3,500 of phase 17's
+              transfers; 256 stake txns over 128 accounts; 128 config
+              stores over 64 accounts; 256 ed25519 and 64 secp256k1
+              precompile txns, 1 in 16 bad; 64 lookups that fail; 8 lookup
+              table program txns; 8,372 txns, shuffled from a seed) over
+              program_bank_ctx at slot 1,000: the stream's pack cost fits
+              one block (the drain's), sealed + missed = 16, landed + the
+              failed lookups (no fee, never recorded) = the verified txns
+              and none dropped or shed, the deshredded store bytes equal
+              PoH's entries, replay_block reproduces the seal and its
+              statuses, each kind's ok and failed counts as built (every
+              status class occurs), every loaded destination's lamports
+              equal the transfers to it that landed ok, each lookup table
+              instruction's table state, K1 once per verify batch, K5 once
+              or twice per entry batch, K13 once. [program-leader]: slots
+              sealed and missed, the seal lag's p50 and p99, txns landed in
+              the window and in the drain, ok and failed by kind, txn/s to
+              the store beside 17e (a)'s, the seal's seconds and rows, the
+              replay's seconds, the launches of K1, K5 and K13;
+              [program-leader-split]: the host seconds per stage beside 17e
+              (a)'s in the same call
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -419,6 +443,13 @@ LEADER_TXNS, LEADER_DESTS = 8192, 1024
 # (c), and a wall cap on driving the window
 CLOCK_DURABLE, CLOCK_EVERY, CLOCK_SHED_KEEP, CLOCK_WALL_S = 256, 32, 256, 60.0
 CLOCK_SLOTS, CLOCK_TICKS, CLOCK_SLOT_MS, CLOCK_GRACE = 16, 64, 400.0, 0.25
+# phase 17f: the program leader's stream (models/workload.program_stream):
+# v0 transfers through 16 lookup tables of 64 addresses (phase 17's 1,024
+# destinations), phase 17's legacy transfers, stake txns over 128 accounts,
+# config stores over 64 accounts, the two precompiles' txns, lookups that fail
+# and a few lookup table program txns; the clock and depth are 17e's
+PROGRAM_MIX = dict(n_v0=4096, n_legacy=3500, n_tables=16, table_len=64, n_stake_accts=128,
+                   n_config_accts=64, n_ed25519=256, n_secp256k1=64, n_lookup_fail=64, n_alt=2)
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
@@ -1244,11 +1275,14 @@ def main() -> int:
     )
     from firedancer_tpu_torch.flamenco.agave_state import vote_state_decode
     from firedancer_tpu_torch.flamenco.executor import acct_decode
+    from firedancer_tpu_torch.flamenco import alt as falt
     from firedancer_tpu_torch.flamenco import nonce as fnonce
     from firedancer_tpu_torch.models.workload import (
         mixed_batch,
         noncanonical_encodings,
         nonce_bank_ctx,
+        program_bank_ctx,
+        program_stream,
         nonce_keys,
         nonce_transfers,
         nonsquare_encodings,
@@ -1271,6 +1305,7 @@ def main() -> int:
     from firedancer_tpu_torch.ops import sigverify as sv
     from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
     from firedancer_tpu_torch.ops.ref import gf256_ref as gr
+    from firedancer_tpu_torch.pack.cost import MAX_COST_PER_BLOCK, compute_cost
     from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
     from firedancer_tpu_torch.protocol import shred as fs
     from firedancer_tpu_torch.protocol import txn as ft
@@ -2911,14 +2946,10 @@ def main() -> int:
                             n_slots=CLOCK_SLOTS, miss_grace_frac=CLOCK_GRACE)
     grace17e_ms = CLOCK_SLOT_MS * CLOCK_GRACE
 
-    def clock_leader(tag: str, **kw) -> dict:
-        """One clocked leader run over stream17e: drive the window (and the
-        rest of the stream) under the wall cap, drain, seal, replay; check
-        the slot accounting, the launches and the replay; log [tag]."""
-        ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev)
-        pipe = build_leader_pipeline(stream17e, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
-                                     bank_ctx=ctx, keep_entries=True, pack_depth=len(stream17e),
-                                     slot_clock=clock17e, **kw)
+    def drive_window(pipe, tag: str) -> tuple:
+        """Drive a clocked pipeline until PoH closes its window and the
+        stream is sent (under the wall cap), then finish: (run seconds,
+        seconds to the window's close, txns landed in the window)."""
         kbuild.reset_launches()
         t0 = time.perf_counter()
         b_ = pipe.benchg
@@ -2934,7 +2965,17 @@ def main() -> int:
                   f" after {CLOCK_WALL_S} s")
         pipe.finish()
         torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
+        return time.perf_counter() - t0, window_s, in_window
+
+    def clock_leader(tag: str, **kw) -> dict:
+        """One clocked leader run over stream17e: drive the window (and the
+        rest of the stream) under the wall cap, drain, seal, replay; check
+        the slot accounting, the launches and the replay; log [tag]."""
+        ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev)
+        pipe = build_leader_pipeline(stream17e, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
+                                     bank_ctx=ctx, keep_entries=True, pack_depth=len(stream17e),
+                                     slot_clock=clock17e, **kw)
+        run_s, window_s, in_window = drive_window(pipe, tag)
         t0 = time.perf_counter()
         seal = pipe.seal()
         seal_s = time.perf_counter() - t0
@@ -3007,7 +3048,7 @@ def main() -> int:
             f" {json.dumps(rep)}")
         return dict(launches=launches, landed=landed, shed=shed, sigs=sorted(
             ft.txn_parse(p_).signatures(p_)[0] for p_ in block), advanced=sum(advanced),
-            durable_ok=durable_ok)
+            durable_ok=durable_ok, split=split, txn_s=landed / run_s, lag=(lag50, lag99))
 
     r17e = clock_leader("clock-leader")
     check(r17e["shed"] == 0 and r17e["durable_ok"] == r17e["advanced"] == CLOCK_DURABLE,
@@ -3019,6 +3060,130 @@ def main() -> int:
           "clock-leader-fused: landed signatures differ from the unfused run's")
     r17e_s = clock_leader("clock-leader-shed", shed_keep=CLOCK_SHED_KEEP)
     check(r17e_s["shed"] > 0, "clock-leader-shed: nothing shed")
+
+    # -- 17f. the program leader: v0 lookups, stake, config and the precompiles ----------------
+    mark("17f")
+    # who sends it: wallets and routers whose v0 txns load their accounts
+    # through lookup tables, beside plain transfers, stake managers
+    # (delegations, withdrawals, splits), config writers, and bridges and
+    # relayers whose txns carry ed25519 and secp256k1 precompile entries
+    t0 = time.perf_counter()
+    ps17f = program_stream(**PROGRAM_MIX)
+    gen17f_s = time.perf_counter() - t0
+    kinds17f = {k: ok + bad for k, (ok, bad) in ps17f.expect.items()}
+    # the drain lands in the window's last block: the whole stream must fit
+    # one block's cost, or pack holds the rest and the drain never ends
+    cost17f = sum(compute_cost(p_, ft.txn_parse(p_)).total for p_ in ps17f.stream)
+    check(cost17f <= MAX_COST_PER_BLOCK, f"program leader: the stream costs {cost17f} CU")
+    clock17f = SlotClockCfg(slot_ms=CLOCK_SLOT_MS, slot0=ps17f.slot, ticks_per_slot=CLOCK_TICKS,
+                            n_slots=CLOCK_SLOTS, miss_grace_frac=CLOCK_GRACE)
+    pipe17f = build_leader_pipeline(ps17f.stream, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
+                                    bank_ctx=program_bank_ctx(ps17f, device=dev), slot=ps17f.slot,
+                                    keep_entries=True, pack_depth=len(ps17f.stream),
+                                    slot_clock=clock17f)
+    run17f_s, window17f_s, in_window17f = drive_window(pipe17f, "program-leader")
+    t0 = time.perf_counter()
+    seal17f = pipe17f.seal()
+    seal17f_s = time.perf_counter() - t0
+    launches17f = dict(kbuild.LAUNCHES)
+    rep17f = pipe17f.report()
+    poh17f, pack17f = pipe17f.poh.metrics, pipe17f.pack.metrics
+    sealed17f, missed17f = poh17f.get("slots_sealed"), poh17f.get("slot_missed")
+    check(sealed17f + missed17f == CLOCK_SLOTS and sealed17f >= 1,
+          f"program leader: {sealed17f} slots sealed + {missed17f} missed != {CLOCK_SLOTS}")
+    landed17f = sum(b.metrics.get("txn_exec") for b in pipe17f.banks)
+    rejected17f = sum(b.metrics.get("txn_rejected") for b in pipe17f.banks)
+    verified17f = rep17f["dedup"].get("frags_out", 0)
+    # every verified txn executed: landed, or a lookup that failed typed (no
+    # fee, so never recorded)
+    check(pack17f.get("txn_dropped") == pack17f.get("txn_shed") == 0
+          and landed17f + rejected17f == verified17f == len(ps17f.stream)
+          and rejected17f == ps17f.expect["lookup"][1],
+          f"program leader: landed {landed17f} + rejected {rejected17f} != verified"
+          f" {verified17f} of {len(ps17f.stream)}, dropped {pack17f.get('txn_dropped')}, shed"
+          f" {pack17f.get('txn_shed')}")
+    ents17f = [parse_entry(x) for x in
+               deshred_entry_batch(pipe17f.store.entry_batch_bytes(ps17f.slot))]
+    check(ents17f == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe17f.poh.entries],
+          "program leader: deshredded store bytes != PoH's entries")
+    block17f = [p_ for _, _, txs in ents17f for p_ in txs]
+    fund17f = program_bank_ctx(ps17f, device=dev)
+    t0 = time.perf_counter()
+    rp17f = replay_block(fund17f.funk, slot=ps17f.slot, entries=ents17f, poh_seed=b"\x00" * 32,
+                         status_cache=fund17f.status_cache, device=dev)
+    replay17f_s = time.perf_counter() - t0
+    check(rp17f is not None and rp17f.bank_hash == seal17f.bank_hash
+          and np.array_equal(rp17f.accounts_delta, seal17f.accounts_delta)
+          and rp17f.signature_cnt == seal17f.signature_cnt
+          and sorted(r.status for r in rp17f.results)
+          == sorted(r.status for r in seal17f.results if r.fee > 0),
+          "program leader: replay_block does not reproduce the seal and its statuses")
+    # every status class: each kind's ok and failed counts as built; the
+    # lookups that fail are TXN_ERR_ACCT with no fee
+    got17f = {}
+    for p_, r_ in zip(block17f, rp17f.results):
+        check(p_ in ps17f.race or (r_.status == 0) == (p_ not in ps17f.bad),
+              f"program leader: a {ps17f.kind[p_]} txn got status {r_.status}")
+        ok_, bad_ = got17f.get(ps17f.kind[p_], (0, 0))
+        got17f[ps17f.kind[p_]] = (ok_ + (r_.status == 0), bad_ + (r_.status != 0))
+    got17f["lookup"] = (0, sum(r_.fee == 0 and r_.status == -3 for r_ in seal17f.results))
+    check(got17f == ps17f.expect, f"program leader: ok/failed by kind {got17f} != {ps17f.expect}")
+    check(all(ok_ and bad_ for k_, (ok_, bad_) in got17f.items()
+              if k_ in ("stake", "config", "ed25519", "secp256k1"))
+          and all(got17f[k_][0] for k_ in ("v0", "legacy", "alt")) and got17f["lookup"][1],
+          f"program leader: a status class never occurred: {got17f}")
+    # each loaded destination holds the transfers to it that landed ok
+    sx17f = pipe17f.bank_ctx.sx
+    want17f = {}
+    for p_, r_ in zip(block17f, rp17f.results):
+        if p_ in ps17f.credit and r_.status == 0:
+            d_, lam_ = ps17f.credit[p_]
+            want17f[d_] = want17f.get(d_, 0) + lam_
+    check(len(want17f) == PROGRAM_MIX["n_tables"] * PROGRAM_MIX["table_len"]
+          and all(acct_decode(sx17f.funk.rec_query(sx17f.xid, d_))[0] == v_
+                  for d_, v_ in want17f.items()),
+          "program leader: a destination's lamports != the transfers to it that landed ok")
+    # the lookup table program's txns, by the state they left
+    for p_ in block17f:
+        if ps17f.kind[p_] != "alt":
+            continue
+        d_ = ft.txn_parse(p_)
+        ins_ = d_.instrs[0]
+        tag_ = int.from_bytes(p_[ins_.data_off : ins_.data_off + 4], "little")
+        table_ = d_.acct_addrs(p_)[1]
+        lam_, owner_, _, data_ = acct_decode(sx17f.funk.rec_query(sx17f.xid, table_))
+        st_ = falt.TableState.decode(data_)
+        check(owner_ == falt.ALT_PROGRAM and {
+            0: st_.authority == d_.acct_addrs(p_)[0] and not st_.addresses,
+            1: st_.authority is None and len(st_.addresses) == 2,
+            2: len(st_.addresses) == 4 and st_.last_extended_slot == ps17f.slot,
+            3: st_.deactivation_slot == ps17f.slot}[tag_],
+            f"program leader: lookup table instruction {tag_} left {st_}")
+    nb17f = pipe17f.shred.metrics.get("entry_batches")
+    check(launches17f.get("verify_batch", 0) == rep17f["verify0"]["batches"] > 0,
+          f"program leader: K1 launches {launches17f} != batches {rep17f['verify0']['batches']}")
+    check(nb17f <= launches17f.get("gf256_apply", 0) <= 2 * nb17f,
+          f"program leader: K5 launches {launches17f.get('gf256_apply', 0)} for {nb17f} batches")
+    check(launches17f.get("lthash_combine", 0) == 1, f"program leader: K13 launches {launches17f}")
+    lag17f = poh17f.hist("slot_seal_lag_ns")
+    lag17f50, lag17f99 = (tune_quantile(lag17f, q) / 1e6 for q in (0.5, 0.99))
+    split17f = dict(pipe17f.stage_s)
+    log(f"[program-leader] {len(ps17f.stream)} txns {json.dumps(kinds17f)} (made in"
+        f" {gen17f_s:.3f} s) at batch {B1}, 2 banks, {CLOCK_SLOTS} slots of {CLOCK_SLOT_MS:.0f} ms,"
+        f" {CLOCK_TICKS} ticks a slot, slot {ps17f.slot}: slots sealed {sealed17f}, missed"
+        f" {missed17f}; seal lag p50 {lag17f50:.3f} ms, p99 {lag17f99:.3f} ms (upper bucket"
+        f" edges); landed {landed17f} ({in_window17f} in the window, {landed17f - in_window17f}"
+        f" in the drain; window closed at {window17f_s:.3f} s), lookups failed {rejected17f};"
+        f" ok/failed by kind {json.dumps(got17f)}; run {run17f_s:.3f} s ="
+        f" {landed17f / run17f_s:.0f} txn/s to the store (17e (a): {r17e['txn_s']:.0f}); seal"
+        f" {seal17f_s:.3f} s ({sx17f.seal_rows} rows, bank hash {seal17f.bank_hash.hex()});"
+        f" replay reproduces the seal in {replay17f_s:.3f} s; launches K1"
+        f" {launches17f.get('verify_batch', 0)}, K5 {launches17f.get('gf256_apply', 0)}, K13"
+        f" {launches17f.get('lthash_combine', 0)} ({launches17f})")
+    log(f"[program-leader-split] host seconds"
+        f" {json.dumps({k: round(v, 4) for k, v in sorted(split17f.items())})}; 17e (a) in this"
+        f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
+        f" counters {json.dumps(rep17f)}")
 
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
@@ -3387,6 +3552,7 @@ def main() -> int:
                                  "sharded_leader_pipeline": launches17c.get(k["name"], 0),
                                  "vote_leader_pipeline": launches17d.get(k["name"], 0),
                                  "clock_leader_pipeline": launches17e.get(k["name"], 0),
+                                 "program_leader_pipeline": launches17f.get(k["name"], 0),
                                  "bmtree_root_build": launches18.get(k["name"], 0),
                                  OPS_API: ops_api.get(k["name"], 0)}
     for nm in SPLIT:

@@ -1,5 +1,5 @@
-"""Agave on-chain account state: the vote half (the port's counterpart of
-firedancer_tpu/flamenco/agave_state.py:46-260).
+"""Agave on-chain account state (the port's counterpart of
+firedancer_tpu/flamenco/agave_state.py): vote accounts and stake accounts.
 
 The exact bincode layout Agave stores in a vote account, which the vote
 program (flamenco/vote_program.py) reads and writes:
@@ -13,8 +13,16 @@ program (flamenco/vote_program.py) reads and writes:
       last_timestamp {slot u64, ts i64}
 
 Encoding writes the current version; decoding accepts all three and
-upgrades the older layouts to the current view.  The stake half
-(StakeStateV2 and vote_account_summary) waits for the stake program.
+upgrades the older layouts to the current view.
+
+The stake half: StakeStateV2 = enum { 0: Uninitialized, 1: Initialized
+(Meta), 2: Stake (Meta, Stake{Delegation, credits_observed}, flags u8),
+3: RewardsPool }, with Meta = rent_exempt_reserve u64 | Authorized{staker,
+withdrawer} | Lockup{unix_timestamp i64, epoch u64, custodian}, and
+Delegation = voter | stake u64 | activation_epoch u64 |
+deactivation_epoch u64 | warmup_cooldown_rate f64.  `to_internal_stake`
+maps it onto flamenco/stake.py's compact view, and `vote_account_summary`
+reads what consensus takes from a vote account.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from . import types as T
+
+U64_MAX = (1 << 64) - 1
 
 
 @dataclass
@@ -238,3 +248,146 @@ def vote_state_decode(data: bytes) -> VoteState:
     if tag == 0:
         return _decode_v0_23_5(data, off)
     raise T.CodecError(f"unsupported VoteState version {tag}")
+
+
+# -- stake state ---------------------------------------------------------------
+
+
+@dataclass
+class Authorized:
+    staker: bytes = bytes(32)
+    withdrawer: bytes = bytes(32)
+
+
+AUTHORIZED = T.StructCodec(
+    Authorized, ("staker", T.Pubkey), ("withdrawer", T.Pubkey),
+)
+
+
+@dataclass
+class Lockup:
+    unix_timestamp: int = 0
+    epoch: int = 0
+    custodian: bytes = bytes(32)
+
+
+LOCKUP = T.StructCodec(
+    Lockup, ("unix_timestamp", T.I64), ("epoch", T.U64),
+    ("custodian", T.Pubkey),
+)
+
+
+@dataclass
+class Meta:
+    rent_exempt_reserve: int = 0
+    authorized: Authorized = field(default_factory=Authorized)
+    lockup: Lockup = field(default_factory=Lockup)
+
+
+META = T.StructCodec(
+    Meta, ("rent_exempt_reserve", T.U64), ("authorized", AUTHORIZED),
+    ("lockup", LOCKUP),
+)
+
+
+@dataclass
+class Delegation:
+    voter_pubkey: bytes = bytes(32)
+    stake: int = 0
+    activation_epoch: int = 0
+    deactivation_epoch: int = U64_MAX
+    warmup_cooldown_rate: float = 0.25
+
+
+DELEGATION = T.StructCodec(
+    Delegation,
+    ("voter_pubkey", T.Pubkey),
+    ("stake", T.U64),
+    ("activation_epoch", T.U64),
+    ("deactivation_epoch", T.U64),
+    ("warmup_cooldown_rate", T.F64),
+)
+
+
+@dataclass
+class StakeV2:
+    delegation: Delegation = field(default_factory=Delegation)
+    credits_observed: int = 0
+
+
+STAKE_V2 = T.StructCodec(
+    StakeV2, ("delegation", DELEGATION), ("credits_observed", T.U64),
+)
+
+
+@dataclass
+class StakeMetaPair:
+    meta: Meta = field(default_factory=Meta)
+    stake: StakeV2 = field(default_factory=StakeV2)
+    flags: int = 0
+
+
+class _StakePairCodec(T.Codec):
+    def encode(self, v: StakeMetaPair) -> bytes:
+        return META.encode(v.meta) + STAKE_V2.encode(v.stake) \
+            + T.U8.encode(v.flags)
+
+    def decode(self, buf, off=0):
+        meta, off = META.decode(buf, off)
+        stake, off = STAKE_V2.decode(buf, off)
+        flags, off = T.U8.decode(buf, off)
+        return StakeMetaPair(meta, stake, flags), off
+
+
+STAKE_STATE_V2 = T.Enum(
+    (0, "uninitialized", None),
+    (1, "initialized", META),
+    (2, "stake", _StakePairCodec()),
+    (3, "rewards_pool", None),
+)
+
+
+# -- converters into the runtime's internal views ------------------------------
+
+
+def to_internal_stake(data: bytes):
+    """Agave StakeStateV2 account bytes -> flamenco/stake.StakeState
+    (the runtime's compact view); None for uninitialized/rewards-pool."""
+    from . import stake as S
+
+    (kind, payload), _ = STAKE_STATE_V2.decode(data, 0)
+    if kind == "initialized":
+        return S.StakeState(
+            state=S.STATE_INIT,
+            staker=payload.authorized.staker,
+            withdrawer=payload.authorized.withdrawer,
+        )
+    if kind == "stake":
+        d = payload.stake.delegation
+        return S.StakeState(
+            state=S.STATE_DELEGATED,
+            staker=payload.meta.authorized.staker,
+            withdrawer=payload.meta.authorized.withdrawer,
+            voter=d.voter_pubkey,
+            stake=d.stake,
+            activation_epoch=d.activation_epoch,
+            deactivation_epoch=d.deactivation_epoch,
+        )
+    return None
+
+
+def vote_account_summary(data: bytes, *, epoch: int) -> dict:
+    """The fields consensus consumes from a real vote account: node
+    identity, the epoch's authorized voter, credits, last vote."""
+    vs = vote_state_decode(data)
+    return {
+        "node_pubkey": vs.node_pubkey,
+        "authorized_voter": vs.authorized_voter_for(epoch),
+        "authorized_withdrawer": vs.authorized_withdrawer,
+        "commission": vs.commission,
+        "credits": vs.credits(),
+        "last_voted_slot": (
+            vs.votes[-1].lockout.slot if vs.votes else None
+        ),
+        "root_slot": vs.root_slot,
+    }

@@ -3,18 +3,20 @@ firedancer_tpu/flamenco/executor.py, cut to this slice).
 
 The runtime (flamenco/runtime.py) calls `Executor.execute_instr` per
 instruction.  The port runs the native programs it has ported: the system
-program and the compute-budget program (flamenco/programs.py) and the
-vote program (flamenco/vote_program.py), with the JAX executor's rules
-around them: the builtin's fixed CU cost is charged up front, and the
-instruction-level lamport sum over the unique account set must not change.
+program and the compute-budget program (flamenco/programs.py), the vote
+program (flamenco/vote_program.py), the stake program (flamenco/stake.py),
+the config program (flamenco/config_program.py), the address lookup table
+program (flamenco/alt.py) and the ed25519 and secp256k1 precompiles
+(flamenco/precompiles.py), with the JAX executor's rules around them: the
+builtin's fixed CU cost is charged up front, and the instruction-level
+lamport sum over the unique account set must not change.
 
-A program the JAX executor knows but the port has not ported (stake,
-config, address lookup tables, the ed25519 and secp256k1 precompiles,
-zk-elgamal, the BPF loaders and the sBPF VM behind them) raises
-NotImplementedError naming it, at the point where the JAX executor would
-run it, so a txn never gets a status the JAX package would not give it.
-An id the JAX executor does not know keeps its behaviour: a no-op, or a
-typed failure for a non-executable loader-owned account.
+A program the JAX executor knows but the port has not ported (zk-elgamal,
+the BPF loaders and the sBPF VM behind them) raises NotImplementedError
+naming it, at the point where the JAX executor would run it, so a txn
+never gets a status the JAX package would not give it.  An id the JAX
+executor does not know keeps its behaviour: a no-op, or a typed failure
+for a non-executable loader-owned account.
 
 Account encoding in funk record values: `u64 lamports | 32B owner |
 u8 executable | data`.
@@ -35,14 +37,8 @@ MAX_INSTR_STACK = 5  # Solana's max invoke stack height (top level = 1)
 BPF_LOADER_PROGRAM = _b58d("BPFLoader2111111111111111111111111111111111")
 UPGRADEABLE_LOADER_PROGRAM = _b58d("BPFLoaderUpgradeab1e11111111111111111111111")
 
-# the programs the JAX executor registers that the port does not run yet;
-# the ids are the JAX package's (its stake id is its own constant)
+# the programs the JAX executor registers that the port does not run yet
 UNPORTED_PROGRAMS = {
-    _b58d("Config1111111111111111111111111111111111111"): "the config program",
-    _b58d("Ed25519SigVerify111111111111111111111111111"): "the ed25519 precompile",
-    _b58d("KeccakSecp256k11111111111111111111111111111"): "the secp256k1 precompile",
-    b"Stake11111" + bytes(22): "the stake program",
-    _b58d("AddressLookupTab1e1111111111111111111111111"): "the address lookup table program",
     UPGRADEABLE_LOADER_PROGRAM: "the upgradeable BPF loader",
     _b58d("ZkE1Gama1Proof11111111111111111111111111111"): "the zk-elgamal proof program",
 }
@@ -127,6 +123,9 @@ class TxnCtx:
     cu_used: int = 0
     stack: list[bytes] = field(default_factory=list)  # program ids
     sysvars: dict = field(default_factory=dict)  # name -> bincode blob
+    # every top-level instruction's data, in txn order: the precompiles'
+    # offset tables reach across instructions
+    instr_datas: list = field(default_factory=list)
 
     def charge(self, n: int) -> None:
         self.cu_used += n
@@ -144,11 +143,16 @@ class Executor:
     """Program registry + instruction dispatch."""
 
     def __init__(self):
-        from . import programs, vote_program
+        from . import alt, config_program, precompiles, programs, stake, vote_program
 
         self.native = {
             SYSTEM_PROGRAM: programs.system_program,
+            config_program.CONFIG_PROGRAM: config_program.config_program,
+            precompiles.ED25519_PROGRAM: precompiles.ed25519_program,
+            precompiles.SECP256K1_PROGRAM: precompiles.secp256k1_program,
             VOTE_PROGRAM: vote_program.vote_program,
+            stake.STAKE_PROGRAM: stake.stake_program,
+            alt.ALT_PROGRAM: alt.alt_program,
             COMPUTE_BUDGET_PROGRAM: programs.compute_budget_program,
         }
 

@@ -12,14 +12,15 @@ BLAKE3 XOF stays on the host, as in the JAX package.
 
 Account model: funk value bytes = `u64 lamports | 32B owner |
 u8 executable | data` (executor.acct_encode/decode).  A failed txn still
-pays its fee; errors never abort the block.  What the port does not run
-yet raises NotImplementedError (flamenco/executor.py): programs other than
-system, compute budget and vote, and address lookup tables.  A stale
-blockhash passes only as a durable-nonce txn (flamenco/nonce.py); its
-nonce advances against the parent bank hash, also when the txn fails
-with its fee charged.  The
-JAX package's native executor lanes (exec_native, the bank sweep) are not
-ported.
+pays its fee; errors never abort the block.  A v0 txn's address-table
+lookups resolve against the start-of-slot view (flamenco/alt.py) before
+the waves; a lookup that does not resolve fails the txn typed
+(TXN_ERR_ACCT, no fee).  What the port does not run yet raises
+NotImplementedError (flamenco/executor.py): zk-elgamal, the BPF loaders
+and the sBPF VM.  A stale blockhash passes only as a durable-nonce txn
+(flamenco/nonce.py); its nonce advances against the parent bank hash,
+also when the txn fails with its fee charged.  The JAX package's native
+executor lanes (exec_native, the bank sweep) are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..ops import lthash as lt
 from ..pack.cost import txn_budget
 from ..protocol import txn as ft
 from ..utils.platform import resolve_device
+from . import alt
 from . import nonce as N
 from . import types as T
 from .executor import (
@@ -92,19 +94,33 @@ class BlockResult:
     xid: bytes
 
 
-def _rw_sets(payload: bytes, desc: ft.Txn) -> tuple[set[bytes], set[bytes]]:
+Extra = tuple[list[bytes], list[bytes]]  # resolved (writable, readonly) lookups
+
+
+def _rw_sets(payload: bytes, desc: ft.Txn,
+             extra: Extra | None = None) -> tuple[set[bytes], set[bytes]]:
     addrs = desc.acct_addrs(payload)
     w, r = set(), set()
     for i, a in enumerate(addrs):
         (w if desc.is_writable(i) else r).add(a)
-    # a txn with lookup tables write-locks each table address (the JAX
-    # runtime's rule for unresolved lookups; the port resolves none)
-    for lut in desc.addr_luts:
-        w.add(payload[lut.addr_off : lut.addr_off + 32])
+    if extra is not None:
+        # resolved lookups: exact rw sets, plus a READ lock on each table so
+        # an in-block extend or close serializes against its users
+        w.update(extra[0])
+        r.update(extra[1])
+        for lut in desc.addr_luts:
+            r.add(payload[lut.addr_off : lut.addr_off + 32])
+    else:
+        # unresolved (a failed lookup, or a caller without resolution):
+        # WRITE-lock each table address, so two txns loading from one table
+        # never share a wave (pack's rule too)
+        for lut in desc.addr_luts:
+            w.add(payload[lut.addr_off : lut.addr_off + 32])
     return w, r
 
 
-def generate_waves(txns: list[tuple[bytes, ft.Txn]]) -> list[list[int]]:
+def generate_waves(txns: list[tuple[bytes, ft.Txn]],
+                   extras: list[Extra | None] | None = None) -> list[list[int]]:
     """Partition txn indices into conflict-free waves, equivalent to
     serial block order: a writer lands strictly after every earlier
     reader AND writer of each of its accounts; a reader lands strictly
@@ -114,7 +130,7 @@ def generate_waves(txns: list[tuple[bytes, ft.Txn]]) -> list[list[int]]:
     last_w: dict[bytes, int] = {}  # acct -> last wave with a writer
     last_r: dict[bytes, int] = {}  # acct -> last wave with a reader
     for i, (payload, desc) in enumerate(txns):
-        w, r = _rw_sets(payload, desc)
+        w, r = _rw_sets(payload, desc, extras[i] if extras is not None else None)
         wi = 0
         for a in w:
             wi = max(wi, last_w.get(a, -1) + 1, last_r.get(a, -1) + 1)
@@ -184,9 +200,17 @@ def _advance_nonce_account(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
 def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
                  executor: Executor | None = None,
                  sysvars: dict | None = None,
+                 extra: Extra | None = None,
                  durable_nonce: bool = False) -> TxnResult:
     executor = executor or default_executor()
     addrs = desc.acct_addrs(payload)
+    if desc.addr_luts:
+        if extra is None:
+            # the lookups did not resolve: a typed failure, no fee
+            return TxnResult(TXN_ERR_ACCT, 0)
+        # combined index space: static, then loaded-writable, then
+        # loaded-readonly (Txn.is_writable's)
+        addrs = addrs + extra[0] + extra[1]
     if len(set(addrs)) != len(addrs):
         # AccountLoadedTwice analog: duplicate addresses would load as
         # independent copies
@@ -223,7 +247,8 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
         # the JAX loader resolves upgradeable programs' programdata here
         raise not_ported("the upgradeable BPF loader")
     ctx = TxnCtx(accounts=accounts, signer=signer, writable=writable,
-                 sysvars=sysvars or {}, budget=cu_limit)
+                 sysvars=sysvars or {}, budget=cu_limit,
+                 instr_datas=[payload[i.data_off : i.data_off + i.data_sz] for i in desc.instrs])
 
     for ins in desc.instrs:
         if ins.program_id >= len(addrs):
@@ -315,6 +340,7 @@ class SlotExecution:
         # unrooted ancestor blocks gate too (their entries are staged)
         self._ancestor_xids: tuple[bytes, ...] = (
             tuple(funk.txn_ancestry(parent_xid)) if parent_xid is not None else ())
+        self._table_cache: dict = {}  # lookup tables, decoded once a block
         self._before: dict[bytes, bytes | None] = {}  # start-of-slot view
         self.results: list[TxnResult] = []
         self.signature_cnt = 0
@@ -322,19 +348,30 @@ class SlotExecution:
         self.seal_s: dict[str, float] = {}  # seal's host time: xof, combine
         self.seal_rows = 0  # lattice rows K13 summed at seal
 
-    def resolve(self, payload: bytes, desc: ft.Txn):
-        """Address-table lookups of a v0 txn: ([], []) without tables."""
-        if desc.addr_luts:
-            raise not_ported("address lookup table resolution")
-        return ([], [])
+    def resolve(self, payload: bytes, desc: ft.Txn) -> Extra | None:
+        """Resolve a v0 txn's address-table lookups against the START-of-slot
+        state (a table extended in this block serves its new addresses from
+        the next slot): ([], []) without tables, None for a typed lookup
+        failure."""
+        if not desc.addr_luts:
+            return ([], [])
+        try:
+            return alt.resolve_lookups(
+                payload, desc, lambda k: self.funk.rec_query(self.parent_xid, k),
+                slot=self.slot, table_cache=self._table_cache)
+        except alt.LookupError_:
+            return None
 
-    def execute(self, payload: bytes, desc: ft.Txn) -> TxnResult:
-        """Gate + execute one txn on this slot's fork."""
-        self.resolve(payload, desc)
+    def execute(self, payload: bytes, desc: ft.Txn,
+                extra: Extra | None | bool = False) -> TxnResult:
+        """Gate + execute one txn on this slot's fork.  `extra` is the
+        resolved lookups (left at False, they are resolved here)."""
+        if extra is False:
+            extra = self.resolve(payload, desc)
         # snapshot the start-of-slot value of every account this txn can
-        # touch, for the accounts-delta hash (the PARENT view: an earlier
-        # in-block writer must not shift this txn's "before")
-        for a in desc.acct_addrs(payload):
+        # touch, loaded ones too, for the accounts-delta hash (the PARENT
+        # view: an earlier in-block writer must not shift this txn's "before")
+        for a in desc.acct_addrs(payload) + (extra[0] + extra[1] if extra else []):
             if a not in self._before:
                 self._before[a] = self.funk.rec_query(self.parent_xid, a)
         durable = False
@@ -355,7 +392,7 @@ class SlotExecution:
                 self.results.append(r)
                 return r
         r = _execute_txn(self.funk, self.xid, payload, desc,
-                         executor=self.executor, sysvars=self.sysvars,
+                         executor=self.executor, sysvars=self.sysvars, extra=extra,
                          durable_nonce=durable)
         return self._finish(r, desc.signature_cnt, bh, sig)
 
@@ -489,15 +526,14 @@ def execute_block(
         parent_xid=parent_xid, status_cache=status_cache,
         ancestors=ancestors, slot_hashes=slot_hashes, device=device,
     )
-    for p, t in parsed:
-        sx.resolve(p, t)
-    waves = generate_waves(parsed)
+    extras = [sx.resolve(p, t) for p, t in parsed]
+    waves = generate_waves(parsed, extras)
     order = [i for wave in waves for i in wave]
     # wave txns are conflict-free: index order within a wave gives the
     # same result as any concurrent order
     for i in order:
         p, t = parsed[i]
-        sx.execute(p, t)
+        sx.execute(p, t, extra=extras[i])
     # sx.results is in execution order; BlockResult keeps block order
     by_block_order = [None] * len(parsed)
     for pos, i in enumerate(order):

@@ -440,3 +440,304 @@ def nonce_bank_ctx(n: int, *, seed: bytes = b"nonce", slot: int = 1,
     for pub, val in nonce_genesis(n, seed).items():
         ctx.funk.rec_insert(None, pub, val)
     return ctx
+
+
+# -- program traffic: v0 lookups, stake, config and the precompiles ----------------------
+
+PROGRAM_SLOT = 1000      # the program leader's slot: past an expired table's cooldown
+STAKE_LAMPORTS = 10**9   # each genesis stake account
+CONFIG_DATA_LEN = 2 + 33 + 64  # a one-signer keys block and a 64-byte payload
+# the compute-unit limit each stake txn requests: the stake program's id is
+# not in pack's builtin table, so without a limit pack costs each stake
+# instruction at 200,000 CU, and 256 of them outgrow one block's 48 M
+STAKE_CU_LIMIT = 1000
+
+
+def _lookup_table_value(authority: bytes | None, addresses: list[bytes],
+                        deactivation_slot: int | None = None) -> bytes:
+    """A ready-made lookup table record, as tests/test_alt.py's make_table
+    installs one: one lamport, owned by the lookup table program."""
+    from ..flamenco import alt
+    from ..flamenco.executor import acct_encode
+
+    st = alt.TableState(authority=authority, addresses=list(addresses))
+    if deactivation_slot is not None:
+        st.deactivation_slot = deactivation_slot
+    return acct_encode(1, alt.ALT_PROGRAM, data=st.encode())
+
+
+def alt_genesis(dests: list[bytes], *, table_len: int = 64,
+                seed: bytes = b"programs") -> tuple[dict, list[bytes]]:
+    """({table address: account value}, [table addresses]): active lookup
+    tables of `table_len` addresses each over `dests` in order (table t
+    holds dests[t * table_len:(t + 1) * table_len])."""
+    auth = ref.public_key(hashlib.sha256(seed + b"table-auth").digest())
+    out, keys = {}, []
+    for t in range(0, len(dests), table_len):
+        key = hashlib.sha256(seed + b"table%d" % (t // table_len)).digest()
+        out[key] = _lookup_table_value(auth, dests[t : t + table_len])
+        keys.append(key)
+    return out, keys
+
+
+def _ix(tag: int, tail: bytes = b"") -> bytes:
+    """Instruction data: a u32 tag, then its fields."""
+    return tag.to_bytes(4, "little") + tail
+
+
+def _keyed(seed: bytes, tag: bytes) -> tuple[bytes, bytes]:
+    secret = hashlib.sha256(seed + tag).digest()
+    return secret, ref.public_key(secret)
+
+
+def _program_txn(signer: tuple[bytes, bytes], program: bytes, ix_accts: list[bytes],
+                 data: bytes, blockhash: bytes, *, readonly: tuple = (),
+                 cu_limit: int | None = None) -> bytes:
+    """A legacy txn paid and signed by `signer` with one instruction to
+    `program`, its other accounts writable unless named in `readonly`;
+    behind a SetComputeUnitLimit instruction when cu_limit is given."""
+    from ..pack.cost import COMPUTE_BUDGET_PROGRAM
+
+    secret, pub = signer
+    writable = [a for a in dict.fromkeys(ix_accts) if a != pub and a not in readonly]
+    ro = [a for a in dict.fromkeys(ix_accts) if a in readonly]
+    progs = [program] + ([COMPUTE_BUDGET_PROGRAM] if cu_limit is not None else [])
+    addrs = [pub] + writable + ro + progs
+    instrs = [ft.InstrSpec(program_id=len(addrs) - 1, accounts=b"",
+                           data=bytes([2]) + cu_limit.to_bytes(4, "little"))
+              ] if cu_limit is not None else []
+    instrs.append(ft.InstrSpec(program_id=addrs.index(program),
+                               accounts=bytes(addrs.index(a) for a in ix_accts), data=data))
+    msg = ft.message_build(
+        version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+        readonly_unsigned_cnt=len(ro) + len(progs), acct_addrs=addrs,
+        recent_blockhash=blockhash, instrs=instrs)
+    return ft.txn_assemble([ref.sign(secret, msg)], msg)
+
+
+def v0_transfer(payer: tuple[bytes, bytes], table: bytes, writable_idx: int, lamports: int,
+                blockhash: bytes, readonly_idx: int | None = None) -> bytes:
+    """A v0 system transfer from `payer` to the address at `writable_idx` of
+    lookup table `table` (combined index 2), loading the address at
+    `readonly_idx` too when given."""
+    secret, pub = payer
+    ro = bytes([readonly_idx]) if readonly_idx is not None else b""
+    msg = ft.message_build(
+        version=ft.V0, signature_cnt=1, readonly_signed_cnt=0, readonly_unsigned_cnt=1,
+        acct_addrs=[pub, ft.SYSTEM_PROGRAM], recent_blockhash=blockhash,
+        instrs=[ft.InstrSpec(program_id=1, accounts=bytes([0, 2]),
+                             data=(2).to_bytes(4, "little") + lamports.to_bytes(8, "little"))],
+        luts=[ft.LutSpec(table_addr=table, writable=bytes([writable_idx]), readonly=ro)])
+    return ft.txn_assemble([ref.sign(secret, msg)], msg)
+
+
+@dataclass
+class ProgramStream:
+    stream: list    # frames in send order
+    kind: dict      # payload -> "v0", "legacy", "stake", "config", "ed25519",
+    #                 "secp256k1", "lookup" or "alt"
+    bad: set        # payloads built to fail typed
+    race: set       # pairs of which the first to land succeeds and the other fails
+    credit: dict    # transfer payload -> (destination, lamports)
+    expect: dict    # kind -> (txns that must land ok, txns that must fail)
+    genesis: dict   # pubkey -> account value, the fee payers included
+    slot: int       # the leader's slot
+    seed: bytes     # the payers' benchg seed (payers, blockhash)
+
+
+def program_stream(*, n_v0: int = 4096, n_legacy: int = 3500, n_tables: int = 16,
+                   table_len: int = 64, n_stake_accts: int = 128, n_config_accts: int = 64,
+                   n_ed25519: int = 256, n_secp256k1: int = 64, n_lookup_fail: int = 64,
+                   n_alt: int = 2, seed: bytes = b"programs", payer_seed: bytes = b"benchg",
+                   n_payers: int = 8, slot: int = PROGRAM_SLOT) -> ProgramStream:
+    """A leader's program traffic, seeded and shuffled, with the genesis
+    that lands it:
+
+      - n_v0 v0 transfers from benchg's payers, each destination loaded
+        through one of n_tables lookup tables of table_len addresses (the
+        n_tables * table_len destinations of benchg's pool), every other
+        one loading a readonly address of its table too;
+      - n_legacy of benchg's transfers over the same destinations;
+      - two stake txns on each of n_stake_accts stake accounts, in four
+        groups by genesis state: uninitialized (initialize twice, one
+        lands ok), initialized (delegate, and a delegate signed by an
+        impostor), delegated (deactivate and split) and initialized again
+        (two withdrawals);
+      - two config stores on each of n_config_accts config accounts, the
+        second one by an impostor on one account in 16;
+      - n_ed25519 and n_secp256k1 precompile txns of one entry each, one in
+        16 with a bad signature or a wrong address;
+      - n_lookup_fail v0 transfers whose lookups fail: a missing table, an
+        index past the table's length, a table past its deactivation
+        cooldown;
+      - n_alt of each lookup table instruction on tables of their own:
+        create (its address the PDA of the authority and a recent slot),
+        extend, freeze and deactivate.
+
+    Each txn's outcome is known up front, whatever order pack lands them
+    in, but for the raced initializations (`race`: one of each pair lands
+    ok): `expect` counts the ok and failed txns of each kind."""
+    from ..flamenco import alt, stake
+    from ..flamenco import config_program as cfg
+    from ..flamenco import precompiles as pc
+    from ..flamenco.executor import acct_encode
+    from ..ops import secp256k1 as secp
+    from ..ops.keccak256 import keccak256_host
+    from ..protocol import pda
+
+    rng = np.random.default_rng(int.from_bytes(hashlib.sha256(seed).digest()[:8], "little"))
+    bh = pool_blockhash(payer_seed)
+    payers = pool_payers(payer_seed, n_payers)
+    n_dests = n_tables * table_len
+    dests = [hashlib.sha256(payer_seed + b"to%d" % j).digest() for j in range(n_dests)]
+    genesis = {pub: acct_encode(PAYER_LAMPORTS) for _, pub in payers}
+    tables_gen, tables = alt_genesis(dests, table_len=table_len, seed=seed)
+    genesis.update(tables_gen)
+    kind, bad, race, credit, expect = {}, set(), set(), {}, {}
+
+    def fund(tag: bytes) -> tuple[bytes, bytes]:
+        key = _keyed(seed, tag)
+        genesis[key[1]] = acct_encode(PAYER_LAMPORTS)
+        return key
+
+    def add(k: str, p: bytes, ok: bool, raced: bool = False) -> None:
+        kind[p] = k
+        if raced:
+            race.add(p)
+        elif not ok:
+            bad.add(p)
+        good, fail = expect.get(k, (0, 0))
+        expect[k] = (good + ok, fail + (not ok))
+
+    for i in range(n_v0):
+        j = i % n_dests
+        ro = (j + 1) % table_len if i % 2 and table_len > 1 else None
+        p = v0_transfer(payers[i % n_payers], tables[j // table_len], j % table_len, 1 + i, bh, ro)
+        credit[p] = (dests[j], 1 + i)
+        add("v0", p, True)
+    for i, p in enumerate(gen_transfer_pool(n_legacy, seed=payer_seed, n_payers=n_payers,
+                                            n_dests=n_dests)):
+        credit[p] = (dests[i % n_dests], 1 + i)
+        add("legacy", p, True)
+
+    # lookups that fail: a missing table, an index past the table's length,
+    # a table deactivated past its cooldown
+    expired = hashlib.sha256(seed + b"expired-table").digest()
+    genesis[expired] = _lookup_table_value(
+        None, dests[:4], deactivation_slot=slot - alt.DEACTIVATE_COOLDOWN_SLOTS - 2)
+    for f in range(n_lookup_fail):
+        table, idx = ((hashlib.sha256(seed + b"no-table%d" % f).digest(), 0),
+                      (tables[f % n_tables], table_len + f % (256 - table_len)),
+                      (expired, 0))[f % 3]
+        add("lookup", v0_transfer(payers[f % n_payers], table, idx, 1 + n_v0 + f, bh), False)
+
+    # stake: four groups of accounts by genesis state
+    auths = [fund(b"stake-auth%d" % k) for k in range(8)]
+    impostor = fund(b"impostor")
+    votes = [hashlib.sha256(seed + b"stake-vote%d" % v).digest() for v in range(4)]
+    sp = stake.STAKE_PROGRAM
+
+    def stake_txn(signer, accts, data, **kw):
+        return _program_txn(signer, sp, accts, data, bh, cu_limit=STAKE_CU_LIMIT, **kw)
+
+    for s in range(n_stake_accts):
+        key = hashlib.sha256(seed + b"stake%d" % s).digest()
+        auth, group, vote = auths[s % 8], s % 4, votes[s % 4]
+        if group == 0:
+            st = stake.StakeState()
+        elif group == 2:
+            st = stake.StakeState(state=stake.STATE_DELEGATED, staker=auth[1],
+                                  withdrawer=auth[1], voter=vote, stake=STAKE_LAMPORTS,
+                                  activation_epoch=0)
+        else:
+            st = stake.StakeState(state=stake.STATE_INIT, staker=auth[1], withdrawer=auth[1])
+        genesis[key] = acct_encode(STAKE_LAMPORTS, sp, data=st.encode())
+        if group == 0:  # initialize twice: the first to land wins
+            add("stake", stake_txn(auth, [key], _ix(0, auth[1] + auth[1])), True, True)
+            add("stake", stake_txn(auth, [key], _ix(0, auth[1] + impostor[1])), False, True)
+        elif group == 1:  # delegate; a delegate the staker did not sign
+            add("stake", stake_txn(auth, [key, vote, auth[1]], _ix(1), readonly=(vote,)), True)
+            add("stake", stake_txn(impostor, [key, vote, impostor[1]], _ix(1), readonly=(vote,)),
+                False)
+        elif group == 2:  # deactivate and split, in either order
+            split = hashlib.sha256(seed + b"split%d" % s).digest()
+            genesis[split] = acct_encode(0, sp, data=stake.StakeState().encode())
+            add("stake", stake_txn(auth, [key, auth[1]], _ix(2)), True)
+            add("stake", stake_txn(auth, [key, split, auth[1]],
+                                   _ix(4, (1000 + s).to_bytes(8, "little"))), True)
+        else:  # two withdrawals to the withdrawer
+            for w in (1000, 2000):
+                add("stake", stake_txn(auth, [key, auth[1], auth[1]],
+                                       _ix(3, (w + s).to_bytes(8, "little"))), True)
+
+    # config: two stores an account, the second by an impostor on 1 in 16
+    cauths = [fund(b"config-auth%d" % k) for k in range(8)]
+    for c in range(n_config_accts):
+        key = hashlib.sha256(seed + b"config%d" % c).digest()
+        auth = cauths[c % 8]
+        genesis[key] = acct_encode(10**6, cfg.CONFIG_PROGRAM, data=cfg.build_keys(
+            [(auth[1], True)], bytes(CONFIG_DATA_LEN - 35)))
+        for n in range(2):
+            signer = impostor if n == 1 and c % 16 == 15 else auth
+            data = cfg.build_keys([(auth[1], True)], rng.bytes(32))
+            add("config", _program_txn(signer, cfg.CONFIG_PROGRAM, [key, signer[1]], data, bh),
+                signer is auth)
+
+    # the precompiles: one entry a txn, 1 in 16 bad
+    pc_payers = [fund(b"pc-payer%d" % k) for k in range(8)]
+    ed_keys = [_keyed(seed, b"ed-signer%d" % k) for k in range(16)]
+    for e in range(n_ed25519):
+        msg = rng.bytes(int(rng.integers(16, 129)))
+        sk, pk = ed_keys[e % 16]
+        sig = ref.sign(sk, msg)
+        ok = e % 16 != 15
+        if not ok:
+            sig = sig[:5] + bytes([sig[5] ^ 0x10]) + sig[6:]
+        add("ed25519", _program_txn(pc_payers[e % 8], pc.ED25519_PROGRAM, [],
+                                    pc.ed25519_entry_data(sig, pk, msg), bh), ok)
+    secp_keys = []
+    for k in range(4):
+        d = int.from_bytes(hashlib.sha256(seed + b"secp%d" % k).digest(), "big") % secp.N
+        x, y = secp.pubkey_of(d)
+        secp_keys.append((d, secp.eth_address(x.to_bytes(32, "big") + y.to_bytes(32, "big"))))
+    for e in range(n_secp256k1):
+        msg = rng.bytes(int(rng.integers(16, 129)))
+        d, eth = secp_keys[e % 4]
+        sig, rec = secp.sign(d, keccak256_host(msg))
+        ok = e % 16 != 15
+        if not ok:
+            eth = bytes([eth[0] ^ 0x01]) + eth[1:]
+        add("secp256k1", _program_txn(pc_payers[e % 8], pc.SECP256K1_PROGRAM, [],
+                                      pc.secp256k1_entry_data(sig, rec, eth, msg), bh), ok)
+
+    # the lookup table program on tables of its own
+    alt_auth = fund(b"alt-auth")
+    ap = alt.ALT_PROGRAM
+    for k in range(n_alt):
+        recent = slot - 1 - k
+        table, bump = pda.find_program_address([alt_auth[1], recent.to_bytes(8, "little")], ap)
+        add("alt", _program_txn(alt_auth, ap, [table, alt_auth[1], alt_auth[1]],
+                                _ix(0, recent.to_bytes(8, "little") + bytes([bump])), bh), True)
+        new = [hashlib.sha256(seed + b"extended%d/%d" % (k, n)).digest() for n in range(2)]
+        for t, name, tail in ((2, b"extend", (2).to_bytes(8, "little") + b"".join(new)),
+                              (1, b"freeze", b""), (3, b"deactivate", b"")):
+            table = hashlib.sha256(seed + b"alt-%s%d" % (name, k)).digest()
+            genesis[table] = _lookup_table_value(alt_auth[1], dests[k : k + 2])
+            add("alt", _program_txn(alt_auth, ap, [table, alt_auth[1]], _ix(t, tail), bh), True)
+
+    stream = list(kind)
+    stream = [stream[i] for i in rng.permutation(len(stream))]
+    return ProgramStream(stream, kind, bad, race, credit, expect, genesis, slot, payer_seed)
+
+
+def program_bank_ctx(ps: ProgramStream, *, device=None):
+    """A BankCtx at ps.slot that lands `ps`: ps.genesis on the funk root and
+    the payers' blockhash registered with the status cache."""
+    from ..flamenco.blockstore import StatusCache
+    from ..runtime.bank import BankCtx
+
+    ctx = BankCtx(slot=ps.slot, status_cache=StatusCache(),
+                  blockhashes=(pool_blockhash(ps.seed),), device=device)
+    for pub, val in ps.genesis.items():
+        ctx.funk.rec_insert(None, pub, val)
+    return ctx

@@ -509,6 +509,12 @@ class InstrSpec:
     data: bytes
 
 
+@dataclass
+class LutSpec:
+    table_addr: bytes  # 32 bytes
+    writable: bytes    # indices into the table
+    readonly: bytes
+
 
 def message_build(
     *,
@@ -519,8 +525,10 @@ def message_build(
     acct_addrs: list[bytes],
     recent_blockhash: bytes,
     instrs: list[InstrSpec],
+    luts: list[LutSpec] | None = None,
 ) -> bytes:
-    """Serialize the signed message region."""
+    """Serialize the signed message region (a v0 message with its
+    address-table lookups)."""
     out = bytearray()
     if version == V0:
         out.append(0x80 | V0)
@@ -545,7 +553,14 @@ def message_build(
         out += compact_u16_encode(len(ins.data))
         out += ins.data
     if version == V0:
-        out += compact_u16_encode(0)  # no address-table lookups
+        luts = luts or []
+        out += compact_u16_encode(len(luts))
+        for lut in luts:
+            out += lut.table_addr
+            out += compact_u16_encode(len(lut.writable))
+            out += lut.writable
+            out += compact_u16_encode(len(lut.readonly))
+            out += lut.readonly
     return bytes(out)
 
 

@@ -6,9 +6,11 @@ insufficient funds, compute-budget instructions, an unknown program):
 the same BlockResult (bank hash, accounts delta, signature count, fees,
 every status, the waves) and the same committed funk values; the vote
 cases of tests/test_runtime.py (two votes on one account serialise into
-two waves; a forged vote is refused) the same way.  A program the port
-does not run yet (stake) raises NotImplementedError.  Seal's K13 runs its
-plain version on the CPU."""
+two waves; a forged vote is refused) the same way.  A stake txn and a v0
+txn over a missing lookup table get JAX's statuses and bank hashes; a
+program the port does not run yet (zk-elgamal, the upgradeable BPF loader)
+raises NotImplementedError.  Seal's K13 runs its plain version on the
+CPU."""
 
 import hashlib
 
@@ -23,6 +25,7 @@ from firedancer_tpu.pack import scheduler as jsched
 from firedancer_tpu.protocol import txn as jft
 from firedancer_tpu_torch.flamenco import agave_state as tast
 from firedancer_tpu_torch.flamenco import blockstore as tbs
+from firedancer_tpu_torch.flamenco import executor as tex
 from firedancer_tpu_torch.flamenco import runtime as trt
 from firedancer_tpu_torch.flamenco import vote_program as tvp
 from firedancer_tpu_torch.funk import Funk as TFunk
@@ -30,6 +33,7 @@ from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
 from firedancer_tpu_torch.pack import cost as tcost
 from firedancer_tpu_torch.pack import scheduler as tsched
 from firedancer_tpu_torch.protocol import txn as ft
+from firedancer_tpu_torch.protocol.base58 import b58_decode32 as _b58d
 from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_blockhash, pool_payers
 from firedancer_tpu_torch.utils import kbuild
 
@@ -142,9 +146,10 @@ def test_publish_then_replay_gates_like_jax():
 
 def test_vote_txn_raises_not_implemented():
     """Kept under its first name: the vote program is ported now, so a vote
-    on an account the vote program does not own gets JAX's status, and a
-    program still unported (stake) raises NotImplementedError where the
-    JAX executor runs it."""
+    on an account the vote program does not own gets JAX's status; so is
+    the stake program, so a stake instruction on an account it does not own
+    gets JAX's status and bank hash; a program still unported (zk-elgamal)
+    raises NotImplementedError where the JAX executor runs it."""
     voter = _secret(b"voter")
     vote = ft.vote_txn(voter, hashlib.sha256(b"vote-acct").digest(), SLOT - 1, BH)
     genesis = {ref.public_key(voter): 10**9}
@@ -161,8 +166,19 @@ def test_vote_txn_raises_not_implemented():
         recent_blockhash=BH,
         instrs=[ft.InstrSpec(program_id=2, accounts=bytes([1]), data=bytes(4))])
     stake = ft.txn_assemble([ref.sign(voter, msg)], msg)
-    with pytest.raises(NotImplementedError, match="stake program"):
-        _run(trt, TFunk, tbs.StatusCache, [stake], genesis, device="cpu")
+    jres, jfunk = _run(jrt, JFunk, jbs.StatusCache, [stake], genesis)
+    tres, tfunk = _run(trt, TFunk, tbs.StatusCache, [stake], genesis, device="cpu")
+    assert [(r.status, r.fee) for r in tres.results] == \
+        [(r.status, r.fee) for r in jres.results] == [(trt.TXN_ERR_ACCT, 5000)]
+    assert tres.bank_hash == jres.bank_hash
+    zk_prog = _b58d("ZkE1Gama1Proof11111111111111111111111111111")
+    msg = ft.message_build(
+        version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+        readonly_unsigned_cnt=1, acct_addrs=[ref.public_key(voter), zk_prog],
+        recent_blockhash=BH, instrs=[ft.InstrSpec(program_id=1, accounts=b"", data=bytes(4))])
+    zk = ft.txn_assemble([ref.sign(voter, msg)], msg)
+    with pytest.raises(NotImplementedError, match="zk-elgamal"):
+        _run(trt, TFunk, tbs.StatusCache, [zk], genesis, device="cpu")
 
 
 def _keypair(tag: bytes):
@@ -226,9 +242,10 @@ def test_vote_block_equals_jax(case):
 def test_unported_paths_raise_where_jax_runs_them():
     """A durable-nonce txn (a stale blockhash behind AdvanceNonceAccount)
     over a missing nonce account gets JAX's TXN_ERR_BLOCKHASH from the
-    port's durable-nonce gate, and a stale plain transfer gets the same; an
-    address-table lookup, which the JAX runtime resolves, still raises
-    NotImplementedError in the port."""
+    port's durable-nonce gate, and a stale plain transfer gets the same; a
+    v0 transfer over a missing lookup table gets JAX's TXN_ERR_ACCT and
+    bank hash; a txn naming an upgradeable-loader program, which the JAX
+    runtime resolves, still raises NotImplementedError in the port."""
     payer = pool_payers()[0]
     stale = hashlib.sha256(b"stale").digest()
     nonce_acct = hashlib.sha256(b"nonce").digest()
@@ -248,22 +265,38 @@ def test_unported_paths_raise_where_jax_runs_them():
             == [(r.status, r.fee) for r in jres.results] == [(trt.TXN_ERR_BLOCKHASH, 0)]
         assert tres.bank_hash == jres.bank_hash
         assert tfunk.rec_query(tres.xid, payer[1]) == jfunk.rec_query(jres.xid, payer[1])
-    # a v0 transfer with one lookup table (writable index 0): the JAX
-    # runtime finds no table and fails the txn typed; the port raises
+    # a v0 transfer with one lookup table (writable index 0): both runtimes
+    # find no table and fail the txn typed, with no fee
     lut = hashlib.sha256(b"lut").digest()
     msg = ft.message_build(
         version=ft.V0, signature_cnt=1, readonly_signed_cnt=0,
         readonly_unsigned_cnt=1, acct_addrs=[payer[1], ft.SYSTEM_PROGRAM],
         recent_blockhash=BH,
         instrs=[ft.InstrSpec(program_id=1, accounts=bytes([0, 2]),
-                             data=(2).to_bytes(4, "little") + (3).to_bytes(8, "little"))])
-    msg = msg[:-1] + b"\x01" + lut + b"\x01\x00\x00"  # one table: writable [0]
+                             data=(2).to_bytes(4, "little") + (3).to_bytes(8, "little"))],
+        luts=[ft.LutSpec(table_addr=lut, writable=bytes([0]), readonly=b"")])
     lut_txn = ft.txn_assemble([ref.sign(payer[0], msg)], msg)
     assert ft.txn_parse(lut_txn).addr_luts
-    jres, _ = _run(jrt, JFunk, jbs.StatusCache, [lut_txn], genesis)
-    assert [r.status for r in jres.results] == [jrt.TXN_ERR_ACCT]
-    with pytest.raises(NotImplementedError, match="address lookup table"):
-        _run(trt, TFunk, tbs.StatusCache, [lut_txn], genesis, device="cpu")
+    jres, jfunk = _run(jrt, JFunk, jbs.StatusCache, [lut_txn], genesis)
+    tres, tfunk = _run(trt, TFunk, tbs.StatusCache, [lut_txn], genesis, device="cpu")
+    assert [(r.status, r.fee) for r in tres.results] \
+        == [(r.status, r.fee) for r in jres.results] == [(trt.TXN_ERR_ACCT, 0)]
+    assert tres.bank_hash == jres.bank_hash
+    assert tfunk.rec_query(tres.xid, payer[1]) == jfunk.rec_query(jres.xid, payer[1])
+    # an executable program owned by the upgradeable loader: the JAX loader
+    # resolves its programdata, the port raises
+    prog = hashlib.sha256(b"upgradeable-prog").digest()
+    funk = TFunk()
+    funk.rec_insert(None, payer[1], trt.acct_build(10**9))
+    funk.rec_insert(None, prog, trt.acct_build(1, owner=tex.UPGRADEABLE_LOADER_PROGRAM,
+                                               executable=True))
+    msg = ft.message_build(
+        version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+        readonly_unsigned_cnt=1, acct_addrs=[payer[1], prog], recent_blockhash=BH,
+        instrs=[ft.InstrSpec(program_id=1, accounts=b"", data=b"\x01")])
+    with pytest.raises(NotImplementedError, match="upgradeable BPF loader"):
+        trt.execute_block(funk, slot=SLOT, txns=[ft.txn_assemble([ref.sign(payer[0], msg)], msg)],
+                          device="cpu")
 
 
 def _pack_stream() -> list[bytes]:
