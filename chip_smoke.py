@@ -268,6 +268,34 @@ script or when a phase fails):
               replay's seconds, the launches of K1, K5 and K13;
               [program-leader-split]: the host seconds per stage beside 17e
               (a)'s in the same call
+  17g. sbpf leader  17e (a)'s clocked leader over sbpf_stream (SBPF_MIX:
+              5,040 of phase 17's transfers; 2,048 counter invocations over
+              64 counters and 512 hasher invocations over 16 accounts
+              (sha256, keccak256 and blake3 of 64-256 bytes, sol_log_data,
+              sol_set_return_data); 512 vault transfers out of 16 PDA vaults
+              by CPI into the system program, 64 through the Rust ABI; 64
+              each of a custom error, CU exhaustion, a write to a read-only
+              account's image, a CPI signer escalation and a load outside
+              every region; 16 upgradeable-loader txns on accounts of their
+              own; counter and fail under loader v2, hasher and vault
+              upgradeable; 8,448 txns, every sBPF txn behind a
+              SetComputeUnitLimit, 64 payers of their own) over sbpf_bank_ctx
+              at slot 1,000: the stream's pack cost fits one block, sealed +
+              missed = 16, landed = verified = the stream and none dropped,
+              shed or rejected, the deshredded store bytes equal PoH's
+              entries, replay_block reproduces the seal and every status,
+              fee and CU, each kind's ok and failed counts as built (every
+              class occurs), each counter holds its operands that landed ok,
+              each hasher the digests of its last ok invocation in PoH
+              order, the vaults and destinations the transfers that landed
+              ok, the loader's accounts their expected bytes, K1 once per
+              verify batch, K5 once or twice per entry batch, K13 once.
+              [sbpf-leader]: slots sealed and missed, the seal lag's p50 and
+              p99, txns landed in the window and in the drain, ok and failed
+              by kind, the CU the sBPF txns consumed, txn/s to the store
+              beside 17e (a)'s, the seal's seconds and rows, the replay's
+              seconds, the launches of K1, K5 and K13; [sbpf-leader-split]:
+              the host seconds per stage beside 17e (a)'s in the same call
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -450,6 +478,14 @@ CLOCK_SLOTS, CLOCK_TICKS, CLOCK_SLOT_MS, CLOCK_GRACE = 16, 64, 400.0, 0.25
 # and a few lookup table program txns; the clock and depth are 17e's
 PROGRAM_MIX = dict(n_v0=4096, n_legacy=3500, n_tables=16, table_len=64, n_stake_accts=128,
                    n_config_accts=64, n_ed25519=256, n_secp256k1=64, n_lookup_fail=64, n_alt=2)
+# phase 17g: the sBPF leader's stream (models/workload.sbpf_stream): phase 17's
+# transfers beside counter, hasher and vault (CPI) invocations under both BPF
+# loaders, the five typed failures and the upgradeable loader's six
+# instructions; 8,448 txns like 17e's, every sBPF txn behind a
+# SetComputeUnitLimit near its use, the clock and depth 17e's
+SBPF_MIX = dict(n_legacy=5040, n_counter=2048, n_hasher=512, n_vault=512, n_vault_rust=64,
+                n_fail=64, n_loader=16, n_counters=64, n_hashers=16, n_vaults=16, n_dests=1024,
+                n_sbpf_payers=64)
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
@@ -1283,6 +1319,8 @@ def main() -> int:
         nonce_bank_ctx,
         program_bank_ctx,
         program_stream,
+        sbpf_bank_ctx,
+        sbpf_stream,
         nonce_keys,
         nonce_transfers,
         nonsquare_encodings,
@@ -3185,6 +3223,124 @@ def main() -> int:
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
         f" counters {json.dumps(rep17f)}")
 
+    # -- 17g. the sBPF leader: on-chain programs under both BPF loaders, with CPI --------------
+    mark("17g")
+    # who sends it: Solana's non-vote traffic is mostly sBPF program calls
+    # (token transfers, DEX swaps) that CPI into the system program: here
+    # counters, hashers and PDA vaults paying out through the system program,
+    # beside plain transfers, failing programs and a few program deployments
+    t0 = time.perf_counter()
+    ss17g = sbpf_stream(**SBPF_MIX)
+    gen17g_s = time.perf_counter() - t0
+    kinds17g = {k: ok + bad for k, (ok, bad) in ss17g.expect.items()}
+    cost17g = sum(compute_cost(p_, ft.txn_parse(p_)).total for p_ in ss17g.stream)
+    check(cost17g <= MAX_COST_PER_BLOCK, f"sbpf leader: the stream costs {cost17g} CU")
+    clock17g = SlotClockCfg(slot_ms=CLOCK_SLOT_MS, slot0=ss17g.slot, ticks_per_slot=CLOCK_TICKS,
+                            n_slots=CLOCK_SLOTS, miss_grace_frac=CLOCK_GRACE)
+    pipe17g = build_leader_pipeline(ss17g.stream, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
+                                    bank_ctx=sbpf_bank_ctx(ss17g, device=dev), slot=ss17g.slot,
+                                    keep_entries=True, pack_depth=len(ss17g.stream),
+                                    slot_clock=clock17g)
+    run17g_s, window17g_s, in_window17g = drive_window(pipe17g, "sbpf-leader")
+    t0 = time.perf_counter()
+    seal17g = pipe17g.seal()
+    seal17g_s = time.perf_counter() - t0
+    launches17g = dict(kbuild.LAUNCHES)
+    rep17g = pipe17g.report()
+    poh17g, pack17g = pipe17g.poh.metrics, pipe17g.pack.metrics
+    sealed17g, missed17g = poh17g.get("slots_sealed"), poh17g.get("slot_missed")
+    check(sealed17g + missed17g == CLOCK_SLOTS and sealed17g >= 1,
+          f"sbpf leader: {sealed17g} slots sealed + {missed17g} missed != {CLOCK_SLOTS}")
+    landed17g = sum(b.metrics.get("txn_exec") for b in pipe17g.banks)
+    rejected17g = sum(b.metrics.get("txn_rejected") for b in pipe17g.banks)
+    verified17g = rep17g["dedup"].get("frags_out", 0)
+    check(pack17g.get("txn_dropped") == pack17g.get("txn_shed") == rejected17g == 0
+          and landed17g == verified17g == len(ss17g.stream),
+          f"sbpf leader: landed {landed17g} + rejected {rejected17g} != verified {verified17g}"
+          f" of {len(ss17g.stream)}, dropped {pack17g.get('txn_dropped')}, shed"
+          f" {pack17g.get('txn_shed')}")
+    ents17g = [parse_entry(x) for x in
+               deshred_entry_batch(pipe17g.store.entry_batch_bytes(ss17g.slot))]
+    check(ents17g == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe17g.poh.entries],
+          "sbpf leader: deshredded store bytes != PoH's entries")
+    block17g = [p_ for _, _, txs in ents17g for p_ in txs]
+    fund17g = sbpf_bank_ctx(ss17g, device=dev)
+    t0 = time.perf_counter()
+    rp17g = replay_block(fund17g.funk, slot=ss17g.slot, entries=ents17g, poh_seed=b"\x00" * 32,
+                         status_cache=fund17g.status_cache, device=dev)
+    replay17g_s = time.perf_counter() - t0
+    check(rp17g is not None and rp17g.bank_hash == seal17g.bank_hash
+          and np.array_equal(rp17g.accounts_delta, seal17g.accounts_delta)
+          and rp17g.signature_cnt == seal17g.signature_cnt
+          and sorted((r.status, r.fee, r.cu) for r in rp17g.results)
+          == sorted((r.status, r.fee, r.cu) for r in seal17g.results),
+          "sbpf leader: replay_block does not reproduce the seal")
+    # every txn's status as built, each class at least once
+    got17g, sums17g, last17g, want17g, cu17g = {}, {}, {}, {}, 0
+    for p_, r_ in zip(block17g, rp17g.results):
+        k_ = ss17g.kind[p_]
+        check((r_.status == 0) == (p_ not in ss17g.bad) and r_.fee > 0,
+              f"sbpf leader: a {k_} txn got status {r_.status}, fee {r_.fee}")
+        ok_, bad_ = got17g.get(k_, (0, 0))
+        got17g[k_] = (ok_ + (r_.status == 0), bad_ + (r_.status != 0))
+        cu17g += r_.cu if k_ not in ("legacy", "loader") else 0
+        if r_.status != 0:
+            continue
+        if p_ in ss17g.counter_ops:
+            c_, x_ = ss17g.counter_ops[p_]
+            sums17g[c_] = sums17g.get(c_, 0) + x_
+        if p_ in ss17g.hasher_ops:
+            last17g[ss17g.hasher_ops[p_][0]] = ss17g.hasher_ops[p_][1]
+        for a_, d_ in ss17g.credit.get(p_, ()):
+            want17g[a_] = want17g.get(a_, 0) + d_
+    check(got17g == ss17g.expect, f"sbpf leader: ok/failed by kind {got17g} != {ss17g.expect}")
+    rust17g = sum(p_ in ss17g.rust for p_ in block17g)
+    check(all(sum(v_) for v_ in got17g.values()) and len(got17g) == 10 and rust17g > 0,
+          f"sbpf leader: a status class never occurred: {got17g}, rust ABI {rust17g}")
+    sx17g = pipe17g.bank_ctx.sx
+
+    def state17g(key):
+        return acct_decode(sx17g.funk.rec_query(sx17g.xid, key))
+
+    check(all(int.from_bytes(state17g(c_)[3], "little") == first_ + sums17g.get(c_, 0)
+              for c_, first_ in ss17g.accounts["counters"].items()),
+          "sbpf leader: a counter != its first value + the operands that landed ok")
+    check(len(last17g) == SBPF_MIX["n_hashers"] and all(
+        state17g(h_)[3] == hashlib.sha256(d_).digest() + fkk.keccak256_host(d_)
+        + fb3.blake3_host(d_) for h_, d_ in last17g.items()),
+        "sbpf leader: a hasher's bytes != the digests of its last ok invocation")
+    vault0 = {v_: 10**12 for v_, _ in ss17g.accounts["vaults"]}
+    check(all(state17g(a_)[0] == vault0.get(a_, 0) + d_ for a_, d_ in want17g.items()),
+          "sbpf leader: a vault's or destination's lamports != the transfers that landed ok")
+    check(all(state17g(k_) == v_ for k_, v_ in ss17g.loader_expect.items()),
+          "sbpf leader: an upgradeable-loader account's bytes differ from the expected")
+    nb17g = pipe17g.shred.metrics.get("entry_batches")
+    check(launches17g.get("verify_batch", 0) == rep17g["verify0"]["batches"] > 0,
+          f"sbpf leader: K1 launches {launches17g} != batches {rep17g['verify0']['batches']}")
+    check(nb17g <= launches17g.get("gf256_apply", 0) <= 2 * nb17g,
+          f"sbpf leader: K5 launches {launches17g.get('gf256_apply', 0)} for {nb17g} batches")
+    check(launches17g.get("lthash_combine", 0) == 1, f"sbpf leader: K13 launches {launches17g}")
+    lag17g = poh17g.hist("slot_seal_lag_ns")
+    lag17g50, lag17g99 = (tune_quantile(lag17g, q) / 1e6 for q in (0.5, 0.99))
+    split17g = dict(pipe17g.stage_s)
+    log(f"[sbpf-leader] {len(ss17g.stream)} txns {json.dumps(kinds17g)} ({rust17g} vault txns"
+        f" through the Rust ABI; made in {gen17g_s:.3f} s; pack cost {cost17g} CU) at batch {B1},"
+        f" 2 banks, {CLOCK_SLOTS} slots of {CLOCK_SLOT_MS:.0f} ms, {CLOCK_TICKS} ticks a slot,"
+        f" slot {ss17g.slot}: slots sealed {sealed17g}, missed {missed17g}; seal lag p50"
+        f" {lag17g50:.3f} ms, p99 {lag17g99:.3f} ms (upper bucket edges); landed {landed17g}"
+        f" ({in_window17g} in the window, {landed17g - in_window17g} in the drain; window closed"
+        f" at {window17g_s:.3f} s); ok/failed by kind {json.dumps(got17g)}; sBPF txns consumed"
+        f" {cu17g} CU; run {run17g_s:.3f} s = {landed17g / run17g_s:.0f} txn/s to the store"
+        f" (17e (a): {r17e['txn_s']:.0f}); seal {seal17g_s:.3f} s ({sx17g.seal_rows} rows, bank"
+        f" hash {seal17g.bank_hash.hex()}); replay reproduces the seal in {replay17g_s:.3f} s;"
+        f" launches K1 {launches17g.get('verify_batch', 0)}, K5"
+        f" {launches17g.get('gf256_apply', 0)}, K13 {launches17g.get('lthash_combine', 0)}"
+        f" ({launches17g})")
+    log(f"[sbpf-leader-split] host seconds"
+        f" {json.dumps({k: round(v, 4) for k, v in sorted(split17g.items())})}; 17e (a) in this"
+        f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
+        f" counters {json.dumps(rep17g)}")
+
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
 
@@ -3553,6 +3709,7 @@ def main() -> int:
                                  "vote_leader_pipeline": launches17d.get(k["name"], 0),
                                  "clock_leader_pipeline": launches17e.get(k["name"], 0),
                                  "program_leader_pipeline": launches17f.get(k["name"], 0),
+                                 "sbpf_leader_pipeline": launches17g.get(k["name"], 0),
                                  "bmtree_root_build": launches18.get(k["name"], 0),
                                  OPS_API: ops_api.get(k["name"], 0)}
     for nm in SPLIT:

@@ -15,9 +15,11 @@ u8 executable | data` (executor.acct_encode/decode).  A failed txn still
 pays its fee; errors never abort the block.  A v0 txn's address-table
 lookups resolve against the start-of-slot view (flamenco/alt.py) before
 the waves; a lookup that does not resolve fails the txn typed
-(TXN_ERR_ACCT, no fee).  What the port does not run yet raises
-NotImplementedError (flamenco/executor.py): zk-elgamal, the BPF loaders
-and the sBPF VM.  A stale blockhash passes only as a durable-nonce txn
+(TXN_ERR_ACCT, no fee).  Upgradeable programs' programdata resolves at
+txn load from the working fork, so an Upgrade earlier in the block is
+seen (and the deploy-slot rule then fails the invocation typed).  What
+the port does not run yet raises NotImplementedError
+(flamenco/executor.py): the zk-elgamal proof program.  A stale blockhash passes only as a durable-nonce txn
 (flamenco/nonce.py); its nonce advances against the parent bank hash,
 also when the txn fails with its fee charged.  The JAX package's native
 executor lanes (exec_native, the bank sweep) are not ported.
@@ -38,10 +40,10 @@ from ..pack.cost import txn_budget
 from ..protocol import txn as ft
 from ..utils.platform import resolve_device
 from . import alt
+from . import bpf_loader as bl
 from . import nonce as N
 from . import types as T
 from .executor import (
-    UPGRADEABLE_LOADER_PROGRAM,
     Account,
     Executor,
     InstrAccount,
@@ -49,7 +51,6 @@ from .executor import (
     TxnCtx,
     acct_decode,
     acct_encode,
-    not_ported,
 )
 from .programs import AcctError, FundsError
 
@@ -80,6 +81,7 @@ def acct_build(lamports: int, data: bytes = b"",
 class TxnResult:
     status: int
     fee: int
+    cu: int = 0  # compute units the txn's instructions consumed (a port-only field)
 
 
 @dataclass
@@ -225,12 +227,14 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
     plam, powner, pex, pdata = acct_decode(payer_val)
     funk.rec_insert(xid, payer, acct_encode(plam - fee, powner, pex, pdata))
 
+    ctx = None
+
     def _fail(status: int) -> TxnResult:
         # fee-charged failure: a durable-nonce txn's nonce must rotate even
         # though every other program effect is discarded
         if durable_nonce:
             _advance_nonce_account(funk, xid, payload, desc, addrs, sysvars)
-        return TxnResult(status, fee)
+        return TxnResult(status, fee, ctx.cu_used if ctx is not None else 0)
 
     # load the unique account set into host objects; program effects land
     # in funk only at commit, so failure = skip the writeback (fee stays)
@@ -242,12 +246,22 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
     if budget is None:
         # malformed compute-budget instruction: typed failure, fee stays
         return _fail(TXN_ERR_PROGRAM)
-    cu_limit, _heap_size = budget  # the heap sizes the sBPF VM (not ported)
-    if any(a.executable and a.owner == UPGRADEABLE_LOADER_PROGRAM for a in accounts):
-        # the JAX loader resolves upgradeable programs' programdata here
-        raise not_ported("the upgradeable BPF loader")
+    cu_limit, heap_size = budget
+    # resolve upgradeable programs' programdata up front, from the working
+    # fork; a broken indirection surfaces as a typed failure at invoke time
+    program_elfs: dict = {}
+    for a in accounts:
+        if a.executable and a.owner == bl.UPGRADEABLE_LOADER_PROGRAM:
+            try:
+                pd_addr = bl.program_programdata(bytes(a.data))
+                _lam, _owner, _ex, pd_data = acct_decode(funk.rec_query(xid, pd_addr))
+                deploy_slot, _auth = bl.programdata_meta(pd_data)
+                program_elfs[a.key] = (bl.programdata_elf(pd_data), deploy_slot)
+            except InstrError:
+                pass  # left unresolved: invocation fails typed
     ctx = TxnCtx(accounts=accounts, signer=signer, writable=writable,
-                 sysvars=sysvars or {}, budget=cu_limit,
+                 sysvars=sysvars or {}, budget=cu_limit, heap_size=heap_size,
+                 program_elfs=program_elfs,
                  instr_datas=[payload[i.data_off : i.data_off + i.data_sz] for i in desc.instrs])
 
     for ins in desc.instrs:
@@ -284,7 +298,7 @@ def _execute_txn(funk: Funk, xid: bytes, payload: bytes, desc: ft.Txn,
         changed.append((a.key, val))
     for key, val in changed:
         funk.rec_insert(xid, key, val)
-    return TxnResult(TXN_SUCCESS, fee)
+    return TxnResult(TXN_SUCCESS, fee, ctx.cu_used)
 
 
 class SlotExecution:

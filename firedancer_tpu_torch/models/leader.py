@@ -257,7 +257,9 @@ class LeaderPipeline:
         """Drain: stop benchg -> flush verify until nothing is upstream of
         pack -> pack force-flush -> stop the poh clock (and, in the sharded
         form, verify the spans still parked on the plane) -> shred flush ->
-        sweep until quiescent."""
+        sweep until quiescent.  Raises RuntimeError, naming the pending
+        count and the block's room left, once pack holds txns that no block
+        can take (PackStage.stranded)."""
         self.benchg.limit = self.benchg._i  # stop generating
         for _ in range(max_sweeps):
             for v in self.verifies:
@@ -279,14 +281,27 @@ class LeaderPipeline:
         self._sweep(max_sweeps)
 
     def _sweep(self, max_sweeps: int) -> None:
-        """Run non-generator stages until none makes frag progress."""
+        """Run non-generator stages until none makes frag progress and pack
+        holds nothing; raise once pack holds txns that no block can take
+        (PackStage.stranded)."""
         stages = [s for s in self.stages if s is not self.benchg]
         for _ in range(max_sweeps):
             progressed = self._step(stages)
             # pack may be waiting on schedulability rather than frags
             self._timed(self.pack.name, self.pack.after_credit)
-            if not progressed and not self.pack.pack.pending_cnt():
+            if progressed:
+                continue
+            if not self.pack.pack.pending_cnt():
                 break
+            if self.pack.stranded():
+                pk = self.pack.pack
+                lim = pk.limits
+                raise RuntimeError(
+                    f"leader drain: pack holds {pk.pending_cnt()} txns that no block can take"
+                    f" ({lim.max_cost_per_block - pk.cost_used} of {lim.max_cost_per_block} CU"
+                    f" and {lim.max_data_bytes_per_block - pk.data_bytes_used} data bytes left"
+                    f" in the block, no further block in the"
+                    f" {'leader window' if self.pack._clock else 'run'})")
 
     def seal(self):
         """End of slot: bank hash over the state every bank committed,

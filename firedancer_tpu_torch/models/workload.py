@@ -741,3 +741,491 @@ def program_bank_ctx(ps: ProgramStream, *, device=None):
     for pub, val in ps.genesis.items():
         ctx.funk.rec_insert(None, pub, val)
     return ctx
+
+
+# -- sBPF programs: a small assembler and ELF writer --------------------------------------
+
+# the opcodes the programs below use (the sBPF ISA's encoding)
+OP_ADD64_IMM, OP_ADD64_REG, OP_MOV64_IMM, OP_MOV64_REG = 0x07, 0x0F, 0xB7, 0xBF
+OP_LDXB, OP_LDXDW, OP_STB, OP_STW, OP_STXB, OP_STXDW = 0x71, 0x79, 0x72, 0x62, 0x73, 0x7B
+OP_JA, OP_JEQ_IMM, OP_CALL, OP_EXIT, OP_LDDW = 0x05, 0x15, 0x85, 0x95, 0x18
+
+
+def ins(opcode: int, dst: int = 0, src: int = 0, off: int = 0, imm: int = 0) -> bytes:
+    """One 8-byte instruction slot: opcode, dst | src << 4, i16 off, i32 imm."""
+    return (bytes([opcode, (src << 4) | dst]) + off.to_bytes(2, "little", signed=True)
+            + (imm & 0xFFFFFFFF).to_bytes(4, "little"))
+
+
+def lddw(dst: int, val: int) -> bytes:
+    """lddw's two slots: the low 32 bits in the first, the high in the second."""
+    return (ins(OP_LDDW, dst=dst, imm=val & 0xFFFFFFFF) + bytes(4)
+            + ((val >> 32) & 0xFFFFFFFF).to_bytes(4, "little"))
+
+
+def assemble(lines: list) -> bytes:
+    """Text from a list of labels (str), ("lddw", dst, value) and
+    (opcode, dst, src, off, imm) tuples, where a jump's off, or a
+    bpf-to-bpf call's imm, may name a label."""
+    pcs, pc = {}, 0
+    for it in lines:
+        if isinstance(it, str):
+            pcs[it] = pc
+        else:
+            pc += 2 if it[0] == "lddw" else 1
+    out, pc = bytearray(), 0
+    for it in lines:
+        if isinstance(it, str):
+            continue
+        if it[0] == "lddw":
+            out += lddw(it[1], it[2])
+            pc += 2
+            continue
+        op, dst, src, off, imm = it
+        if isinstance(off, str):
+            off = pcs[off] - pc - 1
+        if isinstance(imm, str):
+            imm = pcs[imm] - pc - 1
+        out += ins(op, dst, src, off, imm)
+        pc += 1
+    return bytes(out)
+
+
+def build_elf(text: bytes, *, machine: int = 247, entry_slot: int = 0, rodata: bytes = b"",
+              rels=(), text_addr: int = 0x100) -> bytes:
+    """A minimal little-endian ELF64 the sBPF loader takes: .text (at
+    text_addr), an optional .rodata and .rel.dyn, and .shstrtab (the same
+    layout as tests/test_sbpf.py's)."""
+    import struct
+
+    shstr = b"\x00.text\x00.rodata\x00.rel.dyn\x00.shstrtab\x00"
+    n_text, n_ro, n_rel, n_shstr = 1, 7, 15, 24
+    ehsz = 64
+    text_off = ehsz
+    ro_off = text_off + len(text)
+    rel_bytes = b"".join(struct.pack("<QQ", off, info) for off, info in rels)
+    rel_off = ro_off + len(rodata)
+    str_off = rel_off + len(rel_bytes)
+    shoff = str_off + len(shstr)
+
+    def shdr(name, type_, flags, addr, off, size):
+        return struct.pack("<IIQQQQIIQQ", name, type_, flags, addr, off, size, 0, 0, 0, 0)
+
+    shdrs = [shdr(0, 0, 0, 0, 0, 0), shdr(n_text, 1, 0x6, text_addr, text_off, len(text))]
+    if rodata:
+        shdrs.append(shdr(n_ro, 1, 0x2, 0x1000, ro_off, len(rodata)))
+    if rels:
+        shdrs.append(shdr(n_rel, 9, 0, 0, rel_off, len(rel_bytes)))
+    shstrndx = len(shdrs)
+    shdrs.append(shdr(n_shstr, 3, 0, 0, str_off, len(shstr)))
+    ehdr = struct.pack("<16sHHIQQQIHHHHHH", b"\x7fELF" + bytes([2, 1, 1]) + bytes(9), 3,
+                       machine, 1, text_addr + 8 * entry_slot, 0, shoff, 0, ehsz, 0, 0,
+                       struct.calcsize("<IIQQQQIIQQ"), len(shdrs), shstrndx)
+    return bytes(ehdr) + text + rodata + rel_bytes + shstr + b"".join(shdrs)
+
+
+@dataclass(frozen=True)
+class InputLayout:
+    """Where the aligned serialization (flamenco/executor.serialize_aligned)
+    puts each instruction account's key and data, and the instruction
+    data, as VM addresses, for distinct accounts of the given data lengths."""
+    keys: tuple
+    datas: tuple
+    ix_data: int
+
+
+def input_layout(data_lens: list[int]) -> InputLayout:
+    from ..flamenco.executor import MAX_PERMITTED_DATA_INCREASE
+    from ..flamenco.vm import MM_INPUT
+
+    off, keys, datas = 8, [], []
+    for n in data_lens:
+        keys.append(MM_INPUT + off + 8)
+        datas.append(MM_INPUT + off + 88)
+        off += 88 + n + MAX_PERMITTED_DATA_INCREASE
+        off += (-off) % 8 + 8
+    return InputLayout(tuple(keys), tuple(datas), MM_INPUT + off + 8)
+
+
+def _sys(name: str) -> int:
+    from ..flamenco import vm as fvm
+
+    return getattr(fvm, "SYSCALL_SOL_" + name)
+
+
+COUNTER_LEN = 8   # a counter account's data: one u64
+HASHER_LEN = 96   # a hasher account's data: the sha256, keccak256 and blake3 digests
+
+
+def counter_text() -> bytes:
+    """Counter: [counter w (8 bytes)], data u64 x: counter += x."""
+    lay = input_layout([COUNTER_LEN])
+    return assemble([
+        ("lddw", 1, lay.datas[0]), (OP_LDXDW, 2, 1, 0, 0),
+        ("lddw", 3, lay.ix_data), (OP_LDXDW, 4, 3, 0, 0),
+        (OP_ADD64_REG, 2, 4, 0, 0), (OP_STXDW, 1, 2, 0, 0),
+        (OP_MOV64_IMM, 0, 0, 0, 0), (OP_EXIT, 0, 0, 0, 0)])
+
+
+def hasher_text() -> bytes:
+    """Hasher: [hasher w (96 bytes)], data the bytes to hash: sha256,
+    keccak256 and blake3 of the data into the account, sol_log_data of the
+    sha256 digest, and the blake3 digest as return data."""
+    lay = input_layout([HASHER_LEN])
+    d = lay.datas[0]
+    lines = [("lddw", 1, lay.ix_data), (OP_STXDW, 10, 1, -16, 0),       # SolBytes.addr
+             ("lddw", 1, lay.ix_data - 8), (OP_LDXDW, 2, 1, 0, 0),
+             (OP_STXDW, 10, 2, -8, 0)]                                  # SolBytes.len
+    for k, name in enumerate(("SHA256", "KECCAK256", "BLAKE3")):
+        lines += [(OP_MOV64_REG, 1, 10, 0, 0), (OP_ADD64_IMM, 1, 0, 0, -16),
+                  (OP_MOV64_IMM, 2, 0, 0, 1), ("lddw", 3, d + 32 * k),
+                  (OP_CALL, 0, 0, 0, _sys(name))]
+    lines += [("lddw", 1, d), (OP_STXDW, 10, 1, -32, 0), (OP_MOV64_IMM, 1, 0, 0, 32),
+              (OP_STXDW, 10, 1, -24, 0), (OP_MOV64_REG, 1, 10, 0, 0),
+              (OP_ADD64_IMM, 1, 0, 0, -32), (OP_MOV64_IMM, 2, 0, 0, 1),
+              (OP_CALL, 0, 0, 0, _sys("LOG_DATA")),
+              ("lddw", 1, d + 64), (OP_MOV64_IMM, 2, 0, 0, 32),
+              (OP_CALL, 0, 0, 0, _sys("SET_RETURN_DATA")),
+              (OP_MOV64_IMM, 0, 0, 0, 0), (OP_EXIT, 0, 0, 0, 0)]
+    return assemble(lines)
+
+
+VAULT_SEED = b"vault"
+
+
+def vault_data(lamports: int, k: int, bump: int, rust: bool) -> bytes:
+    """Vault instruction data: u64 lamports | u8 vault index | u8 bump |
+    u8 ABI (1 = sol_invoke_signed_rust) | the seed prefix."""
+    return lamports.to_bytes(8, "little") + bytes([k, bump, int(rust)]) + VAULT_SEED
+
+
+def vault_text() -> bytes:
+    """Vault: [vault w, destination w, system program], data vault_data:
+    the system program's transfer of `lamports` from the vault (a PDA of
+    this program over [VAULT_SEED, k] and its bump) to the destination,
+    by sol_invoke_signed_c, or sol_invoke_signed_rust when the ABI byte
+    is 1, signed by the seeds in the data."""
+    lay = input_layout([0, 0, 0])
+    x = lay.ix_data
+    seeds = [(x + 11, len(VAULT_SEED)), (x + 8, 1), (x + 9, 1)]
+
+    def stack_addr(reg: int, off: int) -> list:
+        return [(OP_MOV64_REG, reg, 10, 0, 0), (OP_ADD64_IMM, reg, 0, 0, off)]
+
+    def invoke(instr_off: int, name: str) -> list:
+        # invoke(&instr, no account infos, 0, &seeds, 1)
+        return (stack_addr(1, instr_off) + [(OP_MOV64_IMM, 2, 0, 0, 0), (OP_MOV64_IMM, 3, 0, 0, 0)]
+                + stack_addr(4, -248) + [(OP_MOV64_IMM, 5, 0, 0, 1),
+                                         (OP_CALL, 0, 0, 0, _sys(name))])
+
+    def copy32(src_addr: int, dst_off: int) -> list:
+        out = [("lddw", 2, src_addr)]
+        for w in range(4):
+            out += [(OP_LDXDW, 3, 2, 8 * w, 0), (OP_STXDW, 10, 3, dst_off + 8 * w, 0)]
+        return out
+
+    # the transfer's data (u32 2 | u64 lamports) at -136
+    lines = [(OP_STW, 10, 0, -136, 2),
+             ("lddw", 1, x), (OP_LDXDW, 2, 1, 0, 0), (OP_STXDW, 10, 2, -132, 0)]
+    for j, (addr, n) in enumerate(seeds):  # SolSignerSeedC[3] at -300
+        lines += [("lddw", 2, addr), (OP_STXDW, 10, 2, -300 + 16 * j, 0),
+                  (OP_MOV64_IMM, 2, 0, 0, n), (OP_STXDW, 10, 2, -292 + 16 * j, 0)]
+    lines += stack_addr(2, -300) + [  # SolSignerSeedsC[1] at -248
+        (OP_STXDW, 10, 2, -248, 0), (OP_MOV64_IMM, 2, 0, 0, 3), (OP_STXDW, 10, 2, -240, 0),
+        (OP_LDXB, 3, 1, 10, 0), (OP_JEQ_IMM, 3, 0, "rust", 1)]
+    # C ABI: SolAccountMeta[2] {u64 key addr, u8 writable, u8 signer} at -96,
+    # SolInstruction {program id addr, metas, 2, data, 12} at -48
+    for j, signer in enumerate((1, 0)):
+        lines += [("lddw", 2, lay.keys[j]), (OP_STXDW, 10, 2, -96 + 10 * j, 0),
+                  (OP_STB, 10, 0, -88 + 10 * j, 1), (OP_STB, 10, 0, -87 + 10 * j, signer)]
+    lines += [("lddw", 2, lay.keys[2]), (OP_STXDW, 10, 2, -48, 0)]
+    lines += stack_addr(2, -96) + [(OP_STXDW, 10, 2, -40, 0), (OP_MOV64_IMM, 2, 0, 0, 2),
+                                   (OP_STXDW, 10, 2, -32, 0)]
+    lines += stack_addr(2, -136) + [(OP_STXDW, 10, 2, -24, 0), (OP_MOV64_IMM, 2, 0, 0, 12),
+                                    (OP_STXDW, 10, 2, -16, 0)]
+    lines += invoke(-48, "INVOKE_SIGNED_C") + [(OP_JA, 0, 0, "done", 0), "rust"]
+    # Rust ABI: AccountMeta[2] {key, u8 signer, u8 writable} at -232,
+    # StableInstruction {metas vec, data vec, program id} at -96
+    for j, signer in enumerate((1, 0)):
+        base = -232 + 34 * j
+        lines += copy32(lay.keys[j], base) + [(OP_STB, 10, 0, base + 32, signer),
+                                              (OP_STB, 10, 0, base + 33, 1)]
+    lines += stack_addr(2, -232) + [(OP_STXDW, 10, 2, -96, 0), (OP_MOV64_IMM, 2, 0, 0, 2),
+                                    (OP_STXDW, 10, 2, -88, 0), (OP_STXDW, 10, 2, -80, 0)]
+    lines += stack_addr(2, -136) + [(OP_STXDW, 10, 2, -72, 0), (OP_MOV64_IMM, 2, 0, 0, 12),
+                                    (OP_STXDW, 10, 2, -64, 0), (OP_STXDW, 10, 2, -56, 0)]
+    lines += copy32(lay.keys[2], -48) + invoke(-96, "INVOKE_SIGNED_RUST")
+    lines += ["done", (OP_MOV64_IMM, 0, 0, 0, 0), (OP_EXIT, 0, 0, 0, 0)]
+    return assemble(lines)
+
+
+# the fail program's modes: each fails its txn typed, fee charged
+FAIL_CUSTOM, FAIL_LOOP, FAIL_READONLY, FAIL_FAULT = 0, 1, 2, 3
+FAIL_CUSTOM_CODE = 0x1771
+
+
+def fail_text() -> bytes:
+    """Fail: [counter (read-only)], data u8 mode | anything: mode 0 returns
+    FAIL_CUSTOM_CODE, 1 loops until the budget runs out, 2 writes the
+    read-only counter's image, 3 loads from address 0 (outside every
+    region)."""
+    lay = input_layout([COUNTER_LEN])
+    return assemble([
+        ("lddw", 1, lay.ix_data), (OP_LDXB, 2, 1, 0, 0),
+        (OP_JEQ_IMM, 2, 0, "custom", FAIL_CUSTOM), (OP_JEQ_IMM, 2, 0, "loop", FAIL_LOOP),
+        (OP_JEQ_IMM, 2, 0, "readonly", FAIL_READONLY),
+        (OP_MOV64_IMM, 3, 0, 0, 0), (OP_LDXDW, 0, 3, 0, 0), (OP_EXIT, 0, 0, 0, 0),
+        "custom", (OP_MOV64_IMM, 0, 0, 0, FAIL_CUSTOM_CODE), (OP_EXIT, 0, 0, 0, 0),
+        "loop", (OP_JA, 0, 0, "loop", 0),
+        "readonly", ("lddw", 1, lay.datas[0]), (OP_STB, 1, 0, 0, 1),
+        (OP_MOV64_IMM, 0, 0, 0, 0), (OP_EXIT, 0, 0, 0, 0)])
+
+
+# -- sBPF program traffic: the programs above under both BPF loaders --------------------------
+
+SBPF_SLOT = PROGRAM_SLOT   # the sBPF leader's slot
+SBPF_DEPLOY_SLOT = SBPF_SLOT - 100  # the genesis programs' deploy slot: before the run's
+VAULT_LAMPORTS = 10**12    # each PDA vault
+# the compute-unit limit each program's txns request, near what they use (the
+# compute-budget instruction's 150 CU included); the fail program's loop runs
+# until its request is spent
+SBPF_CU = dict(counter=200, hasher=1200, vault=1500, fail=1000)
+# the fail program's modes by kind, and the vault's escalation
+FAIL_KINDS = dict(custom=FAIL_CUSTOM, budget=FAIL_LOOP, readonly=FAIL_READONLY,
+                  fault=FAIL_FAULT)
+LOADER_TAGS = ("initialize", "write", "deploy", "upgrade", "set_authority", "close")
+
+
+def _keys(seed: bytes, tag: bytes) -> bytes:
+    return hashlib.sha256(seed + tag).digest()
+
+
+def sbpf_programs(seed: bytes = b"sbpf") -> dict:
+    """name -> (program id, ELF): counter and fail under loader v2, hasher
+    and vault under the upgradeable loader."""
+    return {name: (_keys(seed, b"%s-program" % name.encode()), build_elf(fn()))
+            for name, fn in (("counter", counter_text), ("fail", fail_text),
+                             ("hasher", hasher_text), ("vault", vault_text))}
+
+
+def sbpf_genesis(*, n_counters: int = 64, n_hashers: int = 16, n_vaults: int = 16,
+                 seed: bytes = b"sbpf") -> tuple[dict, dict]:
+    """({pubkey: account value}, accounts): the four programs (loader-v2
+    accounts holding their ELF; upgradeable program accounts with their
+    programdata, deployed at SBPF_DEPLOY_SLOT under an authority), the
+    counter accounts (a seeded u64 each), the hasher accounts (96 zero
+    bytes) and the vaults (funded system accounts at the vault program's
+    PDAs over [VAULT_SEED, k]).  `accounts` names them: programs, counters
+    ({key: first value}), hashers, vaults ([(key, bump)]) and the
+    authority."""
+    from ..flamenco import bpf_loader as bl
+    from ..flamenco.executor import BPF_LOADER_PROGRAM, acct_encode
+    from ..protocol import pda
+
+    progs = sbpf_programs(seed)
+    auth = _keyed(seed, b"upgrade-authority")
+    genesis = {}
+    for name, (key, elf) in progs.items():
+        if name in ("counter", "fail"):
+            genesis[key] = acct_encode(1, BPF_LOADER_PROGRAM, True, elf)
+            continue
+        pd, _ = pda.find_program_address([key], bl.UPGRADEABLE_LOADER_PROGRAM)
+        genesis[key] = acct_encode(1, bl.UPGRADEABLE_LOADER_PROGRAM, True, bl.program_encode(pd))
+        genesis[pd] = acct_encode(1, bl.UPGRADEABLE_LOADER_PROGRAM, False,
+                                  bl.programdata_encode(SBPF_DEPLOY_SLOT, auth[1], elf))
+    rng = np.random.default_rng(int.from_bytes(hashlib.sha256(seed).digest()[:8], "little"))
+    counters = {}
+    for c in range(n_counters):
+        key = _keys(seed, b"counter%d" % c)
+        counters[key] = int(rng.integers(0, 2**32))
+        genesis[key] = acct_encode(10**6, progs["counter"][0],
+                                   data=counters[key].to_bytes(COUNTER_LEN, "little"))
+    hashers = [_keys(seed, b"hasher%d" % h) for h in range(n_hashers)]
+    for key in hashers:
+        genesis[key] = acct_encode(10**6, progs["hasher"][0], data=bytes(HASHER_LEN))
+    vaults = [pda.find_program_address([VAULT_SEED, bytes([k])], progs["vault"][0])
+              for k in range(n_vaults)]
+    for key, _bump in vaults:
+        genesis[key] = acct_encode(VAULT_LAMPORTS)
+    return genesis, dict(programs=progs, counters=counters, hashers=hashers, vaults=vaults,
+                         authority=auth)
+
+
+@dataclass
+class SbpfStream:
+    stream: list    # frames in send order
+    kind: dict      # payload -> "legacy", "counter", "hasher", "vault", a FAIL_KINDS
+    #                 key, "escalation" or "loader"
+    bad: set        # payloads built to fail typed (fee charged)
+    rust: set       # vault payloads that invoke through sol_invoke_signed_rust
+    credit: dict    # payload -> [(pubkey, lamport delta)] when it lands ok
+    counter_ops: dict  # counter payload -> (counter, operand)
+    hasher_ops: dict   # hasher payload -> (hasher account, the data hashed)
+    loader_expect: dict  # pubkey -> (lamports, owner, executable, data) once the loader txns land
+    accounts: dict  # sbpf_genesis's names
+    expect: dict    # kind -> (txns that must land ok, txns that must fail)
+    genesis: dict   # pubkey -> account value, the fee payers included
+    slot: int
+    seed: bytes     # the legacy payers' benchg seed (payers, blockhash)
+
+
+def sbpf_stream(*, n_legacy: int = 5040, n_counter: int = 2048, n_hasher: int = 512,
+                n_vault: int = 512, n_vault_rust: int = 64, n_fail: int = 64, n_loader: int = 16,
+                n_counters: int = 64, n_hashers: int = 16, n_vaults: int = 16,
+                n_dests: int = 1024, n_sbpf_payers: int = 64, seed: bytes = b"sbpf",
+                payer_seed: bytes = b"benchg", n_payers: int = 8,
+                slot: int = SBPF_SLOT) -> SbpfStream:
+    """A leader's on-chain program traffic, seeded and shuffled, with the
+    genesis (sbpf_genesis's, the payers funded) that lands it:
+
+      - n_legacy of benchg's transfers over n_dests destinations;
+      - n_counter counter invocations (distinct operands) over the
+        counters, n_hasher hasher invocations (64-256 random bytes) over
+        the hasher accounts, and n_vault vault transfers from the PDA
+        vaults to the destinations, n_vault_rust of them through the Rust
+        ABI, each behind a SetComputeUnitLimit of SBPF_CU, paid by
+        n_sbpf_payers payers of their own;
+      - n_fail of each typed failure: the fail program's custom error, CU
+        exhaustion, read-only image write and fault, and a vault transfer
+        signed by another vault's seeds (a CPI signer escalation);
+      - n_loader upgradeable-loader txns on fresh accounts of their own,
+        cycling over LOADER_TAGS, each independent of the others, so that
+        their accounts' final bytes (loader_expect) hold in any order.
+
+    Every outcome is known up front, whatever order pack lands them in."""
+    from ..flamenco import bpf_loader as bl
+    from ..flamenco.executor import acct_encode
+    from ..protocol import pda
+
+    ldr = bl.UPGRADEABLE_LOADER_PROGRAM
+    rng = np.random.default_rng(int.from_bytes(hashlib.sha256(seed + b"stream").digest()[:8],
+                                               "little"))
+    bh = pool_blockhash(payer_seed)
+    genesis, accts = sbpf_genesis(n_counters=n_counters, n_hashers=n_hashers,
+                                  n_vaults=n_vaults, seed=seed)
+    progs = accts["programs"]
+    for _, pub in pool_payers(payer_seed, n_payers):
+        genesis[pub] = acct_encode(PAYER_LAMPORTS)
+    payers = [_keyed(seed, b"payer%d" % k) for k in range(n_sbpf_payers)]
+    for _, pub in payers:
+        genesis[pub] = acct_encode(PAYER_LAMPORTS)
+    dests = [hashlib.sha256(payer_seed + b"to%d" % j).digest() for j in range(n_dests)]
+    counters = list(accts["counters"])
+    ss = SbpfStream([], {}, set(), set(), {}, {}, {}, {}, accts, {}, genesis, slot, payer_seed)
+
+    def add(k: str, p: bytes, ok: bool) -> None:
+        ss.kind[p] = k
+        if not ok:
+            ss.bad.add(p)
+        good, fail = ss.expect.get(k, (0, 0))
+        ss.expect[k] = (good + ok, fail + (not ok))
+
+    def call(i: int, name: str, ix_accts: list, data: bytes, readonly=()) -> bytes:
+        return _program_txn(payers[i % n_sbpf_payers], progs[name][0], ix_accts, data, bh,
+                            readonly=readonly, cu_limit=SBPF_CU[name])
+
+    for i, p in enumerate(gen_transfer_pool(n_legacy, seed=payer_seed, n_payers=n_payers,
+                                            n_dests=n_dests)):
+        ss.credit[p] = [(dests[i % n_dests], 1 + i)]
+        add("legacy", p, True)
+    for i in range(n_counter):
+        c = counters[i % len(counters)]
+        p = call(i, "counter", [c], (1 + i).to_bytes(8, "little"))
+        ss.counter_ops[p] = (c, 1 + i)
+        add("counter", p, True)
+    for i in range(n_hasher):
+        h = accts["hashers"][i % n_hashers]
+        data = rng.bytes(int(rng.integers(64, 257)))
+        p = call(i, "hasher", [h], data)
+        ss.hasher_ops[p] = (h, data)
+        add("hasher", p, True)
+    vaults = accts["vaults"]
+    for i in range(n_vault + n_fail):
+        k, dest, lam = i % n_vaults, dests[(7 * i) % n_dests], 1 + i
+        rust = i < n_vault_rust
+        ok = i < n_vault
+        ks = k if ok else (k + 1) % n_vaults  # an escalation signs with vault k + 1's seeds
+        p = call(i, "vault", [vaults[k][0], dest, ft.SYSTEM_PROGRAM],
+                 vault_data(lam, ks, vaults[ks][1], rust), readonly=(ft.SYSTEM_PROGRAM,))
+        if ok:
+            ss.credit[p] = [(dest, lam), (vaults[k][0], -lam)]
+            if rust:
+                ss.rust.add(p)
+        add("vault" if ok else "escalation", p, ok)
+    for kind, mode in FAIL_KINDS.items():
+        for i in range(n_fail):
+            c = counters[(i + 17 * mode) % len(counters)]
+            add(kind, call(i + mode, "fail", [c], bytes([mode]) + i.to_bytes(4, "little"),
+                           readonly=(c,)), False)
+
+    # the upgradeable loader on accounts of each txn's own
+    lpayer = _keyed(seed, b"loader-payer")
+    genesis[lpayer[1]] = acct_encode(PAYER_LAMPORTS)
+    a = lpayer[1]
+    elf, new_elf = progs["counter"][1], progs["fail"][1]
+    room = 256
+    for i in range(n_loader):
+        tag = LOADER_TAGS[i % len(LOADER_TAGS)]
+        buf = _keys(seed, b"loader-buffer%d" % i)
+        exp = ss.loader_expect
+        if tag == "initialize":
+            genesis[buf] = acct_encode(10**6, ldr, data=bytes(bl.BUFFER_META_SIZE + room))
+            p = _program_txn(lpayer, ldr, [buf, a], _ix(0), bh)
+            exp[buf] = (10**6, ldr, False, bl.buffer_encode(a) + bytes(room))
+        elif tag == "write":
+            genesis[buf] = acct_encode(10**6, ldr, data=bl.buffer_encode(a) + bytes(room))
+            chunk = rng.bytes(32)
+            p = _program_txn(lpayer, ldr, [buf, a], _ix(1, (8).to_bytes(4, "little")
+                                                         + len(chunk).to_bytes(8, "little")
+                                                         + chunk), bh)
+            exp[buf] = (10**6, ldr, False, bl.buffer_encode(a) + bytes(8) + chunk
+                        + bytes(room - 8 - len(chunk)))
+        elif tag == "deploy":
+            prog = _keys(seed, b"loader-program%d" % i)
+            pd, _ = pda.find_program_address([prog], ldr)
+            genesis[buf] = acct_encode(10**6, ldr, data=bl.buffer_encode(a, elf))
+            genesis[prog] = acct_encode(10**6, ldr, data=bytes(bl.PROGRAM_SIZE))
+            p = _program_txn(lpayer, ldr, [a, pd, prog, buf, a],
+                             _ix(2, (len(elf) + room).to_bytes(8, "little")), bh)
+            exp[pd] = (0, ldr, False, bl.programdata_encode(slot, a, elf) + bytes(room))
+            exp[prog] = (10**6, ldr, True, bl.program_encode(pd))
+            exp[buf] = (0, ft.SYSTEM_PROGRAM, False, b"")
+        elif tag == "upgrade":
+            prog = _keys(seed, b"loader-program%d" % i)
+            pd, _ = pda.find_program_address([prog], ldr)
+            genesis[prog] = acct_encode(10**6, ldr, True, bl.program_encode(pd))
+            genesis[pd] = acct_encode(10**6, ldr, data=bl.programdata_encode(
+                SBPF_DEPLOY_SLOT, a, elf) + bytes(room))
+            genesis[buf] = acct_encode(10**6, ldr, data=bl.buffer_encode(a, new_elf))
+            p = _program_txn(lpayer, ldr, [pd, prog, buf, a, a], _ix(3), bh)
+            exp[pd] = (10**6, ldr, False, bl.programdata_encode(slot, a, new_elf)
+                       + bytes(len(elf) + room - len(new_elf)))
+            exp[buf] = (0, ft.SYSTEM_PROGRAM, False, b"")
+        elif tag == "set_authority":
+            new = _keys(seed, b"loader-new-authority%d" % i)
+            payload = rng.bytes(64)
+            genesis[buf] = acct_encode(10**6, ldr, data=bl.buffer_encode(a, payload))
+            p = _program_txn(lpayer, ldr, [buf, a, new], _ix(4), bh, readonly=(new,))
+            exp[buf] = (10**6, ldr, False, bl.buffer_encode(new, payload))
+        else:  # close
+            genesis[buf] = acct_encode(10**6, ldr, data=bl.buffer_encode(a, rng.bytes(64)))
+            p = _program_txn(lpayer, ldr, [buf, a, a], _ix(5), bh)
+            exp[buf] = (0, ft.SYSTEM_PROGRAM, False, b"")
+        add("loader", p, True)
+
+    stream = list(ss.kind)
+    ss.stream = [stream[i] for i in rng.permutation(len(stream))]
+    return ss
+
+
+def sbpf_bank_ctx(ss: SbpfStream, *, device=None):
+    """A BankCtx at ss.slot that lands `ss`: ss.genesis on the funk root and
+    the payers' blockhash registered with the status cache."""
+    from ..flamenco.blockstore import StatusCache
+    from ..runtime.bank import BankCtx
+
+    ctx = BankCtx(slot=ss.slot, status_cache=StatusCache(),
+                  blockhashes=(pool_blockhash(ss.seed),), device=device)
+    for pub, val in ss.genesis.items():
+        ctx.funk.rec_insert(None, pub, val)
+    return ctx

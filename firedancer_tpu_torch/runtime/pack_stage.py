@@ -210,6 +210,20 @@ class PackStage(Stage):
         self.metrics.inc("cu_consumed", cu)
         self.metrics.observe("mb_fill", len(chosen))
 
+    def stranded(self) -> bool:
+        """True when pack holds txns of which none can ever be scheduled:
+        it may schedule now, every bank is idle (so its last try scheduled
+        nothing), and no further block will open (there is no slot clock,
+        or its leader window has closed and the final block close is
+        done).  Waiting on the batching policy, on a bank, or on a slot
+        still to open is not this case."""
+        if not self.pack.pending_cnt() or any(self._bank_busy) or not self._ready_to_schedule():
+            return False
+        if self._clock is None:
+            return True
+        last = self._clock.last_slot()
+        return last is not None and self._clock_slot > last
+
     def flush(self) -> None:
         """Force remaining txns out (end of run); banks must keep draining
         their done feedback for this to terminate."""

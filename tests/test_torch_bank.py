@@ -6,11 +6,11 @@ insufficient funds, compute-budget instructions, an unknown program):
 the same BlockResult (bank hash, accounts delta, signature count, fees,
 every status, the waves) and the same committed funk values; the vote
 cases of tests/test_runtime.py (two votes on one account serialise into
-two waves; a forged vote is refused) the same way.  A stake txn and a v0
-txn over a missing lookup table get JAX's statuses and bank hashes; a
-program the port does not run yet (zk-elgamal, the upgradeable BPF loader)
-raises NotImplementedError.  Seal's K13 runs its plain version on the
-CPU."""
+two waves; a forged vote is refused) the same way.  A stake txn, a v0
+txn over a missing lookup table and txns naming upgradeable-loader
+programs get JAX's statuses and bank hashes; the program the port does
+not run yet (zk-elgamal) raises NotImplementedError.  Seal's K13 runs its
+plain version on the CPU."""
 
 import hashlib
 
@@ -25,7 +25,6 @@ from firedancer_tpu.pack import scheduler as jsched
 from firedancer_tpu.protocol import txn as jft
 from firedancer_tpu_torch.flamenco import agave_state as tast
 from firedancer_tpu_torch.flamenco import blockstore as tbs
-from firedancer_tpu_torch.flamenco import executor as tex
 from firedancer_tpu_torch.flamenco import runtime as trt
 from firedancer_tpu_torch.flamenco import vote_program as tvp
 from firedancer_tpu_torch.funk import Funk as TFunk
@@ -240,12 +239,14 @@ def test_vote_block_equals_jax(case):
 
 
 def test_unported_paths_raise_where_jax_runs_them():
-    """A durable-nonce txn (a stale blockhash behind AdvanceNonceAccount)
-    over a missing nonce account gets JAX's TXN_ERR_BLOCKHASH from the
-    port's durable-nonce gate, and a stale plain transfer gets the same; a
-    v0 transfer over a missing lookup table gets JAX's TXN_ERR_ACCT and
-    bank hash; a txn naming an upgradeable-loader program, which the JAX
-    runtime resolves, still raises NotImplementedError in the port."""
+    """Kept under its first name: every path it pinned is ported now.  A
+    durable-nonce txn (a stale blockhash behind AdvanceNonceAccount) over a
+    missing nonce account gets JAX's TXN_ERR_BLOCKHASH from the port's
+    durable-nonce gate, and a stale plain transfer gets the same; a v0
+    transfer over a missing lookup table gets JAX's TXN_ERR_ACCT and bank
+    hash; txns naming upgradeable-loader programs (one with no programdata,
+    one resolved, one deployed in this slot) get JAX's statuses, fees and
+    bank hash."""
     payer = pool_payers()[0]
     stale = hashlib.sha256(b"stale").digest()
     nonce_acct = hashlib.sha256(b"nonce").digest()
@@ -283,20 +284,44 @@ def test_unported_paths_raise_where_jax_runs_them():
         == [(r.status, r.fee) for r in jres.results] == [(trt.TXN_ERR_ACCT, 0)]
     assert tres.bank_hash == jres.bank_hash
     assert tfunk.rec_query(tres.xid, payer[1]) == jfunk.rec_query(jres.xid, payer[1])
-    # an executable program owned by the upgradeable loader: the JAX loader
-    # resolves its programdata, the port raises
-    prog = hashlib.sha256(b"upgradeable-prog").digest()
-    funk = TFunk()
-    funk.rec_insert(None, payer[1], trt.acct_build(10**9))
-    funk.rec_insert(None, prog, trt.acct_build(1, owner=tex.UPGRADEABLE_LOADER_PROGRAM,
-                                               executable=True))
-    msg = ft.message_build(
-        version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
-        readonly_unsigned_cnt=1, acct_addrs=[payer[1], prog], recent_blockhash=BH,
-        instrs=[ft.InstrSpec(program_id=1, accounts=b"", data=b"\x01")])
-    with pytest.raises(NotImplementedError, match="upgradeable BPF loader"):
-        trt.execute_block(funk, slot=SLOT, txns=[ft.txn_assemble([ref.sign(payer[0], msg)], msg)],
-                          device="cpu")
+    # executable programs owned by the upgradeable loader: one whose program
+    # account names no programdata, one resolved through its programdata
+    # (deployed before this slot; the program returns 0), one whose
+    # programdata was deployed in this very slot: both runtimes resolve the
+    # programdata at txn load and give the same statuses, fees, bank hash
+    # and accounts
+    from firedancer_tpu_torch.flamenco import bpf_loader as tbl
+    from firedancer_tpu_torch.models.workload import build_elf, ins
+    from firedancer_tpu_torch.protocol import pda as tpda
+
+    ldr = tbl.UPGRADEABLE_LOADER_PROGRAM
+    elf = build_elf(ins(0xB7, dst=0, imm=0) + ins(0x95))
+    progs = [hashlib.sha256(b"upgradeable-prog%d" % i).digest() for i in range(3)]
+    accts = {payer[1]: trt.acct_build(10**9),
+             progs[0]: trt.acct_build(1, owner=ldr, executable=True)}
+    for prog, deployed in zip(progs[1:], (SLOT - 1, SLOT)):
+        pd, _ = tpda.find_program_address([prog], ldr)
+        accts[prog] = trt.acct_build(1, data=tbl.program_encode(pd), owner=ldr, executable=True)
+        accts[pd] = trt.acct_build(1, data=tbl.programdata_encode(deployed, payer[1], elf),
+                                   owner=ldr)
+    txns = []
+    for prog in progs:
+        msg = ft.message_build(
+            version=ft.VLEGACY, signature_cnt=1, readonly_signed_cnt=0,
+            readonly_unsigned_cnt=1, acct_addrs=[payer[1], prog], recent_blockhash=BH,
+            instrs=[ft.InstrSpec(program_id=1, accounts=b"", data=b"\x01")])
+        txns.append(ft.txn_assemble([ref.sign(payer[0], msg)], msg))
+    out = []
+    for pkg_rt, funk_cls, kw in ((jrt, JFunk, {}), (trt, TFunk, {"device": "cpu"})):
+        funk = funk_cls()
+        for pub, val in accts.items():
+            funk.rec_insert(None, pub, val)
+        res = pkg_rt.execute_block(funk, slot=SLOT, txns=txns, **kw)
+        out.append((res.bank_hash, [(r.status, r.fee) for r in res.results],
+                    funk.rec_query(res.xid, payer[1])))
+    assert out[1] == out[0]
+    assert out[1][1] == [(trt.TXN_ERR_ACCT, 5000), (trt.TXN_SUCCESS, 5000),
+                         (trt.TXN_ERR_PROGRAM, 5000)]
 
 
 def _pack_stream() -> list[bytes]:
