@@ -182,8 +182,11 @@ script or when a phase fails):
               kernels from a torch.profiler trace (K13 alone; an empty
               trace fails too); with --parent, [K13-ab] and [K13-knobs] at
               N = 1,040, 2,048 and 65,536
-  17. leader  build_leader_pipeline (benchg -> verify -> dedup -> pack ->
-              bank x2 -> poh -> shred -> store) over 8,192 transfers (8
+  17. leader  build_leader_pipeline (benchg -> verify -> pack, dedup
+              fused into pack's native lane -> bank x2 -> poh -> shred ->
+              store; every leader phase takes that default lane, the
+              host libraries built with g++ in phase 2 beside the kernels'
+              nvcc) over 8,192 transfers (8
               payers, 1,024 destinations) at batch 1,024 and max_msg_len
               1,232, pack's pool 8,192 deep, then seal: every txn landed, the deshredded store bytes
               equal PoH's entries, replay_block reproduces the seal, K13
@@ -228,7 +231,9 @@ script or when a phase fails):
               chain ~800 k hashlib calls a slot), grace 100 ms: the window
               is driven until PoH closes it and the stream is sent (a 60 s
               wall cap fails the phase), then finish, seal and replay, three
-              times: (a) unfused, (b) fuse_poh_shred=True, (c) shed_keep=256.
+              four times: (a) unfused, (b) fuse_poh_shred=True, (c)
+              shed_keep=256, (d) as (a) on the Python pack lane
+              (native_pack=False: the dedup stage and PackStage).
               Each: sealed + missed = 16 with one sealed at least, ticks +
               skipped ticks = 64 x 16, 1 <= blocks_closed <= 16, landed +
               shed = the verified txns and none dropped, the deshredded
@@ -236,14 +241,17 @@ script or when a phase fails):
               seal and its statuses, every landed durable txn ok and every
               nonce advanced against the parent bank hash if its txn landed
               or kept if it was shed, K1 once per verify batch, K5 once or
-              twice per entry batch, K13 once; (a) and (b) shed nothing and
-              land all 256 durable txns, (b) lands (a)'s signatures, (c)
-              sheds. A missed slot is a measured value, not a failure.
-              [clock-leader], [clock-leader-fused], [clock-leader-shed]: slots
-              sealed and missed, skipped ticks, the seal lag's p50 and p99,
+              twice per entry batch, K13 once; (a), (b) and (d) shed nothing
+              and land all 256 durable txns, (b) and (d) land (a)'s
+              signatures, (c) sheds. A missed slot is a measured value, not
+              a failure. [clock-leader], [clock-leader-fused],
+              [clock-leader-shed], [clock-leader-python-pack]: slots sealed
+              and missed, skipped ticks, the seal lag's p50 and p99,
               blocks_closed, txns landed in the window and in the drain,
               txn/s to the store, the seal's and the replay's seconds, and
-              (-split) the host seconds per stage
+              (-split) the host seconds per stage; [pack-lanes]: pack's host
+              seconds (with dedup's on the Python lane) and txn/s to the
+              store of (a) and (d) side by side
   17f. program leader  17e (a)'s clocked leader over program_stream
               (PROGRAM_MIX: 4,096 v0 transfers whose destinations, phase
               17's 1,024, load through 16 lookup tables of 64 addresses,
@@ -296,6 +304,30 @@ script or when a phase fails):
               beside 17e (a)'s, the seal's seconds and rows, the replay's
               seconds, the launches of K1, K5 and K13; [sbpf-leader-split]:
               the host seconds per stage beside 17e (a)'s in the same call
+  17h. zk leader  17e (a)'s clocked leader, on the native pack lane, over
+              zk_stream (ZK_MIX: 6,000 of phase 17's transfers; 512
+              pubkey-validity and 512 zero-ciphertext verifies inline; 64
+              verifies from account data; 64 context-state creations, then
+              their 64 CloseContextStates; 8 u64, 4 u128 and 2 u256 range
+              verifies; 64 each of a tampered proof, a wrong-size
+              instruction, a close by the wrong authority and a u256 with no
+              CU request; 7,486 txns, one proof of each kind made by the
+              port's provers and reused, every zk txn but the last kind
+              behind a SetComputeUnitLimit, 64 payers of their own) over
+              zk_bank_ctx at slot 1: the stream's pack cost fits one block,
+              sealed + missed = 16, landed = verified = the stream and none
+              dropped, shed or rejected, the deshredded store bytes equal
+              PoH's entries, replay_block reproduces the seal and every
+              status, fee and CU, each kind's ok and failed counts as built,
+              every context state and close destination as built, K1 once
+              per verify batch, K5 once or twice per entry batch, K13 once.
+              [zk-leader]: the proofs' and the stream's seconds, slots
+              sealed and missed, the seal lag's p50 and p99, txns landed in
+              the window and in the drain, ok and failed by kind, txn/s to
+              the store beside 17e (a)'s, the banks' host seconds, the
+              seal's seconds and rows, the replay's seconds, the launches of
+              K1, K5 and K13; [zk-leader-split]: the host seconds per stage
+              beside 17e (a)'s in the same call
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -336,6 +368,7 @@ The script imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import os
@@ -486,6 +519,14 @@ PROGRAM_MIX = dict(n_v0=4096, n_legacy=3500, n_tables=16, table_len=64, n_stake_
 SBPF_MIX = dict(n_legacy=5040, n_counter=2048, n_hasher=512, n_vault=512, n_vault_rust=64,
                 n_fail=64, n_loader=16, n_counters=64, n_hashers=16, n_vaults=16, n_dests=1024,
                 n_sbpf_payers=64)
+# phase 17h: the zk leader's stream (models/workload.zk_stream): ~6,000 of
+# phase 17's transfers beside zk-elgamal proof verifies (both sigma kinds
+# inline and from accounts, context states created and closed, u64, u128 and
+# u256 range proofs) and the four typed failures; the clock and depth 17e's
+ZK_MIX = dict(n_legacy=6000, n_pubkey_validity=512, n_zero_ciphertext=512, n_from_account=64,
+              n_context=64, n_range_u64=8, n_range_u128=4, n_range_u256=2, n_fail=64,
+              n_dests=1024, n_zk_payers=64)
+HOST_LIBS = ("fd_tcache", "fd_pack")  # utils/hostbuild.py's libraries, built in phase 2
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
@@ -1321,6 +1362,9 @@ def main() -> int:
         program_stream,
         sbpf_bank_ctx,
         sbpf_stream,
+        zk_bank_ctx,
+        zk_proofs,
+        zk_stream,
         nonce_keys,
         nonce_transfers,
         nonsquare_encodings,
@@ -1357,7 +1401,7 @@ def main() -> int:
     from firedancer_tpu_torch.runtime.store import StoreStage
     from firedancer_tpu_torch.runtime.verify import encode_verified
     from firedancer_tpu_torch.utils.metrics import hist_quantile as tune_quantile
-    from firedancer_tpu_torch.utils import kbuild
+    from firedancer_tpu_torch.utils import hostbuild, kbuild
     from firedancer_tpu_torch.utils import sass as fsass
     from firedancer_tpu_torch.utils.platform import resolve_device
 
@@ -1397,10 +1441,15 @@ def main() -> int:
     mark("2")
     t0 = time.perf_counter()
     parent_build = start_parent_build(kbuild, PARENT) if PARENT else None
-    kbuild.build_all()
+    # the host libraries (pack's native lane and its tcache) build with g++
+    # beside the kernels' nvcc processes
+    with concurrent.futures.ThreadPoolExecutor(len(HOST_LIBS)) as pool_:
+        host_builds = [pool_.submit(hostbuild.build, n_) for n_ in HOST_LIBS]
+        kbuild.build_all()
+        host_paths = [f_.result() for f_ in host_builds]
     parent_fns = finish_parent_build(parent_build) if parent_build else None
     log(f"[build] {kbuild.kernel_names()} in {time.perf_counter() - t0:.1f} s"
-        f" ({kbuild.build_dir()})")
+        f" ({kbuild.build_dir()}); host libraries {host_paths}")
     kernels = []
 
     # -- 2b. the toolchain probes ------------------------------------------------
@@ -3028,7 +3077,7 @@ def main() -> int:
         closed = pack_m.get("blocks_closed")
         check(1 <= closed <= CLOCK_SLOTS, f"{tag}: blocks_closed {closed}")
         landed = sum(b.metrics.get("txn_exec") for b in pipe.banks)
-        verified = rep["dedup"].get("frags_out", 0)
+        verified = pipe.dedup_counts()[0]
         shed = pack_m.get("txn_shed")
         check(pack_m.get("txn_dropped") == 0 and landed + shed == verified == len(stream17e),
               f"{tag}: landed {landed} + shed {shed} != verified {verified} of {len(stream17e)},"
@@ -3098,6 +3147,19 @@ def main() -> int:
           "clock-leader-fused: landed signatures differ from the unfused run's")
     r17e_s = clock_leader("clock-leader-shed", shed_keep=CLOCK_SHED_KEEP)
     check(r17e_s["shed"] > 0, "clock-leader-shed: nothing shed")
+    # (d) 17e (a) on the Python pack lane (dedup + PackStage), beside the
+    # fused native lane every other leader phase takes
+    r17e_py = clock_leader("clock-leader-python-pack", native_pack=False)
+    check(r17e_py["shed"] == 0 and r17e_py["durable_ok"] == CLOCK_DURABLE
+          and r17e_py["sigs"] == r17e["sigs"],
+          "clock-leader-python-pack: landed signatures differ from the native lane's")
+    pack_lanes = {lane: (r_["split"].get("dedup", 0.0) + r_["split"]["pack"], r_["txn_s"])
+                  for lane, r_ in (("native", r17e), ("python", r17e_py))}
+    log(f"[pack-lanes] 17e (a) in one call: native lane (pack with dedup fused in) pack"
+        f" {pack_lanes['native'][0]:.4f} s host, {pack_lanes['native'][1]:.0f} txn/s to the"
+        f" store; python lane dedup {r17e_py['split'].get('dedup', 0.0):.4f} s + pack"
+        f" {r17e_py['split']['pack']:.4f} s = {pack_lanes['python'][0]:.4f} s host,"
+        f" {pack_lanes['python'][1]:.0f} txn/s to the store")
 
     # -- 17f. the program leader: v0 lookups, stake, config and the precompiles ----------------
     mark("17f")
@@ -3131,7 +3193,7 @@ def main() -> int:
           f"program leader: {sealed17f} slots sealed + {missed17f} missed != {CLOCK_SLOTS}")
     landed17f = sum(b.metrics.get("txn_exec") for b in pipe17f.banks)
     rejected17f = sum(b.metrics.get("txn_rejected") for b in pipe17f.banks)
-    verified17f = rep17f["dedup"].get("frags_out", 0)
+    verified17f = pipe17f.dedup_counts()[0]
     # every verified txn executed: landed, or a lookup that failed typed (no
     # fee, so never recorded)
     check(pack17f.get("txn_dropped") == pack17f.get("txn_shed") == 0
@@ -3253,7 +3315,7 @@ def main() -> int:
           f"sbpf leader: {sealed17g} slots sealed + {missed17g} missed != {CLOCK_SLOTS}")
     landed17g = sum(b.metrics.get("txn_exec") for b in pipe17g.banks)
     rejected17g = sum(b.metrics.get("txn_rejected") for b in pipe17g.banks)
-    verified17g = rep17g["dedup"].get("frags_out", 0)
+    verified17g = pipe17g.dedup_counts()[0]
     check(pack17g.get("txn_dropped") == pack17g.get("txn_shed") == rejected17g == 0
           and landed17g == verified17g == len(ss17g.stream),
           f"sbpf leader: landed {landed17g} + rejected {rejected17g} != verified {verified17g}"
@@ -3340,6 +3402,99 @@ def main() -> int:
         f" {json.dumps({k: round(v, 4) for k, v in sorted(split17g.items())})}; 17e (a) in this"
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
         f" counters {json.dumps(rep17g)}")
+
+    # -- 17h. the zk leader: zk-elgamal proof traffic on the native pack lane -----------------
+    mark("17h")
+    # who sends it: wallets and token programs using Token-2022's confidential
+    # transfers, which post these proofs, beside phase 17's transfers
+    t0 = time.perf_counter()
+    proofs17h = zk_proofs()
+    prove17h_s = time.perf_counter() - t0
+    zs17h = zk_stream(proofs=proofs17h, **ZK_MIX)
+    gen17h_s = time.perf_counter() - t0 - prove17h_s
+    kinds17h = {k: ok + bad for k, (ok, bad) in zs17h.expect.items()}
+    cost17h = sum(compute_cost(p_, ft.txn_parse(p_)).total for p_ in zs17h.stream)
+    check(cost17h <= MAX_COST_PER_BLOCK, f"zk leader: the stream costs {cost17h} CU")
+    clock17h = SlotClockCfg(slot_ms=CLOCK_SLOT_MS, slot0=zs17h.slot, ticks_per_slot=CLOCK_TICKS,
+                            n_slots=CLOCK_SLOTS, miss_grace_frac=CLOCK_GRACE)
+    pipe17h = build_leader_pipeline(zs17h.stream, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
+                                    bank_ctx=zk_bank_ctx(zs17h, device=dev), slot=zs17h.slot,
+                                    keep_entries=True, pack_depth=len(zs17h.stream),
+                                    slot_clock=clock17h)
+    check(pipe17h.dedup is None, "zk leader: not on the fused native pack lane")
+    run17h_s, window17h_s, in_window17h = drive_window(pipe17h, "zk-leader")
+    t0 = time.perf_counter()
+    seal17h = pipe17h.seal()
+    seal17h_s = time.perf_counter() - t0
+    launches17h = dict(kbuild.LAUNCHES)
+    rep17h = pipe17h.report()
+    poh17h, pack17h = pipe17h.poh.metrics, pipe17h.pack.metrics
+    sealed17h, missed17h = poh17h.get("slots_sealed"), poh17h.get("slot_missed")
+    check(sealed17h + missed17h == CLOCK_SLOTS and sealed17h >= 1,
+          f"zk leader: {sealed17h} slots sealed + {missed17h} missed != {CLOCK_SLOTS}")
+    landed17h = sum(b.metrics.get("txn_exec") for b in pipe17h.banks)
+    rejected17h = sum(b.metrics.get("txn_rejected") for b in pipe17h.banks)
+    verified17h = pipe17h.dedup_counts()[0]
+    check(pack17h.get("txn_dropped") == pack17h.get("txn_shed") == rejected17h == 0
+          and landed17h == verified17h == len(zs17h.stream),
+          f"zk leader: landed {landed17h} + rejected {rejected17h} != verified {verified17h}"
+          f" of {len(zs17h.stream)}, dropped {pack17h.get('txn_dropped')}, shed"
+          f" {pack17h.get('txn_shed')}")
+    ents17h = [parse_entry(x) for x in
+               deshred_entry_batch(pipe17h.store.entry_batch_bytes(zs17h.slot))]
+    check(ents17h == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe17h.poh.entries],
+          "zk leader: deshredded store bytes != PoH's entries")
+    block17h = [p_ for _, _, txs in ents17h for p_ in txs]
+    fund17h = zk_bank_ctx(zs17h, device=dev)
+    t0 = time.perf_counter()
+    rp17h = replay_block(fund17h.funk, slot=zs17h.slot, entries=ents17h, poh_seed=b"\x00" * 32,
+                         status_cache=fund17h.status_cache, device=dev)
+    replay17h_s = time.perf_counter() - t0
+    check(rp17h is not None and rp17h.bank_hash == seal17h.bank_hash
+          and np.array_equal(rp17h.accounts_delta, seal17h.accounts_delta)
+          and rp17h.signature_cnt == seal17h.signature_cnt
+          and sorted((r.status, r.fee, r.cu) for r in rp17h.results)
+          == sorted((r.status, r.fee, r.cu) for r in seal17h.results),
+          "zk leader: replay_block does not reproduce the seal and every status, fee and CU")
+    got17h = {}
+    for p_, r_ in zip(block17h, rp17h.results):
+        k_ = zs17h.kind[p_]
+        check((r_.status == 0) == (p_ not in zs17h.bad) and r_.fee > 0,
+              f"zk leader: a {k_} txn got status {r_.status}, fee {r_.fee}")
+        ok_, bad_ = got17h.get(k_, (0, 0))
+        got17h[k_] = (ok_ + (r_.status == 0), bad_ + (r_.status != 0))
+    check(got17h == zs17h.expect, f"zk leader: ok/failed by kind {got17h} != {zs17h.expect}")
+    sx17h = pipe17h.bank_ctx.sx
+    check(all(acct_decode(sx17h.funk.rec_query(sx17h.xid, a_)) == v_
+              for a_, v_ in zs17h.accounts_expect.items()),
+          "zk leader: a context state or a close's destination is not as built")
+    nb17h = pipe17h.shred.metrics.get("entry_batches")
+    check(launches17h.get("verify_batch", 0) == rep17h["verify0"]["batches"] > 0,
+          f"zk leader: K1 launches {launches17h} != batches {rep17h['verify0']['batches']}")
+    check(nb17h <= launches17h.get("gf256_apply", 0) <= 2 * nb17h,
+          f"zk leader: K5 launches {launches17h.get('gf256_apply', 0)} for {nb17h} batches")
+    check(launches17h.get("lthash_combine", 0) == 1, f"zk leader: K13 launches {launches17h}")
+    lag17h = poh17h.hist("slot_seal_lag_ns")
+    lag17h50, lag17h99 = (tune_quantile(lag17h, q) / 1e6 for q in (0.5, 0.99))
+    split17h = dict(pipe17h.stage_s)
+    banks17h_s = sum(split17h.get(b.name, 0.0) for b in pipe17h.banks)
+    log(f"[zk-leader] {len(zs17h.stream)} txns {json.dumps(kinds17h)} (proofs made in"
+        f" {prove17h_s:.3f} s, the stream in {gen17h_s:.3f} s; pack cost {cost17h} CU) at batch"
+        f" {B1}, 2 banks, {CLOCK_SLOTS} slots of {CLOCK_SLOT_MS:.0f} ms, {CLOCK_TICKS} ticks a"
+        f" slot, slot {zs17h.slot}, the native pack lane: slots sealed {sealed17h}, missed"
+        f" {missed17h}; seal lag p50 {lag17h50:.3f} ms, p99 {lag17h99:.3f} ms (upper bucket"
+        f" edges); landed {landed17h} ({in_window17h} in the window, {landed17h - in_window17h}"
+        f" in the drain; window closed at {window17h_s:.3f} s); ok/failed by kind"
+        f" {json.dumps(got17h)}; run {run17h_s:.3f} s = {landed17h / run17h_s:.0f} txn/s to the"
+        f" store (17e (a): {r17e['txn_s']:.0f}); banks {banks17h_s:.3f} s host; seal"
+        f" {seal17h_s:.3f} s ({sx17h.seal_rows} rows, bank hash {seal17h.bank_hash.hex()});"
+        f" replay reproduces the seal in {replay17h_s:.3f} s; launches K1"
+        f" {launches17h.get('verify_batch', 0)}, K5 {launches17h.get('gf256_apply', 0)}, K13"
+        f" {launches17h.get('lthash_combine', 0)} ({launches17h})")
+    log(f"[zk-leader-split] host seconds"
+        f" {json.dumps({k: round(v, 4) for k, v in sorted(split17h.items())})}; 17e (a) in this"
+        f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
+        f" counters {json.dumps(rep17h)}")
 
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
@@ -3710,6 +3865,7 @@ def main() -> int:
                                  "clock_leader_pipeline": launches17e.get(k["name"], 0),
                                  "program_leader_pipeline": launches17f.get(k["name"], 0),
                                  "sbpf_leader_pipeline": launches17g.get(k["name"], 0),
+                                 "zk_leader_pipeline": launches17h.get(k["name"], 0),
                                  "bmtree_root_build": launches18.get(k["name"], 0),
                                  OPS_API: ops_api.get(k["name"], 0)}
     for nm in SPLIT:

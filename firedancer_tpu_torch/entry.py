@@ -93,12 +93,13 @@ def leader_step(device=None, n_devices: int | None = None) -> dict:
 def leader_block(stream: list[bytes], *, device=None, shards: int = 0,
                  batch: int = 1024, max_msg_len: int = 1232, n_bank: int = 2,
                  hashes_per_tick: int = 64, slot: int = 1,
-                 pack_depth: int = 4096) -> dict:
-    """Produce one slot's block from `stream`: benchg -> verify -> dedup ->
-    pack -> bank x n_bank -> poh -> shred -> store, then seal (with shards
-    > 0, the verify stage, the PoH spans of hashes_per_tick hashes and the
-    parity ride a serving plane over that many devices; pack_depth bounds
-    pack's pending pool).
+                 pack_depth: int = 4096, native_pack: bool = True) -> dict:
+    """Produce one slot's block from `stream`: benchg -> verify -> pack ->
+    bank x n_bank -> poh -> shred -> store, then seal (with shards > 0, the
+    verify stage, the PoH spans of hashes_per_tick hashes and the parity
+    ride a serving plane over that many devices; pack_depth bounds pack's
+    pending pool; native_pack=False puts dedup and the Python pack where the
+    fused native pack lane is).
     Returns the stage counters, the store's set count and a sha256 of its
     entry-batch bytes, the bank hash, txn/s to the store (txns landed over
     the run's host seconds, seal excluded) and the host seconds per
@@ -112,14 +113,14 @@ def leader_block(stream: list[bytes], *, device=None, shards: int = 0,
         pipe = build_sharded_leader_pipeline(
             stream, n_shards=shards, device=device, batch_per_shard=batch,
             max_msg_len=max_msg_len, n_bank=n_bank, hashes_per_tick=hashes_per_tick,
-            slot=slot, pack_depth=pack_depth)
+            slot=slot, pack_depth=pack_depth, native_pack=native_pack)
         # build and load the kernels before the slot, as a leader warms its
         # plane before its leader window
         warmup_s = pipe.plane.warmup()
     else:
         pipe = build_leader_pipeline(stream, device=resolve_device(device), batch=batch,
                                      max_msg_len=max_msg_len, n_bank=n_bank, slot=slot,
-                                     pack_depth=pack_depth)
+                                     pack_depth=pack_depth, native_pack=native_pack)
         warmup_s = None
     dev = pipe.bank_ctx.device
     t0 = time.perf_counter()

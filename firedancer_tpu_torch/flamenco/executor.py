@@ -9,8 +9,9 @@ instruction.  Each instruction resolves to either
     (flamenco/vote_program.py), the stake program (flamenco/stake.py),
     the config program (flamenco/config_program.py), the address lookup
     table program (flamenco/alt.py), the ed25519 and secp256k1
-    precompiles (flamenco/precompiles.py) and the upgradeable BPF loader
-    (flamenco/bpf_loader.py); the builtin's fixed CU cost is charged up
+    precompiles (flamenco/precompiles.py), the upgradeable BPF loader
+    (flamenco/bpf_loader.py) and the zk-elgamal proof program
+    (flamenco/zk_elgamal.py); the builtin's fixed CU cost is charged up
     front; or
   - an sBPF program: a loader-v2 account holds the ELF itself, an
     upgradeable one points at its programdata (resolved at txn load by
@@ -29,10 +30,6 @@ executor: the callee instruction is read out of VM memory, PDA signer
 seeds are resolved against the caller's program id (protocol/pda.py),
 privilege escalation is rejected, and on return the caller's serialized
 view of every shared account is refreshed.
-
-The zk-elgamal proof program is not ported yet: invoking it raises
-NotImplementedError naming it, at the point where the JAX executor runs
-it, so a txn never gets a status the JAX package would not give it.
 
 Account encoding in funk record values: `u64 lamports | 32B owner |
 u8 executable | data`.
@@ -58,16 +55,7 @@ MAX_CPI_INSTRUCTION_ACCOUNTS = 255  # u8::MAX: metas may duplicate txn accounts
 BPF_LOADER_PROGRAM = _b58d("BPFLoader2111111111111111111111111111111111")
 UPGRADEABLE_LOADER_PROGRAM = _b58d("BPFLoaderUpgradeab1e11111111111111111111111")
 
-# the programs the JAX executor registers that the port does not run yet
-UNPORTED_PROGRAMS = {
-    _b58d("ZkE1Gama1Proof11111111111111111111111111111"): "the zk-elgamal proof program",
-}
-
 ACCT_HDR = 8 + 32 + 1  # lamports | owner | executable
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to firedancer_tpu_torch yet")
 
 
 def acct_encode(lamports: int, owner: bytes = SYSTEM_PROGRAM,
@@ -173,7 +161,16 @@ class Executor:
     """Program registry + instruction dispatch."""
 
     def __init__(self):
-        from . import alt, bpf_loader, config_program, precompiles, programs, stake, vote_program
+        from . import (
+            alt,
+            bpf_loader,
+            config_program,
+            precompiles,
+            programs,
+            stake,
+            vote_program,
+            zk_elgamal,
+        )
 
         self.native = {
             SYSTEM_PROGRAM: programs.system_program,
@@ -185,6 +182,7 @@ class Executor:
             alt.ALT_PROGRAM: alt.alt_program,
             COMPUTE_BUDGET_PROGRAM: programs.compute_budget_program,
             UPGRADEABLE_LOADER_PROGRAM: bpf_loader.upgradeable_loader_program,
+            zk_elgamal.ZK_ELGAMAL_PROOF_PROGRAM: zk_elgamal.zk_elgamal_program,
         }
 
     def register(self, program_id: bytes, fn) -> None:
@@ -212,8 +210,6 @@ class Executor:
                 ctx.charge(BUILTIN_COST.get(program_id, 0))
                 fn(self, ctx, program_id, iaccts, data,
                    pda_signers=pda_signers)
-            elif program_id in UNPORTED_PROGRAMS:
-                raise not_ported(UNPORTED_PROGRAMS[program_id])
             else:
                 prog_idx = ctx.index_of(program_id)
                 if prog_idx is None:

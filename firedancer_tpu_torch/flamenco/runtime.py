@@ -17,9 +17,8 @@ lookups resolve against the start-of-slot view (flamenco/alt.py) before
 the waves; a lookup that does not resolve fails the txn typed
 (TXN_ERR_ACCT, no fee).  Upgradeable programs' programdata resolves at
 txn load from the working fork, so an Upgrade earlier in the block is
-seen (and the deploy-slot rule then fails the invocation typed).  What
-the port does not run yet raises NotImplementedError
-(flamenco/executor.py): the zk-elgamal proof program.  A stale blockhash passes only as a durable-nonce txn
+seen (and the deploy-slot rule then fails the invocation typed).  A
+stale blockhash passes only as a durable-nonce txn
 (flamenco/nonce.py); its nonce advances against the parent bank hash,
 also when the txn fails with its fee charged.  The JAX package's native
 executor lanes (exec_native, the bank sweep) are not ported.

@@ -4,7 +4,8 @@ firedancer_tpu/flamenco/vm.py).
 Eleven 64-bit registers, a compute budget charged per instruction, and a
 segmented virtual address space:
 
-    0x1_0000_0000  program rodata     (read-only)
+    0x1_0000_0000  program rodata     (read-only; the loader's image,
+                                       shared, its .bss tail never allocated)
     0x2_0000_0000  stack              (read-write)
     0x3_0000_0000  heap               (read-write)
     0x4_0000_0000  input (accounts)   (read-write)
@@ -64,7 +65,7 @@ class VmBudget(VmError):
 @dataclass
 class Region:
     start: int
-    data: bytearray
+    data: bytearray | sbpf.Image  # the program region reads the image itself
     writable: bool
 
 
@@ -82,7 +83,7 @@ class Vm:
         self.cu_used = 0
         self.insns = {i.pc: i for i in sbpf.decode(self.program.text())}
         self.regions = [
-            Region(MM_PROGRAM, bytearray(self.program.rodata), False),
+            Region(MM_PROGRAM, self.program.rodata, False),
             Region(MM_STACK, bytearray(STACK_SZ), True),
             Region(MM_HEAP, bytearray(self.heap_size), True),
             Region(MM_INPUT, bytearray(self.input_data), True),

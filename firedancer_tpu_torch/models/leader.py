@@ -2,12 +2,17 @@
 firedancer_tpu/models/leader.py):
 
     benchg -> verify (sigverify kernel on the card; with comb_slots > 0,
-              repeat signers through the comb bank) -> dedup -> pack
-           -> bank xB -> poh -> shred (parity on the card) -> store
+              repeat signers through the comb bank) -> pack (dedup fused
+              in) -> bank xB -> poh -> shred (parity on the card) -> store
     benchg -> router -> per-shard links -> sharded verify (the plane's
-              step: K1, plus K4 on parked PoH spans) -> dedup -> pack
-           -> bank xB -> poh (parks tick spans on the plane) -> shred
+              step: K1, plus K4 on parked PoH spans) -> pack (dedup fused
+              in) -> bank xB -> poh (parks tick spans on the plane) -> shred
               (parity through the plane) -> store
+
+Pack is the fused native lane by default (native_pack=True:
+runtime/pack_stage.NativePackStage, the lane the JAX leader resolves to on
+a host with a compiler); native_pack=False puts the dedup stage and the
+Python PackStage there instead.
 
 `build_leader_pipeline` and `build_sharded_leader_pipeline` produce a
 block: pack schedules, the banks execute and commit into one shared bank
@@ -34,7 +39,7 @@ from ..ops.ref import ed25519_ref as ref
 from ..runtime.bank import BankCtx, BankStage, default_bank_ctx
 from ..runtime.benchg import BenchGStage
 from ..runtime.dedup import DedupStage
-from ..runtime.pack_stage import PackStage
+from ..runtime.pack_stage import NativePackStage, PackStage
 from ..runtime.poh_stage import PohStage
 from ..runtime.shred_stage import FusedPohShredStage, ShredStage
 from ..runtime.slot_clock import SlotClockCfg
@@ -204,7 +209,7 @@ class LeaderPipeline:
     links: list
     benchg: BenchGStage
     verifies: list
-    dedup: DedupStage
+    dedup: DedupStage | None  # None on the fused native lane
     pack: PackStage
     banks: list
     poh: PohStage
@@ -291,15 +296,16 @@ class LeaderPipeline:
             self._timed(self.pack.name, self.pack.after_credit)
             if progressed:
                 continue
-            if not self.pack.pack.pending_cnt():
+            if not self.pack._pending_cnt():
                 break
             if self.pack.stranded():
                 pk = self.pack.pack
                 lim = pk.limits
+                cost_used, _, data_bytes_used = pk.block_state()
                 raise RuntimeError(
                     f"leader drain: pack holds {pk.pending_cnt()} txns that no block can take"
-                    f" ({lim.max_cost_per_block - pk.cost_used} of {lim.max_cost_per_block} CU"
-                    f" and {lim.max_data_bytes_per_block - pk.data_bytes_used} data bytes left"
+                    f" ({lim.max_cost_per_block - cost_used} of {lim.max_cost_per_block} CU"
+                    f" and {lim.max_data_bytes_per_block - data_bytes_used} data bytes left"
                     f" in the block, no further block in the"
                     f" {'leader window' if self.pack._clock else 'run'})")
 
@@ -317,6 +323,16 @@ class LeaderPipeline:
     def close(self) -> None:
         """In-process links hold no shared memory: nothing to tear down."""
 
+    def dedup_counts(self) -> tuple[int, int]:
+        """(txns past dedup, duplicates dropped), on either pack lane: the
+        dedup stage's forwards and drops, or on the fused native lane, pack's
+        intake (every frag it took but the duplicates)."""
+        if self.dedup is not None:
+            m = self.dedup.metrics
+            return m.get("frags_out"), m.get("dedup_dup")
+        m = self.pack.metrics
+        return m.get("txn_in") + m.get("txn_dropped") + m.get("bad_frag"), m.get("dedup_dup")
+
     def report(self) -> dict:
         return {s.name: dict(s.metrics.counters) for s in self.stages}
 
@@ -326,25 +342,34 @@ def _leader_tail(*, upstream_out: Link, links: list, n_bank: int, slot: int,
                  keep_entries: bool, keep_sets: bool, pack_depth: int,
                  hashes_per_tick: int = 64, plane=None, slot_clock=None,
                  shed_keep: int | None = None,
-                 fuse_poh_shred: bool = False) -> tuple[Link, dict]:
-    """dedup -> pack -> bank xB -> poh -> shred -> store, fed by
+                 fuse_poh_shred: bool = False,
+                 native_pack: bool = True) -> tuple[Link | None, dict]:
+    """[dedup ->] pack -> bank xB -> poh -> shred -> store, fed by
     `upstream_out` (the verify stage's output link): (the dedup->pack link,
-    the stages and the bank).  slot_clock (anchored by the caller) goes to
-    pack, every bank and PoH; fuse_poh_shred puts the fused stage where
-    PoH and shred were, with no poh->shred link."""
-    dedup_pack = Link("dedup_pack", LINK_DEPTH)
+    None on the native lane; the stages and the bank).  slot_clock
+    (anchored by the caller) goes to pack, every bank and PoH;
+    fuse_poh_shred puts the fused stage where PoH and shred were, with no
+    poh->shred link; native_pack picks the fused native pack lane, which
+    reads `upstream_out` itself, over dedup and the Python pack."""
     pack_bank = [Link(f"pack_bank{b}", LINK_DEPTH) for b in range(n_bank)]
     bank_poh = [Link(f"bank_poh{b}", LINK_DEPTH) for b in range(n_bank)]
     bank_done = [Link(f"bank_done{b}", LINK_DEPTH) for b in range(n_bank)]
     poh_shred = None if fuse_poh_shred else Link("poh_shred", LINK_DEPTH)
     shred_store = Link("shred_store", LINK_DEPTH)
-    links += [dedup_pack, *pack_bank, *bank_poh, *bank_done]
+    links += [*pack_bank, *bank_poh, *bank_done]
     links += ([] if fuse_poh_shred else [poh_shred]) + [shred_store]
     secret = hashlib.sha256(leader_seed).digest()
-    dedup = DedupStage("dedup", [Consumer(upstream_out)], [Producer(dedup_pack)])
-    pack = PackStage("pack", [Consumer(dedup_pack)] + [Consumer(l) for l in bank_done],
-                     [Producer(l) for l in pack_bank], bank_cnt=n_bank, depth=pack_depth,
-                     clock=slot_clock, shed_keep=shed_keep)
+    if native_pack:
+        dedup = dedup_pack = None
+        pack_in, pack_cls = upstream_out, NativePackStage
+    else:
+        dedup_pack = Link("dedup_pack", LINK_DEPTH)
+        links.append(dedup_pack)
+        dedup = DedupStage("dedup", [Consumer(upstream_out)], [Producer(dedup_pack)])
+        pack_in, pack_cls = dedup_pack, PackStage
+    pack = pack_cls("pack", [Consumer(pack_in)] + [Consumer(l) for l in bank_done],
+                    [Producer(l) for l in pack_bank], bank_cnt=n_bank, depth=pack_depth,
+                    clock=slot_clock, shed_keep=shed_keep)
     # ONE live bank shared by every bank stage (all bank tiles commit into
     # the same bank)
     if bank_ctx is None:
@@ -383,8 +408,8 @@ def _leader_tail(*, upstream_out: Link, links: list, n_bank: int, slot: int,
 
 def _tail_stages(t: dict) -> list:
     fused = isinstance(t["poh"], FusedPohShredStage)
-    return ([t["dedup"], t["pack"], *t["banks"], t["poh"]]
-            + ([] if fused else [t["shred"]]) + [t["store"]])
+    return ([t["dedup"]] if t["dedup"] else []) + (
+        [t["pack"], *t["banks"], t["poh"]] + ([] if fused else [t["shred"]]) + [t["store"]])
 
 
 def build_leader_pipeline(
@@ -405,9 +430,10 @@ def build_leader_pipeline(
     slot_clock=None,
     shed_keep: int | None = None,
     fuse_poh_shred: bool = False,
+    native_pack: bool = True,
 ) -> LeaderPipeline:
-    """benchg -> verify xN -> dedup -> pack -> bank xB -> poh -> shred ->
-    store over `stream` (sent once, in order).  Every device stage runs on
+    """benchg -> verify xN -> pack -> bank xB -> poh -> shred -> store over
+    `stream` (sent once, in order).  Every device stage runs on
     `device` (default the card; "cpu" runs the plain versions): verify's
     K1, the shredder's and the store's K5, seal's K13.  With n_verify > 1
     a router deals the frags round-robin by sequence onto one link per
@@ -417,6 +443,9 @@ def build_leader_pipeline(
     shredder's FecSets.  pack_depth bounds pack's pending pool: when it is
     full, a newcomer evicts the lowest-priority pending txn only if it
     pays more per cost unit, else it is dropped (txn_dropped).
+    native_pack=True (the default) is the fused native pack lane, with
+    dedup inside pack and `dedup` None; False puts the dedup stage and the
+    Python pack there.  Either lane's library build failing raises.
 
     slot_clock (runtime/slot_clock.SlotClockCfg, anchored here once, or a
     built SlotClock, passed through as is) runs the pipeline against the
@@ -455,8 +484,9 @@ def build_leader_pipeline(
                      leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
                      keep_entries=keep_entries, keep_sets=keep_sets,
                      pack_depth=pack_depth, slot_clock=slot_clock, shed_keep=shed_keep,
-                     fuse_poh_shred=fuse_poh_shred)
-    upstream.append(dedup_pack)
+                     fuse_poh_shred=fuse_poh_shred, native_pack=native_pack)
+    if dedup_pack is not None:
+        upstream.append(dedup_pack)
     stages = [benchg] + ([router] if router else []) + verifies + _tail_stages(t)
     return LeaderPipeline(stages=stages, links=links, benchg=benchg,
                           verifies=verifies, upstream=upstream, router=router, **t)
@@ -478,12 +508,13 @@ def build_sharded_leader_pipeline(
     keep_entries: bool = False,
     pack_depth: int = 4096,
     device=None,
+    native_pack: bool = True,
     **plane_cfg,
 ) -> LeaderPipeline:
     """The sharded serving pipeline, producing a block:
 
         benchg -> router -> sv{i} -> sharded verify (ONE plane step per
-               batch) -> dedup -> pack -> bank xB -> poh -> shred -> store
+               batch) -> pack -> bank xB -> poh -> shred -> store
 
     The PoH stage parks its full-tick spans on the same plane (K4 re-checks
     them on the next step, or at finish), and the shredder's parity goes
@@ -491,7 +522,7 @@ def build_sharded_leader_pipeline(
     warmed) ServePlane; None builds one for n_shards devices on `device`
     with poh_iters = hashes_per_tick, so tick spans match the plane's span
     length, and the remaining ServeConfig fields from plane_cfg.
-    pack_depth as in build_leader_pipeline."""
+    pack_depth and native_pack as in build_leader_pipeline."""
     from ..parallel.router import ShardRouterStage
     from ..parallel.serve import ServeConfig, ServePlane, ShardedVerifyStage
 
@@ -520,8 +551,9 @@ def build_sharded_leader_pipeline(
                      leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
                      keep_entries=keep_entries, keep_sets=True,
                      hashes_per_tick=hashes_per_tick, pack_depth=pack_depth,
-                     plane=plane)
-    upstream.append(dedup_pack)
+                     plane=plane, native_pack=native_pack)
+    if dedup_pack is not None:
+        upstream.append(dedup_pack)
     stages = [benchg, router, verify] + _tail_stages(t)
     return LeaderPipeline(stages=stages, links=links, benchg=benchg, verifies=[verify],
                           upstream=upstream, router=router, plane=plane, **t)

@@ -492,10 +492,12 @@ def _keyed(seed: bytes, tag: bytes) -> tuple[bytes, bytes]:
 
 def _program_txn(signer: tuple[bytes, bytes], program: bytes, ix_accts: list[bytes],
                  data: bytes, blockhash: bytes, *, readonly: tuple = (),
-                 cu_limit: int | None = None) -> bytes:
+                 cu_limit: int | None = None, cu_price: int | None = None) -> bytes:
     """A legacy txn paid and signed by `signer` with one instruction to
     `program`, its other accounts writable unless named in `readonly`;
-    behind a SetComputeUnitLimit instruction when cu_limit is given."""
+    behind a SetComputeUnitLimit instruction when cu_limit is given (and a
+    SetComputeUnitPrice of cu_price micro-lamports a CU after it, when
+    given too)."""
     from ..pack.cost import COMPUTE_BUDGET_PROGRAM
 
     secret, pub = signer
@@ -506,6 +508,9 @@ def _program_txn(signer: tuple[bytes, bytes], program: bytes, ix_accts: list[byt
     instrs = [ft.InstrSpec(program_id=len(addrs) - 1, accounts=b"",
                            data=bytes([2]) + cu_limit.to_bytes(4, "little"))
               ] if cu_limit is not None else []
+    if cu_limit is not None and cu_price is not None:
+        instrs.append(ft.InstrSpec(program_id=len(addrs) - 1, accounts=b"",
+                                   data=bytes([3]) + cu_price.to_bytes(8, "little")))
     instrs.append(ft.InstrSpec(program_id=addrs.index(program),
                                accounts=bytes(addrs.index(a) for a in ix_accts), data=data))
     msg = ft.message_build(
@@ -1227,5 +1232,222 @@ def sbpf_bank_ctx(ss: SbpfStream, *, device=None):
     ctx = BankCtx(slot=ss.slot, status_cache=StatusCache(),
                   blockhashes=(pool_blockhash(ss.seed),), device=device)
     for pub, val in ss.genesis.items():
+        ctx.funk.rec_insert(None, pub, val)
+    return ctx
+
+
+# -- zk-elgamal proof traffic ---------------------------------------------------------------
+
+ZK_SLOT = 1
+# each zk txn's SetComputeUnitLimit: its instruction's charge
+# (zk_elgamal.INSTR_COMPUTE_UNITS) plus this, which covers the compute-budget
+# instruction's own 150; pack does not price the zk program as a builtin, so
+# a zk txn with no request costs 200,000 CU a zk instruction in pack
+ZK_CU_MARGIN = 1000
+# the creations' SetComputeUnitPrice (micro-lamports a CU): each creation
+# ranks above its own close in pack's order (both write the context account)
+ZK_CREATE_CU_PRICE = 1_000_000
+ZK_STATE_LAMPORTS = 10**6   # each context-state account
+
+
+@dataclass
+class ZkStream:
+    stream: list    # frames in send order
+    kind: dict      # payload -> "legacy", "pubkey_validity", "zero_ciphertext",
+    #                 "from_account", "context_create", "context_close", "range_u64",
+    #                 "range_u128", "range_u256", "tampered", "wrong_size",
+    #                 "wrong_authority" or "no_cu_request"
+    bad: set        # payloads built to fail typed (fee charged)
+    expect: dict    # kind -> (txns that must land ok, txns that must fail)
+    accounts_expect: dict  # pubkey -> (lamports, owner, executable, data) once all land
+    genesis: dict   # pubkey -> account value, the fee payers included
+    slot: int
+    seed: bytes     # the legacy payers' benchg seed (payers, blockhash)
+
+
+def zk_proofs(seed: bytes = b"zk") -> dict:
+    """One proof of each kind the zk stream sends, made with the port's own
+    provers (sigma.prove_pubkey_validity, sigma.prove_zero_ciphertext,
+    rangeproof.prove_range): {kind: (tag, context, proof)}, kinds
+    "pubkey_validity", "zero_ciphertext", "range_u64", "range_u128" and
+    "range_u256" (commitments of 64 bits each, one, two and four of
+    them)."""
+    from ..flamenco.zksdk import elgamal as eg
+    from ..flamenco.zksdk import rangeproof as rp
+    from ..flamenco.zksdk import sigma
+    from ..flamenco.zksdk.merlin import Transcript
+
+    def scalar(tag: bytes) -> int:
+        return int.from_bytes(hashlib.sha512(seed + tag).digest(), "little") % L
+
+    s, pub = eg.keygen(seed + b"key")
+    out = {"pubkey_validity": (4, pub, sigma.prove_pubkey_validity(s, pub, seed + b"pkv"))}
+    ct = eg.encrypt(pub, 0, scalar(b"zero-r"))
+    out["zero_ciphertext"] = (1, pub + ct, sigma.prove_zero_ciphertext(s, pub, ct, seed + b"zc"))
+    for kind, tag, n in (("range_u64", 6, 1), ("range_u128", 7, 2), ("range_u256", 8, 4)):
+        amounts = [int.from_bytes(hashlib.sha256(seed + b"amt%d/%d" % (n, j)).digest()[:8],
+                                  "little") for j in range(n)]
+        blinds = [scalar(b"blind%d/%d" % (n, j)) for j in range(n)]
+        comms = b"".join(eg.commit(a, r) for a, r in zip(amounts, blinds)).ljust(8 * 32, b"\0")
+        context = comms + bytes([64] * n).ljust(8, b"\0")
+        t = Transcript(b"batched-range-proof-instruction")
+        t.append_message(b"commitments", context[: 8 * 32])
+        t.append_message(b"bit-lengths", context[8 * 32 :])
+        proof = rp.prove_range(amounts, blinds, [64] * n, t, seed + kind.encode())
+        out[kind] = (tag, context, proof)
+    return out
+
+
+def zk_stream(*, n_legacy: int = 6000, n_pubkey_validity: int = 512, n_zero_ciphertext: int = 512,
+              n_from_account: int = 64, n_context: int = 64, n_range_u64: int = 8,
+              n_range_u128: int = 4, n_range_u256: int = 2, n_fail: int = 64,
+              n_holders: int = 8, n_dests: int = 1024, n_zk_payers: int = 64, seed: bytes = b"zk",
+              payer_seed: bytes = b"benchg", n_payers: int = 8, slot: int = ZK_SLOT,
+              proofs: dict | None = None) -> ZkStream:
+    """A leader's zk-elgamal proof traffic (what wallets and token programs
+    post for Token-2022's confidential transfers), seeded and shuffled, with
+    the genesis that lands it:
+
+      - n_legacy of benchg's transfers over n_dests destinations;
+      - n_pubkey_validity and n_zero_ciphertext verifies inline;
+      - n_from_account verifies whose proof data an account holds at a u32
+        offset (n_holders accounts, both sigma kinds);
+      - n_context context-state creations (a verify that writes its context
+        into a program-owned account, the payer its authority), and their
+        n_context CloseContextStates, sent after every other txn, to a
+        destination of their own;
+      - n_range_u64 and n_range_u128 range verifies inline, and n_range_u256
+        from an account (its instruction would pass the txn MTU inline);
+      - n_fail of each typed failure: a tampered proof, an instruction of the
+        wrong size, a CloseContextState signed by another than the context's
+        authority, and a u256 range verify with no CU request (its 368,000
+        CU charge passes the default 200,000 budget).
+
+    One proof of each kind (zk_proofs, or `proofs`) serves every txn of its
+    kind; the txns differ in payer (n_zk_payers of their own) and CU limit.
+    Every zk txn but the no-request failures carries a SetComputeUnitLimit
+    of its charge plus ZK_CU_MARGIN plus its serial number, and every
+    creation a priority fee (ZK_CREATE_CU_PRICE), so that pack lands it
+    before its own close.  Every outcome is known up front."""
+    from ..flamenco import zk_elgamal as zk
+    from ..flamenco.executor import acct_encode
+
+    zp = zk.ZK_ELGAMAL_PROOF_PROGRAM
+    proofs = proofs or zk_proofs(seed)
+    rng = np.random.default_rng(int.from_bytes(hashlib.sha256(seed + b"stream").digest()[:8],
+                                               "little"))
+    bh = pool_blockhash(payer_seed)
+    genesis = {pub: acct_encode(PAYER_LAMPORTS) for _, pub in pool_payers(payer_seed, n_payers)}
+    payers = [_keyed(seed, b"payer%d" % k) for k in range(n_zk_payers)]
+    for _, pub in payers:
+        genesis[pub] = acct_encode(PAYER_LAMPORTS)
+    kind, bad, expect, acct_exp = {}, set(), {}, {}
+    n_txn = [0]
+
+    def add(k: str, p: bytes, ok: bool) -> None:
+        kind[p] = k
+        if not ok:
+            bad.add(p)
+        good, fail = expect.get(k, (0, 0))
+        expect[k] = (good + ok, fail + (not ok))
+
+    def payer() -> tuple[bytes, bytes]:
+        n_txn[0] += 1
+        return payers[n_txn[0] % n_zk_payers]
+
+    def zk_txn(tag: int, data: bytes, accts=(), readonly=(), signer=None, **kw) -> bytes:
+        """A zk txn whose CU limit is its charge, the margin and a serial
+        number (so that txns of one proof and one payer differ)."""
+        signer = signer or payer()
+        limit = zk.INSTR_COMPUTE_UNITS[tag] + ZK_CU_MARGIN + n_txn[0]
+        return _program_txn(signer, zp, list(accts), bytes([tag]) + data, bh,
+                            readonly=tuple(readonly), cu_limit=limit, **kw)
+
+    for p in gen_transfer_pool(n_legacy, seed=payer_seed, n_payers=n_payers, n_dests=n_dests):
+        add("legacy", p, True)
+    for k, n in (("pubkey_validity", n_pubkey_validity), ("zero_ciphertext", n_zero_ciphertext),
+                 ("range_u64", n_range_u64), ("range_u128", n_range_u128)):
+        tag, context, proof = proofs[k]
+        for _ in range(n):
+            add(k, zk_txn(tag, context + proof), True)
+
+    # proof data in accounts: each holder holds both sigma kinds' blobs at
+    # an offset of its own, then the u256 range blob
+    sig_kinds = ("pubkey_validity", "zero_ciphertext")
+    holders, offsets = [], []
+    for h in range(n_holders):
+        key = hashlib.sha256(seed + b"holder%d" % h).digest()
+        blob, offs = bytes(3 + 5 * h), {}
+        for k in sig_kinds + ("range_u256",):
+            offs[k] = len(blob)
+            blob += proofs[k][1] + proofs[k][2]
+        genesis[key] = acct_encode(10**6, data=blob)
+        holders.append(key)
+        offsets.append(offs)
+    for f in range(n_from_account):
+        h, k = f % n_holders, sig_kinds[f % 2]
+        add("from_account", zk_txn(proofs[k][0], offsets[h][k].to_bytes(4, "little"),
+                                   [holders[h]], readonly=[holders[h]]), True)
+    for f in range(n_range_u256):
+        h = f % n_holders
+        add("range_u256", zk_txn(8, offsets[h]["range_u256"].to_bytes(4, "little"),
+                                 [holders[h]], readonly=[holders[h]]), True)
+
+    # context states: created by a verify, closed after every other txn
+    closes = []
+    for c in range(n_context):
+        tag, context, proof = proofs[sig_kinds[c % 2]]
+        state = hashlib.sha256(seed + b"state%d" % c).digest()
+        dest = hashlib.sha256(seed + b"close-dest%d" % c).digest()
+        genesis[state] = acct_encode(ZK_STATE_LAMPORTS, zp,
+                                     data=bytes(zk.CTX_HEAD_SZ + len(context)))
+        signer = payer()  # pays the close too: the context's authority
+        add("context_create", zk_txn(tag, context + proof, [state, signer[1]], signer=signer,
+                                     cu_price=ZK_CREATE_CU_PRICE), True)
+        p = _program_txn(signer, zp, [state, dest, signer[1]], bytes([0]), bh,
+                         cu_limit=zk.INSTR_COMPUTE_UNITS[0] + ZK_CU_MARGIN)
+        kind[p] = "context_close"
+        closes.append(p)
+        acct_exp[state] = (0, ft.SYSTEM_PROGRAM, False, b"")
+        acct_exp[dest] = (ZK_STATE_LAMPORTS, ft.SYSTEM_PROGRAM, False, b"")
+    expect["context_close"] = (len(closes), 0)
+
+    # the typed failures
+    tag, context, proof = proofs["pubkey_validity"]
+    for f in range(n_fail):
+        j = f % len(proof)
+        add("tampered", zk_txn(tag, context + proof[:j] + bytes([proof[j] ^ 1 << f % 8])
+                               + proof[j + 1 :]), False)
+        add("wrong_size", zk_txn(tag, (context + proof)[: -1 - f % 8]), False)
+        state = hashlib.sha256(seed + b"held-state%d" % f).digest()
+        owner = hashlib.sha256(seed + b"held-owner%d" % f).digest()
+        held = acct_encode(ZK_STATE_LAMPORTS, zp, data=owner + bytes([tag]) + context)
+        genesis[state] = held
+        acct_exp[state] = (ZK_STATE_LAMPORTS, zp, False, owner + bytes([tag]) + context)
+        signer = payer()
+        add("wrong_authority", _program_txn(signer, zp, [state, signer[1], signer[1]], bytes([0]),
+                                            bh, cu_limit=zk.INSTR_COMPUTE_UNITS[0] + ZK_CU_MARGIN),
+            False)
+        # no CU request: each (payer, holder) pair once, so no two are alike
+        h = (f // n_zk_payers) % n_holders
+        data = bytes([8]) + offsets[h]["range_u256"].to_bytes(4, "little")
+        add("no_cu_request", _program_txn(payers[f % n_zk_payers], zp, [holders[h]], data, bh,
+                                          readonly=(holders[h],)), False)
+
+    stream = [p for p in kind if kind[p] != "context_close"]
+    stream = [stream[i] for i in rng.permutation(len(stream))]
+    stream += [closes[i] for i in rng.permutation(len(closes))]
+    return ZkStream(stream, kind, bad, expect, acct_exp, genesis, slot, payer_seed)
+
+
+def zk_bank_ctx(zs: ZkStream, *, device=None):
+    """A BankCtx at zs.slot that lands `zs`: zs.genesis on the funk root and
+    the payers' blockhash registered with the status cache."""
+    from ..flamenco.blockstore import StatusCache
+    from ..runtime.bank import BankCtx
+
+    ctx = BankCtx(slot=zs.slot, status_cache=StatusCache(),
+                  blockhashes=(pool_blockhash(zs.seed),), device=device)
+    for pub, val in zs.genesis.items():
         ctx.funk.rec_insert(None, pub, val)
     return ctx

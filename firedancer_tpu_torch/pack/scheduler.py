@@ -14,8 +14,9 @@ port's copy of firedancer_tpu/pack/scheduler.py.
   - end_block() resets block accounting, keeping unscheduled txns;
     shed_lowest(n) drops the pool tail at a slot deadline (never votes).
 
-The ordered pool is a sorted list with bisect insertion.  The JAX
-package's native lane (scheduler_native.py) is not ported.
+The ordered pool is a sorted list with bisect insertion.  The native
+lane (pack/scheduler_native.py over native/fd_pack.cpp) is the same
+scheduler in C++, with dedup fused into its intake.
 """
 
 
@@ -363,3 +364,8 @@ class Pack:
         self._write_cost.clear()
         for b in range(self.bank_cnt):
             self.microblock_done(b)
+
+    def block_state(self) -> tuple[int, int, int]:
+        """(cost_used, vote_cost_used, data_bytes_used) of the open block,
+        as the native lane's NativePack.block_state reports them."""
+        return self.cost_used, self.vote_cost_used, self.data_bytes_used

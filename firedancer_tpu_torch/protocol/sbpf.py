@@ -25,9 +25,7 @@ MM_PROGRAM_START = 1 << 32
 
 R_BPF_64_64 = 1
 R_BPF_64_RELATIVE = 8
-# the largest program image: an account's data limit (the system program's
-# MAX_PERMITTED_DATA_LENGTH, 10 MiB)
-MAX_IMAGE_SZ = 10 * 1024 * 1024
+SHT_NOBITS = 8
 
 _EHDR = struct.Struct("<16sHHIQQQIHHHHHH")
 _SHDR = struct.Struct("<IIQQQQIIQQ")
@@ -49,9 +47,52 @@ class Section:
     size: int
 
 
+class Image:
+    """A read-only program image of `size` bytes: `dense` holds its bytes
+    up to the end of the last section with file bytes, and past that the
+    image reads zeros (the .bss tail), except where a relocation wrote into
+    the tail (`patches`, byte offset -> byte).  The tail is never
+    allocated, so its size is bounded by nothing but the ELF's claim, while
+    the patches are bounded by the relocation table's size.  `len`,
+    `bytes` and slices read it as the dense bytearray it stands for."""
+
+    __slots__ = ("dense", "size", "patches")
+
+    def __init__(self, dense: bytearray, size: int):
+        self.dense = dense
+        self.size = size
+        self.patches: dict[int, int] = {}
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, key: slice) -> bytes:
+        start, stop, _ = key.indices(self.size)
+        stop = max(start, stop)
+        out = bytearray(self.dense[start:stop])
+        if stop > len(self.dense):
+            lo = max(start, len(self.dense))
+            out += bytes(stop - lo)
+            for off, b in self.patches.items():
+                if lo <= off < stop:
+                    out[off - start] = b
+        return bytes(out)
+
+    def __bytes__(self) -> bytes:
+        return self[:]
+
+    def write(self, off: int, data: bytes) -> None:
+        """Write `data` at `off`, in bounds (the loader checks)."""
+        n = len(self.dense)
+        if off < n:
+            self.dense[off : min(n, off + len(data))] = data[: n - off]
+        for i in range(max(off, n), off + len(data)):
+            self.patches[i] = data[i - off]
+
+
 @dataclass
 class Program:
-    rodata: bytearray      # the loaded program image (text + ro sections)
+    rodata: Image          # the loaded program image (text + ro sections)
     text_off: int          # byte offset of .text within rodata
     text_sz: int
     entry_pc: int          # entrypoint as an instruction index into text
@@ -116,21 +157,21 @@ def load(elf: bytes) -> Program:
     if not alloc:
         raise SbpfError("no loadable sections")
     # the bounds are checked, in section order, BEFORE the image is
-    # allocated: the JAX loader allocates first, so a section claiming
-    # gigabytes costs it that much memory (or a MemoryError) before the
-    # same SbpfError; a .bss (SHT_NOBITS) may not stretch the image past
-    # what an account can hold either
+    # built: the JAX loader allocates the whole image first, so a section
+    # claiming gigabytes costs it that much memory (or a MemoryError)
+    # before the same SbpfError.  A .bss (SHT_NOBITS) carries no bytes and
+    # may claim any size: the image holds the file's bytes only, up to
+    # the end of the last section that has them, and reads zeros past it
     for s in alloc:
-        if s.sh_type != 8 and s.offset + s.size > len(elf):
+        if s.sh_type != SHT_NOBITS and s.offset + s.size > len(elf):
             raise SbpfError(f"section '{s.name}' out of bounds")
     image_sz = max(s.offset + s.size for s in alloc)
-    if image_sz > MAX_IMAGE_SZ:
-        raise SbpfError(f"program image of {image_sz} bytes past {MAX_IMAGE_SZ}")
-    rodata = bytearray(image_sz)
+    dense_sz = max((s.offset + s.size for s in alloc if s.sh_type != SHT_NOBITS), default=0)
+    rodata = Image(bytearray(dense_sz), image_sz)
     for s in alloc:
-        if s.sh_type == 8:  # SHT_NOBITS carries no bytes
+        if s.sh_type == SHT_NOBITS:
             continue
-        rodata[s.offset : s.offset + s.size] = elf[s.offset : s.offset + s.size]
+        rodata.dense[s.offset : s.offset + s.size] = elf[s.offset : s.offset + s.size]
 
     # entrypoint: e_entry is a VM address inside .text
     if not (text.addr <= e_entry < text.addr + text.size):
@@ -168,12 +209,8 @@ def load(elf: bytes) -> Program:
                     raise SbpfError("relocation symbol out of bounds")
                 _n, _i, _o, _shn, st_value, _sz = _SYM.unpack_from(elf, sym_off)
                 addr = st_value + MM_PROGRAM_START
-            rodata[r_offset + 4 : r_offset + 8] = (addr & 0xFFFFFFFF).to_bytes(
-                4, "little"
-            )
-            rodata[r_offset + 12 : r_offset + 16] = (
-                (addr >> 32) & 0xFFFFFFFF
-            ).to_bytes(4, "little")
+            rodata.write(r_offset + 4, (addr & 0xFFFFFFFF).to_bytes(4, "little"))
+            rodata.write(r_offset + 12, ((addr >> 32) & 0xFFFFFFFF).to_bytes(4, "little"))
             # other kinds: ignored (parity: the reference rejects few,
             # skips the rest)
 

@@ -638,7 +638,7 @@ def test_clocked_program_leader_and_jax_replays_the_seal(small_stream):
     rejected = sum(rep[b.name].get("txn_rejected", 0) for b in pipe.banks)
     assert rep["pack"].get("txn_dropped", 0) == rep["pack"].get("txn_shed", 0) == 0
     assert rejected == ps.expect["lookup"][1]
-    assert landed + rejected == rep["dedup"]["frags_out"] == len(ps.stream)
+    assert landed + rejected == pipe.dedup_counts()[0] == len(ps.stream)
     funk, cache = _jax_funk(ps)
     j = jrt.replay_block(funk, slot=ps.slot, entries=entries, poh_seed=b"\x00" * 32,
                          status_cache=cache)

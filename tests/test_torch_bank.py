@@ -8,9 +8,8 @@ every status, the waves) and the same committed funk values; the vote
 cases of tests/test_runtime.py (two votes on one account serialise into
 two waves; a forged vote is refused) the same way.  A stake txn, a v0
 txn over a missing lookup table and txns naming upgradeable-loader
-programs get JAX's statuses and bank hashes; the program the port does
-not run yet (zk-elgamal) raises NotImplementedError.  Seal's K13 runs its
-plain version on the CPU."""
+programs get JAX's statuses and bank hashes, and so does a zk-elgamal
+txn.  Seal's K13 runs its plain version on the CPU."""
 
 import hashlib
 
@@ -147,8 +146,9 @@ def test_vote_txn_raises_not_implemented():
     """Kept under its first name: the vote program is ported now, so a vote
     on an account the vote program does not own gets JAX's status; so is
     the stake program, so a stake instruction on an account it does not own
-    gets JAX's status and bank hash; a program still unported (zk-elgamal)
-    raises NotImplementedError where the JAX executor runs it."""
+    gets JAX's status and bank hash; and the zk-elgamal program is ported
+    too, so a malformed zk instruction gets JAX's status, fee and bank
+    hash."""
     voter = _secret(b"voter")
     vote = ft.vote_txn(voter, hashlib.sha256(b"vote-acct").digest(), SLOT - 1, BH)
     genesis = {ref.public_key(voter): 10**9}
@@ -176,8 +176,12 @@ def test_vote_txn_raises_not_implemented():
         readonly_unsigned_cnt=1, acct_addrs=[ref.public_key(voter), zk_prog],
         recent_blockhash=BH, instrs=[ft.InstrSpec(program_id=1, accounts=b"", data=bytes(4))])
     zk = ft.txn_assemble([ref.sign(voter, msg)], msg)
-    with pytest.raises(NotImplementedError, match="zk-elgamal"):
-        _run(trt, TFunk, tbs.StatusCache, [zk], genesis, device="cpu")
+    jres, jfunk = _run(jrt, JFunk, jbs.StatusCache, [zk], genesis)
+    tres, tfunk = _run(trt, TFunk, tbs.StatusCache, [zk], genesis, device="cpu")
+    assert [(r.status, r.fee) for r in tres.results] == \
+        [(r.status, r.fee) for r in jres.results]
+    assert tres.results[0].status == trt.TXN_ERR_ACCT  # CloseContextState, no accounts
+    assert tres.bank_hash == jres.bank_hash
 
 
 def _keypair(tag: bytes):

@@ -442,12 +442,11 @@ def test_cu_limited_txn_matches_jax(cu_limit):
 
 
 def test_bss_past_max_image_fails_the_txn_where_jax_lands_it():
-    """The status the port does not share with JAX: a loader-v2 program
-    whose .bss stretches its image past the port's MAX_IMAGE_SZ (11 MiB of
-    10).  JAX loads it and the txn lands ok; the port refuses the load, so
-    the txn fails fee-charged (TXN_ERR_PROGRAM).  The program writes
-    nothing, so only the status differs here: the fee, the payer and the
-    bank hash agree.  The same program with a small .bss lands ok on both."""
+    """Kept under its first name: the status the port once did not share
+    with JAX.  A loader-v2 program whose .bss stretches its image to 11 MiB
+    lands ok in both packages now, with the same fee, payer and bank hash
+    (the port reads the zero tail without allocating it); so does the same
+    program with a small .bss."""
     from tests.test_torch_sbpf import claim_rodata
 
     secret, payer = keypair(b"bss-payer")
@@ -469,12 +468,9 @@ def test_bss_past_max_image_fails_the_txn_where_jax_lands_it():
             res = P.rt.execute_block(funk, slot=5, txns=[txn], **P.kw)
             outs[bss, P.name] = (res.bank_hash, [(r.status, r.fee) for r in res.results],
                                  funk.rec_query(res.xid, payer))
-    assert outs[4096, "torch"] == outs[4096, "jax"]
-    assert outs[4096, "jax"][1] == [(trt.TXN_SUCCESS, 5000)]
-    big_j, big_t = outs[11 * 1024 * 1024, "jax"], outs[11 * 1024 * 1024, "torch"]
-    assert big_j[1] == [(trt.TXN_SUCCESS, 5000)]
-    assert big_t[1] == [(trt.TXN_ERR_PROGRAM, 5000)]
-    assert (big_t[0], big_t[2]) == (big_j[0], big_j[2])
+    for bss in (4096, 11 * 1024 * 1024):
+        assert outs[bss, "torch"] == outs[bss, "jax"]
+        assert outs[bss, "jax"][1] == [(trt.TXN_SUCCESS, 5000)]
 
 
 # -- the sBPF stream: a block on both runtimes, and the clocked leader -----------------------------
@@ -560,7 +556,7 @@ def test_clocked_sbpf_leader_and_jax_replays_the_seal(small_stream):
     assert poh.get("slots_sealed") + poh.get("slot_missed") == 4
     landed = sum(rep[b.name].get("txn_exec", 0) for b in pipe.banks)
     assert rep["pack"].get("txn_dropped", 0) == rep["pack"].get("txn_shed", 0) == 0
-    assert landed == rep["dedup"]["frags_out"] == len(ss.stream)
+    assert landed == pipe.dedup_counts()[0] == len(ss.stream)
     funk, cache = _funk(J, ss)
     j = jrt.replay_block(funk, slot=ss.slot, entries=entries, poh_seed=b"\x00" * 32,
                          status_cache=cache)

@@ -8,9 +8,10 @@ invocations without a request, over models/workload.sbpf_genesis's
 counters: run without a slot clock, the leader lands one block
 and raises on the 60 txns left; fed straight into pack under a stepping
 slot clock, the leader raises once the window has closed and pack's
-final block is full.  A pool that fits one block drains as before.  The
-JAX pipeline's finish() never returns on such a stream, so these tests
-run the port alone."""
+final block is full.  A pool that fits one block drains as before.  Each
+case runs on both pack lanes: the fused native lane (the default) and
+dedup + the Python pack.  The JAX pipeline's finish() never returns on
+such a stream, so these tests run the port alone."""
 
 import hashlib
 
@@ -24,11 +25,15 @@ from firedancer_tpu_torch.ops.ref import ed25519_ref as ref
 from firedancer_tpu_torch.pack.cost import DEFAULT_INSTR_CU_LIMIT, MAX_COST_PER_BLOCK
 from firedancer_tpu_torch.protocol import txn as ft
 from firedancer_tpu_torch.runtime.benchg import pool_blockhash
+from firedancer_tpu_torch.runtime.pack_stage import NativePackStage
 from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
+from firedancer_tpu_torch.runtime.verify import encode_verified, sig_tag
 
 # at most this many uncapped sBPF txns fit one block (each also pays for its
 # signature, its write locks and its data)
 PER_BLOCK = MAX_COST_PER_BLOCK // DEFAULT_INSTR_CU_LIMIT
+
+lanes = pytest.mark.parametrize("native_pack", [True, False], ids=["native", "python"])
 
 
 def _uncapped(n: int, n_payers: int = 64):
@@ -53,33 +58,44 @@ def _landed(pipe) -> int:
     return sum(b.metrics.get("txn_exec") for b in pipe.banks)
 
 
-def _pipe(ss, stream, **kw):
+def _pipe(ss, stream, native_pack, **kw):
     return build_leader_pipeline(stream, device="cpu", batch=64, max_msg_len=256,
                                  bank_ctx=sbpf_bank_ctx(ss, device="cpu"), slot=ss.slot,
-                                 pack_depth=len(ss.stream), **kw)
+                                 pack_depth=len(ss.stream), native_pack=native_pack, **kw)
 
 
 def _stuff_pack(pipe, payloads):
-    """Put txns straight into pack's pool, as the dedup link would."""
-    for p in payloads:
-        assert pipe.pack.pack.insert(p, ft.txn_parse(p))
+    """Put txns straight into pack's pool, as the link in front of it would:
+    one insert_burst on the native lane, an insert a txn on the Python one."""
+    pk = pipe.pack.pack
+    if isinstance(pipe.pack, NativePackStage):
+        frags = []
+        for p in payloads:
+            t = ft.txn_parse(p)
+            frags.append((encode_verified(p, t), sig_tag(t.signatures(p)[0]), 0))
+        assert pk.insert_burst(frags) == bytes(len(payloads))  # INS_OK each
+    else:
+        for p in payloads:
+            assert pk.insert(p, ft.txn_parse(p))
 
 
-def test_finish_raises_on_a_stream_one_block_cannot_hold():
+@lanes
+def test_finish_raises_on_a_stream_one_block_cannot_hold(native_pack):
     ss = _uncapped(300)
-    pipe = _pipe(ss, ss.stream)
+    pipe = _pipe(ss, ss.stream, native_pack)
     with pytest.raises(RuntimeError, match=r"pack holds \d+ txns that no block can take") as e:
         pipe.run()
     pending = pipe.pack.pack.pending_cnt()
     assert pending >= 300 - PER_BLOCK
     assert _landed(pipe) + pending == 300
     assert f"pack holds {pending} txns" in str(e.value)
-    left = MAX_COST_PER_BLOCK - pipe.pack.pack.cost_used
+    left = MAX_COST_PER_BLOCK - pipe.pack.pack.block_state()[0]
     assert f"{left} of {MAX_COST_PER_BLOCK} CU" in str(e.value)
     assert left < DEFAULT_INSTR_CU_LIMIT
 
 
-def test_finish_raises_once_the_slot_window_has_closed():
+@lanes
+def test_finish_raises_once_the_slot_window_has_closed(native_pack):
     ss = _uncapped(4 * PER_BLOCK)
     t = [0]
 
@@ -89,7 +105,7 @@ def test_finish_raises_once_the_slot_window_has_closed():
 
     clock = SlotClockCfg(slot_ms=100.0, slot0=ss.slot, ticks_per_slot=4, n_slots=1,
                          t0_ns=0).build(now_fn=now)
-    pipe = _pipe(ss, ss.stream[:1], slot_clock=clock)
+    pipe = _pipe(ss, ss.stream[:1], native_pack, slot_clock=clock)
     _stuff_pack(pipe, ss.stream[1:])
     with pytest.raises(RuntimeError, match="no further block in the leader window"):
         pipe.run()
@@ -99,9 +115,10 @@ def test_finish_raises_once_the_slot_window_has_closed():
     assert pipe.pack.pack.pending_cnt() >= len(ss.stream) - 2 * PER_BLOCK
 
 
-def test_a_pool_that_fits_one_block_drains():
+@lanes
+def test_a_pool_that_fits_one_block_drains(native_pack):
     ss = _uncapped(200)
-    pipe = _pipe(ss, ss.stream[:1])
+    pipe = _pipe(ss, ss.stream[:1], native_pack)
     _stuff_pack(pipe, ss.stream[1:])
     pipe.run()
     assert pipe.pack.pack.pending_cnt() == 0

@@ -2,6 +2,9 @@
 
   - no module of firedancer_tpu_torch/, nor chip_smoke.py, imports jax,
     jaxlib or the JAX package;
+  - the port's host libraries (utils/hostbuild.py) build from its own
+    sources in firedancer_tpu_torch/native/, never from the repo's
+    native/, into the port's own build folder;
   - the entry points, called without device=, raise the "no CUDA device"
     error on a machine without a card instead of running on the CPU;
   - a kernel wrapper given CPU tensors runs its plain version and its
@@ -19,6 +22,7 @@ import firedancer_tpu_torch
 from firedancer_tpu_torch import entry as tentry
 from firedancer_tpu_torch.flamenco.runtime import SlotExecution, execute_block
 from firedancer_tpu_torch.funk import make_funk
+from firedancer_tpu_torch.models import workload as tw
 from firedancer_tpu_torch.models.leader import (
     build_leader_pipeline,
     build_sharded_leader_pipeline,
@@ -46,7 +50,7 @@ from firedancer_tpu_torch.runtime.shredder import Shredder
 from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
 from firedancer_tpu_torch.runtime.store import StoreStage
 from firedancer_tpu_torch.runtime.verify import VerifyStage
-from firedancer_tpu_torch.utils import kbuild
+from firedancer_tpu_torch.utils import hostbuild, kbuild
 from firedancer_tpu_torch.utils.platform import resolve_device
 
 PKG = os.path.dirname(os.path.abspath(firedancer_tpu_torch.__file__))
@@ -82,6 +86,38 @@ def test_no_jax_or_jax_package_imports():
     assert bad == []
 
 
+def _host_libraries() -> set[str]:
+    """The names every port module passes to hostbuild.load."""
+    names = set()
+    for path in _sources():
+        for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "load" and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id == "hostbuild"):
+                assert isinstance(node.args[0], ast.Constant), path
+                names.add(node.args[0].value)
+    return names
+
+
+def test_host_libraries_build_from_the_ports_own_sources():
+    names = _host_libraries()
+    assert names == {"fd_pack", "fd_tcache"}
+    native = os.path.join(PKG, "native")
+    assert hostbuild.NATIVE_DIR == native
+    assert sorted(os.listdir(native)) == sorted(f"{n}.cpp" for n in names)
+    for n in names:
+        assert hostbuild.source(n) == os.path.join(native, f"{n}.cpp")
+        assert os.path.dirname(os.path.dirname(hostbuild.so_path(n))) == \
+            os.path.join(ROOT, "build", "torch_native")
+    # no port module but utils/hostbuild.py names a native/ folder
+    for path in _sources()[1:]:
+        for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+            if isinstance(node, ast.Constant) and node.value == "native":
+                assert path == os.path.join(PKG, "utils", "hostbuild.py"), path
+    hostbuild.load("fd_tcache")
+    assert all(p.startswith(hostbuild.BUILD_ROOT) for p in hostbuild._LIBS)
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card error cannot show")
@@ -95,7 +131,9 @@ def _no_card():
     "sharded_leader_pipeline", "bank_ctx", "default_bank_ctx", "slot_execution",
     "execute_block", "shredder", "fec_resolver", "store", "lthash_combine",
     "leader_block", "bmtree_hash_leaves_batch", "bmtree_layers_batch",
-    "bmtree_root_batch", "clock_leader_pipeline", "clock_fused_leader_pipeline"])
+    "bmtree_root_batch", "clock_leader_pipeline", "clock_fused_leader_pipeline",
+    "python_pack_leader_pipeline", "python_pack_sharded_leader_pipeline", "zk_bank_ctx",
+    "native_pack_leader_block"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -135,6 +173,11 @@ def test_entry_points_default_to_the_card(call):
         "clock_fused_leader_pipeline": lambda: build_leader_pipeline(
             [b"x"], slot_clock=SlotClockCfg(slot_ms=400.0, ticks_per_slot=64, n_slots=2),
             fuse_poh_shred=True),
+        "python_pack_leader_pipeline": lambda: build_leader_pipeline([b"x"], native_pack=False),
+        "python_pack_sharded_leader_pipeline": lambda: build_sharded_leader_pipeline(
+            [b"x"], native_pack=False),
+        "zk_bank_ctx": lambda: tw.zk_bank_ctx(tw.ZkStream([], {}, set(), {}, {}, {}, 1, b"b")),
+        "native_pack_leader_block": lambda: tentry.leader_block([b"x"], native_pack=False),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()

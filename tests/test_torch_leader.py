@@ -105,7 +105,7 @@ def test_banks_landed_every_distinct_txn(leader):
     pipe, _, entries = leader
     rep = pipe.report()
     assert sum(rep[f"bank{b}"].get("txn_exec", 0) for b in range(2)) == N_TXNS - 20
-    assert rep["dedup"]["dedup_dup"] == 20
+    assert pipe.dedup_counts() == (N_TXNS - 20, 20)
     assert rep["pack"]["txn_in"] == rep["pack"]["txn_scheduled"] == N_TXNS - 20
     assert sum(len(t) for _, _, t in entries) == N_TXNS - 20
     assert rep["poh"]["ticks"] > 0

@@ -8,8 +8,9 @@ under the same virtual clock:
     runs on both packages with the same assertions, and their outputs are
     held equal: PoH's entry frames byte for byte and its counters and
     seal-lag histogram, pack's microblock frames, blocks_closed and
-    txn_shed.  The native-pack case is left out (the port has no native
-    pack lane); the port's stages have no flight recorder, so the JAX
+    txn_shed.  The native-pack case (shed parity) is held in
+    tests/test_torch_pack_native.py, with the two pack lanes under one
+    virtual clock; the port's stages have no flight recorder, so the JAX
     cases' flight-ring assertions are carried by the counters;
   - every clock query over a seeded grid of times (before the anchor too),
     and the degenerate configurations;
@@ -758,7 +759,7 @@ def _run_leader(stream, clock=None, **kw):
            "rejected": sum(b.get("txn_rejected", 0) for b in banks),
            "dropped": rep["pack"].get("txn_dropped", 0),
            "shed": rep["pack"].get("txn_shed", 0),
-           "verified": rep["dedup"].get("frags_out", 0)}
+           "verified": pipe.dedup_counts()[0]}
     return pipe, sealed, entries, out
 
 
