@@ -184,15 +184,18 @@ script or when a phase fails):
               N = 1,040, 2,048 and 65,536
   17. leader  build_leader_pipeline (benchg -> verify -> pack, dedup
               fused into pack's native lane -> bank x2 -> poh -> shred ->
-              store; every leader phase takes that default lane, the
+              store; every leader phase takes that default lane, the banks
+              the native executor lane and verify the native parser, the
               host libraries built with g++ in phase 2 beside the kernels'
               nvcc) over 8,192 transfers (8
               payers, 1,024 destinations) at batch 1,024 and max_msg_len
               1,232, pack's pool 8,192 deep, then seal: every txn landed, the deshredded store bytes
               equal PoH's entries, replay_block reproduces the seal, K13
               once per seal, K5 once or twice per shredded entry batch, K1
-              once per verify batch; txn/s to the store and the host
-              seconds per stage and seal phase
+              once per verify batch, native_exec > 0; txn/s to the store
+              and the host seconds per stage and seal phase.  Phases 17,
+              17d, 17f, 17g and 17h each print a [native-exec] line: the
+              banks' native_exec and native_punt counts
   17b. lossy  phase 17's FEC sets with 1 to p shreds of each dropped,
               through a full-verification StoreStage (merkle proof per
               shred, the leader's signature by ed25519_ref): the same entry
@@ -230,10 +233,11 @@ script or when a phase fails):
               pipeline's default 64, where mainnet's 12,500 would cost the host PoH
               chain ~800 k hashlib calls a slot), grace 100 ms: the window
               is driven until PoH closes it and the stream is sent (a 60 s
-              wall cap fails the phase), then finish, seal and replay, three
-              four times: (a) unfused, (b) fuse_poh_shred=True, (c)
+              wall cap fails the phase), then finish, seal and replay, five
+              times: (a) unfused, (b) fuse_poh_shred=True, (c)
               shed_keep=256, (d) as (a) on the Python pack lane
-              (native_pack=False: the dedup stage and PackStage).
+              (native_pack=False: the dedup stage and PackStage), (e) as
+              (a) on the Python executor lane (native_exec=False).
               Each: sealed + missed = 16 with one sealed at least, ticks +
               skipped ticks = 64 x 16, 1 <= blocks_closed <= 16, landed +
               shed = the verified txns and none dropped, the deshredded
@@ -242,8 +246,9 @@ script or when a phase fails):
               nonce advanced against the parent bank hash if its txn landed
               or kept if it was shed, K1 once per verify batch, K5 once or
               twice per entry batch, K13 once; (a), (b) and (d) shed nothing
-              and land all 256 durable txns, (b) and (d) land (a)'s
-              signatures, (c) sheds. A missed slot is a measured value, not
+              and land all 256 durable txns, (b), (d) and (e) land (a)'s
+              signatures, (c) sheds; (a) and (e) seal all 16 slots, (a)'s
+              native_exec > 0 and (e)'s 0. A missed slot is a measured value, not
               a failure. [clock-leader], [clock-leader-fused],
               [clock-leader-shed], [clock-leader-python-pack]: slots sealed
               and missed, skipped ticks, the seal lag's p50 and p99,
@@ -251,7 +256,13 @@ script or when a phase fails):
               txn/s to the store, the seal's and the replay's seconds, and
               (-split) the host seconds per stage; [pack-lanes]: pack's host
               seconds (with dedup's on the Python lane) and txn/s to the
-              store of (a) and (d) side by side
+              store of (a) and (d) side by side; [exec-lanes]: (a) and (e),
+              each with bank0's, bank1's and verify's host seconds, txn/s to
+              the store, slots sealed, txns in the window, signatures and
+              native_exec / native_punt; [parser]: the native parser
+              (protocol/txn_native.py, the verify stage's) against the
+              Python parse and pack over 17e's 8,448 packets, every
+              descriptor equal, in us a packet on the host clock
   17f. program leader  17e (a)'s clocked leader over program_stream
               (PROGRAM_MIX: 4,096 v0 transfers whose destinations, phase
               17's 1,024, load through 16 lookup tables of 64 addresses,
@@ -526,10 +537,18 @@ SBPF_MIX = dict(n_legacy=5040, n_counter=2048, n_hasher=512, n_vault=512, n_vaul
 ZK_MIX = dict(n_legacy=6000, n_pubkey_validity=512, n_zero_ciphertext=512, n_from_account=64,
               n_context=64, n_range_u64=8, n_range_u128=4, n_range_u256=2, n_fail=64,
               n_dests=1024, n_zk_payers=64)
-HOST_LIBS = ("fd_tcache", "fd_pack")  # utils/hostbuild.py's libraries, built in phase 2
+HOST_LIBS = ("fd_tcache", "fd_pack", "fd_exec_native", "fd_txn_parse")  # utils/hostbuild.py's
+# libraries, built in phase 2
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
+
+
+def native_counts(rep: dict, banks) -> tuple[int, int]:
+    """(native_exec, native_punt) over the banks' counters: the txns the
+    native executor lane committed, and its punts resumed in Python."""
+    return (sum(rep[b.name].get("native_exec", 0) for b in banks),
+            sum(rep[b.name].get("native_punt", 0) for b in banks))
 
 
 class SmokeFailure(RuntimeError):
@@ -1391,6 +1410,7 @@ def main() -> int:
     from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
     from firedancer_tpu_torch.protocol import shred as fs
     from firedancer_tpu_torch.protocol import txn as ft
+    from firedancer_tpu_torch.protocol import txn_native as ftn
     from firedancer_tpu_torch.runtime import poh as rpoh
     from firedancer_tpu_torch.runtime.bank import default_bank_ctx
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
@@ -1441,8 +1461,9 @@ def main() -> int:
     mark("2")
     t0 = time.perf_counter()
     parent_build = start_parent_build(kbuild, PARENT) if PARENT else None
-    # the host libraries (pack's native lane and its tcache) build with g++
-    # beside the kernels' nvcc processes
+    # the host libraries (pack's native lane and its tcache, the native
+    # executor lane and the txn parser) build with g++ beside the kernels'
+    # nvcc processes
     with concurrent.futures.ThreadPoolExecutor(len(HOST_LIBS)) as pool_:
         host_builds = [pool_.submit(hostbuild.build, n_) for n_ in HOST_LIBS]
         kbuild.build_all()
@@ -2824,6 +2845,9 @@ def main() -> int:
         f" slot (run + seal; K1, K5 and K13 event times x launches)")
     log(f"[leader-split] host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17.items())})}"
         f" (run {run17_s:.3f} s + seal {seal17_s:.3f} s); counters {json.dumps(rep17)}")
+    ne17 = native_counts(rep17, pipe17.banks)
+    check(ne17[0] > 0, f"leader pipeline: the native executor lane ran no txn {ne17}")
+    log(f"[native-exec] 17: native_exec {ne17[0]}, native_punt {ne17[1]} ({landed17} landed)")
 
     # -- 17b. lossy receive: up to p shreds of each set dropped, full verification -------------
     mark("17b")
@@ -3015,6 +3039,8 @@ def main() -> int:
         f" (run {run17d_s:.3f} s + seal {seal17d_s:.3f} s); phase 17 on the same card:"
         f" {txn17_s:.0f} txn/s, host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17.items())})};"
         f" counters {json.dumps(rep17d)}")
+    ne17d = native_counts(rep17d, pipe17d.banks)
+    log(f"[native-exec] 17d: native_exec {ne17d[0]}, native_punt {ne17d[1]} ({landed17d} landed)")
 
     # -- 17e. the clocked leader: a 16-slot window at 400 ms a slot -----------------------------
     mark("17e")
@@ -3054,11 +3080,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0, window_s, in_window
 
-    def clock_leader(tag: str, **kw) -> dict:
+    def clock_leader(tag: str, native_exec: bool = True, **kw) -> dict:
         """One clocked leader run over stream17e: drive the window (and the
         rest of the stream) under the wall cap, drain, seal, replay; check
-        the slot accounting, the launches and the replay; log [tag]."""
-        ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev)
+        the slot accounting, the launches and the replay; log [tag].
+        native_exec picks the bank's executor lane."""
+        ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev, native_exec=native_exec)
         pipe = build_leader_pipeline(stream17e, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
                                      bank_ctx=ctx, keep_entries=True, pack_depth=len(stream17e),
                                      slot_clock=clock17e, **kw)
@@ -3135,7 +3162,9 @@ def main() -> int:
             f" {json.dumps(rep)}")
         return dict(launches=launches, landed=landed, shed=shed, sigs=sorted(
             ft.txn_parse(p_).signatures(p_)[0] for p_ in block), advanced=sum(advanced),
-            durable_ok=durable_ok, split=split, txn_s=landed / run_s, lag=(lag50, lag99))
+            durable_ok=durable_ok, split=split, txn_s=landed / run_s, lag=(lag50, lag99),
+            sealed=sealed_, in_window=in_window, signature_cnt=seal.signature_cnt,
+            native=native_counts(rep, pipe.banks))
 
     r17e = clock_leader("clock-leader")
     check(r17e["shed"] == 0 and r17e["durable_ok"] == r17e["advanced"] == CLOCK_DURABLE,
@@ -3160,6 +3189,43 @@ def main() -> int:
         f" store; python lane dedup {r17e_py['split'].get('dedup', 0.0):.4f} s + pack"
         f" {r17e_py['split']['pack']:.4f} s = {pack_lanes['python'][0]:.4f} s host,"
         f" {pack_lanes['python'][1]:.0f} txn/s to the store")
+    # (e) 17e (a) with the banks on the Python executor lane (native_exec=False)
+    r17e_px = clock_leader("clock-leader-python-exec", native_exec=False)
+    check(r17e_px["shed"] == 0 and r17e_px["durable_ok"] == CLOCK_DURABLE
+          and r17e_px["sigs"] == r17e["sigs"]
+          and r17e_px["signature_cnt"] == r17e["signature_cnt"],
+          "clock-leader-python-exec: landed signatures differ from the native exec lane's")
+    for tag_, r_ in (("clock-leader", r17e), ("clock-leader-python-exec", r17e_px)):
+        check(r_["sealed"] == CLOCK_SLOTS, f"{tag_}: {r_['sealed']} of {CLOCK_SLOTS} slots sealed")
+    check(r17e["native"][0] > 0, f"clock-leader: native_exec {r17e['native']}")
+    check(r17e_px["native"] == (0, 0), f"clock-leader-python-exec: native {r17e_px['native']}")
+    for lane_, r_ in (("native", r17e), ("python", r17e_px)):
+        sp_ = r_["split"]
+        log(f"[exec-lanes] 17e {'(a)' if lane_ == 'native' else '(e)'} {lane_} exec lane:"
+            f" bank0 {sp_.get('bank0', 0.0):.4f} s, bank1 {sp_.get('bank1', 0.0):.4f} s,"
+            f" verify {sp_.get('verify0', 0.0):.4f} s host; {r_['txn_s']:.0f} txn/s to the store;"
+            f" slots sealed {r_['sealed']} of {CLOCK_SLOTS}; {r_['in_window']} txns in the window"
+            f" of {r_['landed']} landed; {r_['signature_cnt']} signatures; native_exec"
+            f" {r_['native'][0]}, native_punt {r_['native'][1]}")
+    # the verify stage's per-packet parse over 17e's packets: the native
+    # parser it runs against the Python parse and pack it replaced
+    t0 = time.perf_counter()
+    nat_desc = [ftn.txn_parse_packed(p_) for p_ in stream17e]
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_txns = [ft.txn_parse(p_) for p_ in stream17e]
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_desc = [ft.txn_pack(t_) for t_ in py_txns]
+    pack_s = time.perf_counter() - t0
+    check(nat_desc == py_desc and all(d_ is not None for d_ in nat_desc),
+          f"parser: {sum(a_ != b_ for a_, b_ in zip(nat_desc, py_desc))} native descriptors"
+          f" differ from txn_pack(txn_parse(p)) over {len(stream17e)} packets")
+    per_ = 1e6 / len(stream17e)
+    log(f"[parser] {len(stream17e)} packets of 17e, every descriptor equal: native"
+        f" txn_parse_packed {nat_s * per_:.3f} us a packet; python txn_parse"
+        f" {parse_s * per_:.3f} us + txn_pack {pack_s * per_:.3f} us ="
+        f" {(parse_s + pack_s) * per_:.3f} us a packet (host clock, one pass each)")
 
     # -- 17f. the program leader: v0 lookups, stake, config and the precompiles ----------------
     mark("17f")
@@ -3284,6 +3350,8 @@ def main() -> int:
         f" {json.dumps({k: round(v, 4) for k, v in sorted(split17f.items())})}; 17e (a) in this"
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
         f" counters {json.dumps(rep17f)}")
+    ne17f = native_counts(rep17f, pipe17f.banks)
+    log(f"[native-exec] 17f: native_exec {ne17f[0]}, native_punt {ne17f[1]} ({landed17f} landed)")
 
     # -- 17g. the sBPF leader: on-chain programs under both BPF loaders, with CPI --------------
     mark("17g")
@@ -3402,6 +3470,8 @@ def main() -> int:
         f" {json.dumps({k: round(v, 4) for k, v in sorted(split17g.items())})}; 17e (a) in this"
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
         f" counters {json.dumps(rep17g)}")
+    ne17g = native_counts(rep17g, pipe17g.banks)
+    log(f"[native-exec] 17g: native_exec {ne17g[0]}, native_punt {ne17g[1]} ({landed17g} landed)")
 
     # -- 17h. the zk leader: zk-elgamal proof traffic on the native pack lane -----------------
     mark("17h")
@@ -3495,6 +3565,8 @@ def main() -> int:
         f" {json.dumps({k: round(v, 4) for k, v in sorted(split17h.items())})}; 17e (a) in this"
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
         f" counters {json.dumps(rep17h)}")
+    ne17h = native_counts(rep17h, pipe17h.banks)
+    log(f"[native-exec] 17h: native_exec {ne17h[0]}, native_punt {ne17h[1]} ({landed17h} landed)")
 
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")

@@ -27,6 +27,10 @@ class StatusCache:
     """
 
     def __init__(self):
+        # bumped whenever the blockhash registry changes, so a caller that
+        # keeps a view derived from it (the native gate's valid set) ships
+        # it again only after a change
+        self.version = 0
         self.blockhash_slot: dict[bytes, int] = {}
         self.seen: dict[tuple[bytes, bytes], list[int]] = {}
         # speculative execution stages per-block inserts here until the
@@ -42,6 +46,7 @@ class StatusCache:
     def register_blockhash(self, blockhash: bytes, slot: int) -> None:
         if blockhash not in self.blockhash_slot:
             self.blockhash_slot[blockhash] = slot
+            self.version += 1
 
     # -- speculative block staging --
 

@@ -20,8 +20,18 @@ txn load from the working fork, so an Upgrade earlier in the block is
 seen (and the deploy-slot rule then fails the invocation typed).  A
 stale blockhash passes only as a durable-nonce txn
 (flamenco/nonce.py); its nonce advances against the parent bank hash,
-also when the txn fails with its fee charged.  The JAX package's native
-executor lanes (exec_native, the bank sweep) are not ported.
+also when the txn fails with its fee charged.
+
+Two lanes execute a txn.  The Python lane (`execute`) gates and runs one
+txn through the executor.  The native lane (`execute_batch` with
+native_exec=True, the default) sends each run of eligible txns (system,
+durable nonce, stake, the vote tags of exec_native.NATIVE_VOTE_TAGS) through
+one call of native/fd_exec_native.cpp against the slot's session, which
+holds the status-cache gate and an overlay of account values; a txn the
+C++ side punts resumes on the Python lane.  Both give the same statuses,
+fees, compute units, account bytes and bank hash.  Replay (`execute_block`)
+runs the Python lane.  The bank sweep (runtime/bank_native.py in the JAX
+package) is not ported.
 """
 
 from __future__ import annotations
@@ -35,11 +45,12 @@ import numpy as np
 
 from ..funk import Funk
 from ..ops import lthash as lt
-from ..pack.cost import txn_budget
+from ..pack.cost import BUILTIN_COST, txn_budget
 from ..protocol import txn as ft
 from ..utils.platform import resolve_device
 from . import alt
 from . import bpf_loader as bl
+from . import exec_native
 from . import nonce as N
 from . import types as T
 from .executor import (
@@ -322,6 +333,7 @@ class SlotExecution:
         ancestors: set[int] | None = None,
         slot_hashes: list[tuple[int, bytes]] | None = None,
         device=None,
+        native_exec: bool = True,
     ):
         self.device = resolve_device(device)
         self.funk = funk
@@ -355,6 +367,23 @@ class SlotExecution:
             tuple(funk.txn_ancestry(parent_xid)) if parent_xid is not None else ())
         self._table_cache: dict = {}  # lookup tables, decoded once a block
         self._before: dict[bytes, bytes | None] = {}  # start-of-slot view
+        # the native lane (exec_native): one session per slot, made with
+        # the first BatchContext; the C++ side keeps the status-cache gate
+        # and an overlay of account values across microblocks, so each
+        # account's value ships once (first touch, or after a Python-lane
+        # write dirtied it)
+        self.native_exec = native_exec
+        self._native_ctx: exec_native.BatchContext | None = None
+        self._native_sh_blob = None
+        self._native_session: exec_native.Session | None = None
+        self._gate_seen_delta: list[bytes] = []  # 96B bh || sig, Python-lane landings
+        self._gate_seeded = False
+        self._gate_shipped_version = None  # StatusCache.version last shipped
+        self._native_known: set[bytes] = set()  # accounts the session holds
+        self._native_dirty: set[bytes] = set()  # written by the Python lane since shipped
+        # txns committed by the native lane, and its punts resumed in Python
+        self.native_done_cnt = 0
+        self.native_punt_cnt = 0
         self.results: list[TxnResult] = []
         self.signature_cnt = 0
         self.sealed: BlockResult | None = None
@@ -384,7 +413,8 @@ class SlotExecution:
         # snapshot the start-of-slot value of every account this txn can
         # touch, loaded ones too, for the accounts-delta hash (the PARENT
         # view: an earlier in-block writer must not shift this txn's "before")
-        for a in desc.acct_addrs(payload) + (extra[0] + extra[1] if extra else []):
+        touched = desc.acct_addrs(payload) + (extra[0] + extra[1] if extra else [])
+        for a in touched:
             if a not in self._before:
                 self._before[a] = self.funk.rec_query(self.parent_xid, a)
         durable = False
@@ -404,12 +434,20 @@ class SlotExecution:
                 r = TxnResult(TXN_ERR_ALREADY_PROCESSED, 0)
                 self.results.append(r)
                 return r
+        if self._native_session is not None:
+            # this txn may write any account it touches: the session's
+            # copies go stale until the next touch ships fresh values.
+            # Marked after the gate: a gated-out txn writes nothing
+            self._native_dirty.update(touched)
         r = _execute_txn(self.funk, self.xid, payload, desc,
                          executor=self.executor, sysvars=self.sysvars, extra=extra,
                          durable_nonce=durable)
         return self._finish(r, desc.signature_cnt, bh, sig)
 
-    def _finish(self, r: TxnResult, sig_cnt: int, bh, sig) -> TxnResult:
+    def _finish(self, r: TxnResult, sig_cnt: int, bh, sig,
+                native: bool = False) -> TxnResult:
+        """Bookkeeping after either lane ran a txn: the two must never
+        disagree on the landed predicate."""
         if r.fee > 0:
             # the bank hash's signature count covers txns that LANDED
             # (fee-charged), so a streaming leader and a replayer counting
@@ -418,6 +456,10 @@ class SlotExecution:
             if self.status_cache is not None:
                 self._block_seen.add((bh, sig))
                 self.status_cache.stage_insert(self.xid, bh, sig)
+                if not native and self._native_session is not None:
+                    # a Python-lane landing: the session's gate learns it
+                    # on the next crossing (the C++ side inserted its own)
+                    self._gate_seen_delta.append(bh + sig)
         self.results.append(r)
         return r
 
@@ -438,13 +480,215 @@ class SlotExecution:
         """Execute a burst of txns in block order (the bank stage's
         per-microblock commit path).  items: (payload, desc, desc_bytes)
         tuples; desc (a Txn) or desc_bytes (the packed trailer) may be
-        None, not both."""
+        None, not both.  On the native lane each run of eligible txns goes
+        through one call against the slot's session; anything else (lookup
+        tables, programs outside the native surface) flushes the run and
+        goes through `execute`."""
         base = len(self.results)
+        if not self.native_exec:
+            for payload, desc, desc_bytes in items:
+                if desc is None:
+                    desc = self._unpack_trailer(payload, desc_bytes)
+                self.execute(payload, desc)
+            return self.results[base:]
+        nat = self._native_for_batch()
+        eligible = exec_native.eligible_packed
+        q = self.funk.rec_query
+        before = self._before
+        known = self._native_known
+        dirty = self._native_dirty
+        pend: list[list] = []  # [payload, desc_bytes, addrs, vals, bh, sig, sig_cnt]
         for payload, desc, desc_bytes in items:
-            if desc is None:
-                desc = self._unpack_trailer(payload, desc_bytes)
-            self.execute(payload, desc)
+            if desc_bytes is None:
+                desc_bytes = ft.txn_pack(desc)
+            psz = len(payload)
+            db = desc_bytes
+            ok = len(db) >= 17
+            if ok:
+                sig_cnt = db[1]
+                sig_off = db[2] | (db[3] << 8)
+                acct_cnt = db[8]
+                acct_off = db[9] | (db[10] << 8)
+                bh_off = db[11] | (db[12] << 8)
+                ok = not (db[13]  # lut_cnt: lookups resolve on the Python lane
+                          or sig_cnt == 0
+                          or acct_cnt == 0
+                          or sig_off + 64 > psz
+                          or bh_off + 32 > psz
+                          or acct_off + 32 * acct_cnt > psz
+                          or not eligible(payload, db))
+            if not ok:
+                if pend:
+                    self._flush_native(nat, pend)
+                    pend = []
+                if desc is None:
+                    desc = self._unpack_trailer(payload, desc_bytes)
+                self.execute(payload, desc)
+                continue
+            addrs = []
+            vals = []
+            for i in range(acct_cnt):
+                a = payload[acct_off + 32 * i : acct_off + 32 * (i + 1)]
+                addrs.append(a)
+                if a not in before:
+                    before[a] = q(self.parent_xid, a)
+                if a in known and a not in dirty:
+                    vals.append(None)  # the session holds it current
+                else:
+                    vals.append(q(self.xid, a) or b"")
+                    known.add(a)
+                    dirty.discard(a)
+            pend.append([payload, desc_bytes, addrs, vals,
+                         payload[bh_off : bh_off + 32], payload[sig_off : sig_off + 64],
+                         sig_cnt])
+        if pend:
+            self._flush_native(nat, pend)
         return self.results[base:]
+
+    # -- the native lane (exec_native) -----------------------------------------
+
+    def _native_for_batch(self) -> exec_native.BatchContext:
+        """The slot's BatchContext: clock, slot hashes, rent and the recent
+        blockhash from the sysvars; rebuilt if the slot-hashes blob was
+        swapped.  The session outlives a rebuild (only the header changes)."""
+        sh = self.sysvars.get("slot_hashes")
+        if self._native_ctx is None or self._native_sh_blob is not sh:
+            self._native_sh_blob = sh
+            clock_slot = clock_epoch = None
+            blob = self.sysvars.get("clock")
+            if blob:
+                try:
+                    c = T.CLOCK.decode(blob, 0)[0]
+                    clock_slot, clock_epoch = c.slot, c.epoch
+                except T.CodecError:
+                    pass  # no clock: vote txns fail typed, on both lanes
+            # the nonce partial-withdraw floor's rent: flag 2 = a blob that
+            # does not decode (the C++ side punts where it needs it)
+            rd = T.Rent()  # no blob: the defaults (flamenco/nonce.py)
+            rent = (1, rd.lamports_per_byte_year, rd.exemption_threshold)
+            rent_blob = self.sysvars.get("rent")
+            if rent_blob:
+                try:
+                    r = T.RENT.decode(rent_blob, 0)[0]
+                    rent = (1, r.lamports_per_byte_year, r.exemption_threshold)
+                except T.CodecError:
+                    rent = (2, rd.lamports_per_byte_year, rd.exemption_threshold)
+            if self._native_session is None:
+                self._native_session = exec_native.Session()
+            self._native_ctx = exec_native.BatchContext(
+                lamports_per_sig=LAMPORTS_PER_SIGNATURE, clock_slot=clock_slot,
+                clock_epoch=clock_epoch, slot_hashes=sh, session=self._native_session,
+                recent_blockhash=self.sysvars.get("recent_blockhash"), rent=rent)
+        return self._native_ctx
+
+    def _gate_args(self):
+        """(valid blockhashes or None, seen delta) for the next crossing, or
+        None without a status cache (the Python lane does not gate then
+        either).  The valid set ships only when StatusCache.version moved
+        since it last shipped; the first call also seeds the session with
+        every landing visible on this fork."""
+        sc = self.status_cache
+        if sc is None:
+            return None
+        if sc.version == self._gate_shipped_version and self._gate_seeded:
+            valid = None
+        else:
+            valid = [bh for bh in sc.blockhash_slot if sc.is_blockhash_valid(bh, self.slot)]
+        if not self._gate_seeded:
+            # one-time seed: what contains() sees on this fork (committed
+            # ancestor entries), the unrooted ancestors' staged landings
+            # (contains_staged) and this block's landings so far
+            self._gate_seeded = True
+            vs = set(valid)
+            delta = self._gate_seen_delta
+            for (bh, sig), slots in sc.seen.items():
+                if bh in vs and (self.ancestors is None
+                                 or any(s in self.ancestors for s in slots)):
+                    delta.append(bh + sig)
+            for x in self._ancestor_xids:
+                for bh, sig in sc._staged_seen.get(x, ()):
+                    if bh in vs:
+                        delta.append(bh + sig)
+            for bh, sig in self._block_seen:
+                delta.append(bh + sig)
+        if valid is not None:
+            self._gate_shipped_version = sc.version
+        return (valid, self._gate_seen_delta)
+
+    def _native_cu(self, entry, status: int, fee: int) -> int:
+        """The compute units the Python lane reports for a txn the native
+        lane ran: 0 without a fee, every instruction's builtin cost on
+        success.  A failed txn's count stops at the instruction that failed,
+        which the response does not carry: the txn runs again on a scratch
+        fork of the state it saw, which is then dropped."""
+        if fee == 0:
+            return 0
+        payload, db = entry[0], entry[1]
+        if status == TXN_SUCCESS:
+            acct_off = db[9] | (db[10] << 8)
+            cu = 0
+            for k in range(db[16]):
+                prog = db[17 + 9 * k]
+                cu += BUILTIN_COST.get(payload[acct_off + 32 * prog : acct_off + 32 * prog + 32], 0)
+            return cu
+        scratch = self.xid + b":cu"
+        self.funk.txn_prepare(self.xid, scratch)
+        try:
+            return _execute_txn(self.funk, scratch, payload, self._unpack_trailer(payload, db),
+                                executor=self.executor, sysvars=self.sysvars,
+                                extra=([], [])).cu
+        finally:
+            self.funk.txn_cancel(scratch)
+
+    def _run_ungated(self, entry) -> None:
+        """The Python lane for a punted entry: the session stopped before
+        deciding (possibly a stale blockhash, a durable-nonce candidate),
+        so the whole of `execute` gates, snapshots and marks it."""
+        payload, desc_bytes = entry[0], entry[1]
+        self.execute(payload, self._unpack_trailer(payload, desc_bytes), ([], []))
+
+    def _flush_native(self, nat: exec_native.BatchContext, pend: list) -> None:
+        """Run the pending eligible txns in order, one call per run: a punt
+        resumes on the Python lane, then the remainder goes again, with
+        fresh values for the accounts that punt dirtied.  The gate's delta
+        rides each call.  A call that does neither progress nor punt
+        raises: nothing finishes the run on the Python lane."""
+        i = 0
+        while i < len(pend):
+            chunk = pend[i:]
+            gate = self._gate_args()
+            n_delta = len(gate[1]) if gate else 0
+            n_done, punted, recs = nat.run(chunk, gate=gate)
+            if n_delta:
+                # the session absorbed these Python-lane landings
+                del self._gate_seen_delta[:n_delta]
+            for entry, (status, fee, writes) in zip(chunk, recs):
+                cu = self._native_cu(entry, status, fee)
+                addrs = entry[2]
+                for idx, val in writes:
+                    self.funk.rec_insert(self.xid, addrs[idx], val)
+                self._finish(TxnResult(status, fee, cu), entry[6], entry[4], entry[5],
+                             native=True)
+            i += n_done
+            self.native_done_cnt += n_done
+            if punted and i < len(pend):
+                self.native_punt_cnt += 1
+                self._run_ungated(pend[i])
+                i += 1
+                # the punted txn ran on the Python lane and dirtied its
+                # accounts: the remainder's session-known values for them
+                # ship fresh, the first shipper resyncing the session
+                dirty = self._native_dirty
+                if dirty:
+                    for entry in pend[i:]:
+                        vals = entry[3]
+                        for j, a in enumerate(entry[2]):
+                            if a in dirty:
+                                vals[j] = self.funk.rec_query(self.xid, a) or b""
+                                dirty.discard(a)
+            elif n_done == 0:
+                raise exec_native.NativeExecError(
+                    f"fd_exec_batch2 made no progress on {len(chunk)} txns")
 
     def seal(self, poh_hash: bytes = b"\x00" * 32,
              waves: list[list[int]] | None = None) -> BlockResult:

@@ -12,7 +12,11 @@ firedancer_tpu/models/leader.py):
 Pack is the fused native lane by default (native_pack=True:
 runtime/pack_stage.NativePackStage, the lane the JAX leader resolves to on
 a host with a compiler); native_pack=False puts the dedup stage and the
-Python PackStage there instead.
+Python PackStage there instead.  The banks execute on their BankCtx's
+lane: the native executor lane by default (BankCtx(native_exec=True),
+flamenco/exec_native.py, the JAX leader's default too); a bank_ctx built
+with native_exec=False runs the Python lane.  Verify parses
+each packet with the native parser (protocol/txn_native.py).
 
 `build_leader_pipeline` and `build_sharded_leader_pipeline` produce a
 block: pack schedules, the banks execute and commit into one shared bank
@@ -445,7 +449,10 @@ def build_leader_pipeline(
     pays more per cost unit, else it is dropped (txn_dropped).
     native_pack=True (the default) is the fused native pack lane, with
     dedup inside pack and `dedup` None; False puts the dedup stage and the
-    Python pack there.  Either lane's library build failing raises.
+    Python pack there.  The banks run on bank_ctx's executor lane
+    (default_bank_ctx's is the native one; pass
+    default_bank_ctx(native_exec=False) for the Python lane).  Any native
+    library's build failing raises.
 
     slot_clock (runtime/slot_clock.SlotClockCfg, anchored here once, or a
     built SlotClock, passed through as is) runs the pipeline against the

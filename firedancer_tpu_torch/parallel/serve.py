@@ -361,7 +361,7 @@ class ShardedVerifyStage(VerifyStage):
         got = self._intake(payload)
         if got is None:
             return
-        sigs, msg, signers, t = got
+        sigs, msg, signers, packed = got
         acc = self._shards[in_idx]
         if acc.elems and len(acc.elems) + len(sigs) > self.batch:
             # this shard's lane range is full: close the WHOLE step (the
@@ -373,7 +373,7 @@ class ShardedVerifyStage(VerifyStage):
             acc.elems.append((msg, s, pk))
         acc.ranges.append((start, len(acc.elems)))
         acc.payloads.append(payload)
-        acc.descs.append(t)
+        acc.descs.append(packed)
         acc.tsorigs.append(frag.tsorig)
         if len(acc.elems) >= self.batch:
             self._close_batch()

@@ -28,8 +28,12 @@ deadline close is structural: a microblock commits atomically inside
 after_frag, so a boundary only ever falls between microblocks.  The
 port's stages have no flight recorder: the counter carries the outcome.
 
-Not ported: the native executor and the bank sweep lane
-(runtime/bank_native.py).
+Each microblock goes through SlotExecution.execute_batch, on the native
+executor lane by default (BankCtx(native_exec=True), flamenco/exec_native.py):
+`native_exec` counts the txns the C++ lane committed and `native_punt` its
+punts resumed on the Python lane.  Not ported: the bank sweep lane
+(runtime/bank_native.py) and with it BankCtx.preload, native_sync and
+native_apply_*.
 """
 
 from __future__ import annotations
@@ -59,7 +63,9 @@ def parse_microblock(frame: bytes) -> tuple[int, list[bytes]]:
 class BankCtx:
     """The pipeline's live bank: one funk fork + SlotExecution shared by
     every bank stage (and by the pipeline's seal/publish at end of slot).
-    `device` is where seal runs K13 (default the card)."""
+    `device` is where seal runs K13 (default the card); native_exec picks
+    the SlotExecution's lane, and on the native lane the library is built
+    here, before the first microblock."""
 
     def __init__(
         self,
@@ -72,11 +78,17 @@ class BankCtx:
         blockhashes: tuple[bytes, ...] = (),
         executor=None,
         device=None,
+        native_exec: bool = True,
     ):
         from ..funk import make_funk
         from ..utils.platform import resolve_device
 
         self.device = resolve_device(device)
+        self.native_exec = native_exec
+        if native_exec:
+            from ..flamenco import exec_native
+
+            exec_native.load()
         self.funk = funk if funk is not None else make_funk()
         self.slot = slot
         self.status_cache = status_cache
@@ -108,6 +120,7 @@ class BankCtx:
                 executor=self._executor,
                 status_cache=self.status_cache,
                 device=self.device,
+                native_exec=self.native_exec,
             )
         return self._sx
 
@@ -134,6 +147,7 @@ def default_bank_ctx(
     payer_lamports: int = 10**12,
     with_status_cache: bool = True,
     device=None,
+    native_exec: bool = True,
 ) -> BankCtx:
     """A ctx pre-funded for the synthetic benchg load: the generator's
     payer accounts exist with lamports (fees + transfers clear) and the
@@ -146,6 +160,7 @@ def default_bank_ctx(
         status_cache=StatusCache() if with_status_cache else None,
         blockhashes=(pool_blockhash(seed),),
         device=device,
+        native_exec=native_exec,
     )
     for _, pub in pool_payers(seed, n_payers):
         ctx.fund(pub, payer_lamports)
@@ -184,7 +199,15 @@ class BankStage(Stage):
         for f in frags:
             psz = int.from_bytes(f[-2:], "little")
             items.append((f[:psz], None, f[psz:-2]))
+        # the native lane's share, bracketed on the shared SlotExecution's
+        # counts (bank stages sharing a ctx run in one thread, in turn)
+        sx = self.ctx.sx
+        nd0, np0 = sx.native_done_cnt, sx.native_punt_cnt
         results = self.ctx.execute_batch(items)
+        if sx.native_done_cnt != nd0:
+            self.metrics.inc("native_exec", sx.native_done_cnt - nd0)
+        if sx.native_punt_cnt != np0:
+            self.metrics.inc("native_punt", sx.native_punt_cnt - np0)
         sigs = []
         txns = []
         for (p, _desc, db), r in zip(items, results):

@@ -3,12 +3,15 @@
 
 Semantics follow the reference's verify tile and the JAX package's stage:
 
-  - parse the txn (drop on malformed);
+  - parse the txn with the native parser (protocol/txn_native.py; drop on
+    malformed) and read its signatures, message and signers straight off
+    the packed descriptor: no Txn is built;
   - a tiny per-stage tcache keyed on the first signature guards duplicate
     spam racing across round-robin peers (the real dedup is the downstream
     DedupStage's big tcache);
   - verify EVERY signature; a txn passes only if all its signatures pass;
-  - publish payload + packed descriptor, so downstream never reparses.
+  - publish payload + the parser's packed descriptor as it came, so
+    downstream never reparses and nothing packs it again.
 
 Txns accumulate into fixed-shape batches (a txn is never split across two);
 a batch closes when full or when its deadline passes in after_credit; up to
@@ -48,6 +51,7 @@ import torch
 
 from ..ops import sigverify as sv
 from ..protocol import txn as ft
+from ..protocol import txn_native
 from ..tango.rings import TCache
 from ..utils import metrics as fm
 from ..utils.platform import resolve_device
@@ -64,12 +68,29 @@ def sig_tag(sig: bytes) -> int:
     return int.from_bytes(sig[:8], "little") or 1
 
 
+def _packed_fields(payload: bytes, packed: bytes):
+    """(signatures, message, signers) read straight off the packed
+    descriptor (txn_pack's layout)."""
+    sig_cnt = packed[1]
+    sig_off = packed[2] | (packed[3] << 8)
+    msg_off = packed[4] | (packed[5] << 8)
+    acct_off = packed[9] | (packed[10] << 8)
+    sigs = [payload[sig_off + 64 * i : sig_off + 64 * (i + 1)] for i in range(sig_cnt)]
+    signers = [payload[acct_off + 32 * i : acct_off + 32 * (i + 1)] for i in range(sig_cnt)]
+    return sigs, payload[msg_off:], signers
+
+
+def _packed_first_sig(payload: bytes, packed: bytes) -> bytes:
+    sig_off = packed[2] | (packed[3] << 8)
+    return payload[sig_off : sig_off + 64]
+
+
 @dataclass
 class _Acc:
     """One accumulating fixed-shape batch."""
 
     payloads: list = field(default_factory=list)
-    descs: list = field(default_factory=list)
+    descs: list = field(default_factory=list)  # packed descriptors
     elems: list = field(default_factory=list)  # [(msg, sig, pubkey)]
     ranges: list = field(default_factory=list)  # per txn (start, end)
     tsorigs: list = field(default_factory=list)
@@ -148,6 +169,7 @@ class VerifyStage(Stage):
                 f" (batch={plane.cfg.batch}, max_msg_len={plane.cfg.max_msg_len})")
         self.device = (plane.device if plane is not None and device is None
                        else resolve_device(device))
+        txn_native.load()  # the parser's library is built now, not mid-stream
         self.kernel = kernel
         self.batch = batch
         self.max_msg_len = max_msg_len
@@ -189,17 +211,18 @@ class VerifyStage(Stage):
     # -- intake ----------------------------------------------------------------
 
     def _intake(self, payload: bytes):
-        """Parse and guard one frag -> (sigs, msg, signers, txn) or None
-        after counting the drop."""
-        t = ft.txn_parse(payload)
-        if t is None:
+        """Parse and guard one frag -> (sigs, msg, signers, packed
+        descriptor) or None after counting the drop."""
+        packed = txn_native.txn_parse_packed(payload)
+        # the trailer must be exactly its declared fixed-layout length
+        # (instruction and lookup counts at bytes 16 and 13)
+        if packed is None or len(packed) != ft.txn_packed_sz(packed[16], packed[13]):
             self.metrics.inc("parse_fail")
             return None
-        sigs = t.signatures(payload)
+        sigs, msg, signers = _packed_fields(payload, packed)
         if self.tcache.insert(sig_tag(sigs[0])):
             self.metrics.inc("dedup_dup")
             return None
-        msg = t.message(payload)
         if len(msg) > self.max_msg_len:
             self.metrics.inc("msg_too_long")
             return None
@@ -208,10 +231,10 @@ class VerifyStage(Stage):
         if len(sigs) > self.batch:
             self.metrics.inc("too_many_sigs")
             return None
-        return sigs, msg, t.signers(payload), t
+        return sigs, msg, signers, packed
 
     def _accumulate(self, got, payload: bytes, tsorig: int) -> None:
-        sigs, msg, signers, t = got
+        sigs, msg, signers, packed = got
         self.metrics.observe("msg_len", len(msg))
         slots = self._signer_slots(signers)
         acc = self._comb if slots is not None else self._gen
@@ -225,7 +248,7 @@ class VerifyStage(Stage):
             acc.slots.extend(slots)
         acc.ranges.append((start, len(acc.elems)))
         acc.payloads.append(payload)
-        acc.descs.append(t)
+        acc.descs.append(packed)
         acc.tsorigs.append(tsorig)
         if len(acc.elems) >= self.batch:
             self._close_batch(acc)
@@ -441,20 +464,20 @@ class VerifyStage(Stage):
                 all_ok = bool(mask[: head.n_elems].all())
             acc = head.acc
             emits = []
-            for payload, t, (a, b), tsorig in zip(acc.payloads, acc.descs,
-                                                  acc.ranges, acc.tsorigs):
+            for payload, packed, (a, b), tsorig in zip(acc.payloads, acc.descs,
+                                                       acc.ranges, acc.tsorigs):
                 if all_ok or bool(mask[a:b].all()):
-                    emits.append(self._encode_emit(payload, t, tsorig))
+                    emits.append(self._encode_emit(payload, packed, tsorig))
                 else:
                     self.metrics.inc("verify_fail")
             self._emit_burst(emits)
             if block:
                 break
 
-    def _encode_emit(self, payload: bytes, t: ft.Txn, tsorig: int):
-        frame = encode_verified(payload, t)
+    def _encode_emit(self, payload: bytes, packed: bytes, tsorig: int):
+        frame = encode_verified_packed(payload, packed)
         # the first signature's tag rides in the frag sig for cheap dedup
-        return frame, sig_tag(t.signatures(payload)[0]), tsorig
+        return frame, sig_tag(_packed_first_sig(payload, packed)), tsorig
 
     def _emit_burst(self, emits: list) -> None:
         if emits:

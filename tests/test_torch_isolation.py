@@ -4,7 +4,8 @@
     jaxlib or the JAX package;
   - the port's host libraries (utils/hostbuild.py) build from its own
     sources in firedancer_tpu_torch/native/, never from the repo's
-    native/, into the port's own build folder;
+    native/, into the port's own build folder, and no module names an
+    FDTPU_NATIVE_* switch or a PARSER degrade;
   - the entry points, called without device=, raise the "no CUDA device"
     error on a machine without a card instead of running on the CPU;
   - a kernel wrapper given CPU tensors runs its plain version and its
@@ -101,7 +102,7 @@ def _host_libraries() -> set[str]:
 
 def test_host_libraries_build_from_the_ports_own_sources():
     names = _host_libraries()
-    assert names == {"fd_pack", "fd_tcache"}
+    assert names == {"fd_pack", "fd_tcache", "fd_exec_native", "fd_txn_parse"}
     native = os.path.join(PKG, "native")
     assert hostbuild.NATIVE_DIR == native
     assert sorted(os.listdir(native)) == sorted(f"{n}.cpp" for n in names)
@@ -116,6 +117,22 @@ def test_host_libraries_build_from_the_ports_own_sources():
                 assert path == os.path.join(PKG, "utils", "hostbuild.py"), path
     hostbuild.load("fd_tcache")
     assert all(p.startswith(hostbuild.BUILD_ROOT) for p in hostbuild._LIBS)
+
+
+def test_no_switch_or_degrade_picks_a_python_lane():
+    """No port module reads the JAX package's lane switches or keeps a
+    parser degrade: a native lane is picked by an argument, and a failed
+    build raises."""
+    bad = []
+    for path in _sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and node.value.startswith("FDTPU_NATIVE"):
+                bad.append((os.path.relpath(path, ROOT), node.value))
+            if isinstance(node, ast.Name) and node.id == "PARSER":
+                bad.append((os.path.relpath(path, ROOT), node.id))
+    assert bad == []
 
 
 def _no_card():
@@ -133,7 +150,8 @@ def _no_card():
     "leader_block", "bmtree_hash_leaves_batch", "bmtree_layers_batch",
     "bmtree_root_batch", "clock_leader_pipeline", "clock_fused_leader_pipeline",
     "python_pack_leader_pipeline", "python_pack_sharded_leader_pipeline", "zk_bank_ctx",
-    "native_pack_leader_block"])
+    "native_pack_leader_block", "python_exec_bank_ctx", "python_exec_default_bank_ctx",
+    "python_exec_nonce_bank_ctx"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -178,6 +196,9 @@ def test_entry_points_default_to_the_card(call):
             [b"x"], native_pack=False),
         "zk_bank_ctx": lambda: tw.zk_bank_ctx(tw.ZkStream([], {}, set(), {}, {}, {}, 1, b"b")),
         "native_pack_leader_block": lambda: tentry.leader_block([b"x"], native_pack=False),
+        "python_exec_bank_ctx": lambda: BankCtx(native_exec=False),
+        "python_exec_default_bank_ctx": lambda: default_bank_ctx(native_exec=False),
+        "python_exec_nonce_bank_ctx": lambda: tw.nonce_bank_ctx(1, native_exec=False),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
