@@ -184,8 +184,10 @@ script or when a phase fails):
               N = 1,040, 2,048 and 65,536
   17. leader  build_leader_pipeline (benchg -> verify -> pack, dedup
               fused into pack's native lane -> bank x2 -> poh -> shred ->
-              store; every leader phase takes that default lane, the banks
-              the native executor lane and verify the native parser, the
+              store, over shared-memory links with the native ring
+              endpoints; every leader phase takes that default lane, the
+              banks the native executor lane inside the bank sweep lane and
+              verify the native parser, the
               host libraries built with g++ in phase 2 beside the kernels'
               nvcc) over 8,192 transfers (8
               payers, 1,024 destinations) at batch 1,024 and max_msg_len
@@ -193,7 +195,10 @@ script or when a phase fails):
               equal PoH's entries, replay_block reproduces the seal, K13
               once per seal, K5 once or twice per shredded entry batch, K1
               once per verify batch, native_exec > 0; txn/s to the store
-              and the host seconds per stage and seal phase.  Phases 17,
+              and the host seconds per stage and seal phase; then
+              [leader-rings]: the same pool four times more, warm, on the
+              native and Python rings in turns (no seal): txn/s, sweeps and
+              host seconds per stage.  Phases 17,
               17d, 17f, 17g and 17h each print a [native-exec] line: the
               banks' native_exec and native_punt counts
   17b. lossy  phase 17's FEC sets with 1 to p shreds of each dropped,
@@ -237,7 +242,9 @@ script or when a phase fails):
               times: (a) unfused, (b) fuse_poh_shred=True, (c)
               shed_keep=256, (d) as (a) on the Python pack lane
               (native_pack=False: the dedup stage and PackStage), (e) as
-              (a) on the Python executor lane (native_exec=False).
+              (a) on the Python executor lane (native_exec=False), (f) as
+              (a) on the Python shm rings (native_ring=False: no drain
+              plan and no bank sweep lane).
               Each: sealed + missed = 16 with one sealed at least, ticks +
               skipped ticks = 64 x 16, 1 <= blocks_closed <= 16, landed +
               shed = the verified txns and none dropped, the deshredded
@@ -245,7 +252,13 @@ script or when a phase fails):
               seal and its statuses, every landed durable txn ok and every
               nonce advanced against the parent bank hash if its txn landed
               or kept if it was shed, K1 once per verify batch, K5 once or
-              twice per entry batch, K13 once; (a), (b) and (d) shed nothing
+              twice per entry batch, K13 once; [<tag>-gc] (here and in
+              17f-17h): the cyclic GC's collections inside the window by
+              generation, the longest and their sum in ms, and the objects
+              the clocked build froze (models/leader.HeapHold) and left
+              frozen after close(), and the ms of the build's full pass
+              before the clock's anchor (what one inside the window would
+              cost); (a), (b) and (d) shed nothing
               and land all 256 durable txns, (b), (d) and (e) land (a)'s
               signatures, (c) sheds; (a) and (e) seal all 16 slots, (a)'s
               native_exec > 0 and (e)'s 0. A missed slot is a measured value, not
@@ -259,7 +272,17 @@ script or when a phase fails):
               store of (a) and (d) side by side; [exec-lanes]: (a) and (e),
               each with bank0's, bank1's and verify's host seconds, txn/s to
               the store, slots sealed, txns in the window, signatures and
-              native_exec / native_punt; [parser]: the native parser
+              native_exec / native_punt; [ring-lanes]: (a) and (f), each
+              with bank0's, bank1's, verify's, pack's and PoH's host
+              seconds, txn/s to the store, slots sealed and missed, txns in
+              the window, the bank sweep's counters (txns committed inside
+              the fdr_sweep crossing, microblocks all native, stashed,
+              credit waits, resumed on the Python lane; (a) commits some
+              inside the crossing and resumes every stash, (f) has no
+              sweep) and its bank hash, equal to its replay's; [rings]:
+              17e's 8,448 packets through one link on each lane, us a frag
+              for the Python publish against fdr_publish_burst and the
+              Python poll against fdr_drain, payloads equal; [parser]: the native parser
               (protocol/txn_native.py, the verify stage's) against the
               Python parse and pack over 17e's 8,448 packets, every
               descriptor equal, in us a packet on the host clock
@@ -380,6 +403,7 @@ The script imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import hashlib
 import json
 import os
@@ -537,8 +561,13 @@ SBPF_MIX = dict(n_legacy=5040, n_counter=2048, n_hasher=512, n_vault=512, n_vaul
 ZK_MIX = dict(n_legacy=6000, n_pubkey_validity=512, n_zero_ciphertext=512, n_from_account=64,
               n_context=64, n_range_u64=8, n_range_u128=4, n_range_u256=2, n_fail=64,
               n_dests=1024, n_zk_payers=64)
-HOST_LIBS = ("fd_tcache", "fd_pack", "fd_exec_native", "fd_txn_parse")  # utils/hostbuild.py's
-# libraries, built in phase 2
+HOST_LIBS = ("fd_tcache", "fd_pack", "fd_exec_native", "fd_txn_parse", "fd_ring",
+             "fd_bank")  # utils/hostbuild.py's libraries, built in phase 2
+# phase 17e: the banks' sweep-lane counters summed over the banks, and the
+# [rings] link's depth (the 8,448 packets fit) and burst (a stage sweep's)
+BANK_SWEEP_KEYS = ("bank_txn_native", "bank_mb_native", "bank_mb_stashed", "bank_credit_waits",
+                   "bank_mb_resumed", "bank_mb_dropped")
+RINGS_DEPTH, RINGS_BURST = 16384, 16
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
@@ -1417,9 +1446,10 @@ def main() -> int:
     from firedancer_tpu_torch.runtime.poh_stage import parse_entry
     from firedancer_tpu_torch.runtime.shred_stage import deshred_entry_batch
     from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
-    from firedancer_tpu_torch.runtime.stage import Consumer, Frag, Link
     from firedancer_tpu_torch.runtime.store import StoreStage
     from firedancer_tpu_torch.runtime.verify import encode_verified
+    from firedancer_tpu_torch.tango import native as tnat
+    from firedancer_tpu_torch.tango import shm as tshm
     from firedancer_tpu_torch.utils.metrics import hist_quantile as tune_quantile
     from firedancer_tpu_torch.utils import hostbuild, kbuild
     from firedancer_tpu_torch.utils import sass as fsass
@@ -1444,6 +1474,9 @@ def main() -> int:
         f" sms={props.multi_processor_count} max_sm_clock={clk_mhz} MHz"
         f" torch={torch.__version__} cuda={torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
+    shm_st = os.statvfs("/dev/shm")
+    log(f"[device] /dev/shm: {shm_st.f_blocks * shm_st.f_frsize / 2**20:.0f} MiB, "
+        f"{shm_st.f_bavail * shm_st.f_frsize / 2**20:.0f} MiB free (the pipelines' shm links)")
     # the K5 plain version's float32 matmul is exact in full float32; TF32
     # would also be exact for 0/1 inputs, but the reference says what it runs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1830,6 +1863,7 @@ def main() -> int:
         pipe.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        pipe.close()
         rep = pipe.report()
         check_run(rep, pipe.sink, "verify pipeline")
         return run_s, rep
@@ -2072,6 +2106,7 @@ def main() -> int:
         pipe10.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        pipe10.close()
         rep = pipe10.report()
         check_run(rep, pipe10.sink, "plane pipeline",
                   (("router", "routed_total", len(vs.stream)),
@@ -2360,6 +2395,7 @@ def main() -> int:
         pipe.run_waves(ends13)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        pipe.close()
         rep = pipe.report()
         la = dict(kbuild.LAUNCHES)
         v = rep["verify"]
@@ -2629,6 +2665,7 @@ def main() -> int:
         pipe.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        pipe.close()
         rep = pipe.report()
         nb = rep["verify"]["batches"]
         check_run(rep, pipe.sink, "split pipeline",
@@ -2670,6 +2707,7 @@ def main() -> int:
     pipe15b.run()
     torch.cuda.synchronize()
     run15b_s = time.perf_counter() - t0
+    pipe15b.close()
     rep15b = pipe15b.report()
     check_run(rep15b, pipe15b.sink, "plane-hook pipeline",
               launches={"verify_batch": rep15b["verify"]["batches"], "sha256_iter32": 0})
@@ -2688,6 +2726,7 @@ def main() -> int:
         pipe.run_waves(ends13)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        pipe.close()
         rep = pipe.report()
         where = f"autotune_after={autotune_after} pipeline"
         for stage, key, want in (("verify", "txn_verified", e13["txn_verified"]),
@@ -2798,6 +2837,7 @@ def main() -> int:
         pipe17.run()
         torch.cuda.synchronize()
         run17_s = time.perf_counter() - t0
+        pipe17.close()
         t0 = time.perf_counter()
         seal17 = pipe17.seal()
         seal17_s = time.perf_counter() - t0
@@ -2848,6 +2888,27 @@ def main() -> int:
     ne17 = native_counts(rep17, pipe17.banks)
     check(ne17[0] > 0, f"leader pipeline: the native executor lane ran no txn {ne17}")
     log(f"[native-exec] 17: native_exec {ne17[0]}, native_punt {ne17[1]} ({landed17} landed)")
+    # phase 17's pool again on each ring lane, warm, in turns (no seal): the
+    # rings' end-to-end effect outside the slot clock
+    rings17: dict[str, list] = {"native": [], "python": []}
+    for lane_ in ("native", "python", "python", "native"):
+        p_ = build_leader_pipeline(pool17, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
+                                   pack_depth=LEADER_TXNS, native_ring=lane_ == "native")
+        t0 = time.perf_counter()
+        p_.run()
+        torch.cuda.synchronize()
+        dt_ = time.perf_counter() - t0
+        p_.close()
+        landed_ = sum(b.metrics.get("txn_exec") for b in p_.banks)
+        check(landed_ == LEADER_TXNS, f"leader-rings: {lane_} rings landed {landed_}")
+        rings17[lane_].append((landed_ / dt_, p_.sweeps, {k: round(v, 4) for k, v
+                                                          in sorted(p_.stage_s.items())}))
+    log(f"[leader-rings] phase 17's pool again, warm, in turns native / python / python /"
+        f" native rings: txn/s to the store {[round(r_[0]) for r_ in rings17['native']]} native,"
+        f" {[round(r_[0]) for r_ in rings17['python']]} python; sweeps"
+        f" {[r_[1] for r_ in rings17['native']]} / {[r_[1] for r_ in rings17['python']]};"
+        f" host seconds native {json.dumps(rings17['native'][0][2])}, python"
+        f" {json.dumps(rings17['python'][0][2])}")
 
     # -- 17b. lossy receive: up to p shreds of each set dropped, full verification -------------
     mark("17b")
@@ -2859,22 +2920,27 @@ def main() -> int:
                               replace=False).tolist())
         need17 += any(i < len(st.data_shreds) for i in gone)
         wire17 += [x for i, x in enumerate(shreds) if i not in gone]
-    link17 = Link("lossy", len(wire17) + 1)
+    link17 = tshm.ShmLink.create(f"fdtpu_torch_lossy_{tshm.fresh_uid()}",
+                                 depth=1 << len(wire17).bit_length(), mtu=1232)
+    feed17 = tshm.make_producer(link17)
     for x in wire17:
-        link17.q.append((Frag(0, 0, 0), x))
+        check(feed17.try_publish(x), "lossy store: the shred link refused a shred")
     pub17 = pipe17.leader_pub
-    store17b = StoreStage("store_lossy", [Consumer(link17)], trust_membership=False,
+    store17b = StoreStage("store_lossy", [tshm.make_consumer(link17)], trust_membership=False,
                           verify_sig=lambda root, sig: ref.verify(root, sig, pub17), device=dev)
     kbuild.reset_launches()
     g2.gf_apply_batch = k5_recording("17b")
     try:
         t0 = time.perf_counter()
-        while link17.q:
+        while store17b.ins[0].has_pending():
             store17b.run_once()
         torch.cuda.synchronize()
         lossy17_s = time.perf_counter() - t0
     finally:
         g2.gf_apply_batch = k5_launch
+        store17b.drop_native_views()
+        link17.close()
+        link17.unlink()
     launches17b = dict(kbuild.LAUNCHES)
     check(store17b.entry_batch_bytes(1) == batch17, "lossy store: entry bytes differ")
     check(launches17b.get("gf256_apply", 0) == need17 > 0,
@@ -2909,6 +2975,7 @@ def main() -> int:
     pipe17c.finish()
     torch.cuda.synchronize()
     run17c_s = time.perf_counter() - t0
+    pipe17c.close()
     seal17c = pipe17c.seal()
     launches17c = dict(kbuild.LAUNCHES)
     rep17c = pipe17c.report()
@@ -2967,6 +3034,7 @@ def main() -> int:
     pipe17d.run()
     torch.cuda.synchronize()
     run17d_s = time.perf_counter() - t0
+    pipe17d.close()
     t0 = time.perf_counter()
     seal17d = pipe17d.seal()
     seal17d_s = time.perf_counter() - t0
@@ -3064,21 +3132,44 @@ def main() -> int:
         stream is sent (under the wall cap), then finish: (run seconds,
         seconds to the window's close, txns landed in the window)."""
         kbuild.reset_launches()
+        # the cyclic GC's passes inside the window, (generation, seconds)
+        # each: the clocked build froze the heap, so none should scan it
+        gc_pauses, gc_t0 = [], [0.0]
+
+        def on_gc(phase_, info_):
+            if phase_ == "start":
+                gc_t0[0] = time.perf_counter()
+            elif in_window is None:
+                gc_pauses.append((info_["generation"], time.perf_counter() - gc_t0[0]))
+
         t0 = time.perf_counter()
         b_ = pipe.benchg
         in_window = None
         window_s = None
-        while not (pipe.poh.window_closed and b_._i >= b_.limit):
-            pipe._step(pipe.stages)
-            if in_window is None and pipe.poh.window_closed:
-                window_s = time.perf_counter() - t0
-                in_window = sum(b.metrics.get("txn_exec") for b in pipe.banks)
-            check(time.perf_counter() - t0 < CLOCK_WALL_S,
-                  f"{tag}: window closed {pipe.poh.window_closed}, {b_._i} of {b_.limit} sent"
-                  f" after {CLOCK_WALL_S} s")
+        gc.callbacks.append(on_gc)
+        try:
+            while not (pipe.poh.window_closed and b_._i >= b_.limit):
+                pipe._step(pipe.stages)
+                if in_window is None and pipe.poh.window_closed:
+                    window_s = time.perf_counter() - t0
+                    in_window = sum(b.metrics.get("txn_exec") for b in pipe.banks)
+                check(time.perf_counter() - t0 < CLOCK_WALL_S,
+                      f"{tag}: window closed {pipe.poh.window_closed}, {b_._i} of {b_.limit} sent"
+                      f" after {CLOCK_WALL_S} s")
+        finally:
+            gc.callbacks.remove(on_gc)
+        frozen = gc.get_freeze_count()
         pipe.finish()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, window_s, in_window
+        run_s = time.perf_counter() - t0
+        pipe.close()
+        log(f"[{tag}-gc] collections in the window by generation"
+            f" {[sum(g_ == k_ for g_, _ in gc_pauses) for k_ in range(3)]}, longest"
+            f" {1e3 * max([d_ for _, d_ in gc_pauses] or [0.0]):.3f} ms, all"
+            f" {1e3 * sum(d_ for _, d_ in gc_pauses):.3f} ms; {frozen} objects frozen by the"
+            f" clocked build, {gc.get_freeze_count()} after close(); the build's full pass"
+            f" before the anchor {1e3 * pipe.heap_hold.collect_s:.3f} ms")
+        return run_s, window_s, in_window
 
     def clock_leader(tag: str, native_exec: bool = True, **kw) -> dict:
         """One clocked leader run over stream17e: drive the window (and the
@@ -3163,8 +3254,10 @@ def main() -> int:
         return dict(launches=launches, landed=landed, shed=shed, sigs=sorted(
             ft.txn_parse(p_).signatures(p_)[0] for p_ in block), advanced=sum(advanced),
             durable_ok=durable_ok, split=split, txn_s=landed / run_s, lag=(lag50, lag99),
-            sealed=sealed_, in_window=in_window, signature_cnt=seal.signature_cnt,
-            native=native_counts(rep, pipe.banks))
+            sealed=sealed_, missed=missed_, in_window=in_window,
+            signature_cnt=seal.signature_cnt, native=native_counts(rep, pipe.banks),
+            sweep={k: sum(rep[b.name].get(k, 0) for b in pipe.banks) for k in BANK_SWEEP_KEYS},
+            bank_hash=seal.bank_hash, sweeps=pipe.sweeps)
 
     r17e = clock_leader("clock-leader")
     check(r17e["shed"] == 0 and r17e["durable_ok"] == r17e["advanced"] == CLOCK_DURABLE,
@@ -3207,6 +3300,79 @@ def main() -> int:
             f" slots sealed {r_['sealed']} of {CLOCK_SLOTS}; {r_['in_window']} txns in the window"
             f" of {r_['landed']} landed; {r_['signature_cnt']} signatures; native_exec"
             f" {r_['native'][0]}, native_punt {r_['native'][1]}")
+    # (f) 17e (a) on the Python shm rings: no drain plan, no bank sweep lane
+    r17e_pr = clock_leader("clock-leader-python-rings", native_ring=False)
+    check(r17e_pr["shed"] == 0 and r17e_pr["durable_ok"] == CLOCK_DURABLE
+          and r17e_pr["sigs"] == r17e["sigs"]
+          and r17e_pr["signature_cnt"] == r17e["signature_cnt"],
+          "clock-leader-python-rings: landed signatures differ from the native rings'")
+    check(r17e["sweep"]["bank_txn_native"] > 0 and r17e["sweep"]["bank_mb_dropped"] == 0,
+          f"clock-leader: the banks' sweep lane committed nothing in the crossing {r17e['sweep']}")
+    check(r17e["sweep"]["bank_mb_resumed"] == r17e["sweep"]["bank_mb_stashed"],
+          f"clock-leader: stashed microblocks not all resumed {r17e['sweep']}")
+    check(not any(r17e_pr["sweep"].values()), f"clock-leader-python-rings: {r17e_pr['sweep']}")
+    for lane_, r_ in (("native", r17e), ("python", r17e_pr)):
+        sp_ = r_["split"]
+        log(f"[ring-lanes] 17e {'(a)' if lane_ == 'native' else '(f)'} {lane_} rings:"
+            f" bank0 {sp_.get('bank0', 0.0):.4f} s, bank1 {sp_.get('bank1', 0.0):.4f} s,"
+            f" verify {sp_.get('verify0', 0.0):.4f} s, pack {sp_.get('pack', 0.0):.4f} s,"
+            f" poh {sp_.get('poh', 0.0):.4f} s host; {r_['txn_s']:.0f} txn/s to the store;"
+            f" slots sealed {r_['sealed']}, missed {r_['missed']}; {r_['in_window']} txns in"
+            f" the window of {r_['landed']} landed; bank sweep: txns committed in the crossing"
+            f" {r_['sweep']['bank_txn_native']}, microblocks all native"
+            f" {r_['sweep']['bank_mb_native']}, stashed {r_['sweep']['bank_mb_stashed']}"
+            f" (credit waits {r_['sweep']['bank_credit_waits']}), resumed"
+            f" {r_['sweep']['bank_mb_resumed']}; {r_['sweeps']} sweeps; bank hash"
+            f" {r_['bank_hash'].hex()[:16]} equals its replay's")
+    # the ring lanes alone over 17e's packets: a frag's publish and poll
+    # on the Python lane against fdr_publish_burst and fdr_drain in bursts
+    # of a stage sweep's 16 frags
+    rings_us = {}
+    for lane_ in ("python", "native"):
+        rl_ = tshm.ShmLink.create(f"fdtpu_torch_rings_{tshm.fresh_uid()}",
+                                  depth=RINGS_DEPTH, mtu=1232)
+        try:
+            prod_ = tshm.make_producer(rl_, native=lane_ == "native")
+            cons_ = tshm.make_consumer(rl_, native=lane_ == "native")
+            items_ = [(p_, i_, 1 + i_) for i_, p_ in enumerate(stream17e)]
+            got_ = []
+            t0 = time.perf_counter()
+            if lane_ == "native":
+                for o_ in range(0, len(items_), RINGS_BURST):
+                    check(prod_.publish_burst(items_[o_:o_ + RINGS_BURST])
+                          == len(items_[o_:o_ + RINGS_BURST]), "rings: publish_burst short")
+            else:
+                for p_, sig_, ts_ in items_:
+                    check(prod_.try_publish(p_, sig=sig_, tsorig=ts_), "rings: publish refused")
+            pub_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if lane_ == "native":
+                dr_ = tnat.BurstDrainer([cons_], RINGS_BURST)
+                rr_ = 0
+                while True:
+                    n_, rr_, _ = dr_.drain(rr_, RINGS_BURST)
+                    if not n_:
+                        break
+                    rows_ = dr_.meta[:n_].tolist()
+                    buf_ = dr_.arena[: rows_[-1][2] + rows_[-1][3]].tobytes()
+                    got_ += [buf_[r_[2]:r_[2] + r_[3]] for r_ in rows_]
+                del dr_
+            else:
+                while isinstance(res_ := cons_.poll(), tuple):
+                    got_.append(res_[1])
+            poll_s = time.perf_counter() - t0
+            check(got_ == stream17e, f"rings: the {lane_} lane's payloads differ from the stream")
+            rings_us[lane_] = (pub_s * 1e6 / len(items_), poll_s * 1e6 / len(items_))
+            del prod_, cons_
+        finally:
+            rl_.close()
+            rl_.unlink()
+    log(f"[rings] {len(stream17e)} packets of 17e through one link (depth {RINGS_DEPTH}, mtu"
+        f" 1,232), payloads equal on both lanes: python publish {rings_us['python'][0]:.3f} us"
+        f" a frag, fdr_publish_burst {rings_us['native'][0]:.3f} us a frag (bursts of"
+        f" {RINGS_BURST}); python poll {rings_us['python'][1]:.3f} us a frag, fdr_drain"
+        f" {rings_us['native'][1]:.3f} us a frag (bursts of {RINGS_BURST}, the payload copy"
+        f" out of the arena included); host clock, one pass each")
     # the verify stage's per-packet parse over 17e's packets: the native
     # parser it runs against the Python parse and pack it replaced
     t0 = time.perf_counter()

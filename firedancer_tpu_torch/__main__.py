@@ -73,8 +73,11 @@ def cmd_run(args) -> int:
                                      comb_slots=args.comb_slots, kernel=args.kernel,
                                      autotune_after=args.autotune_after)
     t0 = time.perf_counter()
-    pipe.run()
-    run_s = time.perf_counter() - t0
+    try:
+        pipe.run()
+        run_s = time.perf_counter() - t0
+    finally:
+        pipe.close()
     out = {
         "device": device_name(dev),
         "shards": args.shards or None,

@@ -104,10 +104,8 @@ def leader_block(stream: list[bytes], *, device=None, shards: int = 0,
     entry-batch bytes, the bank hash, txn/s to the store (txns landed over
     the run's host seconds, seal excluded) and the host seconds per
     stage."""
-    import time
-
     from .models.leader import build_leader_pipeline, build_sharded_leader_pipeline
-    from .utils.platform import device_name, resolve_device
+    from .utils.platform import resolve_device
 
     if shards:
         pipe = build_sharded_leader_pipeline(
@@ -122,6 +120,17 @@ def leader_block(stream: list[bytes], *, device=None, shards: int = 0,
                                      max_msg_len=max_msg_len, n_bank=n_bank, slot=slot,
                                      pack_depth=pack_depth, native_pack=native_pack)
         warmup_s = None
+    try:
+        return _run_block(pipe, stream, shards, slot, warmup_s)
+    finally:
+        pipe.close()
+
+
+def _run_block(pipe, stream, shards, slot, warmup_s) -> dict:
+    import time
+
+    from .utils.platform import device_name
+
     dev = pipe.bank_ctx.device
     t0 = time.perf_counter()
     pipe.run()

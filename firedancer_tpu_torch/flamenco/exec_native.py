@@ -191,7 +191,7 @@ class BatchContext:
         if self._resp is None:
             self._resp = ctypes.create_string_buffer(self._resp_cap)
 
-    def run(self, entries, *, gate=None) -> tuple[int, bool, list]:
+    def run(self, entries, *, gate=None, refresh=None) -> tuple[int, bool, list]:
         """One fd_exec_batch(2) call.  entries: [payload, desc_bytes, addrs,
         vals, ...] lists; only the first four fields are read.  Returns
         (n_done, punted, [(status, fee, [(idx, value)])]).
@@ -200,9 +200,13 @@ class BatchContext:
         holds that account's current value.  `gate` arms the native
         status-cache gate: (valid_blockhashes, or None for unchanged since
         the last call; seen_delta, the 96-byte blockhash || signature
-        entries landed outside the session since the last call)."""
+        entries landed outside the session since the last call).  `refresh`
+        (session mode): (key, value) records merged into the session's
+        overlay before any txn runs, the bank sweep's resync of accounts the
+        Python lane wrote (runtime/bank.py), which has no per-txn value to
+        ride."""
         if self._session is not None:
-            return self._run_session(entries, gate)
+            return self._run_session(entries, gate, refresh or ())
         parts = [struct.pack("<II", _REQ_MAGIC, len(entries)), self._fixed]
         req_sz = 0
         for e in entries:
@@ -232,7 +236,7 @@ class BatchContext:
                 raise NativeExecError(f"fd_exec_batch rc={rc}")
             return self._parse(buf.raw[:rc])
 
-    def _run_session(self, entries, gate) -> tuple[int, bool, list]:
+    def _run_session(self, entries, gate, refresh) -> tuple[int, bool, list]:
         """The session crossing through the reused request arena: one
         capacity pass, then pack_into and slice assignment, no per-txn
         bytes objects and no per-call join or response allocation."""
@@ -243,6 +247,8 @@ class BatchContext:
             if valid_bh is not None:
                 need += 32 * len(valid_bh)
             need += 96 * len(seen_delta)
+        for _k, v in refresh:
+            need += 36 + len(v)
         for e in entries:
             need += _TXN_HEAD.size + len(e[0]) + len(e[1])
             for v in e[3]:
@@ -276,8 +282,14 @@ class BatchContext:
             a[o] = 0
             struct.pack_into("<II", a, o + 1, 0, 0)
             o += 9
-        struct.pack_into("<I", a, o, 0)  # no refresh records
+        struct.pack_into("<I", a, o, len(refresh))
         o += 4
+        for k, v in refresh:
+            a[o : o + 32] = k
+            struct.pack_into("<I", a, o + 32, len(v))
+            o += 36
+            a[o : o + len(v)] = v
+            o += len(v)
         for e in entries:
             payload, desc_bytes, vals = e[0], e[1], e[3]
             _TXN_HEAD.pack_into(a, o, len(payload), len(desc_bytes), len(vals))

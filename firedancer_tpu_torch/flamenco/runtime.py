@@ -30,8 +30,14 @@ one call of native/fd_exec_native.cpp against the slot's session, which
 holds the status-cache gate and an overlay of account values; a txn the
 C++ side punts resumes on the Python lane.  Both give the same statuses,
 fees, compute units, account bytes and bank hash.  Replay (`execute_block`)
-runs the Python lane.  The bank sweep (runtime/bank_native.py in the JAX
-package) is not ported.
+runs the Python lane.
+
+The bank sweep lane (runtime/bank_native.py) runs microblocks against the
+same session from C, before Python sees them; its protocol here:
+`native_sync` re-ships the status-cache delta and the accounts the Python
+lane wrote (refresh records) before each sweep, and `native_apply_rec`,
+`native_apply_batch` and `native_apply_group` apply the committed records
+to funk, in order, with the compute units the Python lane would report.
 """
 
 from __future__ import annotations
@@ -615,15 +621,15 @@ class SlotExecution:
             self._gate_shipped_version = sc.version
         return (valid, self._gate_seen_delta)
 
-    def _native_cu(self, entry, status: int, fee: int) -> int:
+    def _native_cu(self, payload: bytes, db: bytes, status: int, fee: int) -> int:
         """The compute units the Python lane reports for a txn the native
         lane ran: 0 without a fee, every instruction's builtin cost on
         success.  A failed txn's count stops at the instruction that failed,
         which the response does not carry: the txn runs again on a scratch
-        fork of the state it saw, which is then dropped."""
+        fork of the state it saw (so this is called before its writes
+        land), which is then dropped."""
         if fee == 0:
             return 0
-        payload, db = entry[0], entry[1]
         if status == TXN_SUCCESS:
             acct_off = db[9] | (db[10] << 8)
             cu = 0
@@ -663,7 +669,7 @@ class SlotExecution:
                 # the session absorbed these Python-lane landings
                 del self._gate_seen_delta[:n_delta]
             for entry, (status, fee, writes) in zip(chunk, recs):
-                cu = self._native_cu(entry, status, fee)
+                cu = self._native_cu(entry[0], entry[1], status, fee)
                 addrs = entry[2]
                 for idx, val in writes:
                     self.funk.rec_insert(self.xid, addrs[idx], val)
@@ -689,6 +695,80 @@ class SlotExecution:
             elif n_done == 0:
                 raise exec_native.NativeExecError(
                     f"fd_exec_batch2 made no progress on {len(chunk)} txns")
+
+    # -- the bank sweep's protocol (runtime/bank_native.py) ---------------------
+
+    def native_sync(self) -> None:
+        """Make the session coherent before a bank sweep, with ONE zero-txn
+        crossing when anything is owed: the status-cache gate's delta (the
+        Python lane's landings; the valid set when StatusCache.version
+        moved) and a refresh record for every account the Python lane wrote
+        since it last shipped.  The sweep's requests carry no account
+        values (the overlay is their only source), so this is the lane's
+        whole coherence protocol.  A failed crossing raises NativeExecError."""
+        sc = self.status_cache
+        dirty = self._native_dirty
+        if not dirty and (sc is None or (self._gate_seeded and not self._gate_seen_delta
+                                         and sc.version == self._gate_shipped_version)):
+            return
+        nat = self._native_for_batch()
+        gate = self._gate_args()
+        n_delta = len(gate[1]) if gate else 0
+        q = self.funk.rec_query
+        refresh = [(a, q(self.xid, a) or b"") for a in sorted(dirty)]
+        nat.run([], gate=gate, refresh=refresh)
+        if n_delta:
+            del self._gate_seen_delta[:n_delta]
+        self._native_known.update(dirty)
+        dirty.clear()
+
+    def native_apply_rec(self, payload: bytes, db: bytes, status: int, fee: int,
+                         writes) -> TxnResult:
+        """Apply one txn the sweep committed session-side: its compute units
+        (taken first, on the state it saw), its writes to funk with their
+        start-of-slot snapshots, and the landed bookkeeping.  writes:
+        [(acct_idx, value)], indices into the packed descriptor's account
+        table."""
+        cu = self._native_cu(payload, db, status, fee)
+        if writes:
+            acct_off = db[9] | (db[10] << 8)
+            before = self._before
+            q = self.funk.rec_query
+            for idx, val in writes:
+                a = payload[acct_off + 32 * idx : acct_off + 32 * (idx + 1)]
+                if a not in before:
+                    before[a] = q(self.parent_xid, a)
+                self.funk.rec_insert(self.xid, a, val)
+                self._native_known.add(a)
+                self._native_dirty.discard(a)
+        bh = sig = None
+        if fee > 0 and self.status_cache is not None:
+            sig_off = db[2] | (db[3] << 8)
+            bh_off = db[11] | (db[12] << 8)
+            bh = payload[bh_off : bh_off + 32]
+            sig = payload[sig_off : sig_off + 64]
+        self.native_done_cnt += 1
+        return self._finish(TxnResult(status, fee, cu), db[1], bh, sig, native=True)
+
+    def native_apply_batch(self, txns) -> list[TxnResult]:
+        """native_apply_rec over (payload, desc_bytes, status, fee, writes)
+        tuples, in order."""
+        return [self.native_apply_rec(*t) for t in txns]
+
+    def native_apply_group(self, frags, recs) -> tuple[int, int, int]:
+        """One sweep group's records against its verified frags (payload ||
+        packed descriptor || u16 payload size), in order: (landed, landed
+        but failed, rejected)."""
+        n_ok = n_fail = n_rej = 0
+        for frag, (status, fee, writes) in zip(frags, recs):
+            psz = frag[-2] | (frag[-1] << 8)
+            r = self.native_apply_rec(frag[:psz], frag[psz:-2], status, fee, writes)
+            if r.fee > 0:
+                n_ok += 1
+                n_fail += r.status != TXN_SUCCESS
+            else:
+                n_rej += 1
+        return n_ok, n_fail, n_rej
 
     def seal(self, poh_hash: bytes = b"\x00" * 32,
              waves: list[list[int]] | None = None) -> BlockResult:

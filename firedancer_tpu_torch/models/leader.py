@@ -28,14 +28,28 @@ against the wall-clock cadence (paced PoH, a seal or a counted miss at
 each deadline, pack's block close and load shedding), over one or more
 slots of a leader window.  `build_verify_pipeline` and
 `build_sharded_verify_pipeline` are the verify slice cut at pack: a sink
-counts and keeps the verified, deduplicated frames.  Stages talk over
-in-process links and run under a cooperative round-robin loop.
+counts and keeps the verified, deduplicated frames.
+
+Stages talk over shared-memory links (tango/shm.py) named
+`fdtpu_torch_<link>_<uid>` (uid = shm.fresh_uid(): pid and a counter) and
+run under a cooperative round-robin loop.  Each link's mtu is the JAX
+builder's (gv 1,232, vd and dp 4,096, pb and bp 65,536, bd 64, ps 65,536,
+ss 1,232; the port's router and sink links take their input's), at depth
+LINK_DEPTH.  The native endpoints sit on every link (tango/native.py: the stages drain
+through fdr_drain, and the banks, with the native executor lane, run the
+bank sweep lane inside fdr_sweep, runtime/bank_native.py); the leader
+builders' native_ring=False puts the Python ones there.
+`close()` tears the links down: every stage's views go, then the
+mappings close, then the names unlink; a pipeline that is never closed
+unlinks its names when it is collected.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import time
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
 
@@ -47,10 +61,105 @@ from ..runtime.pack_stage import NativePackStage, PackStage
 from ..runtime.poh_stage import PohStage
 from ..runtime.shred_stage import FusedPohShredStage, ShredStage
 from ..runtime.slot_clock import SlotClockCfg
-from ..runtime.stage import Consumer, Link, Producer, Stage
+from ..runtime.stage import Stage
 from ..runtime.store import StoreStage
 from ..runtime.verify import VerifyStage
+from ..tango import shm
 from ..utils.platform import resolve_device
+
+
+LINK_DEPTH = 4096
+# each link's mtu by its tag (the JAX builder's sizes)
+LINK_MTU = {"gv": 1232, "vd": 4096, "dp": 4096, "pb": 65536, "bp": 65536, "bd": 64,
+            "ps": 65536, "ss": 1232}
+# each consumer's lazy fseq cadence by its link's tag (the JAX builder's:
+# verify and pack intake 32, the banks' links 8, the store 64)
+LINK_LAZY = {"gv": 32, "vd": 32, "dp": 32, "pb": 8, "bp": 8, "bd": 8, "ps": 8, "ss": 64}
+
+
+class Rings:
+    """A pipeline's links: made with `link`, endpoints with `producer` and
+    `consumer` on the lane picked by `native`; `close` tears them down."""
+
+    def __init__(self, native: bool):
+        self.native = native
+        self.uid = shm.fresh_uid()
+        self.links: list[shm.ShmLink] = []
+        # a pipeline never closed still unlinks its names when collected
+        self._fin = weakref.finalize(self, _unlink, self.links)
+
+    def link(self, tag: str, mtu_of: str | None = None) -> shm.ShmLink:
+        """A link named by `tag`; its mtu is LINK_MTU's for `mtu_of`, or for
+        the tag without its index."""
+        link = shm.ShmLink.create(f"fdtpu_torch_{tag}_{self.uid}", depth=LINK_DEPTH,
+                                  mtu=LINK_MTU[mtu_of or tag.rstrip("0123456789")])
+        self.links.append(link)
+        return link
+
+    def producer(self, link: shm.ShmLink):
+        return shm.make_producer(link, native=self.native)
+
+    def consumer(self, link: shm.ShmLink, lazy_of: str):
+        return shm.make_consumer(link, lazy=LINK_LAZY[lazy_of], native=self.native)
+
+    def close(self, stages) -> None:
+        """Views first (every stage's endpoints and drain plans), then the
+        mappings, then the names."""
+        for s in stages:
+            for st in (s, getattr(s, "shred_half", None)):
+                if st is not None:
+                    st.ins = []
+                    st.outs = []
+                    st.drop_native_views()
+        gc.collect()
+        for link in self.links:
+            link.close()
+        self._fin()
+
+
+def _unlink(links) -> None:
+    for link in links:
+        try:
+            link.unlink()
+        except FileNotFoundError:
+            pass
+
+
+def _pending(consumers) -> bool:
+    return any(c.has_pending() for c in consumers)
+
+
+# clocked pipelines alive; the heap stays frozen while any is
+_frozen = 0
+
+
+def _thaw_heap() -> None:
+    global _frozen
+    _frozen -= 1
+    if _frozen == 0:
+        gc.unfreeze()
+
+
+class HeapHold:
+    """Keeps the cyclic GC's full pass out of a clocked leader window: made
+    before the clock's anchor, it collects, then moves every object alive
+    into the permanent generation (gc.freeze), so a collection inside the
+    window scans only what the pipeline and the window made.  A full pass
+    over a heap of millions of objects holds the one-process loop for
+    longer than a slot's grace, and a stall across a deadline is a missed
+    slot.  `collect_s` is the seconds that collection took: what a full
+    pass inside the window would cost.  `release()` (the pipeline's close)
+    or the hold's collection gives its share back; the last share out
+    thaws the heap."""
+
+    def __init__(self):
+        global _frozen
+        t0 = time.perf_counter()
+        gc.collect()
+        self.collect_s = time.perf_counter() - t0
+        gc.freeze()
+        _frozen += 1
+        self.release = weakref.finalize(self, _thaw_heap)
 
 
 class SinkStage(Stage):
@@ -68,16 +177,24 @@ class SinkStage(Stage):
 @dataclass
 class VerifyPipeline:
     stages: list
-    links: list
+    rings: Rings
     benchg: BenchGStage
     verify: VerifyStage
     dedup: DedupStage
     sink: SinkStage
 
+    @property
+    def links(self) -> list:
+        return self.rings.links
+
     def _busy(self) -> bool:
         v = self.verify
-        return (any(link.q for link in self.links) or bool(v._inflight)
+        return (_pending([c for s in self.stages for c in s.ins]) or bool(v._inflight)
                 or bool(v._submit_queue) or bool(v._emit_queue))
+
+    def close(self) -> None:
+        """Tear the links down (Rings.close)."""
+        self.rings.close(self.stages)
 
     def run(self, *, max_iters: int = 10_000_000) -> None:
         """Round-robin until benchg has sent its limit, then flush verify
@@ -117,9 +234,6 @@ class VerifyPipeline:
         return {s.name: dict(s.metrics.counters) for s in self.stages}
 
 
-LINK_DEPTH = 4096
-
-
 def build_verify_pipeline(stream: list[bytes], *, device=None,
                           batch: int = 1024, max_msg_len: int = 1232,
                           comb_slots: int = 0, promote_threshold: int = 2,
@@ -135,25 +249,22 @@ def build_verify_pipeline(stream: list[bytes], *, device=None,
     verify_comb_slots=...)).  kernel picks the generic lane's rung of
     sigverify.KERNEL_LADDER; autotune_after > 0 turns on the batch-geometry
     autotuner; plane (a ServePlane shaped batch x max_msg_len) routes the
-    generic batches through its step."""
+    generic batches through its step.  The links take the native ring
+    endpoints."""
     dev = plane.device if plane is not None and device is None else resolve_device(device)
-    gen_verify = Link("gen_verify", LINK_DEPTH)
-    verify_dedup = Link("verify_dedup", LINK_DEPTH)
-    dedup_sink = Link("dedup_sink", LINK_DEPTH)
-    benchg = BenchGStage(stream, "benchg", [Producer(gen_verify)],
+    r = Rings(native=True)
+    gen_verify, verify_dedup, dedup_sink = r.link("gv"), r.link("vd"), r.link("vs", "vd")
+    benchg = BenchGStage(stream, "benchg", [r.producer(gen_verify)],
                          limit=len(stream))
-    verify = VerifyStage("verify", [Consumer(gen_verify)],
-                         [Producer(verify_dedup)], device=dev, batch=batch,
+    verify = VerifyStage("verify", [r.consumer(gen_verify, "gv")],
+                         [r.producer(verify_dedup)], device=dev, batch=batch,
                          max_msg_len=max_msg_len, comb_slots=comb_slots,
                          promote_threshold=promote_threshold, kernel=kernel,
                          autotune_after=autotune_after, plane=plane)
-    dedup = DedupStage("dedup", [Consumer(verify_dedup)], [Producer(dedup_sink)])
-    sink = SinkStage("sink", [Consumer(dedup_sink)])
-    return VerifyPipeline(
-        stages=[benchg, verify, dedup, sink],
-        links=[gen_verify, verify_dedup, dedup_sink],
-        benchg=benchg, verify=verify, dedup=dedup, sink=sink,
-    )
+    dedup = DedupStage("dedup", [r.consumer(verify_dedup, "vd")], [r.producer(dedup_sink)])
+    sink = SinkStage("sink", [r.consumer(dedup_sink, "vd")])
+    return VerifyPipeline(stages=[benchg, verify, dedup, sink], rings=r,
+                          benchg=benchg, verify=verify, dedup=dedup, sink=sink)
 
 
 def build_sharded_verify_pipeline(stream: list[bytes], *, n_shards: int = 1,
@@ -170,7 +281,8 @@ def build_sharded_verify_pipeline(stream: list[bytes], *, n_shards: int = 1,
     n_shards devices on `device` (default the card; "cpu" runs the plain
     versions), with the remaining ServeConfig fields from plane_cfg
     (poh_chains_per_shard, fec_*).  poh_iters is the plane's PoH span
-    length (hashes_per_tick), so parked tick spans match it.
+    length (hashes_per_tick), so parked tick spans match it.  The links take
+    the native ring endpoints.
     """
     from ..parallel.router import ShardRouterStage
     from ..parallel.serve import ServeConfig, ServePlane, ShardedVerifyStage
@@ -183,25 +295,22 @@ def build_sharded_verify_pipeline(stream: list[bytes], *, n_shards: int = 1,
     if plane.cfg.n_devices != n_shards:
         raise ValueError(f"plane has {plane.cfg.n_devices} shards,"
                          f" pipeline asked for {n_shards}")
-    gen_router = Link("gen_router", LINK_DEPTH)
-    shard_links = [Link(f"sv{i}", LINK_DEPTH) for i in range(n_shards)]
-    verify_dedup = Link("verify_dedup", LINK_DEPTH)
-    dedup_sink = Link("dedup_sink", LINK_DEPTH)
-    benchg = BenchGStage(stream, "benchg", [Producer(gen_router)],
+    r = Rings(native=True)
+    gen_router = r.link("gv")
+    shard_links = [r.link(f"sv{i}", "gv") for i in range(n_shards)]
+    verify_dedup, dedup_sink = r.link("vd"), r.link("vs", "vd")
+    benchg = BenchGStage(stream, "benchg", [r.producer(gen_router)],
                          limit=len(stream))
-    router = ShardRouterStage("router", [Consumer(gen_router)],
-                              [Producer(link) for link in shard_links],
+    router = ShardRouterStage("router", [r.consumer(gen_router, "gv")],
+                              [r.producer(link) for link in shard_links],
                               n_shards=n_shards)
-    verify = ShardedVerifyStage("verify", [Consumer(link) for link in shard_links],
-                                [Producer(verify_dedup)], plane=plane,
+    verify = ShardedVerifyStage("verify", [r.consumer(link, "gv") for link in shard_links],
+                                [r.producer(verify_dedup)], plane=plane,
                                 batch_deadline_s=batch_deadline_s)
-    dedup = DedupStage("dedup", [Consumer(verify_dedup)], [Producer(dedup_sink)])
-    sink = SinkStage("sink", [Consumer(dedup_sink)])
-    return VerifyPipeline(
-        stages=[benchg, router, verify, dedup, sink],
-        links=[gen_router, *shard_links, verify_dedup, dedup_sink],
-        benchg=benchg, verify=verify, dedup=dedup, sink=sink,
-    )
+    dedup = DedupStage("dedup", [r.consumer(verify_dedup, "vd")], [r.producer(dedup_sink)])
+    sink = SinkStage("sink", [r.consumer(dedup_sink, "vd")])
+    return VerifyPipeline(stages=[benchg, router, verify, dedup, sink], rings=r,
+                          benchg=benchg, verify=verify, dedup=dedup, sink=sink)
 
 
 # -- the leader pipeline past pack ---------------------------------------------
@@ -210,7 +319,7 @@ def build_sharded_verify_pipeline(stream: list[bytes], *, n_shards: int = 1,
 @dataclass
 class LeaderPipeline:
     stages: list
-    links: list
+    rings: Rings
     benchg: BenchGStage
     verifies: list
     dedup: DedupStage | None  # None on the fused native lane
@@ -221,11 +330,17 @@ class LeaderPipeline:
     store: StoreStage
     leader_pub: bytes
     bank_ctx: BankCtx
-    upstream: list  # the links from benchg up to pack
+    upstream: list  # the consumers of the links from benchg up to pack
     router: object = None  # ShardRouterStage when the verify stage is sharded
     plane: object = None  # parallel/serve.ServePlane in the sharded form
     # host seconds per stage (run_once, flushes) and seal phase
     stage_s: Counter = field(default_factory=Counter)
+    sweeps: int = 0  # round-robin sweeps over the stages (_step calls)
+    heap_hold: HeapHold | None = None  # a clocked pipeline's, till close()
+
+    @property
+    def links(self) -> list:
+        return self.rings.links
 
     def run(self, *, max_iters: int = 10_000_000, finish: bool = True) -> None:
         """Cooperative round-robin until benchg has sent its stream (and,
@@ -246,6 +361,7 @@ class LeaderPipeline:
         """One round-robin sweep; each stage's host time goes to stage_s."""
         progressed = False
         acc = self.stage_s
+        self.sweeps += 1
         for s in stages:
             t0 = time.perf_counter()
             progressed |= bool(s.run_once())
@@ -258,7 +374,7 @@ class LeaderPipeline:
         self.stage_s[name] += time.perf_counter() - t0
 
     def _verify_busy(self) -> bool:
-        return (any(link.q for link in self.upstream)
+        return (_pending(self.upstream)
                 or any(v._inflight or v._submit_queue or v._emit_queue
                        for v in self.verifies))
 
@@ -288,6 +404,10 @@ class LeaderPipeline:
         last = self.poh if isinstance(self.poh, FusedPohShredStage) else self.shred
         self._timed(last.name, last.flush)
         self._sweep(max_sweeps)
+        # the banks' sweep lane: the last result log settles and the C
+        # side's counters reach the report
+        for b in self.banks:
+            self._timed(b.name, b.flush)
 
     def _sweep(self, max_sweeps: int) -> None:
         """Run non-generator stages until none makes frag progress and pack
@@ -300,7 +420,7 @@ class LeaderPipeline:
             self._timed(self.pack.name, self.pack.after_credit)
             if progressed:
                 continue
-            if not self.pack._pending_cnt():
+            if not self.pack._pending_cnt() and not any(b.sweep_pending() for b in self.banks):
                 break
             if self.pack.stranded():
                 pk = self.pack.pack
@@ -325,7 +445,12 @@ class LeaderPipeline:
         return res
 
     def close(self) -> None:
-        """In-process links hold no shared memory: nothing to tear down."""
+        """Tear the links down (Rings.close); the banks' sweep clients go
+        with their stages' views.  A clocked pipeline thaws its share of
+        the frozen heap first."""
+        if self.heap_hold is not None:
+            self.heap_hold.release()
+        self.rings.close(self.stages)
 
     def dedup_counts(self) -> tuple[int, int]:
         """(txns past dedup, duplicates dropped), on either pack lane: the
@@ -341,61 +466,62 @@ class LeaderPipeline:
         return {s.name: dict(s.metrics.counters) for s in self.stages}
 
 
-def _leader_tail(*, upstream_out: Link, links: list, n_bank: int, slot: int,
+def _leader_tail(*, r: Rings, upstream_outs: list, n_bank: int, slot: int,
                  leader_seed: bytes, bank_ctx: BankCtx | None, dev,
                  keep_entries: bool, keep_sets: bool, pack_depth: int,
                  hashes_per_tick: int = 64, plane=None, slot_clock=None,
                  shed_keep: int | None = None,
                  fuse_poh_shred: bool = False,
-                 native_pack: bool = True) -> tuple[Link | None, dict]:
+                 native_pack: bool = True) -> tuple[list, dict]:
     """[dedup ->] pack -> bank xB -> poh -> shred -> store, fed by
-    `upstream_out` (the verify stage's output link): (the dedup->pack link,
-    None on the native lane; the stages and the bank).  slot_clock
-    (anchored by the caller) goes to pack, every bank and PoH;
+    `upstream_outs` (the verify stages' output links, one a stage: a ring
+    has one producer), on `r`'s links: (the consumers of the links up to
+    pack's intake; the stages and the bank).
+    slot_clock (anchored by the caller) goes to pack, every bank and PoH;
     fuse_poh_shred puts the fused stage where PoH and shred were, with no
     poh->shred link; native_pack picks the fused native pack lane, which
-    reads `upstream_out` itself, over dedup and the Python pack."""
-    pack_bank = [Link(f"pack_bank{b}", LINK_DEPTH) for b in range(n_bank)]
-    bank_poh = [Link(f"bank_poh{b}", LINK_DEPTH) for b in range(n_bank)]
-    bank_done = [Link(f"bank_done{b}", LINK_DEPTH) for b in range(n_bank)]
-    poh_shred = None if fuse_poh_shred else Link("poh_shred", LINK_DEPTH)
-    shred_store = Link("shred_store", LINK_DEPTH)
-    links += [*pack_bank, *bank_poh, *bank_done]
-    links += ([] if fuse_poh_shred else [poh_shred]) + [shred_store]
+    reads `upstream_outs` itself, over dedup and the Python pack."""
+    pack_bank = [r.link(f"pb{b}") for b in range(n_bank)]
+    bank_poh = [r.link(f"bp{b}") for b in range(n_bank)]
+    bank_done = [r.link(f"bd{b}") for b in range(n_bank)]
+    poh_shred = None if fuse_poh_shred else r.link("ps")
+    shred_store = r.link("ss")
     secret = hashlib.sha256(leader_seed).digest()
     if native_pack:
-        dedup = dedup_pack = None
-        pack_in, pack_cls = upstream_out, NativePackStage
+        dedup = None
+        pack_ins, pack_cls = upstream_outs, NativePackStage
     else:
-        dedup_pack = Link("dedup_pack", LINK_DEPTH)
-        links.append(dedup_pack)
-        dedup = DedupStage("dedup", [Consumer(upstream_out)], [Producer(dedup_pack)])
-        pack_in, pack_cls = dedup_pack, PackStage
-    pack = pack_cls("pack", [Consumer(pack_in)] + [Consumer(l) for l in bank_done],
-                    [Producer(l) for l in pack_bank], bank_cnt=n_bank, depth=pack_depth,
-                    clock=slot_clock, shed_keep=shed_keep)
+        dedup_pack = r.link("dp")
+        dedup = DedupStage("dedup", [r.consumer(l, "vd") for l in upstream_outs],
+                           [r.producer(dedup_pack)])
+        pack_ins, pack_cls = [dedup_pack], PackStage
+    pack = pack_cls("pack", [r.consumer(l, "vd") for l in pack_ins]
+                    + [r.consumer(l, "bd") for l in bank_done],
+                    [r.producer(l) for l in pack_bank], bank_cnt=n_bank, n_txn_ins=len(pack_ins),
+                    depth=pack_depth, clock=slot_clock, shed_keep=shed_keep)
+    upstream = (dedup.ins if dedup else []) + pack.ins[:len(pack_ins)]
     # ONE live bank shared by every bank stage (all bank tiles commit into
     # the same bank)
     if bank_ctx is None:
         bank_ctx = default_bank_ctx(slot=slot, device=dev)
-    banks = [BankStage(f"bank{b}", [Consumer(pack_bank[b])],
-                       [Producer(bank_poh[b]), Producer(bank_done[b])],
+    banks = [BankStage(f"bank{b}", [r.consumer(pack_bank[b], "pb")],
+                       [r.producer(bank_poh[b]), r.producer(bank_done[b])],
                        bank_idx=b, ctx=bank_ctx, clock=slot_clock)
              for b in range(n_bank)]
     for bstage in banks:
         bstage.require_credit = True
     signer = lambda root: ref.sign(secret, root)  # noqa: E731
     if fuse_poh_shred:
-        poh = FusedPohShredStage("poh_shred", [Consumer(l) for l in bank_poh],
-                                 [Producer(shred_store)], hashes_per_tick=hashes_per_tick,
+        poh = FusedPohShredStage("poh_shred", [r.consumer(l, "bp") for l in bank_poh],
+                                 [r.producer(shred_store)], hashes_per_tick=hashes_per_tick,
                                  plane=plane, clock=slot_clock, signer=signer,
                                  shred_slot=slot, keep_sets=keep_sets, shred_plane=plane,
                                  device=dev)
         shred = poh.shred_half
     else:
-        poh = PohStage("poh", [Consumer(l) for l in bank_poh], [Producer(poh_shred)],
+        poh = PohStage("poh", [r.consumer(l, "bp") for l in bank_poh], [r.producer(poh_shred)],
                        hashes_per_tick=hashes_per_tick, plane=plane, clock=slot_clock)
-        shred = ShredStage("shred", [Consumer(poh_shred)], [Producer(shred_store)],
+        shred = ShredStage("shred", [r.consumer(poh_shred, "ps")], [r.producer(shred_store)],
                            signer=signer, slot=slot, keep_sets=keep_sets, plane=plane,
                            device=dev)
     poh.require_credit = True
@@ -403,11 +529,10 @@ def _leader_tail(*, upstream_out: Link, links: list, n_bank: int, slot: int,
         poh.entries = []
     # the leader's own store trusts its own signing path; receive-path
     # resolvers keep full verification
-    store = StoreStage("store", [Consumer(shred_store)], verify_sig=None,
+    store = StoreStage("store", [r.consumer(shred_store, "ss")], verify_sig=None,
                        trust_membership=True, device=dev)
-    return dedup_pack, dict(dedup=dedup, pack=pack, banks=banks, poh=poh, shred=shred,
-                            store=store, bank_ctx=bank_ctx,
-                            leader_pub=ref.public_key(secret))
+    return upstream, dict(dedup=dedup, pack=pack, banks=banks, poh=poh, shred=shred,
+                          store=store, bank_ctx=bank_ctx, leader_pub=ref.public_key(secret))
 
 
 def _tail_stages(t: dict) -> list:
@@ -435,6 +560,7 @@ def build_leader_pipeline(
     shed_keep: int | None = None,
     fuse_poh_shred: bool = False,
     native_pack: bool = True,
+    native_ring: bool = True,
 ) -> LeaderPipeline:
     """benchg -> verify xN -> pack -> bank xB -> poh -> shred -> store over
     `stream` (sent once, in order).  Every device stage runs on
@@ -451,8 +577,11 @@ def build_leader_pipeline(
     dedup inside pack and `dedup` None; False puts the dedup stage and the
     Python pack there.  The banks run on bank_ctx's executor lane
     (default_bank_ctx's is the native one; pass
-    default_bank_ctx(native_exec=False) for the Python lane).  Any native
-    library's build failing raises.
+    default_bank_ctx(native_exec=False) for the Python lane).
+    native_ring=True (the default) puts the native ring endpoints on every
+    link, and with the native executor lane the banks then run the bank
+    sweep lane; False the Python endpoints and the banks' per-frag path.
+    Any native library's build failing raises.
 
     slot_clock (runtime/slot_clock.SlotClockCfg, anchored here once, or a
     built SlotClock, passed through as is) runs the pipeline against the
@@ -462,41 +591,41 @@ def build_leader_pipeline(
     the banks observe the boundaries.  run() then sweeps until the stream
     is sent and PoH has closed the leader window.  fuse_poh_shred=True puts
     the fused poh+shred stage where PoH and shred were: `poh` is the fused
-    stage and `shred` its half."""
+    stage and `shred` its half.  A clocked build freezes the heap before
+    the anchor (HeapHold) and close() thaws it."""
     from ..parallel.router import ShardRouterStage
 
+    # before the anchor, so its collection is not the first slot's
+    heap_hold = HeapHold() if slot_clock is not None else None
     if isinstance(slot_clock, SlotClockCfg):
         # ONE anchor for every stage: each stage's resolve_clock then
         # derives identical boundaries from the same epoch
         slot_clock = slot_clock.anchored()
     dev = resolve_device(device)
-    gen_link = Link("gen_verify", LINK_DEPTH)
-    links = [gen_link]
-    benchg = BenchGStage(stream, "benchg", [Producer(gen_link)], limit=len(stream))
+    r = Rings(native_ring)
+    gen_link = r.link("gv")
+    benchg = BenchGStage(stream, "benchg", [r.producer(gen_link)], limit=len(stream))
     router = None
     verify_ins = [gen_link]
     if n_verify > 1:
-        verify_ins = [Link(f"gen_verify{i}", LINK_DEPTH) for i in range(n_verify)]
-        links += verify_ins
-        router = ShardRouterStage("router", [Consumer(gen_link)],
-                                  [Producer(l) for l in verify_ins], n_shards=n_verify)
-    verify_dedup = Link("verify_dedup", LINK_DEPTH)
-    links.append(verify_dedup)
-    verifies = [VerifyStage(f"verify{i}", [Consumer(verify_ins[i])],
-                            [Producer(verify_dedup)], device=dev, batch=batch,
+        verify_ins = [r.link(f"gv{i}", "gv") for i in range(n_verify)]
+        router = ShardRouterStage("router", [r.consumer(gen_link, "gv")],
+                                  [r.producer(l) for l in verify_ins], n_shards=n_verify)
+    verify_outs = [r.link(f"vd{i}", "vd") for i in range(n_verify)]
+    verifies = [VerifyStage(f"verify{i}", [r.consumer(verify_ins[i], "gv")],
+                            [r.producer(verify_outs[i])], device=dev, batch=batch,
                             max_msg_len=max_msg_len, comb_slots=verify_comb_slots)
                 for i in range(n_verify)]
-    upstream = list(links)
-    dedup_pack, t = _leader_tail(upstream_out=verify_dedup, links=links, n_bank=n_bank, slot=slot,
-                     leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
-                     keep_entries=keep_entries, keep_sets=keep_sets,
-                     pack_depth=pack_depth, slot_clock=slot_clock, shed_keep=shed_keep,
-                     fuse_poh_shred=fuse_poh_shred, native_pack=native_pack)
-    if dedup_pack is not None:
-        upstream.append(dedup_pack)
+    upstream, t = _leader_tail(r=r, upstream_outs=verify_outs, n_bank=n_bank, slot=slot,
+                               leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
+                               keep_entries=keep_entries, keep_sets=keep_sets,
+                               pack_depth=pack_depth, slot_clock=slot_clock,
+                               shed_keep=shed_keep, fuse_poh_shred=fuse_poh_shred,
+                               native_pack=native_pack)
+    upstream = (router.ins if router else []) + [c for v in verifies for c in v.ins] + upstream
     stages = [benchg] + ([router] if router else []) + verifies + _tail_stages(t)
-    return LeaderPipeline(stages=stages, links=links, benchg=benchg,
-                          verifies=verifies, upstream=upstream, router=router, **t)
+    return LeaderPipeline(stages=stages, rings=r, benchg=benchg, verifies=verifies,
+                          upstream=upstream, router=router, heap_hold=heap_hold, **t)
 
 
 def build_sharded_leader_pipeline(
@@ -516,6 +645,7 @@ def build_sharded_leader_pipeline(
     pack_depth: int = 4096,
     device=None,
     native_pack: bool = True,
+    native_ring: bool = True,
     **plane_cfg,
 ) -> LeaderPipeline:
     """The sharded serving pipeline, producing a block:
@@ -529,7 +659,7 @@ def build_sharded_leader_pipeline(
     warmed) ServePlane; None builds one for n_shards devices on `device`
     with poh_iters = hashes_per_tick, so tick spans match the plane's span
     length, and the remaining ServeConfig fields from plane_cfg.
-    pack_depth and native_pack as in build_leader_pipeline."""
+    pack_depth, native_pack and native_ring as in build_leader_pipeline."""
     from ..parallel.router import ShardRouterStage
     from ..parallel.serve import ServeConfig, ServePlane, ShardedVerifyStage
 
@@ -542,25 +672,23 @@ def build_sharded_leader_pipeline(
         raise ValueError(f"plane has {plane.cfg.n_devices} shards,"
                          f" pipeline asked for {n_shards}")
     dev = plane.device
-    gen_router = Link("gen_router", LINK_DEPTH)
-    shard_links = [Link(f"sv{i}", LINK_DEPTH) for i in range(n_shards)]
-    verify_dedup = Link("verify_dedup", LINK_DEPTH)
-    links = [gen_router, *shard_links, verify_dedup]
-    benchg = BenchGStage(stream, "benchg", [Producer(gen_router)], limit=len(stream))
-    router = ShardRouterStage("router", [Consumer(gen_router)],
-                              [Producer(link) for link in shard_links],
+    r = Rings(native_ring)
+    gen_router = r.link("gv")
+    shard_links = [r.link(f"sv{i}", "gv") for i in range(n_shards)]
+    verify_dedup = r.link("vd")
+    benchg = BenchGStage(stream, "benchg", [r.producer(gen_router)], limit=len(stream))
+    router = ShardRouterStage("router", [r.consumer(gen_router, "gv")],
+                              [r.producer(link) for link in shard_links],
                               n_shards=n_shards)
-    verify = ShardedVerifyStage("verify", [Consumer(link) for link in shard_links],
-                                [Producer(verify_dedup)], plane=plane,
+    verify = ShardedVerifyStage("verify", [r.consumer(link, "gv") for link in shard_links],
+                                [r.producer(verify_dedup)], plane=plane,
                                 batch_deadline_s=batch_deadline_s)
-    upstream = list(links)
-    dedup_pack, t = _leader_tail(upstream_out=verify_dedup, links=links, n_bank=n_bank, slot=slot,
-                     leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
-                     keep_entries=keep_entries, keep_sets=True,
-                     hashes_per_tick=hashes_per_tick, pack_depth=pack_depth,
-                     plane=plane, native_pack=native_pack)
-    if dedup_pack is not None:
-        upstream.append(dedup_pack)
+    upstream, t = _leader_tail(r=r, upstream_outs=[verify_dedup], n_bank=n_bank, slot=slot,
+                               leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
+                               keep_entries=keep_entries, keep_sets=True,
+                               hashes_per_tick=hashes_per_tick, pack_depth=pack_depth,
+                               plane=plane, native_pack=native_pack)
+    upstream = router.ins + verify.ins + upstream
     stages = [benchg, router, verify] + _tail_stages(t)
-    return LeaderPipeline(stages=stages, links=links, benchg=benchg, verifies=[verify],
+    return LeaderPipeline(stages=stages, rings=r, benchg=benchg, verifies=[verify],
                           upstream=upstream, router=router, plane=plane, **t)

@@ -355,6 +355,10 @@ class ShardedVerifyStage(VerifyStage):
         self._shards = [_Acc() for _ in range(self.n_shards)]
         self._elem_keys = [f"shard_elems_s{i}" for i in range(self.n_shards)]
 
+    # the input link picks the shard: no drain-table intake, the per-frag
+    # hooks see each frag's link
+    sweep_frags = None
+
     # -- loop hooks --------------------------------------------------------
 
     def after_frag(self, in_idx: int, frag, payload: bytes) -> None:

@@ -31,17 +31,35 @@ port's stages have no flight recorder: the counter carries the outcome.
 Each microblock goes through SlotExecution.execute_batch, on the native
 executor lane by default (BankCtx(native_exec=True), flamenco/exec_native.py):
 `native_exec` counts the txns the C++ lane committed and `native_punt` its
-punts resumed on the Python lane.  Not ported: the bank sweep lane
-(runtime/bank_native.py) and with it BankCtx.preload, native_sync and
-native_apply_*.
+punts resumed on the Python lane.
+
+The bank sweep lane: when the ctx runs the native executor lane and both
+outputs are native producers (tango/native.py), the stage registers a
+sweep client (runtime/bank_native.py) and the whole per-microblock path
+(parse, session exec, entry build, both publishes) runs inside the
+stage's fdr_sweep call, one per credit window.  before_credit drains the
+C side's result log every iteration: it applies the committed records to
+funk (the authoritative store) with their compute units, resumes the
+punted and credit-stalled microblocks on the Python lane in ring order
+after the committed ones, publishes their frames, and re-syncs the
+session (SlotExecution.native_sync) before the next sweep.  A failed
+exec crossing disarms the lane and raises BankSweepError; nothing goes on
+a frag at a time.  Counters: `bank_txn_native` (txns committed inside the
+crossing), `bank_mb_native`, `bank_mb_stashed` (punted or stalled
+microblocks), `bank_credit_waits`, `bank_mb_resumed` (resumed on the
+Python lane), `bank_mb_seen`, `bank_mb_dropped`.
 """
 
 from __future__ import annotations
 
 import hashlib
 
+from ..flamenco.exec_native import NativeExecError
 from ..flamenco.runtime import TXN_SUCCESS
 from ..protocol import txn as ft
+from ..tango.native import NativeProducer
+from . import bank_native
+from .bank_native import BankSweepError
 from .slot_clock import resolve_clock
 from .stage import Stage, now_ns
 
@@ -107,11 +125,21 @@ class BankCtx:
 
         self.funk.rec_insert(None, pubkey, acct_build(lamports))
 
+    def preload(self, pubkeys) -> None:
+        """Ship these accounts' current values into the native session at the
+        next sync.  The session's overlay starts empty, and the bank sweep's
+        requests carry no values, so an account's first touch punts its
+        microblock to the Python lane; a harness that knows its accounts
+        preloads them to start the sweeps all native.  No-op on the Python
+        lane."""
+        if self.native_exec:
+            self.sx._native_dirty.update(bytes(k) for k in pubkeys)
+
     @property
     def sx(self):
-        from ..flamenco.runtime import SlotExecution
-
         if self._sx is None:
+            from ..flamenco.runtime import SlotExecution
+
             self._sx = SlotExecution(
                 self.funk,
                 slot=self.slot,
@@ -167,6 +195,26 @@ def default_bank_ctx(
     return ctx
 
 
+def _entry_frame(sigs: list[bytes], txns: list[bytes]) -> bytes:
+    """32B mixin (sha256 of the landed signatures) | u16 cnt | (u16 len || txn)*."""
+    out = bytearray(hashlib.sha256(b"".join(sigs)).digest())
+    out += len(txns).to_bytes(2, "little")
+    for p in txns:
+        out += len(p).to_bytes(2, "little")
+        out += p
+    return bytes(out)
+
+
+def _items(frags) -> list:
+    """Verified frags (payload || packed descriptor || u16 payload size) ->
+    execute_batch items; the descriptor is unpacked and validated there."""
+    items = []
+    for f in frags:
+        psz = int.from_bytes(f[-2:], "little")
+        items.append((f[:psz], None, f[psz:-2]))
+    return items
+
+
 class BankStage(Stage):
     def __init__(self, *args, bank_idx: int = 0, ctx: BankCtx | None = None,
                  clock=None, **kwargs):
@@ -177,8 +225,138 @@ class BankStage(Stage):
         self.commit_latencies_ns: list[int] = []
         self._clock = resolve_clock(clock)
         self._clock_slot = self._clock.cfg.slot0 if self._clock is not None else 0
+        self._armed_ctx = None
+        self._arm_native()
+
+    # -- the bank sweep lane ------------------------------------------------
+
+    def _arm_native(self) -> None:
+        """Register the sweep client when the ctx runs the native executor
+        lane and both outputs are native producers (the session is made
+        here, with the slot's BatchContext)."""
+        if not self.ctx.native_exec or len(self.outs) < 2 or any(
+                type(p) is not NativeProducer for p in self.outs[:2]):
+            return
+        sx = self.ctx.sx
+        nat = sx._native_for_batch()
+        self._sweep_client = bank_native.StageClient(
+            sx._native_session, bank_native.make_hdr(nat, gated=sx.status_cache is not None),
+            self.outs[0], self.outs[1], bank_idx=self.bank_idx)
+        self._armed_ctx = nat
+
+    def _disarm_native(self, err: Exception) -> None:
+        """The session failed mid-drain: its state and funk's may differ, so
+        the sweep must never run again and the failure surfaces."""
+        c = self._sweep_client
+        self._sweep_client = None
+        self._armed_ctx = None
+        if c is not None:
+            c.close()
+        raise BankSweepError(f"{self.name}: the exec session failed; the bank sweep lane"
+                             f" is disarmed: {err}") from err
+
+    def _native_sweep(self, drainer) -> bool:
+        # a stash is resumed in the same iteration, as the per-frag path
+        # would have committed it: PoH sees the entries on the same sweep
+        progressed = super()._native_sweep(drainer)
+        if progressed and self._sweep_client.stash_pending:
+            self._drain_native()
+        return progressed
+
+    def sweep_pending(self) -> bool:
+        """The C side holds a result log the drain has not applied yet."""
+        c = self._sweep_client
+        return c is not None and c.log_sz > 0
+
+    def drop_native_views(self) -> None:
+        super().drop_native_views()
+        c = self._sweep_client
+        self._sweep_client = None
+        if c is not None:
+            c.close()
+
+    def _copy_counters(self) -> None:
+        c = self._sweep_client
+        if c is not None:
+            for name, v in c.counters().items():  # the C side's running totals
+                self.metrics.counters[name] = v
+
+    def during_housekeeping(self) -> None:
+        self._copy_counters()
+
+    def flush(self) -> None:
+        """Settle the result log (end of run)."""
+        self._drain_native()
+        self._copy_counters()
+
+    def _drain_native(self) -> None:
+        """Apply the C side's result log in ring order, then re-sync the
+        session for the next sweep."""
+        c = self._sweep_client
+        if c is None:
+            return
+        sx = self.ctx.sx
+        try:
+            log = c.take_log() if c.log_sz else b""
+            if log:
+                groups = bank_native.parse_log(log)
+                # all or nothing: applying state cannot be replayed, so the
+                # drain waits until every frame it owes can go out
+                need_ent = sum(1 for g in groups if g[4] == 0)
+                need_done = sum(1 for g in groups if g[4] != 1)
+                if need_ent or need_done:
+                    for p in self.outs[:2]:
+                        p.refresh_credits()
+                    if self.outs[0].cr_avail < need_ent or self.outs[1].cr_avail < need_done:
+                        return
+                for mb_seq, tsorig, lat_ns, n_done, published, recs, mb in groups:
+                    self._apply_group(mb_seq, tsorig, lat_ns, n_done, published, recs, mb)
+                c.clear_log()
+            sx.native_sync()
+            if (sx._native_ctx is not self._armed_ctx
+                    or sx.sysvars.get("slot_hashes") is not sx._native_sh_blob):
+                # the BatchContext was (or is due to be) rebuilt: the C
+                # side's env header follows it
+                nat = sx._native_for_batch()
+                c.set_hdr(bank_native.make_hdr(nat, gated=sx.status_cache is not None))
+                self._armed_ctx = nat
+        except NativeExecError as e:
+            self._disarm_native(e)
+
+    def _apply_group(self, mb_seq, tsorig, lat_ns, n_done, published, recs, mb) -> None:
+        _seq, frags = parse_microblock(mb)
+        sx = self.ctx.sx
+        if published:
+            # the entry (and with 1 the done frame) is already on the rings
+            m = self.metrics
+            for name, v in zip(("txn_exec", "txn_exec_failed", "txn_rejected"),
+                               sx.native_apply_group(frags, recs)):
+                if v:
+                    m.inc(name, v)
+            if n_done:
+                m.inc("native_exec", n_done)
+            m.inc("microblocks")
+            if tsorig and len(self.commit_latencies_ns) < 100_000:
+                self.commit_latencies_ns.append(lat_ns)
+            if published == 2:
+                self.publish(1, b"", sig=self.bank_idx)
+            return
+        # nothing published: the committed prefix, then the tail resumed on
+        # the Python lane, then both frames from here
+        items = _items(frags)
+        nd0, np0 = sx.native_done_cnt, sx.native_punt_cnt
+        results = sx.native_apply_batch([(p, db, st, fee, w) for (p, _d, db), (st, fee, w)
+                                         in zip(items, recs)])
+        if n_done < len(items):
+            results += self.ctx.execute_batch(items[n_done:])
+        self.metrics.inc("bank_mb_resumed")
+        self._commit(mb_seq, tsorig, items, results, sx.native_done_cnt - nd0,
+                     sx.native_punt_cnt - np0)
+
+    # -- the per-frag path ----------------------------------------------------
 
     def before_credit(self) -> None:
+        self._drain_native()
         if self._clock is None:
             return
         now = self._clock.now()
@@ -191,23 +369,28 @@ class BankStage(Stage):
             self._clock_slot = slot
 
     def after_frag(self, in_idx: int, frag, payload: bytes) -> None:
+        # a frag on the per-frag path while the sweep lane is armed (Python
+        # input rings): the log goes first, so microblocks stay in ring order
+        self._drain_native()
         mb_seq, frags = parse_microblock(payload)
-        # the verified frag carries payload || packed descriptor || u16
-        # payload_sz: the descriptor is unpacked and validated once, in
-        # execute_batch
-        items = []
-        for f in frags:
-            psz = int.from_bytes(f[-2:], "little")
-            items.append((f[:psz], None, f[psz:-2]))
+        items = _items(frags)
         # the native lane's share, bracketed on the shared SlotExecution's
         # counts (bank stages sharing a ctx run in one thread, in turn)
         sx = self.ctx.sx
         nd0, np0 = sx.native_done_cnt, sx.native_punt_cnt
         results = self.ctx.execute_batch(items)
-        if sx.native_done_cnt != nd0:
-            self.metrics.inc("native_exec", sx.native_done_cnt - nd0)
-        if sx.native_punt_cnt != np0:
-            self.metrics.inc("native_punt", sx.native_punt_cnt - np0)
+        self._commit(mb_seq, frag.tsorig, items, results, sx.native_done_cnt - nd0,
+                     sx.native_punt_cnt - np0)
+
+    def _commit(self, mb_seq: int, tsorig: int, items, results, d_native: int,
+                d_punt: int) -> None:
+        """Count a microblock's results and publish its entry (the landed
+        txns) to PoH and its done frame to pack."""
+        m = self.metrics
+        if d_native:
+            m.inc("native_exec", d_native)
+        if d_punt:
+            m.inc("native_punt", d_punt)
         sigs = []
         txns = []
         for (p, _desc, db), r in zip(items, results):
@@ -217,23 +400,15 @@ class BankStage(Stage):
                 sig_off = db[2] | (db[3] << 8)
                 sigs.append(p[sig_off : sig_off + 64])
                 txns.append(p)
-                self.metrics.inc("txn_exec")
+                m.inc("txn_exec")
                 if r.status != TXN_SUCCESS:
-                    self.metrics.inc("txn_exec_failed")
+                    m.inc("txn_exec_failed")
             else:
                 # no on-chain footprint: never recorded in an entry
-                self.metrics.inc("txn_rejected")
-        self.metrics.inc("microblocks")
-        tsorig = frag.tsorig
+                m.inc("txn_rejected")
+        m.inc("microblocks")
         if tsorig and len(self.commit_latencies_ns) < 100_000:
             self.commit_latencies_ns.append(now_ns() - tsorig)
         if txns:
-            mixin = hashlib.sha256(b"".join(sigs)).digest()
-            out = bytearray()
-            out += mixin
-            out += len(txns).to_bytes(2, "little")
-            for p in txns:
-                out += len(p).to_bytes(2, "little")
-                out += p
-            self.publish(0, bytes(out), sig=mb_seq, tsorig=tsorig)  # -> poh
+            self.publish(0, _entry_frame(sigs, txns), sig=mb_seq, tsorig=tsorig)  # -> poh
         self.publish(1, b"", sig=self.bank_idx)  # -> pack (lock release)

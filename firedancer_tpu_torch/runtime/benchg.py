@@ -64,9 +64,11 @@ class BenchGStage(Stage):
         n = self.burst
         if self.limit is not None:
             n = min(n, self.limit - self._i)
-        for _ in range(n):
-            payload = self.pool[self._i % len(self.pool)]
-            if not self.publish(0, payload, sig=self._i, tsorig=now_ns()):
-                return
-            self._i += 1
-            self.metrics.inc("txn_gen")
+        if n <= 0:
+            return
+        pool, i, ts = self.pool, self._i, now_ns()
+        items = [(pool[(i + k) % len(pool)], i + k, ts) for k in range(n)]
+        sent = self.publish_burst_out(0, items)  # one call on a native link
+        self._i += sent
+        if sent:
+            self.metrics.inc("txn_gen", sent)

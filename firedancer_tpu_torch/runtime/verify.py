@@ -5,7 +5,9 @@ Semantics follow the reference's verify tile and the JAX package's stage:
 
   - parse the txn with the native parser (protocol/txn_native.py; drop on
     malformed) and read its signatures, message and signers straight off
-    the packed descriptor: no Txn is built;
+    the packed descriptor: no Txn is built.  On native input rings a
+    drained sweep is parsed in one fd_txn_parse_burst call
+    (`sweep_frags`, the BurstParser);
   - a tiny per-stage tcache keyed on the first signature guards duplicate
     spam racing across round-robin peers (the real dedup is the downstream
     DedupStage's big tcache);
@@ -155,9 +157,10 @@ class VerifyStage(Stage):
                              f" (ladder: {', '.join(sv.KERNEL_LADDER)})")
         if native_client:
             raise ValueError(
-                "native_client=True: the port has no native sweep client (the"
-                " C++ intake sweep over shared-memory rings, native/fd_verify.cpp);"
-                " it comes with the shm rings")
+                "native_client=True: the port has no native sweep client for the verify"
+                " stage yet (the C++ intake sweep over the shm rings, native/fd_verify.cpp);"
+                " ROADMAP item 5.5, the verify sweep client, brings it now that the rings"
+                " are in")
         # plane: a parallel/serve.ServePlane; generic batches go through its
         # step, so the stage's batch geometry must be the plane's shape
         self.plane = plane
@@ -169,7 +172,9 @@ class VerifyStage(Stage):
                 f" (batch={plane.cfg.batch}, max_msg_len={plane.cfg.max_msg_len})")
         self.device = (plane.device if plane is not None and device is None
                        else resolve_device(device))
-        txn_native.load()  # the parser's library is built now, not mid-stream
+        # the parser's library is built now, not mid-stream; the burst
+        # parser serves sweep_frags
+        self._burst_parser = txn_native.BurstParser(max(64, self.burst))
         self.kernel = kernel
         self.batch = batch
         self.max_msg_len = max_msg_len
@@ -213,7 +218,10 @@ class VerifyStage(Stage):
     def _intake(self, payload: bytes):
         """Parse and guard one frag -> (sigs, msg, signers, packed
         descriptor) or None after counting the drop."""
-        packed = txn_native.txn_parse_packed(payload)
+        return self._guard(payload, txn_native.txn_parse_packed(payload))
+
+    def _guard(self, payload: bytes, packed: bytes | None):
+        """The intake's checks on a parsed frag (packed None = rejected)."""
         # the trailer must be exactly its declared fixed-layout length
         # (instruction and lookup counts at bytes 16 and 13)
         if packed is None or len(packed) != ft.txn_packed_sz(packed[16], packed[13]):
@@ -257,6 +265,20 @@ class VerifyStage(Stage):
         got = self._intake(payload)
         if got is not None:
             self._accumulate(got, payload, frag.tsorig)
+
+    def sweep_frags(self, rows, buf: bytes) -> int:
+        """The drain-table intake (runtime/stage.py): a whole native-ring
+        sweep in one call, its packets parsed in ONE fd_txn_parse_burst
+        call over the table's (offset, size) columns, each then guarded and
+        accumulated as after_frag does.  Every row counts as consumed, as
+        every frag after_frag takes does (its drops are counted apart)."""
+        for row, packed in zip(rows, self._burst_parser.parse(buf, rows)):
+            off = row[2]
+            payload = buf[off : off + row[3]]
+            got = self._guard(payload, packed)
+            if got is not None:
+                self._accumulate(got, payload, row[5])
+        return len(rows)
 
     # -- loop hooks ----------------------------------------------------------------
 

@@ -3,7 +3,9 @@ firedancer_tpu/utils/nativebuild.py, for the host side only).
 
 Each `native/<name>.cpp` is compiled by `CXX` into
 `build/torch_native/<hash>/lib<name>.so`, where <hash> covers that source,
-the compiler and its flags, and loaded with ctypes.  The build goes to a
+every local header it includes (`#include "..."`, followed through the
+headers' own includes), the compiler and its flags, and loaded with
+ctypes.  The build goes to a
 temporary file that is renamed into place, so processes that build the
 same library at once never load a half-written one.  A compiler failure
 raises `HostBuildError`: nothing falls back to another lane, and no
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 
@@ -41,10 +44,30 @@ def source(name: str) -> str:
     return os.path.join(NATIVE_DIR, f"{name}.cpp")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources_of(path: str) -> list[str]:
+    """`path` and every local header it reaches, each once, in the order
+    first met (a header is looked up beside the file that includes it)."""
+    out = [path]
+    i = 0
+    while i < len(out):
+        with open(out[i], "rb") as fh:
+            text = fh.read()
+        for inc in _LOCAL_INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(out[i]), inc.decode())
+            if dep not in out:
+                out.append(dep)
+        i += 1
+    return out
+
+
 def so_path(name: str) -> str:
     h = hashlib.sha256(" ".join([CXX, *CXX_FLAGS]).encode())
-    with open(source(name), "rb") as fh:
-        h.update(fh.read())
+    for path in _sources_of(source(name)):
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
 
 

@@ -102,10 +102,12 @@ def _host_libraries() -> set[str]:
 
 def test_host_libraries_build_from_the_ports_own_sources():
     names = _host_libraries()
-    assert names == {"fd_pack", "fd_tcache", "fd_exec_native", "fd_txn_parse"}
+    assert names == {"fd_pack", "fd_tcache", "fd_exec_native", "fd_txn_parse", "fd_ring",
+                     "fd_bank"}
     native = os.path.join(PKG, "native")
     assert hostbuild.NATIVE_DIR == native
-    assert sorted(os.listdir(native)) == sorted(f"{n}.cpp" for n in names)
+    # the sources and the one header both sweep clients include
+    assert sorted(os.listdir(native)) == sorted([f"{n}.cpp" for n in names] + ["fd_metrics.h"])
     for n in names:
         assert hostbuild.source(n) == os.path.join(native, f"{n}.cpp")
         assert os.path.dirname(os.path.dirname(hostbuild.so_path(n))) == \

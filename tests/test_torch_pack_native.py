@@ -38,8 +38,8 @@ from firedancer_tpu_torch.runtime import slot_clock as tsc
 from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
 from firedancer_tpu_torch.runtime.dedup import DedupStage
 from firedancer_tpu_torch.runtime.pack_stage import NativePackStage, PackStage
-from firedancer_tpu_torch.runtime.stage import Consumer, Link, Producer
 from firedancer_tpu_torch.runtime.verify import encode_verified, sig_tag
+from firedancer_tpu_torch.tango import shm
 from firedancer_tpu_torch.tango.rings import TCache
 from firedancer_tpu_torch.tango.tcache_native import NativeTCache
 from firedancer_tpu_torch.utils import hostbuild
@@ -293,36 +293,47 @@ def _stage_run(native: bool, feed, seed: int):
     t = [0]
     clock = tsc.SlotClock(tsc.SlotClockCfg(slot_ms=100.0, slot0=1, ticks_per_slot=4, n_slots=6,
                                            miss_grace_frac=0.25, t0_ns=0), now_fn=lambda: t[0])
-    l_in = Link("in", 8192)
-    outs = [Link(f"pb{b}", 64) for b in range(2)]
-    dones = [Link(f"bd{b}", 64) for b in range(2)]
+    uid = shm.fresh_uid()
+    links = []
+
+    def link(tag, depth, mtu):
+        links.append(shm.ShmLink.create(f"fdtpu_torch_t{tag}_{uid}", depth=depth, mtu=mtu))
+        return links[-1]
+
+    l_in = link("in", 8192, 4096)
+    outs = [link(f"pb{b}", 64, 65536) for b in range(2)]
+    dones = [link(f"bd{b}", 64, 64) for b in range(2)]
     kw = dict(bank_cnt=2, clock=clock, min_pending=int(rng.integers(4, 40)), mb_deadline_s=1e9,
               shed_keep=int(rng.integers(40, 200)), max_txn_per_microblock=7,
               depth=int(rng.choice([64, 4096])))
-    done_ins = [Consumer(l) for l in dones]
+    # pack publishes its progress on the done links after every frag, so the
+    # acks below never wait on a credit
+    done_ins = [shm.make_consumer(l, lazy=1) for l in dones]
     if native:
         dedup = None
-        pack = NativePackStage("pack", [Consumer(l_in)] + done_ins, [Producer(l) for l in outs],
-                               **kw)
+        pack = NativePackStage("pack", [shm.make_consumer(l_in)] + done_ins,
+                               [shm.make_producer(l) for l in outs], **kw)
     else:
-        l_dp = Link("dp", 8192)
-        dedup = DedupStage("dedup", [Consumer(l_in)], [Producer(l_dp)])
-        pack = PackStage("pack", [Consumer(l_dp)] + done_ins, [Producer(l) for l in outs], **kw)
+        l_dp = link("dp", 8192, 4096)
+        dedup = DedupStage("dedup", [shm.make_consumer(l_in)], [shm.make_producer(l_dp)])
+        pack = PackStage("pack", [shm.make_consumer(l_dp)] + done_ins,
+                         [shm.make_producer(l) for l in outs], **kw)
         pack.burst = NativePackStage.burst  # the same frags a sweep on both lanes
-    feeder = Producer(l_in)
+    feeder = shm.make_producer(l_in)
+    banks = [shm.make_consumer(l, lazy=1) for l in outs]
+    acks = [shm.make_producer(l) for l in dones]
     frames, sent = [], 0
 
     def step():
         if dedup is not None:
-            while l_in.q:
+            while dedup.ins[0].has_pending():
                 dedup.run_once()
         pack.run_once()
         if rng.random() < 0.6:
-            for b, link in enumerate(outs):
-                while link.q:
-                    frag, frame = link.q.popleft()
-                    frames.append((clock.slot_at(t[0]), b, frame))
-                    assert Producer(dones[b]).try_publish(b"", sig=b)
+            for b, cons in enumerate(banks):
+                while (res := cons.poll()) is not shm.POLL_EMPTY:
+                    frames.append((clock.slot_at(t[0]), b, res[1]))
+                    assert acks[b].try_publish(b"", sig=b)
 
     for _ in range(400):
         t[0] += int(rng.integers(3, 12)) * MS
@@ -336,6 +347,12 @@ def _stage_run(native: bool, feed, seed: int):
     t[0] += 10**9
     for _ in range(200):
         step()
+    for stage in (dedup, pack):
+        if stage is not None:
+            stage.drop_native_views()
+    for l in links:
+        l.close()
+        l.unlink()
     m = pack.metrics
     counters = {k: m.get(k) for k in ("txn_in", "txn_dropped", "bad_frag", "microblocks",
                                       "txn_scheduled", "cu_consumed", "microblock_done",

@@ -34,7 +34,7 @@ from firedancer_tpu_torch.runtime import slot_clock as tsc
 from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_blockhash, pool_payers
 from firedancer_tpu_torch.runtime.poh_stage import parse_entry
 from firedancer_tpu_torch.runtime.shred_stage import deshred_entry_batch
-from firedancer_tpu_torch.runtime.stage import Consumer, Link, Producer
+from firedancer_tpu_torch.tango import shm as tshm
 from firedancer_tpu_torch.utils import kbuild
 
 MS = 1_000_000
@@ -58,35 +58,47 @@ def _mb(i: int, n_txn: int = 5) -> bytes:
 
 
 class _PortTopo:
-    """The port's fused or unfused topology behind one drive interface."""
+    """The port's fused or unfused topology behind one drive interface, over
+    the port's shared-memory links (native endpoints)."""
 
     def __init__(self, *, fused: bool, clock=None):
-        lin, lss = Link("bank_poh", 256), Link("shred_store", 4096)
-        self.prod = Producer(lin)
+        uid = tshm.fresh_uid()
+        tag = "f" if fused else "u"
+        lin = tshm.ShmLink.create(f"fdtpu_torch_tfp{tag}i_{uid}", depth=256, mtu=65536)
+        lss = tshm.ShmLink.create(f"fdtpu_torch_tfp{tag}s_{uid}", depth=4096, mtu=1232)
+        self.links = [lin, lss]
+        self.prod = tshm.make_producer(lin)
         if fused:
             self.poh = tshred.FusedPohShredStage(
-                "poh_shred", ins=[Consumer(lin)], outs=[Producer(lss)], clock=clock,
-                signer=_signer, shred_slot=1, device="cpu")
+                "poh_shred", ins=[tshm.make_consumer(lin, lazy=8)],
+                outs=[tshm.make_producer(lss)], clock=clock, signer=_signer, shred_slot=1,
+                device="cpu")
             self.shred = self.poh.shred_half
             self.stages = [self.poh]
         else:
-            lps = Link("poh_shred", 1024)
-            self.poh = tpoh.PohStage("poh", ins=[Consumer(lin)], outs=[Producer(lps)],
-                                     clock=clock)
-            self.shred = tshred.ShredStage("shred", ins=[Consumer(lps)], outs=[Producer(lss)],
-                                           signer=_signer, slot=1, device="cpu")
+            lps = tshm.ShmLink.create(f"fdtpu_torch_tfpup_{uid}", depth=1024, mtu=65536)
+            self.links.append(lps)
+            self.poh = tpoh.PohStage("poh", ins=[tshm.make_consumer(lin, lazy=8)],
+                                     outs=[tshm.make_producer(lps)], clock=clock)
+            self.shred = tshred.ShredStage("shred", ins=[tshm.make_consumer(lps, lazy=8)],
+                                           outs=[tshm.make_producer(lss)], signer=_signer,
+                                           slot=1, device="cpu")
             self.stages = [self.poh, self.shred]
         self.poh.require_credit = True
         self.poh.entries = []
-        self.sink = Consumer(lss)
+        self.sink = tshm.make_consumer(lss, lazy=4)
         self.shreds: list[tuple[bytes, int]] = []
 
     def drain(self) -> None:
-        while (r := self.sink.poll()) is not None:
-            self.shreds.append((bytes(r[1]), r[0].sig))
+        while isinstance(r := self.sink.poll(), tuple):
+            self.shreds.append((bytes(r[1]), int(r[0][1])))
 
     def close(self) -> None:
-        pass
+        for s in self.stages + [self.shred]:
+            s.drop_native_views()
+        for link in self.links:
+            link.close()
+            link.unlink()
 
 
 class _JaxTopo(_PortTopo):
@@ -255,7 +267,7 @@ def test_fused_leader_pipeline_end_to_end():
     assert pipe.poh is pipe.stages[-2]  # the fused stage, then the store
     assert pipe.shred is pipe.poh.shred_half
     assert not any(s.name == "shred" for s in pipe.stages)
-    assert not any(link.name == "poh_shred" for link in pipe.links)
+    assert not any("_ps_" in link.name for link in pipe.links)  # no poh->shred link
     rep = pipe.report()
     assert rep["pack"]["txn_in"] == 96
     assert rep["bank0"]["txn_exec"] == 96

@@ -31,7 +31,7 @@ from firedancer_tpu_torch.parallel import mesh as tmesh
 from firedancer_tpu_torch.parallel.router import ShardRouterStage, shard_of
 from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane, lane_real_mask
 from firedancer_tpu_torch.runtime.poh import hashes_to_rows, poh_append
-from firedancer_tpu_torch.runtime.stage import Consumer, Link, Producer
+from firedancer_tpu_torch.tango import shm as tshm
 from firedancer_tpu_torch.runtime.verify import VerifyStage
 from firedancer_tpu_torch.utils import kbuild
 
@@ -68,30 +68,43 @@ def test_shard_of_equals_jax():
 
 def test_router_conserves_frags_and_stalls_on_a_full_shard():
     n_shards = 4
-    ingress = Link("ri", 64)
-    rings = [Link(f"rs{i}", 8) for i in range(n_shards)]
-    src = Producer(ingress)
-    for i in range(40):
-        assert src.try_publish(b"f%d" % i, sig=1000 + i, tsorig=i)
-    router = ShardRouterStage("router", [Consumer(ingress)],
-                              [Producer(r) for r in rings], n_shards=n_shards)
-    for _ in range(20):
-        router.run_once()
-    # shard 0's ring filled first: the router stalls (it never skips ahead
-    # to a ring with room, nor drops) with the rest left in ingress
-    assert [len(r.q) for r in rings] == [8, 7, 7, 7] and len(ingress.q) == 11
-    assert router.metrics.get("backpressure_stall") > 0
-    for i, r in enumerate(rings):
-        want = [s for s in range(29) if shard_of(s, n_shards) == i]
-        assert [p for _, p in r.q] == [b"f%d" % s for s in want]
-        assert [(f.sig, f.tsorig) for f, _ in r.q] == [(1000 + s, s) for s in want]
-        r.q.clear()
-    for _ in range(20):
-        router.run_once()
-    assert router.metrics.get("routed_total") == 40
-    assert [router.metrics.get(f"routed_s{i}") for i in range(4)] == [10] * 4
-    with pytest.raises(ValueError):
-        ShardRouterStage("r", [], [Producer(r) for r in rings], n_shards=3)
+    uid = tshm.fresh_uid()
+    ingress = tshm.ShmLink.create(f"fdtpu_torch_ri_{uid}", depth=64, mtu=64)
+    rings = [tshm.ShmLink.create(f"fdtpu_torch_rs{i}_{uid}", depth=8, mtu=64)
+             for i in range(n_shards)]
+    try:
+        src = tshm.make_producer(ingress)
+        for i in range(40):
+            # tsorig 0 would mean "stamp now" on a ring: origins start at 1
+            assert src.try_publish(b"f%d" % i, sig=1000 + i, tsorig=1 + i)
+        router = ShardRouterStage("router", [tshm.make_consumer(ingress)],
+                                  [tshm.make_producer(r) for r in rings], n_shards=n_shards)
+        # each shard's consumer publishes its progress after every frag
+        shards = [tshm.make_consumer(r, lazy=1) for r in rings]
+        for _ in range(20):
+            router.run_once()
+        # shard 0's ring filled first: the router stalls (it never skips ahead
+        # to a ring with room, nor drops) with the rest left in ingress
+        assert [p.seq for p in router.outs] == [8, 7, 7, 7]
+        assert src.seq - router.ins[0].seq == 11
+        assert router.metrics.get("backpressure_stall") > 0
+        for i, c in enumerate(shards):
+            want = [s for s in range(29) if shard_of(s, n_shards) == i]
+            got = []
+            while isinstance(r := c.poll(), tuple):
+                got.append((int(r[0][1]), int(r[0][5]), r[1]))
+            assert [p for _, _, p in got] == [b"f%d" % s for s in want]
+            assert [(sig, ts) for sig, ts, _ in got] == [(1000 + s, 1 + s) for s in want]
+        for _ in range(20):
+            router.run_once()
+        assert router.metrics.get("routed_total") == 40
+        assert [router.metrics.get(f"routed_s{i}") for i in range(4)] == [10] * 4
+        with pytest.raises(ValueError):
+            ShardRouterStage("r", [], [tshm.make_producer(r) for r in rings], n_shards=3)
+    finally:
+        for link in [ingress, *rings]:
+            link.close()
+            link.unlink()
 
 
 @pytest.fixture(scope="module", params=[1, 4])

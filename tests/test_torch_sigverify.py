@@ -29,7 +29,7 @@ from firedancer_tpu.tango import shm
 from firedancer_tpu.tango.rings import MCache
 from firedancer_tpu_torch.models.workload import mixed_batch, verify_stream
 from firedancer_tpu_torch.ops import sigverify as tsv
-from firedancer_tpu_torch.runtime import stage as tstage
+from firedancer_tpu_torch.tango import shm as tshm
 from firedancer_tpu_torch.runtime.dedup import DedupStage
 from firedancer_tpu_torch.runtime.verify import VerifyStage
 from firedancer_tpu_torch.utils import kbuild
@@ -124,24 +124,36 @@ def _run_jax(frames):
 
 
 def _run_port(frames, kernel="fused"):
-    lin, lvd, lout = (tstage.Link(n, 256) for n in ("in", "vd", "out"))
-    feed = tstage.Producer(lin)
-    verify = VerifyStage("verify", [tstage.Consumer(lin)], [tstage.Producer(lvd)],
-                         device="cpu", batch=B, max_msg_len=MAX_MSG_LEN,
-                         batch_deadline_s=3600.0, kernel=kernel)
-    dedup = DedupStage("dedup", [tstage.Consumer(lvd)], [tstage.Producer(lout)])
-    for i, f in enumerate(frames):
-        assert feed.try_publish(f, sig=i, tsorig=1 + i)
-    for _ in range(64):
-        verify.run_once()
-        dedup.run_once()
-    verify.flush()
-    for _ in range(64):
-        dedup.run_once()
-    out = [(p, fr.sig) for fr, p in lout.q]
-    vrep = {k: verify.metrics.get(k) for k in COUNTERS}
-    drep = {k: dedup.metrics.get(k) for k in ("frags_in", "dedup_dup")}
-    return out, vrep, drep
+    uid = tshm.fresh_uid()
+    lin, lvd, lout = (tshm.ShmLink.create(f"fdtpu_torch_{n}_{uid}", depth=256, mtu=4096)
+                      for n in ("tin", "tvd", "tout"))
+    try:
+        feed = tshm.make_producer(lin)
+        verify = VerifyStage("verify", [tshm.make_consumer(lin)], [tshm.make_producer(lvd)],
+                             device="cpu", batch=B, max_msg_len=MAX_MSG_LEN,
+                             batch_deadline_s=3600.0, kernel=kernel)
+        dedup = DedupStage("dedup", [tshm.make_consumer(lvd)], [tshm.make_producer(lout)])
+        sink = tshm.make_consumer(lout)
+        for i, f in enumerate(frames):
+            assert feed.try_publish(f, sig=i, tsorig=1 + i)
+        for _ in range(64):
+            verify.run_once()
+            dedup.run_once()
+        verify.flush()
+        for _ in range(64):
+            dedup.run_once()
+        out = []
+        while isinstance(r := sink.poll(), tuple):
+            out.append((r[1], int(r[0][1])))
+        vrep = {k: verify.metrics.get(k) for k in COUNTERS}
+        drep = {k: dedup.metrics.get(k) for k in ("frags_in", "dedup_dup")}
+        verify.drop_native_views()
+        dedup.drop_native_views()
+        return out, vrep, drep
+    finally:
+        for link in (lin, lvd, lout):
+            link.close()
+            link.unlink()
 
 
 def test_verify_dedup_frames_and_counters_match_jax(stream):

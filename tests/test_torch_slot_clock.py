@@ -29,6 +29,7 @@ under the same virtual clock:
 No JAX sigverify compile: the port verifies with its plain versions.
 """
 
+import gc
 import hashlib
 import pickle
 from types import SimpleNamespace
@@ -48,6 +49,7 @@ from firedancer_tpu.runtime import verify as jverify
 from firedancer_tpu.tango import shm
 from firedancer_tpu_torch.flamenco import nonce as tN
 from firedancer_tpu_torch.flamenco.executor import acct_decode
+from firedancer_tpu_torch.models import leader as tleader
 from firedancer_tpu_torch.models.leader import build_leader_pipeline
 from firedancer_tpu_torch.models.workload import (
     nonce_bank_ctx,
@@ -61,7 +63,7 @@ from firedancer_tpu_torch.protocol import txn as ft
 from firedancer_tpu_torch.runtime import pack_stage as tpack
 from firedancer_tpu_torch.runtime import poh_stage as tpoh
 from firedancer_tpu_torch.runtime import slot_clock as tsc
-from firedancer_tpu_torch.runtime import stage as tstage
+from firedancer_tpu_torch.tango import shm as tshm
 from firedancer_tpu_torch.runtime import verify as tverify
 from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_blockhash, pool_payers
 from firedancer_tpu_torch.runtime.poh_stage import parse_entry
@@ -121,33 +123,28 @@ class _JaxLinks:
             link.unlink()
 
 
-class _PortLinks:
-    """The port's in-process links."""
+class _PortLinks(_JaxLinks):
+    """The port's shared-memory links (native endpoints)."""
 
     name = "port"
 
     def link(self, depth, mtu):
-        return tstage.Link("l", depth)
+        link = tshm.ShmLink.create(f"fdtpu_torch_tc_{tshm.fresh_uid()}", depth=depth, mtu=mtu)
+        self.links.append(link)
+        return link
 
     def producer(self, link):
-        return tstage.Producer(link)
+        return tshm.make_producer(link)
 
     def consumer(self, link, lazy=4):
-        return tstage.Consumer(link)
-
-    @staticmethod
-    def drain(cons) -> list:
-        out = []
-        while (r := cons.poll()) is not None:
-            out.append((bytes(r[1]), r[0].sig))
-        return out
-
-    @staticmethod
-    def refresh(stage):
-        pass  # credits are read live
+        return tshm.make_consumer(link, lazy=lazy)
 
     def close(self, *stages):
-        pass
+        for s in stages:
+            s.drop_native_views()
+        for link in self.links:
+            link.close()
+            link.unlink()
 
 
 PKGS = {
@@ -847,3 +844,33 @@ def test_clocked_fused_leader_and_jax_replays_the_seal(stream, free_run):
     _clocked_checks(pipe, out, free)
     assert pipe.shred.metrics.get("data_shreds_out") > 0
     _assert_replayed(sealed, entries)
+
+
+def test_clocked_build_freezes_the_heap_until_close(stream):
+    """A clocked build moves the heap into the permanent generation (so no
+    collection inside the window scans it) and close() gives its share
+    back; the last clocked pipeline out thaws the heap, and an unclocked
+    build freezes nothing."""
+    base = tleader._frozen
+    ctx = nonce_bank_ctx(N_DURABLE, device="cpu")
+
+    def build(clock):
+        return build_leader_pipeline(stream, device="cpu", n_bank=2, batch=BATCH,
+                                     max_msg_len=512, bank_ctx=ctx, slot_clock=clock)
+
+    free = build(None)
+    assert free.heap_hold is None and tleader._frozen == base
+    free.close()
+    first = build(_stepping_clock(50_000))
+    held = gc.get_freeze_count()  # the test process's whole heap
+    assert tleader._frozen == base + 1 and held > 10_000
+    assert first.heap_hold.collect_s > 0
+    second = build(_stepping_clock(50_000))
+    assert tleader._frozen == base + 2
+    first.close()
+    first.close()  # a second close gives nothing back twice
+    assert tleader._frozen == base + 1 and gc.get_freeze_count() >= held
+    second.close()
+    assert tleader._frozen == base
+    if base == 0:  # at most the interpreter's own static objects stay
+        assert gc.get_freeze_count() < held // 10
