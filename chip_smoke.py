@@ -73,7 +73,10 @@ script or when a phase fails):
               parent's K1 on the same inputs (mask on phase 5's batch, then
               times in turns): one [K1-ab] line
   7. pipeline build_verify_pipeline (benchg -> verify -> dedup -> sink) at
-              batch 1,024, max_msg_len 1,232: exact counters, K1 launched
+              batch 1,024, max_msg_len 1,232, the verify stage on its sweep
+              client: exact counters, K1 launched once per sealed C slot;
+              then once on the drain-table intake (native_client=False),
+              checked the same: both lanes' batches and txn/s
   8. K4       sha256_iter32 at n = 12,500 (hashes_per_tick) and B = 4 (the
               sharded leader block's chains), 64 (the plane's: one slot's
               tick spans) and 4,096: 32 lanes equal to hashlib, B = 4 and 64
@@ -187,7 +190,9 @@ script or when a phase fails):
               store, over shared-memory links with the native ring
               endpoints; every leader phase takes that default lane, the
               banks the native executor lane inside the bank sweep lane and
-              verify the native parser, the
+              verify its sweep client; here the shred stage keeps the
+              Python shredder (native_shred=False), whose K5 calls the
+              [K5-launches] recording takes; the
               host libraries built with g++ in phase 2 beside the kernels'
               nvcc) over 8,192 transfers (8
               payers, 1,024 destinations) at batch 1,024 and max_msg_len
@@ -244,7 +249,10 @@ script or when a phase fails):
               (native_pack=False: the dedup stage and PackStage), (e) as
               (a) on the Python executor lane (native_exec=False), (f) as
               (a) on the Python shm rings (native_ring=False: no drain
-              plan and no bank sweep lane).
+              plan and no bank sweep lane), each with keep_sets=False: on
+              the native rings the shred stage runs the native shredder's
+              sweep client and verify its sweep client, on (f) the
+              shredder's batch mode and the Python verify intake.
               Each: sealed + missed = 16 with one sealed at least, ticks +
               skipped ticks = 64 x 16, 1 <= blocks_closed <= 16, landed +
               shed = the verified txns and none dropped, the deshredded
@@ -252,7 +260,10 @@ script or when a phase fails):
               seal and its statuses, every landed durable txn ok and every
               nonce advanced against the parent bank hash if its txn landed
               or kept if it was shed, K1 once per verify batch, K5 once or
-              twice per entry batch, K13 once; [<tag>-gc] (here and in
+              twice per entry batch, K13 once; [<tag>-lanes] (here and in
+              17f-17h): K5 once a FEC set from C (folded into the count), on
+              the native rings the shred client's frags_out = the store's
+              shreds_in and every K1 launch a sealed C slot; [<tag>-gc] (here and in
               17f-17h): the cyclic GC's collections inside the window by
               generation, the longest and their sum in ms, and the objects
               the clocked build froze (models/leader.HeapHold) and left
@@ -285,7 +296,15 @@ script or when a phase fails):
               Python poll against fdr_drain, payloads equal; [parser]: the native parser
               (protocol/txn_native.py, the verify stage's) against the
               Python parse and pack over 17e's 8,448 packets, every
-              descriptor equal, in us a packet on the host clock
+              descriptor equal, in us a packet on the host clock;
+              [shred-lanes]: 17e (a)'s entries in its entry batches through
+              the Python Shredder, NativeShredder and a ShredStage's sweep
+              client over the rings, every shred byte equal to the plain
+              version's (NativeShredder on the CPU: parity through the
+              plain gf_apply_batch), us a FEC set and K5 launches each; [verify-lanes]: 17e's packets through
+              one verify stage on the sweep client, the drain-table intake
+              and the per-frag intake (Python rings), the frames equal,
+              batches, K1 launches and us a txn each
   17f. program leader  17e (a)'s clocked leader over program_stream
               (PROGRAM_MIX: 4,096 v0 transfers whose destinations, phase
               17's 1,024, load through 16 lookup tables of 64 addresses,
@@ -403,6 +422,7 @@ The script imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import gc
 import hashlib
 import json
@@ -562,12 +582,17 @@ ZK_MIX = dict(n_legacy=6000, n_pubkey_validity=512, n_zero_ciphertext=512, n_fro
               n_context=64, n_range_u64=8, n_range_u128=4, n_range_u256=2, n_fail=64,
               n_dests=1024, n_zk_payers=64)
 HOST_LIBS = ("fd_tcache", "fd_pack", "fd_exec_native", "fd_txn_parse", "fd_ring",
-             "fd_bank")  # utils/hostbuild.py's libraries, built in phase 2
+             "fd_bank", "fd_shred", "fd_verify")  # utils/hostbuild.py's libraries, built in phase 2
 # phase 17e: the banks' sweep-lane counters summed over the banks, and the
 # [rings] link's depth (the 8,448 packets fit) and burst (a stage sweep's)
 BANK_SWEEP_KEYS = ("bank_txn_native", "bank_mb_native", "bank_mb_stashed", "bank_credit_waits",
                    "bank_mb_resumed", "bank_mb_dropped")
 RINGS_DEPTH, RINGS_BURST = 16384, 16
+# phase 17e: [shred-lanes]' entry-batch target (the leader's shred stage's),
+# the depth of the [verify-lanes] links (17e's 8,448 packets fit) and the
+# frags a publish or drain call of the lanes' harness moves
+SHRED_TARGET, LANES_DEPTH, LANES_BURST = 16384, 16384, 64
+HOST_ENTRY_CALLS = 200  # [shred-lanes]: K5's host entry timed over this many calls
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
@@ -582,6 +607,60 @@ def native_counts(rep: dict, banks) -> tuple[int, int]:
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def native_lanes(pipe) -> dict:
+    """A leader pipeline's shred and verify lanes, read before its run (its
+    close() drops the sweep clients)."""
+    return {"shred_native": pipe.shred.native_shred,
+            "shred_sweep": pipe.shred._sweep_client is not None,
+            "verify_client": [v._sweep_client is not None for v in pipe.verifies]}
+
+
+def check_native_lanes(tag: str, pipe, lanes: dict, launches: dict, sweep: bool) -> str:
+    """The native shredder's and the verify client's checks after a leader
+    run: K5 once a FEC set, launched from C and folded into the count; with
+    `sweep` (native rings) the shred stage inside fdr_sweep (its C-side
+    frags_out = the shreds the store took) and every verify batch a sealed
+    C slot on K1; else batch mode and the Python verify intake.  Returns
+    the [<tag>-lanes] line's text."""
+    sm = pipe.shred.metrics
+    stored = pipe.store.metrics.get("shreds_in")
+    sets, k5 = sm.get("fec_sets"), launches.get("gf256_apply", 0)
+    sealed = sum(v.metrics.get("sealed_batches") for v in pipe.verifies)
+    batches = sum(v.metrics.get("batches") for v in pipe.verifies)
+    k1 = launches.get("verify_batch", 0)
+    check(lanes["shred_native"] and lanes["shred_sweep"] == sweep
+          and lanes["verify_client"] == [sweep] * len(pipe.verifies),
+          f"{tag}: lanes {lanes}, sweep expected {sweep}")
+    check(k5 == sets > 0, f"{tag}: K5 launches {k5} != the native shredder's {sets} FEC sets")
+    check(sm.get("batches_dropped") == 0, f"{tag}: shred batches dropped")
+    if sweep:
+        check(sm.get("frags_out") == stored > 0,
+              f"{tag}: the shred client published {sm.get('frags_out')}, the store took {stored}")
+        check(sealed == k1 == batches > 0,
+              f"{tag}: verify sealed {sealed} C slots, K1 launched {k1}, {batches} batches")
+    else:
+        check(sealed == 0 and k1 == batches > 0, f"{tag}: verify sealed {sealed}, K1 {k1}")
+    return (f"shred {'inside fdr_sweep' if sweep else 'batch mode'}: {sm.get('entry_batches')}"
+            f" entry batches, {sets} FEC sets, {sm.get('frags_out')} shreds published"
+            f" ({stored} stored), K5 {k5} launches from C; verify"
+            f" {'sweep client' if sweep else 'Python intake'}: {batches} batches"
+            f" ({sealed} sealed C slots), K1 {k1}")
+
+
+def drain_all(drainer, meta: bool = False) -> list:
+    """Every frag ready on a BurstDrainer's one consumer: payloads, or with
+    `meta` (payload, sig, tsorig) tuples."""
+    out = []
+    while True:
+        n, _, _ = drainer.drain(0, drainer.max_frags)
+        if not n:
+            return out
+        rows = drainer.meta[:n].tolist()
+        buf = drainer.arena[: rows[-1][2] + rows[-1][3]].tobytes()
+        out += [(buf[r[2]:r[2] + r[3]], r[1], r[5]) if meta else buf[r[2]:r[2] + r[3]]
+                for r in rows]
 
 
 def check(cond, what: str) -> None:
@@ -1444,10 +1523,12 @@ def main() -> int:
     from firedancer_tpu_torch.runtime.bank import default_bank_ctx
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
     from firedancer_tpu_torch.runtime.poh_stage import parse_entry
-    from firedancer_tpu_torch.runtime.shred_stage import deshred_entry_batch
+    from firedancer_tpu_torch.runtime.shred_native import ENCODE_FN, NativeShredder
+    from firedancer_tpu_torch.runtime.shred_stage import ShredStage, deshred_entry_batch
+    from firedancer_tpu_torch.runtime.shredder import EntryBatchMeta, Shredder
     from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
     from firedancer_tpu_torch.runtime.store import StoreStage
-    from firedancer_tpu_torch.runtime.verify import encode_verified
+    from firedancer_tpu_torch.runtime.verify import VerifyStage, encode_verified
     from firedancer_tpu_torch.tango import native as tnat
     from firedancer_tpu_torch.tango import shm as tshm
     from firedancer_tpu_torch.utils.metrics import hist_quantile as tune_quantile
@@ -1854,10 +1935,14 @@ def main() -> int:
         check(got == want and rep["verify"]["batches"] > 0,
               f"{where}: launches {got} != {want}")
 
-    def drive_verify() -> tuple[float, dict]:
+    def drive_verify(native_client=None) -> tuple[float, dict]:
         """One run of a fresh verify pipeline over the stream: (seconds,
-        report), checked; kbuild.LAUNCHES holds the run's launches."""
-        pipe = build_verify_pipeline(vs.stream, device=dev, batch=B1, max_msg_len=ML1)
+        report), checked; kbuild.LAUNCHES holds the run's launches.  The
+        verify stage takes its sweep client unless native_client=False."""
+        pipe = build_verify_pipeline(vs.stream, device=dev, batch=B1, max_msg_len=ML1,
+                                     native_client=native_client)
+        check((pipe.verify._sweep_client is not None) == (native_client is not False),
+              f"verify pipeline: sweep client {pipe.verify._sweep_client}")
         kbuild.reset_launches()
         t0 = time.perf_counter()
         pipe.run()
@@ -1873,9 +1958,16 @@ def main() -> int:
     txn_s = rep["sink"]["txn_sunk"] / run_s
     # upper estimate: every batch costs a full batch's kernel time
     busy = launches7["verify_batch"] * ms1k / (run_s * 1e3)
+    check(rep["verify"]["sealed_batches"] == rep["verify"]["batches"],
+          f"verify pipeline: {rep['verify']['sealed_batches']} sealed C slots !="
+          f" {rep['verify']['batches']} batches")
+    drain_s, drain_rep = drive_verify(native_client=False)
     log(f"[pipeline] {len(vs.stream)} frames in {run_s:.3f} s: {txn_s:.0f} txn/s sunk;"
-        f" launches {launches7}; device busy <= {busy:.3f} of the run (K1 event"
-        f" time x launches); counters {json.dumps(rep)}")
+        f" {rep['verify']['batches']} batches from the verify sweep client's sealed slots"
+        f" (the drain-table intake in this call: {drain_rep['verify']['batches']} batches,"
+        f" {drain_rep['sink']['txn_sunk'] / drain_s:.0f} txn/s); launches {launches7};"
+        f" device busy <= {busy:.3f} of the run (K1 event time x launches); counters"
+        f" {json.dumps(rep)}")
 
     # -- 8. K4 sha256_iter32 -------------------------------------------------------------
     mark("8")
@@ -2816,8 +2908,11 @@ def main() -> int:
     t0 = time.perf_counter()
     pool17 = gen_transfer_pool(LEADER_TXNS, n_payers=8, n_dests=LEADER_DESTS)
     gen17_s = time.perf_counter() - t0
+    # the Python shredder: its K5 calls go through gf_apply_batch, where the
+    # recording below takes them (the native shredder launches K5 from C)
     pipe17 = build_leader_pipeline(pool17, device=dev, batch=B1, max_msg_len=ML1,
-                                   n_bank=2, keep_entries=True, pack_depth=LEADER_TXNS)
+                                   n_bank=2, keep_entries=True, pack_depth=LEADER_TXNS,
+                                   native_shred=False)
     # every K5 launch of phases 17 and 17b, recorded with its inputs
     k5_rec = {"17": [], "17b": []}
     k5_launch = g2.gf_apply_batch
@@ -3179,7 +3274,8 @@ def main() -> int:
         ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev, native_exec=native_exec)
         pipe = build_leader_pipeline(stream17e, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
                                      bank_ctx=ctx, keep_entries=True, pack_depth=len(stream17e),
-                                     slot_clock=clock17e, **kw)
+                                     slot_clock=clock17e, keep_sets=False, **kw)
+        lanes = native_lanes(pipe)
         run_s, window_s, in_window = drive_window(pipe, tag)
         t0 = time.perf_counter()
         seal = pipe.seal()
@@ -3233,6 +3329,8 @@ def main() -> int:
         check(nb <= launches.get("gf256_apply", 0) <= 2 * nb,
               f"{tag}: K5 launches {launches.get('gf256_apply', 0)} for {nb} entry batches")
         check(launches.get("lthash_combine", 0) == 1, f"{tag}: K13 launches {launches}")
+        log(f"[{tag}-lanes] " + check_native_lanes(tag, pipe, lanes, launches,
+                                                   sweep=kw.get("native_ring", True)))
         lag = poh_m.hist("slot_seal_lag_ns")
         lag50, lag99 = (tune_quantile(lag, q) / 1e6 for q in (0.5, 0.99))
         split = dict(pipe.stage_s)
@@ -3257,7 +3355,8 @@ def main() -> int:
             sealed=sealed_, missed=missed_, in_window=in_window,
             signature_cnt=seal.signature_cnt, native=native_counts(rep, pipe.banks),
             sweep={k: sum(rep[b.name].get(k, 0) for b in pipe.banks) for k in BANK_SWEEP_KEYS},
-            bank_hash=seal.bank_hash, sweeps=pipe.sweeps)
+            bank_hash=seal.bank_hash, sweeps=pipe.sweeps,
+            entries=deshred_entry_batch(pipe.store.entry_batch_bytes(1)))
 
     r17e = clock_leader("clock-leader")
     check(r17e["shed"] == 0 and r17e["durable_ok"] == r17e["advanced"] == CLOCK_DURABLE,
@@ -3393,6 +3492,161 @@ def main() -> int:
         f" {parse_s * per_:.3f} us + txn_pack {pack_s * per_:.3f} us ="
         f" {(parse_s + pack_s) * per_:.3f} us a packet (host clock, one pass each)")
 
+    # the shred stage's lanes over 17e (a)'s entries: the Python Shredder and
+    # NativeShredder over the entry batches the stage closed (16,384 bytes,
+    # the last at the slot-end flush), and a ShredStage's sweep client over
+    # the rings; every shred byte equal to the plain version's, NativeShredder
+    # on the CPU (its parity pointer a trampoline into the plain gf_apply_batch)
+    secret_ = hashlib.sha256(b"leader").digest()
+    ents_ = r17e["entries"]
+    batches_, buf_ = [], bytearray()
+    for e_ in ents_:
+        buf_ += len(e_).to_bytes(4, "little") + e_
+        if len(buf_) >= SHRED_TARGET:
+            batches_.append(bytes(buf_))
+            buf_ = bytearray()
+    if buf_:
+        batches_.append(bytes(buf_))
+    def fec_shreds(sh_) -> tuple[list[bytes], int]:
+        sets_ = [st_ for i_, b_ in enumerate(batches_) for st_ in sh_.entry_batch_to_fec_sets(
+            b_, slot=1, meta=EntryBatchMeta(block_complete=i_ == len(batches_) - 1))]
+        return [x_ for st_ in sets_ for x_ in st_.data_shreds + st_.parity_shreds], len(sets_)
+
+    plain_shreds, plain_sets = fec_shreds(NativeShredder(secret=secret_, shred_version=1,
+                                                         device="cpu"))
+    shred_lanes = {}
+    for lane_, sh_ in (("python", Shredder(signer=lambda r_: ref.sign(secret_, r_),
+                                           shred_version=1, device=dev)),
+                       ("native", NativeShredder(secret=secret_, shred_version=1, device=dev))):
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        shreds_, n_sets_ = fec_shreds(sh_)
+        torch.cuda.synchronize()
+        dt_ = time.perf_counter() - t0
+        shred_lanes[lane_] = (shreds_, n_sets_, dt_, kbuild.LAUNCHES["gf256_apply"])
+    # the native lane's parity call alone at the leader's (27 x 19, 1,019)
+    # set: K5's host entry (copy in, one launch, copy out, stream sync)
+    # against the plain version's bytes (ops/reedsol.encode on the CPU),
+    # timed a call on the host clock
+    par_ = sh_._ctx.parity
+    enc_ = ENCODE_FN(par_.fn.value)
+    rows_ = np.random.default_rng(23).integers(0, 256, (19, 1019), dtype=np.uint8)
+    gen_ = rs.parity_matrix(19, 27).tobytes()
+    out_ = (ctypes.c_uint8 * (27 * 1019))()
+    check(enc_(par_.user, gen_, rows_.tobytes(), 19, 27, 1019, out_) == 0,
+          "shred-lanes: K5's host entry failed")
+    check(np.array_equal(np.frombuffer(out_, np.uint8).reshape(27, 1019),
+                         rs.encode(rows_[None], 27, device="cpu")[0].numpy()),
+          "shred-lanes: K5's host entry differs from the plain reedsol.encode")
+    t0 = time.perf_counter()
+    for _ in range(HOST_ENTRY_CALLS):
+        enc_(par_.user, gen_, rows_.tobytes(), 19, 27, 1019, out_)
+    host_entry_us = (time.perf_counter() - t0) * 1e6 / HOST_ENTRY_CALLS
+    uid_ = tshm.fresh_uid()
+    sl_in = tshm.ShmLink.create(f"fdtpu_torch_shl_i_{uid_}", depth=1024,
+                                mtu=max(len(e_) for e_ in ents_))
+    sl_out = tshm.ShmLink.create(f"fdtpu_torch_shl_o_{uid_}", depth=4096, mtu=1232)
+    try:
+        prod_ = tshm.make_producer(sl_in)
+        cons_ = tshm.make_consumer(sl_out, lazy=0)
+        st_ = ShredStage("shred", [tshm.make_consumer(sl_in, lazy=8)], [tshm.make_producer(sl_out)],
+                         signer=None, secret=secret_, slot=1, batch_target_sz=SHRED_TARGET,
+                         device=dev)
+        check(st_._sweep_client is not None, "shred-lanes: the stage did not arm its client")
+        items_ = [(e_, i_, 1) for i_, e_ in enumerate(ents_)]
+        dr_ = tnat.BurstDrainer([cons_], LANES_BURST)
+        got_, fed_ = [], 0
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        while fed_ < len(items_) or st_.ins[0].has_pending():
+            fed_ += prod_.publish_burst(items_[fed_:fed_ + LANES_BURST])
+            st_.run_once()
+            got_ += drain_all(dr_)
+        st_.flush(block_complete=True)
+        got_ += drain_all(dr_)
+        torch.cuda.synchronize()
+        dt_ = time.perf_counter() - t0
+        shred_lanes["client"] = (got_, st_.metrics.get("fec_sets"), dt_,
+                                 kbuild.LAUNCHES["gf256_apply"])
+        st_.ins, st_.outs = [], []
+        st_.drop_native_views()
+        del prod_, cons_, st_, dr_
+        gc.collect()
+    finally:
+        for l_ in (sl_in, sl_out):
+            l_.close()
+            l_.unlink()
+    for lane_, (sh_, n_, _, _) in shred_lanes.items():
+        check(sh_ == plain_shreds and n_ == plain_sets,
+              f"shred-lanes: the {lane_} lane's {len(sh_)} shreds differ from the plain"
+              f" version's {len(plain_shreds)} (NativeShredder on the CPU)")
+    log(f"[shred-lanes] 17e (a)'s {len(ents_)} entries in {len(batches_)} entry batches,"
+        f" {plain_sets} FEC sets, {len(plain_shreds)} shreds, every byte of the three lanes"
+        f" equal to the plain version's (NativeShredder on the CPU, parity through the plain"
+        f" gf_apply_batch): " + "; ".join(
+            f"{lane_} {1e6 * dt_ / n_:.1f} us a set, K5 {k5_} launches"
+            for lane_, (_, n_, dt_, k5_) in shred_lanes.items())
+        + " (host clock, one pass each; python: the Python Shredder, K5 through"
+        " gf_apply_batch a same-shape group; native: NativeShredder, K5 from C a set; client:"
+        " a ShredStage's sweep client inside fdr_sweep over the rings, fed by"
+        " fdr_publish_burst and drained by fdr_drain); K5's host entry alone at (27 x 19,"
+        f" 1,019), its bytes the plain reedsol.encode's: {host_entry_us:.1f} us a call (copy in, launch,"
+        f" copy out, sync; {HOST_ENTRY_CALLS} calls)")
+    # the verify stage's intake lanes over 17e's packets: the sweep client,
+    # the drain-table intake (native rings) and the per-frag intake (Python
+    # rings); the frames equal
+    verify_lanes = {}
+    for lane_ in ("client", "drain", "python"):
+        uid_ = tshm.fresh_uid()
+        nat_ = lane_ != "python"
+        vl_in = tshm.ShmLink.create(f"fdtpu_torch_vl_i_{uid_}", depth=LANES_DEPTH, mtu=1232)
+        vl_out = tshm.ShmLink.create(f"fdtpu_torch_vl_o_{uid_}", depth=LANES_DEPTH, mtu=4096)
+        try:
+            prod_ = tshm.make_producer(vl_in, native=nat_)
+            cons_ = tshm.make_consumer(vl_out, lazy=0)
+            dr_ = tnat.BurstDrainer([cons_], LANES_BURST)
+            st_ = VerifyStage("verify", [tshm.make_consumer(vl_in, lazy=32, native=nat_)],
+                              [tshm.make_producer(vl_out, native=nat_)], device=dev,
+                              batch=B1, max_msg_len=ML1,
+                              native_client=None if lane_ == "client" else False)
+            check((st_._sweep_client is not None) == (lane_ == "client"),
+                  f"verify-lanes: {lane_} lane's client")
+            for i_, p_ in enumerate(stream17e):
+                check(prod_.try_publish(p_, sig=i_, tsorig=1 + i_), "verify-lanes: publish")
+            got_ = []
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            while len(got_) < len(stream17e):
+                st_.run_once()
+                got_ += drain_all(dr_, meta=True)
+                if not st_.busy() and not st_.ins[0].has_pending() and len(got_) < len(stream17e):
+                    st_.flush()
+                check(time.perf_counter() - t0 < 60, f"verify-lanes: {lane_} lane stalled")
+            torch.cuda.synchronize()
+            dt_ = time.perf_counter() - t0
+            verify_lanes[lane_] = (got_, st_.metrics.get("batches"), kbuild.LAUNCHES["verify_batch"],
+                                   dt_)
+            st_.ins, st_.outs = [], []
+            st_.drop_native_views()
+            del prod_, cons_, st_, dr_
+            gc.collect()
+        finally:
+            for l_ in (vl_in, vl_out):
+                l_.close()
+                l_.unlink()
+    for lane_, (got_, nb_, k1_, _) in verify_lanes.items():
+        check(got_ == verify_lanes["client"][0] and nb_ == k1_ > 0,
+              f"verify-lanes: the {lane_} lane's frames differ, or K1 {k1_} != batches {nb_}")
+    check([t_ for _, _, t_ in verify_lanes["client"][0]] == list(range(1, len(stream17e) + 1)),
+          "verify-lanes: frames missing or out of order")
+    log(f"[verify-lanes] 17e's {len(stream17e)} packets through one verify stage at batch {B1},"
+        f" every verified frame equal on the three lanes: " + "; ".join(
+            f"{lane_} {nb_} batches, K1 {k1_} launches, {1e6 * dt_ / len(stream17e):.3f} us a txn"
+            for lane_, (_, nb_, k1_, dt_) in verify_lanes.items())
+        + " (host clock from the first sweep to the last frame out, drained by fdr_drain;"
+        " client: the sweep client over native rings; drain: the drain-table intake over"
+        " native rings; python: the per-frag intake over Python rings)")
+
     # -- 17f. the program leader: v0 lookups, stake, config and the precompiles ----------------
     mark("17f")
     # who sends it: wallets and routers whose v0 txns load their accounts
@@ -3412,12 +3666,15 @@ def main() -> int:
     pipe17f = build_leader_pipeline(ps17f.stream, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
                                     bank_ctx=program_bank_ctx(ps17f, device=dev), slot=ps17f.slot,
                                     keep_entries=True, pack_depth=len(ps17f.stream),
-                                    slot_clock=clock17f)
+                                    slot_clock=clock17f, keep_sets=False)
+    lanes17f = native_lanes(pipe17f)
     run17f_s, window17f_s, in_window17f = drive_window(pipe17f, "program-leader")
     t0 = time.perf_counter()
     seal17f = pipe17f.seal()
     seal17f_s = time.perf_counter() - t0
     launches17f = dict(kbuild.LAUNCHES)
+    log(f"[program-leader-lanes] " + check_native_lanes("program-leader", pipe17f, lanes17f, launches17f,
+                                                sweep=True))
     rep17f = pipe17f.report()
     poh17f, pack17f = pipe17f.poh.metrics, pipe17f.pack.metrics
     sealed17f, missed17f = poh17f.get("slots_sealed"), poh17f.get("slot_missed")
@@ -3536,12 +3793,15 @@ def main() -> int:
     pipe17g = build_leader_pipeline(ss17g.stream, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
                                     bank_ctx=sbpf_bank_ctx(ss17g, device=dev), slot=ss17g.slot,
                                     keep_entries=True, pack_depth=len(ss17g.stream),
-                                    slot_clock=clock17g)
+                                    slot_clock=clock17g, keep_sets=False)
+    lanes17g = native_lanes(pipe17g)
     run17g_s, window17g_s, in_window17g = drive_window(pipe17g, "sbpf-leader")
     t0 = time.perf_counter()
     seal17g = pipe17g.seal()
     seal17g_s = time.perf_counter() - t0
     launches17g = dict(kbuild.LAUNCHES)
+    log(f"[sbpf-leader-lanes] " + check_native_lanes("sbpf-leader", pipe17g, lanes17g, launches17g,
+                                                sweep=True))
     rep17g = pipe17g.report()
     poh17g, pack17g = pipe17g.poh.metrics, pipe17g.pack.metrics
     sealed17g, missed17g = poh17g.get("slots_sealed"), poh17g.get("slot_missed")
@@ -3656,13 +3916,16 @@ def main() -> int:
     pipe17h = build_leader_pipeline(zs17h.stream, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
                                     bank_ctx=zk_bank_ctx(zs17h, device=dev), slot=zs17h.slot,
                                     keep_entries=True, pack_depth=len(zs17h.stream),
-                                    slot_clock=clock17h)
+                                    slot_clock=clock17h, keep_sets=False)
+    lanes17h = native_lanes(pipe17h)
     check(pipe17h.dedup is None, "zk leader: not on the fused native pack lane")
     run17h_s, window17h_s, in_window17h = drive_window(pipe17h, "zk-leader")
     t0 = time.perf_counter()
     seal17h = pipe17h.seal()
     seal17h_s = time.perf_counter() - t0
     launches17h = dict(kbuild.LAUNCHES)
+    log(f"[zk-leader-lanes] " + check_native_lanes("zk-leader", pipe17h, lanes17h, launches17h,
+                                                sweep=True))
     rep17h = pipe17h.report()
     poh17h, pack17h = pipe17h.poh.metrics, pipe17h.pack.metrics
     sealed17h, missed17h = poh17h.get("slots_sealed"), poh17h.get("slot_missed")

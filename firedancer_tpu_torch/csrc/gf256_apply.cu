@@ -322,3 +322,45 @@ FD_EXPORT int fd_gf256_apply(const void* mat, int64_t mat_stride, const void* da
   }
   return (int)cudaGetLastError();
 }
+
+// The native shredder's parity call (firedancer_tpu_torch/native/fd_shred.cpp,
+// once a FEC set): the p x d generator and the d RS rows of sz bytes are
+// host memory; they go to the device scratch in `user`, K5 runs with T = 1,
+// m = p, k = d on user's stream, the parity rows come back to `out`, and
+// the stream is synchronized before return.  The scratch is allocated and
+// kept alive by the caller (runtime/shred_native.py: torch tensors), so
+// nothing here allocates.  Returns a cudaError_t (0 = ok); d > 67, p > 67
+// or sz > 1,139 (the shredder's limits) are cudaErrorInvalidValue.
+// `launches` counts the launches this entry made: the caller folds it into
+// its launch counter.
+struct fd_gf256_host_user {
+  int64_t device;
+  void* stream;  // cudaStream_t
+  uint8_t* gen;  // >= 67 x 67 bytes on the device
+  uint8_t* data;  // >= 67 x 1,139
+  uint8_t* out;  // >= 67 x 1,139
+  uint64_t launches;
+};
+
+FD_EXPORT int fd_gf256_encode_host(void* user, const uint8_t* gen, const uint8_t* data, uint64_t d,
+                                   uint64_t p, uint64_t sz, uint8_t* out) {
+  fd_gf256_host_user* u = (fd_gf256_host_user*)user;
+  if (!u || d == 0 || d > 67 || p == 0 || p > 67 || sz == 0 || sz > 1139)
+    return (int)cudaErrorInvalidValue;
+  const int dev = (int)u->device;
+  int rc = fd_set_device(dev);
+  if (rc) return rc;
+  cudaStream_t st = (cudaStream_t)u->stream;
+  rc = (int)cudaMemcpyAsync(u->gen, gen, p * d, cudaMemcpyHostToDevice, st);
+  if (rc) return rc;
+  rc = (int)cudaMemcpyAsync(u->data, data, d * sz, cudaMemcpyHostToDevice, st);
+  if (rc) return rc;
+  const int vec = sz % 16 == 0 && ((uintptr_t)u->data & 15) == 0;
+  rc = fd_gf256_apply(u->gen, 0, u->data, u->out, 1, (int)p, (int)d, (int64_t)sz, vec, dev,
+                      u->stream);
+  if (rc) return rc;
+  u->launches++;
+  rc = (int)cudaMemcpyAsync(out, u->out, p * sz, cudaMemcpyDeviceToHost, st);
+  if (rc) return rc;
+  return (int)cudaStreamSynchronize(st);
+}

@@ -16,7 +16,11 @@ Python PackStage there instead.  The banks execute on their BankCtx's
 lane: the native executor lane by default (BankCtx(native_exec=True),
 flamenco/exec_native.py, the JAX leader's default too); a bank_ctx built
 with native_exec=False runs the Python lane.  Verify parses
-each packet with the native parser (protocol/txn_native.py).
+each packet with the native parser (protocol/txn_native.py); over native
+rings its generic stages run the verify sweep client
+(runtime/verify_native.py: the intake in C, K1 from sealed slots).  The
+shred stage takes the leader's secret and runs the native shredder
+(runtime/shred_native.py, parity on K5) unless native_shred=False.
 
 `build_leader_pipeline` and `build_sharded_leader_pipeline` produce a
 block: pack schedules, the banks execute and commit into one shared bank
@@ -189,8 +193,7 @@ class VerifyPipeline:
 
     def _busy(self) -> bool:
         v = self.verify
-        return (_pending([c for s in self.stages for c in s.ins]) or bool(v._inflight)
-                or bool(v._submit_queue) or bool(v._emit_queue))
+        return _pending([c for s in self.stages for c in s.ins]) or v.busy()
 
     def close(self) -> None:
         """Tear the links down (Rings.close)."""
@@ -238,7 +241,7 @@ def build_verify_pipeline(stream: list[bytes], *, device=None,
                           batch: int = 1024, max_msg_len: int = 1232,
                           comb_slots: int = 0, promote_threshold: int = 2,
                           kernel: str = "fused", autotune_after: int = 0,
-                          plane=None) -> VerifyPipeline:
+                          plane=None, native_client: bool | None = None) -> VerifyPipeline:
     """benchg -> verify -> dedup -> sink.  benchg sends `stream` once, in
     order (gen_transfer_pool gives a pool of signed transfers).  The verify
     stage runs on `device` (default the card, or the plane's first device;
@@ -250,7 +253,9 @@ def build_verify_pipeline(stream: list[bytes], *, device=None,
     sigverify.KERNEL_LADDER; autotune_after > 0 turns on the batch-geometry
     autotuner; plane (a ServePlane shaped batch x max_msg_len) routes the
     generic batches through its step.  The links take the native ring
-    endpoints."""
+    endpoints, so the verify stage arms its sweep client where it can
+    (runtime/verify.py; native_client as VerifyStage's: False keeps the
+    drain-table intake)."""
     dev = plane.device if plane is not None and device is None else resolve_device(device)
     r = Rings(native=True)
     gen_verify, verify_dedup, dedup_sink = r.link("gv"), r.link("vd"), r.link("vs", "vd")
@@ -260,7 +265,8 @@ def build_verify_pipeline(stream: list[bytes], *, device=None,
                          [r.producer(verify_dedup)], device=dev, batch=batch,
                          max_msg_len=max_msg_len, comb_slots=comb_slots,
                          promote_threshold=promote_threshold, kernel=kernel,
-                         autotune_after=autotune_after, plane=plane)
+                         autotune_after=autotune_after, plane=plane,
+                         native_client=native_client)
     dedup = DedupStage("dedup", [r.consumer(verify_dedup, "vd")], [r.producer(dedup_sink)])
     sink = SinkStage("sink", [r.consumer(dedup_sink, "vd")])
     return VerifyPipeline(stages=[benchg, verify, dedup, sink], rings=r,
@@ -374,9 +380,7 @@ class LeaderPipeline:
         self.stage_s[name] += time.perf_counter() - t0
 
     def _verify_busy(self) -> bool:
-        return (_pending(self.upstream)
-                or any(v._inflight or v._submit_queue or v._emit_queue
-                       for v in self.verifies))
+        return _pending(self.upstream) or any(v.busy() for v in self.verifies)
 
     def finish(self, *, max_sweeps: int = 1_000_000) -> None:
         """Drain: stop benchg -> flush verify until nothing is upstream of
@@ -472,7 +476,8 @@ def _leader_tail(*, r: Rings, upstream_outs: list, n_bank: int, slot: int,
                  hashes_per_tick: int = 64, plane=None, slot_clock=None,
                  shed_keep: int | None = None,
                  fuse_poh_shred: bool = False,
-                 native_pack: bool = True) -> tuple[list, dict]:
+                 native_pack: bool = True,
+                 native_shred: bool = True) -> tuple[list, dict]:
     """[dedup ->] pack -> bank xB -> poh -> shred -> store, fed by
     `upstream_outs` (the verify stages' output links, one a stage: a ring
     has one producer), on `r`'s links: (the consumers of the links up to
@@ -480,7 +485,9 @@ def _leader_tail(*, r: Rings, upstream_outs: list, n_bank: int, slot: int,
     slot_clock (anchored by the caller) goes to pack, every bank and PoH;
     fuse_poh_shred puts the fused stage where PoH and shred were, with no
     poh->shred link; native_pack picks the fused native pack lane, which
-    reads `upstream_outs` itself, over dedup and the Python pack."""
+    reads `upstream_outs` itself, over dedup and the Python pack;
+    native_shred hands the shred stage the leader's secret, which arms the
+    native shredder (a plane keeps the Python one)."""
     pack_bank = [r.link(f"pb{b}") for b in range(n_bank)]
     bank_poh = [r.link(f"bp{b}") for b in range(n_bank)]
     bank_done = [r.link(f"bd{b}") for b in range(n_bank)]
@@ -511,19 +518,20 @@ def _leader_tail(*, r: Rings, upstream_outs: list, n_bank: int, slot: int,
     for bstage in banks:
         bstage.require_credit = True
     signer = lambda root: ref.sign(secret, root)  # noqa: E731
+    shred_secret = secret if native_shred else None
     if fuse_poh_shred:
         poh = FusedPohShredStage("poh_shred", [r.consumer(l, "bp") for l in bank_poh],
                                  [r.producer(shred_store)], hashes_per_tick=hashes_per_tick,
                                  plane=plane, clock=slot_clock, signer=signer,
-                                 shred_slot=slot, keep_sets=keep_sets, shred_plane=plane,
-                                 device=dev)
+                                 secret=shred_secret, shred_slot=slot, keep_sets=keep_sets,
+                                 shred_plane=plane, device=dev)
         shred = poh.shred_half
     else:
         poh = PohStage("poh", [r.consumer(l, "bp") for l in bank_poh], [r.producer(poh_shred)],
                        hashes_per_tick=hashes_per_tick, plane=plane, clock=slot_clock)
         shred = ShredStage("shred", [r.consumer(poh_shred, "ps")], [r.producer(shred_store)],
-                           signer=signer, slot=slot, keep_sets=keep_sets, plane=plane,
-                           device=dev)
+                           signer=signer, secret=shred_secret, slot=slot,
+                           keep_sets=keep_sets, plane=plane, device=dev)
     poh.require_credit = True
     if keep_entries:
         poh.entries = []
@@ -561,6 +569,7 @@ def build_leader_pipeline(
     fuse_poh_shred: bool = False,
     native_pack: bool = True,
     native_ring: bool = True,
+    native_shred: bool = True,
 ) -> LeaderPipeline:
     """benchg -> verify xN -> pack -> bank xB -> poh -> shred -> store over
     `stream` (sent once, in order).  Every device stage runs on
@@ -581,7 +590,11 @@ def build_leader_pipeline(
     native_ring=True (the default) puts the native ring endpoints on every
     link, and with the native executor lane the banks then run the bank
     sweep lane; False the Python endpoints and the banks' per-frag path.
-    Any native library's build failing raises.
+    native_shred=True (the default) is the native shredder
+    (runtime/shred_native.py, parity through K5's host entry): with
+    keep_sets=False over the native rings the shred stage runs inside
+    fdr_sweep, else it shreds each batch in one crossing; False is the
+    Python Shredder.  Any native library's build failing raises.
 
     slot_clock (runtime/slot_clock.SlotClockCfg, anchored here once, or a
     built SlotClock, passed through as is) runs the pipeline against the
@@ -621,7 +634,7 @@ def build_leader_pipeline(
                                keep_entries=keep_entries, keep_sets=keep_sets,
                                pack_depth=pack_depth, slot_clock=slot_clock,
                                shed_keep=shed_keep, fuse_poh_shred=fuse_poh_shred,
-                               native_pack=native_pack)
+                               native_pack=native_pack, native_shred=native_shred)
     upstream = (router.ins if router else []) + [c for v in verifies for c in v.ins] + upstream
     stages = [benchg] + ([router] if router else []) + verifies + _tail_stages(t)
     return LeaderPipeline(stages=stages, rings=r, benchg=benchg, verifies=verifies,
@@ -659,7 +672,9 @@ def build_sharded_leader_pipeline(
     warmed) ServePlane; None builds one for n_shards devices on `device`
     with poh_iters = hashes_per_tick, so tick spans match the plane's span
     length, and the remaining ServeConfig fields from plane_cfg.
-    pack_depth, native_pack and native_ring as in build_leader_pipeline."""
+    pack_depth, native_pack and native_ring as in build_leader_pipeline.
+    The shred stage keeps the Python Shredder: its parity goes through the
+    plane."""
     from ..parallel.router import ShardRouterStage
     from ..parallel.serve import ServeConfig, ServePlane, ShardedVerifyStage
 
@@ -687,7 +702,7 @@ def build_sharded_leader_pipeline(
                                leader_seed=leader_seed, bank_ctx=bank_ctx, dev=dev,
                                keep_entries=keep_entries, keep_sets=True,
                                hashes_per_tick=hashes_per_tick, pack_depth=pack_depth,
-                               plane=plane, native_pack=native_pack)
+                               plane=plane, native_pack=native_pack, native_shred=False)
     upstream = router.ins + verify.ins + upstream
     stages = [benchg, router, verify] + _tail_stages(t)
     return LeaderPipeline(stages=stages, rings=r, benchg=benchg, verifies=[verify],

@@ -44,6 +44,8 @@ from bisect import bisect_left
 from collections import Counter
 from typing import NamedTuple
 
+import numpy as np
+
 from ..tango import shm
 from ..tango.native import BurstDrainer, NativeConsumer, SweepDrainer
 
@@ -74,6 +76,12 @@ class Metrics:
     def get(self, name: str) -> int:
         return self.counters[name]
 
+    def assign(self, values: dict) -> None:
+        """Set counters to absolute values (a sweep client's running totals);
+        Counter.update would add them."""
+        for name, v in values.items():
+            self.counters[name] = v
+
     def histogram(self, name: str, buckets: tuple) -> None:
         """Declare a histogram with these upper bucket edges (one overflow
         bucket past the last)."""
@@ -86,6 +94,17 @@ class Metrics:
         c[bisect_left(self._hedges[name], value)] += 1
         if value > 0:
             self._hsums[name] += value
+
+    def observe_batch(self, name: str, values) -> None:
+        """observe() over an array of values, in one numpy pass."""
+        v = np.asarray(values, dtype=np.float64)
+        if not v.size:
+            return
+        idx = np.searchsorted(self._hedges[name], v, side="left")
+        c = self._hcounts[name]
+        for i, k in zip(*np.unique(idx, return_counts=True)):
+            c[int(i)] += int(k)
+        self._hsums[name] += float(v[v > 0].sum())
 
     def hist(self, name: str) -> dict:
         """{"buckets", "counts", "sum", "count"}; KeyError if undeclared."""

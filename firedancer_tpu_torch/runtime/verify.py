@@ -26,6 +26,18 @@ so the loop never blocks on a batch still running.  With a serving plane
 (plane=...), generic batches go through the plane's step instead
 (parallel/serve.py ServePlane.verify_batch).
 
+The sweep client (runtime/verify_native.py over native/fd_verify.cpp): on
+an exact VerifyStage whose every input is a native consumer and whose
+output is a native producer of mtu >= verify_native.FRAME_MTU, with no
+plane, no comb bank and no autotuner, the whole intake (parse, the guards,
+batch assembly into C slot buffers) runs inside the fdr_sweep crossing
+with no Python per frag.  Python then works a batch at a time: a sealed
+slot's views become tensors on the stage's device for verify_dispatch
+(K1 on the card), the reaped frames go out in one fdr_publish_burst call
+straight from the slot's frame arena, and the slot returns to the intake
+only after its frames are out.  native_client=None arms it where those
+hold, True raises naming what blocks it, False never arms.
+
 Autotuner (autotune_after > 0): the stage records its batch_fill, msg_len
 and inflight_occupancy histograms; every autotune_after batches, at a
 housekeeping call that finds the stage quiet (nothing accumulated, in
@@ -54,9 +66,11 @@ import torch
 from ..ops import sigverify as sv
 from ..protocol import txn as ft
 from ..protocol import txn_native
+from ..tango.native import NativeConsumer, NativeProducer
 from ..tango.rings import TCache
 from ..utils import metrics as fm
 from ..utils.platform import resolve_device
+from . import verify_native as vn
 from . import verify_tune as vt
 from .stage import Stage
 
@@ -155,12 +169,6 @@ class VerifyStage(Stage):
         if kernel not in sv.KERNEL_LADDER:
             raise ValueError(f"unknown verify kernel {kernel!r}"
                              f" (ladder: {', '.join(sv.KERNEL_LADDER)})")
-        if native_client:
-            raise ValueError(
-                "native_client=True: the port has no native sweep client for the verify"
-                " stage yet (the C++ intake sweep over the shm rings, native/fd_verify.cpp);"
-                " ROADMAP item 5.5, the verify sweep client, brings it now that the rings"
-                " are in")
         # plane: a parallel/serve.ServePlane; generic batches go through its
         # step, so the stage's batch geometry must be the plane's shape
         self.plane = plane
@@ -212,6 +220,50 @@ class VerifyStage(Stage):
         # window, bounded so a dead consumer cannot grow it without limit
         self._emit_queue: list = []
         self._emit_queue_max = 8192
+        # the sweep client's batches: (slot, n_elems, n_txn, result) in
+        # flight, [slot, frame table, frames out] reaped and publishing
+        self._nv_inflight: list = []
+        self._nv_emit: list = []
+        self._nv_opened_at = 0.0
+        self._nv_stamp_sealed = 0  # the C side's seal count at the stamp
+        self._nv_taken = 0  # sealed slots taken for dispatch
+        want = native_client if native_client is not None else type(self) is VerifyStage
+        if want:
+            blocker = self._client_blocker()
+            if blocker is None:
+                self._sweep_client = vn.StageClient(
+                    shard_idx=0, shard_cnt=1, batch=batch,
+                    max_msg_len=max_msg_len, n_slots=max_inflight + 2)
+            elif native_client:
+                raise ValueError(f"native_client=True: the native sweep client cannot arm:"
+                                 f" {blocker}")
+
+    def _client_blocker(self) -> str | None:
+        """What keeps the sweep client off this stage, or None."""
+        if self.plane is not None:
+            return "a serving plane routes the generic batches"
+        if self.comb_slots:
+            return "the comb bank needs Python signer tracking"
+        if self.autotune_after:
+            return "the autotuner retunes the batch geometry the C slots fix"
+        if not self.ins or not self.outs:
+            return "the stage has no rings"
+        if not all(type(c) is NativeConsumer for c in self.ins):
+            return "not every input is a native-ring consumer"
+        if type(self.outs[0]) is not NativeProducer:
+            return "the output is not a native-ring producer"
+        if self.outs[0].link.mtu < vn.FRAME_MTU:
+            return f"out link mtu {self.outs[0].link.mtu} < {vn.FRAME_MTU} (frame headroom)"
+        return None
+
+    def busy(self) -> bool:
+        """Work accumulated, in flight or waiting for credits, on either
+        intake lane."""
+        if self._inflight or self._submit_queue or self._emit_queue:
+            return True
+        c = self._sweep_client
+        return c is not None and bool(self._nv_inflight or self._nv_emit or c.stash_pending
+                                      or c.open_elems() or c.sealed_waiting())
 
     # -- intake ----------------------------------------------------------------
 
@@ -262,6 +314,12 @@ class VerifyStage(Stage):
             self._close_batch(acc)
 
     def after_frag(self, in_idx: int, frag, payload: bytes) -> None:
+        c = self._sweep_client
+        if c is not None:
+            # the per-frag surface (a mixed-lane splice): into the SAME
+            # C-side state the sweep callback fills
+            c.append(payload, frag.tsorig)
+            return
         got = self._intake(payload)
         if got is not None:
             self._accumulate(got, payload, frag.tsorig)
@@ -284,11 +342,29 @@ class VerifyStage(Stage):
 
     def before_credit(self) -> None:
         # stamp the deadline clock once per newly opened batch
+        c = self._sweep_client
+        if c is not None:
+            # the C side's open slot: its element count and the seal count
+            # (a slot sealed full and a new one opened restarts the clock)
+            if not c.open_elems():
+                self._nv_opened_at = 0.0
+            elif self._nv_opened_at == 0.0 or c.sealed_cnt() != self._nv_stamp_sealed:
+                self._nv_opened_at = time.monotonic()
+                self._nv_stamp_sealed = c.sealed_cnt()
+            return
         for acc in (self._gen, self._comb):
             if acc.elems and acc.opened_at == 0.0:
                 acc.opened_at = time.monotonic()
 
     def after_credit(self) -> None:
+        c = self._sweep_client
+        if c is not None:
+            if self._nv_opened_at and \
+                    time.monotonic() - self._nv_opened_at >= self.batch_deadline_s:
+                c.seal()
+                self._nv_opened_at = 0.0
+            self._nv_pump()
+            return
         if self._emit_queue:
             self._emit_burst([])
         now = time.monotonic()
@@ -300,10 +376,127 @@ class VerifyStage(Stage):
         self._drain(block=False)
 
     def during_housekeeping(self) -> None:
+        c = self._sweep_client
+        if c is not None:
+            self._nv_pump()
+            # the C side's intake counters are the stage's on this lane
+            self.metrics.assign(c.counters())
+            return
         self._pump_submits()
         self._drain(block=False)
         self._fill_bank()
         self._maybe_retune()
+
+    # -- the sweep client's batches --------------------------------------------
+
+    def _native_sweep(self, drainer) -> bool:
+        if not self._sweep_client.can_accept():
+            # every slot busy: a sweep now would only stash, so reap and
+            # publish first to reopen the intake
+            self._nv_pump()
+            return False
+        return super()._native_sweep(drainer)
+
+    def _nv_pump(self) -> None:
+        """Submit sealed slots into the in-flight window (in seal order),
+        reap completed heads (in order), publish the reaped frames."""
+        c = self._sweep_client
+        if not (self._nv_inflight or self._nv_emit) and c.sealed_cnt() == self._nv_taken:
+            return  # idle: no slot sealed since the last take
+        while len(self._nv_inflight) < self.max_inflight:
+            got = c.take_sealed()
+            if got is None:
+                break
+            self._nv_dispatch(*got)
+        self._nv_drain(block=False)
+        self._nv_publish()
+
+    def _nv_dispatch(self, slot: int, n_elems: int, n_txn: int) -> None:
+        """A sealed slot's views to the stage's device and verify_dispatch
+        (K1 on the card).  The copies are synchronous (pageable host
+        memory), so nothing reads the slot after this returns; the slot
+        still stays the stage's until its frames are published."""
+        views = self._sweep_client.slots[slot]
+        self.metrics.observe_batch("msg_len", views.ln[views.ranges[:n_txn, 0]])
+        dev = self.device
+        # the kernels' (len, B) layout: transposed on the device
+        msg, sig, pk = (torch.from_numpy(a).to(dev).t().contiguous()
+                        for a in (views.msg, views.sig, views.pk))
+        ln = torch.from_numpy(views.ln).to(dev)
+        if dev.type == "cpu":
+            ln = ln.clone()  # the CPU tensor would alias the slot
+        mask, n_ok = sv.verify_dispatch(self.kernel, msg, ln, sig, pk, n_elems,
+                                        max_msg_len=self.max_msg_len)
+        event = None
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+        self._nv_inflight.append((slot, n_elems, n_txn, _Result(mask, n_ok, event)))
+        self._nv_taken += 1
+        self.metrics.inc("batches")
+        self.metrics.inc("batch_elems", n_elems)
+        self.metrics.observe("batch_fill", n_elems)
+        self.metrics.observe("inflight_occupancy", len(self._nv_inflight))
+
+    def _nv_drain(self, block: bool) -> None:
+        """Reap in-flight slots in order: the txns whose every signature
+        passed become the slot's frame table to publish; a slot with none
+        goes straight back to the intake."""
+        c = self._sweep_client
+        while self._nv_inflight:
+            slot, n_elems, n_txn, result = self._nv_inflight[0]
+            if not block and not result.is_ready():
+                return
+            self._nv_inflight.pop(0)
+            views = c.slots[slot]
+            frames = views.frames[:n_txn]
+            n_ok = result.n_ok_host()
+            if n_ok is not None and n_ok == n_elems:
+                tbl, kept = frames, n_txn
+            else:
+                mask = result.mask_host()[:n_elems].astype(np.uint8)
+                ok_txn = np.minimum.reduceat(mask, views.ranges[:n_txn, 0].astype(np.int64))
+                tbl = np.ascontiguousarray(frames[ok_txn.astype(bool)])
+                kept = len(tbl)
+                self.metrics.inc("verify_fail", n_txn - kept)
+            if kept:
+                self.metrics.inc("txn_verified", kept)
+                self._nv_emit.append([slot, tbl, 0])
+            else:
+                c.release(slot)
+            if block:
+                break
+
+    def _nv_publish(self) -> None:
+        """Publish reaped frame tables head first (emit order is reap
+        order), straight from the slot arenas: one fdr_publish_burst call a
+        table, credit-gated, the tail retried next credit window.  A slot
+        returns to the intake only once all its frames are out."""
+        if not self._nv_emit or not self.outs:
+            return
+        c = self._sweep_client
+        p = self.outs[0]
+        while self._nv_emit:
+            ent = self._nv_emit[0]
+            slot, tbl, pos = ent
+            sub = tbl[pos:]
+            done = p.publish_burst_raw(c.slots[slot].arena_ptr, sub)
+            if done:
+                self.metrics.inc("frags_out", done)
+            ent[2] = pos + done
+            if ent[2] < len(tbl):
+                self.metrics.inc("backpressure", len(sub) - done)
+                break
+            self._nv_emit.pop(0)
+            c.release(slot)
+
+    def drop_native_views(self) -> None:
+        super().drop_native_views()
+        c = self._sweep_client
+        self._sweep_client = None
+        if c is not None:
+            self._nv_inflight, self._nv_emit = [], []
+            c.close()
 
     # -- autotuner (runtime/verify_tune.py) ---------------------------------------
 
@@ -519,6 +712,22 @@ class VerifyStage(Stage):
 
     def flush(self) -> None:
         """Close and drain everything."""
+        c = self._sweep_client
+        if c is not None:
+            # bounded: the emit side may be stuck on credits (the Python
+            # lane's emit queue keeps the same posture at shutdown)
+            for _ in range(4 * c.n_slots):
+                c.pump()
+                c.seal()
+                self._nv_opened_at = 0.0
+                self._nv_pump()
+                if self._nv_inflight:
+                    self._nv_drain(block=True)
+                    self._nv_publish()
+                if not self.busy():
+                    break
+            self.metrics.assign(c.counters())
+            return
         self._fill_bank()
         for acc in (self._gen, self._comb):
             self._close_batch(acc)

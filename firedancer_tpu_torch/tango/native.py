@@ -14,9 +14,12 @@ other way round.  The layout offsets are computed once, in Python
   - `BurstDrainer` drains all of a stage's native inputs in ONE fdr_drain
     call into an arena with a meta table, and
     `NativeProducer.publish_burst` publishes a frame list in one
-    fdr_publish_burst call: runtime/stage.py's burst path;
+    fdr_publish_burst call: runtime/stage.py's burst path
+    (`publish_burst_raw`: frames already in native memory, the verify
+    sweep client's);
   - `SweepDrainer` is fdr_sweep: the drain plus a stage's C callback per
-    frag in the same call (the bank stage's, runtime/bank_native.py).
+    frag in the same call (the bank, shred and verify stages' clients:
+    runtime/bank_native.py, shred_native.py, verify_native.py).
 
 Every endpoint pins the link's buffer through a ctypes view, so it
 registers with its ShmLink, whose close() detaches it first.  The library
@@ -194,6 +197,24 @@ class NativeProducer:
         buf = b"".join(items[k][0] for k in range(n))
         return int(self._lib.fdr_publish_burst(self._lsp, self._pp, buf, tbl.buffer_info()[0],
                                                n))
+
+    def publish_burst_raw(self, buf_ptr: int, tbl: np.ndarray) -> int:
+        """fdr_publish_burst over frames that already lie in native memory
+        (the verify sweep client's slot arenas): buf_ptr is the arena's
+        base, tbl a contiguous (n, 4) u64 table of (offset, size, sig,
+        tsorig) rows.  Credit-gated frame by frame; returns the frames
+        published (the tail stays with the caller).  The frame assembler
+        bounds every size by the link mtu (the verify stage arms only over
+        an out link that carries its largest frame), and the C side trusts
+        the rows."""
+        n = len(tbl)
+        if not n:
+            return 0
+        if self._lsp is None:
+            raise _detached()
+        return int(self._lib.fdr_publish_burst(self._lsp, self._pp,
+                                               ctypes.cast(buf_ptr, ctypes.c_char_p),
+                                               tbl.ctypes.data, n))
 
     def detach(self) -> None:
         """Drop the buffer pin (ShmLink.close); the producer is unusable after."""

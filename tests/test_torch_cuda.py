@@ -11,6 +11,7 @@ Each kernel's result must equal its plain version's exactly (integer
 arithmetic), and its launch counter must count the launch.
 """
 
+import ctypes
 import hashlib
 
 import numpy as np
@@ -268,6 +269,81 @@ def test_gf256_apply_kernel_zero_inputs_and_k_limit(dev):
     with pytest.raises(ValueError):
         g2.gf_apply_batch(torch.zeros((1, 4, 69), dtype=torch.uint8, device=dev),
                           torch.zeros((1, 69, 8), dtype=torch.uint8, device=dev))
+
+
+def test_native_shredder_on_card_equals_cpu_lane(dev):
+    """The native shredder's parity through K5's host entry: the same bytes
+    as its CPU lane (the plain version through the trampoline), one K5
+    launch a FEC set counted; a bad shape is refused with an error."""
+    from firedancer_tpu_torch.runtime import shred_native as sn
+
+    secret = hashlib.sha256(b"card-shred").digest()
+    card = sn.NativeShredder(secret=secret, device=dev)
+    cpu = sn.NativeShredder(secret=secret, device="cpu")
+    rng = np.random.default_rng(23)
+    for sz in (1, 9136, 16384, 63680, 200001):
+        batch = rng.bytes(sz)
+        kbuild.reset_launches()
+        a = card.entry_batch_to_fec_sets(batch, slot=1)
+        b = cpu.entry_batch_to_fec_sets(batch, slot=1)
+        assert [(x.data_shreds, x.parity_shreds, x.merkle_root) for x in a] == \
+            [(x.data_shreds, x.parity_shreds, x.merkle_root) for x in b]
+        assert kbuild.LAUNCHES["gf256_apply"] == len(a)
+    enc = sn.ENCODE_FN(card._ctx.parity.fn.value)
+    out = (ctypes.c_uint8 * 68)()
+    assert enc(card._ctx.parity.user, bytes(68 * 68), bytes(68), 68, 1, 1, out) != 0
+
+
+def test_verify_sweep_client_on_card_equals_cpu(dev):
+    """A verify stage's sweep client dispatching K1 from sealed C slots on
+    the card publishes the CPU lane's frames; K1 once a sealed slot."""
+    from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
+    from firedancer_tpu_torch.runtime.verify import VerifyStage
+    from firedancer_tpu_torch.tango import shm
+
+    stream = gen_transfer_pool(200, seed=b"card-verify", n_payers=8)
+    bad = bytearray(stream[7])
+    bad[41] ^= 1
+    stream[7] = bytes(bad)
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        uid = shm.fresh_uid()
+        lin = shm.ShmLink.create(f"fdtpu_torch_cv_i_{uid}", depth=256, mtu=1232)
+        lout = shm.ShmLink.create(f"fdtpu_torch_cv_o_{uid}", depth=256, mtu=4096)
+        try:
+            prod = shm.make_producer(lin)
+            cons = shm.make_consumer(lout, lazy=0)
+            st = VerifyStage("v", [shm.make_consumer(lin)], [shm.make_producer(lout)],
+                             device=where, batch=64, max_msg_len=256, batch_deadline_s=60.0)
+            assert st._sweep_client is not None
+            for i, p in enumerate(stream):
+                assert prod.try_publish(p, sig=i, tsorig=1 + i)
+            kbuild.reset_launches()
+            got = []
+            for _ in range(2000):
+                st.run_once()
+                while isinstance(r := cons.poll(), tuple):
+                    got.append(r[1])
+                if not st.ins[0].has_pending():
+                    st.flush()
+                    if not st.busy():
+                        break
+            while isinstance(r := cons.poll(), tuple):
+                got.append(r[1])
+            st.during_housekeeping()
+            outs[where.type] = got
+            if where.type == "cuda":
+                assert kbuild.LAUNCHES["verify_batch"] == st.metrics.get("sealed_batches") == 4
+            st.ins, st.outs = [], []
+            st.drop_native_views()
+        finally:
+            import gc
+
+            gc.collect()
+            for link in (lin, lout):
+                link.close()
+                link.unlink()
+    assert outs["cuda"] == outs["cpu"] and len(outs["cuda"]) == len(stream) - 1
 
 
 def test_reedsol_recover_batch_on_card(dev):

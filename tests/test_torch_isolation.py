@@ -46,7 +46,10 @@ from firedancer_tpu_torch.parallel.mesh import make_mesh
 from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
 from firedancer_tpu_torch.runtime import poh as tpoh
 from firedancer_tpu_torch.runtime.bank import BankCtx, default_bank_ctx
+from firedancer_tpu_torch.runtime import shred_native as tsn
+from firedancer_tpu_torch.runtime import verify_native as tvn
 from firedancer_tpu_torch.runtime.fec_resolver import FecResolver
+from firedancer_tpu_torch.runtime.shred_stage import ShredStage
 from firedancer_tpu_torch.runtime.shredder import Shredder
 from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
 from firedancer_tpu_torch.runtime.store import StoreStage
@@ -103,10 +106,10 @@ def _host_libraries() -> set[str]:
 def test_host_libraries_build_from_the_ports_own_sources():
     names = _host_libraries()
     assert names == {"fd_pack", "fd_tcache", "fd_exec_native", "fd_txn_parse", "fd_ring",
-                     "fd_bank"}
+                     "fd_bank", "fd_shred", "fd_verify"}
     native = os.path.join(PKG, "native")
     assert hostbuild.NATIVE_DIR == native
-    # the sources and the one header both sweep clients include
+    # the sources and the one header the sweep clients include
     assert sorted(os.listdir(native)) == sorted([f"{n}.cpp" for n in names] + ["fd_metrics.h"])
     for n in names:
         assert hostbuild.source(n) == os.path.join(native, f"{n}.cpp")
@@ -137,6 +140,37 @@ def test_no_switch_or_degrade_picks_a_python_lane():
     assert bad == []
 
 
+def test_native_lanes_have_no_switch_probe_or_degrade():
+    """The native shredder and the verify sweep client are picked by
+    arguments only: neither module reads the environment, nor keeps the JAX
+    package's available() probe or its NativeUnavailable degrade."""
+    for mod in (tsn, tvn):
+        src = open(mod.__file__).read()
+        names = {n.id for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Name)}
+        names |= {n.attr for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Attribute)}
+        names |= {n.name for n in ast.walk(ast.parse(src))
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+        assert not names & {"environ", "getenv", "available", "enabled", "NativeUnavailable",
+                            "ENV_SWITCH"}, mod.__name__
+        assert "FDTPU_" not in src, mod.__name__
+
+
+def test_native_shredder_on_a_missing_card_raises_and_takes_no_cpu_lane(monkeypatch):
+    """Asked for the card (by default or by name) on a host without one,
+    the native shredder raises from utils/platform.py before any parity
+    call is chosen: the CPU trampoline is never built."""
+    _no_card()
+
+    def cpu_lane(self):
+        raise AssertionError("the CPU parity trampoline was taken")
+
+    monkeypatch.setattr(tsn._CpuParity, "__init__", cpu_lane)
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device") as e:
+            tsn.NativeShredder(secret=bytes(32), device=dev)
+        assert e.traceback[-1].path.name == "platform.py"
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card error cannot show")
@@ -153,7 +187,7 @@ def _no_card():
     "bmtree_root_batch", "clock_leader_pipeline", "clock_fused_leader_pipeline",
     "python_pack_leader_pipeline", "python_pack_sharded_leader_pipeline", "zk_bank_ctx",
     "native_pack_leader_block", "python_exec_bank_ctx", "python_exec_default_bank_ctx",
-    "python_exec_nonce_bank_ctx"])
+    "python_exec_nonce_bank_ctx", "native_shredder", "native_shred_stage"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -201,6 +235,8 @@ def test_entry_points_default_to_the_card(call):
         "python_exec_bank_ctx": lambda: BankCtx(native_exec=False),
         "python_exec_default_bank_ctx": lambda: default_bank_ctx(native_exec=False),
         "python_exec_nonce_bank_ctx": lambda: tw.nonce_bank_ctx(1, native_exec=False),
+        "native_shredder": lambda: tsn.NativeShredder(secret=h),
+        "native_shred_stage": lambda: ShredStage("shred", signer=None, secret=h),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()

@@ -135,7 +135,9 @@ def test_unload_rebinds_at_the_next_launch(stub):
 
 
 _CTYPE = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-          "int64_t": ctypes.c_int64, "int": ctypes.c_int}
+          "int64_t": ctypes.c_int64, "int": ctypes.c_int,
+          "const uint8_t*": ctypes.c_void_p, "uint8_t*": ctypes.c_void_p,
+          "uint64_t": ctypes.c_uint64}
 
 
 def _c_prototypes() -> dict:
@@ -158,9 +160,19 @@ def _c_prototypes() -> dict:
 
 
 def test_every_bound_entry_point_matches_its_c_prototype():
+    """Every C entry point is bound through kbuild.bind with its C
+    argument types, but the native shredder's parity call, which C reaches
+    through a function pointer of runtime/shred_native.ENCODE_FN's type
+    (that module folds its launches into the count)."""
+    from firedancer_tpu_torch.runtime import shred_native
+
     protos = _c_prototypes()
     bound = dict(kbuild._BOUND)
+    by_pointer = {("gf256_apply", "fd_gf256_encode_host"): shred_native.ENCODE_FN}
     assert bound, "the ops modules bind their entry points at import"
-    assert set(bound) == set(protos), "every C entry point has one binding"
+    assert set(bound) | set(by_pointer) == set(protos), "every C entry point has one binding"
+    assert not set(bound) & set(by_pointer)
     for key, k in bound.items():
         assert k.argtypes == protos[key], key
+    for key, fn in by_pointer.items():
+        assert list(fn._argtypes_) == protos[key] and fn._restype_ is ctypes.c_int, key

@@ -231,11 +231,13 @@ def test_sharded_verify_pipeline_equals_unsharded():
 def test_verify_stage_plane_hook_equals_plain_stage():
     """VerifyStage(plane=...) sends its generic batches through the plane's
     step (two shards here) and publishes the plain stage's frames and
-    counters."""
+    counters (the plain stage on the Python intake, the hook's: a plane
+    keeps the sweep client off)."""
     vs = verify_stream(14, self_transfer=True, n_multisig=2, n_corrupt=2, n_resend=2)
     plane = ServePlane(ServeConfig(n_devices=2, batch_per_shard=8, max_msg_len=128),
                        device="cpu")
-    pipes = [build_verify_pipeline(vs.stream, device="cpu", batch=16, max_msg_len=128),
+    pipes = [build_verify_pipeline(vs.stream, device="cpu", batch=16, max_msg_len=128,
+                                   native_client=False),
              build_verify_pipeline(vs.stream, batch=16, max_msg_len=128, plane=plane)]
     for pipe in pipes:
         pipe.verify.batch_deadline_s = 60.0  # batches close when full or at flush
