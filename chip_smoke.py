@@ -297,6 +297,19 @@ script or when a phase fails):
               (protocol/txn_native.py, the verify stage's) against the
               Python parse and pack over 17e's 8,448 packets, every
               descriptor equal, in us a packet on the host clock;
+              [funk-lanes]: 17e (a) on the shm record map (every leader
+              phase's store; each -split line checks bank_funk_falls 0 and
+              bank_funk_writes > 0 where the bank sweep runs) beside (g) on
+              the dict store (BankCtx(funk=Funk())): 16 of 16 sealed on
+              both, and when both land all 8,448 txns equal txn_exec and
+              committed state over the pool's payers and destinations and
+              the nonce accounts; each lane's bank, drain and seal seconds,
+              the seal's read-out (txn_diff / the _before walk) and
+              arena_used; [sweep-phases]: 17e (a)'s verify0, bank0, bank1
+              and shred metrics planes: crossings, frags (equal to the
+              frags their sweeps returned), p50 and p99 of the drain /
+              callback / apply / publish phases and of the in-crossing
+              latency, and flush leaving every native word as C wrote it;
               [shred-lanes]: 17e (a)'s entries in its entry batches through
               the Python Shredder, NativeShredder and a ShredStage's sweep
               client over the rings, every shred byte equal to the plain
@@ -413,7 +426,9 @@ script or when a phase fails):
               aligned and the offset rows (bytes equal, then times in
               turns): one [K16-ab] and one [K17-ab] line
 
-Then a [time] line with each phase's seconds on the host clock, one JSON
+Then [shm] (no /dev/shm entry this run made is left: every pipeline and
+every bank ctx the script built was closed), a [time] line with each
+phase's seconds on the host clock, one JSON
 line of per-kernel numbers ({"kernels": [...]}), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 The script imports nothing of JAX or the JAX package.
@@ -582,11 +597,13 @@ ZK_MIX = dict(n_legacy=6000, n_pubkey_validity=512, n_zero_ciphertext=512, n_fro
               n_context=64, n_range_u64=8, n_range_u128=4, n_range_u256=2, n_fail=64,
               n_dests=1024, n_zk_payers=64)
 HOST_LIBS = ("fd_tcache", "fd_pack", "fd_exec_native", "fd_txn_parse", "fd_ring",
-             "fd_bank", "fd_shred", "fd_verify")  # utils/hostbuild.py's libraries, built in phase 2
+             "fd_bank", "fd_shred", "fd_verify", "fd_funk")  # utils/hostbuild.py's libraries, built in phase 2
 # phase 17e: the banks' sweep-lane counters summed over the banks, and the
 # [rings] link's depth (the 8,448 packets fit) and burst (a stage sweep's)
 BANK_SWEEP_KEYS = ("bank_txn_native", "bank_mb_native", "bank_mb_stashed", "bank_credit_waits",
-                   "bank_mb_resumed", "bank_mb_dropped")
+                   "bank_mb_resumed", "bank_mb_dropped", "bank_funk_writes", "bank_funk_falls")
+# [sweep-phases]: the native-swept stages of 17e (a) the plane is read on
+SWEPT_STAGES = ("verify0", "bank0", "bank1", "shred")
 RINGS_DEPTH, RINGS_BURST = 16384, 16
 # phase 17e: [shred-lanes]' entry-batch target (the leader's shred stage's),
 # the depth of the [verify-lanes] links (17e's 8,448 packets fit) and the
@@ -607,6 +624,52 @@ def native_counts(rep: dict, banks) -> tuple[int, int]:
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def funk_plane(tag: str, rep: dict, banks, armed: bool = True) -> str:
+    """The banks' native funk plane after a leader run: no group fell back
+    to full-record logging, and with `armed` (the shm store under the bank
+    sweep lane) the crossing wrote txns into the map.  Returns the text the
+    -split line carries."""
+    w = sum(rep[b.name].get("bank_funk_writes", 0) for b in banks)
+    f = sum(rep[b.name].get("bank_funk_falls", 0) for b in banks)
+    check(f == 0, f"{tag}: {f} bank groups fell back from the native funk plane")
+    check((w > 0) == armed, f"{tag}: bank_funk_writes {w} with the plane {'armed' if armed else 'off'}")
+    return f"bank_funk_writes {w}, bank_funk_falls {f}"
+
+
+def sweep_phases(tag: str, pipe, hist_quantile) -> dict:
+    """Each native-swept stage's metrics plane after a run: crossings,
+    frags, p50 and p99 (upper bucket edges, ns) and the exact sum (ns) of
+    the four phase histograms and of the in-crossing latency.  Checks that the plane's
+    frag count equals the frags the stage's sweeps returned, and that a
+    housekeeping flush leaves every native word as C wrote it."""
+    out = {}
+    for st in pipe.stages:
+        if st.name not in SWEPT_STAGES:
+            continue
+        reg = st.metrics.registry
+        check(reg is not None, f"{tag}: {st.name} has no metrics plane")
+        frags, swept = reg.get("nsweep_frags"), st.metrics.get("sweep_frags")
+        check(frags == swept, f"{tag}: {st.name} plane nsweep_frags {frags}, sweeps {swept}")
+        native = [d.name for d in reg.schema.defs if d.native]
+        words = reg.words.copy()
+        st.metrics.flush()
+        for nm in native:
+            d_, off_ = reg._off[nm]
+            n_ = d_.words()
+            check(np.array_equal(reg.words[off_:off_ + n_], words[off_:off_ + n_]),
+                  f"{tag}: {st.name} flush wrote the native word(s) of {nm}")
+        row = {"crossings": reg.get("nsweep_crossings"), "frags": frags}
+        for nm in ("drain", "callback", "apply", "publish", "lat"):
+            h = reg.hist(f"nsweep_{nm}_ns")
+            row[nm] = (h["count"], hist_quantile(h, 0.5), hist_quantile(h, 0.99), h["sum"])
+        out[st.name] = row
+    check(sorted(out) == sorted(SWEPT_STAGES), f"{tag}: swept stages {sorted(out)}")
+    check(out["verify0"]["frags"] > 0 and out["shred"]["frags"] > 0
+          and out["bank0"]["frags"] + out["bank1"]["frags"] > 0,
+          f"{tag}: a native-swept stage took no frag in a crossing {out}")
+    return out
 
 
 def native_lanes(pipe) -> dict:
@@ -1521,7 +1584,8 @@ def main() -> int:
     from firedancer_tpu_torch.protocol import txn_native as ftn
     from firedancer_tpu_torch.runtime import poh as rpoh
     from firedancer_tpu_torch.runtime.bank import default_bank_ctx
-    from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
+    from firedancer_tpu_torch.funk import Funk
+    from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_payers
     from firedancer_tpu_torch.runtime.poh_stage import parse_entry
     from firedancer_tpu_torch.runtime.shred_native import ENCODE_FN, NativeShredder
     from firedancer_tpu_torch.runtime.shred_stage import ShredStage, deshred_entry_batch
@@ -2932,10 +2996,10 @@ def main() -> int:
         pipe17.run()
         torch.cuda.synchronize()
         run17_s = time.perf_counter() - t0
-        pipe17.close()
         t0 = time.perf_counter()
         seal17 = pipe17.seal()
         seal17_s = time.perf_counter() - t0
+        pipe17.close()  # the builder's ctx: its store closes here
     finally:
         g2.gf_apply_batch = k5_launch
     launches17 = dict(kbuild.LAUNCHES)
@@ -2965,6 +3029,7 @@ def main() -> int:
           and np.array_equal(rp17.accounts_delta, seal17.accounts_delta)
           and rp17.signature_cnt == seal17.signature_cnt,
           "leader pipeline: replay_block does not reproduce the seal")
+    fund17.close()
     split17 = dict(pipe17.stage_s)
     txn17_s = landed17 / run17_s
     # upper estimate: each K1 launch a full batch's time, each K5 launch its
@@ -2979,7 +3044,8 @@ def main() -> int:
         f" {replay17_s:.3f} s; launches {launches17}; device busy <= {busy17:.3f} of the"
         f" slot (run + seal; K1, K5 and K13 event times x launches)")
     log(f"[leader-split] host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17.items())})}"
-        f" (run {run17_s:.3f} s + seal {seal17_s:.3f} s); counters {json.dumps(rep17)}")
+        f" (run {run17_s:.3f} s + seal {seal17_s:.3f} s); {funk_plane('leader', rep17, pipe17.banks)};"
+        f" counters {json.dumps(rep17)}")
     ne17 = native_counts(rep17, pipe17.banks)
     check(ne17[0] > 0, f"leader pipeline: the native executor lane ran no txn {ne17}")
     log(f"[native-exec] 17: native_exec {ne17[0]}, native_punt {ne17[1]} ({landed17} landed)")
@@ -3070,8 +3136,8 @@ def main() -> int:
     pipe17c.finish()
     torch.cuda.synchronize()
     run17c_s = time.perf_counter() - t0
-    pipe17c.close()
     seal17c = pipe17c.seal()
+    pipe17c.close()  # the builder's ctx: its store closes here
     launches17c = dict(kbuild.LAUNCHES)
     rep17c = pipe17c.report()
     landed17c = sum(rep17c[b.name].get("txn_exec", 0) for b in pipe17c.banks)
@@ -3097,10 +3163,12 @@ def main() -> int:
                          status_cache=fund17c.status_cache, device=dev)
     check(rp17c is not None and rp17c.bank_hash == seal17c.bank_hash,
           "sharded leader: replay_block does not reproduce the seal")
+    fund17c.close()
     log(f"[leader-sharded] warmup {warm17:.3f} s; run {run17c_s:.3f} s (with the tail to one"
         f" pure tick of {HASHES_PER_TICK} hashes) = {landed17c / run17c_s:.0f} txn/s to the store;"
         f" spans queued/ok {q17c}/{rep17c['verify'].get('poh_spans_ok', 0)}; replay reproduces"
-        f" the seal {seal17c.bank_hash.hex()}; launches {launches17c}")
+        f" the seal {seal17c.bank_hash.hex()}; launches {launches17c};"
+        f" {funk_plane('leader-sharded', rep17c, pipe17c.banks)}")
     seal_rows17 = pipe17.bank_ctx.sx.seal_rows
     kernels.append(dict(
         name="lthash_combine", route="cuda", source="firedancer_tpu_torch/csrc/lthash_combine.cu",
@@ -3201,9 +3269,11 @@ def main() -> int:
     log(f"[vote-leader-split] host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17d.items())})}"
         f" (run {run17d_s:.3f} s + seal {seal17d_s:.3f} s); phase 17 on the same card:"
         f" {txn17_s:.0f} txn/s, host seconds {json.dumps({k: round(v, 4) for k, v in sorted(split17.items())})};"
-        f" counters {json.dumps(rep17d)}")
+        f" {funk_plane('vote-leader', rep17d, pipe17d.banks)}; counters {json.dumps(rep17d)}")
     ne17d = native_counts(rep17d, pipe17d.banks)
     log(f"[native-exec] 17d: native_exec {ne17d[0]}, native_punt {ne17d[1]} ({landed17d} landed)")
+    ctx17d.close()
+    fund17d.close()
 
     # -- 17e. the clocked leader: a 16-slot window at 400 ms a slot -----------------------------
     mark("17e")
@@ -3266,12 +3336,21 @@ def main() -> int:
             f" before the anchor {1e3 * pipe.heap_hold.collect_s:.3f} ms")
         return run_s, window_s, in_window
 
-    def clock_leader(tag: str, native_exec: bool = True, **kw) -> dict:
+    # [funk-lanes]' committed-state key set, the same on every lane: the
+    # pool's payers and destinations, the nonce accounts and their authorities
+    keys17e = sorted({pub for _, pub in pool_payers(b"benchg", 8)}
+                     | {hashlib.sha256(b"benchg" + b"to%d" % i).digest() for i in range(LEADER_DESTS)}
+                     | {a_ for _, _, a_, _ in nkeys17e} | {pub for _, pub, _, _ in nkeys17e})
+
+    def clock_leader(tag: str, native_exec: bool = True, funk=None, phases: bool = False,
+                     **kw) -> dict:
         """One clocked leader run over stream17e: drive the window (and the
         rest of the stream) under the wall cap, drain, seal, replay; check
-        the slot accounting, the launches and the replay; log [tag].
-        native_exec picks the bank's executor lane."""
-        ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev, native_exec=native_exec)
+        the slot accounting, the launches, the replay and the banks' native
+        funk plane; log [tag].  native_exec picks the bank's executor lane,
+        funk the store (default the shm map; Funk() for the dict store);
+        with phases, the swept stages' metrics planes are read too."""
+        ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev, native_exec=native_exec, funk=funk)
         pipe = build_leader_pipeline(stream17e, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
                                      bank_ctx=ctx, keep_entries=True, pack_depth=len(stream17e),
                                      slot_clock=clock17e, keep_sets=False, **kw)
@@ -3331,6 +3410,15 @@ def main() -> int:
         check(launches.get("lthash_combine", 0) == 1, f"{tag}: K13 launches {launches}")
         log(f"[{tag}-lanes] " + check_native_lanes(tag, pipe, lanes, launches,
                                                    sweep=kw.get("native_ring", True)))
+        shm_store = hasattr(ctx.funk, "txn_diff")
+        funk_text = funk_plane(tag, rep, pipe.banks, armed=shm_store and native_exec
+                               and kw.get("native_ring", True))
+        state = hashlib.sha256(b"".join(k_ + (sx.funk.rec_query(sx.xid, k_) or b"\xff")
+                                        for k_ in keys17e)).hexdigest()
+        arena = ctx.funk.arena_used() if shm_store else None
+        phase_rows = sweep_phases(tag, pipe, tune_quantile) if phases else None
+        ctx.close()
+        fund.close()
         lag = poh_m.hist("slot_seal_lag_ns")
         lag50, lag99 = (tune_quantile(lag, q) / 1e6 for q in (0.5, 0.99))
         split = dict(pipe.stage_s)
@@ -3347,8 +3435,8 @@ def main() -> int:
             f" bank hash {seal.bank_hash.hex()}); replay reproduces the seal in {replay_s:.3f} s;"
             f" launches {launches}")
         log(f"[{tag}-split] host seconds"
-            f" {json.dumps({k: round(v, 4) for k, v in sorted(split.items())})}; counters"
-            f" {json.dumps(rep)}")
+            f" {json.dumps({k: round(v, 4) for k, v in sorted(split.items())})}; {funk_text};"
+            f" counters {json.dumps(rep)}")
         return dict(launches=launches, landed=landed, shed=shed, sigs=sorted(
             ft.txn_parse(p_).signatures(p_)[0] for p_ in block), advanced=sum(advanced),
             durable_ok=durable_ok, split=split, txn_s=landed / run_s, lag=(lag50, lag99),
@@ -3356,9 +3444,12 @@ def main() -> int:
             signature_cnt=seal.signature_cnt, native=native_counts(rep, pipe.banks),
             sweep={k: sum(rep[b.name].get(k, 0) for b in pipe.banks) for k in BANK_SWEEP_KEYS},
             bank_hash=seal.bank_hash, sweeps=pipe.sweeps,
-            entries=deshred_entry_batch(pipe.store.entry_batch_bytes(1)))
+            entries=deshred_entry_batch(pipe.store.entry_batch_bytes(1)),
+            txn_exec={b.name: b.metrics.get("txn_exec") for b in pipe.banks}, state=state,
+            seal_s=seal_s, seal_split=dict(sx.seal_s), arena=arena, phases=phase_rows,
+            drain_s=sum(b.drain_s for b in pipe.banks), shm_store=shm_store)
 
-    r17e = clock_leader("clock-leader")
+    r17e = clock_leader("clock-leader", phases=True)
     check(r17e["shed"] == 0 and r17e["durable_ok"] == r17e["advanced"] == CLOCK_DURABLE,
           f"clock-leader: shed {r17e['shed']}, durable ok {r17e['durable_ok']} of {CLOCK_DURABLE}")
     launches17e = r17e["launches"]
@@ -3423,6 +3514,46 @@ def main() -> int:
             f" (credit waits {r_['sweep']['bank_credit_waits']}), resumed"
             f" {r_['sweep']['bank_mb_resumed']}; {r_['sweeps']} sweeps; bank hash"
             f" {r_['bank_hash'].hex()[:16]} equals its replay's")
+    # (g) 17e (a) on the dict store (BankCtx(funk=Funk())): every record
+    # through the banks' result log, the seal's rows by the _before walk
+    r17e_df = clock_leader("clock-leader-dict-funk", funk=Funk())
+    for lane_, r_ in (("shm", r17e), ("dict", r17e_df)):
+        check(r_["sealed"] == CLOCK_SLOTS,
+              f"funk-lanes: the {lane_} store sealed {r_['sealed']} of {CLOCK_SLOTS} slots")
+    check(r17e["shm_store"] and not r17e_df["shm_store"], "funk-lanes: the stores are not the lanes'")
+    # both lanes landed the whole stream: then their results must agree;
+    # a lane that landed fewer is held to its own replay only (clock_leader)
+    all17e = all(r_["landed"] == len(stream17e) for r_ in (r17e, r17e_df))
+    if all17e:
+        check(sum(r17e["txn_exec"].values()) == sum(r17e_df["txn_exec"].values()),
+              f"funk-lanes: txn_exec {r17e['txn_exec']} != {r17e_df['txn_exec']}")
+        check(r17e["state"] == r17e_df["state"],
+              "funk-lanes: the committed state over the payers, destinations and nonce accounts"
+              " differs")
+    for lane_, r_ in (("shm", r17e), ("dict", r17e_df)):
+        sp_ = r_["split"]
+        log(f"[funk-lanes] 17e {'(a)' if lane_ == 'shm' else '(g)'} {lane_} store: bank0"
+            f" {sp_.get('bank0', 0.0):.4f} s, bank1 {sp_.get('bank1', 0.0):.4f} s host, of which"
+            f" the result log's drain {r_['drain_s']:.4f} s; seal {r_['seal_s']:.4f} s, its"
+            f" read-out ({'one txn_diff crossing' if lane_ == 'shm' else 'the _before walk'})"
+            f" {1e3 * r_['seal_split']['read']:.3f} ms, XOFs {r_['seal_split']['xof']:.4f} s, K13"
+            f" and hash {1e3 * r_['seal_split']['combine']:.3f} ms; {r_['txn_s']:.0f} txn/s to"
+            f" the store; slots sealed {r_['sealed']} of {CLOCK_SLOTS}; landed {r_['landed']};"
+            f" txn_exec {sum(r_['txn_exec'].values())}; bank_funk_writes"
+            f" {r_['sweep']['bank_funk_writes']}, falls {r_['sweep']['bank_funk_falls']};"
+            f" arena_used {r_['arena'] if r_['arena'] is not None else '-'} bytes; committed"
+            f" state sha256 {r_['state'][:16]} over {len(keys17e)} keys"
+            f" ({'equal on both lanes' if all17e else 'not compared: a lane landed fewer than'}"
+            f"{'' if all17e else f' {len(stream17e)}'}); bank hash"
+            f" {r_['bank_hash'].hex()[:16]} equals its replay's")
+    for st_, row_ in r17e["phases"].items():
+        cells_ = ", ".join(f"{nm} n {row_[nm][0]} p50 {row_[nm][1]:.0f} p99 {row_[nm][2]:.0f}"
+                           f" sum {row_[nm][3] / 1e6:.3f} ms"
+                           f" ({row_[nm][3] / max(row_[nm][0], 1):.0f} ns an observation)"
+                           for nm in ("drain", "callback", "apply", "publish", "lat"))
+        log(f"[sweep-phases] 17e (a) {st_}: crossings {row_['crossings']}, frags {row_['frags']}"
+            f" (= the frags its sweeps returned; flush left the native words as C wrote them);"
+            f" ns, p50/p99 at upper bucket edges, sums exact: {cells_}")
     # the ring lanes alone over 17e's packets: a frag's publish and poll
     # on the Python lane against fdr_publish_burst and fdr_drain in bursts
     # of a stage sweep's 16 frags
@@ -3772,9 +3903,11 @@ def main() -> int:
     log(f"[program-leader-split] host seconds"
         f" {json.dumps({k: round(v, 4) for k, v in sorted(split17f.items())})}; 17e (a) in this"
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
-        f" counters {json.dumps(rep17f)}")
+        f" {funk_plane('program-leader', rep17f, pipe17f.banks)}; counters {json.dumps(rep17f)}")
     ne17f = native_counts(rep17f, pipe17f.banks)
     log(f"[native-exec] 17f: native_exec {ne17f[0]}, native_punt {ne17f[1]} ({landed17f} landed)")
+    pipe17f.bank_ctx.close()  # the ctx this phase built and passed in
+    fund17f.close()
 
     # -- 17g. the sBPF leader: on-chain programs under both BPF loaders, with CPI --------------
     mark("17g")
@@ -3895,9 +4028,11 @@ def main() -> int:
     log(f"[sbpf-leader-split] host seconds"
         f" {json.dumps({k: round(v, 4) for k, v in sorted(split17g.items())})}; 17e (a) in this"
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
-        f" counters {json.dumps(rep17g)}")
+        f" {funk_plane('sbpf-leader', rep17g, pipe17g.banks)}; counters {json.dumps(rep17g)}")
     ne17g = native_counts(rep17g, pipe17g.banks)
     log(f"[native-exec] 17g: native_exec {ne17g[0]}, native_punt {ne17g[1]} ({landed17g} landed)")
+    pipe17g.bank_ctx.close()  # the ctx this phase built and passed in
+    fund17g.close()
 
     # -- 17h. the zk leader: zk-elgamal proof traffic on the native pack lane -----------------
     mark("17h")
@@ -3993,9 +4128,11 @@ def main() -> int:
     log(f"[zk-leader-split] host seconds"
         f" {json.dumps({k: round(v, 4) for k, v in sorted(split17h.items())})}; 17e (a) in this"
         f" call: {json.dumps({k: round(v, 4) for k, v in sorted(r17e['split'].items())})};"
-        f" counters {json.dumps(rep17h)}")
+        f" {funk_plane('zk-leader', rep17h, pipe17h.banks)}; counters {json.dumps(rep17h)}")
     ne17h = native_counts(rep17h, pipe17h.banks)
     log(f"[native-exec] 17h: native_exec {ne17h[0]}, native_punt {ne17h[1]} ({landed17h} landed)")
+    pipe17h.bank_ctx.close()  # the ctx this phase built and passed in
+    fund17h.close()
 
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
@@ -4373,6 +4510,13 @@ def main() -> int:
         check(launches15.get(nm, 0) > 0, f"{nm} never launched on the split pipeline")
     check(ref.verify(b"", ref.sign(b"\x01" * 32, b""), ref.public_key(b"\x01" * 32)),
           "ed25519_ref self-check")
+    # every shm segment this run made (the links' fdtpu_torch_<link>_<pid>_<n>
+    # and the funk maps' fdtpu_torch_funk_<pid>_<n>) was closed where it was
+    # made: none is left for a collection or the exit to find
+    mine = sorted(n_ for n_ in os.listdir("/dev/shm")
+                  if n_.startswith("fdtpu_torch_") and f"_{os.getpid()}_" in n_)
+    check(not mine, f"/dev/shm entries of this run left: {mine[:8]} ({len(mine)})")
+    log("[shm] no /dev/shm entry of this run left before exit")
     mark("end")
     log("[time] seconds per phase (host clock, each from its start to the next's): "
         + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))

@@ -42,7 +42,7 @@ _RESP_MAGIC = 0x52584446  # 'FDXR'
 
 _U32 = struct.Struct("<I")
 _TXN_HEAD = struct.Struct("<HHB")
-_REC_HEAD = struct.Struct("<bQB")
+_REC_HEAD = struct.Struct("<bQBB")
 
 RESP_CAP_MAX = 1 << 28  # the response buffer's growth stops at 256 MB
 
@@ -194,7 +194,9 @@ class BatchContext:
     def run(self, entries, *, gate=None, refresh=None) -> tuple[int, bool, list]:
         """One fd_exec_batch(2) call.  entries: [payload, desc_bytes, addrs,
         vals, ...] lists; only the first four fields are read.  Returns
-        (n_done, punted, [(status, fee, [(idx, value)])]).
+        (n_done, punted, [(status, fee, n_ins, [(idx, value)])]), n_ins the
+        count of the txn's instructions that charged their builtin cost (the
+        failing one included when it ran; all of them on success).
 
         Session mode: a vals entry may be None, meaning the session already
         holds that account's current value.  `gate` arms the native
@@ -332,7 +334,7 @@ class BatchContext:
         o = 9
         out = []
         for _ in range(n_done):
-            status, fee, n_w = _REC_HEAD.unpack_from(buf, o)
+            status, fee, n_ins, n_w = _REC_HEAD.unpack_from(buf, o)
             o += _REC_HEAD.size
             writes = []
             for _ in range(n_w):
@@ -341,5 +343,5 @@ class BatchContext:
                 o += 5
                 writes.append((idx, buf[o : o + vlen]))
                 o += vlen
-            out.append((status, fee, writes))
+            out.append((status, fee, n_ins, writes))
         return n_done, punted, out

@@ -373,6 +373,10 @@ class SlotExecution:
             tuple(funk.txn_ancestry(parent_xid)) if parent_xid is not None else ())
         self._table_cache: dict = {}  # lookup tables, decoded once a block
         self._before: dict[bytes, bytes | None] = {}  # start-of-slot view
+        # the native shm funk (funk/funk_native.py): seal() reads the
+        # before/after pairs off the fork's overlay in one txn_diff
+        # crossing, so the sweep drain keeps no per-write _before snapshot
+        self._funk_diff = hasattr(funk, "txn_diff")
         # the native lane (exec_native): one session per slot, made with
         # the first BatchContext; the C++ side keeps the status-cache gate
         # and an overlay of account values across microblocks, so each
@@ -393,7 +397,7 @@ class SlotExecution:
         self.results: list[TxnResult] = []
         self.signature_cnt = 0
         self.sealed: BlockResult | None = None
-        self.seal_s: dict[str, float] = {}  # seal's host time: xof, combine
+        self.seal_s: dict[str, float] = {}  # seal's host time: read, xof, combine
         self.seal_rows = 0  # lattice rows K13 summed at seal
 
     def resolve(self, payload: bytes, desc: ft.Txn) -> Extra | None:
@@ -621,30 +625,22 @@ class SlotExecution:
             self._gate_shipped_version = sc.version
         return (valid, self._gate_seen_delta)
 
-    def _native_cu(self, payload: bytes, db: bytes, status: int, fee: int) -> int:
+    @staticmethod
+    def _native_cu(payload: bytes, db: bytes, fee: int, n_ins: int) -> int:
         """The compute units the Python lane reports for a txn the native
-        lane ran: 0 without a fee, every instruction's builtin cost on
-        success.  A failed txn's count stops at the instruction that failed,
-        which the response does not carry: the txn runs again on a scratch
-        fork of the state it saw (so this is called before its writes
-        land), which is then dropped."""
+        lane ran: 0 without a fee, else the builtin cost of its first n_ins
+        instructions, the ones that charged before the txn ended (the
+        response's count: the failing instruction included when it ran, all
+        of them on success; flamenco/executor.py charges a builtin up
+        front)."""
         if fee == 0:
             return 0
-        if status == TXN_SUCCESS:
-            acct_off = db[9] | (db[10] << 8)
-            cu = 0
-            for k in range(db[16]):
-                prog = db[17 + 9 * k]
-                cu += BUILTIN_COST.get(payload[acct_off + 32 * prog : acct_off + 32 * prog + 32], 0)
-            return cu
-        scratch = self.xid + b":cu"
-        self.funk.txn_prepare(self.xid, scratch)
-        try:
-            return _execute_txn(self.funk, scratch, payload, self._unpack_trailer(payload, db),
-                                executor=self.executor, sysvars=self.sysvars,
-                                extra=([], [])).cu
-        finally:
-            self.funk.txn_cancel(scratch)
+        acct_off = db[9] | (db[10] << 8)
+        cu = 0
+        for k in range(n_ins):
+            prog = db[17 + 9 * k]
+            cu += BUILTIN_COST.get(payload[acct_off + 32 * prog : acct_off + 32 * prog + 32], 0)
+        return cu
 
     def _run_ungated(self, entry) -> None:
         """The Python lane for a punted entry: the session stopped before
@@ -668,8 +664,8 @@ class SlotExecution:
             if n_delta:
                 # the session absorbed these Python-lane landings
                 del self._gate_seen_delta[:n_delta]
-            for entry, (status, fee, writes) in zip(chunk, recs):
-                cu = self._native_cu(entry[0], entry[1], status, fee)
+            for entry, (status, fee, n_ins, writes) in zip(chunk, recs):
+                cu = self._native_cu(entry[0], entry[1], fee, n_ins)
                 addrs = entry[2]
                 for idx, val in writes:
                     self.funk.rec_insert(self.xid, addrs[idx], val)
@@ -723,22 +719,24 @@ class SlotExecution:
         dirty.clear()
 
     def native_apply_rec(self, payload: bytes, db: bytes, status: int, fee: int,
-                         writes) -> TxnResult:
-        """Apply one txn the sweep committed session-side: its compute units
-        (taken first, on the state it saw), its writes to funk with their
-        start-of-slot snapshots, and the landed bookkeeping.  writes:
-        [(acct_idx, value)], indices into the packed descriptor's account
-        table."""
-        cu = self._native_cu(payload, db, status, fee)
+                         n_ins: int, writes) -> TxnResult:
+        """Apply one txn the sweep committed session-side: its compute units,
+        its writes to funk (with their start-of-slot snapshots unless seal
+        reads txn_diff), and the landed bookkeeping.  writes: [(acct_idx,
+        value)], indices into the packed descriptor's account table; empty
+        when the funk plane already wrote them."""
+        cu = self._native_cu(payload, db, fee, n_ins)
         if writes:
             acct_off = db[9] | (db[10] << 8)
             before = self._before
+            track_before = not self._funk_diff
             q = self.funk.rec_query
+            recs = self.funk.txn_recs_for_write(self.xid)
             for idx, val in writes:
                 a = payload[acct_off + 32 * idx : acct_off + 32 * (idx + 1)]
-                if a not in before:
+                if track_before and a not in before:
                     before[a] = q(self.parent_xid, a)
-                self.funk.rec_insert(self.xid, a, val)
+                recs[a] = val if type(val) is bytes else bytes(val)
                 self._native_known.add(a)
                 self._native_dirty.discard(a)
         bh = sig = None
@@ -751,8 +749,8 @@ class SlotExecution:
         return self._finish(TxnResult(status, fee, cu), db[1], bh, sig, native=True)
 
     def native_apply_batch(self, txns) -> list[TxnResult]:
-        """native_apply_rec over (payload, desc_bytes, status, fee, writes)
-        tuples, in order."""
+        """native_apply_rec over (payload, desc_bytes, status, fee, n_ins,
+        writes) tuples, in order."""
         return [self.native_apply_rec(*t) for t in txns]
 
     def native_apply_group(self, frags, recs) -> tuple[int, int, int]:
@@ -760,9 +758,9 @@ class SlotExecution:
         packed descriptor || u16 payload size), in order: (landed, landed
         but failed, rejected)."""
         n_ok = n_fail = n_rej = 0
-        for frag, (status, fee, writes) in zip(frags, recs):
+        for frag, (status, fee, n_ins, writes) in zip(frags, recs):
             psz = frag[-2] | (frag[-1] << 8)
-            r = self.native_apply_rec(frag[:psz], frag[psz:-2], status, fee, writes)
+            r = self.native_apply_rec(frag[:psz], frag[psz:-2], status, fee, n_ins, writes)
             if r.fee > 0:
                 n_ok += 1
                 n_fail += r.status != TXN_SUCCESS
@@ -775,13 +773,24 @@ class SlotExecution:
         """Finalize: the accounts-delta lattice hash (one launch of K13 over
         +new / -old) chained into the bank hash.  The JAX runtime pads the
         row count to a power of two to bound XLA compiles; K13 takes any
-        row count, and zero rows of sign 0 change nothing."""
+        row count, and zero rows of sign 0 change nothing.
+
+        On the native shm store the slot's before/after pairs come off the
+        fork's own overlay in ONE txn_diff crossing, the same rows as the
+        _before walk: an account touched but never written is not in the
+        overlay, as it has before == after and cancels out of the lattice
+        sum in the walk, and the overlay's parent view IS the start-of-slot
+        value (parent overlays are frozen while this fork is live)."""
         t0 = time.perf_counter()
         vals = []
         signs = []
-        q = self.funk.rec_query
-        for a, before, after in sorted((a, self._before[a], q(self.xid, a))
-                                       for a in self._before):
+        if self._funk_diff:
+            pairs = self.funk.txn_diff(self.xid)
+        else:
+            q = self.funk.rec_query
+            pairs = [(a, self._before[a], q(self.xid, a)) for a in self._before]
+        t_read = time.perf_counter()
+        for a, before, after in sorted(pairs):
             if after == before:
                 continue
             if before is not None:
@@ -805,7 +814,8 @@ class SlotExecution:
         ).digest()
         if self.status_cache is not None:
             self.status_cache.stage_blockhash(self.xid, poh_hash)
-        self.seal_s = {"xof": t1 - t0, "combine": time.perf_counter() - t1}
+        self.seal_s = {"read": t_read - t0, "xof": t1 - t_read,
+                       "combine": time.perf_counter() - t1}
         self.seal_rows = len(vals)
         self.sealed = BlockResult(
             slot=self.slot,

@@ -6,17 +6,19 @@ Solana's bank forks:
 
   - txn_prepare(parent, xid): start a child fork off root or another
     in-prep txn.  A txn with children is FROZEN: its records can no
-    longer change;
+    longer change (children may be speculating off them);
   - queries read through the overlay chain: the nearest ancestor's
-    version wins;
+    version wins; a removal in a descendant is a tombstone hiding the
+    ancestor / root version;
   - txn_publish(xid): the fork wins; its ancestor chain is merged into
     root oldest-first, and every competing sibling fork of each published
     ancestor is cancelled;
   - txn_cancel(xid): the fork loses; it and all descendants are discarded.
 
-Cut to what the runtime calls.  Not ported: record removal (tombstones),
-the JAX package's shared-memory map (funk_native.py) and its journal
-(persist.py).
+Every root write goes through `_root_merge`, which funk/persist.py
+overrides to journal the batch first.  The leader's default store is the
+shared-memory map with this API (funk/funk_native.py, `make_funk`); this
+dict store is what a caller passes as `BankCtx(funk=Funk())`.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dataclasses import dataclass, field
 
 ERR_TXN = -1     # unknown / already published-or-cancelled txn
 ERR_FROZEN = -2  # txn has children; records immutable
+ERR_KEY = -3     # unknown key
 
 
 class FunkError(RuntimeError):
@@ -33,18 +36,22 @@ class FunkError(RuntimeError):
         self.code = code
 
 
+_TOMBSTONE = object()
+
+
 @dataclass
 class _Txn:
     xid: bytes
     parent: bytes | None  # None = child of root
     children: set = field(default_factory=set)
-    recs: dict = field(default_factory=dict)  # key -> bytes
+    recs: dict = field(default_factory=dict)  # key -> bytes | _TOMBSTONE
 
 
 class Funk:
     def __init__(self):
         self._root: dict[bytes, bytes] = {}
         self._txns: dict[bytes, _Txn] = {}
+        self.last_publish: bytes | None = None
 
     # -- fork tree ----------------------------------------------------------
 
@@ -59,6 +66,12 @@ class Funk:
             p.children.add(xid)
         self._txns[xid] = _Txn(xid=xid, parent=parent)
         return xid
+
+    def txn_is_frozen(self, xid: bytes) -> bool:
+        return bool(self._get(xid).children)
+
+    def txn_cnt(self) -> int:
+        return len(self._txns)
 
     def txn_ancestry(self, xid: bytes) -> list[bytes]:
         """Root-ward chain [oldest .. xid]."""
@@ -95,11 +108,15 @@ class Funk:
             )
             for sib in [s for s in siblings if s != step]:
                 self.txn_cancel(sib)
-            self._root.update(t.recs)
+            self._root_merge(
+                [(key, None if val is _TOMBSTONE else val)
+                 for key, val in t.recs.items()]
+            )
             # step's children become children of root
             for child in t.children:
                 self._txns[child].parent = None
             del self._txns[step]
+            self.last_publish = step
             published += 1
         return published
 
@@ -108,12 +125,37 @@ class Funk:
     def rec_insert(self, xid: bytes | None, key: bytes, val: bytes) -> None:
         """Insert-or-modify `key` in txn `xid` (None = straight to root)."""
         if xid is None:
-            self._root[key] = bytes(val)
+            self._root_merge([(key, bytes(val))])
             return
         t = self._get(xid)
         if t.children:
             raise FunkError(ERR_FROZEN, "txn has children; records frozen")
         t.recs[key] = bytes(val)
+
+    def txn_recs_for_write(self, xid: bytes) -> dict:
+        """The txn's live record dict for a BATCH of insert-or-modify
+        writes (the bank drain's per-sweep apply): the ancestry lookup
+        and frozen check run once up front instead of once per record.
+        Callers must store plain bytes values and must not hold the
+        dict across a txn_publish/cancel."""
+        t = self._get(xid)
+        if t.children:
+            raise FunkError(ERR_FROZEN, "txn has children; records frozen")
+        return t.recs
+
+    def rec_remove(self, xid: bytes | None, key: bytes) -> None:
+        """Remove `key` as seen from `xid` (tombstones hide ancestors)."""
+        if xid is None:
+            if key not in self._root:
+                raise FunkError(ERR_KEY, f"unknown key {key!r}")
+            self._root_merge([(key, None)])
+            return
+        t = self._get(xid)
+        if t.children:
+            raise FunkError(ERR_FROZEN, "txn has children; records frozen")
+        if self.rec_query(xid, key) is None:
+            raise FunkError(ERR_KEY, f"unknown key {key!r}")
+        t.recs[key] = _TOMBSTONE
 
     def rec_query(self, xid: bytes | None, key: bytes) -> bytes | None:
         """Value of `key` as seen from `xid`: nearest overlay wins."""
@@ -121,19 +163,40 @@ class Funk:
         while cur is not None:
             t = self._get(cur)
             if key in t.recs:
-                return t.recs[key]
+                v = t.recs[key]
+                return None if v is _TOMBSTONE else v
             cur = t.parent
         return self._root.get(key)
 
+    def rec_cnt_root(self) -> int:
+        return len(self._root)
+
     def rec_keys(self, xid: bytes | None) -> list[bytes]:
-        """Every record key visible from `xid` (root for None)."""
+        """Every live record key visible from `xid` (root for None) —
+        the snapshot writer's iteration surface."""
+        if xid is None:
+            return list(self._root)
         keys = set(self._root)
-        if xid is not None:
-            for t_xid in self.txn_ancestry(xid):
-                keys.update(self._get(t_xid).recs)
+        for t_xid in self.txn_ancestry(xid):  # oldest -> newest overlay
+            t = self._get(t_xid)
+            for k, v in t.recs.items():
+                if v is _TOMBSTONE:
+                    keys.discard(k)
+                else:
+                    keys.add(k)
         return list(keys)
 
     # -- internals ----------------------------------------------------------
+
+    def _root_merge(self, items: list[tuple[bytes, bytes | None]]) -> None:
+        """Apply one atomic batch of root mutations (None value = delete).
+        The single funnel for all root writes — the persistence layer
+        (funk/persist.py) overrides it to journal the batch first."""
+        for key, val in items:
+            if val is None:
+                self._root.pop(key, None)
+            else:
+                self._root[key] = val
 
     def _get(self, xid: bytes) -> _Txn:
         t = self._txns.get(xid)

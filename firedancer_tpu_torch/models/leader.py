@@ -343,6 +343,7 @@ class LeaderPipeline:
     stage_s: Counter = field(default_factory=Counter)
     sweeps: int = 0  # round-robin sweeps over the stages (_step calls)
     heap_hold: HeapHold | None = None  # a clocked pipeline's, till close()
+    owns_ctx: bool = False  # the builder made bank_ctx: close() closes its store
 
     @property
     def links(self) -> list:
@@ -450,11 +451,16 @@ class LeaderPipeline:
 
     def close(self) -> None:
         """Tear the links down (Rings.close); the banks' sweep clients go
-        with their stages' views.  A clocked pipeline thaws its share of
-        the frozen heap first."""
+        with their stages' views; then, when the builder made the bank ctx,
+        close its store (the shm map's segment).  A ctx the caller passed is
+        the caller's to close (BankCtx.close), so it can outlive the
+        pipeline: its state read after the run, or the ctx reused.  A
+        clocked pipeline thaws its share of the frozen heap first."""
         if self.heap_hold is not None:
             self.heap_hold.release()
         self.rings.close(self.stages)
+        if self.owns_ctx:
+            self.bank_ctx.close()
 
     def dedup_counts(self) -> tuple[int, int]:
         """(txns past dedup, duplicates dropped), on either pack lane: the
@@ -509,7 +515,8 @@ def _leader_tail(*, r: Rings, upstream_outs: list, n_bank: int, slot: int,
     upstream = (dedup.ins if dedup else []) + pack.ins[:len(pack_ins)]
     # ONE live bank shared by every bank stage (all bank tiles commit into
     # the same bank)
-    if bank_ctx is None:
+    owns_ctx = bank_ctx is None
+    if owns_ctx:
         bank_ctx = default_bank_ctx(slot=slot, device=dev)
     banks = [BankStage(f"bank{b}", [r.consumer(pack_bank[b], "pb")],
                        [r.producer(bank_poh[b]), r.producer(bank_done[b])],
@@ -540,7 +547,8 @@ def _leader_tail(*, r: Rings, upstream_outs: list, n_bank: int, slot: int,
     store = StoreStage("store", [r.consumer(shred_store, "ss")], verify_sig=None,
                        trust_membership=True, device=dev)
     return upstream, dict(dedup=dedup, pack=pack, banks=banks, poh=poh, shred=shred,
-                          store=store, bank_ctx=bank_ctx, leader_pub=ref.public_key(secret))
+                          store=store, bank_ctx=bank_ctx, owns_ctx=owns_ctx,
+                          leader_pub=ref.public_key(secret))
 
 
 def _tail_stages(t: dict) -> list:

@@ -431,14 +431,15 @@ def nonce_transfers(n: int, seed: bytes = b"nonce", n_dests: int = 64) -> list[b
 
 def nonce_bank_ctx(n: int, *, seed: bytes = b"nonce", slot: int = 1,
                    payer_seed: bytes = b"benchg", n_payers: int = 8, device=None,
-                   native_exec: bool = True):
+                   native_exec: bool = True, funk=None):
     """default_bank_ctx's payers (benchg's seed and blockhash) plus
     nonce_genesis(n, seed) on the funk root: a BankCtx that lands benchg
-    transfers mixed with nonce_transfers(n, seed)."""
+    transfers mixed with nonce_transfers(n, seed).  `funk`: the store
+    (default make_funk()'s shm map; the caller closes the ctx)."""
     from ..runtime.bank import default_bank_ctx
 
     ctx = default_bank_ctx(slot=slot, seed=payer_seed, n_payers=n_payers, device=device,
-                           native_exec=native_exec)
+                           native_exec=native_exec, funk=funk)
     for pub, val in nonce_genesis(n, seed).items():
         ctx.funk.rec_insert(None, pub, val)
     return ctx

@@ -1,7 +1,6 @@
 // Native bank stage: microblock drain -> session exec -> entry publish in
 // one crossing.  The port's copy of the JAX package's native/fd_bank.cpp,
-// without its native funk plane (the port's funk is the Python store, so
-// every committed record reaches it through the result log).
+// its native funk plane included (see "The native funk plane" below).
 //
 // The sweep-harness client for runtime/bank.BankStage: fdb_frag_cb
 // consumes a pack microblock frame, builds an fd_exec_batch2 ('FDX2')
@@ -30,21 +29,33 @@
 // overlay miss is a Punt by construction (ov_only).  Cold accounts
 // therefore punt exactly once — the Python resume ships their values —
 // and the steady state is all-native.  Fully-native results still reach
-// Python through the same log (published=1 groups) because funk remains
-// the authoritative store for seal() and the Python lane.
+// Python through the same log (published=1 groups) for result accounting.
+//
+// The native funk plane (fdb_stage_set_funk): when the slot's store is
+// the shm record map (native/fd_funk.cpp), the committed records go
+// straight into the slot's fork inside this crossing, through function
+// pointers into the port's fd_funk library (ffk_txn_slot resolves the
+// fork once a group, ffk_rec_insert_slot upserts a record), and the log
+// carries payload-stripped records (n_w = 0).  A group whose insert fails
+// (the fork frozen or unknown, the map full) logs its full records
+// instead and counts in funk_falls: upserts are idempotent, so Python's
+// re-apply overwrites a partial C write, and a record's compute units
+// come from its n_ins, not from the state.  Unarmed, every record
+// reaches funk through the log.
 //
 // Log group wire format (drained via fdb_log_ptr + the zero-FFI counter
 // tail; see runtime/bank_native.py):
 //   u64 mb_seq | u64 tsorig | u64 lat_ns | u32 n_done | u8 published |
 //   u32 mb_sz | recs[n_done] | mb_raw[mb_sz]
 // where each rec is the FDXR record verbatim:
-//   i8 status | u64 fee | u8 n_w | (u8 acct_idx | u32 len | bytes)*
+//   i8 status | u64 fee | u8 n_ins | u8 n_w | (u8 acct_idx | u32 len | bytes)*
 // published: 1 = entry+done frames already on the rings (Python applies
 // state only); 2 = entry out but done deferred (Python publishes done);
 // 0 = nothing published (Python resumes from txn n_done and publishes).
 //
-// The metrics plane hook (fdb_stage_set_metrics) is kept; the port binds
-// no plane yet, so its brackets below are skipped.
+// The metrics plane (fdb_stage_set_metrics) brackets the apply and
+// publish phases into the plane fdr_sweep carries, and observes each
+// txn's commit latency into the stage's nbank_txn_lat_ns histogram.
 //
 // Build: utils/hostbuild.py (g++ -O2 -std=c++17 -shared -fPIC), on first use.
 
@@ -166,6 +177,14 @@ typedef int (*fdr_try_publish_t)(const void* link, void* prod,
 typedef u64 (*fdr_refresh_credits_t)(const void* link, void* prod);
 typedef i64 (*fd_exec_batch2_t)(void* sh, const u8* req, u64 req_sz,
                                 u8* resp, u64 resp_cap);
+// the port's fd_funk library: committed records go DIRECTLY into the shm
+// record map inside this crossing — the txn index resolves once per group
+// (the xid is the slot's funk fork), then each write is one slot-direct
+// upsert
+typedef int32_t (*ffk_txn_slot_t)(void* h, const u8* xid, int32_t xlen);
+typedef int32_t (*ffk_rec_insert_slot_t)(void* h, int32_t ti, const u8* key,
+                                         int32_t klen, const u8* val,
+                                         int32_t vlen);
 static inline u16 rd16(const u8* p) { return (u16)(p[0] | (p[1] << 8)); }
 static inline u32 rd32(const u8* p) {
   return (u32)p[0] | ((u32)p[1] << 8) | ((u32)p[2] << 16) | ((u32)p[3] << 24);
@@ -219,12 +238,23 @@ struct BankStageCtx {
   // plane fdr_sweep carries, so apply/publish brackets here land in
   // that crossing's fdm_sweep_end phase decomposition
   fdm_plane* mplane;
+  // native funk plane (fdb_stage_set_funk; null = disarmed): committed
+  // records write straight into the shm map and the log carries
+  // payload-stripped records
+  void* funk;
+  ffk_txn_slot_t funk_slot;
+  ffk_rec_insert_slot_t funk_insert;
+  u64 funk_xid_len;
+  u8 funk_xid[128];           // FFK_XID_MAX
+  u8* fkrecs; u64 fkrecs_cap; // stripped-record scratch
   // flags + counters Python reads off the struct (no FFI);
   // fdb_stage_flags_off pins this offset
   u64 log_sz;
   u64 stash_pending;  // a published<1 group awaits the Python drain
   u64 mb_seen, mb_native, mb_stashed, txn_native, credit_waits;
   u64 mb_dropped;  // log arena OOM before anything committed (never-path)
+  u64 funk_writes;  // txns whose records went into the native map in-crossing
+  u64 funk_falls;   // groups that fell back to full-value logging
 };
 
 static int ensure_cap(u8** buf, u64* cap, u64 need) {
@@ -314,7 +344,32 @@ void fdb_stage_delete(void* p) {
   std::free(st->ent);
   std::free(st->refs);
   std::free(st->log);
+  std::free(st->fkrecs);
   std::free(st);
+}
+
+// Arm/re-arm (or disarm: funk == NULL) the native funk plane.  Called at
+// arm time and wherever the slot's xid or env header changes — the xid
+// is the slot's funk fork.  The fn pointers come from the port's fd_funk
+// library (cross-library linking by address, the fd_exec_batch2
+// precedent).  Returns 0 on hard error (xid too long), 1 armed, 2 armed
+// but the xid does not resolve yet (groups then log full records until
+// it does).
+int fdb_stage_set_funk(void* p, void* funk, void* slot_fn, void* insert_fn,
+                       const u8* xid, u64 xid_len) {
+  BankStageCtx* st = (BankStageCtx*)p;
+  if (!funk || !xid_len) {
+    st->funk = nullptr;
+    st->funk_xid_len = 0;
+    return 1;
+  }
+  if (xid_len > sizeof(st->funk_xid)) return 0;
+  st->funk = funk;
+  st->funk_slot = (ffk_txn_slot_t)slot_fn;
+  st->funk_insert = (ffk_rec_insert_slot_t)insert_fn;
+  std::memcpy(st->funk_xid, xid, xid_len);
+  st->funk_xid_len = xid_len;
+  return st->funk_slot(st->funk, st->funk_xid, (int32_t)xid_len) >= 0 ? 1 : 2;
 }
 
 // Arm/disarm the shm metrics plane.  The pointer is the
@@ -489,11 +544,11 @@ int fdb_frag_cb(void* vctx, const u64* meta8, const u8* payload) {
   {
     const u8* w = recs;
     for (u32 t = 0; t < n_done; t++) {
-      if ((u64)(w - rp) + 10 > rsz) { n_done = t; break; }
+      if ((u64)(w - rp) + 11 > rsz) { n_done = t; break; }
       u64 fee = 0;
       for (int i = 0; i < 8; i++) fee |= (u64)w[1 + i] << (8 * i);
-      u8 n_w = w[9];
-      w += 10;
+      u8 n_w = w[10];
+      w += 11;
       for (u8 j = 0; j < n_w; j++) {
         if ((u64)(w - rp) + 5 > rsz) { n_w = 0; break; }
         w += 5 + rd32(w + 1);
@@ -516,11 +571,58 @@ int fdb_frag_cb(void* vctx, const u64* meta8, const u8* payload) {
     for (u32 t = 0; t < n_done; t++)
       fdm_hist_obs(st->mplane->met, &st->mplane->xlat, (double)lat_ns);
 
+  // native funk plane: the session has committed these records, so put
+  // them straight into the shm map NOW (slot-direct upserts) and log a
+  // payload-stripped record stream (n_w=0) — the Python drain shrinks
+  // to result accounting.  Any insert failure falls back to the full
+  // log for the whole group: upserts are idempotent, so a partial C
+  // write is safely overwritten by the Python re-apply.
+  const u8* lrecs = recs;
+  u64 lrecs_sz = recs_sz;
+  if (st->funk && n_done) {
+    u64 t_apply = st->mplane ? fdm_now_ns() : 0;
+    int32_t ti = st->funk_slot(st->funk, st->funk_xid,
+                               (int32_t)st->funk_xid_len);
+    int ok = ti >= 0 &&
+             ensure_cap(&st->fkrecs, &st->fkrecs_cap, (u64)n_done * 11);
+    if (ok) {
+      u8* o = st->fkrecs;
+      const u8* w = recs;
+      for (u32 t = 0; t < n_done; t++) {
+        u8 n_w = w[10];
+        std::memcpy(o, w, 11);
+        o[10] = 0;  // values live in the shm map, not the log
+        o += 11;
+        w += 11;
+        const FragRef& r = st->refs[t];
+        const u8* desc = r.frag + r.psz;
+        u64 acct_off = rd16(desc + 9);  // in-bounds: batch2 gated the desc
+        for (u8 j = 0; j < n_w; j++) {
+          u32 vlen = rd32(w + 1);
+          if (ok && st->funk_insert(st->funk, ti,
+                                    r.frag + acct_off + 32u * (u64)w[0], 32,
+                                    w + 5, (int32_t)vlen) != 0)
+            ok = 0;  // keep walking: the stripped stream must stay aligned
+          w += 5 + vlen;
+        }
+      }
+    }
+    if (ok) {
+      lrecs = st->fkrecs;
+      lrecs_sz = (u64)n_done * 11;
+      st->funk_writes += n_done;
+    } else {
+      st->funk_falls++;
+    }
+    if (st->mplane)
+      fdm_accum(st->mplane, FDM_PH_APPLY, fdm_now_ns() - t_apply);
+  }
+
   if (punted || n_done < cnt) {
     // PUNT: the committed prefix rides in the log; Python applies it
     // and resumes the tail in order through SlotExecution.execute_batch
     st->mb_stashed++;
-    log_group(st, mb_seq, tsorig, lat_ns, n_done, 0, recs, recs_sz,
+    log_group(st, mb_seq, tsorig, lat_ns, n_done, 0, lrecs, lrecs_sz,
               payload, sz);
     return -1;
   }
@@ -532,7 +634,7 @@ int fdb_frag_cb(void* vctx, const u64* meta8, const u8* payload) {
   if (n_landed) {
     if (!ensure_cap(&st->ent, &st->ent_cap, ent_sz)) {
       st->mb_stashed++;
-      log_group(st, mb_seq, tsorig, lat_ns, n_done, 0, recs, recs_sz,
+      log_group(st, mb_seq, tsorig, lat_ns, n_done, 0, lrecs, lrecs_sz,
                 payload, sz);
       return -1;
     }
@@ -542,8 +644,8 @@ int fdb_frag_cb(void* vctx, const u64* meta8, const u8* payload) {
     for (u32 t = 0; t < n_done; t++) {
       u64 fee = 0;
       for (int i = 0; i < 8; i++) fee |= (u64)w[1 + i] << (8 * i);
-      u8 n_w = w[9];
-      w += 10;
+      u8 n_w = w[10];
+      w += 11;
       for (u8 j = 0; j < n_w; j++) w += 5 + rd32(w + 1);
       if (fee == 0) continue;
       const FragRef& r = st->refs[t];
@@ -566,7 +668,7 @@ int fdb_frag_cb(void* vctx, const u64* meta8, const u8* payload) {
       // back to Python for the publish half (state is already committed
       // session-side; the n_done records carry it across)
       st->mb_stashed++;
-      log_group(st, mb_seq, tsorig, lat_ns, n_done, 0, recs, recs_sz,
+      log_group(st, mb_seq, tsorig, lat_ns, n_done, 0, lrecs, lrecs_sz,
                 payload, sz);
       return -1;
     }
@@ -581,7 +683,7 @@ int fdb_frag_cb(void* vctx, const u64* meta8, const u8* payload) {
     published = 2;  // entry is out; Python publishes only the done frame
   }
   st->mb_native++;
-  log_group(st, mb_seq, tsorig, lat_ns, n_done, published, recs, recs_sz,
+  log_group(st, mb_seq, tsorig, lat_ns, n_done, published, lrecs, lrecs_sz,
             payload, sz);
   return published == 1 ? 0 : -1;
 }

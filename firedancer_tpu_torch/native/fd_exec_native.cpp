@@ -1133,6 +1133,11 @@ struct TxnResult {
   i64 status;
   u64 fee;
   std::vector<Write> writes;
+  // instructions that charged their builtin cost before the txn ended:
+  // the failing one included when it ran, all of them on success
+  // (flamenco/executor.py charges up front), so Python's compute units
+  // are the first n_ins instructions' BUILTIN_COST
+  u8 n_ins = 0;
 };
 
 typedef std::map<Key, std::vector<u8>> Overlay;
@@ -1205,8 +1210,8 @@ static TxnResult execute_txn(const TxnIn& in, Overlay& ov, u64 lps,
   T.accts[0].lamports -= fee;
   std::vector<Acct> baseline = T.accts;
 
-  auto fail = [&](i64 status) {
-    TxnResult r{status, fee, {}};
+  auto fail = [&](i64 status, u32 n_ins) {
+    TxnResult r{status, fee, {}, (u8)n_ins};
     Write w;
     w.idx = 0;
     acct_encode(baseline[0], w.val);  // fee-debited payer, no effects
@@ -1249,14 +1254,14 @@ static TxnResult execute_txn(const TxnIn& in, Overlay& ov, u64 lps,
 
   for (u32 k = 0; k < d.instr_cnt; k++) {
     const Instr& ins = d.instrs[k];
-    if (ins.prog >= d.acct_cnt) return fail(ST_ACCT);
+    if (ins.prog >= d.acct_cnt) return fail(ST_ACCT, k);
     if ((u64)ins.data_off + ins.data_sz > in.payload_sz) throw Punt{};
     if ((u64)ins.acct_off + ins.acct_cnt > in.payload_sz) throw Punt{};
     const u8* idx = in.payload + ins.acct_off;
     bool bad_idx = false;
     for (u32 j = 0; j < ins.acct_cnt; j++)
       if (idx[j] >= d.acct_cnt) bad_idx = true;
-    if (bad_idx) return fail(ST_ACCT);
+    if (bad_idx) return fail(ST_ACCT, k);
     std::vector<IA> ia;
     ia.reserve(ins.acct_cnt);
     for (u32 j = 0; j < ins.acct_cnt; j++)
@@ -1274,16 +1279,16 @@ static TxnResult execute_txn(const TxnIn& in, Overlay& ov, u64 lps,
         throw Punt{};  // BPF / other builtins: Python lane
       }
     } catch (const Err& e) {
-      return fail(e.status);
+      return fail(e.status, k + 1);
     }
   }
 
   // commit: writes may only land on accounts the wave generator saw as
   // writable; validate everything before emitting anything
-  TxnResult r{TXN_SUCCESS, fee, {}};
+  TxnResult r{TXN_SUCCESS, fee, {}, (u8)d.instr_cnt};
   for (u32 i = 0; i < d.acct_cnt; i++) {
     bool changed = !T.accts[i].same_state(baseline[i]);
-    if (changed && !T.writable[i]) return fail(ST_ACCT);
+    if (changed && !T.writable[i]) return fail(ST_ACCT, d.instr_cnt);
     if (i == 0 || changed) {  // payer writes unconditionally (fee debit)
       Write w;
       w.idx = (u8)i;
@@ -1303,6 +1308,9 @@ extern "C" {
 // Executes up to n_txn transactions sequentially.  Returns the response
 // length, -1 on a malformed request, -2 when resp_cap is too small (the
 // caller retries with a larger buffer; no state escapes a failed call).
+// Response: u32 'FDXR' | u32 n_done | u8 punted | recs[n_done], each rec
+//   i8 status | u64 fee | u8 n_ins | u8 n_w | (u8 acct_idx | u32 len | bytes)*
+// (n_ins: TxnResult's count of instructions that charged their cost).
 int64_t fd_exec_batch(const uint8_t* req, uint64_t req_sz, uint8_t* resp,
                       uint64_t resp_cap) {
   const u8* p = req;
@@ -1382,6 +1390,7 @@ int64_t fd_exec_batch(const uint8_t* req, uint64_t req_sz, uint8_t* resp,
       }
       w.put8((u8)(int8_t)r.status);
       w.put64(r.fee);
+      w.put8(r.n_ins);
       w.put8((u8)r.writes.size());
       // account addresses live in the payload at the descriptor's
       // acct_off (validated inside execute_txn before any write exists)
@@ -1694,6 +1703,7 @@ int64_t fd_exec_batch2(void* sh, const uint8_t* req, uint64_t req_sz,
       const TxnResult& r = recs[t];
       w.put8((u8)(int8_t)r.status);
       w.put64(r.fee);
+      w.put8(r.n_ins);
       w.put8((u8)r.writes.size());
       for (auto& wr_ : r.writes) {
         w.put8(wr_.idx);

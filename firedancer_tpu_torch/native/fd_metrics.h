@@ -1,13 +1,11 @@
 // fd_metrics.h — the in-crossing shm metrics writer: the port's copy of
 // the JAX package's native/fd_metrics.h, unchanged below this comment.
 //
-// In the port no plane is bound yet: fd_ring.cpp's fdr_sweep and
-// fd_bank.cpp's fdb_stage_set_metrics take a null plane, and every
-// writer here is then a no-op.  The Python half that fills fdm_plane
-// (the JAX package's runtime/native_metrics.py over the shm registry of
-// its utils/metrics.py) comes with the port's metrics plane.  The header
-// rides along because both sources include it, so the plane can be bound
-// later without touching either.
+// fd_ring.cpp's fdr_sweep writes the plane a stage hands it, and
+// fd_bank.cpp (fdb_stage_set_metrics) and fd_shred.cpp (fds_stage_set_metrics)
+// bracket their apply and publish phases into it; the Python half that
+// fills fdm_plane is runtime/native_metrics.py, over utils/metrics.py's
+// registry.  A null plane makes every writer here a no-op.
 //
 // Native twin of the shm metrics segment protocol: a sweep client bumps
 // the uint64 words the Python registry lays out — relaxed-atomic counter

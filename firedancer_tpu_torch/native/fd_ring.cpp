@@ -27,11 +27,12 @@
 // fdr_sweep runs a stage's C callback per frag inside the same crossing
 // (the bank stage's, native/fd_bank.cpp).
 //
-// Left out of this copy, for want of a caller in the port: the metrics
-// plane's exports (the attach check, its test drivers and the
-// plane-timed burst publish), the relay sweep client of the chaos
-// harness, the synthetic-ingress pool publish and the bulk benchmark
-// helpers.  fdr_sweep keeps its plane argument and is passed null.
+// fdr_sweep writes the stage's metrics plane when it is given one
+// (runtime/native_metrics.NativePlane), and this library exports the
+// plane's attach check and its test drivers (the end of this file).
+// Left out of this copy, for want of a caller in the port: the
+// plane-timed burst publish, the relay sweep client of the chaos harness,
+// the synthetic-ingress pool publish and the bulk benchmark helpers.
 //
 // Build: utils/hostbuild.py (g++ -O2 -std=c++17 -shared -fPIC), on first use.
 
@@ -312,7 +313,8 @@ int64_t fdr_drain(fdr_link* const* links, fdr_consumer* const* cons,
 typedef int (*fdr_sweep_cb)(void* ctx, const uint64_t* meta8,
                             const uint8_t* payload);
 
-// The trailing `plane` is the in-crossing observability hook: when non-null, the sweep stamps CLOCK_MONOTONIC at every
+// The trailing `plane` is the in-crossing observability hook: when
+// non-null, the sweep stamps CLOCK_MONOTONIC at every
 // consumed-frag boundary (two reads per frag, none per idle poll pass
 // beyond the crossing edges) and decomposes the crossing into
 // drain / callback / apply / publish phase histograms — apply and
@@ -369,6 +371,58 @@ int64_t fdr_sweep(fdr_link* const* links, fdr_consumer* const* cons,
   *rr_io = rr % n_links;
   *ovrn_out = ovrn;
   return (int64_t)got;
+}
+
+
+// -- the metrics plane's exported surface ------------------------------------
+//
+// The fdm_* inline writers live in fd_metrics.h (each client library
+// carries its own copy); this library also exports the attach check and
+// the test drivers, so the Python side proves the C writers word-equal
+// to utils/metrics.py without a pipeline.
+
+uint64_t fdm_abi_version(void) { return FDM_ABI_VERSION; }
+
+// Check a plane against its raw shm segment: header magic, metric word
+// count and recorder capacity must agree with what the Python binding
+// derived (utils/metrics.py metrics_segment_* layout).  Returns 0 ok,
+// negative = which check failed.
+int fdm_plane_attach(fdm_plane* pl, const uint64_t* seg, uint64_t seg_words) {
+  if (pl->version != FDM_ABI_VERSION) return -1;
+  if (seg_words < FDM_SEG_HDR_WORDS) return -2;
+  if (seg[0] != FDM_SEG_MAGIC) return -3;
+  uint64_t n_met = seg[1];
+  uint64_t rec_cap = seg[2];
+  if (seg_words < FDM_SEG_HDR_WORDS + n_met + 1 + rec_cap * FDM_REC_WORDS)
+    return -4;
+  if (pl->met != seg + FDM_SEG_HDR_WORDS) return -5;
+  if (pl->rec && pl->rec != seg + FDM_SEG_HDR_WORDS + n_met) return -6;
+  if (pl->rec && pl->rec_cap != rec_cap) return -7;
+  return 0;
+}
+
+// Test drivers: apply n observations/bumps through the C writers, so
+// tests hold the resulting words against utils/metrics.py's
+// MetricsRegistry/FlightRecorder doing the same operations.
+void fdm_test_ctr(fdm_plane* pl, uint64_t off, uint64_t v) {
+  fdm_ctr_add(pl, off, v);
+}
+
+void fdm_test_hist(fdm_plane* pl, const fdm_hist* h, const double* vals,
+                   uint64_t n) {
+  for (uint64_t i = 0; i < n; i++) fdm_hist_obs(pl->met, h, vals[i]);
+}
+
+void fdm_test_flight(fdm_plane* pl, uint64_t ev, uint64_t arg) {
+  fdm_flight(pl, ev, arg);
+}
+
+void fdm_test_sweep_end(fdm_plane* pl, uint64_t got, uint64_t drain_ns,
+                        uint64_t cb_ns, uint64_t apply_ns,
+                        uint64_t pub_ns) {
+  fdm_accum(pl, FDM_PH_APPLY, apply_ns);
+  fdm_accum(pl, FDM_PH_PUBLISH, pub_ns);
+  fdm_sweep_end(pl, got, drain_ns, cb_ns);
 }
 
 }  // extern "C"

@@ -1201,9 +1201,8 @@ void fds_stage_delete(void* p) {
 
 // Arm/disarm the shm metrics plane: the SAME fdm_plane the stage's
 // SweepDrainer passes fdr_sweep, so the apply/publish accums bracketed in
-// stage_flush fold into that crossing's decomposition.  The port binds no
-// plane yet (runtime/shred_native.py passes null), so the brackets are
-// skipped.
+// stage_flush fold into that crossing's decomposition
+// (runtime/shred_native.StageClient.set_metrics; null disarms).
 void fds_stage_set_metrics(void* p, fdm_plane* plane) {
   ((ShredStageCtx*)p)->mplane = plane;
 }

@@ -44,7 +44,16 @@ punted and credit-stalled microblocks on the Python lane in ring order
 after the committed ones, publishes their frames, and re-syncs the
 session (SlotExecution.native_sync) before the next sweep.  A failed
 exec crossing disarms the lane and raises BankSweepError; nothing goes on
-a frag at a time.  Counters: `bank_txn_native` (txns committed inside the
+a frag at a time.
+
+The native funk plane: when the ctx's store is the shm map
+(funk/funk_native.NativeFunk, BankCtx's default), the client is armed
+with it (`StageClient.set_funk`, the slot's xid) and the C side writes the
+committed records into the map inside the crossing; the drain then only
+accounts for them.  `bank_funk_writes` counts the txns so written,
+`bank_funk_falls` the groups that logged full records instead.  A dict
+store (`BankCtx(funk=Funk())`) takes every record through the log.
+Counters: `bank_txn_native` (txns committed inside the
 crossing), `bank_mb_native`, `bank_mb_stashed` (punted or stalled
 microblocks), `bank_credit_waits`, `bank_mb_resumed` (resumed on the
 Python lane), `bank_mb_seen`, `bank_mb_dropped`.
@@ -53,11 +62,13 @@ Python lane), `bank_mb_seen`, `bank_mb_dropped`.
 from __future__ import annotations
 
 import hashlib
+from time import perf_counter
 
 from ..flamenco.exec_native import NativeExecError
 from ..flamenco.runtime import TXN_SUCCESS
 from ..protocol import txn as ft
 from ..tango.native import NativeProducer
+from ..utils import metrics as fm
 from . import bank_native
 from .bank_native import BankSweepError
 from .slot_clock import resolve_clock
@@ -83,7 +94,9 @@ class BankCtx:
     every bank stage (and by the pipeline's seal/publish at end of slot).
     `device` is where seal runs K13 (default the card); native_exec picks
     the SlotExecution's lane, and on the native lane the library is built
-    here, before the first microblock."""
+    here, before the first microblock.  Without a `funk` the store is
+    `make_funk()`'s shm map, which `close()` releases; pass `Funk()` for
+    the dict store."""
 
     def __init__(
         self,
@@ -118,6 +131,14 @@ class BankCtx:
         self._parent_xid = parent_xid
         self._executor = executor
         self._sx = None
+
+    def close(self) -> None:
+        """Close the store (the shm map's segment is unmapped and unlinked);
+        whoever built the ctx calls it.  Idempotent, and a no-op on a dict
+        store."""
+        close = getattr(self.funk, "close", None)
+        if close is not None:
+            close()
 
     def fund(self, pubkey: bytes, lamports: int) -> None:
         """Genesis-style funding on the funk root (before the slot runs)."""
@@ -176,14 +197,17 @@ def default_bank_ctx(
     with_status_cache: bool = True,
     device=None,
     native_exec: bool = True,
+    funk=None,
 ) -> BankCtx:
     """A ctx pre-funded for the synthetic benchg load: the generator's
     payer accounts exist with lamports (fees + transfers clear) and the
-    pool's blockhash passes the status-cache currency gate."""
+    pool's blockhash passes the status-cache currency gate.  `funk`: the
+    store (default make_funk()'s shm map; the caller closes the ctx)."""
     from ..flamenco.blockstore import StatusCache
     from .benchg import pool_blockhash, pool_payers
 
     ctx = BankCtx(
+        funk,
         slot=slot,
         status_cache=StatusCache() if with_status_cache else None,
         blockhashes=(pool_blockhash(seed),),
@@ -216,6 +240,15 @@ def _items(frags) -> list:
 
 
 class BankStage(Stage):
+    native_xlat_metric = "nbank_txn_lat_ns"
+
+    @classmethod
+    def extra_schema(cls) -> fm.MetricsSchema:
+        return fm.MetricsSchema().histogram(
+            "nbank_txn_lat_ns", fm.exp_buckets(1e3, 1e10, 24),
+            "per-txn commit latency (tsorig -> session commit), stamped by the C sweep lane",
+            native=True)
+
     def __init__(self, *args, bank_idx: int = 0, ctx: BankCtx | None = None,
                  clock=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -226,6 +259,7 @@ class BankStage(Stage):
         self._clock = resolve_clock(clock)
         self._clock_slot = self._clock.cfg.slot0 if self._clock is not None else 0
         self._armed_ctx = None
+        self.drain_s = 0.0  # host seconds applying the C side's result log
         self._arm_native()
 
     # -- the bank sweep lane ------------------------------------------------
@@ -243,6 +277,15 @@ class BankStage(Stage):
             sx._native_session, bank_native.make_hdr(nat, gated=sx.status_cache is not None),
             self.outs[0], self.outs[1], bank_idx=self.bank_idx)
         self._armed_ctx = nat
+        self._arm_funk()
+
+    def _arm_funk(self) -> None:
+        """Arm the native funk plane on the slot's fork when the store is
+        the shm map (the xid is the SlotExecution's, so this follows the
+        header: the client is re-armed wherever that changes)."""
+        sx = self.ctx.sx
+        if hasattr(sx.funk, "txn_diff"):
+            self._sweep_client.set_funk(sx.funk, sx.xid)
 
     def _disarm_native(self, err: Exception) -> None:
         """The session failed mid-drain: its state and funk's may differ, so
@@ -299,6 +342,7 @@ class BankStage(Stage):
         try:
             log = c.take_log() if c.log_sz else b""
             if log:
+                t0 = perf_counter()
                 groups = bank_native.parse_log(log)
                 # all or nothing: applying state cannot be replayed, so the
                 # drain waits until every frame it owes can go out
@@ -309,9 +353,10 @@ class BankStage(Stage):
                         p.refresh_credits()
                     if self.outs[0].cr_avail < need_ent or self.outs[1].cr_avail < need_done:
                         return
-                for mb_seq, tsorig, lat_ns, n_done, published, recs, mb in groups:
-                    self._apply_group(mb_seq, tsorig, lat_ns, n_done, published, recs, mb)
+                for g in groups:
+                    self._apply_group(*g)
                 c.clear_log()
+                self.drain_s += perf_counter() - t0
             sx.native_sync()
             if (sx._native_ctx is not self._armed_ctx
                     or sx.sysvars.get("slot_hashes") is not sx._native_sh_blob):
@@ -320,6 +365,7 @@ class BankStage(Stage):
                 nat = sx._native_for_batch()
                 c.set_hdr(bank_native.make_hdr(nat, gated=sx.status_cache is not None))
                 self._armed_ctx = nat
+                self._arm_funk()
         except NativeExecError as e:
             self._disarm_native(e)
 
@@ -345,7 +391,7 @@ class BankStage(Stage):
         # the Python lane, then both frames from here
         items = _items(frags)
         nd0, np0 = sx.native_done_cnt, sx.native_punt_cnt
-        results = sx.native_apply_batch([(p, db, st, fee, w) for (p, _d, db), (st, fee, w)
+        results = sx.native_apply_batch([(p, db, *rec) for (p, _d, db), rec
                                          in zip(items, recs)])
         if n_done < len(items):
             results += self.ctx.execute_batch(items[n_done:])

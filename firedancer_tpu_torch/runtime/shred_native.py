@@ -29,7 +29,9 @@ Two surfaces:
 
 The signer's expanded key (clamped scalar, prefix, compressed pubkey)
 comes from ed25519_ref's key cache; the raw secret never crosses the FFI.
-The C side's metrics-plane hook stays null until the port has a plane.
+`StageClient.set_metrics` arms the shm metrics plane
+(runtime/native_metrics.NativePlane): the shred and publish brackets
+inside the crossing land in the plane fdr_sweep is handed.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ def load() -> ctypes.CDLL:
         lib.fds_stage_append.argtypes = [vp, cp, u64, u64]
         lib.fds_stage_flush.argtypes = [vp, ctypes.c_int]
         lib.fds_stage_flush.restype = ctypes.c_int
+        lib.fds_stage_set_metrics.argtypes = [vp, vp]
         _LIB = lib
     return _LIB
 
@@ -300,6 +303,7 @@ class StageClient:
         self._lib = lib
         self._ctx = shredder._ctx
         self._prod = out_producer  # the C ctx points into its structs
+        self._plane = None  # set_metrics's plane, likewise
         self._h = lib.fds_stage_new(
             self._ctx._h, ctypes.cast(out_producer._lsp, vp), ctypes.cast(out_producer._pp, vp),
             ctypes.cast(ring.fdr_try_publish, vp), ctypes.cast(ring.fdr_refresh_credits, vp),
@@ -350,12 +354,20 @@ class StageClient:
     def set_slot(self, slot: int) -> None:
         self._lib.fds_stage_set_slot(self._h, slot)
 
+    def set_metrics(self, plane) -> None:
+        """Arm (or disarm: None) the shm metrics plane: the shred and
+        publish brackets inside the crossing accumulate into the plane
+        fdr_sweep is handed.  The plane is kept alive while the C side
+        holds its pointer."""
+        self._plane = plane
+        self._lib.fds_stage_set_metrics(self._h, plane.ptr if plane is not None else None)
+
     def close(self) -> None:
         if getattr(self, "_h", None):
             self._tail = None
             self._lib.fds_stage_delete(self._h)
             self._h = None
-            self._prod = None
+            self._prod = self._plane = None
 
     def __del__(self):
         self.close()

@@ -34,8 +34,19 @@ Three input paths, picked per sweep:
   - otherwise: a Python poll per frag.
 
 `publish_burst_out` publishes a frame list in one fdr_publish_burst call
-on a native producer.  A dict of counters stands in for the JAX package's
-shm metrics registry.
+on a native producer.
+
+Metrics (the JAX package's two tiers): the per-frag path counts in plain
+dicts (`Metrics`), and `Metrics.flush`, from every housekeeping pass,
+stores them into the stage's MetricsRegistry (utils/metrics.py: one flat
+u64 array, shm-backable) once one is attached.  A stage with a sweep
+client also has the shm metrics plane (runtime/native_metrics.NativePlane,
+over a private registry when none is attached): fdr_sweep and the client's
+C side write its native words from inside the crossing (nsweep_frags,
+nsweep_crossings, the per-crossing drain / callback / apply / publish
+histograms, the in-crossing tsorig latency), and flush never stores one.
+Read them with `stage.metrics.registry.get(...)` / `.hist(...)`;
+`sweep_frags` counts, on the Python side, the frags fdr_sweep returned.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import numpy as np
 
 from ..tango import shm
 from ..tango.native import BurstDrainer, NativeConsumer, SweepDrainer
+from ..utils import metrics as fm
 
 now_ns = shm.now_ns
 
@@ -61,14 +73,24 @@ class Frag(NamedTuple):
 
 
 class Metrics:
-    """Counters by name and declared histograms (stand in for the JAX
-    package's shm metrics; hist() returns its dict form)."""
+    """A stage's metrics over a declared schema (utils/metrics.py), in two
+    tiers: the per-frag path updates plain dicts (a numpy u64 store costs
+    ~20x a dict bump), and `flush()` stores them into the attached
+    MetricsRegistry.  Counter names outside the schema stay local;
+    `observe` needs a declared histogram (the schema's, or one added with
+    `histogram`).  The schema's native words (a C sweep client's) get no
+    local state and are never stored: read them off `registry`."""
 
-    def __init__(self):
+    def __init__(self, schema: fm.MetricsSchema | None = None):
+        self.schema = schema if schema is not None else fm.stage_schema()
         self.counters: Counter = Counter()
         self._hedges: dict[str, tuple] = {}
         self._hcounts: dict[str, list[int]] = {}
         self._hsums: dict[str, float] = {}
+        for d in self.schema.defs:
+            if d.kind == fm.HISTOGRAM and not d.native:
+                self._declare(d.name, d.buckets)
+        self.registry: fm.MetricsRegistry | None = None
 
     def inc(self, name: str, v: int = 1) -> None:
         self.counters[name] += v
@@ -82,12 +104,18 @@ class Metrics:
         for name, v in values.items():
             self.counters[name] = v
 
-    def histogram(self, name: str, buckets: tuple) -> None:
-        """Declare a histogram with these upper bucket edges (one overflow
-        bucket past the last)."""
+    def _declare(self, name: str, buckets: tuple) -> None:
         self._hedges[name] = tuple(buckets)
         self._hcounts[name] = [0] * (len(buckets) + 1)
         self._hsums[name] = 0.0
+
+    def histogram(self, name: str, buckets: tuple) -> None:
+        """Declare a histogram with these upper bucket edges (one overflow
+        bucket past the last); it joins the schema, so a registry attached
+        later lays it out."""
+        self._declare(name, buckets)
+        if self.registry is None and name not in self.schema.names():
+            self.schema.histogram(name, buckets)
 
     def observe(self, name: str, value: float) -> None:
         c = self._hcounts[name]
@@ -115,6 +143,29 @@ class Metrics:
             "count": sum(self._hcounts[name]),
         }
 
+    # -- the registry ---------------------------------------------------------
+
+    def attach(self, registry: fm.MetricsRegistry) -> None:
+        """Bind a registry laid out from this schema and store the local
+        state into it at once."""
+        self.registry = registry
+        self.flush()
+
+    def flush(self) -> None:
+        """Store the local counters and histograms into the attached
+        registry (no-op unattached); native words are left as C wrote them."""
+        reg = self.registry
+        if reg is None:
+            return
+        for name, (d, _off) in reg._off.items():
+            if d.native:
+                continue
+            if d.kind == fm.HISTOGRAM:
+                if name in self._hcounts:
+                    reg.store_hist(name, self._hcounts[name], self._hsums[name])
+            elif name in self.counters:
+                reg.store(name, self.counters[name])
+
 
 class Stage:
     # housekeeping cadence (iterations) and frags drained per iteration
@@ -126,12 +177,20 @@ class Stage:
     # per-frag path's counting rules for the rest.  None = the per-frag hooks.
     sweep_frags = None
 
+    # a stage-extra native histogram the plane binds to its extra slot (the
+    # bank's nbank_txn_lat_ns, written by its C side)
+    native_xlat_metric: str | None = None
+
     def __init__(self, name: str, ins: list | None = None,
                  outs: list | None = None):
         self.name = name
         self.ins = ins or []
         self.outs = outs or []
-        self.metrics = Metrics()
+        self.metrics = Metrics(type(self).metrics_schema())
+        # the flight ring the metrics plane's C side records sweeps into
+        self.recorder = fm.FlightRecorder(fm.FLIGHT_DEPTH)
+        # the plane, cached with the registry it was built on
+        self._nplane: tuple | None = None
         # stages that publish from after_frag set this so they never consume
         # a frag they could not forward
         self.require_credit = False
@@ -142,6 +201,35 @@ class Stage:
         self._drainer: tuple | None = None
         self._iter = 0
         self._in_rr = 0
+
+    # -- metrics ------------------------------------------------------------
+
+    @classmethod
+    def metrics_schema(cls) -> fm.MetricsSchema:
+        """The stage kind's layout: the shared stage-loop block and whatever
+        `extra_schema` adds."""
+        s = fm.stage_schema()
+        s.defs.extend(cls.extra_schema().defs)
+        return s
+
+    @classmethod
+    def extra_schema(cls) -> fm.MetricsSchema:
+        return fm.MetricsSchema()
+
+    def _native_plane(self):
+        """The stage's metrics plane (runtime/native_metrics.NativePlane),
+        built on the attached registry, or on a private one attached here
+        when there is none.  A plane that cannot be built raises."""
+        cached = self._nplane
+        if cached is not None and cached[0] is self.metrics.registry:
+            return cached[1]
+        from .native_metrics import NativePlane
+
+        if self.metrics.registry is None:
+            self.metrics.attach(fm.MetricsRegistry(self.metrics.schema))
+        plane = NativePlane(self.metrics.registry, self.recorder, xlat=self.native_xlat_metric)
+        self._nplane = (self.metrics.registry, plane)
+        return plane
 
     # -- hooks (override in subclasses) ------------------------------------
 
@@ -166,6 +254,7 @@ class Stage:
         for p in self.outs:
             p.refresh_credits()
         self.during_housekeeping()
+        self.metrics.flush()
 
     def _no_credit(self) -> bool:
         for p in self.outs:  # a loop, not any(): this runs thrice a sweep
@@ -244,7 +333,13 @@ class Stage:
         drainer = None
         if all(type(c) is NativeConsumer for c in self.ins):
             if client is not None:
-                drainer = SweepDrainer(self.ins, max(1, self.burst), client)
+                plane = self._native_plane()
+                drainer = SweepDrainer(self.ins, max(1, self.burst), client, plane)
+                set_metrics = getattr(client, "set_metrics", None)
+                if set_metrics is not None:
+                    # the client's own C side brackets its apply and publish
+                    # phases (and the bank its per-txn latency) into it too
+                    set_metrics(plane)
             else:
                 drainer = BurstDrainer(self.ins, max(1, self.burst))
         self._drainer = (list(self.ins), drainer, client)
@@ -259,6 +354,7 @@ class Stage:
             self.metrics.inc("overrun", d_ovr)
         if n:
             self.metrics.inc("frags_in", n)
+            self.metrics.inc("sweep_frags", n)
         return n > 0 or d_ovr > 0
 
     def _native_burst(self, drainer: BurstDrainer) -> bool:
@@ -301,9 +397,15 @@ class Stage:
 
     def drop_native_views(self) -> None:
         """Terminal: release the drain plan, whose struct pointers reach into
-        the inputs' mappings, so the links can close.  The stage must not
-        sweep again after this."""
+        the inputs' mappings, so the links can close, and the metrics
+        plane, whose pointer the sweep client's C side drops too.  The
+        stage must not sweep again after this; its registry stays
+        readable."""
         self._drainer = None
+        self._nplane = None
+        client = self._sweep_client
+        if client is not None and getattr(client, "_plane", None) is not None:
+            client.set_metrics(None)
 
     # -- helpers ------------------------------------------------------------
 

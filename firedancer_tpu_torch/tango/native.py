@@ -341,12 +341,16 @@ class SweepDrainer(BurstDrainer):
     """fdr_sweep: the drain and the stage client's C callback per frag in
     the same call.  `client` exposes `.cb` (the address of its callback)
     and `.cb_ctx` (its context pointer).  The meta table fills as
-    fdr_drain's; the metrics plane argument is null."""
+    fdr_drain's.  `plane` (runtime/native_metrics.NativePlane, kept alive
+    here) is the stage's metrics plane the sweep writes: crossings, frags,
+    the drain / callback / apply / publish phase histograms and the
+    in-crossing latency; None writes nothing."""
 
-    def __init__(self, consumers: list[NativeConsumer], max_frags: int, client):
+    def __init__(self, consumers: list[NativeConsumer], max_frags: int, client, plane=None):
         super().__init__(consumers, max_frags)
         self.client = client
-        self._cb = (client.cb, client.cb_ctx, None)
+        self.plane = plane
+        self._cb = (client.cb, client.cb_ctx, plane.ptr if plane is not None else None)
 
     def sweep(self, rr: int, max_frags: int) -> tuple[int, int, int]:
         """(frags processed, next rr, overrun events)."""

@@ -619,9 +619,10 @@ def _stepping_clock(slot0, step_ns=50_000):
     return cfg.build(now_fn=now)
 
 
-def test_clocked_program_leader_and_jax_replays_the_seal(small_stream):
+def test_clocked_program_leader_and_jax_replays_the_seal(small_stream, request):
     ps = small_stream
     ctx = program_bank_ctx(ps, device="cpu")
+    request.addfinalizer(ctx.close)
     pipe = build_leader_pipeline(ps.stream, device="cpu", n_bank=2, batch=32, max_msg_len=512,
                                  bank_ctx=ctx, slot=ps.slot, pack_depth=len(ps.stream),
                                  keep_entries=True, slot_clock=_stepping_clock(ps.slot))

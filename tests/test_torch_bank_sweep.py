@@ -267,8 +267,8 @@ def test_refresh_records_update_the_overlay():
     (n0, punt0, _), (n1, punt1, recs) = outs
     assert (n0, punt0) == (0, True)
     assert (n1, punt1) == (1, False)
-    status, fee, writes = recs[0]
-    assert (status, fee) == (0, 5000)
+    status, fee, n_ins, writes = recs[0]
+    assert (status, fee, n_ins) == (0, 5000, 1)
     w = dict(writes)
     assert trt.acct_lamports(w[0]) == 7_777_777 - 5000 - 1_000
     assert trt.acct_lamports(w[1]) == 1_000
@@ -346,9 +346,9 @@ def test_leader_pipeline_on_both_ring_lanes(no_segments_left):
     pool = gen_transfer_pool(48, n_dests=12)
     out = {}
     for native_ring in (True, False):
+        ctx = default_bank_ctx(device="cpu")
         pipe = build_leader_pipeline(pool, device="cpu", n_bank=2, batch=16, max_msg_len=256,
-                                     native_ring=native_ring,
-                                     bank_ctx=default_bank_ctx(device="cpu"))
+                                     native_ring=native_ring, bank_ctx=ctx)
         no_segments_left.append(pipe.rings.uid)
         try:
             for v in pipe.verifies:
@@ -364,6 +364,7 @@ def test_leader_pipeline_on_both_ring_lanes(no_segments_left):
             out[native_ring] = (entries, sealed, rep)
         finally:
             pipe.close()
+            ctx.close()
     (e_n, s_n, r_n), (e_p, s_p, r_p) = out[True], out[False]
     assert e_n == e_p and sum(len(t) for _, _, t in e_n) == 48
     assert s_n.bank_hash == s_p.bank_hash

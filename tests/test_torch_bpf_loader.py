@@ -539,10 +539,12 @@ def _stepping_clock(slot0, step_ns=50_000):
                             miss_grace_frac=0.25, t0_ns=0).build(now_fn=now)
 
 
-def test_clocked_sbpf_leader_and_jax_replays_the_seal(small_stream):
+def test_clocked_sbpf_leader_and_jax_replays_the_seal(small_stream, request):
     ss = small_stream
+    ctx = tw.sbpf_bank_ctx(ss, device="cpu")
+    request.addfinalizer(ctx.close)
     pipe = build_leader_pipeline(ss.stream, device="cpu", n_bank=2, batch=32, max_msg_len=512,
-                                 bank_ctx=tw.sbpf_bank_ctx(ss, device="cpu"), slot=ss.slot,
+                                 bank_ctx=ctx, slot=ss.slot,
                                  pack_depth=len(ss.stream), keep_entries=True,
                                  slot_clock=_stepping_clock(ss.slot))
     kbuild.reset_launches()

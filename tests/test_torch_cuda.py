@@ -780,6 +780,45 @@ def test_lthash_combine_kernel_leaves_its_scratch_zero(dev, n):
     assert torch.equal(first, flt.combine_plain(v, s))
 
 
+def test_seal_over_txn_diff_rows_on_k13_equals_plain(dev):
+    """The seal on the native shm store reads the slot's rows in one
+    txn_diff crossing and sums them on K13: the bank hash and the lattice
+    delta equal the dict store's _before walk on the card and the plain
+    version's on the CPU, one K13 launch a seal on the card."""
+    from firedancer_tpu_torch.flamenco.runtime import SlotExecution, acct_build
+    from firedancer_tpu_torch.funk import Funk, make_funk
+
+    rng = np.random.default_rng(24)
+    keys = [hashlib.sha256(b"acct%d" % i).digest() for i in range(600)]
+    writes = [(keys[int(rng.integers(600))],
+               None if rng.random() < 0.1 else acct_build(int(rng.integers(1, 10**9))))
+              for _ in range(1500)]
+    stores = [make_funk(), Funk(), make_funk()]
+    sealed = []
+    try:
+        for f, device in zip(stores, (dev, dev, "cpu")):
+            for k in keys[:500]:
+                f.rec_insert(None, k, acct_build(10**9))
+            sx = SlotExecution(f, slot=1, device=device)
+            for k, v in writes:
+                sx._before.setdefault(k, f.rec_query(sx.parent_xid, k))
+                if v is not None:
+                    f.rec_insert(sx.xid, k, v)
+                elif f.rec_query(sx.xid, k) is not None:
+                    f.rec_remove(sx.xid, k)
+            kbuild.reset_launches()
+            sealed.append((sx.seal(b"\x07" * 32), sx.seal_rows, dict(kbuild.LAUNCHES)))
+    finally:
+        for f in (stores[0], stores[2]):
+            f.close()
+    (a, rows_a, la), (b, rows_b, lb), (c, rows_c, lc) = sealed
+    assert a.bank_hash == b.bank_hash == c.bank_hash
+    assert np.array_equal(a.accounts_delta, b.accounts_delta)
+    assert np.array_equal(a.accounts_delta, c.accounts_delta)
+    assert rows_a == rows_b == rows_c > 800
+    assert la.get("lthash_combine") == lb.get("lthash_combine") == 1 and not lc
+
+
 def _msg_rows(msgs, max_len, dev):
     m = np.zeros((max_len, len(msgs)), dtype=np.uint8)
     for i, b in enumerate(msgs):

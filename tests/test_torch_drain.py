@@ -58,9 +58,11 @@ def _landed(pipe) -> int:
     return sum(b.metrics.get("txn_exec") for b in pipe.banks)
 
 
-def _pipe(ss, stream, native_pack, **kw):
+def _pipe(request, ss, stream, native_pack, **kw):
+    ctx = sbpf_bank_ctx(ss, device="cpu")
+    request.addfinalizer(ctx.close)
     return build_leader_pipeline(stream, device="cpu", batch=64, max_msg_len=256,
-                                 bank_ctx=sbpf_bank_ctx(ss, device="cpu"), slot=ss.slot,
+                                 bank_ctx=ctx, slot=ss.slot,
                                  pack_depth=len(ss.stream), native_pack=native_pack, **kw)
 
 
@@ -80,9 +82,9 @@ def _stuff_pack(pipe, payloads):
 
 
 @lanes
-def test_finish_raises_on_a_stream_one_block_cannot_hold(native_pack):
+def test_finish_raises_on_a_stream_one_block_cannot_hold(native_pack, request):
     ss = _uncapped(300)
-    pipe = _pipe(ss, ss.stream, native_pack)
+    pipe = _pipe(request, ss, ss.stream, native_pack)
     with pytest.raises(RuntimeError, match=r"pack holds \d+ txns that no block can take") as e:
         pipe.run()
     pending = pipe.pack.pack.pending_cnt()
@@ -95,7 +97,7 @@ def test_finish_raises_on_a_stream_one_block_cannot_hold(native_pack):
 
 
 @lanes
-def test_finish_raises_once_the_slot_window_has_closed(native_pack):
+def test_finish_raises_once_the_slot_window_has_closed(native_pack, request):
     ss = _uncapped(4 * PER_BLOCK)
     t = [0]
 
@@ -105,7 +107,7 @@ def test_finish_raises_once_the_slot_window_has_closed(native_pack):
 
     clock = SlotClockCfg(slot_ms=100.0, slot0=ss.slot, ticks_per_slot=4, n_slots=1,
                          t0_ns=0).build(now_fn=now)
-    pipe = _pipe(ss, ss.stream[:1], native_pack, slot_clock=clock)
+    pipe = _pipe(request, ss, ss.stream[:1], native_pack, slot_clock=clock)
     _stuff_pack(pipe, ss.stream[1:])
     with pytest.raises(RuntimeError, match="no further block in the leader window"):
         pipe.run()
@@ -116,9 +118,9 @@ def test_finish_raises_once_the_slot_window_has_closed(native_pack):
 
 
 @lanes
-def test_a_pool_that_fits_one_block_drains(native_pack):
+def test_a_pool_that_fits_one_block_drains(native_pack, request):
     ss = _uncapped(200)
-    pipe = _pipe(ss, ss.stream[:1], native_pack)
+    pipe = _pipe(request, ss, ss.stream[:1], native_pack)
     _stuff_pack(pipe, ss.stream[1:])
     pipe.run()
     assert pipe.pack.pack.pending_cnt() == 0

@@ -421,7 +421,7 @@ def test_stateless_entry_point_equals_the_session():
     assert session.run(entries) == stateless
     n_done, punted, recs = stateless
     assert (n_done, punted) == (3, False)
-    assert [(s, f) for s, f, _ in recs] == [(0, 5000), (0, 5000), (trt.TXN_ERR_INSUFFICIENT_FUNDS, 5000)]
+    assert [(s, f) for s, f, _n, _w in recs] == [(0, 5000), (0, 5000), (trt.TXN_ERR_INSUFFICIENT_FUNDS, 5000)]
 
 
 def test_session_close_is_idempotent():
@@ -465,9 +465,14 @@ def test_gate_reships_the_valid_set_only_after_a_change(monkeypatch):
 
 
 def test_bank_ctx_picks_the_lane():
-    assert BankCtx(device="cpu").sx.native_exec
-    assert not BankCtx(device="cpu", native_exec=False).sx.native_exec
-    assert not default_bank_ctx(device="cpu", native_exec=False).sx.native_exec
+    for make, native in ((lambda: BankCtx(device="cpu"), True),
+                         (lambda: BankCtx(device="cpu", native_exec=False), False),
+                         (lambda: default_bank_ctx(device="cpu", native_exec=False), False)):
+        ctx = make()
+        try:
+            assert ctx.sx.native_exec == native
+        finally:
+            ctx.close()
     # replay stays on the Python lane
     r = trt.execute_block(Funk(), slot=1, txns=[], device="cpu")
     assert r.signature_cnt == 0
@@ -476,10 +481,11 @@ def test_bank_ctx_picks_the_lane():
 # -- the leader pipeline on both lanes ---------------------------------------------------------
 
 
-def _leader(pool, native_exec: bool):
+def _leader(pool, native_exec: bool, request):
+    ctx = default_bank_ctx(device="cpu", native_exec=native_exec)
+    request.addfinalizer(ctx.close)
     pipe = build_leader_pipeline(pool, device="cpu", n_bank=2, batch=32, max_msg_len=256,
-                                 bank_ctx=default_bank_ctx(device="cpu",
-                                                           native_exec=native_exec))
+                                 bank_ctx=ctx)
     for v in pipe.verifies:
         v.batch_deadline_s = 3600.0  # batches close full or at the flush: one cadence
     pipe.run()
@@ -488,11 +494,11 @@ def _leader(pool, native_exec: bool):
     return pipe, sealed, entries
 
 
-def test_leader_pipeline_lands_the_same_block_on_both_lanes():
+def test_leader_pipeline_lands_the_same_block_on_both_lanes(request):
     pool = gen_transfer_pool(56, n_dests=16)
     pool = pool + pool[:4]  # resends: pack's fused dedup drops them
-    nat_pipe, nat, nat_entries = _leader(pool, True)
-    py_pipe, py, py_entries = _leader(pool, False)
+    nat_pipe, nat, nat_entries = _leader(pool, True, request)
+    py_pipe, py, py_entries = _leader(pool, False, request)
     assert nat_entries == py_entries and sum(len(t) for _, _, t in nat_entries) == 56
     assert nat.bank_hash == py.bank_hash
     assert (nat.signature_cnt, nat.fees) == (py.signature_cnt, py.fees) == (56, 56 * 5000)

@@ -106,7 +106,7 @@ def _host_libraries() -> set[str]:
 def test_host_libraries_build_from_the_ports_own_sources():
     names = _host_libraries()
     assert names == {"fd_pack", "fd_tcache", "fd_exec_native", "fd_txn_parse", "fd_ring",
-                     "fd_bank", "fd_shred", "fd_verify"}
+                     "fd_bank", "fd_shred", "fd_verify", "fd_funk"}
     native = os.path.join(PKG, "native")
     assert hostbuild.NATIVE_DIR == native
     # the sources and the one header the sweep clients include

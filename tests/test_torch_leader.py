@@ -96,6 +96,7 @@ def test_port_replay_agrees(leader):
     ctx = default_bank_ctx(slot=SLOT, device="cpu")
     r = trt.replay_block(ctx.funk, slot=SLOT, entries=entries, poh_seed=b"\x00" * 32,
                          status_cache=ctx.status_cache, device="cpu")
+    ctx.close()
     assert r.bank_hash == sealed.bank_hash
     assert np.array_equal(r.accounts_delta, sealed.accounts_delta)
     assert r.signature_cnt == sealed.signature_cnt
@@ -161,7 +162,8 @@ def vote_leader():
     assert sum(kbuild.LAUNCHES.values()) == 0
     entries = [parse_entry(e)
                for e in deshred_entry_batch(pipe.store.entry_batch_bytes(ctx.slot))]
-    return vs, pipe, sealed, entries
+    yield vs, pipe, sealed, entries
+    ctx.close()
 
 
 def test_vote_leader_jax_replay_reproduces_the_port_seal(vote_leader):
@@ -182,6 +184,7 @@ def test_vote_leader_jax_replay_reproduces_the_port_seal(vote_leader):
     t = trt.replay_block(ctx.funk, slot=slot, entries=entries, poh_seed=b"\x00" * 32,
                          status_cache=ctx.status_cache, slot_hashes=vs.slot_hashes,
                          device="cpu")
+    ctx.close()
     assert t.bank_hash == sealed.bank_hash
     # block order on both replays; the pipeline's own results in its banks' order
     assert [(r.status, r.fee) for r in t.results] == [(r.status, r.fee) for r in j.results]

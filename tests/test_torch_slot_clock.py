@@ -641,7 +641,7 @@ def test_pack_seeded_feed_equals_jax(seed):
     _both(case_pack_seeded_feed, seed)
 
 
-def test_bank_observes_window_bounded_boundaries_like_jax():
+def test_bank_observes_window_bounded_boundaries_like_jax(request):
     """The bank stage reads the clock once a sweep and counts the slot
     boundaries it crosses, bounded by the leader window."""
     from firedancer_tpu.runtime import bank as jbank
@@ -653,6 +653,8 @@ def test_bank_observes_window_bounded_boundaries_like_jax():
         t = [0]
         stage = mod.BankStage("bank0", ctx=mod.default_bank_ctx(**kw),
                               clock=vclock(p, t, n_slots=4, slot0=3))
+        if n == "port":
+            request.addfinalizer(stage.ctx.close)
         seen = []
         for ms in (0, 50, 99, 100, 120, 250, 399, 400, 420, 800, 1500, 10_000):
             t[0] = ms * MS
@@ -739,8 +741,9 @@ def _stepping_clock(step_ns: int, **kw):
     return cfg.build(now_fn=now)
 
 
-def _run_leader(stream, clock=None, **kw):
+def _run_leader(request, stream, clock=None, **kw):
     ctx = nonce_bank_ctx(N_DURABLE, device="cpu")
+    request.addfinalizer(ctx.close)
     pipe = build_leader_pipeline(stream, device="cpu", n_bank=2, batch=BATCH, max_msg_len=512,
                                  bank_ctx=ctx, pack_depth=len(stream), keep_entries=True,
                                  slot_clock=clock, **kw)
@@ -794,8 +797,8 @@ def stream():
 
 
 @pytest.fixture(scope="module")
-def free_run(stream):
-    _, sealed, entries, out = _run_leader(stream)
+def free_run(stream, request):
+    _, sealed, entries, out = _run_leader(request, stream)
     return sealed, entries, out
 
 
@@ -812,9 +815,9 @@ def _clocked_checks(pipe, out, free):
     assert out["rejected"] == free["rejected"] == 0
 
 
-def test_clocked_leader_zero_loss_and_jax_replays_the_seal(stream, free_run):
+def test_clocked_leader_zero_loss_and_jax_replays_the_seal(stream, free_run, request):
     _, _, free = free_run
-    pipe, sealed, entries, out = _run_leader(stream, _stepping_clock(50_000))
+    pipe, sealed, entries, out = _run_leader(request, stream, _stepping_clock(50_000))
     _clocked_checks(pipe, out, free)
     assert pipe.poh.window_closed
     # every durable txn advanced its nonce against the parent bank hash
@@ -823,9 +826,10 @@ def test_clocked_leader_zero_loss_and_jax_replays_the_seal(stream, free_run):
     _assert_replayed(sealed, entries)
 
 
-def test_clocked_leader_sheds_and_jax_replays_the_seal(stream):
+def test_clocked_leader_sheds_and_jax_replays_the_seal(stream, request):
     # a coarse step: each slot's final stretch meets a standing pool
-    pipe, sealed, entries, out = _run_leader(stream, _stepping_clock(2_500_000), shed_keep=6)
+    pipe, sealed, entries, out = _run_leader(request, stream, _stepping_clock(2_500_000),
+                                             shed_keep=6)
     assert out["shed"] > 0 and out["dropped"] == 0
     assert out["landed"] + out["shed"] == out["verified"] == len(stream)
     landed = {p_ for _, _, txs in entries for p_ in txs}
@@ -835,9 +839,10 @@ def test_clocked_leader_sheds_and_jax_replays_the_seal(stream):
     _assert_replayed(sealed, entries)
 
 
-def test_clocked_fused_leader_and_jax_replays_the_seal(stream, free_run):
+def test_clocked_fused_leader_and_jax_replays_the_seal(stream, free_run, request):
     _, _, free = free_run
-    pipe, sealed, entries, out = _run_leader(stream, _stepping_clock(50_000), fuse_poh_shred=True)
+    pipe, sealed, entries, out = _run_leader(request, stream, _stepping_clock(50_000),
+                                             fuse_poh_shred=True)
     assert pipe.shred is pipe.poh.shred_half
     assert not any(s.name == "shred" for s in pipe.stages)
     assert not any(link.name == "poh_shred" for link in pipe.links)
@@ -846,13 +851,14 @@ def test_clocked_fused_leader_and_jax_replays_the_seal(stream, free_run):
     _assert_replayed(sealed, entries)
 
 
-def test_clocked_build_freezes_the_heap_until_close(stream):
+def test_clocked_build_freezes_the_heap_until_close(stream, request):
     """A clocked build moves the heap into the permanent generation (so no
     collection inside the window scans it) and close() gives its share
     back; the last clocked pipeline out thaws the heap, and an unclocked
     build freezes nothing."""
     base = tleader._frozen
     ctx = nonce_bank_ctx(N_DURABLE, device="cpu")
+    request.addfinalizer(ctx.close)
 
     def build(clock):
         return build_leader_pipeline(stream, device="cpu", n_bank=2, batch=BATCH,

@@ -413,10 +413,12 @@ def test_zk_stream_is_seeded_and_full_mix_fits_one_block(port_proofs):
                for p in zs.stream) <= tcost.MAX_COST_PER_BLOCK
 
 
-def test_clocked_zk_leader_and_jax_replays_the_seal(port_proofs):
+def test_clocked_zk_leader_and_jax_replays_the_seal(port_proofs, request):
     zs = _small_stream(port_proofs)
+    ctx = tw.zk_bank_ctx(zs, device="cpu")
+    request.addfinalizer(ctx.close)
     pipe = build_leader_pipeline(zs.stream, device="cpu", n_bank=2, batch=32, max_msg_len=1232,
-                                 bank_ctx=tw.zk_bank_ctx(zs, device="cpu"), slot=zs.slot,
+                                 bank_ctx=ctx, slot=zs.slot,
                                  pack_depth=len(zs.stream), keep_entries=True,
                                  slot_clock=_stepping_clock(zs.slot))
     assert pipe.dedup is None  # the fused native pack lane
