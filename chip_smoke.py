@@ -394,6 +394,32 @@ script or when a phase fails):
               seal's seconds and rows, the replay's seconds, the launches of
               K1, K5 and K13; [zk-leader-split]: the host seconds per stage
               beside 17e (a)'s in the same call
+  17i. ingress leader  17e (a)'s clocked leader with udp_ingress=True: a
+              UdpIngressStage (the native recvmmsg sweep) where benchg was,
+              17e's 8,448 txns sent over loopback from one socket, at most
+              INGRESS_AHEAD datagrams past the stage's pkt_rx (SO_RCVBUF
+              INGRESS_RCVBUF asked: loopback drops silently past it, so the
+              sender is paced, never resending): pkt_rx = the datagrams
+              sent, oversize_drop 0, the socket closed and the links
+              unlinked by close(), and every check of 17e (a) (slots,
+              landed + shed, the store's bytes, replay, the durable nonces,
+              K1, K5, K13, [<tag>-lanes], [<tag>-gc]); when it and 17e (a)
+              both land all 8,448, equal signatures. [ingress-leader] and
+              -split (the net stage's host seconds under "net"),
+              [ingress-leader-vs]: beside 17e (a) in the same call
+  17j. net lanes  [net-lanes] on the card's host clock: 17e's packets over
+              loopback (paced as 17i) through one UdpIngressStage on the
+              native sweep, the explicit scalar recv (native_sweep(scalar=
+              True)) and native_net=False: payloads, order and sigs equal,
+              us a datagram each; then NET_QUIC_CLIENTS QuicTxnClients on
+              loopback sockets send NET_QUIC_TXNS of 17e's packets, one
+              stream a txn, to a QuicIngressStage on each lane (native
+              fast path, native_net=False): every txn whole and each
+              client's in order, the handshakes' ms, us a datagram, the
+              counters consumed, punt, aesni and pclmul; each lane's txns
+              through one VerifyStage on the card: K1 once a batch, the
+              mask equal to verify_batch_plain's; every stage, client
+              socket and link closed, no /dev/shm entry of the phase left
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -443,8 +469,10 @@ import hashlib
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -597,7 +625,7 @@ ZK_MIX = dict(n_legacy=6000, n_pubkey_validity=512, n_zero_ciphertext=512, n_fro
               n_context=64, n_range_u64=8, n_range_u128=4, n_range_u256=2, n_fail=64,
               n_dests=1024, n_zk_payers=64)
 HOST_LIBS = ("fd_tcache", "fd_pack", "fd_exec_native", "fd_txn_parse", "fd_ring",
-             "fd_bank", "fd_shred", "fd_verify", "fd_funk")  # utils/hostbuild.py's libraries, built in phase 2
+             "fd_bank", "fd_shred", "fd_verify", "fd_funk", "fd_net")  # utils/hostbuild.py's libraries, built in phase 2
 # phase 17e: the banks' sweep-lane counters summed over the banks, and the
 # [rings] link's depth (the 8,448 packets fit) and burst (a stage sweep's)
 BANK_SWEEP_KEYS = ("bank_txn_native", "bank_mb_native", "bank_mb_stashed", "bank_credit_waits",
@@ -610,6 +638,14 @@ RINGS_DEPTH, RINGS_BURST = 16384, 16
 # frags a publish or drain call of the lanes' harness moves
 SHRED_TARGET, LANES_DEPTH, LANES_BURST = 16384, 16384, 64
 HOST_ENTRY_CALLS = 200  # [shred-lanes]: K5's host entry timed over this many calls
+# phases 17i and 17j: the sender keeps at most INGRESS_AHEAD datagrams past
+# the net stage's pkt_rx and the stage's socket asks for an INGRESS_RCVBUF
+# receive buffer (loopback UDP drops silently past it, so the sender is
+# paced, never resending); [net-lanes]' QUIC lanes: NET_QUIC_CLIENTS clients
+# send NET_QUIC_TXNS of 17e's packets between them, one stream a txn
+INGRESS_AHEAD, INGRESS_RCVBUF = 128, 1 << 22
+NET_QUIC_CLIENTS, NET_QUIC_TXNS = 4, 2048
+NET_IDLE_CALLS = 2000  # [net-lanes]: receive calls timed on a dry socket after each lane
 PLAIN_LANES = 1024  # phases 4, 18-19: the lanes each kernel is held to its plain version on
 PARENT = None  # set from --parent
 OPS_API = "ops API (tests-only in the JAX package)"  # phases 4, 18-19: K3, K15-K18's path
@@ -1586,13 +1622,15 @@ def main() -> int:
     from firedancer_tpu_torch.runtime.bank import default_bank_ctx
     from firedancer_tpu_torch.funk import Funk
     from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_payers
+    from firedancer_tpu_torch.runtime.net import (QuicIngressStage, QuicTxnClient,
+                                                  UdpIngressStage, send_paced)
     from firedancer_tpu_torch.runtime.poh_stage import parse_entry
     from firedancer_tpu_torch.runtime.shred_native import ENCODE_FN, NativeShredder
     from firedancer_tpu_torch.runtime.shred_stage import ShredStage, deshred_entry_batch
     from firedancer_tpu_torch.runtime.shredder import EntryBatchMeta, Shredder
     from firedancer_tpu_torch.runtime.slot_clock import SlotClockCfg
     from firedancer_tpu_torch.runtime.store import StoreStage
-    from firedancer_tpu_torch.runtime.verify import VerifyStage, encode_verified
+    from firedancer_tpu_torch.runtime.verify import VerifyStage, decode_verified, encode_verified
     from firedancer_tpu_torch.tango import native as tnat
     from firedancer_tpu_torch.tango import shm as tshm
     from firedancer_tpu_torch.utils.metrics import hist_quantile as tune_quantile
@@ -3295,7 +3333,16 @@ def main() -> int:
     def drive_window(pipe, tag: str) -> tuple:
         """Drive a clocked pipeline until PoH closes its window and the
         stream is sent (under the wall cap), then finish: (run seconds,
-        seconds to the window's close, txns landed in the window)."""
+        seconds to the window's close, txns landed in the window).  A socket
+        front (udp_ingress) is fed stream17e over loopback from one socket,
+        at most INGRESS_AHEAD datagrams past its pkt_rx, and the stream is
+        sent once the stage has taken every datagram."""
+        tx_ = None
+        if pipe.ingress:
+            pipe.benchg.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, INGRESS_RCVBUF)
+            tx_ = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        until_ = len(stream17e) if pipe.ingress else None
+        sent_ = 0
         kbuild.reset_launches()
         # the cyclic GC's passes inside the window, (generation, seconds)
         # each: the clocked build froze the heap, so none should scan it
@@ -3313,27 +3360,39 @@ def main() -> int:
         window_s = None
         gc.callbacks.append(on_gc)
         try:
-            while not (pipe.poh.window_closed and b_._i >= b_.limit):
+            while not (pipe.poh.window_closed and pipe.front_done(until_)):
+                if tx_ is not None:
+                    sent_ = send_paced(tx_, b_, stream17e, sent_, INGRESS_AHEAD)
                 pipe._step(pipe.stages)
                 if in_window is None and pipe.poh.window_closed:
                     window_s = time.perf_counter() - t0
                     in_window = sum(b.metrics.get("txn_exec") for b in pipe.banks)
-                check(time.perf_counter() - t0 < CLOCK_WALL_S,
-                      f"{tag}: window closed {pipe.poh.window_closed}, {b_._i} of {b_.limit} sent"
-                      f" after {CLOCK_WALL_S} s")
+                if time.perf_counter() - t0 >= CLOCK_WALL_S:
+                    fed_ = (f"{b_.metrics.get('pkt_rx')} of {sent_} sent datagrams taken"
+                            if tx_ is not None else f"{b_._i} of {b_.limit} sent")
+                    check(False, f"{tag}: window closed {pipe.poh.window_closed}, {fed_}"
+                          f" after {CLOCK_WALL_S} s")
         finally:
             gc.callbacks.remove(on_gc)
+            if tx_ is not None:
+                tx_.close()
         frozen = gc.get_freeze_count()
         pipe.finish()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         pipe.close()
+        if tx_ is not None:
+            check(pipe.benchg.sock.fileno() == -1, f"{tag}: close() left the socket open")
+        gone = [l_.name for l_ in pipe.links if os.path.exists(f"/dev/shm/{l_.name}")]
+        check(not gone, f"{tag}: close() left /dev/shm entries {gone}")
         log(f"[{tag}-gc] collections in the window by generation"
             f" {[sum(g_ == k_ for g_, _ in gc_pauses) for k_ in range(3)]}, longest"
             f" {1e3 * max([d_ for _, d_ in gc_pauses] or [0.0]):.3f} ms, all"
             f" {1e3 * sum(d_ for _, d_ in gc_pauses):.3f} ms; {frozen} objects frozen by the"
             f" clocked build, {gc.get_freeze_count()} after close(); the build's full pass"
             f" before the anchor {1e3 * pipe.heap_hold.collect_s:.3f} ms")
+        if tx_ is not None:
+            check(sent_ == len(stream17e), f"{tag}: {sent_} of {len(stream17e)} datagrams sent")
         return run_s, window_s, in_window
 
     # [funk-lanes]' committed-state key set, the same on every lane: the
@@ -3349,11 +3408,15 @@ def main() -> int:
         the slot accounting, the launches, the replay and the banks' native
         funk plane; log [tag].  native_exec picks the bank's executor lane,
         funk the store (default the shm map; Funk() for the dict store);
-        with phases, the swept stages' metrics planes are read too."""
+        with phases, the swept stages' metrics planes are read too.
+        udp_ingress=True puts the socket front there: stream17e goes over
+        loopback (drive_window), and every datagram must be taken whole."""
         ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev, native_exec=native_exec, funk=funk)
-        pipe = build_leader_pipeline(stream17e, device=dev, batch=B1, max_msg_len=ML1, n_bank=2,
-                                     bank_ctx=ctx, keep_entries=True, pack_depth=len(stream17e),
-                                     slot_clock=clock17e, keep_sets=False, **kw)
+        ingress = kw.get("udp_ingress", False)
+        pipe = build_leader_pipeline([] if ingress else stream17e, device=dev, batch=B1,
+                                     max_msg_len=ML1, n_bank=2, bank_ctx=ctx, keep_entries=True,
+                                     pack_depth=len(stream17e), slot_clock=clock17e,
+                                     keep_sets=False, **kw)
         lanes = native_lanes(pipe)
         run_s, window_s, in_window = drive_window(pipe, tag)
         t0 = time.perf_counter()
@@ -3361,6 +3424,10 @@ def main() -> int:
         seal_s = time.perf_counter() - t0
         launches = dict(kbuild.LAUNCHES)
         rep = pipe.report()
+        if ingress:
+            net_m = rep["net"]
+            check(net_m.get("pkt_rx") == len(stream17e) and net_m.get("oversize_drop", 0) == 0,
+                  f"{tag}: the net stage took {net_m} of the {len(stream17e)} datagrams sent")
         poh_m, pack_m = pipe.poh.metrics, pipe.pack.metrics
         sealed_, missed_ = poh_m.get("slots_sealed"), poh_m.get("slot_missed")
         check(sealed_ + missed_ == CLOCK_SLOTS and sealed_ >= 1,
@@ -4133,6 +4200,279 @@ def main() -> int:
     log(f"[native-exec] 17h: native_exec {ne17h[0]}, native_punt {ne17h[1]} ({landed17h} landed)")
     pipe17h.bank_ctx.close()  # the ctx this phase built and passed in
     fund17h.close()
+
+    # -- 17i. the ingress leader: 17e (a) behind a UDP socket ---------------------------------
+    mark("17i")
+    # who sends it: wallets and RPC nodes forwarding txns to the leader's TPU
+    # port; here one loopback socket, paced INGRESS_AHEAD past the stage
+    r17i = clock_leader("ingress-leader", udp_ingress=True)
+    check(r17i["sealed"] >= 1, "ingress-leader: no slot sealed")
+    both17i = r17i["landed"] == r17e["landed"] == len(stream17e)
+    if both17i:
+        check(r17i["sigs"] == r17e["sigs"],
+              "ingress-leader: landed signatures differ from 17e (a)'s")
+    sp17i = r17i["split"]
+    sigs17i = ("equal to 17e (a)'s" if both17i else
+               f"not compared: a run landed fewer than {len(stream17e)}")
+    log(f"[ingress-leader-vs] 17e (a) in this call: {r17e['txn_s']:.0f} txn/s to the store,"
+        f" slots sealed {r17e['sealed']}, {r17e['in_window']} txns in the window; the ingress"
+        f" leader {r17i['txn_s']:.0f} txn/s, slots sealed {r17i['sealed']}, missed"
+        f" {r17i['missed']}, {r17i['in_window']} txns in the window; the net stage"
+        f" {sp17i.get('net', 0.0):.4f} s host over {r17i['sweeps']} sweeps"
+        f" ({1e6 * sp17i.get('net', 0.0) / r17i['sweeps']:.3f} us a sweep,"
+        f" {1e6 * sp17i.get('net', 0.0) / len(stream17e):.3f} us a datagram), 17e (a)'s benchg"
+        f" {r17e['split'].get('benchg', 0.0):.4f} s over {r17e['sweeps']} sweeps; verify0"
+        f" {sp17i.get('verify0', 0.0):.4f} s against {r17e['split'].get('verify0', 0.0):.4f} s;"
+        f" landed signatures {sigs17i}")
+
+    # -- 17j. [net-lanes]: the ingress stages alone on the card's host -------------------------
+    mark("17j")
+    made17j = []  # the name of every link this phase makes, for its leftover check
+
+    def lane_link(tag_: str, depth_: int, mtu_: int = 1232):
+        l_ = tshm.ShmLink.create(f"fdtpu_torch_{tag_}_{tshm.fresh_uid()}", depth=depth_,
+                                 mtu=mtu_)
+        made17j.append(l_.name)
+        return l_
+
+    # UDP: 17e's packets through one UdpIngressStage on each lane
+    udp_lanes = {}
+    for lane_ in ("native", "scalar", "python"):
+        link_ = lane_link("nl", LANES_DEPTH)
+        st_ = None
+        try:
+            st_ = UdpIngressStage("net", outs=[tshm.make_producer(link_)], rx_burst=64,
+                                  native_net=lane_ != "python")
+            st_.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, INGRESS_RCVBUF)
+            cons_ = tshm.make_consumer(link_, lazy=0)
+            dr_ = tnat.BurstDrainer([cons_], LANES_BURST)
+            tx_ = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            got_, sent_ = [], 0
+            calls_ = [0, 0.0, 0, 0.0]  # idle calls and their s, busy calls and their s
+            t0 = time.perf_counter()
+            try:
+                while st_.metrics.get("pkt_rx") < len(stream17e):
+                    sent_ = send_paced(tx_, st_, stream17e, sent_, INGRESS_AHEAD)
+                    rx0_ = st_.metrics.get("pkt_rx")
+                    t1 = time.perf_counter()
+                    if lane_ == "scalar":
+                        if st_.outs[0].cr_avail <= 0:
+                            st_.outs[0].refresh_credits()
+                        st_.native_sweep(scalar=True)
+                    else:
+                        st_.run_once()
+                    k_ = 2 if st_.metrics.get("pkt_rx") > rx0_ else 0
+                    calls_[k_] += 1
+                    calls_[k_ + 1] += time.perf_counter() - t1
+                    got_ += drain_all(dr_, meta=True)
+                    check(time.perf_counter() - t0 < 60, f"net-lanes: the {lane_} UDP lane stalled"
+                          f" at {st_.metrics.get('pkt_rx')} of {sent_}")
+            finally:
+                tx_.close()
+            got_ += drain_all(dr_, meta=True)
+            # the same receive call on the dry socket: what a sweep costs
+            # when no datagram is waiting
+            rx0_ = st_.metrics.get("pkt_rx")
+            t1 = time.perf_counter()
+            for _ in range(NET_IDLE_CALLS):
+                if lane_ == "scalar":
+                    st_.native_sweep(scalar=True)
+                else:
+                    st_.run_once()
+            calls_[0] += NET_IDLE_CALLS
+            calls_[1] += time.perf_counter() - t1
+            check(st_.metrics.get("pkt_rx") == rx0_, f"net-lanes: the {lane_} idle calls took data")
+            udp_lanes[lane_] = (got_, calls_, dict(st_.metrics.counters))
+            del cons_, dr_
+        finally:
+            if st_ is not None:
+                st_.close()
+                st_.outs = []
+            gc.collect()
+            link_.close()
+            link_.unlink()
+        check(st_.sock.fileno() == -1, f"net-lanes: the {lane_} stage's socket is open")
+    for lane_, (got_, _, cnt_) in udp_lanes.items():
+        check([p_ for p_, _, _ in got_] == stream17e
+              and [s_ for _, s_, _ in got_] == list(range(1, len(stream17e) + 1))
+              and cnt_.get("oversize_drop", 0) == 0,
+              f"net-lanes: the {lane_} UDP lane's payloads, order or sigs differ ({cnt_})")
+    log(f"[net-lanes] UDP: 17e's {len(stream17e)} packets over loopback from one socket (at most"
+        f" {INGRESS_AHEAD} ahead of pkt_rx, SO_RCVBUF asked {INGRESS_RCVBUF}) through one"
+        f" UdpIngressStage (rx_burst 64), payloads, order and sigs equal on the three lanes: "
+        + "; ".join(f"{lane_} {1e6 * c_[3] / len(stream17e):.3f} us a datagram over the"
+                    f" {c_[2]} calls that took datagrams, {1e6 * c_[1] / max(c_[0], 1):.3f} us an"
+                    f" idle call ({c_[0]}, the dry socket's {NET_IDLE_CALLS} included)"
+                    for lane_, (_, c_, _) in udp_lanes.items())
+        + " (host clock around the stage's receive calls; native:"
+        " fdn_udp_sweep's recvmmsg then one publish_burst_out; scalar:"
+        " NetClient.udp_sweep_scalar, one recv a datagram, by the explicit native_sweep(scalar="
+        "True); python: native_net=False, one recvfrom and one publish a datagram)")
+
+    # QUIC: NET_QUIC_CLIENTS clients on loopback sockets, one stream a txn, to a
+    # QuicIngressStage on each lane; then the txns through one VerifyStage (K1)
+    identity_ = hashlib.sha256(b"net-lanes-identity").digest()
+    quic_txns = stream17e[:NET_QUIC_TXNS]
+    per_ = NET_QUIC_TXNS // NET_QUIC_CLIENTS
+    by_client = [quic_txns[c_ * per_:(c_ + 1) * per_] for c_ in range(NET_QUIC_CLIENTS)]
+    quic_lanes = {}
+    for lane_ in ("native", "python"):
+        link_ = lane_link("nq", 2 * NET_QUIC_TXNS)
+        st_, clients_ = None, []
+        try:
+            st_ = QuicIngressStage("quic", outs=[tshm.make_producer(link_)], rx_burst=64,
+                                   identity_secret=identity_, native_net=lane_ == "native")
+            st_.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, INGRESS_RCVBUF)
+            cons_ = tshm.make_consumer(link_, lazy=0)
+            dr_ = tnat.BurstDrainer([cons_], LANES_BURST)
+            hs_ms = []
+            for _ in range(NET_QUIC_CLIENTS):
+                box_ = {}
+
+                def connect(box=box_):
+                    t1_ = time.perf_counter()
+                    box["c"] = QuicTxnClient(st_.addr, expected_peer=ref.public_key(identity_),
+                                             timeout_s=30.0)
+                    box["ms"] = 1e3 * (time.perf_counter() - t1_)
+
+                th_ = threading.Thread(target=connect)
+                th_.start()
+                t0 = time.perf_counter()
+                while th_.is_alive():
+                    st_.run_once()
+                    check(time.perf_counter() - t0 < 60, f"net-lanes: {lane_} handshake stalled")
+                th_.join()
+                check("c" in box_, f"net-lanes: a {lane_} client failed its handshake")
+                clients_.append(box_["c"])
+                hs_ms.append(box_["ms"])
+            got_, sent_ = [], 0
+            calls_ = [0, 0.0, 0, 0.0]  # idle calls and their s, busy calls and their s
+            pkt0 = st_.metrics.get("pkt_rx")
+            t0 = time.perf_counter()
+            while len(got_) < NET_QUIC_TXNS:
+                # round-robin over the clients, paced by the stage's txn_rx
+                while sent_ < NET_QUIC_TXNS and sent_ - st_.metrics.get("txn_rx") < INGRESS_AHEAD:
+                    c_ = sent_ % NET_QUIC_CLIENTS
+                    clients_[c_].send_txn(by_client[c_][sent_ // NET_QUIC_CLIENTS])
+                    sent_ += 1
+                rx0_ = st_.metrics.get("pkt_rx")
+                t1 = time.perf_counter()
+                st_.run_once()
+                k_ = 2 if st_.metrics.get("pkt_rx") > rx0_ else 0
+                calls_[k_] += 1
+                calls_[k_ + 1] += time.perf_counter() - t1
+                for c_ in clients_:
+                    c_.pump()
+                got_ += drain_all(dr_)
+                check(time.perf_counter() - t0 < 120, f"net-lanes: the {lane_} QUIC lane stalled"
+                      f" at {len(got_)} of {sent_} txns")
+            n_dg = st_.metrics.get("pkt_rx") - pkt0
+            t1 = time.perf_counter()
+            for _ in range(NET_IDLE_CALLS):
+                st_.run_once()
+            calls_[0] += NET_IDLE_CALLS
+            calls_[1] += time.perf_counter() - t1
+            quic_lanes[lane_] = dict(got=got_, calls=calls_, dgrams=n_dg, hs_ms=hs_ms,
+                                     net=st_.net_counters(), txn_rx=st_.metrics.get("txn_rx"))
+            del cons_, dr_
+        finally:
+            for c_ in clients_:
+                c_.close()
+            if st_ is not None:
+                st_.close()
+                st_.outs = []
+            gc.collect()
+            link_.close()
+            link_.unlink()
+        for c_ in clients_:
+            check(c_.sock.fileno() == -1, "net-lanes: a client's socket is open")
+    # every client's txns whole and in its own order, on each lane
+    for lane_, q_ in quic_lanes.items():
+        check(sorted(q_["got"]) == sorted(quic_txns) and q_["txn_rx"] == NET_QUIC_TXNS,
+              f"net-lanes: the {lane_} QUIC lane delivered {len(q_['got'])} txns,"
+              f" {len(set(q_['got']) & set(quic_txns))} of them sent")
+        pos_ = {p_: i_ for i_, p_ in enumerate(q_["got"])}
+        for c_, txns_ in enumerate(by_client):
+            check(sorted(txns_, key=pos_.get) == txns_,
+                  f"net-lanes: the {lane_} lane reordered client {c_}'s txns")
+    check(quic_lanes["native"]["net"]["consumed"] > 0 and not quic_lanes["python"]["net"],
+          f"net-lanes: native counters {quic_lanes['native']['net']}, python"
+          f" {quic_lanes['python']['net']}")
+    # the lane's txns through one VerifyStage on the card: K1 once a batch,
+    # and the mask (forwarded or not, in arrival order) equal to the plain
+    # version's over the same txns
+    for lane_, q_ in quic_lanes.items():
+        vl_in = lane_link("nv_i", LANES_DEPTH)
+        vl_out = lane_link("nv_o", LANES_DEPTH, 4096)
+        try:
+            prod_ = tshm.make_producer(vl_in)
+            cons_ = tshm.make_consumer(vl_out, lazy=0)
+            dr_ = tnat.BurstDrainer([cons_], LANES_BURST)
+            st_ = VerifyStage("verify", [tshm.make_consumer(vl_in, lazy=32)],
+                              [tshm.make_producer(vl_out)], device=dev, batch=B1,
+                              max_msg_len=ML1)
+            for i_, p_ in enumerate(q_["got"]):
+                check(prod_.try_publish(p_, sig=i_, tsorig=1 + i_), "net-lanes: verify publish")
+            out_ = []
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            while st_.ins[0].has_pending() or st_.busy():
+                st_.run_once()
+                out_ += drain_all(dr_)
+                if not st_.ins[0].has_pending():
+                    st_.flush()
+                check(time.perf_counter() - t0 < 60, f"net-lanes: {lane_} verify stalled")
+            st_.flush()
+            out_ += drain_all(dr_)
+            torch.cuda.synchronize()
+            q_["batches"], q_["k1"] = st_.metrics.get("batches"), kbuild.LAUNCHES["verify_batch"]
+            passed_ = {decode_verified(f_)[0] for f_ in out_}
+            q_["mask"] = [p_ in passed_ for p_ in q_["got"]]
+            st_.ins, st_.outs = [], []
+            st_.drop_native_views()
+            del prod_, cons_, st_, dr_
+            gc.collect()
+        finally:
+            for l_ in (vl_in, vl_out):
+                l_.close()
+                l_.unlink()
+        n_ = len(q_["got"])
+        mq_ = np.zeros((ML1, n_), np.uint8)
+        lq_ = np.zeros((n_,), np.int32)
+        sq_ = np.zeros((64, n_), np.uint8)
+        kq_ = np.zeros((32, n_), np.uint8)
+        for i_, p_ in enumerate(q_["got"]):
+            t_ = ft.txn_parse(p_)
+            m_ = t_.message(p_)
+            mq_[:len(m_), i_] = np.frombuffer(m_, np.uint8)
+            lq_[i_] = len(m_)
+            sq_[:, i_] = np.frombuffer(t_.signatures(p_)[0], np.uint8)
+            kq_[:, i_] = np.frombuffer(t_.signers(p_)[0], np.uint8)
+        pm_, _ = sv.verify_batch_plain(*[torch.from_numpy(a_).to(dev) for a_ in (mq_, lq_, sq_, kq_)],
+                                       n_, ML1)
+        check(q_["mask"] == pm_.cpu().tolist() and all(q_["mask"]),
+              f"net-lanes: the {lane_} lane's verify mask differs from the plain version's"
+              f" ({sum(q_['mask'])} passed)")
+        check(q_["k1"] == q_["batches"] > 0,
+              f"net-lanes: K1 launched {q_['k1']} for {q_['batches']} verify batches")
+    for lane_, q_ in quic_lanes.items():
+        nc_, cq_ = q_["net"], q_["calls"]
+        log(f"[net-lanes] QUIC {lane_} lane: {NET_QUIC_CLIENTS} QuicTxnClients on loopback sockets,"
+            f" {NET_QUIC_TXNS} of 17e's packets ({per_} a client, one unidirectional stream a txn)"
+            f" to one QuicIngressStage (native_net={lane_ == 'native'}): every txn whole, each"
+            f" client's in order; handshake ms {[round(h_, 3) for h_ in q_['hs_ms']]};"
+            f" {q_['dgrams']} datagrams after the handshakes,"
+            f" {1e6 * cq_[3] / max(q_['dgrams'], 1):.3f} us a datagram over the {cq_[2]}"
+            f" run_once calls that took datagrams, {1e6 * cq_[1] / max(cq_[0], 1):.3f} us an idle"
+            f" one ({cq_[0]}, the dry socket's {NET_IDLE_CALLS} included; each sweeps every"
+            f" connection's timers) (host clock around the stage's run_once); counters consumed"
+            f" {nc_.get('consumed', '-')}, punt {nc_.get('punt', '-')}, aesni"
+            f" {nc_.get('aesni', '-')}, pclmul {nc_.get('pclmul', '-')}; then one VerifyStage on"
+            f" the card (batch {B1}): {q_['batches']} batches, K1 {q_['k1']} launches, mask equal"
+            f" to the plain verify_batch_plain's ({sum(q_['mask'])} of {len(q_['mask'])} pass)")
+    leftover = [n_ for n_ in made17j if os.path.exists(f"/dev/shm/{n_}")]
+    check(len(made17j) == 9 and not leftover,
+          f"net-lanes: of its {len(made17j)} links, /dev/shm entries left {leftover}")
 
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")

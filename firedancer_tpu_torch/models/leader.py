@@ -22,6 +22,10 @@ rings its generic stages run the verify sweep client
 shred stage takes the leader's secret and runs the native shredder
 (runtime/shred_native.py, parity on K5) unless native_shred=False.
 
+build_leader_pipeline(udp_ingress=True) puts a real socket where benchg
+was (runtime/net.py UdpIngressStage, the native recvmmsg sweep): the
+caller sends the txns over UDP.
+
 `build_leader_pipeline` and `build_sharded_leader_pipeline` produce a
 block: pack schedules, the banks execute and commit into one shared bank
 (`BankCtx`), PoH mixes the entries in, the shredder cuts them into signed
@@ -61,6 +65,7 @@ from ..ops.ref import ed25519_ref as ref
 from ..runtime.bank import BankCtx, BankStage, default_bank_ctx
 from ..runtime.benchg import BenchGStage
 from ..runtime.dedup import DedupStage
+from ..runtime.net import UdpIngressStage
 from ..runtime.pack_stage import NativePackStage, PackStage
 from ..runtime.poh_stage import PohStage
 from ..runtime.shred_stage import FusedPohShredStage, ShredStage
@@ -326,7 +331,7 @@ def build_sharded_verify_pipeline(stream: list[bytes], *, n_shards: int = 1,
 class LeaderPipeline:
     stages: list
     rings: Rings
-    benchg: BenchGStage
+    benchg: BenchGStage | UdpIngressStage  # the front: a generator or a socket
     verifies: list
     dedup: DedupStage | None  # None on the fused native lane
     pack: PackStage
@@ -349,17 +354,37 @@ class LeaderPipeline:
     def links(self) -> list:
         return self.rings.links
 
-    def run(self, *, max_iters: int = 10_000_000, finish: bool = True) -> None:
-        """Cooperative round-robin until benchg has sent its stream (and,
-        with a slot clock whose leader window is bounded, until PoH closes
-        the window), then drain the whole pipe to the store.  finish=False
-        leaves the pipe hot."""
+    @property
+    def ingress(self) -> bool:
+        """True when a socket is the front (build_leader_pipeline(
+        udp_ingress=True)): the caller sends the datagrams."""
+        return isinstance(self.benchg, UdpIngressStage)
+
+    def front_done(self, until_rx: int | None = None) -> bool:
+        """Whether the front has fed everything: benchg has sent its stream,
+        or the socket front has taken `until_rx` datagrams."""
         b = self.benchg
+        if self.ingress:
+            if until_rx is None:
+                raise ValueError("a socket front needs until_rx: the caller decides what it sent")
+            return b.metrics.get("pkt_rx") >= until_rx
+        return b._i >= b.limit
+
+    def run(self, *, max_iters: int = 10_000_000, finish: bool = True) -> None:
+        """Cooperative round-robin until benchg has sent its stream and,
+        with a slot clock whose leader window is bounded, until PoH closes
+        the window; then drain the whole pipe to the store.  finish=False
+        leaves the pipe hot.  A socket front raises: its caller sends the
+        datagrams between sweeps (runtime/net.send_paced) and steps the
+        pipeline itself until front_done(N)."""
+        if self.ingress:
+            raise ValueError("a socket front is driven by its sender: step the pipeline"
+                             " (_step) between sends until front_done(N), then finish()")
         clock = getattr(self.poh, "_clock", None)
         windowed = clock is not None and clock.last_slot() is not None
         for _ in range(max_iters):
             self._step(self.stages)
-            if b._i >= b.limit and (not windowed or self.poh.window_closed):
+            if self.front_done() and (not windowed or self.poh.window_closed):
                 break
         if finish:
             self.finish()
@@ -387,10 +412,12 @@ class LeaderPipeline:
         """Drain: stop benchg -> flush verify until nothing is upstream of
         pack -> pack force-flush -> stop the poh clock (and, in the sharded
         form, verify the spans still parked on the plane) -> shred flush ->
-        sweep until quiescent.  Raises RuntimeError, naming the pending
-        count and the block's room left, once pack holds txns that no block
-        can take (PackStage.stranded)."""
-        self.benchg.limit = self.benchg._i  # stop generating
+        sweep until quiescent.  The drain's sweeps leave the front out, so
+        a socket front takes no further datagram.  Raises RuntimeError,
+        naming the pending count and the block's room left, once pack holds
+        txns that no block can take (PackStage.stranded)."""
+        if not self.ingress:
+            self.benchg.limit = self.benchg._i  # stop generating
         for _ in range(max_sweeps):
             for v in self.verifies:
                 self._timed(v.name, v.flush)
@@ -415,7 +442,7 @@ class LeaderPipeline:
             self._timed(b.name, b.flush)
 
     def _sweep(self, max_sweeps: int) -> None:
-        """Run non-generator stages until none makes frag progress and pack
+        """Run every stage but the front until none makes frag progress and pack
         holds nothing; raise once pack holds txns that no block can take
         (PackStage.stranded)."""
         stages = [s for s in self.stages if s is not self.benchg]
@@ -455,9 +482,12 @@ class LeaderPipeline:
         close its store (the shm map's segment).  A ctx the caller passed is
         the caller's to close (BankCtx.close), so it can outlive the
         pipeline: its state read after the run, or the ctx reused.  A
-        clocked pipeline thaws its share of the frozen heap first."""
+        clocked pipeline thaws its share of the frozen heap first.  A socket
+        front closes its socket and native client before the links."""
         if self.heap_hold is not None:
             self.heap_hold.release()
+        if self.ingress:
+            self.benchg.close()
         self.rings.close(self.stages)
         if self.owns_ctx:
             self.bank_ctx.close()
@@ -558,7 +588,7 @@ def _tail_stages(t: dict) -> list:
 
 
 def build_leader_pipeline(
-    stream: list[bytes],
+    stream: list[bytes] = (),
     *,
     n_verify: int = 1,
     n_bank: int = 2,
@@ -578,6 +608,7 @@ def build_leader_pipeline(
     native_pack: bool = True,
     native_ring: bool = True,
     native_shred: bool = True,
+    udp_ingress: bool = False,
 ) -> LeaderPipeline:
     """benchg -> verify xN -> pack -> bank xB -> poh -> shred -> store over
     `stream` (sent once, in order).  Every device stage runs on
@@ -613,9 +644,20 @@ def build_leader_pipeline(
     is sent and PoH has closed the leader window.  fuse_poh_shred=True puts
     the fused poh+shred stage where PoH and shred were: `poh` is the fused
     stage and `shred` its half.  A clocked build freezes the heap before
-    the anchor (HeapHold) and close() thaws it."""
+    the anchor (HeapHold) and close() thaws it.
+
+    udp_ingress=True puts a real localhost socket at the front instead of
+    benchg: a UdpIngressStage named "net" (rx_burst 64, the native recvmmsg
+    sweep, runtime/net.py) publishes each datagram into the verify link,
+    and `benchg` is that stage.  The caller sends the txns at
+    `pipe.benchg.addr` (`stream` stays empty) and decides when sending is
+    done: it steps the pipeline between sends (runtime/net.send_paced)
+    until front_done(N), run() raises, finish() takes no further datagram,
+    and close() closes the socket."""
     from ..parallel.router import ShardRouterStage
 
+    if udp_ingress and stream:
+        raise ValueError("udp_ingress=True: the caller sends the txns; pass no stream")
     # before the anchor, so its collection is not the first slot's
     heap_hold = HeapHold() if slot_clock is not None else None
     if isinstance(slot_clock, SlotClockCfg):
@@ -625,7 +667,10 @@ def build_leader_pipeline(
     dev = resolve_device(device)
     r = Rings(native_ring)
     gen_link = r.link("gv")
-    benchg = BenchGStage(stream, "benchg", [r.producer(gen_link)], limit=len(stream))
+    if udp_ingress:
+        benchg = UdpIngressStage("net", outs=[r.producer(gen_link)], rx_burst=64)
+    else:
+        benchg = BenchGStage(stream, "benchg", [r.producer(gen_link)], limit=len(stream))
     router = None
     verify_ins = [gen_link]
     if n_verify > 1:

@@ -1075,3 +1075,47 @@ def test_chacha20_keystream_kernel_equals_plain_and_host(dev, with_nonces):
         want = fcc.chacha20_block_host(bytes(keys[:, j]), int(idxs[j]), nonce)
         assert bytes(got[:, j].cpu().tolist()) == want
     assert kbuild.LAUNCHES["chacha20_keystream"] == 1
+
+
+def test_udp_ingress_leader_on_the_card(dev):
+    """build_leader_pipeline(udp_ingress=True) on the card at a small size:
+    the txns go over loopback into the net stage's native sweep; K1 once a
+    verify batch, K5 for the entry batches' parity, K13 once at the seal,
+    and the port's replay_block reproduces the seal."""
+    import socket
+
+    from firedancer_tpu_torch.flamenco.runtime import replay_block
+    from firedancer_tpu_torch.models.leader import build_leader_pipeline
+    from firedancer_tpu_torch.runtime.bank import default_bank_ctx
+    from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
+    from firedancer_tpu_torch.runtime.net import send_paced
+    from firedancer_tpu_torch.runtime.poh_stage import parse_entry
+    from firedancer_tpu_torch.runtime.shred_stage import deshred_entry_batch
+
+    pool = gen_transfer_pool(300, n_dests=32)
+    pipe = build_leader_pipeline(udp_ingress=True, device=dev, n_bank=2, batch=64,
+                                 max_msg_len=256)
+    net, sent = pipe.benchg, 0
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        while not pipe.front_done(len(pool)):
+            sent = send_paced(tx, net, pool, sent)
+            pipe._step(pipe.stages)
+        pipe.finish()
+        sealed = pipe.seal()
+        rep = pipe.report()
+        entries = [parse_entry(e) for e in deshred_entry_batch(pipe.store.entry_batch_bytes(1))]
+    finally:
+        tx.close()
+        pipe.close()
+    assert net.sock.fileno() == -1
+    assert rep["net"]["pkt_rx"] == len(pool)
+    assert sum(rep[f"bank{b}"].get("txn_exec", 0) for b in range(2)) == len(pool)
+    assert kbuild.LAUNCHES["verify_batch"] == rep["verify0"]["batches"] > 0
+    assert kbuild.LAUNCHES["gf256_apply"] >= rep["shred"]["entry_batches"] > 0
+    assert kbuild.LAUNCHES["lthash_combine"] == 1
+    ctx = default_bank_ctx(slot=1, device=dev)
+    r = replay_block(ctx.funk, slot=1, entries=entries, poh_seed=b"\x00" * 32,
+                     status_cache=ctx.status_cache, device=dev)
+    ctx.close()
+    assert r.bank_hash == sealed.bank_hash and r.signature_cnt == len(pool)

@@ -36,6 +36,7 @@ from firedancer_tpu_torch.ops import chacha20 as tcc
 from firedancer_tpu_torch.ops import gf256 as tg2
 from firedancer_tpu_torch.ops import keccak256 as tkk
 from firedancer_tpu_torch.ops import limbs as tl
+from firedancer_tpu_torch.ops import aes as taes
 from firedancer_tpu_torch.ops import lthash as tlt
 from firedancer_tpu_torch.ops import probe as tprobe
 from firedancer_tpu_torch.ops import reedsol as trs
@@ -46,6 +47,8 @@ from firedancer_tpu_torch.parallel.mesh import make_mesh
 from firedancer_tpu_torch.parallel.serve import ServeConfig, ServePlane
 from firedancer_tpu_torch.runtime import poh as tpoh
 from firedancer_tpu_torch.runtime.bank import BankCtx, default_bank_ctx
+from firedancer_tpu_torch.runtime import net as tnet
+from firedancer_tpu_torch.runtime import net_native as tnn
 from firedancer_tpu_torch.runtime import shred_native as tsn
 from firedancer_tpu_torch.runtime import verify_native as tvn
 from firedancer_tpu_torch.runtime.fec_resolver import FecResolver
@@ -106,7 +109,7 @@ def _host_libraries() -> set[str]:
 def test_host_libraries_build_from_the_ports_own_sources():
     names = _host_libraries()
     assert names == {"fd_pack", "fd_tcache", "fd_exec_native", "fd_txn_parse", "fd_ring",
-                     "fd_bank", "fd_shred", "fd_verify", "fd_funk"}
+                     "fd_bank", "fd_shred", "fd_verify", "fd_funk", "fd_net"}
     native = os.path.join(PKG, "native")
     assert hostbuild.NATIVE_DIR == native
     # the sources and the one header the sweep clients include
@@ -141,10 +144,11 @@ def test_no_switch_or_degrade_picks_a_python_lane():
 
 
 def test_native_lanes_have_no_switch_probe_or_degrade():
-    """The native shredder and the verify sweep client are picked by
-    arguments only: neither module reads the environment, nor keeps the JAX
-    package's available() probe or its NativeUnavailable degrade."""
-    for mod in (tsn, tvn):
+    """The native shredder, the verify sweep client, the net client, the
+    ingress stages and AES are picked by arguments only: no module reads
+    the environment, nor keeps the JAX package's available() probe or its
+    NativeUnavailable degrade."""
+    for mod in (tsn, tvn, tnn, tnet, taes):
         src = open(mod.__file__).read()
         names = {n.id for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Name)}
         names |= {n.attr for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Attribute)}
@@ -153,6 +157,22 @@ def test_native_lanes_have_no_switch_probe_or_degrade():
         assert not names & {"environ", "getenv", "available", "enabled", "NativeUnavailable",
                             "ENV_SWITCH"}, mod.__name__
         assert "FDTPU_" not in src, mod.__name__
+
+
+def test_native_sources_read_no_environment():
+    """No native source of the port calls getenv (the JAX package's
+    fd_net.cpp reads FDTPU_NATIVE_NET_NOSIMD), ops/aes.py has no getenv
+    and no lazy switch, and runtime/net*.py reads no os.environ."""
+    native = os.path.join(PKG, "native")
+    srcs = [os.path.join(native, f) for f in os.listdir(native)]
+    assert os.path.join(native, "fd_net.cpp") in srcs
+    for path in srcs + [taes.__file__]:
+        assert "getenv" not in open(path).read(), path
+    assert "_native()" not in open(taes.__file__).read()
+    for mod in (tnet, tnn, taes):
+        tree = ast.parse(open(mod.__file__).read())
+        attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        assert not attrs & {"environ", "getenv"}, mod.__name__
 
 
 def test_native_shredder_on_a_missing_card_raises_and_takes_no_cpu_lane(monkeypatch):
@@ -187,7 +207,8 @@ def _no_card():
     "bmtree_root_batch", "clock_leader_pipeline", "clock_fused_leader_pipeline",
     "python_pack_leader_pipeline", "python_pack_sharded_leader_pipeline", "zk_bank_ctx",
     "native_pack_leader_block", "python_exec_bank_ctx", "python_exec_default_bank_ctx",
-    "python_exec_nonce_bank_ctx", "native_shredder", "native_shred_stage"])
+    "python_exec_nonce_bank_ctx", "native_shredder", "native_shred_stage",
+    "udp_ingress_leader_pipeline"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -237,6 +258,7 @@ def test_entry_points_default_to_the_card(call):
         "python_exec_nonce_bank_ctx": lambda: tw.nonce_bank_ctx(1, native_exec=False),
         "native_shredder": lambda: tsn.NativeShredder(secret=h),
         "native_shred_stage": lambda: ShredStage("shred", signer=None, secret=h),
+        "udp_ingress_leader_pipeline": lambda: build_leader_pipeline(udp_ingress=True),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()

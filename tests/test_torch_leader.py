@@ -9,6 +9,8 @@ one-shard CPU plane (PoH tick spans parked on the plane, parity through
 encode_parity) seals the same state and replays to its own bank hash.
 No JAX sigverify compile: the port verifies with its plain versions."""
 
+import os
+import socket
 from collections import Counter
 
 import numpy as np
@@ -32,6 +34,7 @@ from firedancer_tpu_torch.models.workload import (
 from firedancer_tpu_torch.protocol import txn as ft
 from firedancer_tpu_torch.runtime.bank import default_bank_ctx
 from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool, pool_blockhash, pool_payers
+from firedancer_tpu_torch.runtime.net import send_paced
 from firedancer_tpu_torch.runtime.poh_stage import parse_entry
 from firedancer_tpu_torch.runtime.shred_stage import deshred_entry_batch
 from firedancer_tpu_torch.utils import kbuild
@@ -144,6 +147,79 @@ def test_round_robin_verify_and_comb_lane_replay(pool):
     assert sum(rep[f"bank{b}"].get("txn_exec", 0) for b in range(2)) == 64
     j = _jax_replay(entries)
     assert j.bank_hash == sealed.bank_hash and j.signature_cnt == 64
+
+
+# -- the leader block behind a UDP socket ---------------------------------------------------
+
+
+def drive_ingress(pipe, pool, ahead: int = 128) -> None:
+    """Send pool over loopback from one socket, at most `ahead` datagrams
+    past the net stage's pkt_rx (loopback UDP drops silently past the
+    receive buffer), sweeping the pipeline until every datagram is taken."""
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sent = 0
+    try:
+        while not pipe.front_done(len(pool)):
+            sent = send_paced(tx, pipe.benchg, pool, sent, ahead)
+            pipe._step(pipe.stages)
+    finally:
+        tx.close()
+
+
+@pytest.fixture(scope="module")
+def ingress_leader(pool):
+    pipe = build_leader_pipeline(udp_ingress=True, device="cpu", n_bank=2, batch=64,
+                                 max_msg_len=256, keep_entries=True)
+    kbuild.reset_launches()
+    drive_ingress(pipe, pool)
+    pipe.finish()
+    sealed = pipe.seal()
+    assert sum(kbuild.LAUNCHES.values()) == 0
+    entries = [parse_entry(e) for e in deshred_entry_batch(pipe.store.entry_batch_bytes(SLOT))]
+    rep = pipe.report()
+    net = pipe.benchg
+    shm_names = [link.name for link in pipe.links]
+    pipe.close()
+    return dict(sealed=sealed, entries=entries, rep=rep, net=net, shm_names=shm_names)
+
+
+def test_udp_ingress_leader_lands_the_in_process_signatures(leader, ingress_leader):
+    _, _, entries = leader
+    got = ingress_leader
+    assert got["rep"]["net"]["pkt_rx"] == N_TXNS and "oversize_drop" not in got["rep"]["net"]
+    sigs = lambda ents: sorted(ft.txn_parse(p).signatures(p)[0]  # noqa: E731
+                               for _, _, txs in ents for p in txs)
+    assert sigs(got["entries"]) == sigs(entries) and len(sigs(entries)) == N_TXNS - 20
+    assert sum(got["rep"][f"bank{b}"].get("txn_exec", 0) for b in range(2)) == N_TXNS - 20
+
+
+def test_udp_ingress_leader_seal_equals_replay(ingress_leader):
+    sealed, entries = ingress_leader["sealed"], ingress_leader["entries"]
+    j = _jax_replay(entries)
+    assert j.bank_hash == sealed.bank_hash and j.signature_cnt == N_TXNS - 20
+    ctx = default_bank_ctx(slot=SLOT, device="cpu")
+    r = trt.replay_block(ctx.funk, slot=SLOT, entries=entries, poh_seed=b"\x00" * 32,
+                         status_cache=ctx.status_cache, device="cpu")
+    ctx.close()
+    assert r.bank_hash == sealed.bank_hash
+    assert np.array_equal(r.accounts_delta, sealed.accounts_delta)
+
+
+def test_udp_ingress_leader_close_leaves_no_socket_or_shm(ingress_leader):
+    net = ingress_leader["net"]
+    assert net.sock.fileno() == -1 and net._net_client is None
+    names = ingress_leader["shm_names"]
+    assert names and not [n for n in names if os.path.exists(os.path.join("/dev/shm", n.lstrip("/")))]
+    with pytest.raises(ValueError, match="no stream"):
+        build_leader_pipeline([b"x"], udp_ingress=True, device="cpu")
+    pipe = build_leader_pipeline(udp_ingress=True, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="front_done"):
+            pipe.run(max_iters=1)
+        with pytest.raises(ValueError, match="until_rx"):
+            pipe.front_done()
+    finally:
+        pipe.close()
 
 
 # -- the leader block over the vote stream ------------------------------------------------
