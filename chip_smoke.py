@@ -249,12 +249,15 @@ script or when a phase fails):
               (native_pack=False: the dedup stage and PackStage), (e) as
               (a) on the Python executor lane (native_exec=False), (f) as
               (a) on the Python shm rings (native_ring=False: no drain
-              plan and no bank sweep lane), each with keep_sets=False: on
+              plan and no bank sweep lane), (g) as (a) on the dict store;
+              (d)-(g) over the first quarter of the stream (2,112 txns)
+              and 4 slots, with every check; each with keep_sets=False: on
               the native rings the shred stage runs the native shredder's
               sweep client and verify its sweep client, on (f) the
               shredder's batch mode and the Python verify intake.
-              Each: sealed + missed = 16 with one sealed at least, ticks +
-              skipped ticks = 64 x 16, 1 <= blocks_closed <= 16, landed +
+              Each: sealed + missed = its slots (16, or 4 on (d)-(g)) with
+              one sealed at least, ticks + skipped ticks = 64 x its slots,
+              1 <= blocks_closed <= its slots, landed +
               shed = the verified txns and none dropped, the deshredded
               store bytes equal PoH's entries, replay_block reproduces the
               seal and its statuses, every landed durable txn ok and every
@@ -270,8 +273,9 @@ script or when a phase fails):
               frozen after close(), and the ms of the build's full pass
               before the clock's anchor (what one inside the window would
               cost); (a), (b) and (d) shed nothing
-              and land all 256 durable txns, (b), (d) and (e) land (a)'s
-              signatures, (c) sheds; (a) and (e) seal all 16 slots, (a)'s
+              and land every durable txn they were sent, (b) lands (a)'s
+              signatures and (d)-(f) (a)'s of their quarter, (c) sheds; (a)
+              and (e) seal all their slots, (a)'s
               native_exec > 0 and (e)'s 0. A missed slot is a measured value, not
               a failure. [clock-leader], [clock-leader-fused],
               [clock-leader-shed], [clock-leader-python-pack]: slots sealed
@@ -300,10 +304,11 @@ script or when a phase fails):
               [funk-lanes]: 17e (a) on the shm record map (every leader
               phase's store; each -split line checks bank_funk_falls 0 and
               bank_funk_writes > 0 where the bank sweep runs) beside (g) on
-              the dict store (BankCtx(funk=Funk())): 16 of 16 sealed on
-              both, and when both land all 8,448 txns equal txn_exec and
-              committed state over the pool's payers and destinations and
-              the nonce accounts; each lane's bank, drain and seal seconds,
+              the dict store (BankCtx(funk=Funk())): every slot sealed on
+              both, and when (g) and (d) (the shm store, the same quarter)
+              both land their quarter, equal txn_exec and committed state
+              over the pool's payers and destinations and the nonce
+              accounts; each lane's bank, drain and seal seconds,
               the seal's read-out (txn_diff / the _before walk) and
               arena_used; [sweep-phases]: 17e (a)'s verify0, bank0, bank1
               and shred metrics planes: crossings, frags (equal to the
@@ -420,6 +425,38 @@ script or when a phase fails):
               through one VerifyStage on the card: K1 once a batch, the
               mask equal to verify_batch_plain's; every stage, client
               socket and link closed, no /dev/shm entry of the phase left
+  17k. leader processes  (a) the leader in process (build_leader_pipeline
+              with one bank) and then as a process topology
+              (models/leader_topo.build_leader_topology: one spawned child a
+              stage, each launching kernel opening its own CUDA context,
+              every kernel and host library built in this process first),
+              both over phase 17's pool at batch 1,024, max_msg_len 1,232,
+              under 17e's clock geometry (the topology's anchor
+              TOPO_BOOT_GRACE_S past its build, benchg sending from the
+              anchor): supervised until PoH's shm registry has resolved the
+              16 slots and bank0 has executed the pool, with a ShredTap
+              reading the wire shreds here without credit (an overrun
+              fails); every child alive and RUN until the halt, exit 0 after
+              it, no /dev/shm entry left; sealed + missed = 16 with one
+              sealed at least; bank0's txn_exec = verify0's txn_verified =
+              the pool, none rejected, none dropped by pack; verify0's
+              batches = its sealed C slots (one K1 launch each), FEC sets >
+              0 (one K5 launch each), both in the children's registries;
+              the tap's entries hold every executed txn, their signatures
+              the in-process run's, and replay_block over them (a fresh
+              default_bank_ctx) lands as many with as many failed as bank0;
+              [leader-processes]: each child's boot seconds (spawn to its
+              loop) and the slowest, slots sealed and missed, the seal lag's
+              p50 and p99, txns landed (in the window), txn/s from the
+              anchor to the last landing beside the in-process run's,
+              launches; [leader-processes-split]: each child's CPU seconds
+              from the anchor (its idle sweeps included), in its boot and
+              idle before the anchor, its sweeps and heartbeat age, and its
+              busy seconds (sweeps that consumed or published, in the
+              counters line) beside the in-process host seconds;
+              (b) python -m firedancer_tpu_torch run --processes --sandbox
+              --txns TOPO_CLI_TXNS as a subprocess: every child jailed with
+              its CUDA context live, exit 0 with the monitor table
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -474,6 +511,7 @@ import subprocess
 import sys
 import threading
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -602,6 +640,12 @@ LEADER_TXNS, LEADER_DESTS = 8192, 1024
 # (c), and a wall cap on driving the window
 CLOCK_DURABLE, CLOCK_EVERY, CLOCK_SHED_KEEP, CLOCK_WALL_S = 256, 32, 256, 60.0
 CLOCK_SLOTS, CLOCK_TICKS, CLOCK_SLOT_MS, CLOCK_GRACE = 16, 64, 400.0, 0.25
+# phase 17k: the clock's anchor sits this far past the topology's build, so
+# every child has booted (imported torch, opened its CUDA context, loaded
+# its libraries) before slot 1: 1.7-2.0x the slowest boot 17k printed
+# with every child spawned at once (9.7-11.8 s; [leader-processes-boot],
+# PERF.md section 5); and the CLI run's txns
+TOPO_BOOT_GRACE_S, TOPO_CLI_TXNS = 20.0, 1024
 # phase 17f: the program leader's stream (models/workload.program_stream):
 # v0 transfers through 16 lookup tables of 64 addresses (phase 17's 1,024
 # destinations), phase 17's legacy transfers, stake txns over 128 accounts,
@@ -760,6 +804,161 @@ def drain_all(drainer, meta: bool = False) -> list:
         buf = drainer.arena[: rows[-1][2] + rows[-1][3]].tobytes()
         out += [(buf[r[2]:r[2] + r[3]], r[1], r[5]) if meta else buf[r[2]:r[2] + r[3]]
                 for r in rows]
+
+
+def leader_in_process(pool: list, dev, clock_cfg, batch: int, max_msg_len: int) -> dict:
+    """17k's in-process side: build_leader_pipeline with one bank over the
+    pool under the clock, driven until PoH closes the window and the pool
+    is sent (under CLOCK_WALL_S), drained and sealed.  Landed signatures,
+    txns in the window, run seconds (from the clock's anchor at the build),
+    the seconds to the last landing and txn/s over them, and each stage's
+    host seconds over the loop's sweeps: all of them, and those that
+    consumed or published (what a child's busy_ns counts in Stage.run)."""
+    from firedancer_tpu_torch.models.leader import build_leader_pipeline
+    from firedancer_tpu_torch.protocol import txn as ft
+    from firedancer_tpu_torch.runtime.bank import default_bank_ctx
+
+    ctx = default_bank_ctx(device=dev)
+    pipe = build_leader_pipeline(pool, device=dev, batch=batch, max_msg_len=max_msg_len,
+                                 n_bank=1, bank_ctx=ctx, keep_entries=True,
+                                 pack_depth=len(pool), slot_clock=clock_cfg, keep_sets=False)
+    t0 = time.perf_counter()
+    in_window = all_s = None
+    bank = pipe.banks[0].metrics
+    pc = time.perf_counter
+    sweep_s = {s_.name: 0.0 for s_ in pipe.stages}
+    busy_s = dict(sweep_s)
+    try:
+        while not (pipe.poh.window_closed and pipe.front_done()):
+            for s_ in pipe.stages:
+                m_ = s_.metrics.counters
+                out0, t1 = m_["frags_out"], pc()
+                moved = s_.run_once() or m_["frags_out"] != out0
+                dt = pc() - t1
+                sweep_s[s_.name] += dt
+                if moved:
+                    busy_s[s_.name] += dt
+            if in_window is None and pipe.poh.window_closed:
+                in_window = bank.get("txn_exec")
+            if all_s is None and bank.get("txn_exec") >= len(pool):
+                all_s = time.perf_counter() - t0
+            check(time.perf_counter() - t0 < CLOCK_WALL_S,
+                  f"17k in-process: window closed {pipe.poh.window_closed} after {CLOCK_WALL_S} s")
+        pipe.finish()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        all_s = run_s if all_s is None else all_s
+        seal = pipe.seal()
+        landed = pipe.banks[0].metrics.get("txn_exec")
+        poh_m = pipe.poh.metrics
+        sigs = sorted(ft.txn_parse(p_).signatures(p_)[0]
+                      for _, _, txs in pipe.poh.entries for p_ in txs)
+        return dict(landed=landed, in_window=in_window, run_s=run_s, all_s=all_s,
+                    txn_s=landed / all_s,
+                    sigs=sigs, sealed=poh_m.get("slots_sealed"), missed=poh_m.get("slot_missed"),
+                    bank_hash=seal.bank_hash, sweep_s=sweep_s, busy_s=busy_s)
+    finally:
+        pipe.close()
+        ctx.close()
+
+
+def leader_as_processes(pool: list, dev, clock_cfg, batch: int, max_msg_len: int,
+                        boot_grace_s: float, sandbox: dict | None = None) -> dict:
+    """17k (a): models/leader_topo.build_leader_topology over the pool, one
+    spawned process a stage, supervised until PoH's registry resolves the
+    window and bank0 has executed the pool; a ShredTap in this process reads
+    the wire shreds without credit.  Each child's boot seconds, the
+    per-stage snapshot (taken before the halt), the registries' counters,
+    the tap's entries, and the times: from the clock's anchor to the
+    window's end and to the last landing."""
+    from firedancer_tpu_torch.models import leader_topo as lt
+    from firedancer_tpu_torch.runtime import topo as ftopo
+
+    n = len(pool)
+    topo = lt.build_leader_topology(n_txns=n, pool_size=n, pool=pool, batch=batch,
+                                    max_msg_len=max_msg_len, slot_clock=clock_cfg,
+                                    boot_grace_s=boot_grace_s, pack_depth=n, sandbox=sandbox,
+                                    device="cpu" if dev.type == "cpu" else None)
+    t_launch = time.monotonic_ns()
+    h = ftopo.launch(topo)
+    launch_s = (time.monotonic_ns() - t_launch) / 1e9
+    anchor_ns = h.anchor_ns
+    names = h.shm_names()
+    tap = lt.ShredTap(h.links["ss"])
+    window_done = lt.leader_window_done(clock_cfg.n_slots)
+    marks = {}
+    boot_cpu = {}  # each child's CPU seconds once every child runs: its boot's
+    anchor_cpu = {}  # and at the clock's anchor, the window's start
+
+    def on_poll(hh) -> None:
+        """Every supervisor pass (20 ms): the tap, each child's boot CPU
+        seconds once all run, and the first pass that sees the window
+        resolved and the one that sees the pool landed."""
+        tap.poll()
+        if not boot_cpu and all(c_.signal == 1 for c_ in hh.cncs.values()):
+            boot_cpu.update({r_["stage"]: r_["cpu_s"] for r_ in hh.snapshot()})
+        if not anchor_cpu and time.monotonic_ns() >= anchor_ns:
+            anchor_cpu.update({r_["stage"]: r_["cpu_s"] for r_ in hh.snapshot()})
+        landed = hh.met_views["bank0"][0].get("txn_exec")
+        if "window_ns" not in marks and window_done(hh):
+            marks["window_ns"], marks["in_window"] = time.monotonic_ns(), landed
+        if "landed_ns" not in marks and landed >= n:
+            marks["landed_ns"] = time.monotonic_ns()
+
+    def until(hh) -> bool:
+        return "window_ns" in marks and "landed_ns" in marks
+
+    try:
+        ok = h.supervise(until=until, on_poll=on_poll,
+                         timeout_s=boot_grace_s + clock_cfg.n_slots * clock_cfg.slot_ms / 1e3
+                         + 120.0, heartbeat_timeout_s=10.0,
+                         boot_timeout_s=max(120.0, 2 * boot_grace_s))
+        snap = {r_["stage"]: r_ for r_ in h.snapshot()}
+        monitor = h.format_monitor()
+        check(ok, f"17k: stage {h.failed} failed:\n{monitor}")
+        # the shred stage's idle flush closes the last entry batch; read the
+        # tap until its entries hold every landed txn (or 10 s)
+        t0 = time.monotonic()
+        ents = []
+        while time.monotonic() - t0 < 10.0:
+            tap.poll()
+            ents = tap.entries()
+            if sum(len(parse_entry_frame(e_)[2]) for e_ in ents) >= n:
+                break
+            time.sleep(0.05)
+        regs = {nm: v_[0] for nm, v_ in h.met_views.items()}
+        counters = {nm: {k: reg.get(k) for k in (
+            "frags_in", "frags_out", "txn_gen", "txn_verified", "verify_fail", "batches",
+            "sealed_batches", "txn_in", "txn_dropped", "dedup_dup", "microblocks", "txn_exec",
+            "txn_exec_failed", "txn_rejected", "native_exec", "native_punt", "ticks", "mixins", "slots_sealed",
+            "slot_missed", "slot_skipped_ticks", "entry_batches", "fec_sets", "shreds_in",
+            "sets_stored", "bank_txn_native", "busy_ns", "k1_launches", "k5_launches")
+            if k in reg._off}
+            for nm, reg in regs.items()}
+        lag = regs["poh"].hist("slot_seal_lag_ns")
+        alive = {nm: p_.is_alive() for nm, p_ in h.procs.items()}
+        signals = {nm: c_.signal for nm, c_ in h.cncs.items()}
+        overruns = tap.overruns
+        h.halt()
+        exitcodes = {nm: p_.exitcode for nm, p_ in h.procs.items()}
+    finally:
+        tap.close()
+        h.close()
+    left = [nm for nm in names if os.path.exists(f"/dev/shm/{nm}")]
+    return dict(snap=snap, monitor=monitor, counters=counters, lag=lag, alive=alive,
+                boot_cpu=boot_cpu, anchor_cpu=anchor_cpu,
+                signals=signals, exitcodes=exitcodes, entries=ents, overruns=overruns,
+                left=left, launch_s=launch_s, anchor_ns=anchor_ns,
+                anchor_s=(anchor_ns - t_launch) / 1e9,
+                window_s=(marks["window_ns"] - anchor_ns) / 1e9,
+                landed_s=(marks["landed_ns"] - anchor_ns) / 1e9, in_window=marks["in_window"])
+
+
+def parse_entry_frame(frame: bytes) -> tuple:
+    from firedancer_tpu_torch.runtime.poh_stage import parse_entry
+
+    return parse_entry(frame)
 
 
 def check(cond, what: str) -> None:
@@ -3402,7 +3601,7 @@ def main() -> int:
                      | {a_ for _, _, a_, _ in nkeys17e} | {pub for _, pub, _, _ in nkeys17e})
 
     def clock_leader(tag: str, native_exec: bool = True, funk=None, phases: bool = False,
-                     **kw) -> dict:
+                     quarter: bool = False, **kw) -> dict:
         """One clocked leader run over stream17e: drive the window (and the
         rest of the stream) under the wall cap, drain, seal, replay; check
         the slot accounting, the launches, the replay and the banks' native
@@ -3410,12 +3609,17 @@ def main() -> int:
         funk the store (default the shm map; Funk() for the dict store);
         with phases, the swept stages' metrics planes are read too.
         udp_ingress=True puts the socket front there: stream17e goes over
-        loopback (drive_window), and every datagram must be taken whole."""
+        loopback (drive_window), and every datagram must be taken whole.
+        quarter: the first quarter of stream17e over a quarter of the window
+        (CLOCK_SLOTS // 4 slots), every check the same."""
+        stream_ = stream17e[:len(stream17e) // 4] if quarter else stream17e
+        slots = CLOCK_SLOTS // 4 if quarter else CLOCK_SLOTS
         ctx = nonce_bank_ctx(CLOCK_DURABLE, device=dev, native_exec=native_exec, funk=funk)
         ingress = kw.get("udp_ingress", False)
-        pipe = build_leader_pipeline([] if ingress else stream17e, device=dev, batch=B1,
+        pipe = build_leader_pipeline([] if ingress else stream_, device=dev, batch=B1,
                                      max_msg_len=ML1, n_bank=2, bank_ctx=ctx, keep_entries=True,
-                                     pack_depth=len(stream17e), slot_clock=clock17e,
+                                     pack_depth=len(stream_),
+                                     slot_clock=replace(clock17e, n_slots=slots),
                                      keep_sets=False, **kw)
         lanes = native_lanes(pipe)
         run_s, window_s, in_window = drive_window(pipe, tag)
@@ -3430,17 +3634,17 @@ def main() -> int:
                   f"{tag}: the net stage took {net_m} of the {len(stream17e)} datagrams sent")
         poh_m, pack_m = pipe.poh.metrics, pipe.pack.metrics
         sealed_, missed_ = poh_m.get("slots_sealed"), poh_m.get("slot_missed")
-        check(sealed_ + missed_ == CLOCK_SLOTS and sealed_ >= 1,
-              f"{tag}: {sealed_} slots sealed + {missed_} missed != {CLOCK_SLOTS}")
-        check(poh_m.get("ticks") + poh_m.get("slot_skipped_ticks") == CLOCK_TICKS * CLOCK_SLOTS,
+        check(sealed_ + missed_ == slots and sealed_ >= 1,
+              f"{tag}: {sealed_} slots sealed + {missed_} missed != {slots}")
+        check(poh_m.get("ticks") + poh_m.get("slot_skipped_ticks") == CLOCK_TICKS * slots,
               f"{tag}: ticks {poh_m.get('ticks')} + skipped {poh_m.get('slot_skipped_ticks')}")
         closed = pack_m.get("blocks_closed")
-        check(1 <= closed <= CLOCK_SLOTS, f"{tag}: blocks_closed {closed}")
+        check(1 <= closed <= slots, f"{tag}: blocks_closed {closed}")
         landed = sum(b.metrics.get("txn_exec") for b in pipe.banks)
         verified = pipe.dedup_counts()[0]
         shed = pack_m.get("txn_shed")
-        check(pack_m.get("txn_dropped") == 0 and landed + shed == verified == len(stream17e),
-              f"{tag}: landed {landed} + shed {shed} != verified {verified} of {len(stream17e)},"
+        check(pack_m.get("txn_dropped") == 0 and landed + shed == verified == len(stream_),
+              f"{tag}: landed {landed} + shed {shed} != verified {verified} of {len(stream_)},"
               f" dropped {pack_m.get('txn_dropped')}")
         ents = [parse_entry(x) for x in deshred_entry_batch(pipe.store.entry_batch_bytes(1))]
         check(ents == [(n_, bytes(h_), list(t_)) for n_, h_, t_ in pipe.poh.entries],
@@ -3489,22 +3693,25 @@ def main() -> int:
         lag = poh_m.hist("slot_seal_lag_ns")
         lag50, lag99 = (tune_quantile(lag, q) / 1e6 for q in (0.5, 0.99))
         split = dict(pipe.stage_s)
-        log(f"[{tag}] {len(stream17e)} txns ({LEADER_TXNS} transfers, {CLOCK_DURABLE} durable)"
-            f" at batch {B1}, 2 banks, {CLOCK_SLOTS} slots of {CLOCK_SLOT_MS:.0f} ms,"
+        durable_sent = sum(p_ in durable_set17e for p_ in stream_)
+        log(f"[{tag}] {len(stream_)} txns ({len(stream_) - durable_sent} transfers,"
+            f" {durable_sent} durable) at batch {B1}, 2 banks, {slots} slots of"
+            f" {CLOCK_SLOT_MS:.0f} ms,"
             f" {CLOCK_TICKS} ticks a slot, {pipe.poh.hashes_per_tick} hashes a tick"
             f"{', ' + json.dumps(kw) if kw else ''}: slots sealed {sealed_}, missed {missed_},"
             f" skipped ticks {poh_m.get('slot_skipped_ticks')}; seal lag p50 {lag50:.3f} ms,"
             f" p99 {lag99:.3f} ms (upper bucket edges; grace {grace17e_ms:.0f} ms), counts"
             f" {lag['counts']}; blocks_closed {closed}; txn_shed {shed}; landed {landed}"
             f" ({in_window} in the window, {landed - in_window} in the drain; window closed at"
-            f" {window_s:.3f} s); durable ok {durable_ok} of {CLOCK_DURABLE}; run {run_s:.3f} s ="
+            f" {window_s:.3f} s); durable ok {durable_ok} of {durable_sent}; run {run_s:.3f} s ="
             f" {landed / run_s:.0f} txn/s to the store; seal {seal_s:.3f} s ({sx.seal_rows} rows,"
             f" bank hash {seal.bank_hash.hex()}); replay reproduces the seal in {replay_s:.3f} s;"
             f" launches {launches}")
         log(f"[{tag}-split] host seconds"
             f" {json.dumps({k: round(v, 4) for k, v in sorted(split.items())})}; {funk_text};"
             f" counters {json.dumps(rep)}")
-        return dict(launches=launches, landed=landed, shed=shed, sigs=sorted(
+        return dict(launches=launches, landed=landed, shed=shed, slots=slots,
+                    durable_sent=durable_sent, stream=stream_, sigs=sorted(
             ft.txn_parse(p_).signatures(p_)[0] for p_ in block), advanced=sum(advanced),
             durable_ok=durable_ok, split=split, txn_s=landed / run_s, lag=(lag50, lag99),
             sealed=sealed_, missed=missed_, in_window=in_window,
@@ -3528,9 +3735,16 @@ def main() -> int:
     check(r17e_s["shed"] > 0, "clock-leader-shed: nothing shed")
     # (d) 17e (a) on the Python pack lane (dedup + PackStage), beside the
     # fused native lane every other leader phase takes
-    r17e_py = clock_leader("clock-leader-python-pack", native_pack=False)
-    check(r17e_py["shed"] == 0 and r17e_py["durable_ok"] == CLOCK_DURABLE
-          and r17e_py["sigs"] == r17e["sigs"],
+    # (d)-(g), the one-lane comparisons, run over the first quarter of the
+    # stream and a quarter of the window (4 slots) with every check: each is
+    # held to (a)'s landed signatures restricted to that quarter
+    def sigs_of(stream_) -> list:
+        mine_ = {ft.txn_parse(p_).signatures(p_)[0] for p_ in stream_}
+        return [g_ for g_ in r17e["sigs"] if g_ in mine_]
+
+    r17e_py = clock_leader("clock-leader-python-pack", native_pack=False, quarter=True)
+    check(r17e_py["shed"] == 0 and r17e_py["durable_ok"] == r17e_py["durable_sent"]
+          and r17e_py["sigs"] == sigs_of(r17e_py["stream"]),
           "clock-leader-python-pack: landed signatures differ from the native lane's")
     pack_lanes = {lane: (r_["split"].get("dedup", 0.0) + r_["split"]["pack"], r_["txn_s"])
                   for lane, r_ in (("native", r17e), ("python", r17e_py))}
@@ -3540,13 +3754,13 @@ def main() -> int:
         f" {r17e_py['split']['pack']:.4f} s = {pack_lanes['python'][0]:.4f} s host,"
         f" {pack_lanes['python'][1]:.0f} txn/s to the store")
     # (e) 17e (a) with the banks on the Python executor lane (native_exec=False)
-    r17e_px = clock_leader("clock-leader-python-exec", native_exec=False)
-    check(r17e_px["shed"] == 0 and r17e_px["durable_ok"] == CLOCK_DURABLE
-          and r17e_px["sigs"] == r17e["sigs"]
-          and r17e_px["signature_cnt"] == r17e["signature_cnt"],
+    r17e_px = clock_leader("clock-leader-python-exec", native_exec=False, quarter=True)
+    check(r17e_px["shed"] == 0 and r17e_px["durable_ok"] == r17e_px["durable_sent"]
+          and r17e_px["sigs"] == sigs_of(r17e_px["stream"])
+          and r17e_px["signature_cnt"] == len(r17e_px["sigs"]),
           "clock-leader-python-exec: landed signatures differ from the native exec lane's")
     for tag_, r_ in (("clock-leader", r17e), ("clock-leader-python-exec", r17e_px)):
-        check(r_["sealed"] == CLOCK_SLOTS, f"{tag_}: {r_['sealed']} of {CLOCK_SLOTS} slots sealed")
+        check(r_["sealed"] == r_["slots"], f"{tag_}: {r_['sealed']} of {r_['slots']} slots sealed")
     check(r17e["native"][0] > 0, f"clock-leader: native_exec {r17e['native']}")
     check(r17e_px["native"] == (0, 0), f"clock-leader-python-exec: native {r17e_px['native']}")
     for lane_, r_ in (("native", r17e), ("python", r17e_px)):
@@ -3554,14 +3768,14 @@ def main() -> int:
         log(f"[exec-lanes] 17e {'(a)' if lane_ == 'native' else '(e)'} {lane_} exec lane:"
             f" bank0 {sp_.get('bank0', 0.0):.4f} s, bank1 {sp_.get('bank1', 0.0):.4f} s,"
             f" verify {sp_.get('verify0', 0.0):.4f} s host; {r_['txn_s']:.0f} txn/s to the store;"
-            f" slots sealed {r_['sealed']} of {CLOCK_SLOTS}; {r_['in_window']} txns in the window"
+            f" slots sealed {r_['sealed']} of {r_['slots']}; {r_['in_window']} txns in the window"
             f" of {r_['landed']} landed; {r_['signature_cnt']} signatures; native_exec"
             f" {r_['native'][0]}, native_punt {r_['native'][1]}")
     # (f) 17e (a) on the Python shm rings: no drain plan, no bank sweep lane
-    r17e_pr = clock_leader("clock-leader-python-rings", native_ring=False)
-    check(r17e_pr["shed"] == 0 and r17e_pr["durable_ok"] == CLOCK_DURABLE
-          and r17e_pr["sigs"] == r17e["sigs"]
-          and r17e_pr["signature_cnt"] == r17e["signature_cnt"],
+    r17e_pr = clock_leader("clock-leader-python-rings", native_ring=False, quarter=True)
+    check(r17e_pr["shed"] == 0 and r17e_pr["durable_ok"] == r17e_pr["durable_sent"]
+          and r17e_pr["sigs"] == sigs_of(r17e_pr["stream"])
+          and r17e_pr["signature_cnt"] == len(r17e_pr["sigs"]),
           "clock-leader-python-rings: landed signatures differ from the native rings'")
     check(r17e["sweep"]["bank_txn_native"] > 0 and r17e["sweep"]["bank_mb_dropped"] == 0,
           f"clock-leader: the banks' sweep lane committed nothing in the crossing {r17e['sweep']}")
@@ -3583,18 +3797,20 @@ def main() -> int:
             f" {r_['bank_hash'].hex()[:16]} equals its replay's")
     # (g) 17e (a) on the dict store (BankCtx(funk=Funk())): every record
     # through the banks' result log, the seal's rows by the _before walk
-    r17e_df = clock_leader("clock-leader-dict-funk", funk=Funk())
+    r17e_df = clock_leader("clock-leader-dict-funk", funk=Funk(), quarter=True)
     for lane_, r_ in (("shm", r17e), ("dict", r17e_df)):
-        check(r_["sealed"] == CLOCK_SLOTS,
-              f"funk-lanes: the {lane_} store sealed {r_['sealed']} of {CLOCK_SLOTS} slots")
-    check(r17e["shm_store"] and not r17e_df["shm_store"], "funk-lanes: the stores are not the lanes'")
-    # both lanes landed the whole stream: then their results must agree;
-    # a lane that landed fewer is held to its own replay only (clock_leader)
-    all17e = all(r_["landed"] == len(stream17e) for r_ in (r17e, r17e_df))
+        check(r_["sealed"] == r_["slots"],
+              f"funk-lanes: the {lane_} store sealed {r_['sealed']} of {r_['slots']} slots")
+    check(r17e["shm_store"] and r17e_py["shm_store"] and not r17e_df["shm_store"],
+          "funk-lanes: the stores are not the lanes'")
+    # (g) and (d), the same quarter on the dict store and on the shm store,
+    # both landed the whole quarter: then their results must agree; a lane
+    # that landed fewer is held to its own replay only (clock_leader)
+    all17e = all(r_["landed"] == len(r_["stream"]) for r_ in (r17e_py, r17e_df))
     if all17e:
-        check(sum(r17e["txn_exec"].values()) == sum(r17e_df["txn_exec"].values()),
-              f"funk-lanes: txn_exec {r17e['txn_exec']} != {r17e_df['txn_exec']}")
-        check(r17e["state"] == r17e_df["state"],
+        check(sum(r17e_py["txn_exec"].values()) == sum(r17e_df["txn_exec"].values()),
+              f"funk-lanes: txn_exec {r17e_py['txn_exec']} != {r17e_df['txn_exec']}")
+        check(r17e_py["state"] == r17e_df["state"],
               "funk-lanes: the committed state over the payers, destinations and nonce accounts"
               " differs")
     for lane_, r_ in (("shm", r17e), ("dict", r17e_df)):
@@ -3605,13 +3821,13 @@ def main() -> int:
             f" read-out ({'one txn_diff crossing' if lane_ == 'shm' else 'the _before walk'})"
             f" {1e3 * r_['seal_split']['read']:.3f} ms, XOFs {r_['seal_split']['xof']:.4f} s, K13"
             f" and hash {1e3 * r_['seal_split']['combine']:.3f} ms; {r_['txn_s']:.0f} txn/s to"
-            f" the store; slots sealed {r_['sealed']} of {CLOCK_SLOTS}; landed {r_['landed']};"
+            f" the store; slots sealed {r_['sealed']} of {r_['slots']}; landed {r_['landed']};"
             f" txn_exec {sum(r_['txn_exec'].values())}; bank_funk_writes"
             f" {r_['sweep']['bank_funk_writes']}, falls {r_['sweep']['bank_funk_falls']};"
             f" arena_used {r_['arena'] if r_['arena'] is not None else '-'} bytes; committed"
             f" state sha256 {r_['state'][:16]} over {len(keys17e)} keys"
-            f" ({'equal on both lanes' if all17e else 'not compared: a lane landed fewer than'}"
-            f"{'' if all17e else f' {len(stream17e)}'}); bank hash"
+            f" ({'' if lane_ == 'shm' else 'equal to (d) on the shm store over the same quarter'
+                 if all17e else 'not compared: (d) or (g) landed less than its quarter'}); bank hash"
             f" {r_['bank_hash'].hex()[:16]} equals its replay's")
     for st_, row_ in r17e["phases"].items():
         cells_ = ", ".join(f"{nm} n {row_[nm][0]} p50 {row_[nm][1]:.0f} p99 {row_[nm][2]:.0f}"
@@ -4474,6 +4690,115 @@ def main() -> int:
     check(len(made17j) == 9 and not leftover,
           f"net-lanes: of its {len(made17j)} links, /dev/shm entries left {leftover}")
 
+    # -- 17k. the leader as processes: one spawned process a stage -----------------------------
+    mark("17k")
+    # (a) first in process with one bank, then as processes, on phase 17's
+    # pool and 17e's clock geometry (each run anchors its own window)
+    clock17k = SlotClockCfg(slot_ms=CLOCK_SLOT_MS, slot0=1, ticks_per_slot=CLOCK_TICKS,
+                            n_slots=CLOCK_SLOTS, miss_grace_frac=CLOCK_GRACE)
+    kbuild.reset_launches()
+    inp17k = leader_in_process(pool17, dev, clock17k, B1, ML1)
+    check(inp17k["landed"] == len(pool17), f"17k in-process: landed {inp17k['landed']}")
+    t0 = time.perf_counter()
+    r17k = leader_as_processes(pool17, dev, clock17k, B1, ML1, TOPO_BOOT_GRACE_S)
+    topo17k_s = time.perf_counter() - t0
+    c17k = r17k["counters"]
+    boots17k = {nm: r_["boot_s"] for nm, r_ in r17k["snap"].items()}
+    log(f"[leader-processes-boot] launch {r17k['launch_s']:.3f} s (the anchor"
+        f" {r17k['anchor_s']:.3f} s into it, then the spawns); boot seconds (spawn to the loop)"
+        f" {json.dumps({k: round(v, 3) for k, v in boots17k.items()})}; poh"
+        f" {json.dumps(c17k['poh'])}")
+    check(all(r17k["alive"].values()), f"17k: a child died before the halt {r17k['alive']}")
+    check(all(sg_ == 1 for sg_ in r17k["signals"].values()),
+          f"17k: a child signalled {r17k['signals']} (1 = RUN)")
+    check(all(ec_ == 0 for ec_ in r17k["exitcodes"].values()),
+          f"17k: exit codes after the halt {r17k['exitcodes']}")
+    check(not r17k["left"], f"17k: close() left /dev/shm entries {r17k['left']}")
+    sealed17k, missed17k = c17k["poh"]["slots_sealed"], c17k["poh"]["slot_missed"]
+    check(sealed17k + missed17k == CLOCK_SLOTS and sealed17k >= 1,
+          f"17k: {sealed17k} slots sealed + {missed17k} missed != {CLOCK_SLOTS}")
+    b17k, v17k, p17k = c17k["bank0"], c17k["verify0"], c17k["pack"]
+    check(b17k["txn_exec"] == v17k["txn_verified"] == len(pool17)
+          and b17k["txn_rejected"] == 0 and p17k["txn_dropped"] == 0,
+          f"17k: bank0 {b17k}, verify0 {v17k}, pack {p17k}")
+    # K1 and K5 ran in the children: each child's stage counts the launches
+    # its kernel's wrapper counted in that process (verify0: kbuild's K1
+    # entry, around each verify_dispatch; shred: K5's host entry from C),
+    # held against what they match one to one (a sealed C slot is one K1
+    # launch, a FEC set one K5 launch)
+    k1_17k, k5_17k = v17k["k1_launches"], c17k["shred"]["k5_launches"]
+    check(k1_17k == v17k["batches"] == v17k["sealed_batches"] > 0,
+          f"17k: verify0 K1 launches {k1_17k}, batches {v17k['batches']}, sealed C slots"
+          f" {v17k['sealed_batches']}")
+    check(k5_17k == c17k["shred"]["fec_sets"] > 0 and c17k["store"]["sets_stored"] > 0,
+          f"17k: shred K5 launches {k5_17k}, {c17k['shred']}, store {c17k['store']}")
+    ents17k = [parse_entry(e_) for e_ in r17k["entries"]]
+    block17k = [p_ for _, _, txs in ents17k for p_ in txs]
+    check(r17k["overruns"] == 0 and len(block17k) == b17k["txn_exec"],
+          f"17k: the tap read {len(block17k)} txns in {len(ents17k)} entries of"
+          f" {b17k['txn_exec']} executed, overruns {r17k['overruns']}")
+    sigs17k = sorted(ft.txn_parse(p_).signatures(p_)[0] for p_ in block17k)
+    check(sigs17k == inp17k["sigs"], "17k: the topology's landed signatures differ from the"
+          " in-process build's")
+    fund17k = default_bank_ctx(device=dev)
+    t0 = time.perf_counter()
+    rp17k = replay_block(fund17k.funk, slot=1, entries=ents17k, poh_seed=b"\x00" * 32,
+                         status_cache=fund17k.status_cache, device=dev)
+    replay17k_s = time.perf_counter() - t0
+    fund17k.close()
+    check(rp17k is not None and sum(r_.fee > 0 for r_ in rp17k.results) == b17k["txn_exec"]
+          and sum(r_.status != 0 for r_ in rp17k.results) == b17k["txn_exec_failed"],
+          "17k: replay_block refuses the observed shreds' entries or lands another count")
+    launches17k = {"verify_batch": k1_17k, "gf256_apply": k5_17k}
+    lag50_17k, lag99_17k = (tune_quantile(r17k["lag"], q) / 1e6 for q in (0.5, 0.99))
+    txn_s17k = b17k["txn_exec"] / r17k["landed_s"]
+    log(f"[leader-processes] {len(pool17)} txns of phase 17's pool at batch {B1}, one bank,"
+        f" {CLOCK_SLOTS} slots of {CLOCK_SLOT_MS:.0f} ms, {CLOCK_TICKS} ticks a slot, boot grace"
+        f" {TOPO_BOOT_GRACE_S} s; launch (parent builds, segments, spawns)"
+        f" {r17k['launch_s']:.3f} s; child boot seconds (spawn to the loop)"
+        f" {json.dumps({k: round(v, 3) for k, v in boots17k.items()})}, slowest"
+        f" {max(boots17k.values()):.3f} s; slots sealed {sealed17k}, missed {missed17k}; seal"
+        f" lag p50 {lag50_17k:.3f} ms, p99 {lag99_17k:.3f} ms (upper bucket edges); landed"
+        f" {b17k['txn_exec']} ({r17k['in_window']} in the window; window closed"
+        f" {r17k['window_s']:.3f} s after the anchor, last landing {r17k['landed_s']:.3f} s);"
+        f" {txn_s17k:.0f} txn/s from the anchor to the last landing; in process (one bank,"
+        f" same pool and clock, its run {inp17k['run_s']:.3f} s) {inp17k['txn_s']:.0f} txn/s"
+        f" to its last landing at {inp17k['all_s']:.3f} s ({inp17k['in_window']} in the"
+        f" window, sealed {inp17k['sealed']}, missed"
+        f" {inp17k['missed']}); the tap's {len(ents17k)} entries replay in {replay17k_s:.3f} s"
+        f" and land all {len(block17k)}; K1 launches in verify0 {k1_17k} ({v17k['batches']}"
+        f" batches), K5 launches in shred {k5_17k} ({c17k['shred']['fec_sets']} FEC sets);"
+        f" phase {topo17k_s:.1f} s")
+    log("[leader-processes-split] per stage: CPU seconds (user + system, /proc) from the"
+        " anchor to the end (the window resolved and the pool landed), in its boot, between"
+        " its boot and the anchor (idle), sweeps, heartbeat age ms: " + json.dumps({
+            nm: (round(r_["cpu_s"] - r17k["anchor_cpu"].get(nm, 0.0), 3),
+                 r17k["boot_cpu"].get(nm),
+                 round(r17k["anchor_cpu"].get(nm, 0.0) - r17k["boot_cpu"].get(nm, 0.0), 3),
+                 r_["iters"], round(r_["heartbeat_age_ms"] or 0, 3))
+            for nm, r_ in r17k["snap"].items()})
+        + "; busy seconds (sweeps that consumed or published), the children's (busy_ns) then"
+        " the in-process loop's: " + json.dumps({
+            nm: (round(c_.get("busy_ns", 0) / 1e9, 4), round(inp17k["busy_s"].get(nm, 0.0), 4))
+            for nm, c_ in c17k.items()})
+        + "; in process, seconds over all its sweeps: "
+        + json.dumps({k: round(v, 4) for k, v in inp17k["sweep_s"].items()}))
+    log(f"[leader-processes-counters] {json.dumps(c17k)}")
+    log("[leader-processes-monitor]\n" + r17k["monitor"])
+    # (b) the CLI's jailed leader with CUDA live in the children
+    t0 = time.perf_counter()
+    cli17k = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch", "run", "--processes",
+                             "--sandbox", "--txns", str(TOPO_CLI_TXNS)],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                            text=True, timeout=600)
+    cli17k_s = time.perf_counter() - t0
+    check(cli17k.returncode == 0 and "bank0" in cli17k.stdout and "store" in cli17k.stdout,
+          f"17k (b): run --processes --sandbox rc {cli17k.returncode}:\n{cli17k.stdout[-3000:]}"
+          f"\n{cli17k.stderr[-3000:]}")
+    log(f"[leader-processes-cli] python -m firedancer_tpu_torch run --processes --sandbox --txns"
+        f" {TOPO_CLI_TXNS}: rc 0 in {cli17k_s:.1f} s, the monitor table:\n"
+        + cli17k.stdout.strip())
+
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
 
@@ -4841,6 +5166,7 @@ def main() -> int:
                                  "sharded_leader_pipeline": launches17c.get(k["name"], 0),
                                  "vote_leader_pipeline": launches17d.get(k["name"], 0),
                                  "clock_leader_pipeline": launches17e.get(k["name"], 0),
+                                 "leader_topology": launches17k.get(k["name"], 0),
                                  "program_leader_pipeline": launches17f.get(k["name"], 0),
                                  "sbpf_leader_pipeline": launches17g.get(k["name"], 0),
                                  "zk_leader_pipeline": launches17h.get(k["name"], 0),

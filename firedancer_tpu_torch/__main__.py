@@ -16,6 +16,14 @@
         serving plane), then seal; print the stage counters, the store's
         set count and the sha256 of its entry-batch bytes, the bank hash,
         txn/s to the store and the host seconds per stage.
+    python -m firedancer_tpu_torch run --processes [--sandbox] --txns N
+            [--batch B] [--cpu]
+        the leader as one spawned process a stage (models/leader_topo.py:
+        benchg -> verify -> pack -> bank -> poh -> shred -> store over shm
+        links, supervised through their cncs; --sandbox jails every child:
+        the seccomp deny list with threads allowed, and rlimits); runs until
+        bank0 has executed the N txns and the store has a FEC set, then
+        prints the monitor table and halts.  Exit 1 when a stage failed.
     python -m firedancer_tpu_torch warmup [--devices N] [--assert-warm S]
         build and load the serving plane's kernels and run one step at its
         shapes (the counterpart of the JAX package's AOT warmup); prints the
@@ -30,11 +38,49 @@ import sys
 import time
 
 
+def _run_processes(args) -> int:
+    """One process a stage, supervised; the monitor table at the end."""
+    from .models.leader_topo import build_leader_topology
+    from .runtime import topo as ft
+
+    sandbox = {"rlimits": {"nofile": 512}} if args.sandbox else None
+    topo = build_leader_topology(n_txns=args.txns, pool_size=args.txns, batch=args.batch,
+                                 max_msg_len=args.max_msg_len, sandbox=sandbox,
+                                 device="cpu" if args.cpu else None)
+    h = ft.launch(topo)
+    try:
+        print(f"# {len(h.procs)} stage processes; descriptor fdtpu_torch_run_{h.uid}.json"
+              + (" (sandboxed)" if sandbox else ""), file=sys.stderr)
+        t0 = time.perf_counter()
+        ok = h.supervise(until=lambda h: h.met_views["bank0"][0].get("txn_exec") >= args.txns
+                         and h.met_views["store"][0].get("sets_stored") > 0,
+                         timeout_s=600, heartbeat_timeout_s=60)
+        run_s = time.perf_counter() - t0
+        print(h.format_monitor())
+        print(f"# {h.met_views['bank0'][0].get('txn_exec')} txns executed in {run_s:.2f} s;"
+              f" {h.met_views['store'][0].get('sets_stored')} FEC sets stored"
+              + ("" if ok else f"; stage {h.failed} failed"))
+        h.halt()
+        return 0 if ok else 1
+    finally:
+        h.close()
+
+
 def cmd_run(args) -> int:
     from .models.leader import build_sharded_verify_pipeline, build_verify_pipeline
     from .runtime.benchg import gen_transfer_pool
     from .utils.platform import device_name, resolve_device
 
+    if args.sandbox and not args.processes:
+        print("run: --sandbox jails the children of --processes", file=sys.stderr)
+        return 2
+    if args.processes:
+        if args.leader or args.shards or args.comb_slots or args.kernel != "fused" \
+                or args.autotune_after:
+            print("run: --processes runs the leader topology's default lanes (no --leader,"
+                  " --shards, --comb-slots, --kernel or --autotune-after)", file=sys.stderr)
+            return 2
+        return _run_processes(args)
     if args.leader:
         if args.comb_slots or args.kernel != "fused" or args.autotune_after:
             print("run: --leader drives the fused verify lane (no --comb-slots,"
@@ -139,6 +185,10 @@ def main(argv=None) -> int:
                    help="retune batch and max_msg_len every N batches (0 = off)")
     r.add_argument("--leader", action="store_true",
                    help="produce a block: ... -> pack -> bank -> poh -> shred -> store")
+    r.add_argument("--processes", action="store_true",
+                   help="the leader as one supervised process a stage (models/leader_topo.py)")
+    r.add_argument("--sandbox", action="store_true",
+                   help="with --processes: jail every stage (seccomp deny list, rlimits)")
     r.add_argument("--banks", type=int, default=2, help="bank stages (--leader)")
     r.add_argument("--hashes-per-tick", type=int, default=64,
                    help="PoH hashes per tick and the plane's span (--leader --shards)")

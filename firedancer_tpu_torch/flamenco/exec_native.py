@@ -36,7 +36,6 @@ from ..protocol.txn import _DESC_HDR, _DESC_INSTR, SYSTEM_PROGRAM, VOTE_PROGRAM
 from ..utils import hostbuild
 from .stake import STAKE_PROGRAM
 
-_REQ_MAGIC = 0x42584446  # 'FDXB' (stateless)
 _REQ2_MAGIC = 0x32584446  # 'FDX2' (session + native gate)
 _RESP_MAGIC = 0x52584446  # 'FDXR'
 
@@ -60,8 +59,6 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = hostbuild.load("fd_exec_native")
         u64, vp, cp = ctypes.c_uint64, ctypes.c_void_p, ctypes.c_char_p
-        lib.fd_exec_batch.argtypes = [cp, u64, cp, u64]
-        lib.fd_exec_batch.restype = ctypes.c_int64
         lib.fd_exec_session_new.restype = vp
         lib.fd_exec_session_new.argtypes = []
         lib.fd_exec_session_delete.argtypes = [vp]
@@ -135,11 +132,10 @@ def eligible_packed(payload: bytes, desc_bytes: bytes) -> bool:
 
 
 class BatchContext:
-    """One slot's request context: the fixed header (fee rate, clock,
-    slot-hashes sysvar, recent blockhash, rent) built once and reused for
-    every call.  With a session, calls go through fd_exec_batch2 and a
-    request arena reused across microblocks; without one, through the
-    stateless fd_exec_batch."""
+    """One slot's request context over the slot's session: the fixed header
+    (fee rate, clock, slot-hashes sysvar, recent blockhash, rent) built
+    once, and every call one fd_exec_batch2 crossing through a request
+    arena reused across microblocks."""
 
     def __init__(
         self,
@@ -148,7 +144,7 @@ class BatchContext:
         clock_slot: int | None = None,
         clock_epoch: int | None = None,
         slot_hashes: bytes | None = None,
-        session: Session | None = None,
+        session: Session,
         recent_blockhash: bytes | None = None,
         rent: tuple[int, int, float] | None = None,
     ):
@@ -192,51 +188,22 @@ class BatchContext:
             self._resp = ctypes.create_string_buffer(self._resp_cap)
 
     def run(self, entries, *, gate=None, refresh=None) -> tuple[int, bool, list]:
-        """One fd_exec_batch(2) call.  entries: [payload, desc_bytes, addrs,
+        """One fd_exec_batch2 call.  entries: [payload, desc_bytes, addrs,
         vals, ...] lists; only the first four fields are read.  Returns
         (n_done, punted, [(status, fee, n_ins, [(idx, value)])]), n_ins the
         count of the txn's instructions that charged their builtin cost (the
         failing one included when it ran; all of them on success).
 
-        Session mode: a vals entry may be None, meaning the session already
-        holds that account's current value.  `gate` arms the native
+        A vals entry may be None, meaning the session already holds that
+        account's current value.  `gate` arms the native
         status-cache gate: (valid_blockhashes, or None for unchanged since
         the last call; seen_delta, the 96-byte blockhash || signature
-        entries landed outside the session since the last call).  `refresh`
-        (session mode): (key, value) records merged into the session's
+        entries landed outside the session since the last call).  `refresh`:
+        (key, value) records merged into the session's
         overlay before any txn runs, the bank sweep's resync of accounts the
         Python lane wrote (runtime/bank.py), which has no per-txn value to
         ride."""
-        if self._session is not None:
-            return self._run_session(entries, gate, refresh or ())
-        parts = [struct.pack("<II", _REQ_MAGIC, len(entries)), self._fixed]
-        req_sz = 0
-        for e in entries:
-            payload, desc_bytes, vals = e[0], e[1], e[3]
-            parts.append(_TXN_HEAD.pack(len(payload), len(desc_bytes), len(vals)))
-            parts.append(payload)
-            parts.append(desc_bytes)
-            for v in vals:
-                v = v or b""
-                parts.append(_U32.pack(len(v)))
-                parts.append(v)
-                req_sz += len(v)
-            req_sz += len(payload) + 64
-        req = b"".join(parts)
-        cap = 4096 + 2 * req_sz
-        while True:
-            buf = ctypes.create_string_buffer(cap)
-            rc = self._lib.fd_exec_batch(req, len(req), buf, cap)
-            if rc == -2:
-                # a CreateAccount/Allocate burst can outgrow the estimate;
-                # the stateless call committed nothing, so retry bigger
-                cap *= 4
-                if cap > RESP_CAP_MAX:
-                    raise NativeExecError("fd_exec_batch response > 256 MB")
-                continue
-            if rc < 0:
-                raise NativeExecError(f"fd_exec_batch rc={rc}")
-            return self._parse(buf.raw[:rc])
+        return self._run_session(entries, gate, refresh or ())
 
     def _run_session(self, entries, gate, refresh) -> tuple[int, bool, list]:
         """The session crossing through the reused request arena: one
@@ -329,7 +296,7 @@ class BatchContext:
     def _parse(buf: bytes) -> tuple[int, bool, list]:
         magic, n_done = struct.unpack_from("<II", buf, 0)
         if magic != _RESP_MAGIC:
-            raise NativeExecError("fd_exec_batch bad response magic")
+            raise NativeExecError("fd_exec_batch2 bad response magic")
         punted = buf[8] != 0
         o = 9
         out = []

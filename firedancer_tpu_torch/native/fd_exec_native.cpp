@@ -5,7 +5,7 @@
 // (fd_system_program.c / fd_vote_program.c): the two dominant txn shapes
 // execute entirely in C++ against account values in the funk wire format
 // (flamenco/executor.py acct_encode/acct_decode: u64 lamports | 32B owner
-// | u8 executable | data).  One fd_exec_batch call executes a whole
+// | u8 executable | data).  One fd_exec_batch2 call executes a whole
 // microblock: the Python bank stage drains its burst, sends payloads +
 // packed descriptors (fd_txn_parse's layout) + current account values in
 // one request, and applies the returned record writes straight to funk —
@@ -1305,114 +1305,6 @@ static TxnResult execute_txn(const TxnIn& in, Overlay& ov, u64 lps,
 
 extern "C" {
 
-// Executes up to n_txn transactions sequentially.  Returns the response
-// length, -1 on a malformed request, -2 when resp_cap is too small (the
-// caller retries with a larger buffer; no state escapes a failed call).
-// Response: u32 'FDXR' | u32 n_done | u8 punted | recs[n_done], each rec
-//   i8 status | u64 fee | u8 n_ins | u8 n_w | (u8 acct_idx | u32 len | bytes)*
-// (n_ins: TxnResult's count of instructions that charged their cost).
-int64_t fd_exec_batch(const uint8_t* req, uint64_t req_sz, uint8_t* resp,
-                      uint64_t resp_cap) {
-  const u8* p = req;
-  const u8* end = req + req_sz;
-  auto have = [&](u64 k) { return (u64)(end - p) >= k; };
-  if (!have(4 + 4 + 8 + 1 + 8 + 8 + 1 + 4)) return -1;
-  if (rd32(p) != 0x42584446u) return -1;  // 'FDXB'
-  p += 4;
-  u32 n_txn = rd32(p); p += 4;
-  u64 lps = rd64(p); p += 8;
-  VoteEnv env;
-  env.have_clock = *p++ != 0;
-  env.clock_slot = rd64(p); p += 8;
-  env.clock_epoch = rd64(p); p += 8;
-  env.sh_present = *p++ != 0;
-  u32 sh_sz = rd32(p); p += 4;
-  if (!have(sh_sz)) return -1;
-  SlotHashes sh;
-  if (env.sh_present) {
-    parse_slot_hashes(p, sh_sz, sh);
-  } else {
-    sh.ok = true;  // absent/empty sysvar -> empty list, not an error
-  }
-  p += sh_sz;
-  env.sh = &sh;
-  // u8 rbh_flag | 32B rbh | u8 rent_flag | u64 lamports_per_byte_year
-  // | f64 exemption_threshold  (durable-nonce + rent-floor env)
-  if (!have(1 + 32 + 1 + 8 + 8)) return -1;
-  env.have_rbh = *p++ != 0;
-  std::memcpy(env.rbh.data(), p, 32);
-  p += 32;
-  env.rent_flag = *p++;
-  env.rent_lpby = rd64(p);
-  p += 8;
-  u64 et_bits = rd64(p);
-  p += 8;
-  std::memcpy(&env.rent_et, &et_bits, 8);
-
-  std::vector<TxnIn> txns;
-  txns.reserve(n_txn);
-  for (u32 t = 0; t < n_txn; t++) {
-    if (!have(2 + 2 + 1)) return -1;
-    TxnIn in;
-    in.payload_sz = rd16(p); p += 2;
-    in.desc_sz = rd16(p); p += 2;
-    in.acct_cnt = *p++;
-    if (!have(in.payload_sz + in.desc_sz)) return -1;
-    in.payload = p; p += in.payload_sz;
-    in.desc_bytes = p; p += in.desc_sz;
-    for (u32 i = 0; i < in.acct_cnt; i++) {
-      if (!have(4)) return -1;
-      u32 vs = rd32(p); p += 4;
-      if (!have(vs)) return -1;
-      in.vals.emplace_back(p, vs);
-      p += vs;
-    }
-    txns.push_back(std::move(in));
-  }
-  if (p != end) return -1;
-
-  Wr w{resp, resp_cap, 0};
-  try {
-    w.put32(0x52584446u);  // 'FDXR'
-    u64 ndone_off = w.i;
-    w.put32(0);
-    u64 punt_off = w.i;
-    w.put8(0);
-    Overlay ov;
-    u32 n_done = 0;
-    for (u32 t = 0; t < n_txn; t++) {
-      TxnResult r;
-      try {
-        r = execute_txn(txns[t], ov, lps, env);
-      } catch (const Punt&) {
-        resp[punt_off] = 1;
-        break;
-      }
-      w.put8((u8)(int8_t)r.status);
-      w.put64(r.fee);
-      w.put8(r.n_ins);
-      w.put8((u8)r.writes.size());
-      // account addresses live in the payload at the descriptor's
-      // acct_off (validated inside execute_txn before any write exists)
-      const u8* addrs = txns[t].payload + rd16(txns[t].desc_bytes + 9);
-      for (auto& wr_ : r.writes) {
-        w.put8(wr_.idx);
-        w.put32((u32)wr_.val.size());
-        w.bytes(wr_.val.data(), wr_.val.size());
-        // the batch overlay: later txns read this txn's commit
-        Key k;
-        std::memcpy(k.data(), addrs + 32ull * wr_.idx, 32);
-        ov[k] = std::move(wr_.val);
-      }
-      n_done++;
-    }
-    wr32(resp + ndone_off, n_done);
-  } catch (const RespFull&) {
-    return -2;
-  }
-  return (int64_t)w.i;
-}
-
 // -- slot session (the bank lane's residual Python gate, moved here) ---------
 //
 // A session persists across fd_exec_batch2 calls within one slot and owns
@@ -1490,14 +1382,23 @@ void* fd_exec_session_new() { return new (std::nothrow) Session(); }
 
 void fd_exec_session_delete(void* h) { delete static_cast<Session*>(h); }
 
-// Request ('FDX2'): the fd_exec_batch fixed header, then a gate section
+// Request ('FDX2'): u32 'FDX2' | u32 n_txn | the fixed header (u64
+//   lamports_per_sig | u8 clock flag | u64 clock slot | u64 clock epoch |
+//   u8 slot-hashes flag | u32 sz | slot-hashes bytes | u8 rbh flag | 32B
+//   recent blockhash | u8 rent flag | u64 lamports_per_byte_year | f64
+//   exemption threshold), then a gate section
 //   u8 gate_on | u32 n_valid_bh | 32B* | u32 n_seen | (32B bh||64B sig)*
 //   | u32 n_refresh | (32B key | u32 len | bytes)*
 // then n_txn entries of
 //   u16 payload_sz | u16 desc_sz | u8 acct_cnt | payload | desc
 //   | per-acct: u8 have | [u32 len | bytes]     (have=0: session-known)
-// Response: identical to fd_exec_batch.  Gated duplicates emit a record
-// (ST_ALREADY, fee 0, no writes) and count as done.
+// Returns the response length, -1 on a malformed request, -2 when
+// resp_cap is too small (the caller retries with a larger buffer).
+// Response: u32 'FDXR' | u32 n_done | u8 punted | recs[n_done], each rec
+//   i8 status | u64 fee | u8 n_ins | u8 n_w | (u8 acct_idx | u32 len | bytes)*
+// (n_ins: TxnResult's count of instructions that charged their cost).
+// Gated duplicates emit a record (ST_ALREADY, fee 0, no writes) and count
+// as done.
 int64_t fd_exec_batch2(void* sh, const uint8_t* req, uint64_t req_sz,
                        uint8_t* resp, uint64_t resp_cap) {
   Session* S = static_cast<Session*>(sh);

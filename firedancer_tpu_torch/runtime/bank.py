@@ -242,9 +242,12 @@ def _items(frags) -> list:
 class BankStage(Stage):
     native_xlat_metric = "nbank_txn_lat_ns"
 
+    counters = ("txn_exec", "txn_exec_failed", "txn_rejected", "microblocks", "native_exec",
+                "native_punt", "slot_boundaries", "bank_mb_resumed", *bank_native.COUNTERS)
+
     @classmethod
     def extra_schema(cls) -> fm.MetricsSchema:
-        return fm.MetricsSchema().histogram(
+        return super().extra_schema().histogram(
             "nbank_txn_lat_ns", fm.exp_buckets(1e3, 1e10, 24),
             "per-txn commit latency (tsorig -> session commit), stamped by the C sweep lane",
             native=True)

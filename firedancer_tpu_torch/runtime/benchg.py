@@ -49,11 +49,16 @@ def gen_transfer_pool(n: int, seed: bytes = b"benchg", n_payers: int = 8,
 
 class BenchGStage(Stage):
     """Streams a txn pool round-robin, `burst` frags per iteration, up to
-    `limit` frags in all (None = forever)."""
+    `limit` frags in all (None = forever), from `start_ns` on
+    (CLOCK_MONOTONIC; a clocked topology's window start, so the stream
+    starts with slot 1 as an in-process build's does)."""
+
+    counters = ("txn_gen",)
 
     def __init__(self, pool: list[bytes], name: str = "benchg", outs=None, *,
-                 limit: int | None = None):
-        super().__init__(name, [], outs)
+                 limit: int | None = None, cnc=None, start_ns: int = 0):
+        super().__init__(name, [], outs, cnc=cnc)
+        self.start_ns = start_ns
         if not pool:
             raise ValueError("BenchGStage pool is empty")
         self.pool = pool
@@ -61,6 +66,8 @@ class BenchGStage(Stage):
         self._i = 0
 
     def after_credit(self) -> None:
+        if self.start_ns and now_ns() < self.start_ns:
+            return
         n = self.burst
         if self.limit is not None:
             n = min(n, self.limit - self._i)

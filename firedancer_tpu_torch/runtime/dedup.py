@@ -17,8 +17,10 @@ DEDUP_TCACHE_DEPTH = 1 << 16
 
 
 class DedupStage(Stage):
-    def __init__(self, name: str = "dedup", ins=None, outs=None):
-        super().__init__(name, ins, outs)
+    counters = ("dedup_dup",)
+
+    def __init__(self, name: str = "dedup", ins=None, outs=None, *, cnc=None):
+        super().__init__(name, ins, outs, cnc=cnc)
         # never consume a frag that cannot be forwarded: inserting into the
         # tcache and then dropping the publish would make an upstream
         # retransmit die here as a "duplicate" forever

@@ -46,6 +46,9 @@ from .verify import decode_verified, encode_verified
 
 
 class PackStage(Stage):
+    counters = ("txn_in", "txn_dropped", "bad_frag", "dedup_dup", "microblocks",
+                "microblock_done", "txn_scheduled", "cu_consumed", "blocks_closed", "txn_shed")
+
     def __init__(
         self,
         *args,

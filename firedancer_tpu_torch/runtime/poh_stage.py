@@ -37,6 +37,8 @@ from .poh import PohChain
 from .slot_clock import resolve_clock
 from .stage import Stage
 
+SEAL_LAG_BUCKETS = exp_buckets(1e4, 1e10, 19)  # ns past the slot deadline
+
 
 def build_entry(num_hashes: int, poh_hash: bytes, txns: list[bytes]) -> bytes:
     out = bytearray()
@@ -64,6 +66,13 @@ def parse_entry(frame: bytes) -> tuple[int, bytes, list[bytes]]:
 
 
 class PohStage(Stage):
+    counters = ("ticks", "mixins", "poh_spans_queued", "slots_sealed", "slot_missed",
+                "slot_skipped_ticks")
+
+    @classmethod
+    def extra_schema(cls):
+        return super().extra_schema().histogram("slot_seal_lag_ns", SEAL_LAG_BUCKETS)
+
     def __init__(
         self,
         *args,
@@ -94,7 +103,7 @@ class PohStage(Stage):
         self.plane = plane
         self._span_start = seed
         # final-tick landing time past the slot deadline (slot-clock mode)
-        self.metrics.histogram("slot_seal_lag_ns", exp_buckets(1e4, 1e10, 19))
+        self.metrics.histogram("slot_seal_lag_ns", SEAL_LAG_BUCKETS)
         # slot-clock mode (module docstring)
         self._clock = resolve_clock(clock)
         if self._clock is not None:

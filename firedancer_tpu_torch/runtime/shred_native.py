@@ -122,6 +122,11 @@ class _CardParity:
         self._folded = 0
         self.exc = None  # the CPU lane's; the card's errors are codes
 
+    @property
+    def launches(self) -> int:
+        """K5 launches the host entry has started for this context."""
+        return self._user.launches
+
     def fold(self) -> None:
         """Add the entry's launches since the last fold to kbuild.LAUNCHES."""
         n = self._user.launches
@@ -145,6 +150,7 @@ class _CpuParity:
         self.fn = ctypes.cast(self._cb, ctypes.c_void_p)
         self.user = None
         self.exc: BaseException | None = None
+        self.launches = 0  # the plain version launches nothing
 
     def _encode(self, user, gen, data, d, p, sz, out) -> int:
         try:
@@ -273,6 +279,11 @@ class NativeShredder:
                 fec_set_idx=fec_idx,
             ))
         return sets
+
+    @property
+    def launches(self) -> int:
+        """K5 launches this shredder's parity call started (0 on the CPU)."""
+        return self._ctx.parity.launches
 
     def close(self) -> None:
         self._ctx.close()

@@ -10,7 +10,10 @@ Inputs:  ins[0] = poh -> shred entries.
 Outputs: outs[0] = wire shreds (mtu >= 1228).
 
 Entry batches close when the accumulated serialized entries reach
-`batch_target_sz` or on flush at slot end.
+`batch_target_sz` or on flush at slot end.  With `idle_flush_s`, a batch
+that has taken no entry for that long closes too (block_complete False):
+a stage in its own process (runtime/topo.py) has no caller to flush it
+when PoH stops at the end of the leader window.
 
 Lanes, chosen at construction by the arguments:
 
@@ -34,7 +37,10 @@ FEC set inside one sweep, with no poh->shred link.
 
 from __future__ import annotations
 
+import time
+
 from ..tango.native import NativeProducer
+from ..utils import kbuild
 from .poh_stage import PohStage
 from .shred_native import NativeShredder, StageClient
 from .shredder import EntryBatchMeta, FecSet, Shredder
@@ -42,6 +48,9 @@ from .stage import Frag, Stage
 
 
 class ShredStage(Stage):
+    counters = ("entries_in", "entry_batches", "fec_sets", "data_shreds_out",
+                "parity_shreds_out", "batches_dropped", "k5_launches")
+
     def __init__(
         self,
         *args,
@@ -53,10 +62,14 @@ class ShredStage(Stage):
         keep_sets: bool = False,
         plane=None,
         device=None,
+        idle_flush_s: float | None = None,
         **kwargs,
     ):
         super().__init__(*args, **kwargs)
         self._slot = slot
+        self.idle_flush_s = idle_flush_s
+        self._idle_entries = 0  # entries_in at the last change seen
+        self._idle_since = time.monotonic()
         self.batch_target_sz = batch_target_sz
         self.keep_sets = keep_sets
         self.sets: list[FecSet] = []  # retained for tests/observers
@@ -125,6 +138,21 @@ class ShredStage(Stage):
             # the C side's counters are the stage's in sweep mode: copied
             # at the lazy cadence every other stage metric has
             self.metrics.assign(c.counters())
+        if self.native_shred:
+            self.metrics.assign({"k5_launches": self.shredder.launches})
+        if self.idle_flush_s is not None:
+            self._idle_flush()
+
+    def _idle_flush(self) -> None:
+        """Close the open batch once no entry has come for idle_flush_s (a
+        flush of an empty batch does nothing)."""
+        n = self.metrics.get("entries_in")
+        now = time.monotonic()
+        if n != self._idle_entries:
+            self._idle_entries, self._idle_since = n, now
+        elif now - self._idle_since >= self.idle_flush_s:
+            self.flush(block_complete=False)
+            self._idle_since = now
 
     def _room(self) -> bool:
         """A batch bursts ~2 sets x ~65 shreds; don't start shredding unless
@@ -136,6 +164,7 @@ class ShredStage(Stage):
         if c is not None:
             c.flush(block_complete=block_complete)
             self.metrics.assign(c.counters())
+            self.metrics.assign({"k5_launches": self.shredder.launches})
             return
         if self._buf:
             self._shred_batch(block_complete=block_complete)
@@ -152,9 +181,12 @@ class ShredStage(Stage):
         self._buf = bytearray()
         tsorig = self._buf_tsorig
         self._buf_tsorig = 0
+        k5 = kbuild.LAUNCHES["gf256_apply"]
         sets = self.shredder.entry_batch_to_fec_sets(
             batch, slot=self.slot,
             meta=EntryBatchMeta(block_complete=block_complete))
+        if not self.native_shred:
+            self.metrics.inc("k5_launches", kbuild.LAUNCHES["gf256_apply"] - k5)
         self.metrics.inc("entry_batches")
         for st in sets:
             self.metrics.inc("fec_sets")

@@ -47,10 +47,27 @@ nsweep_crossings, the per-crossing drain / callback / apply / publish
 histograms, the in-crossing tsorig latency), and flush never stores one.
 Read them with `stage.metrics.registry.get(...)` / `.hist(...)`;
 `sweep_frags` counts, on the Python side, the frags fdr_sweep returned.
+
+Supervision (the process runner, runtime/topo.py): every stage has a
+command-and-control cell (`cnc`, tango/rings.Cnc; a local one unless the
+runner hands in its shm cell).  Each housekeeping pass stamps the cnc's
+heartbeat and stores the DIAG_* words; `run()` loops `run_once` until the
+cnc signals HALT, napping after IDLE_SPINS sweeps that moved nothing
+(each sweep that moved something adds its host time to `busy_ns`), and
+`halt()` signals it.  `attach_observability` swaps in the runner's shm
+registry and flight ring.  For an in-place restart, `arm_safe_progress`
+makes fseq publication transactional (progress moves only after a sweep's
+effects are published) and `resume_from_rings` reattaches to the live
+rings: consumers at their published fseqs, producers at their recovered
+frontiers, with a publish guard that swallows the replayed frags a
+producer's ring already carries (`restart_dedup`).  The guard sees the
+Python publish paths only, so a stage whose sweep client publishes from C
+refuses arm_safe_progress.
 """
 
 from __future__ import annotations
 
+import time
 from bisect import bisect_left
 from collections import Counter
 from typing import NamedTuple
@@ -59,9 +76,13 @@ import numpy as np
 
 from ..tango import shm
 from ..tango.native import BurstDrainer, NativeConsumer, SweepDrainer
+from ..tango.rings import CNC_SIG_HALT, CNC_SIG_RUN, Cnc
 from ..utils import metrics as fm
 
 now_ns = shm.now_ns
+
+# Stage.run's nap: IDLE_SLEEP_S after IDLE_SPINS sweeps that moved nothing
+IDLE_SPINS, IDLE_SLEEP_S = 256, 0.001
 
 
 class Frag(NamedTuple):
@@ -171,6 +192,9 @@ class Stage:
     # housekeeping cadence (iterations) and frags drained per iteration
     lazy = 64
     burst = 16
+    # counters of this kind, published to its registry beside the shared
+    # stage-loop block (extra_schema)
+    counters: tuple = ()
     # drain-table batch hook: a stage may take a whole drained sweep, the
     # meta rows (as lists) and the joined payload bytes, in ONE call and
     # return how many frags it consumed (counted as frags_in), with the
@@ -181,14 +205,31 @@ class Stage:
     # bank's nbank_txn_lat_ns, written by its C side)
     native_xlat_metric: str | None = None
 
+    # the cnc's diagnostic words, stored at every housekeeping pass
+    DIAG_FRAGS_IN = 0
+    DIAG_FRAGS_OUT = 1
+    DIAG_OVERRUN = 2
+    DIAG_BACKPRESSURE = 3
+    DIAG_ITER = 4
+    DIAG_RUN_AT = 5  # CLOCK_MONOTONIC ns at run()'s start
+
     def __init__(self, name: str, ins: list | None = None,
-                 outs: list | None = None):
+                 outs: list | None = None, *, cnc: Cnc | None = None):
         self.name = name
         self.ins = ins or []
         self.outs = outs or []
+        self.cnc = cnc if cnc is not None else Cnc()
         self.metrics = Metrics(type(self).metrics_schema())
-        # the flight ring the metrics plane's C side records sweeps into
+        # the flight ring (the metrics plane's C side records sweeps into
+        # it too); attach_observability swaps in the runner's shm ring
         self.recorder = fm.FlightRecorder(fm.FLIGHT_DEPTH)
+        self.recorder.record(fm.EV_BOOT)
+        # in-place restart: out_idx -> the sigs its ring carried before the
+        # crash (resume_from_rings); publish swallows those until the
+        # replay passes the crash point
+        self._resume_guards: dict[int, set[int]] = {}
+        # transactional progress (arm_safe_progress)
+        self.safe_progress = False
         # the plane, cached with the registry it was built on
         self._nplane: tuple | None = None
         # stages that publish from after_frag set this so they never consume
@@ -209,12 +250,124 @@ class Stage:
         """The stage kind's layout: the shared stage-loop block and whatever
         `extra_schema` adds."""
         s = fm.stage_schema()
-        s.defs.extend(cls.extra_schema().defs)
+        # the run loop's busy time (Stage.run): the port's, past the JAX
+        # package's stage block
+        s.counter("busy_ns", "host ns of run() sweeps that consumed or published")
+        have = s.names()
+        s.defs.extend(d for d in cls.extra_schema().defs if d.name not in have)
         return s
 
     @classmethod
     def extra_schema(cls) -> fm.MetricsSchema:
-        return fm.MetricsSchema()
+        s = fm.MetricsSchema()
+        for name in dict.fromkeys(cls.counters):
+            s.counter(name)
+        return s
+
+    # -- observability and supervision ---------------------------------------
+
+    def trace(self, event: int, arg: int = 0) -> None:
+        """Flight-recorder append (rare events only, never per frag)."""
+        self.recorder.record(event, arg)
+
+    def attach_observability(self, registry: fm.MetricsRegistry,
+                             recorder: fm.FlightRecorder) -> None:
+        """Bind the runner's shm registry and flight ring (a child's boot,
+        after its builder ran).  The metrics plane and the drain plan that
+        embeds it are rebuilt on the new registry at the next sweep; the
+        sweep client's C side drops its pointer to the old plane now, so
+        nothing writes into the old registry again."""
+        self.metrics.attach(registry)
+        self.recorder.replay_into(recorder)
+        self.recorder = recorder
+        self._nplane = None
+        self._drainer = None
+        client = self._sweep_client
+        if client is not None and getattr(client, "_plane", None) is not None:
+            client.set_metrics(None)
+
+    def arm_safe_progress(self) -> None:
+        """Make fseq publication transactional (a restartable stage's
+        contract): consumers stop publishing progress mid-poll, and
+        run_once publishes it only after a sweep's effects are out, so a
+        SIGKILL leaves every fseq where everything before it is on the
+        wire.  A stage with a sweep client raises: its C side publishes
+        without the replay guard resume_from_rings arms."""
+        if self._sweep_client is not None:
+            raise ValueError(f"stage '{self.name}': a sweep client publishes from C, past the"
+                             f" in-place restart's publish guard; it cannot be restartable")
+        self.safe_progress = True
+        for c in self.ins:
+            c.set_lazy(1 << 62)
+
+    def _commit_progress(self) -> None:
+        for c in self.ins:
+            c.publish_progress()
+
+    def resume_from_rings(self) -> None:
+        """Reattach to the live rings after a respawn: every consumer at
+        the progress it last published (frags consumed past it replay),
+        every producer at the frontier recovered from its ring, with that
+        ring's sigs arming the publish guard.  Exactly-once holds for
+        stages whose output is a function of their input stream and whose
+        sigs are unique within a ring depth; a source stage (no inputs)
+        derives its own progress from its producers' seqs."""
+        for c in self.ins:
+            c.resume()
+        self._resume_guards = {}
+        for i, p in enumerate(self.outs):
+            sigs = p.resume()
+            if sigs:
+                self._resume_guards[i] = sigs
+        self.trace(fm.EV_RESTART, self._iter)
+
+    def _guarded(self, out_idx: int, sig: int) -> bool:
+        """True when this publish replays a frag the ring already carries:
+        swallow it.  The guard disarms at the first sig the ring never
+        carried (the replay passed the crash point)."""
+        g = self._resume_guards.get(out_idx)
+        if g is None:
+            return False
+        if sig in g:
+            g.discard(sig)
+            self.metrics.inc("restart_dedup")
+            return True
+        del self._resume_guards[out_idx]
+        return False
+
+    def run(self) -> None:
+        """The process runner's loop: run_once until the cnc signals HALT.
+        A stage without a core of its own naps IDLE_SLEEP_S after
+        IDLE_SPINS sweeps that consumed and published nothing, so it does
+        not steal the CPU from busy siblings.  The host
+        time of the sweeps that consumed or published adds up in the
+        busy_ns counter (the process's CPU time also holds the idle ones)."""
+        idle = 0
+        busy = 0.0
+        pc = time.perf_counter
+        m = self.metrics.counters
+        t = time.monotonic_ns()
+        self.cnc.heartbeat(t)
+        self.cnc.diag_set(self.DIAG_RUN_AT, t)
+        self.cnc.signal = CNC_SIG_RUN
+        self.trace(fm.EV_RUN)
+        cells = self.cnc.cells
+        while int(cells[0]) != CNC_SIG_HALT:
+            out0 = m["frags_out"]
+            t0 = pc()
+            if self.run_once() or m["frags_out"] != out0:
+                busy += pc() - t0
+                m["busy_ns"] = int(busy * 1e9)
+                idle = 0
+            else:
+                idle += 1
+                if idle >= IDLE_SPINS:
+                    time.sleep(IDLE_SLEEP_S)
+        self.trace(fm.EV_HALT, self._iter)
+        self.metrics.flush()
+
+    def halt(self) -> None:
+        self.cnc.signal = CNC_SIG_HALT
 
     def _native_plane(self):
         """The stage's metrics plane (runtime/native_metrics.NativePlane),
@@ -254,7 +407,15 @@ class Stage:
         for p in self.outs:
             p.refresh_credits()
         self.during_housekeeping()
-        self.metrics.flush()
+        m = self.metrics
+        cnc = self.cnc
+        cnc.heartbeat(time.monotonic_ns())
+        cnc.diag_set(self.DIAG_FRAGS_IN, m.get("frags_in"))
+        cnc.diag_set(self.DIAG_FRAGS_OUT, m.get("frags_out"))
+        cnc.diag_set(self.DIAG_OVERRUN, m.get("overrun"))
+        cnc.diag_set(self.DIAG_BACKPRESSURE, m.get("backpressure"))
+        cnc.diag_set(self.DIAG_ITER, self._iter)
+        m.flush()
 
     def _no_credit(self) -> bool:
         for p in self.outs:  # a loop, not any(): this runs thrice a sweep
@@ -286,11 +447,15 @@ class Stage:
         if not self.ins:
             return False
         drainer = self._native_drainer()
-        if drainer is not None:
-            if self._sweep_client is not None:
-                return self._native_sweep(drainer)
-            return self._native_burst(drainer)
-        return self._poll_burst()
+        if drainer is None:
+            progressed = self._poll_burst()
+        elif self._sweep_client is not None:
+            progressed = self._native_sweep(drainer)
+        else:
+            progressed = self._native_burst(drainer)
+        if progressed and self.safe_progress:
+            self._commit_progress()  # the sweep's effects are out
+        return progressed
 
     def _poll_burst(self) -> bool:
         """Up to `burst` frags by Python polls, round-robin over the inputs."""
@@ -411,6 +576,8 @@ class Stage:
 
     def publish(self, out_idx: int, payload: bytes, sig: int = 0,
                 tsorig: int = 0) -> bool:
+        if self._resume_guards and self._guarded(out_idx, sig):
+            return True  # a replay: on the wire before the crash
         ok = self.outs[out_idx].try_publish(payload, sig=sig, tsorig=tsorig)
         self.metrics.inc("frags_out" if ok else "backpressure")
         return ok
@@ -422,6 +589,15 @@ class Stage:
         Returns how many went out."""
         if not items:
             return 0
+        if out_idx in self._resume_guards:
+            # the replay window after a restart: frame by frame, so the
+            # guard sees every sig (it disarms within one ring depth)
+            n = 0
+            for payload, sig, tsorig in items:
+                if not self.publish(out_idx, payload, sig=sig, tsorig=tsorig):
+                    break
+                n += 1
+            return n
         p = self.outs[out_idx]
         burst = getattr(p, "publish_burst", None)
         if burst is not None:

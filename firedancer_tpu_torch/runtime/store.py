@@ -19,6 +19,8 @@ from .stage import Stage
 
 
 class StoreStage(Stage):
+    counters = ("shreds_in", "sets_stored")
+
     def __init__(self, *args, verify_sig=None, trust_membership: bool = False,
                  device=None, **kwargs):
         super().__init__(*args, **kwargs)

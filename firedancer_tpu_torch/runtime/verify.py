@@ -68,6 +68,7 @@ from ..protocol import txn as ft
 from ..protocol import txn_native
 from ..tango.native import NativeConsumer, NativeProducer
 from ..tango.rings import TCache
+from ..utils import kbuild
 from ..utils import metrics as fm
 from ..utils.platform import resolve_device
 from . import verify_native as vn
@@ -158,14 +159,20 @@ class _Pending:
 
 
 class VerifyStage(Stage):
+    counters = ("txn_verified", "verify_fail", "parse_fail", "dedup_dup", "msg_too_long",
+                "too_many_sigs", "batches", "batch_elems", "comb_batches", "comb_elems",
+                "comb_fills", "comb_installs", "comb_filled", "emit_dropped",
+                "submit_deferred", "retunes", "k1_launches", *vn.COUNTERS)
+
     def __init__(self, name: str, ins=None, outs=None, *, device=None,
                  batch: int = 1024, max_msg_len: int = 1232,
                  batch_deadline_s: float = 0.002,
                  max_inflight: int = DEFAULT_MAX_INFLIGHT,
                  kernel: str = "fused", comb_slots: int = 0,
                  promote_threshold: int = 2, plane=None,
-                 autotune_after: int = 0, native_client: bool | None = None):
-        super().__init__(name, ins, outs)
+                 autotune_after: int = 0, native_client: bool | None = None,
+                 cnc=None):
+        super().__init__(name, ins, outs, cnc=cnc)
         if kernel not in sv.KERNEL_LADDER:
             raise ValueError(f"unknown verify kernel {kernel!r}"
                              f" (ladder: {', '.join(sv.KERNEL_LADDER)})")
@@ -425,8 +432,10 @@ class VerifyStage(Stage):
         ln = torch.from_numpy(views.ln).to(dev)
         if dev.type == "cpu":
             ln = ln.clone()  # the CPU tensor would alias the slot
+        k1 = kbuild.LAUNCHES["verify_batch"]
         mask, n_ok = sv.verify_dispatch(self.kernel, msg, ln, sig, pk, n_elems,
                                         max_msg_len=self.max_msg_len)
+        self.metrics.inc("k1_launches", kbuild.LAUNCHES["verify_batch"] - k1)
         event = None
         if dev.type == "cuda":
             event = torch.cuda.Event()
@@ -605,7 +614,9 @@ class VerifyStage(Stage):
         while q and len(self._inflight) < self.max_inflight:
             acc, cached = q.pop(0)
             n = len(acc.elems)
+            k1 = kbuild.LAUNCHES["verify_batch"]
             self._inflight.append(_Pending(acc, n, self._dispatch(acc, cached)))
+            self.metrics.inc("k1_launches", kbuild.LAUNCHES["verify_batch"] - k1)
             self.metrics.inc("batches")
             self.metrics.inc("batch_elems", n)
             self.metrics.observe("batch_fill", n)

@@ -198,6 +198,18 @@ class NativeProducer:
         return int(self._lib.fdr_publish_burst(self._lsp, self._pp, buf, tbl.buffer_info()[0],
                                                n))
 
+    def resume(self) -> set[int]:
+        """shm.Producer.resume on this lane: the cursors recovered from the
+        live ring (one Python pass over the mcache at restart) are set in
+        the C producer struct, which every publish reads."""
+        if self._lsp is None:
+            raise _detached()
+        frontier, next_chunk, sigs = self.link.mcache.recover()
+        self._p.seq = frontier
+        self._p.chunk = next_chunk
+        self.refresh_credits()
+        return sigs
+
     def publish_burst_raw(self, buf_ptr: int, tbl: np.ndarray) -> int:
         """fdr_publish_burst over frames that already lie in native memory
         (the verify sweep client's slot arenas): buf_ptr is the arena's
@@ -280,6 +292,21 @@ class NativeConsumer:
         if self._lsp is None:
             raise _detached()
         self._lib.fdr_publish_progress(self._lsp, self._cp)
+
+    def set_lazy(self, lazy: int) -> None:
+        """shm.Consumer.set_lazy on this lane: the C struct's field is the
+        one fdr_poll, fdr_drain and fdr_sweep read."""
+        self.lazy = lazy
+        self._c.lazy = lazy
+
+    def resume(self) -> int:
+        """shm.Consumer.resume on this lane: the C cursor is set to the
+        progress last published to this consumer's fseq."""
+        if self._lsp is None:
+            raise _detached()
+        self._c.seq = self.link.fseqs[int(self._c.fseq_idx)].query()
+        self._c.since_publish = 0
+        return int(self._c.seq)
 
     def detach(self) -> None:
         self._lsp = self._cp = None

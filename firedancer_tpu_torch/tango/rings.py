@@ -12,12 +12,12 @@ firedancer_tpu/tango/rings.py, byte for byte in its layouts.
     wrapping to chunk 0 past the watermark;
   - Fseq: a consumer's published progress, read by the producer's
     FlowControl for its credits toward reliable consumers;
-  - TCache: the dedup tag cache.
+  - TCache: the dedup tag cache;
+  - Cnc: a stage's command-and-control cell (signal, heartbeat and
+    diagnostic words), which the process runner (runtime/topo.py) reads.
 
 State lives in numpy arrays over an optional buffer, so the same code runs
 over plain memory (tests) or over a shared-memory block (tango/shm.py).
-The command-and-control cell (Cnc) comes with the process runner; the shm
-layout keeps its words (tango/shm.py).
 """
 
 from __future__ import annotations
@@ -102,6 +102,32 @@ class MCache:
                 return 1, None
             return 0, meta
         return (-1, None) if d < 0 else (1, None)
+
+    def recover(self) -> tuple[int, int, set[int]]:
+        """The producer's cursors rebuilt from the ring alone, for a
+        respawned producer that reattaches to its live ring:
+        (frontier_seq, next_chunk, published_sigs).  The newest row
+        without the BUSY bit is the last completed publish, so the
+        frontier is the seq after it (0 on a ring never published); a
+        row caught mid-overwrite was never visible and is published
+        again.  next_chunk is the dcache cursor after the frontier frag's
+        payload, so a resumed producer overwrites no frag in flight; the
+        sigs are every completed row's, the replay-dedup window."""
+        best = None  # (seq, chunk, sz)
+        sigs: set[int] = set()
+        for line in range(self.depth):
+            row = self.table[line]
+            mseq = int(row[self.COL_SEQ])
+            if mseq & self.BUSY:
+                continue  # initial, or mid-overwrite (never published)
+            sigs.add(int(row[self.COL_SIG]))
+            if best is None or seq_diff(mseq, best[0]) > 0:
+                best = (mseq, int(row[self.COL_CHUNK]), int(row[self.COL_SZ]))
+        if best is None:
+            return 0, 0, sigs
+        frontier = (best[0] + 1) & _MASK64
+        next_chunk = best[1] + (-(-max(best[2], 1) // DCache.CHUNK_SZ))
+        return frontier, next_chunk, sigs
 
 
 class DCache:
@@ -200,3 +226,46 @@ class TCache:
         self.oldest = (self.oldest + 1) % self.depth
         self.map.add(tag)
         return False
+
+
+# Cnc signal values (the fd_cnc state machine)
+CNC_SIG_BOOT = 0
+CNC_SIG_RUN = 1
+CNC_SIG_HALT = 2
+CNC_SIG_FAIL = 3
+
+
+class Cnc:
+    """Command-and-control cell: signal, heartbeat, then NDIAG diagnostic
+    words, one u64 each (the JAX package's layout, word for word, so
+    either package's view of one buffer reads the other's writes)."""
+
+    NDIAG = 6
+
+    def __init__(self, buf: np.ndarray | None = None):
+        self.cells = buf if buf is not None else np.zeros(2 + self.NDIAG, dtype=U64)
+
+    @classmethod
+    def footprint(cls) -> int:
+        return (2 + cls.NDIAG) * 8
+
+    @property
+    def signal(self) -> int:
+        return int(self.cells[0])
+
+    @signal.setter
+    def signal(self, v: int) -> None:
+        self.cells[0] = v
+
+    def heartbeat(self, now: int) -> None:
+        self.cells[1] = int(now) & _MASK64
+
+    @property
+    def last_heartbeat(self) -> int:
+        return int(self.cells[1])
+
+    def diag(self, idx: int) -> int:
+        return int(self.cells[2 + idx])
+
+    def diag_set(self, idx: int, v: int) -> None:
+        self.cells[2 + idx] = int(v) & _MASK64

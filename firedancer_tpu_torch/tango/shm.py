@@ -7,8 +7,9 @@ Layout (8-byte aligned):
   [32, a)         mcache table   (depth * 7 u64)
   [a, b)          dcache data    (dcache_sz bytes)
   [b, c)          fseq cells     (n_fseq u64)
-  [c, c + 64)     the command-and-control cell's words, reserved here for
-                  the process runner (the JAX package's Cnc)
+  [c, c + 64)     a command-and-control cell's words (rings.Cnc), kept
+                  for the JAX package's layout; the process runner gives
+                  each stage a cnc segment of its own (runtime/topo.py)
 
 Two lanes speak the protocol over the same bytes: the Python `Producer`
 and `Consumer` here (the spec the native lane is held against) and the
@@ -30,16 +31,19 @@ import numpy as np
 from . import rings
 
 _HDR = 4 * 8
-CNC_SZ = 8 * 8  # the reserved command-and-control words
+CNC_SZ = rings.Cnc.footprint()  # the command-and-control words
 
 _uid_seq = iter(range(1 << 62))
 
 
-def fresh_uid() -> str:
-    """A /dev/shm-unique run id, `pid_counter`: the pid keeps processes
-    apart (test workers, pipelines side by side) and the counter keeps one
-    process's successive pipelines apart."""
-    return f"{os.getpid()}_{next(_uid_seq)}"
+def fresh_uid(namespace: str | None = None) -> str:
+    """A /dev/shm-unique run id, `[namespace_]pid_counter`: the pid keeps
+    processes apart (test workers, pipelines side by side) and the counter
+    keeps one process's successive pipelines apart; `namespace` scopes a
+    run's segments (a topology's, say) under a prefix of its own.  Names
+    are made in the parent: children of a topology get them ready-made."""
+    tag = f"{os.getpid()}_{next(_uid_seq)}"
+    return f"{namespace}_{tag}" if namespace else tag
 
 
 def now_ns() -> int:
@@ -160,6 +164,17 @@ class Producer:
     def refresh_credits(self) -> None:
         self.cr_avail = self.fctl.credits(self.seq)
 
+    def resume(self) -> set[int]:
+        """In-place restart: the publish cursor recovered from the live
+        ring (a fresh endpoint at seq 0 would lap every consumer and
+        overwrite payloads in flight).  Returns the ring's published sigs,
+        the caller's replay-dedup window (Stage.resume_from_rings)."""
+        frontier, next_chunk, sigs = self.link.mcache.recover()
+        self.seq = frontier
+        self.link.dcache._chunk = next_chunk
+        self.refresh_credits()
+        return sigs
+
     def try_publish(self, payload: bytes, sig: int = 0, tsorig: int = 0) -> bool:
         """Publish if credits allow (False = backpressured).  tspub is
         stamped here; tsorig=0 means this stage is the origin and stamps
@@ -226,6 +241,20 @@ class Consumer:
     def publish_progress(self) -> None:
         self.fseq.publish(self.seq)
         self._since_publish = 0
+
+    def resume(self) -> int:
+        """In-place restart: resume at the progress this consumer last
+        published to its fseq.  Frags consumed past it before the crash
+        are polled again; the restarted stage's publish guard keeps the
+        wire exactly-once."""
+        self.seq = self.fseq.query()
+        self._since_publish = 0
+        return self.seq
+
+    def set_lazy(self, lazy: int) -> None:
+        """Retune the progress publication interval
+        (Stage.arm_safe_progress puts it out of reach)."""
+        self.lazy = lazy
 
     def detach(self) -> None:
         self.link = self.fseq = None

@@ -24,9 +24,14 @@ survives the writer crashing.
 Segment layout (metrics_segment_*): 4 header words (magic, metric word
 count, recorder capacity, reserved) | metric words | recorder words.
 
+The process runner (runtime/topo.py) reads the pieces below the
+registry: `schema_to_obj` (the run descriptor's schema), `latency_row` and
+`format_latency_ms` (the monitor table), `flight_dump_obj` (the crash
+dump: every stage's flight records and a structured metrics snapshot).
+
 Not ported, waiting for the port's monitor: the Prometheus exposition and
-its HTTP server, the latency and sweep-phase rows, and the flight dumps'
-Chrome-trace export.
+its HTTP server (so a flight dump has no Prometheus text), the sweep-phase
+rows, and the flight dumps' Chrome-trace export.
 """
 
 from __future__ import annotations
@@ -92,6 +97,18 @@ class MetricsSchema:
 
     def names(self) -> set[str]:
         return {d.name for d in self.defs}
+
+
+def schema_to_obj(schema: MetricsSchema) -> list[dict]:
+    """The schema in JSON form (the run descriptor's): a reader rebuilds
+    the registry layout without importing the stage classes."""
+    out = []
+    for d in schema.defs:
+        o = {"name": d.name, "kind": d.kind, "help": d.help, "buckets": list(d.buckets)}
+        if d.native:
+            o["native_owned"] = True  # a C sweep client's word
+        out.append(o)
+    return out
 
 
 def exp_buckets(lo: float, hi: float, n: int) -> tuple:
@@ -200,6 +217,48 @@ def hist_quantile(h: dict, q: float) -> float:
         if run >= target:
             return edge
     return float("inf")
+
+
+def latency_row(reg: "MetricsRegistry | None") -> dict:
+    """The monitor's latency fields from a stage registry: p50 and p99 of
+    frag_latency_ns in ms, or Nones without a registry or observations."""
+    out = {"lat_p50_ms": None, "lat_p99_ms": None}
+    if reg is not None and "frag_latency_ns" in reg._off:
+        h = reg.hist("frag_latency_ns")
+        if h["count"]:
+            out["lat_p50_ms"] = hist_quantile(h, 0.5) / 1e6
+            out["lat_p99_ms"] = hist_quantile(h, 0.99) / 1e6
+    return out
+
+
+def format_latency_ms(v: float | None) -> str:
+    """One cell of the monitor's latency columns: '-' without a value,
+    '>max' when the quantile overflowed the last bucket."""
+    if v is None:
+        return "-"
+    if v == float("inf"):
+        return ">max"
+    return f"{v:,.1f}ms"
+
+
+def registry_obj(reg: "MetricsRegistry") -> dict:
+    """A registry's values, JSON-ready: counters and gauges as ints,
+    histograms as hist() dicts."""
+    return {d.name: reg.hist(d.name) if d.kind == HISTOGRAM else reg.get(d.name)
+            for d in reg.schema.defs}
+
+
+def flight_dump_obj(uid: str, stages: dict, *, failed: str | None = None,
+                    reason: str = "") -> dict:
+    """The crash-dump object: each stage's flight records and its metrics
+    snapshot.  `stages`: name -> (registry or None, recorder or None)."""
+    obj = {"uid": uid, "failed": failed, "reason": reason, "stages": {}}
+    for name, (reg, rec) in stages.items():
+        ent = {"records": [list(r) for r in rec.records()] if rec is not None else []}
+        if reg is not None:
+            ent["metrics"] = registry_obj(reg)
+        obj["stages"][name] = ent
+    return obj
 
 
 # -- flight recorder ----------------------------------------------------------

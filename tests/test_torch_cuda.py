@@ -13,6 +13,7 @@ arithmetic), and its launch counter must count the launch.
 
 import ctypes
 import hashlib
+import time
 
 import numpy as np
 import pytest
@@ -1119,3 +1120,57 @@ def test_udp_ingress_leader_on_the_card(dev):
                      status_cache=ctx.status_cache, device=dev)
     ctx.close()
     assert r.bank_hash == sealed.bank_hash and r.signature_cnt == len(pool)
+
+
+def test_topology_child_launches_k1_and_matches_the_plain_mask(dev):
+    """A two-process topology on the card: benchg sends 64 transfers, every
+    third with a broken signature, to verify0, a child with its own CUDA
+    context whose sweep client launches K1 on each sealed batch; what it
+    forwards is exactly what the plain ed25519 check passes."""
+    from firedancer_tpu_torch.models import leader_topo as lt
+    from firedancer_tpu_torch.protocol import txn as ftxn
+    from firedancer_tpu_torch.runtime import topo as ft
+    from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
+    from firedancer_tpu_torch.runtime.verify import VerifyStage, decode_verified
+    from firedancer_tpu_torch.tango import shm
+
+    pool = gen_transfer_pool(64)
+    pool = [p[:5] + bytes([p[5] ^ 1]) + p[6:] if i % 3 == 0 else p for i, p in enumerate(pool)]
+
+    def sig_ok(p):
+        t = ftxn.txn_parse(p)
+        return ref.verify(t.message(p), t.signatures(p)[0], t.acct_addrs(p)[0])
+
+    want = sorted(ftxn.txn_parse(p).signatures(p)[0] for p in pool if sig_ok(p))
+    assert 0 < len(want) < len(pool)
+    topo = ft.Topology(host_libs=lt.HOST_LIBS, kernels=("verify",))  # device None: the card
+    topo.link("gv", depth=1024, mtu=1232)
+    topo.link("vd", depth=1024, mtu=4096)
+    # hand-wired (no ins / outs declared): this process reads vd, which the
+    # pre-boot checker would count as a link with no consuming stage
+    topo.stage("benchg", lt.build_benchg, pool_size=len(pool), n_txns=len(pool), pool=pool)
+    topo.stage("verify0", lt.build_verify, batch=16, max_msg_len=1232,
+               schema=VerifyStage.metrics_schema())
+    h = ft.launch(topo)
+    cons = shm.Consumer(h.links["vd"], lazy=1)
+    got = []
+
+    def read(hh):
+        while isinstance(r := cons.poll(), tuple):
+            p_ = decode_verified(r[1])[0]  # the frame: payload, then its descriptor
+            got.append(ftxn.txn_parse(p_).signatures(p_)[0])
+
+    try:
+        ok = h.supervise(until=lambda hh: len(got) >= len(want), on_poll=read, timeout_s=300,
+                         heartbeat_timeout_s=60)
+        assert ok, f"stage {h.failed} failed:\n{h.format_monitor()}"
+        time.sleep(0.5)
+        read(h)
+        assert sorted(got) == want
+        reg = h.met_views["verify0"][0]
+        # the child's own K1 wrapper counted one launch a sealed batch
+        assert reg.get("k1_launches") == reg.get("batches") >= len(pool) // 16
+        h.halt()
+    finally:
+        del cons
+        h.close()

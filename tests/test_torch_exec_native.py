@@ -12,8 +12,8 @@ native_exec=False, and the JAX SlotExecution with FDTPU_NATIVE_EXEC=0.
 All three give the same per-txn (status, fee), bank hash, fees, signature
 count and account bytes; the port's two lanes also the same compute units.
 Then: the classifier against JAX's, the session's gate and value overlay,
-the call's return codes (faked; the C++ is not touched), the stateless
-entry point, StatusCache.version, and the CPU leader pipeline on both lanes.
+the call's return codes (faked; the C++ is not touched), the session lane
+against the Python lane on raw entries, StatusCache.version, and the CPU leader pipeline on both lanes.
 g++ builds the library on first use (utils/hostbuild.py).
 """
 
@@ -397,31 +397,39 @@ def test_bad_response_magic_raises():
 
 
 def test_stateless_entry_point_equals_the_session():
-    """fd_exec_batch (every value shipped, nothing kept) and fd_exec_batch2
-    (values known to the session left out) give the same records."""
+    """The session lane (fd_exec_batch2: values the session already holds
+    left out) against the port's Python exec lane on the same entries:
+    statuses and fees, compute units, and every account the session's
+    records write.  (The stateless fd_exec_batch entry, once this test's
+    oracle, had no caller and is gone.)"""
     rng = random.Random(94)
     p, q = js._pk("payerA"), js._pk("payerB")
     txns = [_transfer(rng, p, js._pk("st0"), 11), _transfer(rng, q, p, 12),
             _transfer(rng, p, js._pk("st1"), 10**13)]
     funk, _ = _port_world()
-    entries = []
+    entries, seen = [], set()
     for t in txns:
         d = tft.txn_parse(t)
         addrs = d.acct_addrs(t)
+        # a value shipped once: the later entries name it as session-known
         entries.append([t, tft.txn_pack(d), addrs,
-                        [funk.rec_query(None, a) or b"" for a in addrs]])
+                        [None if a in seen else funk.rec_query(None, a) or b"" for a in addrs]])
+        seen.update(addrs)
     kw = dict(lamports_per_sig=trt.LAMPORTS_PER_SIGNATURE, clock_slot=js.SLOT, clock_epoch=0)
-    stateless = tx.BatchContext(**kw).run(entries)
-    session = tx.BatchContext(session=tx.Session(), **kw)
-    # p's value shipped once: its later entries name it as session-known
-    seen = set()
-    for e in entries:
-        e[3] = [None if a in seen else v for a, v in zip(e[2], e[3])]
-        seen.update(e[2])
-    assert session.run(entries) == stateless
-    n_done, punted, recs = stateless
+    n_done, punted, recs = tx.BatchContext(session=tx.Session(), **kw).run(entries)
     assert (n_done, punted) == (3, False)
-    assert [(s, f) for s, f, _n, _w in recs] == [(0, 5000), (0, 5000), (trt.TXN_ERR_INSUFFICIENT_FUNDS, 5000)]
+    py = run_port(txns, native=False)
+    assert [(s, f) for s, f, _n, _w in recs] == py.results == \
+        [(0, 5000), (0, 5000), (trt.TXN_ERR_INSUFFICIENT_FUNDS, 5000)]
+    # compute units: the session lane's, through the SlotExecution that
+    # charges them from each record's instruction count
+    nat = run_port(txns, native=True)
+    assert nat.native == (3, 0) and nat.cus == py.cus
+    written = {}
+    for (_s, _f, _n, writes), e in zip(recs, entries):
+        for idx, v in writes:
+            written[e[2][idx]] = v
+    assert written and all(py.state[a] == v for a, v in written.items())
 
 
 def test_session_close_is_idempotent():

@@ -23,6 +23,7 @@ import firedancer_tpu_torch
 from firedancer_tpu_torch import entry as tentry
 from firedancer_tpu_torch.flamenco.runtime import SlotExecution, execute_block
 from firedancer_tpu_torch.funk import make_funk
+from firedancer_tpu_torch.models import leader_topo as tltopo
 from firedancer_tpu_torch.models import workload as tw
 from firedancer_tpu_torch.models.leader import (
     build_leader_pipeline,
@@ -49,6 +50,7 @@ from firedancer_tpu_torch.runtime import poh as tpoh
 from firedancer_tpu_torch.runtime.bank import BankCtx, default_bank_ctx
 from firedancer_tpu_torch.runtime import net as tnet
 from firedancer_tpu_torch.runtime import net_native as tnn
+from firedancer_tpu_torch.runtime import topo as ttopo
 from firedancer_tpu_torch.runtime import shred_native as tsn
 from firedancer_tpu_torch.runtime import verify_native as tvn
 from firedancer_tpu_torch.runtime.fec_resolver import FecResolver
@@ -208,7 +210,8 @@ def _no_card():
     "python_pack_leader_pipeline", "python_pack_sharded_leader_pipeline", "zk_bank_ctx",
     "native_pack_leader_block", "python_exec_bank_ctx", "python_exec_default_bank_ctx",
     "python_exec_nonce_bank_ctx", "native_shredder", "native_shred_stage",
-    "udp_ingress_leader_pipeline"])
+    "udp_ingress_leader_pipeline", "leader_topology", "leader_topology_fused",
+    "topology_launch"])
 def test_entry_points_default_to_the_card(call):
     _no_card()
     h = bytes(32)
@@ -259,6 +262,9 @@ def test_entry_points_default_to_the_card(call):
         "native_shredder": lambda: tsn.NativeShredder(secret=h),
         "native_shred_stage": lambda: ShredStage("shred", signer=None, secret=h),
         "udp_ingress_leader_pipeline": lambda: build_leader_pipeline(udp_ingress=True),
+        "leader_topology": lambda: tltopo.build_leader_topology(),
+        "leader_topology_fused": lambda: tltopo.build_leader_topology_fused(),
+        "topology_launch": lambda: ttopo.launch(ttopo.Topology()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fns[call]()
