@@ -457,6 +457,29 @@ script or when a phase fails):
               (b) python -m firedancer_tpu_torch run --processes --sandbox
               --txns TOPO_CLI_TXNS as a subprocess: every child jailed with
               its CUDA context live, exit 0 with the monitor table
+  17l. sharded leader processes  models/leader_topo.
+              build_sharded_leader_topology(n_shards=TOPO_SHARDS) over
+              phase 17's pool at batch 1,024, native pack, one bank,
+              unclocked: every child (four verify shards and shred with their
+              own CUDA contexts) alive until the halt and exit 0 after it, no
+              /dev/shm entry left; the router's routed_s{i} = verify_s{i}'s
+              frags_in, summing to the pool; each shard's K1 launches = its
+              batches > 0, shred's K5 launches = its FEC sets; bank0 lands the
+              pool, and the tap's signatures are 17k's; while it runs,
+              another process runs `ready` (from the launch) and then
+              `metrics --once` (frags_in{stage="verify",shard="i"} for every
+              shard), `monitor --iterations 2` (the folded verify row),
+              `trace --out build/chip_17l_trace.json` (batch spans) and
+              `slotreport` (the shards' blocks) against its descriptor, each
+              exiting 0; [leader-sharded-processes]: boot seconds, per-shard
+              counts, K1 a shard, seconds from the first send to the last
+              landing
+  17m. chaos on the card  python -m firedancer_tpu_torch chaos run
+              slot-overrun --seed CHAOS_SEED as a subprocess: rc 0 with
+              "ok": true and every check true, two slots missed (the two
+              boundaries poh was frozen across), no txn lost (96 in pack,
+              scheduled and landed), and its measured line: K1 in verify0 =
+              its batches > 0, K5 in shred = its FEC sets > 0; [chaos-card]
   18. sha256  K14 sha256_msg at B = 4,096, max_len 1,232, lengths across
               every padding boundary: equal to hashlib on every lane and to
               the plain version on 1,024; the same rows from an offset
@@ -646,6 +669,9 @@ CLOCK_SLOTS, CLOCK_TICKS, CLOCK_SLOT_MS, CLOCK_GRACE = 16, 64, 400.0, 0.25
 # with every child spawned at once (9.7-11.8 s; [leader-processes-boot],
 # PERF.md section 5); and the CLI run's txns
 TOPO_BOOT_GRACE_S, TOPO_CLI_TXNS = 20.0, 1024
+# phase 17l: the sharded topology's verify shards (the JAX builder's
+# default); phase 17m: the chaos run's seed
+TOPO_SHARDS, CHAOS_SEED = 4, 7
 # phase 17f: the program leader's stream (models/workload.program_stream):
 # v0 transfers through 16 lookup tables of 64 addresses (phase 17's 1,024
 # destinations), phase 17's legacy transfers, stake txns over 128 accounts,
@@ -953,6 +979,107 @@ def leader_as_processes(pool: list, dev, clock_cfg, batch: int, max_msg_len: int
                 anchor_s=(anchor_ns - t_launch) / 1e9,
                 window_s=(marks["window_ns"] - anchor_ns) / 1e9,
                 landed_s=(marks["landed_ns"] - anchor_ns) / 1e9, in_window=marks["in_window"])
+
+
+def sharded_as_processes(pool: list, dev, batch: int, max_msg_len: int, n_shards: int) -> dict:
+    """17l: models/leader_topo.build_sharded_leader_topology over the pool
+    (unclocked, as the JAX builder is), supervised until bank0 has executed
+    the pool; a ShredTap here reads the wire shreds without credit.  While
+    it runs, another process runs each operator command against its run
+    descriptor: `ready` from the launch on, then, once the pool has landed,
+    `metrics --once`, `monitor --iterations 2`, `trace --out` and
+    `slotreport`, all at once.  Each child's boot seconds, the registries'
+    counters, the tap's entries, the commands' results, and the seconds from
+    benchg's loop start (its first send) to the last landing."""
+    from firedancer_tpu_torch.models import leader_topo as lt
+    from firedancer_tpu_torch.runtime import monitor as mon
+    from firedancer_tpu_torch.runtime import topo as ftopo
+    from firedancer_tpu_torch.runtime.stage import Stage
+
+    n = len(pool)
+    topo = lt.build_sharded_leader_topology(n_shards=n_shards, n_txns=n, pool_size=n, pool=pool,
+                                            batch=batch, max_msg_len=max_msg_len, pack_depth=n,
+                                            device="cpu" if dev.type == "cpu" else None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    trace_out = os.path.join(here, "build", "chip_17l_trace.json")
+    os.makedirs(os.path.dirname(trace_out), exist_ok=True)
+
+    def cli(*cmd):
+        return subprocess.Popen([sys.executable, "-m", "firedancer_tpu_torch", *cmd,
+                                 "--descriptor", desc], cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    t_launch = time.monotonic_ns()
+    h = ftopo.launch(topo)
+    launch_s = (time.monotonic_ns() - t_launch) / 1e9
+    names = h.shm_names()
+    desc = mon.descriptor_path(h.uid)
+    procs = {"ready": cli("ready", "--timeout", "60")}
+    tap = lt.ShredTap(h.links["ss"])
+    marks = {}
+
+    def on_poll(hh) -> None:
+        tap.poll()
+        if "landed_ns" not in marks and hh.met_views["bank0"][0].get("txn_exec") >= n:
+            marks["landed_ns"] = time.monotonic_ns()
+
+    results = {}
+    try:
+        ok = h.supervise(until=lambda hh: "landed_ns" in marks, on_poll=on_poll, timeout_s=300.0,
+                         heartbeat_timeout_s=30.0, boot_timeout_s=180.0)
+        snap = {r_["stage"]: r_ for r_ in h.snapshot()}
+        monitor = h.format_monitor()
+        check(ok, f"17l: stage {h.failed} failed:\n{monitor}")
+        ents = []
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 10.0:  # the shred stage's idle flush closes the last batch
+            tap.poll()
+            ents = tap.entries()
+            if sum(len(parse_entry_frame(e_)[2]) for e_ in ents) >= n:
+                break
+            time.sleep(0.05)
+        # the block is read: unclocked, PoH ticks on until the halt and the
+        # tap, no longer polled, may overrun from here
+        overruns = tap.overruns
+        t0 = time.monotonic()
+        procs.update(metrics=cli("metrics", "--once"),
+                     monitor=cli("monitor", "--iterations", "2", "--interval", "0.5"),
+                     trace=cli("trace", "--out", trace_out), slotreport=cli("slotreport"))
+        for nm, p_ in procs.items():
+            out_, err_ = p_.communicate(timeout=120)
+            results[nm] = dict(rc=p_.returncode, out=out_, err=err_)
+        cli_s = time.monotonic() - t0
+        regs = {nm: v_[0] for nm, v_ in h.met_views.items()}
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 10.0:  # the registries flush at housekeeping
+            routed = [regs["router"].get(f"routed_s{i}") for i in range(n_shards)]
+            if sum(routed) == n and routed == [regs[f"verify_s{i}"].get("frags_in")
+                                              for i in range(n_shards)]:
+                break
+            time.sleep(0.05)
+        counters = {nm: {k: reg.get(k) for k in (
+            "frags_in", "frags_out", "routed_total", "txn_verified", "verify_fail", "batches",
+            "sealed_batches", "k1_launches", "txn_in", "txn_dropped", "dedup_dup", "txn_exec",
+            "txn_exec_failed", "txn_rejected", "fec_sets", "k5_launches", "sets_stored",
+            *(f"routed_s{i}" for i in range(n_shards))) if k in reg._off}
+            for nm, reg in regs.items()}
+        first_send_ns = h.cncs["benchg"].diag(Stage.DIAG_RUN_AT)
+        alive = {nm: p_.is_alive() for nm, p_ in h.procs.items()}
+        regs = None
+        h.halt()
+        exitcodes = {nm: p_.exitcode for nm, p_ in h.procs.items()}
+    finally:
+        for p_ in procs.values():
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+        tap.close()
+        h.close()
+    left = [nm for nm in names if os.path.exists(f"/dev/shm/{nm}")]
+    return dict(snap=snap, monitor=monitor, counters=counters, alive=alive, exitcodes=exitcodes,
+                entries=ents, overruns=overruns, left=left, launch_s=launch_s, cli=results,
+                cli_s=cli_s, trace_out=trace_out,
+                landed_s=(marks["landed_ns"] - first_send_ns) / 1e9)
 
 
 def parse_entry_frame(frame: bytes) -> tuple:
@@ -4799,6 +4926,99 @@ def main() -> int:
         f" {TOPO_CLI_TXNS}: rc 0 in {cli17k_s:.1f} s, the monitor table:\n"
         + cli17k.stdout.strip())
 
+    # -- 17l. the sharded leader as processes, watched by the operator commands ----------------
+    mark("17l")
+    t0 = time.perf_counter()
+    r17l = sharded_as_processes(pool17, dev, B1, ML1, TOPO_SHARDS)
+    topo17l_s = time.perf_counter() - t0
+    c17l = r17l["counters"]
+    boots17l = {nm: r_["boot_s"] for nm, r_ in r17l["snap"].items()}
+    check(all(r17l["alive"].values()), f"17l: a child died before the halt {r17l['alive']}")
+    check(all(ec_ == 0 for ec_ in r17l["exitcodes"].values()),
+          f"17l: exit codes after the halt {r17l['exitcodes']}")
+    check(not r17l["left"], f"17l: close() left /dev/shm entries {r17l['left']}")
+    shards17l = [f"verify_s{i}" for i in range(TOPO_SHARDS)]
+    routed17l = [c17l["router"][f"routed_s{i}"] for i in range(TOPO_SHARDS)]
+    seen17l = [c17l[s_]["frags_in"] for s_ in shards17l]
+    check(routed17l == seen17l and sum(routed17l) == len(pool17),
+          f"17l: routed {routed17l}, the shards' frags_in {seen17l}, of {len(pool17)}")
+    k1_17l = {s_: c17l[s_]["k1_launches"] for s_ in shards17l}
+    check(all(k1_17l[s_] == c17l[s_]["batches"] > 0 for s_ in shards17l),
+          f"17l: K1 launches {k1_17l}, batches {[c17l[s_]['batches'] for s_ in shards17l]}")
+    b17l = c17l["bank0"]
+    check(b17l["txn_exec"] == sum(c17l[s_]["txn_verified"] for s_ in shards17l) == len(pool17)
+          and b17l["txn_rejected"] == 0 and c17l["pack"]["txn_dropped"] == 0,
+          f"17l: bank0 {b17l}, pack {c17l['pack']}")
+    k5_17l = c17l["shred"]["k5_launches"]
+    check(k5_17l == c17l["shred"]["fec_sets"] > 0 and c17l["store"]["sets_stored"] > 0,
+          f"17l: shred K5 launches {k5_17l}, {c17l['shred']}, store {c17l['store']}")
+    block17l = [p_ for e_ in r17l["entries"] for p_ in parse_entry(e_)[2]]
+    sigs17l = sorted(ft.txn_parse(p_).signatures(p_)[0] for p_ in block17l)
+    check(r17l["overruns"] == 0 and sigs17l == inp17k["sigs"],
+          f"17l: the tap read {len(block17l)} txns with {r17l['overruns']} overruns before the"
+          f" block was read; their signatures the pool's: {sigs17l == inp17k['sigs']}")
+    for nm, res in r17l["cli"].items():
+        check(res["rc"] == 0, f"17l: {nm} exited {res['rc']}:\n{res['out'][-2000:]}"
+              f"\n{res['err'][-2000:]}")
+    check(r17l["cli"]["ready"]["out"].strip() == "ready", "17l: ready did not say ready")
+    met17l = r17l["cli"]["metrics"]["out"]
+    check(all(f'frags_in{{stage="verify",shard="{i}"}} {routed17l[i]}' in met17l
+              for i in range(TOPO_SHARDS)), "17l: metrics --once lacks a shard's frags_in")
+    check(f"verify x{TOPO_SHARDS}" in r17l["cli"]["monitor"]["out"],
+          "17l: the monitor table has no folded verify row")
+    trace17l = json.load(open(r17l["trace_out"]))["traceEvents"]
+    check(any(e_.get("cat") == "batch" for e_ in trace17l), "17l: the trace has no batch span")
+    rep17l = json.loads(r17l["cli"]["slotreport"]["out"])
+    check(set(shards17l) <= set(rep17l["stages"]) and
+          rep17l["stages"]["bank0"]["native"]["frags"] > 0, "17l: slotreport lacks the shards")
+    launches17l = {"verify_batch": sum(k1_17l.values()), "gf256_apply": k5_17l}
+    log(f"[leader-sharded-processes] {len(pool17)} txns of phase 17's pool, {TOPO_SHARDS} verify"
+        f" shards at batch {B1}, native pack, one bank, unclocked; launch (parent builds,"
+        f" segments, spawns) {r17l['launch_s']:.3f} s; child boot seconds (spawn to the loop)"
+        f" {json.dumps({k: round(v, 3) for k, v in boots17l.items()})}, slowest"
+        f" {max(boots17l.values()):.3f} s; routed {routed17l} = each shard's frags_in; K1"
+        f" launches a shard {json.dumps(k1_17l)}, K5 launches in shred {k5_17l}"
+        f" ({c17l['shred']['fec_sets']} FEC sets); {b17l['txn_exec']} landed, every signature"
+        f" the pool's; {r17l['landed_s']:.3f} s from benchg's first send to the last landing"
+        f" ({b17l['txn_exec'] / r17l['landed_s']:.0f} txn/s); the commands (ready from the"
+        f" launch, then metrics --once, monitor, trace, slotreport at once) exit 0, the last four"
+        f" in {r17l['cli_s']:.1f} s; phase {topo17l_s:.1f} s")
+    log(f"[leader-sharded-counters] {json.dumps(c17l)}")
+    log("[leader-sharded-monitor] the monitor command's last frame:\n"
+        + r17l["cli"]["monitor"]["out"].split("\x1b[J")[-1].rstrip())
+
+    # -- 17m. chaos on the card: slot-overrun through the CLI --------------------------------------
+    mark("17m")
+    t0 = time.perf_counter()
+    ch17m = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch", "chaos", "run",
+                            "slot-overrun", "--seed", str(CHAOS_SEED)],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=600)
+    chaos17m_s = time.perf_counter() - t0
+    check(ch17m.returncode == 0, f"17m: chaos run slot-overrun rc {ch17m.returncode}:\n"
+          f"{ch17m.stdout[-3000:]}\n{ch17m.stderr[-3000:]}")
+    sum17m = json.loads(ch17m.stdout)
+    meas17m = json.loads(next(ln_ for ln_ in ch17m.stderr.splitlines()
+                              if ln_.startswith("# measured: "))[len("# measured: "):])
+    info17m = sum17m["info"]
+    check(sum17m["ok"] is True and all(sum17m["checks"].values()), f"17m: {sum17m}")
+    check(info17m["missed"] == 2 and info17m["sealed"] == info17m["n_slots"] - 2,
+          f"17m: {info17m['missed']} slots missed where the freeze spanned 2 boundaries")
+    check(info17m["txn_in_pack"] == info17m["txn_scheduled"] == info17m["txn_landed"] == 96,
+          f"17m: txns lost: {info17m}")
+    check(meas17m["device"] == "cuda"
+          and meas17m["k1_launches"] == meas17m["verify_batches"] > 0
+          and meas17m["k5_launches"] == meas17m["fec_sets"] > 0,
+          f"17m: the children's kernels: {meas17m}")
+    launches17m = {"verify_batch": meas17m["k1_launches"], "gf256_apply": meas17m["k5_launches"]}
+    log(f"[chaos-card] python -m firedancer_tpu_torch chaos run slot-overrun --seed {CHAOS_SEED}:"
+        f" rc 0 in {chaos17m_s:.1f} s (the scenario {meas17m['wall_s']:.1f} s); checks"
+        f" {json.dumps(sum17m['checks'], sort_keys=True)}; info {json.dumps(info17m)}; K1 in"
+        f" verify0 {meas17m['k1_launches']} ({meas17m['verify_batches']} batches), K5 in shred"
+        f" {meas17m['k5_launches']} ({meas17m['fec_sets']} FEC sets); seal lag p99"
+        f" {meas17m['seal_lag_p99_ms']:.3f} ms, window end lag {meas17m['window_end_lag_s']:.3f} s;"
+        f" exit codes {json.dumps(meas17m['exitcodes'])}")
+
     # -- 18. K14 sha256_msg, K15 sha256_mix32 and the bmtree root build ------------------------
     mark("18")
 
@@ -5167,6 +5387,8 @@ def main() -> int:
                                  "vote_leader_pipeline": launches17d.get(k["name"], 0),
                                  "clock_leader_pipeline": launches17e.get(k["name"], 0),
                                  "leader_topology": launches17k.get(k["name"], 0),
+                                 "sharded_leader_topology": launches17l.get(k["name"], 0),
+                                 "chaos_slot_overrun": launches17m.get(k["name"], 0),
                                  "program_leader_pipeline": launches17f.get(k["name"], 0),
                                  "sbpf_leader_pipeline": launches17g.get(k["name"], 0),
                                  "zk_leader_pipeline": launches17h.get(k["name"], 0),

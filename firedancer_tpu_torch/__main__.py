@@ -1,4 +1,5 @@
-"""The port's command line; every command runs on the card unless --cpu.
+"""The port's command line; every command that drives a device runs on the
+card unless --cpu.
 
     python -m firedancer_tpu_torch run --txns N [--shards S] [--comb-slots N]
             [--kernel fused|baseline|split] [--autotune-after N] [--cpu]
@@ -28,12 +29,38 @@
         build and load the serving plane's kernels and run one step at its
         shapes (the counterpart of the JAX package's AOT warmup); prints the
         same JSON keys, and --assert-warm S exits 2 when it took longer.
+
+The commands that watch a running topology from another process attach
+through its run descriptor (runtime/monitor.py; --descriptor PATH, else
+the newest live run under build/torch_run); each exits 1 when there is
+nothing to attach to:
+
+    monitor [--interval S] [--iterations N]
+        the live per-stage table (shards folded into one row a stage kind).
+    ready [--timeout S]
+        exit 0 once every stage heartbeats in RUN, 1 on a timeout or a FAIL.
+    metrics [--once | --serve PORT]
+        the Prometheus text of every stage's shm registry (sharded stages
+        labelled {stage=<kind>,shard=<i>}), printed once or served over HTTP.
+    trace [--dump FILE | --descriptor PATH] [--out FILE]
+        the flight rings as Chrome trace JSON (default build/torch_run/
+        trace.json): from a supervisor's flight dump, a live run, or the
+        newest dump.
+    slotreport [--dump FILE ...] [--normalize] [--out FILE]
+        the per-slot report (runtime/slot_report.py) of a live run or of
+        flight dumps (several: one aggregate).
+    chaos list | chaos run <scenario> [--seed S] [--duration S] [--cpu]
+        the chaos harness (chaos/scenario.py): only the deterministic
+        summary goes to stdout; exit 1 when an invariant is violated, 2 for
+        a scenario the port does not have.  --cpu runs slot-overrun's
+        children on the plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -167,6 +194,147 @@ def cmd_warmup(args) -> int:
     return 0
 
 
+def _attach(cmd: str, descriptor):
+    """A MonitorSession on the descriptor (or the newest live run), or None
+    after saying why on stderr."""
+    from .runtime.monitor import MonitorSession
+
+    try:
+        return MonitorSession.attach(descriptor)
+    except (RuntimeError, OSError, ValueError) as e:
+        print(f"{cmd}: {e}", file=sys.stderr)
+        return None
+
+
+def cmd_monitor(args) -> int:
+    ses = _attach("monitor", args.descriptor)
+    if ses is None:
+        return 1
+    try:
+        ses.run(interval_s=args.interval, iterations=args.iterations)
+    finally:
+        ses.close()
+    return 0
+
+
+def cmd_ready(args) -> int:
+    ses = _attach("ready", args.descriptor)
+    if ses is None:
+        return 1
+    try:
+        ok = ses.wait_ready(timeout_s=args.timeout)
+    finally:
+        ses.close()
+    print("ready" if ok else "not ready")
+    return 0 if ok else 1
+
+
+def cmd_metrics(args) -> int:
+    """The metrics endpoint's position: a process the topology does not
+    know of reads its shm registries and prints or serves the text."""
+    ses = _attach("metrics", args.descriptor)
+    if ses is None:
+        return 1
+    try:
+        if not ses.registries():
+            print("metrics: the run exposes no metrics segments", file=sys.stderr)
+            return 1
+        if args.once:
+            sys.stdout.write(ses.scrape())
+            return 0
+        from .utils.metrics import MetricsServer
+
+        def resolve():
+            # every scrape: a replaced run (or a segment that joined late)
+            # is followed, not served stale
+            ses.refresh()
+            return ses.registries(), ses.shard_labels()
+
+        srv = MetricsServer(ses.registries(), port=args.serve, labels=ses.shard_labels(),
+                            resolver=resolve)
+        try:
+            host, port = srv.addr
+            print(f"# serving /metrics on http://{host}:{port}/ (^C exits)", file=sys.stderr)
+            try:
+                while True:
+                    time.sleep(1.0)
+            except KeyboardInterrupt:
+                pass
+        finally:
+            srv.close()
+        return 0
+    finally:
+        ses.close()
+
+
+def _dump_of(dump: str | None, descriptor: str | None, reason: str) -> dict:
+    """The flight dump a command reads: the file `dump`, a live snapshot of
+    the descriptor's (or the newest) run, or the newest dump on disk."""
+    from .runtime import monitor as mon
+
+    if dump is not None:
+        with open(dump) as f:
+            return json.load(f)
+    if descriptor is not None or mon.list_runs():
+        ses = mon.MonitorSession.attach(descriptor)
+        try:
+            return ses.flight_dump(reason)
+        finally:
+            ses.close()
+    dumps = mon.list_flight_dumps()
+    if not dumps:
+        raise RuntimeError("no live run and no flight dumps found")
+    print(f"# using newest flight dump {dumps[0]}", file=sys.stderr)
+    with open(dumps[0]) as f:
+        return json.load(f)
+
+
+def cmd_trace(args) -> int:
+    from .utils.metrics import flight_to_chrome_trace
+
+    try:
+        dump = _dump_of(args.dump, args.descriptor, "live snapshot")
+    except (RuntimeError, OSError, ValueError) as e:
+        print(f"trace: {e}", file=sys.stderr)
+        return 1
+    trace = flight_to_chrome_trace(dump)
+    out = args.out
+    if out is None:
+        from .runtime.monitor import RUN_DIR
+
+        os.makedirs(RUN_DIR, exist_ok=True)
+        out = os.path.join(RUN_DIR, "trace.json")
+    with open(out, "w") as f:
+        json.dump(trace, f)
+    print(f"# wrote {len(trace['traceEvents'])} trace events to {out}", file=sys.stderr)
+    return 0
+
+
+def cmd_slotreport(args) -> int:
+    from .runtime import slot_report as sr
+
+    try:
+        if args.dump and len(args.dump) > 1:
+            rep = sr.aggregate_reports([sr.build_report(_dump_of(p, None, ""))
+                                        for p in args.dump])
+        else:
+            rep = sr.build_report(_dump_of(args.dump[0] if args.dump else None,
+                                           args.descriptor, "slotreport"))
+    except (RuntimeError, OSError, ValueError) as e:
+        print(f"slotreport: {e}", file=sys.stderr)
+        return 1
+    if args.normalize:
+        rep = sr.normalize(rep)
+    text = sr.dumps(rep)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+        print(f"# wrote slot report to {args.out}", file=sys.stderr)
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m firedancer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -207,10 +375,55 @@ def main(argv=None) -> int:
                    help="exit 2 if the warmup took longer than S seconds")
     w.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch versions on the host")
+    m = sub.add_parser("monitor", help="live per-stage table of a running topology")
+    m.add_argument("--descriptor", default=None,
+                   help="run descriptor path (default: the newest live run)")
+    m.add_argument("--interval", type=float, default=1.0)
+    m.add_argument("--iterations", type=int, default=None,
+                   help="redraws (default: until ^C)")
+    rd = sub.add_parser("ready", help="block until every stage heartbeats in RUN")
+    rd.add_argument("--descriptor", default=None)
+    rd.add_argument("--timeout", type=float, default=60.0)
+    mt = sub.add_parser("metrics", help="Prometheus text of a running topology's registries")
+    mt.add_argument("--descriptor", default=None,
+                    help="run descriptor path (default: the newest live run)")
+    g = mt.add_mutually_exclusive_group()
+    g.add_argument("--once", action="store_true", help="print one exposition and exit")
+    g.add_argument("--serve", type=int, default=0, metavar="PORT",
+                   help="serve /metrics over HTTP (0 = an ephemeral port)")
+    tr = sub.add_parser("trace", help="flight rings -> Chrome trace JSON")
+    tr.add_argument("--out", default=None,
+                    help="the trace file (default: trace.json under build/torch_run)")
+    tr.add_argument("--dump", default=None,
+                    help="a supervisor's flight dump (default: a live run, else the newest dump)")
+    tr.add_argument("--descriptor", default=None, help="run descriptor of the live run")
+    sr = sub.add_parser("slotreport", help="per-slot JSON report: seals and misses, sweep"
+                        " phases, native lanes and punts, funk writes, restarts")
+    sr.add_argument("--descriptor", default=None, help="run descriptor of the live run")
+    sr.add_argument("--dump", nargs="+", default=None, metavar="DUMP",
+                    help="flight dump file(s); several -> one aggregate report")
+    sr.add_argument("--out", default=None, help="write the JSON here (default: stdout)")
+    sr.add_argument("--normalize", action="store_true",
+                    help="strip the timing-dependent fields (determinism diffs)")
+    ch = sub.add_parser("chaos", help="scenario harness: faults, load and invariants")
+    ch.add_argument("action", choices=["run", "list"])
+    ch.add_argument("scenario", nargs="?", default=None, help="scenario name (see chaos list)")
+    ch.add_argument("--seed", type=int, default=0,
+                    help="run seed; the same seed gives the same summary")
+    ch.add_argument("--duration", type=float, default=None,
+                    help="wall-clock budget in seconds (the scenario's default if omitted)")
+    ch.add_argument("--cpu", action="store_true",
+                    help="slot-overrun: run its children's plain versions on the host")
     args = ap.parse_args(argv)
     if args.cmd == "warmup":
         return cmd_warmup(args)
-    return cmd_run(args)
+    if args.cmd == "chaos":
+        from .chaos import scenario as _chaos
+
+        return _chaos.main(args)
+    cmd = {"monitor": cmd_monitor, "ready": cmd_ready, "metrics": cmd_metrics,
+           "trace": cmd_trace, "slotreport": cmd_slotreport}.get(args.cmd, cmd_run)
+    return cmd(args)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,13 @@ spawned process a stage over shm links, supervised through their cncs
     benchg -> gv -> verify0 -> vd -> pack (dedup fused in) -> pb0 -> bank0
            -> bp0 -> poh -> ps -> shred -> ss -> store,  bank0 -> bd0 -> pack
 
+and its sharded form (build_sharded_leader_topology): a router deals
+ingress round-robin onto one link a shard, and one verify process a shard
+(verify_s{i}, each its own crash domain and its own CUDA context) feeds
+pack, with shard labels the run descriptor carries to the monitor:
+
+    benchg -> gv -> router -> sv{i} -> verify_s{i} -> vd{i} -> pack -> ...
+
 Each builder builds the port's stage on its default lane: the verify sweep
 client (K1 from sealed C slots), native pack with its tcache, the bank
 sweep lane over the native executor and NativeFunk, the native shredder's
@@ -25,8 +32,9 @@ restartable: the C side publishes past the restart's publish guard.
 without holding credit, and gives back the entries of every complete entry
 batch it saw (what a replayer of the leader's block reads).
 
-Left out (ROADMAP item 7): build_sharded_leader_topology, over the router
-and the serving plane, and the JAX builder's verify_precomputed.
+verify_precomputed (both builders) is the JAX builders' test and bench
+instrument: the verify children dispatch nothing and pass every signature
+(VerifyStage(precomputed_ok=True)); never the default.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ from ..tango import rings, shm
 # the native libraries the children load (built in the parent by launch)
 HOST_LIBS = ("fd_ring", "fd_txn_parse", "fd_verify", "fd_pack", "fd_tcache", "fd_bank",
              "fd_exec_native", "fd_funk", "fd_shred")
-# the kernels on the topology's path: K1 in verify0, K5 in shred
+# the kernels on the topologies' paths: K1 in verify0 (in each verify_s{i}
+# of the sharded form), K5 in shred
 KERNELS = ("verify", "gf256_apply")
 # the shred stage closes an entry batch no entry has reached for this long:
 # at the end of the window no caller flushes it, and PoH's ticks (6.25 ms
@@ -66,18 +75,49 @@ def build_benchg(links, cnc, *, pool_size, n_txns, pool=None, slot_clock=None):
 
 
 @_sweeps
-def build_verify(links, cnc, *, batch, max_msg_len=256, device=None):
+def build_verify(links, cnc, *, batch, max_msg_len=256, device=None, precomputed=False):
     from ..runtime.verify import VerifyStage
 
     return VerifyStage("verify0", ins=[shm.make_consumer(links["gv"], lazy=32)],
                        outs=[shm.make_producer(links["vd"])], cnc=cnc, batch=batch,
-                       max_msg_len=max_msg_len, batch_deadline_s=0.002, device=device)
+                       max_msg_len=max_msg_len, batch_deadline_s=0.002, device=device,
+                       precomputed_ok=precomputed)
+
+
+def build_router(links, cnc, *, n_shards):
+    from ..parallel.router import ShardRouterStage
+
+    return ShardRouterStage("router", ins=[shm.make_consumer(links["gv"], lazy=32)],
+                            outs=[shm.make_producer(links[f"sv{i}"]) for i in range(n_shards)],
+                            n_shards=n_shards, cnc=cnc)
+
+
+@_sweeps
+def build_verify_shard(links, cnc, *, shard_idx, batch, precomputed, max_msg_len=256,
+                       device=None):
+    """Shard shard_idx's verify stage, on verify0's lane (the sweep client,
+    K1 from sealed C slots) over its own links."""
+    from ..runtime.verify import VerifyStage
+
+    return VerifyStage(f"verify_s{shard_idx}",
+                       ins=[shm.make_consumer(links[f"sv{shard_idx}"], lazy=32)],
+                       outs=[shm.make_producer(links[f"vd{shard_idx}"])], cnc=cnc, batch=batch,
+                       max_msg_len=max_msg_len, batch_deadline_s=0.002, device=device,
+                       precomputed_ok=precomputed)
 
 
 def build_dedup(links, cnc):
     from ..runtime.dedup import DedupStage
 
     return DedupStage("dedup", ins=[shm.make_consumer(links["vd"], lazy=32)],
+                      outs=[shm.make_producer(links["dp"])], cnc=cnc)
+
+
+def build_dedup_sharded(links, cnc, *, n_shards):
+    from ..runtime.dedup import DedupStage
+
+    return DedupStage("dedup",
+                      ins=[shm.make_consumer(links[f"vd{i}"], lazy=32) for i in range(n_shards)],
                       outs=[shm.make_producer(links["dp"])], cnc=cnc)
 
 
@@ -198,6 +238,7 @@ def build_leader_topology(
     shed_keep: int | None = None,
     fuse_poh_shred: bool = False,
     pack_depth: int = 4096,
+    verify_precomputed: bool = False,
     device=None,
 ) -> ft.Topology:
     """The leader as one process a stage, on `device` (default the card,
@@ -225,7 +266,6 @@ def build_leader_topology(
     from ..runtime.shred_stage import FusedPohShredStage, ShredStage
     from ..runtime.store import StoreStage
     from ..runtime.verify import VerifyStage
-    from ..utils.platform import resolve_device
 
     if n_bank != 1:
         # each bank process owns its store: two executing banks in two
@@ -233,11 +273,8 @@ def build_leader_topology(
         raise ValueError("the process topology runs exactly one bank stage until funk has a"
                          " cross-process backend; the cooperative pipeline"
                          " (models/leader.py) runs any bank count over one shared ctx")
-    dev = resolve_device(device)
-    child_dev = "cpu" if dev.type == "cpu" else None
-    topo = ft.Topology(device=child_dev, host_libs=HOST_LIBS,
-                       kernels=KERNELS if dev.type == "cuda" else (),
-                       boot_grace_s=boot_grace_s if slot_clock is not None else None)
+    topo, child_dev = _topology(device)
+    topo.boot_grace_s = boot_grace_s if slot_clock is not None else None
     topo.link("gv", depth=1024, mtu=1232)
     topo.link("vd", depth=1024, mtu=4096)
     if not native_pack:
@@ -258,7 +295,8 @@ def build_leader_topology(
                slot_clock=slot_clock, sandbox=sb, outs=["gv"],
                schema=BenchGStage.metrics_schema())
     topo.stage("verify0", build_verify, batch=batch, max_msg_len=max_msg_len, device=child_dev,
-               sandbox=sb, ins=["gv"], outs=["vd"], schema=VerifyStage.metrics_schema())
+               precomputed=verify_precomputed, sandbox=sb, ins=["gv"], outs=["vd"],
+               schema=VerifyStage.metrics_schema())
     pack_outs = [f"pb{b}" for b in range(n_bank)]
     done = [f"bd{b}" for b in range(n_bank)]
     if native_pack:
@@ -297,6 +335,105 @@ def build_leader_topology_fused(**kw) -> ft.Topology:
     """build_leader_topology with the fused poh+shred stage."""
     kw.setdefault("fuse_poh_shred", True)
     return build_leader_topology(**kw)
+
+
+def _topology(device):
+    """An empty topology on `device` (resolved here, in the parent), with
+    the host libraries and, on the card, the kernels its children load."""
+    from ..utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    child_dev = "cpu" if dev.type == "cpu" else None
+    return ft.Topology(device=child_dev, host_libs=HOST_LIBS,
+                       kernels=KERNELS if dev.type == "cuda" else ()), child_dev
+
+
+def build_sharded_leader_topology(
+    *,
+    n_shards: int = 4,
+    n_txns: int = 64,
+    pool_size: int = 64,
+    pool: list[bytes] | None = None,
+    batch: int = 32,
+    max_msg_len: int = 256,
+    leader_seed: bytes = b"leader",
+    slot: int = 1,
+    sandbox: dict | None = None,
+    verify_precomputed: bool = False,
+    shard_depth: int = 512,
+    native_pack: bool = True,
+    pack_depth: int = 4096,
+    device=None,
+) -> ft.Topology:
+    """The sharded leader as processes: benchg's ingress goes round-robin
+    through the router onto one link a shard, and one verify process a
+    shard (verify_s{i}, shard i of the logical stage "verify" in the run
+    descriptor) feeds native pack (or, with native_pack=False, the dedup
+    stage over every shard's link), then bank0 -> poh -> shred -> store as
+    build_leader_topology's.  Unclocked, as the JAX builder is.  Each shard
+    child launches K1 on the card in its own CUDA context; `device`, pool,
+    sandbox and verify_precomputed are build_leader_topology's."""
+    from ..parallel.router import ShardRouterStage
+    from ..runtime.bank import BankStage
+    from ..runtime.benchg import BenchGStage
+    from ..runtime.dedup import DedupStage
+    from ..runtime.pack_stage import PackStage
+    from ..runtime.poh_stage import PohStage
+    from ..runtime.shred_stage import ShredStage
+    from ..runtime.store import StoreStage
+    from ..runtime.verify import VerifyStage
+
+    topo, child_dev = _topology(device)
+    n_bank = 1  # one bank until funk is shared across processes (build_leader_topology)
+    topo.link("gv", depth=1024, mtu=1232)
+    for i in range(n_shards):
+        topo.link(f"sv{i}", depth=shard_depth, mtu=1232)
+        topo.link(f"vd{i}", depth=shard_depth, mtu=4096)
+    if not native_pack:
+        topo.link("dp", depth=1024, mtu=4096)
+    for b in range(n_bank):
+        topo.link(f"pb{b}", depth=256, mtu=65536)
+        topo.link(f"bp{b}", depth=256, mtu=65536)
+        topo.link(f"bd{b}", depth=256, mtu=64)
+    topo.link("ps", depth=1024, mtu=65536)
+    topo.link("ss", depth=4096, mtu=1232)
+
+    secret = hashlib.sha256(leader_seed).digest()
+    sb = sandbox
+    vd_links = [f"vd{i}" for i in range(n_shards)]
+    done = [f"bd{b}" for b in range(n_bank)]
+    pack_outs = [f"pb{b}" for b in range(n_bank)]
+    topo.stage("benchg", build_benchg, pool_size=pool_size, n_txns=n_txns, pool=pool,
+               sandbox=sb, outs=["gv"], schema=BenchGStage.metrics_schema())
+    topo.stage("router", build_router, n_shards=n_shards, sandbox=sb, ins=["gv"],
+               outs=[f"sv{i}" for i in range(n_shards)], credit_gated=True,
+               schema=ShardRouterStage.metrics_schema_n(n_shards))
+    for i in range(n_shards):
+        topo.stage(f"verify_s{i}", build_verify_shard, shard=i, logical="verify", shard_idx=i,
+                   batch=batch, precomputed=verify_precomputed, max_msg_len=max_msg_len,
+                   device=child_dev, sandbox=sb, ins=[f"sv{i}"], outs=[f"vd{i}"],
+                   schema=VerifyStage.metrics_schema())
+    if native_pack:
+        topo.stage("pack", build_pack_native, n_bank=n_bank, txn_links=vd_links, sandbox=sb,
+                   pack_depth=pack_depth, ins=vd_links + done, outs=pack_outs,
+                   schema=PackStage.metrics_schema())
+    else:
+        topo.stage("dedup", build_dedup_sharded, n_shards=n_shards, sandbox=sb, ins=vd_links,
+                   outs=["dp"], schema=DedupStage.metrics_schema())
+        topo.stage("pack", build_pack, n_bank=n_bank, sandbox=sb, pack_depth=pack_depth,
+                   ins=["dp"] + done, outs=pack_outs, schema=PackStage.metrics_schema())
+    for b in range(n_bank):
+        topo.stage(f"bank{b}", build_bank, bank_idx=b, slot=slot, sandbox=sb, device=child_dev,
+                   segments=("funk",), ins=[f"pb{b}"], outs=[f"bp{b}", f"bd{b}"],
+                   credit_gated=True, schema=BankStage.metrics_schema())
+    topo.stage("poh", build_poh, n_bank=n_bank, sandbox=sb,
+               ins=[f"bp{b}" for b in range(n_bank)], outs=["ps"], credit_gated=True,
+               schema=PohStage.metrics_schema())
+    topo.stage("shred", build_shred, secret=secret, slot=slot, sandbox=sb, device=child_dev,
+               ins=["ps"], outs=["ss"], schema=ShredStage.metrics_schema())
+    topo.stage("store", build_store, device=child_dev, sandbox=sb, ins=["ss"],
+               schema=StoreStage.metrics_schema())
+    return topo
 
 
 def leader_window_done(n_slots: int, stage: str = "poh"):

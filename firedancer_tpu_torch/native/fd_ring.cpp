@@ -30,9 +30,10 @@
 // fdr_sweep writes the stage's metrics plane when it is given one
 // (runtime/native_metrics.NativePlane), and this library exports the
 // plane's attach check and its test drivers (the end of this file).
-// Left out of this copy, for want of a caller in the port: the
-// plane-timed burst publish, the relay sweep client of the chaos harness,
-// the synthetic-ingress pool publish and the bulk benchmark helpers.
+// The relay sweep client of the chaos harness (fdr_relay_*) is here, with
+// a restart guard the JAX package's lacks.  Left out of this copy, for want
+// of a caller in the port: the plane-timed burst publish, the
+// synthetic-ingress pool publish and the bulk benchmark helpers.
 //
 // Build: utils/hostbuild.py (g++ -O2 -std=c++17 -shared -fPIC), on first use.
 
@@ -371,6 +372,135 @@ int64_t fdr_sweep(fdr_link* const* links, fdr_consumer* const* cons,
   *rr_io = rr % n_links;
   *ovrn_out = ovrn;
   return (int64_t)got;
+}
+
+// -- the relay sweep client (the chaos harness's) ----------------------------
+//
+// A relay with no Python per frag: every frag fdr_sweep drains is forwarded
+// onto one output link, lossy (a frag that finds no credit is dropped and
+// counted, as the chaos harness's Python relay drops it), so the crash
+// scenarios cross a real native sweep client whose in-crossing flight
+// events must survive SIGKILL.  `crash_at` non-zero arms the crash-loop
+// flank: the relay _exit(42)s the moment it has handled a frag with sig >=
+// crash_at, after flushing the crossing's drain/publish flight records.
+//
+// The restart guard (the C side of runtime/stage.py's publish guard): a
+// respawned relay is handed the sigs its output ring already carries
+// (fdr_relay_guard) and its producer's recovered cursors
+// (fdr_relay_seq_sync); a replayed frag whose sig the ring holds is
+// swallowed (counted as dedup), and the guard disarms at the first sig
+// above every sig the ring carried.  A sig below that the ring never
+// carried (a frag the lossy relay dropped before the kill) goes out and
+// leaves the guard armed.  So a relay whose progress commits after each
+// sweep publishes no frag twice across a kill.
+struct fdr_relay {
+  const fdr_link* out;
+  fdr_producer prod;
+  fdm_plane* plane;
+  uint64_t forwarded;
+  uint64_t dropped;
+  uint64_t dedup;
+  uint64_t crash_at;
+  uint64_t* guard;  // sorted sigs; guard_n of them still armed
+  uint64_t guard_n;
+  uint64_t guard_max;  // the largest sig the guard was armed with
+};
+
+void* fdr_relay_new(const fdr_link* out, uint64_t fseq_idx, uint64_t crash_at) {
+  fdr_relay* r = new fdr_relay();
+  r->out = out;
+  fdr_producer_init(out, &r->prod);
+  r->prod.n_rel = 1;
+  r->prod.rel_idx[0] = fseq_idx;
+  r->plane = nullptr;
+  r->forwarded = r->dropped = r->dedup = 0;
+  r->crash_at = crash_at;
+  r->guard = nullptr;
+  r->guard_n = 0;
+  r->guard_max = 0;
+  return r;
+}
+
+void fdr_relay_set_metrics(void* ctx, fdm_plane* pl) {
+  static_cast<fdr_relay*>(ctx)->plane = pl;
+}
+
+// The relay's producer at the cursors recovered from its live ring.
+void fdr_relay_seq_sync(void* ctx, uint64_t seq, uint64_t chunk) {
+  fdr_relay* r = static_cast<fdr_relay*>(ctx);
+  r->prod.seq = seq;
+  r->prod.chunk = chunk;
+  r->prod.cr_avail = 0;  // refreshed at the next publish
+}
+
+// Arm the guard with the n sigs the output ring carries (sorted, copied).
+void fdr_relay_guard(void* ctx, const uint64_t* sigs, uint64_t n) {
+  fdr_relay* r = static_cast<fdr_relay*>(ctx);
+  delete[] r->guard;
+  r->guard = n ? new uint64_t[n] : nullptr;
+  r->guard_n = n;
+  for (uint64_t i = 0; i < n; i++) r->guard[i] = sigs[i];
+  // insertion sort is enough at ring depth, and keeps <algorithm> out
+  for (uint64_t i = 1; i < n; i++) {
+    uint64_t v = r->guard[i], j = i;
+    for (; j > 0 && r->guard[j - 1] > v; j--) r->guard[j] = r->guard[j - 1];
+    r->guard[j] = v;
+  }
+  r->guard_max = n ? r->guard[n - 1] : 0;
+}
+
+void fdr_relay_counts(void* ctx, uint64_t* fwd_out, uint64_t* drop_out, uint64_t* dedup_out) {
+  fdr_relay* r = static_cast<fdr_relay*>(ctx);
+  *fwd_out = r->forwarded;
+  *drop_out = r->dropped;
+  *dedup_out = r->dedup;
+}
+
+void fdr_relay_free(void* ctx) {
+  fdr_relay* r = static_cast<fdr_relay*>(ctx);
+  delete[] r->guard;
+  delete r;
+}
+
+// True when the guard swallows this sig (found, and struck out).  A sig
+// above every guarded one disarms it: the replay passed the crash.
+static bool relay_guarded(fdr_relay* r, uint64_t sig) {
+  uint64_t lo = 0, hi = r->guard_n;
+  while (lo < hi) {
+    uint64_t mid = (lo + hi) / 2;
+    if (r->guard[mid] < sig) lo = mid + 1;
+    else hi = mid;
+  }
+  if (lo < r->guard_n && r->guard[lo] == sig) {
+    for (uint64_t i = lo + 1; i < r->guard_n; i++) r->guard[i - 1] = r->guard[i];
+    r->guard_n--;
+    return true;
+  }
+  if (sig > r->guard_max) r->guard_n = 0;
+  return false;
+}
+
+int fdr_relay_cb(void* ctx, const uint64_t* meta8, const uint8_t* payload) {
+  fdr_relay* r = static_cast<fdr_relay*>(ctx);
+  uint64_t t0 = r->plane ? fdm_now_ns() : 0;
+  if (r->guard_n && relay_guarded(r, meta8[1])) {
+    r->dedup++;
+  } else if (fdr_try_publish(r->out, &r->prod, payload, meta8[3], meta8[1], meta8[5])) {
+    r->forwarded++;
+  } else {
+    r->dropped++;
+  }
+  if (r->plane) fdm_accum(r->plane, FDM_PH_PUBLISH, fdm_now_ns() - t0);
+  if (r->crash_at && meta8[1] >= r->crash_at) {
+    // the crash-loop flank: the crossing so far to the shm flight ring
+    // first, so the dump carries it, then an abrupt death
+    if (r->plane) {
+      fdm_flight(r->plane, FDM_EV_NSWEEP_DRAIN, 1);
+      fdm_flight(r->plane, FDM_EV_NSWEEP_PUBLISH, 1);
+    }
+    _exit(42);
+  }
+  return 0;
 }
 
 

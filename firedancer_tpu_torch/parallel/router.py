@@ -10,11 +10,17 @@ exactly one of N per-shard links, so the sharded step's lane assignment
 The stage is credit-gated: the assignment is by sequence, not by which
 link has room, so a full shard link stalls ingress rather than skipping or
 dropping, and the router never consumes a frag it cannot forward.
+
+Its metrics schema (`metrics_schema_n`) declares `routed_total` and one
+`routed_s{i}` a shard, so a process topology's shm registry publishes the
+per-shard counts: routed_s{i} equals shard i's consumer's frags_in once
+nothing is in flight.
 """
 
 from __future__ import annotations
 
 from ..runtime.stage import Stage
+from ..utils import metrics as fm
 
 
 def shard_of(seq: int, n_shards: int) -> int:
@@ -25,8 +31,8 @@ def shard_of(seq: int, n_shards: int) -> int:
 
 class ShardRouterStage(Stage):
     def __init__(self, name: str = "router", ins=None, outs=None, *,
-                 n_shards: int | None = None):
-        super().__init__(name, ins, outs)
+                 n_shards: int | None = None, cnc=None):
+        super().__init__(name, ins, outs, cnc=cnc)
         self.n_shards = n_shards if n_shards is not None else len(self.outs)
         if self.outs and len(self.outs) != self.n_shards:
             raise ValueError(
@@ -37,6 +43,19 @@ class ShardRouterStage(Stage):
         # in before_frag: routing keys on the INGRESS seq, not a local count
         self._cur_seq = 0
         self._shard_keys = [f"routed_s{i}" for i in range(self.n_shards)]
+        self.metrics = type(self.metrics)(self.metrics_schema_n(self.n_shards))
+
+    @classmethod
+    def extra_schema(cls) -> fm.MetricsSchema:
+        return fm.MetricsSchema().counter("routed_total", "frags routed to any shard ring")
+
+    @classmethod
+    def metrics_schema_n(cls, n_shards: int) -> fm.MetricsSchema:
+        """The class schema and one routed counter a shard."""
+        s = cls.metrics_schema()
+        for i in range(n_shards):
+            s.counter(f"routed_s{i}", f"frags routed to shard ring {i}")
+        return s
 
     def before_frag(self, in_idx: int, seq: int, sig: int) -> bool:
         self._cur_seq = seq

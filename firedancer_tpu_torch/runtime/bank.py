@@ -378,13 +378,14 @@ class BankStage(Stage):
         if published:
             # the entry (and with 1 the done frame) is already on the rings
             m = self.metrics
-            for name, v in zip(("txn_exec", "txn_exec_failed", "txn_rejected"),
-                               sx.native_apply_group(frags, recs)):
+            counts = sx.native_apply_group(frags, recs)
+            for name, v in zip(("txn_exec", "txn_exec_failed", "txn_rejected"), counts):
                 if v:
                     m.inc(name, v)
             if n_done:
                 m.inc("native_exec", n_done)
             m.inc("microblocks")
+            self.trace(fm.EV_MICROBLOCK, counts[0])
             if tsorig and len(self.commit_latencies_ns) < 100_000:
                 self.commit_latencies_ns.append(lat_ns)
             if published == 2:
@@ -415,6 +416,7 @@ class BankStage(Stage):
             slot = min(slot, last + 1)  # window-bounded, like pack's
         if slot > self._clock_slot:
             self.metrics.inc("slot_boundaries", slot - self._clock_slot)
+            self.trace(fm.EV_SLOT_ROLL, slot)
             self._clock_slot = slot
 
     def after_frag(self, in_idx: int, frag, payload: bytes) -> None:
@@ -440,6 +442,7 @@ class BankStage(Stage):
             m.inc("native_exec", d_native)
         if d_punt:
             m.inc("native_punt", d_punt)
+            self.trace(fm.EV_NATIVE_PUNT, d_punt)
         sigs = []
         txns = []
         for (p, _desc, db), r in zip(items, results):
@@ -456,6 +459,7 @@ class BankStage(Stage):
                 # no on-chain footprint: never recorded in an entry
                 m.inc("txn_rejected")
         m.inc("microblocks")
+        self.trace(fm.EV_MICROBLOCK, len(txns))
         if tsorig and len(self.commit_latencies_ns) < 100_000:
             self.commit_latencies_ns.append(now_ns() - tsorig)
         if txns:

@@ -38,6 +38,7 @@ from __future__ import annotations
 import time
 
 from ..pack.scheduler import Pack
+from ..utils import metrics as fm
 from ..utils.metrics import exp_buckets
 from .dedup import DEDUP_TCACHE_DEPTH
 from .slot_clock import resolve_clock
@@ -165,6 +166,7 @@ class PackStage(Stage):
         if slot > self._clock_slot:
             self.pack.end_block()
             self.metrics.inc("blocks_closed", slot - self._clock_slot)
+            self.trace(fm.EV_SLOT_ROLL, slot)
             self._clock_slot = slot
         self._deadline_near = clock.remaining_ns(slot, now) <= self._close_ns
         if self._deadline_near and self._shed_keep is not None:
@@ -173,6 +175,7 @@ class PackStage(Stage):
                 shed = self._shed(excess)
                 if shed:
                     self.metrics.inc("txn_shed", shed)
+                    self.trace(fm.EV_SLOT_SHED, shed)
 
     def _shed(self, n: int) -> int:
         return self.pack.shed_lowest(n)
@@ -234,6 +237,7 @@ class PackStage(Stage):
         self.metrics.inc("txn_scheduled", txn_cnt)
         self.metrics.inc("cu_consumed", cu)
         self.metrics.observe("mb_fill", txn_cnt)
+        self.trace(fm.EV_MICROBLOCK, txn_cnt)
 
     def stranded(self) -> bool:
         """True when pack holds txns of which none can ever be scheduled:

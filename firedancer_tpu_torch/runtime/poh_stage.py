@@ -32,6 +32,7 @@ have no flight recorder: the counters carry every outcome.
 
 from __future__ import annotations
 
+from ..utils import metrics as fm
 from ..utils.metrics import exp_buckets
 from .poh import PohChain
 from .slot_clock import resolve_clock
@@ -197,6 +198,7 @@ class PohStage(Stage):
         lag = clock.now() - clock.deadline_of(self.slot)
         self.metrics.inc("slots_sealed")
         self.metrics.observe("slot_seal_lag_ns", max(lag, 1))
+        self.trace(fm.EV_SLOT_SEAL, self.slot)
         self._advance_slot(self.slot + 1)
 
     def _miss_slots(self, now: int) -> None:
@@ -206,6 +208,8 @@ class PohStage(Stage):
         target = self._clock.slot_at(now)
         missed = max(target - self.slot, 1)
         skipped = (missed * self.ticks_per_slot) - self._tick_cnt
+        for s in range(self.slot, self.slot + missed):
+            self.trace(fm.EV_SLOT_MISSED, s)
         self.metrics.inc("slot_missed", missed)
         self.metrics.inc("slot_skipped_ticks", max(skipped, 0))
         self._advance_slot(self.slot + missed)

@@ -47,6 +47,9 @@ nsweep_crossings, the per-crossing drain / callback / apply / publish
 histograms, the in-crossing tsorig latency), and flush never stores one.
 Read them with `stage.metrics.registry.get(...)` / `.hist(...)`;
 `sweep_frags` counts, on the Python side, the frags fdr_sweep returned.
+Every path observes each consumed frag's now - tsorig into
+`frag_latency_ns` (one clock read a sweep on the burst paths): the
+monitor's latency columns and the slot report's end-to-end quantiles.
 
 Supervision (the process runner, runtime/topo.py): every stage has a
 command-and-control cell (`cnc`, tango/rings.Cnc; a local one unless the
@@ -62,7 +65,8 @@ rings: consumers at their published fseqs, producers at their recovered
 frontiers, with a publish guard that swallows the replayed frags a
 producer's ring already carries (`restart_dedup`).  The guard sees the
 Python publish paths only, so a stage whose sweep client publishes from C
-refuses arm_safe_progress.
+refuses arm_safe_progress, unless the client declares `honours_guard` and
+takes the guard on its C side (the chaos relay's).
 """
 
 from __future__ import annotations
@@ -91,6 +95,10 @@ class Frag(NamedTuple):
     seq: int
     sig: int
     tsorig: int
+
+
+# below this many values a Python pass beats numpy's per-call cost
+_SHORT_BATCH = 32
 
 
 class Metrics:
@@ -145,14 +153,23 @@ class Metrics:
             self._hsums[name] += value
 
     def observe_batch(self, name: str, values) -> None:
-        """observe() over an array of values, in one numpy pass."""
-        v = np.asarray(values, dtype=np.float64)
-        if not v.size:
+        """observe() over a sequence of values: one at a time for a short
+        one, one numpy pass for a long one (a numpy pass costs ~15 us, a
+        value ~0.5 us)."""
+        if len(values) <= _SHORT_BATCH:
+            c, edges, total = self._hcounts[name], self._hedges[name], 0
+            for v in (values.tolist() if isinstance(values, np.ndarray) else values):
+                c[bisect_left(edges, v)] += 1
+                if v > 0:
+                    total += v
+            self._hsums[name] += total
             return
+        v = np.asarray(values, dtype=np.float64)
         idx = np.searchsorted(self._hedges[name], v, side="left")
         c = self._hcounts[name]
-        for i, k in zip(*np.unique(idx, return_counts=True)):
-            c[int(i)] += int(k)
+        for i, k in enumerate(np.bincount(idx, minlength=len(c)).tolist()):
+            if k:
+                c[i] += k
         self._hsums[name] += float(v[v > 0].sum())
 
     def hist(self, name: str) -> dict:
@@ -228,6 +245,7 @@ class Stage:
         # crash (resume_from_rings); publish swallows those until the
         # replay passes the crash point
         self._resume_guards: dict[int, set[int]] = {}
+        self._guard_max: dict[int, int] = {}  # each guard's largest sig
         # transactional progress (arm_safe_progress)
         self.safe_progress = False
         # the plane, cached with the registry it was built on
@@ -291,9 +309,12 @@ class Stage:
         contract): consumers stop publishing progress mid-poll, and
         run_once publishes it only after a sweep's effects are out, so a
         SIGKILL leaves every fseq where everything before it is on the
-        wire.  A stage with a sweep client raises: its C side publishes
-        without the replay guard resume_from_rings arms."""
-        if self._sweep_client is not None:
+        wire.  A stage with a sweep client raises, as its C side publishes
+        without the replay guard resume_from_rings arms, unless the client
+        declares `honours_guard` (it takes the guard itself: the relay's,
+        tango/native.NativeRelayClient)."""
+        client = self._sweep_client
+        if client is not None and not getattr(client, "honours_guard", False):
             raise ValueError(f"stage '{self.name}': a sweep client publishes from C, past the"
                              f" in-place restart's publish guard; it cannot be restartable")
         self.safe_progress = True
@@ -315,16 +336,20 @@ class Stage:
         for c in self.ins:
             c.resume()
         self._resume_guards = {}
+        self._guard_max = {}
         for i, p in enumerate(self.outs):
             sigs = p.resume()
             if sigs:
                 self._resume_guards[i] = sigs
+                self._guard_max[i] = max(sigs)
         self.trace(fm.EV_RESTART, self._iter)
 
     def _guarded(self, out_idx: int, sig: int) -> bool:
         """True when this publish replays a frag the ring already carries:
-        swallow it.  The guard disarms at the first sig the ring never
-        carried (the replay passed the crash point)."""
+        swallow it.  The guard disarms at the first sig above every sig
+        the ring carried (the replay passed the crash point); a sig below
+        that the ring never carried (a frag dropped before the crash) goes
+        out and leaves the guard armed."""
         g = self._resume_guards.get(out_idx)
         if g is None:
             return False
@@ -332,7 +357,9 @@ class Stage:
             g.discard(sig)
             self.metrics.inc("restart_dedup")
             return True
-        del self._resume_guards[out_idx]
+        if sig > self._guard_max[out_idx]:
+            del self._resume_guards[out_idx]
+            del self._guard_max[out_idx]
         return False
 
     def run(self) -> None:
@@ -477,12 +504,16 @@ class Stage:
                     m.inc("overrun")
                     break
                 meta, payload = res
-                seq, sig = int(meta[0]), int(meta[1])
+                seq, sig, ts = int(meta[0]), int(meta[1]), int(meta[5])
                 if not self.before_frag(idx, seq, sig):
                     m.inc("filtered")
                 else:
-                    self.after_frag(idx, Frag(seq, sig, int(meta[5])), payload)
+                    self.after_frag(idx, Frag(seq, sig, ts), payload)
                     m.inc("frags_in")
+                    if ts:
+                        lat = shm.now_ns() - ts
+                        if lat >= 0:
+                            m.observe("frag_latency_ns", lat)
                 break
             if not got:
                 break
@@ -520,7 +551,24 @@ class Stage:
         if n:
             self.metrics.inc("frags_in", n)
             self.metrics.inc("sweep_frags", n)
+            self._observe_latency(drainer.meta[:n, 5])
         return n > 0 or d_ovr > 0
+
+    def _observe_latency(self, ts_col) -> None:
+        """frag_latency_ns (now - tsorig) over a sweep's tsorig column, one
+        clock read for the sweep; frags without a tsorig are left out.  A
+        short sweep (the common one) takes no numpy pass."""
+        now = shm.now_ns()
+        if len(ts_col) <= _SHORT_BATCH:
+            tl = ts_col.tolist() if isinstance(ts_col, np.ndarray) else ts_col
+            self.metrics.observe_batch("frag_latency_ns",
+                                       [now - t for t in tl if t and now >= t])
+            return
+        ts = np.asarray(ts_col, dtype=np.int64)
+        lat = now - ts
+        ok = lat[(ts > 0) & (lat >= 0)]
+        if ok.size:
+            self.metrics.observe_batch("frag_latency_ns", ok)
 
     def _native_burst(self, drainer: BurstDrainer) -> bool:
         """One fdr_drain call, then the hooks over the meta table: each row
@@ -547,17 +595,21 @@ class Stage:
         buf = drainer.arena[: last[2] + last[3]].tobytes()
         if self.sweep_frags is not None:
             m.inc("frags_in", self.sweep_frags(rows, buf))
+            self._observe_latency(drainer.meta[:n, 5])
             return True
         before_frag, after_frag = self.before_frag, self.after_frag
         n_done = 0
+        ts_done = []
         for seq, sig, off, sz, _ctl, tsorig, _tspub, idx in rows:
             if not before_frag(idx, seq, sig):
                 m.inc("filtered")
                 continue
             after_frag(idx, Frag(seq, sig, tsorig), buf[off : off + sz])
             n_done += 1
+            ts_done.append(tsorig)
         if n_done:
             m.inc("frags_in", n_done)
+            self._observe_latency(ts_done)
         return True
 
     def drop_native_views(self) -> None:

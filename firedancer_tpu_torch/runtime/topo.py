@@ -97,7 +97,11 @@ class StageSpec:
     and is attached with in the child; None is the shared stage_schema().
     restartable: the child arms transactional progress, the precondition
     of an in-place restart; only for stages whose frag effects complete
-    within a sweep and that hold no state across sweeps."""
+    within a sweep and that hold no state across sweeps.  shard / logical:
+    the sharded-serving labels of one of N instances of a logical stage
+    ("verify_s2" is shard 2 of "verify"); they ride the run descriptor, so
+    a scrape labels its series {stage=<logical>,shard=<i>} and the monitor
+    folds the shards into one row.  None = unsharded."""
 
     name: str
     builder: object
@@ -109,6 +113,8 @@ class StageSpec:
     schema: fm.MetricsSchema | None = None
     restartable: bool = False
     segments: tuple[str, ...] = ()  # tags of segments the child makes
+    shard: int | None = None
+    logical: str | None = None
 
 
 @dataclass
@@ -136,11 +142,15 @@ class Topology:
               outs: list[str] | tuple[str, ...] | None = None,
               credit_gated: bool = False, schema: fm.MetricsSchema | None = None,
               restartable: bool = False, segments: tuple[str, ...] = (),
+              shard: int | None = None, logical: str | None = None,
               **kwargs) -> StageSpec:
         """Declare a stage.  A builder marked `sweep_client = True` builds a
         stage whose C sweep client publishes past the restart's publish
-        guard, so it cannot be restartable: that raises here."""
-        if restartable and getattr(builder, "sweep_client", False):
+        guard, so it cannot be restartable: that raises here, unless the
+        builder is also marked `honours_guard = True` (its client takes the
+        guard on its C side: the chaos relay's)."""
+        if restartable and getattr(builder, "sweep_client", False) \
+                and not getattr(builder, "honours_guard", False):
             raise ValueError(f"stage '{name}': its builder's stage publishes from a C sweep"
                              f" client, past the in-place restart's publish guard; it cannot"
                              f" be restartable")
@@ -148,7 +158,8 @@ class Topology:
                          ins=tuple(ins) if ins is not None else None,
                          outs=tuple(outs) if outs is not None else None,
                          credit_gated=credit_gated, schema=schema,
-                         restartable=restartable, segments=tuple(segments))
+                         restartable=restartable, segments=tuple(segments),
+                         shard=shard, logical=logical)
         self.stages.append(spec)
         return spec
 
@@ -595,12 +606,14 @@ def prepare(topo: Topology) -> None:
             kbuild.load(name)
 
 
-def launch(topo: Topology) -> TopologyHandle:
+def launch(topo: Topology, *, namespace: str | None = None) -> TopologyHandle:
     """Validate, build in the parent (`prepare`), make every segment, spawn
-    one child a stage and write the run descriptor."""
+    one child a stage and write the run descriptor.  `namespace` prefixes
+    the run's uid, so its segment names (and its close()) stay its own
+    beside other topologies in one box."""
     topo.validate()
     prepare(topo)
-    uid = shm.fresh_uid()
+    uid = shm.fresh_uid(namespace)
     links: dict[str, shm.ShmLink] = {}
     link_names: dict[str, str] = {}
     cncs: dict[str, Cnc] = {}
@@ -646,7 +659,9 @@ def launch(topo: Topology) -> TopologyHandle:
             uid, {s.name: _cnc_shm_name(uid, s.name) for s in topo.stages},
             metrics={s.name: {"shm": _met_shm_name(uid, s.name),
                               "schema": fm.schema_to_obj(_spec_schema(s))}
-                     for s in topo.stages})
+                     for s in topo.stages},
+            shards={s.name: {"shard": s.shard, "logical": s.logical or s.name}
+                    for s in topo.stages if s.shard is not None})
     except BaseException:
         h.close()
         raise

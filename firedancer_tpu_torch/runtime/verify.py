@@ -171,7 +171,7 @@ class VerifyStage(Stage):
                  kernel: str = "fused", comb_slots: int = 0,
                  promote_threshold: int = 2, plane=None,
                  autotune_after: int = 0, native_client: bool | None = None,
-                 cnc=None):
+                 precomputed_ok: bool = False, cnc=None):
         super().__init__(name, ins, outs, cnc=cnc)
         if kernel not in sv.KERNEL_LADDER:
             raise ValueError(f"unknown verify kernel {kernel!r}"
@@ -187,6 +187,11 @@ class VerifyStage(Stage):
                 f" (batch={plane.cfg.batch}, max_msg_len={plane.cfg.max_msg_len})")
         self.device = (plane.device if plane is not None and device is None
                        else resolve_device(device))
+        # precomputed_ok: a test and bench instrument, never the default: no
+        # batch is dispatched (no kernel launch, no plain verify) and every
+        # signature counts as valid, so the host machinery past verify is
+        # measured net of the device (the JAX stage's instrument)
+        self.precomputed_ok = precomputed_ok
         # the parser's library is built now, not mid-stream; the burst
         # parser serves sweep_frags
         self._burst_parser = txn_native.BurstParser(max(64, self.burst))
@@ -425,6 +430,20 @@ class VerifyStage(Stage):
         still stays the stage's until its frames are published."""
         views = self._sweep_client.slots[slot]
         self.metrics.observe_batch("msg_len", views.ln[views.ranges[:n_txn, 0]])
+        if self.precomputed_ok:
+            result = _Result(torch.ones((n_elems,), dtype=torch.bool), n_elems, None)
+        else:
+            result = self._nv_launch(views, n_elems)
+        self._nv_inflight.append((slot, n_elems, n_txn, result))
+        self.trace(fm.EV_BATCH_SUBMIT, n_elems)
+        self._nv_taken += 1
+        self.metrics.inc("batches")
+        self.metrics.inc("batch_elems", n_elems)
+        self.metrics.observe("batch_fill", n_elems)
+        self.metrics.observe("inflight_occupancy", len(self._nv_inflight))
+
+    def _nv_launch(self, views, n_elems: int) -> _Result:
+        """The slot's views to the stage's device and verify_dispatch."""
         dev = self.device
         # the kernels' (len, B) layout: transposed on the device
         msg, sig, pk = (torch.from_numpy(a).to(dev).t().contiguous()
@@ -440,12 +459,7 @@ class VerifyStage(Stage):
         if dev.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev))
-        self._nv_inflight.append((slot, n_elems, n_txn, _Result(mask, n_ok, event)))
-        self._nv_taken += 1
-        self.metrics.inc("batches")
-        self.metrics.inc("batch_elems", n_elems)
-        self.metrics.observe("batch_fill", n_elems)
-        self.metrics.observe("inflight_occupancy", len(self._nv_inflight))
+        return _Result(mask, n_ok, event)
 
     def _nv_drain(self, block: bool) -> None:
         """Reap in-flight slots in order: the txns whose every signature
@@ -457,6 +471,7 @@ class VerifyStage(Stage):
             if not block and not result.is_ready():
                 return
             self._nv_inflight.pop(0)
+            self.trace(fm.EV_BATCH_COMPLETE, n_elems)
             views = c.slots[slot]
             frames = views.frames[:n_txn]
             n_ok = result.n_ok_host()
@@ -537,7 +552,7 @@ class VerifyStage(Stage):
     def _signer_slots(self, signers: list[bytes]) -> list[int] | None:
         """Bank slots if EVERY signer is banked, else None; counts sightings
         of the others and queues their promotion on the way."""
-        if not self.comb_slots or not self._comb_lane_on:
+        if not self.comb_slots or self.precomputed_ok or not self._comb_lane_on:
             return None
         slots = []
         all_cached = True
@@ -616,6 +631,7 @@ class VerifyStage(Stage):
             n = len(acc.elems)
             k1 = kbuild.LAUNCHES["verify_batch"]
             self._inflight.append(_Pending(acc, n, self._dispatch(acc, cached)))
+            self.trace(fm.EV_BATCH_SUBMIT, n)
             self.metrics.inc("k1_launches", kbuild.LAUNCHES["verify_batch"] - k1)
             self.metrics.inc("batches")
             self.metrics.inc("batch_elems", n)
@@ -648,6 +664,8 @@ class VerifyStage(Stage):
     def _dispatch(self, acc: _Acc, cached: bool):
         dev = self.device
         n = len(acc.elems)
+        if self.precomputed_ok:
+            return _Result(torch.ones((n,), dtype=torch.bool), n, None)
         rows = self._assemble(acc)
         if self.plane is not None and not cached:
             # mesh route: the plane's step uploads each shard's lanes itself
@@ -680,6 +698,7 @@ class VerifyStage(Stage):
                 return
             mask = self._result_mask(head)
             self._inflight.pop(0)
+            self.trace(fm.EV_BATCH_COMPLETE, head.n_elems)
             self._pump_submits()
             # honest traffic passes whole batches: the on-card count decides
             # the common case without scanning the mask

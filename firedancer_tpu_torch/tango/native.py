@@ -19,7 +19,10 @@ other way round.  The layout offsets are computed once, in Python
     sweep client's);
   - `SweepDrainer` is fdr_sweep: the drain plus a stage's C callback per
     frag in the same call (the bank, shred and verify stages' clients:
-    runtime/bank_native.py, shred_native.py, verify_native.py).
+    runtime/bank_native.py, shred_native.py, verify_native.py);
+  - `NativeRelayClient` is the chaos harness's relay as a sweep client
+    (fdr_relay_*), the one client that honours the in-place restart's
+    publish guard.
 
 Every endpoint pins the link's buffer through a ctypes view, so it
 registers with its ShmLink, whose close() detaches it first.  The library
@@ -104,6 +107,14 @@ def load() -> ctypes.CDLL:
         lib.fdr_drain.restype = ctypes.c_int64
         lib.fdr_sweep.argtypes = drain + [vp, vp, vp]
         lib.fdr_sweep.restype = ctypes.c_int64
+        # the relay sweep client (the chaos harness's)
+        lib.fdr_relay_new.argtypes = [PL, u64, u64]
+        lib.fdr_relay_new.restype = vp
+        lib.fdr_relay_set_metrics.argtypes = [vp, vp]
+        lib.fdr_relay_seq_sync.argtypes = [vp, u64, u64]
+        lib.fdr_relay_guard.argtypes = [vp, vp, u64]
+        lib.fdr_relay_counts.argtypes = [vp] + [ctypes.POINTER(u64)] * 3
+        lib.fdr_relay_free.argtypes = [vp]
         _LIB = lib
     return _LIB
 
@@ -149,6 +160,11 @@ class NativeProducer:
     @property
     def seq(self) -> int:
         return self._p.seq
+
+    @property
+    def chunk(self) -> int:
+        """The dcache cursor (64-byte granules) the next publish starts at."""
+        return self._p.chunk
 
     @property
     def cr_avail(self) -> int:
@@ -386,3 +402,70 @@ class SweepDrainer(BurstDrainer):
         n = self._lib.fdr_sweep(*self._args, min(max_frags, self.max_frags), *self._tail,
                                 *self._cb)
         return int(n), int(self._rr.value), int(self._ovrn.value)
+
+
+class NativeRelayClient:
+    """The relay sweep client (fd_ring.cpp fdr_relay_*): every frag the
+    sweep drains is forwarded onto one output link, lossy under
+    backpressure (a frag without credit is dropped and counted), the chaos
+    harness's relay with no Python per frag, so its crash scenarios cross a
+    native crossing whose flight events must survive SIGKILL.  `crash_at`
+    non-zero makes the C side _exit(42) once it has handled a frag with
+    sig >= crash_at, after flushing the crossing's flight records.
+
+    It honours the in-place restart's publish guard (`honours_guard`):
+    `resume(producer, sigs)` puts its producer at the cursors the stage's
+    producer recovered from the ring and swallows the replayed frags whose
+    sigs that ring already carries, so runtime/topo.py lets a stage built
+    over it be restartable."""
+
+    honours_guard = True
+
+    def __init__(self, out_link: shm.ShmLink, fseq_idx: int = 0, crash_at: int = 0):
+        self._lib = load()
+        self._ls, self._keep = _link_struct(out_link)
+        self._h = self._lib.fdr_relay_new(ctypes.byref(self._ls), fseq_idx, crash_at)
+        self.cb = ctypes.cast(self._lib.fdr_relay_cb, ctypes.c_void_p)
+        self.cb_ctx = ctypes.c_void_p(self._h)
+        self._plane = None
+        self.link = out_link
+        out_link.register(self)
+
+    def _ctx(self):
+        if self._h is None:
+            raise _detached()
+        return self._h
+
+    def set_metrics(self, plane) -> None:
+        """Arm the in-crossing metrics plane (a NativePlane: the publish
+        phase and the crash path's flight flush); None disarms."""
+        self._plane = plane  # the C side holds a raw pointer
+        self._lib.fdr_relay_set_metrics(self._ctx(), plane.ptr if plane is not None else None)
+
+    def seq_sync(self, seq: int, chunk: int) -> None:
+        """Put the relay's producer at a ring's recovered cursors."""
+        self._lib.fdr_relay_seq_sync(self._ctx(), seq, chunk)
+
+    def resume(self, producer, sigs) -> None:
+        """The restart path: the producer's cursors (just recovered from
+        the live ring by its resume()) and the guard over `sigs`, the sigs
+        that ring carries."""
+        self.seq_sync(producer.seq, producer.chunk)
+        arr = np.fromiter((s & _MASK64 for s in sigs), dtype=np.uint64)
+        self._lib.fdr_relay_guard(self._ctx(), arr.ctypes.data, len(arr))
+
+    def counts(self) -> tuple[int, int, int]:
+        """(forwarded, dropped, swallowed by the guard) since this client
+        was made."""
+        vals = [ctypes.c_uint64(0) for _ in range(3)]
+        self._lib.fdr_relay_counts(self._ctx(), *(ctypes.byref(v) for v in vals))
+        return tuple(int(v.value) for v in vals)
+
+    def detach(self) -> None:
+        """Free the C side and drop the buffer pin (ShmLink.close)."""
+        if self._h is not None:
+            self._lib.fdr_relay_free(self._h)
+        self._h = None
+        self.cb = self.cb_ctx = None
+        self._ls = self._keep = None
+        self.link = None

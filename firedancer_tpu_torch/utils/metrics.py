@@ -24,14 +24,14 @@ survives the writer crashing.
 Segment layout (metrics_segment_*): 4 header words (magic, metric word
 count, recorder capacity, reserved) | metric words | recorder words.
 
-The process runner (runtime/topo.py) reads the pieces below the
-registry: `schema_to_obj` (the run descriptor's schema), `latency_row` and
-`format_latency_ms` (the monitor table), `flight_dump_obj` (the crash
-dump: every stage's flight records and a structured metrics snapshot).
-
-Not ported, waiting for the port's monitor: the Prometheus exposition and
-its HTTP server (so a flight dump has no Prometheus text), the sweep-phase
-rows, and the flight dumps' Chrome-trace export.
+The process runner (runtime/topo.py) and the monitor session
+(runtime/monitor.py) read the pieces past the registry: `schema_to_obj`
+and `schema_from_obj` (the run descriptor's schema), the latency and
+sweep-phase rows (the monitor table), `render_prometheus` and its HTTP
+endpoint `MetricsServer` (the `metrics` command), `flight_dump_obj` (the
+crash dump: every stage's flight records, a structured metrics snapshot
+and the Prometheus text) and `flight_to_chrome_trace` (the `trace`
+command).  Their output is the JAX package's byte for byte.
 """
 
 from __future__ import annotations
@@ -106,9 +106,21 @@ def schema_to_obj(schema: MetricsSchema) -> list[dict]:
     for d in schema.defs:
         o = {"name": d.name, "kind": d.kind, "help": d.help, "buckets": list(d.buckets)}
         if d.native:
-            o["native_owned"] = True  # a C sweep client's word
+            o.update(native=True)  # a C sweep client's word (the JAX package's key)
         out.append(o)
     return out
+
+
+def schema_from_obj(obj: list[dict]) -> MetricsSchema:
+    """schema_to_obj's inverse: a reader rebuilds a registry's layout
+    from a run descriptor without importing the stage classes."""
+    s = MetricsSchema()
+    for d in obj:
+        # the flags past the four fields (`native`) as keywords
+        flags = {k: bool(v) for k, v in d.items() if k not in ("name", "kind", "help", "buckets")}
+        s.defs.append(MetricDef(d["name"], d["kind"], d.get("help", ""),
+                                tuple(d.get("buckets", ())), **flags))
+    return s
 
 
 def exp_buckets(lo: float, hi: float, n: int) -> tuple:
@@ -231,6 +243,55 @@ def latency_row(reg: "MetricsRegistry | None") -> dict:
     return out
 
 
+def _merged_hist(regs: list, name: str) -> dict | None:
+    """The histogram `name` summed over the registries that have it (one
+    schema's histograms add bucket by bucket), or None."""
+    merged = None
+    for reg in regs:
+        if reg is None or name not in reg._off:
+            continue
+        h = reg.hist(name)
+        if merged is None:
+            merged = h
+        else:
+            merged["counts"] = [a + b for a, b in zip(merged["counts"], h["counts"])]
+            merged["count"] += h["count"]
+            merged["sum"] += h["sum"]
+    return merged
+
+
+def latency_row_merged(regs: list) -> dict:
+    """latency_row over the shard registries of one logical stage: the
+    quantiles of the merged histogram, the logical stage's own."""
+    merged = _merged_hist(regs, "frag_latency_ns")
+    out = {"lat_p50_ms": None, "lat_p99_ms": None}
+    if merged and merged["count"]:
+        out["lat_p50_ms"] = hist_quantile(merged, 0.5) / 1e6
+        out["lat_p99_ms"] = hist_quantile(merged, 0.99) / 1e6
+    return out
+
+
+def nsweep_phase_row(regs: list) -> dict:
+    """Each sweep phase's p50 in us, merged over the registries (the
+    monitor's sweep-phase cell); a phase with no crossing is None."""
+    out = {}
+    for ph in NSWEEP_PHASES:
+        merged = _merged_hist(regs, f"nsweep_{ph}_ns")
+        v = None
+        if merged and merged["count"]:
+            q = hist_quantile(merged, 0.5)
+            v = None if q == float("inf") else q / 1e3
+        out[ph] = v
+    return out
+
+
+def format_phase_cell(row: dict) -> str:
+    """The sweep-phase cell, 'd12/c48/a3/p7' (p50 us a phase, phases
+    without a crossing left out), '-' for a stage with no sweep client."""
+    parts = [f"{ph[0]}{row[ph]:.0f}" for ph in NSWEEP_PHASES if row.get(ph) is not None]
+    return "/".join(parts) if parts else "-"
+
+
 def format_latency_ms(v: float | None) -> str:
     """One cell of the monitor's latency columns: '-' without a value,
     '>max' when the quantile overflowed the last bucket."""
@@ -239,6 +300,94 @@ def format_latency_ms(v: float | None) -> str:
     if v == float("inf"):
         return ">max"
     return f"{v:,.1f}ms"
+
+
+# -- the Prometheus text exposition -------------------------------------------------
+
+
+def _escape_label(v: str) -> str:
+    """A label value escaped as the text format wants (backslash, double
+    quote, line feed), so a stage name cannot inject a series."""
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _escape_help(v: str) -> str:
+    """HELP text escaped: backslash and line feed only."""
+    return v.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def render_prometheus(stages: dict, labels: dict | None = None) -> str:
+    """The text exposition over {stage: registry} (fd_metric.c's
+    endpoint).  labels: per-stage label sets; a stage with one carries
+    those labels, its "stage" key in place of the physical name, so the
+    shards of one logical stage are one family told apart by `shard`."""
+    seen_help: set[str] = set()
+    lines: list[str] = []
+    for stage, reg in stages.items():
+        lset = {"stage": stage}
+        if labels and stage in labels:
+            lset.update({k: v for k, v in labels[stage].items() if v is not None})
+        base = ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in lset.items())
+        label = "{" + base + "}"
+        for d in reg.schema.defs:
+            if d.name not in seen_help:
+                seen_help.add(d.name)
+                if d.help:
+                    lines.append(f"# HELP {d.name} {_escape_help(d.help)}")
+                lines.append(f"# TYPE {d.name} {d.kind}")
+            if d.kind == HISTOGRAM:
+                h = reg.hist(d.name)
+                run = 0
+                for edge, c in zip(h["buckets"], h["counts"]):
+                    run += c
+                    lines.append(f'{d.name}_bucket{{{base},le="{edge}"}} {run}')
+                lines.append(f'{d.name}_bucket{{{base},le="+Inf"}} {h["count"]}')
+                lines.append(f"{d.name}_sum{label} {h['sum']}")
+                lines.append(f"{d.name}_count{label} {h['count']}")
+            else:
+                lines.append(f"{d.name}{label} {reg.get(d.name)}")
+    return "\n".join(lines) + "\n"
+
+
+class MetricsServer:
+    """The metrics endpoint: the Prometheus text over HTTP
+    (protocol/http.MiniServer), rendered from the current registries at
+    every scrape.  resolver: () -> (stages, labels), called at every scrape,
+    so a server over an attached session follows a replaced run instead of
+    serving the registries it started with."""
+
+    def __init__(self, stages: dict, *, host="127.0.0.1", port=0, labels: dict | None = None,
+                 resolver=None):
+        from ..protocol import http as H
+
+        self.stages = stages
+        self.labels = labels
+        self.resolver = resolver
+
+        def handler(req, _body):
+            if req.method != "GET":
+                return H.build_response(405, b"GET only\n")
+            if req.path not in ("/metrics", "/"):
+                return H.build_response(404, b"not found\n")
+            if self.resolver is not None:
+                try:
+                    self.stages, self.labels = self.resolver()
+                except (RuntimeError, OSError):
+                    pass  # keep serving the last good set
+            # a copy: the dict may change while a scrape renders (this runs
+            # on a connection's thread)
+            body = render_prometheus(dict(self.stages), labels=self.labels).encode()
+            return H.build_response(200, body,
+                                    content_type="text/plain; version=0.0.4; charset=utf-8")
+
+        self._srv = H.MiniServer(handler, host=host, port=port)
+
+    @property
+    def addr(self):
+        return self._srv.addr
+
+    def close(self):
+        self._srv.close()
 
 
 def registry_obj(reg: "MetricsRegistry") -> dict:
@@ -251,14 +400,55 @@ def registry_obj(reg: "MetricsRegistry") -> dict:
 def flight_dump_obj(uid: str, stages: dict, *, failed: str | None = None,
                     reason: str = "") -> dict:
     """The crash-dump object: each stage's flight records and its metrics
-    snapshot.  `stages`: name -> (registry or None, recorder or None)."""
+    snapshot (what slotreport reads), and the Prometheus text of every
+    registry.  `stages`: name -> (registry or None, recorder or None)."""
     obj = {"uid": uid, "failed": failed, "reason": reason, "stages": {}}
+    regs = {}
     for name, (reg, rec) in stages.items():
-        ent = {"records": [list(r) for r in rec.records()] if rec is not None else []}
+        ent = {"records": [list(r) for r in rec.records()] if rec else []}
         if reg is not None:
+            regs[name] = reg
             ent["metrics"] = registry_obj(reg)
         obj["stages"][name] = ent
+    if regs:
+        obj["metrics"] = render_prometheus(regs)
     return obj
+
+
+def flight_to_chrome_trace(dump: dict) -> dict:
+    """Chrome trace-event JSON of a flight dump: a thread a stage, an
+    instant event a record, and batch submit/complete as async b/e pairs
+    (not B/E: verify completes its in-flight batches first in, first out,
+    and Chrome pairs B/E as a stack).  Submit k pairs with the k-th
+    completion."""
+    events = []
+    for tid, name in enumerate(sorted(dump.get("stages", {}))):
+        events.append({"name": "thread_name", "ph": "M", "pid": 1, "tid": tid,
+                       "args": {"name": name}})
+        open_ids: list[str] = []
+        batch_seq = 0
+        for ts, ev, arg in dump["stages"][name].get("records", []):
+            us = ts / 1e3
+            if ev == EV_BATCH_SUBMIT:
+                batch_seq += 1
+                bid = f"{name}:{batch_seq}"
+                open_ids.append(bid)
+                events.append({"name": "batch", "cat": "batch", "ph": "b", "id": bid, "pid": 1,
+                               "tid": tid, "ts": us, "args": {"elems": arg}})
+            elif ev == EV_BATCH_COMPLETE and open_ids:
+                bid = open_ids.pop(0)
+                events.append({"name": "batch", "cat": "batch", "ph": "e", "id": bid, "pid": 1,
+                               "tid": tid, "ts": us, "args": {"elems": arg}})
+            else:
+                events.append({"name": EVENT_NAMES.get(ev, f"ev{ev}"), "ph": "i", "pid": 1,
+                               "tid": tid, "ts": us, "s": "t", "args": {"arg": arg}})
+        # a crash mid-batch leaves spans open: close them at the last ts
+        for bid in open_ids:
+            events.append({"name": "batch", "cat": "batch", "ph": "e", "id": bid, "pid": 1,
+                           "tid": tid, "ts": events[-1]["ts"], "args": {}})
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": {"uid": dump.get("uid"), "failed": dump.get("failed"),
+                          "reason": dump.get("reason", "")}}
 
 
 # -- flight recorder ----------------------------------------------------------

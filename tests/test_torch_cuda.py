@@ -13,6 +13,7 @@ arithmetic), and its launch counter must count the launch.
 
 import ctypes
 import hashlib
+import os
 import time
 
 import numpy as np
@@ -1174,3 +1175,38 @@ def test_topology_child_launches_k1_and_matches_the_plain_mask(dev):
     finally:
         del cons
         h.close()
+
+
+def test_sharded_leader_topology_launches_k1_in_every_shard(dev):
+    """build_sharded_leader_topology on the card: each verify_s{i} child
+    opens its own CUDA context and counts one K1 launch a batch, shred one
+    K5 launch a FEC set, and bank0 lands the pool."""
+    from firedancer_tpu_torch.models import leader_topo as lt
+    from firedancer_tpu_torch.runtime import topo as ft
+    from firedancer_tpu_torch.runtime.benchg import gen_transfer_pool
+
+    n_shards, n = 4, 512
+    pool = gen_transfer_pool(n)
+    h = ft.launch(lt.build_sharded_leader_topology(n_shards=n_shards, n_txns=n, pool_size=n,
+                                                   pool=pool, batch=32, max_msg_len=1232))
+    names = h.shm_names()
+    try:
+        ok = h.supervise(until=lambda hh: hh.met_views["bank0"][0].get("txn_exec") >= n,
+                         timeout_s=300, heartbeat_timeout_s=60, boot_timeout_s=180)
+        assert ok, f"stage {h.failed} failed:\n{h.format_monitor()}"
+        regs = {nm: v[0] for nm, v in h.met_views.items()}
+        shards = [f"verify_s{i}" for i in range(n_shards)]
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and \
+                sum(regs[s].get("txn_verified") for s in shards) < n:
+            time.sleep(0.05)
+        assert sum(regs[s].get("txn_verified") for s in shards) == n
+        for s in shards:
+            assert regs[s].get("k1_launches") == regs[s].get("batches") > 0, s
+        assert regs["shred"].get("k5_launches") == regs["shred"].get("fec_sets") > 0
+        regs = None
+        h.halt()
+        assert [p.exitcode for p in h.procs.values()] == [0] * len(h.procs)
+    finally:
+        h.close()
+    assert [nm for nm in names if os.path.exists(f"/dev/shm/{nm}")] == []

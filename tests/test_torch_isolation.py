@@ -1,7 +1,7 @@
 """The port stands alone and runs on the card by default:
 
-  - no module of firedancer_tpu_torch/, nor chip_smoke.py, imports jax,
-    jaxlib or the JAX package;
+  - no module of firedancer_tpu_torch/, nor chip_smoke.py or
+    leader_ab.py, imports jax, jaxlib or the JAX package;
   - the port's host libraries (utils/hostbuild.py) build from its own
     sources in firedancer_tpu_torch/native/, never from the repo's
     native/, into the port's own build folder, and no module names an
@@ -68,7 +68,7 @@ FORBIDDEN = ("jax", "jaxlib", "firedancer_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "leader_ab.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -358,3 +358,20 @@ def test_wrappers_refuse_bad_inputs():
         tcc.chacha20_keystream(st, torch.zeros(2, dtype=torch.int16))
     with pytest.raises(ValueError):
         tbm.layers_batch(torch.zeros((2, 20, 2), dtype=torch.int32))
+
+
+def test_the_scan_covers_the_operator_surface_and_chaos():
+    """The import scan above walks every module of the port: the chaos
+    harness, protocol/http.py and the monitor's modules among them, which
+    also write only inside the checkout's build/ and read no environment."""
+    from firedancer_tpu_torch.runtime import monitor as tmon
+
+    srcs = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    for mod in ("chaos/__init__.py", "chaos/faults.py", "chaos/invariants.py",
+                "chaos/scenario.py", "protocol/http.py", "runtime/monitor.py",
+                "runtime/slot_report.py", "runtime/slo.py", "tango/lossy.py"):
+        assert mod in srcs, mod
+        tree = ast.parse(open(os.path.join(PKG, mod)).read())
+        attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        assert not attrs & {"environ", "getenv"}, mod
+    assert tmon.RUN_DIR == os.path.join(ROOT, "build", "torch_run")

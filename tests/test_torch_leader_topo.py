@@ -10,7 +10,14 @@ of the block that a tap holding no credit reads off the wire shreds
 (through JAX's replay_block), and the state of every payer and
 destination, both in bank0's own funk map and after that replay; and a bank killed mid-run fails the
 supervisor and close() still leaves no segment of the run, the bank's
-funk map included (modelled on tests/test_leader_topo.py).
+funk map included (modelled on tests/test_leader_topo.py).  The sharded
+topology (build_sharded_leader_topology): its graph, shard labels included,
+held against the JAX builder's for 2 and 4 shards on both pack lanes; and
+one run of 2 shards over 48 txns (precomputed verify results) whose
+per-shard routing is the JAX router's assignment over the same ingress
+sequence, whose landed signatures are those of the JAX package's pool, and
+whose shard labels reach a monitor session's scrape (modelled on
+tests/test_serve.py's sharded topology test).
 
 The JAX package is imported inside the tests only: the spawned children
 import the port alone.
@@ -246,3 +253,100 @@ def test_a_killed_bank_fails_the_topology_and_close_leaves_no_segment():
     assert [n for n in names if os.path.exists(f"/dev/shm/{n}")] == []
     if h.flight_dump_path:
         os.remove(h.flight_dump_path)
+
+
+def _sharded_graph(topo):
+    links, stages = _graph(topo)
+    return links, stages, [(s.name, s.shard, s.logical) for s in topo.stages]
+
+
+@pytest.mark.parametrize("native_pack", [True, False], ids=["native-pack", "python-pack"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_graph_matches_jax(n_shards, native_pack):
+    from firedancer_tpu.models import leader_topo as jlt
+
+    kw = dict(n_shards=n_shards, n_txns=32, pool_size=32, batch=16, native_pack=native_pack)
+    mine = lt.build_sharded_leader_topology(device="cpu", **kw)
+    theirs = jlt.build_sharded_leader_topology(**kw)
+    assert _sharded_graph(mine) == _sharded_graph(theirs)
+    from firedancer_tpu_torch.analysis import topo_check as tc
+
+    assert tc.check_topology(mine) == []
+    assert [s.name for s in mine.stages if s.logical == "verify"] == \
+        [f"verify_s{i}" for i in range(n_shards)]
+    # every child takes the device as a picklable value; the kernels only
+    # for the card
+    assert {s.kwargs.get("device", "cpu") for s in mine.stages} == {"cpu"}
+    assert mine.device == "cpu" and mine.kernels == () and mine.boot_grace_s is None
+    from firedancer_tpu.parallel.router import ShardRouterStage as JRouter
+
+    from firedancer_tpu_torch.parallel.router import ShardRouterStage
+
+    router = next(s for s in mine.stages if s.name == "router")
+    jnames = [d.name for d in JRouter.metrics_schema_n(n_shards).defs]
+    assert [d.name for d in router.schema.defs][-(n_shards + 1):] == jnames[-(n_shards + 1):]
+    assert {d.name for d in ShardRouterStage.metrics_schema_n(n_shards).defs} >= set(jnames)
+
+
+def test_sharded_topology_on_the_cpu_routes_and_lands_as_jax():
+    """Two verify shards over 48 txns: routed_s{i} equals the JAX router's
+    assignment of the ingress sequence and each shard's frags_in, every
+    signature of the JAX package's pool lands (the tap's entries), the
+    session's scrape carries {stage="verify",shard="i"}, and its monitor
+    row folds the shards."""
+    from firedancer_tpu.parallel.router import shard_of as jshard_of
+    from firedancer_tpu.runtime.benchg import gen_transfer_pool as jpool
+
+    from firedancer_tpu_torch.runtime import monitor as mon
+
+    n_shards, n_txns = 2, 48
+    want_routed = [sum(1 for q in range(n_txns) if jshard_of(q, n_shards) == i)
+                   for i in range(n_shards)]
+    want_sigs = sorted(ftxn.txn_parse(p).signatures(p)[0] for p in jpool(n_txns))
+    topo = lt.build_sharded_leader_topology(n_shards=n_shards, n_txns=n_txns, pool_size=n_txns,
+                                            batch=8, verify_precomputed=True, device="cpu")
+    h = ft.launch(topo)
+    names = h.shm_names()
+    tap = lt.ShredTap(h.links["ss"])
+    seen = [0]
+
+    def landed(hh) -> bool:
+        tap.poll()
+        if hh.met_views["bank0"][0].get("txn_exec") < n_txns or tap.n_shreds == seen[0]:
+            return False
+        seen[0] = tap.n_shreds
+        return len(_sigs(tap.entries())) >= n_txns
+
+    try:
+        ok = h.supervise(until=landed, timeout_s=180, heartbeat_timeout_s=30)
+        assert ok, f"stage {h.failed} failed:\n{h.format_monitor()}"
+        regs = {n: v[0] for n, v in h.met_views.items()}
+        deadline = time.monotonic() + 15  # the registries flush at housekeeping
+        while time.monotonic() < deadline:
+            routed = [regs["router"].get(f"routed_s{i}") for i in range(n_shards)]
+            seen_in = [regs[f"verify_s{i}"].get("frags_in") for i in range(n_shards)]
+            if routed == seen_in == want_routed:
+                break
+            time.sleep(0.05)
+        assert routed == seen_in == want_routed
+        assert regs["router"].get("routed_total") == n_txns
+        assert sorted(_sigs(tap.entries())) == want_sigs and tap.overruns == 0
+        assert sum(regs[f"verify_s{i}"].get("txn_verified") for i in range(n_shards)) == n_txns
+        assert all(regs[f"verify_s{i}"].get("k1_launches") == 0 for i in range(n_shards))
+        ses = mon.MonitorSession.attach(mon.descriptor_path(h.uid))
+        try:
+            text = ses.scrape()
+            for i in range(n_shards):
+                assert f'frags_in{{stage="verify",shard="{i}"}} {want_routed[i]}' in text
+            assert 'stage="verify_s0"' not in text
+            rows = {r["stage"]: r for r in ses.sample(aggregate_shards=True)}
+            assert rows[f"verify x{n_shards}"]["shards"] == n_shards
+            assert rows[f"verify x{n_shards}"]["in"] == n_txns
+        finally:
+            ses.close()
+        h.halt()
+        assert [p.exitcode for p in h.procs.values()] == [0] * len(h.procs)
+    finally:
+        tap.close()
+        h.close()
+    assert [n for n in names if os.path.exists(f"/dev/shm/{n}")] == []
